@@ -1,0 +1,74 @@
+"""Text pipeline pieces the LM trains with (the port's own copies of
+``tokenize``, ``Dictionary`` and ``pack_sequences`` from
+``bigdl_tpu/dataset/text.py``; reference models/rnn/Utils.scala)."""
+
+from __future__ import annotations
+
+import re
+from collections import Counter
+from typing import Iterable, Optional, Sequence
+
+import numpy as np
+
+__all__ = ["tokenize", "Dictionary", "pack_sequences", "PAD", "UNK"]
+
+PAD, UNK = "<pad>", "<unk>"
+_WORD_RE = re.compile(r"[A-Za-z']+|[.,!?;]")
+
+
+def tokenize(text: str) -> list:
+    """Lower-cased words and the punctuation marks . , ! ? ;"""
+    return _WORD_RE.findall(text.lower())
+
+
+class Dictionary:
+    """Word -> id, capped at the ``vocab_size`` most frequent words (ties
+    in first-seen order); id 0 = PAD, id 1 = UNK, rarer words map to UNK."""
+
+    def __init__(self, corpus_tokens: Iterable[Sequence[str]],
+                 vocab_size: Optional[int] = None):
+        counts = Counter()
+        for toks in corpus_tokens:
+            counts.update(toks)
+        self.word2id = {PAD: 0, UNK: 1}
+        for w, _ in counts.most_common(vocab_size):
+            self.word2id[w] = len(self.word2id)
+        self.id2word = {i: w for w, i in self.word2id.items()}
+
+    def __len__(self):
+        return len(self.word2id)
+
+    def lookup(self, word: str) -> int:
+        return self.word2id.get(word, 1)
+
+    def ids(self, tokens: Sequence[str]) -> list:
+        return [self.lookup(t) for t in tokens]
+
+
+def pack_sequences(seqs: Sequence[Sequence[int]], max_len: int,
+                   pad_id: int = 0):
+    """Greedy first-fit packing of token sequences into (N, max_len) rows
+    plus segment ids (1, 2, ... per row; 0 = padding). Longer sequences
+    are truncated. Returns (tokens, segments), both int32."""
+    rows, segs, free = [], [], []
+    for s in seqs:
+        s = list(s)[:max_len]
+        if not s:
+            continue
+        for i, cap in enumerate(free):
+            if len(s) <= cap:
+                seg_id = segs[i][-1] + 1
+                rows[i].extend(s)
+                segs[i].extend([seg_id] * len(s))
+                free[i] = cap - len(s)
+                break
+        else:
+            rows.append(list(s))
+            segs.append([1] * len(s))
+            free.append(max_len - len(s))
+    tokens = np.full((len(rows), max_len), pad_id, np.int32)
+    segments = np.zeros((len(rows), max_len), np.int32)
+    for i, (r, g) in enumerate(zip(rows, segs)):
+        tokens[i, :len(r)] = r
+        segments[i, :len(g)] = g
+    return tokens, segments

@@ -1,3 +1,7 @@
-from bigdl_tpu_torch.models.transformer_lm import TransformerLM, transformer_lm
+from bigdl_tpu_torch.models.transformer_lm import (PackedNLLCriterion,
+                                                  TransformerLM,
+                                                  packed_lm_targets,
+                                                  transformer_lm)
 
-__all__ = ["TransformerLM", "transformer_lm"]
+__all__ = ["PackedNLLCriterion", "TransformerLM", "packed_lm_targets",
+           "transformer_lm"]

@@ -14,7 +14,32 @@ from torch import nn
 from bigdl_tpu_torch.nn import (LayerNorm, LookupTable, PositionalEncoding,
                                 TransformerEncoder)
 
-__all__ = ["TransformerLM", "transformer_lm"]
+__all__ = ["TransformerLM", "transformer_lm", "packed_lm_targets",
+           "PackedNLLCriterion"]
+
+
+def packed_lm_targets(tokens, segments):
+    """Next-token targets of packed rows: target[i] = tokens[i+1], weight
+    0 wherever the next token is another document's (or padding). Returns
+    ((b, s) targets, (b, s) f32 weights)."""
+    targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                        dim=1)
+    nxt = torch.cat([segments[:, 1:], torch.zeros_like(segments[:, :1])],
+                    dim=1)
+    weights = ((segments == nxt) & (segments != 0)).float()
+    return targets, weights
+
+
+class PackedNLLCriterion:
+    """Weighted next-token NLL of (b, s, vocab) log-probs at the
+    ``(targets, weights)`` of :func:`packed_lm_targets`: the mean over live
+    positions, on the scale of the unpacked TimeDistributed(ClassNLL)."""
+
+    def __call__(self, logp, target):
+        targets, weights = target
+        nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+        w = weights.to(nll.dtype)
+        return (nll * w).sum() / w.sum().clamp_min(1.0)
 
 
 class TransformerLM(nn.Module):
@@ -23,12 +48,14 @@ class TransformerLM(nn.Module):
     :func:`bigdl_tpu_torch.interop.params_from_jax` loads by name.
 
     ``compute_dtype`` (e.g. ``torch.bfloat16``) casts activations right
-    after the embedding lookup; parameters stay f32. ``remat`` and packed
-    ``segments`` belong to training and are not ported yet."""
+    after the embedding lookup; parameters stay f32. ``dropout`` and
+    ``remat`` (False, ``"full"`` or ``"dots"``) act in training, as in
+    :class:`~bigdl_tpu_torch.nn.TransformerEncoder`."""
 
     def __init__(self, vocab: int, d_model: int = 256, num_layers: int = 4,
                  num_heads: int = 4, d_ff: Optional[int] = None,
-                 max_len: int = 2048, attn_impl=None,
+                 max_len: int = 2048, dropout: float = 0.0,
+                 attn_impl=None, remat=False,
                  tie_embeddings: bool = True, compute_dtype=None,
                  num_kv_heads: Optional[int] = None,
                  pos_encoding: str = "sinusoidal",
@@ -47,7 +74,8 @@ class TransformerLM(nn.Module):
         self.pos = PositionalEncoding(d_model, max_len)
         self.encoder = TransformerEncoder(
             num_layers, d_model, num_heads, d_ff, causal=True,
-            attn_impl=attn_impl, num_kv_heads=num_kv_heads, rope=self.rope,
+            dropout=dropout, attn_impl=attn_impl, remat=remat,
+            num_kv_heads=num_kv_heads, rope=self.rope,
             rope_max_len=max_len, generator=generator)
         self.ln_f = LayerNorm(d_model)
 
@@ -73,18 +101,24 @@ class TransformerLM(nn.Module):
         h = self.ln_f(h)
         return h @ self.emb.weight.to(h.dtype).T
 
-    def forward(self, tokens):
-        """(batch, seq) int tokens -> (batch, seq, vocab) f32 log-probs."""
+    def forward(self, tokens, seed: Optional[int] = None):
+        """(batch, seq) int tokens, or ``(tokens, segments)`` for packed
+        rows (the segment ids confine attention to each document) ->
+        (batch, seq, vocab) f32 log-probs. ``seed`` seeds dropout in
+        training mode."""
+        segments = None
         if isinstance(tokens, (tuple, list)):
-            raise NotImplementedError("packed (tokens, segments) rows come "
-                                      "with the training slice")
+            tokens, segments = tokens
         h = self._embed(tokens)
         if not self.rope:
             h = self.pos(h)
         elif tokens.shape[-1] > self.max_len:
             raise ValueError(f"sequence length {tokens.shape[-1]} exceeds "
                              f"max_len {self.max_len}")
-        h = self.encoder(h)
+        if segments is None:
+            h = self.encoder(h, seed)
+        else:
+            h = self.encoder((h, segments.to(h.device)), seed)[0]
         return torch.log_softmax(self._logits(h).float(), dim=-1)
 
     # --------------------------------------------- autoregressive decoding

@@ -11,6 +11,7 @@ copy of the cache per layer and step.
 
 from __future__ import annotations
 
+import inspect
 import math
 from typing import Callable, Optional, Union
 
@@ -20,10 +21,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from bigdl_tpu_torch.core.module import xavier_uniform
+from bigdl_tpu_torch.nn.structural import Dropout, fold_seed
 
-__all__ = ["dot_product_attention", "LayerNorm", "rope_tables", "apply_rope",
-           "MultiHeadAttention", "PositionalEncoding",
-           "TransformerEncoderLayer", "TransformerEncoder"]
+__all__ = ["dot_product_attention", "make_segment_mask", "LayerNorm",
+           "rope_tables", "apply_rope", "MultiHeadAttention",
+           "PositionalEncoding", "TransformerEncoderLayer",
+           "TransformerEncoder"]
 
 _NEG_INF = -1e30  # finite mask value, as in the JAX package
 
@@ -49,6 +52,17 @@ def dot_product_attention(q, k, v, *, causal: bool = False,
     if valid is not None:
         weights = weights.masked_fill(~valid, 0.0)
     return torch.matmul(weights.to(q.dtype), v)
+
+
+def make_segment_mask(segments_q, segments_k=None):
+    """Block-diagonal mask of packed rows: (b, s) int document ids, equal
+    id = same document, id 0 = padding that attends to nothing. Returns a
+    (b, 1, s_q, s_k) bool mask (True = attend) for the dense path."""
+    if segments_k is None:
+        segments_k = segments_q
+    same = segments_q[:, :, None] == segments_k[:, None, :]
+    live = (segments_q != 0)[:, :, None] & (segments_k != 0)[:, None, :]
+    return (same & live)[:, None, :, :]
 
 
 class LayerNorm(nn.Module):
@@ -96,7 +110,9 @@ class MultiHeadAttention(nn.Module):
     (``num_kv_heads``) and optional RoPE. ``attn_impl``: None for
     :func:`dot_product_attention`, ``"flash"`` for the flash kernel
     (``bigdl_tpu_torch.ops.flash_attention``), or a callable with the
-    same signature."""
+    same signature. Integer masks are packed-row segment ids: they go to
+    ``attn_fn`` as ``segments=`` when it takes them, and as the
+    block-diagonal :func:`make_segment_mask` otherwise."""
 
     def __init__(self, d_model: int, num_heads: int, causal: bool = False,
                  attn_impl: Optional[Union[str, Callable]] = None,
@@ -126,6 +142,11 @@ class MultiHeadAttention(nn.Module):
             from bigdl_tpu_torch.ops import flash_attention
             attn_impl = flash_attention
         self.attn_fn = attn_impl or dot_product_attention
+        try:
+            self._attn_takes_segments = "segments" in inspect.signature(
+                self.attn_fn).parameters
+        except (TypeError, ValueError):
+            self._attn_takes_segments = False
         d, dkv = d_model, self.num_kv_heads * self.head_dim
         g = generator
         self.wq = nn.Parameter(xavier_uniform((d, d), d, d, g))
@@ -179,16 +200,18 @@ class MultiHeadAttention(nn.Module):
     def forward(self, x):
         """``x``: a (b, s, d) tensor (self-attention), ``(q_in, kv_in)``
         (cross), or ``(q_in, kv_in, mask)`` with a (b, s_k) key-padding
-        bool mask or a broadcastable (b|1, h|1, s_q, s_k) one."""
-        mask = None
+        bool mask, a broadcastable (b|1, h|1, s_q, s_k) one, or (b, s)
+        integer segment ids of packed rows."""
+        mask = segments = None
         if isinstance(x, (tuple, list)):
             q_in, kv_in = x[0], x[1]
             mask = x[2] if len(x) > 2 else None
         else:
             q_in = kv_in = x
         if mask is not None and mask.dtype != torch.bool:
-            raise NotImplementedError("integer segment ids (packed rows) "
-                                      "come with the training slice")
+            segments, mask = mask, None
+            if not self._attn_takes_segments:
+                mask, segments = make_segment_mask(segments), None
         q = self._split_heads(self._proj(q_in, self.wq, self.bq),
                               self.num_heads)
         k = self._split_heads(self._proj(kv_in, self.wk, self.bk),
@@ -202,7 +225,10 @@ class MultiHeadAttention(nn.Module):
         k, v = self._expand_kv(k), self._expand_kv(v)
         if mask is not None and mask.dim() == 2:
             mask = mask[:, None, None, :]
-        o = self.attn_fn(q, k, v, causal=self.causal, mask=mask)
+        if segments is not None:
+            o = self.attn_fn(q, k, v, causal=self.causal, segments=segments)
+        else:
+            o = self.attn_fn(q, k, v, causal=self.causal, mask=mask)
         return self._proj(self._merge_heads(o), self.wo, self.bo)
 
     # ----------------------------------------------- autoregressive decode
@@ -279,16 +305,24 @@ class PositionalEncoding(nn.Module):
 
 
 class TransformerEncoderLayer(nn.Module):
-    """Pre-LN block: x + MHA(LN(x)); x + MLP(LN(x)), tanh-GELU MLP."""
+    """Pre-LN block: x + MHA(LN(x)); x + MLP(LN(x)), tanh-GELU MLP, with
+    inverted dropout on both branches at train time (``dropout`` > 0).
+
+    ``forward`` takes x or ``(x, mask)`` (a key-padding mask or packed-row
+    segment ids threaded through the stack) and returns the same form.
+    ``seed`` seeds this call's dropout generator: the same seed draws the
+    same masks, so a recomputed (remat) layer repeats its dropout."""
 
     def __init__(self, d_model: int, num_heads: int,
                  d_ff: Optional[int] = None, causal: bool = False,
-                 attn_impl=None, num_kv_heads: Optional[int] = None,
+                 dropout: float = 0.0, attn_impl=None,
+                 num_kv_heads: Optional[int] = None,
                  rope: bool = False, rope_max_len: int = 8192,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         d_ff = d_ff or 4 * d_model
         self.d_model, self.d_ff = d_model, d_ff
+        self.drop = Dropout(dropout) if dropout > 0.0 else None
         self.ln1 = LayerNorm(d_model)
         self.mha = MultiHeadAttention(d_model, num_heads, causal=causal,
                                       attn_impl=attn_impl,
@@ -303,14 +337,38 @@ class TransformerEncoderLayer(nn.Module):
                                               generator))
         self.b2 = nn.Parameter(torch.zeros(d_model))
 
-    def _mlp(self, x):
+    def _mlp_branch(self, x):
         dt = x.dtype
         h = self.ln2(x)
         h = F.gelu(h @ self.w1.to(dt) + self.b1.to(dt), approximate="tanh")
-        return x + (h @ self.w2.to(dt) + self.b2.to(dt))
+        return h @ self.w2.to(dt) + self.b2.to(dt)
 
-    def forward(self, x):
-        return self._mlp(x + self.mha(self.ln1(x)))
+    def _mlp(self, x):
+        return x + self._mlp_branch(x)
+
+    def _generator(self, seed: Optional[int], device):
+        if self.drop is None or not self.training:
+            return None
+        if seed is None:
+            raise ValueError("Dropout needs a seed in training mode: pass "
+                             "seed= to the model's forward")
+        return torch.Generator(device=device).manual_seed(seed)
+
+    def forward(self, x, seed: Optional[int] = None):
+        mask = None
+        if isinstance(x, (tuple, list)):
+            x, mask = x
+        g = self._generator(seed, x.device)
+        h = self.ln1(x)
+        h = self.mha(h if mask is None else (h, h, mask))
+        if g is not None:
+            h = self.drop(h, g)
+        x = x + h
+        h = self._mlp_branch(x)
+        if g is not None:
+            h = self.drop(h, g)
+        y = x + h
+        return y if mask is None else (y, mask)
 
     def prefill(self, x, cache):
         return self._mlp(x + self.mha.prefill(self.ln1(x), cache))
@@ -319,25 +377,66 @@ class TransformerEncoderLayer(nn.Module):
         return self._mlp(x + self.mha.decode_step(self.ln1(x), cache, pos))
 
 
+def _save_weight_products():
+    """Selective-checkpoint contexts of ``remat="dots"`` (the JAX
+    package's ``dots_with_no_batch_dims_saveable``): the outputs of the
+    weight projections (``aten.mm``/``aten.addmm``) are kept; everything
+    else, the batched attention products and the flash forward included,
+    is recomputed in the backward."""
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+    saved = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return create_selective_checkpoint_contexts(policy)
+
+
 class TransformerEncoder(nn.ModuleList):
     """Stack of encoder layers, children named "0", "1", ... as the JAX
-    package's param keys. Caches are lists with one {"k", "v"} per layer."""
+    package's param keys. Caches are lists with one {"k", "v"} per layer.
+
+    ``remat`` trades memory for recompute in training: False (none),
+    True or ``"full"`` (``torch.utils.checkpoint`` per layer, non-reentrant:
+    nothing inside a layer is kept), ``"dots"`` (the weight projections'
+    outputs are kept, the rest recomputed). Layer i's dropout seed is
+    :func:`~bigdl_tpu_torch.nn.structural.fold_seed` (seed, i), made inside
+    the checkpointed call, so the recompute draws the same masks."""
+
+    REMAT = ("full", "dots")
 
     def __init__(self, num_layers: int, d_model: int, num_heads: int,
                  d_ff: Optional[int] = None, causal: bool = False,
-                 attn_impl=None, num_kv_heads: Optional[int] = None,
+                 dropout: float = 0.0, attn_impl=None, remat=False,
+                 num_kv_heads: Optional[int] = None,
                  rope: bool = False, rope_max_len: int = 8192,
                  generator: Optional[torch.Generator] = None):
         super().__init__([
             TransformerEncoderLayer(d_model, num_heads, d_ff, causal,
-                                    attn_impl, num_kv_heads=num_kv_heads,
+                                    dropout, attn_impl,
+                                    num_kv_heads=num_kv_heads,
                                     rope=rope, rope_max_len=rope_max_len,
                                     generator=generator)
             for _ in range(num_layers)])
+        if remat is True:
+            remat = "full"
+        if remat and remat not in self.REMAT:
+            raise ValueError(f"remat must be False/True/'full'/'dots', "
+                             f"got {remat!r}")
+        self.remat = remat or False
 
-    def forward(self, x):
-        for layer in self:
-            x = layer(x)
+    def forward(self, x, seed: Optional[int] = None):
+        from torch.utils.checkpoint import checkpoint
+        for i, layer in enumerate(self):
+            s = None if seed is None else fold_seed(seed, i)
+            if self.remat and torch.is_grad_enabled():
+                kw = ({"context_fn": _save_weight_products}
+                      if self.remat == "dots" else {})
+                x = checkpoint(layer, x, s, use_reentrant=False, **kw)
+            else:
+                x = layer(x, s)
         return x
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.float32,

@@ -6,14 +6,19 @@ the kernels."""
 
 from bigdl_tpu_torch.ops.attention_kernel import (flash_attention,
                                                    flash_attention_reference,
+                                                   flash_bwd,
+                                                   flash_bwd_reference,
+                                                   flash_dkv, flash_dq,
                                                    flash_fwd,
                                                    serving_prefill_buckets)
 
 __all__ = ["flash_attention", "flash_attention_reference", "flash_fwd",
+           "flash_bwd", "flash_bwd_reference", "flash_dq", "flash_dkv",
            "serving_prefill_buckets", "kernel_launches",
            "reset_kernel_launches"]
 
-_WRAPPERS = {"flash_fwd": flash_fwd}
+_WRAPPERS = {"flash_fwd": flash_fwd, "flash_dq": flash_dq,
+             "flash_dkv": flash_dkv}
 
 
 def kernel_launches() -> dict:

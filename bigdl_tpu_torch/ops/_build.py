@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with
 a plain C interface and loaded with :mod:`ctypes`. Libraries go to
 ``build/kernels/`` at the root of the checkout, named after a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged one
-is built once. Nothing is built when a module is imported: the first
-launch builds, or a caller builds every kernel up front with
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source is rebuilt and an unchanged one is built once. Nothing is built
+when a module is imported: the first launch builds, or a caller builds
+every kernel up front with
 :func:`build_all`, one ``nvcc`` process per source, all started together.
 """
 
@@ -25,7 +26,7 @@ __all__ = ["KERNELS", "build_all", "load", "build_info"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("flash_fwd",)
+KERNELS = ("flash_fwd", "flash_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,8 +46,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 

@@ -5,13 +5,16 @@
 // `pl.pallas_call`). It computes what that kernel computes, not its block
 // schedule:
 //
-//   O   = softmax(Q K^T * d^-1/2, bottom-right causal mask) V
+//   O   = softmax(Q K^T * d^-1/2, mask) V
 //   lse = m + log(max(l, 1e-30))          (f32, one value per query row)
 //
-// with the causal offset q_offset = s_k - s_q (query i sees keys
-// <= q_offset + i), f32 running max m and sum l, P rounded to V's type
-// before P@V, fully-future K tiles skipped, and rows with no live key
-// giving O = 0. Ragged s_q and s_k are masked here, at the tile edge.
+// The mask is the bottom-right causal triangle (q_offset = s_k - s_q: query
+// i sees keys <= q_offset + i) and, for packed rows, the segment compare
+// (`_block_valid`): a query sees only keys of its own segment id, so id-0
+// padding rows attend id-0 keys and stay live. f32 running max m and sum
+// l, P rounded to V's type before P@V, fully-future K tiles skipped, rows
+// with no live key giving O = 0. Ragged s_q and s_k are masked here, at the
+// tile edge.
 //
 // What bounds it on an H100: at the serving prefill shapes (one prompt,
 // 8 heads of 128, s <= 1024) the work is ~s/4 FLOP per byte of Q/K/V/O,
@@ -27,32 +30,25 @@
 // score accumulator's layout is the A-operand layout of P@V, so P never
 // goes to shared memory); K/V tiles are double-buffered with cp.async so
 // the next tile loads while this one computes; V is fed to the tensor
-// cores transposed by ldmatrix. f32: plain FMA (no TF32), so f32 results
-// stay comparable to the f32 plain version; S, P and the accumulator live
-// in shared memory. Not done yet (later work): wgmma and TMA, warp
-// specialisation, splitting one query tile's key loop across CTAs for
-// short queries.
+// cores transposed by ldmatrix. Without segments, only tiles that cross
+// the causal diagonal or the ragged key edge pay for the mask; with
+// segments every tile compares ids. f32: plain FMA (no TF32), so f32
+// results stay comparable to the f32 plain version; S, P and the
+// accumulator live in shared memory. Not done yet (later work): wgmma and
+// TMA, warp specialisation, splitting one query tile's key loop across
+// CTAs for short queries.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <atomic>
+#include "flash_common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int BQ = 64;         // query rows per CTA
-constexpr int BK = 64;         // key rows per streamed tile
-constexpr int NTHREADS = 128;  // 4 warps; warp w owns query rows 16w..16w+15
-constexpr float NEG_INF = -1e30f;  // the finite mask value of the TPU kernel
-constexpr unsigned FULL = 0xffffffffu;
+using namespace flash;
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
+  const int* seg;  // (B, S) segment ids, contiguous, or null; S = Sq = Sk
   void* o;
   float* lse;  // (B*H, Sq)
   int H, Sq, Sk, causal;
@@ -61,13 +57,6 @@ struct Params {
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
   long long o_sb, o_sh, o_ss;
 };
-
-constexpr size_t align128(size_t x) { return (x + 127) / 128 * 128; }
-
-__device__ __forceinline__ bool live(int col, int row, int Sk, int q_offset,
-                                     int causal) {
-  return col < Sk && (!causal || col <= q_offset + row);
-}
 
 // K tiles a causal query tile needs: those not wholly in the future of its
 // last real query row
@@ -82,91 +71,41 @@ __device__ __forceinline__ int key_tiles(int q0, const Params& p) {
 
 // =========================================================== f32: FMA path
 template <int D> struct LayoutF32 {
-  static constexpr int LDT = D + 4;   // Q, K, V rows (floats; 16-byte pad)
-  static constexpr int LDS = BK + 4;  // S rows; P overwrites S in place
-  static constexpr int LDO = D + 4;   // output accumulator rows
+  using L = F32<D>;
   static constexpr size_t q_off = 0;
-  static constexpr size_t k_off = align128(q_off + 4 * BQ * LDT);
-  static constexpr size_t v_off = align128(k_off + 4 * BK * LDT);
-  static constexpr size_t s_off = align128(v_off + 4 * BK * LDT);
-  static constexpr size_t o_off = align128(s_off + 4 * BQ * LDS);
-  static constexpr size_t m_off = align128(o_off + 4 * BQ * LDO);
+  static constexpr size_t k_off = align128(q_off + 4 * BQ * L::LDT);
+  static constexpr size_t v_off = align128(k_off + 4 * BK * L::LDT);
+  static constexpr size_t s_off = align128(v_off + 4 * BK * L::LDT);
+  static constexpr size_t o_off = align128(s_off + 4 * BQ * L::LDS);
+  static constexpr size_t m_off = align128(o_off + 4 * BQ * L::LDO);
   static constexpr size_t l_off = m_off + 4 * BQ;
-  static constexpr size_t bytes = l_off + 4 * BQ;
+  static constexpr size_t qs_off = l_off + 4 * BQ;  // query segment ids
+  static constexpr size_t ks_off = qs_off + 4 * BQ;  // key segment ids
+  static constexpr size_t bytes = ks_off + 4 * BK;
 };
-
-// rows [row0, row0+64) of a (rows, D) matrix into shared memory, 16 bytes a
-// thread; rows at or past n_rows are zero so masked keys meet finite values
-template <int D>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
-                                              int row0, int n_rows,
-                                              long long row_stride) {
-  constexpr int CPR = D / 4;
-  for (int i = threadIdx.x; i < BQ * CPR; i += NTHREADS) {
-    const int r = i / CPR;
-    const int c = (i % CPR) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n_rows)
-      val = *reinterpret_cast<const float4*>(
-          src + (long long)(row0 + r) * row_stride + c);
-    *reinterpret_cast<float4*>(dst + r * LayoutF32<D>::LDT + c) = val;
-  }
-}
-
-// Thread (ty, tx) computes rows 8ty..8ty+7 and columns tx + 16j, so warp w
-// owns rows 16w..16w+15 in every phase.
-template <int D>
-__device__ __forceinline__ void qk_tile_f32(const float* Qs, const float* Ks,
-                                            float* Ss, float scale) {
-  using L = LayoutF32<D>;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float acc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int kk = 0; kk < D; kk += 4) {
-    float4 a[8], b[4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      a[i] = *reinterpret_cast<const float4*>(Qs + (ty * 8 + i) * L::LDT + kk);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      b[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * L::LDT + kk);
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
-        acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
-        acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
-        acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      Ss[(ty * 8 + i) * L::LDS + tx + 16 * j] = acc[i][j] * scale;
-}
 
 // Warp w updates rows 16w..16w+15: mask, running max, P (over S in place),
 // running sum, and the rescale of the output accumulator.
 template <int D>
 __device__ __forceinline__ void softmax_tile_f32(float* Ss, float* Os,
                                                  float* m_s, float* l_s,
+                                                 const int* qs, const int* ks,
                                                  int q0, int k0,
                                                  const Params& p) {
-  using L = LayoutF32<D>;
+  using L = F32<D>;
   const int q_offset = p.Sk - p.Sq;
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool seg = p.seg != nullptr;
 #pragma unroll 1
   for (int rr = 0; rr < 16; ++rr) {
     const int r = w * 16 + rr;
     const int c0 = k0 + lane, c1 = c0 + 32;
-    const bool v0 = live(c0, q0 + r, p.Sk, q_offset, p.causal);
-    const bool v1 = live(c1, q0 + r, p.Sk, q_offset, p.causal);
+    bool v0 = live(c0, q0 + r, p.Sk, q_offset, p.causal);
+    bool v1 = live(c1, q0 + r, p.Sk, q_offset, p.causal);
+    if (seg) {
+      v0 = v0 && ks[lane] == qs[r];
+      v1 = v1 && ks[lane + 32] == qs[r];
+    }
     const float s0 = v0 ? Ss[r * L::LDS + lane] : NEG_INF;
     const float s1 = v1 ? Ss[r * L::LDS + lane + 32] : NEG_INF;
     float mx = fmaxf(s0, s1);
@@ -193,45 +132,6 @@ __device__ __forceinline__ void softmax_tile_f32(float* Ss, float* Os,
   }
 }
 
-template <int D>
-__device__ __forceinline__ void pv_tile_f32(const float* Ss, const float* Vs,
-                                            float* Os) {
-  using L = LayoutF32<D>;
-  constexpr int NJ = D / 16;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float acc[8][NJ];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      acc[i][j] = Os[(ty * 8 + i) * L::LDO + tx + 16 * j];
-#pragma unroll 2
-  for (int kk = 0; kk < BK; kk += 4) {
-    float4 pr[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      pr[i] = *reinterpret_cast<const float4*>(Ss + (ty * 8 + i) * L::LDS + kk);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      float vv[NJ];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) vv[j] = Vs[(kk + u) * L::LDT + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float pi = u == 0 ? pr[i].x : u == 1 ? pr[i].y
-                       : u == 2 ? pr[i].z : pr[i].w;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(pi, vv[j], acc[i][j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      Os[(ty * 8 + i) * L::LDO + tx + 16 * j] = acc[i][j];
-}
-
 // grid (ceil(Sq/64), B*H); one CTA per (batch*head, 64-row query tile)
 template <int D>
 __global__ void __launch_bounds__(NTHREADS) flash_fwd_f32(Params p) {
@@ -244,6 +144,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_f32(Params p) {
   float* Os = reinterpret_cast<float*>(smem + L::o_off);
   float* m_s = reinterpret_cast<float*>(smem + L::m_off);
   float* l_s = reinterpret_cast<float*>(smem + L::l_off);
+  int* qs = reinterpret_cast<int*>(smem + L::qs_off);
+  int* ks = reinterpret_cast<int*>(smem + L::ks_off);
 
   const int bh = blockIdx.y;
   const int b = bh / p.H, h = bh % p.H;
@@ -252,10 +154,12 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_f32(Params p) {
   const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
   float* og = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const int* sg = p.seg ? p.seg + (long long)b * p.Sk : nullptr;
 
   load_tile_f32<D>(Qs, qg, q0, p.Sq, p.q_ss);
+  if (sg) load_rows(qs, sg, q0, p.Sq, 0);
   for (int i = threadIdx.x; i < BQ * D; i += NTHREADS)
-    Os[(i / D) * L::LDO + i % D] = 0.f;
+    Os[(i / D) * F32<D>::LDO + i % D] = 0.f;
   if (threadIdx.x < BQ) {
     m_s[threadIdx.x] = NEG_INF;
     l_s[threadIdx.x] = 0.f;
@@ -266,12 +170,13 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_f32(Params p) {
   for (int t = 0; t < n_tiles; ++t) {
     load_tile_f32<D>(Ks, kg, t * BK, p.Sk, p.k_ss);
     load_tile_f32<D>(Vs, vg, t * BK, p.Sk, p.v_ss);
+    if (sg) load_rows(ks, sg, t * BK, p.Sk, -1);
     __syncthreads();
-    qk_tile_f32<D>(Qs, Ks, Ss, p.scale);
+    mm_nt_f32<D>(Qs, Ks, Ss, p.scale);
     __syncthreads();
-    softmax_tile_f32<D>(Ss, Os, m_s, l_s, q0, t * BK, p);
+    softmax_tile_f32<D>(Ss, Os, m_s, l_s, qs, ks, q0, t * BK, p);
     __syncthreads();
-    pv_tile_f32<D>(Ss, Vs, Os);
+    mm_acc_f32_smem<D>(Ss, Vs, Os);
     __syncthreads();
   }
 
@@ -282,123 +187,53 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_f32(Params p) {
     if (qi >= p.Sq) break;
     const float l_safe = fmaxf(l_s[r], 1e-30f);
     float* orow = og + (long long)qi * p.o_ss;
-    for (int c = lane; c < D; c += 32) orow[c] = Os[r * L::LDO + c] / l_safe;
+    for (int c = lane; c < D; c += 32) orow[c] = Os[r * F32<D>::LDO + c] / l_safe;
     if (lane == 0) p.lse[(long long)bh * p.Sq + qi] = m_s[r] + logf(l_safe);
   }
 }
 
 // ================================================= bf16: tensor-core path
-// mma.sync m16n8k16 fragments, lane = 4 * g + t (g = lane / 4, t = lane % 4):
-//   A (16x16, row-major): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
-//                         a3 (g+8, 2t+8..)
-//   B (16x8, col-major):  b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g)
-//   C (16x8, f32):        c0,c1 (g, 2t..2t+1), c2,c3 (g+8, 2t..2t+1)
-// The low half of a 32-bit register holds the lower index.
-
 template <int D> struct LayoutBF16 {
-  static constexpr int LDT = D + 8;  // rows padded by 16 bytes: the 8 rows
-                                     // of a ldmatrix phase hit distinct banks
-  static constexpr int TILE = BQ * LDT;  // elements of one Q, K or V tile
-  // Q, then two stages of K, then two stages of V
-  static constexpr size_t bytes = 5 * TILE * sizeof(bf16);
+  static constexpr int TILE = BF16<D>::TILE;
+  // Q, then two stages of K, then two stages of V, then two stages of the
+  // key tiles' segment ids
+  static constexpr size_t ks_off = 5 * TILE * sizeof(bf16);
+  static constexpr size_t bytes = ks_off + 2 * BK * sizeof(int);
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
-  return *reinterpret_cast<uint32_t*>(&v);
+// is key k0 + c visible to query `row` (segment id `qs`)? `ks` holds the
+// key tile's segment ids, read only with SEG
+template <bool SEG>
+__device__ __forceinline__ bool visible(int k0, int c, int row,
+                                        const int* ks, int qs,
+                                        const Params& p) {
+  return live(k0 + c, row, p.Sk, p.Sk - p.Sq, p.causal) &&
+         (!SEG || ks[c] == qs);
 }
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8x8 bf16 matrices; lanes 8i..8i+7 give the row addresses of
-// matrix i, and register i holds its fragment (row g, columns 2t, 2t+1)
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// the same, each matrix transposed on the way to the registers
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// 16 bytes global -> shared, asynchronous; zero-filled when !ok
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src,
-                                           bool ok) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// rows [row0, row0+64) of a (rows, D) matrix into shared memory
-template <int D>
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src,
-                                               int row0, int n_rows,
-                                               long long row_stride) {
-  constexpr int CPR = D / 8;
-  for (int i = threadIdx.x; i < BQ * CPR; i += NTHREADS) {
-    const int r = i / CPR;
-    const int c = (i % CPR) * 8;
-    const bool ok = row0 + r < n_rows;  // past the end: zeros, row 0 read
-    cp_async16(dst + r * LayoutBF16<D>::LDT + c,
-               src + (long long)(ok ? row0 + r : 0) * row_stride + c, ok);
-  }
-}
-
-// exp(x) as exp2(x log2 e): one MUFU.EX2 instead of expf's range-reduced
-// sequence. Used in the bf16 path only, where P is rounded to bf16 anyway;
-// the f32 path keeps expf to stay close to the f32 plain version.
-constexpr float LOG2E = 1.4426950408889634f;
 
 // Online softmax over one 16 x 64 score tile held as n-block accumulators:
 // scale, mask (when MASK), running max m and this thread's share of the
 // running sum l of rows row0 and row0 + 8, the rescale factors of the
 // output accumulator, and P = exp(S - m) in place. Each row's four lanes
-// (t = 0..3) reduce by shuffles.
-template <bool MASK>
+// (t = 0..3) reduce by shuffles. With SEG, `ks` holds the tile's key
+// segment ids and qs0, qs1 the rows' ids.
+template <bool MASK, bool SEG>
 __device__ __forceinline__ void softmax_update(float (&s)[BK / 8][4],
                                                float& m0, float& m1,
                                                float& l0, float& l1,
                                                float& corr0, float& corr1,
                                                int k0, int row0, int t,
-                                               const Params& p) {
-  const int q_offset = p.Sk - p.Sq;
+                                               const int* ks, int qs0,
+                                               int qs1, const Params& p) {
   float mx0 = NEG_INF, mx1 = NEG_INF;
 #pragma unroll
   for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const int col = k0 + j * 8 + 2 * t + e;
-      s[j][e] = !MASK || live(col, row0, p.Sk, q_offset, p.causal)
+      const int c = j * 8 + 2 * t + e;
+      s[j][e] = !MASK || visible<SEG>(k0, c, row0, ks, qs0, p)
                     ? s[j][e] * p.scale : NEG_INF;
-      s[j][2 + e] = !MASK || live(col, row0 + 8, p.Sk, q_offset, p.causal)
+      s[j][2 + e] = !MASK || visible<SEG>(k0, c, row0 + 8, ks, qs1, p)
                         ? s[j][2 + e] * p.scale : NEG_INF;
       mx0 = fmaxf(mx0, s[j][e]);
       mx1 = fmaxf(mx1, s[j][2 + e]);
@@ -419,10 +254,10 @@ __device__ __forceinline__ void softmax_update(float (&s)[BK / 8][4],
   for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const int col = k0 + j * 8 + 2 * t + e;
-      s[j][e] = !MASK || live(col, row0, p.Sk, q_offset, p.causal)
+      const int c = j * 8 + 2 * t + e;
+      s[j][e] = !MASK || visible<SEG>(k0, c, row0, ks, qs0, p)
                     ? exp2f((s[j][e] - mn0) * LOG2E) : 0.f;
-      s[j][2 + e] = !MASK || live(col, row0 + 8, p.Sk, q_offset, p.causal)
+      s[j][2 + e] = !MASK || visible<SEG>(k0, c, row0 + 8, ks, qs1, p)
                         ? exp2f((s[j][2 + e] - mn1) * LOG2E) : 0.f;
       sum0 += s[j][e];
       sum1 += s[j][2 + e];
@@ -432,16 +267,19 @@ __device__ __forceinline__ void softmax_update(float (&s)[BK / 8][4],
   l1 = l1 * corr1 + sum1;
 }
 
-template <int D>
+// SEG: p.seg is set (packed rows); a separate instantiation, so the
+// kernel without segments carries none of their work
+template <int D, bool SEG>
 __global__ void __launch_bounds__(NTHREADS) flash_fwd_bf16(Params p) {
   using L = LayoutBF16<D>;
-  constexpr int LDT = L::LDT;
+  constexpr int LDT = BF16<D>::LDT;
   constexpr int KS = D / 16;  // k-steps of Q K^T
   constexpr int NO = D / 8;   // n-blocks of the output
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = Qs + L::TILE;      // stages at Ks, Ks + TILE
   bf16* Vs = Qs + 3 * L::TILE;  // stages at Vs, Vs + TILE
+  int* kseg = reinterpret_cast<int*>(smem + L::ks_off);  // stages of BK ids
 
   const int bh = blockIdx.y;
   const int b = bh / p.H, h = bh % p.H;
@@ -450,23 +288,28 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_bf16(Params p) {
   const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
   const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
   bf16* og = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const int* sg = SEG ? p.seg + (long long)b * p.Sk : nullptr;
 
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const int row0 = q0 + w * 16 + g, row1 = row0 + 8;  // this thread's rows
   const int q_offset = p.Sk - p.Sq;
   const int n_tiles = key_tiles(q0, p);
+  const int qs0 = SEG && row0 < p.Sq ? sg[row0] : 0;
+  const int qs1 = SEG && row1 < p.Sq ? sg[row1] : 0;
 
   load_tile_bf16<D>(Qs, qg, q0, p.Sq, p.q_ss);
   if (n_tiles > 0) {
     load_tile_bf16<D>(Ks, kg, 0, p.Sk, p.k_ss);
     load_tile_bf16<D>(Vs, vg, 0, p.Sk, p.v_ss);
+    if (SEG) load_rows(kseg, sg, 0, p.Sk, -1);
   }
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
 
-  uint32_t qf[KS][4];  // this warp's 16 query rows as A fragments
+  uint32_t qf[KS][4];  // this warp's 16 query rows as A fragments, by
+                       // plain 32-bit loads (the compiler may reload them)
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
     const bf16* q = Qs + (w * 16 + g) * LDT + kk * 16 + 2 * t;
@@ -490,6 +333,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_bf16(Params p) {
                         p.k_ss);
       load_tile_bf16<D>(Vs + (st ^ 1) * L::TILE, vg, (tile + 1) * BK, p.Sk,
                         p.v_ss);
+      if (SEG) load_rows(kseg + (st ^ 1) * BK, sg, (tile + 1) * BK, p.Sk, -1);
     }
     cp_async_commit();
     const bf16* Kt = Ks + st * L::TILE;
@@ -503,8 +347,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_bf16(Params p) {
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j)
       s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    const bf16* kr = Kt + ((lane >> 4) * 8 + (lane & 7)) * LDT
-                     + ((lane >> 3) & 1) * 8;
+    const bf16* kr = Kt + b_frag_offset(lane, LDT);
 #pragma unroll
     for (int j = 0; j < BK / 8; j += 2) {
 #pragma unroll
@@ -516,13 +359,16 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_bf16(Params p) {
       }
     }
 
-    // online softmax; only tiles that cross the causal diagonal or the
-    // ragged key edge pay for the mask
+    // online softmax; without segments only tiles that cross the causal
+    // diagonal or the ragged key edge pay for the mask
     float corr0, corr1;
-    if (k0 + BK > p.Sk || (p.causal && k0 + BK - 1 > q_offset + q0))
-      softmax_update<true>(s, m0, m1, l0, l1, corr0, corr1, k0, row0, t, p);
+    const int* kst = kseg + st * BK;
+    if (SEG || k0 + BK > p.Sk || (p.causal && k0 + BK - 1 > q_offset + q0))
+      softmax_update<true, SEG>(s, m0, m1, l0, l1, corr0, corr1, k0, row0, t,
+                                kst, qs0, qs1, p);
     else
-      softmax_update<false>(s, m0, m1, l0, l1, corr0, corr1, k0, row0, t, p);
+      softmax_update<false, SEG>(s, m0, m1, l0, l1, corr0, corr1, k0, row0,
+                                 t, kst, qs0, qs1, p);
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
       acc[n][0] *= corr0;
@@ -533,20 +379,15 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_bf16(Params p) {
 
     // O += P V: the score accumulator of key blocks 2kk, 2kk+1 is the A
     // fragment of key step kk, rounded to bf16
+    const bf16* vr = Vt + bt_frag_offset(lane, LDT);
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pf[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      // lanes 8i..8i+7 address the rows of matrix i: keys +0 or +8 of the
-      // step, head-dim columns of n-block n or n+1
-      const bf16* vr = Vt + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LDT
-                       + (lane >> 4) * 8;
+      uint32_t pf[4];
+      c_to_a(pf, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
       for (int n = 0; n < NO; n += 2) {
         uint32_t vb[4];
-        ldmatrix_x4_trans(vb, vr + n * 8);
+        ldmatrix_x4_trans(vb, vr + kk * 16 * LDT + n * 8);
         mma_bf16(acc[n], pf, vb[0], vb[1]);
         mma_bf16(acc[n + 1], pf, vb[2], vb[3]);
       }
@@ -579,54 +420,44 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_bf16(Params p) {
   }
 }
 
-// ------------------------------------------------------------- launching
-// The shared-memory opt-in is set at a kernel's first launch only, so that
-// later launches can be captured into a CUDA graph.
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem, std::atomic<bool>& opted_in,
-                   const Params& p, int bh, cudaStream_t stream) {
-  if (!opted_in.load()) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    opted_in.store(true);
-  }
-  dim3 grid((p.Sq + BQ - 1) / BQ, bh);
-  kernel<<<grid, NTHREADS, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
 template <int D>
 cudaError_t launch_d(const Params& p, bool is_bf16, int bh,
                      cudaStream_t stream) {
-  static std::atomic<bool> bf16_ready{false}, f32_ready{false};
-  return is_bf16 ? launch(flash_fwd_bf16<D>, LayoutBF16<D>::bytes, bf16_ready,
-                          p, bh, stream)
-                 : launch(flash_fwd_f32<D>, LayoutF32<D>::bytes, f32_ready, p,
-                          bh, stream);
+  static std::atomic<bool> bf16_ready{false}, bf16_seg_ready{false},
+      f32_ready{false};
+  const dim3 grid((p.Sq + BQ - 1) / BQ, bh);
+  if (!is_bf16)
+    return launch(flash_fwd_f32<D>, LayoutF32<D>::bytes, f32_ready, p, grid,
+                  stream);
+  return p.seg ? launch(flash_fwd_bf16<D, true>, LayoutBF16<D>::bytes,
+                        bf16_seg_ready, p, grid, stream)
+               : launch(flash_fwd_bf16<D, false>, LayoutBF16<D>::bytes,
+                        bf16_ready, p, grid, stream);
 }
 
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). Launches on `stream`, allocates
 // nothing, does not synchronise; returns the cudaError_t of the launch.
-// is_bf16: 0 = float32, 1 = bfloat16. Strides are in elements.
-extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
-                         void* lse, int batch, int heads, int sq, int sk,
-                         int d, int is_bf16, int causal, float scale,
-                         long long q_sb, long long q_sh, long long q_ss,
-                         long long k_sb, long long k_sh, long long k_ss,
-                         long long v_sb, long long v_sh, long long v_ss,
-                         long long o_sb, long long o_sh, long long o_ss,
-                         int device, void* stream) {
-  int current = -1;
-  cudaError_t e = cudaGetDevice(&current);
-  if (e == cudaSuccess && current != device) e = cudaSetDevice(device);
+// is_bf16: 0 = float32, 1 = bfloat16. Strides are in elements. `seg` is
+// null or (batch, sq) contiguous int32 segment ids (then sq == sk).
+extern "C" int flash_fwd(const void* q, const void* k, const void* v,
+                         const int* seg, void* o, void* lse, int batch,
+                         int heads, int sq, int sk, int d, int is_bf16,
+                         int causal, float scale, long long q_sb,
+                         long long q_sh, long long q_ss, long long k_sb,
+                         long long k_sh, long long k_ss, long long v_sb,
+                         long long v_sh, long long v_ss, long long o_sb,
+                         long long o_sh, long long o_ss, int device,
+                         void* stream) {
+  cudaError_t e = use_device(device);
   if (e != cudaSuccess) return (int)e;
+  if (seg && sq != sk) return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
   p.k = k;
   p.v = v;
+  p.seg = seg;
   p.o = o;
   p.lse = static_cast<float*>(lse);
   p.H = heads;

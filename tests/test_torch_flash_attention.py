@@ -82,8 +82,14 @@ def test_routing_and_wrapper_contract():
     o = flash_attention(q, k, v, causal=True)
     assert torch.equal(o, flash_attention_reference(q, k, v, True)[0])
     assert ak.flash_fwd.launches == before  # the CPU path launches nothing
-    with pytest.raises(NotImplementedError):
-        flash_attention(q, k, v, causal=True, segments=torch.ones(1, 16))
+    # segments go to the kernel's path; id-0 rows come out as 0
+    seg = torch.tensor([[1] * 6 + [2] * 7 + [0] * 3])
+    o = flash_attention(q, k, v, causal=True, segments=seg)
+    ref = flash_attention_reference(q, k, v, True, seg)[0]
+    assert torch.equal(o[:, :, :13], ref[:, :, :13])
+    assert torch.all(o[:, :, 13:] == 0)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        flash_attention(q, k, v, segments=seg, mask=torch.ones(1, 16) > 0)
     with pytest.raises(ValueError, match="CUDA"):
         ak._flash_fwd_cuda(q, k, v, True)  # the kernel wrapper never takes CPU
 

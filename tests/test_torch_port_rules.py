@@ -8,6 +8,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -65,19 +66,35 @@ def _tiny_lm():
                          max_len=32)
 
 
-def test_entry_points_refuse_a_silent_cpu_run():
+def test_entry_points_refuse_a_silent_cpu_run(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("torch.cuda is available: the no-CUDA rule cannot be "
                     "shown on this machine")
+    from bigdl_tpu_torch.cli import perf
     from bigdl_tpu_torch.cli import serve as serve_cli
+    from bigdl_tpu_torch.cli import transformerlm
+    from bigdl_tpu_torch.dataset import BatchDataSet
+    from bigdl_tpu_torch.optim import Optimizer
     from bigdl_tpu_torch.serving import DecodeEngine, InferenceEngine
+    (tmp_path / "input.txt").write_text("the cat sat on the mat . " * 200)
+    data = BatchDataSet(np.zeros((4, 8), np.int32), np.zeros((4, 8),
+                                                             np.int32), 2)
     for make in (lambda: DecodeEngine(_tiny_lm()),
                  lambda: InferenceEngine(_tiny_lm()),
                  lambda: serve_cli.build_app(serve_cli.build_parser()
                                              .parse_args(["transformer_lm",
-                                                          "--randomInit"]))):
+                                                          "--randomInit"])),
+                 lambda: Optimizer(_tiny_lm(), data, None),
+                 lambda: transformerlm.main(
+                     ["train", "-f", str(tmp_path), "--dModel", "16",
+                      "--numLayers", "1", "--numHeads", "2",
+                      "--seqLength", "16", "-b", "2"]),
+                 lambda: perf.main(["-m", "transformer_lm", "--seq", "16",
+                                    "-b", "1", "-i", "1"])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     # asked for the CPU, they run
     assert DecodeEngine(_tiny_lm(), device="cpu").device.type == "cpu"
     assert InferenceEngine(_tiny_lm(), device="cpu").device.type == "cpu"
+    assert Optimizer(_tiny_lm(), data, None, device="cpu").device.type == \
+        "cpu"
