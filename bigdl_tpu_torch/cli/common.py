@@ -8,8 +8,8 @@ from __future__ import annotations
 import argparse
 import logging
 
-__all__ = ["setup_logging", "add_train_args", "build_optimizer",
-           "OPTIM_METHODS"]
+__all__ = ["setup_logging", "add_train_args", "add_fused_bn_arg",
+           "apply_fused_bn", "build_optimizer", "OPTIM_METHODS"]
 
 # --optimMethod choices of the JAX package; the port has the first two
 OPTIM_METHODS = ("sgd", "adam", "adamw", "adagrad", "rmsprop", "lars", "lamb")
@@ -39,17 +39,43 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--optimMethod", default="sgd", choices=OPTIM_METHODS,
                    help="sgd (BigDL defaults: dampening = momentum) or "
                         "adam; the others come with a later slice")
+    add_fused_bn_arg(p)
 
 
-def build_optimizer(model, dataset, criterion, args):
-    """The Optimizer the reference's flags describe: SGD or Adam with the
+def add_fused_bn_arg(p: argparse.ArgumentParser) -> None:
+    """--fusedBN [off|stats|apply]: the BN kernels for training-mode batch
+    norm; a bare --fusedBN means 'stats', as in the JAX package."""
+    p.add_argument("--fusedBN", nargs="?", const="stats", default=None,
+                   choices=["off", "stats", "apply"],
+                   help="BN kernels (ops/bn_kernel.py): 'stats' = the "
+                        "stats kernels, apply and dx in PyTorch; 'apply' = "
+                        "the fused block, stats+apply+absorbed ReLU in the "
+                        "forward kernels, reductions+dx in the backward "
+                        "ones. Bare --fusedBN means 'stats'")
+
+
+def apply_fused_bn(model, mode):
+    """Install the --fusedBN choice on a built model (nothing for None or
+    'off'). Returns the model."""
+    if mode and mode != "off":
+        from bigdl_tpu_torch.nn import set_bn_fused
+        set_bn_fused(model, mode)
+    return model
+
+
+def build_optimizer(model, dataset, criterion, args, optim_method=None):
+    """The Optimizer the reference's flags describe, with --fusedBN
+    installed on the model: ``optim_method``, else SGD or Adam with the
     ``Default`` lr-decay schedule, ending after ``--maxEpoch`` epochs."""
     from bigdl_tpu_torch.optim import SGD, Adam, Optimizer, Trigger
     from bigdl_tpu_torch.optim.schedules import Default
 
+    apply_fused_bn(model, getattr(args, "fusedBN", None))
     sched = Default(args.learningRateDecay)
     name = getattr(args, "optimMethod", "sgd")
-    if name == "sgd":
+    if optim_method is not None:
+        method = optim_method
+    elif name == "sgd":
         method = SGD(learning_rate=args.learningRate,
                      weight_decay=args.weightDecay, momentum=args.momentum,
                      schedule=sched)

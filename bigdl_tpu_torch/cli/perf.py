@@ -1,16 +1,21 @@
-"""Training throughput of the LM rows of the perf model zoo (counterpart
-of the LM branch of ``bigdl_tpu/cli/perf.py``)::
+"""Training throughput of the perf model zoo's ResNet and LM rows
+(counterpart of ``bigdl_tpu/cli/perf.py``)::
 
+    python -m bigdl_tpu_torch.cli.perf -m resnet50_fba -b 128 --dataType random
     python -m bigdl_tpu_torch.cli.perf -m transformer_lm_1k_hd128 -b 8
 
-builds the model with random weights from a seed (the flash kernels for
-attention), takes SGD(0.01, momentum 0.9) steps over one resident batch
-of random tokens from ``np.random.RandomState(0)``, and prints one JSON
-line: model, batch, iterations, seconds, records_per_second,
-tokens_per_second, dtype. Warm-up steps run before the timed ones; the
-clock stops after the last step's loss reaches the host. bf16 activations
-unless ``--f32``. MFU and the analytic FLOP count come with the perf
-harness (ROADMAP.md queue 1 item 7); the 16k/32k rows wait for remat
+builds the model with random weights from a seed (the BN kernels for the
+``_fbn``/``_fba`` rows or ``--fusedBN``, the flash kernels for attention),
+takes SGD(0.01, momentum 0.9) steps over one resident batch from
+``np.random.RandomState(0)`` (images of ones or N(0, 1) per
+``--dataType``, random labels; random tokens for an LM), and prints one
+JSON line: model, batch, iterations, seconds, records_per_second (images
+or sequences a second), tokens_per_second (LM rows), dtype, fused_bn.
+Warm-up steps run before the timed ones; the clock stops after the last
+step's loss reaches the host. bf16 activations unless ``--f32`` (images
+are cast to bf16, the parameters stay f32); the loss is taken on the f32
+output. MFU and the analytic FLOP count come with the rest of the perf
+harness (ROADMAP.md queue 1 item 7); the 16k/32k LM rows wait for remat
 at those lengths to be measured.
 """
 
@@ -25,9 +30,10 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch import models
+from bigdl_tpu_torch.cli.common import add_fused_bn_arg
 
-__all__ = ["LM_VOCAB", "LM_CONFIGS", "build_model", "train_step", "run",
-           "main"]
+__all__ = ["LM_VOCAB", "LM_CONFIGS", "IMAGE_CONFIGS", "build_model",
+           "train_step", "run", "main"]
 
 LM_VOCAB = 32000
 
@@ -46,46 +52,84 @@ LM_CONFIGS = {
                                     pos_encoding="rope", num_kv_heads=2),
 }
 
+# name -> (builder kwargs, input (H, W, C), classes). _fbn: the stats
+# kernels; _fba: the fused BN block with the conv->BN->ReLU ReLUs absorbed
+IMAGE_CONFIGS = {
+    "resnet50": (dict(depth=50), (224, 224, 3), 1000),
+    "resnet50_fbn": (dict(depth=50, fused_bn="stats"), (224, 224, 3), 1000),
+    "resnet50_fba": (dict(depth=50, fused_bn="apply"), (224, 224, 3), 1000),
+    "resnet20_cifar": (dict(depth=20, cifar=True), (32, 32, 3), 10),
+}
+
 
 def build_model(name: str, seq_len: Optional[int] = None,
                 generator: Optional[torch.Generator] = None, **kw):
-    """(model, input shape) for an LM of the zoo, on the CPU; weights are
-    random from ``generator`` (default seeded 0). ``kw`` (e.g. ``remat``,
-    ``num_layers``) overrides the row's config."""
+    """(model, input shape) for a model of the zoo, on the CPU; weights
+    are random from ``generator`` (default seeded 0). For an LM, ``kw``
+    (e.g. ``remat``, ``num_layers``) overrides the row's config."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    if name in IMAGE_CONFIGS:
+        cfg, in_shape, classes = IMAGE_CONFIGS[name]
+        cfg = dict(cfg)
+        if cfg.pop("cifar", False):
+            model = models.resnet_cifar(cfg.pop("depth"), classes,
+                                        generator=generator, **cfg)
+        else:
+            model = models.resnet(cfg.pop("depth"), classes,
+                                  generator=generator, **cfg)
+        return model, in_shape
     if name not in LM_CONFIGS:
         raise SystemExit(f"model {name} is not in the PyTorch port yet; "
-                         f"choose from {list(LM_CONFIGS)}")
+                         f"choose from {sorted(IMAGE_CONFIGS)} or "
+                         f"{sorted(LM_CONFIGS)}")
     cfg = dict(LM_CONFIGS[name], **kw)
     if seq_len is not None:
         cfg["max_len"] = int(seq_len)
-    if generator is None:
-        generator = torch.Generator().manual_seed(0)
     model = models.transformer_lm(LM_VOCAB, attn_impl="flash",
                                   generator=generator, **cfg)
     return model, (cfg["max_len"],)
 
 
 def train_step(model_name: str, batch: int, dtype=torch.bfloat16,
-               device=None, remat=False, seq_len: Optional[int] = None):
-    """(step, tokens per step, device): ``step()`` takes one SGD(0.01, momentum
-    0.9) step of the zoo LM on a resident batch of random tokens from
-    ``np.random.RandomState(0)`` and returns the loss (not synced)."""
+               device=None, remat=False, seq_len: Optional[int] = None,
+               fused_bn: Optional[str] = None, data_type: str = "constant"):
+    """(step, model, tokens per step or None, device): ``step()`` takes
+    one SGD(0.01, momentum 0.9) step of the zoo model on one resident
+    batch from ``np.random.RandomState(0)`` and returns the loss (not
+    synced). ``fused_bn`` (--fusedBN) is installed on top of the row's
+    own BN mode."""
+    from bigdl_tpu_torch.cli.common import apply_fused_bn
     from bigdl_tpu_torch.core.module import resolve_device
     from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
     from bigdl_tpu_torch.optim import SGD
 
     device = resolve_device(device)
-    model, in_shape = build_model(model_name, seq_len=seq_len, remat=remat)
-    if dtype == torch.bfloat16:
-        model.compute_dtype = dtype  # the cast lives after the embedding
-    model = model.to(device).train()
-    crit = TimeDistributedCriterion(ClassNLLCriterion())
-    opt = SGD(learning_rate=0.01, momentum=0.9)
+    is_lm = model_name in LM_CONFIGS
+    model, in_shape = build_model(model_name, seq_len=seq_len,
+                                  **({"remat": remat} if is_lm else {}))
+    apply_fused_bn(model, fused_bn)
     rng = np.random.RandomState(0)
-    x = torch.from_numpy(rng.randint(0, LM_VOCAB, (batch, *in_shape))
-                         .astype(np.int32)).to(device)
-    y = torch.from_numpy(rng.randint(0, LM_VOCAB, (batch, *in_shape))
-                         .astype(np.int32)).to(device)
+    if is_lm:
+        if dtype == torch.bfloat16:
+            model.compute_dtype = dtype  # the cast lives after the embedding
+        crit = TimeDistributedCriterion(ClassNLLCriterion())
+        x = torch.from_numpy(rng.randint(0, LM_VOCAB, (batch, *in_shape))
+                             .astype(np.int32))
+        y = torch.from_numpy(rng.randint(0, LM_VOCAB, (batch, *in_shape))
+                             .astype(np.int32))
+        tokens = batch * in_shape[0]
+    else:
+        crit = ClassNLLCriterion()
+        x = (np.ones((batch, *in_shape), np.float32) if data_type ==
+             "constant" else rng.randn(batch, *in_shape).astype(np.float32))
+        x = torch.from_numpy(x).to(dtype)
+        y = torch.from_numpy(rng.randint(0, IMAGE_CONFIGS[model_name][2],
+                                         batch).astype(np.int32))
+        tokens = None
+    model = model.to(device).train()
+    x, y = x.to(device), y.to(device)
+    opt = SGD(learning_rate=0.01, momentum=0.9)
     params = dict(model.named_parameters())
     state = opt.init(params)
 
@@ -99,16 +143,20 @@ def train_step(model_name: str, batch: int, dtype=torch.bfloat16,
             p.grad = None
         return loss.detach()
 
-    return step, batch * in_shape[0], device
+    return step, model, tokens, device
 
 
 def run(model_name: str, batch: int = 32, iterations: int = 10,
         dtype=torch.bfloat16, warmup: int = 2, device=None, remat=False,
-        seq_len: Optional[int] = None) -> dict:
+        seq_len: Optional[int] = None, fused_bn: Optional[str] = None,
+        data_type: str = "constant") -> dict:
     """Time ``iterations`` training steps after ``warmup`` ones; returns
     the JSON line's fields plus ``losses`` (every step's, warm-up first)."""
-    step, tokens, device = train_step(model_name, batch, dtype, device,
-                                      remat, seq_len)
+    from bigdl_tpu_torch.nn import bn_fused_mode
+
+    step, model, tokens, device = train_step(
+        model_name, batch, dtype, device, remat, seq_len, fused_bn,
+        data_type)
     losses = [float(step()) for _ in range(warmup)]  # each one synced
     t0 = time.perf_counter()
     timed = [step() for _ in range(iterations)]
@@ -117,34 +165,41 @@ def run(model_name: str, batch: int = 32, iterations: int = 10,
     rps = batch * iterations / dt
     return {"model": model_name, "batch": batch, "iterations": iterations,
             "seconds": round(dt, 4), "records_per_second": round(rps, 2),
-            "tokens_per_second": round(rps * tokens / batch, 1),
+            "tokens_per_second": (None if tokens is None else
+                                  round(rps * tokens / batch, 1)),
             "dtype": str(dtype).replace("torch.", ""),
             "device": (torch.cuda.get_device_name(device)
                        if device.type == "cuda" else "cpu"),
-            "remat": remat or None, "warmup": warmup,
-            "first_loss": losses[0], "final_loss": losses[-1],
-            "losses": losses}
+            "remat": remat or None, "fused_bn": bn_fused_mode(model),
+            "data_type": None if tokens is not None else data_type,
+            "warmup": warmup, "first_loss": losses[0],
+            "final_loss": losses[-1], "losses": losses}
 
 
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser("python -m bigdl_tpu_torch.cli.perf")
     p.add_argument("-m", "--model", default="transformer_lm_1k_hd128",
-                   choices=sorted(LM_CONFIGS))
+                   choices=sorted(IMAGE_CONFIGS) + sorted(LM_CONFIGS))
     p.add_argument("-b", "--batchSize", type=int, default=32)
     p.add_argument("-i", "--iteration", type=int, default=10)
+    p.add_argument("--dataType", choices=["constant", "random"],
+                   default="constant",
+                   help="image rows: images of ones or N(0, 1) draws")
     p.add_argument("--f32", action="store_true",
-                   help="f32 activations (default bf16 after the embedding)")
+                   help="f32 activations (default bf16: the input images, "
+                        "or the LM's activations after the embedding)")
     p.add_argument("--remat", nargs="?", const="full", default=False,
                    choices=["full", "dots"])
     p.add_argument("--seq", type=int, default=None,
-                   help="override the context length (small CPU runs)")
+                   help="override the LM context length (small CPU runs)")
     p.add_argument("--platform", choices=("cuda", "cpu"), default=None,
                    help="default cuda; cpu runs the kernels' plain versions")
+    add_fused_bn_arg(p)
     args = p.parse_args(argv)
     out = run(args.model, batch=args.batchSize, iterations=args.iteration,
               dtype=torch.float32 if args.f32 else torch.bfloat16,
-              device=args.platform, remat=args.remat,
-              seq_len=args.seq)
+              device=args.platform, remat=args.remat, seq_len=args.seq,
+              fused_bn=args.fusedBN, data_type=args.dataType)
     line = {k: v for k, v in out.items() if k != "losses"}
     print(json.dumps(line), flush=True)
     return out

@@ -1,3 +1,4 @@
-from bigdl_tpu_torch.interop.from_jax import params_from_jax
+from bigdl_tpu_torch.interop.from_jax import (load_jax, params_from_jax,
+                                             tensors_from_jax)
 
-__all__ = ["params_from_jax"]
+__all__ = ["load_jax", "params_from_jax", "tensors_from_jax"]

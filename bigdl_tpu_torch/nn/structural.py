@@ -1,14 +1,20 @@
-"""Structural layers (counterpart of ``bigdl_tpu/nn/structural.py``); so
-far the one the LM trains with: Dropout."""
+"""Structural layers (counterpart of ``bigdl_tpu/nn/structural.py``): the
+ones the LM and the ResNets use (Dropout, ConcatTable, CAddTable, Reshape,
+Padding) and the BN+ReLU rewrite of the fused BN block. Tables are
+tuples; dimensions are 0-based, batch first."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Dropout", "fold_seed"]
+from bigdl_tpu_torch.core.module import Identity, Sequential
+
+__all__ = ["Dropout", "fold_seed", "ConcatTable", "CAddTable", "Reshape",
+           "Padding", "absorb_bn_relu"]
 
 _MASK64 = (1 << 64) - 1
 
@@ -49,3 +55,85 @@ class Dropout(nn.Module):
 
     def extra_repr(self) -> str:
         return f"p={self.p}"
+
+
+def absorb_bn_relu(module: nn.Module) -> int:
+    """In every :class:`~bigdl_tpu_torch.core.module.Sequential` under
+    ``module``, a ReLU (exactly ``ReLU``, not a subclass) directly after a
+    BatchNormalization is absorbed into it (``bn.fuse_relu = True``) and
+    replaced by an :class:`~bigdl_tpu_torch.core.module.Identity`; both own
+    no parameters, so the names of every other parameter stay. Only
+    Sequential adjacency is data flow: siblings of a ConcatTable share an
+    input. Returns the number absorbed; a second pass absorbs none."""
+    from bigdl_tpu_torch.nn.activation import ReLU
+    from bigdl_tpu_torch.nn.norm import BatchNormalization
+
+    count = 0
+    for m in list(module.modules()):
+        if not isinstance(m, Sequential):
+            continue
+        for i in range(len(m) - 1):
+            if isinstance(m[i], BatchNormalization) and type(m[i + 1]) is ReLU:
+                m[i].fuse_relu = True
+                m[i + 1] = Identity(name=f"{m[i + 1].name}(absorbed)")
+                count += 1
+    return count
+
+
+class ConcatTable(nn.Module):
+    """Run every child on the same input; output the tuple of results
+    (reference nn/ConcatTable.scala). Children are ``"0"``, ``"1"``, ..."""
+
+    def __init__(self, *modules: nn.Module, name: Optional[str] = None):
+        super().__init__()
+        self.name = name if name is not None else type(self).__name__
+        for i, m in enumerate(modules):
+            self.add_module(str(i), m)
+
+    def forward(self, x):
+        return tuple(m(x) for m in self.children())
+
+
+class CAddTable(nn.Module):
+    """Sum of a table's tensors, left to right (reference
+    nn/CAddTable.scala)."""
+
+    def __init__(self, name: Optional[str] = None):
+        super().__init__()
+        self.name = name if name is not None else type(self).__name__
+
+    def forward(self, x):
+        out = x[0]
+        for t in x[1:]:
+            out = out + t
+        return out
+
+
+class Reshape(nn.Module):
+    """Reshape the non-batch dims to ``size`` (reference nn/Reshape.scala;
+    axis 0 is always the batch)."""
+
+    def __init__(self, size: Sequence[int], name: Optional[str] = None):
+        super().__init__()
+        self.name = name if name is not None else type(self).__name__
+        self.size = tuple(size)
+
+    def forward(self, x):
+        return x.reshape((x.shape[0],) + self.size)
+
+
+class Padding(nn.Module):
+    """Pad ``|pad|`` entries of ``value`` along ``axis``, before it when
+    ``pad`` < 0, after it otherwise (reference nn/Padding.scala)."""
+
+    def __init__(self, axis: int, pad: int, value: float = 0.0,
+                 name: Optional[str] = None):
+        super().__init__()
+        self.name = name if name is not None else type(self).__name__
+        self.axis, self.pad, self.value = axis, pad, value
+
+    def forward(self, x):
+        ax = self.axis % x.dim()
+        widths = [0, 0] * (x.dim() - ax)  # F.pad lists the last dim first
+        widths[-2:] = (-self.pad, 0) if self.pad < 0 else (0, self.pad)
+        return F.pad(x, widths, value=self.value)

@@ -11,14 +11,22 @@ from bigdl_tpu_torch.ops.attention_kernel import (flash_attention,
                                                    flash_dkv, flash_dq,
                                                    flash_fwd,
                                                    serving_prefill_buckets)
+from bigdl_tpu_torch.ops.bn_kernel import (bn_bwd_fused, bn_bwd_stats,
+                                           bn_fwd_apply, bn_stats,
+                                           fused_bn_apply_train,
+                                           fused_bn_train)
 
 __all__ = ["flash_attention", "flash_attention_reference", "flash_fwd",
            "flash_bwd", "flash_bwd_reference", "flash_dq", "flash_dkv",
-           "serving_prefill_buckets", "kernel_launches",
+           "serving_prefill_buckets", "bn_stats", "bn_bwd_stats",
+           "bn_fwd_apply", "bn_bwd_fused", "fused_bn_train",
+           "fused_bn_apply_train", "kernel_launches",
            "reset_kernel_launches"]
 
 _WRAPPERS = {"flash_fwd": flash_fwd, "flash_dq": flash_dq,
-             "flash_dkv": flash_dkv}
+             "flash_dkv": flash_dkv, "bn_stats": bn_stats,
+             "bn_bwd_stats": bn_bwd_stats, "bn_fwd_apply": bn_fwd_apply,
+             "bn_bwd_fused": bn_bwd_fused}
 
 
 def kernel_launches() -> dict:

@@ -26,7 +26,7 @@ __all__ = ["KERNELS", "build_all", "load", "build_info"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("flash_fwd", "flash_bwd")
+KERNELS = ("flash_fwd", "flash_bwd", "bn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -7,7 +7,8 @@ autograd (over ``accum_steps`` microbatches when > 1), clips them when
 asked, and hands them to the ``OptimMethod``, which updates the
 parameters in place. The reference's log lines are kept word for word:
 ``Train N in Xs. Throughput is R records/second. Loss is L``, the epoch
-line, and ``Training finished after N iterations in Xs``.
+line, ``<method> is <result>`` after each validation, and ``Training
+finished after N iterations in Xs``.
 
 Dropout noise comes from a generator seeded with ``seed``: each step
 draws a step seed from it, and a model whose ``forward`` takes ``seed``
@@ -30,6 +31,7 @@ from bigdl_tpu_torch.nn.structural import fold_seed
 from bigdl_tpu_torch.optim.method import SGD, OptimMethod
 from bigdl_tpu_torch.optim.metrics import Metrics
 from bigdl_tpu_torch.optim.triggers import Trigger
+from bigdl_tpu_torch.optim.validator import run_evaluation
 
 logger = logging.getLogger("bigdl_tpu_torch")
 
@@ -95,6 +97,10 @@ class Optimizer:
         self._clip_const = None
         self._init_params = None
         self._phase_totals: dict = {}
+        self._val_trigger = None
+        self._val_dataset = None
+        self._val_methods: list = []
+        self._last_val_iter = -1
 
     # ------------------------------------------------------------- setters
     def set_end_when(self, trigger: Trigger) -> "Optimizer":
@@ -105,8 +111,15 @@ class Optimizer:
         self.optim_method = method
         return self
 
-    def set_validation(self, trigger, dataset, methods) -> "Optimizer":
-        raise _later("set_validation", "validation (item 6)")
+    def set_validation(self, trigger: Trigger, dataset,
+                       methods) -> "Optimizer":
+        """Evaluate ``methods`` over ``dataset`` whenever ``trigger`` fires
+        (checked after every step and at every epoch's end; reference
+        Optimizer.setValidation)."""
+        self._val_trigger = trigger
+        self._val_dataset = dataset
+        self._val_methods = list(methods)
+        return self
 
     def set_checkpoint(self, trigger, path, **kw) -> "Optimizer":
         raise _later("set_checkpoint", "checkpoints (item 6)")
@@ -173,6 +186,19 @@ class Optimizer:
         for p in params.values():
             p.grad = None
         return opt_state, loss.detach()
+
+    def _maybe_validate(self, progress: dict):
+        if (self._val_trigger is None or not self._val_trigger(progress)
+                or progress["iteration"] == self._last_val_iter):
+            return
+        self._last_val_iter = progress["iteration"]
+        results = run_evaluation(self.model, self._val_dataset,
+                                 self._val_methods, self.device)
+        for m, r in zip(self._val_methods, results):
+            logger.info("%s is %r", m.name, r)
+        progress["val_results"] = results
+        if results:
+            progress["val_score"] = float(results[0].result()[0])
 
     def _phase(self, name: str, dt: float):
         """Host seconds per phase: ``data_wait`` (fetching the batch) and
@@ -249,6 +275,7 @@ class Optimizer:
                         logger.debug("%s", self.metrics.summary())
                 else:
                     self._phase("dispatch", time.time() - t0)
+                self._maybe_validate(progress)
                 if self.end_when(progress):
                     break
             progress["epoch"] += 1
@@ -265,6 +292,7 @@ class Optimizer:
                 progress["epoch"] - 1, records, dt_e,
                 records / max(dt_e, 1e-9), d_wait, d_disp,
                 100.0 * d_wait / max(dt_e, 1e-9))
+            self._maybe_validate(progress)
         logger.info("Training finished after %d iterations in %.1fs",
                     progress["iteration"], time.time() - wall_start)
         model.eval()

@@ -1,0 +1,117 @@
+"""Validation methods and their result monoids (counterpart of
+``bigdl_tpu/optim/validation.py``; reference optim/ValidationMethod.scala).
+``stats(output, target)`` gives a (value, count) pair for one batch on the
+device; results add up across batches on the host."""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["ValidationResult", "AccuracyResult", "LossResult",
+           "ValidationMethod", "Top1Accuracy", "Top5Accuracy", "Loss"]
+
+
+class ValidationResult:
+    def __add__(self, other):
+        raise NotImplementedError
+
+    def result(self) -> tuple:
+        raise NotImplementedError
+
+
+class AccuracyResult(ValidationResult):
+    """correct / count, merged by ``+`` (reference AccuracyResult)."""
+
+    def __init__(self, correct: int, count: int):
+        self.correct, self.count = int(correct), int(count)
+
+    def __add__(self, other):
+        return AccuracyResult(self.correct + other.correct,
+                              self.count + other.count)
+
+    def result(self):
+        return (self.correct / self.count if self.count else 0.0,
+                self.count)
+
+    def __repr__(self):
+        return (f"AccuracyResult({self.result()[0]:.4f}, "
+                f"{self.correct}/{self.count})")
+
+    def __eq__(self, other):
+        return (self.correct, self.count) == (other.correct, other.count)
+
+
+class LossResult(ValidationResult):
+    """Mean loss over the records, merged by ``+``."""
+
+    def __init__(self, loss_sum: float, count: int):
+        self.loss_sum, self.count = float(loss_sum), int(count)
+
+    def __add__(self, other):
+        return LossResult(self.loss_sum + other.loss_sum,
+                          self.count + other.count)
+
+    def result(self):
+        return (self.loss_sum / self.count if self.count else 0.0,
+                self.count)
+
+    def __repr__(self):
+        return f"LossResult({self.result()[0]:.4f}, n={self.count})"
+
+
+class ValidationMethod:
+    name = "validation"
+
+    def stats(self, output, target):
+        """(value, count) of one batch."""
+        raise NotImplementedError
+
+    def to_result(self, value, count) -> ValidationResult:
+        raise NotImplementedError
+
+
+class _TopK(ValidationMethod):
+    k = 1
+
+    def stats(self, output, target):
+        """Records whose label is among the k highest scores of (B, C)
+        ``output``; k = 1 takes the argmax (the first of equal maxima)."""
+        t = target.long()
+        if self.k == 1:
+            correct = (output.argmax(dim=-1) == t).sum()
+        else:
+            topk = torch.topk(output, self.k, dim=-1).indices
+            correct = (topk == t[:, None]).any(dim=-1).sum()
+        return correct, output.shape[0]
+
+    def to_result(self, value, count):
+        return AccuracyResult(int(value), int(count))
+
+
+class Top1Accuracy(_TopK):
+    """(reference ValidationMethod.Top1Accuracy)"""
+    name = "top1 accuracy"
+    k = 1
+
+
+class Top5Accuracy(_TopK):
+    """(reference ValidationMethod.Top5Accuracy)"""
+    name = "top5 accuracy"
+    k = 5
+
+
+class Loss(ValidationMethod):
+    """Mean criterion value over the records (reference
+    ValidationMethod.Loss)."""
+
+    name = "loss"
+
+    def __init__(self, criterion):
+        self.criterion = criterion
+
+    def stats(self, output, target):
+        n = output.shape[0]
+        return self.criterion(output, target) * n, n
+
+    def to_result(self, value, count):
+        return LossResult(float(value), int(count))

@@ -1,16 +1,22 @@
 """Where a training step's time goes on the card.
 
-    python -m bigdl_tpu_torch.tools.profile_train [-b 8] [--remat full]
+    python -m bigdl_tpu_torch.tools.profile_train [-m MODEL] [-b BATCH]
+        [--fusedBN off|stats|apply] [--remat full]
 
-Builds ``transformer_lm_1k_hd128`` at full width on CUDA (random weights,
-seed 0, bf16 activations) with the training step of ``cli.perf``, then:
+Builds a model of ``cli.perf``'s zoo at full width on CUDA (random weights,
+seed 0, bf16 activations; default ``transformer_lm_1k_hd128`` at batch 8,
+``resnet50`` rows at batch 128 on random images) with the training step
+of ``cli.perf``, then:
 
 * times 5 steps on the host clock after 3 warm-up steps, ended by
   ``torch.cuda.synchronize()``;
 * traces 3 steps with ``torch.profiler`` and prints the device busy time
   (sum of kernel times) over the traced wall time, the kernel count per
-  step, the flash kernels' share of the device time, and the top
-  operators by device time and by host time.
+  step, the port's kernels' share of the device time (flash for an LM,
+  BN for a ResNet), the convolutions' (``aten::convolution`` and its
+  backward, with the kernels under them) and the copies' and casts'
+  (``aten::copy_``), and the top operators by device time and by host
+  time.
 
 Prints the card's name and power limit first; needs a card.
 """
@@ -23,25 +29,36 @@ import time
 
 import torch
 
-MODEL, WARMUP, STEPS, TRACED = "transformer_lm_1k_hd128", 3, 5, 3
+WARMUP, STEPS, TRACED = 3, 5, 3
 
 
 def main(argv=None) -> int:
+    from bigdl_tpu_torch.cli.common import add_fused_bn_arg
+    from bigdl_tpu_torch.cli.perf import IMAGE_CONFIGS, LM_CONFIGS
+
     p = argparse.ArgumentParser()
-    p.add_argument("-b", "--batchSize", type=int, default=8)
+    p.add_argument("-m", "--model", default="transformer_lm_1k_hd128",
+                   choices=sorted(IMAGE_CONFIGS) + sorted(LM_CONFIGS))
+    p.add_argument("-b", "--batchSize", type=int, default=None,
+                   help="default 8 for an LM, 128 for an image model")
     p.add_argument("--remat", nargs="?", const="full", default=False,
                    choices=["full", "dots"])
+    add_fused_bn_arg(p)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     from bigdl_tpu_torch.cli.perf import train_step
+    from bigdl_tpu_torch.nn import bn_fused_mode
 
+    is_lm = args.model in LM_CONFIGS
+    batch = args.batchSize or (8 if is_lm else 128)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    step, tokens, _ = train_step(MODEL, args.batchSize, torch.bfloat16,
-                                 "cuda", args.remat)
+    step, model, tokens, _ = train_step(
+        args.model, batch, torch.bfloat16, "cuda", args.remat,
+        fused_bn=args.fusedBN, data_type="random")
     for _ in range(WARMUP):
         step()
     torch.cuda.synchronize()
@@ -50,9 +67,11 @@ def main(argv=None) -> int:
         step()
     torch.cuda.synchronize()
     step_ms = 1e3 * (time.perf_counter() - t0) / STEPS
-    print(f"{MODEL} bf16 batch {args.batchSize} remat={args.remat}: step "
-          f"{step_ms:.2f} ms (host clock, synchronized), "
-          f"{tokens / step_ms * 1e3:.1f} tokens/s", flush=True)
+    rate = (f"{tokens / step_ms * 1e3:.1f} tokens/s" if is_lm else
+            f"{batch / step_ms * 1e3:.1f} images/s")
+    print(f"{args.model} bf16 batch {batch} remat={args.remat} fused_bn="
+          f"{bn_fused_mode(model)}: step {step_ms:.2f} ms (host clock, "
+          f"synchronized), {rate}", flush=True)
 
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -66,14 +85,30 @@ def main(argv=None) -> int:
     dev = [e for e in events
            if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in dev)
-    flash_us = sum(e.self_device_time_total for e in dev if "flash_" in e.key)
     n_kernels = sum(e.count for e in dev)
+    marks = ("flash_",) if is_lm else ("bn_reduce_kernel", "bn_apply_kernel")
+    port = [e for e in dev if any(m in e.key for m in marks)]
+    port_ms = sum(e.self_device_time_total for e in port) / 1e3 / TRACED
+    port_n = sum(e.count for e in port)
+
+    def ops_ms(*names):
+        """Device ms a step under these operators (their kernels)."""
+        return sum(e.device_time_total for e in events
+                   if e.key in names) / 1e3 / TRACED
+
+    def pct(ms):
+        return 100 * ms * 1e3 * TRACED / max(dev_us, 1e-9)
+
+    conv_ms = ops_ms("aten::convolution", "aten::convolution_backward")
+    copy_ms = ops_ms("aten::copy_")
     print(f"traced {TRACED} steps: wall {wall_us / 1e3:.2f} ms, device busy "
           f"{dev_us / 1e3:.2f} ms ({100 * dev_us / wall_us:.1f}%), "
-          f"{n_kernels / TRACED:.0f} kernels per step; flash kernels "
-          f"{flash_us / 1e3 / TRACED:.2f} ms per step "
-          f"({100 * flash_us / max(dev_us, 1e-9):.1f}% of device time)",
-          flush=True)
+          f"{n_kernels / TRACED:.0f} kernels per step; the port's "
+          f"{'/'.join(marks)} kernels {port_ms:.2f} ms per step "
+          f"({pct(port_ms):.1f}% of device time, {port_n / TRACED:.0f} "
+          f"kernels); convolutions "
+          f"{conv_ms:.2f} ms ({pct(conv_ms):.1f}%); copies and casts "
+          f"{copy_ms:.2f} ms ({pct(copy_ms):.1f}%)", flush=True)
     print(events.table(sort_by="self_device_time_total", row_limit=20))
     print(events.table(sort_by="self_cpu_time_total", row_limit=12))
     return 0

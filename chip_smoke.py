@@ -39,6 +39,33 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    plain version on the card; the kernel's launch count over the traffic
    is at least 12 x (prefills + /predict batches); in f32, each
    ``/generate`` equals the offline ``TransformerLM.generate``.
+7. The four BN kernels (``bn_stats``, ``bn_bwd_stats``, ``bn_fwd_apply``,
+   ``bn_bwd_fused``) against their plain versions at ResNet-50's batch-128
+   shapes (the stem's 1605632 x 64 rows x channels, 401408 x 256, 100352 x
+   512, 6272 x 2048) and a ragged 1000 x 100, bf16 and f32, ReLU on and off
+   for the fused pair: max|d|/max|ref| of every output, kernel, plain and
+   library ms (``torch.batch_norm_stats``, ``batch_norm_backward_reduce``,
+   ``batch_norm`` and ``native_batch_norm_backward`` on the channels_last
+   4-D view; the port never calls them) and the bound (the bytes each
+   must move over 3.35 TB/s).
+8. ResNet-50 training at full width through ``cli.perf.run``, bf16, batch
+   128, random images from ``RandomState(0)``, 2 warm-up and 5 timed
+   SGD(0.01, momentum 0.9) steps, once each as ``resnet50_fba``,
+   ``resnet50_fbn`` and ``resnet50``: finite losses, images/s, and exactly
+   53 ``bn_fwd_apply`` + 53 ``bn_bwd_fused`` a step (``_fba``), 53
+   ``bn_stats`` + 53 ``bn_bwd_stats`` (``_fbn``), none (``resnet50``).
+9. One training step through the BN kernels against the same step
+   through their plain versions, both fused modes: ``resnet_cifar(20)``
+   f32 (loss, every parameter gradient, running statistics), and
+   ResNet-50 bf16 at batch 32 (the loss, and each of its 53 BNs on the
+   input and gradient it met in the step: y, dx, dγ, dβ, running
+   statistics). ResNet-50's whole-step gradients are printed beside the
+   same step with the plain versions' BN sums taken in f64, a yardstick
+   of how far rounding alone moves them.
+10. ``cli.resnet train --dataset cifar10 --fusedBN apply`` on CIFAR-10
+   binary files written here from a seed: the ``Train ... Loss is`` lines,
+   a ``top1 accuracy`` line, and 19 launches of each fused kernel an
+   iteration.
 
 Any failed phase exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -46,6 +73,7 @@ Any failed phase exits non-zero. The last line is
 
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -93,6 +121,31 @@ DEV = "cuda"
 PROMPT_LENS = (3, 17, 64, 300)
 MAX_NEW = 16
 MODEL = "transformer_lm_1k_hd128"
+# BN kernels vs plain: NHWC (batch, h, w, C) of ResNet-50 at batch 128,
+# seen as (rows, C), and a ragged shape
+BN_SHAPES = [(128, 112, 112, 64), (128, 56, 56, 256), (128, 28, 28, 512),
+             (128, 7, 7, 2048), (10, 10, 10, 100)]
+BN_EPS = 1e-5
+# max|d|/max|ref| of y/dx: f32 and the plain version differ only in the
+# order of the per-channel sums; in bf16 that can move a value across a
+# rounding boundary (one bf16 ulp, 2^-8 of it). The f32 sums, means and
+# vars: 1e-4 (sums of up to 1.6M rows in another order)
+BN_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+BN_SUM_TOL = 1e-4
+RESNET_BATCH, RESNET_WARMUP, RESNET_ITERS = 128, 2, 5
+RESNET_ROWS = {"resnet50_fba": {"bn_fwd_apply": 53, "bn_bwd_fused": 53},
+               "resnet50_fbn": {"bn_stats": 53, "bn_bwd_stats": 53},
+               "resnet50": {}}
+# one f32 step through the BN kernels vs their plain versions, per tensor
+# max|dg|/max|g|: (worst, median). The two differ only in the order of the
+# BN sums; a ReLU whose input lies within that difference of 0 flips,
+# which moves one term of a gradient's sum over positions (a few percent of
+# a small tensor's gradient), so the worst is loose and the median tight
+BN_GRAD_TOL = (5e-2, 1e-5)
+BN_STAT_TOL = 1e-5
+BN_LOSS_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
+BN_GRAD_BATCH = 32
+CIFAR_RECORDS, CIFAR_BATCH = 256, 128  # per file: 10 training iterations
 
 
 def fail(msg):
@@ -296,8 +349,9 @@ def train_run(torch, card):
               f"{steps} steps", flush=True)
         if not all(math.isfinite(x) for x in out["losses"]):
             fail(f"[train {tag}] non-finite loss: {out['losses']}")
-        want = {"flash_fwd": (24 if remat else 12) * steps,
-                "flash_dq": 12 * steps, "flash_dkv": 12 * steps}
+        want = dict({k: 0 for k in n},
+                    flash_fwd=(24 if remat else 12) * steps,
+                    flash_dq=12 * steps, flash_dkv=12 * steps)
         if n != want:
             fail(f"[train {tag}] kernel launches {n}, expected {want} "
                  f"(12 layers per step)")
@@ -408,12 +462,32 @@ def write_corpus(path, n_words, seed=0, vocab=5000):
         f.write("\n".join(out))
 
 
+class LogLines:
+    """Collects the messages of the ``bigdl_tpu_torch`` logger while
+    installed (``with LogLines() as lines``)."""
+
+    def __enter__(self):
+        import logging
+
+        class Handler(logging.Handler):
+            def emit(inner, record):
+                self.lines.append(record.getMessage())
+
+        self.lines, self.handler = [], Handler()
+        self.log = logging.getLogger("bigdl_tpu_torch")
+        self.log.addHandler(self.handler)
+        self.log.setLevel(logging.INFO)
+        return self.lines
+
+    def __exit__(self, *exc):
+        self.log.removeHandler(self.handler)
+
+
 def cli_runs(torch):
     """``cli.transformerlm train`` at full width, plain and --packed;
     returns the launches of the two runs."""
     import contextlib
     import io
-    import logging
     import math
     import re
     import tempfile
@@ -431,28 +505,16 @@ def cli_runs(torch):
         return launch_bwd(name, q, k, v, do, lse, delta, causal, segments,
                           outs)
 
-    class Lines(logging.Handler):
-        def __init__(self):
-            super().__init__()
-            self.lines = []
-
-        def emit(self, record):
-            self.lines.append(record.getMessage())
-
-    handler = Lines()
-    log = logging.getLogger("bigdl_tpu_torch")
-    log.addHandler(handler)
-    log.setLevel(logging.INFO)
     launches = {}
     ak._launch_bwd = counting
     try:
-        with tempfile.TemporaryDirectory() as tmp:
+        with tempfile.TemporaryDirectory() as tmp, LogLines() as lines:
             write_corpus(os.path.join(tmp, "input.txt"), CORPUS_WORDS)
             base = ["train", "-f", tmp, *CLI_DIMS, "--flash", "--bf16",
                     "--maxEpoch", "1", "--logEvery", "1"]
             for packed in (False, True):
                 tag = "packed" if packed else "plain"
-                handler.lines.clear()
+                lines.clear()
                 for name in seg_launches:
                     seg_launches[name] = 0
                 out = io.StringIO()
@@ -463,7 +525,7 @@ def cli_runs(torch):
                 torch.cuda.synchronize()
                 n = ops.kernel_launches()
                 text = out.getvalue()
-                trains = [ln for ln in handler.lines
+                trains = [ln for ln in lines
                           if re.match(r"Train \d+ in .*Loss is ", ln)]
                 # "perplexity is P", or "perplexity is inf (mean held-out
                 # nll L overflows exp)" where exp(L) is past the f64 range
@@ -489,7 +551,6 @@ def cli_runs(torch):
                 launches[tag] = n
     finally:
         ak._launch_bwd = launch_bwd
-        log.removeHandler(handler)
     return launches
 
 
@@ -725,6 +786,365 @@ def serve_run(torch, bf16):
         thr.join(30)
 
 
+def bn_bound_ms(kernel, rows, c, item):
+    """max(bytes / HBM rate, operations / f32 peak) of one BN kernel: every
+    (rows, C) input read once and output written once (x̂ of bn_bwd_stats
+    is f32), the (C,) vectors in and out, and the f32 operations a value
+    needs (sums, normalise, affine, mask, dx)."""
+    n, vec = rows * c, 4 * c
+    nbytes, ops = {"bn_stats": (n * item + 2 * vec, 3 * n),
+                   "bn_bwd_stats": (n * (item + 4) + 2 * vec, 3 * n),
+                   "bn_fwd_apply": (2 * n * item + 4 * vec, 6 * n),
+                   "bn_bwd_fused": (3 * n * item + 6 * vec, 14 * n)}[kernel]
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS["float32"]
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def check_bn(torch):
+    """The four BN kernels against their plain versions at BN_SHAPES, bf16
+    and f32 (ReLU on and off for the fused pair), with device times, the
+    library's time and the bound. Returns {(kernel, shape, dtype, relu):
+    row}."""
+    from bigdl_tpu_torch.ops import bn_kernel as bk
+    from bigdl_tpu_torch.tools.timing import device_ms
+
+    def errs(got, ref):
+        return ([float((a.float() - r.float()).abs().max()
+                       / r.float().abs().max().clamp_min(1e-30))
+                 for a, r in zip(got, ref)],
+                max(float((a.float() - r.float()).abs().max())
+                    for a, r in zip(got, ref)))
+
+    rows_out, bad = {}, []
+    for b, h, w, c in BN_SHAPES:
+        rows = b * h * w
+        for dt in ("bfloat16", "float32"):
+            dtype = getattr(torch, dt)
+            g = torch.Generator(device="cuda").manual_seed(rows + c)
+            x = (torch.randn(rows, c, device="cuda", generator=g) * 1.5
+                 + 0.3).to(dtype)
+            dy = torch.randn(rows, c, device="cuda", generator=g).to(dtype)
+            gamma = 1 + 0.2 * torch.randn(c, device="cuda", generator=g)
+            beta = 0.2 * torch.randn(c, device="cuda", generator=g)
+            _, mean, var = bk.bn_fwd_apply_reference(x, gamma, beta, BN_EPS)
+            inv = torch.rsqrt(var + BN_EPS)
+            xhat = (x.float() - mean) * inv
+            # the library's NCHW-shaped channels_last views of (b, h, w, C)
+            x4, dy4 = (t.view(b, h, w, c).permute(0, 3, 1, 2) for t in (x, dy))
+            running = (torch.zeros(c, device="cuda"),
+                       torch.ones(c, device="cuda"))
+            cases = [
+                ("bn_stats", False, lambda: bk.bn_stats(x),
+                 lambda: bk.bn_stats_reference(x),
+                 lambda: torch.batch_norm_stats(x4, BN_EPS)),
+                ("bn_bwd_stats", False, lambda: bk.bn_bwd_stats(dy, xhat),
+                 lambda: bk.bn_bwd_stats_reference(dy, xhat),
+                 lambda: torch.batch_norm_backward_reduce(
+                     dy4, x4, mean, inv, gamma, True, True, True))]
+            for relu in (False, True):
+                cases += [
+                    ("bn_fwd_apply", relu,
+                     lambda r=relu: bk.bn_fwd_apply(x, gamma, beta, BN_EPS, r),
+                     lambda r=relu: bk.bn_fwd_apply_reference(
+                         x, gamma, beta, BN_EPS, r),
+                     lambda: torch.batch_norm(x4, gamma, beta, *running,
+                                              True, 0.1, BN_EPS, True)),
+                    ("bn_bwd_fused", relu,
+                     lambda r=relu: bk.bn_bwd_fused(dy, x, mean, inv, gamma,
+                                                    beta, r),
+                     lambda r=relu: bk.bn_bwd_fused_reference(
+                         dy, x, mean, inv, gamma, beta, r),
+                     lambda: torch.ops.aten.native_batch_norm_backward(
+                         dy4, x4, gamma, None, None, mean, inv, True, BN_EPS,
+                         [True, True, True]))]
+            for kernel, relu, run, plain, library in cases:
+                got, ref = run(), plain()
+                torch.cuda.synchronize()
+                rel, abs_err = errs(got, ref)
+                # y/dx first for the fused pair; the rest are f32 sums,
+                # means and vars
+                tols = ([BN_TOL[dt]] if kernel in ("bn_fwd_apply",
+                                                   "bn_bwd_fused") else [])
+                tols += [BN_SUM_TOL] * (len(rel) - len(tols))
+                finite = all(bool(torch.isfinite(t.float()).all())
+                             for t in got)
+                ok = finite and all(e <= t for e, t in zip(rel, tols))
+                row = {"shape": [rows, c], "dtype": dt, "relu": relu,
+                       "rel_err": rel, "max_abs_err": abs_err, "ok": ok,
+                       "ms": device_ms(run), "plain_ms": device_ms(plain),
+                       "library_ms": device_ms(library)}
+                row["bound_ms"], row["bound_by"] = bn_bound_ms(
+                    kernel, rows, c, x.element_size())
+                rows_out[(kernel, (b, h, w, c), dt, relu)] = row
+                print(f"{kernel} rows={rows} C={c} {dt} relu={int(relu)}: "
+                      f"max|d|/max|ref| {['%.1e' % e for e in rel]} "
+                      f"kernel_ms={row['ms']:.4f} plain_ms="
+                      f"{row['plain_ms']:.4f} library_ms="
+                      f"{row['library_ms']:.4f} bound_ms="
+                      f"{row['bound_ms']:.4f} ({row['bound_by']}) "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    bad.append((kernel, rows, c, dt, relu, rel))
+            del x, dy, xhat, x4, dy4
+    if bad:
+        fail(f"BN kernels disagree with their plain versions: {bad}")
+    return rows_out
+
+
+def resnet_runs(torch, card):
+    """ResNet-50 training through ``cli.perf.run`` as each RESNET_ROWS
+    row; returns {row: (result, launches)}."""
+    import math
+
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.cli import perf
+
+    out = {}
+    steps = RESNET_WARMUP + RESNET_ITERS
+    for name, per_step in RESNET_ROWS.items():
+        ops.reset_kernel_launches()
+        res = perf.run(name, batch=RESNET_BATCH, iterations=RESNET_ITERS,
+                       dtype=torch.bfloat16, warmup=RESNET_WARMUP,
+                       data_type="random")
+        torch.cuda.synchronize()
+        n = ops.kernel_launches()
+        print(f"[{name}] bf16 batch {RESNET_BATCH} on {card}: "
+              f"{res['records_per_second']} images/s over {RESNET_ITERS} "
+              f"timed steps ({res['seconds']} s); fused_bn "
+              f"{res['fused_bn']}; losses "
+              f"{[round(v, 4) for v in res['losses']]}; launches "
+              f"{ {k: v for k, v in n.items() if v} } over {steps} steps",
+              flush=True)
+        if not all(math.isfinite(v) for v in res["losses"]):
+            fail(f"[{name}] non-finite loss: {res['losses']}")
+        want = {k: per_step.get(k, 0) * steps for k in n}
+        if n != want:
+            fail(f"[{name}] kernel launches {n}, expected {want}")
+        out[name] = (res, n)
+        torch.cuda.empty_cache()
+    return out
+
+
+def bn_grads_check(torch):
+    """One training step through the BN kernels against the same step with
+    the four wrappers swapped for their plain versions (which the
+    Functions then call), in both fused modes:
+
+    * ``resnet_cifar(20)`` f32: the loss, every parameter gradient and the
+      running statistics of the whole step;
+    * ResNet-50 bf16 at full width: the loss of the whole step, and each of
+      the 53 BatchNormalizations on the input and output gradient it met in
+      the step through the kernels: y, dx, dγ, dβ and its running
+      statistics, kernels against plain versions. The whole step's
+      parameter gradients are printed, not held to a tolerance: beside
+      them is the same step through the plain versions with their BN
+      statistics summed in f64, which moves them as far with no kernel
+      involved (a 50-layer network at init is that sensitive to how its
+      BN sums round)."""
+    from bigdl_tpu_torch import models, nn, ops
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.ops import bn_kernel as bk
+
+    names = ("bn_stats", "bn_bwd_stats", "bn_fwd_apply", "bn_bwd_fused")
+    originals = {n: getattr(bk, n) for n in names}
+    originals.update({n + "_reference": getattr(bk, n + "_reference")
+                      for n in names})
+
+    def stats_f64(x2d):
+        xd = x2d.double()
+        return xd.sum(0).float(), (xd * xd).sum(0).float()
+
+    def bwd_stats_f64(dy2d, xhat2d):
+        dd = dy2d.double()
+        return dd.sum(0).float(), (dd * xhat2d.double()).sum(0).float()
+
+    def use_plain(plain, f64=False):
+        """The wrappers (plain False), or their plain versions, whose
+        statistics (``bn_stats_reference``, which ``bn_fwd_apply_reference``
+        calls, and ``bn_bwd_stats_reference``) are summed in f64 when
+        ``f64``."""
+        for n, fn in originals.items():
+            setattr(bk, n, fn)
+        if f64:
+            bk.bn_stats_reference = stats_f64
+            bk.bn_bwd_stats_reference = bwd_stats_f64
+        if plain:
+            for n in names:
+                setattr(bk, n, getattr(bk, n + "_reference"))
+
+    def rel(a, r):
+        return float((a.float() - r.float()).abs().max()
+                     / r.float().abs().max().clamp_min(1e-30))
+
+    crit = ClassNLLCriterion()
+    cases = (("float32", "resnet_cifar(20)", (32, 32, 3), 10, BN_GRAD_BATCH),
+             ("bfloat16", "resnet50", (224, 224, 3), 1000, BN_GRAD_BATCH))
+    for dt, label, shape, classes, batch in cases:
+        for mode in ("apply", "stats"):
+            gen = torch.Generator().manual_seed(0)
+            model = (models.resnet50(fused_bn=mode, generator=gen)
+                     if label == "resnet50" else
+                     models.resnet_cifar(20, fused_bn=mode, generator=gen))
+            model = model.to(DEV).train()
+            bns = {n: m for n, m in model.named_modules()
+                   if isinstance(m, nn.BatchNormalization)}
+            start = {k: v.clone() for k, v in model.state_dict().items()}
+            g = torch.Generator().manual_seed(1)
+            x = torch.randn(batch, *shape, generator=g).to(
+                DEV, getattr(torch, dt))
+            y = torch.randint(0, classes, (batch,), generator=g).to(DEV)
+            seen = {}
+
+            def record(name):
+                def hook(mod, inp, out):
+                    seen[name] = [inp[0].detach()]
+                    out.register_hook(lambda d: seen[name].append(d))
+                return hook
+
+            def step(plain, f64=False):
+                use_plain(plain, f64)
+                hooks = [] if plain else [m.register_forward_hook(record(n))
+                                          for n, m in bns.items()]
+                try:
+                    model.load_state_dict(start)
+                    model.zero_grad(set_to_none=True)
+                    ops.reset_kernel_launches()
+                    loss = crit(model(x).float(), y)
+                    loss.backward()
+                    torch.cuda.synchronize()
+                finally:
+                    use_plain(False)
+                    for h in hooks:
+                        h.remove()
+                return (float(loss.detach()),
+                        {n: p.grad.float().clone()
+                         for n, p in model.named_parameters()},
+                        {n: b.clone() for n, b in model.named_buffers()},
+                        sum(ops.kernel_launches().values()))
+
+            l_k, g_k, s_k, n_k = step(plain=False)
+            l_t, g_t, s_t, n_t = step(plain=True)
+            _, g_64, _, _ = step(plain=True, f64=True)
+            if n_k == 0 or n_t != 0:
+                fail(f"[bn grads {dt} {mode}] launches {n_k} / {n_t}: the "
+                     f"two steps did not take their paths")
+            if any(not bool(torch.isfinite(v).all()) for v in g_k.values()):
+                fail(f"[bn grads {dt} {mode}] a non-finite gradient")
+            errs = {n: rel(g_k[n], g_t[n]) for n in g_t}
+            ranked = sorted(errs.values())
+            worst, median = ranked[-1], ranked[len(ranked) // 2]
+            f64 = sorted(rel(g_64[n], g_t[n]) for n in g_t)
+            stat = max(rel(s_k[n], s_t[n]) for n in s_t)
+            loss_rel = abs(l_k - l_t) / abs(l_t)
+            print(f"[bn grads {dt} {mode}] {label} batch {batch}: loss "
+                  f"{l_k:.6f} through the kernels, {l_t:.6f} through the "
+                  f"plain versions; {len(errs)} parameter gradients "
+                  f"max|dg|/max|g| worst {worst:.3e} "
+                  f"({max(errs, key=errs.get)}), median {median:.3e} "
+                  f"(the plain versions with f64 BN sums against f32: "
+                  f"worst {f64[-1]:.3e}, median {f64[len(f64) // 2]:.3e}); "
+                  f"running stats worst {stat:.3e}; launches {n_k}",
+                  flush=True)
+            if loss_rel > BN_LOSS_TOL[dt]:
+                fail(f"[bn grads {dt} {mode}] losses differ by {loss_rel:.3e}")
+            if dt == "float32" and (worst > BN_GRAD_TOL[0]
+                                    or median > BN_GRAD_TOL[1]
+                                    or stat > BN_STAT_TOL):
+                fail(f"[bn grads {dt} {mode}] the step through the kernels "
+                     f"differs from the plain versions' (gradients worst "
+                     f"{worst:.3e}, median {median:.3e}; stats {stat:.3e})")
+            # each BN on what it met in the step through the kernels
+            layer = {"y": 0.0, "dx": 0.0, "dgamma": 0.0, "dbeta": 0.0,
+                     "running": 0.0}
+            for name, m in bns.items():
+                xin, dy = seen[name]
+                outs = []
+                for plain in (False, True):
+                    use_plain(plain)
+                    saved = (m.running_mean.clone(), m.running_var.clone())
+                    try:
+                        xx = xin.clone().requires_grad_()
+                        out = m(xx)
+                        grads = torch.autograd.grad(
+                            out, (xx, m.weight, m.bias), dy)
+                        outs.append((out, *grads, m.running_mean.clone(),
+                                     m.running_var.clone()))
+                    finally:
+                        use_plain(False)
+                        m.running_mean.copy_(saved[0])
+                        m.running_var.copy_(saved[1])
+                (yk, dxk, dgk, dbk, rmk, rvk), (yt, dxt, dgt, dbt, rmt,
+                                                 rvt) = outs
+                for key, e in (("y", rel(yk, yt)), ("dx", rel(dxk, dxt)),
+                               ("dgamma", rel(dgk, dgt)),
+                               ("dbeta", rel(dbk, dbt)),
+                               ("running", max(rel(rmk, rmt),
+                                               rel(rvk, rvt)))):
+                    layer[key] = max(layer[key], e)
+            print(f"[bn layers {dt} {mode}] {label}: {len(bns)} "
+                  f"BatchNormalizations on the step's own inputs, kernels "
+                  f"vs plain versions, worst max|d|/max|ref| "
+                  f"{ {k: float('%.2e' % v) for k, v in layer.items()} } "
+                  f"(tolerances y/dx {BN_TOL[dt]:.0e}, the rest "
+                  f"{BN_SUM_TOL:.0e})", flush=True)
+            if (max(layer["y"], layer["dx"]) > BN_TOL[dt]
+                    or max(layer["dgamma"], layer["dbeta"],
+                           layer["running"]) > BN_SUM_TOL):
+                fail(f"[bn layers {dt} {mode}] a BN layer through the "
+                     f"kernels differs from the plain versions: {layer}")
+            del model, seen
+            torch.cuda.empty_cache()
+
+
+def write_cifar(folder, n, seed=0):
+    """cifar-10-binary files of ``n`` random records each: five
+    ``data_batch_<i>.bin`` and a ``test_batch.bin``."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    for name in [f"data_batch_{i}.bin" for i in range(1, 6)] + [
+            "test_batch.bin"]:
+        rec = np.concatenate([rs.randint(0, 10, (n, 1)),
+                              rs.randint(0, 256, (n, 3072))], axis=1)
+        rec.astype(np.uint8).tofile(os.path.join(folder, name))
+
+
+def cifar_cli_run(torch):
+    """``cli.resnet train --dataset cifar10 --fusedBN apply`` for one
+    epoch; returns its launches."""
+    import re
+    import tempfile
+
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.cli import resnet as resnet_cli
+
+    with tempfile.TemporaryDirectory() as tmp, LogLines() as lines:
+        write_cifar(tmp, CIFAR_RECORDS)
+        ops.reset_kernel_launches()
+        t0 = time.perf_counter()
+        resnet_cli.main(["train", "--dataset", "cifar10", "-f", tmp,
+                         "--fusedBN", "apply", "-b", str(CIFAR_BATCH),
+                         "--maxEpoch", "1", "--logEvery", "1"])
+        torch.cuda.synchronize()
+        n = ops.kernel_launches()
+        trains = [ln for ln in lines
+                  if re.match(r"Train \d+ in .*Loss is ", ln)]
+        top1 = [ln for ln in lines if ln.startswith("top1 accuracy is ")]
+    print(f"[cifar cli] {time.perf_counter() - t0:.1f}s, {len(trains)} "
+          f"'Train ... Loss is' lines (last: "
+          f"{trains[-1] if trains else None!r}); "
+          f"{top1[-1] if top1 else 'no top1 line'}; launches "
+          f"{ {k: v for k, v in n.items() if v} }", flush=True)
+    if not trains or not top1:
+        fail("[cifar cli] no 'Train ... Loss is' or 'top1 accuracy' line")
+    want = dict({k: 0 for k in n}, bn_fwd_apply=19 * len(trains),
+                bn_bwd_fused=19 * len(trains))
+    if n != want:
+        fail(f"[cifar cli] launches {n}, expected {want} (19 BNs an "
+             f"iteration)")
+    return n
+
+
 def main():
     try:
         import torch
@@ -751,23 +1171,30 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     try:
         _build.build_all()
     except RuntimeError as e:
         fail(str(e))
     print(f"kernels built in {time.perf_counter() - t0:.1f}s", flush=True)
     for name, info in _build.build_info().items():
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}", flush=True)
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers",
+                                           info["log"])]
+        spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill",
+                                                info["log"]))
+        print(f"  {name}: {len(regs)} kernels, {min(regs, default=0)}-"
+              f"{max(regs, default=0)} registers a thread, {spills} bytes "
+              f"of spill stores and loads", flush=True)
 
     rows = check_flash(torch, ak)
     bwd_rows = check_flash_bwd(torch, ak)
+    bn_rows = check_bn(torch)
     # the main paths, each driven with the counts set to 0 just before it
-    # and read just after: training (perf, plain and remat), the training
-    # CLI (plain and packed), serving (f32 and bf16)
-    launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    # and read just after: LM training (perf, plain and remat), the LM
+    # training CLI (plain and packed), serving (f32 and bf16), ResNet-50
+    # training (perf, three BN modes) and the CIFAR training CLI
+    from bigdl_tpu_torch import ops
+    launches = {name: 0 for name in ops.kernel_launches()}
     train, *train_n = train_run(torch, card)
     grads_check(torch, ak)
     for n in train_n + list(cli_runs(torch).values()):
@@ -776,12 +1203,20 @@ def main():
     for bf16 in (False, True):
         n, lat, tps, _ = serve_run(torch, bf16)
         launches["flash_fwd"] += n
+    resnet = resnet_runs(torch, card)
+    bn_grads_check(torch)
+    for n in [n for _, n in resnet.values()] + [cifar_cli_run(torch)]:
+        for name in launches:
+            launches[name] += n[name]
     print(f"[bf16] {MODEL} on {card}: {tps:.1f} generated tokens/s over 4 "
           f"concurrent requests, /generate latencies ms "
           f"{[round(x, 1) for x in lat]} (prompts {list(PROMPT_LENS)}, "
           f"{MAX_NEW} new tokens each)", flush=True)
     print(f"[train] {MODEL} bf16 batch {TRAIN_BATCH} on {card}: "
           f"{train['tokens_per_second']} tokens/s", flush=True)
+    for name, (res, _) in resnet.items():
+        print(f"[{name}] bf16 batch {RESNET_BATCH} on {card}: "
+              f"{res['records_per_second']} images/s", flush=True)
 
     head, bwd = rows[0], bwd_rows[0]  # the training step's 8 x 8 x 1024^2
     common = {"route": "cuda", "check": "pass", "shape": head["shape"],
@@ -809,9 +1244,25 @@ def main():
              ms=bwd["dkv_ms"], plain_ms=bwd["plain_ms"],
              bound_ms=bwd["dkv_bound_ms"], bound_by=bwd["dkv_bound_by"],
              library_ms=bwd["library_ms"])]
+    # the BN rows at ResNet-50's stage-1 shape in bf16, the fused pair with
+    # its ReLU (33 of the 53 BNs absorb one)
+    for name, line, relu in (("bn_stats", 93, False),
+                             ("bn_bwd_stats", 165, False),
+                             ("bn_fwd_apply", 350, True),
+                             ("bn_bwd_fused", 423, True)):
+        r = bn_rows[(name, (128, 56, 56, 256), "bfloat16", relu)]
+        kernels.append(dict(
+            common, name=name, source=src + "bn.cu",
+            replaces=f"bigdl_tpu/ops/bn_kernel.py:{line}", shape=r["shape"],
+            dtype=r["dtype"], launches=launches[name],
+            max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"]))
     for k in kernels:
         if k["launches"] == 0:
             fail(f"{k['name']} was launched no time on the main paths")
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -71,6 +71,7 @@ def test_entry_points_refuse_a_silent_cpu_run(tmp_path):
         pytest.skip("torch.cuda is available: the no-CUDA rule cannot be "
                     "shown on this machine")
     from bigdl_tpu_torch.cli import perf
+    from bigdl_tpu_torch.cli import resnet as resnet_cli
     from bigdl_tpu_torch.cli import serve as serve_cli
     from bigdl_tpu_torch.cli import transformerlm
     from bigdl_tpu_torch.dataset import BatchDataSet
@@ -90,7 +91,11 @@ def test_entry_points_refuse_a_silent_cpu_run(tmp_path):
                       "--numLayers", "1", "--numHeads", "2",
                       "--seqLength", "16", "-b", "2"]),
                  lambda: perf.main(["-m", "transformer_lm", "--seq", "16",
-                                    "-b", "1", "-i", "1"])):
+                                    "-b", "1", "-i", "1"]),
+                 lambda: perf.main(["-m", "resnet50_fba", "-b", "1", "-i",
+                                    "1"]),
+                 lambda: resnet_cli.main(["train", "-f", str(tmp_path),
+                                          "--depth", "8", "-b", "2"])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     # asked for the CPU, they run
@@ -98,3 +103,37 @@ def test_entry_points_refuse_a_silent_cpu_run(tmp_path):
     assert InferenceEngine(_tiny_lm(), device="cpu").device.type == "cpu"
     assert Optimizer(_tiny_lm(), data, None, device="cpu").device.type == \
         "cpu"
+
+
+def _bn_calls(make):
+    """Each BN kernel wrapper called on (rows, C) operands from ``make``."""
+    from bigdl_tpu_torch.ops import bn_kernel as bk
+    x, dy = make(), make()
+    vec = torch.ones(x.shape[1], device=x.device)
+    return {
+        "bn_stats": lambda: bk.bn_stats(x),
+        "bn_bwd_stats": lambda: bk.bn_bwd_stats(dy, x.float()),
+        "bn_fwd_apply": lambda: bk.bn_fwd_apply(x, vec, vec, 1e-5, True),
+        "bn_bwd_fused": lambda: bk.bn_bwd_fused(dy, x, vec, vec, vec, vec,
+                                                True)}
+
+
+def test_bn_wrappers_refuse_and_never_fall_back():
+    """A dtype the kernels do not take raises on every device, and a tensor
+    that is not on the CPU never reaches the plain version: a meta tensor
+    (neither CPU nor CUDA) raises where a CUDA tensor would launch."""
+    from bigdl_tpu_torch.ops import bn_kernel as bk
+    for dtype in (torch.float16, torch.float64):
+        for name, call in _bn_calls(lambda: torch.zeros(8, 4,
+                                                        dtype=dtype)).items():
+            with pytest.raises(ValueError, match="float32 or bfloat16"):
+                call()
+    with pytest.raises(ValueError, match="xhat2d"):
+        bk.bn_bwd_stats(torch.zeros(8, 4), torch.zeros(8, 4,
+                                                       dtype=torch.bfloat16))
+    for name, call in _bn_calls(lambda: torch.zeros(8, 4,
+                                                    device="meta")).items():
+        with pytest.raises(ValueError, match="one CUDA device"):
+            call()
+    for name, call in _bn_calls(lambda: torch.ones(8, 4)).items():
+        call()  # the plain versions, on the CPU

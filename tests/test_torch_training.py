@@ -306,8 +306,7 @@ def test_optimizer_refuses_later_slices():
     opt = Optimizer(_port_lm(), BatchDataSet(np.zeros((2, 4)),
                                              np.zeros((2, 4)), 2),
                     lambda o, t: o.sum(), device="cpu")
-    for call in (lambda: opt.set_validation(None, None, []),
-                 lambda: opt.set_checkpoint(None, "x"),
+    for call in (lambda: opt.set_checkpoint(None, "x"),
                  lambda: opt.resume("x")):
         with pytest.raises(NotImplementedError, match="later|comes with"):
             call()
