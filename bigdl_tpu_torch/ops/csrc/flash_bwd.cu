@@ -20,26 +20,53 @@
 // kept, so every output tile is written once by one CTA, without atomics,
 // and the result does not depend on the order the CTAs run in.
 //
-// What bounds them on an H100: at the training shape (8 heads of 128,
-// s = 1024) each (64 x 64) tile pair costs 3 (dQ) or 4 (dK/dV) products of
-// 64*64*128 MACs against 64 rows of Q, dO and of K, V read once per CTA,
-// so the bytes of the whole problem are a few MB and the floor is the
-// tensor-core operations (bf16) or the FMA rate (f32). The score tiles
-// never reach device memory.
+// What bounds them on an H100: at the training shape (8 x 8 heads of 128,
+// s = 1024, causal) the pair reads and writes ~50 MB but runs 7 products
+// of 2 x 128 FLOP over each of the 34M score entries the mask leaves, so
+// the floor is the bf16 tensor cores: 0.061 ms for both at 989 TFLOP/s.
+// What keeps them from it is feeding them: operands re-read from shared
+// memory, the elementwise pass between the products, and loads that do
+// not overlap compute. The mma.sync design this replaces (64-row CTAs of
+// 4 warps, ldmatrix from padded tiles, cp.async one stage deep) ran the
+// pair in 0.484 ms on an H100 80GB HBM3 at 700 W; this one in ~0.18
+// (PERF.md).
 //
-// flash_dq: one CTA per 64-row query tile (16 rows a warp), streaming the
-// K/V tiles the tile can see (fully-future tiles skipped under causal),
-// the dQ accumulator in registers. flash_dkv: the transposed grid, one CTA
-// per 64-row key tile (16 key rows a warp), streaming the query tiles from
-// the first that sees the key tile; it computes S^T = K Q^T and
-// dP^T = V dO^T directly, 16 queries at a time, so P^T and dS^T come out
-// in the A-operand layout of dV += P^T dO and dK += dS^T Q and the dK, dV
-// accumulators (128 f32 registers a thread at d = 128) stay in registers.
-// bf16 runs on mma.sync m16n8k16 with f32 accumulation, the streamed tiles
-// double-buffered with cp.async; f32 runs as plain FMA (no TF32) through
-// shared memory. Later work: wgmma and TMA, a fused single-pass backward.
+// bf16 at d = 64 and 128, the Hopper kernels. A unit is one 128-row tile
+// of one (batch, head): keys for flash_dkv, queries for flash_dq. One
+// persistent CTA an SM walks its units (heaviest first: low key tiles and
+// high query tiles see the most of the causal triangle), with two consumer
+// warpgroups of 64 rows each and a producer warpgroup whose first warp
+// loads; setmaxnreg moves registers to the consumers (240 and 24 a thread).
+//   Loads: every tile by TMA through a 4-D tensor map (d, s, h, b) of the
+//     operand's own strides, 128-byte swizzled (a d = 128 row is two
+//     64-column boxes), rows past s read as 0. A unit's own two tiles
+//     (K, V or Q, dO) go to one of two buffers, a unit ahead; the other
+//     side's 64-row tiles stream through a ring of STAGES stages with
+//     full/empty mbarriers, their lse, delta and segment ids by cp.async
+//     beside them, so the producer never waits on a load.
+//   flash_dkv, per query tile: S^T = K Q^T and dP^T = V dO^T as wgmma
+//     m64n64k16 from shared memory (K-major); P^T and dS^T in registers,
+//     rounded to bf16 and fed back as register A operands of dV += P^T dO
+//     and dK += dS^T Q (m64nDk16, dO and Q read MN-major from the same
+//     stage). dK and dV stay in registers (128 floats a thread at d = 128).
+//   flash_dq, per key tile: S = Q K^T and dP = dO V^T from shared memory,
+//     dS from registers into dQ += dS K, K read MN-major.
+// The elementwise pass tests the mask only in tiles that cross the
+// diagonal or an edge and takes exp2 as one MUFU.EX2 (exp2f's subnormal
+// handling cost as much as the rest of the pass). Measured limits that
+// remain: both warpgroups of a CTA run their products and their
+// elementwise passes at the same time, so the tensor cores idle during
+// the latter (taking turns through named barriers measured slower), and a
+// two-stage ring leaves some waits for the streamed tiles.
+//
+// bf16 at d = 16 and 32 stays on mma.sync m16n8k16 (one CTA of 4 warps per
+// 64-row tile, cp.async double buffering): a wgmma k-step of a 128-byte
+// swizzled tile wants 64 columns. f32 runs as plain FMA (no TF32) through
+// shared memory, the JAX f32 arithmetic. The choice is made by dtype and d
+// up front.
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -76,14 +103,20 @@ __device__ __forceinline__ T* at_mut(void* base, int b, int h, long long sb,
   return static_cast<T*>(base) + b * sb + h * sh;
 }
 
-// K tiles the query tile at q0 needs (the forward's count)
-__device__ __forceinline__ int key_tiles(int q0, const Params& p) {
+// 64-key tiles the query rows < q_end need, fully-future tiles left out
+// under causal
+__device__ __forceinline__ int key_tiles_to(int q_end, const Params& p) {
   int n = (p.Sk + BK - 1) / BK;
   if (p.causal) {
-    const int q_last = p.Sk - p.Sq + min(q0 + BQ, p.Sq) - 1;
+    const int q_last = p.Sk - p.Sq + q_end - 1;
     n = min(n, q_last < 0 ? 0 : q_last / BK + 1);
   }
   return n;
+}
+
+// K tiles the query tile at q0 needs (the forward's count)
+__device__ __forceinline__ int key_tiles(int q0, const Params& p) {
+  return key_tiles_to(min(q0 + BQ, p.Sq), p);
 }
 
 // the first query tile that sees any key of the key tile at k0: the one
@@ -269,7 +302,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_dkv_f32(Params p) {
   }
 }
 
-// ================================================= bf16: tensor-core path
+// ================================== bf16, d = 16 and 32: mma.sync path
 template <int D> struct LayoutBF16 {
   static constexpr int TILE = BF16<D>::TILE;
   // the CTA's own two tiles (Q, dO for dq; K, V for dkv), then two stages
@@ -280,7 +313,7 @@ template <int D> struct LayoutBF16 {
 };
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS) flash_dq_bf16(Params p) {
+__global__ void __launch_bounds__(NTHREADS) flash_dq_bf16_small(Params p) {
   using L = LayoutBF16<D>;
   constexpr int LDT = BF16<D>::LDT;
   constexpr int KS = D / 16;  // k-steps over the head dim
@@ -428,7 +461,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_dq_bf16(Params p) {
 }
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS) flash_dkv_bf16(Params p) {
+__global__ void __launch_bounds__(NTHREADS) flash_dkv_bf16_small(Params p) {
   using L = LayoutBF16<D>;
   constexpr int LDT = BF16<D>::LDT;
   constexpr int KS = D / 16;
@@ -580,16 +613,531 @@ __global__ void __launch_bounds__(NTHREADS) flash_dkv_bf16(Params p) {
   }
 }
 
+// ============================== bf16, d = 64 and 128: Hopper (wgmma, TMA)
+// A persistent CTA on each SM walks its share of the units: one 128-row
+// tile of one (batch, head), keys for dkv and queries for dq. Two consumer
+// warpgroups own 64 rows of a unit each. The first warp of a producer
+// warpgroup TMA-loads each unit's own two tiles into one of two buffers, a
+// unit ahead, and streams the other side's 64-row tiles through a ring of
+// STAGES shared-memory stages that runs on from unit to unit, so one
+// unit's loads overlap the last one's products and stores.
+constexpr int WG = 128;            // threads of a warpgroup
+constexpr int THREADS = 3 * WG;    // two consumer warpgroups, a producer
+constexpr int OWN = 128;           // rows of a unit's own tiles
+constexpr int STREAM = 64;         // rows of a streamed tile (BQ = BK)
+constexpr int STAGES = 2;
+// registers a thread after setmaxnreg: the consumers take what the
+// producer warpgroup gives back. ptxas sizes a kernel that hands registers
+// over by whole warpgroups: 168 a thread for __launch_bounds__(384, 1),
+// and 2 x 128 x 240 + 128 x 24 = 384 x 168.
+constexpr int CONSUMER_REGS = 240, PRODUCER_REGS = 24;
+
+template <int D> struct Smem90 {
+  static constexpr uint32_t own = OWN * D * 2;        // bytes of an own tile
+  static constexpr uint32_t stream = STREAM * D * 2;  // of a streamed tile
+  // two buffers of the own tiles A and B, then the stages (two streamed
+  // tiles each), then per stage 3 x 64 row values (lse, delta, segment
+  // id), then the barriers. Tiles are 1024-byte aligned.
+  static constexpr uint32_t stage_off = 4 * own;
+  static constexpr uint32_t rows_off = stage_off + STAGES * 2 * stream;
+  static constexpr uint32_t bar_off = rows_off + STAGES * 3 * STREAM * 4;
+  static constexpr uint32_t bytes = bar_off + (2 * STAGES + 4) * 8 + 1024;
+};
+
+// full/empty of each stage, and of each own-tile buffer
+struct Bars {
+  uint64_t *full, *empty, *own_full, *own_empty;
+  __device__ __forceinline__ Bars(unsigned char* smem, uint32_t off)
+      : full(reinterpret_cast<uint64_t*>(smem + off)),
+        empty(full + STAGES),
+        own_full(empty + STAGES),
+        own_empty(own_full + 2) {}
+};
+
+// the own tiles (A, B) and the streamed ones (C, E), in TMA maps
+struct Maps {
+  CUtensorMap a, b, c, e;
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t s = hopper::smem_u32(p);
+  return p + ((1024 - (s & 1023)) & 1023);
+}
+
+__device__ __forceinline__ void init_barriers(unsigned char* smem,
+                                              uint32_t bar_off) {
+  if (threadIdx.x == 0) {
+    const Bars bar(smem, bar_off);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&bar.full[s], 32);  // the producer's lanes
+      hopper::mbar_init(&bar.empty[s], 8);  // every consumer warp
+    }
+    for (int o = 0; o < 2; ++o) {
+      hopper::mbar_init(&bar.own_full[o], 1);
+      hopper::mbar_init(&bar.own_empty[o], 8);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+}
+
+// Unit i of this CTA, or -1: the units are numbered heaviest first, and
+// round r hands units rG .. rG + G - 1 to the G CTAs, every other round in
+// reverse, so that each CTA's sum of work comes out about even.
+__device__ __forceinline__ int nth_unit(int i, int n_units) {
+  const int G = gridDim.x, c = blockIdx.x;
+  const int u = i * G + ((i & 1) ? G - 1 - c : c);
+  return u < n_units ? u : -1;
+}
+
+// rows [row, row + rows) of (batch b, head h) through `map`, D/64 boxes
+template <int D>
+__device__ __forceinline__ void tma_tile(unsigned char* dst,
+                                         const CUtensorMap* map,
+                                         uint64_t* bar, int row, int h, int b,
+                                         int rows) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c)
+    hopper::tma_load_4d(dst + c * rows * 128, map, bar, c * 64, row, h, b);
+}
+
+// 2^x in one MUFU.EX2; a result below 2^-126 flushes to 0 (exp2f's
+// handling of subnormals costs more than the rest of the elementwise pass)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// one accumulator row of a thread to bf16: columns 8n + 2t, 8n + 2t + 1
+// from entries 4n + E, 4n + E + 1 (E = 0: row g, E = 2: row g + 8)
+template <int E, int N>
+__device__ __forceinline__ void store_row(bf16* row, const float (&acc)[N],
+                                          int t) {
+#pragma unroll
+  for (int n = 0; n < N / 4; ++n)
+    *reinterpret_cast<uint32_t*>(row + n * 8 + 2 * t) =
+        pack_bf16(acc[4 * n + E], acc[4 * n + E + 1]);
+}
+
+// The producer warp's part of unit j: the own tiles into buffer j % 2,
+// then `n` streamed tiles from row `row0` on, each with its 64 rows' lse
+// and delta (dkv) or segment ids in the stage's row values (`lse` null for
+// dq; 0 past `n_rows`). `ring` counts streamed tiles over all units. The
+// row values come by cp.async, and each lane's arrival on the stage waits
+// for its copies, so the warp never stalls on a global load.
+template <int D>
+__device__ __forceinline__ void produce_unit(
+    const Maps& maps, unsigned char* smem, int j, int& ring, int own_row,
+    int row0, int n, int n_rows, int h, int b, const float* lse,
+    const float* dl, const int* seg) {
+  using S = Smem90<D>;
+  const Bars bar(smem, S::bar_off);
+  const int lane = threadIdx.x % 32;
+  const int ob = j & 1;
+  hopper::mbar_wait(&bar.own_empty[ob], ((j >> 1) & 1) ^ 1);
+  if (lane == 0) {
+    unsigned char* dst = smem + ob * 2 * S::own;
+    hopper::mbar_arrive_expect_tx(&bar.own_full[ob], 2 * S::own);
+    tma_tile<D>(dst, &maps.a, &bar.own_full[ob], own_row, h, b, OWN);
+    tma_tile<D>(dst + S::own, &maps.b, &bar.own_full[ob], own_row, h, b, OWN);
+  }
+  for (int it = 0; it < n; ++it, ++ring) {
+    const int s = ring % STAGES;
+    hopper::mbar_wait(&bar.empty[s], ((ring / STAGES) & 1) ^ 1);
+    const int r0 = row0 + it * STREAM;
+    if (lane == 0) {  // the tiles first: the row values load meanwhile
+      unsigned char* st = smem + S::stage_off + s * 2 * S::stream;
+      hopper::mbar_expect_tx(&bar.full[s], 2 * S::stream);
+      tma_tile<D>(st, &maps.c, &bar.full[s], r0, h, b, STREAM);
+      tma_tile<D>(st + S::stream, &maps.e, &bar.full[s], r0, h, b, STREAM);
+    }
+    float* rows = reinterpret_cast<float*>(smem + S::rows_off) + s * 3 * STREAM;
+    for (int i = lane; i < STREAM; i += 32) {
+      const bool in = r0 + i < n_rows;
+      const int r = in ? r0 + i : 0;
+      if (lse) {
+        hopper::cp_async4(rows + i, lse + r, in);
+        hopper::cp_async4(rows + STREAM + i, dl + r, in);
+      }
+      if (seg) hopper::cp_async4(rows + 2 * STREAM + i, seg + r, in);
+    }
+    hopper::cp_async_arrive(&bar.full[s]);
+  }
+}
+
+// A fragments of the four 16-wide k-steps of a 64-column accumulator
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4],
+                                           const float (&c)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[kk][i] = pack_bf16(c[8 * kk + 2 * i], c[8 * kk + 2 * i + 1]);
+}
+
+// acc (64 x D) += A (64 x 64, four register k-steps) B (64 x D, an MN-major
+// streamed tile at `b`)
+template <int D>
+__device__ __forceinline__ void mma_rs(float (&acc)[D / 2],
+                                       const uint32_t (&a)[4][4], uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if constexpr (D == 128)
+      hopper::wgmma_rs_n128_tb(acc, a[kk], hopper::mnmajor_desc(b, STREAM, kk));
+    else
+      hopper::wgmma_rs_n64_tb(acc, a[kk], hopper::mnmajor_desc(b, STREAM, kk));
+  }
+}
+
+// c (64 x 64) = A (64 rows of an own tile at `a`) B^T (a streamed tile at
+// `b`), both K-major over the head dim
+template <int D>
+__device__ __forceinline__ void mma_ss(float (&c)[32], uint32_t a,
+                                       uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    hopper::wgmma_ss_n64(c, hopper::kmajor_desc(a, OWN, kk),
+                         hopper::kmajor_desc(b, STREAM, kk), kk > 0);
+}
+
+// a consumer warp is done with a stage or an own-tile buffer
+__device__ __forceinline__ void release(uint64_t* bar) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) hopper::mbar_arrive(bar);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_dq_bf16(const __grid_constant__ Maps maps, const Params p,
+                  int BH) {
+  using S = Smem90<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  init_barriers(smem, S::bar_off);
+  const Bars bar(smem, S::bar_off);
+  // unit u: query tile n_qt - 1 - u / BH (the high ones see the most keys)
+  // of (batch, head) u % BH
+  const int n_qt = (p.Sq + OWN - 1) / OWN, n_units = n_qt * BH;
+  const int warp = threadIdx.x / 32;
+
+  if (warp >= 8) {  // producer: Q, dO a unit ahead; K, V and key ids
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp > 8) return;
+    for (int i = 0, j = 0, ring = 0; i * (int)gridDim.x < n_units; ++i) {
+      const int u = nth_unit(i, n_units);
+      if (u < 0) continue;
+      const int bh = u % BH, b = bh / p.H, h = bh % p.H;
+      const int q0 = (n_qt - 1 - u / BH) * OWN;
+      produce_unit<D>(maps, smem, j++, ring, q0, 0,
+                      key_tiles_to(min(q0 + OWN, p.Sq), p), p.Sk, h, b,
+                      nullptr, nullptr,
+                      p.seg ? p.seg + (long long)b * p.Sk : nullptr);
+    }
+    return;
+  }
+  hopper::setmaxnreg_inc<CONSUMER_REGS>();
+  const int wg = warp / 4, w = warp % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const float sl2 = p.scale * LOG2E;  // P = exp2(S sl2 - lse log2(e))
+  float acc[D / 2], s[32], dp[32];
+  uint32_t af[4][4];
+
+  for (int i = 0, j = 0, ring = 0; i * (int)gridDim.x < n_units; ++i) {
+    const int u = nth_unit(i, n_units);
+    if (u < 0) continue;
+    const int ob = j & 1;
+    const int bh = u % BH, b = bh / p.H, h = bh % p.H;
+    const int q0 = (n_qt - 1 - u / BH) * OWN;
+    const int n_tiles = key_tiles_to(min(q0 + OWN, p.Sq), p);
+    const int* sg = p.seg ? p.seg + (long long)b * p.Sk : nullptr;
+    const int qw = q0 + wg * 64;  // this warpgroup's 64 query rows
+    const int n_mine = qw < p.Sq ? key_tiles_to(min(qw + 64, p.Sq), p) : 0;
+    const int row0 = qw + w * 16 + g, row1 = row0 + 8;  // this thread's
+    // rows past Sq read 0 and compute values that are never stored
+    const float* lse_g = p.lse + (long long)bh * p.Sq;
+    const float* dl_g = p.delta + (long long)bh * p.Sq;
+    const float ll0 = row0 < p.Sq ? lse_g[row0] * LOG2E : 0.f;
+    const float ll1 = row1 < p.Sq ? lse_g[row1] * LOG2E : 0.f;
+    const float dl0 = row0 < p.Sq ? dl_g[row0] : 0.f;
+    const float dl1 = row1 < p.Sq ? dl_g[row1] : 0.f;
+    const int qs0 = sg && row0 < p.Sq ? sg[row0] : 0;
+    const int qs1 = sg && row1 < p.Sq ? sg[row1] : 0;
+    const uint32_t qa = hopper::smem_u32(smem + ob * 2 * S::own) +
+                        wg * 64 * 128;  // Q rows
+    const uint32_t da = qa + S::own;    // dO rows
+#pragma unroll
+    for (int k = 0; k < D / 2; ++k) acc[k] = 0.f;
+    hopper::mbar_wait(&bar.own_full[ob], (j >> 1) & 1);
+
+    for (int it = 0; it < n_tiles; ++it, ++ring) {
+      const int st = ring % STAGES;
+      hopper::mbar_wait(&bar.full[st], (ring / STAGES) & 1);
+      if (it < n_mine) {
+        const int k0 = it * BK;
+        const uint32_t kb = hopper::smem_u32(smem + S::stage_off +
+                                             st * 2 * S::stream);
+        const uint32_t vb = kb + S::stream;
+        const int* kst = reinterpret_cast<const int*>(smem + S::rows_off) +
+                         st * 3 * STREAM + 2 * STREAM;
+        // S = Q K^T, then dP = dO V^T, two groups: P starts when S is done
+        hopper::wgmma_fence();
+        mma_ss<D>(s, qa, kb);
+        hopper::wgmma_commit();
+        mma_ss<D>(dp, da, vb);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();
+        hopper::reg_fence(s);
+        // P = exp(S scale - lse), selected to 0 where the mask says no; the
+        // test only in the tiles that cross the diagonal or an edge
+        if (needs_mask(qw, k0, p)) {
+#pragma unroll
+          for (int k = 0; k < 32; ++k) {
+            const int c = (k / 4) * 8 + 2 * t + (k & 1);
+            const bool hi = (k & 2) != 0;
+            s[k] = visible(hi ? row1 : row0, k0 + c, hi ? qs1 : qs0,
+                           sg ? kst[c] : 0, p)
+                       ? exp2_ftz(s[k] * sl2 - (hi ? ll1 : ll0))
+                       : 0.f;
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < 32; ++k)
+            s[k] = exp2_ftz(s[k] * sl2 - ((k & 2) ? ll1 : ll0));
+        }
+        hopper::wgmma_wait<0>();
+        hopper::reg_fence(dp);
+        // dS = P (dP - delta) scale, rounded to K's type for dQ += dS K
+#pragma unroll
+        for (int k = 0; k < 32; ++k)
+          s[k] = s[k] * (dp[k] - ((k & 2) ? dl1 : dl0)) * p.scale;
+        to_a_frags(af, s);
+        hopper::wgmma_fence();
+        mma_rs<D>(acc, af, kb);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::reg_fence(acc);
+        hopper::reg_fence(af);
+      }
+      release(&bar.empty[st]);
+    }
+    release(&bar.own_empty[ob]);  // Q, dO read for good
+    ++j;
+
+    bf16* dqg = at_mut<bf16>(p.dq, b, h, p.dq_sb, p.dq_sh);
+    if (row0 < p.Sq)
+      store_row<0>(dqg + (long long)row0 * p.dq_ss, acc, t);
+    if (row1 < p.Sq)
+      store_row<2>(dqg + (long long)row1 * p.dq_ss, acc, t);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_dkv_bf16(const __grid_constant__ Maps maps, const Params p,
+                   int BH) {
+  using S = Smem90<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  init_barriers(smem, S::bar_off);
+  const Bars bar(smem, S::bar_off);
+  // unit u: key tile u / BH (the low ones see the most queries) of
+  // (batch, head) u % BH
+  const int n_units = (p.Sk + OWN - 1) / OWN * BH;
+  const int n_q = (p.Sq + BQ - 1) / BQ;
+  const int warp = threadIdx.x / 32;
+
+  if (warp >= 8) {  // producer: K, V a unit ahead; Q, dO, lse, delta, ids
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp > 8) return;
+    for (int i = 0, j = 0, ring = 0; i * (int)gridDim.x < n_units; ++i) {
+      const int u = nth_unit(i, n_units);
+      if (u < 0) continue;
+      const int bh = u % BH, b = bh / p.H, h = bh % p.H;
+      const int k0 = u / BH * OWN, qt0 = first_query_tile(k0, p);
+      produce_unit<D>(maps, smem, j++, ring, k0, qt0 * BQ,
+                      max(0, n_q - qt0), p.Sq, h, b,
+                      p.lse + (long long)bh * p.Sq,
+                      p.delta + (long long)bh * p.Sq,
+                      p.seg ? p.seg + (long long)b * p.Sk : nullptr);
+    }
+    return;
+  }
+  hopper::setmaxnreg_inc<CONSUMER_REGS>();
+  const int wg = warp / 4, w = warp % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const float sl2 = p.scale * LOG2E;
+  float dk[D / 2], dv[D / 2], s[32], dp[32];
+  uint32_t pf[4][4], df[4][4];
+
+  for (int i = 0, j = 0, ring = 0; i * (int)gridDim.x < n_units; ++i) {
+    const int u = nth_unit(i, n_units);
+    if (u < 0) continue;
+    const int ob = j & 1;
+    const int bh = u % BH, b = bh / p.H, h = bh % p.H;
+    const int k0 = u / BH * OWN, qt0 = first_query_tile(k0, p);
+    const int n_tiles = max(0, n_q - qt0);
+    const int* sg = p.seg ? p.seg + (long long)b * p.Sk : nullptr;
+    const int kw = k0 + wg * 64;  // this warpgroup's 64 keys
+    const int key0 = kw + w * 16 + g, key1 = key0 + 8;  // this thread's
+    const int ks0 = sg && key0 < p.Sk ? sg[key0] : -1;
+    const int ks1 = sg && key1 < p.Sk ? sg[key1] : -1;
+    const uint32_t ka = hopper::smem_u32(smem + ob * 2 * S::own) +
+                        wg * 64 * 128;  // K rows
+    const uint32_t va = ka + S::own;    // V rows
+#pragma unroll
+    for (int k = 0; k < D / 2; ++k) dk[k] = dv[k] = 0.f;
+    hopper::mbar_wait(&bar.own_full[ob], (j >> 1) & 1);
+
+    for (int it = 0; it < n_tiles; ++it, ++ring) {
+      const int st = ring % STAGES;
+      const int q0 = (qt0 + it) * BQ;
+      hopper::mbar_wait(&bar.full[st], (ring / STAGES) & 1);
+      // a warpgroup whose keys no query of the tile sees skips it
+      if (kw < p.Sk && !(p.causal && kw > p.Sk - p.Sq + q0 + BQ - 1)) {
+        const uint32_t qb = hopper::smem_u32(smem + S::stage_off +
+                                             st * 2 * S::stream);
+        const uint32_t db = qb + S::stream;
+        const float* lst = reinterpret_cast<const float*>(
+                               smem + S::rows_off) + st * 3 * STREAM;
+        const float* dst = lst + STREAM;
+        const int* qst = reinterpret_cast<const int*>(dst + STREAM);
+        // S^T = K Q^T, then dP^T = V dO^T (64 keys x 64 queries)
+        hopper::wgmma_fence();
+        mma_ss<D>(s, ka, qb);
+        hopper::wgmma_commit();
+        mma_ss<D>(dp, va, db);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();
+        hopper::reg_fence(s);
+        // P^T (lst holds the lse of the tile's queries)
+        if (needs_mask(q0, kw, p)) {
+#pragma unroll
+          for (int k = 0; k < 32; ++k) {
+            const int c = (k / 4) * 8 + 2 * t + (k & 1);  // query in tile
+            const bool hi = (k & 2) != 0;
+            s[k] = visible(q0 + c, hi ? key1 : key0, sg ? qst[c] : 0,
+                           hi ? ks1 : ks0, p)
+                       ? exp2_ftz(s[k] * sl2 - lst[c] * LOG2E)
+                       : 0.f;
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < 32; ++k)
+            s[k] = exp2_ftz(s[k] * sl2 -
+                            lst[(k / 4) * 8 + 2 * t + (k & 1)] * LOG2E);
+        }
+        hopper::wgmma_wait<0>();
+        hopper::reg_fence(dp);
+#pragma unroll
+        for (int k = 0; k < 32; ++k) {
+          const int c = (k / 4) * 8 + 2 * t + (k & 1);
+          dp[k] = s[k] * (dp[k] - dst[c]) * p.scale;  // dS^T
+        }
+        // P^T rounded to dO's type, dS^T to Q's: the A operands, from
+        // registers, of dV += P^T dO and dK += dS^T Q (dO, Q MN-major)
+        to_a_frags(pf, s);
+        to_a_frags(df, dp);
+        hopper::wgmma_fence();
+        mma_rs<D>(dv, pf, db);
+        mma_rs<D>(dk, df, qb);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::reg_fence(dv);
+        hopper::reg_fence(dk);
+        hopper::reg_fence(pf);
+        hopper::reg_fence(df);
+      }
+      release(&bar.empty[st]);
+    }
+    release(&bar.own_empty[ob]);  // K, V read for good
+    ++j;
+
+    bf16* dkg = at_mut<bf16>(p.dk, b, h, p.dk_sb, p.dk_sh);
+    bf16* dvg = at_mut<bf16>(p.dv, b, h, p.dv_sb, p.dv_sh);
+    if (key0 < p.Sk) {
+      store_row<0>(dkg + (long long)key0 * p.dk_ss, dk, t);
+      store_row<0>(dvg + (long long)key0 * p.dv_ss, dv, t);
+    }
+    if (key1 < p.Sk) {
+      store_row<2>(dkg + (long long)key1 * p.dk_ss, dk, t);
+      store_row<2>(dvg + (long long)key1 * p.dv_ss, dv, t);
+    }
+  }
+}
+
 // ------------------------------------------------------------- launching
+// The Hopper kernels: the four TMA maps (own tiles with boxes of 128 rows,
+// streamed ones of 64), the shared-memory opt-in, a check that the kernel
+// was built with the registers setmaxnreg hands over (a consumer asking
+// for more than the CTA holds would wait forever), and one persistent CTA
+// an SM, or one a unit where there are fewer units.
+template <int D, bool DKV>
+cudaError_t launch_sm90(const Params& p, int bh, cudaStream_t stream) {
+  static std::atomic<int> sms{0};
+  auto kernel = DKV ? flash_dkv_bf16<D> : flash_dq_bf16<D>;
+  const int B = bh / p.H;
+  const int s_own = DKV ? p.Sk : p.Sq, s_str = DKV ? p.Sq : p.Sk;
+  const void* own[2] = {DKV ? p.k : p.q, DKV ? p.v : p.dout};
+  const void* str[2] = {DKV ? p.q : p.k, DKV ? p.dout : p.v};
+  const long long so[2][3] = {
+      {DKV ? p.k_ss : p.q_ss, DKV ? p.k_sh : p.q_sh, DKV ? p.k_sb : p.q_sb},
+      {DKV ? p.v_ss : p.do_ss, DKV ? p.v_sh : p.do_sh,
+       DKV ? p.v_sb : p.do_sb}};
+  const long long ss[2][3] = {
+      {DKV ? p.q_ss : p.k_ss, DKV ? p.q_sh : p.k_sh, DKV ? p.q_sb : p.k_sb},
+      {DKV ? p.do_ss : p.v_ss, DKV ? p.do_sh : p.v_sh,
+       DKV ? p.do_sb : p.v_sb}};
+  Maps m;
+  CUtensorMap* maps[4] = {&m.a, &m.b, &m.c, &m.e};
+  for (int i = 0; i < 4; ++i) {
+    const bool is_own = i < 2;
+    const long long* st = is_own ? so[i] : ss[i - 2];
+    const cudaError_t e = hopper::make_map_4d(
+        maps[i], is_own ? own[i] : str[i - 2], D, is_own ? s_own : s_str,
+        p.H, B, st[0], st[1], st[2], is_own ? OWN : STREAM);
+    if (e != cudaSuccess) return e;
+  }
+  const size_t smem = Smem90<D>::bytes;
+  if (sms.load() == 0) {
+    cudaFuncAttributes attr;
+    cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+    if (e != cudaSuccess) return e;
+    if (attr.numRegs * THREADS < 2 * WG * CONSUMER_REGS + WG * PRODUCER_REGS)
+      return cudaErrorInvalidConfiguration;
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return e;
+    int device = 0, n = 0;
+    e = cudaGetDevice(&device);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
+    if (e != cudaSuccess) return e;
+    sms.store(n);
+  }
+  const long long units = (long long)(s_own + OWN - 1) / OWN * bh;
+  const dim3 grid((unsigned)std::min<long long>(units, sms.load()));
+  kernel<<<grid, THREADS, smem, stream>>>(m, p, bh);
+  return cudaGetLastError();
+}
+
+// bf16 at d = 64 and 128 runs the Hopper kernels, bf16 at d = 16 and 32
+// the mma.sync ones (a wgmma tile needs 64 columns), f32 the FMA ones;
+// the choice is the shape's, never a failure's
 template <int D>
 cudaError_t launch_dq(const Params& p, bool is_bf16, int bh,
                       cudaStream_t stream) {
   static std::atomic<bool> bf16_ready{false}, f32_ready{false};
   const dim3 grid((p.Sq + BQ - 1) / BQ, bh);
-  return is_bf16 ? launch(flash_dq_bf16<D>, LayoutBF16<D>::bytes, bf16_ready,
-                          p, grid, stream)
-                 : launch(flash_dq_f32<D>, LayoutF32<D>::bytes, f32_ready, p,
-                          grid, stream);
+  if (!is_bf16)
+    return launch(flash_dq_f32<D>, LayoutF32<D>::bytes, f32_ready, p, grid,
+                  stream);
+  if constexpr (D >= 64)
+    return launch_sm90<D, false>(p, bh, stream);
+  else
+    return launch(flash_dq_bf16_small<D>, LayoutBF16<D>::bytes, bf16_ready,
+                  p, grid, stream);
 }
 
 template <int D>
@@ -597,10 +1145,14 @@ cudaError_t launch_dkv(const Params& p, bool is_bf16, int bh,
                        cudaStream_t stream) {
   static std::atomic<bool> bf16_ready{false}, f32_ready{false};
   const dim3 grid((p.Sk + BK - 1) / BK, bh);
-  return is_bf16 ? launch(flash_dkv_bf16<D>, LayoutBF16<D>::bytes, bf16_ready,
-                          p, grid, stream)
-                 : launch(flash_dkv_f32<D>, LayoutF32<D>::bytes, f32_ready, p,
-                          grid, stream);
+  if (!is_bf16)
+    return launch(flash_dkv_f32<D>, LayoutF32<D>::bytes, f32_ready, p, grid,
+                  stream);
+  if constexpr (D >= 64)
+    return launch_sm90<D, true>(p, bh, stream);
+  else
+    return launch(flash_dkv_bf16_small<D>, LayoutBF16<D>::bytes, bf16_ready,
+                  p, grid, stream);
 }
 
 Params make_params(const void* q, const void* k, const void* v,

@@ -15,7 +15,12 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    take: bytes over 3.35 TB/s or operations over the peak rate of their
    type, whichever is larger, over the score entries the causal mask and
    the segments leave live). The forward at 8 shapes; the backward pair
-   (``flash_dq``, ``flash_dkv``) and the forward with ``segments`` at 6.
+   (``flash_dq``, ``flash_dkv``) and the forward with ``segments`` at 6,
+   with ``_delta`` (plain PyTorch) timed beside the pair: the library's
+   backward computes its own delta, so pair plus delta is the like-for-like
+   figure. At the training step's shape the pair runs twice and must give
+   the same bits. ptxas's registers and spills of the Hopper backward
+   kernels print after the build.
 3. Training at full width through ``cli.perf.run``:
    ``transformer_lm_1k_hd128`` in bf16, batch 8, 2 warm-up and 5 timed
    SGD steps on one resident batch: the loss is finite and falls, and each
@@ -153,6 +158,27 @@ def fail(msg):
     sys.exit(1)
 
 
+def print_ptxas(log, kernels):
+    """ptxas's register and spill lines of the instances of ``kernels``
+    (e.g. ``flash_dq_bf16<128>``), and any warning it gave."""
+    for block in log.split("Compiling entry function '")[1:]:
+        # the mangled name ends in <length>flash_..._bf16ILi<D>E...
+        m = re.search(r"\d(flash_[a-z0-9_]+?)ILi(\d+)E", block.split("'")[0])
+        if m is None or m.group(1) not in kernels:
+            continue
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        print(f"    {m.group(1)}<{m.group(2)}>: "
+              f"{regs.group(1) if regs else '?'} registers, "
+              f"{spill.group(1) if spill else '?'} bytes spill stores, "
+              f"{spill.group(2) if spill else '?'} bytes spill loads",
+              flush=True)
+    for line in log.splitlines():
+        if "warning" in line.lower():
+            print(f"    {line.strip()}", flush=True)
+
+
 def live_scores(torch, b, h, sq, sk, causal, seg=None):
     """The score entries the function needs over all (batch, head): per
     query row i, the keys it sees, min(s_k, q_offset + i + 1) under the
@@ -270,6 +296,16 @@ def check_flash_bwd(torch, ak):
         dk, dv = ak.flash_dkv(q, k, v, do, lse, delta, causal, seg)
         rq, rk, rv = ak.flash_bwd_reference(q, k, v, o, lse, do, causal, seg)
         torch.cuda.synchronize()
+        if not rows:  # the training step's shape: the same bits twice
+            dq2 = ak.flash_dq(q, k, v, do, lse, delta, causal, seg)
+            dk2, dv2 = ak.flash_dkv(q, k, v, do, lse, delta, causal, seg)
+            torch.cuda.synchronize()
+            same = {n: bool(torch.equal(a, b)) for n, a, b in (
+                ("dq", dq, dq2), ("dk", dk, dk2), ("dv", dv, dv2))}
+            print(f"flash_bwd b={b} h={h} s_q={sq} s_k={sk} d={d} {dt}: "
+                  f"a second run gives the same bits: {same}", flush=True)
+            if not all(same.values()):
+                fail(f"the backward pair is not deterministic: {same}")
         rel = lambda a, r: float((a.float() - r.float()).abs().max()
                                  / r.float().abs().max().clamp_min(1e-30))
         err = {"dq": rel(dq, rq), "dk": rel(dk, rk), "dv": rel(dv, rv),
@@ -287,10 +323,15 @@ def check_flash_bwd(torch, ak):
                    q, k, v, do, lse, delta, causal, seg)),
                "dkv_ms": device_ms(lambda: ak.flash_dkv(
                    q, k, v, do, lse, delta, causal, seg)),
+               "delta_ms": device_ms(lambda: ak._delta(o, do)),
                "plain_ms": device_ms(lambda: ak.flash_bwd_reference(
                    q, k, v, o, lse, do, causal, seg)),
                "library_ms": None if use_seg else library_bwd_ms(
                    torch, q, k, v, do, causal)}
+        # the library's backward computes its own delta: the pair plus
+        # delta is the like-for-like figure
+        row["pair_plus_delta_ms"] = (row["dq_ms"] + row["dkv_ms"]
+                                     + row["delta_ms"])
         entries = live_scores(torch, b, h, sq, sk, causal, seg)
         row["dq_bound_ms"], row["dq_bound_by"] = bwd_bound_ms(
             entries, b, h, sq, sk, d, dt, 3, 1)
@@ -311,7 +352,9 @@ def check_flash_bwd(torch, ak):
               f"dq_ms={row['dq_ms']:.4f} (bound {row['dq_bound_ms']:.4f} "
               f"{row['dq_bound_by']}) dkv_ms={row['dkv_ms']:.4f} (bound "
               f"{row['dkv_bound_ms']:.4f} {row['dkv_bound_by']}) "
-              f"plain_ms={row['plain_ms']:.4f} library_bwd_ms={lib}"
+              f"delta_ms={row['delta_ms']:.4f} pair_plus_delta_ms="
+              f"{row['pair_plus_delta_ms']:.4f} library_bwd_ms={lib} "
+              f"plain_ms={row['plain_ms']:.4f}"
               + (f" fwd_seg_ms={row['fwd_seg_ms']:.4f} (bound "
                  f"{row['fwd_seg_bound_ms']:.4f})" if use_seg else "")
               + f" {'ok' if ok else 'FAIL'}", flush=True)
@@ -1185,6 +1228,8 @@ def main():
         print(f"  {name}: {len(regs)} kernels, {min(regs, default=0)}-"
               f"{max(regs, default=0)} registers a thread, {spills} bytes "
               f"of spill stores and loads", flush=True)
+        if name == "flash_bwd":
+            print_ptxas(info["log"], ("flash_dq_bf16", "flash_dkv_bf16"))
 
     rows = check_flash(torch, ak)
     bwd_rows = check_flash_bwd(torch, ak)

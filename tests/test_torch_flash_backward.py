@@ -11,6 +11,11 @@ an f32 sum in another order can land on the other side of a bf16 rounding
 boundary, so a gradient may differ by a few bf16 ulps of its largest
 entry: max|d| <= 2e-2 * max|ref|."""
 
+import ctypes
+import re
+import types
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +25,7 @@ import torch
 from bigdl_tpu.ops.attention_kernel import _flash_bwd, _flash_fwd
 from bigdl_tpu.ops.attention_kernel import flash_attention as jax_flash
 from bigdl_tpu_torch.dataset import pack_sequences
+from bigdl_tpu_torch.ops import _build
 from bigdl_tpu_torch.ops import attention_kernel as ak
 
 F32_ATOL = 1e-5
@@ -164,17 +170,35 @@ def test_wrappers_count_only_kernel_launches_and_refuse_cpu_tensors():
                        (torch.empty_like(q),))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,d,causal,sq,sk,use_seg", [
-    (torch.bfloat16, 128, True, 1024, 1024, False),
-    (torch.float32, 128, True, 1000, 1000, False),
-    (torch.bfloat16, 64, False, 512, 512, False),
-    (torch.bfloat16, 128, True, 16, 1024, False),
-    (torch.float32, 32, True, 72, 40, False),
-    (torch.bfloat16, 128, True, 1024, 1024, True),
-])
-def test_cuda_backward_kernels_match_plain(dtype, d, causal, sq, sk,
-                                           use_seg):
+# C parameter types of the kernels' entry points and the ctypes type each
+# must be bound with (a pointer bound as an int would be cut to 32 bits)
+_C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+            "const int*": ctypes.c_void_p, "const long long*": ctypes.c_void_p,
+            "int": ctypes.c_int, "float": ctypes.c_float}
+
+
+@pytest.mark.parametrize("name", ["flash_dq", "flash_dkv"])
+def test_bwd_entry_points_match_their_bindings(name, monkeypatch):
+    """The extern "C" signature in flash_bwd.cu against the argtypes
+    attention_kernel._bind sets, without a card: a library stand-in takes
+    the place of the built one."""
+    src = (Path(ak.__file__).parent / "csrc" / "flash_bwd.cu").read_text()
+    entry = re.search(rf'extern "C" int {name}\(([^)]*)\)', src)
+    assert entry is not None
+    c_types = []
+    for param in entry.group(1).split(","):
+        decl = " ".join(param.replace("*", "* ").split())
+        c_type = re.sub(r"\s*\w+$", "", decl).replace(" *", "*")
+        c_types.append(_C_TYPES[c_type])
+    lib = types.SimpleNamespace(**{name: types.SimpleNamespace()})
+    monkeypatch.setattr(_build, "load", lambda _: lib)
+    monkeypatch.setattr(ak, "_fns", {})
+    fn = ak._bind(name)
+    assert fn.argtypes == c_types
+    assert fn.restype is ctypes.c_int
+
+
+def _cuda_case(dtype, d, causal, sq, sk, use_seg):
     if not torch.cuda.is_available():
         pytest.skip("torch.cuda unavailable")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -186,6 +210,26 @@ def test_cuda_backward_kernels_match_plain(dtype, d, causal, sq, sk,
     seg = (torch.from_numpy(_segments(2, sq, seed=1)).cuda() if use_seg
            else None)
     o, lse = ak.flash_fwd(q, k, v, causal, seg)
+    return q, k, v, o, lse, do, seg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,causal,sq,sk,use_seg", [
+    (torch.bfloat16, 128, True, 1024, 1024, False),
+    (torch.float32, 128, True, 1000, 1000, False),
+    (torch.bfloat16, 64, False, 512, 512, False),
+    (torch.bfloat16, 128, True, 16, 1024, False),
+    (torch.float32, 32, True, 72, 40, False),
+    (torch.bfloat16, 128, True, 1024, 1024, True),
+    (torch.bfloat16, 64, True, 16, 1024, False),
+    (torch.bfloat16, 128, True, 1000, 1000, False),
+    (torch.bfloat16, 64, False, 1000, 1000, False),
+    (torch.bfloat16, 64, True, 512, 512, True),
+    (torch.bfloat16, 32, True, 72, 40, False),
+])
+def test_cuda_backward_kernels_match_plain(dtype, d, causal, sq, sk,
+                                           use_seg):
+    q, k, v, o, lse, do, seg = _cuda_case(dtype, d, causal, sq, sk, use_seg)
     got = ak.flash_bwd(q, k, v, o, lse, do, causal, seg)
     ref = ak.flash_bwd_reference(q, k, v, o, lse, do, causal, seg)
     torch.cuda.synchronize()
@@ -193,3 +237,17 @@ def test_cuda_backward_kernels_match_plain(dtype, d, causal, sq, sk,
     for t, r in zip(got, ref):
         assert float((t.float() - r.float()).abs().max()) <= \
             tol * float(r.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,use_seg", [(128, False), (64, True)])
+def test_cuda_backward_kernels_are_deterministic(d, use_seg):
+    """Every output tile is written once by one CTA, without atomics: two
+    runs on the same inputs give the same bits."""
+    q, k, v, o, lse, do, seg = _cuda_case(torch.bfloat16, d, True, 1024,
+                                          1024, use_seg)
+    first = ak.flash_bwd(q, k, v, o, lse, do, True, seg)
+    second = ak.flash_bwd(q, k, v, o, lse, do, True, seg)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
