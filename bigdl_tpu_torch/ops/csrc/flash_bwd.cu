@@ -614,23 +614,23 @@ __global__ void __launch_bounds__(NTHREADS) flash_dkv_bf16_small(Params p) {
 }
 
 // ============================== bf16, d = 64 and 128: Hopper (wgmma, TMA)
-// A persistent CTA on each SM walks its share of the units: one 128-row
-// tile of one (batch, head), keys for dkv and queries for dq. Two consumer
-// warpgroups own 64 rows of a unit each. The first warp of a producer
-// warpgroup TMA-loads each unit's own two tiles into one of two buffers, a
-// unit ahead, and streams the other side's 64-row tiles through a ring of
-// STAGES shared-memory stages that runs on from unit to unit, so one
-// unit's loads overlap the last one's products and stores.
-constexpr int WG = 128;            // threads of a warpgroup
-constexpr int THREADS = 3 * WG;    // two consumer warpgroups, a producer
+// Persistent warp-specialised CTAs (hopper.cuh): a unit is one 128-row tile
+// of one (batch, head), keys for dkv and queries for dq. The unit's own
+// two tiles go to one of two buffers, a unit ahead; the other side's
+// 64-row tiles stream through a ring of STAGES stages, two tiles a stage.
+using hopper::align1024;
+using hopper::CONSUMER_REGS;
+using hopper::exp2_ftz;
+using hopper::Maps;
+using hopper::nth_unit;
+using hopper::PRODUCER_REGS;
+using hopper::release;
+using hopper::THREADS;
+using hopper::tma_tile;
 constexpr int OWN = 128;           // rows of a unit's own tiles
 constexpr int STREAM = 64;         // rows of a streamed tile (BQ = BK)
 constexpr int STAGES = 2;
-// registers a thread after setmaxnreg: the consumers take what the
-// producer warpgroup gives back. ptxas sizes a kernel that hands registers
-// over by whole warpgroups: 168 a thread for __launch_bounds__(384, 1),
-// and 2 x 128 x 240 + 128 x 24 = 384 x 168.
-constexpr int CONSUMER_REGS = 240, PRODUCER_REGS = 24;
+using Bars = hopper::Bars<STAGES>;
 
 template <int D> struct Smem90 {
   static constexpr uint32_t own = OWN * D * 2;        // bytes of an own tile
@@ -641,73 +641,8 @@ template <int D> struct Smem90 {
   static constexpr uint32_t stage_off = 4 * own;
   static constexpr uint32_t rows_off = stage_off + STAGES * 2 * stream;
   static constexpr uint32_t bar_off = rows_off + STAGES * 3 * STREAM * 4;
-  static constexpr uint32_t bytes = bar_off + (2 * STAGES + 4) * 8 + 1024;
+  static constexpr uint32_t bytes = bar_off + Bars::bytes + 1024;
 };
-
-// full/empty of each stage, and of each own-tile buffer
-struct Bars {
-  uint64_t *full, *empty, *own_full, *own_empty;
-  __device__ __forceinline__ Bars(unsigned char* smem, uint32_t off)
-      : full(reinterpret_cast<uint64_t*>(smem + off)),
-        empty(full + STAGES),
-        own_full(empty + STAGES),
-        own_empty(own_full + 2) {}
-};
-
-// the own tiles (A, B) and the streamed ones (C, E), in TMA maps
-struct Maps {
-  CUtensorMap a, b, c, e;
-};
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  const uint32_t s = hopper::smem_u32(p);
-  return p + ((1024 - (s & 1023)) & 1023);
-}
-
-__device__ __forceinline__ void init_barriers(unsigned char* smem,
-                                              uint32_t bar_off) {
-  if (threadIdx.x == 0) {
-    const Bars bar(smem, bar_off);
-    for (int s = 0; s < STAGES; ++s) {
-      hopper::mbar_init(&bar.full[s], 32);  // the producer's lanes
-      hopper::mbar_init(&bar.empty[s], 8);  // every consumer warp
-    }
-    for (int o = 0; o < 2; ++o) {
-      hopper::mbar_init(&bar.own_full[o], 1);
-      hopper::mbar_init(&bar.own_empty[o], 8);
-    }
-    hopper::mbar_init_fence();
-  }
-  __syncthreads();
-}
-
-// Unit i of this CTA, or -1: the units are numbered heaviest first, and
-// round r hands units rG .. rG + G - 1 to the G CTAs, every other round in
-// reverse, so that each CTA's sum of work comes out about even.
-__device__ __forceinline__ int nth_unit(int i, int n_units) {
-  const int G = gridDim.x, c = blockIdx.x;
-  const int u = i * G + ((i & 1) ? G - 1 - c : c);
-  return u < n_units ? u : -1;
-}
-
-// rows [row, row + rows) of (batch b, head h) through `map`, D/64 boxes
-template <int D>
-__device__ __forceinline__ void tma_tile(unsigned char* dst,
-                                         const CUtensorMap* map,
-                                         uint64_t* bar, int row, int h, int b,
-                                         int rows) {
-#pragma unroll
-  for (int c = 0; c < D / 64; ++c)
-    hopper::tma_load_4d(dst + c * rows * 128, map, bar, c * 64, row, h, b);
-}
-
-// 2^x in one MUFU.EX2; a result below 2^-126 flushes to 0 (exp2f's
-// handling of subnormals costs more than the rest of the elementwise pass)
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // one accumulator row of a thread to bf16: columns 8n + 2t, 8n + 2t + 1
 // from entries 4n + E, 4n + E + 1 (E = 0: row g, E = 2: row g + 8)
@@ -801,12 +736,6 @@ __device__ __forceinline__ void mma_ss(float (&c)[32], uint32_t a,
                          hopper::kmajor_desc(b, STREAM, kk), kk > 0);
 }
 
-// a consumer warp is done with a stage or an own-tile buffer
-__device__ __forceinline__ void release(uint64_t* bar) {
-  __syncwarp();
-  if (threadIdx.x % 32 == 0) hopper::mbar_arrive(bar);
-}
-
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_dq_bf16(const __grid_constant__ Maps maps, const Params p,
@@ -814,7 +743,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   using S = Smem90<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
-  init_barriers(smem, S::bar_off);
+  hopper::init_barriers<STAGES>(smem, S::bar_off);
   const Bars bar(smem, S::bar_off);
   // unit u: query tile n_qt - 1 - u / BH (the high ones see the most keys)
   // of (batch, head) u % BH
@@ -939,7 +868,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   using S = Smem90<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
-  init_barriers(smem, S::bar_off);
+  hopper::init_barriers<STAGES>(smem, S::bar_off);
   const Bars bar(smem, S::bar_off);
   // unit u: key tile u / BH (the low ones see the most queries) of
   // (batch, head) u % BH
@@ -1068,10 +997,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 // ------------------------------------------------------------- launching
 // The Hopper kernels: the four TMA maps (own tiles with boxes of 128 rows,
-// streamed ones of 64), the shared-memory opt-in, a check that the kernel
-// was built with the registers setmaxnreg hands over (a consumer asking
-// for more than the CTA holds would wait forever), and one persistent CTA
-// an SM, or one a unit where there are fewer units.
+// streamed ones of 64), the first launch's checks (hopper.cuh,
+// prepare_persistent), and one persistent CTA an SM, or one a unit where
+// there are fewer units.
 template <int D, bool DKV>
 cudaError_t launch_sm90(const Params& p, int bh, cudaStream_t stream) {
   static std::atomic<int> sms{0};
@@ -1099,23 +1027,8 @@ cudaError_t launch_sm90(const Params& p, int bh, cudaStream_t stream) {
     if (e != cudaSuccess) return e;
   }
   const size_t smem = Smem90<D>::bytes;
-  if (sms.load() == 0) {
-    cudaFuncAttributes attr;
-    cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
-    if (e != cudaSuccess) return e;
-    if (attr.numRegs * THREADS < 2 * WG * CONSUMER_REGS + WG * PRODUCER_REGS)
-      return cudaErrorInvalidConfiguration;
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return e;
-    int device = 0, n = 0;
-    e = cudaGetDevice(&device);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
-    if (e != cudaSuccess) return e;
-    sms.store(n);
-  }
+  const cudaError_t e = hopper::prepare_persistent(kernel, smem, sms);
+  if (e != cudaSuccess) return e;
   const long long units = (long long)(s_own + OWN - 1) / OWN * bh;
   const dim3 grid((unsigned)std::min<long long>(units, sms.load()));
   kernel<<<grid, THREADS, smem, stream>>>(m, p, bh);

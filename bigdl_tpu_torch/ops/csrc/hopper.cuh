@@ -1,6 +1,9 @@
-// Hopper (sm_90a) building blocks of the flash-attention backward: mbarriers,
+// Hopper (sm_90a) building blocks of the flash-attention kernels: mbarriers,
 // TMA tensor-map loads, warpgroup matrix multiply (wgmma) on 128-byte
-// swizzled shared-memory tiles, and register hand-over between warpgroups.
+// swizzled shared-memory tiles, register hand-over between warpgroups, and
+// the frame the forward and the backward share: persistent CTAs of two
+// consumer warpgroups and a producer warpgroup, a unit's own tiles in two
+// buffers, a ring of streamed tiles.
 //
 // Tile layout. A tile of R rows of D bf16 (D a multiple of 64) lies in
 // shared memory as D/64 column blocks of R rows x 128 bytes, each written by
@@ -15,8 +18,8 @@
 //     (16 rows) starts at row 16 kk; 8-row groups 1024 bytes apart (SBO),
 //     the next 64 columns one column block (R x 128 bytes) further (LBO).
 //
-// Included by flash_bwd.cu (ops/_build.py hashes every header with each
-// source).
+// Included by flash_fwd.cu and flash_bwd.cu (ops/_build.py hashes every
+// header with each source).
 
 #pragma once
 
@@ -24,6 +27,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <atomic>
 #include <mutex>
 
 namespace hopper {
@@ -216,6 +221,41 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(acc));
 }
 
+// D (64 x 128 f32) = A (64 x 16) B (16 x 128) [+ D when acc], A and B from
+// shared memory, both K-major
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                               uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
 // D (64 x 64 f32) += A (64 x 16, registers) B (16 x 64), B from shared
 // memory, MN-major (transposed)
 __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32],
@@ -276,6 +316,103 @@ __device__ __forceinline__ void wgmma_rs_n128_tb(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// ------------------------------------- persistent warp-specialised CTAs
+// A persistent CTA on each SM walks its share of the units (one 128-row
+// tile of one (batch, head)). Two consumer warpgroups own 64 rows of a
+// unit each. The first warp of a producer warpgroup TMA-loads each unit's
+// own tiles into one of two buffers, a unit ahead, and streams the other
+// side's tiles through a ring of shared-memory stages that runs on from
+// unit to unit. setmaxnreg moves registers to the consumers: ptxas sizes a
+// kernel that hands registers over by whole warpgroups, 168 a thread for
+// __launch_bounds__(384, 1), and 2 x 128 x 240 + 128 x 24 = 384 x 168.
+constexpr int WG = 128;          // threads of a warpgroup
+constexpr int THREADS = 3 * WG;  // two consumer warpgroups, a producer
+constexpr int CONSUMER_REGS = 240, PRODUCER_REGS = 24;
+
+// full/empty barriers of a ring of N stages, and of each own-tile buffer
+template <int N>
+struct Bars {
+  static constexpr uint32_t bytes = (2 * N + 4) * 8;
+  uint64_t *full, *empty, *own_full, *own_empty;
+  __device__ __forceinline__ Bars(unsigned char* smem, uint32_t off)
+      : full(reinterpret_cast<uint64_t*>(smem + off)),
+        empty(full + N),
+        own_full(empty + N),
+        own_empty(own_full + 2) {}
+};
+
+// a kernel's tensor maps: its own tiles (a, b) and the streamed ones (c, e)
+struct Maps {
+  CUtensorMap a, b, c, e;
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t s = smem_u32(p);
+  return p + ((1024 - (s & 1023)) & 1023);
+}
+
+// A stage is full when the producer warp's 32 lanes have arrived and its
+// TMA bytes have landed, empty when every consumer warp (8) has arrived;
+// an own-tile buffer is full when lane 0 has arrived and its bytes landed.
+template <int N>
+__device__ __forceinline__ void init_barriers(unsigned char* smem,
+                                              uint32_t bar_off) {
+  if (threadIdx.x == 0) {
+    const Bars<N> bar(smem, bar_off);
+    for (int s = 0; s < N; ++s) {
+      mbar_init(&bar.full[s], 32);
+      mbar_init(&bar.empty[s], 8);
+    }
+    for (int o = 0; o < 2; ++o) {
+      mbar_init(&bar.own_full[o], 1);
+      mbar_init(&bar.own_empty[o], 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+}
+
+// Unit i of this CTA, or -1: the units are numbered heaviest first, and
+// round r hands units rG .. rG + G - 1 to the G CTAs, every other round in
+// reverse, so that each CTA's sum of work comes out about even.
+__device__ __forceinline__ int nth_unit(int i, int n_units) {
+  const int G = gridDim.x, c = blockIdx.x;
+  const int u = i * G + ((i & 1) ? G - 1 - c : c);
+  return u < n_units ? u : -1;
+}
+
+// rows [row, row + rows) of (batch b, head h) through `map`, D/64 boxes
+template <int D>
+__device__ __forceinline__ void tma_tile(unsigned char* dst,
+                                         const CUtensorMap* map,
+                                         uint64_t* bar, int row, int h, int b,
+                                         int rows) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c)
+    tma_load_4d(dst + c * rows * 128, map, bar, c * 64, row, h, b);
+}
+
+// a consumer warp is done with a stage or an own-tile buffer: lane 0
+// arrives, by a predicated instruction and not a branch, so that it may sit
+// between a wgmma and its wait (ptxas serializes every wgmma of a kernel
+// that has a branch there)
+__device__ __forceinline__ void release(uint64_t* bar) {
+  __syncwarp();
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.u32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(smem_u32(bar)),
+      "r"(threadIdx.x % 32)
+      : "memory");
+}
+
+// 2^x in one MUFU.EX2; a result below 2^-126 flushes to 0 (exp2f's
+// handling of subnormals costs more than the rest of an elementwise pass)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // -------------------------------------------------------- host: tensor maps
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
@@ -330,6 +467,32 @@ inline cudaError_t make_map_4d(CUtensorMap* map, const void* base, int d,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The first launch of a kernel of persistent CTAs: check that it was built
+// with the registers setmaxnreg hands over (a consumer asking for more than
+// the CTA holds would wait forever), opt in to `smem` bytes of shared
+// memory, and read the SM count into `sms`. Later launches skip this, so
+// that they can be captured into a CUDA graph.
+template <typename Kernel>
+inline cudaError_t prepare_persistent(Kernel kernel, size_t smem,
+                                      std::atomic<int>& sms) {
+  if (sms.load() != 0) return cudaSuccess;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return e;
+  if (attr.numRegs * THREADS < 2 * WG * CONSUMER_REGS + WG * PRODUCER_REGS)
+    return cudaErrorInvalidConfiguration;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return e;
+  int device = 0, n = 0;
+  e = cudaGetDevice(&device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return e;
+  sms.store(n);
+  return cudaSuccess;
 }
 
 }  // namespace hopper

@@ -10,9 +10,10 @@ build/ab/base.cu``). Both are built with the port's nvcc flags, the
 baseline against the headers of ``ops/csrc``.
 
 * Forward (``flash_fwd``, with or without the ``seg`` argument that
-  commits up to e94eaf5 lack): at each serving prefill shape (1 batch x 8
-  heads x s x s x 128, causal) and at the training step's (8 x 8 x 1024 x
-  1024 x 128, bf16).
+  commits up to e94eaf5 lack), causal: at each serving prefill shape (1
+  batch x 8 heads x s x s x 128, and s_q = 16 against 1024 keys), at the
+  training step's (8 x 8 x 1024 x 1024 x 128, bf16) and at 2 x 8 x 512 x
+  512 x 64.
 * Backward (``flash_dq`` and ``flash_dkv``): at the training step's shape
   and at 2 x 8 x 512 x 512 x 64, bf16, causal; both kernels and their sum.
 
@@ -33,9 +34,12 @@ from pathlib import Path
 
 import torch
 
-FWD_SHAPES = [(1, 128, "bfloat16"), (1, 512, "bfloat16"),
-              (1, 1024, "bfloat16"), (1, 1024, "float32"),
-              (8, 1024, "bfloat16")]
+# (batch, s_q, s_k, head_dim, dtype), 8 heads
+FWD_SHAPES = [(1, 128, 128, 128, "bfloat16"), (1, 512, 512, 128, "bfloat16"),
+              (1, 1024, 1024, 128, "bfloat16"),
+              (1, 1024, 1024, 128, "float32"),
+              (8, 1024, 1024, 128, "bfloat16"),
+              (1, 16, 1024, 128, "bfloat16"), (2, 512, 512, 64, "bfloat16")]
 BWD_SHAPES = [(8, 1024, 128), (2, 512, 64)]  # (batch, s, head_dim), 8 heads
 TURNS = 10
 BWD_TOL = 2e-2  # max|d| / max|ref| of each gradient, as chip_smoke.py
@@ -76,10 +80,10 @@ def _ab_fwd(ak, device_ms, lib, entry) -> None:
         fn.argtypes = current.argtypes
         baseline = fn
     versions = {"baseline": baseline, "current": current}
-    for b, s, dt in FWD_SHAPES:
-        g = torch.Generator(device="cuda").manual_seed(s)
-        q, k, v = (torch.randn(b, 8, s, 128, device="cuda", generator=g)
-                   .to(getattr(torch, dt)) for _ in range(3))
+    for b, sq, sk, d, dt in FWD_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(sq + sk)
+        q, k, v = (torch.randn(b, 8, n, d, device="cuda", generator=g)
+                   .to(getattr(torch, dt)) for n in (sq, sk, sk))
         o_ref, _ = ak.flash_attention_reference(q, k, v, True)
 
         def install(version):
@@ -90,12 +94,14 @@ def _ab_fwd(ak, device_ms, lib, entry) -> None:
             err = float((o.float() - o_ref.float()).abs().max())
             if err > (2e-5 if dt == "float32" else 2e-2):
                 raise SystemExit(f"{name} disagrees with the plain version "
-                                 f"at s={s} {dt}: {err:.3e}")
+                                 f"at s_q={sq} s_k={sk} d={d} {dt}: "
+                                 f"{err:.3e}")
 
         times = _turns(versions, install, check, lambda: device_ms(
             lambda: ak.flash_fwd(q, k, v, True)))
         ak._fns["flash_fwd"] = current
-        _report(f"flash_fwd b={b} s={s} {dt}", times)
+        _report(f"flash_fwd b={b} h=8 s_q={sq} s_k={sk} d={d} {dt} causal",
+                times)
 
 
 def _ab_bwd(ak, device_ms, lib) -> None:
@@ -169,6 +175,7 @@ def main(argv=None) -> int:
                          text=True).stdout.strip(), flush=True)
     out = _build.BUILD_DIR.parent / "ab" / f"lib{args.baseline.stem}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
+    print(f"baseline: {args.baseline}", flush=True)
     built = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
                             "-I", str(_build.CSRC), "-o", str(out),
                             str(args.baseline)], check=True,

@@ -14,13 +14,17 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    the port never calls) and the bound (the least time the card could
    take: bytes over 3.35 TB/s or operations over the peak rate of their
    type, whichever is larger, over the score entries the causal mask and
-   the segments leave live). The forward at 8 shapes; the backward pair
-   (``flash_dq``, ``flash_dkv``) and the forward with ``segments`` at 6,
-   with ``_delta`` (plain PyTorch) timed beside the pair: the library's
-   backward computes its own delta, so pair plus delta is the like-for-like
-   figure. At the training step's shape the pair runs twice and must give
-   the same bits. ptxas's registers and spills of the Hopper backward
-   kernels print after the build.
+   the segments leave live). The forward at 15 shapes (ragged s, s_q <
+   s_k, d = 64 and 128, ``segments`` from ``packed_segments``, s = 4096,
+   non-causal at the training shape, 16 x 16 heads of 512),
+   each row naming the kernel the shape rule of ``csrc/flash_fwd.cu``
+   picks; the backward pair (``flash_dq``, ``flash_dkv``) and the forward
+   with ``segments`` at 6, with ``_delta`` (plain PyTorch) timed beside
+   the pair: the library's backward computes its own delta, so pair plus
+   delta is the like-for-like figure. At the training step's shape the forward
+   and the pair each run twice and must give the same bits. ptxas's
+   registers and spills of the Hopper kernels (forward and backward) print
+   after the build.
 3. Training at full width through ``cli.perf.run``:
    ``transformer_lm_1k_hd128`` in bf16, batch 8, 2 warm-up and 5 timed
    SGD steps on one resident batch: the loss is finite and falls, and each
@@ -89,15 +93,27 @@ import urllib.request
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bfloat16": 989e12,  # dense bf16 tensor cores
             "float32": 67e12}    # f32 FMA outside the tensor cores
-# kernel vs plain: (b, h, s_q, s_k, d, causal, dtype)
-SHAPES = [(8, 8, 1024, 1024, 128, True, "bfloat16"),  # the training step's
-          (1, 8, 1024, 1024, 128, True, "bfloat16"),
-          (1, 8, 1024, 1024, 128, True, "float32"),
-          (2, 8, 512, 512, 64, True, "bfloat16"),
-          (2, 8, 512, 512, 64, False, "bfloat16"),
-          (1, 8, 16, 1024, 128, True, "bfloat16"),
-          (1, 8, 1000, 1000, 128, True, "float32"),
-          (1, 8, 16, 16, 128, True, "bfloat16")]
+# kernel vs plain: (b, h, s_q, s_k, d, causal, dtype, segments)
+SHAPES = [(8, 8, 1024, 1024, 128, True, "bfloat16", False),  # training's
+          (1, 8, 1024, 1024, 128, True, "bfloat16", False),
+          (1, 8, 1024, 1024, 128, True, "float32", False),
+          (2, 8, 512, 512, 64, True, "bfloat16", False),
+          (2, 8, 512, 512, 64, False, "bfloat16", False),
+          (1, 8, 16, 1024, 128, True, "bfloat16", False),
+          (1, 8, 1000, 1000, 128, True, "float32", False),
+          (1, 8, 16, 16, 128, True, "bfloat16", False),
+          (1, 8, 1000, 1000, 128, True, "bfloat16", False),
+          (1, 8, 1000, 1000, 64, True, "bfloat16", False),
+          (1, 8, 16, 1024, 64, True, "bfloat16", False),
+          (8, 8, 1024, 1024, 128, True, "bfloat16", True),
+          # long prompts: 32 key tiles a query tile, where the per-tile
+          # work and not a tile's start and end sets the time
+          (2, 8, 4096, 4096, 128, True, "bfloat16", False),
+          # off the main paths, where the forward is furthest behind the
+          # library: every key tile of every unit live (no causal skip),
+          # and 1024 short units of at most 4 key tiles
+          (8, 8, 1024, 1024, 128, False, "bfloat16", False),
+          (16, 16, 512, 512, 128, True, "bfloat16", False)]
 # (atol O, atol lse, rtol): f32 sums the softmax in another order than
 # the plain version; bf16 rounds P to bf16 at another running max
 TOL = {"float32": (2e-5, 2e-5, 1e-5), "bfloat16": (2e-2, 1e-2, 0.0)}
@@ -160,22 +176,27 @@ def fail(msg):
 
 def print_ptxas(log, kernels):
     """ptxas's register and spill lines of the instances of ``kernels``
-    (e.g. ``flash_dq_bf16<128>``), and any warning it gave."""
+    (e.g. ``flash_dq_bf16<128>``, ``flash_fwd_sm90<128, true>``), any
+    warning it gave, and any "Potential Performance Loss" note (an info
+    line: serialized wgmma shows there)."""
     for block in log.split("Compiling entry function '")[1:]:
-        # the mangled name ends in <length>flash_..._bf16ILi<D>E...
-        m = re.search(r"\d(flash_[a-z0-9_]+?)ILi(\d+)E", block.split("'")[0])
+        # the mangled name ends in <length>flash_..._bf16ILi<D>E[Lb<0|1>E]
+        m = re.search(r"\d(flash_[a-z0-9_]+?)ILi(\d+)E(?:Lb([01])E)?",
+                      block.split("'")[0])
         if m is None or m.group(1) not in kernels:
             continue
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", block)
-        print(f"    {m.group(1)}<{m.group(2)}>: "
+        args = m.group(2) + ("" if m.group(3) is None else
+                             ", true" if m.group(3) == "1" else ", false")
+        print(f"    {m.group(1)}<{args}>: "
               f"{regs.group(1) if regs else '?'} registers, "
               f"{spill.group(1) if spill else '?'} bytes spill stores, "
               f"{spill.group(2) if spill else '?'} bytes spill loads",
               flush=True)
     for line in log.splitlines():
-        if "warning" in line.lower():
+        if "warning" in line.lower() or "Performance Loss" in line:
             print(f"    {line.strip()}", flush=True)
 
 
@@ -597,21 +618,42 @@ def cli_runs(torch):
     return launches
 
 
+def fwd_kernel_name(d, dt):
+    """The kernel ``flash_fwd`` launches at head dim ``d`` in ``dt``, by
+    the shape rule in ``csrc/flash_fwd.cu`` (``flash_fwd_kernel``)."""
+    import ctypes
+
+    from bigdl_tpu_torch.ops import _build
+
+    fn = _build.load("flash_fwd").flash_fwd_kernel
+    fn.restype, fn.argtypes = ctypes.c_char_p, [ctypes.c_int] * 2
+    return fn(d, int(dt == "bfloat16")).decode()
+
+
 def check_flash(torch, ak):
     import torch.nn.functional as F
 
     from bigdl_tpu_torch.tools.timing import device_ms
 
     rows = []
-    for b, h, sq, sk, d, causal, dt in SHAPES:
+    for b, h, sq, sk, d, causal, dt, use_seg in SHAPES:
         dtype = getattr(torch, dt)
         g = torch.Generator(device="cuda").manual_seed(sq * 7 + sk)
         q = torch.randn(b, h, sq, d, device="cuda", generator=g).to(dtype)
         k = torch.randn(b, h, sk, d, device="cuda", generator=g).to(dtype)
         v = torch.randn(b, h, sk, d, device="cuda", generator=g).to(dtype)
-        o, lse = ak.flash_fwd(q, k, v, causal)
-        o_ref, lse_ref = ak.flash_attention_reference(q, k, v, causal)
+        seg = packed_segments(torch, b, sq, seed=sq) if use_seg else None
+        o, lse = ak.flash_fwd(q, k, v, causal, seg)
+        o_ref, lse_ref = ak.flash_attention_reference(q, k, v, causal, seg)
         torch.cuda.synchronize()
+        if not rows:  # the training step's shape: the same bits twice
+            o2, lse2 = ak.flash_fwd(q, k, v, causal, seg)
+            torch.cuda.synchronize()
+            same = bool(torch.equal(o, o2)) and bool(torch.equal(lse, lse2))
+            print(f"flash_fwd b={b} h={h} s_q={sq} s_k={sk} d={d} {dt}: a "
+                  f"second run gives the same bits: {same}", flush=True)
+            if not same:
+                fail("the forward is not deterministic")
         atol_o, atol_l, rtol = TOL[dt]
         d_o = (o.float() - o_ref.float()).abs()
         d_l = (lse - lse_ref).abs()
@@ -627,26 +669,32 @@ def check_flash(torch, ak):
             lambda: F.scaled_dot_product_attention(q, k, v,
                                                    is_causal=causal))
         row = {"shape": [b, h, sq, sk, d], "causal": causal, "dtype": dt,
+               "segments": use_seg,
+               "kernel": fwd_kernel_name(d, dt),
                "max_abs_err": float(d_o.max()),
                "max_abs_err_lse": float(d_l.max()),
-               "ms": device_ms(lambda: ak.flash_fwd(q, k, v, causal)),
+               "ms": device_ms(lambda: ak.flash_fwd(q, k, v, causal, seg)),
                "plain_ms": device_ms(lambda: ak.flash_attention_reference(
-                   q, k, v, causal)),
-               "library_ms": device_ms(lib), "ok": ok}
+                   q, k, v, causal, seg)),
+               "library_ms": None if use_seg else device_ms(lib), "ok": ok}
         row["bound_ms"], row["bound_by"] = flash_bound_ms(
-            live_scores(torch, b, h, sq, sk, causal), b, h, sq, sk, d, dt)
+            live_scores(torch, b, h, sq, sk, causal, seg), b, h, sq, sk, d,
+            dt)
         rows.append(row)
+        lib_ms = ("-" if row["library_ms"] is None
+                  else f"{row['library_ms']:.4f}")
         print(f"flash_fwd b={b} h={h} s_q={sq} s_k={sk} d={d} "
-              f"causal={int(causal)} {dt}: max|dO|={row['max_abs_err']:.3e} "
+              f"causal={int(causal)} {dt}{' segments' if use_seg else ''} "
+              f"[{row['kernel']}]: max|dO|={row['max_abs_err']:.3e} "
               f"max|dlse|={row['max_abs_err_lse']:.3e} "
               f"kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-              f"library_ms={row['library_ms']:.4f} "
+              f"library_ms={lib_ms} "
               f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
               f"{'ok' if ok else 'FAIL'}", flush=True)
     bad = [r for r in rows if not r["ok"]]
     if bad:
         fail(f"flash_fwd disagrees with its plain version at "
-             f"{[(r['shape'], r['dtype']) for r in bad]}")
+             f"{[(r['shape'], r['dtype'], r['segments']) for r in bad]}")
     return rows
 
 
@@ -1230,6 +1278,8 @@ def main():
               f"of spill stores and loads", flush=True)
         if name == "flash_bwd":
             print_ptxas(info["log"], ("flash_dq_bf16", "flash_dkv_bf16"))
+        if name == "flash_fwd":
+            print_ptxas(info["log"], ("flash_fwd_sm90",))
 
     rows = check_flash(torch, ak)
     bwd_rows = check_flash_bwd(torch, ak)
@@ -1269,6 +1319,7 @@ def main():
     src = "bigdl_tpu_torch/ops/csrc/"
     kernels = [
         dict(common, name="flash_fwd", source=src + "flash_fwd.cu",
+             kernel=head["kernel"],
              replaces="bigdl_tpu/ops/attention_kernel.py:211",
              launches=launches["flash_fwd"], max_abs_err=head["max_abs_err"],
              ms=head["ms"], plain_ms=head["plain_ms"],

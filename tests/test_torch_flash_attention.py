@@ -31,6 +31,13 @@ def _qkv(b, h, sq, sk, d, seed):
     ((1, 2, 64, 64, 32), False, (32, 16)),
     ((1, 2, 16, 64, 32), True, (16, 16)),   # s_q < s_k: bottom-right causal
     ((1, 2, 40, 40, 32), True, (16, 8)),    # ragged s = 40
+    # the head dims of the Hopper kernel: s ragged against its 128-row
+    # tiles, and s_q < s_k
+    ((1, 2, 200, 200, 64), True, (64, 8)),
+    ((1, 2, 200, 200, 128), True, (64, 8)),
+    ((1, 2, 40, 200, 128), True, (16, 8)),
+    ((1, 1, 16, 136, 64), True, (16, 8)),
+    ((1, 2, 72, 200, 64), False, (8, 8)),
 ])
 def test_reference_matches_pallas_fwd(shape, causal, blocks):
     b, h, sq, sk, d = shape
@@ -97,7 +104,11 @@ def test_routing_and_wrapper_contract():
 @pytest.mark.parametrize("sq,sk,bq,bk,causal", [
     (1024, 1024, 512, 512, True), (1024, 1024, 64, 64, True),
     (256, 1024, 64, 64, True), (512, 512, 128, 64, False),
-    (128, 384, 64, 128, True)])
+    (128, 384, 64, 128, True),
+    # the Hopper forward's 128-row query tiles, 128- or 64-key tiles
+    (1024, 1024, 128, 128, True), (1152, 1152, 128, 128, True),
+    (256, 1024, 128, 128, True), (128, 1024, 128, 64, True),
+    (1024, 1024, 128, 128, False)])
 def test_live_tile_pairs_matches_jax(sq, sk, bq, bk, causal):
     assert ak.live_tile_pairs(sq, sk, bq, bk, causal, sk - sq) == \
         _live_block_pairs(sq, sk, bq, bk, causal, sk - sq)
@@ -110,25 +121,61 @@ def test_live_tile_pairs_ragged_and_empty():
     assert ak.live_tile_pairs(128, 32, 64, 64, True, -96) == 1
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,d,causal,sq,sk", [
-    (torch.bfloat16, 128, True, 1024, 1024),
-    (torch.float32, 128, True, 1000, 1000),
-    (torch.bfloat16, 64, False, 512, 512),
-    (torch.bfloat16, 128, True, 16, 1024),
-    (torch.float32, 32, True, 40, 72),
-])
-def test_cuda_kernel_matches_plain(dtype, d, causal, sq, sk):
+def _cuda_qkv(dtype, d, sq, sk):
     if not torch.cuda.is_available():
         pytest.skip("torch.cuda unavailable")
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = (torch.randn(2, 4, s, d, device="cuda", generator=g).to(dtype)
-               for s in (sq, sk, sk))
-    o, lse = ak.flash_fwd(q, k, v, causal)
-    o_ref, lse_ref = flash_attention_reference(q, k, v, causal)
+    return tuple(torch.randn(2, 4, s, d, device="cuda", generator=g).to(dtype)
+                 for s in (sq, sk, sk))
+
+
+def _cuda_segments(sq):
+    """(2, sq) packed document ids with id-0 padding at the end of each
+    row."""
+    rs = np.random.RandomState(sq)
+    seg = np.zeros((2, sq), np.int32)
+    for row in seg:
+        cuts = np.sort(rs.choice(np.arange(1, sq - 8), 3, replace=False))
+        for i, (a, b) in enumerate(zip([0, *cuts], [*cuts, sq - 8])):
+            row[a:b] = i + 1
+    return torch.from_numpy(seg).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,causal,sq,sk,use_seg", [
+    (torch.bfloat16, 128, True, 1024, 1024, False),
+    (torch.float32, 128, True, 1000, 1000, False),
+    (torch.bfloat16, 64, False, 512, 512, False),
+    (torch.bfloat16, 128, True, 16, 1024, False),
+    (torch.float32, 32, True, 40, 72, False),
+    (torch.bfloat16, 128, True, 1024, 1024, True),
+    (torch.bfloat16, 64, True, 1000, 1000, False),
+    (torch.bfloat16, 128, True, 1000, 1000, False),
+    (torch.bfloat16, 64, True, 16, 1024, False),
+    (torch.bfloat16, 64, True, 300, 300, True),
+])
+def test_cuda_kernel_matches_plain(dtype, d, causal, sq, sk, use_seg):
+    q, k, v = _cuda_qkv(dtype, d, sq, sk)
+    seg = _cuda_segments(sq) if use_seg else None
+    o, lse = ak.flash_fwd(q, k, v, causal, seg)
+    o_ref, lse_ref = flash_attention_reference(q, k, v, causal, seg)
     torch.cuda.synchronize()
     atol_o, atol_l = (2e-5, 2e-5) if dtype == torch.float32 else (2e-2, 1e-2)
     torch.testing.assert_close(o.float(), o_ref.float(), atol=atol_o,
                                rtol=1e-5)
     torch.testing.assert_close(lse, lse_ref, atol=atol_l, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,use_seg", [(128, False), (64, True)])
+def test_cuda_forward_is_deterministic(d, use_seg):
+    """Every output row is written once by one CTA, without atomics: two
+    runs on the same inputs give the same bits."""
+    q, k, v = _cuda_qkv(torch.bfloat16, d, 1024, 1024)
+    seg = _cuda_segments(1024) if use_seg else None
+    first = ak.flash_fwd(q, k, v, True, seg)
+    second = ak.flash_fwd(q, k, v, True, seg)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)

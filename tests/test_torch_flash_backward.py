@@ -174,15 +174,17 @@ def test_wrappers_count_only_kernel_launches_and_refuse_cpu_tensors():
 # must be bound with (a pointer bound as an int would be cut to 32 bits)
 _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
             "const int*": ctypes.c_void_p, "const long long*": ctypes.c_void_p,
-            "int": ctypes.c_int, "float": ctypes.c_float}
+            "int": ctypes.c_int, "float": ctypes.c_float,
+            "long long": ctypes.c_longlong}
 
 
-@pytest.mark.parametrize("name", ["flash_dq", "flash_dkv"])
+@pytest.mark.parametrize("name", ["flash_dq", "flash_dkv", "flash_fwd"])
 def test_bwd_entry_points_match_their_bindings(name, monkeypatch):
-    """The extern "C" signature in flash_bwd.cu against the argtypes
-    attention_kernel._bind sets, without a card: a library stand-in takes
-    the place of the built one."""
-    src = (Path(ak.__file__).parent / "csrc" / "flash_bwd.cu").read_text()
+    """The extern "C" signature in flash_bwd.cu (flash_fwd.cu for the
+    forward) against the argtypes attention_kernel._bind sets, without a
+    card: a library stand-in takes the place of the built one."""
+    source = "flash_fwd.cu" if name == "flash_fwd" else "flash_bwd.cu"
+    src = (Path(ak.__file__).parent / "csrc" / source).read_text()
     entry = re.search(rf'extern "C" int {name}\(([^)]*)\)', src)
     assert entry is not None
     c_types = []
