@@ -11,6 +11,12 @@ the place of the JAX package's ``custom_vjp`` pair: :func:`fused_bn_train`
 dx elementwise in PyTorch) and :func:`fused_bn_apply_train` (the whole
 block both ways).
 
+A stated difference: the port's :func:`bn_bwd_stats` takes (dy, x, mean,
+inv) where the JAX one takes (dy, x̂); it takes the same sums of the same
+x̂ = (x − mean)·inv, formed in the kernel instead of read as an f32 array,
+so it reads x in its own dtype (4 bytes an element of bf16 dy and x, not
+6).
+
 Operands are (rows, C) with C contiguous, f32 or bf16; sums and the
 per-channel vectors are f32. On a CPU tensor a wrapper runs its plain
 version; on a CUDA tensor it launches its kernel or raises. Any other
@@ -21,9 +27,14 @@ goes through the kernel. Its autotuner hooks (``row_block``) are not
 ported either (ROADMAP.md queue 1 item 12).
 
 A wrapper call is one count of its ``launches``, whatever it launches:
-:func:`bn_stats` and :func:`bn_bwd_stats` run one kernel,
-:func:`bn_fwd_apply` and :func:`bn_bwd_fused` two (the reduction, then the
-elementwise pass), each after a small memset of its counters.
+:func:`bn_stats` runs one kernel and :func:`bn_fwd_apply` two (the
+reduction, then the elementwise pass), each after a small memset of its
+counters; :func:`bn_bwd_stats` and :func:`bn_bwd_fused` one cooperative
+kernel and nothing else. That kernel's grid-wide barrier keeps two
+counters per (device, stream), zeroed when a stream first calls it and
+left at zero by every launch; a CUDA graph captured on a stream shares
+that stream's counters, so it must not replay while eager calls run on
+its capture stream.
 """
 
 from __future__ import annotations
@@ -39,13 +50,17 @@ __all__ = ["bn_stats", "bn_bwd_stats", "bn_fwd_apply", "bn_bwd_fused",
            "fused_bn_train", "fused_bn_apply_train"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_STATS, _BWD_STATS, _FWD, _BWD = range(4)
+_STATS, _FWD = 0, 2  # bn_reduce's modes
+_VECS = ("mean", "inv", "gamma", "beta")
 _NTHREADS = 256   # threads per CTA (csrc/bn.cu NTHREADS)
-_CTAS_PER_SM = 4  # CTAs of the row sweep per SM
+_CTAS_PER_SM = 4  # CTAs of the forward pair's row sweep per SM
+_BWD_ROWS = 8     # least rows a thread per slab of the backward pair
 
 _count_lock = threading.Lock()
 _fns: dict = {}
 _sms: dict = {}
+_ctas: dict = {}
+_syncs: dict = {}
 
 
 # ------------------------------------------------------------ plain twins
@@ -55,10 +70,10 @@ def bn_stats_reference(x2d):
     return xf.sum(0), (xf * xf).sum(0)
 
 
-def bn_bwd_stats_reference(dy2d, xhat2d):
-    """(Σdy, Σ(dy·x̂)) per channel, in f32."""
+def bn_bwd_stats_reference(dy2d, x2d, mean, inv):
+    """(Σdy, Σ(dy·x̂)) per channel in f32, x̂ = (x − mean)·inv."""
     dyf = dy2d.float()
-    return dyf.sum(0), (dyf * xhat2d.float()).sum(0)
+    return dyf.sum(0), (dyf * ((x2d.float() - mean) * inv)).sum(0)
 
 
 def bn_fwd_apply_reference(x2d, gamma, beta, eps: float, relu: bool = False):
@@ -100,25 +115,29 @@ def _bind(name: str):
         fn = getattr(_build.load("bn"), name)
         ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
                               ctypes.c_longlong, ctypes.c_float)
-        head = [i32] * 6 + [i64] + [ptr] * 6
-        if name == "bn_reduce":
-            fn.argtypes = head + [ptr] * 5 + [i64, i32, f32, i32, ptr]
-        else:  # bn_apply
-            fn.argtypes = head + [ptr] * 2 + [i64, i32, i32, ptr]
+        fn.argtypes = {
+            "bn_reduce": [i32] * 5 + [i64] + [ptr] * 8 + [i64, i32, f32,
+                                                          i32, ptr],
+            "bn_apply": [i32] * 5 + [i64] + [ptr] * 3 + [i64, i32, i32, ptr],
+            "bn_bwd_ctas": [i32] * 5 + [ctypes.POINTER(ctypes.c_int)],
+            "bn_bwd": [i32] * 7 + [i64] + [ptr] * 11 + [i64, i32, i32, ptr],
+        }[name]
         fn.restype = i32
         _fns[name] = fn
     return fn
 
 
 def _check_dtypes(kernel: str, **operands):
-    """The kernels take f32 or bf16 (x̂ of bn_bwd_stats: f32); checked on
-    every device, so no other dtype reaches either version."""
+    """The kernels take f32 or bf16 (rows, C) operands and f32 (C,)
+    vectors; checked on every device, so no other dtype reaches either
+    version."""
     for name, t in operands.items():
-        ok = (t.dtype == torch.float32 if name == "xhat2d"
+        ok = (t.dtype == torch.float32 if name in _VECS
               else t.dtype in _DTYPES)
         if not ok:
-            raise ValueError(f"{kernel} takes float32 or bfloat16 (xhat2d: "
-                             f"float32) operands, got {name} {t.dtype}")
+            raise ValueError(f"{kernel} takes float32 or bfloat16 operands "
+                             f"and float32 {'/'.join(_VECS)}, got {name} "
+                             f"{t.dtype}")
 
 
 def _check_cuda(kernel: str, mats: dict, vecs: dict = None):
@@ -158,12 +177,11 @@ def _sm_count(device) -> int:
     return _sms[idx]
 
 
-def _plan(rows: int, c: int, mats, device):
-    """(vec, tx, channel blocks, slabs, rows per slab): V channels a
-    thread, as wide as 16 bytes of the first operand where C and every
-    operand's alignment allow; TX threads across channels (a power of two
-    <= 32), 256 / TX across rows; enough slabs for ~4 CTAs an SM, with at
-    least 4 rows a thread per slab."""
+def _lanes(c: int, mats):
+    """(vec, tx, channel blocks): V channels a thread, as wide as 16 bytes
+    of the first operand where C and every operand's alignment allow; TX
+    threads across channels (a power of two <= 32), 256 / TX across
+    rows."""
     vec = 16 // mats[0].element_size()
     while vec > 1 and (c % vec or any(
             t.data_ptr() % (vec * t.element_size()) for t in mats)):
@@ -172,8 +190,15 @@ def _plan(rows: int, c: int, mats, device):
     tx = 1
     while tx < min(32, groups):
         tx *= 2
+    return vec, tx, -(-c // (tx * vec))
+
+
+def _plan(rows: int, c: int, mats, device):
+    """(vec, tx, channel blocks, slabs, rows per slab) of the forward pair:
+    :func:`_lanes`, and enough slabs for ~4 CTAs an SM, with at least 4
+    rows a thread per slab."""
+    vec, tx, blocks = _lanes(c, mats)
     ty = _NTHREADS // tx
-    blocks = -(-c // (tx * vec))
     slabs = max(1, min(-(-rows // (4 * ty)),
                        -(-_CTAS_PER_SM * _sm_count(device) // blocks),
                        65535))
@@ -202,36 +227,104 @@ def _raise_on(rc: int, kernel: str):
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
 
 
-def _reduce(kernel, mode, mats, vecs=(None,) * 4, eps=0.0, relu=False):
-    """Launch ``bn_reduce``; returns (out0, out1, aux, plan)."""
-    a, b = mats[0], (mats[1] if len(mats) > 1 else None)
-    rows, c = a.shape
-    plan = vec, tx, blocks, slabs, slab = _plan(rows, c, mats, a.device)
-    f32 = dict(dtype=torch.float32, device=a.device)
+def _reduce(kernel, mode, x2d, gamma=None, beta=None, eps=0.0):
+    """Launch ``bn_reduce`` (mode stats or fwd); returns (out0, out1, aux,
+    plan)."""
+    rows, c = x2d.shape
+    plan = vec, tx, blocks, slabs, slab = _plan(rows, c, (x2d,), x2d.device)
+    f32 = dict(dtype=torch.float32, device=x2d.device)
     out0, out1 = torch.empty(c, **f32), torch.empty(c, **f32)
-    aux = torch.empty((2, c), **f32) if mode in (_FWD, _BWD) else None
+    aux = torch.empty((2, c), **f32) if mode == _FWD else None
     part = torch.empty((2, slabs, c), **f32)
-    count = torch.zeros(blocks, dtype=torch.int32, device=a.device)
+    count = torch.zeros(blocks, dtype=torch.int32, device=x2d.device)
     rc = _bind("bn_reduce")(
-        mode, _DTYPES[a.dtype], int(relu), vec, tx, slabs, slab, a.data_ptr(),
-        _ptr(b), *(_ptr(v) for v in vecs), part.data_ptr(), count.data_ptr(),
+        mode, _DTYPES[x2d.dtype], vec, tx, slabs, slab, x2d.data_ptr(),
+        _ptr(gamma), _ptr(beta), part.data_ptr(), count.data_ptr(),
         out0.data_ptr(), out1.data_ptr(), _ptr(aux), rows, c, float(eps),
-        *_stream(a))
+        *_stream(x2d))
     _raise_on(rc, kernel)
     return out0, out1, aux, plan
 
 
-def _apply(kernel, mode, mats, vecs, aux, plan, relu):
-    """Launch ``bn_apply`` (y or dx) on the plan of the reduction."""
-    a, b = mats[0], (mats[1] if len(mats) > 1 else None)
+def _apply(kernel, x2d, aux, plan, relu):
+    """Launch ``bn_apply`` (y) on the plan of the reduction."""
     vec, tx, _, slabs, slab = plan
-    out = torch.empty_like(mats[-1])
+    out = torch.empty_like(x2d)
     rc = _bind("bn_apply")(
-        mode, _DTYPES[a.dtype], int(relu), vec, tx, slabs, slab, a.data_ptr(),
-        _ptr(b), *(_ptr(v) for v in vecs), aux.data_ptr(), out.data_ptr(),
-        a.shape[0], a.shape[1], *_stream(a))
+        _DTYPES[x2d.dtype], int(relu), vec, tx, slabs, slab, x2d.data_ptr(),
+        aux.data_ptr(), out.data_ptr(), x2d.shape[0], x2d.shape[1],
+        *_stream(x2d))
     _raise_on(rc, kernel)
     return out
+
+
+def _bwd_ctas(device, fused: bool, is_bf16: int, relu: bool, vec: int):
+    """CTAs of one ``bn_bwd`` instance that the card holds at once (the
+    most its cooperative launch may have)."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    key = (idx, fused, is_bf16, relu, vec)
+    if key not in _ctas:
+        n = ctypes.c_int(0)
+        _raise_on(_bind("bn_bwd_ctas")(int(fused), is_bf16, int(relu), vec,
+                                       idx, ctypes.byref(n)), "bn_bwd")
+        if n.value < 1:
+            raise RuntimeError("bn_bwd kernel: no CTA fits on an SM")
+        _ctas[key] = n.value
+    return _ctas[key]
+
+
+def _bwd_sync(device, stream: int):
+    """The barrier counters of ``bn_bwd`` for calls on ``stream``: zeroed
+    once, and left at zero by every launch."""
+    key = (device.index, stream)
+    with _count_lock:
+        if key not in _syncs:
+            _syncs[key] = torch.zeros(2, dtype=torch.int32, device=device)
+        return _syncs[key]
+
+
+def _bwd_plan(rows: int, tx: int, blocks: int, ctas: int):
+    """(slabs, rows per slab, grid) of ``bn_bwd``: one (channel block,
+    slab) a CTA for as many CTAs as the card holds, with at least
+    _BWD_ROWS rows a thread (fewer CTAs meet at the barriers of a small
+    array); one slab (and CTAs looping over channel blocks) when C has
+    more blocks than that."""
+    slabs = max(1, min(ctas // blocks,
+                       -(-rows // (_BWD_ROWS * (_NTHREADS // tx)))))
+    slab = -(-rows // slabs)
+    slabs = -(-rows // slab)
+    return slabs, slab, min(ctas, blocks * slabs)
+
+
+def _bwd(kernel, fused, dy2d, x2d, mean, inv, gamma=None, beta=None,
+         relu=False):
+    """Launch ``bn_bwd``; returns (Σdy, Σ(dy·x̂), dx or None)."""
+    rows, c = x2d.shape
+    dev, is_bf16 = x2d.device, _DTYPES[x2d.dtype]
+    relu = bool(relu) and fused
+    vec, tx, blocks = _lanes(c, (dy2d, x2d))
+    slabs, slab, grid = _bwd_plan(
+        rows, tx, blocks, _bwd_ctas(dev, fused, is_bf16, relu, vec))
+    f32 = dict(dtype=torch.float32, device=dev)
+    sdy, sdyx = torch.empty(c, **f32), torch.empty(c, **f32)
+    part = torch.empty((2, slabs, c), **f32)
+    dx = torch.empty_like(x2d) if fused else None
+    index, stream = _stream(x2d)
+    rc = _bind("bn_bwd")(
+        int(fused), is_bf16, int(relu), vec, tx, grid, slabs, slab,
+        dy2d.data_ptr(), x2d.data_ptr(), mean.data_ptr(), inv.data_ptr(),
+        _ptr(gamma), _ptr(beta), part.data_ptr(),
+        _bwd_sync(dev, stream).data_ptr(), sdy.data_ptr(), sdyx.data_ptr(),
+        _ptr(dx), rows, c, index, stream)
+    _raise_on(rc, kernel)
+    return sdy, sdyx, dx
+
+
+def _same_dtype(kernel, dy2d, x2d):
+    if dy2d.dtype != x2d.dtype:
+        raise ValueError(f"{kernel} kernel: dy {dy2d.dtype} and x "
+                         f"{x2d.dtype} must share a dtype")
 
 
 def bn_stats(x2d):
@@ -241,18 +334,21 @@ def bn_stats(x2d):
     if x2d.device.type == "cpu":
         return bn_stats_reference(x2d)
     _check_cuda("bn_stats", {"x2d": x2d})
-    s, sq, _, _ = _reduce("bn_stats", _STATS, (x2d,))
+    s, sq, _, _ = _reduce("bn_stats", _STATS, x2d)
     _count(bn_stats)
     return s, sq
 
 
-def bn_bwd_stats(dy2d, xhat2d):
-    """(Σdy, Σ(dy·x̂)) per channel: dy f32 or bf16, x̂ f32."""
-    _check_dtypes("bn_bwd_stats", dy2d=dy2d, xhat2d=xhat2d)
-    if dy2d.device.type == "cpu":
-        return bn_bwd_stats_reference(dy2d, xhat2d)
-    _check_cuda("bn_bwd_stats", {"dy2d": dy2d, "xhat2d": xhat2d})
-    sdy, sdyx, _, _ = _reduce("bn_bwd_stats", _BWD_STATS, (dy2d, xhat2d))
+def bn_bwd_stats(dy2d, x2d, mean, inv):
+    """(Σdy, Σ(dy·x̂)) per channel, x̂ = (x − mean)·inv: dy and x f32 or
+    bf16 (one dtype on the card), mean and inv f32 (C,)."""
+    _check_dtypes("bn_bwd_stats", dy2d=dy2d, x2d=x2d, mean=mean, inv=inv)
+    if x2d.device.type == "cpu":
+        return bn_bwd_stats_reference(dy2d, x2d, mean, inv)
+    _same_dtype("bn_bwd_stats", dy2d, x2d)
+    _check_cuda("bn_bwd_stats", {"dy2d": dy2d, "x2d": x2d},
+                {"mean": mean, "inv": inv})
+    sdy, sdyx, _ = _bwd("bn_bwd_stats", False, dy2d, x2d, mean, inv)
     _count(bn_bwd_stats)
     return sdy, sdyx
 
@@ -263,11 +359,10 @@ def bn_fwd_apply(x2d, gamma, beta, eps: float, relu: bool = False):
     _check_dtypes("bn_fwd_apply", x2d=x2d)
     if x2d.device.type == "cpu":
         return bn_fwd_apply_reference(x2d, gamma, beta, eps, relu)
-    vecs = {"gamma": gamma, "beta": beta}
-    _check_cuda("bn_fwd_apply", {"x2d": x2d}, vecs)
-    mean, var, aux, plan = _reduce("bn_fwd_apply", _FWD, (x2d,),
-                                   (gamma, beta, None, None), eps)
-    y = _apply("bn_fwd_apply", _FWD, (x2d,), (None,) * 4, aux, plan, relu)
+    _check_cuda("bn_fwd_apply", {"x2d": x2d}, {"gamma": gamma, "beta": beta})
+    mean, var, aux, plan = _reduce("bn_fwd_apply", _FWD, x2d, gamma, beta,
+                                   eps)
+    y = _apply("bn_fwd_apply", x2d, aux, plan, relu)
     _count(bn_fwd_apply)
     return y, mean, var
 
@@ -279,15 +374,11 @@ def bn_bwd_fused(dy2d, x2d, mean, inv, gamma, beta, relu: bool = False):
     if x2d.device.type == "cpu":
         return bn_bwd_fused_reference(dy2d, x2d, mean, inv, gamma, beta,
                                       relu)
-    if dy2d.dtype != x2d.dtype:
-        raise ValueError(f"bn_bwd_fused kernel: dy {dy2d.dtype} and x "
-                         f"{x2d.dtype} must share a dtype")
+    _same_dtype("bn_bwd_fused", dy2d, x2d)
     vecs = (mean, inv, gamma, beta)
     _check_cuda("bn_bwd_fused", {"dy2d": dy2d, "x2d": x2d},
-                dict(zip(("mean", "inv", "gamma", "beta"), vecs)))
-    sdy, sdyx, aux, plan = _reduce("bn_bwd_fused", _BWD, (dy2d, x2d), vecs,
-                                   relu=relu)
-    dx = _apply("bn_bwd_fused", _BWD, (dy2d, x2d), vecs, aux, plan, relu)
+                dict(zip(_VECS, vecs)))
+    sdy, sdyx, dx = _bwd("bn_bwd_fused", True, dy2d, x2d, *vecs, relu=relu)
     _count(bn_bwd_fused)
     return dx, sdy, sdyx
 
@@ -299,8 +390,8 @@ for _w in (bn_stats, bn_bwd_stats, bn_fwd_apply, bn_bwd_fused):
 # ------------------------------------------------------ autograd Functions
 class _FusedBNTrain(torch.autograd.Function):
     """``fused_bn_train``'s custom VJP: stats by :func:`bn_stats`, the
-    apply in PyTorch; backward sums by :func:`bn_bwd_stats` over an f32
-    x̂, dx in PyTorch. dγ = Σ(dy·x̂), dβ = Σdy."""
+    apply in PyTorch; backward sums by :func:`bn_bwd_stats` from x, mean
+    and inv, dx in PyTorch over an f32 x̂. dγ = Σ(dy·x̂), dβ = Σdy."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, eps: float):
@@ -322,11 +413,11 @@ class _FusedBNTrain(torch.autograd.Function):
         del d_mean, d_var  # the running-stat EMA carries no gradient
         x, mean, inv, gamma = ctx.saved_tensors
         c = x.shape[-1]
-        x2 = x.reshape(-1, c)
+        x2 = x.reshape(-1, c).contiguous()
         rows = x2.shape[0]
         dy2 = dy.reshape(-1, c).contiguous()
+        sdy, sdyx = bn_bwd_stats(dy2, x2, mean, inv)
         xhat2 = (x2.float() - mean) * inv
-        sdy, sdyx = bn_bwd_stats(dy2, xhat2)
         dx = ((dy2.float() - sdy / rows - xhat2 * (sdyx / rows))
               * (gamma * inv)).to(x.dtype)
         return dx.reshape(x.shape), sdyx, sdy, None

@@ -70,18 +70,41 @@ class ValidationMethod:
         raise NotImplementedError
 
 
+def _total_order(scores):
+    """Integers that order floating scores in the IEEE total order (-NaN <
+    -inf < ... < -0.0 < +0.0 < ... < +inf < NaN): the bits of each value,
+    with the magnitude bits of the negative ones flipped."""
+    if not scores.is_floating_point():
+        return scores.long()
+    if scores.dtype == torch.float64:
+        bits, flip = scores.view(torch.int64), 0x7FFFFFFFFFFFFFFF
+    else:  # f32, and f16/bf16 widened to f32 exactly
+        bits, flip = scores.float().view(torch.int32), 0x7FFFFFFF
+    return torch.where(bits < 0, bits ^ flip, bits)
+
+
 class _TopK(ValidationMethod):
     k = 1
 
     def stats(self, output, target):
         """Records whose label is among the k highest scores of (B, C)
-        ``output``; k = 1 takes the argmax (the first of equal maxima)."""
+        ``output``; k = 1 takes the argmax (the first of equal maxima).
+        For k > 1, ties are broken as ``jax.lax.top_k`` breaks them: the
+        label's score s_t is in the top k iff #(s > s_t) + #(s == s_t at
+        a lower index) < k, in the IEEE total order (-0.0 below +0.0,
+        NaN above +inf)."""
         t = target.long()
         if self.k == 1:
             correct = (output.argmax(dim=-1) == t).sum()
         else:
-            topk = torch.topk(output, self.k, dim=-1).indices
-            correct = (topk == t[:, None]).any(dim=-1).sum()
+            key = _total_order(output)
+            c = key.shape[-1]
+            valid = (t >= 0) & (t < c)
+            ti = t.clamp(0, c - 1)[:, None]
+            kt = key.gather(-1, ti)
+            lower = torch.arange(c, device=key.device) < ti
+            rank = ((key > kt) | ((key == kt) & lower)).sum(-1)
+            correct = (valid & (rank < self.k)).sum()
         return correct, output.shape[0]
 
     def to_result(self, value, count):

@@ -56,7 +56,11 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    library ms (``torch.batch_norm_stats``, ``batch_norm_backward_reduce``,
    ``batch_norm`` and ``native_batch_norm_backward`` on the channels_last
    4-D view; the port never calls them) and the bound (the bytes each
-   must move over 3.35 TB/s).
+   must move over 3.35 TB/s). The one-launch backward pair
+   (``bn_bwd_stats``, ``bn_bwd_fused``) must also give the same bits on a
+   second call and on a CUDA-graph replay of the call, at every shape;
+   ptxas's registers, shared memory and spills of its instances print
+   after the build.
 8. ResNet-50 training at full width through ``cli.perf.run``, bf16, batch
    128, random images from ``RandomState(0)``, 2 warm-up and 5 timed
    SGD(0.01, momentum 0.9) steps, once each as ``resnet50_fba``,
@@ -153,6 +157,9 @@ BN_EPS = 1e-5
 # vars: 1e-4 (sums of up to 1.6M rows in another order)
 BN_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 BN_SUM_TOL = 1e-4
+# the one-launch backward kernels: the same bits on a second call and on a
+# CUDA-graph replay of the call (every sum in an order fixed by the plan)
+REPEAT_CHECKED = ("bn_bwd_stats", "bn_bwd_fused")
 RESNET_BATCH, RESNET_WARMUP, RESNET_ITERS = 128, 2, 5
 RESNET_ROWS = {"resnet50_fba": {"bn_fwd_apply": 53, "bn_bwd_fused": 53},
                "resnet50_fbn": {"bn_stats": 53, "bn_bwd_stats": 53},
@@ -195,6 +202,31 @@ def print_ptxas(log, kernels):
               f"{spill.group(1) if spill else '?'} bytes spill stores, "
               f"{spill.group(2) if spill else '?'} bytes spill loads",
               flush=True)
+    for line in log.splitlines():
+        if "warning" in line.lower() or "Performance Loss" in line:
+            print(f"    {line.strip()}", flush=True)
+
+
+def print_ptxas_bn(log):
+    """ptxas's registers, shared memory and spills of each bn_bwd_kernel
+    instance (the one-launch backward pair), and any warning or
+    "Potential Performance Loss" note of bn.cu."""
+    for block in log.split("Compiling entry function '")[1:]:
+        m = re.search(r"bn_bwd_kernelILb([01])E(13__nv_bfloat16|f)Li(\d+)E"
+                      r"Lb([01])E", block.split("'")[0])
+        if m is None:
+            continue
+        regs = re.search(r"Used (\d+) registers", block)
+        smem = re.search(r"(\d+) bytes smem", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        print(f"    bn_bwd_kernel<fused={m.group(1)}, "
+              f"{'bf16' if m.group(2) != 'f' else 'f32'}, V={m.group(3)}, "
+              f"relu={m.group(4)}>: {regs.group(1) if regs else '?'} "
+              f"registers, {smem.group(1) if smem else '0'} bytes static "
+              f"smem, {spill.group(1) if spill else '?'} bytes spill "
+              f"stores, {spill.group(2) if spill else '?'} bytes spill "
+              f"loads", flush=True)
     for line in log.splitlines():
         if "warning" in line.lower() or "Performance Loss" in line:
             print(f"    {line.strip()}", flush=True)
@@ -879,16 +911,35 @@ def serve_run(torch, bf16):
 
 def bn_bound_ms(kernel, rows, c, item):
     """max(bytes / HBM rate, operations / f32 peak) of one BN kernel: every
-    (rows, C) input read once and output written once (x̂ of bn_bwd_stats
-    is f32), the (C,) vectors in and out, and the f32 operations a value
-    needs (sums, normalise, affine, mask, dx)."""
+    (rows, C) input read once and output written once (dy and x of
+    bn_bwd_stats in their own dtype), the (C,) vectors in and out, and the
+    f32 operations a value needs (sums, normalise, affine, mask, dx)."""
     n, vec = rows * c, 4 * c
     nbytes, ops = {"bn_stats": (n * item + 2 * vec, 3 * n),
-                   "bn_bwd_stats": (n * (item + 4) + 2 * vec, 3 * n),
+                   "bn_bwd_stats": (2 * n * item + 4 * vec, 5 * n),
                    "bn_fwd_apply": (2 * n * item + 4 * vec, 6 * n),
                    "bn_bwd_fused": (3 * n * item + 6 * vec, 14 * n)}[kernel]
     t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS["float32"]
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def bn_repeat(torch, run, first):
+    """{"same_bits": a second call gives ``first``'s bits, "graph_eq": so
+    does a replay of the call captured in a CUDA graph}."""
+    same = all(torch.equal(a, b) for a, b in zip(run(), first))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    replayed = all(torch.equal(a, b) for a, b in zip(static, first))
+    del graph
+    return {"same_bits": same, "graph_eq": replayed}
 
 
 def check_bn(torch):
@@ -919,7 +970,6 @@ def check_bn(torch):
             beta = 0.2 * torch.randn(c, device="cuda", generator=g)
             _, mean, var = bk.bn_fwd_apply_reference(x, gamma, beta, BN_EPS)
             inv = torch.rsqrt(var + BN_EPS)
-            xhat = (x.float() - mean) * inv
             # the library's NCHW-shaped channels_last views of (b, h, w, C)
             x4, dy4 = (t.view(b, h, w, c).permute(0, 3, 1, 2) for t in (x, dy))
             running = (torch.zeros(c, device="cuda"),
@@ -928,8 +978,9 @@ def check_bn(torch):
                 ("bn_stats", False, lambda: bk.bn_stats(x),
                  lambda: bk.bn_stats_reference(x),
                  lambda: torch.batch_norm_stats(x4, BN_EPS)),
-                ("bn_bwd_stats", False, lambda: bk.bn_bwd_stats(dy, xhat),
-                 lambda: bk.bn_bwd_stats_reference(dy, xhat),
+                ("bn_bwd_stats", False,
+                 lambda: bk.bn_bwd_stats(dy, x, mean, inv),
+                 lambda: bk.bn_bwd_stats_reference(dy, x, mean, inv),
                  lambda: torch.batch_norm_backward_reduce(
                      dy4, x4, mean, inv, gamma, True, True, True))]
             for relu in (False, True):
@@ -960,10 +1011,15 @@ def check_bn(torch):
                 finite = all(bool(torch.isfinite(t.float()).all())
                              for t in got)
                 ok = finite and all(e <= t for e, t in zip(rel, tols))
+                if kernel in REPEAT_CHECKED:
+                    repeat = bn_repeat(torch, run, got)
+                    ok = ok and all(repeat.values())
                 row = {"shape": [rows, c], "dtype": dt, "relu": relu,
                        "rel_err": rel, "max_abs_err": abs_err, "ok": ok,
                        "ms": device_ms(run), "plain_ms": device_ms(plain),
                        "library_ms": device_ms(library)}
+                if kernel in REPEAT_CHECKED:
+                    row.update(repeat)
                 row["bound_ms"], row["bound_by"] = bn_bound_ms(
                     kernel, rows, c, x.element_size())
                 rows_out[(kernel, (b, h, w, c), dt, relu)] = row
@@ -973,10 +1029,13 @@ def check_bn(torch):
                       f"{row['plain_ms']:.4f} library_ms="
                       f"{row['library_ms']:.4f} bound_ms="
                       f"{row['bound_ms']:.4f} ({row['bound_by']}) "
-                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                      + (f"same bits twice {int(repeat['same_bits'])} "
+                         f"graph replay = eager {int(repeat['graph_eq'])} "
+                         if kernel in REPEAT_CHECKED else "")
+                      + f"{'ok' if ok else 'FAIL'}", flush=True)
                 if not ok:
                     bad.append((kernel, rows, c, dt, relu, rel))
-            del x, dy, xhat, x4, dy4
+            del x, dy, x4, dy4
     if bad:
         fail(f"BN kernels disagree with their plain versions: {bad}")
     return rows_out
@@ -1045,9 +1104,9 @@ def bn_grads_check(torch):
         xd = x2d.double()
         return xd.sum(0).float(), (xd * xd).sum(0).float()
 
-    def bwd_stats_f64(dy2d, xhat2d):
-        dd = dy2d.double()
-        return dd.sum(0).float(), (dd * xhat2d.double()).sum(0).float()
+    def bwd_stats_f64(dy2d, x2d, mean, inv):
+        dd, xh = dy2d.double(), (x2d.float() - mean) * inv
+        return dd.sum(0).float(), (dd * xh.double()).sum(0).float()
 
     def use_plain(plain, f64=False):
         """The wrappers (plain False), or their plain versions, whose
@@ -1280,6 +1339,8 @@ def main():
             print_ptxas(info["log"], ("flash_dq_bf16", "flash_dkv_bf16"))
         if name == "flash_fwd":
             print_ptxas(info["log"], ("flash_fwd_sm90",))
+        if name == "bn":
+            print_ptxas_bn(info["log"])
 
     rows = check_flash(torch, ak)
     bwd_rows = check_flash_bwd(torch, ak)

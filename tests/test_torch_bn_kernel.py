@@ -79,10 +79,16 @@ def test_stats_twins_match_jax(rows, c, dtype):
     jx, tx = _both(x, dtype)
     for got, ref in zip(bk.bn_stats(tx), jbk.bn_stats(jx)):
         _sums_close(got, ref)
-    xhat = (x - x.mean(0)) / x.std(0)  # an f32 x-hat, as the backward's
+    # the port's bn_bwd_stats(dy, x, mean, inv) against the JAX
+    # bn_bwd_stats(dy, x̂) on x̂ = (x.astype(f32) − mean)·inv, as the JAX
+    # backward builds it
+    mean = x.mean(0).astype(np.float32)
+    inv = (1.0 / x.std(0)).astype(np.float32)
     jdy, tdy = _both(dy, dtype)
-    ref = jbk.bn_bwd_stats(jdy, jnp.asarray(xhat))
-    got = bk.bn_bwd_stats(tdy, torch.from_numpy(xhat))
+    jxhat = (jx.astype(jnp.float32) - jnp.asarray(mean)) * jnp.asarray(inv)
+    ref = jbk.bn_bwd_stats(jdy, jxhat)
+    got = bk.bn_bwd_stats(tdy, tx, torch.from_numpy(mean),
+                          torch.from_numpy(inv))
     for g, r in zip(got, ref):
         _sums_close(g, r)
 
@@ -153,7 +159,10 @@ def test_functions_match_jax_vjp(shape, mode):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,c", [(4096, 256), (1000, 100), (7, 3)])
+# (16, 40000): more channel blocks than the one-launch backward's grid
+# holds at once, so its CTAs loop over several
+@pytest.mark.parametrize("rows,c", [(4096, 256), (1000, 100), (7, 3),
+                                    (16, 40000)])
 def test_cuda_bn_kernels_match_plain(rows, c, dtype):
     if not torch.cuda.is_available():
         pytest.skip("torch.cuda unavailable")
@@ -176,8 +185,7 @@ def test_cuda_bn_kernels_match_plain(rows, c, dtype):
         got = bk.bn_bwd_fused(dy, x, ref[1], inv, gamma, beta, relu)
         want = bk.bn_bwd_fused_reference(dy, x, ref[1], inv, gamma, beta, relu)
         assert max(rel(a, r) for a, r in zip(got, want)) <= tol
-    xhat = (x.float() - ref[1]) * inv
     for got, want in ((bk.bn_stats(x), bk.bn_stats_reference(x)),
-                      (bk.bn_bwd_stats(dy, xhat),
-                       bk.bn_bwd_stats_reference(dy, xhat))):
+                      (bk.bn_bwd_stats(dy, x, ref[1], inv),
+                       bk.bn_bwd_stats_reference(dy, x, ref[1], inv))):
         assert max(rel(a, r) for a, r in zip(got, want)) <= 1e-4

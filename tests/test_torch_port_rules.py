@@ -112,7 +112,7 @@ def _bn_calls(make):
     vec = torch.ones(x.shape[1], device=x.device)
     return {
         "bn_stats": lambda: bk.bn_stats(x),
-        "bn_bwd_stats": lambda: bk.bn_bwd_stats(dy, x.float()),
+        "bn_bwd_stats": lambda: bk.bn_bwd_stats(dy, x, vec, vec),
         "bn_fwd_apply": lambda: bk.bn_fwd_apply(x, vec, vec, 1e-5, True),
         "bn_bwd_fused": lambda: bk.bn_bwd_fused(dy, x, vec, vec, vec, vec,
                                                 True)}
@@ -128,9 +128,11 @@ def test_bn_wrappers_refuse_and_never_fall_back():
                                                         dtype=dtype)).items():
             with pytest.raises(ValueError, match="float32 or bfloat16"):
                 call()
-    with pytest.raises(ValueError, match="xhat2d"):
-        bk.bn_bwd_stats(torch.zeros(8, 4), torch.zeros(8, 4,
-                                                       dtype=torch.bfloat16))
+    for name, dtype in (("mean", torch.bfloat16), ("inv", torch.float64)):
+        vecs = {"mean": torch.zeros(4), "inv": torch.ones(4)}
+        vecs[name] = vecs[name].to(dtype)
+        with pytest.raises(ValueError, match=f"got {name} {dtype}"):
+            bk.bn_bwd_stats(torch.zeros(8, 4), torch.zeros(8, 4), **vecs)
     for name, call in _bn_calls(lambda: torch.zeros(8, 4,
                                                     device="meta")).items():
         with pytest.raises(ValueError, match="one CUDA device"):
