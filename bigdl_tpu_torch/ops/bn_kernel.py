@@ -26,21 +26,23 @@ C >= 1, so the JAX package's ``fused_bn_tileable``/``fba_tileable``/
 goes through the kernel. Its autotuner hooks (``row_block``) are not
 ported either (ROADMAP.md queue 1 item 12).
 
-A wrapper call is one count of its ``launches``, whatever it launches:
-:func:`bn_stats` runs one kernel and :func:`bn_fwd_apply` two (the
-reduction, then the elementwise pass), each after a small memset of its
-counters; :func:`bn_bwd_stats` and :func:`bn_bwd_fused` one cooperative
-kernel and nothing else. That kernel's grid-wide barrier keeps two
-counters per (device, stream), zeroed when a stream first calls it and
-left at zero by every launch; a CUDA graph captured on a stream shares
-that stream's counters, so it must not replay while eager calls run on
-its capture stream.
+A wrapper call is one count of its ``launches``, and launches one kernel
+and nothing else: each of the four is a mode of one cooperative kernel
+(``bn_coop_kernel`` in ``csrc/bn.cu``) that meets at grid-wide barriers.
+Their counters are one pair per (device, stream), shared by the four,
+zeroed when a stream first calls one of them and left at zero by every
+launch; a CUDA graph captured on a stream shares that stream's counters,
+so it must not replay while eager calls run on its capture stream. The
+launch plan (:func:`_plan`) is a pure function of the shape, the vector
+width and the CTAs the card holds.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -50,15 +52,17 @@ __all__ = ["bn_stats", "bn_bwd_stats", "bn_fwd_apply", "bn_bwd_fused",
            "fused_bn_train", "fused_bn_apply_train"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_STATS, _FWD = 0, 2  # bn_reduce's modes
+# bn_coop's modes (csrc/bn.cu Mode)
+_STATS, _FWD, _BWD_STATS, _BWD_FUSED = range(4)
+# 16-byte slots a thread of each mode keeps in shared memory (csrc/bn.cu
+# Layout::SLOTS): a thread whose rows all fit reads its operands once
+_SLOTS = {_STATS: 8, _FWD: 24, _BWD_STATS: 11, _BWD_FUSED: 11}
 _VECS = ("mean", "inv", "gamma", "beta")
 _NTHREADS = 256   # threads per CTA (csrc/bn.cu NTHREADS)
-_CTAS_PER_SM = 4  # CTAs of the forward pair's row sweep per SM
-_BWD_ROWS = 8     # least rows a thread per slab of the backward pair
+_SLAB_ROWS = 8    # least rows a thread per slab, where there are two slabs
 
 _count_lock = threading.Lock()
 _fns: dict = {}
-_sms: dict = {}
 _ctas: dict = {}
 _syncs: dict = {}
 
@@ -116,11 +120,9 @@ def _bind(name: str):
         ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
                               ctypes.c_longlong, ctypes.c_float)
         fn.argtypes = {
-            "bn_reduce": [i32] * 5 + [i64] + [ptr] * 8 + [i64, i32, f32,
-                                                          i32, ptr],
-            "bn_apply": [i32] * 5 + [i64] + [ptr] * 3 + [i64, i32, i32, ptr],
-            "bn_bwd_ctas": [i32] * 5 + [ctypes.POINTER(ctypes.c_int)],
-            "bn_bwd": [i32] * 7 + [i64] + [ptr] * 11 + [i64, i32, i32, ptr],
+            "bn_coop_ctas": [i32] * 5 + [ctypes.POINTER(ctypes.c_int)],
+            "bn_coop": [i32] * 7 + [i64] + [ptr] * 11 + [i64, i32, f32, i32,
+                                                         ptr],
         }[name]
         fn.restype = i32
         _fns[name] = fn
@@ -168,42 +170,50 @@ def _check_cuda(kernel: str, mats: dict, vecs: dict = None):
                              f"{tuple(t.shape)}")
 
 
-def _sm_count(device) -> int:
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    if idx not in _sms:
-        props = torch.cuda.get_device_properties(idx)
-        _sms[idx] = props.multi_processor_count
-    return _sms[idx]
-
-
-def _lanes(c: int, mats):
-    """(vec, tx, channel blocks): V channels a thread, as wide as 16 bytes
-    of the first operand where C and every operand's alignment allow; TX
-    threads across channels (a power of two <= 32), 256 / TX across
-    rows."""
+def _vec(c: int, mats) -> int:
+    """V channels a thread: as wide as 16 bytes of the first operand where
+    C and every operand's alignment allow."""
     vec = 16 // mats[0].element_size()
     while vec > 1 and (c % vec or any(
             t.data_ptr() % (vec * t.element_size()) for t in mats)):
         vec //= 2
+    return vec
+
+
+class Plan(NamedTuple):
+    """One launch of ``bn_coop``: TX threads across channels (a power of
+    two <= 32, 256 / TX across rows), channel blocks of TX·V channels,
+    ``slabs`` slabs of ``slab`` rows, ``grid`` CTAs; ``once``: every
+    operand is read from device memory once (phase 1, where the mode has
+    one, finds every row still in shared memory)."""
+    tx: int
+    blocks: int
+    slabs: int
+    slab: int
+    grid: int
+    once: bool
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(mode: int, rows: int, c: int, vec: int, ctas: int) -> Plan:
+    """The launch of ``mode`` over a (rows, C) array with V = ``vec``, on a
+    card that holds ``ctas`` CTAs of it at once: one (channel block, slab)
+    a CTA for as many CTAs as that, with at least _SLAB_ROWS rows a thread
+    per slab (fewer CTAs meet at the barriers of a small array); one slab,
+    and CTAs looping over channel blocks, when C has more blocks than
+    that."""
     groups = -(-c // vec)
     tx = 1
     while tx < min(32, groups):
         tx *= 2
-    return vec, tx, -(-c // (tx * vec))
-
-
-def _plan(rows: int, c: int, mats, device):
-    """(vec, tx, channel blocks, slabs, rows per slab) of the forward pair:
-    :func:`_lanes`, and enough slabs for ~4 CTAs an SM, with at least 4
-    rows a thread per slab."""
-    vec, tx, blocks = _lanes(c, mats)
     ty = _NTHREADS // tx
-    slabs = max(1, min(-(-rows // (4 * ty)),
-                       -(-_CTAS_PER_SM * _sm_count(device) // blocks),
-                       65535))
+    blocks = -(-c // (tx * vec))
+    slabs = max(1, min(ctas // blocks, rows // (_SLAB_ROWS * ty)))
     slab = -(-rows // slabs)
-    return vec, tx, blocks, -(-rows // slab), slab
+    slabs = -(-rows // slab)
+    once = mode in (_STATS, _BWD_STATS) or (
+        blocks * slabs <= ctas and -(-slab // ty) <= _SLOTS[mode])
+    return Plan(tx, blocks, slabs, slab, min(ctas, blocks * slabs), once)
 
 
 def _ptr(t):
@@ -227,55 +237,24 @@ def _raise_on(rc: int, kernel: str):
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
 
 
-def _reduce(kernel, mode, x2d, gamma=None, beta=None, eps=0.0):
-    """Launch ``bn_reduce`` (mode stats or fwd); returns (out0, out1, aux,
-    plan)."""
-    rows, c = x2d.shape
-    plan = vec, tx, blocks, slabs, slab = _plan(rows, c, (x2d,), x2d.device)
-    f32 = dict(dtype=torch.float32, device=x2d.device)
-    out0, out1 = torch.empty(c, **f32), torch.empty(c, **f32)
-    aux = torch.empty((2, c), **f32) if mode == _FWD else None
-    part = torch.empty((2, slabs, c), **f32)
-    count = torch.zeros(blocks, dtype=torch.int32, device=x2d.device)
-    rc = _bind("bn_reduce")(
-        mode, _DTYPES[x2d.dtype], vec, tx, slabs, slab, x2d.data_ptr(),
-        _ptr(gamma), _ptr(beta), part.data_ptr(), count.data_ptr(),
-        out0.data_ptr(), out1.data_ptr(), _ptr(aux), rows, c, float(eps),
-        *_stream(x2d))
-    _raise_on(rc, kernel)
-    return out0, out1, aux, plan
-
-
-def _apply(kernel, x2d, aux, plan, relu):
-    """Launch ``bn_apply`` (y) on the plan of the reduction."""
-    vec, tx, _, slabs, slab = plan
-    out = torch.empty_like(x2d)
-    rc = _bind("bn_apply")(
-        _DTYPES[x2d.dtype], int(relu), vec, tx, slabs, slab, x2d.data_ptr(),
-        aux.data_ptr(), out.data_ptr(), x2d.shape[0], x2d.shape[1],
-        *_stream(x2d))
-    _raise_on(rc, kernel)
-    return out
-
-
-def _bwd_ctas(device, fused: bool, is_bf16: int, relu: bool, vec: int):
-    """CTAs of one ``bn_bwd`` instance that the card holds at once (the
+def _coop_ctas(device, mode: int, is_bf16: int, relu: bool, vec: int):
+    """CTAs of one ``bn_coop`` instance that the card holds at once (the
     most its cooperative launch may have)."""
     idx = device.index if device.index is not None else \
         torch.cuda.current_device()
-    key = (idx, fused, is_bf16, relu, vec)
+    key = (idx, mode, is_bf16, relu, vec)
     if key not in _ctas:
         n = ctypes.c_int(0)
-        _raise_on(_bind("bn_bwd_ctas")(int(fused), is_bf16, int(relu), vec,
-                                       idx, ctypes.byref(n)), "bn_bwd")
+        _raise_on(_bind("bn_coop_ctas")(mode, is_bf16, int(relu), vec, idx,
+                                        ctypes.byref(n)), "bn_coop")
         if n.value < 1:
-            raise RuntimeError("bn_bwd kernel: no CTA fits on an SM")
+            raise RuntimeError("bn_coop kernel: no CTA fits on an SM")
         _ctas[key] = n.value
     return _ctas[key]
 
 
-def _bwd_sync(device, stream: int):
-    """The barrier counters of ``bn_bwd`` for calls on ``stream``: zeroed
+def _sync(device, stream: int):
+    """The barrier counters of ``bn_coop`` for calls on ``stream``: zeroed
     once, and left at zero by every launch."""
     key = (device.index, stream)
     with _count_lock:
@@ -284,41 +263,29 @@ def _bwd_sync(device, stream: int):
         return _syncs[key]
 
 
-def _bwd_plan(rows: int, tx: int, blocks: int, ctas: int):
-    """(slabs, rows per slab, grid) of ``bn_bwd``: one (channel block,
-    slab) a CTA for as many CTAs as the card holds, with at least
-    _BWD_ROWS rows a thread (fewer CTAs meet at the barriers of a small
-    array); one slab (and CTAs looping over channel blocks) when C has
-    more blocks than that."""
-    slabs = max(1, min(ctas // blocks,
-                       -(-rows // (_BWD_ROWS * (_NTHREADS // tx)))))
-    slab = -(-rows // slabs)
-    slabs = -(-rows // slab)
-    return slabs, slab, min(ctas, blocks * slabs)
-
-
-def _bwd(kernel, fused, dy2d, x2d, mean, inv, gamma=None, beta=None,
-         relu=False):
-    """Launch ``bn_bwd``; returns (Σdy, Σ(dy·x̂), dx or None)."""
+def _coop(kernel, mode, mats, vecs=(None,) * 4, eps=0.0, relu=False):
+    """Launch ``bn_coop`` in ``mode`` on ``mats`` ((x,) or (dy, x)) and the
+    (mean, inv, gamma, beta) it takes; returns (out0, out1, y or dx or
+    None)."""
+    x2d = mats[-1]
     rows, c = x2d.shape
     dev, is_bf16 = x2d.device, _DTYPES[x2d.dtype]
-    relu = bool(relu) and fused
-    vec, tx, blocks = _lanes(c, (dy2d, x2d))
-    slabs, slab, grid = _bwd_plan(
-        rows, tx, blocks, _bwd_ctas(dev, fused, is_bf16, relu, vec))
+    relu = bool(relu) and mode in (_FWD, _BWD_FUSED)
+    vec = _vec(c, mats)
+    p = _plan(mode, rows, c, vec, _coop_ctas(dev, mode, is_bf16, relu, vec))
     f32 = dict(dtype=torch.float32, device=dev)
-    sdy, sdyx = torch.empty(c, **f32), torch.empty(c, **f32)
-    part = torch.empty((2, slabs, c), **f32)
-    dx = torch.empty_like(x2d) if fused else None
+    out0, out1 = torch.empty(c, **f32), torch.empty(c, **f32)
+    part = torch.empty((2, p.slabs, c), **f32)
+    out = torch.empty_like(x2d) if mode in (_FWD, _BWD_FUSED) else None
     index, stream = _stream(x2d)
-    rc = _bind("bn_bwd")(
-        int(fused), is_bf16, int(relu), vec, tx, grid, slabs, slab,
-        dy2d.data_ptr(), x2d.data_ptr(), mean.data_ptr(), inv.data_ptr(),
-        _ptr(gamma), _ptr(beta), part.data_ptr(),
-        _bwd_sync(dev, stream).data_ptr(), sdy.data_ptr(), sdyx.data_ptr(),
-        _ptr(dx), rows, c, index, stream)
+    rc = _bind("bn_coop")(
+        mode, is_bf16, int(relu), vec, p.tx, p.grid, p.slabs, p.slab,
+        mats[0].data_ptr(), _ptr(mats[1] if len(mats) > 1 else None),
+        *(_ptr(v) for v in vecs), part.data_ptr(),
+        _sync(dev, stream).data_ptr(), out0.data_ptr(), out1.data_ptr(),
+        _ptr(out), rows, c, float(eps), index, stream)
     _raise_on(rc, kernel)
-    return sdy, sdyx, dx
+    return out0, out1, out
 
 
 def _same_dtype(kernel, dy2d, x2d):
@@ -334,7 +301,7 @@ def bn_stats(x2d):
     if x2d.device.type == "cpu":
         return bn_stats_reference(x2d)
     _check_cuda("bn_stats", {"x2d": x2d})
-    s, sq, _, _ = _reduce("bn_stats", _STATS, x2d)
+    s, sq, _ = _coop("bn_stats", _STATS, (x2d,))
     _count(bn_stats)
     return s, sq
 
@@ -348,7 +315,8 @@ def bn_bwd_stats(dy2d, x2d, mean, inv):
     _same_dtype("bn_bwd_stats", dy2d, x2d)
     _check_cuda("bn_bwd_stats", {"dy2d": dy2d, "x2d": x2d},
                 {"mean": mean, "inv": inv})
-    sdy, sdyx, _ = _bwd("bn_bwd_stats", False, dy2d, x2d, mean, inv)
+    sdy, sdyx, _ = _coop("bn_bwd_stats", _BWD_STATS, (dy2d, x2d),
+                         (mean, inv, None, None))
     _count(bn_bwd_stats)
     return sdy, sdyx
 
@@ -360,9 +328,8 @@ def bn_fwd_apply(x2d, gamma, beta, eps: float, relu: bool = False):
     if x2d.device.type == "cpu":
         return bn_fwd_apply_reference(x2d, gamma, beta, eps, relu)
     _check_cuda("bn_fwd_apply", {"x2d": x2d}, {"gamma": gamma, "beta": beta})
-    mean, var, aux, plan = _reduce("bn_fwd_apply", _FWD, x2d, gamma, beta,
-                                   eps)
-    y = _apply("bn_fwd_apply", x2d, aux, plan, relu)
+    mean, var, y = _coop("bn_fwd_apply", _FWD, (x2d,),
+                         (None, None, gamma, beta), eps, relu)
     _count(bn_fwd_apply)
     return y, mean, var
 
@@ -378,7 +345,8 @@ def bn_bwd_fused(dy2d, x2d, mean, inv, gamma, beta, relu: bool = False):
     vecs = (mean, inv, gamma, beta)
     _check_cuda("bn_bwd_fused", {"dy2d": dy2d, "x2d": x2d},
                 dict(zip(_VECS, vecs)))
-    sdy, sdyx, dx = _bwd("bn_bwd_fused", True, dy2d, x2d, *vecs, relu=relu)
+    sdy, sdyx, dx = _coop("bn_bwd_fused", _BWD_FUSED, (dy2d, x2d), vecs,
+                          relu=relu)
     _count(bn_bwd_fused)
     return dx, sdy, sdyx
 

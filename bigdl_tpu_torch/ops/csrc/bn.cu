@@ -25,43 +25,45 @@
 // (x; dy and x) and one write of each output (y; dx).
 //
 // The TPU grid walks rows serially inside one 128-channel block (a VMEM
-// accumulator carried from one grid step to the next); at ResNet-50's C =
-// 64..2048 that is 1..16 programs, far too few for 132 SMs. Here rows are
-// split into P slabs as well as channels into blocks. A CTA of 256
-// threads has TX across channels (V channels a thread, 16 bytes at a time
-// where C allows) and TY across rows.
+// accumulator carried from one grid step to the next, and for
+// _fba_fwd_kernel the block's rows kept in VMEM between the stats and the
+// apply); at ResNet-50's C = 64..2048 that is 1..16 programs, far too few
+// for 132 SMs. Here rows are split into P slabs as well as channels into
+// blocks. A CTA of 256 threads has TX across channels (V channels a
+// thread, 16 bytes at a time where C allows) and TY across rows.
 //
-// The forward pair (bn_stats, bn_fwd_apply):
-//   bn_reduce_kernel  grid (channel blocks, P). Each CTA sums its slab in
-//       f32 registers, reduces over TY through shared memory and writes one
-//       (2, C) partial; the last CTA of a channel block to finish (an
-//       integer counter, zeroed by the caller) sums the P partials in slab
-//       order and finalises: the sums (stats), or mean/var and the (scale,
-//       shift) of the apply (fwd).
-//   bn_apply_kernel  grid (channel blocks, P): y from (scale, shift).
-//
-// The backward pair (bn_bwd_stats, bn_bwd_fused): bn_bwd_kernel, one
-// cooperative launch of as many CTAs as the card holds at once (the
-// occupancy API's CTAs per SM x SMs), each owning one (channel block,
-// slab); a CTA loops over several only when C has more blocks than that.
-//   phase 0  Each thread streams its own rows of dy and x into its own
-//       slots of shared memory with 16-byte cp.async, RING rows ahead of
-//       the one it reduces, so no thread waits on another's copies. The
-//       first RESIDENT rows keep their slots; later rows cycle through the
-//       RING slots. Σdy and Σ(dy·x̂) in f32 registers, with the ReLU mask;
-//       a tree over TY; one (2, C) partial per slab.
+// All four are one kernel, bn_coop_kernel<MODE, T, V, RELU>, launched once
+// per call and nothing beside it: a cooperative launch of as many CTAs as
+// the card holds at once (the occupancy API's CTAs per SM x SMs, asked for
+// each instance, whose shared memory differs by mode), each owning one
+// (channel block, slab); a CTA loops over several only when C has more
+// blocks than that.
+//   phase 0  Each thread streams its own rows of the operands (x; or dy
+//       and x) into its own slots of shared memory with 16-byte cp.async,
+//       RING rows ahead of the one it reduces (8 operand-rows in flight),
+//       so no thread waits on another's copies. The first RESIDENT rows
+//       keep their slots; later rows cycle through the RING slots. Σx and
+//       Σx² (STATS, FWD), or Σdy and Σ(dy·x̂) with the ReLU mask
+//       (BWD_STATS, BWD_FUSED), in f32 registers; a tree over TY; one
+//       (2, C) partial per slab.
 //   barrier  Grid-wide; then every CTA finalises a few channels, a warp a
 //       channel, its lanes summing the P partials in a fixed order and a
-//       butterfly of shuffles combining them.
-//   phase 1 (bn_bwd_fused only)  A second barrier, then dx: first the rows
-//       still in shared memory (the last RING of the sweep, then the
-//       RESIDENT ones), then the rest of the slab read backwards, so what
-//       phase 0 read last, most likely still in the 50 MB L2, is read
-//       first. 16-byte stores.
-// The barrier's two counters (arrivals, generation): the arrivals are zero
-// at the start and the last CTA to arrive resets them, so the wrapper
-// launches this one kernel and nothing else. A wait that has not ended after ~2 s
-// traps instead of hanging the card.
+//       butterfly of shuffles combining them: the sums, or for FWD the
+//       mean and var.
+//   phase 1 (FWD, BWD_FUSED)  A second barrier, then y = x·scale + shift
+//       [ReLU] from the mean and var, or dx: first the rows still in
+//       shared memory (the last RING of the sweep, then the RESIDENT
+//       ones), then the rest of the slab read backwards, so what phase 0
+//       read last, most likely still in the 50 MB L2, is read first.
+//       16-byte stores. FWD keeps 24 rows a thread (96 KB a CTA, two CTAs
+//       an SM): at 264 CTAs an x of up to ~26 MB (ResNet-50's 100352 x
+//       128, 25088 x 512 and 6272 x 2048 in bf16, and the smaller ones)
+//       is read from device memory once.
+// The barrier's two counters (arrivals, generation) are kept per (device,
+// stream) by the caller and shared by the four modes: the arrivals are
+// zero at the start and the last CTA to arrive resets them, so nothing is
+// zeroed between launches. A wait that has not ended after ~2 s traps
+// instead of hanging the card.
 //
 // No float atomics, and every sum is taken in an order fixed by the launch
 // plan (rows, C, dtype, alignment and the card's SM count), so a result is
@@ -78,14 +80,24 @@ using bf16 = __nv_bfloat16;
 
 constexpr int NTHREADS = 256;
 constexpr int MAXV = 8;  // channels a thread loads at once (16 bytes of bf16)
-// bn_bwd_kernel's shared memory a thread: SLOTS (dy, x) pairs of 16 bytes,
-// RING of them cycling, the rest holding the first rows of its slab
-constexpr int RING = 4;
-constexpr int SLOTS = 11;
-constexpr int RESIDENT = SLOTS - RING;
-constexpr size_t BWD_SMEM = (size_t)SLOTS * 2 * 16 * NTHREADS;  // 88 KB
 
-enum Mode : int { STATS = 0, FWD = 2 };
+// bn_stats, bn_fwd_apply, bn_bwd_stats, bn_bwd_fused
+enum Mode : int { STATS = 0, FWD = 1, BWD_STATS = 2, BWD_FUSED = 3 };
+
+// What a mode streams and keeps in shared memory: OPS operands of 16 bytes
+// a thread a row; SLOTS rows of them a thread, RING of them cycling, the
+// rest holding the first rows of its slab for phase 1. FWD's 96 KB and the
+// backward's 88 KB leave two CTAs an SM beside the static `red` (16 KB);
+// STATS keeps no row.
+template <int MODE>
+struct Layout {
+  static constexpr int OPS = MODE >= BWD_STATS ? 2 : 1;  // x; or dy, x
+  static constexpr int RING = 8 / OPS;
+  static constexpr int SLOTS = MODE == STATS ? RING : MODE == FWD ? 24 : 11;
+  static constexpr int RESIDENT = SLOTS - RING;
+  static constexpr bool EMITS = MODE == FWD || MODE == BWD_FUSED;
+  static constexpr size_t SMEM = (size_t)SLOTS * OPS * 16 * NTHREADS;
+};
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
@@ -138,167 +150,24 @@ __device__ __forceinline__ void tree_reduce(float (*red)[NTHREADS * MAXV],
   __syncthreads();
 }
 
-// ------------------------------------------------------------ forward pair
-struct Args {
-  const void* x;        // (rows, C)
-  const float* gamma;   // FWD (C,)
-  const float* beta;    // FWD (C,)
-  const float* aux_in;  // bn_apply: (2, C) from bn_reduce's aux
-  float* part;          // (2, P, C) per-slab partial sums
-  unsigned* count;      // (channel blocks,) slabs finished, zeroed
-  float* out0;          // (C,): Σx, FWD mean
-  float* out1;          // (C,): Σx², FWD var
-  float* aux;           // FWD (2, C): scale, shift
-  void* y;              // bn_apply: (rows, C) output in the input type
-  long long rows;
-  long long slab;  // rows per slab
-  int C;
-  int P;
-  float eps;
-};
-
-template <int MODE, typename T, int V>
-__global__ void __launch_bounds__(NTHREADS) bn_reduce_kernel(Args g) {
-  __shared__ float red[2][NTHREADS * MAXV];
-  __shared__ bool is_last;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int TX = blockDim.x, TY = blockDim.y;
-  const int c = (blockIdx.x * TX + tx) * V;
-  const bool live = c < g.C;  // C % V == 0: a vector is all in or all out
-  const int C = g.C;
-
-  float s0[V], s1[V];
-#pragma unroll
-  for (int i = 0; i < V; ++i) s0[i] = s1[i] = 0.f;
-  const long long r0 = (long long)blockIdx.y * g.slab;
-  const long long r1 = min(r0 + g.slab, g.rows);
-  if (live) {
-    const T* a = static_cast<const T*>(g.x);
-#pragma unroll 4
-    for (long long r = r0 + ty; r < r1; r += TY) {
-      float va[V];
-      load<T, V>(a + r * C + c, va);
-#pragma unroll
-      for (int i = 0; i < V; ++i) {
-        s0[i] += va[i];
-        s1[i] += __fmul_rn(va[i], va[i]);
-      }
-    }
-  }
-  const int w = TX * V;
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    red[0][ty * w + tx * V + i] = s0[i];
-    red[1][ty * w + tx * V + i] = s1[i];
-  }
-  tree_reduce<V>(red, tx, ty, TX, TY);
-  if (ty == 0 && live) {
-    float* p0 = g.part + (long long)blockIdx.y * C;
-    float* p1 = g.part + ((long long)g.P + blockIdx.y) * C;
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      p0[c + i] = red[0][tx * V + i];
-      p1[c + i] = red[1][tx * V + i];
-    }
-  }
-  // the last CTA of this channel block to finish sums the P partials
-  __threadfence();
-  __syncthreads();
-  if (tx == 0 && ty == 0)
-    is_last = atomicAdd(&g.count[blockIdx.x], 1u) == gridDim.y - 1;
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
-
-#pragma unroll
-  for (int i = 0; i < V; ++i) s0[i] = s1[i] = 0.f;
-  if (live) {
-    for (int p = ty; p < g.P; p += TY) {
-      const float* p0 = g.part + (long long)p * C + c;
-      const float* p1 = g.part + ((long long)g.P + p) * C + c;
-#pragma unroll
-      for (int i = 0; i < V; ++i) {
-        s0[i] += __ldcg(p0 + i);
-        s1[i] += __ldcg(p1 + i);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    red[0][ty * w + tx * V + i] = s0[i];
-    red[1][ty * w + tx * V + i] = s1[i];
-  }
-  tree_reduce<V>(red, tx, ty, TX, TY);
-  if (ty != 0 || !live) return;
-  const float n = (float)g.rows;
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    const int cc = c + i;
-    const float t0 = red[0][tx * V + i], t1 = red[1][tx * V + i];
-    if (MODE == FWD) {
-      const float m = __fdiv_rn(t0, n);
-      const float var =
-          fmaxf(__fsub_rn(__fdiv_rn(t1, n), __fmul_rn(m, m)), 0.f);
-      const float scale = __fmul_rn(__frsqrt_rn(__fadd_rn(var, g.eps)),
-                                    g.gamma[cc]);
-      g.out0[cc] = m;
-      g.out1[cc] = var;
-      g.aux[cc] = scale;
-      g.aux[C + cc] = __fsub_rn(g.beta[cc], __fmul_rn(m, scale));
-    } else {
-      g.out0[cc] = t0;
-      g.out1[cc] = t1;
-    }
-  }
-}
-
-template <typename T, int V, bool RELU>
-__global__ void __launch_bounds__(NTHREADS) bn_apply_kernel(Args g) {
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int c = (blockIdx.x * blockDim.x + tx) * V;
-  if (c >= g.C) return;
-  const int C = g.C;
-  float scale[V], shift[V];
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    scale[i] = g.aux_in[c + i];
-    shift[i] = g.aux_in[C + c + i];
-  }
-  const T* a = static_cast<const T*>(g.x);
-  T* y = static_cast<T*>(g.y);
-  const long long r0 = (long long)blockIdx.y * g.slab;
-  const long long r1 = min(r0 + g.slab, g.rows);
-#pragma unroll 4
-  for (long long r = r0 + ty; r < r1; r += blockDim.y) {
-    float va[V], out[V];
-    load<T, V>(a + r * C + c, va);
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      const float v = __fadd_rn(__fmul_rn(va[i], scale[i]), shift[i]);
-      out[i] = RELU ? fmaxf(v, 0.f) : v;
-    }
-    store<T, V>(y + r * C + c, out);
-  }
-}
-
-// ----------------------------------------------------------- backward pair
-struct BwdArgs {
-  const void* dy;  // (rows, C)
-  const void* x;   // (rows, C), dy's type
-  const float* mean;
-  const float* inv;
-  const float* gamma;  // fused only
-  const float* beta;   // fused only
+struct CoopArgs {
+  const void* a;       // (rows, C): x, or dy in the backward
+  const void* x;       // backward: (rows, C), a's type
+  const float* mean;   // backward
+  const float* inv;    // backward
+  const float* gamma;  // FWD, BWD_FUSED
+  const float* beta;   // FWD, BWD_FUSED with ReLU
   float* part;         // (2, P, C) per-slab partial sums
   unsigned* sync;      // (2,): barrier arrivals, generation; arrivals 0
-  float* sdy;          // (C,) Σdy
-  float* sdyx;         // (C,) Σ(dy·x̂)
-  void* dx;            // fused: (rows, C) in the input type
+  float* out0;         // (C,): Σx; FWD mean; backward Σdy
+  float* out1;         // (C,): Σx²; FWD var; backward Σ(dy·x̂)
+  void* out;           // FWD y, BWD_FUSED dx: (rows, C) in the input type
   long long rows;
   long long slab;  // rows per slab
   int C;
   int P;      // slabs
   int items;  // channel blocks x slabs
+  float eps;  // FWD
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -375,14 +244,33 @@ __device__ __forceinline__ void grid_sync(unsigned* sync, unsigned gen0,
   __syncthreads();
 }
 
+// Phase k's time stamp. Built with -DBN_STAMPS (tools/bn_phases.py), CTA
+// b writes %globaltimer (ns) to word k of its 8 u64 at sync + 64 + 16b
+// (the caller passes a larger sync buffer): 0 start, 1 phase 0 done, 2
+// past barrier 1, 3 finalised, 4 past barrier 2, 5 phase 1 done. Empty
+// otherwise.
+__device__ __forceinline__ void stamp(unsigned* sync, int k) {
+#ifdef BN_STAMPS
+  __syncthreads();
+  if (threadIdx.x == 0 && threadIdx.y == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    reinterpret_cast<unsigned long long*>(sync + 64)[blockIdx.x * 8 + k] = t;
+  }
+#else
+  (void)sync;
+  (void)k;
+#endif
+}
+
 // One thread's rows of one (channel block, slab) item: row(j) = r0 + ty +
-// j·TY for j < J, its (dy, x) in slot(j) of the thread's shared memory.
-template <typename T, int V>
+// j·TY for j < J, its OPS operands in slot(j) of the thread's shared
+// memory.
+template <typename T, int V, int OPS, int RING>
 struct Rows {
-  const T* dy;
-  const T* x;
-  T* dx;
-  uint4* smem;  // this thread's slot s, operand o at smem[(2s + o) NTHREADS]
+  const T* in[OPS];  // x; or dy, x
+  T* out;            // phase 1's y or dx
+  uint4* smem;  // this thread's slot s, operand o at smem[(OPS s + o) NTHREADS]
   long long r0;
   int c, C, TY, J, K;  // K: resident slots (the first K rows keep theirs)
 
@@ -393,22 +281,28 @@ struct Rows {
     return (r0 + (long long)j * TY) * C + c;
   }
   __device__ __forceinline__ void issue(int j) const {
-    uint4* s = smem + 2 * slot(j) * NTHREADS;
-    copy_in<T, V>(s, dy + off(j));
-    copy_in<T, V>(s + NTHREADS, x + off(j));
+    uint4* s = smem + OPS * slot(j) * NTHREADS;
+#pragma unroll
+    for (int o = 0; o < OPS; ++o)
+      copy_in<T, V>(s + o * NTHREADS, in[o] + off(j));
   }
-  __device__ __forceinline__ void get(int j, float (&vd)[V],
-                                      float (&vx)[V]) const {
-    const uint4* s = smem + 2 * slot(j) * NTHREADS;
-    load<T, V>(reinterpret_cast<const T*>(s), vd);
-    load<T, V>(reinterpret_cast<const T*>(s + NTHREADS), vx);
+  __device__ __forceinline__ void get(int j, float (&v)[OPS][V]) const {
+    const uint4* s = smem + OPS * slot(j) * NTHREADS;
+#pragma unroll
+    for (int o = 0; o < OPS; ++o)
+      load<T, V>(reinterpret_cast<const T*>(s + o * NTHREADS), v[o]);
   }
 };
 
-template <typename T, int V, bool RELU>
-struct Chan {  // a thread's per-channel constants
-  float mean[V], inv[V], gam[V], bet[V];
+// A thread's per-channel constants, and what a mode does with one row
+template <int MODE, typename T, int V, bool RELU>
+struct Chan {
+  static constexpr int OPS = Layout<MODE>::OPS;
+  float mean[V], inv[V], gam[V], bet[V];  // the backward's inputs
+  float scale[V], shift[V];               // FWD's phase 1
+  float m_dy[V], m_dyx[V], gi[V];         // BWD_FUSED's phase 1
 
+  // backward: x̂ = (x − mean)·inv, dy zeroed where x̂γ + β > 0 fails
   __device__ __forceinline__ void xhat_mask(const float (&vx)[V],
                                             float (&vd)[V],
                                             float (&xh)[V]) const {
@@ -419,12 +313,58 @@ struct Chan {  // a thread's per-channel constants
         vd[i] = 0.f;
     }
   }
+
+  // phase 0: Σx, Σx²; or Σdy, Σ(dy·x̂)
+  __device__ __forceinline__ void add(float (&v)[OPS][V], float (&s0)[V],
+                                      float (&s1)[V]) const {
+    if constexpr (OPS == 1) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        s0[i] += v[0][i];
+        s1[i] += __fmul_rn(v[0][i], v[0][i]);
+      }
+    } else {
+      float xh[V];
+      xhat_mask(v[1], v[0], xh);
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        s0[i] += v[0][i];
+        s1[i] += __fmul_rn(v[0][i], xh[i]);
+      }
+    }
+  }
+
+  // phase 1: y = x·scale + shift [ReLU]; or
+  // dx = (dy − Σdy/n − x̂·Σ(dy·x̂)/n)·γ·inv
+  __device__ __forceinline__ void emit(float (&v)[OPS][V],
+                                       float (&out)[V]) const {
+    if constexpr (MODE == FWD) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float y = __fadd_rn(__fmul_rn(v[0][i], scale[i]), shift[i]);
+        out[i] = RELU ? fmaxf(y, 0.f) : y;
+      }
+    } else {
+      float xh[V];
+      xhat_mask(v[1], v[0], xh);
+#pragma unroll
+      for (int i = 0; i < V; ++i)
+        out[i] = __fmul_rn(__fsub_rn(__fsub_rn(v[0][i], m_dy[i]),
+                                     __fmul_rn(xh[i], m_dyx[i])),
+                           gi[i]);
+    }
+  }
 };
 
-template <typename T, int V, bool RELU>
-__device__ __forceinline__ void sweep(const Rows<T, V>& rw,
-                                      const Chan<T, V, RELU>& ch,
+template <int MODE, typename T, int V, bool RELU>
+using RowsOf = Rows<T, V, Layout<MODE>::OPS, Layout<MODE>::RING>;
+
+// Phase 0 of one item: every row into the sums, RING rows in flight
+template <int MODE, typename T, int V, bool RELU>
+__device__ __forceinline__ void sweep(const RowsOf<MODE, T, V, RELU>& rw,
+                                      const Chan<MODE, T, V, RELU>& ch,
                                       float (&s0)[V], float (&s1)[V]) {
+  constexpr int RING = Layout<MODE>::RING;
 #pragma unroll
   for (int j = 0; j < RING; ++j) {
     if (j < rw.J) rw.issue(j);
@@ -432,14 +372,9 @@ __device__ __forceinline__ void sweep(const Rows<T, V>& rw,
   }
   for (int j = 0; j < rw.J; ++j) {
     cp_wait<RING - 1>();
-    float vd[V], vx[V], xh[V];
-    rw.get(j, vd, vx);
-    ch.xhat_mask(vx, vd, xh);
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      s0[i] += vd[i];
-      s1[i] += __fmul_rn(vd[i], xh[i]);
-    }
+    float v[Layout<MODE>::OPS][V];
+    rw.get(j, v);
+    ch.add(v, s0, s1);
     // refill the slot only once its values are in use: the copy may not
     // overtake the read
     if (j + RING < rw.J) rw.issue(j + RING);
@@ -447,38 +382,29 @@ __device__ __forceinline__ void sweep(const Rows<T, V>& rw,
   }
 }
 
-// dx of row j from its slot: (dy − Σdy/n − x̂·Σ(dy·x̂)/n)·γ·inv
-template <typename T, int V, bool RELU>
-__device__ __forceinline__ void emit(const Rows<T, V>& rw,
-                                     const Chan<T, V, RELU>& ch,
-                                     const float (&m_dy)[V],
-                                     const float (&m_dyx)[V],
-                                     const float (&gi)[V], int j) {
-  float vd[V], vx[V], xh[V], out[V];
-  rw.get(j, vd, vx);
-  ch.xhat_mask(vx, vd, xh);
-#pragma unroll
-  for (int i = 0; i < V; ++i)
-    out[i] = __fmul_rn(
-        __fsub_rn(__fsub_rn(vd[i], m_dy[i]), __fmul_rn(xh[i], m_dyx[i])),
-        gi[i]);
-  store<T, V>(rw.dx + rw.off(j), out);
+// row j's output from its slot
+template <int MODE, typename T, int V, bool RELU>
+__device__ __forceinline__ void emit_row(const RowsOf<MODE, T, V, RELU>& rw,
+                                     const Chan<MODE, T, V, RELU>& ch, int j) {
+  float v[Layout<MODE>::OPS][V], out[V];
+  rw.get(j, v);
+  ch.emit(v, out);
+  store<T, V>(rw.out + rw.off(j), out);
 }
 
 // Phase 1 of one item: the rows still held in shared memory first (the
 // last RING of the sweep when `tail`, then the K resident ones), then the
 // rest backwards through the ring.
-template <typename T, int V, bool RELU>
-__device__ __forceinline__ void apply_back(const Rows<T, V>& rw,
-                                           const Chan<T, V, RELU>& ch,
-                                           const float (&m_dy)[V],
-                                           const float (&m_dyx)[V],
-                                           const float (&gi)[V], bool tail) {
+template <int MODE, typename T, int V, bool RELU>
+__device__ __forceinline__ void apply_back(const RowsOf<MODE, T, V, RELU>& rw,
+                                           const Chan<MODE, T, V, RELU>& ch,
+                                           bool tail) {
+  constexpr int RING = Layout<MODE>::RING;
   const int J = rw.J, K = rw.K;
   int next;  // the first row of the backward stream
   if (tail) {
     for (int j = J - 1; j >= max(K, J - RING); --j) {
-      emit(rw, ch, m_dy, m_dyx, gi, j);
+      emit_row(rw, ch, j);
       if (j - RING >= K) rw.issue(j - RING);  // into the slot just read
       cp_commit();
     }
@@ -491,17 +417,18 @@ __device__ __forceinline__ void apply_back(const Rows<T, V>& rw,
     }
     next = J - 1;
   }
-  for (int j = 0; j < min(K, J); ++j) emit(rw, ch, m_dy, m_dyx, gi, j);
+  for (int j = 0; j < min(K, J); ++j) emit_row(rw, ch, j);
   for (int j = next; j >= K; --j) {
     cp_wait<RING - 1>();
-    emit(rw, ch, m_dy, m_dyx, gi, j);
+    emit_row(rw, ch, j);
     if (j - RING >= K) rw.issue(j - RING);
     cp_commit();
   }
 }
 
-template <bool FUSED, typename T, int V, bool RELU>
-__global__ void __launch_bounds__(NTHREADS, 2) bn_bwd_kernel(BwdArgs g) {
+template <int MODE, typename T, int V, bool RELU>
+__global__ void __launch_bounds__(NTHREADS, 2) bn_coop_kernel(CoopArgs g) {
+  using L = Layout<MODE>;
   extern __shared__ uint4 ring[];
   __shared__ float red[2][NTHREADS * MAXV];
   const int tx = threadIdx.x, ty = threadIdx.y;
@@ -511,15 +438,15 @@ __global__ void __launch_bounds__(NTHREADS, 2) bn_bwd_kernel(BwdArgs g) {
   const bool single = g.items <= (int)gridDim.x;  // one item a CTA
   const int w = TX * V;
 
-  Rows<T, V> rw;
-  rw.dy = static_cast<const T*>(g.dy);
-  rw.x = static_cast<const T*>(g.x);
-  rw.dx = static_cast<T*>(g.dx);
+  RowsOf<MODE, T, V, RELU> rw;
+  rw.in[0] = static_cast<const T*>(g.a);
+  if constexpr (L::OPS == 2) rw.in[1] = static_cast<const T*>(g.x);
+  rw.out = static_cast<T*>(g.out);
   rw.smem = ring + ty * TX + tx;
   rw.C = C;
   rw.TY = TY;
-  rw.K = single ? RESIDENT : 0;
-  Chan<T, V, RELU> ch;
+  rw.K = single ? L::RESIDENT : 0;
+  Chan<MODE, T, V, RELU> ch;
   auto item = [&](int it) {  // point rw at item `it`; false if no channel
     const int b = it % blocks, s = it / blocks;
     rw.c = (b * TX + tx) * V;
@@ -527,13 +454,15 @@ __global__ void __launch_bounds__(NTHREADS, 2) bn_bwd_kernel(BwdArgs g) {
     const long long r1 = min(r0 + g.slab, g.rows);
     rw.r0 = r0 + ty;
     rw.J = (rw.c < C && rw.r0 < r1) ? (int)((r1 - rw.r0 + TY - 1) / TY) : 0;
-    if (rw.c < C) {
+    if constexpr (L::OPS == 2) {
+      if (rw.c < C) {
 #pragma unroll
-      for (int i = 0; i < V; ++i) {
-        ch.mean[i] = g.mean[rw.c + i];
-        ch.inv[i] = g.inv[rw.c + i];
-        ch.gam[i] = FUSED ? g.gamma[rw.c + i] : 0.f;
-        ch.bet[i] = RELU ? g.beta[rw.c + i] : 0.f;
+        for (int i = 0; i < V; ++i) {
+          ch.mean[i] = g.mean[rw.c + i];
+          ch.inv[i] = g.inv[rw.c + i];
+          ch.gam[i] = MODE == BWD_FUSED ? g.gamma[rw.c + i] : 0.f;
+          ch.bet[i] = RELU ? g.beta[rw.c + i] : 0.f;
+        }
       }
     }
     return rw.c < C;
@@ -541,6 +470,7 @@ __global__ void __launch_bounds__(NTHREADS, 2) bn_bwd_kernel(BwdArgs g) {
 
   const unsigned gen0 =
       (tx == 0 && ty == 0) ? ld_acquire(g.sync + 1) : 0u;
+  stamp(g.sync, 0);
 
   // phase 0: per-slab partials
   for (int it = blockIdx.x; it < g.items; it += (int)gridDim.x) {
@@ -548,7 +478,7 @@ __global__ void __launch_bounds__(NTHREADS, 2) bn_bwd_kernel(BwdArgs g) {
 #pragma unroll
     for (int i = 0; i < V; ++i) s0[i] = s1[i] = 0.f;
     const bool live = item(it);
-    sweep<T, V, RELU>(rw, ch, s0, s1);
+    sweep<MODE, T, V, RELU>(rw, ch, s0, s1);
 #pragma unroll
     for (int i = 0; i < V; ++i) {
       red[0][ty * w + tx * V + i] = s0[i];
@@ -567,7 +497,9 @@ __global__ void __launch_bounds__(NTHREADS, 2) bn_bwd_kernel(BwdArgs g) {
     }
     __syncthreads();  // red is rewritten by the next item
   }
+  stamp(g.sync, 1);
   grid_sync(g.sync, gen0, 1);
+  stamp(g.sync, 2);
 
   // finalisation: CTA i sums the partials of channels [lo, hi), a warp a
   // channel, lanes over slabs, then a butterfly (fixed order)
@@ -588,28 +520,64 @@ __global__ void __launch_bounds__(NTHREADS, 2) bn_bwd_kernel(BwdArgs g) {
         a1 += __shfl_xor_sync(0xffffffffu, a1, o);
       }
       if (lane == 0) {
-        g.sdy[cc] = a0;
-        g.sdyx[cc] = a1;
+        if constexpr (MODE == FWD) {  // mean, var = max(Σx²/n − mean², 0)
+          const float n = (float)g.rows;
+          const float m = __fdiv_rn(a0, n);
+          g.out0[cc] = m;
+          g.out1[cc] =
+              fmaxf(__fsub_rn(__fdiv_rn(a1, n), __fmul_rn(m, m)), 0.f);
+        } else {
+          g.out0[cc] = a0;
+          g.out1[cc] = a1;
+        }
       }
     }
   }
-  if constexpr (FUSED) {
+  stamp(g.sync, 3);
+  if constexpr (L::EMITS) {
     grid_sync(g.sync, gen0, 2);
-    // phase 1: dx, items in the reverse of phase 0's order
-    const float n = (float)g.rows;
+    stamp(g.sync, 4);
+    // phase 1: y or dx, items in the reverse of phase 0's order. An item's
+    // per-channel constants are formed once per CTA into `red`, read
+    // coalesced: a read of its V values by every thread, V floats apart
+    // across a warp, aims ~50k threads at the same few L2 lines.
     const int last = blockIdx.x + ((g.items - 1 - (int)blockIdx.x) /
                                    (int)gridDim.x) * (int)gridDim.x;
+    const int tid = ty * TX + tx;
     for (int it = last; it >= 0; it -= (int)gridDim.x) {
-      if (!item(it) || rw.J == 0) continue;
-      float m_dy[V], m_dyx[V], gi[V];
+      const bool live = item(it);
+      const int cc = (it % blocks) * w + tid;  // w <= NTHREADS channels
+      __syncthreads();  // the previous item's constants are read
+      if (tid < w && cc < C) {
+        if constexpr (MODE == FWD) {  // scale = rsqrt(var + eps)·γ
+          const float scale = __fmul_rn(
+              __frsqrt_rn(__fadd_rn(__ldcg(g.out1 + cc), g.eps)),
+              g.gamma[cc]);
+          red[0][tid] = scale;
+          red[1][tid] =
+              __fsub_rn(g.beta[cc], __fmul_rn(__ldcg(g.out0 + cc), scale));
+        } else {
+          const float n = (float)g.rows;
+          red[0][tid] = __fdiv_rn(__ldcg(g.out0 + cc), n);
+          red[1][tid] = __fdiv_rn(__ldcg(g.out1 + cc), n);
+        }
+      }
+      __syncthreads();
+      if (!live || rw.J == 0) continue;
 #pragma unroll
       for (int i = 0; i < V; ++i) {
-        m_dy[i] = __fdiv_rn(__ldcg(g.sdy + rw.c + i), n);
-        m_dyx[i] = __fdiv_rn(__ldcg(g.sdyx + rw.c + i), n);
-        gi[i] = __fmul_rn(ch.gam[i], ch.inv[i]);
+        if constexpr (MODE == FWD) {
+          ch.scale[i] = red[0][tx * V + i];
+          ch.shift[i] = red[1][tx * V + i];
+        } else {
+          ch.m_dy[i] = red[0][tx * V + i];
+          ch.m_dyx[i] = red[1][tx * V + i];
+          ch.gi[i] = __fmul_rn(ch.gam[i], ch.inv[i]);
+        }
       }
-      apply_back<T, V, RELU>(rw, ch, m_dy, m_dyx, gi, single);
+      apply_back<MODE, T, V, RELU>(rw, ch, single);
     }
+    stamp(g.sync, 5);
   }
 }
 
@@ -642,61 +610,61 @@ cudaError_t use_device(int device) {
     return cudaErrorInvalidValue;                     \
   } while (0)
 
-template <typename T, int V>
-cudaError_t reduce_tv(int mode, dim3 grid, dim3 block, const Args& g,
-                      cudaStream_t s) {
-  if (mode == FWD)
-    bn_reduce_kernel<FWD, T, V><<<grid, block, 0, s>>>(g);
-  else
-    bn_reduce_kernel<STATS, T, V><<<grid, block, 0, s>>>(g);
-  return cudaGetLastError();
-}
+using CoopKernel = void (*)(CoopArgs);
 
+// the bn_coop_kernel instance of (mode, relu, T, V) and its dynamic shared
+// memory (*smem), that size allowed; null if that failed. relu is taken
+// only by FWD and BWD_FUSED; mode is one of the four.
 template <typename T, int V>
-cudaError_t apply_tv(int relu, dim3 grid, dim3 block, const Args& g,
-                     cudaStream_t s) {
-  if (relu)
-    bn_apply_kernel<T, V, true><<<grid, block, 0, s>>>(g);
-  else
-    bn_apply_kernel<T, V, false><<<grid, block, 0, s>>>(g);
-  return cudaGetLastError();
-}
-
-using BwdKernel = void (*)(BwdArgs);
-
-// the bn_bwd_kernel instance of (fused, relu, T, V), its dynamic shared
-// memory allowed; null if that failed
-template <typename T, int V>
-BwdKernel bwd_tv(int fused, int relu) {
-  BwdKernel k = fused ? (relu ? bn_bwd_kernel<true, T, V, true>
-                              : bn_bwd_kernel<true, T, V, false>)
-                      : bn_bwd_kernel<false, T, V, false>;
+CoopKernel coop_tv(int mode, int relu, size_t* smem) {
+  CoopKernel k;
+  switch (mode) {
+    case STATS:
+      k = bn_coop_kernel<STATS, T, V, false>;
+      *smem = Layout<STATS>::SMEM;
+      break;
+    case FWD:
+      k = relu ? bn_coop_kernel<FWD, T, V, true>
+               : bn_coop_kernel<FWD, T, V, false>;
+      *smem = Layout<FWD>::SMEM;
+      break;
+    case BWD_STATS:
+      k = bn_coop_kernel<BWD_STATS, T, V, false>;
+      *smem = Layout<BWD_STATS>::SMEM;
+      break;
+    default:
+      k = relu ? bn_coop_kernel<BWD_FUSED, T, V, true>
+               : bn_coop_kernel<BWD_FUSED, T, V, false>;
+      *smem = Layout<BWD_FUSED>::SMEM;
+  }
   return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)BWD_SMEM) == cudaSuccess
+                              (int)*smem) == cudaSuccess
              ? k
              : nullptr;
 }
 
 template <typename T, int V>
-cudaError_t bwd_ctas_tv(int fused, int relu, int sms, int* ctas) {
-  BwdKernel k = bwd_tv<T, V>(fused, relu);
+cudaError_t coop_ctas_tv(int mode, int relu, int sms, int* ctas) {
+  size_t smem = 0;
+  CoopKernel k = coop_tv<T, V>(mode, relu, &smem);
   if (k == nullptr) return cudaGetLastError();
   int per_sm = 0;
   cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, k, NTHREADS, BWD_SMEM);
+      &per_sm, k, NTHREADS, smem);
   *ctas = per_sm * sms;
   return e;
 }
 
 template <typename T, int V>
-cudaError_t bwd_launch_tv(int fused, int relu, dim3 grid, dim3 block,
-                          const BwdArgs& g, cudaStream_t s) {
-  BwdKernel k = bwd_tv<T, V>(fused, relu);
+cudaError_t coop_launch_tv(int mode, int relu, dim3 grid, dim3 block,
+                           const CoopArgs& g, cudaStream_t s) {
+  size_t smem = 0;
+  CoopKernel k = coop_tv<T, V>(mode, relu, &smem);
   if (k == nullptr) return cudaGetLastError();
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = block;
-  cfg.dynamicSmemBytes = BWD_SMEM;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeCooperative;
@@ -707,105 +675,53 @@ cudaError_t bwd_launch_tv(int fused, int relu, dim3 grid, dim3 block,
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
+bool valid_mode(int mode) { return mode >= STATS && mode <= BWD_FUSED; }
+
+bool emits(int mode) { return mode == FWD || mode == BWD_FUSED; }
+
 }  // namespace
 
-// The forward pair's sweep (mode 0: Σx, Σx²; mode 2: mean, var and the
-// (scale, shift) of bn_apply in aux): per-slab partials into `part`, then
-// the last CTA of each channel block finalises. Returns a cudaError_t (0
-// on success).
-extern "C" int bn_reduce(int mode, int is_bf16, int vec, int tx, int slabs,
-                         long long slab, const void* x, const float* gamma,
-                         const float* beta, float* part, unsigned* count,
-                         float* out0, float* out1, float* aux, long long rows,
-                         int C, float eps, int device, void* stream) {
+// CTAs of bn_coop_kernel in `mode` (0 bn_stats, 1 bn_fwd_apply, 2
+// bn_bwd_stats, 3 bn_bwd_fused) that the card holds at once: the most a
+// cooperative launch of it may have, written to *ctas.
+extern "C" int bn_coop_ctas(int mode, int is_bf16, int relu, int vec,
+                            int device, int* ctas) {
   cudaError_t e = use_device(device);
   if (e != cudaSuccess) return (int)e;
-  if (tx < 1 || tx > 32 || (tx & (tx - 1)) || C % vec || rows < 1 ||
-      slabs < 1 || slabs > 65535 || (mode != STATS && mode != FWD))
-    return (int)cudaErrorInvalidValue;
-  Args g = {};
-  g.x = x;
-  g.gamma = gamma;
-  g.beta = beta;
-  g.part = part;
-  g.count = count;
-  g.out0 = out0;
-  g.out1 = out1;
-  g.aux = aux;
-  g.rows = rows;
-  g.slab = slab;
-  g.C = C;
-  g.P = slabs;
-  g.eps = eps;
-  const int cb = tx * vec;
-  const dim3 grid((C + cb - 1) / cb, slabs), block(tx, NTHREADS / tx);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define BN_REDUCE(T, V) reduce_tv<T, V>(mode, grid, block, g, s)
-  BN_DISPATCH(is_bf16, vec, BN_REDUCE);
-#undef BN_REDUCE
-}
-
-// bn_fwd_apply's elementwise pass, y from the (scale, shift) bn_reduce
-// left in `aux`.
-extern "C" int bn_apply(int is_bf16, int relu, int vec, int tx, int slabs,
-                        long long slab, const void* x, const float* aux,
-                        void* y, long long rows, int C, int device,
-                        void* stream) {
-  cudaError_t e = use_device(device);
-  if (e != cudaSuccess) return (int)e;
-  if (tx < 1 || tx > 32 || (tx & (tx - 1)) || C % vec || rows < 1 ||
-      slabs < 1 || slabs > 65535)
-    return (int)cudaErrorInvalidValue;
-  Args g = {};
-  g.x = x;
-  g.aux_in = aux;
-  g.y = y;
-  g.rows = rows;
-  g.slab = slab;
-  g.C = C;
-  g.P = slabs;
-  const int cb = tx * vec;
-  const dim3 grid((C + cb - 1) / cb, slabs), block(tx, NTHREADS / tx);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define BN_APPLY(T, V) apply_tv<T, V>(relu, grid, block, g, s)
-  BN_DISPATCH(is_bf16, vec, BN_APPLY);
-#undef BN_APPLY
-}
-
-// CTAs of bn_bwd_kernel (fused or not) that the card holds at once: the
-// most a cooperative launch of it may have, written to *ctas.
-extern "C" int bn_bwd_ctas(int fused, int is_bf16, int relu, int vec,
-                           int device, int* ctas) {
-  cudaError_t e = use_device(device);
-  if (e != cudaSuccess) return (int)e;
+  if (!valid_mode(mode)) return (int)cudaErrorInvalidValue;
   int sms = 0;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return (int)e;
-#define BN_CTAS(T, V) bwd_ctas_tv<T, V>(fused, relu && fused, sms, ctas)
+#define BN_CTAS(T, V) \
+  coop_ctas_tv<T, V>(mode, relu && emits(mode), sms, ctas)
   BN_DISPATCH(is_bf16, vec, BN_CTAS);
 #undef BN_CTAS
 }
 
-// bn_bwd_stats (fused 0: Σdy, Σ(dy·x̂)) or bn_bwd_fused (fused 1: also
-// dx) as one cooperative launch of `ctas` CTAs over channel blocks of tx·vec
-// channels x `slabs` slabs of `slab` rows. `sync` holds two counters, the
-// first 0 (it is 0 again when the kernel ends).
-extern "C" int bn_bwd(int fused, int is_bf16, int relu, int vec, int tx,
-                      int ctas, int slabs, long long slab, const void* dy,
-                      const void* x, const float* mean, const float* inv,
-                      const float* gamma, const float* beta, float* part,
-                      unsigned* sync, float* sdy, float* sdyx, void* dx,
-                      long long rows, int C, int device, void* stream) {
+// One of the four kernels as one cooperative launch of `ctas` CTAs over
+// channel blocks of tx·vec channels x `slabs` slabs of `slab` rows. `a` is
+// x (modes 0, 1) or dy (2, 3, with x); out0/out1 receive Σx and Σx² (0),
+// the mean and var (1), or Σdy and Σ(dy·x̂) (2, 3); `out` y (1) or dx (3).
+// `sync` holds two counters, the first 0 (it is 0 again when the kernel
+// ends).
+extern "C" int bn_coop(int mode, int is_bf16, int relu, int vec, int tx,
+                       int ctas, int slabs, long long slab, const void* a,
+                       const void* x, const float* mean, const float* inv,
+                       const float* gamma, const float* beta, float* part,
+                       unsigned* sync, float* out0, float* out1, void* out,
+                       long long rows, int C, float eps, int device,
+                       void* stream) {
   cudaError_t e = use_device(device);
   if (e != cudaSuccess) return (int)e;
   const int cb = tx * vec;
   const long long items = (long long)((C + cb - 1) / cb) * slabs;
-  if (tx < 1 || tx > 32 || (tx & (tx - 1)) || C % vec || rows < 1 ||
-      slabs < 1 || ctas < 1 || items > (1ll << 30) ||
-      (long long)slabs * slab < rows || (fused && dx == nullptr))
+  if (!valid_mode(mode) || tx < 1 || tx > 32 || (tx & (tx - 1)) ||
+      C % vec || rows < 1 || slabs < 1 || ctas < 1 ||
+      items > (1ll << 30) || (long long)slabs * slab < rows ||
+      (emits(mode) && out == nullptr) || (mode >= BWD_STATS && x == nullptr))
     return (int)cudaErrorInvalidValue;
-  BwdArgs g = {};
-  g.dy = dy;
+  CoopArgs g = {};
+  g.a = a;
   g.x = x;
   g.mean = mean;
   g.inv = inv;
@@ -813,18 +729,19 @@ extern "C" int bn_bwd(int fused, int is_bf16, int relu, int vec, int tx,
   g.beta = beta;
   g.part = part;
   g.sync = sync;
-  g.sdy = sdy;
-  g.sdyx = sdyx;
-  g.dx = dx;
+  g.out0 = out0;
+  g.out1 = out1;
+  g.out = out;
   g.rows = rows;
   g.slab = slab;
   g.C = C;
   g.P = slabs;
   g.items = (int)items;
+  g.eps = eps;
   const dim3 grid(ctas), block(tx, NTHREADS / tx);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define BN_BWD(T, V) \
-  bwd_launch_tv<T, V>(fused, relu && fused, grid, block, g, s)
-  BN_DISPATCH(is_bf16, vec, BN_BWD);
-#undef BN_BWD
+#define BN_COOP(T, V) \
+  coop_launch_tv<T, V>(mode, relu && emits(mode), grid, block, g, s)
+  BN_DISPATCH(is_bf16, vec, BN_COOP);
+#undef BN_COOP
 }

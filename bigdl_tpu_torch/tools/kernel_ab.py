@@ -16,15 +16,17 @@ nvcc flags, the baseline against the headers of ``ops/csrc``.
   512 x 64.
 * Backward (``flash_dq`` and ``flash_dkv``): at the training step's shape
   and at 2 x 8 x 512 x 512 x 64, bf16, causal; both kernels and their sum.
-* Batch norm (``bn_reduce``): ``bn_bwd_stats``, ``bn_bwd_fused`` (ReLU on
-  and off), ``bn_stats`` and ``bn_fwd_apply`` (ReLU on) at ResNet-50's BN
-  shapes in bf16 and ResNet-20's in f32 (``BN_CASES``). A baseline with
-  the current C entry points (``bn_bwd``) runs behind the current
-  wrappers; one whose backward is ``bn_reduce`` + ``bn_apply`` (modes 1
-  and 3, as up to 7c8a5b1) behind that version's wrappers, kept here. Its
-  ``bn_bwd_stats`` reads an f32 x̂: it is given the x̂ of the same x, mean
-  and inv, built outside the timed call (that build's own time is
-  printed beside it).
+* Batch norm (``bn_coop`` or ``bn_bwd``): ``bn_bwd_stats``,
+  ``bn_bwd_fused`` (ReLU on and off), ``bn_stats`` and ``bn_fwd_apply``
+  (ReLU on) at ResNet-50's BN shapes in bf16 and ResNet-20's in f32
+  (``BN_CASES``), each row with its bytes bound (every input read once,
+  every output written once, over 3.35 TB/s). A baseline with the current
+  C entry point (``bn_coop``) runs behind the current wrappers; one whose
+  forward is ``bn_reduce`` + ``bn_apply`` after a memset and whose
+  backward is ``bn_bwd`` (as at 7bb8de4) behind that version's wrappers
+  and launch plans, kept here. Older ``bn.cu`` files (backward modes of
+  ``bn_reduce``, up to 7c8a5b1) are not taken: this tool's adapter for
+  them is in its history at 7bb8de4.
 
 At each shape both versions are checked against the plain version and
 timed as CUDA-graph replays in 10 turns (baseline then current, current
@@ -53,14 +55,17 @@ BWD_SHAPES = [(8, 1024, 128), (2, 512, 64)]  # (batch, s, head_dim), 8 heads
 TURNS = 10
 BWD_TOL = 2e-2  # max|d| / max|ref| of each gradient, as chip_smoke.py
 # (rows, C, dtype): chip_smoke.py's BN_SHAPES (ResNet-50's stage 1-4
-# shapes at batch 128 and a ragged one) in bf16, two of ResNet-50's
-# smaller BNs (14 x 14 x 256, 7 x 7 x 512), and resnet_cifar(20)'s three
-# (32 x 32 x 16 .. 8 x 8 x 64) in f32, as the CIFAR CLI trains it
+# shapes at batch 128 and a ragged one) in bf16, four more of ResNet-50's
+# BNs (14 x 14 x 256, 7 x 7 x 512, 28 x 28 x 128 and 14 x 14 x 1024; the
+# first three fit on chip whole), and resnet_cifar(20)'s three (32 x 32 x
+# 16 .. 8 x 8 x 64) in f32, as the CIFAR CLI trains it
 BN_CASES = [(1605632, 64, "bfloat16"), (401408, 256, "bfloat16"),
             (100352, 512, "bfloat16"), (6272, 2048, "bfloat16"),
             (1000, 100, "bfloat16"), (25088, 256, "bfloat16"),
-            (6272, 512, "bfloat16"), (131072, 16, "float32"),
+            (6272, 512, "bfloat16"), (100352, 128, "bfloat16"),
+            (25088, 1024, "bfloat16"), (131072, 16, "float32"),
             (32768, 32, "float32"), (8192, 64, "float32")]
+HBM_BYTES_PER_S = 3.35e12
 BN_EPS = 1e-5
 # max|d| / max|ref|, as chip_smoke.py: y/dx by dtype, then the f32 sums
 BN_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
@@ -180,7 +185,7 @@ def _variant_bn(bk, lib):
     entry points: each call swaps its functions (and its own cache of CTAs
     a launch may have) into the module for the call."""
     fns, ctas = {}, {}
-    for name in ("bn_reduce", "bn_apply", "bn_bwd", "bn_bwd_ctas"):
+    for name in ("bn_coop", "bn_coop_ctas"):
         fn, cur = getattr(lib, name), bk._bind(name)
         fn.argtypes, fn.restype = cur.argtypes, cur.restype
         fns[name] = fn
@@ -201,71 +206,119 @@ def _variant_bn(bk, lib):
                 bk._ctas.update(saved_ctas)
         return call
 
-    bwd_stats = wrap("bn_bwd_stats")
-    return (wrap("bn_stats"),
-            lambda dy, x, mean, inv, xhat: bwd_stats(dy, x, mean, inv),
-            wrap("bn_fwd_apply"), wrap("bn_bwd_fused"))
+    return tuple(wrap(n) for n in ("bn_stats", "bn_bwd_stats",
+                                   "bn_fwd_apply", "bn_bwd_fused"))
 
 
 def _baseline_bn(bk, lib):
-    """The four BN wrappers of a ``bn.cu`` with the backward modes of
-    ``bn_reduce``/``bn_apply`` (up to 7c8a5b1), on its library ``lib``;
-    its bn_bwd_stats takes x̂ (the last argument)."""
+    """The four BN wrappers of a ``bn.cu`` whose forward is ``bn_reduce``
+    (a memset of its counters first) + ``bn_apply`` and whose backward is
+    one cooperative ``bn_bwd`` (as at 7bb8de4), on its library ``lib``,
+    with that version's launch plans. Its backward shares the current
+    wrappers' barrier counters (the same protocol)."""
     ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
-    head = [i32] * 6 + [i64] + [ptr] * 6
-    red, app = lib.bn_reduce, lib.bn_apply
-    red.argtypes = head + [ptr] * 5 + [i64, i32, f32, i32, ptr]
-    app.argtypes = head + [ptr] * 2 + [i64, i32, i32, ptr]
-    red.restype = app.restype = i32
-    stats, bwd_stats, fwd, bwd = range(4)
+    red, app, bwd, bwd_ctas = (lib.bn_reduce, lib.bn_apply, lib.bn_bwd,
+                               lib.bn_bwd_ctas)
+    red.argtypes = [i32] * 5 + [i64] + [ptr] * 8 + [i64, i32, f32, i32, ptr]
+    app.argtypes = [i32] * 5 + [i64] + [ptr] * 3 + [i64, i32, i32, ptr]
+    bwd.argtypes = [i32] * 7 + [i64] + [ptr] * 11 + [i64, i32, i32, ptr]
+    bwd_ctas.argtypes = [i32] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    for fn in (red, app, bwd, bwd_ctas):
+        fn.restype = i32
+    ctas = {}
+    f32_ = dict(dtype=torch.float32)
 
-    def reduce(mode, mats, vecs=(None,) * 4, eps=0.0, relu=False):
-        a, b = mats[0], (mats[1] if len(mats) > 1 else None)
-        rows, c = a.shape
-        plan = vec, tx, blocks, slabs, slab = bk._plan(rows, c, mats,
-                                                       a.device)
-        kw = dict(dtype=torch.float32, device=a.device)
-        out0, out1 = torch.empty(c, **kw), torch.empty(c, **kw)
-        aux = torch.empty((2, c), **kw) if mode in (fwd, bwd) else None
-        part = torch.empty((2, slabs, c), **kw)
-        count = torch.zeros(blocks, dtype=torch.int32, device=a.device)
-        bk._raise_on(red(mode, bk._DTYPES[a.dtype], int(relu), vec, tx,
-                         slabs, slab, a.data_ptr(), bk._ptr(b),
-                         *(bk._ptr(v) for v in vecs), part.data_ptr(),
-                         count.data_ptr(), out0.data_ptr(), out1.data_ptr(),
-                         bk._ptr(aux), rows, c, float(eps),
-                         *bk._stream(a)), "baseline bn_reduce")
-        return out0, out1, aux, plan
+    def lanes(c, mats):  # (vec, tx, channel blocks)
+        vec = bk._vec(c, mats)
+        tx = 1
+        while tx < min(32, -(-c // vec)):
+            tx *= 2
+        return vec, tx, -(-c // (tx * vec))
 
-    def apply(mode, mats, vecs, aux, plan, relu):
-        a, b = mats[0], (mats[1] if len(mats) > 1 else None)
-        vec, tx, _, slabs, slab = plan
-        out = torch.empty_like(mats[-1])
-        bk._raise_on(app(mode, bk._DTYPES[a.dtype], int(relu), vec, tx,
-                         slabs, slab, a.data_ptr(), bk._ptr(b),
-                         *(bk._ptr(v) for v in vecs), aux.data_ptr(),
-                         out.data_ptr(), a.shape[0], a.shape[1],
-                         *bk._stream(a)), "baseline bn_apply")
-        return out
+    def reduce(mode, x, gamma=None, beta=None, eps=0.0):
+        # ~4 CTAs an SM, at least 4 rows a thread per slab
+        rows, c = x.shape
+        vec, tx, blocks = lanes(c, (x,))
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        slabs = max(1, min(-(-rows // (4 * (256 // tx))),
+                           -(-4 * sms // blocks), 65535))
+        slab = -(-rows // slabs)
+        slabs = -(-rows // slab)
+        out0, out1 = (torch.empty(c, device=x.device, **f32_)
+                      for _ in range(2))
+        aux = torch.empty((2, c), device=x.device, **f32_) if mode else None
+        part = torch.empty((2, slabs, c), device=x.device, **f32_)
+        count = torch.zeros(blocks, dtype=torch.int32, device=x.device)
+        bk._raise_on(red(mode, bk._DTYPES[x.dtype], vec, tx, slabs, slab,
+                         x.data_ptr(), bk._ptr(gamma), bk._ptr(beta),
+                         part.data_ptr(), count.data_ptr(), out0.data_ptr(),
+                         out1.data_ptr(), bk._ptr(aux), rows, c, float(eps),
+                         *bk._stream(x)), "baseline bn_reduce")
+        return out0, out1, aux, (vec, tx, slabs, slab)
 
     def bn_stats(x):
-        return reduce(stats, (x,))[:2]
-
-    def bn_bwd_stats(dy, x, mean, inv, xhat):
-        return reduce(bwd_stats, (dy, xhat))[:2]
+        return reduce(0, x)[:2]
 
     def bn_fwd_apply(x, gamma, beta, eps, relu):
-        mean, var, aux, plan = reduce(fwd, (x,), (gamma, beta, None, None),
-                                      eps)
-        return apply(fwd, (x,), (None,) * 4, aux, plan, relu), mean, var
+        mean, var, aux, (vec, tx, slabs, slab) = reduce(2, x, gamma, beta,
+                                                        eps)
+        y = torch.empty_like(x)
+        bk._raise_on(app(bk._DTYPES[x.dtype], int(relu), vec, tx, slabs,
+                         slab, x.data_ptr(), aux.data_ptr(), y.data_ptr(),
+                         x.shape[0], x.shape[1], *bk._stream(x)),
+                     "baseline bn_apply")
+        return y, mean, var
+
+    def backward(fused, dy, x, mean, inv, gamma=None, beta=None,
+                 relu=False):
+        # one (channel block, slab) a CTA, at least 8 rows a thread
+        rows, c = x.shape
+        is_bf16, relu = bk._DTYPES[x.dtype], bool(relu) and fused
+        vec, tx, blocks = lanes(c, (dy, x))
+        key = (fused, is_bf16, relu, vec)
+        if key not in ctas:
+            n = ctypes.c_int(0)
+            bk._raise_on(bwd_ctas(int(fused), is_bf16, int(relu), vec,
+                                  x.device.index or 0, ctypes.byref(n)),
+                         "baseline bn_bwd_ctas")
+            ctas[key] = n.value
+        slabs = max(1, min(ctas[key] // blocks,
+                           -(-rows // (8 * (256 // tx)))))
+        slab = -(-rows // slabs)
+        slabs = -(-rows // slab)
+        sdy, sdyx = (torch.empty(c, device=x.device, **f32_)
+                     for _ in range(2))
+        part = torch.empty((2, slabs, c), device=x.device, **f32_)
+        dx = torch.empty_like(x) if fused else None
+        index, stream = bk._stream(x)
+        sync = bk._sync(x.device, stream)
+        bk._raise_on(bwd(int(fused), is_bf16, int(relu), vec, tx,
+                         min(ctas[key], blocks * slabs), slabs, slab,
+                         dy.data_ptr(), x.data_ptr(), mean.data_ptr(),
+                         inv.data_ptr(), bk._ptr(gamma), bk._ptr(beta),
+                         part.data_ptr(), sync.data_ptr(), sdy.data_ptr(),
+                         sdyx.data_ptr(), bk._ptr(dx), rows, c, index,
+                         stream), "baseline bn_bwd")
+        return sdy, sdyx, dx
+
+    def bn_bwd_stats(dy, x, mean, inv):
+        return backward(False, dy, x, mean, inv)[:2]
 
     def bn_bwd_fused(dy, x, mean, inv, gamma, beta, relu):
-        vecs = (mean, inv, gamma, beta)
-        sdy, sdyx, aux, plan = reduce(bwd, (dy, x), vecs, relu=relu)
-        return apply(bwd, (dy, x), vecs, aux, plan, relu), sdy, sdyx
+        sdy, sdyx, dx = backward(True, dy, x, mean, inv, gamma, beta, relu)
+        return dx, sdy, sdyx
 
     return bn_stats, bn_bwd_stats, bn_fwd_apply, bn_bwd_fused
+
+
+def _bn_bound_ms(label: str, rows: int, c: int, item: int) -> float:
+    """Bytes bound of one BN call: each (rows, C) input read once and
+    output written once, over HBM_BYTES_PER_S (the (C,) vectors left
+    out)."""
+    mats = {"bn_stats": 1, "bn_bwd_stats": 2, "bn_fwd_apply": 2,
+            "bn_bwd_fused": 3}[label.split()[0]]
+    return 1e3 * mats * rows * c * item / HBM_BYTES_PER_S
 
 
 def _ab_bn(bk, device_ms, lib, variant: bool) -> None:
@@ -281,10 +334,9 @@ def _ab_bn(bk, device_ms, lib, variant: bool) -> None:
         beta = 0.2 * torch.randn(c, device="cuda", generator=g)
         _, mean, var = bk.bn_fwd_apply_reference(x, gamma, beta, BN_EPS)
         inv = torch.rsqrt(var + BN_EPS)
-        xhat = (x.float() - mean) * inv
         sums = [BN_SUM_TOL] * 2
         cases = {"bn_bwd_stats": (
-            lambda: b_bwd_stats(dy, x, mean, inv, xhat),
+            lambda: b_bwd_stats(dy, x, mean, inv),
             lambda: bk.bn_bwd_stats(dy, x, mean, inv),
             lambda: bk.bn_bwd_stats_reference(dy, x, mean, inv), sums)}
         for relu in (True, False):
@@ -320,14 +372,11 @@ def _ab_bn(bk, device_ms, lib, variant: bool) -> None:
 
             times = _turns({"baseline": base, "current": cur}, install, check,
                            lambda: device_ms(chosen["fn"]))
-            _report(f"{label} rows={rows} C={c} {dt}", times)
+            bound = _bn_bound_ms(label, rows, c, x.element_size())
+            _report(f"{label} rows={rows} C={c} {dt} (bound {bound:.4f} ms)",
+                    times)
             del ref
-        if not variant:
-            print(f"x̂ = (x.float() - mean)·inv, the baseline bn_bwd_stats' "
-                  f"input, rows={rows} C={c}: "
-                  f"{device_ms(lambda: (x.float() - mean) * inv):.4f} ms",
-                  flush=True)
-        del x, dy, xhat
+        del x, dy
         torch.cuda.empty_cache()
 
 
@@ -338,10 +387,10 @@ def main(argv=None) -> int:
     text = args.baseline.read_text()
     fwd = re.search(r'extern "C" int flash_fwd\(([^)]*)\)', text)
     bwd = re.search(r'extern "C" int flash_dq\(', text)
-    bn = re.search(r'extern "C" int bn_reduce\(', text)
+    bn = re.search(r'extern "C" int bn_(coop|bwd)\(', text)
     if fwd is None and bwd is None and bn is None:
         raise SystemExit(f"{args.baseline} has no extern \"C\" flash_fwd, "
-                         f"flash_dq or bn_reduce")
+                         f"flash_dq, bn_coop or bn_bwd")
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     from bigdl_tpu_torch.ops import _build
@@ -374,8 +423,7 @@ def main(argv=None) -> int:
         _ab_bwd(ak, device_ms, lib)
     else:
         from bigdl_tpu_torch.ops import bn_kernel as bk
-        _ab_bn(bk, device_ms, lib,
-               variant='extern "C" int bn_bwd(' in text)
+        _ab_bn(bk, device_ms, lib, variant=bn.group(1) == "coop")
     return 0
 
 

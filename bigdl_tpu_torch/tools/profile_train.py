@@ -86,8 +86,7 @@ def main(argv=None) -> int:
            if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in dev)
     n_kernels = sum(e.count for e in dev)
-    marks = ("flash_",) if is_lm else ("bn_reduce_kernel", "bn_apply_kernel",
-                                       "bn_bwd_kernel")
+    marks = ("flash_",) if is_lm else ("bn_coop_kernel",)
     port = [e for e in dev if any(m in e.key for m in marks)]
     port_ms = sum(e.self_device_time_total for e in port) / 1e3 / TRACED
     port_n = sum(e.count for e in port)

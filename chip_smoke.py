@@ -56,10 +56,10 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    library ms (``torch.batch_norm_stats``, ``batch_norm_backward_reduce``,
    ``batch_norm`` and ``native_batch_norm_backward`` on the channels_last
    4-D view; the port never calls them) and the bound (the bytes each
-   must move over 3.35 TB/s). The one-launch backward pair
-   (``bn_bwd_stats``, ``bn_bwd_fused``) must also give the same bits on a
-   second call and on a CUDA-graph replay of the call, at every shape;
-   ptxas's registers, shared memory and spills of its instances print
+   must move over 3.35 TB/s). Each kernel is one cooperative launch
+   (``bn_coop_kernel`` in four modes) and must also give the same bits on
+   a second call and on a CUDA-graph replay of the call, at every shape;
+   ptxas's registers, shared memory and spills of every instance print
    after the build.
 8. ResNet-50 training at full width through ``cli.perf.run``, bf16, batch
    128, random images from ``RandomState(0)``, 2 warm-up and 5 timed
@@ -157,9 +157,10 @@ BN_EPS = 1e-5
 # vars: 1e-4 (sums of up to 1.6M rows in another order)
 BN_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 BN_SUM_TOL = 1e-4
-# the one-launch backward kernels: the same bits on a second call and on a
+# the one-launch BN kernels: the same bits on a second call and on a
 # CUDA-graph replay of the call (every sum in an order fixed by the plan)
-REPEAT_CHECKED = ("bn_bwd_stats", "bn_bwd_fused")
+REPEAT_CHECKED = ("bn_stats", "bn_bwd_stats", "bn_fwd_apply",
+                  "bn_bwd_fused")
 RESNET_BATCH, RESNET_WARMUP, RESNET_ITERS = 128, 2, 5
 RESNET_ROWS = {"resnet50_fba": {"bn_fwd_apply": 53, "bn_bwd_fused": 53},
                "resnet50_fbn": {"bn_stats": 53, "bn_bwd_stats": 53},
@@ -208,11 +209,12 @@ def print_ptxas(log, kernels):
 
 
 def print_ptxas_bn(log):
-    """ptxas's registers, shared memory and spills of each bn_bwd_kernel
-    instance (the one-launch backward pair), and any warning or
+    """ptxas's registers, shared memory and spills of each bn_coop_kernel
+    instance (the four BN kernels are its modes), and any warning or
     "Potential Performance Loss" note of bn.cu."""
+    modes = ("stats", "fwd", "bwd_stats", "bwd_fused")
     for block in log.split("Compiling entry function '")[1:]:
-        m = re.search(r"bn_bwd_kernelILb([01])E(13__nv_bfloat16|f)Li(\d+)E"
+        m = re.search(r"bn_coop_kernelILi(\d)E(13__nv_bfloat16|f)Li(\d+)E"
                       r"Lb([01])E", block.split("'")[0])
         if m is None:
             continue
@@ -220,7 +222,7 @@ def print_ptxas_bn(log):
         smem = re.search(r"(\d+) bytes smem", block)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", block)
-        print(f"    bn_bwd_kernel<fused={m.group(1)}, "
+        print(f"    bn_coop_kernel<{modes[int(m.group(1))]}, "
               f"{'bf16' if m.group(2) != 'f' else 'f32'}, V={m.group(3)}, "
               f"relu={m.group(4)}>: {regs.group(1) if regs else '?'} "
               f"registers, {smem.group(1) if smem else '0'} bytes static "

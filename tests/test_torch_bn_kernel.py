@@ -14,6 +14,11 @@ bf16 ulp of the reference value. Where x·scale + shift cancels to near 0,
 the f32 rounding of the O(1) terms (atol 1e-6) is more than a bf16 ulp of
 the tiny result, so that atol is the floor."""
 
+import ctypes
+import re
+import types
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +26,7 @@ import pytest
 import torch
 
 from bigdl_tpu.ops import bn_kernel as jbk
+from bigdl_tpu_torch.ops import _build
 from bigdl_tpu_torch.ops import bn_kernel as bk
 
 EPS = 1e-5
@@ -155,6 +161,101 @@ def test_functions_match_jax_vjp(shape, mode):
                                    rtol=0, atol=ATOL)
     for got, ref in ((dg, rdg), (db, rdb)):  # dγ = Σ(dy·x̂), dβ = Σdy
         _sums_close(got, ref)
+
+
+# ResNet-50's 12 BN shapes at batch 128, (rows, C) of NHWC activations,
+# with the number of BNs of each (bigdl_tpu/models/resnet.py, the stride on
+# the 3x3 conv)
+RESNET50_BNS = {(1605632, 64): 1, (401408, 64): 6, (401408, 128): 1,
+                (401408, 256): 4, (100352, 128): 7, (100352, 256): 1,
+                (100352, 512): 5, (25088, 256): 11, (25088, 512): 1,
+                (25088, 1024): 7, (6272, 512): 5, (6272, 2048): 4}
+# the plan's cases: those in bf16, resnet_cifar(20)'s three in f32 (the
+# CIFAR CLI), and ragged ones; (16, 40000) in f32 has more channel blocks
+# (313) than the grid holds
+PLAN_CASES = ([(r, c, "bfloat16") for r, c in RESNET50_BNS]
+              + [(131072, 16, "float32"), (32768, 32, "float32"),
+                 (8192, 64, "float32"), (1000, 100, "bfloat16"),
+                 (7, 3, "bfloat16"), (16, 40000, "bfloat16"),
+                 (16, 40000, "float32")])
+SMS, CTAS_PER_SM = 132, 2  # an H100 at two 256-thread CTAs an SM
+# where bn_fwd_apply's 24 rows a thread hold every row of the slab, so x
+# is read from device memory once: ResNet-50's bf16 x of at most ~26 MB
+# (28 of its 53 BNs) and every case below 3 MB; not where C has more
+# blocks than the grid (no row is kept then)
+FWD_ONCE = {(100352, 128, "bfloat16"), (25088, 256, "bfloat16"),
+            (25088, 512, "bfloat16"), (6272, 512, "bfloat16"),
+            (6272, 2048, "bfloat16"), (131072, 16, "float32"),
+            (32768, 32, "float32"), (8192, 64, "float32"),
+            (1000, 100, "bfloat16"), (7, 3, "bfloat16"),
+            (16, 40000, "bfloat16")}
+# bn_bwd_fused's 11 (dy, x) rows a thread fit fewer
+FUSED_ONCE = {(6272, 512, "bfloat16"), (131072, 16, "float32"),
+              (32768, 32, "float32"), (8192, 64, "float32"),
+              (1000, 100, "bfloat16"), (7, 3, "bfloat16"),
+              (16, 40000, "bfloat16")}
+
+
+def test_fwd_once_is_28_of_resnet50s_53_bns():
+    assert sum(RESNET50_BNS.values()) == 53
+    assert sum(n for (r, c), n in RESNET50_BNS.items()
+               if (r, c, "bfloat16") in FWD_ONCE) == 28
+
+
+@pytest.mark.parametrize("mode", ["stats", "fwd", "bwd_stats", "bwd_fused"])
+@pytest.mark.parametrize("rows,c,dtype", PLAN_CASES)
+def test_launch_plan(rows, c, dtype, mode):
+    """bn_coop's plan, without a card: slabs cover the rows, the grid fits
+    the CTAs given, a slab holds at least _SLAB_ROWS rows a thread unless
+    it is the only one, and the operands are read once exactly where the
+    design keeps every row in shared memory."""
+    m = {"stats": bk._STATS, "fwd": bk._FWD, "bwd_stats": bk._BWD_STATS,
+         "bwd_fused": bk._BWD_FUSED}[mode]
+    vec = 16 // (2 if dtype == "bfloat16" else 4)
+    while c % vec:
+        vec //= 2
+    ctas = SMS * CTAS_PER_SM
+    p = bk._plan(m, rows, c, vec, ctas)
+    ty = bk._NTHREADS // p.tx
+    assert p.tx & (p.tx - 1) == 0 and 1 <= p.tx <= 32
+    assert p.blocks * p.tx * vec >= c > (p.blocks - 1) * p.tx * vec
+    assert p.slabs * p.slab >= rows > (p.slabs - 1) * p.slab
+    assert p.grid == min(ctas, p.blocks * p.slabs) >= 1
+    assert p.slabs == 1 or p.slab >= bk._SLAB_ROWS * ty
+    assert p.slabs == 1 or p.blocks * p.slabs <= ctas
+    want = {"fwd": (rows, c, dtype) in FWD_ONCE,
+            "bwd_fused": (rows, c, dtype) in FUSED_ONCE}.get(mode, True)
+    assert p.once == want
+
+
+# C parameter types of bn.cu's entry points and the ctypes type each must
+# be bound with (a pointer bound as an int would be cut to 32 bits)
+_C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+            "const float*": ctypes.c_void_p, "float*": ctypes.c_void_p,
+            "unsigned*": ctypes.c_void_p,
+            "int*": ctypes.POINTER(ctypes.c_int), "int": ctypes.c_int,
+            "float": ctypes.c_float, "long long": ctypes.c_longlong}
+
+
+@pytest.mark.parametrize("name", ["bn_coop", "bn_coop_ctas"])
+def test_entry_points_match_their_bindings(name, monkeypatch):
+    """The extern "C" signature in bn.cu against the argtypes
+    bn_kernel._bind sets, without a card: a library stand-in takes the
+    place of the built one."""
+    src = (Path(bk.__file__).parent / "csrc" / "bn.cu").read_text()
+    entry = re.search(rf'extern "C" int {name}\(([^)]*)\)', src)
+    assert entry is not None
+    c_types = []
+    for param in entry.group(1).split(","):
+        decl = " ".join(param.replace("*", "* ").split())
+        c_types.append(_C_TYPES[re.sub(r"\s*\w+$", "", decl)
+                                .replace(" *", "*")])
+    lib = types.SimpleNamespace(**{name: types.SimpleNamespace()})
+    monkeypatch.setattr(_build, "load", lambda _: lib)
+    monkeypatch.setattr(bk, "_fns", {})
+    fn = bk._bind(name)
+    assert fn.argtypes == c_types
+    assert fn.restype is ctypes.c_int
 
 
 @pytest.mark.cuda
