@@ -10,13 +10,16 @@ takes SGD(0.01, momentum 0.9) steps over one resident batch from
 ``np.random.RandomState(0)`` (images of ones or N(0, 1) per
 ``--dataType``, random labels; random tokens for an LM), and prints one
 JSON line: model, batch, iterations, seconds, records_per_second (images
-or sequences a second), tokens_per_second (LM rows), dtype, fused_bn.
-Warm-up steps run before the timed ones; the clock stops after the last
-step's loss reaches the host. bf16 activations unless ``--f32`` (images
-are cast to bf16, the parameters stay f32); the loss is taken on the f32
-output. MFU and the analytic FLOP count come with the rest of the perf
-harness (ROADMAP.md queue 1 item 7); the 16k/32k LM rows wait for remat
-at those lengths to be measured.
+or sequences a second), tokens_per_second (LM rows), dtype, fused_bn,
+inner_steps. Warm-up steps run before the timed ones; the clock stops
+after the last step's loss reaches the host. ``--innerSteps K`` (K > 1)
+makes each iteration K steps replayed as one CUDA graph, the counterpart
+of the JAX harness's K-step ``fori_loop`` on the resident batch; the
+rates are over iterations x K steps. bf16 activations unless ``--f32``
+(images are cast to bf16, the parameters stay f32); the loss is taken on
+the f32 output. MFU and the analytic FLOP count come with the rest of
+the perf harness (ROADMAP.md queue 1 item 7); the 16k/32k LM rows wait
+for remat at those lengths to be measured.
 """
 
 from __future__ import annotations
@@ -93,16 +96,22 @@ def build_model(name: str, seq_len: Optional[int] = None,
 
 def train_step(model_name: str, batch: int, dtype=torch.bfloat16,
                device=None, remat=False, seq_len: Optional[int] = None,
-               fused_bn: Optional[str] = None, data_type: str = "constant"):
+               fused_bn: Optional[str] = None, data_type: str = "constant",
+               graph_steps: int = 0):
     """(step, model, tokens per step or None, device): ``step()`` takes
-    one SGD(0.01, momentum 0.9) step of the zoo model on one resident
-    batch from ``np.random.RandomState(0)`` and returns the loss (not
+    SGD(0.01, momentum 0.9) steps of the zoo model on one resident batch
+    from ``np.random.RandomState(0)`` and returns the last loss (not
     synced). ``fused_bn`` (--fusedBN) is installed on top of the row's
-    own BN mode."""
+    own BN mode. With ``graph_steps`` = 0 a call is one eager step; with
+    K >= 1 a call is K steps, on CUDA one replay of a CUDA graph of the K
+    steps (the first call runs them eagerly on the capture stream, then
+    captures; :class:`~bigdl_tpu_torch.optim.step_graph.StepGraph`), on
+    the CPU K eager steps."""
     from bigdl_tpu_torch.cli.common import apply_fused_bn
     from bigdl_tpu_torch.core.module import resolve_device
     from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
     from bigdl_tpu_torch.optim import SGD
+    from bigdl_tpu_torch.optim.step_graph import StepGraph
 
     device = resolve_device(device)
     is_lm = model_name in LM_CONFIGS
@@ -128,42 +137,73 @@ def train_step(model_name: str, batch: int, dtype=torch.bfloat16,
                                          batch).astype(np.int32))
         tokens = None
     model = model.to(device).train()
-    x, y = x.to(device), y.to(device)
     opt = SGD(learning_rate=0.01, momentum=0.9)
     params = dict(model.named_parameters())
+    names, plist = list(params), list(params.values())
     state = opt.init(params)
 
-    def step():
-        nonlocal state
-        loss = crit(model(x).float(), y)
-        loss.backward()
-        state = opt.update({k: p.grad for k, p in params.items()}, state,
-                           params)
-        for p in params.values():
-            p.grad = None
+    def one_step(xd, yd, seed=None):
+        loss = crit(model(xd).float(), yd)
+        grads = torch.autograd.grad(loss, plist)
+        opt.update(dict(zip(names, grads)), state, params)
         return loss.detach()
 
-    return step, model, tokens, device
+    xd, yd = x.to(device), y.to(device)
+    if graph_steps == 0:
+        return (lambda: one_step(xd, yd)), model, tokens, device
+    if device.type == "cpu":
+        def steps():
+            for _ in range(graph_steps):
+                loss = one_step(xd, yd)
+            return loss
+        return steps, model, tokens, device
+
+    graph = None
+
+    def replay():
+        nonlocal graph
+        if graph is not None:
+            return graph.replay()
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            for _ in range(graph_steps):
+                loss = one_step(xd, yd)
+        torch.cuda.current_stream(device).wait_stream(stream)
+        graph = StepGraph(one_step, (x, y), graph_steps, device, stream)
+        graph.put([(x, y)] * graph_steps, [0] * graph_steps)
+        graph.capture()
+        return loss
+
+    return replay, model, tokens, device
 
 
 def run(model_name: str, batch: int = 32, iterations: int = 10,
         dtype=torch.bfloat16, warmup: int = 2, device=None, remat=False,
         seq_len: Optional[int] = None, fused_bn: Optional[str] = None,
-        data_type: str = "constant") -> dict:
-    """Time ``iterations`` training steps after ``warmup`` ones; returns
-    the JSON line's fields plus ``losses`` (every step's, warm-up first)."""
+        data_type: str = "constant", inner_steps: int = 1) -> dict:
+    """Time ``iterations`` dispatches of ``inner_steps`` training steps
+    each after ``warmup`` ones (with ``inner_steps`` > 1 a dispatch is a
+    CUDA graph of the steps; the first warm-up dispatch runs them eagerly
+    and captures the graph); returns the JSON line's fields plus
+    ``losses`` (each dispatch's last step's, warm-up first). The rates are
+    over ``iterations * inner_steps`` steps."""
     from bigdl_tpu_torch.nn import bn_fused_mode
 
+    if inner_steps > 1 and warmup < 1:
+        raise ValueError("inner_steps > 1 needs a warm-up dispatch (it "
+                         "captures the graph)")
     step, model, tokens, device = train_step(
         model_name, batch, dtype, device, remat, seq_len, fused_bn,
-        data_type)
+        data_type, graph_steps=inner_steps if inner_steps > 1 else 0)
     losses = [float(step()) for _ in range(warmup)]  # each one synced
     t0 = time.perf_counter()
     timed = [step() for _ in range(iterations)]
     losses += [float(v) for v in timed]  # the first read waits for the last
     dt = time.perf_counter() - t0
-    rps = batch * iterations / dt
+    rps = batch * iterations * inner_steps / dt
     return {"model": model_name, "batch": batch, "iterations": iterations,
+            "inner_steps": inner_steps,
             "seconds": round(dt, 4), "records_per_second": round(rps, 2),
             "tokens_per_second": (None if tokens is None else
                                   round(rps * tokens / batch, 1)),
@@ -182,6 +222,10 @@ def main(argv=None) -> dict:
                    choices=sorted(IMAGE_CONFIGS) + sorted(LM_CONFIGS))
     p.add_argument("-b", "--batchSize", type=int, default=32)
     p.add_argument("-i", "--iteration", type=int, default=10)
+    p.add_argument("--innerSteps", type=int, default=1, metavar="K",
+                   help="K SGD steps per iteration on the resident batch, "
+                        "as one CUDA graph replayed each iteration (K > 1); "
+                        "the rate is over iterations x K steps")
     p.add_argument("--dataType", choices=["constant", "random"],
                    default="constant",
                    help="image rows: images of ones or N(0, 1) draws")
@@ -199,7 +243,8 @@ def main(argv=None) -> dict:
     out = run(args.model, batch=args.batchSize, iterations=args.iteration,
               dtype=torch.float32 if args.f32 else torch.bfloat16,
               device=args.platform, remat=args.remat, seq_len=args.seq,
-              fused_bn=args.fusedBN, data_type=args.dataType)
+              fused_bn=args.fusedBN, data_type=args.dataType,
+              inner_steps=args.innerSteps)
     line = {k: v for k, v in out.items() if k != "losses"}
     print(json.dumps(line), flush=True)
     return out

@@ -1,8 +1,11 @@
 """ResNet training CLI (counterpart of ``bigdl_tpu/cli/resnet.py``;
-reference models/resnet/Train.scala)::
+reference models/resnet/Train.scala, Test.scala)::
 
     python -m bigdl_tpu_torch.cli.resnet train --dataset cifar10 -f DIR \\
-        [--depth 20] [--fusedBN apply] [--platform cpu]
+        [--depth 20] [--fusedBN apply] [--stepsPerDispatch K] \\
+        [--checkpoint CKPT] [--model CKPT] [--platform cpu]
+    python -m bigdl_tpu_torch.cli.resnet test -f DIR --model CKPT \\
+        [--depth 20] [--platform cpu]
 
 trains a depth 6n+2 ResNet on the cifar-10-binary files of DIR with the
 reference recipe: SGD with nesterov momentum 0.9, weight decay 1e-4 and
@@ -10,8 +13,11 @@ the lr cut by 10x at epochs 81 and 122, and a Top1Accuracy validation on
 ``test_batch.bin`` every epoch. Images are normalised with the CIFAR
 training mean and std and shuffled each epoch; the JAX package's native
 pipeline (random crop and flip) is not in the port yet, so there is no
-augmentation (ROADMAP.md queue 1 item 9). ``--dataset imagenet``, the
-``test`` command and ``--s2d`` raise, naming the work that brings them.
+augmentation (ROADMAP.md queue 1 item 9). ``test`` evaluates a
+checkpoint (a directory's newest ``model.<n>`` or one file, the port's or
+the JAX package's) on ``test_batch.bin`` and prints ``top1 accuracy is
+...``. ``--dataset imagenet`` and ``--s2d`` raise, naming the work that
+brings them.
 """
 
 from __future__ import annotations
@@ -60,16 +66,16 @@ def main(argv=None):
     tr.add_argument("--s2d", action="store_true",
                     help="space-to-depth stem (imagenet models; not ported)")
     tr.set_defaults(weightDecay=1e-4)  # the reference recipe's
-    te = sub.add_parser("test")  # the JAX package's flags, refused below
-    for flag in ("-f", "--folder", "--model", "--dataset", "--platform"):
-        te.add_argument(flag)
-    te.add_argument("-b", "--batchSize", type=int)
-    te.add_argument("--depth", type=int)
-    te.add_argument("--s2d", action="store_true")
+    te = sub.add_parser("test")
+    common.add_test_args(te)
+    te.add_argument("--dataset", choices=["cifar10", "imagenet"],
+                    default="cifar10")
+    te.add_argument("--depth", type=int, default=20)
+    te.add_argument("--classNum", type=int, default=10)
+    te.add_argument("--s2d", action="store_true",
+                    help="a checkpoint trained with --s2d (not ported)")
     args = p.parse_args(argv)
 
-    if args.cmd == "test":
-        raise _later("resnet test", 6, "the checkpoint reader")
     if args.dataset == "imagenet":
         raise _later("--dataset imagenet", 9, "dataset/folder.py")
     if args.s2d:
@@ -88,11 +94,15 @@ def main(argv=None):
 
     resolve_device(args.platform)  # refuse before reading the data
     model = resnet_cifar(args.depth, args.classNum,
-                         generator=torch.Generator().manual_seed(args.seed))
+                         generator=torch.Generator().manual_seed(
+                             getattr(args, "seed", 0)))
+    test = _one_split(args.folder, args.batchSize, False, False)
+    if args.cmd == "test":
+        common.load_trained(model, args.model)
+        return common.evaluate(model, test, device=args.platform)
     if args.bnStatSample:
         nn.set_bn_stat_sample(model, args.bnStatSample)
     train = _one_split(args.folder, args.batchSize, True, True)
-    test = _one_split(args.folder, args.batchSize, False, False)
     lr = args.learningRate
     sched = EpochSchedule([Regime(1, 80, lr), Regime(81, 121, lr * 0.1),
                            Regime(122, 10 ** 9, lr * 0.01)])

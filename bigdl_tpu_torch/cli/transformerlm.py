@@ -4,12 +4,18 @@
     python -m bigdl_tpu_torch.cli.transformerlm train -f data/ \\
         --seqLength 256 --dModel 256 --numLayers 4 --flash --remat
 
-reads ``input.txt`` from the folder, trains next-token prediction over
-fixed windows (or, with ``--packed``, over sentences packed into rows with
-segment-masked attention and a boundary-masked loss) and prints the
-held-out perplexity. ``--flash`` runs attention forward and backward
-through the CUDA flash kernels. ``generate`` needs the checkpoint reader
-and is not ported yet.
+    python -m bigdl_tpu_torch.cli.transformerlm generate -f data/ \\
+        --model CKPT --seqLength 256 --dModel 256 --numLayers 4 \\
+        --prompt "the " --numTokens 64
+
+``train`` reads ``input.txt`` from the folder, trains next-token
+prediction over fixed windows (or, with ``--packed``, over sentences
+packed into rows with segment-masked attention and a boundary-masked
+loss) and prints the held-out perplexity. ``--flash`` runs attention
+forward and backward through the CUDA flash kernels. ``generate`` loads a
+checkpoint (the port's or the JAX package's) into an LM of the given
+widths, with the dictionary of the folder's corpus, and samples from a
+prompt with top-k sampling (greedy at temperature 0).
 """
 
 from __future__ import annotations
@@ -49,7 +55,20 @@ def _parser() -> argparse.ArgumentParser:
                     help="sentence-split the corpus and pack documents into "
                          "rows (segment-masked attention, boundary-masked "
                          "loss) instead of fixed windows")
-    sub.add_parser("generate", add_help=False)
+    ge = sub.add_parser("generate",
+                        help="sample from a trained checkpoint (KV-cache "
+                             "decode)")
+    common.add_test_args(ge)
+    for flag, dv in (("--vocabSize", 4000), ("--seqLength", 128),
+                     ("--dModel", 128), ("--numLayers", 2),
+                     ("--numHeads", 4)):
+        ge.add_argument(flag, type=int, default=dv)
+    ge.add_argument("--prompt", default="the ",
+                    help="prompt text (tokenized with the corpus dict)")
+    ge.add_argument("--numTokens", type=int, default=64)
+    ge.add_argument("--temperature", type=float, default=0.8)
+    ge.add_argument("--topK", type=int, default=40)
+    ge.add_argument("--seed", type=int, default=0)
     return p
 
 
@@ -61,10 +80,33 @@ def _build_lm(args, vocab: int):
     return transformer_lm(
         vocab, d_model=args.dModel, num_layers=args.numLayers,
         num_heads=args.numHeads, max_len=args.seqLength,
-        dropout=args.dropout, attn_impl="flash" if args.flash else None,
-        remat=args.remat,
-        compute_dtype=torch.bfloat16 if args.bf16 else None,
-        generator=torch.Generator().manual_seed(args.seed))
+        dropout=getattr(args, "dropout", 0.0),
+        attn_impl="flash" if getattr(args, "flash", False) else None,
+        remat=getattr(args, "remat", False),
+        compute_dtype=torch.bfloat16 if getattr(args, "bf16", False)
+        else None, generator=torch.Generator().manual_seed(args.seed))
+
+
+def _generate(args, d):
+    """Sample ``--numTokens`` words after ``--prompt`` from the checkpoint
+    ``--model``; prints the prompt and the words."""
+    import torch
+
+    from bigdl_tpu_torch.core.module import resolve_device
+    from bigdl_tpu_torch.dataset import tokenize
+
+    device = resolve_device(args.platform)
+    model = common.load_trained(_build_lm(args, len(d)), args.model)
+    model = model.to(device).eval()
+    prompt = np.asarray([d.ids(tokenize(args.prompt))], np.int64)
+    if prompt.shape[1] == 0:
+        raise SystemExit("empty prompt after tokenization")
+    out = model.generate(prompt, args.numTokens,
+                         temperature=args.temperature, top_k=args.topK,
+                         generator=torch.Generator().manual_seed(args.seed))
+    words = [d.id2word.get(int(i), "<unk>") for i in out[0].tolist()]
+    print(args.prompt + " ".join(words))
+    return words
 
 
 def _clamp_batch(args, n: int, what: str) -> None:
@@ -101,10 +143,6 @@ def main(argv=None):
     common.setup_logging()
     parser = _parser()
     args, extra = parser.parse_known_args(argv)
-    if args.cmd == "generate":
-        raise SystemExit("transformerlm generate samples from a checkpoint: "
-                         "it comes with the checkpoint reader (ROADMAP.md "
-                         "queue 1 item 1) and is not in the PyTorch port yet")
     if extra:
         parser.error(f"unrecognized arguments: {' '.join(extra)} (flags of "
                      f"features not in the PyTorch port yet: see ROADMAP.md "
@@ -116,6 +154,8 @@ def main(argv=None):
     with open(os.path.join(args.folder, "input.txt")) as f:
         tokens = tokenize(f.read())
     d = Dictionary([tokens], vocab_size=args.vocabSize)
+    if args.cmd == "generate":
+        return _generate(args, d)
     if args.packed:
         return _train_packed(args, d, tokens)
     ids = np.asarray(d.ids(tokens), np.int32)

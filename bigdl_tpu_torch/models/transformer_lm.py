@@ -101,11 +101,11 @@ class TransformerLM(nn.Module):
         h = self.ln_f(h)
         return h @ self.emb.weight.to(h.dtype).T
 
-    def forward(self, tokens, seed: Optional[int] = None):
+    def forward(self, tokens, seed=None):
         """(batch, seq) int tokens, or ``(tokens, segments)`` for packed
         rows (the segment ids confine attention to each document) ->
-        (batch, seq, vocab) f32 log-probs. ``seed`` seeds dropout in
-        training mode."""
+        (batch, seq, vocab) f32 log-probs. ``seed`` (an int or an int64
+        tensor) seeds dropout in training mode."""
         segments = None
         if isinstance(tokens, (tuple, list)):
             tokens, segments = tokens

@@ -310,8 +310,10 @@ class TransformerEncoderLayer(nn.Module):
 
     ``forward`` takes x or ``(x, mask)`` (a key-padding mask or packed-row
     segment ids threaded through the stack) and returns the same form.
-    ``seed`` seeds this call's dropout generator: the same seed draws the
-    same masks, so a recomputed (remat) layer repeats its dropout."""
+    ``seed`` (an int or an int64 tensor) seeds this call's dropout: the
+    same seed draws the same masks, so a recomputed (remat) layer repeats
+    its dropout. The attention branch draws with ``fold_seed(seed, 0)``,
+    the MLP branch with ``fold_seed(seed, 1)``."""
 
     def __init__(self, d_model: int, num_heads: int,
                  d_ff: Optional[int] = None, causal: bool = False,
@@ -346,27 +348,22 @@ class TransformerEncoderLayer(nn.Module):
     def _mlp(self, x):
         return x + self._mlp_branch(x)
 
-    def _generator(self, seed: Optional[int], device):
-        if self.drop is None or not self.training:
-            return None
-        if seed is None:
-            raise ValueError("Dropout needs a seed in training mode: pass "
-                             "seed= to the model's forward")
-        return torch.Generator(device=device).manual_seed(seed)
-
-    def forward(self, x, seed: Optional[int] = None):
+    def forward(self, x, seed=None):
         mask = None
         if isinstance(x, (tuple, list)):
             x, mask = x
-        g = self._generator(seed, x.device)
+        drop = self.drop is not None and self.training
+        if drop and seed is None:
+            raise ValueError("Dropout needs a seed in training mode: pass "
+                             "seed= to the model's forward")
         h = self.ln1(x)
         h = self.mha(h if mask is None else (h, h, mask))
-        if g is not None:
-            h = self.drop(h, g)
+        if drop:
+            h = self.drop(h, fold_seed(seed, 0))
         x = x + h
         h = self._mlp_branch(x)
-        if g is not None:
-            h = self.drop(h, g)
+        if drop:
+            h = self.drop(h, fold_seed(seed, 1))
         y = x + h
         return y if mask is None else (y, mask)
 
@@ -427,14 +424,20 @@ class TransformerEncoder(nn.ModuleList):
                              f"got {remat!r}")
         self.remat = remat or False
 
-    def forward(self, x, seed: Optional[int] = None):
+    def forward(self, x, seed=None):
         from torch.utils.checkpoint import checkpoint
+        drop = seed is not None and self.training and any(
+            layer.drop is not None for layer in self)
         for i, layer in enumerate(self):
-            s = None if seed is None else fold_seed(seed, i)
+            s = fold_seed(seed, i) if drop else None
             if self.remat and torch.is_grad_enabled():
                 kw = ({"context_fn": _save_weight_products}
                       if self.remat == "dots" else {})
-                x = checkpoint(layer, x, s, use_reentrant=False, **kw)
+                # the dropout masks come from s, not torch's generator, so
+                # no RNG state is saved (reading it breaks a CUDA graph
+                # capture)
+                x = checkpoint(layer, x, s, use_reentrant=False,
+                               preserve_rng_state=False, **kw)
             else:
                 x = layer(x, s)
         return x

@@ -3,7 +3,8 @@
 
 Activations keep the JAX package's (B, H, W, C) layout. The weight is
 torch's (out, in / groups, kh, kw), stored channels_last: the JAX kernel
-is HWIO, and :meth:`SpatialConvolution.from_jax_leaf` converts it. The
+is HWIO, and :meth:`SpatialConvolution.from_jax_leaf` converts it
+(:meth:`SpatialConvolution.to_jax_leaf` converts it back). The
 forward sees x as an NCHW-shaped view with channels_last strides
 (``permute(0, 3, 1, 2)``, no copy), runs one ``F.conv2d`` (cuDNN on the
 card), and permutes the channels_last result back to (B, H, W, C), again
@@ -70,6 +71,11 @@ class SpatialConvolution(nn.Module):
         """A JAX leaf in this module's layout: the HWIO kernel becomes
         (out, in, kh, kw); the bias is unchanged."""
         return value.permute(3, 2, 0, 1) if key == "weight" else value
+
+    @staticmethod
+    def to_jax_leaf(key: str, value: torch.Tensor) -> torch.Tensor:
+        """This module's leaf in the JAX layout: the kernel back to HWIO."""
+        return value.permute(2, 3, 1, 0) if key == "weight" else value
 
     def forward(self, x):
         w = self.weight.to(x.dtype)

@@ -16,27 +16,49 @@ from bigdl_tpu_torch.core.module import Identity, Sequential
 __all__ = ["Dropout", "fold_seed", "ConcatTable", "CAddTable", "Reshape",
            "Padding", "absorb_bn_relu"]
 
+def _s64(c: int) -> int:
+    """A 64-bit constant as the int64 that has its bits."""
+    return c - (1 << 64) if c >= (1 << 63) else c
+
+
+_GOLDEN, _MIX1, _MIX2 = (_s64(0x9E3779B97F4A7C15), _s64(0xBF58476D1CE4E5B9),
+                         _s64(0x94D049BB133111EB))
+
+
+def _srl(z: torch.Tensor, n: int) -> torch.Tensor:
+    """Logical right shift of int64 bits (torch's >> is arithmetic)."""
+    return (z >> n) & ((1 << (64 - n)) - 1)
+
+
+def _mix(z: torch.Tensor) -> torch.Tensor:
+    """The splitmix64 finaliser on int64 tensors (products wrap)."""
+    z = (z ^ _srl(z, 30)) * _MIX1
+    z = (z ^ _srl(z, 27)) * _MIX2
+    return z ^ _srl(z, 31)
+
+
 _MASK64 = (1 << 64) - 1
 
 
-def fold_seed(seed: int, i: int) -> int:
+def fold_seed(seed, i: int) -> torch.Tensor:
     """A seed for stream ``i`` derived from ``seed`` (the role of
-    ``jax.random.fold_in``): the splitmix64 finaliser of the pair, cut to
-    63 bits so ``torch.Generator.manual_seed`` takes it."""
-    z = (int(seed) * 0x9E3779B97F4A7C15 + (int(i) + 1) * 0xBF58476D1CE4E5B9
-         ) & _MASK64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return (z ^ (z >> 31)) >> 1
+    ``jax.random.fold_in``): the splitmix64 finaliser of the pair, as a 0-d
+    int64 tensor on ``seed``'s device. ``seed`` is an int or an int64
+    tensor; folding runs on the device, so a step captured in a CUDA graph
+    folds the seed written before each replay."""
+    seed = torch.as_tensor(seed, dtype=torch.int64)
+    return _mix(seed * _GOLDEN
+                + _s64((int(i) + 1) * 0xBF58476D1CE4E5B9 & _MASK64))
 
 
 class Dropout(nn.Module):
     """Inverted dropout (reference nn/Dropout.scala): at train time each
     element is kept with probability 1 - p and scaled by 1/(1 - p);
-    identity at eval. The noise comes from an explicit
-    ``torch.Generator``: the same generator state draws the same mask,
-    which is what lets a recomputed (remat) layer repeat its dropout.
-    Not jax's bits: threefry and Philox differ."""
+    identity at eval. The noise is a counter-based hash of (``seed``,
+    element index) computed on the device, so the same seed draws the same
+    mask eagerly, in a recomputed (remat) layer and in a CUDA-graph
+    replay, and no generator state is read. Not jax's bits: threefry
+    differs, so the two packages agree in distribution only."""
 
     def __init__(self, p: float = 0.5):
         super().__init__()
@@ -44,13 +66,16 @@ class Dropout(nn.Module):
             raise ValueError(f"dropout p must be in [0, 1), got {p}")
         self.p = p
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
+    def forward(self, x, seed=None):
         if not self.training or self.p == 0.0:
             return x
-        if generator is None:
-            raise ValueError("Dropout needs a generator in training mode")
+        if seed is None:
+            raise ValueError("Dropout needs a seed in training mode")
         keep = 1.0 - self.p
-        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        seed = torch.as_tensor(seed, dtype=torch.int64).to(x.device)
+        idx = torch.arange(x.numel(), device=x.device).reshape(x.shape)
+        bits = _srl(_mix(idx * _MIX2 + seed * _GOLDEN), 40)  # 24 bits
+        mask = bits < int(keep * (1 << 24))
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
     def extra_repr(self) -> str:

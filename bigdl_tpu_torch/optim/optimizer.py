@@ -5,14 +5,28 @@ reference optim/Optimizer.scala, LocalOptimizer.scala), single device.
 ``optimize()``. Each step computes the loss and its gradients with
 autograd (over ``accum_steps`` microbatches when > 1), clips them when
 asked, and hands them to the ``OptimMethod``, which updates the
-parameters in place. The reference's log lines are kept word for word:
-``Train N in Xs. Throughput is R records/second. Loss is L``, the epoch
-line, ``<method> is <result>`` after each validation, and ``Training
-finished after N iterations in Xs``.
+parameters and its state in place. The reference's log lines are kept
+word for word: ``Train N in Xs. Throughput is R records/second. Loss is
+L``, the epoch line, ``<method> is <result>`` after each validation,
+``Checkpoint written at iteration N`` and ``Training finished after N
+iterations in Xs``.
 
-Dropout noise comes from a generator seeded with ``seed``: each step
-draws a step seed from it, and a model whose ``forward`` takes ``seed``
-gets it (microbatch i of a step gets ``fold_seed(step seed, i)``).
+``steps_per_dispatch`` = K > 1 groups K same-shape batches into one
+dispatch, as the JAX package scans K steps in one program. On CUDA the
+first full group runs eagerly on a stream of its own (real steps, which
+warm up everything the step touches), and every later one replays a
+CUDA graph of the K steps (:class:`~bigdl_tpu_torch.optim.step_graph.
+StepGraph`); on the CPU the K steps run eagerly. Either way the update
+math and the step seeds are those of K single steps, the loss is the
+last step's, the log, validation and checkpoint triggers fire at the
+dispatch boundary (they are crossing-based), and a ragged or short tail
+group runs as single eager steps.
+
+Dropout noise: each step draws a step seed from a host generator seeded
+with ``seed`` (one draw at the start, then one a step, counted for
+resume), and a model whose ``forward`` takes ``seed`` gets it as a 0-d
+int64 tensor on the device (microbatch i of a step gets
+``fold_seed(step seed, i)``).
 """
 
 from __future__ import annotations
@@ -20,6 +34,8 @@ from __future__ import annotations
 import inspect
 import logging
 import math
+import os
+import threading
 import time
 from typing import Optional
 
@@ -28,19 +44,16 @@ import torch
 
 from bigdl_tpu_torch.core.module import resolve_device
 from bigdl_tpu_torch.nn.structural import fold_seed
-from bigdl_tpu_torch.optim.method import SGD, OptimMethod
+from bigdl_tpu_torch.optim.method import (SGD, OptimMethod,
+                                          clip_by_global_norm, clip_by_value)
 from bigdl_tpu_torch.optim.metrics import Metrics
+from bigdl_tpu_torch.optim.step_graph import StepGraph, batch_leaves
 from bigdl_tpu_torch.optim.triggers import Trigger
 from bigdl_tpu_torch.optim.validator import run_evaluation
 
 logger = logging.getLogger("bigdl_tpu_torch")
 
 __all__ = ["Optimizer", "TrainedModel"]
-
-
-def _later(what: str, where: str):
-    return NotImplementedError(f"{what} is not in the PyTorch port yet: it "
-                               f"comes with {where} (ROADMAP.md queue 1)")
 
 
 class TrainedModel:
@@ -71,18 +84,52 @@ def _split(y, accum: int):
     return list(torch.chunk(y, accum, dim=0))
 
 
+def _records(batch) -> int:
+    x, _ = batch
+    return len(x)
+
+
+def _shape_sig(batch):
+    return tuple((a.shape, a.dtype) for a in batch_leaves(batch))
+
+
+def _canon(path: str) -> str:
+    return os.path.abspath(os.path.normpath(str(path)))
+
+
+@torch.no_grad()
+def _copy_tree(dst: dict, src: dict, where: str) -> None:
+    """Copy ``src`` into the tensors of ``dst`` in place, key by key."""
+    if set(dst) != set(src):
+        raise ValueError(f"{where}: keys {sorted(src)} do not match "
+                         f"{sorted(dst)}")
+    for k, d in dst.items():
+        if isinstance(d, dict):
+            _copy_tree(d, src[k], f"{where}.{k}")
+        else:
+            s = torch.as_tensor(np.asarray(src[k]) if not isinstance(
+                src[k], torch.Tensor) else src[k])
+            if tuple(s.shape) != tuple(d.shape):
+                raise ValueError(f"{where}.{k}: shape {tuple(s.shape)}, "
+                                 f"expected {tuple(d.shape)}")
+            d.copy_(s)
+
+
 class Optimizer:
     def __init__(self, model: torch.nn.Module, dataset, criterion,
                  optim_method: Optional[OptimMethod] = None,
                  end_when: Optional[Trigger] = None, strategy=None,
-                 seed: int = 42, log_every: int = 1, accum_steps: int = 1,
+                 seed: int = 42, log_every: int = 1, compute_dtype=None,
+                 accum_steps: int = 1, nan_check: bool = True,
                  steps_per_dispatch: int = 1, device=None):
         if strategy is not None:
-            raise _later("a distributed strategy", "data parallelism "
-                         "(item 8)")
-        if int(steps_per_dispatch) != 1:
-            raise _later("steps_per_dispatch > 1", "CUDA graphs of the "
-                         "train step (item 15)")
+            raise NotImplementedError(
+                "a distributed strategy is not in the PyTorch port yet: it "
+                "comes with data parallelism (ROADMAP.md queue 1 item 8)")
+        self.steps_per_dispatch = int(steps_per_dispatch)
+        if self.steps_per_dispatch < 1:
+            raise ValueError(f"steps_per_dispatch must be >= 1, got "
+                             f"{steps_per_dispatch}")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.dataset = dataset
@@ -90,17 +137,31 @@ class Optimizer:
         self.optim_method = optim_method or SGD(learning_rate=1e-2)
         self.end_when = end_when or Trigger.max_epoch(1)
         self.seed = seed
+        # bf16 activations with f32 parameters and loss (the JAX package's
+        # compute_dtype): floating inputs are cast, the output is cast back
+        self.compute_dtype = compute_dtype
         self.accum_steps = accum_steps
+        # the NaN guard reads the loss at each log point (a sync the log
+        # line pays for anyway), outside any captured graph
+        self.nan_check = nan_check
         self.log_every = max(1, log_every)
         self.metrics = Metrics()
         self._clip_norm = None
         self._clip_const = None
-        self._init_params = None
+        self._init = (None, None, None)
         self._phase_totals: dict = {}
         self._val_trigger = None
         self._val_dataset = None
         self._val_methods: list = []
         self._last_val_iter = -1
+        self._ckpt_trigger = None
+        self._ckpt_path = None
+        self._last_ckpt_iter = -1
+        self._ckpt_thread = None
+        self._ckpt_error = None
+        self._resume_paths = (None, None)
+        self._resume_orphans: set = set()
+        self._graph = None
 
     # ------------------------------------------------------------- setters
     def set_end_when(self, trigger: Trigger) -> "Optimizer":
@@ -114,18 +175,37 @@ class Optimizer:
     def set_validation(self, trigger: Trigger, dataset,
                        methods) -> "Optimizer":
         """Evaluate ``methods`` over ``dataset`` whenever ``trigger`` fires
-        (checked after every step and at every epoch's end; reference
+        (checked after every dispatch and at every epoch's end; reference
         Optimizer.setValidation)."""
         self._val_trigger = trigger
         self._val_dataset = dataset
         self._val_methods = list(methods)
         return self
 
-    def set_checkpoint(self, trigger, path, **kw) -> "Optimizer":
-        raise _later("set_checkpoint", "checkpoints (item 6)")
-
-    def resume(self, checkpoint_dir: str) -> "Optimizer":
-        raise _later("resume", "checkpoints (item 6)")
+    def set_checkpoint(self, trigger: Trigger, path: str,
+                       overwrite: bool = False, async_save: bool = False,
+                       keep_last: Optional[int] = None) -> "Optimizer":
+        """Write ``model.<n>`` (params, module state and the loop's
+        counters) and ``state.<n>`` (the optimizer state) into ``path``
+        whenever ``trigger`` fires, n the iteration (reference
+        Optimizer.setCheckpoint). An existing snapshot raises
+        ``FileExistsError`` unless ``overwrite``. ``async_save`` copies the
+        tensors to the host on the loop and writes them on a thread, one
+        write in flight (joined before the next one and at the end).
+        ``keep_last=k`` deletes older snapshots after each write, never
+        the newest valid pair. Local paths only."""
+        if keep_last is not None and keep_last < 1:
+            raise ValueError(f"keep_last must be >= 1, got {keep_last}")
+        if "://" in str(path):
+            raise NotImplementedError(
+                f"{path}: remote checkpoint paths are not in the PyTorch "
+                f"port yet (ROADMAP.md queue 1 item 13)")
+        self._ckpt_trigger = trigger
+        self._ckpt_path = str(path)
+        self._ckpt_overwrite = overwrite
+        self._ckpt_async = async_save
+        self._ckpt_keep_last = keep_last
+        return self
 
     def set_gradient_clipping_by_l2_norm(self, max_norm: float
                                          ) -> "Optimizer":
@@ -139,54 +219,126 @@ class Optimizer:
         self._clip_const = (float(lo), float(hi))
         return self
 
-    def set_state(self, params=None) -> "Optimizer":
-        """Warm-start: ``params`` is a ``{name: tensor or array}`` dict (a
-        state dict, or a JAX param tree already flattened with
-        ``interop.params_from_jax``), loaded strictly by name. Optimizer
-        state comes with checkpoints (ROADMAP.md queue 1 item 6)."""
-        self._init_params = params
+    def set_state(self, params=None, mod_state=None,
+                  opt_state=None) -> "Optimizer":
+        """Warm-start (reference setState): ``params`` and ``mod_state``
+        are ``{name: tensor or array}`` dicts in the model's names and
+        layouts (a state dict, or JAX trees converted with
+        ``interop.tensors_from_jax``), loaded strictly by name;
+        ``opt_state`` a tree of the optimizer's ``init`` structure, copied
+        into its state before the first step."""
+        self._init = (params, mod_state, opt_state)
         return self
+
+    def resume(self, checkpoint_dir: str) -> "Optimizer":
+        """Load the newest valid ``model.<n>``/``state.<n>`` pair of a
+        directory (written by the port or by the JAX package); without a
+        valid pair, the newest ``model.<n>`` alone (params only, the
+        optimizer state fresh). If that one snapshot fails its checksum,
+        raise :class:`~bigdl_tpu_torch.utils.file.ChecksumError`.
+
+        The run continues the epoch and iteration numbering, and is step
+        for step the run that was stopped: the step-seed stream is
+        fast-forwarded by the snapshot's draw count, each finished epoch's
+        effect on the dataset is replayed (an iteration's start and one
+        ``dataset.shuffle()``), and the open epoch's consumed records are
+        skipped. Newer snapshots left unmatched by the stop may be
+        overwritten. A JAX snapshot carries params, module state,
+        optimizer state and counters, not jax's PRNG stream: the seeds
+        differ, which matters only with dropout."""
+        from bigdl_tpu_torch.utils.file import (ChecksumError,
+                                                latest_checkpoint,
+                                                latest_valid_checkpoint_pair,
+                                                orphaned_snapshots,
+                                                verify_checkpoint)
+        d = str(checkpoint_dir)
+        m, s = latest_valid_checkpoint_pair(d)
+        if m is None:
+            m = latest_checkpoint(d, "model.")
+            if m is not None and not verify_checkpoint(m):
+                raise ChecksumError(
+                    f"the only snapshot in {d} ({m}) fails checksum "
+                    f"verification and there is no earlier one")
+        self._resume_paths = (m, s)
+        if m is None:
+            return self
+        it = int(m.rsplit(".", 1)[-1])
+        self._resume_orphans = {_canon(o) for o in orphaned_snapshots(d, it)}
+        if self._resume_orphans:
+            logger.warning("resume: %d unmatched snapshot file(s) newer than "
+                           "the loaded pair; the resumed run may overwrite "
+                           "them: %s", len(self._resume_orphans),
+                           sorted(self._resume_orphans))
+        return self
+
+    def _load_resume(self, params: dict, opt_state: dict) -> dict:
+        """Load the snapshots ``resume`` chose into the model and the
+        optimizer state (in place); returns the driver counters."""
+        from bigdl_tpu_torch.interop.checkpoint import load_model, load_state
+        m, s = self._resume_paths
+        tensors, driver = load_model(m, self.model)
+        self.model.load_state_dict(tensors, strict=True)
+        if s is not None:
+            _copy_tree(opt_state, load_state(s, opt_state, self.model), s)
+        if driver is None:
+            driver = {"iteration": int(m.rsplit(".", 1)[-1])}
+        logger.info("Resumed from %s%s", m, f" and {s}" if s else "")
+        return driver
 
     # ---------------------------------------------------------------- step
     def _loss(self, x, y, seed, takes_seed):
+        dtype = self.compute_dtype
+        if dtype is not None and x.is_floating_point():
+            x = x.to(dtype)
         out = self.model(x, seed=seed) if takes_seed else self.model(x)
+        if dtype is not None:
+            out = out.float()
         return self.criterion(out, y)
 
-    def _step(self, params, opt_state, x, y, seed, takes_seed):
+    def _step(self, params: dict, opt_state: dict, x, y, seed,
+              takes_seed: bool):
+        """One training step on device tensors; updates the parameters,
+        the optimizer state and the module state in place and returns the
+        loss. Nothing here reads a value back to the host, so the same
+        code runs eagerly and under a CUDA graph capture."""
         accum = max(1, self.accum_steps)
-        for p in params.values():
-            p.grad = None
+        names, plist = list(params), list(params.values())
+
+        def grads_of(loss):
+            gs = torch.autograd.grad(loss, plist, allow_unused=True)
+            return [torch.zeros_like(p) if g is None else g
+                    for p, g in zip(plist, gs)]
+
         if accum == 1:
             loss = self._loss(x, y, seed, takes_seed)
-            loss.backward()
+            gs = grads_of(loss)
         else:
             if x.shape[0] % accum:
                 raise ValueError(f"batch size {x.shape[0]} not divisible by "
                                  f"accum_steps={accum}")
-            loss = torch.zeros((), device=self.device)
+            loss, gs = torch.zeros((), device=x.device), None
             for i, (xb, yb) in enumerate(zip(_split(x, accum),
                                              _split(y, accum))):
-                mb = self._loss(xb, yb, fold_seed(seed, i), takes_seed)
-                mb.backward()
+                s = None if seed is None else fold_seed(seed, i)
+                mb = self._loss(xb, yb, s, takes_seed)
+                g = grads_of(mb)
+                if gs is None:
+                    gs = g
+                else:
+                    for acc, gi in zip(gs, g):
+                        acc.add_(gi)
                 loss = loss + mb.detach()
             loss = loss / accum
-        grads = {}
-        for name, p in params.items():
-            g = p.grad if p.grad is not None else torch.zeros_like(p)
-            grads[name] = g / accum if accum > 1 else g
+            gs = [g / accum for g in gs]
+        grads = dict(zip(names, gs))
         if self._clip_const is not None:
-            grads = {k: g.clamp(*self._clip_const) for k, g in grads.items()}
+            grads = clip_by_value(grads, *self._clip_const)
         if self._clip_norm is not None:
-            norm = torch.sqrt(sum(g.float().square().sum()
-                                  for g in grads.values()))
-            scale = torch.clamp(self._clip_norm / norm.clamp_min(1e-12),
-                                max=1.0)
-            grads = {k: (g * scale).to(g.dtype) for k, g in grads.items()}
-        opt_state = self.optim_method.update(grads, opt_state, params)
-        for p in params.values():
-            p.grad = None
-        return opt_state, loss.detach()
+            grads, _ = clip_by_global_norm(grads, self._clip_norm)
+        self.optim_method.update(grads, opt_state, params)
+        return loss.detach()
 
+    # ----------------------------------------------------------- callbacks
     def _maybe_validate(self, progress: dict):
         if (self._val_trigger is None or not self._val_trigger(progress)
                 or progress["iteration"] == self._last_val_iter):
@@ -200,86 +352,247 @@ class Optimizer:
         if results:
             progress["val_score"] = float(results[0].result()[0])
 
+    def _maybe_checkpoint(self, opt_state: dict, progress: dict):
+        if (self._ckpt_path is None or not self._ckpt_trigger(progress)
+                or progress["iteration"] == self._last_ckpt_iter):
+            return
+        t0 = time.perf_counter()
+        self._write_checkpoint(opt_state, progress)
+        self._phase("ckpt", time.perf_counter() - t0)
+
+    def _write_checkpoint(self, opt_state: dict, progress: dict):
+        from bigdl_tpu_torch.interop.checkpoint import save_model, save_state
+        n = progress["iteration"]
+        self._last_ckpt_iter = n
+        target = os.path.join(self._ckpt_path, f"model.{n}")
+        state_target = os.path.join(self._ckpt_path, f"state.{n}")
+        overwrite = (self._ckpt_overwrite
+                     or _canon(target) in self._resume_orphans)
+        if os.path.exists(target) and not overwrite:
+            raise FileExistsError(
+                f"{target} exists; pass overwrite=True to set_checkpoint "
+                f"(--overWriteCheckpoint) to clobber it")
+        driver = {"epoch": progress["epoch"], "iteration": n,
+                  "rng_splits": self._draws,
+                  "epoch_records": progress.get("epoch_records", 0)}
+        self._join_ckpt_writer()  # one write in flight
+        # host copies, taken now: the next step (or replay) updates the
+        # tensors in place
+        tensors = _host_tree(self.model.state_dict())
+        state = _host_tree(opt_state)
+
+        def write():
+            save_model(target, self.model, driver, tensors)
+            save_state(state_target, state, self.model)
+            if self._ckpt_keep_last:
+                from bigdl_tpu_torch.utils.file import gc_checkpoints
+                gc_checkpoints(self._ckpt_path, self._ckpt_keep_last)
+            logger.info("Checkpoint written at iteration %d to %s%s", n,
+                        self._ckpt_path, " (async)" if self._ckpt_async
+                        else "")
+
+        if not self._ckpt_async:
+            write()
+            return
+
+        def worker():
+            try:
+                write()
+            except BaseException as e:  # raised at the next join
+                self._ckpt_error = e
+
+        self._ckpt_thread = threading.Thread(target=worker, daemon=True)
+        self._ckpt_thread.start()
+
+    def _join_ckpt_writer(self):
+        if self._ckpt_thread is not None:
+            self._ckpt_thread.join()
+            self._ckpt_thread = None
+        if self._ckpt_error is not None:
+            err, self._ckpt_error = self._ckpt_error, None
+            raise RuntimeError("async checkpoint write failed") from err
+
     def _phase(self, name: str, dt: float):
-        """Host seconds per phase: ``data_wait`` (fetching the batch) and
-        ``dispatch`` (the step, up to the log point's sync)."""
+        """Host seconds per phase: ``data_wait`` (fetching batches),
+        ``dispatch`` (the steps, up to the log point's sync) and ``ckpt``
+        (what the loop pays for a snapshot)."""
         self._phase_totals[name] = self._phase_totals.get(name, 0.0) + dt
 
     # ------------------------------------------------------------ optimize
     def optimize(self) -> TrainedModel:
+        try:
+            return self._optimize()
+        finally:
+            self._join_ckpt_writer()
+
+    def _optimize(self) -> TrainedModel:
         model = self.model
-        if self._init_params is not None:
-            state = {k: torch.as_tensor(np.asarray(v) if not isinstance(
-                v, torch.Tensor) else v) for k, v in self._init_params.items()}
-            model.load_state_dict(state, strict=True)
+        init_params, init_mod_state, init_opt = self._init
+        if init_params is not None or init_mod_state is not None:
+            tensors = dict(model.state_dict())
+            for src in (init_params or {}), (init_mod_state or {}):
+                tensors.update({k: torch.as_tensor(
+                    v if isinstance(v, torch.Tensor) else np.asarray(v))
+                    for k, v in src.items()})
+            model.load_state_dict(tensors, strict=True)
         params = dict(model.named_parameters())
         opt_state = self.optim_method.init(params)
+        if init_opt is not None:
+            _copy_tree(opt_state, init_opt, "opt_state")
+        rd = (self._load_resume(params, opt_state)
+              if self._resume_paths[0] else None)
         takes_seed = "seed" in inspect.signature(model.forward).parameters
-        seeds = torch.Generator().manual_seed(self.seed)
+        gen = torch.Generator().manual_seed(self.seed)
+        self._draws = 0
+
+        def next_seed() -> int:
+            self._draws += 1
+            return int(torch.randint(0, 2 ** 62, (1,), generator=gen))
+
+        next_seed()  # the JAX loop's init split: the counts stay aligned
         model.train()
 
         progress = {"epoch": 1, "iteration": 0, "prev_iteration": 0,
-                  "epoch_finished": False, "loss": float("inf")}
+                    "epoch_finished": False, "loss": float("inf"),
+                    "epoch_records": 0}
+        skip = 0
+        if rd:
+            progress["iteration"] = progress["prev_iteration"] = \
+                rd.get("iteration", 0)
+            progress["epoch"] = rd.get("epoch", 1)
+            while self._draws < rd.get("rng_splits", 0):
+                next_seed()
+            for _ in range(progress["epoch"] - 1):
+                next(iter(self.dataset), None)  # a finished epoch's draw
+                self.dataset.shuffle()
+            skip = rd.get("epoch_records", 0)
+            logger.info("Resuming at epoch %d, iteration %d (seed stream at "
+                        "%d draws, skipping %d consumed records)",
+                        progress["epoch"], progress["iteration"],
+                        self._draws, skip)
+
+        K = self.steps_per_dispatch
+        graphed = K > 1 and self.device.type == "cuda"
+        self._graph = None
+        clock = {"last_log": time.time(), "fetch": 0.0}
+
+        def run_eager(batch, step_seed):
+            x, y = (_to_device(t, self.device) for t in batch)
+            s = (torch.tensor(step_seed, dtype=torch.int64,
+                              device=self.device) if takes_seed else None)
+            return self._step(params, opt_state, x, y, s, takes_seed)
+
+        def graph_step(x, y, s):
+            return self._step(params, opt_state, x, y,
+                              s if takes_seed else None, takes_seed)
+
+        def after_dispatch(n_rec, n_iters, t0, loss):
+            prev = progress["iteration"]
+            progress["prev_iteration"] = prev
+            progress["iteration"] = prev + n_iters
+            progress["loss"] = loss
+            progress["epoch_records"] += n_rec
+            if progress["iteration"] // self.log_every == \
+                    prev // self.log_every:
+                self._phase("dispatch", time.time() - t0)
+                return
+            loss_f = float(loss)  # syncs: the dispatch has finished
+            progress["loss"] = loss_f
+            if self.nan_check and not math.isfinite(loss_f):
+                raise FloatingPointError(
+                    f"loss became {loss_f} at iteration "
+                    f"{progress['iteration']} (epoch {progress['epoch']}) — "
+                    f"NaN guard tripped; the last checkpoint is the "
+                    f"recovery point")
+            now = time.time()
+            dt = now - t0
+            self._phase("dispatch", dt)
+            self.metrics.add("get batch time", clock["fetch"])
+            self.metrics.add("computing time",
+                             (now - clock["last_log"]) - clock["fetch"])
+            clock["last_log"], clock["fetch"] = now, 0.0
+            logger.info("Train %d in %.4fs. Throughput is %.1f "
+                        "records/second. Loss is %.4f",
+                        n_rec, dt, n_rec / max(dt, 1e-9), loss_f)
+            if logger.isEnabledFor(logging.DEBUG):
+                logger.debug("%s", self.metrics.summary())
+
+        def dispatch_group(buf):
+            """K batches as one dispatch: eager on the CPU and for CUDA's
+            first group (on the capture stream), a graph replay after."""
+            t0 = time.time()
+            seeds = [next_seed() for _ in buf]
+            if not graphed:
+                for b, s in zip(buf, seeds):
+                    loss = run_eager(b, s)
+            elif self._graph is None:
+                stream = torch.cuda.Stream(self.device)
+                stream.wait_stream(torch.cuda.current_stream(self.device))
+                with torch.cuda.stream(stream):
+                    for b, s in zip(buf, seeds):
+                        loss = run_eager(b, s)
+                torch.cuda.current_stream(self.device).wait_stream(stream)
+                self._graph = StepGraph(graph_step, buf[0], K, self.device,
+                                        stream)
+            else:
+                if not self._graph.captured:
+                    self._join_ckpt_writer()
+                    self._graph.capture()
+                self._graph.put(buf, seeds)
+                loss = self._graph.replay()
+            after_dispatch(sum(_records(b) for b in buf), K, t0, loss)
+
         wall_start = time.time()
-        last_log_t, fetch_accum = time.time(), 0.0
         while not self.end_when(progress):
             progress["epoch_finished"] = False
             epoch_start = time.time()
             snap = dict(self._phase_totals)
-            records = 0
-            opt_state = self.optim_method.set_epoch(opt_state,
-                                                    progress["epoch"])
+            progress["epoch_records"] = 0
+            self.optim_method.set_epoch(opt_state, progress["epoch"])
             data = iter(self.dataset)
-            while True:
+            while skip > 0:  # a resumed epoch: its consumed records
+                b = next(data, None)
+                if b is None:
+                    break
+                skip -= _records(b)
+                progress["epoch_records"] += _records(b)
+            skip = 0
+            pending, epoch_done = None, False
+            while not epoch_done:
                 t_fetch = time.time()
-                batch = next(data, None)
+                buf = []
+                while len(buf) < K:
+                    b, pending = (pending, None) if pending is not None \
+                        else (next(data, None), None)
+                    if b is None:
+                        epoch_done = True
+                        break
+                    if buf and _shape_sig(b) != _shape_sig(buf[0]):
+                        pending = b  # ragged: flush, then start a group
+                        break
+                    buf.append(b)
                 dt_fetch = time.time() - t_fetch
-                fetch_accum += dt_fetch
+                clock["fetch"] += dt_fetch
                 self._phase("data_wait", dt_fetch)
-                if batch is None:
+                if not buf:
                     break
-                x, y = batch
-                t0 = time.time()
-                x, y = _to_device(x, self.device), _to_device(y, self.device)
-                step_seed = int(torch.randint(0, 2 ** 62, (1,),
-                                              generator=seeds))
-                opt_state, loss = self._step(params, opt_state, x, y,
-                                             step_seed, takes_seed)
-                prev = progress["iteration"]
-                progress["prev_iteration"] = prev
-                progress["iteration"] = prev + 1
-                progress["loss"] = loss
-                n_rec = len(x)
-                records += n_rec
-                if progress["iteration"] // self.log_every != \
-                        prev // self.log_every:
-                    loss_f = float(loss)  # syncs: the step has finished
-                    progress["loss"] = loss_f
-                    if not math.isfinite(loss_f):
-                        raise FloatingPointError(
-                            f"loss became {loss_f} at iteration "
-                            f"{progress['iteration']} (epoch "
-                            f"{progress['epoch']}) — NaN guard tripped")
-                    now = time.time()
-                    dt = now - t0
-                    self._phase("dispatch", dt)
-                    self.metrics.add("get batch time", fetch_accum)
-                    self.metrics.add("computing time",
-                                     (now - last_log_t) - fetch_accum)
-                    last_log_t, fetch_accum = now, 0.0
-                    logger.info(
-                        "Train %d in %.4fs. Throughput is %.1f "
-                        "records/second. Loss is %.4f",
-                        n_rec, dt, n_rec / max(dt, 1e-9), loss_f)
-                    if logger.isEnabledFor(logging.DEBUG):
-                        logger.debug("%s", self.metrics.summary())
+                if len(buf) == K and K > 1:
+                    dispatch_group(buf)
+                    done = self._after_step(opt_state, progress)
                 else:
-                    self._phase("dispatch", time.time() - t0)
-                self._maybe_validate(progress)
-                if self.end_when(progress):
+                    for b in buf:
+                        t0 = time.time()
+                        loss = run_eager(b, next_seed())
+                        after_dispatch(_records(b), 1, t0, loss)
+                        done = self._after_step(opt_state, progress)
+                        if done:
+                            break
+                if done:
                     break
+            records = progress["epoch_records"]
             progress["epoch"] += 1
             progress["epoch_finished"] = True
+            progress["epoch_records"] = 0
             self.dataset.shuffle()
             dt_e = time.time() - epoch_start
             d_wait = (self._phase_totals.get("data_wait", 0.0)
@@ -293,7 +606,23 @@ class Optimizer:
                 records / max(dt_e, 1e-9), d_wait, d_disp,
                 100.0 * d_wait / max(dt_e, 1e-9))
             self._maybe_validate(progress)
+            self._maybe_checkpoint(opt_state, progress)
+        self._join_ckpt_writer()
         logger.info("Training finished after %d iterations in %.1fs",
                     progress["iteration"], time.time() - wall_start)
         model.eval()
         return TrainedModel(model)
+
+    def _after_step(self, opt_state, progress) -> bool:
+        """Validation and checkpoint triggers after a dispatch; True when
+        training should end."""
+        self._maybe_validate(progress)
+        self._maybe_checkpoint(opt_state, progress)
+        return self.end_when(progress)
+
+
+def _host_tree(tree: dict) -> dict:
+    """Host copies of a tree of tensors."""
+    return {k: _host_tree(v) if isinstance(v, dict) else
+            v.detach().to("cpu", copy=True) for k, v in tree.items()}
+

@@ -48,6 +48,14 @@ class Trigger:
                        f"minLoss({v})")
 
     @staticmethod
+    def max_score(v: float) -> "Trigger":
+        """True once the latest validation score (the first validation
+        method's, e.g. Top1Accuracy) reaches ``v`` (reference
+        Trigger.maxScore)."""
+        return Trigger(lambda s: s.get("val_score", 0.0) >= v,
+                       f"maxScore({v})")
+
+    @staticmethod
     def and_(*ts: "Trigger") -> "Trigger":
         return Trigger(lambda s: all(t(s) for t in ts), "and")
 

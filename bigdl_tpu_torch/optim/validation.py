@@ -5,10 +5,13 @@ device; results add up across batches on the host."""
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 __all__ = ["ValidationResult", "AccuracyResult", "LossResult",
-           "ValidationMethod", "Top1Accuracy", "Top5Accuracy", "Loss"]
+           "PerplexityResult", "ValidationMethod", "Top1Accuracy",
+           "Top5Accuracy", "Loss", "Perplexity"]
 
 
 class ValidationResult:
@@ -57,6 +60,24 @@ class LossResult(ValidationResult):
 
     def __repr__(self):
         return f"LossResult({self.result()[0]:.4f}, n={self.count})"
+
+
+class PerplexityResult(ValidationResult):
+    """exp(mean token NLL), merged by ``+``."""
+
+    def __init__(self, nll_sum: float, count: int):
+        self.nll_sum, self.count = float(nll_sum), int(count)
+
+    def __add__(self, other):
+        return PerplexityResult(self.nll_sum + other.nll_sum,
+                                self.count + other.count)
+
+    def result(self):
+        ppl = math.exp(self.nll_sum / self.count) if self.count else 0.0
+        return ppl, self.count
+
+    def __repr__(self):
+        return f"PerplexityResult({self.result()[0]:.3f}, n={self.count})"
 
 
 class ValidationMethod:
@@ -138,3 +159,24 @@ class Loss(ValidationMethod):
 
     def to_result(self, value, count):
         return LossResult(float(value), int(count))
+
+
+class Perplexity(ValidationMethod):
+    """Token perplexity of (B, S, V) log-probs at (B, S) integer targets,
+    or at ``(targets, weights)`` from ``models.packed_lm_targets``: tokens
+    of weight 0 leave both the sum and the count."""
+
+    name = "perplexity"
+
+    def stats(self, output, target):
+        if isinstance(target, (tuple, list)):
+            target, weights = target
+        else:
+            weights = torch.ones(target.shape, dtype=output.dtype,
+                                 device=output.device)
+        nll = -torch.gather(output, -1, target.long()[..., None])[..., 0]
+        w = weights.to(nll.dtype)
+        return (nll * w).sum(), w.sum()
+
+    def to_result(self, value, count):
+        return PerplexityResult(float(value), int(count))

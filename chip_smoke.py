@@ -75,10 +75,33 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    statistics). ResNet-50's whole-step gradients are printed beside the
    same step with the plain versions' BN sums taken in f64, a yardstick
    of how far rounding alone moves them.
-10. ``cli.resnet train --dataset cifar10 --fusedBN apply`` on CIFAR-10
-   binary files written here from a seed: the ``Train ... Loss is`` lines,
-   a ``top1 accuracy`` line, and 19 launches of each fused kernel an
-   iteration.
+10. ``cli.resnet train --dataset cifar10 --fusedBN apply
+   --stepsPerDispatch 4 --checkpoint DIR`` on CIFAR-10 binary files
+   written here from a seed: the ``Train ... Loss is`` lines, a ``top1
+   accuracy`` line, 19 launches of each fused kernel an iteration (graph
+   replays included), and ``cli.resnet test --model DIR`` printing the
+   same top-1 line as the training run's last validation.
+11. ``cli.perf`` with ``inner_steps`` = 4 (each iteration one replay of a
+   CUDA graph of 4 steps on the resident batch): ResNet-50 ``_fba`` and
+   ``_fbn`` (bf16, batch 128) and ``transformer_lm_1k_hd128`` (bf16, batch
+   8, remat off and ``full``): images/s or tokens/s, finite falling
+   losses, and each kernel's launches exactly per-step x steps.
+12. The training loop (``Optimizer``) eager twice and graphed once
+   (``steps_per_dispatch=4``): ResNet-50 ``_fba`` with bf16
+   ``compute_dtype`` at batch 128 over 8 seeded batches for 16 steps, and
+   ``resnet_cifar(20)`` f32 ``--fusedBN apply`` over 10 batches for 20
+   steps (dispatch groups, ragged tails, an epoch boundary); SGD(0.01,
+   momentum 0.9) with a Poly schedule. Every step's loss (written on the
+   device by the criterion, so graph replays record theirs), images/s and
+   BN launches (exactly the BNs x steps). cuDNN runs its deterministic
+   algorithms in this phase and the next, so the two eager runs agree bit
+   for bit, and the graphed losses may differ from the eager ones by no
+   more than that.
+13. Checkpoint and resume on the card, graphed: for ``resnet_cifar(20)``
+   f32 and ResNet-50 ``_fba`` bf16, a run of 16 steps; a run stopped at 4
+   that checkpoints every 4 (keep_last=1); a second ``Optimizer`` that
+   resumes from that directory (its graph captured after the load) and
+   runs to 16. Its losses must be the uninterrupted run's, bit for bit.
 
 Any failed phase exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -175,6 +198,15 @@ BN_STAT_TOL = 1e-5
 BN_LOSS_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
 BN_GRAD_BATCH = 32
 CIFAR_RECORDS, CIFAR_BATCH = 256, 128  # per file: 10 training iterations
+# the training loop graphed: K steps a dispatch; ResNet-50 over 8 batches
+# (two epochs of 16 steps), resnet_cifar(20) over 10 (20 steps: groups of
+# K and ragged tails of 2); cli.perf --innerSteps: one warm-up dispatch
+# (eager, then the capture) and INNER_ITERS replays
+OPT_K = 4
+OPT_BATCHES, OPT_STEPS = 8, 16
+CIFAR_OPT_BATCHES, CIFAR_OPT_STEPS = 10, 20
+INNER_ITERS = 3
+POLY_ITERS = 64  # the Optimizer phases' Poly(0.5, 64) schedule
 
 
 def fail(msg):
@@ -1262,9 +1294,12 @@ def write_cifar(folder, n, seed=0):
 
 
 def cifar_cli_run(torch):
-    """``cli.resnet train --dataset cifar10 --fusedBN apply`` for one
-    epoch; returns its launches."""
-    import re
+    """``cli.resnet train --dataset cifar10 --fusedBN apply
+    --stepsPerDispatch OPT_K --checkpoint DIR`` for one epoch, then
+    ``cli.resnet test --model DIR``: its top-1 line must be the training
+    run's last validation line. Returns the training run's launches."""
+    import contextlib
+    import io
     import tempfile
 
     from bigdl_tpu_torch import ops
@@ -1272,29 +1307,304 @@ def cifar_cli_run(torch):
 
     with tempfile.TemporaryDirectory() as tmp, LogLines() as lines:
         write_cifar(tmp, CIFAR_RECORDS)
+        ck = os.path.join(tmp, "ckpt")
         ops.reset_kernel_launches()
         t0 = time.perf_counter()
         resnet_cli.main(["train", "--dataset", "cifar10", "-f", tmp,
                          "--fusedBN", "apply", "-b", str(CIFAR_BATCH),
-                         "--maxEpoch", "1", "--logEvery", "1"])
+                         "--maxEpoch", "1", "--logEvery", "1",
+                         "--stepsPerDispatch", str(OPT_K),
+                         "--checkpoint", ck])
         torch.cuda.synchronize()
         n = ops.kernel_launches()
         trains = [ln for ln in lines
                   if re.match(r"Train \d+ in .*Loss is ", ln)]
         top1 = [ln for ln in lines if ln.startswith("top1 accuracy is ")]
+        files = sorted(os.listdir(ck))
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            resnet_cli.main(["test", "-f", tmp, "--model", ck, "-b",
+                             str(CIFAR_BATCH)])
+        tested = [ln for ln in out.getvalue().splitlines()
+                  if ln.startswith("top1 accuracy is ")]
+    iters = sum(int(re.match(r"Train (\d+) ", ln).group(1)) for ln in
+                trains) // CIFAR_BATCH
     print(f"[cifar cli] {time.perf_counter() - t0:.1f}s, {len(trains)} "
-          f"'Train ... Loss is' lines (last: "
+          f"'Train ... Loss is' lines over {iters} iterations (last: "
           f"{trains[-1] if trains else None!r}); "
-          f"{top1[-1] if top1 else 'no top1 line'}; launches "
+          f"{top1[-1] if top1 else 'no top1 line'}; checkpoint {files}; "
+          f"test: {tested[-1] if tested else 'no top1 line'}; launches "
           f"{ {k: v for k, v in n.items() if v} }", flush=True)
     if not trains or not top1:
         fail("[cifar cli] no 'Train ... Loss is' or 'top1 accuracy' line")
-    want = dict({k: 0 for k in n}, bn_fwd_apply=19 * len(trains),
-                bn_bwd_fused=19 * len(trains))
+    if not tested or tested[-1] != top1[-1]:
+        fail(f"[cifar cli] test gives {tested[-1:]}, the training run's "
+             f"last validation {top1[-1]!r}")
+    want = dict({k: 0 for k in n}, bn_fwd_apply=19 * iters,
+                bn_bwd_fused=19 * iters)
     if n != want:
         fail(f"[cifar cli] launches {n}, expected {want} (19 BNs an "
              f"iteration)")
     return n
+
+
+class LossRecorder:
+    """A criterion that also writes each step's loss into a device buffer
+    at a device index, with no host sync: under a CUDA graph each replayed
+    step writes its own slot, so every step's loss is read after the run."""
+
+    def __init__(self, torch, crit, n, device):
+        self.crit = crit
+        self.buf = torch.full((n,), float("nan"), device=device)
+        self.i = torch.zeros(1, dtype=torch.int64, device=device)
+
+    def __call__(self, out, target):
+        loss = self.crit(out, target)
+        self.buf.index_copy_(0, self.i, loss.detach().float().view(1))
+        self.i.add_(1)
+        return loss
+
+    def losses(self):
+        return self.buf[:int(self.i)].tolist()
+
+
+def optimizer_run(torch, make_model, data, k, end, compute_dtype=None,
+                  ckpt=None, resume=None, shuffle=False):
+    """One ``Optimizer`` run (SGD(0.01, momentum 0.9) with the schedule
+    Poly(0.5, POLY_ITERS)) over ``data``
+    (a list of (x, y) batches, held in a ``BatchDataSet``) with
+    ``steps_per_dispatch=k`` up to iteration ``end``, checkpointing every
+    ``k`` iterations into ``ckpt`` (keep_last=1) and resuming from
+    ``resume`` when given; returns (every step's loss, kernel launches,
+    images/s of the dispatches after the first two, log lines)."""
+    import numpy as np
+
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.dataset import BatchDataSet
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Poly, Trigger
+
+    x = np.concatenate([b[0] for b in data])
+    y = np.concatenate([b[1] for b in data])
+    batch = len(data[0][0])
+    model = make_model()
+    rec = LossRecorder(torch, ClassNLLCriterion(), end, DEV)
+    opt = Optimizer(model, BatchDataSet(x, y, batch, shuffle=shuffle), rec,
+                    optim_method=SGD(0.01, momentum=0.9,
+                                     schedule=Poly(0.5, POLY_ITERS)),
+                    end_when=Trigger.max_iteration(end), log_every=1,
+                    compute_dtype=compute_dtype, steps_per_dispatch=k,
+                    device=DEV)
+    if ckpt:
+        opt.set_checkpoint(Trigger.several_iteration(k), ckpt,
+                           keep_last=1)
+    if resume:
+        opt.resume(resume)
+    with LogLines() as lines:
+        ops.reset_kernel_launches()
+        opt.optimize()
+        torch.cuda.synchronize()
+        n = ops.kernel_launches()
+    rates = [float(m.group(1)) for m in (
+        re.search(r"Throughput is ([0-9.]+) records/second", ln)
+        for ln in lines) if m]
+    steady = rates[2:] or rates
+    ips = sorted(steady)[len(steady) // 2] if steady else float("nan")
+    del opt, model
+    torch.cuda.empty_cache()
+    return rec.losses(), n, ips, list(lines)
+
+
+def image_batches(n, batch, shape, classes, seed):
+    """``n`` seeded random (x, y) batches: N(0, 1) f32 images, labels."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal((batch,) + shape, dtype=np.float32),
+             rng.integers(0, classes, batch).astype(np.int32))
+            for _ in range(n)]
+
+
+def diff(a, b):
+    """max |a - b| over two loss lists of one length, inf if they differ
+    in length."""
+    if len(a) != len(b):
+        return float("inf")
+    return max((abs(u - v) for u, v in zip(a, b)), default=0.0)
+
+
+def graphed_optimizer_runs(torch, card):
+    """The training loop as a user runs it, eager (twice) and as CUDA
+    graphs of ``OPT_K`` steps: ResNet-50 ``_fba`` in bf16 at batch 128
+    over ``OPT_BATCHES`` batches for ``OPT_STEPS`` steps, and
+    ``resnet_cifar(20)`` f32 ``--fusedBN apply`` over ``CIFAR_OPT_BATCHES``
+    for ``CIFAR_OPT_STEPS`` (dispatch groups, ragged tails and an epoch
+    boundary). cuDNN runs its deterministic algorithms here, so two eager
+    runs agree bit for bit and a graph must too. Returns the launches of
+    every run."""
+    import math
+
+    from bigdl_tpu_torch import models
+    from bigdl_tpu_torch.cli import perf
+
+    gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    cases = [
+        ("resnet50_fba", lambda: perf.build_model("resnet50_fba",
+                                                  generator=gen())[0],
+         image_batches(OPT_BATCHES, RESNET_BATCH, (224, 224, 3), 1000, 1),
+         OPT_STEPS, torch.bfloat16, 53),
+        ("resnet_cifar20", lambda: models.resnet_cifar(
+            20, 10, fused_bn="apply", generator=gen()),
+         image_batches(CIFAR_OPT_BATCHES, CIFAR_BATCH, (32, 32, 3), 10, 2),
+         CIFAR_OPT_STEPS, None, 19)]
+    launches = []
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, make, data, steps, dt, n_bn in cases:
+            runs = {}
+            for tag, k in (("eager", 1), ("eager again", 1),
+                           (f"graph K={OPT_K}", OPT_K)):
+                t0 = time.perf_counter()
+                losses, n, ips, _ = optimizer_run(torch, make, data, k, steps,
+                                                  compute_dtype=dt)
+                print(f"[optimizer {name} {tag}] on {card}: {steps} steps in "
+                      f"{time.perf_counter() - t0:.1f}s, {ips:.1f} images/s "
+                      f"(median dispatch past the first two); BN launches "
+                      f"{n['bn_fwd_apply']} + {n['bn_bwd_fused']}; losses "
+                      f"{losses}", flush=True)
+                if len(losses) != steps or not all(
+                        math.isfinite(v) for v in losses):
+                    fail(f"[optimizer {name} {tag}] expected {steps} finite "
+                         f"losses, got {losses}")
+                want = dict({kk: 0 for kk in n}, bn_fwd_apply=n_bn * steps,
+                            bn_bwd_fused=n_bn * steps)
+                if n != want:
+                    fail(f"[optimizer {name} {tag}] launches {n}, expected "
+                         f"{want}")
+                runs[tag] = losses
+                launches.append(n)
+            ee = diff(runs["eager"], runs["eager again"])
+            ge = diff(runs[f"graph K={OPT_K}"], runs["eager"])
+            print(f"[optimizer {name}] max |loss| difference: eager vs "
+                  f"eager {ee}, graph vs eager {ge}", flush=True)
+            if ge > ee:
+                fail(f"[optimizer {name}] the graphed losses differ from the "
+                     f"eager ones by {ge}, more than two eager runs ({ee})")
+    finally:
+        torch.backends.cudnn.deterministic = det
+    return launches
+
+
+def resume_runs(torch, card):
+    """Checkpoint and resume on the card, graphed (K = ``OPT_K``): an
+    uninterrupted run of 4*K steps; a run stopped at K (``end_when``) that
+    checkpoints every K steps (keep_last=1); a second ``Optimizer`` that
+    resumes from that directory and runs to 4*K, capturing its graph after
+    the resume loaded the static tensors. Its losses must be those of the
+    uninterrupted run's last 3*K steps, bit for bit (cuDNN deterministic),
+    for ``resnet_cifar(20)`` f32 and ResNet-50 ``_fba`` bf16, both over a
+    shuffled epoch boundary. Returns the launches of every run."""
+    import tempfile
+
+    from bigdl_tpu_torch import models
+    from bigdl_tpu_torch.cli import perf
+
+    gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    steps = 4 * OPT_K
+    cases = [
+        ("resnet_cifar20", lambda: models.resnet_cifar(
+            20, 10, fused_bn="apply", generator=gen()),
+         image_batches(3 * OPT_K, CIFAR_BATCH, (32, 32, 3), 10, 3), None),
+        ("resnet50_fba", lambda: perf.build_model("resnet50_fba",
+                                                  generator=gen())[0],
+         image_batches(3 * OPT_K, RESNET_BATCH, (224, 224, 3), 1000, 4),
+         torch.bfloat16)]
+    launches = []
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, make, data, dt in cases:
+            with tempfile.TemporaryDirectory() as ck:
+                full, n0, _, _ = optimizer_run(torch, make, data, OPT_K,
+                                               steps, dt, shuffle=True)
+                head, n1, _, _ = optimizer_run(torch, make, data, OPT_K,
+                                               OPT_K, dt, ckpt=ck,
+                                               shuffle=True)
+                files = sorted(os.listdir(ck))
+                tail, n2, _, lines = optimizer_run(
+                    torch, make, data, OPT_K, steps, dt, ckpt=ck, resume=ck,
+                    shuffle=True)
+                files_after = sorted(os.listdir(ck))
+            resumed = [ln for ln in lines if ln.startswith("Resuming at ")]
+            d = diff(tail, full[OPT_K:])
+            print(f"[resume {name}] on {card}: stopped at {OPT_K} steps "
+                  f"({files}); {resumed[0] if resumed else 'no resume line'};"
+                  f" after: {files_after}; steps {OPT_K + 1}-{steps} max "
+                  f"|loss| difference against the uninterrupted run: {d}; "
+                  f"losses {tail}", flush=True)
+            if head != full[:OPT_K]:
+                fail(f"[resume {name}] the first {OPT_K} steps differ: "
+                     f"{head} vs {full[:OPT_K]}")
+            if not resumed or d != 0.0:
+                fail(f"[resume {name}] the resumed run is not the "
+                     f"uninterrupted one: {tail} vs {full[OPT_K:]}")
+            if files_after != [f"{p}.{steps}{e}" for p in ("model", "state")
+                               for e in ("", ".manifest.json", ".sha256")]:
+                fail(f"[resume {name}] keep_last=1 left {files_after}")
+            launches += [n0, n1, n2]
+    finally:
+        torch.backends.cudnn.deterministic = det
+    return launches
+
+
+def inner_steps_runs(torch, card):
+    """``cli.perf`` with ``inner_steps`` = K: K SGD steps on the resident
+    batch as one CUDA graph a dispatch, for ResNet-50 ``_fba`` and
+    ``_fbn`` (bf16, batch 128) and the LM (bf16, batch 8, remat off and
+    full); finite falling losses, and each kernel's launches over every
+    step, the graph's replays included. Returns {row: (result,
+    launches)}."""
+    import math
+
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.cli import perf
+
+    rows = [(name, dict(batch=RESNET_BATCH, data_type="random"),
+             {k: v for k, v in per.items()}, None)
+            for name, per in RESNET_ROWS.items() if per]
+    rows += [(MODEL, dict(batch=TRAIN_BATCH, remat=remat),
+              {"flash_fwd": 24 if remat else 12, "flash_dq": 12,
+               "flash_dkv": 12}, remat) for remat in (False, "full")]
+    out = {}
+    for name, kw, per_step, remat in rows:
+        ops.reset_kernel_launches()
+        res = perf.run(name, iterations=INNER_ITERS, dtype=torch.bfloat16,
+                       warmup=1, inner_steps=OPT_K, **kw)
+        torch.cuda.synchronize()
+        n = ops.kernel_launches()
+        steps = (1 + INNER_ITERS) * OPT_K
+        rate = (f"{res['tokens_per_second']} tokens/s"
+                if res["tokens_per_second"] else
+                f"{res['records_per_second']} images/s")
+        tag = f"{name}{' remat=full' if remat else ''}"
+        print(f"[innerSteps {OPT_K} {tag}] bf16 batch {res['batch']} on "
+              f"{card}: {rate} over {INNER_ITERS} x {OPT_K} graphed steps "
+              f"({res['seconds']} s); losses "
+              f"{[round(v, 4) for v in res['losses']]}; launches "
+              f"{ {k: v for k, v in n.items() if v} } over {steps} steps",
+              flush=True)
+        if not all(math.isfinite(v) for v in res["losses"]):
+            fail(f"[innerSteps {tag}] non-finite loss: {res['losses']}")
+        if not res["losses"][-1] < res["losses"][0]:
+            fail(f"[innerSteps {tag}] the loss did not fall: "
+                 f"{res['losses']}")
+        want = {k: per_step.get(k, 0) * steps for k in n}
+        if n != want:
+            fail(f"[innerSteps {tag}] launches {n}, expected {want}")
+        out[tag] = (res, n)
+        torch.cuda.empty_cache()
+    return out
 
 
 def main():
@@ -1350,7 +1660,9 @@ def main():
     # the main paths, each driven with the counts set to 0 just before it
     # and read just after: LM training (perf, plain and remat), the LM
     # training CLI (plain and packed), serving (f32 and bf16), ResNet-50
-    # training (perf, three BN modes) and the CIFAR training CLI
+    # training (perf, three BN modes), the CIFAR training CLI (graphed,
+    # with its checkpoint tested), cli.perf's graphed rows, the Optimizer
+    # eager and graphed, and resume; a graph's replays count as launches
     from bigdl_tpu_torch import ops
     launches = {name: 0 for name in ops.kernel_launches()}
     train, *train_n = train_run(torch, card)
@@ -1363,7 +1675,11 @@ def main():
         launches["flash_fwd"] += n
     resnet = resnet_runs(torch, card)
     bn_grads_check(torch)
-    for n in [n for _, n in resnet.values()] + [cifar_cli_run(torch)]:
+    inner = inner_steps_runs(torch, card)
+    for n in ([n for _, n in resnet.values()] + [cifar_cli_run(torch)]
+              + [n for _, n in inner.values()]
+              + graphed_optimizer_runs(torch, card)
+              + resume_runs(torch, card)):
         for name in launches:
             launches[name] += n[name]
     print(f"[bf16] {MODEL} on {card}: {tps:.1f} generated tokens/s over 4 "
@@ -1375,6 +1691,12 @@ def main():
     for name, (res, _) in resnet.items():
         print(f"[{name}] bf16 batch {RESNET_BATCH} on {card}: "
               f"{res['records_per_second']} images/s", flush=True)
+    for tag, (res, _) in inner.items():
+        rate = (f"{res['tokens_per_second']} tokens/s"
+                if res["tokens_per_second"] else
+                f"{res['records_per_second']} images/s")
+        print(f"[innerSteps {OPT_K} {tag}] bf16 batch {res['batch']} on "
+              f"{card}: {rate}", flush=True)
 
     head, bwd = rows[0], bwd_rows[0]  # the training step's 8 x 8 x 1024^2
     common = {"route": "cuda", "check": "pass", "shape": head["shape"],

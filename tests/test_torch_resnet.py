@@ -205,12 +205,12 @@ def test_absorb_bn_relu_matches_jax():
 def test_not_ported_parts_raise():
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         models.resnet50(s2d_stem=True)
-    for argv, item in ((["test", "--model", "x"], "item 6"),
+    for argv, item in ((["test", "--model", "x", "--dataset", "imagenet"],
+                        "item 9"),
                        (["train", "--dataset", "imagenet"], "item 9"),
                        (["train", "--s2d"], "item 7")):
         with pytest.raises(SystemExit, match=item):
-            resnet_cli.main(argv + ["--platform", "cpu"] if argv[0] ==
-                            "train" else argv)
+            resnet_cli.main(argv + ["--platform", "cpu"])
 
 
 # ------------------------------------------------------------------ models

@@ -303,16 +303,23 @@ def test_optimizer_clipping_and_nan_guard(tree):
 
 
 def test_optimizer_refuses_later_slices():
+    """A distributed strategy comes with data parallelism and is refused;
+    checkpoints, resume and steps_per_dispatch are in the port now."""
+    with pytest.raises(NotImplementedError, match="comes with"):
+        Optimizer(_port_lm(), None, None, device="cpu", strategy=object())
     opt = Optimizer(_port_lm(), BatchDataSet(np.zeros((2, 4)),
                                              np.zeros((2, 4)), 2),
-                    lambda o, t: o.sum(), device="cpu")
-    for call in (lambda: opt.set_checkpoint(None, "x"),
-                 lambda: opt.resume("x")):
-        with pytest.raises(NotImplementedError, match="later|comes with"):
-            call()
-    for kw in ({"strategy": object()}, {"steps_per_dispatch": 2}):
-        with pytest.raises(NotImplementedError, match="comes with"):
-            Optimizer(_port_lm(), None, None, device="cpu", **kw)
+                    lambda o, t: o.sum(), device="cpu", steps_per_dispatch=2)
+    assert opt.set_checkpoint(Trigger.every_epoch(), "x") is opt
+    assert opt.resume("does-not-exist") is opt
+    for bad in (lambda: Optimizer(_port_lm(), None, None, device="cpu",
+                                  steps_per_dispatch=0),
+                lambda: opt.set_checkpoint(Trigger.every_epoch(), "x",
+                                           keep_last=0)):
+        with pytest.raises(ValueError, match=">= 1"):
+            bad()
+    with pytest.raises(NotImplementedError, match="item 13"):
+        opt.set_checkpoint(Trigger.every_epoch(), "gs://bucket/ckpt")
 
 
 def test_text_pieces_and_batch_order_match_jax():
@@ -338,15 +345,31 @@ def test_text_pieces_and_batch_order_match_jax():
 
 
 def test_dropout_keep_rate_scale_and_replay():
+    """The mask is a hash of (seed, element) on the device: the keep rate
+    and scale of the JAX package's Dropout (its bits are threefry's, so
+    only the distribution is compared), the same mask for the same seed as
+    an int or an int64 tensor, and independent masks for other seeds and
+    for folded streams."""
     drop = nn.Dropout(0.25)
     x = torch.ones(200_000)
-    y = drop(x, torch.Generator().manual_seed(0))
+    y = drop(x, 0)
     kept = y != 0
-    assert abs(float(kept.float().mean()) - 0.75) < 0.005
+    jy = np.asarray(jnn.Dropout(0.25).forward(
+        {}, jnp.ones(200_000), training=True, rng=jax.random.PRNGKey(0)))
+    for out in (y.numpy(), jy):
+        assert abs(float((out != 0).mean()) - 0.75) < 0.005
+        np.testing.assert_allclose(out[out != 0], 1 / 0.75, rtol=1e-6)
     assert torch.allclose(y[kept], torch.full_like(y[kept], 1 / 0.75))
-    assert torch.equal(y, drop(x, torch.Generator().manual_seed(0)))
-    assert not torch.equal(y, drop(x, torch.Generator().manual_seed(1)))
-    with pytest.raises(ValueError, match="generator"):
+    assert torch.equal(y, drop(x, torch.tensor(0)))
+    other = drop(x, 1) != 0
+    assert not torch.equal(kept, other)
+    # two seeds' masks agree where independent masks would: 0.75^2 + 0.25^2
+    assert abs(float((kept == other).float().mean()) - 0.625) < 0.005
+    from bigdl_tpu_torch.nn.structural import fold_seed
+    folded = [fold_seed(7, i) for i in range(3)]
+    assert len({int(f) for f in folded}) == 3
+    assert int(fold_seed(torch.tensor(7), 2)) == int(folded[2])
+    with pytest.raises(ValueError, match="seed"):
         drop(x)
     assert drop.eval()(x) is x
 
@@ -408,14 +431,85 @@ def test_transformerlm_train_cli_on_cpu(tmp_path, capsys, caplog, extra):
 def test_transformerlm_cli_refuses_what_is_not_ported(tmp_path, capsys):
     _corpus(tmp_path)
     base = ["train", "-f", str(tmp_path), "--platform", "cpu"]
-    for extra in (["--checkpoint", "ck"], ["--strategy", "dp"]):
+    for extra in (["--strategy", "dp"], ["--dataParallel"]):
         with pytest.raises(SystemExit) as e:
             lm_cli.main(base + extra)
         assert e.value.code == 2
         err = capsys.readouterr().err
         assert f"unrecognized arguments: {' '.join(extra)}" in err
         assert "ROADMAP.md" in err
-    with pytest.raises(SystemExit, match="rest of optim"):
-        lm_cli.main(base + ["--optimMethod", "lamb"])
-    with pytest.raises(SystemExit, match="checkpoint reader"):
-        lm_cli.main(["generate", "--model", "x"])
+    with pytest.raises(SystemExit):
+        lm_cli.main(base + ["--optimMethod", "lbfgs"])
+    assert "invalid choice: 'lbfgs'" in capsys.readouterr().err
+
+
+def test_steps_per_dispatch_matches_k1_and_jax_boundaries(tree, caplog):
+    """steps_per_dispatch=3 on the CPU (three eager steps a dispatch): the
+    K=1 losses bit for bit, and the iterations that log, validate and
+    checkpoint are the JAX Optimizer's with K=3 (7 batches an epoch:
+    dispatches of 3, 3 and a tail of 1)."""
+    x, y = _tokens((28, SEQ), 10), _tokens((28, SEQ), 11)
+    crit = nn.TimeDistributedCriterion(nn.ClassNLLCriterion())
+
+    def events(records):
+        """The loop's log, validation and checkpoint lines in order, the
+        times and numbers dropped."""
+        out = []
+        for r in records:
+            m = r.getMessage()
+            if m.startswith("Train "):
+                out.append(m.split(" in ")[0])
+            elif m.startswith("loss is "):
+                out.append("validation")
+            elif m.startswith("Checkpoint written at iteration"):
+                out.append(" ".join(m.split()[:5]))
+        return out
+
+    def port(k, tmp):
+        losses = []
+
+        def rec(o, t):
+            loss = crit(o, t)
+            losses.append(float(loss.detach()))
+            return loss
+
+        opt = Optimizer(_port_lm(), BatchDataSet(x, y, 4), rec,
+                        optim_method=SGD(learning_rate=0.1, momentum=0.9),
+                        end_when=Trigger.max_iteration(14), log_every=2,
+                        steps_per_dispatch=k, device="cpu")
+        opt.set_state(params=params_from_jax(tree))
+        opt.set_validation(Trigger.several_iteration(4),
+                           BatchDataSet(x[:8], y[:8], 4),
+                           [toptim.Loss(crit)])
+        opt.set_checkpoint(Trigger.several_iteration(5), tmp)
+        opt.optimize()
+        return losses
+
+    import tempfile
+    with tempfile.TemporaryDirectory() as a, tempfile.TemporaryDirectory() \
+            as b, tempfile.TemporaryDirectory() as c:
+        ref = port(1, a)
+        caplog.clear()
+        with caplog.at_level(logging.INFO):
+            got = port(3, b)
+        ours = events(caplog.records)
+        caplog.clear()
+        jcrit = jnn.TimeDistributedCriterion(jnn.ClassNLLCriterion())
+        jopt = joptim.Optimizer(
+            _jax_lm(), JaxBatchDataSet(x, y, 4), jcrit,
+            optim_method=joptim.SGD(learning_rate=0.1, momentum=0.9),
+            end_when=joptim.Trigger.max_iteration(14), log_every=2,
+            steps_per_dispatch=3)
+        jopt.set_state(params=jax.tree_util.tree_map(jnp.asarray, tree))
+        jopt.set_validation(joptim.Trigger.several_iteration(4),
+                            JaxBatchDataSet(x[:8], y[:8], 4),
+                            [joptim.Loss(jcrit)])
+        jopt.set_checkpoint(joptim.Trigger.several_iteration(5), c)
+        with caplog.at_level(logging.INFO):
+            jopt.optimize()
+        theirs = events(caplog.records)
+    assert got == ref and len(got) == 14
+    assert ours == theirs
+    assert [e for e in ours if e.startswith("Checkpoint")] == [
+        "Checkpoint written at iteration 6", "Checkpoint written at "
+        "iteration 10"]
