@@ -5,11 +5,18 @@
     curl -d '{"tokens": [3, 1, 4], "max_new_tokens": 8}' \\
         localhost:8000/generate
 
-``/generate`` runs continuous-batching decode over a dense KV cache,
-``/predict`` the bucketed full forward; every prefill and every full
-forward goes through the CUDA flash-attention kernel. ``--platform cpu``
-runs the same stack on the CPU with the kernel's plain version. Flags of
-features not ported yet are refused with a message, never ignored.
+``/generate`` runs continuous-batching decode over a dense KV cache, or
+a paged one (``--kvPageTokens N|auto``) with the shared-prefix cache
+(``--prefixCache``); ``/predict`` the bucketed full forward, its rows
+padded to the prompt ladder's lengths (16 ... max_len). Every prefill
+and every full forward goes through the CUDA flash-attention kernel, and
+on the card the decode step, each prefill bucket and each ``/predict``
+bucket replay CUDA graphs captured before the server's threads start.
+Weights come from ``--randomInit`` (seeded) or ``--model CKPT``, a
+``model.<n>`` written by the port or the JAX package. ``--platform cpu``
+runs the same stack on the CPU, eagerly, with the kernel's plain version.
+Flags of features not ported yet are refused with a message, never
+ignored.
 """
 
 from __future__ import annotations
@@ -22,13 +29,12 @@ import numpy as np
 __all__ = ["build_parser", "build_app", "main"]
 
 # flags of the JAX package's serve that later slices of the port bring
-_LATER_FLAGS = ("--model", "--fleet", "--modelVersion", "--fleetHeartbeatS",
+_LATER_FLAGS = ("--fleet", "--modelVersion", "--fleetHeartbeatS",
                 "--fleetRestartBudget", "--strategy", "--speculate",
-                "--draftDims", "--kvPageTokens", "--prefixCache",
-                "--quantize", "--classes", "--faultPlan", "--reqTrace",
-                "--reqTraceCapacity", "--slo", "--accessLog", "--logSample",
-                "--autotune", "--fusedBN", "--lint", "--convLayout",
-                "--convGeom")
+                "--draftDims", "--quantize", "--classes", "--faultPlan",
+                "--reqTrace", "--reqTraceCapacity", "--slo", "--accessLog",
+                "--logSample", "--autotune", "--fusedBN", "--lint",
+                "--convLayout", "--convGeom")
 
 
 def _parse_buckets(spec: str):
@@ -49,9 +55,13 @@ def build_parser() -> argparse.ArgumentParser:
                     "/predict, continuous-batching /generate, /metrics")
     p.add_argument("model", help="transformer_lm, transformer_lm_rope, "
                                  "transformer_lm_1k or transformer_lm_1k_hd128")
+    p.add_argument("--model", dest="checkpoint", default=None,
+                   metavar="CKPT",
+                   help="checkpoint to serve: a directory's newest "
+                        "model.<n>, or one file, written by the port or "
+                        "the JAX package")
     p.add_argument("--randomInit", action="store_true",
-                   help="serve weights drawn from a seeded generator "
-                        "(reading checkpoints is not ported yet)")
+                   help="serve weights drawn from a seeded generator")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("-p", "--port", type=int, default=8000,
                    help="0 = ephemeral (the chosen port is printed)")
@@ -69,6 +79,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="queued /predict rows beyond this get HTTP 429")
     p.add_argument("--slots", type=int, default=4,
                    help="continuous-batching decode slots")
+    p.add_argument("--kvPageTokens", default=None, metavar="N|auto",
+                   help="paged KV cache of N-token pages (N divides the "
+                        "context length); 'auto' takes the first of 128, "
+                        "64, 32, 256 that divides it. kv_cache_bytes then "
+                        "counts allocated pages")
+    p.add_argument("--prefixCache", action="store_true",
+                   help="share page-aligned prompt-prefix K/V across "
+                        "requests (needs --kvPageTokens): a hit copies "
+                        "pages and prefills only the suffix")
     p.add_argument("--maxWaiting", type=int, default=64,
                    help="/generate requests that may wait for a slot "
                         "before 429")
@@ -78,7 +97,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="bf16 activations after the embedding and a bf16 "
                         "KV cache; parameters stay f32")
     p.add_argument("--no-warmup", action="store_true",
-                   help="skip running every /predict bucket at startup")
+                   help="skip running every /predict bucket at startup on "
+                        "the CPU (on the card their graphs are captured "
+                        "at startup all the same)")
     p.add_argument("--timeout", type=float, default=120.0,
                    help="per-request wall timeout (503 past it)")
     p.add_argument("--deadlineMs", type=float, default=None,
@@ -102,18 +123,44 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _page_tokens(spec, max_len: int):
+    """``--kvPageTokens``: None (dense), an int that divides ``max_len``,
+    or 'auto': the JAX package's ladder when autotune is off (128, 64, 32,
+    256, the first that divides; dense if none does)."""
+    if not spec:
+        return None
+    if str(spec).lower() == "auto":
+        return next((c for c in (128, 64, 32, 256)
+                     if c <= max_len and max_len % c == 0), None)
+    try:
+        pt = int(spec)
+    except ValueError:
+        raise SystemExit(f"--kvPageTokens {spec!r}: expected an int or "
+                         f"'auto'")
+    if pt < 1 or max_len % pt:
+        raise SystemExit(f"--kvPageTokens {pt} must divide the context "
+                         f"length {max_len}")
+    return pt
+
+
 def build_app(args):
-    """(app, engine, in_shape, in_dtype) from parsed args; the server's
-    workers (decoder loop, batcher, watchdog) are started."""
+    """(app, engine, in_shape, in_dtype) from parsed args. Every graph is
+    captured (the /predict buckets at each length bucket, the decode
+    programs)
+    before the server's workers (decoder loop, batcher, watchdog) are
+    started."""
     import torch
 
+    from bigdl_tpu_torch.cli.common import load_trained
     from bigdl_tpu_torch.cli.perf import build_model
     from bigdl_tpu_torch.core.module import resolve_device
     from bigdl_tpu_torch.models import TransformerLM
-    from bigdl_tpu_torch.ops.attention_kernel import SUPPORTED_HEAD_DIMS
+    from bigdl_tpu_torch.ops.attention_kernel import (SUPPORTED_HEAD_DIMS,
+                                                      serving_prefill_buckets)
     from bigdl_tpu_torch.serving import (DecodeEngine, InferenceEngine,
                                          MetricsRegistry, MicroBatcher,
                                          ServingApp, Watchdog)
+    from bigdl_tpu_torch.serving.graphs import GraphPool
 
     later = [f for f in _LATER_FLAGS
              if getattr(args, f"later_{f[2:]}") is not None]
@@ -125,9 +172,9 @@ def build_app(args):
     if not name.startswith("transformer_lm"):
         raise SystemExit(f"model {name}: only transformer_lm* models are "
                          f"served by the PyTorch port so far")
-    if not args.randomInit:
-        raise SystemExit("serve needs weights: pass --randomInit (reading "
-                         "checkpoints with --model is not ported yet)")
+    if not (args.randomInit or args.checkpoint):
+        raise SystemExit("serve needs weights: pass --model CKPT (a "
+                         "checkpoint directory or file) or --randomInit")
     if args.vocabSize is not None:
         seq = args.seq or 128
         model = TransformerLM(args.vocabSize, d_model=args.dModel,
@@ -138,23 +185,37 @@ def build_app(args):
         in_shape = (seq,)
     else:
         model, in_shape = build_model(name, seq_len=args.seq)
+    if args.checkpoint:
+        load_trained(model, args.checkpoint)
     head_dim = model.encoder[0].mha.head_dim
     if device.type == "cuda" and head_dim not in SUPPORTED_HEAD_DIMS:
         raise SystemExit(f"head_dim {head_dim} (--dModel / --numHeads): the "
                          f"CUDA flash kernel takes {SUPPORTED_HEAD_DIMS}")
+    page_tokens = _page_tokens(args.kvPageTokens, model.max_len)
+    if args.prefixCache and page_tokens is None:
+        raise SystemExit("--prefixCache needs --kvPageTokens (prefix "
+                         "sharing is a page copy)")
     compute_dtype = torch.bfloat16 if args.bf16 else None
     model.compute_dtype = compute_dtype
     model = model.to(device)
 
     metrics = MetricsRegistry()
+    graphs = GraphPool(device)
+    # the LM is causal: /predict rows pad to the prompt ladder's lengths
     engine = InferenceEngine(model, buckets=_parse_buckets(args.buckets),
-                             metrics=metrics, device=device)
+                             lengths=serving_prefill_buckets(model.max_len),
+                             metrics=metrics, device=device, graphs=graphs)
+    if graphs.enabled or not args.no_warmup:
+        print(f"warmup: buckets {engine.buckets} at lengths "
+              f"{engine.lengths} int32", flush=True)
+        engine.warmup(in_shape, np.int32)
+    decoder = DecodeEngine(model, slots=args.slots, cache_dtype=compute_dtype,
+                           max_waiting=args.maxWaiting, metrics=metrics,
+                           device=device, kv_page_tokens=page_tokens,
+                           prefix_cache=args.prefixCache, graphs=graphs)
     batcher = MicroBatcher(engine.predict_scores, max_batch=args.maxBatch,
                            max_wait_ms=args.maxWaitMs,
                            max_queue=args.maxQueue, metrics=metrics)
-    decoder = DecodeEngine(model, slots=args.slots, cache_dtype=compute_dtype,
-                           max_waiting=args.maxWaiting, metrics=metrics,
-                           device=device)
     decoder.start()
     watchdog = Watchdog(stall_timeout_s=args.watchdogStallS, metrics=metrics)
     watchdog.watch("batcher", batcher).watch("decoder", decoder).start()
@@ -162,6 +223,7 @@ def build_app(args):
     prov = engine.provenance()
     prov.update({
         "model": name,
+        "weights": args.checkpoint or "random (seed 0)",
         "max_batch": args.maxBatch,
         "max_wait_ms": args.maxWaitMs,
         "max_queue": args.maxQueue,
@@ -169,7 +231,9 @@ def build_app(args):
         "shed_at": args.shedAt,
         "decode_slots": args.slots,
         "prompt_buckets": ",".join(str(b) for b in decoder.prompt_buckets),
-        "kv_page_tokens": "dense",
+        "kv_page_tokens": page_tokens or "dense",
+        "prefix_cache": bool(args.prefixCache),
+        "cuda_graphs": graphs.enabled,
     })
     metrics.set_provenance(prov)
     app = ServingApp(name=name, metrics=metrics, engine=engine,
@@ -187,11 +251,7 @@ def main(argv=None) -> int:
     from bigdl_tpu_torch.serving import run_server
 
     args = build_parser().parse_args(argv)
-    app, engine, in_shape, in_dtype = build_app(args)
-    if not args.no_warmup:
-        print(f"warmup: buckets {engine.buckets} at {tuple(in_shape)} "
-              f"{in_dtype.__name__}", flush=True)
-        engine.warmup(in_shape, in_dtype)
+    app, _, _, _ = build_app(args)
     return run_server(app, args.host, args.port)
 
 

@@ -97,7 +97,9 @@ class TransformerLM(nn.Module):
             h = h.to(self.compute_dtype)
         return h * math.sqrt(self.d_model)
 
-    def _logits(self, h):
+    def head_logits(self, h):
+        """The tied output head: final LayerNorm, then the embedding
+        transposed -> logits in ``h``'s dtype."""
         h = self.ln_f(h)
         return h @ self.emb.weight.to(h.dtype).T
 
@@ -119,12 +121,13 @@ class TransformerLM(nn.Module):
             h = self.encoder(h, seed)
         else:
             h = self.encoder((h, segments.to(h.device)), seed)[0]
-        return torch.log_softmax(self._logits(h).float(), dim=-1)
+        return torch.log_softmax(self.head_logits(h).float(), dim=-1)
 
     # --------------------------------------------- autoregressive decoding
-    def _embed_at(self, tokens, pos):
+    def embed_at(self, tokens, pos):
         """Embed (b, s) tokens at absolute positions pos..pos+s-1; ``pos``
-        is an int or a (b,) tensor of per-row starts."""
+        is an int or a (b,) tensor of per-row starts: what the first
+        layer of a decode or prefill takes."""
         h = self._embed(tokens)
         if self.rope:
             return h
@@ -143,23 +146,46 @@ class TransformerLM(nn.Module):
         return self.encoder.init_cache(batch, max_len or self.max_len, dtype,
                                        self.device)
 
-    def prefill_logits(self, tokens, cache, last: Optional[int] = None):
+    def prefill_logits(self, tokens, cache, last=None):
         """Run the prompt once, fill ``cache`` (positions 0..s-1, in place)
         and return the (b, vocab) next-token logits at position ``last``
-        (default s-1). With the prompt right-padded to a bucket,
-        ``last`` = true_len - 1 gives the unpadded prompt's logits."""
-        h = self.encoder.prefill(self._embed_at(tokens, 0), cache)
-        h_last = h[:, -1:] if last is None else h[:, last:last + 1]
-        return self._logits(h_last)[:, 0]
+        (default s-1): an int, or a device index tensor (0-d, (1,) or (b,))
+        as the JAX package's traced ``last``, so one captured prefill
+        serves every prompt length of its bucket. With the prompt
+        right-padded to a bucket, ``last`` = true_len - 1 gives the
+        unpadded prompt's logits."""
+        h = self.encoder.prefill(self.embed_at(tokens, 0), cache)
+        if last is None:
+            h_last = h[:, -1:]
+        elif isinstance(last, int):
+            h_last = h[:, last:last + 1]
+        else:
+            idx = last.reshape(-1, 1, 1).expand(h.shape[0], 1, h.shape[-1])
+            h_last = h.gather(1, idx.to(h.device))
+        return self.head_logits(h_last)[:, 0]
+
+    def _positions(self, tok, pos):
+        if isinstance(pos, int):
+            return torch.full((tok.shape[0],), pos, dtype=torch.long,
+                              device=tok.device)
+        return pos
 
     def decode_logits(self, tok, cache, pos):
         """One step: ``tok`` (b, 1) at position ``pos`` (int, or a (b,)
         tensor with one position per row) -> (b, vocab) logits."""
-        if isinstance(pos, int):
-            pos = torch.full((tok.shape[0],), pos, dtype=torch.long)
-        h = self._embed_at(tok, pos)
+        return self.verify_logits(tok, cache, pos)[:, 0]
+
+    def verify_logits(self, toks, cache, pos):
+        """Chunked decode: ``toks`` (b, m) at absolute positions
+        ``pos``..``pos+m-1`` (``pos`` an int or a (b,) tensor) -> (b, m,
+        vocab) logits, row i the next-token distribution after feeding
+        ``toks[:, :i+1]``; writes the chunk's K/V into ``cache``. The
+        suffix prefill of a prefix-cache hit (and the speculative verify
+        of the JAX package). The caller keeps pos + m <= max_len."""
+        pos = self._positions(toks, pos)
+        h = self.embed_at(toks, pos)
         h = self.encoder.decode_step(h, cache, pos)
-        return self._logits(h)[:, 0]
+        return self.head_logits(h)
 
     @torch.no_grad()
     def generate(self, prompt, max_new_tokens: int, temperature: float = 0.0,

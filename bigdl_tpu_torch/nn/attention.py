@@ -252,7 +252,8 @@ class MultiHeadAttention(nn.Module):
         return self._proj(self._merge_heads(o), self.wo, self.bo)
 
     def decode_step(self, x, cache, pos):
-        """One token per row: x (b, 1, d) at per-row positions ``pos``."""
+        """x (b, m, d) at per-row start positions ``pos``: one token per
+        row when m = 1 (:meth:`decode_chunk`)."""
         return self.decode_chunk(x, cache, pos)
 
     def decode_chunk(self, x, cache, pos):

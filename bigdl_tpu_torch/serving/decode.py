@@ -1,19 +1,37 @@
 """Continuous-batching KV-cache decoding for ``transformer_lm``
-(counterpart of ``bigdl_tpu/serving/decode.py``, dense KV path).
+(counterpart of ``bigdl_tpu/serving/decode.py``).
 
 * **prefill** — a prompt is right-padded to its length bucket
   (``ops.serving_prefill_buckets``) and run once through
-  ``model.prefill_logits``, which writes K/V straight into its slot's row
-  of the shared cache. Exact, because causal attention never reads past
-  the true last position and decode overwrites pad positions before it
-  attends them.
+  ``model.prefill_logits`` into a static one-slot cache, then copied into
+  its slot: a row of the dense cache, or (paged) the slot's pages. Exact,
+  because causal attention never reads past the true last position and
+  decode overwrites pad positions before it attends them.
 * **decode** — one batched step over all ``slots`` with one position per
   slot, so requests of different lengths and arrival times share the
-  batch. A finishing request frees its slot for the next waiting one.
+  batch. Sampling runs in the step (``serving.sampling``): the greedy and
+  temperature-only traffic takes the sort-free program, top-k/top-p
+  traffic the warping one, and both draw the same tokens when the filters
+  are off. A finishing request frees its slot for the next waiting one.
+* **paged KV** (``kv_page_tokens``) — the K/V live in pools of pages with
+  per-slot page tables (``serving.kv_pages``); a slot reserves the pages
+  of prompt + max_new tokens at admission, and a request that cannot
+  reserve waits in the queue.
+* **shared-prefix cache** (``prefix_cache``, needs paging) — a prompt
+  whose page-aligned prefix is cached copies those pages and prefills
+  only its suffix (``serving.prefix_cache``).
+
+On the card every prefill bucket, every suffix bucket and both decode
+programs are CUDA graphs over static buffers (``serving.graphs``),
+captured when the engine is built. A step then is one replay and one
+device-to-host copy, of the sampled tokens; ``pos`` advances inside the
+graph, and the host keeps a mirror of it. ``graphs=False`` runs the same
+code eagerly, as it always runs on the CPU.
 
 Greedy decoding equals the offline ``TransformerLM.generate``: both run
-the same ``prefill_logits`` / ``decode_logits``. Paged KV, the prefix
-cache, speculative decoding and quantization come in later slices.
+``prefill_logits`` and then ``decode_logits``, and paged decode runs the
+dense arithmetic on each layer's gathered view. Speculative decoding and
+quantization come in later slices.
 """
 
 from __future__ import annotations
@@ -22,16 +40,19 @@ import collections
 import logging
 import threading
 import time
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
 from bigdl_tpu_torch.core.module import resolve_device
 from bigdl_tpu_torch.ops import serving_prefill_buckets
+from bigdl_tpu_torch.serving import kv_pages as _kvp
 from bigdl_tpu_torch.serving.batcher import (AdmissionError, DeadlineExceeded,
                                              WorkerDied, _Future)
-from bigdl_tpu_torch.serving.sampling import sample_token, step_generator
+from bigdl_tpu_torch.serving.graphs import GraphPool, GraphSet
+from bigdl_tpu_torch.serving.prefix_cache import PrefixCache
+from bigdl_tpu_torch.serving.sampling import sample_tokens
 
 logger = logging.getLogger(__name__)
 
@@ -64,35 +85,47 @@ def _later(name: str) -> NotImplementedError:
 
 
 class DecodeEngine:
-    """Continuous-batching decoder over ``slots`` rows of a dense KV
-    cache (slots x layers x kv_heads x max_len x head_dim x 2) on
-    ``device`` (CUDA unless the caller asks for the CPU).
+    """Continuous-batching decoder over ``slots`` on ``device`` (CUDA
+    unless the caller asks for the CPU).
+
+    The KV cache is dense (slots x layers x kv_heads x max_len x head_dim
+    x 2) or, with ``kv_page_tokens``, paged: pools of ``pool_pages`` pages
+    (default: the dense footprint, plus one request's pages of headroom
+    with ``prefix_cache``); the prefix cache may hold half the pool.
 
     ``submit`` prefills into a free slot or queues up to ``max_waiting``
     requests, rejecting beyond that (:class:`AdmissionError`, HTTP 429).
     ``step`` advances every active slot by one token. Without a worker
     thread the caller drives ``step``; ``start()`` runs the decode loop
-    for the HTTP server."""
+    for the HTTP server. ``graphs``: True (the engine's own
+    :class:`~bigdl_tpu_torch.serving.graphs.GraphPool`), False (eager), or
+    a pool shared with an
+    :class:`~bigdl_tpu_torch.serving.engine.InferenceEngine`."""
 
     def __init__(self, model, *, slots: int = 4, cache_dtype=None,
                  max_waiting: int = 64, metrics=None, clock=None,
                  device="cuda", kv_page_tokens: Optional[int] = None,
-                 speculate: int = 0, prefix_cache: bool = False,
-                 quantize: Optional[str] = None):
-        for flag, name in ((kv_page_tokens, "paged KV (kv_page_tokens)"),
-                           (speculate, "speculative decoding (speculate)"),
-                           (prefix_cache, "the prefix cache"),
+                 pool_pages: Optional[int] = None,
+                 prefix_cache: bool = False,
+                 speculate: int = 0, quantize: Optional[str] = None,
+                 graphs: Union[bool, GraphPool] = True):
+        for flag, name in ((speculate, "speculative decoding (speculate)"),
                            (quantize not in (None, "off"), "quantize")):
             if flag:
                 raise _later(name)
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
-        self.device = resolve_device(device)
+        self.page_tokens = int(kv_page_tokens) if kv_page_tokens else None
+        self.paged = self.page_tokens is not None
+        if prefix_cache and not self.paged:
+            raise ValueError("prefix_cache requires kv_page_tokens "
+                             "(prefix sharing is a page copy)")
+        self.device = dev = resolve_device(device)
         self.clock = clock or time.monotonic
         self._worker_error: Optional[BaseException] = None
         self._last_beat = self.clock()
-        self.model = model.to(self.device).eval()
-        self.slots = int(slots)
+        self.model = model.to(dev).eval()
+        self.slots = S = int(slots)
         self.max_len = int(model.max_len)
         self.cache_dtype = cache_dtype or model.compute_dtype or torch.float32
         self.max_waiting = int(max_waiting)
@@ -100,16 +133,49 @@ class DecodeEngine:
 
         self._lock = threading.RLock()
         self._work = threading.Condition(self._lock)
-        self._reqs: list = [None] * self.slots
+        self._reqs: list = [None] * S
         self._waiting: collections.deque = collections.deque()
-        self._cache = model.init_cache(self.slots, self.max_len,
-                                       self.cache_dtype)
-        self._logits = torch.zeros((self.slots, model.vocab),
-                                   dtype=torch.float32, device=self.device)
-        self._pos = np.zeros(self.slots, np.int64)
+        self._pos = np.zeros(S, np.int64)  # host mirror of _pos_d
         self._thread = None
         self._closed = False
+
+        # ---- KV: dense rows or page pools; the static one-slot prefill
+        # cache the prefill graphs write before copying into a slot
+        if self.paged:
+            extra = (self.max_len // self.page_tokens
+                     if prefix_cache and pool_pages is None else 0)
+            self._kv = _kvp.PagedKvCache(
+                model.encoder, slots=S, max_len=self.max_len,
+                page_tokens=self.page_tokens, dtype=self.cache_dtype,
+                device=dev, pool_pages=pool_pages, extra_pages=extra)
+            self._cache = None
+        else:
+            self._kv = None
+            self._cache = model.init_cache(S, self.max_len, self.cache_dtype)
+        self._cache1 = model.init_cache(1, self.max_len, self.cache_dtype)
+        self._pfx = (PrefixCache(self._kv, metrics=metrics)
+                     if prefix_cache else None)
+        self.suffix_buckets = self._suffix_buckets() if prefix_cache else ()
+
+        # ---- the graphs' static buffers: per-slot state and knobs, the
+        # installing slot, a prompt's last index and offset, token rows
+        def zeros(*shape, dtype=torch.int64):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self._logits = zeros(S, model.vocab, dtype=torch.float32)
+        self._toks, self._pos_d, self._live = zeros(S), zeros(S), zeros(S)
+        self._temp = zeros(S, dtype=torch.float32)
+        self._topk, self._seed = zeros(S), zeros(S)
+        self._topp = torch.ones(S, dtype=torch.float32, device=dev)
+        self._slot, self._last, self._pos0 = zeros(1), zeros(1), zeros(1)
+        self._rows = {n: zeros(1, n) for n in
+                      set(self.prompt_buckets) | set(self.suffix_buckets)}
+
+        self._pool = (graphs if isinstance(graphs, GraphPool)
+                      else GraphPool(dev, enabled=graphs))
+        self.graphs = GraphSet(self._pool)
         self._init_metrics(metrics)
+        self.capture()
 
     # -------------------------------------------------------------- metrics
     def _init_metrics(self, metrics) -> None:
@@ -124,7 +190,7 @@ class DecodeEngine:
         self._m_steps = metrics.counter(
             "decode_steps_total", "batched decode steps executed")
         self._m_prefills = metrics.counter(
-            "prefills_total", "prompt prefills executed")
+            "prefills_total", "prompt prefills executed (prefix hits too)")
         self._m_prompt_tokens = metrics.counter(
             "prompt_tokens_total", "prompt tokens prefilled")
         self._m_rejected = metrics.counter(
@@ -148,16 +214,128 @@ class DecodeEngine:
             "lifetime generated_tokens_total / uptime",
             fn=lambda: (self._m_tokens.value
                         / max(metrics.uptime_s(), 1e-9)))
-        metrics.gauge("kv_cache_bytes",
-                      "resident KV cache bytes (all slots, max_len)",
-                      fn=self.kv_bytes)
-        metrics.gauge("kv_cache_bytes_per_slot",
-                      "resident KV cache bytes per decode slot",
+        what = ("allocated KV page bytes (slots and prefix cache)"
+                if self.paged else
+                "resident KV cache bytes (all slots, max_len)")
+        metrics.gauge("kv_cache_bytes", what, fn=self.kv_bytes)
+        metrics.gauge("kv_cache_bytes_per_slot", what + " / slots",
                       fn=lambda: self.kv_bytes() / self.slots)
+        if self.paged:
+            metrics.gauge("kv_pages_in_use", "KV pool pages handed out",
+                          fn=self.kv_pages_in_use)
+            logger.info("decode KV pages: %d-token pages, pool %d pages "
+                        "(%d bytes; the dense bound is %d bytes)",
+                        self.page_tokens, self._kv.pool_pages,
+                        self._kv.pool_bytes(),
+                        self.slots * self._kv.max_pages
+                        * self._kv.bytes_per_page)
 
     def kv_bytes(self) -> int:
+        """Resident KV bytes: the allocated pages when paged, the dense
+        cache otherwise."""
+        if self.paged:
+            return self._kv.allocated_bytes()
         return sum(t.numel() * t.element_size()
                    for layer in self._cache for t in layer.values())
+
+    def kv_pages_in_use(self) -> int:
+        return self._kv.alloc.pages_in_use if self.paged else 0
+
+    # ---------------------------------------------------------------- graphs
+    def _suffix_buckets(self) -> tuple:
+        """Chunk lengths of a prefix hit's suffix prefill: its prompt
+        bucket, cut to what is left of the cache after an aligned
+        prefix (the JAX package's ``min(bucket, max_len - n_pfx)``)."""
+        pt = self.page_tokens
+        return tuple(sorted({min(b, self.max_len - n)
+                             for n in range(pt, self.max_len, pt)
+                             for b in self.prompt_buckets}))
+
+    def _prefill_fn(self, b: int):
+        """Prefill of a ``b``-token row into the static one-slot cache,
+        then its copy into slot ``_slot``: logits, and the cache's first
+        ``b`` positions (dense) or first pages (paged)."""
+        model, row, cache1 = self.model, self._rows[b], self._cache1
+
+        def fn():
+            lg = model.prefill_logits(row, cache1, last=self._last)
+            self._logits.index_copy_(0, self._slot, lg.float())
+            if self.paged:
+                n = _kvp.pages_needed(b, self.page_tokens)
+                pages = self._kv.page_table.index_select(0, self._slot)[0]
+                head = [{k: c[k][:, :, :n * self.page_tokens] for k in c}
+                        for c in cache1]
+                _kvp.scatter_pages(self._kv.pools, head, pages[:n])
+            else:
+                for full, one in zip(self._cache, cache1):
+                    for k in full:
+                        full[k][:, :, :b].index_copy_(0, self._slot,
+                                                      one[k][:, :, :b])
+        return fn
+
+    def _suffix_fn(self, m: int):
+        """A prefix hit's suffix prefill: ``m`` tokens at ``_pos0`` into
+        slot ``_slot``'s pages, the logits at suffix index ``_last``."""
+        model, row = self.model, self._rows[m]
+
+        def fn():
+            pages = self._kv.page_table.index_select(0, self._slot)
+            lgs = _kvp.paged_verify_logits(model, row, self._kv.pools,
+                                           pages, self._pos0)
+            self._logits.index_copy_(0, self._slot,
+                                     lgs[0].index_select(0, self._last)
+                                     .float())
+        return fn
+
+    def _step_fn(self, warp: bool):
+        """One decode step over every slot: sample from ``_logits``, feed
+        the tokens at ``_pos_d``, keep the new logits and tokens, advance
+        the live slots' positions."""
+        model = self.model
+
+        def fn():
+            toks = sample_tokens(self._logits, self._pos_d, self._temp,
+                                 self._topk, self._topp, self._seed, warp)
+            if self.paged:
+                lg = _kvp.paged_verify_logits(
+                    model, toks[:, None], self._kv.pools,
+                    self._kv.page_table, self._pos_d)[:, 0]
+            else:
+                lg = model.decode_logits(toks[:, None], self._cache,
+                                         self._pos_d)
+            self._logits.copy_(lg.float())
+            self._toks.copy_(toks)
+            self._pos_d.add_(self._live)
+        return fn
+
+    def _programs(self) -> dict:
+        progs = {("prefill", b): self._prefill_fn(b)
+                 for b in self.prompt_buckets}
+        progs.update({("suffix", m): self._suffix_fn(m)
+                      for m in self.suffix_buckets})
+        progs.update({("step", w): self._step_fn(w) for w in (False, True)})
+        return progs
+
+    @torch.no_grad()
+    def capture(self) -> None:
+        """Warm up and capture every program while no slot is active (the
+        warm-ups write only free slots' rows, the null page and the
+        logits, which an install overwrites); a no-op without graphs."""
+        self._progs = self._programs()
+        if not self.graphs.enabled:
+            return
+        with self._lock, self._pool.work():
+            if any(r is not None for r in self._reqs):
+                raise RuntimeError("capture needs an idle engine")
+            for key, fn in self._progs.items():
+                if key not in self.graphs:
+                    self.graphs.capture(key, fn)
+            self._logits.zero_()
+            self._pos_d.zero_()
+
+    @torch.no_grad()
+    def _run(self, key) -> None:
+        self.graphs.run(key, self._progs[key])
 
     # ------------------------------------------------------------ admission
     def prompt_bucket_for(self, n: int) -> int:
@@ -174,7 +352,8 @@ class DecodeEngine:
         of generated token ids. Fast-rejects when the waiting queue is
         full, when the decode worker is dead (:class:`WorkerDied`) or when
         ``deadline`` (absolute, on the engine's clock) has passed
-        (:class:`DeadlineExceeded`)."""
+        (:class:`DeadlineExceeded`). Paged, a request waits until its
+        pages can be reserved."""
         tokens = list(tokens)
         if not tokens:
             raise ValueError("empty prompt")
@@ -191,6 +370,11 @@ class DecodeEngine:
             raise ValueError(f"top_k must be >= 0, got {top_k}")
         if not 0.0 < top_p <= 1.0:
             raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+        if self.paged and _kvp.pages_needed(
+                len(tokens) + max_new_tokens, self.page_tokens) \
+                > self._kv.pool_pages - 1:
+            raise ValueError(f"the request needs more KV pages than the "
+                             f"pool's {self._kv.pool_pages - 1}")
         req = DecodeRequest(tokens, max_new_tokens, temperature, stop_token,
                             deadline, top_k, top_p, seed, rid=rid)
         with self._lock:
@@ -209,8 +393,8 @@ class DecodeEngine:
                     self._m_expired.inc()
                 raise DeadlineExceeded("deadline expired before submit")
             slot = self._free_slot()
-            if slot is not None:
-                self._install(req, slot)
+            if slot is not None and self._install(req, slot):
+                pass
             elif len(self._waiting) >= self.max_waiting:
                 if self._m_rejected is not None:
                     self._m_rejected.inc()
@@ -228,31 +412,91 @@ class DecodeEngine:
         return None
 
     def _release_slot(self, slot: int) -> None:
+        """Free ``slot`` and its pages (lock held)."""
         self._reqs[slot] = None
         self._pos[slot] = 0
+        with self._pool.work():
+            self._live[slot].fill_(0)
+            self._pos_d[slot].fill_(0)
+            if self.paged:
+                self._kv.release(slot)
 
-    def _handoff(self, slot: int) -> None:
-        if self._waiting:
-            self._install(self._waiting.popleft(), slot)
+    def _admit(self) -> None:
+        """Install waiting requests into free slots in FIFO order (lock
+        held). A paged reservation that fails leaves the request at the
+        head of the queue, to retry when a slot frees its pages."""
+        while self._waiting:
+            slot = self._free_slot()
+            if slot is None or not self._install(self._waiting[0], slot):
+                return
+            self._waiting.popleft()
 
     # -------------------------------------------------------------- prefill
     @torch.no_grad()
-    def _install(self, req: DecodeRequest, slot: int) -> None:
-        """Prefill ``req``'s prompt into ``slot`` (lock held): the prompt,
-        padded to its bucket, writes K/V into views of the slot's row."""
+    def _install(self, req: DecodeRequest, slot: int) -> bool:
+        """Prefill ``req``'s prompt into ``slot`` (lock held). False iff
+        the paged pool cannot serve the request's reservation yet."""
         s = len(req.tokens)
-        padded = torch.zeros((1, self.prompt_bucket_for(s)), dtype=torch.long)
-        padded[0, :s] = torch.tensor(req.tokens)
-        row = [{"k": c["k"][slot:slot + 1], "v": c["v"][slot:slot + 1]}
-               for c in self._cache]
-        logits = self.model.prefill_logits(padded.to(self.device), row,
-                                           last=s - 1)
-        self._logits[slot] = logits[0].float()
+        with self._pool.work():
+            if self.paged and not self._kv.reserve(
+                    slot, s + req.max_new_tokens):
+                return False
+            n_pfx, src = (self._pfx.match(req.tokens)
+                          if self._pfx is not None else (0, []))
+            self._slot.fill_(slot)
+            if n_pfx:
+                self._prefill_from_prefix(req, slot, n_pfx, src)
+            else:
+                b = self.prompt_bucket_for(s)
+                self._stage(b, req.tokens)
+                self._last.fill_(s - 1)
+                self._run(("prefill", b))
+            if self._pfx is not None:
+                self._maybe_insert_prefix(req, slot)
+            self._pos_d[slot].fill_(s)
+            self._live[slot].fill_(1)
+            self._temp[slot].fill_(req.temperature)
+            self._topk[slot].fill_(req.top_k)
+            self._topp[slot].fill_(req.top_p)
+            self._seed[slot].fill_(req.seed)
         self._pos[slot] = s
         self._reqs[slot] = req
         if self._m_prefills is not None:
             self._m_prefills.inc()
-            self._m_prompt_tokens.inc(s)
+            self._m_prompt_tokens.inc(s - n_pfx)
+        return True
+
+    def _stage(self, n: int, tokens) -> None:
+        """Right-pad ``tokens`` to ``n`` into the static row of length n."""
+        row = torch.zeros((1, n), dtype=torch.int64)
+        row[0, :len(tokens)] = torch.tensor(tokens, dtype=torch.int64)
+        self._rows[n].copy_(row)
+
+    def _pages(self, ids) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(ids, np.int64)).to(self.device)
+
+    def _prefill_from_prefix(self, req, slot: int, n_pfx: int, src) -> None:
+        """Prefix-cache hit: copy the entry's pages into the slot, then
+        prefill only the suffix at offset ``n_pfx``."""
+        pt = self.page_tokens
+        _kvp.copy_pages(self._kv.pools, self._pages(src),
+                        self._pages(self._kv.table[slot, :n_pfx // pt]))
+        suffix = req.tokens[n_pfx:]
+        m = min(self.prompt_bucket_for(len(suffix)), self.max_len - n_pfx)
+        self._stage(m, suffix)
+        self._pos0.fill_(n_pfx)
+        self._last.fill_(len(suffix) - 1)
+        self._run(("suffix", m))
+
+    def _maybe_insert_prefix(self, req, slot: int) -> None:
+        ins = self._pfx.prepare_insert(req.tokens)
+        if ins is None:
+            return
+        key, dst = ins
+        _kvp.copy_pages(self._kv.pools,
+                        self._pages(self._kv.table[slot, :len(dst)]),
+                        self._pages(dst))
+        self._pfx.commit_insert(key, dst, len(dst) * self.page_tokens)
 
     # ------------------------------------------------------------- emission
     def _emit(self, req, slot: int, tok: int) -> None:
@@ -266,7 +510,7 @@ class DecodeEngine:
                     and int(tok) == req.stop_token)):
             self._release_slot(slot)
             req.future.set_result(list(req.out))
-            self._handoff(slot)
+            self._admit()
 
     # ------------------------------------------------------------ deadlines
     def _expire(self, now: float) -> None:
@@ -294,11 +538,12 @@ class DecodeEngine:
                 req.future.set_exception(DeadlineExceeded(
                     f"deadline expired after {len(req.out)} of "
                     f"{req.max_new_tokens} tokens"))
-                self._handoff(i)
+                self._admit()
 
     def cancel(self, rid: str, reason: str = "client disconnected") -> bool:
         """Drop the request ``rid`` wherever it is (waiting or in a slot),
-        freeing its slot for the next waiting request. True iff found."""
+        freeing its slot and pages for the next waiting request. True iff
+        found."""
         if rid is None:
             return False
         with self._lock:
@@ -310,7 +555,7 @@ class DecodeEngine:
                     if r is not None and r.rid == rid:
                         req = r
                         self._release_slot(i)
-                        self._handoff(i)
+                        self._admit()
                         break
             if req is None:
                 return False
@@ -333,24 +578,19 @@ class DecodeEngine:
                 return 0
             return self._step_plain(active)
 
-    @torch.no_grad()
+    def _needs_warp(self, active) -> bool:
+        return any(self._reqs[i].top_k > 0 or self._reqs[i].top_p < 1.0
+                   for i in active)
+
     def _step_plain(self, active) -> int:
-        toks = torch.argmax(self._logits, dim=-1)
-        for i in active:
-            req = self._reqs[i]
-            if req.temperature > 0:
-                toks[i] = sample_token(
-                    self._logits[i], req.temperature, req.top_k, req.top_p,
-                    step_generator(req.seed, int(self._pos[i])))
-        pos = torch.from_numpy(self._pos).to(self.device)
-        self._logits = self.model.decode_logits(
-            toks[:, None], self._cache, pos).float()
-        toks_host = toks.tolist()
+        with self._pool.work():
+            self._run(("step", self._needs_warp(active)))
+            toks = self._toks.tolist()  # the step's one device-to-host copy
         if self._m_steps is not None:
             self._m_steps.inc()
         for i in active:
             self._pos[i] += 1
-            self._emit(self._reqs[i], i, toks_host[i])
+            self._emit(self._reqs[i], i, toks[i])
         return len(active)
 
     def generate(self, tokens, max_new_tokens: int, temperature: float = 0.0,
@@ -394,7 +634,7 @@ class DecodeEngine:
             self._waiting.clear()
             for i, req in enumerate(self._reqs):
                 if req is not None:
-                    self._release_slot(i)
+                    self._reqs[i] = None
                     dead.append(req)
             self._work.notify_all()
         err = (exc if isinstance(exc, WorkerDied)
@@ -404,7 +644,8 @@ class DecodeEngine:
 
     # --------------------------------------------------------------- worker
     def start(self) -> None:
-        """Launch the decode loop thread (server mode)."""
+        """Launch the decode loop thread (server mode); the graphs were
+        captured when the engine was built."""
         if self._thread is not None:
             return
 
@@ -430,6 +671,8 @@ class DecodeEngine:
         self._thread.start()
 
     def close(self, timeout: float = 10.0) -> None:
+        """Fail what is queued or in flight, stop the loop and drop the
+        graphs."""
         with self._lock:
             self._closed = True
             for req in self._waiting:
@@ -437,10 +680,11 @@ class DecodeEngine:
             self._waiting.clear()
             for i, req in enumerate(self._reqs):
                 if req is not None:
-                    self._release_slot(i)
+                    self._reqs[i] = None
                     req.future.set_exception(
                         RuntimeError("decode engine closed mid-request"))
             self._work.notify_all()
         t, self._thread = self._thread, None
         if t is not None:
             t.join(timeout)
+        self.graphs.clear()

@@ -222,6 +222,8 @@ class ServingApp:
             self.watchdog.stop()
         if self.batcher is not None:
             self.batcher.close()
+        if self.engine is not None:
+            self.engine.close()
         if self.decoder is not None:
             self.decoder.close()
 
@@ -277,12 +279,18 @@ class _Handler(BaseHTTPRequestHandler):
         logger.debug("%s - %s", self.address_string(), fmt % args)
 
 
+class _Server(ThreadingHTTPServer):
+    daemon_threads = True
+    # the listen backlog: socketserver's 5 drops the connects of a burst of
+    # concurrent clients past it, which TCP retries only after 1 s
+    request_queue_size = 128
+
+
 def make_server(app: ServingApp, host: str = "127.0.0.1",
                 port: int = 8000) -> ThreadingHTTPServer:
     """Bind (port 0 = ephemeral) and attach the app; the caller runs
     ``serve_forever``."""
-    srv = ThreadingHTTPServer((host, port), _Handler)
-    srv.daemon_threads = True
+    srv = _Server((host, port), _Handler)
     srv.app = app  # type: ignore[attr-defined]
     return srv
 

@@ -1,20 +1,22 @@
-"""Where a served decode step's time goes on the card.
+"""Where a served decode step's time goes on the card, eager against
+CUDA-graphed and dense against paged KV.
 
-    python -m bigdl_tpu_torch.tools.profile_decode [--bf16]
+    python -m bigdl_tpu_torch.tools.profile_decode [--bf16] [--slots 4]
 
 Builds ``transformer_lm_1k_hd128`` at full width on CUDA (random weights,
-seed 0), fills the 4 slots of a ``DecodeEngine`` with 64-token prompts,
-then:
+seed 0) and, for each row (dense eager, dense graphed, paged eager, paged
+graphed; paged with 128-token pages), a ``DecodeEngine`` whose slots are
+filled with 64-token greedy prompts, then:
 
-* times prefill (after one untimed warm-up prefill) and the batched
-  decode step on the host clock, each ended by
-  ``torch.cuda.synchronize()``;
-* traces 8 decode steps with ``torch.profiler`` and prints the
-  top operators by device time and by host time, the device busy time
-  (sum of kernel times) over the traced wall time, and the kernel count
-  per step.
+* times the batched decode step on the host clock: 20 steps after 3
+  warm-up ones, ended by ``torch.cuda.synchronize()``; generated tokens/s
+  is slots / step time;
+* traces 8 steps with ``torch.profiler``: device time a step (the sum of
+  the kernels' times), the device busy share (that sum over the traced
+  wall time) and kernels a step (graph replays' kernels included).
 
-Prints the card's name and power limit first; needs a card.
+Prints the card's name and power limit first, then one line a row and,
+for the last row, the top operators by device time; needs a card.
 """
 
 from __future__ import annotations
@@ -25,37 +27,40 @@ import time
 
 import torch
 
-SLOTS, PROMPT, STEPS = 4, 64, 8
+PROMPT, WARM, STEPS, TRACED = 64, 3, 20, 8
+ROWS = (("dense", "eager", None, False), ("dense", "graphed", None, True),
+        ("paged", "eager", 128, False), ("paged", "graphed", 128, True))
 
 
-def main(argv=None) -> int:
-    p = argparse.ArgumentParser()
-    p.add_argument("--bf16", action="store_true")
-    args = p.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("needs a CUDA device")
-    from bigdl_tpu_torch.cli.perf import build_model
+def _trace(eng, steps: int):
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+    cuda = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in cuda)
+    return events, dev_us, wall_us, sum(e.count for e in cuda)
+
+
+def profile_row(model, slots: int, page_tokens, graphs: bool) -> dict:
+    """One row's numbers (host-clock ms a step, tokens/s, device ms a
+    step, busy share, kernels a step) on a fresh engine."""
     from bigdl_tpu_torch.serving import DecodeEngine
 
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    model, _ = build_model("transformer_lm_1k_hd128")
-    model.compute_dtype = torch.bfloat16 if args.bf16 else None
-    eng = DecodeEngine(model, slots=SLOTS, device="cuda")
+    eng = DecodeEngine(model, slots=slots, device="cuda",
+                       kv_page_tokens=page_tokens, graphs=graphs)
     rs = torch.Generator().manual_seed(0)
-    with torch.no_grad():  # first use loads the CUDA modules: not timed
-        model.prefill_logits(torch.zeros((1, PROMPT), dtype=torch.long,
-                                         device="cuda"), model.init_cache(1))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(SLOTS):
+    budget = WARM + STEPS + TRACED + 1
+    for _ in range(slots):
         eng.submit(torch.randint(0, model.vocab, (PROMPT,),
-                                 generator=rs).tolist(), 1000 - PROMPT)
-    torch.cuda.synchronize()
-    prefill_ms = 1e3 * (time.perf_counter() - t0) / SLOTS
-    for _ in range(3):
+                                 generator=rs).tolist(), budget)
+    for _ in range(WARM):
         eng.step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -63,30 +68,41 @@ def main(argv=None) -> int:
         eng.step()
     torch.cuda.synchronize()
     step_ms = 1e3 * (time.perf_counter() - t0) / STEPS
-    print(f"{'bf16' if args.bf16 else 'f32'} slots={SLOTS} "
-          f"prompt={PROMPT}: prefill {prefill_ms:.2f} ms/request, "
-          f"decode step {step_ms:.2f} ms (host clock, synchronized)",
-          flush=True)
-
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(STEPS):
-            eng.step()
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    events = prof.key_averages()
-    dev_us = sum(e.self_device_time_total for e in events
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-    n_kernels = sum(e.count for e in events
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
-    print(f"traced {STEPS} steps: wall {wall_us / 1e3:.2f} ms, device "
-          f"busy {dev_us / 1e3:.2f} ms ({100 * dev_us / wall_us:.1f}%), "
-          f"{n_kernels / STEPS:.0f} kernels per step", flush=True)
-    print(events.table(sort_by="self_device_time_total", row_limit=15))
-    print(events.table(sort_by="self_cpu_time_total", row_limit=15))
+    events, dev_us, wall_us, n_kernels = _trace(eng, TRACED)
     eng.close()
+    return {"step_ms": step_ms, "tokens_per_s": 1e3 * slots / step_ms,
+            "device_ms": dev_us / 1e3 / TRACED,
+            "busy": dev_us / wall_us, "kernels": n_kernels / TRACED,
+            "events": events}
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser()
+    p.add_argument("--bf16", action="store_true")
+    p.add_argument("--slots", type=int, default=4)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    from bigdl_tpu_torch.cli.perf import build_model
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, _ = build_model("transformer_lm_1k_hd128")
+    model.compute_dtype = torch.bfloat16 if args.bf16 else None
+    tag = f"{'bf16' if args.bf16 else 'f32'} slots={args.slots}"
+    row = None
+    for kv, mode, pt, graphs in ROWS:
+        row = profile_row(model.cuda(), args.slots, pt, graphs)
+        print(f"{tag} {kv} {mode}: decode step {row['step_ms']:.3f} ms "
+              f"(host clock), {row['tokens_per_s']:.1f} generated "
+              f"tokens/s, device {row['device_ms']:.3f} ms a step, busy "
+              f"{100 * row['busy']:.1f}%, {row['kernels']:.0f} kernels a "
+              f"step ({card})", flush=True)
+    print(row["events"].table(sort_by="self_device_time_total",
+                              row_limit=15))
     return 0
 
 

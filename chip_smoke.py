@@ -43,11 +43,15 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    weights from a seed, built by ``cli.serve.build_app`` and served over
    HTTP from a thread, once in f32 and once with ``--bf16``: four
    concurrent greedy ``/generate`` requests, one ``/predict``,
-   ``/healthz``, ``/readyz`` and ``/metrics``. Checked: every answer is
-   200; the prefill logits through the kernel match those through the
-   plain version on the card; the kernel's launch count over the traffic
-   is at least 12 x (prefills + /predict batches); in f32, each
-   ``/generate`` equals the offline ``TransformerLM.generate``.
+   ``/healthz``, ``/readyz`` and ``/metrics``; the decode step, every
+   prefill bucket and every ``/predict`` (batch, length) bucket replay
+   CUDA graphs captured at start-up. Checked: every answer is 200; the
+   prefill logits through the kernel match those through the plain
+   version on the card; the kernel's launch count over the traffic
+   (replays credited) is at least 12 x (prefills + /predict batches); a
+   ``/predict`` of 40-token rows (padded to 64) adds no graph to the 3 x 7
+   captured; in f32, each ``/generate`` equals the offline
+   ``TransformerLM.generate`` and each ``/predict`` the offline forward.
 7. The four BN kernels (``bn_stats``, ``bn_bwd_stats``, ``bn_fwd_apply``,
    ``bn_bwd_fused``) against their plain versions at ResNet-50's batch-128
    shapes (the stem's 1605632 x 64 rows x channels, 401408 x 256, 100352 x
@@ -102,6 +106,28 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    that checkpoints every 4 (keep_last=1); a second ``Optimizer`` that
    resumes from that directory (its graph captured after the load) and
    runs to 16. Its losses must be the uninterrupted run's, bit for bit.
+
+14. Paged serving at full width, f32 and bf16, after phase 6: ``cli.serve
+   --slots 16 --kvPageTokens 128 --prefixCache`` over HTTP, graphed; a
+   primer request leaves a 256-token prefix in the cache, then 16
+   concurrent ``/generate`` (prompts of 8 to 700 tokens, half of them
+   that prefix plus under a page, every other one sampled at temperature
+   0.8, top_k 40, top_p 0.9 with its own seed) and one ``/predict``.
+   Checked: 8 prefix hits; ``flash_fwd`` launches, replays included, at
+   least 12 x (full prefills + /predict batches); ``kv_pages_in_use`` back
+   to the prefix cache's pages once traffic ends; sampled requests sent
+   again draw the same tokens; the same traffic through a ``DecodeEngine``
+   of the server's route gives the server's tokens, graphed and eager;
+   each prefix hit's first logits equal its miss's within ``LOGIT_TOL``
+   of max|logit| (the prefill check's bound); against a dense engine
+   (every prefill a miss), and in f32 against the offline ``generate``,
+   a token may differ only at a prefix hit, and only where the decision
+   taken again from each route's measured logits (warped and noised when
+   sampled) differs between the two routes (printed). Then the decode
+   step at 16
+   slots, dense and paged, eager and graphed (``tools/profile_decode``'s
+   rows): host-clock ms, generated tokens/s, device ms, busy share and
+   kernels a step, with the card's name and power limit.
 
 Any failed phase exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -169,6 +195,14 @@ DEV = "cuda"
 PROMPT_LENS = (3, 17, 64, 300)
 MAX_NEW = 16
 MODEL = "transformer_lm_1k_hd128"
+# the paged serving phase: 16 slots of 128-token pages and the prefix
+# cache; 16 concurrent requests, prompts of 8 to 700 tokens, half of them
+# a shared 256-token prefix plus a suffix shorter than a page (each hits
+# the entry a primer request leaves), every other one sampled
+PAGED_SLOTS, PAGE_TOKENS, SHARED_PREFIX = 16, 128, 256
+PAGED_LENS = (8, 13, 31, 64, 130, 250, 480, 700)
+SUFFIX_LENS = (1, 9, 20, 40, 64, 80, 100, 127)
+SAMPLED = dict(temperature=0.8, top_k=40, top_p=0.9)
 # BN kernels vs plain: NHWC (batch, h, w, C) of ResNet-50 at batch 128,
 # seen as (rows, C), and a ragged shape
 BN_SHAPES = [(128, 112, 112, 64), (128, 56, 56, 256), (128, 28, 28, 512),
@@ -877,15 +911,33 @@ def serve_run(torch, bf16):
             fail(f"[{tag}] the kernel ran {launches} times, fewer than "
                  f"{int(need)}: prefill did not go through it")
 
-        # ---- /predict equals the offline forward at the same shape
+        # ---- /predict equals the offline forward at the same shape, and
+        # rows of a length off the ladder (40 tokens, padded to 64) replay
+        # the graphs captured at start-up: no graph is added
+        graphs = app.engine.graphs
+        n_graphs = len(graphs)
+        odd = rs.randint(0, model.vocab, (1, 40)).tolist()
+        st_odd, pred_odd = _post(port, "/predict", {"inputs": odd})
+        if st_odd != 200:
+            fail(f"[{tag}] /predict of 40-token rows answered {st_odd}")
+        agree = []
         with torch.no_grad():
-            ref = model(torch.tensor(rows, device="cuda")).argmax(-1)
-        agree = float((torch.tensor(pred["predictions"], device="cuda")
-                       == ref).float().mean())
+            for x, out in ((rows, pred), (odd, pred_odd)):
+                ref = model(torch.tensor(x, device="cuda")).argmax(-1)
+                agree.append(float((torch.tensor(out["predictions"],
+                                                 device="cuda")
+                                    == ref).float().mean()))
+        want = len(app.engine.buckets) * len(app.engine.lengths)
         print(f"[{tag}] /predict argmax agreement with the offline forward "
-              f"{agree:.4f}", flush=True)
-        if not bf16 and agree != 1.0:
+              f"{agree[0]:.4f} (64-token rows), {agree[1]:.4f} (40-token "
+              f"rows); {len(graphs)} /predict graphs before and after, "
+              f"{len(app.engine.buckets)} batch x "
+              f"{len(app.engine.lengths)} length buckets", flush=True)
+        if not bf16 and agree != [1.0, 1.0]:
             fail("[f32] /predict differs from the offline forward")
+        if not n_graphs == len(graphs) == want:
+            fail(f"[{tag}] {len(graphs)} /predict graphs ({n_graphs} before "
+                 f"the 40-token rows), expected {want}")
 
         # ---- (c) prefill logits: kernel vs plain version, on the card
         ref_attn = (lambda q, k, v, causal, mask:
@@ -941,6 +993,280 @@ def serve_run(torch, bf16):
         srv.server_close()
         app.close()
         thr.join(30)
+
+
+def paged_requests(vocab):
+    """(primer, [(prompt, sampling kwargs)] of the 16 requests)."""
+    import numpy as np
+
+    rs = np.random.RandomState(1)
+    shared = rs.randint(0, vocab, SHARED_PREFIX).tolist()
+    prompts = [rs.randint(0, vocab, n).tolist() for n in PAGED_LENS]
+    prompts += [shared + rs.randint(0, vocab, n).tolist()
+                for n in SUFFIX_LENS]
+    return shared + [0], [(p, dict(SAMPLED, seed=100 + i) if i % 2 else {})
+                          for i, p in enumerate(prompts)]
+
+
+def drive(eng, primer, reqs):
+    """The primer, then every request at once, through a DecodeEngine."""
+    eng.generate(primer, 2)
+    futs = [eng.submit(p, MAX_NEW, **kw) for p, kw in reqs]
+    while not all(f.done() for f in futs):
+        if eng.step() == 0 and not all(f.done() for f in futs):
+            fail("a decode engine went idle with requests unresolved")
+    return [f.result() for f in futs]
+
+
+def route_logits(torch, model, prompt, hit_eng=None):
+    """The f32 next-token logits after ``prompt``: an eager prefill (a
+    miss's route: the flash kernel), or, through ``hit_eng``, the logits
+    its install leaves, where the prompt must be a prefix hit (the copied
+    pages, then the suffix prefill through the decode attention)."""
+    with torch.no_grad():
+        if hit_eng is None:
+            return model.prefill_logits(
+                torch.tensor([prompt], device="cuda"),
+                model.init_cache(1))[0].float()
+        hits = hit_eng._pfx.hits
+        fut = hit_eng.submit(prompt, 1)
+        lg = hit_eng._logits[0].clone()  # every slot was free: slot 0
+        while not fut.done():
+            hit_eng.step()
+    if hit_eng._pfx.hits != hits + 1:
+        fail(f"a {len(prompt)}-token prompt was not a prefix hit")
+    return lg
+
+
+def decision_scores(torch, lg, prompt_len, j, kw):
+    """The scores a decision at step ``j`` takes its argmax of: the
+    logits, warped and noised as the draw does for a sampled request."""
+    from bigdl_tpu_torch.serving.sampling import (gumbel_noise, request_key,
+                                                  warp_logits)
+    if not kw:
+        return lg
+    key = request_key(torch.tensor(kw["seed"], device="cuda"),
+                      prompt_len + j)
+    return (warp_logits(lg, kw["temperature"], kw["top_k"], kw["top_p"])
+            + gumbel_noise(key, lg.numel()))
+
+
+def compare_tokens(torch, model, tag, what, reqs, got, ref, hit_eng,
+                   exact=()):
+    """Each request's tokens (``got``; a prefix hit's in the requests not
+    in ``exact``) against a route that misses (``ref``). A hit's suffix
+    goes through the decode attention where its miss runs the flash
+    prefill, so their logits differ within ``LOGIT_TOL`` (checked apart).
+    A token may differ only outside ``exact``, and only where the two
+    routes' measured logits explain it: at the first step j that differs,
+    the decision (argmax of the logits, warped and noised when sampled)
+    is taken again from each route's logits after prompt + tokens[:j]
+    (``route_logits``), and the two must differ, i.e. the measured
+    difference between the routes crosses that decision's margin. A
+    sampled decision can turn on the top-k or nucleus boundary as well as
+    on its argmax. The miss's margin between the two tokens and both
+    decisions are printed."""
+    ties = 0
+    for i, ((p, kw), a, b) in enumerate(zip(reqs, got, ref)):
+        if a == b:
+            continue
+        j = next(n for n, (x, y) in enumerate(zip(a, b)) if x != y)
+        x, y = a[j], b[j]
+        miss = decision_scores(torch, route_logits(torch, model, p + b[:j]),
+                               len(p), j, kw)
+        gap = float(miss[y] - miss[x])
+        d_hit = d_miss = int(miss.argmax())
+        if i not in exact:
+            hit = route_logits(torch, model, p + b[:j], hit_eng)
+            d_hit = int(decision_scores(torch, hit, len(p), j, kw).argmax())
+        print(f"[{tag}] {what}: request {i} ({len(p)} tokens"
+              f"{', sampled' if kw else ''}) differs at step {j}: hit "
+              f"{x}, miss {y}; the miss's scores put {y} {gap:.3e} above "
+              f"{x}; taken again, the hit's logits decide {d_hit}, the "
+              f"miss's {d_miss}", flush=True)
+        if i in exact or d_hit == d_miss:
+            fail(f"[{tag}] {what}: request {i} differs at step {j}, "
+                 f"beyond what the routes' logits explain: {a} vs {b}")
+        ties += 1
+    print(f"[{tag}] {what}: {len(reqs) - ties} of {len(reqs)} requests "
+          f"equal, {ties} at a decision the routes' logits split",
+          flush=True)
+
+
+def paged_serve_run(torch, bf16, card):
+    """The paged serving phase (docstring, phase 14); returns (flash_fwd
+    launches of the counted traffic, the decode step rows)."""
+    import gc
+
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.cli import serve as serve_cli
+    from bigdl_tpu_torch.serving import DecodeEngine, make_server
+    from bigdl_tpu_torch.tools.profile_decode import profile_row
+
+    tag = "paged bf16" if bf16 else "paged f32"
+    dt = "bfloat16" if bf16 else "float32"
+    argv = [MODEL, "--randomInit", "--slots", str(PAGED_SLOTS),
+            "--kvPageTokens", str(PAGE_TOKENS), "--prefixCache",
+            "--buckets", "1,2,4", "--port", "0"] + (["--bf16"] if bf16 else [])
+    t0 = time.perf_counter()
+    app, _, _, _ = serve_cli.build_app(serve_cli.build_parser().parse_args(
+        argv))
+    model = app.decoder.model
+    with torch.no_grad():
+        model.emb.weight.mul_(0.02)  # as serve_run: the layers pick tokens
+    print(f"[{tag}] build_app with every graph captured "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    srv = make_server(app, "127.0.0.1", 0)
+    port = srv.server_address[1]
+    thr = threading.Thread(target=srv.serve_forever, daemon=True)
+    thr.start()
+    primer, reqs = paged_requests(model.vocab)
+    rows = [[1, 2, 3, 4] * 16, [5, 6, 7, 8] * 16]
+
+    def metrics():
+        st, page = _get(port, "/metrics")
+        if st != 200:
+            fail(f"[{tag}] /metrics answered {st}")
+        return {ln[len("bigdl_serving_"):].rpartition(" ")[0]:
+                float(ln.rpartition(" ")[2]) for ln in page.splitlines()
+                if ln.startswith("bigdl_serving_")}
+
+    def post_all(batch):
+        out = {}
+
+        def one(i, p, kw):
+            out[i] = _post(port, "/generate", dict(
+                kw, tokens=p, max_new_tokens=MAX_NEW))
+
+        ths = [threading.Thread(target=one, args=(i, p, kw))
+               for i, (p, kw) in batch]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(600)
+        if any(out.get(i, (None,))[0] != 200 for i, _ in batch):
+            fail(f"[{tag}] a /generate did not answer 200: {out}")
+        return [out[i][1]["tokens"] for i, _ in batch]
+
+    try:
+        st, out = _post(port, "/generate", {"tokens": primer,
+                                            "max_new_tokens": 2})
+        if st != 200:
+            fail(f"[{tag}] the primer /generate answered {st}: {out}")
+        before = metrics()
+        ops.reset_kernel_launches()
+        t = time.perf_counter()
+        served = post_all(list(enumerate(reqs)))
+        wall = time.perf_counter() - t
+        st_pred, _ = _post(port, "/predict", {"inputs": rows})
+        after = metrics()
+        torch.cuda.synchronize()
+        launches = ops.kernel_launches()["flash_fwd"]
+        if st_pred != 200:
+            fail(f"[{tag}] /predict answered {st_pred}")
+        # the sampled requests whose route cannot change on a second
+        # send (a hit both times, or too short to have left an entry)
+        twice = [i for i, (p, kw) in enumerate(reqs) if kw and (
+            i >= len(PAGED_LENS) or len(p) <= PAGE_TOKENS)]
+        again = post_all([(i, reqs[i]) for i in twice])
+        pfx_pages = app.decoder._pfx.cached_pages()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        app.close()
+        thr.join(30)
+    d = {k: after[k] - before.get(k, 0.0) for k in after}
+    hits = d["prefix_cache_hits_total"]
+    full = d["prefills_total"] - hits
+    need = 12 * (full + d["batcher_flushes_total"])
+    print(f"[{tag}] 16 concurrent /generate + 1 /predict: "
+          f"{sum(map(len, served)) / wall:.1f} generated tokens/s, "
+          f"{int(hits)} prefix hits, flash_fwd launches {launches} over "
+          f"{int(full)} full prefills + {int(d['batcher_flushes_total'])} "
+          f"/predict batches (need >= {int(need)}); kv_pages_in_use "
+          f"{int(after['kv_pages_in_use'])} after the traffic, the prefix "
+          f"cache holds {pfx_pages} ({card})", flush=True)
+    if hits != len(SUFFIX_LENS):
+        fail(f"[{tag}] {hits} prefix hits, expected {len(SUFFIX_LENS)}")
+    if launches < need:
+        fail(f"[{tag}] flash_fwd ran {launches} times, fewer than {need}")
+    if after["kv_pages_in_use"] != pfx_pages or pfx_pages == 0:
+        fail(f"[{tag}] {after['kv_pages_in_use']} pages in use once traffic "
+             f"ended, the prefix cache holds {pfx_pages}")
+    if again != [served[i] for i in twice]:
+        fail(f"[{tag}] the same seeds drew other tokens the second time")
+    print(f"[{tag}] {len(twice)} sampled requests sent again drew the "
+          f"same tokens", flush=True)
+
+    # the same traffic through engines built here on the same model: the
+    # server's route graphed, the same eagerly, and a dense engine
+    cache_dtype = torch.bfloat16 if bf16 else None
+    routes, engines = {}, {}
+    for name, kw in (("paged graphed", dict(graphs=True)),
+                     ("paged eager", dict(graphs=False)),
+                     ("dense graphed", dict(graphs=True, paged=False))):
+        paged = kw.pop("paged", True)
+        eng = engines[name] = DecodeEngine(
+            model, slots=PAGED_SLOTS, cache_dtype=cache_dtype, device="cuda",
+            kv_page_tokens=PAGE_TOKENS if paged else None,
+            prefix_cache=paged, **kw)
+        routes[name] = drive(eng, primer, reqs)
+    hit_eng = engines["paged graphed"]  # its cache holds the prefix
+    if routes["paged graphed"] != served:
+        fail(f"[{tag}] the server's tokens differ from the same route's "
+             f"through a DecodeEngine")
+    if routes["paged eager"] != routes["paged graphed"]:
+        fail(f"[{tag}] eager and graphed paged decoding differ")
+    print(f"[{tag}] served = paged graphed = paged eager, every request "
+          f"(greedy and sampled)", flush=True)
+    hit_idx = range(len(PAGED_LENS), len(reqs))
+    # each hit's first logits against its miss's, directly
+    worst = 0.0
+    for i in hit_idx:
+        miss = route_logits(torch, model, reqs[i][0])
+        hit = route_logits(torch, model, reqs[i][0], hit_eng)
+        if not bool(torch.isfinite(hit).all()):
+            fail(f"[{tag}] non-finite logits at prefix hit {i}")
+        worst = max(worst, float((hit - miss).abs().max()
+                                 / miss.abs().max()))
+    print(f"[{tag}] first logits, prefix hit vs miss, {len(hit_idx)} "
+          f"requests: max|d|/max|miss| = {worst:.3e} (tolerance "
+          f"{LOGIT_TOL[dt]:.0e})", flush=True)
+    if worst > LOGIT_TOL[dt]:
+        fail(f"[{tag}] a prefix hit's first logits differ from its miss's "
+             f"by {worst:.3e} of max|logit|")
+    compare_tokens(torch, model, tag, "paged (prefix hits) vs dense (all "
+                   "misses)", reqs, served, routes["dense graphed"], hit_eng,
+                   exact=[i for i in range(len(reqs)) if i not in hit_idx])
+    if not bf16:
+        greedy = [i for i, r in enumerate(reqs) if not r[1]]
+        offline = [model.generate([reqs[i][0]], MAX_NEW)[0].tolist()
+                   for i in greedy]
+        compare_tokens(torch, model, tag, "greedy /generate vs the offline "
+                       "generate", [reqs[i] for i in greedy],
+                       [served[i] for i in greedy], offline, hit_eng,
+                       exact=[n for n, i in enumerate(greedy)
+                              if i not in hit_idx])
+    for eng in engines.values():
+        eng.close()
+    del engines, hit_eng
+    steps = {}
+    for kv, mode, pt, graphs in (("dense", "eager", None, False),
+                                 ("dense", "graphed", None, True),
+                                 ("paged", "eager", PAGE_TOKENS, False),
+                                 ("paged", "graphed", PAGE_TOKENS, True)):
+        r = profile_row(model, PAGED_SLOTS, pt, graphs)
+        r.pop("events")
+        steps[(kv, mode)] = r
+        print(f"[{tag}] decode step, {kv} {mode}, {PAGED_SLOTS} slots: "
+              f"{r['step_ms']:.3f} ms (host clock), {r['tokens_per_s']:.1f} "
+              f"generated tokens/s, device {r['device_ms']:.3f} ms a step, "
+              f"busy {100 * r['busy']:.1f}%, {r['kernels']:.0f} kernels a "
+              f"step ({card})", flush=True)
+    del app, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, steps
 
 
 def bn_bound_ms(kernel, rows, c, item):
@@ -1673,6 +1999,10 @@ def main():
     for bf16 in (False, True):
         n, lat, tps, _ = serve_run(torch, bf16)
         launches["flash_fwd"] += n
+    paged_steps = {}
+    for bf16 in (False, True):
+        n, paged_steps[bf16] = paged_serve_run(torch, bf16, card)
+        launches["flash_fwd"] += n
     resnet = resnet_runs(torch, card)
     bn_grads_check(torch)
     inner = inner_steps_runs(torch, card)
@@ -1686,6 +2016,12 @@ def main():
           f"concurrent requests, /generate latencies ms "
           f"{[round(x, 1) for x in lat]} (prompts {list(PROMPT_LENS)}, "
           f"{MAX_NEW} new tokens each)", flush=True)
+    for bf16, steps in paged_steps.items():
+        print(f"[serve {'bf16' if bf16 else 'f32'}] {MODEL} decode step at "
+              f"{PAGED_SLOTS} slots on {card}: " + ", ".join(
+                  f"{kv} {mode} {r['step_ms']:.3f} ms "
+                  f"({r['tokens_per_s']:.1f} tokens/s)"
+                  for (kv, mode), r in steps.items()), flush=True)
     print(f"[train] {MODEL} bf16 batch {TRAIN_BATCH} on {card}: "
           f"{train['tokens_per_second']} tokens/s", flush=True)
     for name, (res, _) in resnet.items():

@@ -1,8 +1,11 @@
 """The port's serving stack (bigdl_tpu_torch.serving) on the CPU: prompt
 buckets and LM configs against the JAX package's, greedy tokens of the
 port's DecodeEngine against the JAX DecodeEngine from the same parameters,
-row-exact bucket padding, sampling semantics, the host-side batcher and
-watchdog, and an in-process HTTP round trip."""
+row-exact bucket padding, device sampling against the JAX package's warp
+and distribution, the host-side batcher and watchdog, an in-process HTTP
+round trip, and serving a JAX checkpoint paged with the prefix cache.
+The CUDA graphs of the serving path are checked on the card
+(``cuda``-marked here, and ``chip_smoke.py``)."""
 
 import json
 import threading
@@ -21,6 +24,7 @@ from bigdl_tpu.ops.attention_kernel import \
     serving_prefill_buckets as jax_buckets
 from bigdl_tpu.serving import DecodeEngine as JaxDecodeEngine
 from bigdl_tpu.serving.spec_decode import warp_logits as jax_warp
+from bigdl_tpu.utils import file as jfile
 from bigdl_tpu_torch.cli import serve as serve_cli
 from bigdl_tpu_torch.cli.perf import LM_CONFIGS, LM_VOCAB
 from bigdl_tpu_torch.models import TransformerLM
@@ -29,7 +33,7 @@ from bigdl_tpu_torch.serving import (AdmissionError, DecodeEngine,
                                      InferenceEngine, MetricsRegistry,
                                      MicroBatcher, ServingApp, Watchdog,
                                      WorkerDied, make_server)
-from bigdl_tpu_torch.serving.sampling import (sample_token, step_generator,
+from bigdl_tpu_torch.serving.sampling import (sample_token, sample_tokens,
                                               warp_logits)
 
 VOCAB, D, LAYERS, HEADS, MAX_LEN = 97, 64, 2, 4, 64
@@ -131,10 +135,16 @@ def test_decode_engine_deadline_and_cancel(lm_pair):
 
 
 def test_decode_engine_later_features_refused(lm_pair):
+    """Speculation and quantization stay later slices; the prefix cache
+    without paging and a page size that does not divide max_len are the
+    JAX package's errors."""
     _, _, pm = lm_pair
-    for kw in (dict(kv_page_tokens=16), dict(speculate=2),
-               dict(prefix_cache=True), dict(quantize="int8")):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    for kw, err, msg in (
+            (dict(speculate=2), NotImplementedError, "not ported"),
+            (dict(quantize="int8"), NotImplementedError, "not ported"),
+            (dict(prefix_cache=True), ValueError, "requires kv_page_tokens"),
+            (dict(kv_page_tokens=13), ValueError, "divide")):
+        with pytest.raises(err, match=msg):
             DecodeEngine(pm, device="cpu", **kw)
 
 
@@ -155,6 +165,37 @@ def test_inference_engine_padding_is_row_exact(lm_pair):
         eng.validate(np.full((1, 4), VOCAB, np.int32))
 
 
+def test_inference_engine_geometries_fixed_at_warmup(lm_pair):
+    """With length buckets, rows of 40 distinct lengths run through the
+    buckets x lengths geometries that warmup staged, and no other: each
+    equals the unpadded forward (the LM is causal); a longer row or
+    another dtype is refused; a graph set serves only what was captured."""
+    _, _, pm = lm_pair
+    lengths = serving_prefill_buckets(MAX_LEN)            # 16, 32, 64
+    eng = InferenceEngine(pm, buckets=(1, 2), lengths=lengths,
+                          device="cpu")
+    eng.warmup((MAX_LEN,), np.int32)
+    staged = set(eng._inputs)
+    assert len(staged) == 2 * len(lengths)
+    rs = np.random.RandomState(9)
+    for n in range(1, 41):
+        x = rs.randint(0, VOCAB, (1 + n % 2, n)).astype(np.int32)
+        eng.validate(x)
+        got = eng.predict_scores(x)
+        with torch.no_grad():
+            ref = pm(torch.from_numpy(x)).numpy()
+        assert got.shape == ref.shape
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+    assert set(eng._inputs) == staged
+    for bad, msg in ((np.zeros((1, MAX_LEN + 1), np.int32), "serves 1 to"),
+                     (np.zeros((1, 8), np.int64), "captured at start-up")):
+        with pytest.raises(ValueError, match=msg):
+            eng.validate(bad)
+    eng.graphs.pool.enabled = True   # as on the card: replay, never capture
+    with pytest.raises(KeyError, match="captured at start-up only"):
+        eng.graphs.run(("unseen",), lambda: None)
+
+
 # ------------------------------------------------------------------ sampling
 @pytest.mark.parametrize("temp,top_k,top_p", [
     (1.0, 0, 1.0), (0.7, 5, 1.0), (1.3, 0, 0.6), (0.9, 12, 0.8),
@@ -170,14 +211,78 @@ def test_warp_logits_matches_jax(temp, top_k, top_p):
 def test_sample_token_seeded_and_greedy():
     lg = torch.from_numpy(np.random.RandomState(10).randn(50).astype(
         np.float32))
-    assert sample_token(lg, 0.0, 0, 1.0, step_generator(1, 2)) == int(
-        torch.argmax(lg))
-    draws = [sample_token(lg, 1.0, 5, 1.0, step_generator(3, p))
-             for p in range(20)]
-    again = [sample_token(lg, 1.0, 5, 1.0, step_generator(3, p))
-             for p in range(20)]
+    assert sample_token(lg, 0.0, 0, 1.0, 1, 2) == int(torch.argmax(lg))
+    draws = [sample_token(lg, 1.0, 5, 1.0, 3, p) for p in range(20)]
+    again = [sample_token(lg, 1.0, 5, 1.0, 3, p) for p in range(20)]
     assert draws == again and len(set(draws)) > 1
     assert set(draws) <= set(torch.topk(lg, 5).indices.tolist())
+
+
+GRID = [(1.0, 0, 1.0), (0.7, 5, 1.0), (1.3, 0, 0.6), (0.9, 12, 0.8),
+        (0.0, 3, 0.5), (0.8, 40, 0.9), (2.0, 1, 1.0), (0.5, 0, 0.3)]
+
+
+def test_vectorised_warp_matches_jax_per_slot():
+    """One pass over a slot per (temp, top_k, top_p) of GRID, the knobs as
+    per-slot tensors: each row is the JAX warp of that row, bit for bit."""
+    lg = np.random.RandomState(11).randn(len(GRID), 97).astype(
+        np.float32) * 3
+    temp, top_k, top_p = (torch.tensor(c) for c in zip(*GRID))
+    got = warp_logits(torch.from_numpy(lg), temp.float(), top_k,
+                      top_p.float()).numpy()
+    for i, (t, k, p) in enumerate(GRID):
+        ref = jax_warp(jnp.asarray(lg[i]), jnp.float32(t), jnp.int32(k),
+                       jnp.float32(p))
+        np.testing.assert_array_equal(got[i], np.asarray(ref))
+
+
+def test_device_sampling_replays_its_seed(lm_pair):
+    """The same seed draws the same tokens (an engine of a different slot
+    count, slots in other orders), another seed others; with the filters
+    off the warping program draws what the sort-free one draws; top_k = 1
+    is greedy at any temperature."""
+    _, _, pm = lm_pair
+    kw = dict(temperature=0.8, top_k=12, top_p=0.9)
+    a = DecodeEngine(pm, slots=2, device="cpu")
+    b = DecodeEngine(pm, slots=3, device="cpu")
+    b.submit([5, 6, 7], 4, temperature=1.0, seed=1)  # occupies slot 0
+    prompt = [3, 1, 4, 1, 5, 9, 2, 6]
+    first = a.generate(prompt, 12, seed=9, **kw)
+    assert b.generate(prompt, 12, seed=9, **kw) == first
+    assert a.generate(prompt, 12, seed=10, **kw) != first
+    assert a.generate(prompt, 12, temperature=1.3, top_k=1, seed=4) == \
+        a.generate(prompt, 12)
+    rs = np.random.RandomState(12)
+    lg = torch.from_numpy(rs.randn(6, 97).astype(np.float32))
+    knobs = (torch.arange(6) * 7, torch.full((6,), 0.9),
+             torch.zeros(6, dtype=torch.long), torch.ones(6),
+             torch.arange(6) + 100)
+    assert torch.equal(sample_tokens(lg, *knobs, warp=True),
+                       sample_tokens(lg, *knobs, warp=False))
+
+
+def test_sampled_distribution_matches_jax():
+    """4000 draws of one warped row (temperature 0.8, top_k 6, top_p 0.9)
+    keyed by 4000 seeds, against jax.random.categorical's over 4000 keys
+    and against the warped softmax: total variation below 0.04 (the
+    expected TV of two samples of 4000 over the ~5 kept tokens is
+    ~0.02)."""
+    n = 4000
+    lg = np.random.RandomState(13).randn(16).astype(np.float32)
+    rows = torch.from_numpy(np.repeat(lg[None], n, 0))
+    got = sample_tokens(rows, torch.zeros(n, dtype=torch.long),
+                        torch.full((n,), 0.8), torch.full((n,), 6),
+                        torch.full((n,), 0.9), torch.arange(n)).numpy()
+    warped = jax_warp(jnp.asarray(lg), jnp.float32(0.8), jnp.int32(6),
+                      jnp.float32(0.9))
+    keys = jax.random.split(jax.random.PRNGKey(0), n)
+    ref = np.asarray(jax.vmap(lambda k: jax.random.categorical(
+        k, warped))(keys))
+    p = np.asarray(jax.nn.softmax(warped))
+    freq = lambda t: np.bincount(t, minlength=16) / n  # noqa: E731
+    assert set(np.unique(got)) <= set(np.flatnonzero(p > 0))
+    assert 0.5 * np.abs(freq(got) - freq(ref)).sum() < 0.04
+    assert 0.5 * np.abs(freq(got) - p).sum() < 0.04
 
 
 # --------------------------------------------------------- batcher, watchdog
@@ -253,6 +358,7 @@ def test_serve_http_round_trip():
     assert in_shape == (64,) and in_dtype == np.int32
     srv, thr = _serve(app)
     port = srv.server_address[1]
+    assert srv.request_queue_size >= 64  # a burst of clients is not dropped
     try:
         assert _get(port, "/healthz") == (
             200, '{"status": "ok", "model": "transformer_lm"}')
@@ -288,6 +394,10 @@ def test_serve_http_round_trip():
         assert "bigdl_serving_requests_generate_total 2" in page
         assert "bigdl_serving_generated_tokens_total 12" in page
         assert "bigdl_serving_rows_total 3" in page
+        # rows of another length pad to a length bucket; past max_len: 400
+        st, out, _ = _post(port, "/predict", {"inputs": [[5] * 40]})
+        assert st == 200 and np.asarray(out["predictions"]).shape == (1, 40)
+        assert _post(port, "/predict", {"inputs": [[5] * 65]})[0] == 400
     finally:
         _stop(srv, thr, app)
 
@@ -314,8 +424,98 @@ def test_serve_cli_refuses_what_is_not_ported():
     for argv, msg in (
             (["transformer_lm", "--randomInit", "--speculate", "4"],
              "--speculate"),
-            (["transformer_lm", "--model", "ckpt"], "--model"),
+            (["transformer_lm", "--randomInit", "--quantize", "int8"],
+             "--quantize"),
             (["lenet5", "--randomInit", "--platform", "cpu"], "lenet5"),
-            (["transformer_lm", "--platform", "cpu"], "needs weights")):
+            (["transformer_lm", "--platform", "cpu"], "needs weights"),
+            (["transformer_lm", "--randomInit", "--platform", "cpu",
+              "--prefixCache"], "needs --kvPageTokens"),
+            (["transformer_lm", "--randomInit", "--platform", "cpu",
+              "--kvPageTokens", "100"], "must divide")):
         with pytest.raises(SystemExit, match=msg):
             serve_cli.build_app(p.parse_args(argv))
+    assert serve_cli._page_tokens("auto", 1024) == 128
+    assert serve_cli._page_tokens("auto", 96) == 32
+    assert serve_cli._page_tokens("auto", 100) is None
+
+
+def test_serve_jax_checkpoint_paged_with_prefix_cache(tmp_path):
+    """``serve --model CKPT --kvPageTokens auto --prefixCache`` on a
+    checkpoint the JAX package wrote: over HTTP, the greedy tokens equal
+    the JAX paged engine's on the same parameters, a request sharing a
+    prefix is served from the prefix cache, and once traffic ends only
+    the cache's pages stay in use."""
+    jm = jax_models.transformer_lm(50, d_model=32, num_layers=2,
+                                   num_heads=2, max_len=96)
+    params = jax.tree_util.tree_map(np.asarray,
+                                    jm.init(jax.random.PRNGKey(3)))
+    params["emb"]["weight"] = params["emb"]["weight"] * np.float32(0.05)
+    jfile.save_pytree({"params": params, "mod_state": jm.init_state()},
+                      str(tmp_path / "ck" / "model.3"))
+    args = serve_cli.build_parser().parse_args(
+        ["transformer_lm", "--model", str(tmp_path / "ck"), "--platform",
+         "cpu", "--vocabSize", "50", "--dModel", "32", "--numLayers", "2",
+         "--numHeads", "2", "--seq", "96", "--slots", "2", "--kvPageTokens",
+         "auto", "--prefixCache", "--port", "0", "--no-warmup"])
+    app, _, _, _ = serve_cli.build_app(args)
+    assert app.decoder.page_tokens == 32 and app.decoder._pfx is not None
+    srv, thr = _serve(app)
+    port = srv.server_address[1]
+    shared = np.random.RandomState(4).randint(0, 50, 40).tolist()
+    prompts = [shared, shared + [7, 8], [1, 2, 3]]
+    try:
+        got = [_post(port, "/generate", {"tokens": p, "max_new_tokens": 6})
+               for p in prompts]
+        st, page = _get(port, "/metrics")
+    finally:
+        _stop(srv, thr, app)
+    ref = JaxDecodeEngine(jm, params, slots=2, kv_page_tokens=32)
+    for p, (st_g, out, _) in zip(prompts, got):
+        assert st_g == 200 and out["tokens"] == ref.generate(p, 6)
+    assert "bigdl_serving_prefix_cache_hits_total 1" in page
+    assert app.decoder.kv_pages_in_use() == app.decoder._pfx.cached_pages() \
+        == 1
+    prov = json.loads([ln for ln in page.splitlines()
+                       if ln.startswith("# provenance ")][0][13:])
+    assert prov["kv_page_tokens"] == 32 and prov["prefix_cache"] is True
+    assert prov["cuda_graphs"] is False
+
+
+@pytest.mark.cuda
+def test_cuda_serving_graphs_match_eager():
+    """On the card the decode engine replays CUDA graphs: greedy and
+    sampled tokens, dense and paged with the prefix cache, equal the same
+    engine's eager run, and flash_fwd launches count the replays; the
+    inference engine's graphs, fixed at warmup, equal its eager run."""
+    if not torch.cuda.is_available():
+        pytest.skip("torch.cuda unavailable")
+    from bigdl_tpu_torch import ops
+    pm = TransformerLM(VOCAB, d_model=D, num_layers=LAYERS, num_heads=HEADS,
+                       max_len=MAX_LEN, attn_impl="flash",
+                       generator=torch.Generator().manual_seed(0))
+    rs = np.random.RandomState(14)
+    prompts = [rs.randint(0, VOCAB, n).tolist() for n in (5, 20, 33, 40)]
+    kws = [dict(), dict(temperature=0.8, top_k=10, top_p=0.9, seed=2)]
+    for extra in (dict(), dict(kv_page_tokens=16, prefix_cache=True)):
+        outs = []
+        for graphs in (False, True):
+            de = DecodeEngine(pm, slots=2, device="cuda", graphs=graphs,
+                              **extra)
+            ops.reset_kernel_launches()
+            outs.append([de.generate(p, 8, **kw) for p in prompts
+                         for kw in kws])
+            assert ops.kernel_launches()["flash_fwd"] >= LAYERS
+            de.close()
+        assert outs[0] == outs[1]
+    # /predict: one graph per (batch bucket, length bucket), captured at
+    # warmup; rows of other lengths replay them and equal the eager run
+    lengths = serving_prefill_buckets(MAX_LEN)
+    engines = [InferenceEngine(pm, buckets=(1, 2), lengths=lengths,
+                               device="cuda", graphs=g) for g in (False, True)]
+    for e in engines:
+        e.warmup((MAX_LEN,), np.int32)
+    for n in (5, 16, 40, MAX_LEN):
+        x = rs.randint(0, VOCAB, (2, n)).astype(np.int32)
+        eager, graphed = (e.predict_scores(x) for e in engines)
+        assert np.array_equal(eager, graphed)
+    assert len(engines[1].graphs) == 2 * len(lengths)
