@@ -12,10 +12,14 @@ import os
 from typing import Optional, Sequence
 
 __all__ = ["setup_logging", "add_train_args", "add_test_args",
-           "add_fused_bn_arg", "apply_fused_bn", "build_optimizer",
-           "load_trained", "evaluate", "OPTIM_METHODS"]
+           "add_fused_bn_arg", "apply_fused_bn", "add_pipeline_args",
+           "build_feed", "build_optimizer", "load_trained", "evaluate",
+           "OPTIM_METHODS", "PIPELINE_STAGE_CHOICES"]
 
 OPTIM_METHODS = ("sgd", "adam", "adamw", "adagrad", "rmsprop", "lars", "lamb")
+# dataset.pipeline.STAGE_CHOICES, spelled here so that building a parser
+# imports no dataset module (a test holds the two equal)
+PIPELINE_STAGE_CHOICES = ("off", "host", "device")
 
 
 def setup_logging() -> None:
@@ -66,6 +70,49 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
                         "dampening = momentum; weightDecay and momentum "
                         "apply where meaningful)")
     add_fused_bn_arg(p)
+    add_pipeline_args(p)
+
+
+def add_pipeline_args(p: argparse.ArgumentParser) -> None:
+    """--dataWorkers/--prefetchDepth/--stage: the input pipeline's
+    executor and staging thread (dataset/pipeline/), with the JAX CLI's
+    choices and defaults."""
+    p.add_argument("--dataWorkers", type=int, default=0, metavar="N",
+                   help="N decode/augment worker threads race the epoch "
+                        "plan's sample tickets and reassemble batches in "
+                        "order: the batch stream is the same for any N >= 1 "
+                        "and across a kill and resume. 0 = the dataset's "
+                        "own feed")
+    p.add_argument("--prefetchDepth", type=int, default=2, metavar="D",
+                   help="batches prepared ahead of the loop: bounds the "
+                        "executor's batches in flight and the staging "
+                        "queue (default 2)")
+    p.add_argument("--stage", default="off",
+                   choices=list(PIPELINE_STAGE_CHOICES),
+                   help="staging thread: 'host' prepares batches ahead in "
+                        "pinned memory; 'device' also copies batch N+1 to "
+                        "the card on a side stream while the card runs "
+                        "step N (with --stepsPerDispatch K too: the graph's "
+                        "buffers are filled by copies on the card); 'off' "
+                        "= feed inline (default)")
+
+
+def build_feed(dataset, args):
+    """``dataset`` wrapped per ``(--dataWorkers, --prefetchDepth,
+    --stage)``; returns ``(dataset, provenance or None)`` and keeps the
+    provenance on ``args._pipeline``. Unlike the JAX CLI, ``--stage
+    device`` stays ``device`` under ``--stepsPerDispatch K > 1``: the
+    graphed step takes device-staged batches by copies on the card."""
+    from bigdl_tpu_torch.dataset.pipeline import wrap_pipeline
+
+    ds, prov = wrap_pipeline(
+        dataset, workers=int(getattr(args, "dataWorkers", 0) or 0),
+        depth=int(getattr(args, "prefetchDepth", 2) or 2),
+        stage=getattr(args, "stage", None) or "off",
+        seed=getattr(args, "seed", 0), device=getattr(args, "platform",
+                                                      None))
+    args._pipeline = prov
+    return ds, prov
 
 
 def add_test_args(p: argparse.ArgumentParser) -> None:
@@ -126,13 +173,15 @@ def _method(args, name: str):
 def build_optimizer(model, dataset, criterion, args, optim_method=None):
     """The Optimizer the reference's flags describe, with --fusedBN
     installed on the model: ``optim_method``, else the --optimMethod one,
-    ending after ``--maxEpoch`` epochs; an every-epoch checkpoint into
-    ``--checkpoint`` and a resume from ``--model`` when given."""
+    ending after ``--maxEpoch`` epochs, fed through :func:`build_feed`;
+    an every-epoch checkpoint into ``--checkpoint`` and a resume from
+    ``--model`` when given."""
     from bigdl_tpu_torch.optim import Optimizer, Trigger
 
     apply_fused_bn(model, getattr(args, "fusedBN", None))
     method = optim_method or _method(args, getattr(args, "optimMethod",
                                                    "sgd"))
+    dataset, _ = build_feed(dataset, args)
     opt = Optimizer(model, dataset, criterion, optim_method=method,
                     end_when=Trigger.max_epoch(args.maxEpoch),
                     seed=args.seed, log_every=args.logEvery,

@@ -20,6 +20,17 @@ rates are over iterations x K steps. bf16 activations unless ``--f32``
 the f32 output. MFU and the analytic FLOP count come with the rest of
 the perf harness (ROADMAP.md queue 1 item 7); the 16k/32k LM rows wait
 for remat at those lengths to be measured.
+
+``--data record:DIR`` (image rows) feeds every step a fresh batch from
+the record shards of DIR instead of the resident batch, as the JAX
+harness does: JPEG decode, a random crop of the model's input size from a
+resize of its short side (256 for 224), a flip and the ImageNet mean and
+std, per sample, then the copy to the card, all inside the timed loop
+(one step a dispatch; ``--innerSteps`` is ignored there, as in the JAX
+harness). With ``--dataWorkers N`` or ``--stage host|device`` the
+pipeline's executor and staging thread feed it (``pipeline`` in the JSON
+line records the choices and the plan), else the record set's own
+window of decode threads.
 """
 
 from __future__ import annotations
@@ -33,10 +44,10 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch import models
-from bigdl_tpu_torch.cli.common import add_fused_bn_arg
+from bigdl_tpu_torch.cli.common import add_fused_bn_arg, add_pipeline_args
 
 __all__ = ["LM_VOCAB", "LM_CONFIGS", "IMAGE_CONFIGS", "build_model",
-           "train_step", "run", "main"]
+           "record_feed", "train_step", "run", "main"]
 
 LM_VOCAB = 32000
 
@@ -94,10 +105,62 @@ def build_model(name: str, seq_len: Optional[int] = None,
     return model, (cfg["max_len"],)
 
 
+RECORD_MEAN = (123.68, 116.779, 103.939)
+RECORD_STD = (58.4, 57.1, 57.4)
+
+
+def _short_side(crop) -> int:
+    """The resize target feeding a random crop: 256 for 224, else the same
+    8/7 headroom (at least 8)."""
+    if tuple(crop) == (224, 224):
+        return 256
+    return max(8, (max(crop) * 8) // 7)
+
+
+def record_feed(source: str, batch: int, crop=(224, 224), workers: int = 0,
+                depth: int = 2, stage: str = "off", device=None):
+    """(endless batch iterator, provenance or None) over the record shards
+    of ``source``: random crops of ``crop``, flips, the ImageNet mean and
+    std. With ``workers`` > 0 or a ``stage`` the executor (and staging
+    thread) feed it, else the record set's own decode window."""
+    import os
+
+    from bigdl_tpu_torch.dataset.pipeline import (EpochPlan, ExecutorDataSet,
+                                                  StagedDataSet,
+                                                  StreamingSampleSource)
+    from bigdl_tpu_torch.dataset.streaming import RecordImageDataSet
+
+    executor = workers > 0 or stage != "off"
+    rds = RecordImageDataSet(
+        source, batch_size=batch, crop=crop, train=True,
+        short_side=_short_side(crop), mean=list(RECORD_MEAN),
+        std=list(RECORD_STD),
+        n_threads=1 if executor else min(32, (os.cpu_count() or 4) * 2),
+        window=1 if executor else 4)
+    ds, prov = rds, None
+    if executor:
+        src = StreamingSampleSource(rds)
+        plan = EpochPlan(len(src), batch, seed=rds.seed, shuffle=True,
+                         process_index=0, process_count=1)
+        ds = ExecutorDataSet(src, workers=max(1, workers), depth=depth,
+                             plan=plan)
+        if stage != "off":
+            ds = StagedDataSet(ds, stage=stage, depth=depth, device=device)
+        prov = {"workers": max(1, workers), "depth": depth, "stage": stage,
+                "signature": ds.signature()}
+
+    def endless():
+        while True:
+            yield from ds
+            ds.shuffle()  # the next epoch's plan
+
+    return endless(), prov
+
+
 def train_step(model_name: str, batch: int, dtype=torch.bfloat16,
                device=None, remat=False, seq_len: Optional[int] = None,
                fused_bn: Optional[str] = None, data_type: str = "constant",
-               graph_steps: int = 0):
+               graph_steps: int = 0, feed=None):
     """(step, model, tokens per step or None, device): ``step()`` takes
     SGD(0.01, momentum 0.9) steps of the zoo model on one resident batch
     from ``np.random.RandomState(0)`` and returns the last loss (not
@@ -106,7 +169,8 @@ def train_step(model_name: str, batch: int, dtype=torch.bfloat16,
     K >= 1 a call is K steps, on CUDA one replay of a CUDA graph of the K
     steps (the first call runs them eagerly on the capture stream, then
     captures; :class:`~bigdl_tpu_torch.optim.step_graph.StepGraph`), on
-    the CPU K eager steps."""
+    the CPU K eager steps. With a ``feed`` (an iterator of image batches)
+    a call is one eager step on the feed's next batch."""
     from bigdl_tpu_torch.cli.common import apply_fused_bn
     from bigdl_tpu_torch.core.module import resolve_device
     from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
@@ -148,6 +212,14 @@ def train_step(model_name: str, batch: int, dtype=torch.bfloat16,
         opt.update(dict(zip(names, grads)), state, params)
         return loss.detach()
 
+    if feed is not None:
+        from bigdl_tpu_torch.optim.optimizer import _batch_to_device
+
+        def fed_step():
+            xf, yf = _batch_to_device(next(feed), device)
+            return one_step(xf.to(dtype), yf)
+
+        return fed_step, model, tokens, device
     xd, yd = x.to(device), y.to(device)
     if graph_steps == 0:
         return (lambda: one_step(xd, yd)), model, tokens, device
@@ -181,21 +253,39 @@ def train_step(model_name: str, batch: int, dtype=torch.bfloat16,
 def run(model_name: str, batch: int = 32, iterations: int = 10,
         dtype=torch.bfloat16, warmup: int = 2, device=None, remat=False,
         seq_len: Optional[int] = None, fused_bn: Optional[str] = None,
-        data_type: str = "constant", inner_steps: int = 1) -> dict:
+        data_type: str = "constant", inner_steps: int = 1,
+        data_source: Optional[str] = None, data_workers: int = 0,
+        prefetch_depth: int = 2, stage: str = "off") -> dict:
     """Time ``iterations`` dispatches of ``inner_steps`` training steps
     each after ``warmup`` ones (with ``inner_steps`` > 1 a dispatch is a
     CUDA graph of the steps; the first warm-up dispatch runs them eagerly
     and captures the graph); returns the JSON line's fields plus
     ``losses`` (each dispatch's last step's, warm-up first). The rates are
-    over ``iterations * inner_steps`` steps."""
+    over ``iterations * inner_steps`` steps. ``data_source``
+    (``record:DIR``) feeds each step from record shards, one step a
+    dispatch (:func:`record_feed` with the pipeline arguments)."""
+    from bigdl_tpu_torch.core.module import resolve_device
     from bigdl_tpu_torch.nn import bn_fused_mode
 
     if inner_steps > 1 and warmup < 1:
         raise ValueError("inner_steps > 1 needs a warm-up dispatch (it "
                          "captures the graph)")
+    feed, prov = None, None
+    if data_source is not None:
+        if not data_source.startswith("record:"):
+            raise SystemExit(f"unknown --data source {data_source!r}")
+        if model_name not in IMAGE_CONFIGS:
+            raise SystemExit("--data record:DIR feeds the image rows only")
+        device = resolve_device(device)
+        inner_steps = 1  # a fresh batch every step
+        feed, prov = record_feed(
+            data_source[len("record:"):], batch,
+            crop=IMAGE_CONFIGS[model_name][1][:2], workers=data_workers,
+            depth=prefetch_depth, stage=stage, device=device)
     step, model, tokens, device = train_step(
         model_name, batch, dtype, device, remat, seq_len, fused_bn,
-        data_type, graph_steps=inner_steps if inner_steps > 1 else 0)
+        data_type, graph_steps=inner_steps if inner_steps > 1 else 0,
+        feed=feed)
     losses = [float(step()) for _ in range(warmup)]  # each one synced
     t0 = time.perf_counter()
     timed = [step() for _ in range(iterations)]
@@ -212,6 +302,7 @@ def run(model_name: str, batch: int = 32, iterations: int = 10,
                        if device.type == "cuda" else "cpu"),
             "remat": remat or None, "fused_bn": bn_fused_mode(model),
             "data_type": None if tokens is not None else data_type,
+            "data": data_source, "pipeline": prov,
             "warmup": warmup, "first_loss": losses[0],
             "final_loss": losses[-1], "losses": losses}
 
@@ -238,13 +329,20 @@ def main(argv=None) -> dict:
                    help="override the LM context length (small CPU runs)")
     p.add_argument("--platform", choices=("cuda", "cpu"), default=None,
                    help="default cuda; cpu runs the kernels' plain versions")
+    p.add_argument("--data", default=None, metavar="record:DIR",
+                   help="feed each step from the record shards of DIR "
+                        "(decode, augment and the copy to the card inside "
+                        "the timed loop) instead of a resident batch")
     add_fused_bn_arg(p)
+    add_pipeline_args(p)
     args = p.parse_args(argv)
     out = run(args.model, batch=args.batchSize, iterations=args.iteration,
               dtype=torch.float32 if args.f32 else torch.bfloat16,
               device=args.platform, remat=args.remat, seq_len=args.seq,
               fused_bn=args.fusedBN, data_type=args.dataType,
-              inner_steps=args.innerSteps)
+              inner_steps=args.innerSteps, data_source=args.data,
+              data_workers=args.dataWorkers,
+              prefetch_depth=args.prefetchDepth, stage=args.stage)
     line = {k: v for k, v in out.items() if k != "losses"}
     print(json.dumps(line), flush=True)
     return out

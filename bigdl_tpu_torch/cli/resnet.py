@@ -1,30 +1,44 @@
 """ResNet training CLI (counterpart of ``bigdl_tpu/cli/resnet.py``;
-reference models/resnet/Train.scala, Test.scala)::
+reference models/resnet/Train.scala, TrainImageNet.scala, Test.scala)::
 
     python -m bigdl_tpu_torch.cli.resnet train --dataset cifar10 -f DIR \\
         [--depth 20] [--fusedBN apply] [--stepsPerDispatch K] \\
+        [--dataWorkers N] [--prefetchDepth D] [--stage off|host|device] \\
         [--checkpoint CKPT] [--model CKPT] [--platform cpu]
-    python -m bigdl_tpu_torch.cli.resnet test -f DIR --model CKPT \\
-        [--depth 20] [--platform cpu]
+    python -m bigdl_tpu_torch.cli.resnet train --dataset imagenet -f DIR \\
+        [--depth 50] [--classNum 1000] ...
+    python -m bigdl_tpu_torch.cli.resnet test [--dataset ...] -f DIR \\
+        --model CKPT [--depth ...] [--platform cpu]
 
-trains a depth 6n+2 ResNet on the cifar-10-binary files of DIR with the
-reference recipe: SGD with nesterov momentum 0.9, weight decay 1e-4 and
-the lr cut by 10x at epochs 81 and 122, and a Top1Accuracy validation on
-``test_batch.bin`` every epoch. Images are normalised with the CIFAR
-training mean and std and shuffled each epoch; the JAX package's native
-pipeline (random crop and flip) is not in the port yet, so there is no
-augmentation (ROADMAP.md queue 1 item 9). ``test`` evaluates a
-checkpoint (a directory's newest ``model.<n>`` or one file, the port's or
-the JAX package's) on ``test_batch.bin`` and prints ``top1 accuracy is
-...``. ``--dataset imagenet`` and ``--s2d`` raise, naming the work that
-brings them.
+Two dataset families, as in the reference:
+
+* ``--dataset cifar10`` (default): a depth 6n+2 ResNet on the
+  cifar-10-binary files of DIR, trained with the JAX CLI's recipe and
+  feed: the native pipeline (``NativePrefetchDataSet``, four C++ threads)
+  shuffles each epoch, crops at random (the window is the whole 32 x 32
+  image, as in the JAX CLI, so the crop moves nothing), flips at random
+  and normalises with the CIFAR training mean and std; SGD with nesterov
+  momentum 0.9, weight decay 1e-4, the lr cut by 10x at epochs 81 and
+  122, and a Top1Accuracy validation on ``test_batch.bin`` (centred,
+  unflipped, in order) every epoch. A native library that does not build
+  or load is an error naming the cause: there is no unaugmented fallback.
+* ``--dataset imagenet``: depth 18/34/50/101/152 on a label-by-folder
+  tree, streamed and augmented per sample at 224 x 224 from ``DIR/train``
+  (random crop of a 256-short-side resize, flip, ``IMAGENET_MEAN/STD``)
+  and validated with Top-1 and Top-5 on ``DIR/val`` (scale to fill,
+  centre crop) when it exists; the lr is cut by 10x at epochs 30, 60 and
+  80 (reference TrainImageNet.scala).
+
+``test`` evaluates a checkpoint (a directory's newest ``model.<n>`` or one
+file, the port's or the JAX package's) on ``test_batch.bin`` or
+``DIR/val`` and prints ``<method> is ...``. ``--s2d`` raises, naming the
+work that brings it.
 """
 
 from __future__ import annotations
 
 import argparse
-
-import numpy as np
+import os
 
 from bigdl_tpu_torch.cli import common
 
@@ -32,21 +46,61 @@ __all__ = ["main"]
 
 
 def _one_split(folder: str, batch: int, train_split: bool, augment: bool):
-    """A normalised BatchDataSet of one split, shuffled when
-    ``augment`` (the JAX package's pure-python branch)."""
-    from bigdl_tpu_torch.dataset import (TRAIN_MEAN, TRAIN_STD, BatchDataSet,
-                                         load_cifar10)
+    """One CIFAR split through the native pipeline: with ``augment``
+    shuffled each epoch, randomly cropped and flipped; normalised with
+    the training mean and std on 0-255 pixels (the JAX CLI's
+    ``_one_split``)."""
+    from bigdl_tpu_torch.dataset import (TRAIN_MEAN, TRAIN_STD,
+                                         NativePrefetchDataSet, load_cifar10)
 
-    mean = np.asarray([m * 255 for m in TRAIN_MEAN], np.float32)
-    std = np.asarray([s * 255 for s in TRAIN_STD], np.float32)
     x, y = load_cifar10(folder, train=train_split)
-    return BatchDataSet((x.astype(np.float32) - mean) / std, y, batch,
-                        shuffle=augment)
+    return NativePrefetchDataSet(x, y, batch, train=augment,
+                                 mean=[m * 255 for m in TRAIN_MEAN],
+                                 std=[s * 255 for s in TRAIN_STD])
 
 
-def _later(what: str, item: int, brings: str):
-    return SystemExit(f"{what} is not in the PyTorch port yet: it comes with "
-                      f"{brings} (ROADMAP.md queue 1 item {item})")
+def _imagenet_datasets(folder: str, batch: int):
+    """(train, val or None) image-folder streams of ``DIR/train`` and
+    ``DIR/val`` at 224 x 224."""
+    from bigdl_tpu_torch.dataset import (IMAGENET_MEAN, IMAGENET_STD,
+                                         ImageFolderDataSet)
+
+    train = ImageFolderDataSet(os.path.join(folder, "train"), batch,
+                               size=(224, 224), train=True,
+                               mean=IMAGENET_MEAN, std=IMAGENET_STD)
+    vdir = os.path.join(folder, "val")
+    val = (ImageFolderDataSet(vdir, batch, size=(224, 224),
+                              mean=IMAGENET_MEAN, std=IMAGENET_STD)
+           if os.path.isdir(vdir) else None)
+    return train, val
+
+
+def _build_model(args, generator):
+    from bigdl_tpu_torch.models import resnet, resnet_cifar
+    from bigdl_tpu_torch.models.resnet import _IMAGENET_CFG
+
+    if args.s2d:
+        raise SystemExit("--s2d is not in the PyTorch port yet: it comes "
+                         "with SpaceToDepthStem (ROADMAP.md queue 1 item 7)")
+    if args.dataset == "imagenet":
+        if args.depth not in _IMAGENET_CFG:
+            raise SystemExit(f"--depth {args.depth} invalid for imagenet; "
+                             f"pick one of {sorted(_IMAGENET_CFG)}")
+        return resnet(args.depth, args.classNum, generator=generator)
+    if (args.depth - 2) % 6:
+        raise SystemExit(f"--depth {args.depth} invalid for cifar10; depth "
+                         f"must be 6n+2 (20/32/44/56/110)")
+    return resnet_cifar(args.depth, args.classNum, generator=generator)
+
+
+def _add_model_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--dataset", choices=["cifar10", "imagenet"],
+                   default="cifar10")
+    p.add_argument("--depth", type=int, default=None,
+                   help="6n+2 for cifar10 (default 20); 18/34/50/101/152 "
+                        "for imagenet (default 50)")
+    p.add_argument("--classNum", type=int, default=None,
+                   help="default 10 for cifar10, 1000 for imagenet")
 
 
 def main(argv=None):
@@ -55,11 +109,7 @@ def main(argv=None):
     sub = p.add_subparsers(dest="cmd", required=True)
     tr = sub.add_parser("train")
     common.add_train_args(tr)
-    tr.add_argument("--dataset", choices=["cifar10", "imagenet"],
-                    default="cifar10")
-    tr.add_argument("--depth", type=int, default=20,
-                    help="6n+2 (20/32/44/56/110)")
-    tr.add_argument("--classNum", type=int, default=10)
+    _add_model_args(tr)
     tr.add_argument("--bnStatSample", type=int, default=None,
                     help="BN training stats from this many batch rows "
                          "(nn.set_bn_stat_sample)")
@@ -68,50 +118,56 @@ def main(argv=None):
     tr.set_defaults(weightDecay=1e-4)  # the reference recipe's
     te = sub.add_parser("test")
     common.add_test_args(te)
-    te.add_argument("--dataset", choices=["cifar10", "imagenet"],
-                    default="cifar10")
-    te.add_argument("--depth", type=int, default=20)
-    te.add_argument("--classNum", type=int, default=10)
+    _add_model_args(te)
     te.add_argument("--s2d", action="store_true",
                     help="a checkpoint trained with --s2d (not ported)")
     args = p.parse_args(argv)
-
-    if args.dataset == "imagenet":
-        raise _later("--dataset imagenet", 9, "dataset/folder.py")
-    if args.s2d:
-        raise _later("--s2d", 7, "SpaceToDepthStem")
-    if (args.depth - 2) % 6:
-        raise SystemExit(f"--depth {args.depth} invalid for cifar10; depth "
-                         f"must be 6n+2 (20/32/44/56/110)")
+    imagenet = args.dataset == "imagenet"
+    if args.classNum is None:
+        args.classNum = 1000 if imagenet else 10
+    if args.depth is None:
+        args.depth = 50 if imagenet else 20
 
     import torch
 
     from bigdl_tpu_torch import nn
     from bigdl_tpu_torch.core.module import resolve_device
-    from bigdl_tpu_torch.models import resnet_cifar
-    from bigdl_tpu_torch.optim import SGD, Top1Accuracy, Trigger
+    from bigdl_tpu_torch.optim import (SGD, Top1Accuracy, Top5Accuracy,
+                                       Trigger)
     from bigdl_tpu_torch.optim.schedules import EpochSchedule, Regime
 
     resolve_device(args.platform)  # refuse before reading the data
-    model = resnet_cifar(args.depth, args.classNum,
-                         generator=torch.Generator().manual_seed(
-                             getattr(args, "seed", 0)))
-    test = _one_split(args.folder, args.batchSize, False, False)
+    model = _build_model(args, torch.Generator().manual_seed(
+        getattr(args, "seed", 0)))
+    if imagenet:
+        train, test = _imagenet_datasets(args.folder, args.batchSize)
+        if test is None and args.cmd == "test":
+            raise FileNotFoundError(f"no val/ directory under {args.folder}")
+        methods = [Top1Accuracy(), Top5Accuracy()]
+    else:
+        test = _one_split(args.folder, args.batchSize, False, False)
+        methods = [Top1Accuracy()]
     if args.cmd == "test":
         common.load_trained(model, args.model)
-        return common.evaluate(model, test, device=args.platform)
+        return common.evaluate(model, test, methods, device=args.platform)
     if args.bnStatSample:
         nn.set_bn_stat_sample(model, args.bnStatSample)
-    train = _one_split(args.folder, args.batchSize, True, True)
     lr = args.learningRate
-    sched = EpochSchedule([Regime(1, 80, lr), Regime(81, 121, lr * 0.1),
-                           Regime(122, 10 ** 9, lr * 0.01)])
+    if imagenet:
+        sched = EpochSchedule([Regime(1, 29, lr), Regime(30, 59, lr * 0.1),
+                               Regime(60, 79, lr * 0.01),
+                               Regime(80, 10 ** 9, lr * 0.001)])
+    else:
+        train = _one_split(args.folder, args.batchSize, True, True)
+        sched = EpochSchedule([Regime(1, 80, lr), Regime(81, 121, lr * 0.1),
+                               Regime(122, 10 ** 9, lr * 0.01)])
     method = SGD(learning_rate=lr, weight_decay=args.weightDecay,
                  momentum=args.momentum, dampening=0.0,
                  nesterov=args.momentum > 0, schedule=sched)
     opt = common.build_optimizer(model, train, nn.ClassNLLCriterion(), args,
                                  optim_method=method)
-    opt.set_validation(Trigger.every_epoch(), test, [Top1Accuracy()])
+    if test is not None:
+        opt.set_validation(Trigger.every_epoch(), test, methods)
     return opt.optimize()
 
 

@@ -6,11 +6,14 @@ the same batch order for the same seed."""
 
 from __future__ import annotations
 
-from typing import Any, Iterator, Optional
+from typing import Any, Iterator, Optional, Sequence
 
 import numpy as np
 
-__all__ = ["DataSet", "BatchDataSet", "MiniBatch"]
+from bigdl_tpu_torch.dataset.transformer import Transformer
+
+__all__ = ["DataSet", "TransformedDataSet", "LocalArrayDataSet",
+           "BatchDataSet", "MiniBatch"]
 
 
 class MiniBatch:
@@ -42,6 +45,62 @@ class DataSet:
 
     def shuffle(self, seed: Optional[int] = None) -> None:
         """Reshuffle the epoch order (a no-op unless a subclass has one)."""
+
+    def skip_epoch(self) -> None:
+        """Replay a finished epoch's effect on the order, as a resumed
+        training loop does for each epoch the stopped run finished: the
+        start of an iteration (where the order is drawn), then
+        ``shuffle()``. Datasets whose order is a pure function of the
+        epoch count advance it without iterating."""
+        next(iter(self), None)
+        self.shuffle()
+
+    def transform(self, t: Transformer) -> "TransformedDataSet":
+        """This dataset's elements through ``t`` (reference
+        AbstractDataSet.transform)."""
+        return TransformedDataSet(self, t)
+
+    def __rshift__(self, t: Transformer) -> "TransformedDataSet":
+        return self.transform(t)
+
+
+class TransformedDataSet(DataSet):
+    def __init__(self, base: DataSet, t: Transformer):
+        self.base, self.t = base, t
+
+    def __iter__(self):
+        return self.t(iter(self.base))
+
+    def size(self):
+        return self.base.size()
+
+    def shuffle(self, seed=None):
+        self.base.shuffle(seed)
+
+
+class LocalArrayDataSet(DataSet):
+    """In-memory samples; with ``shuffle`` each iteration draws a fresh
+    order from a RandomState seeded once with ``seed`` (reference
+    DataSet.scala:111-157)."""
+
+    def __init__(self, data: Sequence, shuffle: bool = False, seed: int = 0):
+        self.data = list(data)
+        self._shuffle = shuffle
+        self._rng = np.random.RandomState(seed)
+        self._order = np.arange(len(self.data))
+
+    def __iter__(self):
+        if self._shuffle:
+            self._rng.shuffle(self._order)
+        return (self.data[i] for i in self._order)
+
+    def size(self):
+        return len(self.data)
+
+    def shuffle(self, seed=None):
+        if seed is not None:
+            self._rng = np.random.RandomState(seed)
+        self._rng.shuffle(self._order)
 
 
 class BatchDataSet(DataSet):

@@ -15,6 +15,10 @@ target before anything loads; a module whose layout differs from JAX's
 converts its leaves (``from_jax_leaf`` reading, ``to_jax_leaf`` writing:
 the convolution's OIHW kernel is HWIO in JAX).
 
+A ``model.<n>`` driver holds the four counters, and with an executor
+feed also the feed's epoch ``plan`` (:data:`PLAN_KEYS`, its ``mode`` a
+string leaf): 4 or 13 leaves ahead of ``mod_state`` and ``params``.
+
 The port writes the same leaves in the same order and layouts, with the
 key paths as JSON where the JAX blob has its treedef. Stated difference:
 the JAX package's ``load_pytree`` cannot open a port blob (it has no
@@ -31,11 +35,28 @@ import torch
 from bigdl_tpu_torch.utils.file import (ChecksumError, load_leaves,
                                         read_manifest, save_leaves)
 
-__all__ = ["DRIVER_KEYS", "model_tensors", "save_model", "load_model",
-           "save_state", "load_state"]
+__all__ = ["DRIVER_KEYS", "PLAN_KEYS", "model_tensors", "save_model",
+           "load_model", "save_state", "load_state"]
 
 # the training loop's counters in a model.<n> blob, in flatten order
 DRIVER_KEYS = ("epoch", "epoch_records", "iteration", "rng_splits")
+# an executor feed's EpochPlan.signature() under driver/plan, in flatten
+# order (between "iteration" and "rng_splits")
+PLAN_KEYS = ("batch", "epoch", "global_batch", "host", "hosts", "mode", "n",
+             "seed", "shuffle")
+
+
+def _plan_leaf(v):
+    return v if isinstance(v, (bool, str)) else int(v)
+
+
+def _driver_from(counters: dict, plan: Optional[dict]) -> dict:
+    """The driver dict of a blob's leaves: int counters, and the plan's
+    values as Python scalars (``mode`` a str, ``shuffle`` a bool)."""
+    drv = {k: int(v) for k, v in counters.items()}
+    if plan:
+        drv["plan"] = {k: np.asarray(v).item() for k, v in plan.items()}
+    return drv
 
 
 def model_tensors(model: torch.nn.Module) -> Tuple[dict, dict]:
@@ -100,6 +121,13 @@ def save_model(path: str, model: torch.nn.Module,
     tree = {"params": params, "mod_state": state}
     if driver is not None:
         tree["driver"] = {k: int(driver[k]) for k in DRIVER_KEYS}
+        if driver.get("plan"):
+            plan = driver["plan"]
+            if set(plan) != set(PLAN_KEYS):
+                raise ValueError(f"a driver plan has the keys {PLAN_KEYS}, "
+                                 f"got {sorted(plan)}")
+            tree["driver"]["plan"] = {k: _plan_leaf(plan[k])
+                                      for k in PLAN_KEYS}
     _save(path, tree, model)
 
 
@@ -167,10 +195,13 @@ def _by_path(path: str, model, target: list, leaves: list,
 def load_model(path: str, model: torch.nn.Module
                ) -> Tuple[dict, Optional[dict]]:
     """({name: tensor} to ``load_state_dict`` into ``model``, the driver
-    counters or None) of a ``model.<n>`` blob written by the port or the
-    JAX package, or of a JAX params/mod_state file. A JAX driver must be
-    the four :data:`DRIVER_KEYS` (which flatten before ``mod_state`` and
-    ``params``); any other leaf count is refused."""
+    or None) of a ``model.<n>`` blob written by the port or the JAX
+    package, or of a JAX params/mod_state file. A JAX driver is the four
+    :data:`DRIVER_KEYS`, or those and the nine :data:`PLAN_KEYS` of an
+    executor feed's plan (they flatten before ``mod_state`` and
+    ``params``); any other leaf count is refused. The driver's counters
+    are ints, its ``plan`` (when there is one) a dict of Python
+    scalars."""
     params, state = model_tensors(model)
     names = set(params) | set(state)
     target = sorted(_flatten({"params": params, "mod_state": state}, names),
@@ -179,18 +210,28 @@ def load_model(path: str, model: torch.nn.Module
     driver = None
     if paths is None:
         extra = len(leaves) - len(target)
+        n_plan = len(DRIVER_KEYS) + len(PLAN_KEYS)
         if extra == len(DRIVER_KEYS):
-            driver = {k: int(v) for k, v in zip(DRIVER_KEYS, leaves)}
-            leaves = leaves[extra:]
+            driver = _driver_from(dict(zip(DRIVER_KEYS, leaves)), None)
+        elif extra == n_plan:
+            # epoch, epoch_records, iteration, plan/..., rng_splits
+            head = len(DRIVER_KEYS) - 1
+            driver = _driver_from(
+                dict(zip(DRIVER_KEYS, leaves[:head] + [leaves[n_plan - 1]])),
+                dict(zip(PLAN_KEYS, leaves[head:n_plan - 1])))
         elif extra != 0:
             raise ValueError(
                 f"{path}: {len(leaves)} leaves where the model has "
-                f"{len(target)} (and a driver {len(DRIVER_KEYS)}): not a "
-                f"checkpoint of this model")
+                f"{len(target)} (and a driver {len(DRIVER_KEYS)} or "
+                f"{n_plan}): not a checkpoint of this model")
+        leaves = leaves[extra:]
     else:
-        drv = {kp[1]: v for kp, v in zip(paths, leaves) if kp[0] == "driver"}
-        if drv:
-            driver = {k: int(v) for k, v in drv.items()}
+        counters = {kp[1]: v for kp, v in zip(paths, leaves)
+                    if kp[0] == "driver" and len(kp) == 2}
+        plan = {kp[2]: v for kp, v in zip(paths, leaves)
+                if kp[0] == "driver" and len(kp) == 3 and kp[1] == "plan"}
+        if counters:
+            driver = _driver_from(counters, plan)
         keep = [i for i, kp in enumerate(paths) if kp[0] != "driver"]
         leaves, paths = [leaves[i] for i in keep], [paths[i] for i in keep]
     got = _by_path(path, model, target, leaves, paths)

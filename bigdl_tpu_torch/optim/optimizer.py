@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.core.module import resolve_device
+from bigdl_tpu_torch.dataset.pipeline.staging import DeviceBatch
 from bigdl_tpu_torch.nn.structural import fold_seed
 from bigdl_tpu_torch.optim.method import (SGD, OptimMethod,
                                           clip_by_global_norm, clip_by_value)
@@ -71,9 +72,23 @@ class TrainedModel:
 def _to_device(y, device):
     if isinstance(y, (tuple, list)):
         return type(y)(_to_device(t, device) for t in y)
-    if isinstance(y, np.ndarray):
-        y = torch.from_numpy(y)
+    if isinstance(y, (np.ndarray, np.generic)):
+        y = torch.from_numpy(np.asarray(y))
     return y.to(device, non_blocking=True)
+
+
+def _batch_to_device(batch, device):
+    """(x, y) of a batch on ``device``: a staged :class:`DeviceBatch` is
+    claimed by the current stream (no copy), any other batch is copied
+    (asynchronously from pinned memory)."""
+    if isinstance(batch, DeviceBatch):
+        on = batch.input.device
+        if on.type != device.type or device.index not in (None, on.index):
+            raise ValueError(f"a batch staged on {on} reached a loop on "
+                             f"{device}")
+        return batch.claim(torch.cuda.current_stream(device))
+    x, y = batch
+    return _to_device(x, device), _to_device(y, device)
 
 
 def _split(y, accum: int):
@@ -240,10 +255,12 @@ class Optimizer:
         The run continues the epoch and iteration numbering, and is step
         for step the run that was stopped: the step-seed stream is
         fast-forwarded by the snapshot's draw count, each finished epoch's
-        effect on the dataset is replayed (an iteration's start and one
-        ``dataset.shuffle()``), and the open epoch's consumed records are
-        skipped. Newer snapshots left unmatched by the stop may be
-        overwritten. A JAX snapshot carries params, module state,
+        effect on the dataset is replayed (its ``skip_epoch()``; for a
+        dataset without one, an iteration's start and one ``shuffle()``),
+        and the open epoch's consumed records are skipped. A snapshot
+        written through an executor feed carries its epoch plan, and a
+        plan that differs from this run's is warned about. Newer
+        snapshots left unmatched by the stop may be overwritten. A JAX snapshot carries params, module state,
         optimizer state and counters, not jax's PRNG stream: the seeds
         differ, which matters only with dropout."""
         from bigdl_tpu_torch.utils.file import (ChecksumError,
@@ -282,6 +299,18 @@ class Optimizer:
             _copy_tree(opt_state, load_state(s, opt_state, self.model), s)
         if driver is None:
             driver = {"iteration": int(m.rsplit(".", 1)[-1])}
+        saved = driver.get("plan")
+        plan = getattr(self.dataset, "plan", None)
+        if saved and plan is not None and hasattr(plan, "signature"):
+            # the epoch is the snapshot's cursor, not the plan's identity
+            theirs = {k: v for k, v in saved.items() if k != "epoch"}
+            mine = {k: v for k, v in plan.signature().items()
+                    if k != "epoch"}
+            if mine != theirs:
+                logger.warning(
+                    "resume: checkpoint epoch plan %s differs from this "
+                    "run's %s: the replayed batch stream will NOT match the "
+                    "stopped run's", theirs, mine)
         logger.info("Resumed from %s%s", m, f" and {s}" if s else "")
         return driver
 
@@ -375,6 +404,10 @@ class Optimizer:
         driver = {"epoch": progress["epoch"], "iteration": n,
                   "rng_splits": self._draws,
                   "epoch_records": progress.get("epoch_records", 0)}
+        plan = getattr(self.dataset, "plan", None)
+        if plan is not None and hasattr(plan, "signature"):
+            # the executor feed's schedule: resume checks it is replayed
+            driver["plan"] = plan.signature()
         self._join_ckpt_writer()  # one write in flight
         # host copies, taken now: the next step (or replay) updates the
         # tensors in place
@@ -414,7 +447,11 @@ class Optimizer:
 
     def _phase(self, name: str, dt: float):
         """Host seconds per phase: ``data_wait`` (fetching batches),
-        ``dispatch`` (the steps, up to the log point's sync) and ``ckpt``
+        ``h2d`` (issuing the copies of the batches to the device on the
+        loop's thread, and a graph's wait for its pinned area to be
+        read), ``h2d_staged`` (issuing them on a staging thread,
+        ``--stage device``: overlapped with the loop), ``dispatch`` (the
+        steps, up to the log point's sync, ``h2d`` included) and ``ckpt``
         (what the loop pays for a snapshot)."""
         self._phase_totals[name] = self._phase_totals.get(name, 0.0) + dt
 
@@ -463,8 +500,12 @@ class Optimizer:
             while self._draws < rd.get("rng_splits", 0):
                 next_seed()
             for _ in range(progress["epoch"] - 1):
-                next(iter(self.dataset), None)  # a finished epoch's draw
-                self.dataset.shuffle()
+                skip_epoch = getattr(self.dataset, "skip_epoch", None)
+                if skip_epoch is not None:
+                    skip_epoch()
+                else:  # a finished epoch's draw, then its shuffle
+                    next(iter(self.dataset), None)
+                    self.dataset.shuffle()
             skip = rd.get("epoch_records", 0)
             logger.info("Resuming at epoch %d, iteration %d (seed stream at "
                         "%d draws, skipping %d consumed records)",
@@ -477,7 +518,9 @@ class Optimizer:
         clock = {"last_log": time.time(), "fetch": 0.0}
 
         def run_eager(batch, step_seed):
-            x, y = (_to_device(t, self.device) for t in batch)
+            t0 = time.perf_counter()
+            x, y = _batch_to_device(batch, self.device)
+            self._phase("h2d", time.perf_counter() - t0)
             s = (torch.tensor(step_seed, dtype=torch.int64,
                               device=self.device) if takes_seed else None)
             return self._step(params, opt_state, x, y, s, takes_seed)
@@ -538,7 +581,9 @@ class Optimizer:
                 if not self._graph.captured:
                     self._join_ckpt_writer()
                     self._graph.capture()
+                t1 = time.perf_counter()
                 self._graph.put(buf, seeds)
+                self._phase("h2d", time.perf_counter() - t1)
                 loss = self._graph.replay()
             after_dispatch(sum(_records(b) for b in buf), K, t0, loss)
 
@@ -570,6 +615,8 @@ class Optimizer:
                     if buf and _shape_sig(b) != _shape_sig(buf[0]):
                         pending = b  # ragged: flush, then start a group
                         break
+                    if isinstance(b, DeviceBatch):
+                        self._phase("h2d_staged", b.h2d_s)
                     buf.append(b)
                 dt_fetch = time.time() - t_fetch
                 clock["fetch"] += dt_fetch

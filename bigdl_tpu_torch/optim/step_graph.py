@@ -4,12 +4,21 @@ package's ``steps_per_dispatch`` scan, ``bigdl_tpu/optim/optimizer.py``
 
 :class:`StepGraph` captures ``step(x, y, seed)`` K times, step i reading
 batch i and seed i from static device buffers, and replays the capture
-once per dispatch. A dispatch stages its K batches and K seeds with one
-H2D copy from pinned host memory into those buffers, then replays. The
-step itself updates the parameters, the optimizer state and the BN
-running statistics in place, so they are the graph's static tensors: a
-checkpoint reads them between replays, and a resume loads into them
-before the capture.
+once per dispatch. A dispatch stages its K batches and K seeds into those
+buffers, then replays. Each batch goes in by the cheapest copy its
+memory allows, all issued on the replay's stream: a batch that a staging
+thread already put on the card (``--stage device``, a
+:class:`~bigdl_tpu_torch.dataset.pipeline.staging.DeviceBatch`) by a copy
+on the card, after the stream waits for the staging copy; a batch in
+pinned host memory (``--stage host``) by an asynchronous copy from it;
+any other batch through the graph's pinned area, copied there on the
+dispatch thread. No copy runs under the capture, and a staging thread
+keeps issuing its copies on its own stream while the graph replays, so
+the capture tolerates other threads' CUDA calls (``thread_local``
+capture mode). The step itself updates the parameters, the optimizer
+state and the BN running statistics in place, so they are the graph's
+static tensors: a checkpoint reads them between replays, and a resume
+loads into them before the capture.
 
 The caller warms the step up on the capture stream before the capture
 (cuDNN and cuBLAS workspaces, the kernels' builds, their attributes and
@@ -78,17 +87,33 @@ class StepGraph:
 
     def put(self, batches: Sequence, seeds: Sequence[int]) -> None:
         """Stage ``steps`` batches (each shaped like the capture's) and
-        their seeds: one H2D copy on the current stream."""
+        their seeds into the static buffers, by copies issued on the
+        current stream (see the module's note)."""
+        from bigdl_tpu_torch.dataset.pipeline.staging import DeviceBatch
+
         if len(batches) != self.steps or len(seeds) != self.steps:
             raise ValueError(f"a dispatch stages {self.steps} batches and "
                              f"seeds, got {len(batches)} and {len(seeds)}")
-        self._copied.synchronize()  # the last copy has read the host buffer
+        stream = torch.cuda.current_stream(self._dev.device)
+        self._copied.synchronize()  # the last copy has read the host area
         for i, b in enumerate(batches):
-            for hv, a in zip(self._host_views, batch_leaves(b)):
-                hv[i].copy_(a)
+            if isinstance(b, DeviceBatch):
+                leaves = batch_leaves(b.claim(stream))
+            else:
+                leaves = batch_leaves(b)
+                if not all(a.is_pinned() for a in leaves):
+                    for hv, a in zip(self._host_views, leaves):
+                        hv[i].copy_(a)
+                    leaves = [hv[i] for hv in self._host_views[:len(leaves)]]
+            for v, a in zip(self._views, leaves):
+                if tuple(a.shape) != tuple(v.shape[1:]) or a.dtype != v.dtype:
+                    raise ValueError(f"batch {i}: {a.dtype}{list(a.shape)}, "
+                                     f"the graph holds {v.dtype}"
+                                     f"{list(v.shape[1:])}")
+                v[i].copy_(a, non_blocking=True)
         self._host_views[-1].copy_(torch.as_tensor(seeds, dtype=torch.int64))
-        self._dev.copy_(self._host, non_blocking=True)
-        self._copied.record()
+        self._views[-1].copy_(self._host_views[-1], non_blocking=True)
+        self._copied.record(stream)
 
     @property
     def captured(self) -> bool:
@@ -102,7 +127,8 @@ class StepGraph:
 
         before = ops.kernel_launches()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=self._stream):
+        with torch.cuda.graph(graph, stream=self._stream,
+                              capture_error_mode="thread_local"):
             for i in range(self.steps):
                 x, y = self._batch(i)
                 loss = self._step(x, y, self._views[-1][i])

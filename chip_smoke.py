@@ -129,6 +129,34 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    rows): host-clock ms, generated tokens/s, device ms, busy share and
    kernels a step, with the card's name and power limit.
 
+15. The input pipeline on the card. (a) The native library (the port's
+   copy of ``bigdl_native.cpp``) built with ``g++`` into ``build/native/``,
+   its flavour printed (with or without libjpeg). (b) ``cli.resnet train
+   --dataset cifar10 --fusedBN apply --stepsPerDispatch 4`` for 2 epochs
+   (20 steps) on the seeded CIFAR files of phase 10, augmented by the
+   native pipeline, with ``--stage off``, ``host`` and ``device`` each at
+   ``--dataWorkers 0`` and ``4``: with cuDNN deterministic every run's 20
+   losses are the first run's, bit for bit, and each fused BN kernel
+   launches exactly 19 times a step. (c) ResNet-50 ``_fba`` in bf16 at
+   batch 128 through ``Optimizer(steps_per_dispatch=4)``, graphed, fed by
+   ``NativePrefetchDataSet`` over 1024 seeded uint8 images of 256 x 256 x
+   3 (random crop 224, flip, ``IMAGENET_MEAN/STD``, 8 threads) wrapped
+   with ``--stage host`` and ``device``, for 6 epochs of 8 batches: the
+   feed's own images/s (no model, after a warm-up epoch; native alone and
+   behind each staging mode), the loop's images/s over epochs 2-6 (one sync, at the end: the
+   loop runs ahead across epochs) and its data_wait, h2d and h2d_staged
+   seconds per mode, beside the same loop over 8 batches
+   already on the card and ``cli.perf``'s graphed step on a resident
+   batch (``--innerSteps 4``), all in cuDNN's default mode (the resident
+   step also in its deterministic mode, phase 12's); finite losses and
+   exactly 53 launches of each fused BN kernel a step. (d) The record
+   path: seeded JPEG shards (512 images of 256 x 256, written with PIL
+   where there is PIL, else the phase is reported as waiting) through
+   ``cli.perf -m resnet50_fba --data record:DIR --dataWorkers 8 --stage
+   device``: the executor's workers decode (libjpeg where the library has
+   it, else PIL) and augment, the staging thread copies to the card;
+   images/s, finite losses, 53 launches of each fused kernel a step.
+
 Any failed phase exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -241,6 +269,15 @@ OPT_BATCHES, OPT_STEPS = 8, 16
 CIFAR_OPT_BATCHES, CIFAR_OPT_STEPS = 10, 20
 INNER_ITERS = 3
 POLY_ITERS = 64  # the Optimizer phases' Poly(0.5, 64) schedule
+# the input pipeline phase: the CIFAR CLI over 2 epochs of phase 10's
+# files in every (stage, workers) pair; ResNet-50 fed by the native
+# pipeline over 1024 images of 256 x 256 x 3 (8 batches of 128 an epoch)
+# for PIPE_EPOCHS epochs; the record path over PIPE_JPEGS JPEGs
+PIPE_STAGES = ("off", "host", "device")
+PIPE_WORKERS = (0, 4)
+PIPE_IMAGES, PIPE_SIDE, PIPE_CROP, PIPE_THREADS = 1024, 256, 224, 8
+PIPE_EPOCHS = 6
+PIPE_JPEGS, PIPE_RECORD_ITERS = 512, 8
 
 
 def fail(msg):
@@ -1933,6 +1970,379 @@ def inner_steps_runs(torch, card):
     return out
 
 
+def native_build():
+    """Phase 15 (a): build and load the native library; print its flavour.
+    Returns whether it decodes JPEG."""
+    from bigdl_tpu_torch.dataset import native
+
+    t0 = time.perf_counter()
+    if not native.available():
+        fail(f"[native] the native library did not build or load: "
+             f"{native.load_error()}")
+    jpeg = native.jpeg_available()
+    print(f"[native] {native.library_path()} loaded in "
+          f"{time.perf_counter() - t0:.1f}s, flavour: "
+          f"{'with libjpeg' if jpeg else 'without libjpeg (JPEG decodes through PIL)'}",
+          flush=True)
+    return jpeg
+
+
+class _Recorded:
+    """Installs ``rec`` as what ``nn.ClassNLLCriterion()`` builds while in
+    use, so a CLI run's criterion records every step's loss on the
+    device."""
+
+    def __init__(self, rec):
+        self.rec = rec
+
+    def __enter__(self):
+        from bigdl_tpu_torch import nn
+
+        self.orig = nn.ClassNLLCriterion
+        nn.ClassNLLCriterion = lambda *a, **k: self.rec
+        return self.rec
+
+    def __exit__(self, *exc):
+        from bigdl_tpu_torch import nn
+
+        nn.ClassNLLCriterion = self.orig
+
+
+def pipeline_cifar_runs(torch):
+    """Phase 15 (b): the CIFAR CLI, augmented by the native pipeline,
+    graphed (K = OPT_K), over 2 epochs, in every (stage, workers) pair;
+    cuDNN deterministic, so every run's losses must be the first's, bit
+    for bit. Returns the launches of every run."""
+    import math
+    import tempfile
+
+    from bigdl_tpu_torch import nn, ops
+    from bigdl_tpu_torch.cli import resnet as resnet_cli
+
+    steps = 2 * (5 * CIFAR_RECORDS // CIFAR_BATCH)
+    runs, launches = {}, []
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            write_cifar(tmp, CIFAR_RECORDS)
+            for stage in PIPE_STAGES:
+                for workers in PIPE_WORKERS:
+                    rec = LossRecorder(torch, nn.ClassNLLCriterion(), steps,
+                                       DEV)
+                    t0 = time.perf_counter()
+                    with _Recorded(rec), LogLines() as lines:
+                        ops.reset_kernel_launches()
+                        resnet_cli.main(
+                            ["train", "--dataset", "cifar10", "-f", tmp,
+                             "--fusedBN", "apply", "-b", str(CIFAR_BATCH),
+                             "--maxEpoch", "2", "--logEvery", "10",
+                             "--stepsPerDispatch", str(OPT_K), "--stage",
+                             stage, "--dataWorkers", str(workers)])
+                        torch.cuda.synchronize()
+                        n = ops.kernel_launches()
+                    losses = rec.losses()
+                    top1 = [ln for ln in lines
+                            if ln.startswith("top1 accuracy is ")]
+                    tag = f"--stage {stage} --dataWorkers {workers}"
+                    print(f"[pipeline cifar {tag}] {steps} steps in "
+                          f"{time.perf_counter() - t0:.1f}s; "
+                          f"{top1[-1] if top1 else 'no top1 line'}; BN "
+                          f"launches {n['bn_fwd_apply']} + "
+                          f"{n['bn_bwd_fused']}; losses {losses}",
+                          flush=True)
+                    if len(losses) != steps or not all(
+                            math.isfinite(v) for v in losses):
+                        fail(f"[pipeline cifar {tag}] expected {steps} "
+                             f"finite losses, got {losses}")
+                    want = dict({k: 0 for k in n}, bn_fwd_apply=19 * steps,
+                                bn_bwd_fused=19 * steps)
+                    if n != want:
+                        fail(f"[pipeline cifar {tag}] launches {n}, "
+                             f"expected {want} (19 BNs a step)")
+                    runs[tag] = losses
+                    launches.append(n)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    first = next(iter(runs.values()))
+    differ = [tag for tag, v in runs.items() if v != first]
+    print(f"[pipeline cifar] losses bit-equal across {len(runs)} runs: "
+          f"{not differ}", flush=True)
+    if differ:
+        fail(f"[pipeline cifar] the losses of {differ} differ from "
+             f"{next(iter(runs))}'s")
+    return launches
+
+
+class EpochClock:
+    """A dataset wrapper that notes when each epoch's iteration starts;
+    at the second epoch's start it first waits for the card, so the clock
+    starts on an idle device. Everything else passes through."""
+
+    def __init__(self, torch, inner):
+        self.torch, self.inner, self.starts = torch, inner, []
+
+    def __iter__(self):
+        if len(self.starts) == 1:
+            self.torch.cuda.synchronize()
+        self.starts.append(time.perf_counter())
+        return iter(self.inner)
+
+    def size(self):
+        return self.inner.size()
+
+    def shuffle(self, seed=None):
+        self.inner.shuffle(seed)
+
+    def skip_epoch(self):
+        self.inner.skip_epoch()
+
+
+def native_feed(np, seed=0):
+    """Phase 15 (c)'s feed: NativePrefetchDataSet over PIPE_IMAGES seeded
+    uint8 images of PIPE_SIDE^2 x 3 and labels of 1000 classes."""
+    from bigdl_tpu_torch.dataset import (IMAGENET_MEAN, IMAGENET_STD,
+                                         NativePrefetchDataSet)
+
+    rs = np.random.RandomState(seed)
+    images = rs.randint(0, 256, (PIPE_IMAGES, PIPE_SIDE, PIPE_SIDE, 3),
+                        dtype=np.uint8)
+    labels = rs.randint(0, 1000, PIPE_IMAGES).astype(np.int32)
+    return lambda: NativePrefetchDataSet(
+        images, labels, RESNET_BATCH, crop=(PIPE_CROP, PIPE_CROP),
+        train=True, mean=IMAGENET_MEAN, std=IMAGENET_STD, seed=seed,
+        n_threads=PIPE_THREADS)
+
+
+def feed_rates(torch, make, card):
+    """The feed alone (no model): images/s of the native pipeline and of
+    it behind each staging mode (device batches claimed by the current
+    stream, the copies synchronised at the end), over PIPE_EPOCHS epochs
+    after a warm-up one (threads, pinned blocks, page mappings)."""
+    from bigdl_tpu_torch.dataset.pipeline import DeviceBatch, wrap_pipeline
+
+    out = {}
+    for stage in PIPE_STAGES:
+        ds, _ = wrap_pipeline(make(), stage=stage, depth=2)
+        for _ in ds:
+            pass
+        ds.shuffle()
+        torch.cuda.synchronize()
+        n, t0 = 0, time.perf_counter()
+        for _ in range(PIPE_EPOCHS):
+            for b in ds:
+                if isinstance(b, DeviceBatch):
+                    b.claim()
+                n += len(b.input)
+            ds.shuffle()
+        torch.cuda.synchronize()
+        out[stage] = n / (time.perf_counter() - t0)
+        print(f"[feed] native pipeline, --stage {stage}, no model, on "
+              f"{card}: {out[stage]:.1f} images/s ({n} images, "
+              f"{PIPE_THREADS} threads)", flush=True)
+    return out
+
+
+def fed_optimizer_run(torch, dataset, steps):
+    """ResNet-50 ``_fba`` through ``Optimizer(steps_per_dispatch=OPT_K)``
+    in bf16 over ``dataset`` for PIPE_EPOCHS epochs, one log point (hence
+    one sync) at the end, so the loop runs ahead of the card across epoch
+    boundaries as a long epoch would; returns (losses, launches, images/s
+    over epochs 2.., from an idle card to the end, phase seconds)."""
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.cli import perf
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
+
+    model = perf.build_model("resnet50_fba",
+                             generator=torch.Generator().manual_seed(0))[0]
+    rec = LossRecorder(torch, ClassNLLCriterion(), steps, DEV)
+    clock = EpochClock(torch, dataset)
+    per_epoch = steps // PIPE_EPOCHS
+    opt = Optimizer(model, clock, rec,
+                    optim_method=SGD(0.01, momentum=0.9),
+                    end_when=Trigger.max_epoch(PIPE_EPOCHS),
+                    log_every=steps, compute_dtype=torch.bfloat16,
+                    steps_per_dispatch=OPT_K, device=DEV)
+    with LogLines():
+        ops.reset_kernel_launches()
+        opt.optimize()
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        n = ops.kernel_launches()
+    ips = (PIPE_EPOCHS - 1) * per_epoch * RESNET_BATCH / (
+        t_end - clock.starts[1])
+    phases = dict(opt._phase_totals)
+    del opt, model
+    torch.cuda.empty_cache()
+    return rec.losses(), n, ips, phases
+
+
+class _Resident:
+    """A dataset of batches already on the card (each a DeviceBatch with
+    nothing to wait for)."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def __iter__(self):
+        return iter(self.batches)
+
+    def size(self):
+        return sum(len(b.input) for b in self.batches)
+
+    def shuffle(self, seed=None):
+        pass
+
+
+def resnet50_feed_runs(torch, card):
+    """Phase 15 (c): the feed alone, then the graphed ResNet-50 loop fed
+    by it through each staging mode, beside the loop over batches already
+    on the card and cli.perf's graphed step on a resident batch, in
+    cuDNN's default mode (the resident step also in its deterministic
+    mode). Returns (rows, launches of every run)."""
+    import math
+
+    import numpy as np
+
+    from bigdl_tpu_torch.cli import perf
+    from bigdl_tpu_torch.dataset.pipeline import DeviceBatch, wrap_pipeline
+    from bigdl_tpu_torch import ops
+
+    if torch.backends.cudnn.deterministic:
+        fail("[resnet50 feed] cuDNN deterministic is on outside phases "
+             "12-13")
+    make = native_feed(np)
+    rows = {"feed": feed_rates(torch, make, card)}
+    per_epoch = PIPE_IMAGES // RESNET_BATCH
+    steps = PIPE_EPOCHS * per_epoch
+    first = [DeviceBatch(torch.as_tensor(b.input).to(DEV),
+                         torch.as_tensor(b.target).to(DEV))
+             for _, b in zip(range(per_epoch), make())]
+    cases = [("resident on the card", lambda: _Resident(first))]
+    cases += [(f"native --stage {stage}",
+               lambda stage=stage: wrap_pipeline(make(), stage=stage,
+                                                 depth=2)[0])
+              for stage in ("host", "device")]
+    launches = []
+    for tag, build in cases:
+        losses, n, ips, ph = fed_optimizer_run(torch, build(), steps)
+        print(f"[resnet50 feed] Optimizer graphed K={OPT_K}, bf16 batch "
+              f"{RESNET_BATCH}, {tag}, on {card}: {ips:.1f} images/s over "
+              f"epochs 2-{PIPE_EPOCHS}; data_wait "
+              f"{ph.get('data_wait', 0.0):.3f}s, h2d {ph.get('h2d', 0.0):.3f}s,"
+              f" h2d_staged {ph.get('h2d_staged', 0.0):.3f}s, dispatch "
+              f"{ph.get('dispatch', 0.0):.3f}s over {steps} steps; losses "
+              f"{[round(v, 4) for v in losses]}", flush=True)
+        if len(losses) != steps or not all(math.isfinite(v)
+                                           for v in losses):
+            fail(f"[resnet50 feed {tag}] expected {steps} finite losses, "
+                 f"got {losses}")
+        want = dict({k: 0 for k in n}, bn_fwd_apply=53 * steps,
+                    bn_bwd_fused=53 * steps)
+        if n != want:
+            fail(f"[resnet50 feed {tag}] launches {n}, expected {want}")
+        rows[tag] = {"images_per_s": ips, **ph}
+        launches.append(n)
+    del first
+    for det in (False, True):
+        torch.backends.cudnn.deterministic = det
+        try:
+            ops.reset_kernel_launches()
+            res = perf.run("resnet50_fba", batch=RESNET_BATCH,
+                           iterations=steps // OPT_K, dtype=torch.bfloat16,
+                           warmup=1, inner_steps=OPT_K, data_type="random")
+            torch.cuda.synchronize()
+            n = ops.kernel_launches()
+        finally:
+            torch.backends.cudnn.deterministic = False
+        mode = "deterministic" if det else "default"
+        print(f"[resnet50 feed] cli.perf --innerSteps {OPT_K} on a resident "
+              f"batch, cuDNN {mode} mode, on {card}: "
+              f"{res['records_per_second']} images/s", flush=True)
+        total = (1 + steps // OPT_K) * OPT_K
+        want = dict({k: 0 for k in n}, bn_fwd_apply=53 * total,
+                    bn_bwd_fused=53 * total)
+        if n != want or not all(math.isfinite(v) for v in res["losses"]):
+            fail(f"[resnet50 feed] cli.perf resident ({mode}): launches "
+                 f"{n} (expected {want}), losses {res['losses']}")
+        rows[f"cli.perf resident, cuDNN {mode}"] = res["records_per_second"]
+        launches.append(n)
+        torch.cuda.empty_cache()
+    return rows, launches
+
+
+def record_path_run(torch, card, jpeg):
+    """Phase 15 (d): seeded JPEG shards through ``cli.perf --data
+    record:DIR --dataWorkers 8 --stage device`` (ResNet-50 ``_fba``, bf16,
+    batch 128). The shards are written with PIL; where there is no PIL
+    the phase reports that it waits. Returns the run's launches (None
+    when it waits)."""
+    import io
+    import math
+    import tempfile
+
+    import numpy as np
+
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.cli import perf
+    from bigdl_tpu_torch.dataset.recordfile import (RecordWriter,
+                                                    pack_image_record)
+
+    try:
+        from PIL import Image
+    except ImportError:
+        print("[record path] waits: no PIL here to write JPEG shards",
+              flush=True)
+        return None
+    rs = np.random.RandomState(7)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        for s in range(PIPE_JPEGS // 128):
+            with RecordWriter(os.path.join(
+                    tmp, f"rec-{s:05d}-of-{PIPE_JPEGS // 128:05d}.btr")) as w:
+                for _ in range(128):
+                    buf = io.BytesIO()
+                    Image.fromarray(rs.randint(
+                        0, 256, (PIPE_SIDE, PIPE_SIDE, 3)).astype(
+                        np.uint8)).save(buf, format="JPEG", quality=90)
+                    w.write(pack_image_record(int(rs.randint(0, 1000)),
+                                              buf.getvalue()))
+        made = time.perf_counter() - t0
+        ops.reset_kernel_launches()
+        res = perf.run("resnet50_fba", batch=RESNET_BATCH,
+                       iterations=PIPE_RECORD_ITERS, dtype=torch.bfloat16,
+                       warmup=2, data_source=f"record:{tmp}",
+                       data_workers=8, prefetch_depth=2, stage="device")
+        torch.cuda.synchronize()
+        n = ops.kernel_launches()
+    print(f"[record path] {PIPE_JPEGS} seeded JPEGs of {PIPE_SIDE}^2 in "
+          f"{made:.1f}s; cli.perf -m resnet50_fba --data record:DIR "
+          f"--dataWorkers 8 --stage device, bf16 batch {RESNET_BATCH}, "
+          f"JPEG decoded by {'libjpeg' if jpeg else 'PIL'}, on {card}: "
+          f"{res['records_per_second']} images/s; losses "
+          f"{[round(v, 4) for v in res['losses']]}", flush=True)
+    steps = 2 + PIPE_RECORD_ITERS
+    want = dict({k: 0 for k in n}, bn_fwd_apply=53 * steps,
+                bn_bwd_fused=53 * steps)
+    if n != want or not all(math.isfinite(v) for v in res["losses"]):
+        fail(f"[record path] launches {n} (expected {want}), losses "
+             f"{res['losses']}")
+    return n
+
+
+def pipeline_runs(torch, card):
+    """Phase 15: returns (rows of (c), launches of every run)."""
+    jpeg = native_build()
+    launches = pipeline_cifar_runs(torch)
+    rows, n = resnet50_feed_runs(torch, card)
+    launches += n
+    n = record_path_run(torch, card, jpeg)
+    if n is not None:
+        launches.append(n)
+    return rows, launches
+
+
 def main():
     try:
         import torch
@@ -2012,6 +2422,10 @@ def main():
               + resume_runs(torch, card)):
         for name in launches:
             launches[name] += n[name]
+    pipe_rows, pipe_n = pipeline_runs(torch, card)
+    for n in pipe_n:
+        for name in launches:
+            launches[name] += n[name]
     print(f"[bf16] {MODEL} on {card}: {tps:.1f} generated tokens/s over 4 "
           f"concurrent requests, /generate latencies ms "
           f"{[round(x, 1) for x in lat]} (prompts {list(PROMPT_LENS)}, "
@@ -2033,6 +2447,12 @@ def main():
                 f"{res['records_per_second']} images/s")
         print(f"[innerSteps {OPT_K} {tag}] bf16 batch {res['batch']} on "
               f"{card}: {rate}", flush=True)
+
+    for tag, r in pipe_rows.items():
+        print(f"[pipeline] {tag} on {card}: "
+              + (f"{r:.1f} images/s" if isinstance(r, float) else
+                 ", ".join(f"{k} {v:.3f}" for k, v in r.items())),
+              flush=True)
 
     head, bwd = rows[0], bwd_rows[0]  # the training step's 8 x 8 x 1024^2
     common = {"route": "cuda", "check": "pass", "shape": head["shape"],

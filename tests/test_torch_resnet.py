@@ -13,6 +13,7 @@ logits and loss atol 1e-4 and every parameter gradient max|d| <= 1e-4 *
 max|g| (a few layers of such sums); running statistics atol 1e-6."""
 
 import json
+import os
 import logging
 
 import jax
@@ -205,12 +206,41 @@ def test_absorb_bn_relu_matches_jax():
 def test_not_ported_parts_raise():
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         models.resnet50(s2d_stem=True)
-    for argv, item in ((["test", "--model", "x", "--dataset", "imagenet"],
-                        "item 9"),
-                       (["train", "--dataset", "imagenet"], "item 9"),
-                       (["train", "--s2d"], "item 7")):
+    for argv, item in ((["train", "--s2d"], "item 7"),
+                       (["train", "--dataset", "imagenet", "--s2d"],
+                        "item 7")):
         with pytest.raises(SystemExit, match=item):
             resnet_cli.main(argv + ["--platform", "cpu"])
+
+
+def test_imagenet_cli_trains_and_tests(tmp_path, caplog, capsys):
+    """``train --dataset imagenet -f DIR`` (ResNet-18 at 224 x 224 from
+    DIR/train, Top-1 and Top-5 on DIR/val, two steps) and ``test --model``,
+    which prints the training run's last validation lines."""
+    from PIL import Image
+
+    rng = np.random.RandomState(0)
+    for split, n in (("train", 2), ("val", 1)):
+        for cls in ("a", "b"):
+            d = tmp_path / split / cls
+            d.mkdir(parents=True)
+            for i in range(n):
+                Image.fromarray(rng.randint(0, 256, (40, 50, 3)).astype(
+                    np.uint8)).save(d / f"{i}.jpg", quality=90)
+    ck = str(tmp_path / "ck")
+    args = ["--dataset", "imagenet", "-f", str(tmp_path), "--platform",
+            "cpu", "--depth", "18", "--classNum", "5", "-b", "2"]
+    caplog.set_level(logging.INFO, logger="bigdl_tpu_torch")
+    resnet_cli.main(["train"] + args + ["--maxEpoch", "1", "--logEvery",
+                                        "1", "--checkpoint", ck,
+                                        "--dataWorkers", "2"])
+    msgs = [r.getMessage() for r in caplog.records]
+    assert sum(m.startswith("Train 2 in ") for m in msgs) == 2
+    val = [m for m in msgs if m.startswith(("top1 accuracy is ",
+                                            "top5 accuracy is "))]
+    assert len(val) == 2 and "model.2" in os.listdir(ck)
+    resnet_cli.main(["test"] + args + ["--model", ck])
+    assert capsys.readouterr().out.strip().splitlines()[-2:] == val
 
 
 # ------------------------------------------------------------------ models
