@@ -7,7 +7,12 @@
 
 ``/generate`` runs continuous-batching decode over a dense KV cache, or
 a paged one (``--kvPageTokens N|auto``) with the shared-prefix cache
-(``--prefixCache``); ``/predict`` the bucketed full forward, its rows
+(``--prefixCache``), optionally speculative (``--speculate K``, the draft
+the target itself or a seeded ``--draftDims`` model) and quantized
+(``--quantize int8|fp8`` weights, ``kv8`` page pools; the greedy agreement
+and logit error against the full-precision model are measured at start-up
+and stamped into the provenance); ``/predict`` the bucketed full forward,
+its rows
 padded to the prompt ladder's lengths (16 ... max_len). Every prefill
 and every full forward goes through the CUDA flash-attention kernel, and
 on the card the decode step, each prefill bucket and each ``/predict``
@@ -26,15 +31,18 @@ import logging
 
 import numpy as np
 
+from bigdl_tpu_torch.serving.quant import QUANTIZE_CHOICES
+
 __all__ = ["build_parser", "build_app", "main"]
 
 # flags of the JAX package's serve that later slices of the port bring
 _LATER_FLAGS = ("--fleet", "--modelVersion", "--fleetHeartbeatS",
-                "--fleetRestartBudget", "--strategy", "--speculate",
-                "--draftDims", "--quantize", "--classes", "--faultPlan",
-                "--reqTrace", "--reqTraceCapacity", "--slo", "--accessLog",
-                "--logSample", "--autotune", "--fusedBN", "--lint",
-                "--convLayout", "--convGeom")
+                "--fleetRestartBudget", "--strategy", "--classes",
+                "--faultPlan", "--reqTrace", "--reqTraceCapacity", "--slo",
+                "--accessLog", "--logSample", "--autotune", "--fusedBN",
+                "--lint", "--convLayout", "--convGeom")
+# the page sizes --quantize kv8 tries when --kvPageTokens is not given
+_KV8_PAGES = (128, 64, 32, 256)
 
 
 def _parse_buckets(spec: str):
@@ -88,6 +96,24 @@ def build_parser() -> argparse.ArgumentParser:
                    help="share page-aligned prompt-prefix K/V across "
                         "requests (needs --kvPageTokens): a hit copies "
                         "pages and prefills only the suffix")
+    p.add_argument("--speculate", type=int, default=0, metavar="K",
+                   help="speculative decoding: a draft LM proposes K tokens "
+                        "a round and the target verifies them in one "
+                        "chunked step (greedy output is --speculate 0's, "
+                        "token for token); the draft is the target itself "
+                        "unless --draftDims gives a smaller one")
+    p.add_argument("--draftDims", default=None,
+                   metavar="DMODEL,LAYERS,HEADS",
+                   help="dims of a draft LM for --speculate, its weights "
+                        "drawn from a seeded generator (only the accept "
+                        "rate depends on them)")
+    p.add_argument("--quantize", default="off", choices=QUANTIZE_CHOICES,
+                   help="int8/fp8 weights (per-channel symmetric, the "
+                        "dequant folded into each product); kv8 keeps the "
+                        "paged KV pools in int8 with a scale a row (picks "
+                        "a page size when --kvPageTokens is not given). "
+                        "The greedy agreement and logit error against the "
+                        "full-precision model are stamped into provenance")
     p.add_argument("--maxWaiting", type=int, default=64,
                    help="/generate requests that may wait for a slot "
                         "before 429")
@@ -161,6 +187,9 @@ def build_app(args):
                                          MetricsRegistry, MicroBatcher,
                                          ServingApp, Watchdog)
     from bigdl_tpu_torch.serving.graphs import GraphPool
+    from bigdl_tpu_torch.serving.quant import (parse_quantize, quant_report,
+                                               quantize_params, weight_bytes)
+    from bigdl_tpu_torch.serving.spec_decode import parse_draft_dims
 
     later = [f for f in _LATER_FLAGS
              if getattr(args, f"later_{f[2:]}") is not None]
@@ -187,24 +216,60 @@ def build_app(args):
         model, in_shape = build_model(name, seq_len=args.seq)
     if args.checkpoint:
         load_trained(model, args.checkpoint)
-    head_dim = model.encoder[0].mha.head_dim
-    if device.type == "cuda" and head_dim not in SUPPORTED_HEAD_DIMS:
-        raise SystemExit(f"head_dim {head_dim} (--dModel / --numHeads): the "
-                         f"CUDA flash kernel takes {SUPPORTED_HEAD_DIMS}")
+    draft = None
+    if args.speculate < 0:
+        raise SystemExit(f"--speculate {args.speculate} must be >= 0")
+    if args.draftDims and args.speculate:
+        try:
+            dims = parse_draft_dims(args.draftDims)
+        except ValueError as e:
+            raise SystemExit(str(e))
+        draft = TransformerLM(model.vocab, max_len=model.max_len,
+                              attn_impl="flash",
+                              generator=torch.Generator().manual_seed(1),
+                              **dims)
+    for m, what in ((model, "--dModel / --numHeads"), (draft, "--draftDims")):
+        head_dim = m.encoder[0].mha.head_dim if m is not None else None
+        if device.type == "cuda" and head_dim not in (None,) \
+                + SUPPORTED_HEAD_DIMS:
+            raise SystemExit(f"head_dim {head_dim} ({what}): the CUDA "
+                             f"flash kernel takes {SUPPORTED_HEAD_DIMS}")
+    wfmt, kv8 = parse_quantize(args.quantize)
     page_tokens = _page_tokens(args.kvPageTokens, model.max_len)
+    if kv8 and page_tokens is None:
+        # kv8 is a page-pool layout: pick a page size
+        page_tokens = next((c for c in _KV8_PAGES
+                            if model.max_len % c == 0), None)
+        if page_tokens is None:
+            raise SystemExit(f"--quantize {args.quantize}: no page size in "
+                             f"{_KV8_PAGES} divides max_len {model.max_len}; "
+                             f"pass --kvPageTokens")
     if args.prefixCache and page_tokens is None:
         raise SystemExit("--prefixCache needs --kvPageTokens (prefix "
                          "sharing is a page copy)")
     compute_dtype = torch.bfloat16 if args.bf16 else None
     model.compute_dtype = compute_dtype
     model = model.to(device)
+    quant_info = None
+    if args.quantize != "off":
+        # quantize once, and measure the quality against the
+        # full-precision model while it is still here; the engines find
+        # nothing left to quantize
+        qmodel = quantize_params(model, wfmt)
+        quant_info = quant_report(
+            model, qmodel, prompt=list(range(1, min(9, model.vocab))),
+            max_new_tokens=8, kv8=kv8, cache_dtype=compute_dtype)
+        model = qmodel
+    if draft is not None:
+        draft.compute_dtype = compute_dtype
 
     metrics = MetricsRegistry()
     graphs = GraphPool(device)
     # the LM is causal: /predict rows pad to the prompt ladder's lengths
     engine = InferenceEngine(model, buckets=_parse_buckets(args.buckets),
                              lengths=serving_prefill_buckets(model.max_len),
-                             metrics=metrics, device=device, graphs=graphs)
+                             metrics=metrics, device=device, graphs=graphs,
+                             quantize=args.quantize)
     if graphs.enabled or not args.no_warmup:
         print(f"warmup: buckets {engine.buckets} at lengths "
               f"{engine.lengths} int32", flush=True)
@@ -212,7 +277,9 @@ def build_app(args):
     decoder = DecodeEngine(model, slots=args.slots, cache_dtype=compute_dtype,
                            max_waiting=args.maxWaiting, metrics=metrics,
                            device=device, kv_page_tokens=page_tokens,
-                           prefix_cache=args.prefixCache, graphs=graphs)
+                           prefix_cache=args.prefixCache,
+                           speculate=args.speculate, draft_model=draft,
+                           quantize=args.quantize, graphs=graphs)
     batcher = MicroBatcher(engine.predict_scores, max_batch=args.maxBatch,
                            max_wait_ms=args.maxWaitMs,
                            max_queue=args.maxQueue, metrics=metrics)
@@ -234,7 +301,14 @@ def build_app(args):
         "kv_page_tokens": page_tokens or "dense",
         "prefix_cache": bool(args.prefixCache),
         "cuda_graphs": graphs.enabled,
+        "speculate": args.speculate,
+        "draft": (args.draftDims or "self") if args.speculate else "none",
+        "weight_bytes": weight_bytes(model),
     })
+    if quant_info is not None:
+        prov["quant_agreement"] = round(float(quant_info["agreement"]), 4)
+        prov["quant_logit_max_err"] = round(
+            float(quant_info["logit_max_err"]), 6)
     metrics.set_provenance(prov)
     app = ServingApp(name=name, metrics=metrics, engine=engine,
                      batcher=batcher, decoder=decoder,

@@ -77,6 +77,23 @@ class TransformedDataSet(DataSet):
     def shuffle(self, seed=None):
         self.base.shuffle(seed)
 
+    def skip_epoch(self) -> None:
+        """Replay a finished epoch: the base's order, and the draws its
+        stages made once a batch (Mixup, CutMix), so a resumed run mixes
+        the batches the stopped run would have. Without the data where the
+        base knows its batches' shapes and every stage can replay its
+        draws (:meth:`Transformer.skip`); otherwise by running the epoch's
+        host side once, then ``shuffle()``."""
+        shapes = getattr(self.base, "epoch_batch_shapes", None)
+        if shapes is None or not self.t.skippable:
+            for _ in self:
+                pass
+            self.shuffle()
+            return
+        self.base.skip_epoch()
+        for shape in shapes():
+            self.t.skip(1, shape)
+
 
 class LocalArrayDataSet(DataSet):
     """In-memory samples; with ``shuffle`` each iteration draws a fresh
@@ -132,3 +149,10 @@ class BatchDataSet(DataSet):
 
     def size(self):
         return len(self.features)
+
+    def epoch_batch_shapes(self) -> list:
+        """The input shapes of an epoch's batches, in order."""
+        n, bs = len(self.features), self.batch_size
+        end = (n - bs + 1) if self.drop_remainder else n
+        return [(min(bs, n - i),) + self.features.shape[1:]
+                for i in range(0, max(end, 0), bs)]

@@ -29,11 +29,19 @@ class Mixup(Transformer):
     loss.
     """
 
+    skippable = True
+
     def __init__(self, alpha: float = 0.2, seed: int = 0):
         if alpha <= 0:
             raise ValueError(f"alpha must be > 0, got {alpha}")
         self.alpha = alpha
         self._rng = np.random.RandomState(seed)
+
+    def skip(self, n_batches: int, batch_shape: tuple) -> None:
+        """One ``beta`` and one ``permutation`` of the records a batch."""
+        for _ in range(n_batches):
+            self._rng.beta(self.alpha, self.alpha)
+            self._rng.permutation(batch_shape[0])
 
     def __call__(self, it: Iterator) -> Iterator:
         for mb in it:
@@ -52,11 +60,23 @@ class CutMix(Transformer):
     area fraction), so :class:`MixupCriterion` serves both. Expects NHWC
     image batches."""
 
+    skippable = True
+
     def __init__(self, alpha: float = 1.0, seed: int = 0):
         if alpha <= 0:
             raise ValueError(f"alpha must be > 0, got {alpha}")
         self.alpha = alpha
         self._rng = np.random.RandomState(seed)
+
+    def skip(self, n_batches: int, batch_shape: tuple) -> None:
+        """Mixup's two draws a batch, then the box centre's two
+        ``randint`` within the images' height and width (NHWC)."""
+        n, h, w = batch_shape[:3]
+        for _ in range(n_batches):
+            self._rng.beta(self.alpha, self.alpha)
+            self._rng.permutation(n)
+            self._rng.randint(0, h)
+            self._rng.randint(0, w)
 
     def __call__(self, it: Iterator) -> Iterator:
         for mb in it:

@@ -15,10 +15,24 @@ __all__ = ["Transformer", "ChainedTransformer", "FnTransformer"]
 
 
 class Transformer:
-    """Iterator -> Iterator stage. Subclasses implement __call__."""
+    """Iterator -> Iterator stage. Subclasses implement __call__.
+
+    A stage whose random draws depend only on how many batches it sees and
+    their shapes sets ``skippable`` and implements :meth:`skip`, so a
+    resumed run can replay a finished epoch's draws without its data."""
+
+    skippable = False
 
     def __call__(self, it: Iterator) -> Iterator:
         raise NotImplementedError
+
+    def skip(self, n_batches: int, batch_shape: tuple) -> None:
+        """Make the draws ``__call__`` makes over ``n_batches`` batches
+        whose inputs have ``batch_shape`` (records first), without the
+        data."""
+        raise NotImplementedError(
+            f"{type(self).__name__} cannot replay its draws without the "
+            f"data")
 
     def __rshift__(self, other: "Transformer") -> "ChainedTransformer":
         """Compose: (a >> b)(it) == b(a(it)) (reference Transformer.-> :44)."""
@@ -36,6 +50,14 @@ class ChainedTransformer(Transformer):
 
     def __call__(self, it: Iterator) -> Iterator:
         return self.last(self.first(it))
+
+    @property
+    def skippable(self) -> bool:
+        return self.first.skippable and self.last.skippable
+
+    def skip(self, n_batches: int, batch_shape: tuple) -> None:
+        self.first.skip(n_batches, batch_shape)
+        self.last.skip(n_batches, batch_shape)
 
 
 class FnTransformer(Transformer):

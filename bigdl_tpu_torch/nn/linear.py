@@ -48,7 +48,9 @@ class Linear(nn.Module):
 
 class LookupTable(nn.Module):
     """Embedding lookup: ``weight`` (n_index, n_output), init N(0, 1),
-    0-based indices. ``max_norm`` is not ported (the LM does not use it)."""
+    0-based indices. ``max_norm`` is not ported (the LM does not use it).
+    A quantized weight (``serving.quant``) gathers its 8-bit rows, then
+    scales them."""
 
     def __init__(self, n_index: int, n_output: int,
                  generator: Optional[torch.Generator] = None):
@@ -58,4 +60,7 @@ class LookupTable(nn.Module):
             generator=generator))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        take_rows = getattr(self.weight, "take_rows", None)
+        if take_rows is not None:
+            return take_rows(x)
         return self.weight[x.long()]

@@ -20,18 +20,33 @@
 * **shared-prefix cache** (``prefix_cache``, needs paging) — a prompt
   whose page-aligned prefix is cached copies those pages and prefills
   only its suffix (``serving.prefix_cache``).
+* **speculative decoding** (``speculate=K``) — a draft LM (the target
+  itself by default, "self-draft") proposes up to K tokens a round with
+  single-token steps over its own dense cache; the target scores them and
+  the position after them in one chunked verify, and
+  ``spec_decode.accept_chunk`` keeps greedy output token for token that
+  of plain decoding and sampled output distributed as the target's. Each
+  slot emits 1 to K+1 tokens a round; the first token is sampled at
+  install.
+* **quantized serving** (``quantize``) — int8 or fp8 weights
+  (``serving.quant``, the dequant folded into each product), and ``kv8``
+  page pools of int8 rows with f32 scales (``serving.kv_pages``; needs
+  paging).
 
-On the card every prefill bucket, every suffix bucket and both decode
+On the card every prefill bucket, every suffix bucket and the decode
 programs are CUDA graphs over static buffers (``serving.graphs``),
-captured when the engine is built. A step then is one replay and one
-device-to-host copy, of the sampled tokens; ``pos`` advances inside the
-graph, and the host keeps a mirror of it. ``graphs=False`` runs the same
-code eagerly, as it always runs on the CPU.
+captured when the engine is built: the two plain steps, or, speculative,
+the draft's prefill buckets, its step and the verify-and-accept program
+of every chunk length 1..K+1. A plain step is one replay and one
+device-to-host copy, of the sampled tokens; a speculative round is m
+draft replays, one verify-and-accept replay and one copy, of the emitted
+tokens and counts. ``pos`` advances inside the graphs, and the host keeps
+a mirror of it. ``graphs=False`` runs the same code eagerly, as it always
+runs on the CPU.
 
 Greedy decoding equals the offline ``TransformerLM.generate``: both run
 ``prefill_logits`` and then ``decode_logits``, and paged decode runs the
-dense arithmetic on each layer's gathered view. Speculative decoding and
-quantization come in later slices.
+dense arithmetic on each layer's gathered view.
 """
 
 from __future__ import annotations
@@ -48,11 +63,13 @@ import torch
 from bigdl_tpu_torch.core.module import resolve_device
 from bigdl_tpu_torch.ops import serving_prefill_buckets
 from bigdl_tpu_torch.serving import kv_pages as _kvp
+from bigdl_tpu_torch.serving import quant as _q
 from bigdl_tpu_torch.serving.batcher import (AdmissionError, DeadlineExceeded,
                                              WorkerDied, _Future)
 from bigdl_tpu_torch.serving.graphs import GraphPool, GraphSet
 from bigdl_tpu_torch.serving.prefix_cache import PrefixCache
-from bigdl_tpu_torch.serving.sampling import sample_tokens
+from bigdl_tpu_torch.serving.sampling import sample_token, sample_tokens
+from bigdl_tpu_torch.serving.spec_decode import accept_chunk, draft_propose
 
 logger = logging.getLogger(__name__)
 
@@ -79,11 +96,6 @@ class DecodeRequest:
         self.rid = rid
 
 
-def _later(name: str) -> NotImplementedError:
-    return NotImplementedError(f"{name} is not ported yet (a later slice "
-                               f"of the PyTorch port)")
-
-
 class DecodeEngine:
     """Continuous-batching decoder over ``slots`` on ``device`` (CUDA
     unless the caller asks for the CPU).
@@ -95,36 +107,51 @@ class DecodeEngine:
 
     ``submit`` prefills into a free slot or queues up to ``max_waiting``
     requests, rejecting beyond that (:class:`AdmissionError`, HTTP 429).
-    ``step`` advances every active slot by one token. Without a worker
-    thread the caller drives ``step``; ``start()`` runs the decode loop
-    for the HTTP server. ``graphs``: True (the engine's own
+    ``step`` advances every active slot by one token, or, speculative, by
+    one round of 1 to ``speculate + 1`` tokens. Without a worker thread
+    the caller drives ``step``; ``start()`` runs the decode loop for the
+    HTTP server. ``graphs``: True (the engine's own
     :class:`~bigdl_tpu_torch.serving.graphs.GraphPool`), False (eager), or
     a pool shared with an
-    :class:`~bigdl_tpu_torch.serving.engine.InferenceEngine`."""
+    :class:`~bigdl_tpu_torch.serving.engine.InferenceEngine`.
+
+    ``speculate``: the draft's chunk length K (0: plain decoding);
+    ``draft_model`` the proposer, by default the target itself. The
+    draft keeps its own dense cache in its own compute dtype, also when
+    the target's is paged. ``quantize``: a ``--quantize`` mode
+    (``serving.quant.QUANTIZE_CHOICES``); the engine serves a quantized
+    copy of the model (and of a distinct draft), and ``kv8`` needs
+    ``kv_page_tokens``. ``off`` or None serves the model as it is."""
 
     def __init__(self, model, *, slots: int = 4, cache_dtype=None,
                  max_waiting: int = 64, metrics=None, clock=None,
                  device="cuda", kv_page_tokens: Optional[int] = None,
                  pool_pages: Optional[int] = None,
                  prefix_cache: bool = False,
-                 speculate: int = 0, quantize: Optional[str] = None,
+                 speculate: int = 0, draft_model=None,
+                 quantize: Optional[str] = None,
                  graphs: Union[bool, GraphPool] = True):
-        for flag, name in ((speculate, "speculative decoding (speculate)"),
-                           (quantize not in (None, "off"), "quantize")):
-            if flag:
-                raise _later(name)
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
+        if speculate < 0:
+            raise ValueError(f"speculate must be >= 0, got {speculate}")
         self.page_tokens = int(kv_page_tokens) if kv_page_tokens else None
         self.paged = self.page_tokens is not None
         if prefix_cache and not self.paged:
             raise ValueError("prefix_cache requires kv_page_tokens "
                              "(prefix sharing is a page copy)")
+        self.quantize = quantize or "off"
+        wfmt, kv8 = _q.parse_quantize(quantize)
+        if kv8 and not self.paged:
+            raise ValueError("--quantize kv8 requires kv_page_tokens "
+                             "(8-bit KV is a page-pool layout)")
         self.device = dev = resolve_device(device)
         self.clock = clock or time.monotonic
         self._worker_error: Optional[BaseException] = None
         self._last_beat = self.clock()
-        self.model = model.to(dev).eval()
+        model = _q.quantize_params(model.to(dev), wfmt)
+        self.model = model.eval()
+        self.speculate = K = int(speculate)
         self.slots = S = int(slots)
         self.max_len = int(model.max_len)
         self.cache_dtype = cache_dtype or model.compute_dtype or torch.float32
@@ -147,7 +174,8 @@ class DecodeEngine:
             self._kv = _kvp.PagedKvCache(
                 model.encoder, slots=S, max_len=self.max_len,
                 page_tokens=self.page_tokens, dtype=self.cache_dtype,
-                device=dev, pool_pages=pool_pages, extra_pages=extra)
+                device=dev, pool_pages=pool_pages, extra_pages=extra,
+                quantized=kv8)
             self._cache = None
         else:
             self._kv = None
@@ -171,6 +199,30 @@ class DecodeEngine:
         self._rows = {n: zeros(1, n) for n in
                       set(self.prompt_buckets) | set(self.suffix_buckets)}
 
+        # ---- speculative: the draft, its dense cache (and one-slot
+        # prefill cache), and the round's buffers: each slot's pending
+        # feed, the round's draft step j, the proposals and their q rows,
+        # and the round's output (emitted tokens, then n_emit and
+        # n_accept)
+        self.draft_model = self._dcache = None
+        if K:
+            draft = (self.model if draft_model is None else
+                     _q.quantize_params(draft_model.to(dev), wfmt).eval())
+            if draft.vocab != model.vocab or draft.max_len < self.max_len:
+                raise ValueError(
+                    f"the draft (vocab {draft.vocab}, max_len "
+                    f"{draft.max_len}) must share the target's vocabulary "
+                    f"({model.vocab}) and cover its max_len "
+                    f"({self.max_len})")
+            self.draft_model = draft
+            ddt = draft.compute_dtype or torch.float32
+            self._dcache = draft.init_cache(S, self.max_len, ddt)
+            self._dcache1 = draft.init_cache(1, self.max_len, ddt)
+            self._pending, self._j = zeros(S), zeros(1)
+            self._props = zeros(S, K + 1)
+            self._q = zeros(S, K + 1, model.vocab, dtype=torch.float32)
+            self._round = zeros(S, K + 3)
+
         self._pool = (graphs if isinstance(graphs, GraphPool)
                       else GraphPool(dev, enabled=graphs))
         self.graphs = GraphSet(self._pool)
@@ -180,6 +232,7 @@ class DecodeEngine:
     # -------------------------------------------------------------- metrics
     def _init_metrics(self, metrics) -> None:
         self.metrics = metrics
+        self._m_spec_prop = self._m_spec_acc = self._m_draft_steps = None
         if metrics is None:
             self._m_tokens = self._m_steps = self._m_prefills = None
             self._m_prompt_tokens = self._m_rejected = None
@@ -188,7 +241,8 @@ class DecodeEngine:
         self._m_tokens = metrics.counter(
             "generated_tokens_total", "decode tokens emitted")
         self._m_steps = metrics.counter(
-            "decode_steps_total", "batched decode steps executed")
+            "decode_steps_total",
+            "batched target decode steps or verify rounds executed")
         self._m_prefills = metrics.counter(
             "prefills_total", "prompt prefills executed (prefix hits too)")
         self._m_prompt_tokens = metrics.counter(
@@ -220,6 +274,21 @@ class DecodeEngine:
         metrics.gauge("kv_cache_bytes", what, fn=self.kv_bytes)
         metrics.gauge("kv_cache_bytes_per_slot", what + " / slots",
                       fn=lambda: self.kv_bytes() / self.slots)
+        if self.speculate:
+            self._m_spec_prop = metrics.counter(
+                "spec_proposed_total", "draft tokens proposed")
+            self._m_spec_acc = metrics.counter(
+                "spec_accepted_total", "draft tokens accepted by verify")
+            self._m_draft_steps = metrics.counter(
+                "spec_draft_steps_total", "draft-model decode steps")
+            metrics.gauge("spec_accept_rate",
+                          "accepted / proposed draft tokens",
+                          fn=lambda: (self._m_spec_acc.value
+                                      / max(self._m_spec_prop.value, 1)))
+            metrics.gauge("spec_accepted_tokens_per_step",
+                          "tokens emitted per target verify step",
+                          fn=lambda: (self._m_tokens.value
+                                      / max(self._m_steps.value, 1)))
         if self.paged:
             metrics.gauge("kv_pages_in_use", "KV pool pages handed out",
                           fn=self.kv_pages_in_use)
@@ -308,12 +377,81 @@ class DecodeEngine:
             self._pos_d.add_(self._live)
         return fn
 
+    def _draft_prefill_fn(self, b: int):
+        """The draft's prefill of the ``b``-token row into its one-slot
+        cache (its logits are not needed), then the copy of the first
+        ``b`` positions into slot ``_slot`` of its dense cache."""
+        draft, row, cache1 = self.draft_model, self._rows[b], self._dcache1
+
+        def fn():
+            draft.encoder.prefill(draft.embed_at(row, 0), cache1)
+            for full, one in zip(self._dcache, cache1):
+                for k in full:
+                    full[k][:, :, :b].index_copy_(0, self._slot,
+                                                  one[k][:, :, :b])
+        return fn
+
+    def _draft_step_fn(self):
+        """Draft step j of a round over every slot: feed the pending token
+        (j = 0) or proposal j-1 at ``_pos_d + j``, propose, and keep the
+        proposal and its q row in column j."""
+        draft, last = self.draft_model, self.speculate
+
+        def fn():
+            j = self._j.clamp(max=last)
+            feed = torch.cat([self._pending[:, None], self._props],
+                             dim=1).index_select(1, j)
+            pos = self._pos_d + j
+            lg = draft.decode_logits(feed, self._dcache, pos).float()
+            prop, q = draft_propose(lg, self._temp, self._topk, self._topp,
+                                    self._seed, pos)
+            self._props.index_copy_(1, j, prop[:, None])
+            self._q.index_copy_(1, j, q[:, None])
+            self._j.add_(1)
+        return fn
+
+    def _verify_fn(self, m: int):
+        """A round's end for chunk length ``m``: the target verifies the
+        pending feeds and the first m-1 proposals at ``_pos_d``, the
+        acceptance rule picks what each slot emits, the live slots advance
+        by it, and the next round's pending token and draft step are
+        set."""
+        model, K = self.model, self.speculate
+
+        def fn():
+            props, q = self._props[:, :m - 1], self._q[:, :m - 1]
+            chunk = torch.cat([self._pending[:, None], props], dim=1)
+            if self.paged:
+                lg = _kvp.paged_verify_logits(model, chunk, self._kv.pools,
+                                              self._kv.page_table,
+                                              self._pos_d)
+            else:
+                lg = model.verify_logits(chunk, self._cache, self._pos_d)
+            emitted, n_emit, n_acc = accept_chunk(
+                lg.float(), q, props, self._temp, self._topk, self._topp,
+                self._seed, self._pos_d)
+            self._round[:, :m].copy_(emitted)
+            self._round[:, K + 1].copy_(n_emit)
+            self._round[:, K + 2].copy_(n_acc)
+            self._pos_d.add_(n_emit * self._live)
+            self._pending.copy_(emitted.gather(1, (n_emit - 1)[:, None])[:, 0])
+            self._j.zero_()
+        return fn
+
     def _programs(self) -> dict:
         progs = {("prefill", b): self._prefill_fn(b)
                  for b in self.prompt_buckets}
         progs.update({("suffix", m): self._suffix_fn(m)
                       for m in self.suffix_buckets})
-        progs.update({("step", w): self._step_fn(w) for w in (False, True)})
+        if not self.speculate:
+            progs.update({("step", w): self._step_fn(w)
+                          for w in (False, True)})
+            return progs
+        progs.update({("draft prefill", b): self._draft_prefill_fn(b)
+                      for b in self.prompt_buckets})
+        progs[("draft",)] = self._draft_step_fn()
+        progs.update({("verify", m): self._verify_fn(m) for m in
+                      range(1, min(self.speculate + 1, self.max_len) + 1)})
         return progs
 
     @torch.no_grad()
@@ -332,6 +470,9 @@ class DecodeEngine:
                     self.graphs.capture(key, fn)
             self._logits.zero_()
             self._pos_d.zero_()
+            if self.speculate:
+                self._pending.zero_()
+                self._j.zero_()
 
     @torch.no_grad()
     def _run(self, key) -> None:
@@ -424,12 +565,17 @@ class DecodeEngine:
     def _admit(self) -> None:
         """Install waiting requests into free slots in FIFO order (lock
         held). A paged reservation that fails leaves the request at the
-        head of the queue, to retry when a slot frees its pages."""
+        head of the queue, to retry when a slot frees its pages. (An
+        install may finish its request at once, speculative, and admit
+        the next itself.)"""
         while self._waiting:
             slot = self._free_slot()
-            if slot is None or not self._install(self._waiting[0], slot):
+            if slot is None:
                 return
-            self._waiting.popleft()
+            req = self._waiting.popleft()
+            if not self._install(req, slot):
+                self._waiting.appendleft(req)
+                return
 
     # -------------------------------------------------------------- prefill
     @torch.no_grad()
@@ -459,12 +605,32 @@ class DecodeEngine:
             self._topk[slot].fill_(req.top_k)
             self._topp[slot].fill_(req.top_p)
             self._seed[slot].fill_(req.seed)
+            if self.speculate:
+                tok0 = self._install_draft(req, slot)
         self._pos[slot] = s
         self._reqs[slot] = req
         if self._m_prefills is not None:
             self._m_prefills.inc()
             self._m_prompt_tokens.inc(s - n_pfx)
+        if self.speculate:
+            # the first token is emitted now and fed as the first round's
+            # pending token: the plain step's first draw (seed, pos s)
+            self._emit(req, slot, [tok0])
         return True
+
+    def _install_draft(self, req, slot: int) -> int:
+        """Speculative install (lock and pool held): the draft prefills the
+        whole prompt into its cache (a prefix hit too); the first token is
+        drawn from the target's logits and becomes the slot's pending feed.
+        Returns it."""
+        s = len(req.tokens)
+        b = self.prompt_bucket_for(s)
+        self._stage(b, req.tokens)
+        self._run(("draft prefill", b))
+        tok0 = sample_token(self._logits[slot], req.temperature, req.top_k,
+                            req.top_p, req.seed, s)
+        self._pending[slot].fill_(tok0)
+        return tok0
 
     def _stage(self, n: int, tokens) -> None:
         """Right-pad ``tokens`` to ``n`` into the static row of length n."""
@@ -499,15 +665,22 @@ class DecodeEngine:
         self._pfx.commit_insert(key, dst, len(dst) * self.page_tokens)
 
     # ------------------------------------------------------------- emission
-    def _emit(self, req, slot: int, tok: int) -> None:
-        """Append one generated token to ``req`` (lock held); a finished
-        request resolves and hands its slot to the next waiting one."""
-        req.out.append(int(tok))
+    def _emit(self, req, slot: int, toks) -> None:
+        """Append generated tokens to ``req`` up to its budget or stop
+        token (lock held); a finished request resolves and hands its slot
+        to the next waiting one."""
+        done, n = False, 0
+        for tok in toks:
+            req.out.append(int(tok))
+            n += 1
+            if (len(req.out) >= req.max_new_tokens
+                    or (req.stop_token is not None
+                        and int(tok) == req.stop_token)):
+                done = True
+                break
         if self._m_tokens is not None:
-            self._m_tokens.inc()
-        if (len(req.out) >= req.max_new_tokens
-                or (req.stop_token is not None
-                    and int(tok) == req.stop_token)):
+            self._m_tokens.inc(n)
+        if done:
             self._release_slot(slot)
             req.future.set_result(list(req.out))
             self._admit()
@@ -543,7 +716,9 @@ class DecodeEngine:
     def cancel(self, rid: str, reason: str = "client disconnected") -> bool:
         """Drop the request ``rid`` wherever it is (waiting or in a slot),
         freeing its slot and pages for the next waiting request. True iff
-        found."""
+        found. ``step`` holds the engine lock for a whole round (draft
+        feeds, verify, acceptance and emission), so a cancel waits for the
+        round to end and never frees pages a verify still writes."""
         if rid is None:
             return False
         with self._lock:
@@ -568,14 +743,17 @@ class DecodeEngine:
 
     # ---------------------------------------------------------------- step
     def step(self) -> int:
-        """One batched decode step: every active slot emits one token.
-        Returns the number of slots advanced (0 = idle)."""
+        """One batched decode step: every active slot emits one token, or,
+        speculative, one round of 1 to K+1. Returns the number of slots
+        advanced (0 = idle)."""
         with self._lock:
             self._last_beat = self.clock()
             self._expire(self.clock())
             active = [i for i, r in enumerate(self._reqs) if r is not None]
             if not active:
                 return 0
+            if self.speculate:
+                return self._step_spec(active)
             return self._step_plain(active)
 
     def _needs_warp(self, active) -> bool:
@@ -590,7 +768,29 @@ class DecodeEngine:
             self._m_steps.inc()
         for i in active:
             self._pos[i] += 1
-            self._emit(self._reqs[i], i, toks[i])
+            self._emit(self._reqs[i], i, [toks[i]])
+        return len(active)
+
+    def _step_spec(self, active) -> int:
+        """One speculative round: m draft steps (the pending feed, then
+        m-1 proposals), one chunked verify with acceptance, and 1..m
+        tokens emitted a slot; m = K+1 cut to the cache's tail."""
+        K = self.speculate
+        m = min(K + 1, self.max_len - max(int(self._pos[i]) for i in active))
+        with self._pool.work():
+            for _ in range(m):
+                self._run(("draft",))
+            self._run(("verify", m))
+            out = self._round.tolist()  # the round's one device-to-host copy
+        if self._m_steps is not None:
+            self._m_steps.inc()
+            self._m_spec_prop.inc((m - 1) * len(active))
+            self._m_spec_acc.inc(sum(out[i][K + 2] for i in active))
+            self._m_draft_steps.inc(m * len(active))
+        for i in active:
+            n = out[i][K + 1]
+            self._pos[i] += n
+            self._emit(self._reqs[i], i, out[i][:n])
         return len(active)
 
     def generate(self, tokens, max_new_tokens: int, temperature: float = 0.0,
@@ -606,6 +806,37 @@ class DecodeEngine:
                     raise RuntimeError(
                         "decode engine idle with unresolved request")
         return fut.result()
+
+    def debug_snapshot(self) -> dict:
+        """The slot table, the waiting queue's depth, ``speculate`` and,
+        paged, the page pool's occupancy (the JAX package's /debug/slots
+        body, without its tracing fields)."""
+        with self._lock:
+            slots = [{"slot": i, "state": "free"} if req is None else
+                     {"slot": i, "state": "active", "rid": req.rid,
+                      "pos": int(self._pos[i]),
+                      "prompt_tokens": len(req.tokens),
+                      "tokens_out": len(req.out),
+                      "max_new": req.max_new_tokens,
+                      "pages": (len(self._kv.slot_pages[i]) if self.paged
+                                else None)}
+                     for i, req in enumerate(self._reqs)]
+            out = {"slots": slots, "slots_total": self.slots,
+                   "slots_active": sum(r is not None for r in self._reqs),
+                   "waiting": len(self._waiting),
+                   "max_waiting": self.max_waiting,
+                   "speculate": self.speculate, "quantize": self.quantize,
+                   "worker_up": self._worker_error is None,
+                   "kv": {"paged": self.paged}}
+            if self.paged:
+                out["kv"].update({
+                    "page_tokens": self.page_tokens,
+                    "pool_pages": self._kv.pool_pages,
+                    "pages_in_use": self._kv.alloc.pages_in_use,
+                    "free_pages": self._kv.alloc.free_pages,
+                    "allocated_bytes": self._kv.allocated_bytes(),
+                    "bytes_per_page": self._kv.bytes_per_page})
+        return out
 
     # ------------------------------------------------------ watchdog surface
     def alive(self) -> bool:

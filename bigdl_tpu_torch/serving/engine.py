@@ -17,8 +17,10 @@ replays, and its output is copied to the host. ``warmup`` captures every
 bucket at every geometry it serves, before any serving thread starts;
 after it, ``validate`` refuses any other geometry, so the graphs and the
 memory they hold are fixed at start-up. Every graph writes its output
-into one buffer, sized by the largest, which is captured first. Quantize,
-mesh placement and the lint pre-flight are not ported yet.
+into one buffer, sized by the largest, which is captured first.
+``quantize`` serves a copy of the module with int8 or fp8 weights
+(``serving.quant``). Mesh placement and the lint pre-flight are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.core.module import resolve_device
+from bigdl_tpu_torch.serving import quant as _q
 from bigdl_tpu_torch.serving.graphs import GraphPool, GraphSet
 
 __all__ = ["InferenceEngine"]
@@ -43,15 +46,21 @@ class InferenceEngine:
     buckets of a causal module (axis 1 of its input and output), or None.
     ``graphs``: True (the engine's own
     :class:`~bigdl_tpu_torch.serving.graphs.GraphPool`), False (eager), or
-    a pool shared with a decode engine."""
+    a pool shared with a decode engine. ``quantize``: a ``--quantize``
+    mode; its weight format (int8, fp8) is served, the kv8 part is the
+    decode engine's."""
 
     def __init__(self, module, *, buckets: Sequence[int] = (1, 2, 4, 8, 16,
                                                             32),
                  lengths: Optional[Sequence[int]] = None,
                  metrics=None, device="cuda",
-                 graphs: Union[bool, GraphPool] = True):
+                 graphs: Union[bool, GraphPool] = True,
+                 quantize: Optional[str] = None):
         self.device = resolve_device(device)
-        self.module = module.to(self.device).eval()
+        self.quantize = quantize or "off"
+        wfmt, _ = _q.parse_quantize(quantize)
+        self.module = _q.quantize_params(module.to(self.device),
+                                         wfmt).eval()
         pool = (graphs if isinstance(graphs, GraphPool)
                 else GraphPool(self.device, enabled=graphs))
         self.graphs = GraphSet(pool)
@@ -228,7 +237,7 @@ class InferenceEngine:
         dtype = getattr(self.module, "compute_dtype", None) or torch.float32
         prov = {"buckets": ",".join(str(b) for b in self.buckets),
                 "compute_dtype": str(dtype).replace("torch.", ""),
-                "device": str(self.device)}
+                "device": str(self.device), "quantize": self.quantize}
         if self.lengths:
             prov["length_buckets"] = ",".join(str(n) for n in self.lengths)
         return prov

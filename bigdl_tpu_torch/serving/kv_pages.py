@@ -1,5 +1,5 @@
 """Paged KV cache for the continuous-batching decoder (counterpart of
-``bigdl_tpu/serving/kv_pages.py``, without the 8-bit pools).
+``bigdl_tpu/serving/kv_pages.py``).
 
 Each layer's K and V live in a pool of fixed-size pages of
 ``page_tokens`` tokens, and every slot owns the pages its token budget
@@ -22,6 +22,12 @@ only its pages instead of ``max_len`` positions.
   :func:`paged_verify_logits` runs a model's chunked decode over the
   pages, one layer's gathered view at a time.
 
+**8-bit pools** (``kv8``, :class:`QuantPool`) hold int8 rows with one f32
+scale a row: the write functions quantize (:func:`kv_quant_rows`), the
+gathers dequantize into the view's dtype, and :func:`copy_pages` copies
+both planes as they are, so a prefix-cache hit reads the bits its miss
+wrote.
+
 ``page_tokens`` must divide ``max_len``, so a gathered view is exactly
 ``max_len`` positions and decode runs the dense path's arithmetic on it.
 The page table lives on the device (the decode graphs read it) with a
@@ -36,21 +42,64 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-__all__ = ["PageAllocator", "PagedKvCache", "gather_cache", "gather_layer",
-           "scatter_tokens", "scatter_pages", "copy_pages", "pages_needed",
-           "paged_verify_logits"]
+__all__ = ["PageAllocator", "PagedKvCache", "QuantPool", "gather_cache",
+           "gather_layer", "scatter_tokens", "scatter_pages", "copy_pages",
+           "pages_needed", "paged_verify_logits", "kv_quant_rows"]
 
 
 def pages_needed(tokens: int, page_tokens: int) -> int:
     return -(-int(tokens) // int(page_tokens))
 
 
+# ---------------------------------------------------------- 8-bit pools
+class QuantPool:
+    """One layer's K (or V) pool in 8 bits: ``q`` the int8 pool
+    (pool_pages, kv_heads, page_tokens, head_dim) and ``s`` its f32 scale
+    plane (pool_pages, kv_heads, page_tokens), one symmetric scale a
+    stored row over head_dim. ``view_dtype`` is the dtype a gather
+    dequantizes to (the engine's cache dtype, so the attention after the
+    gather is the dense path's). A page costs ``kh*pt*(hd + 4)`` bytes
+    instead of ``kh*pt*hd*itemsize``."""
+
+    __slots__ = ("q", "s", "view_dtype")
+
+    def __init__(self, q: torch.Tensor, s: torch.Tensor, view_dtype):
+        self.q, self.s, self.view_dtype = q, s, view_dtype
+
+    @property
+    def shape(self) -> torch.Size:
+        return self.q.shape
+
+    def page_bytes(self) -> int:
+        return (self.q[0].numel() * self.q.element_size()
+                + self.s[0].numel() * self.s.element_size())
+
+    def __repr__(self):
+        return f"QuantPool(q={tuple(self.q.shape)}, view={self.view_dtype})"
+
+
+def kv_quant_rows(vals: torch.Tensor):
+    """K/V rows (..., head_dim) in the kv8 format: ``(q int8, s f32)``, one
+    symmetric scale a row over head_dim, ``s`` shaped ``vals.shape[:-1]``
+    (``serving.quant.kv_fake_quant`` round-trips through it)."""
+    v = vals.float()
+    s = v.abs().amax(dim=-1).clamp_min(1e-8) / 127.0
+    q = torch.round(v / s[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, s
+
+
 # ---------------------------------------------------------- device helpers
-def gather_layer(pool: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
-    """One pool (pool_pages, kv_heads, page_tokens, head_dim) gathered at
-    ``pages`` (..., max_pages) -> (..., kv_heads, max_pages*page_tokens,
-    head_dim), a fresh tensor."""
-    x = pool[pages.long()]                     # (..., mp, kh, pt, hd)
+def gather_layer(pool, pages: torch.Tensor) -> torch.Tensor:
+    """One pool (pool_pages, kv_heads, page_tokens, head_dim), a tensor or
+    a :class:`QuantPool`, gathered at ``pages`` (..., max_pages) ->
+    (..., kv_heads, max_pages*page_tokens, head_dim), a fresh tensor
+    (dequantized into ``view_dtype`` from an 8-bit pool)."""
+    idx = pages.long()
+    if isinstance(pool, QuantPool):
+        x = (pool.q[idx].float() * pool.s[idx][..., None]).to(
+            pool.view_dtype)
+    else:
+        x = pool[idx]                          # (..., mp, kh, pt, hd)
     *lead, mp, kh, pt, hd = x.shape
     return x.transpose(-4, -3).reshape(*lead, kh, mp * pt, hd)
 
@@ -71,7 +120,11 @@ def scatter_tokens(pools: list, tok_kv: list, page_ids: torch.Tensor,
     pid, off = page_ids.long(), offsets.long()
     for layer, vals in zip(pools, tok_kv):
         for n, pool in layer.items():
-            pool[pid, :, off] = vals[n].to(pool.dtype)
+            if isinstance(pool, QuantPool):
+                pool.q[pid, :, off], pool.s[pid, :, off] = kv_quant_rows(
+                    vals[n])
+            else:
+                pool[pid, :, off] = vals[n].to(pool.dtype)
     return pools
 
 
@@ -86,16 +139,22 @@ def scatter_pages(pools: list, cache: list, pages: torch.Tensor) -> list:
         for n, pool in layer.items():
             kh, length, hd = c[n].shape[1:]
             x = c[n][0].reshape(kh, mp, length // mp, hd).transpose(0, 1)
-            pool[idx] = x.to(pool.dtype)
+            if isinstance(pool, QuantPool):
+                pool.q[idx], pool.s[idx] = kv_quant_rows(x)
+            else:
+                pool[idx] = x.to(pool.dtype)
     return pools
 
 
 def copy_pages(pools: list, src: torch.Tensor, dst: torch.Tensor) -> list:
-    """Copy pages ``src`` to ``dst`` ((n,) each) in every layer pool."""
+    """Copy pages ``src`` to ``dst`` ((n,) each) in every layer pool (both
+    planes of an 8-bit pool, as they are: no second quantization)."""
     s, d = src.long(), dst.long()
     for layer in pools:
         for pool in layer.values():
-            pool[d] = pool[s]
+            for t in ((pool.q, pool.s) if isinstance(pool, QuantPool)
+                      else (pool,)):
+                t[d] = t[s]
     return pools
 
 
@@ -110,7 +169,7 @@ def paged_verify_logits(model, toks: torch.Tensor, pools: list,
     layer's view, not the whole dense cache."""
     b, m = toks.shape
     at = pos[:, None] + torch.arange(m, device=toks.device)  # (b, m)
-    pt = pools[0]["k"].shape[2]
+    pt = pools[0]["k"].shape[2]  # a QuantPool's shape is its q's
     page_ids = pages.gather(1, at // pt).reshape(-1)
     offsets = (at % pt).reshape(-1)
     rows = torch.arange(b, device=toks.device)[:, None]
@@ -162,7 +221,9 @@ class PagedKvCache:
     :class:`~bigdl_tpu_torch.serving.decode.DecodeEngine`.
 
     ``pools`` is a list with one {"k", "v"} per layer of (pool_pages,
-    kv_heads, page_tokens, head_dim) tensors on ``device``.
+    kv_heads, page_tokens, head_dim) tensors on ``device``, or with
+    ``quantized`` (kv8) of :class:`QuantPool` s that gather into
+    ``dtype``.
     ``page_table`` is the (slots, max_pages) int64 device table the decode
     graphs read; ``table`` is its host mirror. ``pool_pages`` defaults to
     ``1 + slots * max_pages + extra_pages``: the dense footprint plus
@@ -170,7 +231,8 @@ class PagedKvCache:
 
     def __init__(self, encoder, *, slots: int, max_len: int,
                  page_tokens: int, dtype, device,
-                 pool_pages: Optional[int] = None, extra_pages: int = 0):
+                 pool_pages: Optional[int] = None, extra_pages: int = 0,
+                 quantized: bool = False):
         page_tokens = int(page_tokens)
         if page_tokens < 1:
             raise ValueError(f"page_tokens must be >= 1, got {page_tokens}")
@@ -186,10 +248,17 @@ class PagedKvCache:
             pool_pages = 1 + self.slots * self.max_pages + int(extra_pages)
         self.pool_pages = int(pool_pages)
         self.alloc = PageAllocator(self.pool_pages)
-        self.pools = encoder.init_cache(self.pool_pages, page_tokens, dtype,
-                                        device)
+        self.quantized = bool(quantized)
+        self.pools = encoder.init_cache(
+            self.pool_pages, page_tokens,
+            torch.int8 if self.quantized else dtype, device)
+        if self.quantized:
+            self.pools = [{n: QuantPool(t, torch.zeros(
+                t.shape[:3], dtype=torch.float32, device=device), dtype)
+                for n, t in layer.items()} for layer in self.pools]
         self._bytes_per_page = sum(
-            t[0].numel() * t.element_size()
+            t.page_bytes() if self.quantized
+            else t[0].numel() * t.element_size()
             for layer in self.pools for t in layer.values())
         self.table = np.zeros((self.slots, self.max_pages), np.int64)
         self.page_table = torch.zeros((self.slots, self.max_pages),

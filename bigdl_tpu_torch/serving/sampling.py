@@ -21,22 +21,26 @@ from __future__ import annotations
 
 import torch
 
-from bigdl_tpu_torch.nn.structural import _GOLDEN, _MIX1, _MIX2, _mix, _srl
+from bigdl_tpu_torch.nn.structural import (_GOLDEN, _MIX1, _MIX2, _mix, _srl,
+                                           fold_seed)
 
 __all__ = ["warp_logits", "sample_tokens", "sample_token", "request_key",
-           "gumbel_noise", "STREAM_STEP", "STREAM_DRAFT", "STREAM_ACCEPT",
-           "STREAM_RESIDUAL"]
+           "uniforms", "gumbel_noise", "STREAM_STEP", "STREAM_DRAFT",
+           "STREAM_ACCEPT", "STREAM_RESIDUAL"]
 
 # stream tags folded into per-request keys, as in the JAX package, so the
 # consumers of randomness never share a counter
 STREAM_STEP = 0        # plain-path sampling at a position
-STREAM_DRAFT = 1       # draft proposal sampling (speculative, a later slice)
+STREAM_DRAFT = 1       # draft proposal sampling (speculative)
 STREAM_ACCEPT = 2      # acceptance uniforms (speculative)
 STREAM_RESIDUAL = 3    # rejection-residual resampling (speculative)
 
 
 def _fold(key: torch.Tensor, i) -> torch.Tensor:
-    """splitmix64 of (key, i): ``fold_seed`` with a tensor counter."""
+    """splitmix64 of (key, i): ``fold_seed``, with an int or a tensor
+    counter (whose product wraps in int64)."""
+    if isinstance(i, int):
+        return fold_seed(key, i)
     return _mix(key * _GOLDEN + (i + 1) * _MIX1)
 
 
@@ -48,14 +52,19 @@ def request_key(seed, pos, stream: int = STREAM_STEP) -> torch.Tensor:
     return _fold(_fold(seed, pos), stream)
 
 
-def gumbel_noise(key: torch.Tensor, vocab: int) -> torch.Tensor:
-    """(..., vocab) f32 Gumbel(0, 1) noise from (...,) int64 keys: the
-    uniform of entry j is the top 24 bits of the hash of (key, j), moved
-    half a step off 0 and 1."""
-    idx = torch.arange(vocab, device=key.device, dtype=torch.int64)
+def uniforms(key: torch.Tensor, n: int) -> torch.Tensor:
+    """(..., n) f32 uniforms in (0, 1) from (...,) int64 keys: entry j is
+    the top 24 bits of the hash of (key, j), moved half a step off 0 and
+    1."""
+    idx = torch.arange(n, device=key.device, dtype=torch.int64)
     bits = _srl(_mix(idx * _MIX2 + key[..., None] * _GOLDEN), 40)
-    u = (bits.float() + 0.5) * (1.0 / (1 << 24))
-    return -torch.log(-torch.log(u))
+    return (bits.float() + 0.5) * (1.0 / (1 << 24))
+
+
+def gumbel_noise(key: torch.Tensor, vocab: int) -> torch.Tensor:
+    """(..., vocab) f32 Gumbel(0, 1) noise from (...,) int64 keys, one
+    :func:`uniforms` draw an entry."""
+    return -torch.log(-torch.log(uniforms(key, vocab)))
 
 
 def _knob(x, like: torch.Tensor, dtype) -> torch.Tensor:

@@ -157,6 +157,28 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    it, else PIL) and augment, the staging thread copies to the card;
    images/s, finite losses, 53 launches of each fused kernel a step.
 
+16. Speculative and quantized serving at full width, after phase 14:
+   ``cli.serve --bf16 --slots 16 --kvPageTokens 128 --prefixCache`` over
+   HTTP, graphed, with phase 14's primer, 16 requests and /predict, the
+   LM's embedding x0.02 before the build (phase 14's weights, so the
+   quality report sees them), once each with ``--speculate 4``
+   (self-draft), ``--speculate 4 --draftDims 256,2,2`` (a seeded 2-layer
+   draft of head dim 128: its prefills run ``flash_fwd_sm90`` too) and
+   ``--quantize int8``, ``fp8``, ``int8+kv8``, ``fp8+kv8``. Checked: every
+   answer is 200; ``flash_fwd`` launches at least 12 x (full prefills +
+   /predict batches) + the draft's layers x installs; finite logits;
+   speculative greedy requests equal phase 14's bf16 tokens and the
+   self-draft accepts every proposal; the served tokens equal the same
+   traffic through a ``DecodeEngine`` of the server's route, graphed and
+   eager (``graphs=False``); a kv8 pool of a 384-token prompt's rows,
+   gathered back, is bit for bit ``kv_fake_quant`` of them. Printed:
+   accept rate, target dispatches a generated token, draft steps,
+   ``quant_agreement`` and ``quant_logit_max_err``, weight bytes and KV
+   bytes a full slot, and a decode-rate table (16 greedy requests of 64
+   prompt and 48 new tokens, graphed: ms a step or round, decode
+   tokens/s) of the plain engine beside each run, with the card's name
+   and power limit.
+
 Any failed phase exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -231,6 +253,13 @@ PAGED_SLOTS, PAGE_TOKENS, SHARED_PREFIX = 16, 128, 256
 PAGED_LENS = (8, 13, 31, 64, 130, 250, 480, 700)
 SUFFIX_LENS = (1, 9, 20, 40, 64, 80, 100, 127)
 SAMPLED = dict(temperature=0.8, top_k=40, top_p=0.9)
+# the speculative and quantized phase: phase 14's traffic and server flags
+# in bf16, with --speculate 4 (self-draft, and a 2-layer head-128 draft)
+# and each --quantize mode; the decode-rate rows fill the 16 slots with
+# greedy requests of RATE_PROMPT prompt tokens and RATE_NEW new ones
+SPEC_K, DRAFT_DIMS = 4, "256,2,2"
+QUANT_MODES = ("int8", "fp8", "int8+kv8", "fp8+kv8")
+RATE_PROMPT, RATE_NEW = 64, 48
 # BN kernels vs plain: NHWC (batch, h, w, C) of ResNet-50 at batch 128,
 # seen as (rows, C), and a ragged shape
 BN_SHAPES = [(128, 112, 112, 64), (128, 56, 56, 256), (128, 28, 28, 512),
@@ -1303,7 +1332,284 @@ def paged_serve_run(torch, bf16, card):
     del app, model
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, steps
+    return launches, steps, served
+
+
+def scaled_embedding(torch):
+    """While active, ``cli.serve.build_app`` builds the LM with its
+    embedding x0.02, the weights phases 6 and 14 serve (they scale it after
+    the build): quantization and its quality report then see them."""
+    import contextlib
+
+    from bigdl_tpu_torch.cli import perf
+
+    @contextlib.contextmanager
+    def patched():
+        build = perf.build_model
+
+        def scaled(*a, **kw):
+            model, shape = build(*a, **kw)
+            with torch.no_grad():
+                model.emb.weight.mul_(0.02)
+            return model, shape
+
+        perf.build_model = scaled
+        try:
+            yield
+        finally:
+            perf.build_model = build
+    return patched()
+
+
+def decode_row(torch, eng):
+    """Decode rate of ``eng`` (16 slots, idle): 16 greedy requests of
+    RATE_PROMPT tokens and RATE_NEW new ones each, all installed first,
+    then the steps timed on the host clock to the last token, ended by a
+    synchronize. Returns (ms a step, decode tokens/s, the accept rate of
+    the proposals, or None); the tokens a speculative install emits are
+    not counted."""
+    import numpy as np
+
+    m = eng.metrics
+    spec = (lambda: (m._metrics["spec_accepted_total"].value,
+                     m._metrics["spec_proposed_total"].value)) \
+        if eng.speculate else (lambda: (0.0, 0.0))
+    acc0, prop0 = spec()
+    rs = np.random.RandomState(2)
+    futs = [eng.submit(rs.randint(0, eng.model.vocab, RATE_PROMPT).tolist(),
+                       RATE_NEW) for _ in range(PAGED_SLOTS)]
+    at_install = sum(len(r.out) for r in eng._reqs if r is not None)
+    torch.cuda.synchronize()
+    t0, steps = time.perf_counter(), 0
+    while not all(f.done() for f in futs):
+        eng.step()
+        steps += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens = sum(len(f.result()) for f in futs) - at_install
+    acc, prop = spec()
+    return (1e3 * wall / steps, tokens / wall,
+            (acc - acc0) / (prop - prop0) if eng.speculate else None)
+
+
+def kv8_pool_check(torch, model, card):
+    """A full-width prompt's dense K/V rows written into kv8 pages and
+    gathered back: bit for bit ``kv_fake_quant`` of the rows, on the
+    card."""
+    import numpy as np
+
+    from bigdl_tpu_torch.serving import kv_pages as kvp
+    from bigdl_tpu_torch.serving.quant import kv_fake_quant
+
+    n = 3 * PAGE_TOKENS
+    x = torch.tensor([np.random.RandomState(3).randint(
+        0, model.vocab, n).tolist()], device=DEV)
+    dense = model.init_cache(1, model.max_len, torch.bfloat16)
+    kv = kvp.PagedKvCache(model.encoder, slots=1, max_len=model.max_len,
+                          page_tokens=PAGE_TOKENS, dtype=torch.bfloat16,
+                          device=DEV, quantized=True)
+    with torch.no_grad():
+        model.prefill_logits(x, dense)
+        kv.reserve(0, n)
+        pages = kv.page_table[0, :3]
+        kvp.scatter_pages(kv.pools, [{k: c[k][:, :, :n] for k in c}
+                                     for c in dense], pages)
+        back = kvp.gather_cache(kv.pools, pages)
+    bad = [(i, k) for i, (b, c) in enumerate(zip(back, dense)) for k in b
+           if not torch.equal(b[k], kv_fake_quant(c[k][0, :, :n]))]
+    print(f"[spec/quant] kv8 pool of a {n}-token prompt ({len(back)} "
+          f"layers, k and v) gathered back vs kv_fake_quant of its dense "
+          f"rows: {'bit-equal' if not bad else f'differs at {bad}'} "
+          f"({card})", flush=True)
+    if bad:
+        fail(f"[spec/quant] kv8 pools gathered back differ from "
+             f"kv_fake_quant at (layer, k/v) {bad}")
+
+
+def spec_quant_serve_run(torch, card, plain_served):
+    """The speculative and quantized serving phase (docstring, phase 16);
+    ``plain_served`` is phase 14's bf16 tokens. Returns the flash_fwd
+    launches of the counted traffic."""
+    import gc
+
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.cli import serve as serve_cli
+    from bigdl_tpu_torch.cli.perf import build_model
+    from bigdl_tpu_torch.serving import (DecodeEngine, MetricsRegistry,
+                                         make_server)
+    from bigdl_tpu_torch.serving.quant import weight_bytes
+
+    base = [MODEL, "--randomInit", "--bf16", "--slots", str(PAGED_SLOTS),
+            "--kvPageTokens", str(PAGE_TOKENS), "--prefixCache",
+            "--buckets", "1,2,4", "--port", "0"]
+    runs = [("spec self-draft", ["--speculate", str(SPEC_K)]),
+            (f"spec draft {DRAFT_DIMS}", ["--speculate", str(SPEC_K),
+                                           "--draftDims", DRAFT_DIMS])]
+    runs += [(f"quantize {m}", ["--quantize", m]) for m in QUANT_MODES]
+    launches, table = 0, []
+
+    # the unquantized, non-speculative row of the decode-rate table
+    with scaled_embedding(torch):
+        model, _ = build_model(MODEL)
+    model.compute_dtype = torch.bfloat16
+    model = model.to(DEV)
+    kv8_pool_check(torch, model, card)
+    eng = DecodeEngine(model, slots=PAGED_SLOTS, cache_dtype=torch.bfloat16,
+                       device=DEV, kv_page_tokens=PAGE_TOKENS,
+                       prefix_cache=True)
+    table.append(("plain", weight_bytes(model),
+                  eng._kv.bytes_per_page * eng._kv.max_pages)
+                 + decode_row(torch, eng))
+    eng.close()
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for tag, extra in runs:
+        t0 = time.perf_counter()
+        with scaled_embedding(torch):
+            app, _, _, _ = serve_cli.build_app(
+                serve_cli.build_parser().parse_args(base + extra))
+        dec, model = app.decoder, app.decoder.model
+        prov = app.metrics._provenance
+        print(f"[{tag}] build_app (quality report and every graph "
+              f"captured) {time.perf_counter() - t0:.1f}s: weights "
+              f"{prov['weight_bytes']} bytes read a step, KV "
+              f"{dec._kv.bytes_per_page * dec._kv.max_pages} bytes a "
+              f"full slot ({card})", flush=True)
+        srv = make_server(app, "127.0.0.1", 0)
+        port = srv.server_address[1]
+        thr = threading.Thread(target=srv.serve_forever, daemon=True)
+        thr.start()
+        primer, reqs = paged_requests(model.vocab)
+
+        def metrics():
+            st, page = _get(port, "/metrics")
+            if st != 200:
+                fail(f"[{tag}] /metrics answered {st}")
+            return {ln[len("bigdl_serving_"):].rpartition(" ")[0]:
+                    float(ln.rpartition(" ")[2]) for ln in page.splitlines()
+                    if ln.startswith("bigdl_serving_")}
+
+        try:
+            st, out = _post(port, "/generate", {"tokens": primer,
+                                                "max_new_tokens": 2})
+            if st != 200:
+                fail(f"[{tag}] the primer /generate answered {st}: {out}")
+            before = metrics()
+            ops.reset_kernel_launches()
+            res = {}
+
+            def one(i, p, kw):
+                res[i] = _post(port, "/generate", dict(
+                    kw, tokens=p, max_new_tokens=MAX_NEW))
+
+            ths = [threading.Thread(target=one, args=(i, p, kw))
+                   for i, (p, kw) in enumerate(reqs)]
+            t = time.perf_counter()
+            for th in ths:
+                th.start()
+            for th in ths:
+                th.join(600)
+            wall = time.perf_counter() - t
+            st_pred, _ = _post(port, "/predict",
+                               {"inputs": [[1, 2, 3, 4] * 16]})
+            after = metrics()
+            torch.cuda.synchronize()
+            n = ops.kernel_launches()["flash_fwd"]
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            thr.join(30)
+        if any(res.get(i, (None,))[0] != 200 for i in range(len(reqs))) \
+                or st_pred != 200:
+            fail(f"[{tag}] an endpoint did not answer 200: {res} {st_pred}")
+        served = [res[i][1]["tokens"] for i in range(len(reqs))]
+        d = {k: after[k] - before.get(k, 0.0) for k in after}
+        hits = d["prefix_cache_hits_total"]
+        full = d["prefills_total"] - hits
+        draft_layers = len(dec.draft_model.encoder) if dec.speculate else 0
+        need = (len(model.encoder) * (full + d["batcher_flushes_total"])
+                + draft_layers * d["prefills_total"])
+        launches += n
+        gen = d["generated_tokens_total"]
+        drafts = (f"{int(d['prefills_total'])} draft prefills of "
+                  f"{draft_layers} layers, " if dec.speculate else "")
+        print(f"[{tag}] {len(reqs)} concurrent /generate + 1 /predict: "
+              f"{sum(map(len, served)) / wall:.1f} generated tokens/s, "
+              f"{int(hits)} prefix hits, flash_fwd launches {n} over "
+              f"{int(full)} full prefills, {drafts}"
+              f"{int(d['batcher_flushes_total'])} /predict batches (need "
+              f">= {int(need)}) ({card})", flush=True)
+        if n < need:
+            fail(f"[{tag}] flash_fwd ran {n} times, fewer than {need}")
+        if not bool(torch.isfinite(dec._logits).all()):
+            fail(f"[{tag}] non-finite logits in the decode engine")
+        with torch.no_grad():
+            for p, _ in reqs[:4]:
+                lg = model.prefill_logits(torch.tensor([p], device=DEV),
+                                          model.init_cache(1))
+                if not bool(torch.isfinite(lg).all()):
+                    fail(f"[{tag}] non-finite prefill logits")
+        if dec.speculate:
+            rate = d["spec_accepted_total"] / d["spec_proposed_total"]
+            print(f"[{tag}] accept rate {rate:.4f} "
+                  f"({int(d['spec_accepted_total'])} of "
+                  f"{int(d['spec_proposed_total'])} proposals), "
+                  f"{d['decode_steps_total'] / gen:.4f} target dispatches a "
+                  f"generated token ({int(d['decode_steps_total'])} verify "
+                  f"rounds, each over every active slot, for {int(gen)} "
+                  f"tokens), {int(d['spec_draft_steps_total'])} draft "
+                  f"slot-steps ({card})", flush=True)
+            if dec.draft_model is dec.model and rate != 1.0:
+                fail(f"[{tag}] the self-draft's accept rate is {rate}")
+            greedy = [i for i, (_, kw) in enumerate(reqs) if not kw]
+            diff = [i for i in greedy if served[i] != plain_served[i]]
+            if diff:
+                fail(f"[{tag}] greedy requests {diff} differ from phase 14's "
+                     f"tokens without speculation: "
+                     f"{[(served[i], plain_served[i]) for i in diff]}")
+            print(f"[{tag}] the {len(greedy)} greedy requests equal phase "
+                  f"14's tokens without speculation", flush=True)
+        else:
+            print(f"[{tag}] quant_agreement {prov['quant_agreement']}, "
+                  f"quant_logit_max_err {prov['quant_logit_max_err']} "
+                  f"against the bf16 model ({card})", flush=True)
+        app.close()
+        # the same traffic through engines of the server's route on the
+        # same model: graphed (the server's tokens) and eager
+        kw = dict(slots=PAGED_SLOTS, cache_dtype=torch.bfloat16,
+                  device=DEV, kv_page_tokens=dec.page_tokens,
+                  prefix_cache=True, speculate=dec.speculate,
+                  draft_model=(None if dec.draft_model is dec.model
+                               else dec.draft_model),
+                  quantize=dec.quantize)
+        routes = {}
+        for graphs in (False, True):
+            eng = DecodeEngine(model, graphs=graphs,
+                               metrics=MetricsRegistry(), **kw)
+            routes[graphs] = drive(eng, primer, reqs)
+            if graphs:
+                row = decode_row(torch, eng)
+            eng.close()
+        if routes[True] != served or routes[False] != routes[True]:
+            fail(f"[{tag}] served, graphed and eager tokens differ: "
+                 f"{[i for i in range(len(reqs)) if not served[i] == routes[True][i] == routes[False][i]]}")
+        print(f"[{tag}] served = graphed = eager, every request (greedy and "
+              f"sampled)", flush=True)
+        table.append((tag, prov["weight_bytes"],
+                      dec._kv.bytes_per_page * dec._kv.max_pages) + row)
+        del app, dec, model, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    for tag, wb, kvb, ms, tps, rate in table:
+        acc = "" if rate is None else f", accept rate {rate:.4f}"
+        print(f"[spec/quant] {MODEL} bf16, {PAGED_SLOTS} slots of "
+              f"{PAGE_TOKENS}-token pages, graphed, {tag}: decode step "
+              f"{ms:.3f} ms (host clock; a round when speculative), "
+              f"{tps:.1f} decode tokens/s{acc}, weights {wb} bytes, KV "
+              f"{kvb} bytes a full slot ({card})", flush=True)
+    return launches
 
 
 def bn_bound_ms(kernel, rows, c, item):
@@ -2411,8 +2717,10 @@ def main():
         launches["flash_fwd"] += n
     paged_steps = {}
     for bf16 in (False, True):
-        n, paged_steps[bf16] = paged_serve_run(torch, bf16, card)
+        n, paged_steps[bf16], paged_served = paged_serve_run(torch, bf16,
+                                                             card)
         launches["flash_fwd"] += n
+    launches["flash_fwd"] += spec_quant_serve_run(torch, card, paged_served)
     resnet = resnet_runs(torch, card)
     bn_grads_check(torch)
     inner = inner_steps_runs(torch, card)

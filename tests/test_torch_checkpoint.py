@@ -28,6 +28,7 @@ from bigdl_tpu_torch import models, nn
 from bigdl_tpu_torch.cli import resnet as resnet_cli
 from bigdl_tpu_torch.cli import transformerlm as lm_cli
 from bigdl_tpu_torch.dataset import BatchDataSet
+from bigdl_tpu_torch.dataset import mixup
 from bigdl_tpu_torch.interop import load_jax, load_model, save_model
 from bigdl_tpu_torch.interop.checkpoint import save_state
 from bigdl_tpu_torch.optim import (SGD, Adam, Optimizer, Top1Accuracy,
@@ -198,6 +199,55 @@ def test_port_kill_and_resume_is_bit_for_bit(tmp_path, case):
         f"{p}.{i}" for p in ("model", "state") for i in (stop - every, stop)]
     tail = run(end, ckpt=ck, resume=ck)
     assert tail == full[stop:]
+
+
+class _MixRecording:
+    """A Mixup criterion that records every step's (y_b, lam, loss)."""
+
+    def __init__(self):
+        self.crit, self.mixes = mixup.MixupCriterion(nn.ClassNLLCriterion()), []
+
+    def __call__(self, out, target):
+        loss = self.crit(out, target)
+        self.mixes.append((target[1].tolist(), float(target[2]),
+                           float(loss.detach())))
+        return loss
+
+
+@pytest.mark.parametrize("stop", [8, 10], ids=["epoch_end", "mid_epoch"])
+@pytest.mark.parametrize("stage", ["Mixup", "CutMix"])
+def test_kill_and_resume_through_mixup_and_cutmix(tmp_path, stage, stop):
+    """64 shuffled records in batches of 16 through Mixup(0.2, seed=1) or
+    CutMix(1.0, seed=1), stopped after epoch 2 (iteration 8) or two
+    batches into epoch 3 (iteration 10) and resumed: every later batch has
+    the uninterrupted run's permuted targets y_b and mixing weight lam,
+    and its losses, bit for bit. The finished epochs' draws are replayed
+    by ``Mixup.skip``/``CutMix.skip`` without the data; the open epoch's
+    consumed batches go through the stage."""
+    rs = np.random.RandomState(3)
+    x = rs.randn(64, 8, 8, 3).astype(np.float32)
+    y = rs.randint(0, 10, 64).astype(np.int32)
+    alpha = 0.2 if stage == "Mixup" else 1.0
+
+    def run(last, ckpt=None):
+        rec = _MixRecording()
+        data = BatchDataSet(x, y, 16, shuffle=True) >> getattr(
+            mixup, stage)(alpha, seed=1)
+        model = nn.Sequential(nn.Reshape([192]), nn.Linear(
+            192, 10, generator=torch.Generator().manual_seed(0)),
+            nn.LogSoftMax())
+        opt = Optimizer(model, data, rec, optim_method=SGD(0.1),
+                        end_when=Trigger.max_iteration(last), device="cpu")
+        if ckpt:
+            opt.set_checkpoint(Trigger.several_iteration(2), ckpt)
+            opt.resume(ckpt)
+        opt.optimize()
+        return rec.mixes
+
+    full = run(16)
+    ck = str(tmp_path / "ck")
+    assert run(stop, ck) == full[:stop]
+    assert run(16, ck) == full[stop:]
 
 
 def _snapshot_dir(path):

@@ -135,17 +135,22 @@ def test_decode_engine_deadline_and_cancel(lm_pair):
 
 
 def test_decode_engine_later_features_refused(lm_pair):
-    """Speculation and quantization stay later slices; the prefix cache
-    without paging and a page size that does not divide max_len are the
-    JAX package's errors."""
+    """Speculation and quantization are ported and build; what the engine
+    refuses are the JAX package's errors: the prefix cache or kv8 without
+    paging, a page size that does not divide max_len, a negative
+    ``speculate`` and an unknown ``--quantize`` mode."""
     _, _, pm = lm_pair
     for kw, err, msg in (
-            (dict(speculate=2), NotImplementedError, "not ported"),
-            (dict(quantize="int8"), NotImplementedError, "not ported"),
             (dict(prefix_cache=True), ValueError, "requires kv_page_tokens"),
-            (dict(kv_page_tokens=13), ValueError, "divide")):
+            (dict(quantize="kv8"), ValueError, "requires kv_page_tokens"),
+            (dict(kv_page_tokens=13), ValueError, "divide"),
+            (dict(speculate=-1), ValueError, "speculate"),
+            (dict(quantize="int4"), ValueError, "--quantize")):
         with pytest.raises(err, match=msg):
             DecodeEngine(pm, device="cpu", **kw)
+    spec = DecodeEngine(pm, device="cpu", speculate=2, quantize="int8")
+    assert spec.speculate == 2 and spec.draft_model is spec.model
+    assert spec.model is not pm and spec.quantize == "int8"
 
 
 # ---------------------------------------------------------- inference engine
@@ -422,10 +427,14 @@ def test_serve_http_429_on_full_queue(lm_pair):
 def test_serve_cli_refuses_what_is_not_ported():
     p = serve_cli.build_parser()
     for argv, msg in (
-            (["transformer_lm", "--randomInit", "--speculate", "4"],
-             "--speculate"),
-            (["transformer_lm", "--randomInit", "--quantize", "int8"],
-             "--quantize"),
+            (["transformer_lm", "--randomInit", "--strategy", "dp:2"],
+             "--strategy"),
+            (["transformer_lm", "--randomInit", "--slo", "ttft_p99=1"],
+             "--slo"),
+            (["transformer_lm", "--randomInit", "--platform", "cpu",
+              "--speculate", "2", "--draftDims", "65,2,4"], "divisible"),
+            (["transformer_lm", "--randomInit", "--platform", "cpu",
+              "--seq", "100", "--quantize", "kv8"], "no page size"),
             (["lenet5", "--randomInit", "--platform", "cpu"], "lenet5"),
             (["transformer_lm", "--platform", "cpu"], "needs weights"),
             (["transformer_lm", "--randomInit", "--platform", "cpu",
