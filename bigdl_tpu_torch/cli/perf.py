@@ -66,13 +66,17 @@ LM_CONFIGS = {
                                     pos_encoding="rope", num_kv_heads=2),
 }
 
-# name -> (builder kwargs, input (H, W, C), classes). _fbn: the stats
-# kernels; _fba: the fused BN block with the conv->BN->ReLU ReLUs absorbed
+# name -> (builder kwargs, input (H, W, C), classes); "arch" names a
+# builder of models other than the ResNets. _fbn: the stats kernels; _fba:
+# the fused BN block with the conv->BN->ReLU ReLUs absorbed
 IMAGE_CONFIGS = {
     "resnet50": (dict(depth=50), (224, 224, 3), 1000),
     "resnet50_fbn": (dict(depth=50, fused_bn="stats"), (224, 224, 3), 1000),
     "resnet50_fba": (dict(depth=50, fused_bn="apply"), (224, 224, 3), 1000),
     "resnet20_cifar": (dict(depth=20, cifar=True), (32, 32, 3), 10),
+    "lenet5": (dict(arch="lenet5"), (28, 28, 1), 10),
+    "vgg16": (dict(arch="vgg16"), (224, 224, 3), 1000),
+    "vgg19": (dict(arch="vgg19"), (224, 224, 3), 1000),
 }
 
 
@@ -86,7 +90,10 @@ def build_model(name: str, seq_len: Optional[int] = None,
     if name in IMAGE_CONFIGS:
         cfg, in_shape, classes = IMAGE_CONFIGS[name]
         cfg = dict(cfg)
-        if cfg.pop("cifar", False):
+        if "arch" in cfg:
+            model = getattr(models, cfg.pop("arch"))(classes,
+                                                     generator=generator)
+        elif cfg.pop("cifar", False):
             model = models.resnet_cifar(cfg.pop("depth"), classes,
                                         generator=generator, **cfg)
         else:
@@ -164,15 +171,16 @@ def train_step(model_name: str, batch: int, dtype=torch.bfloat16,
     """(step, model, tokens per step or None, device): ``step()`` takes
     SGD(0.01, momentum 0.9) steps of the zoo model on one resident batch
     from ``np.random.RandomState(0)`` and returns the last loss (not
-    synced). ``fused_bn`` (--fusedBN) is installed on top of the row's
-    own BN mode. With ``graph_steps`` = 0 a call is one eager step; with
-    K >= 1 a call is K steps, on CUDA one replay of a CUDA graph of the K
-    steps (the first call runs them eagerly on the capture stream, then
-    captures; :class:`~bigdl_tpu_torch.optim.step_graph.StepGraph`), on
-    the CPU K eager steps. With a ``feed`` (an iterator of image batches)
+    synced); a model with dropout draws its masks from the step's seed
+    (0 for an eager step). ``fused_bn`` (--fusedBN) is installed on top of
+    the row's own BN mode. With ``graph_steps`` = 0 a call is one eager
+    step; with K >= 1 a call is K steps, on CUDA one replay of a CUDA
+    graph of the K steps (the first call runs them eagerly on the capture
+    stream, then captures; :class:`~bigdl_tpu_torch.optim.step_graph.
+    StepGraph`), on the CPU K eager steps. With a ``feed`` (an iterator of image batches)
     a call is one eager step on the feed's next batch."""
     from bigdl_tpu_torch.cli.common import apply_fused_bn
-    from bigdl_tpu_torch.core.module import resolve_device
+    from bigdl_tpu_torch.core.module import resolve_device, takes_seed
     from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
     from bigdl_tpu_torch.optim import SGD
     from bigdl_tpu_torch.optim.step_graph import StepGraph
@@ -206,8 +214,11 @@ def train_step(model_name: str, batch: int, dtype=torch.bfloat16,
     names, plist = list(params), list(params.values())
     state = opt.init(params)
 
-    def one_step(xd, yd, seed=None):
-        loss = crit(model(xd).float(), yd)
+    seeded = takes_seed(model)
+
+    def one_step(xd, yd, seed=0):
+        out = model(xd, seed=seed) if seeded else model(xd)
+        loss = crit(out.float(), yd)
         grads = torch.autograd.grad(loss, plist)
         opt.update(dict(zip(names, grads)), state, params)
         return loss.detach()

@@ -41,22 +41,9 @@ import argparse
 import os
 
 from bigdl_tpu_torch.cli import common
+from bigdl_tpu_torch.cli.vgg import _one_split
 
 __all__ = ["main"]
-
-
-def _one_split(folder: str, batch: int, train_split: bool, augment: bool):
-    """One CIFAR split through the native pipeline: with ``augment``
-    shuffled each epoch, randomly cropped and flipped; normalised with
-    the training mean and std on 0-255 pixels (the JAX CLI's
-    ``_one_split``)."""
-    from bigdl_tpu_torch.dataset import (TRAIN_MEAN, TRAIN_STD,
-                                         NativePrefetchDataSet, load_cifar10)
-
-    x, y = load_cifar10(folder, train=train_split)
-    return NativePrefetchDataSet(x, y, batch, train=augment,
-                                 mean=[m * 255 for m in TRAIN_MEAN],
-                                 std=[s * 255 for s in TRAIN_STD])
 
 
 def _imagenet_datasets(folder: str, batch: int):

@@ -1,6 +1,9 @@
 from bigdl_tpu_torch.core.criterion import Criterion
-from bigdl_tpu_torch.core.module import (Identity, Sequential, resolve_device,
+from bigdl_tpu_torch.core.module import (Container, ElementwiseModule,
+                                         Identity, Lambda, Module, Sequential,
+                                         SimpleModule, resolve_device,
                                          uniform_fan_in, xavier_uniform)
 
-__all__ = ["Criterion", "Identity", "Sequential", "resolve_device",
+__all__ = ["Container", "Criterion", "ElementwiseModule", "Identity",
+           "Lambda", "Module", "Sequential", "SimpleModule", "resolve_device",
            "uniform_fan_in", "xavier_uniform"]

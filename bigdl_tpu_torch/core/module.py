@@ -1,5 +1,6 @@
-"""What the port's modules share: parameter init, the device rule, and
-the containers every model is built from.
+"""What the port's modules share: parameter init, the device rule, the
+seeded noise of training-mode layers, and the module bases and containers
+every model is built from.
 
 Counterpart of ``bigdl_tpu/core/module.py``. The JAX package keeps
 parameters in pytrees beside immutable module descriptions; here they live
@@ -7,18 +8,27 @@ in ``torch.nn.Module`` parameters, initialised from an explicit
 ``torch.Generator``. Containers name their children ``"0"``, ``"1"``, ...
 as the JAX package keys its param trees, so a converted tree loads by
 name.
+
+Randomness in a forward (Dropout, RReLU) comes from a ``seed`` argument,
+the role of the JAX ``rng``: a container hands child ``i`` the seed
+``fold_seed(seed, i)``, as the JAX containers hand it ``fold_in(rng, i)``,
+and calls a child with no noise under it without one.
 """
 
 from __future__ import annotations
 
+import functools
+import inspect
 import math
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
 
-__all__ = ["xavier_uniform", "uniform_fan_in", "resolve_device", "Sequential",
-           "Identity"]
+__all__ = ["xavier_uniform", "uniform_fan_in", "resolve_device",
+           "fold_seed", "hash_bits24", "takes_seed", "Module",
+           "SimpleModule", "ElementwiseModule", "Lambda", "Container",
+           "Sequential", "Identity"]
 
 
 def uniform_fan_in(shape: Sequence[int], fan_in: int,
@@ -55,10 +65,151 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+# ------------------------------------------------------------ seeded noise
+def _s64(c: int) -> int:
+    """A 64-bit constant as the int64 that has its bits."""
+    return c - (1 << 64) if c >= (1 << 63) else c
+
+
+_GOLDEN, _MIX1, _MIX2 = (_s64(0x9E3779B97F4A7C15), _s64(0xBF58476D1CE4E5B9),
+                         _s64(0x94D049BB133111EB))
+_MASK64 = (1 << 64) - 1
+
+
+def _srl(z: torch.Tensor, n: int) -> torch.Tensor:
+    """Logical right shift of int64 bits (torch's >> is arithmetic)."""
+    return (z >> n) & ((1 << (64 - n)) - 1)
+
+
+def _mix(z: torch.Tensor) -> torch.Tensor:
+    """The splitmix64 finaliser on int64 tensors (products wrap)."""
+    z = (z ^ _srl(z, 30)) * _MIX1
+    z = (z ^ _srl(z, 27)) * _MIX2
+    return z ^ _srl(z, 31)
+
+
+def fold_seed(seed, i: int) -> torch.Tensor:
+    """A seed for stream ``i`` derived from ``seed`` (the role of
+    ``jax.random.fold_in``): the splitmix64 finaliser of the pair, as a 0-d
+    int64 tensor on ``seed``'s device. ``seed`` is an int or an int64
+    tensor; folding runs on the device, so a step captured in a CUDA graph
+    folds the seed written before each replay."""
+    seed = torch.as_tensor(seed, dtype=torch.int64)
+    return _mix(seed * _GOLDEN
+                + _s64((int(i) + 1) * 0xBF58476D1CE4E5B9 & _MASK64))
+
+
+def hash_bits24(seed, like: torch.Tensor) -> torch.Tensor:
+    """24 random bits per element of ``like`` (int64 in [0, 2^24)): a
+    counter-based hash of (``seed``, element index) computed on ``like``'s
+    device, so the same seed draws the same bits eagerly, in a recomputed
+    layer and in a CUDA-graph replay, and no generator state is read."""
+    seed = torch.as_tensor(seed, dtype=torch.int64).to(like.device)
+    idx = torch.arange(like.numel(), device=like.device).reshape(like.shape)
+    return _srl(_mix(idx * _MIX2 + seed * _GOLDEN), 40)
+
+
+@functools.lru_cache(maxsize=None)
+def _has_seed(forward) -> bool:
+    """Whether a class's ``forward`` function has a ``seed`` parameter."""
+    return "seed" in inspect.signature(forward).parameters
+
+
+def takes_seed(module: nn.Module) -> bool:
+    """Whether a training-mode call of ``module`` takes ``seed=``: its
+    forward has a ``seed`` parameter and, for the port's containers, a
+    module under it draws noise (``draws_noise``). A container of none is
+    called without a seed, so its step folds none."""
+    if not _has_seed(type(module).forward):
+        return False
+    if isinstance(module, (Sequential, Container)):
+        return any(getattr(m, "draws_noise", False)
+                   for m in module.modules())
+    return True
+
+
+def _call(module: nn.Module, x, seed, i: int):
+    """``module(x)``, with ``fold_seed(seed, i)`` when a seed is given and
+    the module takes one (child ``i`` of a container)."""
+    if seed is not None and takes_seed(module):
+        return module(x, seed=fold_seed(seed, i))
+    return module(x)
+
+
+# ------------------------------------------------------------------ bases
+class Module(nn.Module):
+    """Base of the port's layers: a ``torch.nn.Module`` with the JAX
+    module's display ``name`` (its class name unless given). Parameters are
+    ``nn.Parameter`` attributes named as the JAX param tree's keys;
+    running statistics are buffers named as its state tree's keys."""
+
+    def __init__(self, name: Optional[str] = None):
+        super().__init__()
+        self.name = name if name is not None else type(self).__name__
+
+
+class SimpleModule(Module):
+    """A module whose forward updates no state (the JAX ``SimpleModule``:
+    ``apply`` returns the state it was given). Subclasses define
+    ``forward``."""
+
+
+class ElementwiseModule(SimpleModule):
+    """A parameterless op given by one function ``_fn`` of the input."""
+
+    def _fn(self, x):
+        raise NotImplementedError(f"{type(self).__name__}._fn")
+
+    def forward(self, x):
+        return self._fn(x)
+
+
+class Identity(ElementwiseModule):
+    """Pass-through (reference nn/Identity.scala)."""
+
+    def _fn(self, x):
+        return x
+
+
+class Lambda(SimpleModule):
+    """An arbitrary function of the input as a parameterless module; its
+    name is the function's unless given."""
+
+    def __init__(self, fn: Callable, name: Optional[str] = None):
+        super().__init__(name or getattr(fn, "__name__", "Lambda"))
+        self.fn = fn
+
+    def forward(self, x):
+        return self.fn(x)
+
+
+class Container(Module):
+    """An ordered list of children named ``"0"``, ``"1"``, ... (reference
+    nn/Container.scala), the keys of the JAX container's param tree.
+    Subclasses define ``forward``."""
+
+    def __init__(self, *modules: nn.Module, name: Optional[str] = None):
+        super().__init__(name)
+        for m in modules:
+            self.add(m)
+
+    def add(self, module: nn.Module) -> "Container":
+        """Append a child (Container.add); returns the container."""
+        self.add_module(str(len(self._modules)), module)
+        return self
+
+    def __len__(self) -> int:
+        return len(self._modules)
+
+    def __getitem__(self, i: int) -> nn.Module:
+        return list(self._modules.values())[i]
+
+
 class Sequential(nn.Sequential):
     """Feed-forward chain (reference nn/Sequential.scala); children are
     ``"0"``, ``"1"``, ... as in the JAX package's param tree. ``name`` is
-    the JAX module's display name."""
+    the JAX module's display name. A training call with ``seed`` hands
+    child ``i`` ``fold_seed(seed, i)`` where it draws noise."""
 
     def __init__(self, *modules: nn.Module, name: Optional[str] = None):
         super().__init__(*modules)
@@ -69,13 +220,7 @@ class Sequential(nn.Sequential):
         self.append(module)
         return self
 
-
-class Identity(nn.Module):
-    """Pass-through (reference nn/Identity.scala)."""
-
-    def __init__(self, name: Optional[str] = None):
-        super().__init__()
-        self.name = name if name is not None else type(self).__name__
-
-    def forward(self, x):
+    def forward(self, x, seed=None):
+        for i, m in enumerate(self):
+            x = _call(m, x, seed, i)
         return x

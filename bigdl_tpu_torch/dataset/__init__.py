@@ -9,6 +9,7 @@ from bigdl_tpu_torch.dataset.folder import (IMAGENET_MEAN, IMAGENET_STD,
                                             list_image_folder,
                                             load_image_folder)
 from bigdl_tpu_torch.dataset.mixup import CutMix, Mixup, MixupCriterion
+from bigdl_tpu_torch.dataset.mnist import load_mnist
 from bigdl_tpu_torch.dataset.native import NativePrefetchDataSet
 from bigdl_tpu_torch.dataset.pipeline import (ArraySampleSource,
                                               DeviceBatch, EpochPlan,
@@ -30,7 +31,8 @@ __all__ = ["image", "native", "TRAIN_MEAN", "TRAIN_STD", "load_cifar10",
            "TransformedDataSet", "ShardedDataSet", "host_shard",
            "IMAGENET_MEAN", "IMAGENET_STD", "ImageFolderDataSet",
            "list_image_folder", "load_image_folder", "CutMix", "Mixup",
-           "MixupCriterion", "NativePrefetchDataSet", "ArraySampleSource",
+           "MixupCriterion", "load_mnist", "NativePrefetchDataSet",
+           "ArraySampleSource",
            "DeviceBatch", "EpochPlan", "ExecutorDataSet", "StagedDataSet",
            "StreamingSampleSource", "wrap_pipeline", "PrefetchDataSet",
            "RecordReader", "RecordWriter", "list_shards",

@@ -18,8 +18,11 @@ __all__ = ["params_from_jax", "tensors_from_jax", "load_jax"]
 def params_from_jax(tree, prefix: str = "") -> dict:
     """Flatten a nested dict of arrays (numpy or anything ``np.asarray``
     takes) to ``{dotted.path: torch.Tensor}`` on the CPU. Empty leaves (a
-    stateless module's ``()`` in a JAX state tree) are dropped."""
+    stateless module's ``()`` in a JAX state tree, or the whole state tree
+    of a stateless module) are dropped."""
     out = {}
+    if isinstance(tree, tuple) and not tree:
+        return out
     for key, val in tree.items():
         name = f"{prefix}{key}"
         if isinstance(val, dict):

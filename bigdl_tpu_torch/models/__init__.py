@@ -1,10 +1,13 @@
+from bigdl_tpu_torch.models.lenet import lenet5
 from bigdl_tpu_torch.models.resnet import (basic_block, bottleneck_block,
                                            resnet, resnet50, resnet_cifar)
 from bigdl_tpu_torch.models.transformer_lm import (PackedNLLCriterion,
                                                   TransformerLM,
                                                   packed_lm_targets,
                                                   transformer_lm)
+from bigdl_tpu_torch.models.vgg import vgg16, vgg19, vgg_for_cifar10
 
 __all__ = ["PackedNLLCriterion", "TransformerLM", "basic_block",
-           "bottleneck_block", "packed_lm_targets", "resnet", "resnet50",
-           "resnet_cifar", "transformer_lm"]
+           "bottleneck_block", "lenet5", "packed_lm_targets", "resnet",
+           "resnet50", "resnet_cifar", "transformer_lm", "vgg16", "vgg19",
+           "vgg_for_cifar10"]

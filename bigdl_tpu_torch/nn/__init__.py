@@ -1,30 +1,19 @@
-from bigdl_tpu_torch.core.module import Identity, Sequential
-from bigdl_tpu_torch.nn.activation import LogSoftMax, ReLU
-from bigdl_tpu_torch.nn.attention import (LayerNorm, MultiHeadAttention,
-                                          PositionalEncoding,
-                                          TransformerEncoder,
-                                          TransformerEncoderLayer,
-                                          apply_rope, dot_product_attention,
-                                          make_segment_mask, rope_tables)
-from bigdl_tpu_torch.nn.conv import SpatialConvolution
-from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion,
-                                          TimeDistributedCriterion)
-from bigdl_tpu_torch.nn.linear import Linear, LookupTable
-from bigdl_tpu_torch.nn.norm import (BatchNormalization,
-                                     SpatialBatchNormalization,
-                                     bn_fused_mode, set_bn_fused,
-                                     set_bn_stat_sample)
-from bigdl_tpu_torch.nn.pool import SpatialAveragePooling, SpatialMaxPooling
-from bigdl_tpu_torch.nn.structural import (CAddTable, ConcatTable, Dropout,
-                                           Padding, Reshape, absorb_bn_relu)
+"""bigdl_tpu_torch.nn: the layer zoo (counterpart of ``bigdl_tpu.nn``), with
+the core module bases the JAX package exports beside it."""
 
-__all__ = ["BatchNormalization", "CAddTable", "ClassNLLCriterion",
-           "ConcatTable", "Dropout", "Identity", "LayerNorm", "Linear",
-           "LogSoftMax", "LookupTable", "MultiHeadAttention", "Padding",
-           "PositionalEncoding", "ReLU", "Reshape", "Sequential",
-           "SpatialAveragePooling", "SpatialBatchNormalization",
-           "SpatialConvolution", "SpatialMaxPooling",
-           "TimeDistributedCriterion", "TransformerEncoder",
-           "TransformerEncoderLayer", "absorb_bn_relu", "apply_rope",
-           "bn_fused_mode", "dot_product_attention", "make_segment_mask",
-           "rope_tables", "set_bn_fused", "set_bn_stat_sample"]
+from bigdl_tpu_torch.core.module import (Container, Identity, Lambda, Module,
+                                         Sequential)
+from bigdl_tpu_torch.nn import (activation, attention, conv, criterion,
+                                linear, norm, pool, structural)
+from bigdl_tpu_torch.nn.activation import *  # noqa: F401,F403
+from bigdl_tpu_torch.nn.attention import *  # noqa: F401,F403
+from bigdl_tpu_torch.nn.conv import *  # noqa: F401,F403
+from bigdl_tpu_torch.nn.criterion import *  # noqa: F401,F403
+from bigdl_tpu_torch.nn.linear import *  # noqa: F401,F403
+from bigdl_tpu_torch.nn.norm import *  # noqa: F401,F403
+from bigdl_tpu_torch.nn.pool import *  # noqa: F401,F403
+from bigdl_tpu_torch.nn.structural import *  # noqa: F401,F403
+
+__all__ = sorted(["Container", "Identity", "Lambda", "Module", "Sequential"]
+                 + [n for m in (activation, attention, conv, criterion, linear,
+                                norm, pool, structural) for n in m.__all__])

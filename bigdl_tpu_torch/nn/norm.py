@@ -8,19 +8,33 @@ forward updates in place. Routing is the JAX package's: a training-mode
 forward takes the kernels (``ops/bn_kernel.py``) only when ``fused`` is set,
 the module is affine and ``stat_sample`` is unset; everything else is plain
 PyTorch in f32.
+
+The local normalisations (``SpatialCrossMapLRN``, the subtractive,
+divisive and contrastive ones, ``Normalize``) are plain PyTorch, as the
+JAX layers are plain XLA: memory-bound elementwise chains and small
+depthwise convolutions, for which no kernel is written. The LRN window
+over channels is the JAX one, (size - 1) // 2 channels before and the
+rest after; ``F.local_response_norm`` pads the mirror of that, so the two
+differ at an even size.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from bigdl_tpu_torch.core.module import Module, SimpleModule
 from bigdl_tpu_torch.ops import bn_kernel
 
 __all__ = ["BatchNormalization", "SpatialBatchNormalization",
-           "set_bn_fused", "bn_fused_mode", "set_bn_stat_sample"]
+           "set_bn_fused", "bn_fused_mode", "set_bn_stat_sample",
+           "SpatialCrossMapLRN", "SpatialSubtractiveNormalization",
+           "SpatialDivisiveNormalization", "SpatialContrastiveNormalization",
+           "Normalize"]
 
 
 def _canon_fused(fused) -> "bool | str":
@@ -36,7 +50,7 @@ def _canon_fused(fused) -> "bool | str":
                      f"'apply', got {fused!r}")
 
 
-class BatchNormalization(nn.Module):
+class BatchNormalization(Module):
     """Batch normalization over the feature (last) axis (defaults eps=1e-5,
     momentum=0.1, affine=True as the reference's constructor).
 
@@ -55,13 +69,12 @@ class BatchNormalization(nn.Module):
                  axis_name: Optional[str] = None, gamma_init: float = 1.0,
                  stat_sample: Optional[int] = None, fused=False,
                  name: Optional[str] = None):
-        super().__init__()
+        super().__init__(name)
         if axis_name is not None:
             raise NotImplementedError(
                 "BatchNormalization(axis_name=...) is not in the PyTorch "
                 "port yet: cross-replica statistics come with data "
                 "parallelism (ROADMAP.md queue 1 item 8)")
-        self.name = name if name is not None else type(self).__name__
         self.n_output = n_output
         self.eps, self.momentum, self.affine = eps, momentum, affine
         self.gamma_init = gamma_init
@@ -167,3 +180,117 @@ def bn_fused_mode(module: nn.Module) -> str:
     if "stats" in modes:
         return "stats"
     return "off"
+
+
+class SpatialCrossMapLRN(SimpleModule):
+    """Local response normalisation across channels (reference
+    nn/SpatialCrossMapLRN.scala): y = x / (k + alpha/size * S)^beta, S
+    the sum of x^2 over ``size`` channels, (size - 1) // 2 before the
+    channel and the rest after it, zeros past the ends."""
+
+    def __init__(self, size: int = 5, alpha: float = 1.0, beta: float = 0.75,
+                 k: float = 1.0, name: Optional[str] = None):
+        super().__init__(name)
+        self.size, self.alpha, self.beta, self.k = size, alpha, beta, k
+
+    def forward(self, x):
+        c, half = x.shape[-1], (self.size - 1) // 2
+        sq = F.pad(torch.square(x), (half, self.size - 1 - half))
+        sums = sq[..., :c]
+        for j in range(1, self.size):
+            sums = sums + sq[..., j:j + c]
+        return x / torch.pow(self.k + (self.alpha / self.size) * sums,
+                             self.beta)
+
+
+def _gaussian_kernel2d(size: int) -> torch.Tensor:
+    """The normalised 2-D gaussian window of ``size`` taps, sigma =
+    size / 4 (Torch's image.gaussian default)."""
+    sigma = 0.25 * size
+    r = torch.arange(size, dtype=torch.float32) - (size - 1) / 2.0
+    g = torch.exp(-0.5 * torch.square(r / sigma))
+    k = torch.outer(g, g)
+    return k / k.sum()
+
+
+class SpatialSubtractiveNormalization(SimpleModule):
+    """Each channel minus its local mean under ``kernel`` (default a
+    9 x 9 gaussian), normalised to sum 1 and divided at the edges by the
+    kernel's mass inside the image (reference
+    nn/SpatialSubtractiveNormalization.scala). The kernel is a buffer
+    outside the state dict, as it is outside the JAX trees."""
+
+    def __init__(self, n_input_plane: int = 1, kernel=None,
+                 name: Optional[str] = None):
+        super().__init__(name)
+        self.n_input_plane = n_input_plane
+        k = (_gaussian_kernel2d(9) if kernel is None
+             else torch.as_tensor(kernel, dtype=torch.float32))
+        self.register_buffer("kernel", k, persistent=False)
+
+    def _local_mean(self, x):
+        k = self.kernel.to(x.dtype)
+        k = k / k.sum()
+        kh, kw = k.shape
+        pads = (kw // 2, (kw - 1) // 2, kh // 2, (kh - 1) // 2)
+        c = self.n_input_plane
+        xc = F.pad(x.permute(0, 3, 1, 2), pads)
+        mean = F.conv2d(xc, k.expand(c, 1, kh, kw), groups=c)
+        ones = F.pad(torch.ones_like(x[:1, :, :, :1]).permute(0, 3, 1, 2),
+                     pads)
+        mass = F.conv2d(ones, k[None, None])
+        return (mean / mass.clamp_min(1e-8)).permute(0, 2, 3, 1)
+
+    def forward(self, x):
+        return x - self._local_mean(x)
+
+
+class SpatialDivisiveNormalization(SimpleModule):
+    """Each value over its local standard deviation, floored per sample at
+    max(mean std, threshold) (reference
+    nn/SpatialDivisiveNormalization.scala)."""
+
+    def __init__(self, n_input_plane: int = 1, kernel=None,
+                 threshold: float = 1e-4, name: Optional[str] = None):
+        super().__init__(name)
+        self.sub = SpatialSubtractiveNormalization(n_input_plane, kernel)
+        self.threshold = threshold
+
+    def forward(self, x):
+        local_std = torch.sqrt(self.sub._local_mean(torch.square(x))
+                               .clamp_min(0.0))
+        mean_std = local_std.mean(dim=(1, 2, 3), keepdim=True)
+        return x / torch.maximum(local_std,
+                                 mean_std.clamp_min(self.threshold))
+
+
+class SpatialContrastiveNormalization(SimpleModule):
+    """Subtractive, then divisive normalisation (reference
+    nn/SpatialContrastiveNormalization.scala)."""
+
+    def __init__(self, n_input_plane: int = 1, kernel=None,
+                 threshold: float = 1e-4, name: Optional[str] = None):
+        super().__init__(name)
+        self.sub = SpatialSubtractiveNormalization(n_input_plane, kernel)
+        self.div = SpatialDivisiveNormalization(n_input_plane, kernel,
+                                                threshold)
+
+    def forward(self, x):
+        return self.div(self.sub(x))
+
+
+class Normalize(SimpleModule):
+    """Rows over max(their Lp norm, eps) (reference nn/Normalize.scala);
+    p = inf takes the max |x|."""
+
+    def __init__(self, p: float = 2.0, eps: float = 1e-10,
+                 name: Optional[str] = None):
+        super().__init__(name)
+        self.p, self.eps = p, eps
+
+    def forward(self, x):
+        if self.p == math.inf:
+            n = x.abs().amax(-1, keepdim=True)
+        else:
+            n = x.abs().pow(self.p).sum(-1, keepdim=True).pow(1.0 / self.p)
+        return x / n.clamp_min(self.eps)

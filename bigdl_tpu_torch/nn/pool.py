@@ -1,5 +1,4 @@
-"""Pooling (counterpart of ``SpatialMaxPooling`` and
-``SpatialAveragePooling`` in ``bigdl_tpu/nn/pool.py``).
+"""Pooling (counterpart of ``bigdl_tpu/nn/pool.py``).
 
 (B, H, W, C) in and out, through an NCHW-shaped channels_last view as in
 :mod:`~bigdl_tpu_torch.nn.conv`. ``ceil_mode`` keeps Torch's output-size
@@ -7,6 +6,8 @@ convention, the one the JAX package's ``_pool_pads`` reproduces; the
 padding past the input counts as -inf for the max and 0 for the sum. With
 ``count_include_pad`` every average divides by kh*kw, windows that
 overhang the padded input included, as the JAX package's does.
+``TemporalMaxPooling`` pools the time axis of (B, T, C) sequences,
+without padding, windows that overhang the end dropped.
 """
 
 from __future__ import annotations
@@ -14,19 +15,20 @@ from __future__ import annotations
 from typing import Optional
 
 import torch.nn.functional as F
-from torch import nn
 
-__all__ = ["SpatialMaxPooling", "SpatialAveragePooling"]
+from bigdl_tpu_torch.core.module import SimpleModule
+
+__all__ = ["SpatialMaxPooling", "SpatialAveragePooling",
+           "TemporalMaxPooling"]
 
 
-class _SpatialPool(nn.Module):
+class _SpatialPool(SimpleModule):
     def __init__(self, kernel_w: int, kernel_h: int,
                  stride_w: Optional[int] = None,
                  stride_h: Optional[int] = None, pad_w: int = 0,
                  pad_h: int = 0, ceil_mode: bool = False,
                  name: Optional[str] = None):
-        super().__init__()
-        self.name = name if name is not None else type(self).__name__
+        super().__init__(name)
         self.kernel_w, self.kernel_h = kernel_w, kernel_h
         self.stride_w = stride_w if stride_w is not None else kernel_w
         self.stride_h = stride_h if stride_h is not None else kernel_h
@@ -74,3 +76,18 @@ class SpatialAveragePooling(_SpatialPool):
             kw = dict(count_include_pad=False)
         y = F.avg_pool2d(x.permute(0, 3, 1, 2), **self._args(), **kw)
         return y.permute(0, 2, 3, 1)
+
+
+class TemporalMaxPooling(SimpleModule):
+    """Max over windows of ``k_w`` time steps every ``d_w`` (default
+    ``k_w``) of (B, T, C) sequences (Torch TemporalMaxPooling)."""
+
+    def __init__(self, k_w: int, d_w: Optional[int] = None,
+                 name: Optional[str] = None):
+        super().__init__(name)
+        self.k_w = k_w
+        self.d_w = d_w if d_w is not None else k_w
+
+    def forward(self, x):
+        return F.max_pool1d(x.transpose(1, 2), self.k_w,
+                            self.d_w).transpose(1, 2)

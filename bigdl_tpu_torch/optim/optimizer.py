@@ -24,14 +24,14 @@ group runs as single eager steps.
 
 Dropout noise: each step draws a step seed from a host generator seeded
 with ``seed`` (one draw at the start, then one a step, counted for
-resume), and a model whose ``forward`` takes ``seed`` gets it as a 0-d
-int64 tensor on the device (microbatch i of a step gets
-``fold_seed(step seed, i)``).
+resume), and a model that takes one (``core.module.takes_seed``: its
+``forward`` has ``seed``, and a container holds a module that draws
+noise) gets it as a 0-d int64 tensor on the device (microbatch i of a
+step gets ``fold_seed(step seed, i)``).
 """
 
 from __future__ import annotations
 
-import inspect
 import logging
 import math
 import os
@@ -42,7 +42,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from bigdl_tpu_torch.core.module import resolve_device
+from bigdl_tpu_torch.core.module import (resolve_device,
+                                         takes_seed as _takes_seed)
 from bigdl_tpu_torch.dataset.pipeline.staging import DeviceBatch
 from bigdl_tpu_torch.nn.structural import fold_seed
 from bigdl_tpu_torch.optim.method import (SGD, OptimMethod,
@@ -478,7 +479,7 @@ class Optimizer:
             _copy_tree(opt_state, init_opt, "opt_state")
         rd = (self._load_resume(params, opt_state)
               if self._resume_paths[0] else None)
-        takes_seed = "seed" in inspect.signature(model.forward).parameters
+        takes_seed = _takes_seed(model)
         gen = torch.Generator().manual_seed(self.seed)
         self._draws = 0
 

@@ -21,8 +21,8 @@ from __future__ import annotations
 
 import torch
 
-from bigdl_tpu_torch.nn.structural import (_GOLDEN, _MIX1, _MIX2, _mix, _srl,
-                                           fold_seed)
+from bigdl_tpu_torch.core.module import (_GOLDEN, _MIX1, _MIX2, _mix, _srl,
+                                         fold_seed)
 
 __all__ = ["warp_logits", "sample_tokens", "sample_token", "request_key",
            "uniforms", "gumbel_noise", "STREAM_STEP", "STREAM_DRAFT",

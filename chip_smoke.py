@@ -179,6 +179,22 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    tokens/s) of the plain engine beside each run, with the card's name
    and power limit.
 
+17. BASELINE configs 1 and 2 through their CLIs, after phase 16:
+   ``cli.lenet train -b 128 --maxEpoch 2 --checkpoint DIR`` on MNIST-sized
+   idx files written here from a seed (60000 and 10000 class-banded 28 x
+   28 images), then ``cli.lenet test --model DIR``: finite falling
+   losses, Top-1 of at least 0.5 and equal to the training run's last
+   validation, images/s of each epoch. ``cli.vgg train -b 128 --maxEpoch
+   1`` (``vgg_for_cifar10`` at full width, f32) on 10000 class-banded
+   seeded CIFAR records, once with ``--fusedBN apply`` and once with
+   ``stats``, the counts set to 0 just before each run: finite falling
+   losses and exactly 14 launches a step of each of the mode's two BN
+   kernels (added to the kernels line's launches). The four BN kernels
+   against their plain versions at VGG's six (rows, C) shapes at batch
+   128, 131072 x 64 down to the 2-D BN's 128 x 512, as in phase 7.
+   ``cli.perf -m lenet5`` and ``-m vgg16``, bf16 batch 32: finite losses,
+   images/s. Each rate line carries the card's name and power limit.
+
 Any failed phase exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -307,6 +323,16 @@ PIPE_WORKERS = (0, 4)
 PIPE_IMAGES, PIPE_SIDE, PIPE_CROP, PIPE_THREADS = 1024, 256, 224, 8
 PIPE_EPOCHS = 6
 PIPE_JPEGS, PIPE_RECORD_ITERS = 512, 8
+# phase 17: LeNet-5 on MNIST (seeded class-banded idx files at MNIST's
+# size) and VGG-for-CIFAR (seeded class-banded records, 2000 a file: 10000
+# training, 2000 test) through their CLIs at batch 128; VGG's 14 BNs at
+# its six (rows, C) shapes at batch 128; the perf zoo's lenet5 and vgg16
+# rows, bf16 at the JAX harness's default batch
+MNIST_TRAIN, MNIST_TEST, LENET_EPOCHS = 60000, 10000, 2
+VGG_RECORDS, VGG_BATCH, VGG_BNS = 2000, 128, 14
+VGG_BN_SHAPES = [(128, 32, 32, 64), (128, 16, 16, 128), (128, 8, 8, 256),
+                 (128, 4, 4, 512), (128, 2, 2, 512), (128, 1, 1, 512)]
+ZOO_ROWS, ZOO_BATCH, ZOO_ITERS = ("lenet5", "vgg16"), 32, 10
 
 
 def fail(msg):
@@ -1645,11 +1671,11 @@ def bn_repeat(torch, run, first):
     return {"same_bits": same, "graph_eq": replayed}
 
 
-def check_bn(torch):
-    """The four BN kernels against their plain versions at BN_SHAPES, bf16
-    and f32 (ReLU on and off for the fused pair), with device times, the
-    library's time and the bound. Returns {(kernel, shape, dtype, relu):
-    row}."""
+def check_bn(torch, shapes=None):
+    """The four BN kernels against their plain versions at ``shapes``
+    (default BN_SHAPES), bf16 and f32 (ReLU on and off for the fused
+    pair), with device times, the library's time and the bound. Returns
+    {(kernel, shape, dtype, relu): row}."""
     from bigdl_tpu_torch.ops import bn_kernel as bk
     from bigdl_tpu_torch.tools.timing import device_ms
 
@@ -1661,7 +1687,7 @@ def check_bn(torch):
                     for a, r in zip(got, ref)))
 
     rows_out, bad = {}, []
-    for b, h, w, c in BN_SHAPES:
+    for b, h, w, c in shapes or BN_SHAPES:
         rows = b * h * w
         for dt in ("bfloat16", "float32"):
             dtype = getattr(torch, dt)
@@ -1949,9 +1975,11 @@ def bn_grads_check(torch):
             torch.cuda.empty_cache()
 
 
-def write_cifar(folder, n, seed=0):
+def write_cifar(folder, n, seed=0, banded=False):
     """cifar-10-binary files of ``n`` random records each: five
-    ``data_batch_<i>.bin`` and a ``test_batch.bin``."""
+    ``data_batch_<i>.bin`` and a ``test_batch.bin``. With ``banded`` the
+    pixels are at most 127 and label k lights rows 3k..3k+2 of every
+    channel (a class a model can learn)."""
     import numpy as np
 
     rs = np.random.RandomState(seed)
@@ -1959,6 +1987,11 @@ def write_cifar(folder, n, seed=0):
             "test_batch.bin"]:
         rec = np.concatenate([rs.randint(0, 10, (n, 1)),
                               rs.randint(0, 256, (n, 3072))], axis=1)
+        if banded:
+            img = rec[:, 1:].reshape(n, 3, 32, 32) // 2
+            rows = 3 * rec[:, :1] + np.arange(3)  # (n, 3)
+            img[np.arange(n)[:, None], :, rows] = 250
+            rec[:, 1:] = img.reshape(n, 3072)
         rec.astype(np.uint8).tofile(os.path.join(folder, name))
 
 
@@ -2649,6 +2682,181 @@ def pipeline_runs(torch, card):
     return rows, launches
 
 
+def write_mnist(folder, n_train, n_test, seed=0):
+    """MNIST idx files (``train-*`` and ``t10k-*``) of 28 x 28 images:
+    noise up to 59, and label k lights rows 2k+4..2k+6."""
+    import struct
+
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    for stem, n in (("train", n_train), ("t10k", n_test)):
+        y = rs.randint(0, 10, n).astype(np.uint8)
+        x = rs.randint(0, 60, (n, 28, 28)).astype(np.uint8)
+        x[np.arange(n)[:, None], 2 * y[:, None] + 4 + np.arange(3)] = 220
+        with open(os.path.join(folder, f"{stem}-images-idx3-ubyte"),
+                  "wb") as f:
+            f.write(struct.pack(">IIII", 2051, n, 28, 28) + x.tobytes())
+        with open(os.path.join(folder, f"{stem}-labels-idx1-ubyte"),
+                  "wb") as f:
+            f.write(struct.pack(">II", 2049, n) + y.tobytes())
+
+
+def _train_lines(lines, batch):
+    """(losses of the full-batch ``Train`` lines, images/s of each
+    ``Epoch ... done`` line)."""
+    losses = [float(m.group(2)) for m in (
+        re.match(r"Train (\d+) in .*Loss is (\S+)", ln) for ln in lines)
+        if m and int(m.group(1)) == batch]
+    rates = [float(m.group(1)) for m in (
+        re.search(r"Epoch \d+ done: .*\(([\d.]+) rec/s", ln)
+        for ln in lines) if m]
+    return losses, rates
+
+
+def _falls(losses, k=3):
+    import math
+    return (len(losses) >= 2 * k and all(math.isfinite(v) for v in losses)
+            and sum(losses[-k:]) < sum(losses[:k]))
+
+
+def lenet_run(torch, card):
+    """``cli.lenet train -b 128 --maxEpoch 2 --checkpoint DIR`` on seeded
+    MNIST-sized idx files, then ``cli.lenet test --model DIR``: finite
+    falling losses, Top-1 far above chance (0.1), the test's Top-1 the
+    training run's last validation; images/s of each epoch."""
+    import contextlib
+    import io
+    import tempfile
+
+    from bigdl_tpu_torch.cli import lenet as lenet_cli
+
+    with tempfile.TemporaryDirectory() as tmp, LogLines() as lines:
+        write_mnist(tmp, MNIST_TRAIN, MNIST_TEST)
+        ck = os.path.join(tmp, "ckpt")
+        t0 = time.perf_counter()
+        lenet_cli.main(["train", "-f", tmp, "-b", str(VGG_BATCH),
+                        "--maxEpoch", str(LENET_EPOCHS), "--logEvery", "20",
+                        "--checkpoint", ck])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            lenet_cli.main(["test", "-f", tmp, "--model", ck, "-b",
+                            str(VGG_BATCH)])
+    losses, rates = _train_lines(lines, VGG_BATCH)
+    top1 = [ln for ln in lines if ln.startswith("top1 accuracy is ")]
+    tested = [ln for ln in out.getvalue().splitlines()
+              if ln.startswith("top1 accuracy is ")]
+    acc = (float(re.search(r"AccuracyResult\(([\d.]+)", tested[-1]).group(1))
+           if tested else 0.0)
+    print(f"[lenet5 cli] MNIST {MNIST_TRAIN} images x {LENET_EPOCHS} "
+          f"epochs at batch {VGG_BATCH} in {secs:.1f}s on {card}: "
+          f"{[round(r, 1) for r in rates]} images/s per epoch; losses "
+          f"{[round(v, 4) for v in losses[:3]]} ... "
+          f"{[round(v, 4) for v in losses[-3:]]}; "
+          f"{top1[-1] if top1 else 'no top1 line'}; test: "
+          f"{tested[-1] if tested else 'no top1 line'}", flush=True)
+    if not _falls(losses):
+        fail(f"[lenet5 cli] losses not finite and falling: {losses}")
+    if not tested or not top1 or tested[-1] != top1[-1] or acc < 0.5:
+        fail(f"[lenet5 cli] top-1 {tested[-1:]} (training's last "
+             f"{top1[-1:]}), expected the same and >= 0.5")
+    return {"images_per_s": rates, "top1": acc}
+
+
+def vgg_runs(torch, card):
+    """``cli.vgg train -b 128 --maxEpoch 1`` on seeded class-banded CIFAR
+    records, once with ``--fusedBN apply`` and once with ``stats``, the
+    launch counts set to 0 just before each run: finite falling losses
+    and exactly VGG_BNS launches a step of each of the mode's two BN
+    kernels and none of any other. Returns {mode: (images/s, launches,
+    steps)}."""
+    import tempfile
+
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.cli import vgg as vgg_cli
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_cifar(tmp, VGG_RECORDS, seed=3, banded=True)
+        for mode, kernels in (("apply", ("bn_fwd_apply", "bn_bwd_fused")),
+                              ("stats", ("bn_stats", "bn_bwd_stats"))):
+            with LogLines() as lines:
+                ops.reset_kernel_launches()
+                t0 = time.perf_counter()
+                vgg_cli.main(["train", "-f", tmp, "-b", str(VGG_BATCH),
+                              "--maxEpoch", "1", "--logEvery", "1",
+                              "--fusedBN", mode])
+                torch.cuda.synchronize()
+                n = ops.kernel_launches()
+                secs = time.perf_counter() - t0
+            losses, rates = _train_lines(lines, VGG_BATCH)
+            top1 = [ln for ln in lines if ln.startswith("top1 accuracy is ")]
+            steps = len(losses)
+            print(f"[vgg cli --fusedBN {mode}] {5 * VGG_RECORDS} images at "
+                  f"batch {VGG_BATCH}, {steps} steps in {secs:.1f}s on "
+                  f"{card}: {[round(r, 1) for r in rates]} images/s; "
+                  f"losses {[round(v, 4) for v in losses[:3]]} ... "
+                  f"{[round(v, 4) for v in losses[-3:]]}; "
+                  f"{top1[-1] if top1 else 'no top1 line'}; launches "
+                  f"{ {k: v for k, v in n.items() if v} }", flush=True)
+            if not _falls(losses):
+                fail(f"[vgg cli {mode}] losses not finite and falling: "
+                     f"{losses}")
+            want = {k: VGG_BNS * steps if k in kernels else 0 for k in n}
+            if n != want:
+                fail(f"[vgg cli {mode}] launches {n}, expected {want} "
+                     f"({VGG_BNS} BNs a step)")
+            out[mode] = (rates[-1] if rates else 0.0, n, steps)
+    return out
+
+
+def zoo_perf_runs(torch, card):
+    """``cli.perf`` rows ``lenet5`` and ``vgg16`` (bf16, batch ZOO_BATCH,
+    2 warm-up and ZOO_ITERS timed steps): finite losses, no BN kernel
+    launched (neither model has a BN). Returns {row: result}."""
+    import math
+
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.cli import perf
+
+    out = {}
+    for name in ZOO_ROWS:
+        ops.reset_kernel_launches()
+        res = perf.run(name, batch=ZOO_BATCH, iterations=ZOO_ITERS,
+                       dtype=torch.bfloat16, warmup=2)
+        torch.cuda.synchronize()
+        n = ops.kernel_launches()
+        print(f"[perf {name}] bf16 batch {ZOO_BATCH} on {card}: "
+              f"{res['records_per_second']} images/s over {ZOO_ITERS} timed "
+              f"steps ({res['seconds']} s); losses "
+              f"{[round(v, 4) for v in res['losses']]}", flush=True)
+        if not all(math.isfinite(v) for v in res["losses"]) or any(
+                n.values()):
+            fail(f"[perf {name}] losses {res['losses']}, launches {n}")
+        out[name] = res
+        torch.cuda.empty_cache()
+    return out
+
+
+def baseline_runs(torch, card):
+    """Phase 17: BASELINE configs 1 and 2 through their CLIs, VGG's BN
+    shapes and the perf zoo's rows. Returns (rows, the VGG runs'
+    launches, the BN rows)."""
+    t0 = time.perf_counter()
+    lenet = lenet_run(torch, card)
+    vgg = vgg_runs(torch, card)
+    bn_rows = check_bn(torch, VGG_BN_SHAPES)
+    zoo = zoo_perf_runs(torch, card)
+    print(f"[phase 17] {time.perf_counter() - t0:.1f}s", flush=True)
+    rows = {"lenet5 cli (last epoch)": lenet["images_per_s"][-1]}
+    rows.update({f"vgg cli --fusedBN {m}": r for m, (r, _, _) in vgg.items()})
+    rows.update({f"perf {k} bf16 batch {ZOO_BATCH}": v["records_per_second"]
+                 for k, v in zoo.items()})
+    return rows, [n for _, n, _ in vgg.values()], bn_rows
+
+
 def main():
     try:
         import torch
@@ -2734,6 +2942,10 @@ def main():
     for n in pipe_n:
         for name in launches:
             launches[name] += n[name]
+    base_rows, base_n, _ = baseline_runs(torch, card)
+    for n in base_n:
+        for name in launches:
+            launches[name] += n[name]
     print(f"[bf16] {MODEL} on {card}: {tps:.1f} generated tokens/s over 4 "
           f"concurrent requests, /generate latencies ms "
           f"{[round(x, 1) for x in lat]} (prompts {list(PROMPT_LENS)}, "
@@ -2761,6 +2973,9 @@ def main():
               + (f"{r:.1f} images/s" if isinstance(r, float) else
                  ", ".join(f"{k} {v:.3f}" for k, v in r.items())),
               flush=True)
+
+    for tag, r in base_rows.items():
+        print(f"[baseline] {tag} on {card}: {r:.1f} images/s", flush=True)
 
     head, bwd = rows[0], bwd_rows[0]  # the training step's 8 x 8 x 1024^2
     common = {"route": "cuda", "check": "pass", "shape": head["shape"],

@@ -70,8 +70,10 @@ def test_entry_points_refuse_a_silent_cpu_run(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("torch.cuda is available: the no-CUDA rule cannot be "
                     "shown on this machine")
+    from bigdl_tpu_torch.cli import lenet as lenet_cli
     from bigdl_tpu_torch.cli import perf
     from bigdl_tpu_torch.cli import resnet as resnet_cli
+    from bigdl_tpu_torch.cli import vgg as vgg_cli
     from bigdl_tpu_torch.cli import serve as serve_cli
     from bigdl_tpu_torch.cli import transformerlm
     from bigdl_tpu_torch.dataset import BatchDataSet
@@ -95,7 +97,15 @@ def test_entry_points_refuse_a_silent_cpu_run(tmp_path):
                  lambda: perf.main(["-m", "resnet50_fba", "-b", "1", "-i",
                                     "1"]),
                  lambda: resnet_cli.main(["train", "-f", str(tmp_path),
-                                          "--depth", "8", "-b", "2"])):
+                                          "--depth", "8", "-b", "2"]),
+                 lambda: lenet_cli.main(["train", "-f", str(tmp_path),
+                                         "-b", "2"]),
+                 lambda: lenet_cli.main(["test", "-f", str(tmp_path),
+                                         "--model", str(tmp_path)]),
+                 lambda: vgg_cli.main(["train", "-f", str(tmp_path), "-b",
+                                       "2", "--fusedBN", "apply"]),
+                 lambda: vgg_cli.main(["test", "-f", str(tmp_path),
+                                       "--model", str(tmp_path)])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     # asked for the CPU, they run
