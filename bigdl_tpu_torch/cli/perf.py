@@ -1,6 +1,8 @@
-"""Training throughput of the perf model zoo's ResNet and LM rows
-(counterpart of ``bigdl_tpu/cli/perf.py``)::
+"""Training throughput of the perf model zoo's image and LM rows
+(counterpart of ``bigdl_tpu/cli/perf.py``; its default row is
+``inception_v1``, as the JAX harness's)::
 
+    python -m bigdl_tpu_torch.cli.perf [-m inception_v1] [-b 32]
     python -m bigdl_tpu_torch.cli.perf -m resnet50_fba -b 128 --dataType random
     python -m bigdl_tpu_torch.cli.perf -m transformer_lm_1k_hd128 -b 8
 
@@ -77,6 +79,11 @@ IMAGE_CONFIGS = {
     "lenet5": (dict(arch="lenet5"), (28, 28, 1), 10),
     "vgg16": (dict(arch="vgg16"), (224, 224, 3), 1000),
     "vgg19": (dict(arch="vgg19"), (224, 224, 3), 1000),
+    "inception_v1": (dict(arch="inception_v1_no_aux"), (224, 224, 3), 1000),
+    "inception_v2": (dict(arch="inception_v2"), (224, 224, 3), 1000),
+    # 227 x 227, the Caffe geometry its Reshape([256*6*6]) fixes (the JAX
+    # harness feeds it 224 x 224, which cannot reshape)
+    "alexnet": (dict(arch="alexnet"), (227, 227, 3), 1000),
 }
 
 
@@ -320,7 +327,7 @@ def run(model_name: str, batch: int = 32, iterations: int = 10,
 
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser("python -m bigdl_tpu_torch.cli.perf")
-    p.add_argument("-m", "--model", default="transformer_lm_1k_hd128",
+    p.add_argument("-m", "--model", default="inception_v1",
                    choices=sorted(IMAGE_CONFIGS) + sorted(LM_CONFIGS))
     p.add_argument("-b", "--batchSize", type=int, default=32)
     p.add_argument("-i", "--iteration", type=int, default=10)

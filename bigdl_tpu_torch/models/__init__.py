@@ -1,3 +1,7 @@
+from bigdl_tpu_torch.models.alexnet import alexnet
+from bigdl_tpu_torch.models.inception import (inception_module, inception_v1,
+                                              inception_v1_no_aux,
+                                              inception_v2)
 from bigdl_tpu_torch.models.lenet import lenet5
 from bigdl_tpu_torch.models.resnet import (basic_block, bottleneck_block,
                                            resnet, resnet50, resnet_cifar)
@@ -7,7 +11,8 @@ from bigdl_tpu_torch.models.transformer_lm import (PackedNLLCriterion,
                                                   transformer_lm)
 from bigdl_tpu_torch.models.vgg import vgg16, vgg19, vgg_for_cifar10
 
-__all__ = ["PackedNLLCriterion", "TransformerLM", "basic_block",
-           "bottleneck_block", "lenet5", "packed_lm_targets", "resnet",
-           "resnet50", "resnet_cifar", "transformer_lm", "vgg16", "vgg19",
-           "vgg_for_cifar10"]
+__all__ = ["PackedNLLCriterion", "TransformerLM", "alexnet", "basic_block",
+           "bottleneck_block", "inception_module", "inception_v1",
+           "inception_v1_no_aux", "inception_v2", "lenet5",
+           "packed_lm_targets", "resnet", "resnet50", "resnet_cifar",
+           "transformer_lm", "vgg16", "vgg19", "vgg_for_cifar10"]

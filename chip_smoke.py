@@ -195,6 +195,28 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    ``cli.perf -m lenet5`` and ``-m vgg16``, bf16 batch 32: finite losses,
    images/s. Each rate line carries the card's name and power limit.
 
+18. BASELINE config 4, after phase 17: ``cli.inception train -b 32
+   --maxEpoch 1`` on a seeded class-banded JPEG folder written here with
+   PIL (10 classes of 32 training and 8 validation 256 x 256 images) as
+   ``inception_v1``, and as ``inception_v2`` with ``--fusedBN apply`` and
+   ``stats``, the counts set to 0 just before each run: finite losses,
+   exactly 57 launches a step of each of the mode's two BN kernels (none
+   for v1; added to the kernels line's launches), images/s, and
+   ``cli.inception test --model`` on each run's checkpoint printing its
+   last validation's Top-1 and Top-5 lines. AlexNet at 1000 classes from
+   a seeded ``.caffemodel`` of the real blob shapes (~244 MB, written
+   here) through ``cli.loadmodel --modelType caffe`` on that val folder,
+   then exported with ``save_torch_module`` and run as ``--modelType
+   torch``: the same Top-1 and Top-5 lines, images/s (load included),
+   and on one fixed batch each import's logits on the card within
+   ``ALEXNET_LOGIT_TOL`` of max|logit| of the CPU forward. The four BN
+   kernels against their plain versions at the 33 (rows, C) shapes that
+   forward hooks collect from Inception-v2's 57 BNs at batch 32 (401408
+   x 64 down to 1568 x C, C from 16 to 384), as in phase 7. ``cli.perf
+   -m inception_v1``, ``-m inception_v2 --fusedBN apply`` (57 launches a
+   step of each fused kernel) and ``-m alexnet`` (227 x 227), bf16 batch
+   32: finite losses, images/s.
+
 Any failed phase exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -333,6 +355,19 @@ VGG_RECORDS, VGG_BATCH, VGG_BNS = 2000, 128, 14
 VGG_BN_SHAPES = [(128, 32, 32, 64), (128, 16, 16, 128), (128, 8, 8, 256),
                  (128, 4, 4, 512), (128, 2, 2, 512), (128, 1, 1, 512)]
 ZOO_ROWS, ZOO_BATCH, ZOO_ITERS = ("lenet5", "vgg16"), 32, 10
+# phase 18: Inception-v1/v2 through cli.inception on a seeded class-banded
+# JPEG folder (10 classes of 32 training and 8 validation 256 x 256
+# images) at batch 32, one epoch; Inception-v2's 57 BNs a step; AlexNet at
+# 1000 classes through the Caffe and Torch importers (cli.loadmodel) on
+# that val folder at 227 x 227; the perf zoo's inception and alexnet rows
+INC_CLASSES, INC_TRAIN, INC_VAL, INC_SIDE, INC_BATCH = 10, 32, 8, 256, 32
+INC_BNS, INC_LR = 57, "0.01"
+INC_ROWS = (("inception_v1", None), ("inception_v2", "apply"),
+            ("alexnet", None))
+# AlexNet's logits on the card against the CPU forward of the same
+# imported weights, max|d| / max|ref| (f32, TF32 off: the two differ in
+# the order of their sums)
+ALEXNET_LOGIT_TOL = 1e-4
 
 
 def fail(msg):
@@ -2857,6 +2892,297 @@ def baseline_runs(torch, card):
     return rows, [n for _, n, _ in vgg.values()], bn_rows
 
 
+def write_jpeg_folder(root, seed=0):
+    """``root/train/c<k>/<i>.jpg`` (INC_TRAIN a class) and ``root/val/...``
+    (INC_VAL a class), INC_SIDE square: noise up to 99 and, for class k,
+    a bright band across rows 20k..20k+19 of channel k % 3 (a class the
+    models can learn). Written with PIL."""
+    import numpy as np
+    from PIL import Image
+
+    rs = np.random.RandomState(seed)
+    for split, per in (("train", INC_TRAIN), ("val", INC_VAL)):
+        for k in range(INC_CLASSES):
+            d = os.path.join(root, split, f"c{k}")
+            os.makedirs(d)
+            for i in range(per):
+                img = rs.randint(0, 100, (INC_SIDE, INC_SIDE, 3))
+                img[20 * k:20 * k + 20, :, k % 3] = 240
+                Image.fromarray(img.astype(np.uint8)).save(
+                    os.path.join(d, f"{i}.jpg"), quality=90)
+
+
+def _printed_lines(run, argv):
+    """(the ``<method> is`` lines ``run(argv)`` prints, its seconds)."""
+    import contextlib
+    import io
+
+    import torch
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        run(argv)
+    torch.cuda.synchronize()
+    return ([ln for ln in out.getvalue().splitlines() if " is " in ln],
+            time.perf_counter() - t0)
+
+
+def inception_cli_runs(torch, card, folder):
+    """``cli.inception train -b 32 --maxEpoch 1`` as ``inception_v1`` and
+    as ``inception_v2`` with ``--fusedBN apply`` and ``stats``, the counts
+    set to 0 just before each run, then ``cli.inception test --model`` on
+    each run's checkpoint: finite losses, exactly INC_BNS launches a step
+    of each of the mode's two BN kernels (none for v1), the test's Top-1
+    and Top-5 lines the training run's last validation. Returns {tag:
+    (images/s, launches)}."""
+    import math
+
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.cli import inception as inception_cli
+
+    out = {}
+    for name, mode, kernels in (
+            ("inception_v1", None, ()),
+            ("inception_v2", "apply", ("bn_fwd_apply", "bn_bwd_fused")),
+            ("inception_v2", "stats", ("bn_stats", "bn_bwd_stats"))):
+        tag = name + (f" --fusedBN {mode}" if mode else "")
+        ck = os.path.join(folder, f"ck_{name}_{mode}")
+        argv = ["train", "-f", folder, "-b", str(INC_BATCH), "--maxEpoch",
+                "1", "--logEvery", "1", "--modelName", name, "--classNum",
+                str(INC_CLASSES), "--learningRate", INC_LR, "--checkpoint",
+                ck] + (["--fusedBN", mode] if mode else [])
+        with LogLines() as lines:
+            ops.reset_kernel_launches()
+            t0 = time.perf_counter()
+            inception_cli.main(argv)
+            torch.cuda.synchronize()
+            n = ops.kernel_launches()
+            secs = time.perf_counter() - t0
+        losses, rates = _train_lines(lines, INC_BATCH)
+        val = [ln for ln in lines if ln.startswith(("top1 accuracy is ",
+                                                    "top5 accuracy is "))]
+        tested, _ = _printed_lines(inception_cli.main, [
+            "test", "-f", folder, "--model", ck, "-b", str(INC_BATCH),
+            "--modelName", name, "--classNum", str(INC_CLASSES)])
+        steps = len(losses)
+        print(f"[inception cli {tag}] {INC_CLASSES * INC_TRAIN} images at "
+              f"batch {INC_BATCH}, {steps} steps in {secs:.1f}s on {card}: "
+              f"{[round(r, 1) for r in rates]} images/s; losses "
+              f"{[round(v, 4) for v in losses]}; {val[-2:]}; test: "
+              f"{tested}; launches {({k: v for k, v in n.items() if v})}",
+              flush=True)
+        if steps != INC_CLASSES * INC_TRAIN // INC_BATCH or not all(
+                math.isfinite(v) for v in losses):
+            fail(f"[inception cli {tag}] losses {losses}")
+        want = {k: INC_BNS * steps if k in kernels else 0 for k in n}
+        if n != want:
+            fail(f"[inception cli {tag}] launches {n}, expected {want} "
+                 f"({INC_BNS} BNs a step)")
+        if len(val) < 2 or tested != val[-2:]:
+            fail(f"[inception cli {tag}] test printed {tested}, the "
+                 f"training run's last validation {val[-2:]}")
+        out[tag] = (rates[-1] if rates else 0.0, n)
+        torch.cuda.empty_cache()
+    return out
+
+
+ALEXNET_CAFFE = [("conv1", (96, 3, 11, 11)), ("conv2", (256, 48, 5, 5)),
+                 ("conv3", (384, 256, 3, 3)), ("conv4", (384, 192, 3, 3)),
+                 ("conv5", (256, 192, 3, 3)), ("fc6", (4096, 9216)),
+                 ("fc7", (4096, 4096)), ("fc8", (1000, 4096))]
+
+
+def write_alexnet_caffe(folder, seed=0):
+    """A seeded AlexNet ``.caffemodel`` of the real blob shapes (weights
+    N(0, 2 / fan_in), biases N(0, 0.01)), written as protobuf wire bytes
+    (the new layer format, packed floats), and a deploy prototxt. Returns
+    (prototxt, caffemodel)."""
+    import numpy as np
+
+    def varint(n):
+        out = b""
+        while True:
+            b7, n = n & 0x7F, n >> 7
+            if not n:
+                return out + bytes([b7])
+            out += bytes([b7 | 0x80])
+
+    def field(fno, data):
+        return varint((fno << 3) | 2) + varint(len(data)) + data
+
+    def blob(a):
+        dims = field(1, b"".join(varint(d) for d in a.shape))
+        return field(7, dims) + field(5, a.astype("<f4").tobytes())
+
+    rng = np.random.default_rng(seed)
+    weights = os.path.join(folder, "alexnet.caffemodel")
+    proto = os.path.join(folder, "deploy.prototxt")
+    with open(weights, "wb") as f:
+        f.write(field(1, b"AlexNet"))
+        for name, shape in ALEXNET_CAFFE:
+            w = rng.standard_normal(shape, dtype=np.float32)
+            w *= np.float32((2.0 / np.prod(shape[1:])) ** 0.5)
+            b = 0.1 * rng.standard_normal(shape[0], dtype=np.float32)
+            kind = b"InnerProduct" if name.startswith("fc") else \
+                b"Convolution"
+            f.write(field(100, field(1, name.encode()) + field(2, kind)
+                          + field(7, blob(w)) + field(7, blob(b))))
+    with open(proto, "w") as f:
+        f.write('name: "AlexNet"\ninput: "data"\n' + "".join(
+            f'layer {{ name: "{n}" type: "'
+            f'{"InnerProduct" if n.startswith("fc") else "Convolution"}" }}\n'
+            for n, _ in ALEXNET_CAFFE))
+    return proto, weights
+
+
+def alexnet_import_runs(torch, card, folder):
+    """AlexNet at 1000 classes through ``cli.loadmodel --modelType caffe``
+    on the val folder at 227 x 227, the same weights exported with
+    ``save_torch_module`` and run again as ``--modelType torch``: the two
+    runs print the same Top-1 and Top-5 lines; on one fixed batch the
+    logits of each import on the card match the CPU forward of the caffe
+    import within ALEXNET_LOGIT_TOL of max|logit|. Returns {tag:
+    images/s}."""
+    import numpy as np
+
+    from bigdl_tpu_torch.cli import loadmodel as loadmodel_cli
+    from bigdl_tpu_torch.interop import (load_caffe, load_torch_module,
+                                         save_torch_module)
+    from bigdl_tpu_torch.models import alexnet
+
+    t0 = time.perf_counter()
+    proto, weights = write_alexnet_caffe(folder)
+    t7 = os.path.join(folder, "alexnet.t7")
+    model = load_caffe(alexnet(1000, generator=torch.Generator()
+                               .manual_seed(0)), weights).eval()
+    save_torch_module(model, t7, example_input=(1, 227, 227, 3))
+    print(f"[alexnet import] caffemodel {os.path.getsize(weights)} bytes, "
+          f".t7 {os.path.getsize(t7)} bytes, written and exported in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    n_val = INC_CLASSES * INC_VAL // INC_BATCH * INC_BATCH
+    val = os.path.join(folder, "val")
+    rows, printed = {}, {}
+    for kind, argv in (("caffe", ["--modelName", "alexnet", "--model", proto,
+                                  "--weights", weights]),
+                       ("torch", ["--model", t7, "--imageSize", "227"])):
+        printed[kind], secs = _printed_lines(loadmodel_cli.main, [
+            "--modelType", kind, "-f", val, "-b", str(INC_BATCH),
+            "--classNum", "1000"] + argv)
+        rows[f"loadmodel --modelType {kind} alexnet"] = n_val / secs
+        print(f"[alexnet loadmodel {kind}] {n_val} images at batch "
+              f"{INC_BATCH} in {secs:.2f}s on {card}: {n_val / secs:.1f} "
+              f"images/s (load included); {printed[kind]}", flush=True)
+    if len(printed["caffe"]) != 2 or printed["caffe"] != printed["torch"]:
+        fail(f"[alexnet import] caffe printed {printed['caffe']}, torch "
+             f"{printed['torch']}")
+    x = torch.from_numpy(np.random.RandomState(18).randn(
+        8, 227, 227, 3).astype(np.float32))
+    with torch.no_grad():
+        ref = model(x)
+        scale = float(ref.abs().max())
+        for kind, m in (("caffe", model.to(DEV)),
+                        ("torch", load_torch_module(t7, device=DEV))):
+            got = m(x.to(DEV)).cpu()
+            err = float((got - ref).abs().max()) / scale
+            print(f"[alexnet {kind} import] logits on the card vs the CPU "
+                  f"forward: max|d|/max|ref| {err:.2e}", flush=True)
+            if not err <= ALEXNET_LOGIT_TOL:
+                fail(f"[alexnet {kind} import] logits off by {err:.2e} of "
+                     f"max|ref| (tolerance {ALEXNET_LOGIT_TOL})")
+    del model
+    torch.cuda.empty_cache()
+    return rows
+
+
+def inception_bn_shapes(torch):
+    """[(b, h, w, C), count] of the inputs Inception-v2's 57 BNs meet in a
+    batch-INC_BATCH forward on the card, from forward hooks."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models import inception_v2
+
+    model = inception_v2(1000).to(DEV).eval()
+    seen = []
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out: seen.append(tuple(args[0].shape)))
+        for m in model.modules() if isinstance(m, nn.BatchNormalization)]
+    with torch.no_grad():
+        model(torch.zeros(INC_BATCH, 224, 224, 3, device=DEV))
+    for h in hooks:
+        h.remove()
+    del model
+    if len(seen) != INC_BNS:
+        fail(f"[inception_v2] {len(seen)} BNs met in a forward, expected "
+             f"{INC_BNS}")
+    shapes = sorted(set(seen), key=lambda s: (-s[1], s[3]))
+    return [(s, seen.count(s)) for s in shapes]
+
+
+def inception_perf_runs(torch, card):
+    """``cli.perf`` rows ``inception_v1``, ``inception_v2 --fusedBN
+    apply`` and ``alexnet`` (bf16, batch ZOO_BATCH, 2 warm-up and
+    ZOO_ITERS timed steps): finite losses, exactly INC_BNS launches a step
+    of each fused kernel for v2 and none elsewhere. Returns {row: (result,
+    launches)}."""
+    import math
+
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.cli import perf
+
+    out = {}
+    steps = 2 + ZOO_ITERS
+    for name, fused in INC_ROWS:
+        ops.reset_kernel_launches()
+        res = perf.run(name, batch=ZOO_BATCH, iterations=ZOO_ITERS,
+                       dtype=torch.bfloat16, warmup=2, fused_bn=fused)
+        torch.cuda.synchronize()
+        n = ops.kernel_launches()
+        print(f"[perf {name}{' --fusedBN ' + fused if fused else ''}] bf16 "
+              f"batch {ZOO_BATCH} on {card}: {res['records_per_second']} "
+              f"images/s over {ZOO_ITERS} timed steps ({res['seconds']} s); "
+              f"losses {[round(v, 4) for v in res['losses']]}; launches "
+              f"{({k: v for k, v in n.items() if v})}", flush=True)
+        kernels = ("bn_fwd_apply", "bn_bwd_fused") if fused else ()
+        want = {k: INC_BNS * steps if k in kernels else 0 for k in n}
+        if not all(math.isfinite(v) for v in res["losses"]) or n != want:
+            fail(f"[perf {name}] losses {res['losses']}, launches {n}, "
+                 f"expected {want}")
+        out[name] = (res, n)
+        torch.cuda.empty_cache()
+    return out
+
+
+def inception_runs(torch, card):
+    """Phase 18: BASELINE config 4. Inception through ``cli.inception``,
+    AlexNet through the Caffe and Torch importers, the BN kernels at
+    Inception-v2's shapes, the perf zoo's inception and alexnet rows.
+    Returns (rows, the runs' launches, the BN rows)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        write_jpeg_folder(tmp, seed=18)
+        print(f"[phase 18] {INC_CLASSES * (INC_TRAIN + INC_VAL)} JPEGs "
+              f"written in {time.perf_counter() - t0:.1f}s", flush=True)
+        cli = inception_cli_runs(torch, card, tmp)
+        rows = alexnet_import_runs(torch, card, tmp)
+    shapes = inception_bn_shapes(torch)
+    print(f"[inception_v2] batch {INC_BATCH}: {len(shapes)} (rows, C) "
+          f"shapes over {INC_BNS} BNs: " + ", ".join(
+              f"{b * h * w}x{c}" + (f" ({k})" if k > 1 else "")
+              for (b, h, w, c), k in shapes), flush=True)
+    bn_rows = check_bn(torch, [s for s, _ in shapes])
+    zoo = inception_perf_runs(torch, card)
+    print(f"[phase 18] {time.perf_counter() - t0:.1f}s", flush=True)
+    rows.update({f"inception cli {tag}": r for tag, (r, _) in cli.items()})
+    rows.update({f"perf {k}{' --fusedBN ' + f if f else ''} bf16 batch "
+                 f"{ZOO_BATCH}": zoo[k][0]["records_per_second"]
+                 for k, f in INC_ROWS})
+    launches = ([n for _, n in cli.values()]
+                + [n for _, n in zoo.values()])
+    return rows, launches, bn_rows
+
+
 def main():
     try:
         import torch
@@ -2943,7 +3269,8 @@ def main():
         for name in launches:
             launches[name] += n[name]
     base_rows, base_n, _ = baseline_runs(torch, card)
-    for n in base_n:
+    inc_rows, inc_n, _ = inception_runs(torch, card)
+    for n in base_n + inc_n:
         for name in launches:
             launches[name] += n[name]
     print(f"[bf16] {MODEL} on {card}: {tps:.1f} generated tokens/s over 4 "
@@ -2974,7 +3301,7 @@ def main():
                  ", ".join(f"{k} {v:.3f}" for k, v in r.items())),
               flush=True)
 
-    for tag, r in base_rows.items():
+    for tag, r in {**base_rows, **inc_rows}.items():
         print(f"[baseline] {tag} on {card}: {r:.1f} images/s", flush=True)
 
     head, bwd = rows[0], bwd_rows[0]  # the training step's 8 x 8 x 1024^2

@@ -70,13 +70,17 @@ def test_entry_points_refuse_a_silent_cpu_run(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("torch.cuda is available: the no-CUDA rule cannot be "
                     "shown on this machine")
+    from bigdl_tpu_torch.cli import inception as inception_cli
     from bigdl_tpu_torch.cli import lenet as lenet_cli
+    from bigdl_tpu_torch.cli import loadmodel as loadmodel_cli
+    from bigdl_tpu_torch.cli import main as cli_main
     from bigdl_tpu_torch.cli import perf
     from bigdl_tpu_torch.cli import resnet as resnet_cli
     from bigdl_tpu_torch.cli import vgg as vgg_cli
     from bigdl_tpu_torch.cli import serve as serve_cli
     from bigdl_tpu_torch.cli import transformerlm
     from bigdl_tpu_torch.dataset import BatchDataSet
+    from bigdl_tpu_torch.interop import TorchObject, load_torch_module
     from bigdl_tpu_torch.optim import Optimizer
     from bigdl_tpu_torch.serving import DecodeEngine, InferenceEngine
     (tmp_path / "input.txt").write_text("the cat sat on the mat . " * 200)
@@ -105,7 +109,24 @@ def test_entry_points_refuse_a_silent_cpu_run(tmp_path):
                  lambda: vgg_cli.main(["train", "-f", str(tmp_path), "-b",
                                        "2", "--fusedBN", "apply"]),
                  lambda: vgg_cli.main(["test", "-f", str(tmp_path),
-                                       "--model", str(tmp_path)])):
+                                       "--model", str(tmp_path)]),
+                 lambda: inception_cli.main(["train", "-f", str(tmp_path),
+                                             "-b", "2", "--modelName",
+                                             "inception_v2", "--fusedBN",
+                                             "apply"]),
+                 lambda: inception_cli.main(["test", "-f", str(tmp_path),
+                                             "--model", str(tmp_path)]),
+                 lambda: loadmodel_cli.main(["--modelType", "bigdl",
+                                             "--modelName", "alexnet",
+                                             "--model", str(tmp_path), "-f",
+                                             str(tmp_path)]),
+                 lambda: loadmodel_cli.main(["--modelType", "torch",
+                                             "--model", str(tmp_path), "-f",
+                                             str(tmp_path)]),
+                 lambda: cli_main.main(["inception", "train", "-f",
+                                        str(tmp_path), "-b", "2"]),
+                 lambda: cli_main.main(["perf", "-b", "1", "-i", "1"]),
+                 lambda: load_torch_module(TorchObject("nn.ReLU", {}))):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     # asked for the CPU, they run
