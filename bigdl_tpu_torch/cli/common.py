@@ -13,6 +13,7 @@ from typing import Optional, Sequence
 
 __all__ = ["setup_logging", "add_train_args", "add_test_args",
            "add_fused_bn_arg", "apply_fused_bn", "add_pipeline_args",
+           "add_conv_args", "apply_conv_args",
            "build_feed", "build_optimizer", "load_trained", "evaluate",
            "OPTIM_METHODS", "PIPELINE_STAGE_CHOICES"]
 
@@ -71,6 +72,51 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
                         "apply where meaningful)")
     add_fused_bn_arg(p)
     add_pipeline_args(p)
+    add_conv_args(p)
+
+
+def add_conv_args(p: argparse.ArgumentParser) -> None:
+    """--convLayout/--convGeom: the conv layout policy
+    (:mod:`bigdl_tpu_torch.ops.conv2d`), with the JAX CLIs' spellings."""
+    p.add_argument("--convLayout", default=None,
+                   metavar="FWD,DGRAD,WGRAD",
+                   help="per-pass conv activation layouts (NHWC|NCHW|"
+                        "GEMM each, or 'auto'/'default'; GEMM = a matrix "
+                        "product for eligible 1x1/stride-1 convs, "
+                        "exact-parity fallback elsewhere). Unset = "
+                        "'auto': the measured probe decision shipped for "
+                        "this device (ops/conv2d.MEASURED_DECISIONS, "
+                        "none yet), no-op on unmeasured devices; "
+                        "'default' forces all-NHWC. Wins over --convGeom")
+    p.add_argument("--convGeom", default=None, metavar="FILE",
+                   help="per-conv-geometry layout decision JSON "
+                        "(tools/conv_probe.py --geom): decisions keyed by "
+                        "(kh, kw, stride, cin, cout, groups, dilation, "
+                        "dtype), each pass independently NHWC/NCHW/GEMM")
+
+
+def apply_conv_args(args) -> None:
+    """Install ``--convGeom``, then ``--convLayout`` (an explicit spec wins
+    at lookup), as the JAX CLIs do before a model runs; a bad file or spec
+    exits with the JAX message. Installing the same flags again changes
+    nothing."""
+    from bigdl_tpu_torch.ops.conv2d import (install_geom_file,
+                                            install_layout_spec)
+    geom = getattr(args, "convGeom", None)
+    if geom:
+        try:
+            n = install_geom_file(geom)
+        except (OSError, ValueError) as e:  # JSONDecodeError included
+            raise SystemExit(f"--convGeom {geom}: {e}")
+        logging.getLogger(__name__).info(
+            "installed %d per-geometry conv layout decisions from %s",
+            n, geom)
+    spec = getattr(args, "convLayout", None)
+    if spec:
+        try:
+            install_layout_spec(spec)
+        except ValueError as e:
+            raise SystemExit(str(e))
 
 
 def add_pipeline_args(p: argparse.ArgumentParser) -> None:
@@ -171,13 +217,15 @@ def _method(args, name: str):
 
 
 def build_optimizer(model, dataset, criterion, args, optim_method=None):
-    """The Optimizer the reference's flags describe, with --fusedBN
-    installed on the model: ``optim_method``, else the --optimMethod one,
-    ending after ``--maxEpoch`` epochs, fed through :func:`build_feed`;
-    an every-epoch checkpoint into ``--checkpoint`` and a resume from
-    ``--model`` when given."""
+    """The Optimizer the reference's flags describe, with the conv layout
+    flags (:func:`apply_conv_args`) and --fusedBN installed:
+    ``optim_method``, else the --optimMethod one, ending after
+    ``--maxEpoch`` epochs, fed through :func:`build_feed`; an every-epoch
+    checkpoint into ``--checkpoint`` and a resume from ``--model`` when
+    given."""
     from bigdl_tpu_torch.optim import Optimizer, Trigger
 
+    apply_conv_args(args)
     apply_fused_bn(model, getattr(args, "fusedBN", None))
     method = optim_method or _method(args, getattr(args, "optimMethod",
                                                    "sgd"))

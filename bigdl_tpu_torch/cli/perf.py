@@ -5,6 +5,8 @@
     python -m bigdl_tpu_torch.cli.perf [-m inception_v1] [-b 32]
     python -m bigdl_tpu_torch.cli.perf -m resnet50_fba -b 128 --dataType random
     python -m bigdl_tpu_torch.cli.perf -m transformer_lm_1k_hd128 -b 8
+    python -m bigdl_tpu_torch.cli.perf -m resnet20_cifar --timeToAcc 0.9 \\
+        --imageSize 32 [--ttaHard] [--valEvery N]
 
 builds the model with random weights from a seed (the BN kernels for the
 ``_fbn``/``_fba`` rows or ``--fusedBN``, the flash kernels for attention),
@@ -19,9 +21,30 @@ makes each iteration K steps replayed as one CUDA graph, the counterpart
 of the JAX harness's K-step ``fori_loop`` on the resident batch; the
 rates are over iterations x K steps. bf16 activations unless ``--f32``
 (images are cast to bf16, the parameters stay f32); the loss is taken on
-the f32 output. MFU and the analytic FLOP count come with the rest of
-the perf harness (ROADMAP.md queue 1 item 7); the 16k/32k LM rows wait
-for remat at those lengths to be measured.
+the f32 output. The 16k/32k LM rows wait for remat at those lengths to
+be measured.
+
+MFU: ``mfu`` = the step's analytic FLOPs (``utils/flops.py``: matmul and
+conv FLOPs of one forward, loss and backward, counted on fake tensors
+with the JAX package's rules, so both packages give one number) x steps
+/ seconds / the card's dense bf16 peak (:func:`peak_flops`: NVIDIA's
+H100 datasheet figures matched against the device name, a nominal 1e12
+on the CPU, and an ``UNMATCHED(name)`` label with 1e12 elsewhere, so a
+fallback shows). ``step_gflops_hlo`` is null: the port has no compiler
+count to cross-check with.
+
+``--convLayout``/``--convGeom`` install the conv layout policy for the
+run (``ops/conv2d.py``; the line then carries ``conv_layouts`` and
+``conv_geom``). ``--profile DIR`` writes a ``torch.profiler`` trace of the
+timed loop to ``DIR/trace.json``.
+
+``--timeToAcc T`` runs the time-to-accuracy harness instead
+(:func:`run_time_to_acc`): synthetic learnable JPEGs written from a seed
+(or real shards under ``--data record:DIR``, with ``train/`` and
+``val/``), record shards, ``RecordImageDataSet`` decode and augment,
+SGD(0.1, momentum 0.9, ``--ttaWd``) until top-1 reaches T or
+``--maxEpoch``, and the first crossing's wall-clock time from the
+validation curve.
 
 ``--data record:DIR`` (image rows) feeds every step a fresh batch from
 the record shards of DIR instead of the resident batch, as the JAX
@@ -38,18 +61,46 @@ window of decode threads.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import time
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
 import torch
 
 from bigdl_tpu_torch import models
-from bigdl_tpu_torch.cli.common import add_fused_bn_arg, add_pipeline_args
+from bigdl_tpu_torch.cli.common import (add_conv_args, add_fused_bn_arg,
+                                        add_pipeline_args)
 
-__all__ = ["LM_VOCAB", "LM_CONFIGS", "IMAGE_CONFIGS", "build_model",
-           "record_feed", "train_step", "run", "main"]
+__all__ = ["LM_VOCAB", "LM_CONFIGS", "IMAGE_CONFIGS", "PEAK_FLOPS",
+           "peak_flops", "build_model", "record_feed", "train_step",
+           "step_flops", "run", "HARD_GRADE", "EASY_GRADE", "resolve_grade",
+           "run_time_to_acc", "main"]
+
+# Dense bf16 tensor-core peak of one card (NVIDIA's H100 datasheet: SXM5,
+# the part named "NVIDIA H100 80GB HBM3"; NVL; PCIe), matched by substring
+# against the squashed (spaces and dashes dropped, lower-cased) device
+# name, most specific first. An unmatched name falls back to a nominal
+# 1e12 under a label that says so.
+PEAK_FLOPS = (
+    ("h100nvl", 835e12), ("h100pcie", 756e12),
+    ("h10080gbhbm3", 989.4e12), ("h100sxm", 989.4e12),
+    ("cpu", 1e12),  # nominal, so MFU stays defined in CPU runs
+)
+
+
+def peak_flops(name: str) -> tuple:
+    """(peak FLOP/s, matched label) of the device called ``name`` (a
+    ``torch.cuda.get_device_name()``, or "cpu")."""
+    kind = name or "cpu"
+    squashed = kind.replace(" ", "").replace("-", "").lower()
+    for k, v in PEAK_FLOPS:
+        if k in squashed:
+            return v, k
+    return 1e12, f"UNMATCHED({kind})->1e12-nominal"
 
 LM_VOCAB = 32000
 
@@ -73,6 +124,10 @@ LM_CONFIGS = {
 # the fused BN block with the conv->BN->ReLU ReLUs absorbed
 IMAGE_CONFIGS = {
     "resnet50": (dict(depth=50), (224, 224, 3), 1000),
+    "resnet50_s2d": (dict(depth=50, s2d_stem=True), (224, 224, 3), 1000),
+    # BN statistics from 32 of the batch's rows
+    "resnet50_bnss": (dict(depth=50, bn_stat_sample=32), (224, 224, 3),
+                      1000),
     "resnet50_fbn": (dict(depth=50, fused_bn="stats"), (224, 224, 3), 1000),
     "resnet50_fba": (dict(depth=50, fused_bn="apply"), (224, 224, 3), 1000),
     "resnet20_cifar": (dict(depth=20, cifar=True), (32, 32, 3), 10),
@@ -88,15 +143,19 @@ IMAGE_CONFIGS = {
 
 
 def build_model(name: str, seq_len: Optional[int] = None,
-                generator: Optional[torch.Generator] = None, **kw):
+                generator: Optional[torch.Generator] = None,
+                class_num: Optional[int] = None, **kw):
     """(model, input shape) for a model of the zoo, on the CPU; weights
-    are random from ``generator`` (default seeded 0). For an LM, ``kw``
-    (e.g. ``remat``, ``num_layers``) overrides the row's config."""
+    are random from ``generator`` (default seeded 0). An image row has
+    ``class_num`` classes (default the row's). For an LM, ``kw`` (e.g.
+    ``remat``, ``num_layers``) overrides the row's config."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     if name in IMAGE_CONFIGS:
         cfg, in_shape, classes = IMAGE_CONFIGS[name]
         cfg = dict(cfg)
+        classes = class_num or classes
+        stat_sample = cfg.pop("bn_stat_sample", None)
         if "arch" in cfg:
             model = getattr(models, cfg.pop("arch"))(classes,
                                                      generator=generator)
@@ -106,6 +165,9 @@ def build_model(name: str, seq_len: Optional[int] = None,
         else:
             model = models.resnet(cfg.pop("depth"), classes,
                                   generator=generator, **cfg)
+        if stat_sample:
+            from bigdl_tpu_torch.nn import set_bn_stat_sample
+            set_bn_stat_sample(model, stat_sample)
         return model, in_shape
     if name not in LM_CONFIGS:
         raise SystemExit(f"model {name} is not in the PyTorch port yet; "
@@ -268,61 +330,342 @@ def train_step(model_name: str, batch: int, dtype=torch.bfloat16,
     return replay, model, tokens, device
 
 
+def step_flops(model, model_name: str, batch: int, dtype=torch.bfloat16,
+               seq_len: Optional[int] = None) -> dict:
+    """``{"matmul": f, "conv": f}``: the analytic FLOPs of one training
+    step of ``model`` (a row of the zoo, built as :func:`train_step` builds
+    it, on any device) at ``batch``, counted on fake CPU tensors."""
+    from bigdl_tpu_torch.core.module import takes_seed
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
+    from bigdl_tpu_torch.utils.flops import step_flops_by_kind
+
+    kw = {"seed": 0} if takes_seed(model) else None  # as train_step calls
+    if model_name in LM_CONFIGS:
+        seq = seq_len or LM_CONFIGS[model_name]["max_len"]
+        return step_flops_by_kind(
+            model, (batch, seq), torch.int32, (batch, seq),
+            TimeDistributedCriterion(ClassNLLCriterion()), forward_kwargs=kw)
+    in_shape = IMAGE_CONFIGS[model_name][1]
+    return step_flops_by_kind(model, (batch, *in_shape), dtype, (batch,),
+                              ClassNLLCriterion(), forward_kwargs=kw)
+
+
+def _annotate_conv_layouts(out: dict) -> None:
+    """Stamp the non-default conv layout policy (global triple and
+    per-geometry decisions) into a result line."""
+    from bigdl_tpu_torch.ops import conv2d as c2d
+
+    lay, geom = c2d.conv_layouts_if_nondefault(), c2d.geom_policy_if_any()
+    if lay is not None:
+        out["conv_layouts"] = lay
+    if geom is not None:
+        out["conv_geom"] = geom
+
+
+@contextlib.contextmanager
+def _conv_policy(conv_layout: Optional[str], conv_geom: Optional[str]):
+    """The conv layout flags installed for one run, and the policy as it
+    was restored after it."""
+    from bigdl_tpu_torch.cli.common import apply_conv_args
+    from bigdl_tpu_torch.ops import conv2d as c2d
+
+    snap = c2d.policy_snapshot()
+    try:
+        apply_conv_args(SimpleNamespace(convLayout=conv_layout,
+                                        convGeom=conv_geom))
+        yield
+    finally:
+        c2d.restore_policy(snap)
+
+
+def _profiler(profile_dir: Optional[str], device):
+    """A ``torch.profiler`` context writing ``profile_dir/trace.json``,
+    or a no-op without a directory."""
+    if not profile_dir:
+        return contextlib.nullcontext()
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    return profile(activities=acts, on_trace_ready=lambda p:
+                   p.export_chrome_trace(os.path.join(profile_dir,
+                                                      "trace.json")))
+
+
 def run(model_name: str, batch: int = 32, iterations: int = 10,
         dtype=torch.bfloat16, warmup: int = 2, device=None, remat=False,
         seq_len: Optional[int] = None, fused_bn: Optional[str] = None,
         data_type: str = "constant", inner_steps: int = 1,
         data_source: Optional[str] = None, data_workers: int = 0,
-        prefetch_depth: int = 2, stage: str = "off") -> dict:
+        prefetch_depth: int = 2, stage: str = "off",
+        conv_layout: Optional[str] = None, conv_geom: Optional[str] = None,
+        profile_dir: Optional[str] = None) -> dict:
     """Time ``iterations`` dispatches of ``inner_steps`` training steps
     each after ``warmup`` ones (with ``inner_steps`` > 1 a dispatch is a
     CUDA graph of the steps; the first warm-up dispatch runs them eagerly
     and captures the graph); returns the JSON line's fields plus
-    ``losses`` (each dispatch's last step's, warm-up first). The rates are
-    over ``iterations * inner_steps`` steps. ``data_source``
+    ``losses`` (each dispatch's last step's, warm-up first). The rates and
+    MFU are over ``iterations * inner_steps`` steps. ``data_source``
     (``record:DIR``) feeds each step from record shards, one step a
-    dispatch (:func:`record_feed` with the pipeline arguments)."""
+    dispatch (:func:`record_feed` with the pipeline arguments).
+    ``conv_layout``/``conv_geom`` (the ``--convLayout``/``--convGeom``
+    values) hold for this run only; ``profile_dir`` receives a
+    ``torch.profiler`` trace of the timed loop."""
     from bigdl_tpu_torch.core.module import resolve_device
     from bigdl_tpu_torch.nn import bn_fused_mode
 
-    if inner_steps > 1 and warmup < 1:
-        raise ValueError("inner_steps > 1 needs a warm-up dispatch (it "
-                         "captures the graph)")
-    feed, prov = None, None
-    if data_source is not None:
-        if not data_source.startswith("record:"):
-            raise SystemExit(f"unknown --data source {data_source!r}")
-        if model_name not in IMAGE_CONFIGS:
-            raise SystemExit("--data record:DIR feeds the image rows only")
-        device = resolve_device(device)
-        inner_steps = 1  # a fresh batch every step
-        feed, prov = record_feed(
-            data_source[len("record:"):], batch,
-            crop=IMAGE_CONFIGS[model_name][1][:2], workers=data_workers,
-            depth=prefetch_depth, stage=stage, device=device)
-    step, model, tokens, device = train_step(
-        model_name, batch, dtype, device, remat, seq_len, fused_bn,
-        data_type, graph_steps=inner_steps if inner_steps > 1 else 0,
-        feed=feed)
-    losses = [float(step()) for _ in range(warmup)]  # each one synced
-    t0 = time.perf_counter()
-    timed = [step() for _ in range(iterations)]
-    losses += [float(v) for v in timed]  # the first read waits for the last
-    dt = time.perf_counter() - t0
-    rps = batch * iterations * inner_steps / dt
-    return {"model": model_name, "batch": batch, "iterations": iterations,
-            "inner_steps": inner_steps,
-            "seconds": round(dt, 4), "records_per_second": round(rps, 2),
-            "tokens_per_second": (None if tokens is None else
-                                  round(rps * tokens / batch, 1)),
-            "dtype": str(dtype).replace("torch.", ""),
-            "device": (torch.cuda.get_device_name(device)
-                       if device.type == "cuda" else "cpu"),
-            "remat": remat or None, "fused_bn": bn_fused_mode(model),
-            "data_type": None if tokens is not None else data_type,
-            "data": data_source, "pipeline": prov,
-            "warmup": warmup, "first_loss": losses[0],
-            "final_loss": losses[-1], "losses": losses}
+    with _conv_policy(conv_layout, conv_geom):
+        if inner_steps > 1 and warmup < 1:
+            raise ValueError("inner_steps > 1 needs a warm-up dispatch (it "
+                             "captures the graph)")
+        feed, prov = None, None
+        if data_source is not None:
+            if not data_source.startswith("record:"):
+                raise SystemExit(f"unknown --data source {data_source!r}")
+            if model_name not in IMAGE_CONFIGS:
+                raise SystemExit("--data record:DIR feeds the image rows only")
+            device = resolve_device(device)
+            inner_steps = 1  # a fresh batch every step
+            feed, prov = record_feed(
+                data_source[len("record:"):], batch,
+                crop=IMAGE_CONFIGS[model_name][1][:2], workers=data_workers,
+                depth=prefetch_depth, stage=stage, device=device)
+        step, model, tokens, device = train_step(
+            model_name, batch, dtype, device, remat, seq_len, fused_bn,
+            data_type, graph_steps=inner_steps if inner_steps > 1 else 0,
+            feed=feed)
+        kinds = step_flops(model, model_name, batch, dtype, seq_len)
+        flops = kinds["matmul"] + kinds["conv"]
+        name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+                else "cpu")
+        peak, peak_label = peak_flops(name)
+        losses = [float(step()) for _ in range(warmup)]  # each one synced
+        with _profiler(profile_dir, device):
+            t0 = time.perf_counter()
+            timed = [step() for _ in range(iterations)]
+            losses += [float(v) for v in timed]  # the first read waits for
+            dt = time.perf_counter() - t0        # the last
+        steps = iterations * inner_steps
+        rps = batch * steps / dt
+        mfu = flops * steps / dt / peak
+        out = {"model": model_name, "batch": batch, "iterations": iterations,
+               "inner_steps": inner_steps,
+               "seconds": round(dt, 4), "records_per_second": round(rps, 2),
+               "tokens_per_second": (None if tokens is None else
+                                     round(rps * tokens / batch, 1)),
+               "dtype": str(dtype).replace("torch.", ""),
+               "device": name,
+               "mfu": round(mfu, 4), "mfu_pct": round(mfu * 100, 2),
+               "mfu_basis": "analytic", "peak_flops_assumed": peak,
+               "peak_flops_device_match": peak_label,
+               "step_gflops_analytic": round(flops / 1e9, 3),
+               "step_gflops_by_kind": {k: round(v / 1e9, 3)
+                                       for k, v in kinds.items()},
+               "step_gflops_hlo": None,
+               "remat": remat or None, "fused_bn": bn_fused_mode(model),
+               "data_type": None if tokens is not None else data_type,
+               "data": data_source, "pipeline": prov,
+               "warmup": warmup, "first_loss": losses[0],
+               "final_loss": losses[-1], "losses": losses}
+        _annotate_conv_layouts(out)
+        return out
+
+
+# synthetic-grade defaults of the time-to-accuracy data: (band or chroma
+# contrast, pixel-noise sigma), the JAX harness's
+HARD_GRADE = (8.0, 35.0)
+EASY_GRADE = (55.0, 30.0)
+
+
+def resolve_grade(hard: bool, lift: Optional[float],
+                  noise: Optional[float]) -> tuple:
+    """Effective (lift, noise) after the grade's defaults."""
+    g_lift, g_noise = HARD_GRADE if hard else EASY_GRADE
+    return (g_lift if lift is None else lift,
+            g_noise if noise is None else noise)
+
+
+def _make_class_image_tree(root: str, classes: int, per_class: int,
+                           size: int, seed: int = 0, hard: bool = False,
+                           lift: Optional[float] = None,
+                           noise: Optional[float] = None) -> None:
+    """A learnable synthetic image tree ``root/class<c>/<i>.jpg``, the JAX
+    harness's draws and JPEG calls (the same files where PIL is the
+    same). Easy grade: a class colour and a bright band at a
+    class-specific height under pixel noise. Hard grade
+    (``hard=True``): every class the same grey, tinted towards hue angle
+    2*pi*c/classes by ``lift`` along a chroma basis orthogonal to Rec.601
+    luma, under noise ``noise`` (the one cue that survives random crops,
+    resizes, flips and JPEG chroma subsampling)."""
+    from PIL import Image
+
+    lift, noise = resolve_grade(hard, lift, noise)
+    luma = np.array([0.299, 0.587, 0.114], np.float32)
+    v1 = np.array([0.587, -0.299, 0.0], np.float32)
+    v1 /= np.linalg.norm(v1)
+    v2 = np.cross(luma, v1)
+    v2 /= np.linalg.norm(v2)
+
+    rs = np.random.RandomState(seed)
+    for c in range(classes):
+        d = os.path.join(root, f"class{c:03d}")
+        os.makedirs(d, exist_ok=True)
+        if hard:
+            ang = 2.0 * np.pi * c / classes
+            chroma = 1.22 * (np.cos(ang) * v1 + np.sin(ang) * v2)
+            hue = np.full(3, 110.0, np.float32)
+        else:
+            chroma = None
+            hue = np.array([(40 + c * 53) % 200, (60 + c * 97) % 200,
+                            (80 + c * 151) % 200], np.float32)
+        band = (c * size) // classes
+        bh = max(2, size // classes)
+        for i in range(per_class):
+            img = np.broadcast_to(hue, (size, size, 3)).copy()
+            if hard:
+                img += chroma * lift
+            else:
+                img[band:band + bh] += lift
+            img += rs.randn(size, size, 3) * noise
+            Image.fromarray(
+                np.clip(img, 0, 255).astype(np.uint8)).save(
+                os.path.join(d, f"{i:04d}.jpg"), quality=85)
+
+
+def run_time_to_acc(model_name: str, batch: int, target: float,
+                    max_epochs: int = 40, image_size: int = 64,
+                    classes: int = 10, train_per_class: int = 200,
+                    val_per_class: int = 40, learning_rate: float = 0.1,
+                    use_bf16: bool = True, data_dir: Optional[str] = None,
+                    hard: bool = False,
+                    val_every_iters: Optional[int] = None,
+                    lift: Optional[float] = None,
+                    noise: Optional[float] = None,
+                    weight_decay: float = 1e-4,
+                    fused_bn: Optional[str] = None, device=None,
+                    inner_steps: int = 1, conv_layout: Optional[str] = None,
+                    conv_geom: Optional[str] = None) -> dict:
+    """Time to accuracy (the BASELINE metric's second half; the JAX
+    harness's ``run_time_to_acc``): trains ``model_name`` from record
+    shards (decode and augment in the timed path), validates top-1 every
+    epoch (or every ``val_every_iters`` iterations) against the wall
+    clock, stops at ``target`` (``Trigger.max_score``) or ``max_epochs``,
+    and reports the first crossing from the validation curve. Without
+    ``data_dir`` the data is :func:`_make_class_image_tree`'s; with it,
+    its ``train/`` and ``val/`` record shards. ``inner_steps`` > 1 trains
+    graphed (``Optimizer(steps_per_dispatch=...)``). Prints and returns
+    the JAX line's keys; ``grad_compress`` is "off" and ``grad_buckets``
+    null (one device)."""
+    import shutil
+    import tempfile
+
+    from bigdl_tpu_torch.cli.common import apply_fused_bn
+    from bigdl_tpu_torch.core.module import resolve_device
+    from bigdl_tpu_torch.dataset import (RecordImageDataSet,
+                                         write_image_shards)
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, bn_fused_mode
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Top1Accuracy, Trigger
+
+    device = resolve_device(device)
+    t_setup = time.time()
+    td = None
+    summary_dir = tempfile.mkdtemp(prefix="tta_summary_")
+    try:
+        if data_dir is None:
+            td = tempfile.mkdtemp(prefix="tta_")
+            for split, per in (("train", train_per_class),
+                               ("val", val_per_class)):
+                tree = os.path.join(td, "imgs", split)
+                _make_class_image_tree(tree, classes, per, image_size,
+                                       seed=0 if split == "train" else 1,
+                                       hard=hard, lift=lift, noise=noise)
+                write_image_shards(tree, os.path.join(td, "shards", split),
+                                   prefix=split, images_per_shard=256,
+                                   workers=4)
+            data_dir = os.path.join(td, "shards")
+
+        mean, std = [127.0] * 3, [60.0] * 3
+        crop = (image_size, image_size)
+        train_ds = RecordImageDataSet(os.path.join(data_dir, "train"),
+                                      batch, crop=crop, train=True,
+                                      mean=mean, std=std)
+        val_ds = RecordImageDataSet(os.path.join(data_dir, "val"), batch,
+                                    crop=crop, train=False, mean=mean,
+                                    std=std)
+        with _conv_policy(conv_layout, conv_geom):
+            model, _ = build_model(model_name, class_num=classes)
+            apply_fused_bn(model, fused_bn)
+            opt = Optimizer(
+                model, train_ds, ClassNLLCriterion(),
+                optim_method=SGD(learning_rate=learning_rate, momentum=0.9,
+                                 weight_decay=weight_decay),
+                end_when=Trigger.or_(Trigger.max_epoch(max_epochs),
+                                     Trigger.max_score(target)),
+                compute_dtype=torch.bfloat16 if use_bf16 else None,
+                steps_per_dispatch=inner_steps, device=device)
+            val_trig = (Trigger.several_iteration(val_every_iters)
+                        if val_every_iters else Trigger.every_epoch())
+            opt.set_validation(val_trig, val_ds, [Top1Accuracy()])
+            opt.set_summary(summary_dir)
+
+            t_train = time.time()
+            opt.optimize()
+            wall = time.time() - t_train
+            conv = {}
+            _annotate_conv_layouts(conv)
+
+        with open(os.path.join(summary_dir, "val.jsonl")) as f:
+            curve = [json.loads(line) for line in f]
+    finally:
+        if td is not None:
+            shutil.rmtree(td, ignore_errors=True)
+        shutil.rmtree(summary_dir, ignore_errors=True)
+    reached = [r for r in curve if r.get("top1_accuracy", 0.0) >= target]
+    g_lift, g_noise = resolve_grade(hard, lift, noise)
+    out = {
+        "model": model_name,
+        "metric": "time_to_acc",
+        "target_top1": target,
+        "reached": bool(reached),
+        "time_to_acc_s": (round(reached[0]["wall_s"], 2) if reached
+                          else None),
+        "train_wall_s": round(wall, 2),
+        "setup_s": round(t_train - t_setup, 2),
+        "final_top1": curve[-1]["top1_accuracy"] if curve else None,
+        # distinct epoch stamps across validations: the epoch count, or
+        # the epochs touched under --valEvery
+        "epochs_run": len({r.get("epoch") for r in curve}),
+        "val_points": len(curve),
+        "grad_compress": "off",
+        "grad_buckets": None,
+        "hard_data": hard,
+        "grade_lift": g_lift,
+        "grade_noise": g_noise,
+        "weight_decay": weight_decay,
+        "batch": batch,
+        "image_size": image_size,
+        "classes": classes,
+        "device": (torch.cuda.get_device_name(device)
+                   if device.type == "cuda" else "cpu"),
+        "curve": [{"wall_s": r.get("wall_s"),
+                   "top1": r.get("top1_accuracy")} for r in curve],
+    }
+    # the JAX line's observability columns, null without its --obs
+    for c in _OBS_COLUMNS:
+        out[c] = None
+    out.update(conv)
+    out["bn_fused"] = bn_fused_mode(model)
+    print(json.dumps(out), flush=True)
+    return out
+
+
+# the JAX line's step-phase, attribution and memory columns (its --obs);
+# the port has no --obs, so they are null
+_OBS_COLUMNS = ("data_wait_s", "h2d_s", "dispatch_s", "device_s", "ckpt_s",
+                "stall_frac", "collective_s", "collective_frac", "attrib",
+                "hbm_peak_bytes", "hbm_headroom_frac", "mem")
 
 
 def main(argv=None) -> dict:
@@ -334,7 +677,8 @@ def main(argv=None) -> dict:
     p.add_argument("--innerSteps", type=int, default=1, metavar="K",
                    help="K SGD steps per iteration on the resident batch, "
                         "as one CUDA graph replayed each iteration (K > 1); "
-                        "the rate is over iterations x K steps")
+                        "the rate is over iterations x K steps. With "
+                        "--timeToAcc: K steps a dispatch, graphed")
     p.add_argument("--dataType", choices=["constant", "random"],
                    default="constant",
                    help="image rows: images of ones or N(0, 1) draws")
@@ -350,17 +694,75 @@ def main(argv=None) -> dict:
     p.add_argument("--data", default=None, metavar="record:DIR",
                    help="feed each step from the record shards of DIR "
                         "(decode, augment and the copy to the card inside "
-                        "the timed loop) instead of a resident batch")
+                        "the timed loop) instead of a resident batch; with "
+                        "--timeToAcc, DIR holds train/ and val/ shards")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the timed loop "
+                        "to DIR/trace.json")
+    p.add_argument("--timeToAcc", type=float, default=None, metavar="T",
+                   help="run the time-to-accuracy harness instead of the "
+                        "throughput loop: train from record shards to val "
+                        "top1 >= T (BASELINE metric 'time-to-76%%-top1'; "
+                        "synthetic learnable data unless --data record:DIR "
+                        "points at real shards)")
+    p.add_argument("--maxEpoch", type=int, default=40,
+                   help="epoch cap for --timeToAcc")
+    p.add_argument("--imageSize", type=int, default=64,
+                   help="image side for --timeToAcc synthetic data")
+    p.add_argument("--classes", type=int, default=10,
+                   help="class count for --timeToAcc (1000 with real "
+                        "ImageNet shards via --data record:DIR)")
+    p.add_argument("--trainPerClass", type=int, default=200,
+                   help="synthetic train images per class for --timeToAcc "
+                        "(5000 = CIFAR-10 scale)")
+    p.add_argument("--valPerClass", type=int, default=40,
+                   help="synthetic val images per class for --timeToAcc "
+                        "(1000 = CIFAR-10 scale)")
+    p.add_argument("--ttaHard", action="store_true",
+                   help="harder synthetic classes (a subtle chroma "
+                        "direction, no band or colour cue) so the accuracy "
+                        "curve spans several epochs")
+    p.add_argument("--valEvery", type=int, default=None, metavar="ITERS",
+                   help="validate every N iterations instead of every "
+                        "epoch (a denser accuracy-vs-wall-clock curve)")
+    p.add_argument("--ttaLift", type=float, default=None,
+                   help="override the synthetic grade's contrast: chroma "
+                        "amplitude for --ttaHard (default 8), band "
+                        "contrast for easy (default 55)")
+    p.add_argument("--ttaNoise", type=float, default=None,
+                   help="override the synthetic grade's pixel-noise sigma "
+                        "(hard default 35, easy 30)")
+    p.add_argument("--ttaWd", type=float, default=1e-4,
+                   help="weight decay for --timeToAcc (the reference CIFAR "
+                        "recipe's 1e-4)")
+    add_conv_args(p)
     add_fused_bn_arg(p)
     add_pipeline_args(p)
     args = p.parse_args(argv)
+    dtype = torch.float32 if args.f32 else torch.bfloat16
+    if args.timeToAcc is not None:
+        data_dir = None
+        if args.data and args.data.startswith("record:"):
+            data_dir = args.data[len("record:"):]
+        return run_time_to_acc(
+            args.model, args.batchSize, args.timeToAcc,
+            max_epochs=args.maxEpoch, image_size=args.imageSize,
+            classes=args.classes, train_per_class=args.trainPerClass,
+            val_per_class=args.valPerClass, use_bf16=not args.f32,
+            data_dir=data_dir, hard=args.ttaHard,
+            val_every_iters=args.valEvery, lift=args.ttaLift,
+            noise=args.ttaNoise, weight_decay=args.ttaWd,
+            fused_bn=args.fusedBN, device=args.platform,
+            inner_steps=args.innerSteps, conv_layout=args.convLayout,
+            conv_geom=args.convGeom)
     out = run(args.model, batch=args.batchSize, iterations=args.iteration,
-              dtype=torch.float32 if args.f32 else torch.bfloat16,
-              device=args.platform, remat=args.remat, seq_len=args.seq,
-              fused_bn=args.fusedBN, data_type=args.dataType,
-              inner_steps=args.innerSteps, data_source=args.data,
-              data_workers=args.dataWorkers,
-              prefetch_depth=args.prefetchDepth, stage=args.stage)
+              dtype=dtype, device=args.platform, remat=args.remat,
+              seq_len=args.seq, fused_bn=args.fusedBN,
+              data_type=args.dataType, inner_steps=args.innerSteps,
+              data_source=args.data, data_workers=args.dataWorkers,
+              prefetch_depth=args.prefetchDepth, stage=args.stage,
+              conv_layout=args.convLayout, conv_geom=args.convGeom,
+              profile_dir=args.profile)
     line = {k: v for k, v in out.items() if k != "losses"}
     print(json.dumps(line), flush=True)
     return out

@@ -6,7 +6,7 @@ reference models/resnet/Train.scala, TrainImageNet.scala, Test.scala)::
         [--dataWorkers N] [--prefetchDepth D] [--stage off|host|device] \\
         [--checkpoint CKPT] [--model CKPT] [--platform cpu]
     python -m bigdl_tpu_torch.cli.resnet train --dataset imagenet -f DIR \\
-        [--depth 50] [--classNum 1000] ...
+        [--depth 50] [--classNum 1000] [--s2d] [--convLayout SPEC] ...
     python -m bigdl_tpu_torch.cli.resnet test [--dataset ...] -f DIR \\
         --model CKPT [--depth ...] [--platform cpu]
 
@@ -31,8 +31,11 @@ Two dataset families, as in the reference:
 
 ``test`` evaluates a checkpoint (a directory's newest ``model.<n>`` or one
 file, the port's or the JAX package's) on ``test_batch.bin`` or
-``DIR/val`` and prints ``<method> is ...``. ``--s2d`` raises, naming the
-work that brings it.
+``DIR/val`` and prints ``<method> is ...``. ``--s2d`` builds the ImageNet
+models with the space-to-depth stem (``models.resnet.SpaceToDepthStem``)
+and, without ``--convLayout``, pins the all-NHWC conv layouts, as the JAX
+CLI does; with ``--dataset cifar10`` it exits with the JAX message.
+``train`` takes ``--convLayout``/``--convGeom`` (``cli.common``).
 """
 
 from __future__ import annotations
@@ -66,14 +69,20 @@ def _build_model(args, generator):
     from bigdl_tpu_torch.models import resnet, resnet_cifar
     from bigdl_tpu_torch.models.resnet import _IMAGENET_CFG
 
-    if args.s2d:
-        raise SystemExit("--s2d is not in the PyTorch port yet: it comes "
-                         "with SpaceToDepthStem (ROADMAP.md queue 1 item 7)")
     if args.dataset == "imagenet":
         if args.depth not in _IMAGENET_CFG:
             raise SystemExit(f"--depth {args.depth} invalid for imagenet; "
                              f"pick one of {sorted(_IMAGENET_CFG)}")
-        return resnet(args.depth, args.classNum, generator=generator)
+        if args.s2d and not getattr(args, "convLayout", None):
+            # the JAX CLI pins all-NHWC under --s2d unless the user chose
+            # layouts explicitly
+            from bigdl_tpu_torch.ops.conv2d import install_layout_spec
+            install_layout_spec("default")
+        return resnet(args.depth, args.classNum, s2d_stem=args.s2d,
+                      generator=generator)
+    if args.s2d:
+        raise SystemExit("--s2d applies to --dataset imagenet models only "
+                         "(the CIFAR stem is already a 3x3/1 conv)")
     if (args.depth - 2) % 6:
         raise SystemExit(f"--depth {args.depth} invalid for cifar10; depth "
                          f"must be 6n+2 (20/32/44/56/110)")
@@ -101,13 +110,16 @@ def main(argv=None):
                     help="BN training stats from this many batch rows "
                          "(nn.set_bn_stat_sample)")
     tr.add_argument("--s2d", action="store_true",
-                    help="space-to-depth stem (imagenet models; not ported)")
+                    help="space-to-depth stem (imagenet models): 2x2 "
+                         "space-to-depth then a 4x4/1 conv, the same "
+                         "function as the 7x7/2 stem; pins --convLayout "
+                         "default unless one is given")
     tr.set_defaults(weightDecay=1e-4)  # the reference recipe's
     te = sub.add_parser("test")
     common.add_test_args(te)
     _add_model_args(te)
     te.add_argument("--s2d", action="store_true",
-                    help="a checkpoint trained with --s2d (not ported)")
+                    help="a checkpoint trained with --s2d")
     args = p.parse_args(argv)
     imagenet = args.dataset == "imagenet"
     if args.classNum is None:
@@ -124,6 +136,8 @@ def main(argv=None):
     from bigdl_tpu_torch.optim.schedules import EpochSchedule, Regime
 
     resolve_device(args.platform)  # refuse before reading the data
+    if args.cmd == "train":
+        common.apply_conv_args(args)  # before --s2d pins its default
     model = _build_model(args, torch.Generator().manual_seed(
         getattr(args, "seed", 0)))
     if imagenet:

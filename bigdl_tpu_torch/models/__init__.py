@@ -3,15 +3,17 @@ from bigdl_tpu_torch.models.inception import (inception_module, inception_v1,
                                               inception_v1_no_aux,
                                               inception_v2)
 from bigdl_tpu_torch.models.lenet import lenet5
-from bigdl_tpu_torch.models.resnet import (basic_block, bottleneck_block,
-                                           resnet, resnet50, resnet_cifar)
+from bigdl_tpu_torch.models.resnet import (SpaceToDepthStem, basic_block,
+                                           bottleneck_block, resnet, resnet50,
+                                           resnet_cifar)
 from bigdl_tpu_torch.models.transformer_lm import (PackedNLLCriterion,
                                                   TransformerLM,
                                                   packed_lm_targets,
                                                   transformer_lm)
 from bigdl_tpu_torch.models.vgg import vgg16, vgg19, vgg_for_cifar10
 
-__all__ = ["PackedNLLCriterion", "TransformerLM", "alexnet", "basic_block",
+__all__ = ["PackedNLLCriterion", "SpaceToDepthStem", "TransformerLM",
+           "alexnet", "basic_block",
            "bottleneck_block", "inception_module", "inception_v1",
            "inception_v1_no_aux", "inception_v2", "lenet5",
            "packed_lm_targets", "resnet", "resnet50", "resnet_cifar",

@@ -14,9 +14,12 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from bigdl_tpu_torch import nn
-from bigdl_tpu_torch.core.module import Identity, Sequential
+from bigdl_tpu_torch.core.module import (Identity, Sequential, SimpleModule,
+                                         xavier_uniform)
+from bigdl_tpu_torch.nn.conv import _conv, _hwio_to_oihw, _oihw_to_hwio
 
 __all__ = ["resnet", "resnet_cifar", "resnet50", "basic_block",
            "bottleneck_block", "SpaceToDepthStem"]
@@ -30,15 +33,62 @@ _IMAGENET_CFG = {
 }
 
 
-class SpaceToDepthStem:
-    """The JAX package's space-to-depth ImageNet stem is not in the port
-    yet."""
+class SpaceToDepthStem(SimpleModule):
+    """The space-to-depth ImageNet stem: a 2x2 space-to-depth, then a
+    4x4/stride-1 convolution of 12 input channels padded ((2, 1), (2, 1)),
+    which computes what the classic 7x7/stride-2 convolution of 3 channels
+    padded 3 does (the MLPerf ResNet stem) over a 192-deep contraction at
+    a quarter of the positions. The weight is (out, 12, 4, 4), channels_last
+    (the JAX package's (4, 4, 12, out) HWIO kernel converts in
+    :meth:`from_jax_leaf`); init Xavier uniform with the classic stem's
+    fan-in 7*7*3. The convolution goes through the conv layout policy like
+    any other (``nn.conv``)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "SpaceToDepthStem (s2d_stem) is not in the PyTorch port yet: it "
-            "comes with the rest of the ResNet slice (ROADMAP.md queue 1 "
-            "item 7)")
+    def __init__(self, out_planes: int = 64,
+                 generator: Optional[torch.Generator] = None,
+                 name: Optional[str] = None):
+        super().__init__(name)
+        self.out_planes = out_planes
+        w = xavier_uniform((out_planes, 12, 4, 4), 7 * 7 * 3,
+                           7 * 7 * out_planes, generator)
+        self.weight = torch.nn.Parameter(
+            w.contiguous(memory_format=torch.channels_last))
+
+    from_jax_leaf = staticmethod(_hwio_to_oihw)
+    to_jax_leaf = staticmethod(_oihw_to_hwio)
+
+    @staticmethod
+    def weight_from_conv7(w7) -> torch.Tensor:
+        """Embed a 7x7 stem kernel (out, 3, 7, 7) into the (out, 12, 4, 4)
+        layout, exactly as the JAX package does in its HWIO layout: output
+        row i covers pixel rows 2i-3..2i+3, so tap t maps to (block a,
+        parity dy) with t = 2a+dy-1, and the slots outside the window
+        are 0."""
+        w7 = torch.as_tensor(w7)
+        out = w7.new_zeros((w7.shape[0], 12, 4, 4))
+        for a in range(4):
+            for dy in range(2):
+                t = 2 * a + dy - 1
+                if not 0 <= t < 7:
+                    continue
+                for b in range(4):
+                    for dx in range(2):
+                        u = 2 * b + dx - 1
+                        if not 0 <= u < 7:
+                            continue
+                        ch = dy * 6 + dx * 3
+                        out[:, ch:ch + 3, a, b] = w7[:, :, t, u]
+        return out
+
+    def forward(self, x):
+        b, h, w, c = x.shape
+        xb = (x.reshape(b, h // 2, 2, w // 2, 2, c)
+              .permute(0, 1, 3, 2, 4, 5)
+              .reshape(b, h // 2, w // 2, 4 * c))
+        # the uneven padding as a copy of the 12-channel input (a quarter
+        # of the bytes of cropping the output of a symmetric one)
+        xb = F.pad(xb, (0, 0, 2, 1, 2, 1))
+        return _conv(xb, self.weight.to(x.dtype), (1, 1), (0, 0))
 
 
 def _conv_bn(cin, cout, k, stride=1, pad=0, relu=True, gamma_init=1.0,
@@ -102,15 +152,18 @@ def resnet(depth: int = 50, class_num: int = 1000, shortcut_type: str = "B",
            zero_init_residual: bool = False, s2d_stem: bool = False,
            fused_bn=False,
            generator: Optional[torch.Generator] = None) -> Sequential:
-    """ImageNet ResNet, input (B, 224, 224, 3). ``fused_bn``: "stats" or
+    """ImageNet ResNet, input (B, 224, 224, 3). ``s2d_stem`` swaps the
+    7x7/2 stem for :class:`SpaceToDepthStem`. ``fused_bn``: "stats" or
     "apply" routes every BN through the BN kernels
     (:func:`~bigdl_tpu_torch.nn.set_bn_fused`)."""
-    if s2d_stem:
-        SpaceToDepthStem()
     kind, layers = _IMAGENET_CFG[depth]
     m = Sequential(name=f"ResNet{depth}")
-    m.add(nn.SpatialConvolution(3, 64, 7, 7, 2, 2, 3, 3, with_bias=False,
-                                init="xavier", generator=generator))
+    if s2d_stem:
+        m.add(SpaceToDepthStem(64, generator=generator))
+    else:
+        m.add(nn.SpatialConvolution(3, 64, 7, 7, 2, 2, 3, 3,
+                                    with_bias=False, init="xavier",
+                                    generator=generator))
     m.add(nn.SpatialBatchNormalization(64))
     m.add(nn.ReLU())
     m.add(nn.SpatialMaxPooling(3, 3, 2, 2, 1, 1))

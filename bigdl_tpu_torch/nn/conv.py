@@ -8,7 +8,9 @@ is HWIO, and :meth:`SpatialConvolution.from_jax_leaf` converts it
 forward sees x as an NCHW-shaped view with channels_last strides
 (``permute(0, 3, 1, 2)``, no copy), runs one ``F.conv2d`` (cuDNN on the
 card), and permutes the channels_last result back to (B, H, W, C), again
-without a copy. The transposed, dilated and connection-table
+without a copy; while a conv layout policy is installed, the spatial
+convolutions go through ``ops.conv2d.conv2d`` instead, as in the JAX
+package. The transposed, dilated and connection-table
 convolutions keep that layout; ``TemporalConvolution`` runs one
 ``F.conv1d`` over (B, T, C) seen as (B, C, T). Each converts its JAX
 kernel in ``from_jax_leaf`` and back in ``to_jax_leaf``.
@@ -29,6 +31,20 @@ from bigdl_tpu_torch.core.module import (SimpleModule, uniform_fan_in,
 __all__ = ["SpatialConvolution", "SpatialShareConvolution",
            "SpatialFullConvolution", "SpatialDilatedConvolution",
            "SpatialConvolutionMap", "TemporalConvolution"]
+
+
+def _conv(x, w, stride, pad, dilation=(1, 1), groups: int = 1):
+    """NHWC ``x`` convolved with the (out, in/groups, kh, kw) ``w``: one
+    ``F.conv2d`` on the channels_last view, or, while a conv layout policy
+    is installed (``--convLayout``/``--convGeom``), the per-pass layouts of
+    :func:`bigdl_tpu_torch.ops.conv2d.conv2d`."""
+    from bigdl_tpu_torch.ops import conv2d as c2d
+
+    if c2d.policy_active():
+        return c2d.conv2d(x, w, stride, ((pad[0], pad[0]), (pad[1], pad[1])),
+                          dilation, groups)
+    return F.conv2d(x.permute(0, 3, 1, 2), w, None, stride, pad, dilation,
+                    groups).permute(0, 2, 3, 1)
 
 
 def _hwio_to_oihw(key: str, value: torch.Tensor) -> torch.Tensor:
@@ -94,11 +110,9 @@ class SpatialConvolution(SimpleModule):
 
     def forward(self, x):
         w = self.weight.to(x.dtype)
-        y = F.conv2d(x.permute(0, 3, 1, 2), w, None,
-                     (self.stride_h, self.stride_w),
-                     (self.pad_h, self.pad_w),
-                     (self.dilation_h, self.dilation_w), self.n_group)
-        y = y.permute(0, 2, 3, 1)
+        y = _conv(x, w, (self.stride_h, self.stride_w),
+                  (self.pad_h, self.pad_w),
+                  (self.dilation_h, self.dilation_w), self.n_group)
         if self.with_bias:
             y = y + self.bias.to(y.dtype)
         return y
@@ -288,9 +302,9 @@ class SpatialConvolutionMap(SimpleModule):
 
     def forward(self, x):
         w = (self.weight * self.mask).to(x.dtype)
-        y = F.conv2d(x.permute(0, 3, 1, 2), w, None,
-                     (self.stride_h, self.stride_w), (self.pad_h, self.pad_w))
-        return y.permute(0, 2, 3, 1) + self.bias.to(x.dtype)
+        y = _conv(x, w, (self.stride_h, self.stride_w),
+                  (self.pad_h, self.pad_w))
+        return y + self.bias.to(x.dtype)
 
 
 class TemporalConvolution(SimpleModule):

@@ -27,6 +27,7 @@ from typing import Optional
 import torch
 
 from bigdl_tpu_torch.nn import attention as _dense
+from bigdl_tpu_torch.utils import flops as _flops
 
 __all__ = ["flash_attention", "flash_fwd", "flash_bwd", "flash_dq",
            "flash_dkv", "flash_attention_reference", "flash_bwd_reference",
@@ -373,7 +374,8 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, segments=None):
-        o, lse = flash_fwd(q, k, v, causal, segments)
+        with _flops.declared(_declared_flops, q, k, causal, 0):
+            o, lse = flash_fwd(q, k, v, causal, segments)
         ctx.save_for_backward(q, k, v, o, lse, segments)
         ctx.causal = causal
         return o
@@ -383,8 +385,18 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, o, lse, segments = ctx.saved_tensors
         if do.is_cuda:
             do = _kernel_layout(do)
-        dq, dk, dv = flash_bwd(q, k, v, o, lse, do, ctx.causal, segments)
+        with _flops.declared(_declared_flops, q, k, ctx.causal, 1):
+            dq, dk, dv = flash_bwd(q, k, v, o, lse, do, ctx.causal,
+                                   segments)
         return dq, dk, dv, None, None
+
+
+def _declared_flops(q, k, causal: bool, which: int) -> float:
+    """The algorithmic forward (``which`` 0) or backward (1) FLOPs of one
+    call, as the JAX kernels declare them (:func:`~bigdl_tpu_torch.utils.
+    flops.flash_flops`): the analytic count's view of the kernels."""
+    b, h, s_q, d = q.shape
+    return _flops.flash_flops(b, h, s_q, k.shape[-2], d, causal)[which]
 
 
 def flash_attention(q, k, v, *, causal: bool = False,

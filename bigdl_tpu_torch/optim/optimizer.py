@@ -178,6 +178,8 @@ class Optimizer:
         self._resume_paths = (None, None)
         self._resume_orphans: set = set()
         self._graph = None
+        self._summary_dir = None
+        self._wall_start = None
 
     # ------------------------------------------------------------- setters
     def set_end_when(self, trigger: Trigger) -> "Optimizer":
@@ -197,6 +199,27 @@ class Optimizer:
         self._val_dataset = dataset
         self._val_methods = list(methods)
         return self
+
+    def set_summary(self, directory: str) -> "Optimizer":
+        """Append each log point's train scalars to ``<dir>/train.jsonl``
+        and each validation's results to ``<dir>/val.jsonl``, one JSON row
+        each, with ``wall_s``: seconds since ``optimize()`` started, taken
+        on the host once the row's values are there (the
+        accuracy-against-wall-clock curve)."""
+        os.makedirs(directory, exist_ok=True)
+        self._summary_dir = directory
+        return self
+
+    def _summary_write(self, which: str, row: dict) -> None:
+        if self._summary_dir is None:
+            return
+        import json
+        if self._wall_start is not None:
+            row = {**row, "wall_s": round(time.time() - self._wall_start,
+                                          3)}
+        with open(os.path.join(self._summary_dir, f"{which}.jsonl"),
+                  "a") as f:
+            f.write(json.dumps(row) + "\n")
 
     def set_checkpoint(self, trigger: Trigger, path: str,
                        overwrite: bool = False, async_save: bool = False,
@@ -378,6 +401,10 @@ class Optimizer:
                                  self._val_methods, self.device)
         for m, r in zip(self._val_methods, results):
             logger.info("%s is %r", m.name, r)
+        self._summary_write("val", {
+            "iteration": progress["iteration"], "epoch": progress["epoch"],
+            **{m.name.replace(" ", "_"): r.result()[0]
+               for m, r in zip(self._val_methods, results)}})
         progress["val_results"] = results
         if results:
             progress["val_score"] = float(results[0].result()[0])
@@ -558,6 +585,10 @@ class Optimizer:
             logger.info("Train %d in %.4fs. Throughput is %.1f "
                         "records/second. Loss is %.4f",
                         n_rec, dt, n_rec / max(dt, 1e-9), loss_f)
+            self._summary_write("train", {
+                "iteration": progress["iteration"],
+                "epoch": progress["epoch"], "loss": loss_f,
+                "records_per_second": n_rec / max(dt, 1e-9)})
             if logger.isEnabledFor(logging.DEBUG):
                 logger.debug("%s", self.metrics.summary())
 
@@ -588,7 +619,7 @@ class Optimizer:
                 loss = self._graph.replay()
             after_dispatch(sum(_records(b) for b in buf), K, t0, loss)
 
-        wall_start = time.time()
+        wall_start = self._wall_start = time.time()
         while not self.end_when(progress):
             progress["epoch_finished"] = False
             epoch_start = time.time()

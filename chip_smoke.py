@@ -217,6 +217,34 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    step of each fused kernel) and ``-m alexnet`` (227 x 227), bf16 batch
    32: finite losses, images/s.
 
+19. The rest of the ResNet slice, after phase 18. (a) MFU: ``cli.perf``
+   rows ``resnet50_fba``, ``resnet50_s2d --fusedBN apply``,
+   ``resnet50_bnss --fusedBN apply`` (its stat-sampled BNs take no
+   kernel) at batch 128 and ``transformer_lm_1k_hd128`` at batch 8, bf16,
+   ``--innerSteps 4``: images/s or tokens/s, the analytic step count and
+   its split, ``mfu`` against the matched peak, exact launches; gated 0 <
+   mfu <= 1, a matched peak, the count equal to a fresh CPU build's at
+   the same batch, ResNet-50's 20-32 GF an image. (b) The conv layout
+   policy: ``resnet50_fba`` at batch 128 under ``--convLayout default``,
+   ``NHWC,NHWC,NCHW``, ``NCHW,NCHW,NCHW`` and ``GEMM,GEMM,GEMM``, 8 eager
+   steps and 12 graphed: images/s, the first 3 losses, 53 launches a step
+   of each fused BN kernel, each first loss within ``POLICY_LOSS_TOL`` of
+   the default's and the graphed losses at steps 4 and 8 within it of the
+   eager ones; then ``tools/conv_probe.py --geom`` at ResNet-50's shapes
+   (its rows printed) and ``resnet50_fba`` under ``--convGeom`` that
+   file. (c) The s2d stem with ``weight_from_conv7(w7)`` against the
+   7x7/2 pad-3 conv of ``w7`` at batch 128, bf16 and f32 (f32 within
+   ``S2D_F32_TOL``); ``cli.resnet train --dataset imagenet --depth 50
+   --s2d --fusedBN apply -b 32 --maxEpoch 1`` on phase 18's seeded JPEG
+   folder (finite losses, 53 launches a step of each fused kernel), then
+   ``test --s2d`` printing the run's last Top-1 and Top-5 lines. (d) Time
+   to accuracy: ``cli.perf -m resnet20_cifar --timeToAcc 0.9 --imageSize
+   32 --fusedBN apply -b 128 --maxEpoch 10`` (easy grade: reached, every
+   curve point later than the one before), then ``--ttaHard
+   --trainPerClass 500 --valPerClass 100 --valEvery 20 --maxEpoch 6``
+   (its curve printed). The kernels line counts phase 19's launches too,
+   and a line before it gives phase 19's BN launches by mode.
+
 Any failed phase exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -368,6 +396,35 @@ INC_ROWS = (("inception_v1", None), ("inception_v2", "apply"),
 # imported weights, max|d| / max|ref| (f32, TF32 off: the two differ in
 # the order of their sums)
 ALEXNET_LOGIT_TOL = 1e-4
+# phase 19: the rest of the ResNet slice. MFU rows through cli.perf with
+# --innerSteps 4 (one warm-up dispatch, MFU_ITERS timed): (row, --fusedBN,
+# batch, kernel launches a step). resnet50_bnss keeps its BNs plain: a
+# stat-sampled BN takes no kernel (as in the JAX package)
+MFU_ROWS = (("resnet50_fba", None, 128,
+             {"bn_fwd_apply": 53, "bn_bwd_fused": 53}),
+            ("resnet50_s2d", "apply", 128,
+             {"bn_fwd_apply": 53, "bn_bwd_fused": 53}),
+            ("resnet50_bnss", "apply", 128, {}),
+            ("transformer_lm_1k_hd128", None, 8,
+             {"flash_fwd": 12, "flash_dq": 12, "flash_dkv": 12}))
+MFU_INNER, MFU_ITERS = 4, 3
+RESNET50_GF_PER_IMAGE = (20e9, 32e9)  # the JAX package's test range
+# the conv layout policies ResNet-50 _fba runs under: POLICY_STEPS eager
+# steps, then graphed (2 + 1 dispatches of POLICY_STEPS // 2 steps); each
+# first loss within POLICY_LOSS_TOL of the default's, the graphed losses
+# at steps 4 and 8 within it of the eager ones (bf16 activations: the
+# layouts run other cuDNN algorithms, summing in other orders, on a loss
+# near ln 1000)
+POLICIES = ("default", "NHWC,NHWC,NCHW", "NCHW,NCHW,NCHW", "GEMM,GEMM,GEMM")
+POLICY_ROW, POLICY_BNS = "resnet50_fba", 53
+POLICY_STEPS = 8
+POLICY_LOSS_TOL = 5e-2
+S2D_F32_TOL = 1e-4  # the s2d stem against the 7x7/2 conv, f32, TF32 off
+S2D_BATCH = 32
+TTA_EASY = ["-m", "resnet20_cifar", "--timeToAcc", "0.9", "--imageSize",
+            "32", "--fusedBN", "apply", "-b", "128", "--maxEpoch", "10"]
+TTA_HARD = TTA_EASY[:-1] + ["6", "--ttaHard", "--trainPerClass", "500",
+                            "--valPerClass", "100", "--valEvery", "20"]
 
 
 def fail(msg):
@@ -3183,6 +3240,259 @@ def inception_runs(torch, card):
     return rows, launches, bn_rows
 
 
+def _launched(torch, run):
+    """(``run()``, the kernel launches it made), the counts set to 0 just
+    before it."""
+    from bigdl_tpu_torch import ops
+
+    ops.reset_kernel_launches()
+    out = run()
+    torch.cuda.synchronize()
+    return out, ops.kernel_launches()
+
+
+def mfu_runs(torch, card):
+    """Phase 19 (a): MFU_ROWS through ``cli.perf.run`` graphed: finite
+    losses, exact launches, 0 < mfu <= 1 against a matched peak, the
+    analytic count equal to the count of a fresh CPU build of the row at
+    the same batch, ResNet-50's in the JAX test's range per image.
+    Returns {row: (result, launches)}."""
+    import math
+
+    from bigdl_tpu_torch.cli import perf
+
+    out = {}
+    for name, fused, batch, per_step in MFU_ROWS:
+        image = name in perf.IMAGE_CONFIGS
+        res, n = _launched(torch, lambda: perf.run(
+            name, batch=batch, iterations=MFU_ITERS, dtype=torch.bfloat16,
+            warmup=1, fused_bn=fused, inner_steps=MFU_INNER,
+            data_type="random"))
+        steps = (1 + MFU_ITERS) * MFU_INNER
+        model, _ = perf.build_model(name)
+        cpu = perf.step_flops(model, name, batch, torch.bfloat16)
+        del model
+        cpu_gf = round((cpu["matmul"] + cpu["conv"]) / 1e9, 3)
+        rate = (f"{res['records_per_second']} images/s" if image else
+                f"{res['tokens_per_second']} tokens/s")
+        print(f"[mfu {name}{' --fusedBN ' + fused if fused else ''}] bf16 "
+              f"batch {batch}, --innerSteps {MFU_INNER} on {card}: {rate}; "
+              f"step_gflops_analytic {res['step_gflops_analytic']} "
+              f"{res['step_gflops_by_kind']} (CPU count {cpu_gf}); mfu "
+              f"{res['mfu']} ({res['mfu_pct']}% of "
+              f"{res['peak_flops_assumed']:.4g} FLOP/s, "
+              f"{res['peak_flops_device_match']}); launches "
+              f"{ {k: v for k, v in n.items() if v} } over {steps} steps",
+              flush=True)
+        want = {k: per_step.get(k, 0) * steps for k in n}
+        if not all(math.isfinite(v) for v in res["losses"]) or n != want:
+            fail(f"[mfu {name}] losses {res['losses']}, launches {n}, "
+                 f"expected {want}")
+        if not 0 < res["mfu"] <= 1 or res["peak_flops_device_match"] \
+                .startswith("UNMATCHED"):
+            fail(f"[mfu {name}] mfu {res['mfu']} against "
+                 f"{res['peak_flops_device_match']}")
+        if res["step_gflops_analytic"] != cpu_gf:
+            fail(f"[mfu {name}] the card's count "
+                 f"{res['step_gflops_analytic']} GF, the CPU's {cpu_gf}")
+        per_image = res["step_gflops_analytic"] * 1e9 / batch
+        lo, hi = RESNET50_GF_PER_IMAGE
+        if name.startswith("resnet50") and not lo < per_image < hi:
+            fail(f"[mfu {name}] {per_image / 1e9:.3f} GF an image")
+        out[name] = (res, n)
+        torch.cuda.empty_cache()
+    return out
+
+
+def policy_runs(torch, card):
+    """Phase 19 (b): ResNet-50 ``_fba`` under each of POLICIES, eager and
+    graphed; then ``tools/conv_probe.py --geom`` at ResNet-50's shapes and
+    the row under ``--convGeom`` that file. Returns ({tag: images/s},
+    launches)."""
+    import math
+    import tempfile
+
+    from bigdl_tpu_torch.cli import perf
+    from bigdl_tpu_torch.tools import conv_probe
+
+    per_step = POLICY_BNS
+    rows, launches, base = {}, [], None
+    for spec in POLICIES:
+        kw = dict(batch=RESNET_BATCH, dtype=torch.bfloat16,
+                  data_type="random", conv_layout=spec)
+        eager, n_e = _launched(torch, lambda: perf.run(
+            POLICY_ROW, iterations=POLICY_STEPS, warmup=0, **kw))
+        graphed, n_g = _launched(torch, lambda: perf.run(
+            POLICY_ROW, iterations=2, warmup=1,
+            inner_steps=POLICY_STEPS // 2, **kw))
+        el, gl = eager["losses"], graphed["losses"]
+        base = base or el
+        print(f"[policy {spec}] {POLICY_ROW} bf16 batch {RESNET_BATCH} on "
+              f"{card}: graphed {graphed['records_per_second']} images/s "
+              f"(eager {eager['records_per_second']}); conv_layouts "
+              f"{graphed.get('conv_layouts')}; first losses "
+              f"{[round(v, 4) for v in el[:3]]}; graphed at steps 4, 8 "
+              f"{[round(v, 4) for v in gl[:2]]} vs eager "
+              f"{[round(el[3], 4), round(el[7], 4)]}", flush=True)
+        half = POLICY_STEPS // 2
+        for n, steps in ((n_e, POLICY_STEPS), (n_g, 3 * half)):
+            want = {k: per_step * steps if k in ("bn_fwd_apply",
+                                                 "bn_bwd_fused") else 0
+                    for k in n}
+            if n != want:
+                fail(f"[policy {spec}] launches {n}, expected {want}")
+        if not all(math.isfinite(v) for v in el + gl) or \
+                abs(el[0] - base[0]) > POLICY_LOSS_TOL or \
+                abs(gl[0] - el[half - 1]) > POLICY_LOSS_TOL or \
+                abs(gl[1] - el[POLICY_STEPS - 1]) > POLICY_LOSS_TOL:
+            fail(f"[policy {spec}] eager losses {el}, graphed {gl}, the "
+                 f"default's first {base[0]} (tolerance {POLICY_LOSS_TOL})")
+        rows[f"--convLayout {spec}"] = graphed["records_per_second"]
+        launches += [n_e, n_g]
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        geom = os.path.join(tmp, "geom.json")
+        t0 = time.perf_counter()
+        conv_probe.main(["--geom", geom])
+        with open(geom) as f:
+            decisions = json.load(f)["decisions"]
+        print(f"[conv probe] {len(decisions)} geometries in "
+              f"{time.perf_counter() - t0:.1f}s on {card}: " + "; ".join(
+                  f"{d['geom']['kh']}x{d['geom']['kw']}/s"
+                  f"{d['geom']['stride'][0]} {d['geom']['cin']}->"
+                  f"{d['geom']['cout']} {d['layouts']}" for d in decisions),
+              flush=True)
+        res, n = _launched(torch, lambda: perf.run(
+            POLICY_ROW, batch=RESNET_BATCH, iterations=MFU_ITERS,
+            warmup=1, inner_steps=MFU_INNER, dtype=torch.bfloat16,
+            data_type="random", conv_geom=geom))
+    print(f"[policy --convGeom probe decisions] {POLICY_ROW} bf16 batch "
+          f"{RESNET_BATCH}, --innerSteps {MFU_INNER} on {card}: "
+          f"{res['records_per_second']} images/s; losses "
+          f"{[round(v, 4) for v in res['losses']]}", flush=True)
+    steps = (1 + MFU_ITERS) * MFU_INNER
+    if not all(math.isfinite(v) for v in res["losses"]) or \
+            n["bn_fwd_apply"] != per_step * steps or not res.get(
+                "conv_geom"):
+        fail(f"[policy --convGeom] losses {res['losses']}, launches {n}, "
+             f"conv_geom {res.get('conv_geom')}")
+    rows["--convGeom probe decisions"] = res["records_per_second"]
+    return rows, launches + [n]
+
+
+def s2d_runs(torch, card):
+    """Phase 19 (c): the s2d stem with ``weight_from_conv7(w7)`` against
+    the 7x7/2 pad-3 conv of ``w7`` at batch 128 (bf16, f32); ``cli.resnet
+    train --dataset imagenet --depth 50 --s2d --fusedBN apply`` on a
+    seeded JPEG folder, then ``test --s2d`` on its checkpoint. Returns
+    (images/s, launches)."""
+    import math
+    import tempfile
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.cli import resnet as resnet_cli
+    from bigdl_tpu_torch.models import SpaceToDepthStem
+    from bigdl_tpu_torch.ops import conv2d as c2d
+
+    gen = torch.Generator().manual_seed(19)
+    conv7 = nn.SpatialConvolution(3, 64, 7, 7, 2, 2, 3, 3, with_bias=False,
+                                  init="xavier", generator=gen).to(DEV)
+    stem = SpaceToDepthStem(64).to(DEV)
+    with torch.no_grad():
+        stem.weight.copy_(SpaceToDepthStem.weight_from_conv7(conv7.weight))
+        x = torch.randn(RESNET_BATCH, 224, 224, 3, generator=gen).to(DEV)
+        for dtype in (torch.bfloat16, torch.float32):
+            ref = conv7(x.to(dtype)).float()
+            err = float((stem(x.to(dtype)).float() - ref).abs().max())
+            print(f"[s2d stem] batch {RESNET_BATCH} {dtype} on {card}: "
+                  f"max|stem - conv7x7/2| {err:.3g} (max|ref| "
+                  f"{float(ref.abs().max()):.3g})", flush=True)
+            if dtype == torch.float32 and not err <= S2D_F32_TOL:
+                fail(f"[s2d stem] f32 max abs error {err}")
+    del conv7, stem, x, ref
+    with tempfile.TemporaryDirectory() as tmp:
+        write_jpeg_folder(tmp, seed=19)
+        ck = os.path.join(tmp, "ck")
+        argv = ["--dataset", "imagenet", "-f", tmp, "--depth", "50",
+                "--s2d", "--classNum", str(INC_CLASSES), "-b",
+                str(S2D_BATCH)]
+        train = ["--maxEpoch", "1", "--logEvery", "1", "--fusedBN", "apply",
+                 "--learningRate", INC_LR, "--checkpoint", ck]
+        with LogLines() as lines:
+            _, n = _launched(torch, lambda: resnet_cli.main(
+                ["train"] + argv + train))
+        losses, rates = _train_lines(lines, S2D_BATCH)
+        val = [ln for ln in lines if ln.startswith(("top1 accuracy is ",
+                                                    "top5 accuracy is "))]
+        tested, _ = _printed_lines(resnet_cli.main,
+                                   ["test"] + argv + ["--model", ck])
+    c2d.reset_conv_pass_layouts()  # --s2d pinned the all-NHWC default
+    steps = INC_CLASSES * INC_TRAIN // S2D_BATCH
+    print(f"[s2d cli] ResNet-50 --s2d --fusedBN apply batch {S2D_BATCH}, "
+          f"{steps} steps on {card}: {[round(r, 1) for r in rates]} "
+          f"images/s; losses {[round(v, 4) for v in losses]}; {val[-2:]}; "
+          f"test: {tested}; launches {({k: v for k, v in n.items() if v})}",
+          flush=True)
+    want = {k: 53 * steps if k in ("bn_fwd_apply", "bn_bwd_fused") else 0
+            for k in n}
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses) \
+            or n != want:
+        fail(f"[s2d cli] losses {losses}, launches {n}, expected {want}")
+    if len(tested) != 2 or tested != val[-2:]:
+        fail(f"[s2d cli] test printed {tested}, the training run's last "
+             f"validation {val[-2:]}")
+    return (rates[-1] if rates else 0.0), n
+
+
+def tta_runs(torch, card):
+    """Phase 19 (d): ``cli.perf --timeToAcc`` on resnet20_cifar, the easy
+    grade (gated: reached, rising wall_s) and the hard one (printed).
+    Returns (results, launches)."""
+    import contextlib
+    import io
+
+    from bigdl_tpu_torch.cli import perf
+
+    out, launches = {}, []
+    for tag, argv in (("easy", TTA_EASY), ("hard", TTA_HARD)):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res, n = _launched(torch, lambda: perf.main(argv))
+        curve = [(round(p["wall_s"], 2), round(p["top1"], 4))
+                 for p in res["curve"]]
+        print(f"[tta {tag}] {' '.join(argv)} on {card}: reached "
+              f"{res['reached']} in {res['time_to_acc_s']} s (train "
+              f"{res['train_wall_s']} s, setup {res['setup_s']} s, "
+              f"{time.perf_counter() - t0:.1f} s in all), final top1 "
+              f"{res['final_top1']}, {res['epochs_run']} epochs; curve "
+              f"(wall_s, top1) {curve}; launches "
+              f"{({k: v for k, v in n.items() if v})}", flush=True)
+        walls = [p[0] for p in curve]
+        if tag == "easy" and (not res["reached"] or not curve or any(
+                b <= a for a, b in zip(walls, walls[1:]))):
+            fail(f"[tta easy] reached {res['reached']}, curve {curve}")
+        out[tag] = res
+        launches.append(n)
+    return out, launches
+
+
+def resnet_slice_runs(torch, card):
+    """Phase 19: MFU, the conv layout policy, the s2d stem, time to
+    accuracy. Returns (rows, launches)."""
+    t0 = time.perf_counter()
+    mfu = mfu_runs(torch, card)
+    policy_rows, launches = policy_runs(torch, card)
+    s2d_rate, s2d_n = s2d_runs(torch, card)
+    tta, tta_n = tta_runs(torch, card)
+    print(f"[phase 19] {time.perf_counter() - t0:.1f}s", flush=True)
+    rows = {f"mfu {k}": r for k, (r, _) in mfu.items()}
+    rows.update({f"policy {k}": r for k, r in policy_rows.items()})
+    rows["s2d cli"] = s2d_rate
+    rows.update({f"tta {k}": r for k, r in tta.items()})
+    return rows, [n for _, n in mfu.values()] + launches + [s2d_n] + tta_n
+
+
 def main():
     try:
         import torch
@@ -3270,9 +3580,14 @@ def main():
             launches[name] += n[name]
     base_rows, base_n, _ = baseline_runs(torch, card)
     inc_rows, inc_n, _ = inception_runs(torch, card)
-    for n in base_n + inc_n:
+    slice_rows, slice_n = resnet_slice_runs(torch, card)
+    for n in base_n + inc_n + slice_n:
         for name in launches:
             launches[name] += n[name]
+    print("[phase 19] BN launches by mode: " + ", ".join(
+        f"{k} {sum(n[k] for n in slice_n)}" for k in
+        ("bn_stats", "bn_bwd_stats", "bn_fwd_apply", "bn_bwd_fused")),
+        flush=True)
     print(f"[bf16] {MODEL} on {card}: {tps:.1f} generated tokens/s over 4 "
           f"concurrent requests, /generate latencies ms "
           f"{[round(x, 1) for x in lat]} (prompts {list(PROMPT_LENS)}, "

@@ -46,6 +46,18 @@ def test_port_imports_without_jax_or_bigdl_tpu():
     assert int(out.stdout.split()[-1]) >= 20  # every submodule was imported
 
 
+def test_the_resnet_slice_modules_are_walked():
+    """The modules the import check above walks include the conv layout
+    policy, the FLOP count and the conv probe."""
+    import pkgutil
+
+    import bigdl_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(bigdl_tpu_torch.__path__,
+                                                   "bigdl_tpu_torch.")}
+    assert {"bigdl_tpu_torch.ops.conv2d", "bigdl_tpu_torch.utils.flops",
+            "bigdl_tpu_torch.tools.conv_probe"} <= names
+
+
 def test_no_source_file_imports_jax_or_bigdl_tpu():
     pat = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|bigdl_tpu)"
                      r"(?:\.|\s|$|,)", re.MULTILINE)
@@ -83,6 +95,7 @@ def test_entry_points_refuse_a_silent_cpu_run(tmp_path):
     from bigdl_tpu_torch.interop import TorchObject, load_torch_module
     from bigdl_tpu_torch.optim import Optimizer
     from bigdl_tpu_torch.serving import DecodeEngine, InferenceEngine
+    from bigdl_tpu_torch.tools import conv_probe
     (tmp_path / "input.txt").write_text("the cat sat on the mat . " * 200)
     data = BatchDataSet(np.zeros((4, 8), np.int32), np.zeros((4, 8),
                                                              np.int32), 2)
@@ -100,6 +113,9 @@ def test_entry_points_refuse_a_silent_cpu_run(tmp_path):
                                     "-b", "1", "-i", "1"]),
                  lambda: perf.main(["-m", "resnet50_fba", "-b", "1", "-i",
                                     "1"]),
+                 lambda: perf.main(["-m", "resnet20_cifar", "--timeToAcc",
+                                    "0.5", "-b", "2"]),
+                 lambda: conv_probe.probe(),
                  lambda: resnet_cli.main(["train", "-f", str(tmp_path),
                                           "--depth", "8", "-b", "2"]),
                  lambda: lenet_cli.main(["train", "-f", str(tmp_path),
