@@ -1,8 +1,15 @@
 """What the port's training CLIs share (counterpart of
-``bigdl_tpu/cli/common.py``): the training and test flags, building the
-Optimizer, loading a trained checkpoint and evaluating it. Flags of
-features the port does not have yet are not parsed, so argparse refuses
-them."""
+``bigdl_tpu/cli/common.py``): the training and test flags, the
+data-parallel strategy (``--strategy dp``, ``--gradCompress``,
+``--gradBuckets``), building the Optimizer, loading a trained checkpoint
+and evaluating it. Flags of features the port does not have yet are not
+parsed, so argparse refuses them; the strategies and ``--elastic`` are
+parsed and refused by name.
+
+Data parallelism runs one process a GPU: ``torchrun --nproc_per_node N
+-m bigdl_tpu_torch.cli.resnet train ... --strategy dp``, or on the CPU N
+gloo processes (``--platform cpu``). ``--batchSize`` is the global batch,
+as in the JAX package."""
 
 from __future__ import annotations
 
@@ -13,9 +20,13 @@ from typing import Optional, Sequence
 
 __all__ = ["setup_logging", "add_train_args", "add_test_args",
            "add_fused_bn_arg", "apply_fused_bn", "add_pipeline_args",
-           "add_conv_args", "apply_conv_args",
+           "add_conv_args", "apply_conv_args", "add_strategy_arg",
+           "parse_strategy_spec", "resolve_strategy",
+           "check_strategy_dispatch", "strategy_mesh_axes",
+           "add_grad_comm_args", "make_grad_comm", "build_strategy",
            "build_feed", "build_optimizer", "load_trained", "evaluate",
-           "OPTIM_METHODS", "PIPELINE_STAGE_CHOICES"]
+           "OPTIM_METHODS", "PIPELINE_STAGE_CHOICES", "STRATEGY_CHOICES",
+           "GRAD_COMPRESS_CHOICES"]
 
 OPTIM_METHODS = ("sgd", "adam", "adamw", "adagrad", "rmsprop", "lars", "lamb")
 # dataset.pipeline.STAGE_CHOICES, spelled here so that building a parser
@@ -73,6 +84,164 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
     add_fused_bn_arg(p)
     add_pipeline_args(p)
     add_conv_args(p)
+    p.add_argument("--dataParallel", action="store_true",
+                   help="deprecated alias of --strategy dp")
+    add_strategy_arg(p)
+    add_grad_comm_args(p)
+
+
+# the JAX CLIs' --strategy names; the port has dp
+STRATEGY_CHOICES = ("dp", "tp", "sp", "pp", "ep")
+# parallel/grad_comm.COMPRESS_MODES, spelled here so that building a
+# parser imports no parallel module (a test holds the two equal)
+GRAD_COMPRESS_CHOICES = ("off", "bf16", "fp16", "bf16+ec", "fp16+ec")
+
+
+def add_strategy_arg(p: argparse.ArgumentParser) -> None:
+    """--strategy NAME[:K] and --elastic, with the JAX CLIs' spellings."""
+    p.add_argument("--strategy", default=None, metavar="NAME[:K]",
+                   help="multi-device training strategy: dp = data "
+                        "parallel over the ranks of a torchrun job, one "
+                        "process a GPU (ZeRO-1 optimizer state, batch "
+                        "norm over the global batch). tp, sp, pp and ep "
+                        "are not in the PyTorch port yet. Replaces the "
+                        "deprecated --dataParallel")
+    p.add_argument("--elastic", default=None, metavar="POLICY",
+                   help="elastic data parallelism: not in the PyTorch "
+                        "port yet (refused)")
+
+
+def parse_strategy_spec(spec: Optional[str]):
+    """``"name[:K]"`` -> ``(name, k or None)``; SystemExit on junk."""
+    if not spec:
+        return None, None
+    name, _, k = str(spec).partition(":")
+    if name not in STRATEGY_CHOICES:
+        raise SystemExit(f"--strategy {spec!r}: unknown strategy "
+                         f"{name!r}; choose from {list(STRATEGY_CHOICES)}"
+                         " (optionally NAME:K to size the non-data axis)")
+    if not k:
+        return name, None
+    try:
+        kk = int(k)
+    except ValueError:
+        raise SystemExit(f"--strategy {spec!r}: K must be an integer")
+    if kk < 1:
+        raise SystemExit(f"--strategy {spec!r}: K must be >= 1")
+    return name, kk
+
+
+def resolve_strategy(args):
+    """The run's ``(strategy name, k or None)``: ``--strategy`` wins; the
+    deprecated ``--dataParallel`` means ``dp``."""
+    name, k = parse_strategy_spec(getattr(args, "strategy", None))
+    if name is not None:
+        return name, k
+    if getattr(args, "dataParallel", False):
+        logging.getLogger(__name__).warning(
+            "--dataParallel is deprecated; use --strategy dp")
+        return "dp", None
+    return None, None
+
+
+def check_strategy_dispatch(steps: int, flag: str = "--stepsPerDispatch"):
+    """Multi-step dispatch is single-device: with a strategy it exits."""
+    if steps and int(steps) > 1:
+        raise SystemExit(
+            f"{flag} > 1 is a single-device dispatch amortization (the "
+            "stepsPerDispatch contract); it cannot be combined with a "
+            "multi-device --strategy/--dataParallel (whose runtime "
+            "pipelines dispatch already)")
+
+
+def _refuse_unported(name: str) -> None:
+    if name != "dp":
+        raise SystemExit(
+            f"--strategy {name} is not in the PyTorch port yet: tensor, "
+            f"sequence, pipeline and expert parallelism come with "
+            f"ROADMAP.md queue 1 entry 13; the port has dp")
+
+
+def strategy_mesh_axes(name: str, n_devices: int, k: Optional[int] = None
+                       ) -> dict:
+    """The mesh axes of ``name`` over ``n_devices``: ``{"data": n}`` for
+    dp; the other strategies exit by name."""
+    _refuse_unported(name)
+    return {"data": int(n_devices)}
+
+
+def add_grad_comm_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--gradCompress", default="off",
+                   choices=list(GRAD_COMPRESS_CHOICES),
+                   help="the gradient all-reduce's wire dtype under "
+                        "--strategy dp (bigdl_tpu_torch.parallel."
+                        "grad_comm): dense buckets cross the wire as "
+                        "bf16/fp16 (half the bytes); '+ec' carries each "
+                        "rank's rounding residual into its next step "
+                        "(error feedback). 'off' sums f32")
+    p.add_argument("--gradBuckets", default="auto", metavar="auto|N",
+                   help="dense-bucket bound of the gradient all-reduce: "
+                        "'auto' = the 4 MiB default; an integer N pins it "
+                        "to N MiB")
+
+
+def make_grad_comm(args):
+    """``(--gradCompress, --gradBuckets)`` -> GradCommConfig (None when
+    the surface is untouched); SystemExit on junk."""
+    compress = getattr(args, "gradCompress", None)
+    buckets = getattr(args, "gradBuckets", None)
+    if (compress or "off") == "off" and (buckets in (None, "auto")):
+        return None
+    from bigdl_tpu_torch.parallel.grad_comm import make_config
+    try:
+        return make_config(compress, buckets)
+    except ValueError as e:
+        raise SystemExit(str(e))
+
+
+def _world() -> int:
+    import torch.distributed as dist
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def build_strategy(args, model=None, batch: Optional[int] = None):
+    """The ``DataParallel`` that ``--strategy dp`` (or ``--dataParallel``)
+    asks for, over the ranks of this torchrun job (joined here with
+    ``init_distributed``: gloo under ``--platform cpu``), or None. Exits
+    as the JAX CLIs do: ``--elastic`` and the strategies other than dp by
+    name; ``--strategy dp`` in one process naming ``torchrun`` (the
+    deprecated alias then means nothing); ``--stepsPerDispatch`` or
+    ``--innerSteps`` > 1; a global ``batch`` the ranks do not divide."""
+    name, k = resolve_strategy(args)
+    if getattr(args, "elastic", None) is not None:
+        raise SystemExit("--elastic is not in the PyTorch port yet: "
+                         "elastic data parallelism comes with ROADMAP.md "
+                         "queue 1 entry 12 (resilience/)")
+    if name is None:
+        return None
+    _refuse_unported(name)
+    from bigdl_tpu_torch.parallel import DataParallel, init_distributed
+    from bigdl_tpu_torch.parallel import make_mesh
+    init_distributed(backend="gloo" if getattr(args, "platform", None)
+                     == "cpu" else None)
+    n = _world()
+    if n <= 1:
+        if getattr(args, "strategy", None):
+            raise SystemExit(
+                f"--strategy {name} needs more than one device; the port "
+                f"runs one process a GPU: launch with torchrun "
+                f"--nproc_per_node N (on the CPU, N gloo processes with "
+                f"--platform cpu)")
+        return None  # the deprecated --dataParallel alias: a no-op
+    check_strategy_dispatch(getattr(args, "stepsPerDispatch", 1) or 1)
+    check_strategy_dispatch(getattr(args, "innerSteps", 1) or 1,
+                            "--innerSteps")
+    if batch is not None and batch % n:
+        raise SystemExit(f"batch {batch} must be divisible by the data "
+                         f"axis ({n}) of --strategy {name} (mesh "
+                         f"{strategy_mesh_axes(name, n, k)})")
+    return DataParallel(make_mesh(strategy_mesh_axes(name, n, k)),
+                        grad_comm=make_grad_comm(args))
 
 
 def add_conv_args(p: argparse.ArgumentParser) -> None:
@@ -217,14 +386,16 @@ def _method(args, name: str):
 
 
 def build_optimizer(model, dataset, criterion, args, optim_method=None):
-    """The Optimizer the reference's flags describe, with the conv layout
-    flags (:func:`apply_conv_args`) and --fusedBN installed:
+    """The Optimizer the reference's flags describe, with the strategy
+    (:func:`build_strategy`), the conv layout flags
+    (:func:`apply_conv_args`) and --fusedBN installed:
     ``optim_method``, else the --optimMethod one, ending after
     ``--maxEpoch`` epochs, fed through :func:`build_feed`; an every-epoch
     checkpoint into ``--checkpoint`` and a resume from ``--model`` when
     given."""
     from bigdl_tpu_torch.optim import Optimizer, Trigger
 
+    strategy = build_strategy(args, model, getattr(args, "batchSize", None))
     apply_conv_args(args)
     apply_fused_bn(model, getattr(args, "fusedBN", None))
     method = optim_method or _method(args, getattr(args, "optimMethod",
@@ -234,7 +405,7 @@ def build_optimizer(model, dataset, criterion, args, optim_method=None):
                     end_when=Trigger.max_epoch(args.maxEpoch),
                     seed=args.seed, log_every=args.logEvery,
                     steps_per_dispatch=args.stepsPerDispatch,
-                    device=args.platform)
+                    strategy=strategy, device=args.platform)
     if args.checkpoint:
         os.makedirs(args.checkpoint, exist_ok=True)
         opt.set_checkpoint(Trigger.every_epoch(), args.checkpoint,

@@ -73,7 +73,8 @@ import torch
 
 from bigdl_tpu_torch import models
 from bigdl_tpu_torch.cli.common import (add_conv_args, add_fused_bn_arg,
-                                        add_pipeline_args)
+                                        add_grad_comm_args,
+                                        add_pipeline_args, add_strategy_arg)
 
 __all__ = ["LM_VOCAB", "LM_CONFIGS", "IMAGE_CONFIGS", "PEAK_FLOPS",
            "peak_flops", "build_model", "record_feed", "train_step",
@@ -236,7 +237,7 @@ def record_feed(source: str, batch: int, crop=(224, 224), workers: int = 0,
 def train_step(model_name: str, batch: int, dtype=torch.bfloat16,
                device=None, remat=False, seq_len: Optional[int] = None,
                fused_bn: Optional[str] = None, data_type: str = "constant",
-               graph_steps: int = 0, feed=None):
+               graph_steps: int = 0, feed=None, strategy=None):
     """(step, model, tokens per step or None, device): ``step()`` takes
     SGD(0.01, momentum 0.9) steps of the zoo model on one resident batch
     from ``np.random.RandomState(0)`` and returns the last loss (not
@@ -247,7 +248,11 @@ def train_step(model_name: str, batch: int, dtype=torch.bfloat16,
     graph of the K steps (the first call runs them eagerly on the capture
     stream, then captures; :class:`~bigdl_tpu_torch.optim.step_graph.
     StepGraph`), on the CPU K eager steps. With a ``feed`` (an iterator of image batches)
-    a call is one eager step on the feed's next batch."""
+    a call is one eager step on the feed's next batch. Under a
+    ``strategy`` (a ``DataParallel``; eager steps only) ``batch`` is the
+    global batch: each rank steps on its part, batch norm takes the global
+    batch's statistics, the gradients and the loss are averaged over the
+    ranks and the SGD state is ZeRO-1's; the loss is the global one."""
     from bigdl_tpu_torch.cli.common import apply_fused_bn
     from bigdl_tpu_torch.core.module import resolve_device, takes_seed
     from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
@@ -280,23 +285,37 @@ def train_step(model_name: str, batch: int, dtype=torch.bfloat16,
     model = model.to(device).train()
     opt = SGD(learning_rate=0.01, momentum=0.9)
     params = dict(model.named_parameters())
-    names, plist = list(params), list(params.values())
     state = opt.init(params)
+    if strategy is not None:
+        from bigdl_tpu_torch.interop.checkpoint import model_tensors
+        params, _, state = strategy.place(params, model_tensors(model)[1],
+                                          state)
+        strategy.sync_batch_norm(model)
+        x, y = strategy.shard_batch(x, y)
+    names, plist = list(params), list(params.values())
 
     seeded = takes_seed(model)
 
     def one_step(xd, yd, seed=0):
         out = model(xd, seed=seed) if seeded else model(xd)
         loss = crit(out.float(), yd)
-        grads = torch.autograd.grad(loss, plist)
-        opt.update(dict(zip(names, grads)), state, params)
+        grads = dict(zip(names, torch.autograd.grad(loss, plist)))
+        if strategy is None:
+            opt.update(grads, state, params)
+        else:
+            grads, loss = strategy.reduce_grads(grads, loss)
+            strategy.update(opt, grads, state, params)
         return loss.detach()
 
+    if strategy is not None:
+        one_step = strategy.compile_step(one_step)
     if feed is not None:
         from bigdl_tpu_torch.optim.optimizer import _batch_to_device
 
         def fed_step():
             xf, yf = _batch_to_device(next(feed), device)
+            if strategy is not None:  # the rank's part of a global batch
+                xf, yf = strategy.shard_batch(xf, yf)
             return one_step(xf.to(dtype), yf)
 
         return fed_step, model, tokens, device
@@ -401,7 +420,9 @@ def run(model_name: str, batch: int = 32, iterations: int = 10,
         data_source: Optional[str] = None, data_workers: int = 0,
         prefetch_depth: int = 2, stage: str = "off",
         conv_layout: Optional[str] = None, conv_geom: Optional[str] = None,
-        profile_dir: Optional[str] = None) -> dict:
+        profile_dir: Optional[str] = None, strategy: Optional[str] = None,
+        grad_compress: Optional[str] = None, grad_buckets=None,
+        data_parallel: bool = False) -> dict:
     """Time ``iterations`` dispatches of ``inner_steps`` training steps
     each after ``warmup`` ones (with ``inner_steps`` > 1 a dispatch is a
     CUDA graph of the steps; the first warm-up dispatch runs them eagerly
@@ -412,10 +433,23 @@ def run(model_name: str, batch: int = 32, iterations: int = 10,
     dispatch (:func:`record_feed` with the pipeline arguments).
     ``conv_layout``/``conv_geom`` (the ``--convLayout``/``--convGeom``
     values) hold for this run only; ``profile_dir`` receives a
-    ``torch.profiler`` trace of the timed loop."""
+    ``torch.profiler`` trace of the timed loop.
+
+    ``strategy="dp"`` (``--strategy dp``; ``data_parallel`` is the
+    deprecated alias) runs the step data-parallel over the ranks of this
+    torchrun job, ``batch`` being the global batch: the rates are global,
+    MFU's peak is the card's times the ranks, and the line carries
+    ``strategy``, ``n_devices``, ``mesh``, ``grad_compress`` and
+    ``grad_buckets`` (with ``grad_comm``, the wire accounting, when
+    ``grad_compress`` is active), as the JAX harness's does. The exits are
+    the JAX harness's: one process, ``inner_steps`` > 1, a batch the ranks
+    do not divide, compression without a strategy."""
     from bigdl_tpu_torch.core.module import resolve_device
     from bigdl_tpu_torch.nn import bn_fused_mode
 
+    strat = _perf_strategy(strategy, data_parallel, grad_compress,
+                           grad_buckets, batch, inner_steps, device)
+    n_dev = strat.world if strat is not None else 1
     with _conv_policy(conv_layout, conv_geom):
         if inner_steps > 1 and warmup < 1:
             raise ValueError("inner_steps > 1 needs a warm-up dispatch (it "
@@ -435,7 +469,7 @@ def run(model_name: str, batch: int = 32, iterations: int = 10,
         step, model, tokens, device = train_step(
             model_name, batch, dtype, device, remat, seq_len, fused_bn,
             data_type, graph_steps=inner_steps if inner_steps > 1 else 0,
-            feed=feed)
+            feed=feed, strategy=strat)
         kinds = step_flops(model, model_name, batch, dtype, seq_len)
         flops = kinds["matmul"] + kinds["conv"]
         name = (torch.cuda.get_device_name(device) if device.type == "cuda"
@@ -449,7 +483,7 @@ def run(model_name: str, batch: int = 32, iterations: int = 10,
             dt = time.perf_counter() - t0        # the last
         steps = iterations * inner_steps
         rps = batch * steps / dt
-        mfu = flops * steps / dt / peak
+        mfu = flops * steps / dt / (peak * n_dev)
         out = {"model": model_name, "batch": batch, "iterations": iterations,
                "inner_steps": inner_steps,
                "seconds": round(dt, 4), "records_per_second": round(rps, 2),
@@ -469,8 +503,38 @@ def run(model_name: str, batch: int = 32, iterations: int = 10,
                "data": data_source, "pipeline": prov,
                "warmup": warmup, "first_loss": losses[0],
                "final_loss": losses[-1], "losses": losses}
+        info = strat.grad_comm_info() if strat is not None else None
+        out.update({
+            "strategy": "dp" if strat is not None else None,
+            "n_devices": n_dev,
+            "mesh": dict(strat.mesh.shape) if strat is not None else None,
+            "records_per_second_per_device": round(rps / n_dev, 2),
+            "grad_compress": info["compress"] if info else "off",
+            "grad_buckets": info["n_buckets"] if info else None})
+        if info:
+            out["grad_comm"] = dict(info)
         _annotate_conv_layouts(out)
         return out
+
+
+def _perf_strategy(strategy, data_parallel, grad_compress, grad_buckets,
+                   batch, inner_steps, device):
+    """The DataParallel of ``run``'s strategy arguments, or None."""
+    from bigdl_tpu_torch.cli import common
+
+    cpu = device is not None and torch.device(device).type == "cpu"
+    args = SimpleNamespace(strategy=strategy, dataParallel=data_parallel,
+                           platform="cpu" if cpu else None,
+                           gradCompress=grad_compress,
+                           gradBuckets=grad_buckets, innerSteps=inner_steps,
+                           stepsPerDispatch=1)
+    strat = common.build_strategy(args, batch=batch)
+    cfg = common.make_grad_comm(args)
+    if cfg is not None and cfg.active and strat is None:
+        raise SystemExit(
+            "--gradCompress compresses the cross-device gradient "
+            "all-reduce; it needs a multi-device --strategy (dp)")
+    return strat
 
 
 # synthetic-grade defaults of the time-to-accuracy data: (band or chroma
@@ -738,9 +802,16 @@ def main(argv=None) -> dict:
     add_conv_args(p)
     add_fused_bn_arg(p)
     add_pipeline_args(p)
+    p.add_argument("--dataParallel", action="store_true",
+                   help="deprecated alias of --strategy dp")
+    add_strategy_arg(p)
+    add_grad_comm_args(p)
     args = p.parse_args(argv)
     dtype = torch.float32 if args.f32 else torch.bfloat16
     if args.timeToAcc is not None:
+        if args.strategy or args.dataParallel:
+            raise SystemExit("--timeToAcc trains on one device in the "
+                             "PyTorch port; drop --strategy")
         data_dir = None
         if args.data and args.data.startswith("record:"):
             data_dir = args.data[len("record:"):]
@@ -762,9 +833,13 @@ def main(argv=None) -> dict:
               data_source=args.data, data_workers=args.dataWorkers,
               prefetch_depth=args.prefetchDepth, stage=args.stage,
               conv_layout=args.convLayout, conv_geom=args.convGeom,
-              profile_dir=args.profile)
+              profile_dir=args.profile, strategy=args.strategy,
+              grad_compress=args.gradCompress, grad_buckets=args.gradBuckets,
+              data_parallel=args.dataParallel)
     line = {k: v for k, v in out.items() if k != "losses"}
-    print(json.dumps(line), flush=True)
+    import torch.distributed as dist
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(json.dumps(line), flush=True)
     return out
 
 

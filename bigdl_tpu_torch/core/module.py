@@ -17,16 +17,18 @@ and calls a child with no noise under it without one.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import inspect
 import math
+from contextvars import ContextVar
 from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
 
 __all__ = ["xavier_uniform", "uniform_fan_in", "resolve_device",
-           "fold_seed", "hash_bits24", "takes_seed", "Module",
+           "fold_seed", "hash_bits24", "noise_shard", "takes_seed", "Module",
            "SimpleModule", "ElementwiseModule", "Lambda", "Container",
            "Sequential", "Identity"]
 
@@ -99,13 +101,36 @@ def fold_seed(seed, i: int) -> torch.Tensor:
                 + _s64((int(i) + 1) * 0xBF58476D1CE4E5B9 & _MASK64))
 
 
+# the data-axis rank a training step runs under, set by
+# DataParallel.compile_step: a rank's tensors are its part of the batch
+_NOISE_SHARD: ContextVar = ContextVar("bigdl_tpu_torch_noise_shard",
+                                      default=0)
+
+
+@contextlib.contextmanager
+def noise_shard(rank: int):
+    """Within this context :func:`hash_bits24` counts the elements of a
+    tensor from ``rank`` times its size: the index the element has in the
+    global batch when every rank holds an equal contiguous part of dim 0,
+    so a data-parallel step draws the single process's noise."""
+    token = _NOISE_SHARD.set(int(rank))
+    try:
+        yield
+    finally:
+        _NOISE_SHARD.reset(token)
+
+
 def hash_bits24(seed, like: torch.Tensor) -> torch.Tensor:
     """24 random bits per element of ``like`` (int64 in [0, 2^24)): a
     counter-based hash of (``seed``, element index) computed on ``like``'s
     device, so the same seed draws the same bits eagerly, in a recomputed
-    layer and in a CUDA-graph replay, and no generator state is read."""
+    layer and in a CUDA-graph replay, and no generator state is read.
+    Under :func:`noise_shard` the index is the element's in the global
+    batch."""
     seed = torch.as_tensor(seed, dtype=torch.int64).to(like.device)
-    idx = torch.arange(like.numel(), device=like.device).reshape(like.shape)
+    rank = _NOISE_SHARD.get()
+    idx = torch.arange(rank * like.numel(), (rank + 1) * like.numel(),
+                       device=like.device).reshape(like.shape)
     return _srl(_mix(idx * _MIX2 + seed * _GOLDEN), 40)
 
 

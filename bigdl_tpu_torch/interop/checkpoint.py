@@ -99,21 +99,23 @@ def _to_numpy(modules, name, leaf) -> np.ndarray:
     return np.asarray(t.numpy(), order="C")
 
 
-def _save(path: str, tree: dict, model) -> None:
+def _save(path: str, tree: dict, model, layout: Optional[dict]) -> None:
     names = set(model.state_dict().keys())
     modules = dict(model.named_modules())
     flat = sorted(_flatten(tree, names), key=lambda e: e[0])
     save_leaves(path, [_to_numpy(modules, n, leaf) for _, n, leaf in flat],
-                [p for p, _, _ in flat])
+                [p for p, _, _ in flat], layout)
 
 
 def save_model(path: str, model: torch.nn.Module,
                driver: Optional[dict] = None,
-               tensors: Optional[dict] = None) -> None:
+               tensors: Optional[dict] = None,
+               layout: Optional[dict] = None) -> None:
     """Write ``model``'s params and module state (and the loop's
     ``driver`` counters) as a ``model.<n>`` blob in the JAX layout;
     ``tensors`` ({name: tensor}, e.g. host copies) stand in for the
-    model's own."""
+    model's own; ``layout`` (a ``DataParallel.layout_signature()``) goes
+    into the manifest."""
     params, state = model_tensors(model)
     if tensors is not None:
         params = {k: tensors[k] for k in params}
@@ -128,12 +130,13 @@ def save_model(path: str, model: torch.nn.Module,
                                  f"got {sorted(plan)}")
             tree["driver"]["plan"] = {k: _plan_leaf(plan[k])
                                       for k in PLAN_KEYS}
-    _save(path, tree, model)
+    _save(path, tree, model, layout)
 
 
-def save_state(path: str, opt_state: dict, model: torch.nn.Module) -> None:
+def save_state(path: str, opt_state: dict, model: torch.nn.Module,
+               layout: Optional[dict] = None) -> None:
     """Write an ``OptimMethod`` state as a ``state.<n>`` blob."""
-    _save(path, opt_state, model)
+    _save(path, opt_state, model, layout)
 
 
 def _read(path: str) -> Tuple[list, Optional[list]]:

@@ -32,6 +32,7 @@ from bigdl_tpu_torch.ops import bn_kernel
 
 __all__ = ["BatchNormalization", "SpatialBatchNormalization",
            "set_bn_fused", "bn_fused_mode", "set_bn_stat_sample",
+           "set_bn_axis", "unfuse_bn_for_spmd",
            "SpatialCrossMapLRN", "SpatialSubtractiveNormalization",
            "SpatialDivisiveNormalization", "SpatialContrastiveNormalization",
            "Normalize"]
@@ -61,8 +62,19 @@ class BatchNormalization(Module):
     set by :func:`~bigdl_tpu_torch.nn.structural.absorb_bn_relu` when this
     BN swallowed the ReLU after it; every path then applies that ReLU.
     ``stat_sample=k`` takes the training statistics from the first k batch
-    rows only. ``axis_name`` (cross-replica statistics under shard_map)
-    comes with data parallelism."""
+    rows only.
+
+    ``axis_name`` names a mesh axis (the port has ``"data"``): at more
+    than one rank on it, training normalises by the statistics of the
+    global batch the ranks hold parts of, the running variance counting
+    the global rows (the JAX ``pmean``/``psum``). The kernel modes take
+    :func:`~bigdl_tpu_torch.ops.bn_kernel.sync_bn_train`, the stats
+    kernels with their sums all-reduced ("apply" too, its ReLU after:
+    the fused block uses its statistics in the launch that computes them);
+    the plain path all-reduces its sums through autograd. A
+    :class:`~bigdl_tpu_torch.parallel.DataParallel` step sets it on every
+    BN (:func:`set_bn_axis`), as a JAX BN under a mesh reduces over the
+    global batch on its own."""
 
     def __init__(self, n_output: int, eps: float = 1e-5,
                  momentum: float = 0.1, affine: bool = True,
@@ -70,11 +82,8 @@ class BatchNormalization(Module):
                  stat_sample: Optional[int] = None, fused=False,
                  name: Optional[str] = None):
         super().__init__(name)
-        if axis_name is not None:
-            raise NotImplementedError(
-                "BatchNormalization(axis_name=...) is not in the PyTorch "
-                "port yet: cross-replica statistics come with data "
-                "parallelism (ROADMAP.md queue 1 item 8)")
+        _check_axis(axis_name)
+        self.axis_name = axis_name
         self.n_output = n_output
         self.eps, self.momentum, self.affine = eps, momentum, affine
         self.gamma_init = gamma_init
@@ -95,10 +104,25 @@ class BatchNormalization(Module):
         self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
         self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
 
+    def _ranks(self):
+        """(process group, ranks) of ``axis_name``; (None, 1) without."""
+        if self.axis_name is None or not self.training:
+            return None, 1
+        from bigdl_tpu_torch.parallel.mesh import axis_group
+        return axis_group(self.axis_name)
+
     def forward(self, x):
         c = x.shape[-1]
+        group, ranks = self._ranks()
         if (self.training and self.fused and self.affine
                 and not self.stat_sample):
+            if ranks > 1:
+                y, mean, var = bn_kernel.sync_bn_train(
+                    x, self.weight, self.bias, self.eps, group, ranks)
+                if self.fuse_relu:
+                    y = torch.relu(y)
+                self._update_running(mean, var, x.numel() // c * ranks)
+                return y
             if self.fused == "apply":
                 y, mean, var = bn_kernel.fused_bn_apply_train(
                     x, self.weight, self.bias, self.eps, self.fuse_relu)
@@ -114,10 +138,16 @@ class BatchNormalization(Module):
             k = self.stat_sample
             xs = xf if (not k or k >= xf.shape[0]) else xf[:k]
             axes = tuple(range(x.dim() - 1))
-            mean = xs.mean(dim=axes)
-            var = xs.square().mean(dim=axes) - mean.square()
-            self._update_running(mean.detach(), var.detach(),
-                                 xs.numel() // c)
+            if ranks > 1:
+                n = xs.numel() // c * ranks
+                sums = _AllReduceSum.apply(torch.stack(
+                    [xs.sum(dim=axes), xs.square().sum(dim=axes)]), group)
+                mean, mean_sq = sums[0] / n, sums[1] / n
+            else:
+                n = xs.numel() // c
+                mean, mean_sq = xs.mean(dim=axes), xs.square().mean(dim=axes)
+            var = mean_sq - mean.square()
+            self._update_running(mean.detach(), var.detach(), n)
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps)
@@ -133,8 +163,37 @@ class BatchNormalization(Module):
         return y.to(x.dtype)
 
     def extra_repr(self) -> str:
+        axis = f", axis_name={self.axis_name!r}" if self.axis_name else ""
         return (f"{self.n_output}, eps={self.eps}, momentum={self.momentum}"
-                f", fused={self.fused!r}, fuse_relu={self.fuse_relu}")
+                f", fused={self.fused!r}, fuse_relu={self.fuse_relu}{axis}")
+
+
+def _check_axis(axis_name) -> None:
+    if axis_name not in (None, "data"):
+        raise NotImplementedError(
+            f"BatchNormalization(axis_name={axis_name!r}): the port's mesh "
+            f"has the 'data' axis; the model, sequence and pipeline axes "
+            f"come with ROADMAP.md queue 1 entry 13")
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The sum of a tensor over a process group's ranks; its gradient is
+    the sum of the ranks' gradients (each rank's loss reads the sum)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        import torch.distributed as dist
+        out = t.clone()
+        dist.all_reduce(out, group=group)
+        ctx.group = group
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
 class SpatialBatchNormalization(BatchNormalization):
@@ -168,6 +227,33 @@ def set_bn_fused(module: nn.Module, fused=True) -> nn.Module:
         from bigdl_tpu_torch.nn.structural import absorb_bn_relu
         absorb_bn_relu(module)
     return module
+
+
+def set_bn_axis(module: nn.Module, axis_name: str) -> int:
+    """Set ``axis_name`` on every BatchNormalization under ``module`` that
+    has none. Returns how many it set."""
+    _check_axis(axis_name)
+    count = 0
+    for m in module.modules():
+        if isinstance(m, BatchNormalization) and m.axis_name is None:
+            m.axis_name = axis_name
+            count += 1
+    return count
+
+
+def unfuse_bn_for_spmd(module: nn.Module, n_devices: int) -> int:
+    """The JAX package's switch of every fused BN back to the plain path
+    before a multi-device step (its Pallas kernels carry no partitioning
+    rule); returns how many it switched, 0 for one device. The port's
+    data-parallel step does not call it: its kernels take a rank's part
+    of the batch and all-reduce their sums (:func:`set_bn_axis`)."""
+    count = 0
+    if n_devices > 1:
+        for m in module.modules():
+            if isinstance(m, BatchNormalization) and m.fused:
+                m.fused = False
+                count += 1
+    return count
 
 
 def bn_fused_mode(module: nn.Module) -> str:

@@ -49,7 +49,7 @@ import torch
 __all__ = ["bn_stats", "bn_bwd_stats", "bn_fwd_apply", "bn_bwd_fused",
            "bn_stats_reference", "bn_bwd_stats_reference",
            "bn_fwd_apply_reference", "bn_bwd_fused_reference",
-           "fused_bn_train", "fused_bn_apply_train"]
+           "fused_bn_train", "fused_bn_apply_train", "sync_bn_train"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # bn_coop's modes (csrc/bn.cu Mode)
@@ -415,6 +415,62 @@ class _FusedBNApplyTrain(torch.autograd.Function):
                                       x.reshape(-1, c), mean, inv, gamma,
                                       beta, ctx.relu)
         return dx2.reshape(x.shape), sdyx, sdy, None, None
+
+
+class _SyncBNTrain(torch.autograd.Function):
+    """``sync_bn_train``'s custom VJP: the stats kernels' sums all-reduced
+    over the data axis between the reductions and the elementwise work.
+    Forward: :func:`bn_stats` gives this rank's Σx and Σx², one all-reduce
+    of the stacked (2, C) f32 sums the global ones, then the apply in
+    PyTorch over the global row count. Backward: :func:`bn_bwd_stats`
+    gives this rank's Σdy and Σ(dy·x̂), one all-reduce the global ones for
+    dx; dγ and dβ are this rank's sums, which the gradient average over
+    the ranks completes."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps: float, group, ranks: int):
+        import torch.distributed as dist
+
+        c = x.shape[-1]
+        x2 = x.reshape(-1, c).contiguous()
+        sums = torch.stack(bn_stats(x2))
+        dist.all_reduce(sums, group=group)
+        n = x2.shape[0] * ranks
+        mean = sums[0] / n
+        var = torch.clamp_min(sums[1] / n - mean * mean, 0.0)
+        inv = torch.rsqrt(var + eps)
+        scale = inv * gamma
+        y = (x.float() * scale + (beta - mean * scale)).to(x.dtype)
+        ctx.save_for_backward(x, mean, inv, gamma)
+        ctx.group, ctx.n = group, n
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, d_mean, d_var):
+        import torch.distributed as dist
+
+        del d_mean, d_var
+        x, mean, inv, gamma = ctx.saved_tensors
+        c = x.shape[-1]
+        x2 = x.reshape(-1, c).contiguous()
+        dy2 = dy.reshape(-1, c).contiguous()
+        sdy, sdyx = bn_bwd_stats(dy2, x2, mean, inv)
+        sums = torch.stack([sdy, sdyx])
+        dist.all_reduce(sums, group=ctx.group)
+        n = ctx.n
+        xhat2 = (x2.float() - mean) * inv
+        dx = ((dy2.float() - sums[0] / n - xhat2 * (sums[1] / n))
+              * (gamma * inv)).to(x.dtype)
+        return dx.reshape(x.shape), sdyx, sdy, None, None, None
+
+
+def sync_bn_train(x, gamma, beta, eps: float, group, ranks: int):
+    """Training-mode BN over the last axis normalised by the statistics of
+    the global batch that ``ranks`` ranks of ``group`` hold parts of,
+    through the stats kernels (:class:`_SyncBNTrain`); returns (y, mean,
+    var) of the global batch, as :func:`fused_bn_train`."""
+    return _SyncBNTrain.apply(x, gamma, beta, eps, group, int(ranks))
 
 
 def fused_bn_train(x, gamma, beta, eps: float):

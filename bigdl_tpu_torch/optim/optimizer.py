@@ -28,6 +28,20 @@ resume), and a model that takes one (``core.module.takes_seed``: its
 ``forward`` has ``seed``, and a container holds a module that draws
 noise) gets it as a 0-d int64 tensor on the device (microbatch i of a
 step gets ``fold_seed(step seed, i)``).
+
+``strategy``: a :class:`~bigdl_tpu_torch.parallel.DataParallel` over the
+ranks of a ``torch.distributed`` job (one process a GPU). Each step then
+takes this rank's part of the global batch (``strategy.shard_batch``,
+unless the dataset already yields it: ``parallel.feeds_rank_part``),
+normalises batch norm by the global batch's statistics, averages the
+gradients and the loss over the ranks (``strategy.reduce_grads``),
+clips, and updates the parameters this rank owns under ZeRO-1
+(``strategy.update``). Validation sums its counts over the ranks. A
+checkpoint gathers the ZeRO-1 state on every rank; rank 0 alone writes
+it, in the single-process format with the strategy's
+``layout_signature()`` in the manifests, and every rank meets at a
+barrier after the write. ``steps_per_dispatch`` stays 1 under a strategy,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -138,14 +152,23 @@ class Optimizer:
                  seed: int = 42, log_every: int = 1, compute_dtype=None,
                  accum_steps: int = 1, nan_check: bool = True,
                  steps_per_dispatch: int = 1, device=None):
-        if strategy is not None:
-            raise NotImplementedError(
-                "a distributed strategy is not in the PyTorch port yet: it "
-                "comes with data parallelism (ROADMAP.md queue 1 item 8)")
         self.steps_per_dispatch = int(steps_per_dispatch)
         if self.steps_per_dispatch < 1:
             raise ValueError(f"steps_per_dispatch must be >= 1, got "
                              f"{steps_per_dispatch}")
+        if strategy is not None:
+            from bigdl_tpu_torch.parallel import DataParallel
+            if not isinstance(strategy, DataParallel):
+                raise TypeError(
+                    f"strategy must be a bigdl_tpu_torch.parallel."
+                    f"DataParallel, got {type(strategy).__name__}")
+            if self.steps_per_dispatch != 1:
+                raise ValueError(
+                    f"steps_per_dispatch={self.steps_per_dispatch} is a "
+                    f"single-device dispatch amortization; it cannot be "
+                    f"combined with a distributed strategy (whose runtime "
+                    f"pipelines dispatch already)")
+        self.strategy = strategy
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.dataset = dataset
@@ -384,11 +407,16 @@ class Optimizer:
             loss = loss / accum
             gs = [g / accum for g in gs]
         grads = dict(zip(names, gs))
+        if self.strategy is not None:
+            grads, loss = self.strategy.reduce_grads(grads, loss)
         if self._clip_const is not None:
             grads = clip_by_value(grads, *self._clip_const)
         if self._clip_norm is not None:
             grads, _ = clip_by_global_norm(grads, self._clip_norm)
-        self.optim_method.update(grads, opt_state, params)
+        if self.strategy is not None:
+            self.strategy.update(self.optim_method, grads, opt_state, params)
+        else:
+            self.optim_method.update(grads, opt_state, params)
         return loss.detach()
 
     # ----------------------------------------------------------- callbacks
@@ -398,7 +426,8 @@ class Optimizer:
             return
         self._last_val_iter = progress["iteration"]
         results = run_evaluation(self.model, self._val_dataset,
-                                 self._val_methods, self.device)
+                                 self._val_methods, self.device,
+                                 self.strategy)
         for m, r in zip(self._val_methods, results):
             logger.info("%s is %r", m.name, r)
         self._summary_write("val", {
@@ -437,14 +466,21 @@ class Optimizer:
             # the executor feed's schedule: resume checks it is replayed
             driver["plan"] = plan.signature()
         self._join_ckpt_writer()  # one write in flight
+        layout, strat = None, self.strategy
+        if strat is not None:
+            _, _, opt_state = strat.gather(None, None, opt_state)  # all ranks
+            layout = strat.layout_signature()
+            if strat.rank != 0:
+                strat.barrier()  # rank 0 writes
+                return
         # host copies, taken now: the next step (or replay) updates the
         # tensors in place
         tensors = _host_tree(self.model.state_dict())
         state = _host_tree(opt_state)
 
         def write():
-            save_model(target, self.model, driver, tensors)
-            save_state(state_target, state, self.model)
+            save_model(target, self.model, driver, tensors, layout=layout)
+            save_state(state_target, state, self.model, layout=layout)
             if self._ckpt_keep_last:
                 from bigdl_tpu_torch.utils.file import gc_checkpoints
                 gc_checkpoints(self._ckpt_path, self._ckpt_keep_last)
@@ -454,6 +490,8 @@ class Optimizer:
 
         if not self._ckpt_async:
             write()
+            if strat is not None:
+                strat.barrier()
             return
 
         def worker():
@@ -464,6 +502,8 @@ class Optimizer:
 
         self._ckpt_thread = threading.Thread(target=worker, daemon=True)
         self._ckpt_thread.start()
+        if strat is not None:
+            strat.barrier()
 
     def _join_ckpt_writer(self):
         if self._ckpt_thread is not None:
@@ -506,6 +546,15 @@ class Optimizer:
             _copy_tree(opt_state, init_opt, "opt_state")
         rd = (self._load_resume(params, opt_state)
               if self._resume_paths[0] else None)
+        strat, rank_local, step_fn = self.strategy, False, self._step
+        if strat is not None:
+            from bigdl_tpu_torch.interop.checkpoint import model_tensors
+            from bigdl_tpu_torch.parallel import feeds_rank_part
+            params, _, opt_state = strat.place(
+                params, model_tensors(model)[1], opt_state)
+            strat.sync_batch_norm(model)
+            rank_local = feeds_rank_part(self.dataset)
+            step_fn = strat.compile_step(self._step)
         takes_seed = _takes_seed(model)
         gen = torch.Generator().manual_seed(self.seed)
         self._draws = 0
@@ -547,11 +596,15 @@ class Optimizer:
 
         def run_eager(batch, step_seed):
             t0 = time.perf_counter()
+            if strat is not None and not isinstance(batch, DeviceBatch):
+                batch = strat.shard_batch(*batch, rank_local=rank_local)
             x, y = _batch_to_device(batch, self.device)
+            if strat is not None and isinstance(batch, DeviceBatch):
+                x, y = strat.shard_batch(x, y, rank_local=rank_local)
             self._phase("h2d", time.perf_counter() - t0)
             s = (torch.tensor(step_seed, dtype=torch.int64,
                               device=self.device) if takes_seed else None)
-            return self._step(params, opt_state, x, y, s, takes_seed)
+            return step_fn(params, opt_state, x, y, s, takes_seed)
 
         def graph_step(x, y, s):
             return self._step(params, opt_state, x, y,

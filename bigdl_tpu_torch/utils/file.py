@@ -80,9 +80,12 @@ def _write_atomic(path: str, text: str) -> None:
 
 
 def save_leaves(path: str, leaves: Sequence[np.ndarray],
-                key_paths: Sequence[Sequence[str]]) -> None:
+                key_paths: Sequence[Sequence[str]],
+                layout: Optional[dict] = None) -> None:
     """Write ``leaves`` (in order) and their key paths to ``path``, then
-    its checksum sidecar, then its manifest."""
+    its checksum sidecar, then its manifest; ``layout`` is the writer's
+    data-parallel layout (``DataParallel.layout_signature()``), recorded
+    in the manifest as the JAX package records it."""
     path = _local(path)
     if len(leaves) != len(key_paths):
         raise ValueError(f"{len(leaves)} leaves but {len(key_paths)} paths")
@@ -99,7 +102,7 @@ def save_leaves(path: str, leaves: Sequence[np.ndarray],
     doc = {"version": MANIFEST_VERSION, "n_leaves": len(arrays),
            "leaves": [{"shape": list(a.shape), "dtype": str(a.dtype)}
                       for a in arrays.values()],
-           "layout": None}
+           "layout": layout}
     _write_atomic(manifest_path(path), json.dumps(doc, sort_keys=True))
 
 

@@ -245,6 +245,33 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    (its curve printed). The kernels line counts phase 19's launches too,
    and a line before it gives phase 19's BN launches by mode.
 
+20. Data parallelism (``bigdl_tpu_torch.parallel``), after phase 19. (a)
+   World size 1 over NCCL: a one-rank NCCL group (``init_distributed(...,
+   backend="nccl")``), ``Optimizer(strategy=DataParallel(...))`` (ZeRO-1
+   on, compression off) for 3 eager steps of ResNet-50 ``_fba`` bf16 at
+   batch 128 beside the same run without a strategy, cuDNN
+   deterministic: the losses equal bit for bit, 53 launches a step of
+   each fused BN kernel, and the strategy run's step ms and images/s.
+   (b) Two ranks on the one card over gloo (``parallel.launch.spawn``,
+   ``init_distributed(backend="gloo")``, a time limit that kills the
+   group): ``resnet_cifar(20)`` f32 ``--fusedBN apply`` at global batch
+   128 (64 a rank), 3 steps of ``cli.perf``'s step, parameters and losses
+   against one process on the same global batch within ``DP_CIFAR_TOL``,
+   and again with ``--gradCompress bf16`` (``wire_bytes * 2 ==
+   wire_bytes_f32``, the last loss within 5% of f32); ``cli.perf.run(
+   "resnet50_fba", 128, strategy="dp")`` bf16, 3 steps: exactly 53
+   ``bn_stats`` and 53 ``bn_bwd_stats`` a step on each rank and none of
+   the fused pair, finite losses, then each of the 53 synced BN layers'
+   outputs in one forward against ``bn_fwd_apply`` on the global batch
+   (rank 1's input and output broadcast to rank 0), one layer at a time,
+   within ``BN_TOL``; ``cli.perf.run("transformer_lm_1k_hd128", 8,
+   strategy="dp")`` bf16, 3 steps: 12 launches a step of each flash kernel
+   on each rank, losses within ``DP_LM_TOL`` of phase 3's single process.
+   Step ms and images/s or tokens/s with the card's name and power limit.
+   (c) With two cards or more, ``torchrun --nproc_per_node N -m
+   bigdl_tpu_torch.cli.perf -m resnet50_fba --strategy dp`` over NCCL and
+   its JSON line; with one card, a line saying (c) did not run.
+
 Any failed phase exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -425,6 +452,18 @@ TTA_EASY = ["-m", "resnet20_cifar", "--timeToAcc", "0.9", "--imageSize",
             "32", "--fusedBN", "apply", "-b", "128", "--maxEpoch", "10"]
 TTA_HARD = TTA_EASY[:-1] + ["6", "--ttaHard", "--trainPerClass", "500",
                             "--valPerClass", "100", "--valEvery", "20"]
+
+
+# phase 20: data parallelism
+DP_STEPS = 3
+DP_CIFAR_BATCH = 128
+# 2 ranks against one process after 3 f32 steps: the conv and BN sums run
+# over 64 rows a rank (and the BN ones through the stats kernels) where the
+# one process sums 128 (through the fused block)
+DP_CIFAR_TOL = {"loss": 1e-4, "params": 1e-4}
+DP_LM_TOL = 1e-2  # relative, bf16: each rank's products over 4 rows of 8
+DP_TIMEOUT_S = 420
+DP_WORKER = "chip_smoke:dp_worker"  # the spawn target of phase 20 (b)
 
 
 def fail(msg):
@@ -2163,14 +2202,15 @@ class LossRecorder:
 
 
 def optimizer_run(torch, make_model, data, k, end, compute_dtype=None,
-                  ckpt=None, resume=None, shuffle=False):
+                  ckpt=None, resume=None, shuffle=False, strategy=None):
     """One ``Optimizer`` run (SGD(0.01, momentum 0.9) with the schedule
     Poly(0.5, POLY_ITERS)) over ``data``
     (a list of (x, y) batches, held in a ``BatchDataSet``) with
     ``steps_per_dispatch=k`` up to iteration ``end``, checkpointing every
     ``k`` iterations into ``ckpt`` (keep_last=1) and resuming from
-    ``resume`` when given; returns (every step's loss, kernel launches,
-    images/s of the dispatches after the first two, log lines)."""
+    ``resume`` when given, under ``strategy`` (a ``DataParallel``) when
+    given; returns (every step's loss, kernel launches, images/s of the
+    dispatches after the first two, log lines)."""
     import numpy as np
 
     from bigdl_tpu_torch import ops
@@ -2188,7 +2228,7 @@ def optimizer_run(torch, make_model, data, k, end, compute_dtype=None,
                                      schedule=Poly(0.5, POLY_ITERS)),
                     end_when=Trigger.max_iteration(end), log_every=1,
                     compute_dtype=compute_dtype, steps_per_dispatch=k,
-                    device=DEV)
+                    strategy=strategy, device=DEV)
     if ckpt:
         opt.set_checkpoint(Trigger.several_iteration(k), ckpt,
                            keep_last=1)
@@ -3493,6 +3533,285 @@ def resnet_slice_runs(torch, card):
     return rows, [n for _, n in mfu.values()] + launches + [s2d_n] + tta_n
 
 
+def _cifar_dp_step(torch, strategy, grad_compress=None):
+    """3 steps of ``cli.perf``'s step for ``resnet20_cifar`` f32 with the
+    fused BN block at global batch ``DP_CIFAR_BATCH`` on random images;
+    returns (losses, {name: parameter as numpy}, launches, ms a step)."""
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.cli import perf
+
+    ops.reset_kernel_launches()
+    step, model, _, _ = perf.train_step(
+        "resnet20_cifar", DP_CIFAR_BATCH, torch.float32, DEV,
+        fused_bn="apply", data_type="random", strategy=strategy)
+    losses = [float(step())]  # the first step builds what the rest reuse
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [float(step()) for _ in range(DP_STEPS - 1)]
+    ms = (time.perf_counter() - t0) * 1e3 / (DP_STEPS - 1)
+    n = ops.kernel_launches()
+    params = {k: v.detach().float().cpu().numpy()
+              for k, v in model.state_dict().items()}
+    return losses, params, n, ms
+
+
+def _bn_layer_check(torch, dist, model, x):
+    """One forward of ``model`` (training mode, no grad) on this rank's
+    part ``x`` of a global batch: each BatchNormalization's output, and
+    rank 1's input and output broadcast to rank 0, which holds the two
+    halves' outputs against ``bn_fwd_apply`` on the whole batch. Returns
+    (layers checked, the worst max|d| / max|ref|) on rank 0."""
+    from bigdl_tpu_torch.nn.norm import BatchNormalization
+    from bigdl_tpu_torch.ops import bn_kernel
+
+    rank = dist.get_rank()
+    worst, count = [0.0], [0]
+
+    def hook(mod, inp, out):
+        xs, ys = inp[0].detach().contiguous(), out.detach().contiguous()
+        x1 = xs.clone() if rank == 1 else torch.empty_like(xs)
+        y1 = ys.clone() if rank == 1 else torch.empty_like(ys)
+        dist.broadcast(x1, src=1)
+        dist.broadcast(y1, src=1)
+        if rank != 0:
+            return
+        xg, yg = torch.cat([xs, x1]), torch.cat([ys, y1])
+        c = xg.shape[-1]
+        ref, _, _ = bn_kernel.bn_fwd_apply(xg.reshape(-1, c), mod.weight,
+                                           mod.bias, mod.eps, mod.fuse_relu)
+        ref = ref.float()
+        d = float((yg.reshape(-1, c).float() - ref).abs().max())
+        worst[0] = max(worst[0], d / max(float(ref.abs().max()), 1e-30))
+        count[0] += 1
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, BatchNormalization)]
+    try:
+        with torch.no_grad():
+            model(x)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    return count[0], worst[0]
+
+
+def dp_worker(args):
+    """Phase 20 (b) on one rank of a 2-rank gloo job on the one card (the
+    ``parallel.launch.spawn`` target): the CIFAR row plain and compressed,
+    ResNet-50 ``_fba`` through ``cli.perf.run`` and its synced BN layers
+    one at a time, the LM through ``cli.perf.run``. Returns what it
+    measured; raises on any failed check (the job then fails)."""
+    import math
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from bigdl_tpu_torch.cli import perf
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.parallel import (DataParallel,
+                                          make_grad_comm_config, make_mesh)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = {"rank": rank, "world": world}
+
+    losses, params, n, ms = _cifar_dp_step(
+        torch, DataParallel(make_mesh({"data": world})))
+    np.savez(os.path.join(args["dir"], f"cifar_r{rank}.npz"), **params)
+    out["cifar"] = {"losses": losses, "launches": n, "ms": ms}
+    strat = DataParallel(make_mesh({"data": world}),
+                         grad_comm=make_grad_comm_config("bf16"))
+    bf16_losses, _, _, _ = _cifar_dp_step(torch, strat)
+    out["cifar_bf16"] = {"losses": bf16_losses,
+                         "info": strat.grad_comm_info()}
+
+    runs = {}
+    for tag, model_name, batch, dt in (
+            ("resnet50", "resnet50_fba", RESNET_BATCH, "random"),
+            ("lm", MODEL, TRAIN_BATCH, "constant")):
+        (res, n) = _launched(torch, lambda: perf.run(
+            model_name, batch=batch, iterations=DP_STEPS - 1, warmup=1,
+            dtype=torch.bfloat16, data_type=dt, strategy="dp"))
+        res = {k: res[k] for k in ("losses", "records_per_second",
+                                   "tokens_per_second", "seconds",
+                                   "iterations", "n_devices", "mesh",
+                                   "grad_compress", "grad_buckets")}
+        res["launches"] = n
+        runs[tag] = res
+        if not all(math.isfinite(v) for v in res["losses"]):
+            raise RuntimeError(f"rank {rank} {tag}: losses {res['losses']}")
+        torch.cuda.empty_cache()
+    out.update(runs)
+
+    step, model, _, _ = perf.train_step(
+        "resnet50_fba", RESNET_BATCH, torch.bfloat16, DEV,
+        data_type="random", strategy=DataParallel(make_mesh({"data": world})))
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.randn(RESNET_BATCH, 224, 224, 3).astype(
+        np.float32)).to(torch.bfloat16)
+    per = RESNET_BATCH // world
+    out["bn_layers"] = _bn_layer_check(
+        torch, dist, model, x[rank * per:(rank + 1) * per].to(DEV))
+    del step, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_runs(torch, card, lm_ref):
+    """Phase 20: data parallelism. ``lm_ref`` is phase 3's single-process
+    losses of the LM row (the same batch and steps). Returns (rows of
+    rates, the launches of the strategy runs)."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from bigdl_tpu_torch.cli import perf
+    from bigdl_tpu_torch.parallel import (DataParallel, init_distributed,
+                                          make_mesh)
+    from bigdl_tpu_torch.parallel.launch import free_port, spawn
+
+    t_phase = time.perf_counter()
+    rows, launches = {}, []
+
+    # (a) one rank over NCCL, through the Optimizer
+    init_distributed(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl")
+    gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    make = lambda: perf.build_model("resnet50_fba",  # noqa: E731
+                                    generator=gen())[0]
+    data = image_batches(DP_STEPS, RESNET_BATCH, (224, 224, 3), 1000, 7)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref, _, _, _ = optimizer_run(torch, make, data, 1, DP_STEPS,
+                                     compute_dtype=torch.bfloat16)
+        t0 = time.perf_counter()
+        got, n, ips, _ = optimizer_run(
+            torch, make, data, 1, DP_STEPS, compute_dtype=torch.bfloat16,
+            strategy=DataParallel(make_mesh({"data": 1})))
+        wall = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = det
+        dist.destroy_process_group()
+    print(f"[dp (a)] resnet50_fba bf16 batch {RESNET_BATCH}, one NCCL rank "
+          f"through Optimizer(strategy=DataParallel) on {card}: losses "
+          f"{got}, without a strategy {ref}; {1e3 * RESNET_BATCH / ips:.1f} "
+          f"ms a step ({ips:.1f} images/s, the last step; {wall:.1f}s for "
+          f"the run with its build); BN launches {n['bn_fwd_apply']} + "
+          f"{n['bn_bwd_fused']}", flush=True)
+    if got != ref:
+        fail(f"[dp (a)] the one-rank strategy's losses {got} differ from "
+             f"the plain run's {ref}")
+    want = dict({k: 0 for k in n}, bn_fwd_apply=53 * DP_STEPS,
+                bn_bwd_fused=53 * DP_STEPS)
+    if n != want:
+        fail(f"[dp (a)] launches {n}, expected {want}")
+    launches.append(n)
+    rows["dp (a) resnet50_fba 1 rank"] = ips
+
+    # (b) two gloo ranks on the one card
+    torch.cuda.empty_cache()
+    single, sparams, _, _ = _cifar_dp_step(torch, None)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="dp_phase_") as td:
+        t0 = time.perf_counter()
+        try:
+            res = spawn(DP_WORKER, 2, {"dir": td},
+                        timeout_s=DP_TIMEOUT_S, backend="gloo")
+        except (RuntimeError, TimeoutError) as e:
+            fail(f"[dp (b)] the 2-rank job failed: {e}")
+        print(f"[dp (b)] 2 gloo ranks on one card: {time.perf_counter() - t0:.1f}s "
+              f"for the job", flush=True)
+        rparams = [dict(np.load(os.path.join(td, f"cifar_r{r}.npz")))
+                   for r in range(2)]
+    for r in range(2):
+        c = res[r]["cifar"]
+        dl = max(abs(a - b) for a, b in zip(c["losses"], single))
+        dp = max(float(np.abs(rparams[r][k] - v).max())
+                 for k, v in sparams.items())
+        print(f"[dp (b) cifar rank {r}] resnet_cifar(20) f32 --fusedBN apply "
+              f"global batch {DP_CIFAR_BATCH} on {card}: losses "
+              f"{c['losses']} (one process {single}), max |d loss| {dl:.3g}, "
+              f"max |d param| {dp:.3g}; {c['ms']:.1f} ms a step "
+              f"({DP_CIFAR_BATCH / c['ms'] * 1e3:.1f} images/s); launches "
+              f"{c['launches']}", flush=True)
+        if dl > DP_CIFAR_TOL["loss"] or dp > DP_CIFAR_TOL["params"]:
+            fail(f"[dp (b) cifar rank {r}] beyond {DP_CIFAR_TOL}")
+        n = c["launches"]
+        if (n["bn_stats"], n["bn_bwd_stats"], n["bn_fwd_apply"],
+                n["bn_bwd_fused"]) != (19 * DP_STEPS, 19 * DP_STEPS, 0, 0):
+            fail(f"[dp (b) cifar rank {r}] BN launches {n}")
+        b16 = res[r]["cifar_bf16"]
+        info = b16["info"]
+        rel = abs(b16["losses"][-1] - c["losses"][-1]) / abs(c["losses"][-1])
+        print(f"[dp (b) cifar bf16 rank {r}] losses {b16['losses']}, last "
+              f"within {rel:.3g} of f32; grad_comm {info}", flush=True)
+        if info["wire_bytes"] * 2 != info["wire_bytes_f32"] or rel > 0.05:
+            fail(f"[dp (b) cifar bf16 rank {r}] wire {info}, rel {rel}")
+        r50, lm = res[r]["resnet50"], res[r]["lm"]
+        n = r50["launches"]
+        want = dict({k: 0 for k in n}, bn_stats=53 * DP_STEPS,
+                    bn_bwd_stats=53 * DP_STEPS)
+        print(f"[dp (b) resnet50_fba rank {r}] bf16 global batch "
+              f"{RESNET_BATCH} on {card}: {r50['records_per_second']} "
+              f"images/s for the job, {1e3 * r50['seconds'] / r50['iterations']:.1f} "
+              f"ms a step; losses {r50['losses']}; launches {n}", flush=True)
+        if n != want:
+            fail(f"[dp (b) resnet50_fba rank {r}] launches {n}, expected "
+                 f"{want}")
+        n = lm["launches"]
+        want = dict({k: 0 for k in n}, flash_fwd=12 * DP_STEPS,
+                    flash_dq=12 * DP_STEPS, flash_dkv=12 * DP_STEPS)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(lm["losses"], lm_ref))
+        print(f"[dp (b) {MODEL} rank {r}] bf16 global batch {TRAIN_BATCH} x "
+              f"1024 on {card}: {lm['tokens_per_second']} tokens/s for the "
+              f"job, {1e3 * lm['seconds'] / lm['iterations']:.1f} ms a step; "
+              f"losses {lm['losses']} (one process {lm_ref[:DP_STEPS]}, "
+              f"max rel {rel:.3g}); launches {n}", flush=True)
+        if n != want or rel > DP_LM_TOL:
+            fail(f"[dp (b) {MODEL} rank {r}] launches {n} (expected {want}), "
+                 f"rel {rel} (bound {DP_LM_TOL})")
+        launches += [r50["launches"], lm["launches"], c["launches"]]
+    layers, worst = res[0]["bn_layers"]
+    print(f"[dp (b) resnet50_fba] {layers} synced BN layers, each against "
+          f"bn_fwd_apply on the global batch: worst max|d|/max|ref| "
+          f"{worst:.3g} (bound {BN_TOL['bfloat16']})", flush=True)
+    if layers != 53 or worst > BN_TOL["bfloat16"]:
+        fail(f"[dp (b) resnet50_fba] {layers} layers, worst {worst}")
+    rows["dp (b) resnet50_fba 2 ranks"] = res[0]["resnet50"][
+        "records_per_second"]
+    rows["dp (b) cifar20 2 ranks"] = DP_CIFAR_BATCH / res[0]["cifar"]["ms"] * 1e3
+
+    # (c) NCCL across cards, where there are two
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"[dp (c)] not run: torchrun --nproc_per_node N over NCCL needs "
+              f"two cards or more, this machine has {cards}", flush=True)
+    else:
+        cmd = [sys.executable, "-m", "torch.distributed.run",
+               "--nproc_per_node", str(cards), "-m",
+               "bigdl_tpu_torch.cli.perf", "-m", "resnet50_fba", "--strategy",
+               "dp", "-b", str(RESNET_BATCH * cards), "-i", "3",
+               "--dataType", "random"]
+        try:
+            p = subprocess.run(cmd, capture_output=True, text=True,
+                               timeout=DP_TIMEOUT_S,
+                               cwd=os.path.dirname(os.path.abspath(__file__)))
+        except subprocess.TimeoutExpired:
+            fail("[dp (c)] torchrun did not finish in time")
+        lines = [ln for ln in p.stdout.splitlines() if ln.startswith("{")]
+        print(f"[dp (c)] torchrun over {cards} cards: rc {p.returncode}; "
+              f"{lines[-1] if lines else p.stderr[-2000:]}", flush=True)
+        if p.returncode != 0 or not lines:
+            fail("[dp (c)] torchrun failed")
+    print(f"[phase 20] {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return rows, launches
+
+
 def main():
     try:
         import torch
@@ -3581,7 +3900,8 @@ def main():
     base_rows, base_n, _ = baseline_runs(torch, card)
     inc_rows, inc_n, _ = inception_runs(torch, card)
     slice_rows, slice_n = resnet_slice_runs(torch, card)
-    for n in base_n + inc_n + slice_n:
+    dp_rows, dp_n = dp_runs(torch, card, train["losses"])
+    for n in base_n + inc_n + slice_n + dp_n:
         for name in launches:
             launches[name] += n[name]
     print("[phase 19] BN launches by mode: " + ", ".join(
@@ -3618,6 +3938,8 @@ def main():
 
     for tag, r in {**base_rows, **inc_rows}.items():
         print(f"[baseline] {tag} on {card}: {r:.1f} images/s", flush=True)
+    for tag, r in dp_rows.items():
+        print(f"[{tag}] on {card}: {r:.1f} images/s", flush=True)
 
     head, bwd = rows[0], bwd_rows[0]  # the training step's 8 x 8 x 1024^2
     common = {"route": "cuda", "check": "pass", "shape": head["shape"],

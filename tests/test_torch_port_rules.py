@@ -58,6 +58,24 @@ def test_the_resnet_slice_modules_are_walked():
             "bigdl_tpu_torch.tools.conv_probe"} <= names
 
 
+def test_the_parallel_modules_are_walked_and_import_no_jax():
+    """The data-parallel package is among the modules the import check
+    walks, and none of its files imports jax or the JAX package."""
+    import pkgutil
+
+    import bigdl_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(bigdl_tpu_torch.__path__,
+                                                   "bigdl_tpu_torch.")}
+    want = {f"bigdl_tpu_torch.parallel.{m}" for m in (
+        "mesh", "grad_comm", "data_parallel", "hints", "launch")}
+    assert want <= names
+    pat = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|bigdl_tpu)"
+                     r"(?:\.|\s|$|,)", re.MULTILINE)
+    files = sorted((PORT / "parallel").rglob("*.py"))
+    assert len(files) == 6
+    assert not [f.name for f in files if pat.search(f.read_text())]
+
+
 def test_no_source_file_imports_jax_or_bigdl_tpu():
     pat = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|bigdl_tpu)"
                      r"(?:\.|\s|$|,)", re.MULTILINE)

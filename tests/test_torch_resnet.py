@@ -183,8 +183,16 @@ def test_batch_norm_matches_jax(case):
 
 
 def test_batch_norm_refuses_axis_name():
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        nn.BatchNormalization(4, axis_name="data")
+    """The data axis is taken (one process: local statistics); the axes of
+    later slices are refused by name."""
+    bn = nn.BatchNormalization(4, axis_name="data")
+    assert bn.axis_name == "data"
+    x = torch.randn(6, 4)
+    ref = nn.BatchNormalization(4)
+    _close(bn.train()(x).detach(), ref.train()(x).detach())
+    for axis in ("model", "seq"):
+        with pytest.raises(NotImplementedError, match="entry 13"):
+            nn.BatchNormalization(4, axis_name=axis)
 
 
 def test_absorb_bn_relu_matches_jax():

@@ -303,10 +303,19 @@ def test_optimizer_clipping_and_nan_guard(tree):
 
 
 def test_optimizer_refuses_later_slices():
-    """A distributed strategy comes with data parallelism and is refused;
-    checkpoints, resume and steps_per_dispatch are in the port now."""
-    with pytest.raises(NotImplementedError, match="comes with"):
+    """A strategy must be a DataParallel (one runs since data parallelism
+    is ported), and not with steps_per_dispatch > 1; checkpoints, resume
+    and steps_per_dispatch are in the port."""
+    from bigdl_tpu_torch.parallel import DataParallel
+    with pytest.raises(TypeError, match="must be a bigdl_tpu_torch.parallel"
+                                        ".DataParallel, got object"):
         Optimizer(_port_lm(), None, None, device="cpu", strategy=object())
+    with pytest.raises(ValueError, match="cannot be combined with a "
+                                         "distributed strategy"):
+        Optimizer(_port_lm(), None, None, device="cpu",
+                  strategy=DataParallel(), steps_per_dispatch=2)
+    assert Optimizer(_port_lm(), None, None, device="cpu",
+                     strategy=DataParallel()).strategy.world == 1
     opt = Optimizer(_port_lm(), BatchDataSet(np.zeros((2, 4)),
                                              np.zeros((2, 4)), 2),
                     lambda o, t: o.sum(), device="cpu", steps_per_dispatch=2)
@@ -429,15 +438,28 @@ def test_transformerlm_train_cli_on_cpu(tmp_path, capsys, caplog, extra):
 
 
 def test_transformerlm_cli_refuses_what_is_not_ported(tmp_path, capsys):
+    """--strategy dp is taken (one process exits naming torchrun, as the
+    JAX CLI names XLA_FLAGS; the deprecated --dataParallel is a no-op
+    there); tp and --elastic are refused by name, and so is a flag of a
+    feature the port does not have."""
     _corpus(tmp_path)
     base = ["train", "-f", str(tmp_path), "--platform", "cpu"]
-    for extra in (["--strategy", "dp"], ["--dataParallel"]):
-        with pytest.raises(SystemExit) as e:
-            lm_cli.main(base + extra)
-        assert e.value.code == 2
-        err = capsys.readouterr().err
-        assert f"unrecognized arguments: {' '.join(extra)}" in err
-        assert "ROADMAP.md" in err
+    small = ["--dModel", "16", "--numLayers", "1", "--numHeads", "2",
+             "--seqLength", "16", "-b", "4", "--maxEpoch", "1"]
+    for extra, msg in ((["--strategy", "dp"], "torchrun --nproc_per_node"),
+                       (["--strategy", "tp"], "entry 13"),
+                       (["--strategy", "dp", "--elastic", "hold"],
+                        "entry 12")):
+        with pytest.raises(SystemExit, match=msg):
+            lm_cli.main(base + small + extra)
+    assert lm_cli.main(base + small + ["--dataParallel"]).module is not None
+    capsys.readouterr()
+    with pytest.raises(SystemExit) as e:
+        lm_cli.main(base + ["--autotune"])
+    assert e.value.code == 2
+    err = capsys.readouterr().err
+    assert "unrecognized arguments: --autotune" in err
+    assert "ROADMAP.md" in err
     with pytest.raises(SystemExit):
         lm_cli.main(base + ["--optimMethod", "lbfgs"])
     assert "invalid choice: 'lbfgs'" in capsys.readouterr().err

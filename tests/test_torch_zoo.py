@@ -561,8 +561,8 @@ def test_lrn_window_at_an_even_size_is_the_jax_one():
 
 def test_every_zoo_name_is_exported_as_in_the_jax_package():
     """``bigdl_tpu_torch.nn`` exports each name ``bigdl_tpu.nn`` exports
-    from the files of the zoo and core's bases, but ``unfuse_bn_for_spmd``
-    (data parallelism, not ported yet)."""
+    from the files of the zoo and core's bases, ``unfuse_bn_for_spmd``
+    too since data parallelism is ported."""
     import bigdl_tpu.nn.activation as a
     import bigdl_tpu.nn.conv as c
     import bigdl_tpu.nn.criterion as cr
@@ -574,5 +574,5 @@ def test_every_zoo_name_is_exported_as_in_the_jax_package():
     for m in (a, c, cr, li, no, po, st):
         want |= set(m.__all__)
     missing = sorted(n for n in want if n not in nn.__all__)
-    assert missing == ["unfuse_bn_for_spmd"]
+    assert missing == []
     assert all(hasattr(nn, n) for n in nn.__all__)
