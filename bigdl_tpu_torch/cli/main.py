@@ -43,11 +43,6 @@ _COMMANDS = {
 }
 # commands whose CLI is not in the port yet -> what brings it
 _LATER = {
-    "rnn": "the recurrent layers and models/rnn.py (ROADMAP.md queue 1 "
-           "item 10)",
-    "autoencoder": "the remaining models (ROADMAP.md queue 1 item 11)",
-    "textclassification": "the remaining models with the recurrent "
-                          "layers (ROADMAP.md queue 1 items 10-11)",
     "explain": "obs/ and its profile attribution (ROADMAP.md queue 1 "
                "item 16)",
     "lint": "analysis/ (ROADMAP.md queue 1 item 18)",

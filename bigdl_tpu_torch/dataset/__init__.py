@@ -22,7 +22,10 @@ from bigdl_tpu_torch.dataset.recordfile import (RecordReader, RecordWriter,
                                                 write_image_shards)
 from bigdl_tpu_torch.dataset.streaming import (RecordImageDataSet,
                                                StreamingImageFolder)
-from bigdl_tpu_torch.dataset.text import Dictionary, pack_sequences, tokenize
+from bigdl_tpu_torch.dataset.text import (Dictionary, LabeledSentence,
+                                          LabeledSentenceToSample,
+                                          pack_sequences, pad_sequences,
+                                          sentences_to_ids, tokenize)
 from bigdl_tpu_torch.dataset.transformer import (ChainedTransformer,
                                                  FnTransformer, Transformer)
 
@@ -37,5 +40,7 @@ __all__ = ["image", "native", "TRAIN_MEAN", "TRAIN_STD", "load_cifar10",
            "StreamingSampleSource", "wrap_pipeline", "PrefetchDataSet",
            "RecordReader", "RecordWriter", "list_shards",
            "write_image_shards", "RecordImageDataSet",
-           "StreamingImageFolder", "Dictionary", "pack_sequences",
-           "tokenize", "ChainedTransformer", "FnTransformer", "Transformer"]
+           "StreamingImageFolder", "Dictionary", "LabeledSentence",
+           "LabeledSentenceToSample", "pack_sequences", "pad_sequences",
+           "sentences_to_ids", "tokenize", "ChainedTransformer",
+           "FnTransformer", "Transformer"]

@@ -1,6 +1,8 @@
-"""Text pipeline pieces the LM trains with (the port's own copies of
-``tokenize``, ``Dictionary`` and ``pack_sequences`` from
-``bigdl_tpu/dataset/text.py``; reference models/rnn/Utils.scala)."""
+"""The text pipeline (the port's own copy of ``bigdl_tpu/dataset/text.py``;
+reference dataset/text/: LabeledSentence, LabeledSentenceToSample;
+models/rnn/Utils.scala WordTokenizer and dictionary): tokenization, a
+dictionary capped by frequency, fixed-length padding and packing, and the
+sentence-to-sample stage."""
 
 from __future__ import annotations
 
@@ -10,7 +12,11 @@ from typing import Iterable, Optional, Sequence
 
 import numpy as np
 
-__all__ = ["tokenize", "Dictionary", "pack_sequences", "PAD", "UNK"]
+from bigdl_tpu_torch.dataset.transformer import Transformer
+
+__all__ = ["tokenize", "Dictionary", "pad_sequences", "pack_sequences",
+           "LabeledSentence", "sentences_to_ids", "LabeledSentenceToSample",
+           "PAD", "UNK"]
 
 PAD, UNK = "<pad>", "<unk>"
 _WORD_RE = re.compile(r"[A-Za-z']+|[.,!?;]")
@@ -19,6 +25,16 @@ _WORD_RE = re.compile(r"[A-Za-z']+|[.,!?;]")
 def tokenize(text: str) -> list:
     """Lower-cased words and the punctuation marks . , ! ? ;"""
     return _WORD_RE.findall(text.lower())
+
+
+class LabeledSentence:
+    """A (tokens, label) pair (reference dataset/text/LabeledSentence)."""
+
+    __slots__ = ("data", "label")
+
+    def __init__(self, data: Sequence, label: int):
+        self.data = list(data)
+        self.label = label
 
 
 class Dictionary:
@@ -43,6 +59,18 @@ class Dictionary:
 
     def ids(self, tokens: Sequence[str]) -> list:
         return [self.lookup(t) for t in tokens]
+
+
+def pad_sequences(seqs: Sequence[Sequence[int]], max_len: int,
+                  pad_id: int = 0, truncate_from_end: bool = True):
+    """Fixed-length (N, max_len) int32 rows, ``pad_id`` after each
+    sequence; a longer one keeps its first ``max_len`` ids (its last with
+    ``truncate_from_end=False``)."""
+    out = np.full((len(seqs), max_len), pad_id, np.int32)
+    for i, s in enumerate(seqs):
+        s = list(s)[:max_len] if truncate_from_end else list(s)[-max_len:]
+        out[i, :len(s)] = s
+    return out
 
 
 def pack_sequences(seqs: Sequence[Sequence[int]], max_len: int,
@@ -72,3 +100,28 @@ def pack_sequences(seqs: Sequence[Sequence[int]], max_len: int,
         tokens[i, :len(r)] = r
         segments[i, :len(g)] = g
     return tokens, segments
+
+
+def sentences_to_ids(sentences: Sequence[LabeledSentence],
+                     dictionary: Dictionary, max_len: int):
+    """-> (ids (N, max_len) int32, labels (N,) int32)"""
+    ids = pad_sequences([dictionary.ids(s.data) for s in sentences], max_len)
+    labels = np.asarray([s.label for s in sentences], np.int32)
+    return ids, labels
+
+
+class LabeledSentenceToSample(Transformer):
+    """Transformer stage: LabeledSentence -> (ids[max_len] int32, label)
+    sample pairs, padded to a fixed length (reference
+    dataset/text/LabeledSentenceToSample.scala pads to the batch's
+    longest). Composes with ``>>`` like any Transformer."""
+
+    def __init__(self, dictionary: Dictionary, max_len: int):
+        self.dictionary = dictionary
+        self.max_len = max_len
+
+    def __call__(self, it):
+        for s in it:
+            ids = pad_sequences([self.dictionary.ids(s.data)],
+                                self.max_len)[0]
+            yield ids, np.int32(s.label)

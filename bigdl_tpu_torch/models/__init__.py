@@ -1,4 +1,5 @@
 from bigdl_tpu_torch.models.alexnet import alexnet
+from bigdl_tpu_torch.models.autoencoder import autoencoder
 from bigdl_tpu_torch.models.inception import (inception_module, inception_v1,
                                               inception_v1_no_aux,
                                               inception_v2)
@@ -6,6 +7,8 @@ from bigdl_tpu_torch.models.lenet import lenet5
 from bigdl_tpu_torch.models.resnet import (SpaceToDepthStem, basic_block,
                                            bottleneck_block, resnet, resnet50,
                                            resnet_cifar)
+from bigdl_tpu_torch.models.rnn import (birnn_classifier, lstm_classifier,
+                                        simple_rnn, text_cnn)
 from bigdl_tpu_torch.models.transformer_lm import (PackedNLLCriterion,
                                                   TransformerLM,
                                                   packed_lm_targets,
@@ -13,8 +16,9 @@ from bigdl_tpu_torch.models.transformer_lm import (PackedNLLCriterion,
 from bigdl_tpu_torch.models.vgg import vgg16, vgg19, vgg_for_cifar10
 
 __all__ = ["PackedNLLCriterion", "SpaceToDepthStem", "TransformerLM",
-           "alexnet", "basic_block",
+           "alexnet", "autoencoder", "basic_block", "birnn_classifier",
            "bottleneck_block", "inception_module", "inception_v1",
            "inception_v1_no_aux", "inception_v2", "lenet5",
-           "packed_lm_targets", "resnet", "resnet50", "resnet_cifar",
-           "transformer_lm", "vgg16", "vgg19", "vgg_for_cifar10"]
+           "lstm_classifier", "packed_lm_targets", "resnet", "resnet50",
+           "resnet_cifar", "simple_rnn", "text_cnn", "transformer_lm",
+           "vgg16", "vgg19", "vgg_for_cifar10"]

@@ -1,3 +1,4 @@
+from bigdl_tpu_torch.optim.lbfgs import LBFGS, line_search_wolfe
 from bigdl_tpu_torch.optim.method import (EMA, LAMB, LARS, SGD, Adagrad, Adam,
                                           AdamW, OptimMethod, RMSprop,
                                           clip_by_global_norm, clip_by_value)
@@ -16,9 +17,10 @@ from bigdl_tpu_torch.optim.validator import Validator
 
 __all__ = ["AccuracyResult", "Adagrad", "Adam", "AdamW", "CosineAnnealing",
            "Default", "EMA", "EpochDecay", "EpochSchedule", "EpochStep",
-           "LAMB", "LARS", "LearningRateSchedule", "Loss", "LossResult",
+           "LAMB", "LBFGS", "LARS", "LearningRateSchedule", "Loss",
+           "LossResult",
            "Metrics", "OptimMethod", "Optimizer", "Perplexity",
            "PerplexityResult", "Poly", "RMSprop", "Regime", "SGD", "Step",
            "Top1Accuracy", "Top5Accuracy", "TrainedModel", "Trigger",
            "ValidationMethod", "Validator", "Warmup", "clip_by_global_norm",
-           "clip_by_value"]
+           "clip_by_value", "line_search_wolfe"]

@@ -29,6 +29,7 @@ the step eagerly in its place."""
 
 from __future__ import annotations
 
+import time
 from typing import Callable, List, Sequence
 
 import numpy as np
@@ -80,6 +81,7 @@ class StepGraph:
         self._graph = None
         self._loss = None
         self.launches: dict = {}
+        self.capture_s = self.instantiate_s = None
 
     def _batch(self, i: int):
         x, *ys = (v[i] for v in self._views[:-1])
@@ -122,16 +124,23 @@ class StepGraph:
     def capture(self) -> None:
         """Capture the ``steps`` steps. The kernel wrappers count their
         launches while they are captured; the capture launches nothing, so
-        those counts are taken back and credited at every replay."""
+        those counts are taken back and credited at every replay. The host
+        seconds of recording the steps and of instantiating the graph (the
+        end of the capture) are kept in ``capture_s`` and
+        ``instantiate_s``."""
         from bigdl_tpu_torch import ops
 
         before = ops.kernel_launches()
         graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
         with torch.cuda.graph(graph, stream=self._stream,
                               capture_error_mode="thread_local"):
             for i in range(self.steps):
                 x, y = self._batch(i)
                 loss = self._step(x, y, self._views[-1][i])
+            t1 = time.perf_counter()
+        self.capture_s = t1 - t0
+        self.instantiate_s = time.perf_counter() - t1
         after = ops.kernel_launches()
         self.launches = {k: after[k] - before[k] for k in after
                          if after[k] != before[k]}
