@@ -5,6 +5,8 @@
     python -m bigdl_tpu_torch.cli.perf [-m inception_v1] [-b 32]
     python -m bigdl_tpu_torch.cli.perf -m resnet50_fba -b 128 --dataType random
     python -m bigdl_tpu_torch.cli.perf -m transformer_lm_1k_hd128 -b 8
+    python -m bigdl_tpu_torch.cli.perf -m transformer_lm_16k -b 1
+    python -m bigdl_tpu_torch.cli.perf -m vit_b16 -b 64 --innerSteps 4
     python -m bigdl_tpu_torch.cli.perf -m resnet20_cifar --timeToAcc 0.9 \\
         --imageSize 32 [--ttaHard] [--valEvery N]
 
@@ -21,8 +23,11 @@ makes each iteration K steps replayed as one CUDA graph, the counterpart
 of the JAX harness's K-step ``fori_loop`` on the resident batch; the
 rates are over iterations x K steps. bf16 activations unless ``--f32``
 (images are cast to bf16, the parameters stay f32); the loss is taken on
-the f32 output. The 16k/32k LM rows wait for remat at those lengths to
-be measured.
+the f32 output. The long-context rows carry their remat
+(``transformer_lm_16k`` "dots", ``_32k`` "full") unless ``--remat``
+names another; the ViT rows (``vit_b16``, ``vit_s16``: 224 x 224 x 3,
+1000 classes) and every LM row run the flash kernels, where the JAX
+harness takes them on its TPU only.
 
 MFU: ``mfu`` = the step's analytic FLOPs (``utils/flops.py``: matmul and
 conv FLOPs of one forward, loss and backward, counted on fake tensors
@@ -118,6 +123,14 @@ LM_CONFIGS = {
     "transformer_lm_1k_hd128": dict(d_model=1024, num_layers=12,
                                     num_heads=8, max_len=1024,
                                     pos_encoding="rope", num_kv_heads=2),
+    # long context: the flash kernels at 16k and 32k tokens, remat keeping
+    # the activations of 12 layers inside the card
+    "transformer_lm_16k": dict(d_model=1024, num_layers=12, num_heads=8,
+                               max_len=16384, pos_encoding="rope",
+                               num_kv_heads=2, remat="dots"),
+    "transformer_lm_32k": dict(d_model=1024, num_layers=12, num_heads=8,
+                               max_len=32768, pos_encoding="rope",
+                               num_kv_heads=2, remat="full"),
 }
 
 # name -> (builder kwargs, input (H, W, C), classes); "arch" names a
@@ -140,7 +153,21 @@ IMAGE_CONFIGS = {
     # 227 x 227, the Caffe geometry its Reshape([256*6*6]) fixes (the JAX
     # harness feeds it 224 x 224, which cannot reshape)
     "alexnet": (dict(arch="alexnet"), (227, 227, 3), 1000),
+    # 196 patch tokens of 16 x 16, heads of 128, the flash kernels
+    "vit_b16": (dict(arch="vit_b16", attn_impl="flash"), (224, 224, 3),
+                1000),
+    "vit_s16": (dict(arch="vit_s16", attn_impl="flash"), (224, 224, 3),
+                1000),
 }
+
+
+def encoder_of(model):
+    """The model's ``TransformerEncoder`` (an LM's or a ViT's), else None:
+    the part that takes ``remat`` and runs the flash kernels."""
+    from bigdl_tpu_torch.nn import TransformerEncoder
+
+    enc = getattr(model, "encoder", None)
+    return enc if isinstance(enc, TransformerEncoder) else None
 
 
 def build_model(name: str, seq_len: Optional[int] = None,
@@ -148,8 +175,8 @@ def build_model(name: str, seq_len: Optional[int] = None,
                 class_num: Optional[int] = None, **kw):
     """(model, input shape) for a model of the zoo, on the CPU; weights
     are random from ``generator`` (default seeded 0). An image row has
-    ``class_num`` classes (default the row's). For an LM, ``kw`` (e.g.
-    ``remat``, ``num_layers``) overrides the row's config."""
+    ``class_num`` classes (default the row's). For an LM or a ViT row,
+    ``kw`` (e.g. ``remat``, ``num_layers``) overrides the row's config."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     if name in IMAGE_CONFIGS:
@@ -158,8 +185,8 @@ def build_model(name: str, seq_len: Optional[int] = None,
         classes = class_num or classes
         stat_sample = cfg.pop("bn_stat_sample", None)
         if "arch" in cfg:
-            model = getattr(models, cfg.pop("arch"))(classes,
-                                                     generator=generator)
+            model = getattr(models, cfg.pop("arch"))(
+                classes, generator=generator, **dict(cfg, **kw))
         elif cfg.pop("cifar", False):
             model = models.resnet_cifar(cfg.pop("depth"), classes,
                                         generator=generator, **cfg)
@@ -261,8 +288,10 @@ def train_step(model_name: str, batch: int, dtype=torch.bfloat16,
 
     device = resolve_device(device)
     is_lm = model_name in LM_CONFIGS
-    model, in_shape = build_model(model_name, seq_len=seq_len,
-                                  **({"remat": remat} if is_lm else {}))
+    model, in_shape = build_model(model_name, seq_len=seq_len)
+    enc = encoder_of(model)
+    if remat and enc is not None:  # else the row's own
+        enc.remat = remat
     apply_fused_bn(model, fused_bn)
     rng = np.random.RandomState(0)
     if is_lm:
@@ -498,7 +527,8 @@ def run(model_name: str, batch: int = 32, iterations: int = 10,
                "step_gflops_by_kind": {k: round(v / 1e9, 3)
                                        for k, v in kinds.items()},
                "step_gflops_hlo": None,
-               "remat": remat or None, "fused_bn": bn_fused_mode(model),
+               "remat": getattr(encoder_of(model), "remat", None) or None,
+               "fused_bn": bn_fused_mode(model),
                "data_type": None if tokens is not None else data_type,
                "data": data_source, "pipeline": prov,
                "warmup": warmup, "first_loss": losses[0],

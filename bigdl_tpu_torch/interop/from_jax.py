@@ -5,7 +5,9 @@ A JAX param tree is nested dicts of arrays (``{"encoder": {"0": {"mha":
 path (``encoder.0.mha.wq``). Linear and attention weights keep JAX's (in,
 out) orientation. A module whose leaves are laid out otherwise converts
 its own through a ``from_jax_leaf(key, tensor)`` static method (the
-convolution's HWIO kernel becomes torch's (out, in, kh, kw))."""
+convolution's HWIO kernel becomes torch's (out, in, kh, kw)). Under a
+module marked ``jax_stacked`` (an MoE's experts, stacked on a leading
+[E, ...] axis) the method converts each expert's slice."""
 
 from __future__ import annotations
 
@@ -40,10 +42,16 @@ def tensors_from_jax(model: torch.nn.Module, params, state=None) -> dict:
     if state is not None:
         tensors.update(params_from_jax(state))
     owners = dict(model.named_modules())
+    stacked = [n for n, m in owners.items() if getattr(m, "jax_stacked",
+                                                      False)]
     for name, t in tensors.items():
         owner, _, key = name.rpartition(".")
         convert = getattr(owners.get(owner), "from_jax_leaf", None)
-        if convert is not None:
+        if convert is None:
+            continue
+        if any(owner == n or owner.startswith(n + ".") for n in stacked):
+            tensors[name] = torch.stack([convert(key, x) for x in t])
+        else:
             tensors[name] = convert(key, t)
     return tensors
 

@@ -14,11 +14,12 @@ from bigdl_tpu_torch.models.transformer_lm import (PackedNLLCriterion,
                                                   packed_lm_targets,
                                                   transformer_lm)
 from bigdl_tpu_torch.models.vgg import vgg16, vgg19, vgg_for_cifar10
+from bigdl_tpu_torch.models.vit import ViT, vit, vit_b16, vit_s16
 
-__all__ = ["PackedNLLCriterion", "SpaceToDepthStem", "TransformerLM",
+__all__ = ["PackedNLLCriterion", "SpaceToDepthStem", "TransformerLM", "ViT",
            "alexnet", "autoencoder", "basic_block", "birnn_classifier",
            "bottleneck_block", "inception_module", "inception_v1",
            "inception_v1_no_aux", "inception_v2", "lenet5",
            "lstm_classifier", "packed_lm_targets", "resnet", "resnet50",
            "resnet_cifar", "simple_rnn", "text_cnn", "transformer_lm",
-           "vgg16", "vgg19", "vgg_for_cifar10"]
+           "vgg16", "vgg19", "vgg_for_cifar10", "vit", "vit_b16", "vit_s16"]

@@ -109,8 +109,9 @@ class MultiHeadAttention(nn.Module):
     """Multi-head self- or cross-attention with grouped-query K/V
     (``num_kv_heads``) and optional RoPE. ``attn_impl``: None for
     :func:`dot_product_attention`, ``"flash"`` for the flash kernel
-    (``bigdl_tpu_torch.ops.flash_attention``), or a callable with the
-    same signature. Integer masks are packed-row segment ids: they go to
+    (``bigdl_tpu_torch.ops.flash_attention``), ``"blockwise"`` for
+    ``bigdl_tpu_torch.ops.blockwise_attention`` (O(seq) memory, plain
+    PyTorch), or a callable with the same signature. Integer masks are packed-row segment ids: they go to
     ``attn_fn`` as ``segments=`` when it takes them, and as the
     block-diagonal :func:`make_segment_mask` otherwise."""
 
@@ -141,6 +142,9 @@ class MultiHeadAttention(nn.Module):
         if attn_impl == "flash":
             from bigdl_tpu_torch.ops import flash_attention
             attn_impl = flash_attention
+        elif attn_impl == "blockwise":
+            from bigdl_tpu_torch.ops import blockwise_attention
+            attn_impl = blockwise_attention
         self.attn_fn = attn_impl or dot_product_attention
         try:
             self._attn_takes_segments = "segments" in inspect.signature(
@@ -418,12 +422,20 @@ class TransformerEncoder(nn.ModuleList):
                                     rope=rope, rope_max_len=rope_max_len,
                                     generator=generator)
             for _ in range(num_layers)])
+        self.remat = remat
+
+    @property
+    def remat(self):
+        return self._remat
+
+    @remat.setter
+    def remat(self, remat):
         if remat is True:
             remat = "full"
         if remat and remat not in self.REMAT:
             raise ValueError(f"remat must be False/True/'full'/'dots', "
                              f"got {remat!r}")
-        self.remat = remat or False
+        self._remat = remat or False
 
     def forward(self, x, seed=None):
         from torch.utils.checkpoint import checkpoint

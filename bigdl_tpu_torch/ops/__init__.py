@@ -7,19 +7,22 @@ replay launches what its capture recorded, and the code that replays it
 credits those with ``add_kernel_launches`` (the capture itself launched
 nothing, and takes its counts back the same way)."""
 
-from bigdl_tpu_torch.ops.attention_kernel import (flash_attention,
+from bigdl_tpu_torch.ops.attention_kernel import (blockwise_attention,
+                                                   flash_attention,
                                                    flash_attention_reference,
                                                    flash_bwd,
                                                    flash_bwd_reference,
                                                    flash_dkv, flash_dq,
                                                    flash_fwd,
+                                                   online_softmax_update,
                                                    serving_prefill_buckets)
 from bigdl_tpu_torch.ops.bn_kernel import (bn_bwd_fused, bn_bwd_stats,
                                            bn_fwd_apply, bn_stats,
                                            fused_bn_apply_train,
                                            fused_bn_train)
 
-__all__ = ["flash_attention", "flash_attention_reference", "flash_fwd",
+__all__ = ["flash_attention", "blockwise_attention", "online_softmax_update",
+           "flash_attention_reference", "flash_fwd",
            "flash_bwd", "flash_bwd_reference", "flash_dq", "flash_dkv",
            "serving_prefill_buckets", "bn_stats", "bn_bwd_stats",
            "bn_fwd_apply", "bn_bwd_fused", "fused_bn_train",

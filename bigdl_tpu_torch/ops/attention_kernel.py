@@ -9,8 +9,11 @@ with :func:`flash_bwd` running the pair), the plain PyTorch version of
 each (:func:`flash_attention_reference`, :func:`flash_dq_reference`,
 :func:`flash_dkv_reference`, :func:`flash_bwd_reference`), the
 ``torch.autograd.Function`` that ties forward and backward together (the
-JAX package's ``custom_vjp``), the routing (:func:`flash_attention`) and
-the serving prompt-length ladder.
+JAX package's ``custom_vjp``), the routing (:func:`flash_attention`), the
+serving prompt-length ladder, and :func:`blockwise_attention`: the JAX
+package's O(seq)-memory attention in plain PyTorch (a loop over K/V
+blocks with an online softmax, each block checkpointed), which takes the
+key-padding masks the kernels do not.
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises. The JAX package's ``_LSE_LANES``
@@ -32,6 +35,7 @@ from bigdl_tpu_torch.utils import flops as _flops
 __all__ = ["flash_attention", "flash_fwd", "flash_bwd", "flash_dq",
            "flash_dkv", "flash_attention_reference", "flash_bwd_reference",
            "flash_dq_reference", "flash_dkv_reference",
+           "blockwise_attention", "online_softmax_update", "flash_block_k",
            "serving_prefill_buckets", "live_tile_pairs", "SUPPORTED_HEAD_DIMS",
            "TILE"]
 
@@ -399,6 +403,130 @@ def _declared_flops(q, k, causal: bool, which: int) -> float:
     return _flops.flash_flops(b, h, s_q, k.shape[-2], d, causal)[which]
 
 
+# ------------------------------------------------------- blockwise path
+def online_softmax_update(q, kb, vb, m, l, acc, scale, valid=None):
+    """One block step of the streaming softmax: fold the K/V block (kb,
+    vb) into the running (max m, normaliser l, accumulator acc) of the
+    queries q. ``valid`` is an optional bool mask broadcastable to (...,
+    s_q, bk). m, l and acc are f32; the products take the operands'
+    values in f32 (a bf16 product accumulated in f32), and P is rounded
+    to V's dtype before P @ V, as in the JAX package."""
+    logits = torch.matmul(q.float(), kb.float().transpose(-1, -2)) * scale
+    if valid is not None:
+        logits = logits.masked_fill(~valid, _NEG_INF)
+    new_m = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
+    p = torch.exp(logits - new_m)
+    if valid is not None:
+        p = p.masked_fill(~valid, 0.0)
+    corr = torch.exp(m - new_m)
+    l = l * corr + p.sum(dim=-1, keepdim=True)
+    acc = acc * corr + torch.matmul(p.to(vb.dtype).float(), vb.float())
+    return new_m, l, acc
+
+
+def _as_key_padding(mask, b: int, s_k: int):
+    """A (b, s_k) bool key-padding mask from a (b, s_k) or (b|1, 1, 1,
+    s_k) one; None for anything richer."""
+    if mask is None:
+        return None
+    if mask.dim() == 2 and tuple(mask.shape) == (b, s_k):
+        return mask
+    if (mask.dim() == 4 and mask.shape[-1] == s_k and mask.shape[1] == 1
+            and mask.shape[2] == 1 and mask.shape[0] in (1, b)):
+        return mask[:, 0, 0, :].expand(b, s_k)
+    return None
+
+
+def _block_update(q, kj, vj, m, l, acc, j: int, bk: int, causal: bool,
+                  q_pos, keys, seg_q, scale):
+    """Block ``j``'s online-softmax step with its validity tile (the
+    bottom-right causal triangle, this block's key-padding slice ``keys``
+    (b, bk), or the segment equality of ``seg_q`` against this block's
+    ids ``keys``), built here so a recompute rebuilds it."""
+    valid = None
+    if causal:
+        k_pos = j * bk + torch.arange(bk, device=q.device)
+        valid = q_pos[:, None] >= k_pos[None, :]
+    if keys is not None:
+        mj = (keys[:, None, None, :] if seg_q is None else
+              seg_q[:, None, :, None] == keys[:, None, None, :])
+        valid = mj if valid is None else valid & mj
+    return online_softmax_update(q, kj, vj, m, l, acc, scale, valid)
+
+
+def blockwise_attention(q, k, v, *, causal: bool = False,
+                        mask: Optional[torch.Tensor] = None,
+                        segments: Optional[torch.Tensor] = None,
+                        block_k: int = 128):
+    """O(seq)-memory attention in plain PyTorch, the JAX package's
+    ``blockwise_attention``: a loop over K/V blocks of ``block_k`` keys
+    with an online softmax, each block's update under a non-reentrant
+    ``torch.utils.checkpoint`` (the JAX ``jax.checkpoint`` on the scan
+    body), so the backward recomputes each block's (s_q, block_k) scores
+    instead of keeping them. q, k, v: (b, h, s, d).
+
+    Key-padding masks ((b, s_k), or (b|1, 1, 1, s_k), bool, True =
+    attend) and packed-row ``segments`` ((b, s) int ids, self-attention
+    shapes only; id-0 rows come out as 0) tile along the loop; a richer
+    mask, or ``s_k`` not a multiple of the block, takes the dense path.
+    The causal mask is bottom-right aligned (decode-style s_q < s_k)."""
+    s_k, s_q = k.shape[-2], q.shape[-2]
+    bk = min(block_k, s_k)
+    if segments is not None and mask is not None:
+        raise ValueError("segments and mask are mutually exclusive")
+    if segments is not None and s_q != s_k:
+        raise ValueError(f"segments requires self-attention shapes "
+                         f"(s_q={s_q} != s_k={s_k})")
+    kv_mask = _as_key_padding(mask, q.shape[0], s_k)
+    if (mask is not None and kv_mask is None) or s_k % bk:
+        if segments is not None:
+            mask = _dense.make_segment_mask(segments)
+        return _dense.dot_product_attention(q, k, v, causal=causal,
+                                            mask=mask)
+    from torch.utils.checkpoint import checkpoint
+
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    q_pos = (s_k - s_q) + torch.arange(s_q, device=q.device)
+    seg_q = None if segments is None else segments.to(torch.int32)
+    keys_all = kv_mask if kv_mask is not None else seg_q
+    m = torch.full(q.shape[:-1] + (1,), _NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros(q.shape[:-1] + (1,), dtype=torch.float32,
+                    device=q.device)
+    acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    for j in range(s_k // bk):
+        blk = slice(j * bk, (j + 1) * bk)
+        keys = None if keys_all is None else keys_all[:, blk]
+        args = (q, k[..., blk, :], v[..., blk, :], m, l, acc, j, bk,
+                causal, q_pos, keys, seg_q, scale)
+        if remat:
+            # nothing here draws noise: no RNG state is saved (reading it
+            # breaks a CUDA graph capture)
+            m, l, acc = checkpoint(_block_update, *args, use_reentrant=False,
+                                   preserve_rng_state=False)
+        else:
+            m, l, acc = _block_update(*args)
+    out = (acc / l.clamp_min(1e-30)).to(q.dtype)
+    if segments is not None:
+        # id-0 rows stayed live in the loop (a finite backward); zero them
+        # so this path agrees with the dense fallback
+        out = torch.where((segments != 0)[:, None, :, None], out,
+                          torch.zeros((), dtype=out.dtype, device=out.device))
+    return out
+
+
+def flash_block_k(s_k: int) -> int:
+    """The key block :func:`flash_attention` hands
+    :func:`blockwise_attention`: the JAX package's untuned rule (512
+    clamped to ``s_k``: the largest of 512/256/128 that divides it, the
+    whole of a shorter ``s_k``, else 512, which then takes the dense
+    path). The JAX package asks its autotuner first; the port has none
+    yet."""
+    return _flops.clamp_block(_flops.DEFAULT_BLOCK, s_k)
+
+
 def flash_attention(q, k, v, *, causal: bool = False,
                     mask: Optional[torch.Tensor] = None,
                     segments: Optional[torch.Tensor] = None):
@@ -411,8 +539,10 @@ def flash_attention(q, k, v, *, causal: bool = False,
       the backward finite). With s_q != s_k they take the dense path
       through :func:`~bigdl_tpu_torch.nn.attention.make_segment_mask`.
     * no mask goes to the kernels;
-    * key-padding and richer masks take the plain dense path (the JAX
-      package keeps them outside its kernels)."""
+    * a key-padding mask ((b, s_k) or (b|1, 1, 1, s_k) bool) goes to
+      :func:`blockwise_attention` with the key block of
+      :func:`flash_block_k`; richer masks take the plain dense path (the
+      JAX package keeps both outside its kernels)."""
     if segments is not None:
         if mask is not None:
             raise ValueError("segments and mask are mutually exclusive")
@@ -425,6 +555,9 @@ def flash_attention(q, k, v, *, causal: bool = False,
         return torch.where(live, out, torch.zeros((), dtype=out.dtype,
                                                   device=out.device))
     if mask is not None:
+        if _as_key_padding(mask, q.shape[0], k.shape[-2]) is not None:
+            return blockwise_attention(q, k, v, causal=causal, mask=mask,
+                                       block_k=flash_block_k(k.shape[-2]))
         return _dense.dot_product_attention(q, k, v, causal=causal,
                                             mask=mask)
     return FlashAttention.apply(q, k, v, causal, None)

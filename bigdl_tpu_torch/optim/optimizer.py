@@ -11,6 +11,12 @@ L``, the epoch line, ``<method> is <result>`` after each validation,
 ``Checkpoint written at iteration N`` and ``Training finished after N
 iterations in Xs``.
 
+Auxiliary losses: the loss of a step is the criterion's plus
+``aux_loss_weight`` (0.01, Switch's) times the sum of the auxiliary
+losses the forward's :class:`~bigdl_tpu_torch.nn.MoE` layers hand over
+(``nn.moe.collect_aux_losses``), each a tensor of the forward's graph, so
+a graphed step computes its own.
+
 ``steps_per_dispatch`` = K > 1 groups K same-shape batches into one
 dispatch, as the JAX package scans K steps in one program. On CUDA the
 first full group runs eagerly on a stream of its own (real steps, which
@@ -59,6 +65,7 @@ import torch
 from bigdl_tpu_torch.core.module import (resolve_device,
                                          takes_seed as _takes_seed)
 from bigdl_tpu_torch.dataset.pipeline.staging import DeviceBatch
+from bigdl_tpu_torch.nn.moe import collect_aux_losses
 from bigdl_tpu_torch.nn.structural import fold_seed
 from bigdl_tpu_torch.optim.method import (SGD, OptimMethod,
                                           clip_by_global_norm, clip_by_value)
@@ -151,7 +158,8 @@ class Optimizer:
                  end_when: Optional[Trigger] = None, strategy=None,
                  seed: int = 42, log_every: int = 1, compute_dtype=None,
                  accum_steps: int = 1, nan_check: bool = True,
-                 steps_per_dispatch: int = 1, device=None):
+                 aux_loss_weight: float = 0.01, steps_per_dispatch: int = 1,
+                 device=None):
         self.steps_per_dispatch = int(steps_per_dispatch)
         if self.steps_per_dispatch < 1:
             raise ValueError(f"steps_per_dispatch must be >= 1, got "
@@ -183,6 +191,9 @@ class Optimizer:
         # the NaN guard reads the loss at each log point (a sync the log
         # line pays for anyway), outside any captured graph
         self.nan_check = nan_check
+        # each step adds this weight times the sum of the auxiliary losses
+        # the forward's MoE layers hand over (Switch's 0.01); 0 disables
+        self.aux_loss_weight = aux_loss_weight
         self.log_every = max(1, log_every)
         self.metrics = Metrics()
         self._clip_norm = None
@@ -366,10 +377,14 @@ class Optimizer:
         dtype = self.compute_dtype
         if dtype is not None and x.is_floating_point():
             x = x.to(dtype)
-        out = self.model(x, seed=seed) if takes_seed else self.model(x)
+        with collect_aux_losses() as aux:
+            out = self.model(x, seed=seed) if takes_seed else self.model(x)
         if dtype is not None:
             out = out.float()
-        return self.criterion(out, y)
+        loss = self.criterion(out, y)
+        if self.aux_loss_weight and aux:
+            loss = loss + self.aux_loss_weight * sum(a.float() for a in aux)
+        return loss
 
     def _step(self, params: dict, opt_state: dict, x, y, seed,
               takes_seed: bool):

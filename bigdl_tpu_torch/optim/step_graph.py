@@ -29,6 +29,7 @@ the step eagerly in its place."""
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, List, Sequence
 
@@ -132,13 +133,23 @@ class StepGraph:
 
         before = ops.kernel_launches()
         graph = torch.cuda.CUDAGraph()
+        # dead reference cycles (an earlier loop's graph among them) are
+        # freed now, not by a collection during the capture: destroying a
+        # graph while a stream captures invalidates the capture
+        gc.collect()
+        gc_on = gc.isenabled()
+        gc.disable()
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph, stream=self._stream,
-                              capture_error_mode="thread_local"):
-            for i in range(self.steps):
-                x, y = self._batch(i)
-                loss = self._step(x, y, self._views[-1][i])
-            t1 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph, stream=self._stream,
+                                  capture_error_mode="thread_local"):
+                for i in range(self.steps):
+                    x, y = self._batch(i)
+                    loss = self._step(x, y, self._views[-1][i])
+                t1 = time.perf_counter()
+        finally:
+            if gc_on:
+                gc.enable()
         self.capture_s = t1 - t0
         self.instantiate_s = time.perf_counter() - t1
         after = ops.kernel_launches()

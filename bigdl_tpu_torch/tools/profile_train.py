@@ -12,8 +12,8 @@ of ``cli.perf``, then:
   ``torch.cuda.synchronize()``;
 * traces 3 dispatches with ``torch.profiler`` and prints the device busy time
   (sum of kernel times) over the traced wall time, the kernel count per
-  step, the port's kernels' share of the device time (flash for an LM,
-  BN for a ResNet), the convolutions' (``aten::convolution`` and its
+  step, the port's kernels' share of the device time (flash for an LM
+  or a ViT, BN for a ResNet), the convolutions' (``aten::convolution`` and its
   backward, with the kernels under them) and the copies' and casts'
   (``aten::copy_``), and the top operators by device time and by host
   time.
@@ -59,7 +59,7 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
-    from bigdl_tpu_torch.cli.perf import train_step
+    from bigdl_tpu_torch.cli.perf import encoder_of, train_step
     from bigdl_tpu_torch.nn import bn_fused_mode
 
     is_lm = args.model in LM_CONFIGS
@@ -85,7 +85,9 @@ def main(argv=None) -> int:
             f"{batch / step_ms * 1e3:.1f} images/s")
     mode = (f"graph of {args.innerSteps} step(s)" if args.innerSteps
             else "eager")
-    print(f"{args.model} bf16 batch {batch} remat={args.remat} fused_bn="
+    enc = encoder_of(model)
+    remat = enc.remat if enc is not None else False
+    print(f"{args.model} bf16 batch {batch} remat={remat} fused_bn="
           f"{bn_fused_mode(model)} {mode}: step {step_ms:.2f} ms (host "
           f"clock, synchronized), {rate}", flush=True)
 
@@ -103,7 +105,7 @@ def main(argv=None) -> int:
            if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in dev)
     n_kernels = sum(e.count for e in dev)
-    marks = ("flash_",) if is_lm else ("bn_coop_kernel",)
+    marks = ("flash_",) if enc is not None else ("bn_coop_kernel",)
     port = [e for e in dev if any(m in e.key for m in marks)]
     port_ms = sum(e.self_device_time_total for e in port) / 1e3 / steps
     port_n = sum(e.count for e in port)

@@ -33,7 +33,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 __all__ = ["step_flops_by_kind", "fn_flops_by_kind", "flash_flops",
-           "declared", "conv_unit_flops", "live_block_pairs"]
+           "declared", "conv_unit_flops", "live_block_pairs",
+           "clamp_block"]
 
 _aten = torch.ops.aten
 _ACTIVE: list = []  # the counters of the runs in progress, innermost last
@@ -137,7 +138,7 @@ def live_block_pairs(sq: int, sk: int, bq: int, bk: int, causal: bool,
     return total
 
 
-def _clamp_block(block: int, s: int) -> int:
+def clamp_block(block: int, s: int) -> int:
     """The JAX package's ``_clamp_block``: the largest standard tile <=
     ``block`` that divides ``s`` (falling through 256/128), else
     min(block, s)."""
@@ -157,8 +158,8 @@ def flash_flops(b: int, h: int, s_q: int, s_k: int, d: int, causal: bool,
     backward (the backward's recomputation not counted), at the JAX
     blocks (512 unless given, clamped to the sequence). A key length the
     JAX tiles do not divide takes its dense path: full s_q x s_k."""
-    bq = min(_clamp_block(block_q or DEFAULT_BLOCK, s_q), max(8, s_q))
-    bk = min(_clamp_block(block_k or DEFAULT_BLOCK, s_k), max(8, s_k))
+    bq = min(clamp_block(block_q or DEFAULT_BLOCK, s_q), max(8, s_q))
+    bk = min(clamp_block(block_k or DEFAULT_BLOCK, s_k), max(8, s_k))
     unit_dense = 2.0 * b * h * s_q * s_k * d
     if s_k % bk:
         return 2 * unit_dense, 4 * unit_dense

@@ -305,6 +305,40 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    ``LBFGS(max_iter=20, line_search=True)`` on the autoencoder's MSE over
    1024 images: every accepted iterate lowers the loss; ms an iteration.
 
+22. The rest of the attention models, after phase 21. Kernels 1-3 at
+   shapes no earlier phase launched, through ``check_flash`` and
+   ``check_flash_bwd``: the long rows' attention (1 x 8 x 16384² and
+   32768² x 128 causal, bf16) against twins run a chunk of 2048 query
+   rows at a time (rows i..i+c see keys 0..i+c-1; an f32 score matrix
+   takes 1 GB a head at 16k), and ViT's non-causal 196 tokens at (64, 6)
+   and (64, 3) heads of 128 in bf16 and (64, 3) in f32; the first shape
+   of each call twice gives the same bits; times, bounds and
+   ``scaled_dot_product_attention``'s forward and backward. (a) ``cli.perf -m
+   transformer_lm_16k`` (remat "dots") and ``-m transformer_lm_32k``
+   ("full") at batch 1 in bf16, graphed (2 steps a replay) and eager over
+   the same 6 steps: the graphed losses within ``LONG_LOSS_TOL`` of the
+   eager ones at the same steps, exactly 24 ``flash_fwd`` (the forward
+   runs again in each layer's backward), 12 ``flash_dq`` and 12
+   ``flash_dkv`` a step, tokens/s, MFU and peak memory; the 16k row at
+   full width and 2 layers with remat "dots" and "full" against none:
+   the same loss, the gradients within ``LONG_GRAD_TOL`` of max|g|. (b)
+   ``cli.perf -m vit_b16`` and ``-m vit_s16`` at batch 64, bf16,
+   ``--innerSteps 4``: images/s, MFU, finite losses, 12 launches of each
+   flash kernel a step. (c) A (b, s_k) key-padding mask through
+   ``flash_attention`` at (4, 8, 8192, 128) bf16 takes
+   ``blockwise_attention`` (block 512, no kernel launch), within
+   ``KP_TOL`` of the dense path run 1024 query rows at a time; the peak
+   memory of the blockwise forward below the dense one's (both printed,
+   with the blockwise forward and backward). (d) ``Sequential(MoE,
+   Linear, LogSoftMax)``, d 1024, 8 experts of Linear(d, 4d), ReLU,
+   Linear(4d, d), top-2, capacity 2.0, 8 x 1024 tokens a step, through
+   the ``Optimizer`` in bf16 with the auxiliary loss, eager and as CUDA
+   graphs of 4 steps for 16 steps: every step's criterion loss graphed
+   within ``MOE_LOSS_TOL`` of eager, the logged loss above it by 0.01 x
+   the auxiliary loss, step ms. The launches of (a)'s and (b)'s
+   ``cli.perf`` runs join the kernels line's; the 2-layer remat check's,
+   driven by hand, do not.
+
 Any failed phase exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -512,6 +546,34 @@ RNN_EAGER_STEPS, RNN_GRAPH_STEPS, RNN_K = 6, 12, 2
 RNN_LOSS_TOL = 1e-4  # graphed against eager losses, f32, TF32 off
 RNN_TOL = 1e-4  # (d) final states against cuDNN's, of max|ref|, f32
 LBFGS_BATCH, LBFGS_ITERS = 1024, 20  # (f)
+# phase 22: the rest of the attention models. (a) the long-context LM
+# rows at batch 1, each with its own remat, graphed (K steps a replay)
+# and eager over the same steps
+LONG_ROWS = {"transformer_lm_16k": "dots", "transformer_lm_32k": "full"}
+LONG_ITERS, LONG_INNER = 2, 2
+LONG_LOSS_TOL = 1e-3  # graphed against eager losses, bf16
+LONG_GRAD_LAYERS = 2  # remat against none at 16k, full width, 2 layers
+LONG_GRAD_TOL = 1e-2  # of max|g|, bf16
+# kernels 1-3 at the long rows' attention, each against its twin run a
+# chunk of LONG_CHUNK query rows at a time (a whole f32 score matrix takes
+# 1 GB a head at 16k and 4 GB at 32k)
+LONG_SHAPES = [(1, 8, 16384, 16384, 128, True, "bfloat16", False),
+               (1, 8, 32768, 32768, 128, True, "bfloat16", False)]
+LONG_CHUNK = 2048
+# (b) the ViT rows, graphed; kernels 1-3 at their shapes, and one f32
+VIT_ROWS = ("vit_b16", "vit_s16")
+VIT_BATCH, VIT_ITERS, VIT_INNER = 64, 3, 4
+VIT_SHAPES = [(64, 6, 196, 196, 128, False, "bfloat16", False),
+              (64, 3, 196, 196, 128, False, "bfloat16", False),
+              (64, 3, 196, 196, 128, False, "float32", False)]
+# (c) a key-padding mask through flash_attention -> blockwise
+KP_SHAPE, KP_CHUNK, KP_TOL = (4, 8, 8192, 128), 1024, 2e-2
+# (d) an MoE step through the Optimizer: d 1024, 8 experts of a 4d MLP,
+# top-2, capacity 2.0, 8 x 1024 tokens a step
+MOE_D, MOE_EXPERTS, MOE_TOPK, MOE_CAP = 1024, 8, 2, 2.0
+MOE_BATCH, MOE_SEQ, MOE_CLASSES = 8, 1024, 16
+MOE_BATCHES, MOE_STEPS, MOE_K = 8, 16, 4
+MOE_LOSS_TOL = 1e-3  # graphed against eager criterion losses, bf16
 
 
 def fail(msg):
@@ -628,6 +690,50 @@ def packed_segments(torch, b, s, seed):
     return torch.from_numpy(np.pad(seg[:b], ((0, 0), (0, 64)))).cuda()
 
 
+def twin_fwd(torch, ak, q, k, v, causal, seg, chunk=None):
+    """The plain forward's (o, lse); with ``chunk`` (causal, s_q = s_k, no
+    segments) run a chunk of query rows at a time: rows i..e-1 see keys
+    0..e-1 under the bottom-right causal mask, so each chunk is the plain
+    version on (q[i:e], k[:e], v[:e])."""
+    if not chunk:
+        return ak.flash_attention_reference(q, k, v, causal, seg)
+    b, h, s, _ = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty(b, h, s, device=q.device)
+    for i in range(0, s, chunk):
+        e = min(s, i + chunk)
+        o[..., i:e, :], lse_i = ak.flash_attention_reference(
+            q[..., i:e, :], k[..., :e, :], v[..., :e, :], True)
+        lse[..., i:e] = lse_i.view(b, h, e - i)
+    return o, lse.view(b * h, s)
+
+
+def twin_bwd(torch, ak, q, k, v, o, lse, do, causal, seg, chunk=None):
+    """The plain backward pair's (dq, dk, dv); with ``chunk`` as in
+    ``twin_fwd``: dq of each chunk of query rows, and its parts of dk and
+    dv over keys 0..e-1 added up in f32 before the one cast the plain
+    version makes."""
+    if not chunk:
+        return ak.flash_bwd_reference(q, k, v, o, lse, do, causal, seg)
+    b, h, s, _ = q.shape
+    lse, delta = lse.view(b, h, s), ak._delta(o, do).view(b, h, s)
+    dq = torch.empty_like(q)
+    dk, dv = (torch.zeros(t.shape, device=t.device) for t in (k, v))
+    for i in range(0, s, chunk):
+        e = min(s, i + chunk)
+        qi, ki, doi = q[..., i:e, :], k[..., :e, :], do[..., i:e, :]
+        p, ds = ak._bwd_probs(qi, ki, v[..., :e, :], doi, lse[..., i:e],
+                              delta[..., i:e], True, None)
+        dq[..., i:e, :] = torch.matmul(ds.to(k.dtype).float(),
+                                       ki.float()).to(q.dtype)
+        dk_i, dv_i = ak._dkv_from(qi, doi, p, ds, torch.float32,
+                                  torch.float32)
+        dk[..., :e, :] += dk_i
+        dv[..., :e, :] += dv_i
+        del p, ds, dk_i, dv_i
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
 def library_bwd_ms(torch, q, k, v, do, causal, iters=20, reps=3):
     """Device ms of the backward of ``scaled_dot_product_attention`` alone:
     one forward, then ``torch.autograd.grad`` over it captured into a CUDA
@@ -665,28 +771,31 @@ def library_bwd_ms(torch, q, k, v, do, causal, iters=20, reps=3):
     return start.elapsed_time(end) / (iters * reps)
 
 
-def check_flash_bwd(torch, ak):
+def check_flash_bwd(torch, ak, shapes=BWD_SHAPES, chunk=None):
     """flash_dq / flash_dkv (and the forward with segments) against their
-    plain versions on the card, with times and bounds."""
+    plain versions on the card, with times and bounds; with ``chunk`` the
+    plain versions run a chunk of query rows at a time (``twin_bwd``) and
+    are not timed."""
     from bigdl_tpu_torch.tools.timing import device_ms
 
     rows = []
-    for b, h, sq, sk, d, causal, dt, use_seg in BWD_SHAPES:
+    for b, h, sq, sk, d, causal, dt, use_seg in shapes:
         dtype = getattr(torch, dt)
-        g = torch.Generator(device="cuda").manual_seed(sq * 5 + sk + d)
-        q, k, v = (torch.randn(b, h, s, d, device="cuda", generator=g)
+        g = torch.Generator(device=DEV).manual_seed(sq * 5 + sk + d)
+        q, k, v = (torch.randn(b, h, s, d, device=DEV, generator=g)
                    .to(dtype) for s in (sq, sk, sk))
         # dO as autograd hands it over: a (b, s, h, d) buffer seen as
         # (b, h, s, d), the backward of the heads merge
-        do = torch.randn(b, sq, h, d, device="cuda", generator=g).to(
+        do = torch.randn(b, sq, h, d, device=DEV, generator=g).to(
             dtype).transpose(1, 2)
         seg = packed_segments(torch, b, sq, seed=sq) if use_seg else None
         o, lse = ak.flash_fwd(q, k, v, causal, seg)
-        o_ref, lse_ref = ak.flash_attention_reference(q, k, v, causal, seg)
+        o_ref, lse_ref = twin_fwd(torch, ak, q, k, v, causal, seg, chunk)
         delta = ak._delta(o, do)
         dq = ak.flash_dq(q, k, v, do, lse, delta, causal, seg)
         dk, dv = ak.flash_dkv(q, k, v, do, lse, delta, causal, seg)
-        rq, rk, rv = ak.flash_bwd_reference(q, k, v, o, lse, do, causal, seg)
+        rq, rk, rv = twin_bwd(torch, ak, q, k, v, o, lse, do, causal, seg,
+                              chunk)
         torch.cuda.synchronize()
         if not rows:  # the training step's shape: the same bits twice
             dq2 = ak.flash_dq(q, k, v, do, lse, delta, causal, seg)
@@ -716,8 +825,9 @@ def check_flash_bwd(torch, ak):
                "dkv_ms": device_ms(lambda: ak.flash_dkv(
                    q, k, v, do, lse, delta, causal, seg)),
                "delta_ms": device_ms(lambda: ak._delta(o, do)),
-               "plain_ms": device_ms(lambda: ak.flash_bwd_reference(
-                   q, k, v, o, lse, do, causal, seg)),
+               "plain_ms": None if chunk else device_ms(
+                   lambda: ak.flash_bwd_reference(q, k, v, o, lse, do,
+                                                  causal, seg)),
                "library_ms": None if use_seg else library_bwd_ms(
                    torch, q, k, v, do, causal)}
         # the library's backward computes its own delta: the pair plus
@@ -737,6 +847,8 @@ def check_flash_bwd(torch, ak):
         rows.append(row)
         lib = ("n/a" if row["library_ms"] is None
                else f"{row['library_ms']:.4f}")
+        plain = ("n/a" if row["plain_ms"] is None
+                 else f"{row['plain_ms']:.4f}")
         print(f"flash_bwd b={b} h={h} s_q={sq} s_k={sk} d={d} "
               f"causal={int(causal)} {dt} segments={int(use_seg)}: "
               f"max|d|/max|ref| dQ={err['dq']:.2e} dK={err['dk']:.2e} "
@@ -746,7 +858,8 @@ def check_flash_bwd(torch, ak):
               f"{row['dkv_bound_ms']:.4f} {row['dkv_bound_by']}) "
               f"delta_ms={row['delta_ms']:.4f} pair_plus_delta_ms="
               f"{row['pair_plus_delta_ms']:.4f} library_bwd_ms={lib} "
-              f"plain_ms={row['plain_ms']:.4f}"
+              f"plain_ms={plain}"
+              + (f" chunks of {chunk} query rows" if chunk else "")
               + (f" fwd_seg_ms={row['fwd_seg_ms']:.4f} (bound "
                  f"{row['fwd_seg_bound_ms']:.4f})" if use_seg else "")
               + f" {'ok' if ok else 'FAIL'}", flush=True)
@@ -1005,21 +1118,24 @@ def fwd_kernel_name(d, dt):
     return fn(d, int(dt == "bfloat16")).decode()
 
 
-def check_flash(torch, ak):
+def check_flash(torch, ak, shapes=SHAPES, chunk=None):
+    """flash_fwd against its plain version on the card, with times, bounds
+    and the library's forward; with ``chunk`` the plain version runs a
+    chunk of query rows at a time (``twin_fwd``) and is not timed."""
     import torch.nn.functional as F
 
     from bigdl_tpu_torch.tools.timing import device_ms
 
     rows = []
-    for b, h, sq, sk, d, causal, dt, use_seg in SHAPES:
+    for b, h, sq, sk, d, causal, dt, use_seg in shapes:
         dtype = getattr(torch, dt)
-        g = torch.Generator(device="cuda").manual_seed(sq * 7 + sk)
-        q = torch.randn(b, h, sq, d, device="cuda", generator=g).to(dtype)
-        k = torch.randn(b, h, sk, d, device="cuda", generator=g).to(dtype)
-        v = torch.randn(b, h, sk, d, device="cuda", generator=g).to(dtype)
+        g = torch.Generator(device=DEV).manual_seed(sq * 7 + sk)
+        q = torch.randn(b, h, sq, d, device=DEV, generator=g).to(dtype)
+        k = torch.randn(b, h, sk, d, device=DEV, generator=g).to(dtype)
+        v = torch.randn(b, h, sk, d, device=DEV, generator=g).to(dtype)
         seg = packed_segments(torch, b, sq, seed=sq) if use_seg else None
         o, lse = ak.flash_fwd(q, k, v, causal, seg)
-        o_ref, lse_ref = ak.flash_attention_reference(q, k, v, causal, seg)
+        o_ref, lse_ref = twin_fwd(torch, ak, q, k, v, causal, seg, chunk)
         torch.cuda.synchronize()
         if not rows:  # the training step's shape: the same bits twice
             o2, lse2 = ak.flash_fwd(q, k, v, causal, seg)
@@ -1036,8 +1152,8 @@ def check_flash(torch, ak):
               and bool(torch.all(d_l <= atol_l + rtol * lse_ref.abs())))
         mask = None
         if causal and sq != sk:  # the library's is_causal is top-left
-            mask = (torch.arange(sq, device="cuda")[:, None] + (sk - sq)
-                    >= torch.arange(sk, device="cuda")[None, :])
+            mask = (torch.arange(sq, device=DEV)[:, None] + (sk - sq)
+                    >= torch.arange(sk, device=DEV)[None, :])
         lib = (lambda: F.scaled_dot_product_attention(q, k, v,
                                                       attn_mask=mask)
                ) if mask is not None else (
@@ -1049,8 +1165,9 @@ def check_flash(torch, ak):
                "max_abs_err": float(d_o.max()),
                "max_abs_err_lse": float(d_l.max()),
                "ms": device_ms(lambda: ak.flash_fwd(q, k, v, causal, seg)),
-               "plain_ms": device_ms(lambda: ak.flash_attention_reference(
-                   q, k, v, causal, seg)),
+               "plain_ms": None if chunk else device_ms(
+                   lambda: ak.flash_attention_reference(q, k, v, causal,
+                                                        seg)),
                "library_ms": None if use_seg else device_ms(lib), "ok": ok}
         row["bound_ms"], row["bound_by"] = flash_bound_ms(
             live_scores(torch, b, h, sq, sk, causal, seg), b, h, sq, sk, d,
@@ -1058,11 +1175,13 @@ def check_flash(torch, ak):
         rows.append(row)
         lib_ms = ("-" if row["library_ms"] is None
                   else f"{row['library_ms']:.4f}")
+        plain = ("-" if row["plain_ms"] is None
+                 else f"{row['plain_ms']:.4f}")
         print(f"flash_fwd b={b} h={h} s_q={sq} s_k={sk} d={d} "
               f"causal={int(causal)} {dt}{' segments' if use_seg else ''} "
               f"[{row['kernel']}]: max|dO|={row['max_abs_err']:.3e} "
               f"max|dlse|={row['max_abs_err_lse']:.3e} "
-              f"kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+              f"kernel_ms={row['ms']:.4f} plain_ms={plain} "
               f"library_ms={lib_ms} "
               f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
               f"{'ok' if ok else 'FAIL'}", flush=True)
@@ -2255,7 +2374,7 @@ class LossRecorder:
 
 def optimizer_run(torch, make_model, data, k, end, compute_dtype=None,
                   ckpt=None, resume=None, shuffle=False, strategy=None,
-                  graph_stats=None):
+                  graph_stats=None, crit=None):
     """One ``Optimizer`` run (SGD(0.01, momentum 0.9) with the schedule
     Poly(0.5, POLY_ITERS)) over ``data``
     (a list of (x, y) batches, held in a ``BatchDataSet``) with
@@ -2265,7 +2384,8 @@ def optimizer_run(torch, make_model, data, k, end, compute_dtype=None,
     given; returns (every step's loss, kernel launches, images/s of the
     dispatches after the first two, log lines). A ``graph_stats`` dict
     gets the step graph's capture and instantiate seconds (None where no
-    graph was captured)."""
+    graph was captured). ``crit``: the criterion (``ClassNLLCriterion``
+    unless given)."""
     import numpy as np
 
     from bigdl_tpu_torch import ops
@@ -2277,7 +2397,7 @@ def optimizer_run(torch, make_model, data, k, end, compute_dtype=None,
     y = np.concatenate([b[1] for b in data])
     batch = len(data[0][0])
     model = make_model()
-    rec = LossRecorder(torch, ClassNLLCriterion(), end, DEV)
+    rec = LossRecorder(torch, crit or ClassNLLCriterion(), end, DEV)
     opt = Optimizer(model, BatchDataSet(x, y, batch, shuffle=shuffle), rec,
                     optim_method=SGD(0.01, momentum=0.9,
                                      schedule=Poly(0.5, POLY_ITERS)),
@@ -4326,6 +4446,320 @@ def rnn_runs(torch, card):
     return rows
 
 
+def _free(torch):
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def long_row_runs(torch, card):
+    """Phase 22 (a): each long-context row through ``cli.perf.run`` at
+    batch 1 in bf16, graphed (``LONG_INNER`` steps a replay) and eager
+    over the same steps: the graphed losses against the eager ones,
+    exact launches (the flash forward runs again in each layer's
+    backward under either remat), tokens/s, MFU and the peak memory of
+    each run. Returns ({tag: value}, [launches])."""
+    import math
+
+    from bigdl_tpu_torch.cli import perf
+
+    rows, counts = {}, []
+    for row, remat in LONG_ROWS.items():
+        steps = (1 + LONG_ITERS) * LONG_INNER
+        want = {"flash_fwd": 24 * steps, "flash_dq": 12 * steps,
+                "flash_dkv": 12 * steps}
+        runs = {}
+        for mode in ("graphed", "eager"):
+            _free(torch)
+            torch.cuda.reset_peak_memory_stats()
+            kw = (dict(iterations=LONG_ITERS, inner_steps=LONG_INNER)
+                  if mode == "graphed" else dict(iterations=steps - 1))
+            res, launched = _launched(torch, lambda: perf.run(
+                row, batch=1, dtype=torch.bfloat16, warmup=1, **kw))
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            n = {k: v for k, v in launched.items() if v}
+            print(f"[phase 22 {row} {mode}] bf16 batch 1 on {card}: "
+                  f"{res['tokens_per_second']} tokens/s, mfu {res['mfu']} "
+                  f"({res['mfu_pct']}% of {res['peak_flops_assumed']:.4g}"
+                  f", {res['peak_flops_device_match']}), step GFLOPs "
+                  f"{res['step_gflops_analytic']}, remat {res['remat']}, "
+                  f"peak memory {peak:.2f} GiB; losses "
+                  f"{[round(x, 5) for x in res['losses']]}; launches {n} "
+                  f"over {steps} steps", flush=True)
+            if (not all(math.isfinite(x) for x in res["losses"])
+                    or n != want or res["remat"] != remat
+                    or not 0 < res["mfu"] <= 1):
+                fail(f"[phase 22 {row} {mode}] losses {res['losses']}, "
+                     f"launches {n} (expected {want}), remat "
+                     f"{res['remat']}, mfu {res['mfu']}")
+            runs[mode] = res
+            counts.append(launched)
+            rows[f"{row} {mode} tokens/s"] = res["tokens_per_second"]
+            rows[f"{row} {mode} mfu"] = res["mfu"]
+            rows[f"{row} {mode} peak GiB"] = round(peak, 2)
+        graphed = runs["graphed"]["losses"]
+        eager = runs["eager"]["losses"][LONG_INNER - 1::LONG_INNER]
+        gap = diff(graphed, eager)
+        print(f"[phase 22 {row}] graphed losses {graphed} against the "
+              f"eager ones at the same steps {eager}: max |d| {gap}",
+              flush=True)
+        if gap > LONG_LOSS_TOL:
+            fail(f"[phase 22 {row}] graphed and eager losses differ by "
+                 f"{gap} > {LONG_LOSS_TOL}")
+        rows[f"{row} graphed vs eager max|dloss|"] = gap
+    return rows, counts
+
+
+def remat_grads_check(torch, row="transformer_lm_16k"):
+    """Phase 22 (a): one step's loss and gradients of the 16k row at full
+    width and ``LONG_GRAD_LAYERS`` layers with remat "dots" and "full"
+    against remat off (bf16, the same weights and tokens): the recomputed
+    flash forward must give what the first one gave, each remat with
+    its own exact launches. This hand-driven copy is not a main path: its
+    launches stay out of the kernels line."""
+    import numpy as np
+
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.cli import perf
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
+
+    seq = perf.LM_CONFIGS[row]["max_len"]
+    toks = torch.from_numpy(np.random.RandomState(22).randint(
+        0, perf.LM_VOCAB, (1, seq + 1)).astype(np.int64)).to(DEV)
+    crit = TimeDistributedCriterion(ClassNLLCriterion())
+    out, counts = {}, []
+    for remat in (False, "dots", "full"):
+        _free(torch)
+        model, _ = perf.build_model(row, num_layers=LONG_GRAD_LAYERS,
+                                    remat=remat)
+        model.compute_dtype = torch.bfloat16
+        model = model.to(DEV).train()
+        ops.reset_kernel_launches()
+        loss = crit(model(toks[:, :-1]).float(), toks[:, 1:])
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+        counts.append(ops.kernel_launches())
+        out[remat] = (float(loss.detach()), [g.float() for g in grads])
+        del model, loss, grads
+    base_loss, base = out[False]
+    scale = max(float(g.abs().max()) for g in base)
+    for remat in ("dots", "full"):
+        loss, grads = out[remat]
+        gap = max(float((a - b).abs().max()) for a, b in zip(base, grads))
+        same = all(bool(torch.equal(a, b)) for a, b in zip(base, grads))
+        print(f"[phase 22 remat] {row} at {LONG_GRAD_LAYERS} layers, bf16: "
+              f"remat {remat} loss {loss} against remat off {base_loss}; "
+              f"max|dg|/max|g| {gap / scale:.3e} (bit for bit: {same}); "
+              f"launches {counts[1 if remat == 'dots' else 2]}", flush=True)
+        if loss != base_loss or gap > LONG_GRAD_TOL * scale:
+            fail(f"[phase 22 remat] remat {remat} moved the loss ({loss} "
+                 f"vs {base_loss}) or the gradients ({gap / scale:.3e})")
+    per = {False: 1, "dots": 2, "full": 2}
+    for remat, n in zip((False, "dots", "full"), counts):
+        want = {"flash_fwd": per[remat] * LONG_GRAD_LAYERS,
+                "flash_dq": LONG_GRAD_LAYERS, "flash_dkv": LONG_GRAD_LAYERS}
+        if {k: v for k, v in n.items() if v} != want:
+            fail(f"[phase 22 remat] remat {remat}: launches {n}, expected "
+                 f"{want}")
+
+
+def vit_row_runs(torch, card):
+    """Phase 22 (b): ``vit_b16`` and ``vit_s16`` through ``cli.perf.run``
+    at batch ``VIT_BATCH`` in bf16, ``VIT_INNER`` graphed steps a replay:
+    images/s, MFU, finite losses, 12 launches of each flash kernel a
+    step. Returns ({tag: value}, [launches])."""
+    import math
+
+    from bigdl_tpu_torch.cli import perf
+
+    rows, counts = {}, []
+    for row in VIT_ROWS:
+        _free(torch)
+        res, launched = _launched(torch, lambda: perf.run(
+            row, batch=VIT_BATCH, iterations=VIT_ITERS, dtype=torch.bfloat16,
+            warmup=1, inner_steps=VIT_INNER, data_type="random"))
+        steps = (1 + VIT_ITERS) * VIT_INNER
+        n = {k: v for k, v in launched.items() if v}
+        want = {"flash_fwd": 12 * steps, "flash_dq": 12 * steps,
+                "flash_dkv": 12 * steps}
+        print(f"[phase 22 {row}] bf16 batch {VIT_BATCH}, --innerSteps "
+              f"{VIT_INNER} on {card}: {res['records_per_second']} images/s,"
+              f" mfu {res['mfu']} ({res['mfu_pct']}% of "
+              f"{res['peak_flops_assumed']:.4g}), step GFLOPs "
+              f"{res['step_gflops_analytic']} {res['step_gflops_by_kind']}; "
+              f"losses {[round(x, 4) for x in res['losses']]}; launches {n} "
+              f"over {steps} steps", flush=True)
+        if (not all(math.isfinite(x) for x in res["losses"]) or n != want
+                or not 0 < res["mfu"] <= 1):
+            fail(f"[phase 22 {row}] losses {res['losses']}, launches {n} "
+                 f"(expected {want}), mfu {res['mfu']}")
+        counts.append(launched)
+        rows[f"{row} images/s"] = res["records_per_second"]
+        rows[f"{row} mfu"] = res["mfu"]
+    return rows, counts
+
+
+def keypad_run(torch, card):
+    """Phase 22 (c): a (b, s_k) key-padding mask through
+    ``flash_attention`` at ``KP_SHAPE`` bf16 takes ``blockwise_attention``
+    (no kernel launch), against the dense path run a chunk of query rows
+    at a time; the peak memory over what was allocated before, and the
+    host-clock ms, of the blockwise and the dense forward, and of the
+    blockwise forward with its backward. Returns {tag: value}."""
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.nn import attention as dense
+    from bigdl_tpu_torch.ops import attention_kernel as ak
+
+    b, h, s, d = KP_SHAPE
+    g = torch.Generator(device=DEV).manual_seed(22)
+    q, k, v = (torch.randn(b, h, s, d, device=DEV, generator=g)
+               .to(torch.bfloat16) for _ in range(3))
+    keep = torch.rand(b, s, device=DEV, generator=g) > 0.25
+    keep[:, 0] = True
+    calls = []
+    real = ak.blockwise_attention
+
+    def spy(*a, **kw):
+        calls.append(kw.get("block_k"))
+        return real(*a, **kw)
+
+    def measured(fn):
+        _free(torch)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        return out, ms, (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+    ak.blockwise_attention = spy
+    try:
+        ops.reset_kernel_launches()
+        with torch.no_grad():
+            out, blk_ms, blk_gib = measured(
+                lambda: ak.flash_attention(q, k, v, mask=keep))
+        n = {k_: v_ for k_, v_ in ops.kernel_launches().items() if v_}
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        _, bwd_ms, bwd_gib = measured(lambda: torch.autograd.grad(
+            ak.flash_attention(qg, kg, vg, mask=keep), (qg, kg, vg),
+            torch.ones_like(q)))
+    finally:
+        ak.blockwise_attention = real
+    worst = scale = 0.0
+    with torch.no_grad():
+        for i in range(0, s, KP_CHUNK):
+            ref = dense.dot_product_attention(
+                q[..., i:i + KP_CHUNK, :], k, v, mask=keep[:, None, None, :])
+            worst = max(worst, float((out[..., i:i + KP_CHUNK, :].float()
+                                      - ref.float()).abs().max()))
+            scale = max(scale, float(ref.float().abs().max()))
+        del ref
+        _, dense_ms, dense_gib = measured(lambda: dense.dot_product_attention(
+            q, k, v, mask=keep[:, None, None, :]))
+    err = worst / scale
+    print(f"[phase 22 key padding] flash_attention(mask=(b, s_k)) at "
+          f"{list(KP_SHAPE)} bf16 on {card}: blockwise (block_k "
+          f"{calls[:1]}) max|d|/max|ref| {err:.3e} against the dense path "
+          f"in chunks of {KP_CHUNK} rows; kernel launches {n}; forward peak "
+          f"{blk_gib:.3f} GiB ({blk_ms:.1f} ms) against dense "
+          f"{dense_gib:.3f} GiB ({dense_ms:.1f} ms); blockwise forward + "
+          f"backward peak {bwd_gib:.3f} GiB ({bwd_ms:.1f} ms)", flush=True)
+    if calls != [512, 512] or n or err > KP_TOL or not \
+            blk_gib < dense_gib:
+        fail(f"[phase 22 key padding] blockwise calls {calls}, launches {n}"
+             f", error {err}, peak {blk_gib} vs dense {dense_gib} GiB")
+    return {"key padding blockwise fwd GiB": round(blk_gib, 3),
+            "key padding dense fwd GiB": round(dense_gib, 3),
+            "key padding blockwise fwd+bwd GiB": round(bwd_gib, 3)}
+
+
+def moe_run(torch, card):
+    """Phase 22 (d): ``Sequential(MoE, Linear, LogSoftMax)`` (d
+    ``MOE_D``, ``MOE_EXPERTS`` experts of Linear(d, 4d), ReLU, Linear(4d,
+    d), top-2, capacity 2.0) through the ``Optimizer`` in bf16 with the
+    auxiliary loss (weight 0.01) on 8 x 1024 tokens a step, eager and as
+    CUDA graphs of ``MOE_K`` steps: every step's criterion loss graphed
+    against eager, the logged loss above it by 0.01 x the auxiliary loss
+    (1 to E), step ms. Returns {tag: value}."""
+    import numpy as np
+
+    from bigdl_tpu_torch import nn
+
+    def make():
+        g = torch.Generator().manual_seed(22)
+
+        def expert():
+            return nn.Sequential(nn.Linear(MOE_D, 4 * MOE_D, generator=g),
+                                 nn.ReLU(),
+                                 nn.Linear(4 * MOE_D, MOE_D, generator=g))
+
+        return nn.Sequential(
+            nn.MoE(expert, MOE_EXPERTS, MOE_D, top_k=MOE_TOPK,
+                   capacity_factor=MOE_CAP, generator=g),
+            nn.Linear(MOE_D, MOE_CLASSES, generator=g), nn.LogSoftMax())
+
+    rng = np.random.default_rng(22)
+    data = [(rng.standard_normal((MOE_BATCH, MOE_SEQ, MOE_D),
+                                 dtype=np.float32),
+             rng.integers(0, MOE_CLASSES, (MOE_BATCH, MOE_SEQ))
+             .astype(np.int32)) for _ in range(MOE_BATCHES)]
+    crit = nn.TimeDistributedCriterion(nn.ClassNLLCriterion())
+    runs = {}
+    for k in (1, MOE_K):
+        _free(torch)
+        runs[k] = optimizer_run(torch, make, data, k, MOE_STEPS,
+                                compute_dtype=torch.bfloat16, crit=crit)
+    eager, graphed = runs[1][0], runs[MOE_K][0]
+    gap = diff(eager, graphed)
+    logged = [float(m.group(1)) for m in (
+        re.search(r"Loss is ([0-9.]+)", ln) for ln in runs[1][3]) if m]
+    aux = [a - c for a, c in zip(logged, eager)]
+    step_ms = {k: 1e3 * MOE_BATCH / r[2] for k, r in runs.items()}
+    print(f"[phase 22 moe] d {MOE_D}, {MOE_EXPERTS} experts, top-{MOE_TOPK}"
+          f", capacity {MOE_CAP}, {MOE_BATCH} x {MOE_SEQ} tokens, bf16 on "
+          f"{card}: criterion losses eager {[round(x, 4) for x in eager]}, "
+          f"graphed (K={MOE_K}) max |d| {gap}; logged minus criterion "
+          f"(0.01 x aux) {[round(x, 4) for x in aux]}; step "
+          f"{step_ms[1]:.2f} ms eager, {step_ms[MOE_K]:.2f} ms graphed; "
+          f"launches {runs[MOE_K][1]}", flush=True)
+    if (len(eager) != MOE_STEPS or gap > MOE_LOSS_TOL
+            or not all(np.isfinite(eager))
+            or len(aux) != MOE_STEPS
+            or not all(0.005 <= a <= 0.01 * MOE_EXPERTS + 0.005
+                       for a in aux)):
+        fail(f"[phase 22 moe] eager {eager}, graphed {graphed}, logged "
+             f"{logged}")
+    return {"moe step ms eager": round(step_ms[1], 3),
+            "moe step ms graphed": round(step_ms[MOE_K], 3)}
+
+
+def attention_slice_runs(torch, card):
+    """Phase 22: the rest of the attention models, (a) to (d). Returns
+    ({tag: value}, [launches of the main paths], kernel rows)."""
+    from bigdl_tpu_torch.ops import attention_kernel as ak
+
+    t_phase = time.perf_counter()
+    _free(torch)
+    krows = (check_flash(torch, ak, LONG_SHAPES, LONG_CHUNK)
+             + check_flash_bwd(torch, ak, LONG_SHAPES, LONG_CHUNK))
+    _free(torch)
+    krows += check_flash(torch, ak, VIT_SHAPES) + check_flash_bwd(
+        torch, ak, VIT_SHAPES)
+    rows, counts = long_row_runs(torch, card)
+    remat_grads_check(torch)
+    vit_rows, vit_n = vit_row_runs(torch, card)
+    rows.update(vit_rows)
+    counts += vit_n
+    rows.update(keypad_run(torch, card))
+    rows.update(moe_run(torch, card))
+    _free(torch)
+    print(f"[phase 22] {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return rows, counts, krows
+
+
 def main():
     try:
         import torch
@@ -4416,7 +4850,8 @@ def main():
     slice_rows, slice_n = resnet_slice_runs(torch, card)
     dp_rows, dp_n = dp_runs(torch, card, train["losses"])
     rnn_rows = rnn_runs(torch, card)
-    for n in base_n + inc_n + slice_n + dp_n:
+    attn_rows, attn_n, _ = attention_slice_runs(torch, card)
+    for n in base_n + inc_n + slice_n + dp_n + attn_n:
         for name in launches:
             launches[name] += n[name]
     print("[phase 19] BN launches by mode: " + ", ".join(
@@ -4457,6 +4892,8 @@ def main():
         print(f"[{tag}] on {card}: {r:.1f} images/s", flush=True)
     for tag, r in rnn_rows.items():
         print(f"[phase 21] {tag} on {card}: {r}", flush=True)
+    for tag, r in attn_rows.items():
+        print(f"[phase 22] {tag} on {card}: {r}", flush=True)
 
     head, bwd = rows[0], bwd_rows[0]  # the training step's 8 x 8 x 1024^2
     common = {"route": "cuda", "check": "pass", "shape": head["shape"],

@@ -76,11 +76,17 @@ def test_dense_matches_jax_with_key_padding(causal):
                                 torch.from_numpy(v), causal=causal,
                                 mask=torch.from_numpy(mask))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
-    # masks take the dense path, as in the JAX package's routing
+    # a key-padding mask takes the blockwise path, as in the JAX package's
+    # routing, with the key block of flash_block_k; it agrees with dense
     routed = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
                              torch.from_numpy(v), causal=causal,
                              mask=torch.from_numpy(mask))
-    assert torch.equal(routed, got)
+    assert torch.equal(routed, ak.blockwise_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=causal, mask=torch.from_numpy(mask),
+        block_k=ak.flash_block_k(24)))
+    np.testing.assert_allclose(routed.numpy(), got.numpy(), atol=1e-5)
+    np.testing.assert_allclose(routed.numpy(), np.asarray(ref), atol=1e-5)
 
 
 def test_routing_and_wrapper_contract():
