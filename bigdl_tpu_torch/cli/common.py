@@ -2,7 +2,9 @@
 ``bigdl_tpu/cli/common.py``): the training and test flags, the
 data-parallel strategy (``--strategy dp``, ``--gradCompress``,
 ``--gradBuckets``), building the Optimizer, loading a trained checkpoint
-and evaluating it. Flags of features the port does not have yet are not
+and evaluating it; for ``serve``, the fleet router and its workers, the
+one parse of the serving flags (:func:`resolve_serve_config`) and the
+``--faultPlan`` install. Flags of features the port does not have yet are not
 parsed, so argparse refuses them; the strategies and ``--elastic`` are
 parsed and refused by name.
 
@@ -14,6 +16,7 @@ as in the JAX package."""
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import os
 from typing import Optional, Sequence
@@ -26,7 +29,8 @@ __all__ = ["setup_logging", "add_train_args", "add_test_args",
            "add_grad_comm_args", "make_grad_comm", "build_strategy",
            "build_feed", "build_optimizer", "load_trained", "evaluate",
            "OPTIM_METHODS", "PIPELINE_STAGE_CHOICES", "STRATEGY_CHOICES",
-           "GRAD_COMPRESS_CHOICES"]
+           "GRAD_COMPRESS_CHOICES", "QUANTIZE_CHOICES", "ResolvedConfig",
+           "resolve_serve_config", "install_fault_plan"]
 
 OPTIM_METHODS = ("sgd", "adam", "adamw", "adagrad", "rmsprop", "lars", "lamb")
 # dataset.pipeline.STAGE_CHOICES, spelled here so that building a parser
@@ -95,6 +99,10 @@ STRATEGY_CHOICES = ("dp", "tp", "sp", "pp", "ep")
 # parallel/grad_comm.COMPRESS_MODES, spelled here so that building a
 # parser imports no parallel module (a test holds the two equal)
 GRAD_COMPRESS_CHOICES = ("off", "bf16", "fp16", "bf16+ec", "fp16+ec")
+# serving/quant.QUANTIZE_CHOICES, spelled here so that the serve parser,
+# which the fleet router builds, imports no torch (a test holds the two
+# equal)
+QUANTIZE_CHOICES = ("off", "int8", "fp8", "kv8", "int8+kv8", "fp8+kv8")
 
 
 def add_strategy_arg(p: argparse.ArgumentParser) -> None:
@@ -445,3 +453,63 @@ def evaluate(model, dataset, methods: Optional[Sequence] = None,
     for m, r in zip(methods, results):
         print(f"{m.name} is {r!r}")
     return results
+
+
+@dataclasses.dataclass(frozen=True)
+class ResolvedConfig:
+    """The serving flags resolved once (the fields of the JAX package's
+    ``ResolvedConfig`` that serving reads), so ``serve``, the fleet
+    router and every worker agree on one parse. The serving topology is
+    one replica of one shard until ``--strategy`` is ported."""
+
+    model: str
+    quantize: Optional[str] = None
+    speculate: int = 0
+    serving_replicas: int = 1
+    serving_tp: int = 1
+    fleet_workers: int = 0
+
+
+def resolve_serve_config(args) -> ResolvedConfig:
+    """Resolve the serve/fleet flags once: refuse the flags the port does
+    not have yet (naming their ROADMAP.md entry), and check
+    ``--quantize``, ``--speculate`` and ``--fleet``. Pure Python: the
+    fleet router calls this before any worker boots and imports no
+    torch."""
+    from bigdl_tpu_torch.cli.serve import refuse_later_flags
+
+    refuse_later_flags(args)
+    quantize = getattr(args, "quantize", None)
+    if quantize == "off":  # serve spells the default as the string off
+        quantize = None
+    if quantize is not None and quantize not in QUANTIZE_CHOICES:
+        raise SystemExit(f"--quantize {quantize!r}: must be one of "
+                         f"{'/'.join(QUANTIZE_CHOICES)}")
+    speculate = int(getattr(args, "speculate", 0) or 0)
+    if speculate < 0:
+        raise SystemExit(f"--speculate {speculate}: draft length must "
+                         "be >= 0")
+    fleet = int(getattr(args, "fleet", 0) or 0)
+    if fleet < 0:
+        raise SystemExit(f"--fleet {fleet}: worker count must be >= 0")
+    return ResolvedConfig(model=getattr(args, "model", None) or "",
+                          quantize=quantize, speculate=speculate,
+                          fleet_workers=fleet)
+
+
+def install_fault_plan(args):
+    """Activate ``--faultPlan`` process-wide (``BIGDL_FAULT_LOG`` names a
+    JSONL file every fired fault is appended to, written before a
+    process-fatal kind acts); returns the injector, or None without a
+    plan. The entry points call it before they build anything."""
+    spec = getattr(args, "faultPlan", None)
+    if not spec:
+        return None
+    from bigdl_tpu_torch.resilience.faults import install_plan, parse_plan
+    try:
+        plan = parse_plan(spec)
+    except ValueError as e:
+        raise SystemExit(f"--faultPlan: {e}")
+    inj = install_plan(plan, log_path=os.environ.get("BIGDL_FAULT_LOG"))
+    logging.getLogger(__name__).info("fault plan installed: %r", plan)
+    return inj

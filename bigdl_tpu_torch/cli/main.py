@@ -46,11 +46,10 @@ _LATER = {
     "explain": "obs/ and its profile attribution (ROADMAP.md queue 1 "
                "item 16)",
     "lint": "analysis/ (ROADMAP.md queue 1 item 18)",
-    "fleet": "serving's fleet/ (ROADMAP.md queue 1 item 2)",
     "predict": "utils/file.py's save_module/load_module (ROADMAP.md "
                "queue 1 item 17)",
-    "batch-predict": "serving/bulk.py and replicas.py (ROADMAP.md queue 1 "
-                     "items 2 and 17)",
+    "batch-predict": "serving/bulk.py (ROADMAP.md queue 1 item 17, entry "
+                     "15) and serving/replicas.py (item 14, entry 13)",
 }
 
 

@@ -20,7 +20,16 @@ bucket replay CUDA graphs captured before the server's threads start.
 Weights come from ``--randomInit`` (seeded) or ``--model CKPT``, a
 ``model.<n>`` written by the port or the JAX package. ``--platform cpu``
 runs the same stack on the CPU, eagerly, with the kernel's plain version.
-Flags of features not ported yet are refused with a message, never
+
+``/generate`` with ``"stream": true`` answers in SSE frames.
+``--reqTrace on`` traces every request's lifecycle (``/debug/requests``,
+TTFT/TPOT/ITL histograms); ``--slo ttft=MS,tpot=MS`` and ``--accessLog
+FILE`` (sampled by ``--logSample``) imply it. ``--faultPlan`` injects
+seeded faults at the serving sites. ``--fleet K`` makes this process a
+router in front of K worker processes (``serving.fleet``; the router
+imports no torch), with ``--modelVersion``, ``--fleetHeartbeatS`` and
+``--fleetRestartBudget``. Flags of features not ported yet are refused
+with a message naming the ROADMAP.md entry that brings them, never
 ignored.
 """
 
@@ -29,18 +38,22 @@ from __future__ import annotations
 import argparse
 import logging
 
-import numpy as np
-
-from bigdl_tpu_torch.serving.quant import QUANTIZE_CHOICES
+from bigdl_tpu_torch.cli.common import QUANTIZE_CHOICES
 
 __all__ = ["build_parser", "build_app", "main"]
 
-# flags of the JAX package's serve that later slices of the port bring
-_LATER_FLAGS = ("--fleet", "--modelVersion", "--fleetHeartbeatS",
-                "--fleetRestartBudget", "--strategy", "--classes",
-                "--faultPlan", "--reqTrace", "--reqTraceCapacity", "--slo",
-                "--accessLog", "--logSample", "--autotune", "--fusedBN",
-                "--lint", "--convLayout", "--convGeom")
+# flags of the JAX package's serve that later slices of the port bring,
+# and the ROADMAP.md queue 1 entry that brings each
+_LATER_FLAGS = {
+    "--strategy": "entry 13 (serving replicas and tensor-parallel "
+                  "sharding)",
+    "--classes": "entry 8's rest (the non-LM models behind serve)",
+    "--fusedBN": "entry 8's rest (the non-LM models behind serve)",
+    "--convLayout": "entry 8's rest (the non-LM models behind serve)",
+    "--convGeom": "entry 8's rest (the non-LM models behind serve)",
+    "--autotune": "entry 11 (tuning/)",
+    "--lint": "entry 16 (analysis/)",
+}
 # the page sizes --quantize kv8 tries when --kvPageTokens is not given
 _KV8_PAGES = (128, 64, 32, 256)
 
@@ -73,6 +86,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("-p", "--port", type=int, default=8000,
                    help="0 = ephemeral (the chosen port is printed)")
+    p.add_argument("--fleet", type=int, default=0, metavar="K",
+                   help="run K engine worker processes behind a router on "
+                        "this port: SLO-burn-weighted least-loaded routing, "
+                        "supervised restart of dead workers, rolling weight "
+                        "swap through POST /admin/reload. 0 (default): one "
+                        "process")
+    p.add_argument("--modelVersion", default=None, metavar="TAG",
+                   help="version tag of the served weights, stamped into "
+                        "provenance and echoed as x-model-version; "
+                        "/admin/reload sets it (default v0)")
+    p.add_argument("--fleetHeartbeatS", type=float, default=0.5,
+                   help="router -> worker heartbeat poll interval")
+    p.add_argument("--fleetRestartBudget", type=int, default=8,
+                   help="supervised restarts of each worker before the "
+                        "router leaves it down (exponential backoff "
+                        "between them)")
     p.add_argument("--platform", choices=("cuda", "cpu"), default="cuda",
                    help="device to serve on; cpu runs the kernels' plain "
                         "versions")
@@ -137,6 +166,31 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--watchdogStallS", type=float, default=30.0,
                    help="a worker busy with no heartbeat this long is "
                         "declared wedged: 503s and /readyz 503")
+    p.add_argument("--faultPlan", default=None, metavar="SPEC|FILE",
+                   help="seeded fault injection at the serving sites "
+                        "(resilience.faults), e.g. 'worker_kill@infer:3' "
+                        "kills the batcher's worker on its 3rd forward; "
+                        "no-op unless set")
+    p.add_argument("--reqTrace", choices=("on", "off"), default="off",
+                   help="per-request lifecycle tracing: request ids through "
+                        "batcher, engine and decoder, server-side TTFT/TPOT/"
+                        "ITL and queue/prefill/decode histograms, the "
+                        "flight recorder behind /debug/requests")
+    p.add_argument("--reqTraceCapacity", type=int, default=1024,
+                   metavar="N",
+                   help="completed-request records the flight recorder "
+                        "keeps (the oldest dropped and counted past it)")
+    p.add_argument("--slo", default=None, metavar="SPEC",
+                   help="server-side latency SLOs, e.g. 'ttft=200,tpot=30' "
+                        "(ms; optional burn=FRAC,window=N): violation "
+                        "counters, goodput, and a saturated burn rate sheds "
+                        "/generate. Implies --reqTrace on")
+    p.add_argument("--accessLog", default=None, metavar="FILE",
+                   help="append one JSON line per completed request. "
+                        "Implies --reqTrace on")
+    p.add_argument("--logSample", type=float, default=1.0, metavar="P",
+                   help="access-log sampling probability in [0, 1], "
+                        "decided by a hash of the request id")
     p.add_argument("--vocabSize", type=int, default=None,
                    help="build a custom-dims LM (with --dModel/--numLayers/"
                         "--numHeads/--seq) instead of a zoo config")
@@ -147,6 +201,45 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument(flag, dest=f"later_{flag[2:]}", nargs="?", const=True,
                        default=None, help=argparse.SUPPRESS)
     return p
+
+
+def refuse_later_flags(args) -> None:
+    """SystemExit naming each given flag the port does not have yet and
+    the ROADMAP.md entry that brings it."""
+    later = [f for f in _LATER_FLAGS
+             if getattr(args, f"later_{f[2:]}", None) is not None]
+    if later:
+        raise SystemExit("; ".join(
+            f"{f}: not available in the PyTorch port yet (ROADMAP.md "
+            f"queue 1 {_LATER_FLAGS[f]} brings it)" for f in later))
+
+
+def _request_tracer(args, metrics):
+    """The request tracer ``--reqTrace``/``--slo``/``--accessLog`` ask
+    for, or None (an asked-for SLO or access log needs the tracer they
+    read)."""
+    from bigdl_tpu_torch.serving import reqtrace as _reqtrace
+
+    if not (args.reqTrace == "on" or args.slo is not None
+            or args.accessLog is not None):
+        return None
+    slo = access_log = None
+    if args.slo is not None:
+        try:
+            slo = _reqtrace.SloPolicy.parse(args.slo)
+        except ValueError as e:
+            raise SystemExit(f"--slo {args.slo!r}: {e}")
+    if not 0.0 <= args.logSample <= 1.0:
+        raise SystemExit(f"--logSample {args.logSample} must be in [0, 1]")
+    if args.reqTraceCapacity < 1:
+        raise SystemExit(f"--reqTraceCapacity {args.reqTraceCapacity} "
+                         f"must be >= 1")
+    if args.accessLog is not None:
+        access_log = _reqtrace.AccessLog(args.accessLog,
+                                         sample=args.logSample)
+    return _reqtrace.RequestTracer(capacity=args.reqTraceCapacity,
+                                   metrics=metrics, slo=slo,
+                                   access_log=access_log)
 
 
 def _page_tokens(spec, max_len: int):
@@ -172,30 +265,32 @@ def _page_tokens(spec, max_len: int):
 def build_app(args):
     """(app, engine, in_shape, in_dtype) from parsed args. Every graph is
     captured (the /predict buckets at each length bucket, the decode
-    programs)
-    before the server's workers (decoder loop, batcher, watchdog) are
-    started."""
+    programs) before the server's workers (decoder loop, batcher,
+    watchdog) are started. The request tracer (or None) is installed
+    process-wide, and the app's metrics become the process registry;
+    ``main`` installs ``--faultPlan`` before it calls this."""
+    import numpy as np
     import torch
 
-    from bigdl_tpu_torch.cli.common import load_trained
+    from bigdl_tpu_torch.cli.common import load_trained, resolve_serve_config
     from bigdl_tpu_torch.cli.perf import build_model
     from bigdl_tpu_torch.core.module import resolve_device
     from bigdl_tpu_torch.models import TransformerLM
+    from bigdl_tpu_torch.obs.metrics import set_registry
     from bigdl_tpu_torch.ops.attention_kernel import (SUPPORTED_HEAD_DIMS,
                                                       serving_prefill_buckets)
     from bigdl_tpu_torch.serving import (DecodeEngine, InferenceEngine,
                                          MetricsRegistry, MicroBatcher,
                                          ServingApp, Watchdog)
+    from bigdl_tpu_torch.serving import reqtrace as _reqtrace
     from bigdl_tpu_torch.serving.graphs import GraphPool
     from bigdl_tpu_torch.serving.quant import (parse_quantize, quant_report,
                                                quantize_params, weight_bytes)
     from bigdl_tpu_torch.serving.spec_decode import parse_draft_dims
 
-    later = [f for f in _LATER_FLAGS
-             if getattr(args, f"later_{f[2:]}") is not None]
-    if later:
-        raise SystemExit(f"{', '.join(later)}: not available in the PyTorch "
-                         f"port yet (a later slice brings it)")
+    resolve_serve_config(args)  # refuses what is not ported first
+    metrics = MetricsRegistry()
+    reqtracer = _request_tracer(args, metrics)
     device = resolve_device(args.platform)
     name = args.model
     if not name.startswith("transformer_lm"):
@@ -263,7 +358,9 @@ def build_app(args):
     if draft is not None:
         draft.compute_dtype = compute_dtype
 
-    metrics = MetricsRegistry()
+    # the fault and retry counters land on this server's page
+    set_registry(metrics)
+    _reqtrace.set_request_tracer(reqtracer)
     graphs = GraphPool(device)
     # the LM is causal: /predict rows pad to the prompt ladder's lengths
     engine = InferenceEngine(model, buckets=_parse_buckets(args.buckets),
@@ -304,27 +401,48 @@ def build_app(args):
         "speculate": args.speculate,
         "draft": (args.draftDims or "self") if args.speculate else "none",
         "weight_bytes": weight_bytes(model),
+        "reqtrace": "on" if reqtracer is not None else "off",
     })
+    if reqtracer is not None:
+        prov["slo"] = args.slo or "none"
+        if reqtracer.access_log is not None:
+            prov["access_log"] = reqtracer.access_log.path
+            prov["access_log_sample"] = args.logSample
+    if args.faultPlan:
+        prov["fault_plan"] = args.faultPlan
     if quant_info is not None:
         prov["quant_agreement"] = round(float(quant_info["agreement"]), 4)
         prov["quant_logit_max_err"] = round(
             float(quant_info["logit_max_err"]), 6)
-    metrics.set_provenance(prov)
     app = ServingApp(name=name, metrics=metrics, engine=engine,
                      batcher=batcher, decoder=decoder,
                      request_timeout_s=args.timeout,
                      default_deadline_ms=args.deadlineMs,
-                     shed_generate_frac=args.shedAt, watchdog=watchdog)
+                     shed_generate_frac=args.shedAt, watchdog=watchdog,
+                     version=args.modelVersion or "v0")
+    # resolved at each scrape: a rolling swap bumps the version
+    prov["model_version"] = lambda: app.model_version
+    metrics.set_provenance(prov)
     return app, engine, in_shape, np.int32
 
 
 def main(argv=None) -> int:
+    import sys
+
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: "
                                "%(message)s")
-    from bigdl_tpu_torch.serving import run_server
+    raw_argv = list(sys.argv[1:]) if argv is None else list(argv)
+    args = build_parser().parse_args(raw_argv)
+    if args.fleet:
+        # this process becomes the router; each worker enters the serve
+        # stack in its own process, the router's flags stripped
+        from bigdl_tpu_torch.serving.fleet.router import run_fleet
+        return run_fleet(args, raw_argv)
+    from bigdl_tpu_torch.cli.common import install_fault_plan
+    from bigdl_tpu_torch.serving.server import run_server
 
-    args = build_parser().parse_args(argv)
+    install_fault_plan(args)
     app, _, _, _ = build_app(args)
     return run_server(app, args.host, args.port)
 

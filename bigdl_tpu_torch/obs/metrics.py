@@ -1,13 +1,18 @@
 """Metrics registry: counters, gauges and fixed-bucket latency histograms
 with a plaintext (Prometheus-compatible) exposition. A copy of the JAX
-package's ``bigdl_tpu/obs/metrics.py`` without labelled series and the
-process-global registry, which the port does not use yet.
+package's ``bigdl_tpu/obs/metrics.py`` without labelled series, which the
+port does not use yet.
 
 Each instrument guards its update with one short-held lock; histograms
 estimate quantiles at render time by linear interpolation inside the
 covering bucket. The config provenance (``set_provenance``) is stamped
 into every scrape as an ``<ns>_info`` gauge and a ``# provenance {json}``
-comment line."""
+comment line; a callable value is resolved at each scrape.
+
+:func:`get_registry` is the process-global registry the fault injector's
+and the supervisor's counters land in; ``serve`` installs its own
+registry there (:func:`set_registry`), so they share its ``/metrics``
+page."""
 
 from __future__ import annotations
 
@@ -18,12 +23,21 @@ import time
 from typing import Callable, Dict, List, Optional, Sequence
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
-           "DEFAULT_LATENCY_BUCKETS_MS"]
+           "DEFAULT_LATENCY_BUCKETS_MS", "ITL_BUCKETS_MS", "get_registry",
+           "set_registry", "reset_registry"]
 
 # log-spaced 100 us .. 60 s
 DEFAULT_LATENCY_BUCKETS_MS: tuple = (
     0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0,
     500.0, 1000.0, 2500.0, 5000.0, 10000.0, 30000.0, 60000.0)
+
+# inter-token latencies cluster tightly (a decode step is a few ms, TTFT
+# a few tens): the TTFT/TPOT/ITL histograms of serving/reqtrace.py take
+# ~2x finer buckets below 100 ms
+ITL_BUCKETS_MS: tuple = (
+    0.25, 0.5, 1.0, 1.5, 2.5, 4.0, 6.0, 10.0, 15.0, 25.0, 40.0, 60.0,
+    100.0, 150.0, 250.0, 400.0, 600.0, 1000.0, 2500.0, 5000.0, 10000.0,
+    30000.0, 60000.0)
 
 
 class Counter:
@@ -163,6 +177,12 @@ class MetricsRegistry:
         with self._lock:
             metrics = sorted(self._metrics.values(), key=lambda m: m.name)
             prov = dict(self._provenance)
+        for k, v in list(prov.items()):
+            if callable(v):  # resolved at scrape time (the model version)
+                try:
+                    prov[k] = v()
+                except Exception:
+                    prov[k] = None
         lines: List[str] = []
         if prov:
             lines.append(f"# provenance {json.dumps(prov, sort_keys=True)}")
@@ -210,3 +230,28 @@ def _fmt(v) -> str:
 def _label_escape(v) -> str:
     return str(v).replace("\\", "\\\\").replace('"', '\\"').replace(
         "\n", "\\n")
+
+
+_GLOBAL: Optional[MetricsRegistry] = None
+_GLOBAL_LOCK = threading.Lock()
+
+
+def get_registry(namespace: str = "bigdl") -> MetricsRegistry:
+    """The process-global registry (created on first call; later
+    ``namespace`` arguments are ignored: one process, one page)."""
+    global _GLOBAL
+    with _GLOBAL_LOCK:
+        if _GLOBAL is None:
+            _GLOBAL = MetricsRegistry(namespace=namespace)
+        return _GLOBAL
+
+
+def set_registry(reg: Optional[MetricsRegistry]) -> None:
+    """Install (or clear, with None) the process-global registry."""
+    global _GLOBAL
+    with _GLOBAL_LOCK:
+        _GLOBAL = reg
+
+
+def reset_registry() -> None:
+    set_registry(None)

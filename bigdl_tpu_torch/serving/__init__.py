@@ -1,33 +1,46 @@
 """Online serving for the PyTorch port: bucketed forwards, micro-batching,
 continuous-batching KV-cache decode (dense or paged, with the shared-prefix
 cache, speculative decoding and quantized weights and KV pools), CUDA
-graphs of the serving path, watchdog and the HTTP surface."""
+graphs of the serving path, request tracing with SLOs and an access log,
+watchdog, the HTTP surface with streamed ``/generate``, and the
+multi-process fleet (``serving.fleet``).
 
-from bigdl_tpu_torch.serving.batcher import (AdmissionError, DeadlineExceeded,
-                                             MicroBatcher, WorkerDied)
-from bigdl_tpu_torch.serving.decode import DecodeEngine
-from bigdl_tpu_torch.serving.engine import InferenceEngine
-from bigdl_tpu_torch.serving.graphs import GraphPool
-from bigdl_tpu_torch.serving.kv_pages import (PageAllocator, PagedKvCache,
-                                              QuantPool, kv_quant_rows,
-                                              pages_needed)
-from bigdl_tpu_torch.serving.metrics import MetricsRegistry
-from bigdl_tpu_torch.serving.prefix_cache import PrefixCache
-from bigdl_tpu_torch.serving.quant import (QUANTIZE_CHOICES, QuantizedWeight,
-                                           parse_quantize, quant_report,
-                                           quantize_params)
-from bigdl_tpu_torch.serving.server import ServingApp, make_server, run_server
-from bigdl_tpu_torch.serving.spec_decode import (accept_chunk,
-                                                 parse_draft_dims,
-                                                 request_key, sample_token,
-                                                 warp_logits)
-from bigdl_tpu_torch.serving.watchdog import Watchdog
+The names below load on first use: a fleet router imports
+``serving.fleet.router`` and ``serving.reqtrace`` without loading torch,
+so the front-door process never touches the card."""
 
-__all__ = ["AdmissionError", "DeadlineExceeded", "DecodeEngine", "GraphPool",
-           "InferenceEngine", "MetricsRegistry", "MicroBatcher",
-           "PageAllocator", "PagedKvCache", "PrefixCache", "QUANTIZE_CHOICES",
-           "QuantPool", "QuantizedWeight", "ServingApp", "Watchdog",
-           "WorkerDied", "accept_chunk", "kv_quant_rows", "make_server",
-           "pages_needed", "parse_draft_dims", "parse_quantize",
-           "quant_report", "quantize_params", "request_key", "run_server",
-           "sample_token", "warp_logits"]
+import importlib
+
+_EXPORTS = {
+    "batcher": ("AdmissionError", "DeadlineExceeded", "MicroBatcher",
+                "WorkerDied"),
+    "decode": ("DecodeEngine",),
+    "engine": ("InferenceEngine",),
+    "graphs": ("GraphPool",),
+    "kv_pages": ("PageAllocator", "PagedKvCache", "QuantPool",
+                 "kv_quant_rows", "pages_needed"),
+    "metrics": ("MetricsRegistry",),
+    "prefix_cache": ("PrefixCache",),
+    "quant": ("QUANTIZE_CHOICES", "QuantizedWeight", "parse_quantize",
+              "quant_report", "quantize_params"),
+    "server": ("ServingApp", "make_server", "run_server"),
+    "spec_decode": ("accept_chunk", "parse_draft_dims", "request_key",
+                    "sample_token", "warp_logits"),
+    "watchdog": ("Watchdog",),
+}
+_OWNER = {name: mod for mod, names in _EXPORTS.items() for name in names}
+
+__all__ = sorted(_OWNER)
+
+
+def __getattr__(name):
+    mod = _OWNER.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f"{__name__}.{mod}"), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

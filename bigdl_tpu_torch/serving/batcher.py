@@ -1,6 +1,6 @@
 """Dynamic micro-batching with backpressure admission, per-row deadlines
 and dead-worker fast-fail (counterpart of ``bigdl_tpu/serving/batcher.py``,
-host-side and unchanged in behaviour; request tracing is not ported yet).
+host-side and unchanged in behaviour).
 
 Requests queue one row at a time; a worker thread flushes a batch when
 ``max_batch`` rows wait (throughput trigger) or the oldest row has waited
@@ -11,16 +11,29 @@ deadline are dropped before compute (:class:`DeadlineExceeded`, HTTP
 504). A dead worker fails every pending future with :class:`WorkerDied`
 (HTTP 503) and later submits fast. The flush decision is a pure function
 of the injected ``clock`` (``pump``), so tests need no threads.
+
+Each row may carry its request id (``rid``): with ``--reqTrace`` on, the
+request's lifecycle record notes its queueing, its dequeue and the
+engine forward that computed it, and the span timeline gets a
+``queue_wait`` span a row. A weight swap needs what is in flight:
+:meth:`in_flight` counts the queued rows and the rows of the flush being
+computed, and the flush runs under :attr:`exec_lock`, which the swap
+holds across its copy.
 """
 
 from __future__ import annotations
 
 import collections
+import inspect
 import threading
 import time
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
+
+from bigdl_tpu_torch.obs.spans import get_tracer as _get_tracer
+from bigdl_tpu_torch.obs.spans import span as _obs_span
+from bigdl_tpu_torch.serving.reqtrace import get as _get_reqtracer
 
 __all__ = ["AdmissionError", "DeadlineExceeded", "WorkerDied",
            "MicroBatcher"]
@@ -68,11 +81,12 @@ class _Future:
 
 
 class _Pending:
-    __slots__ = ("row", "future", "t_enqueue", "deadline")
+    __slots__ = ("row", "future", "t_enqueue", "deadline", "rid")
 
-    def __init__(self, row, future, t, deadline=None):
+    def __init__(self, row, future, t, deadline=None, rid=None):
         self.row, self.future, self.t_enqueue = row, future, t
         self.deadline = deadline
+        self.rid = rid
 
 
 class MicroBatcher:
@@ -102,6 +116,15 @@ class MicroBatcher:
         self._worker_error: Optional[BaseException] = None
         self._last_beat = clock()
         self._in_flush = False
+        self._executing = 0  # rows drained and not yet resolved
+        self.exec_lock = threading.Lock()  # held across each flush
+        # an engine forward that takes ``rids`` attributes its compute
+        # window to those requests; a plain fn gets the whole flush's
+        try:
+            self._fn_takes_rids = "rids" in inspect.signature(
+                predict_fn).parameters
+        except (TypeError, ValueError):
+            self._fn_takes_rids = False
 
         if metrics is not None:
             self._m_submitted = metrics.counter(
@@ -135,10 +158,20 @@ class MicroBatcher:
             self._thread.start()
 
     # --------------------------------------------------------------- submit
-    def submit(self, row, deadline: Optional[float] = None) -> _Future:
+    def submit(self, row, deadline: Optional[float] = None,
+               rid: Optional[str] = None) -> _Future:
         """Queue one input row; the future resolves to its score row.
-        ``deadline`` is absolute, on the batcher's clock."""
-        fut = _Future()
+        ``deadline`` is absolute, on the batcher's clock; ``rid`` tags the
+        row with its request id."""
+        return self.submit_many([row], deadline, rid)[0]
+
+    def submit_many(self, rows: Sequence, deadline: Optional[float] = None,
+                    rid: Optional[str] = None) -> list:
+        """Queue the rows of one request under one hold of the queue's
+        lock (one future a row), as one ``submit`` a row would, rejecting
+        at the first row past ``max_queue``: a weight swap, which waits
+        for :meth:`in_flight` to reach 0, then never sees part of a
+        request computed and the rest still to come."""
         now = self.clock()
         with self._lock:
             if self._closed:
@@ -157,20 +190,34 @@ class MicroBatcher:
                 raise DeadlineExceeded(
                     f"deadline expired {now - deadline:.3f}s before "
                     f"submit")
-            if len(self._pending) >= self.max_queue:
-                if self._m_rejected is not None:
-                    self._m_rejected.inc()
-                raise AdmissionError(
-                    f"queue at capacity ({self.max_queue} rows pending)")
-            self._pending.append(_Pending(row, fut, now, deadline))
-            if self._m_submitted is not None:
-                self._m_submitted.inc()
+            futs = []
+            for row in rows:
+                if len(self._pending) >= self.max_queue:
+                    if self._m_rejected is not None:
+                        self._m_rejected.inc()
+                    self._wakeup.notify()
+                    raise AdmissionError(
+                        f"queue at capacity ({self.max_queue} rows pending)")
+                futs.append(_Future())
+                self._pending.append(_Pending(row, futs[-1], now, deadline,
+                                              rid))
+                if self._m_submitted is not None:
+                    self._m_submitted.inc()
             self._wakeup.notify()
-        return fut
+        if rid is not None:
+            rt = _get_reqtracer()
+            if rt is not None:
+                rt.note_queued(rid)
+        return futs
 
     @property
     def queue_depth(self) -> int:
         return len(self._pending)
+
+    def in_flight(self) -> int:
+        """Rows queued or being computed (the swap's drain count)."""
+        with self._lock:
+            return len(self._pending) + self._executing
 
     # ------------------------------------------------------ watchdog surface
     def alive(self) -> bool:
@@ -232,14 +279,51 @@ class MicroBatcher:
         return batch
 
     def _flush(self, batch: list, now: float) -> None:
+        try:
+            with self.exec_lock:
+                self._compute(batch, now)
+        finally:
+            with self._lock:
+                self._executing -= len(batch)
+
+    def _compute(self, batch: list, now: float) -> None:
         if not batch:
             return
         if self._m_wait is not None:
             for p in batch:
                 self._m_wait.observe((now - p.t_enqueue) * 1000.0)
+        tr = _get_tracer()
+        if tr is not None:
+            # queue wait is retrospective: one back-dated span a row
+            t1 = tr.clock()
+            for p in batch:
+                args = {"rows": len(batch)}
+                if p.rid is not None:
+                    args["rid"] = p.rid
+                tr.record("queue_wait", t1 - max(now - p.t_enqueue, 0.0),
+                          t1, depth=0, args=args)
+        rt = _get_reqtracer()
+        if rt is not None:
+            for p in batch:
+                if p.rid is not None:
+                    rt.note_dequeued(p.rid)
+        rids = None
+        if rt is not None and self._fn_takes_rids:
+            rids = [p.rid for p in batch]
         try:
-            scores = self.predict_fn(np.stack([np.asarray(p.row)
-                                               for p in batch]))
+            with _obs_span("batch_assembly", rows=len(batch)):
+                stacked = np.stack([np.asarray(p.row) for p in batch])
+            with _obs_span("compute", rows=len(batch)):
+                if rids is not None:
+                    scores = self.predict_fn(stacked, rids=rids)
+                else:
+                    t0c = rt.clock() if rt is not None else 0.0
+                    scores = self.predict_fn(stacked)
+                    if rt is not None:
+                        t1c = rt.clock()
+                        for p in batch:
+                            if p.rid is not None:
+                                rt.note_compute(p.rid, t0c, t1c)
         except BaseException as e:  # resolve every waiter, never hang them
             for p in batch:
                 p.future.set_exception(e)
@@ -261,6 +345,7 @@ class MicroBatcher:
             depth0 = len(self._pending)
             batch = self._drain(now)
             settled = depth0 - len(self._pending)
+            self._executing += len(batch)
         self._flush(batch, now)  # outside the lock: submits stay wait-free
         return settled
 
@@ -284,6 +369,7 @@ class MicroBatcher:
                         self._wakeup.wait(timeout=max(wake - now, 0.0))
                         continue
                     batch = self._drain(now)
+                    self._executing += len(batch)
                     self._in_flush = True
                 try:
                     self._flush(batch, self.clock())
@@ -314,4 +400,5 @@ class MicroBatcher:
         while self._pending:
             with self._lock:
                 batch = self._drain(self.clock())
+                self._executing += len(batch)
             self._flush(batch, self.clock())

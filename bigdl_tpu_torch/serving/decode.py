@@ -47,6 +47,13 @@ runs on the CPU.
 Greedy decoding equals the offline ``TransformerLM.generate``: both run
 ``prefill_logits`` and then ``decode_logits``, and paged decode runs the
 dense arithmetic on each layer's gathered view.
+
+Streaming: ``submit(..., emit=fn)`` calls ``fn(new_tokens, done)`` from
+the decode loop for every round that emits (speculative: the round's
+accepted tokens, each once), with the tokens the step already copied to
+the host; it runs under the engine lock and must only hand them off.
+With ``--reqTrace`` on, the request's lifecycle record notes its
+queueing, prefill, every emitting round and how it ended.
 """
 
 from __future__ import annotations
@@ -68,6 +75,7 @@ from bigdl_tpu_torch.serving.batcher import (AdmissionError, DeadlineExceeded,
                                              WorkerDied, _Future)
 from bigdl_tpu_torch.serving.graphs import GraphPool, GraphSet
 from bigdl_tpu_torch.serving.prefix_cache import PrefixCache
+from bigdl_tpu_torch.serving.reqtrace import get as _get_reqtracer
 from bigdl_tpu_torch.serving.sampling import sample_token, sample_tokens
 from bigdl_tpu_torch.serving.spec_decode import accept_chunk, draft_propose
 
@@ -78,11 +86,12 @@ __all__ = ["DecodeEngine", "DecodeRequest"]
 
 class DecodeRequest:
     __slots__ = ("tokens", "max_new_tokens", "temperature", "stop_token",
-                 "top_k", "top_p", "seed", "future", "out", "deadline", "rid")
+                 "top_k", "top_p", "seed", "future", "out", "deadline", "rid",
+                 "emit")
 
     def __init__(self, tokens, max_new_tokens, temperature=0.0,
                  stop_token=None, deadline=None, top_k=0, top_p=1.0,
-                 seed=0, rid=None):
+                 seed=0, rid=None, emit=None):
         self.tokens = [int(t) for t in tokens]
         self.max_new_tokens = int(max_new_tokens)
         self.temperature = float(temperature)
@@ -94,6 +103,8 @@ class DecodeRequest:
         self.future = _Future()
         self.out: list = []
         self.rid = rid
+        # the streaming sink: emit(new_tokens, done) per emitting round
+        self.emit = emit
 
 
 class DecodeEngine:
@@ -165,6 +176,8 @@ class DecodeEngine:
         self._pos = np.zeros(S, np.int64)  # host mirror of _pos_d
         self._thread = None
         self._closed = False
+        # cancels handed to the loop: (rid, reason, done event, [result])
+        self._cancels: collections.deque = collections.deque()
 
         # ---- KV: dense rows or page pools; the static one-slot prefill
         # cache the prefill graphs write before copying into a slot
@@ -309,6 +322,13 @@ class DecodeEngine:
 
     def kv_pages_in_use(self) -> int:
         return self._kv.alloc.pages_in_use if self.paged else 0
+
+    def queue_load(self) -> int:
+        """Active slots plus waiting requests: the routing and drain
+        signal (a lock-free read; callers that need it exact hold the
+        engine lock)."""
+        return (sum(r is not None for r in self._reqs)
+                + len(self._waiting))
 
     # ---------------------------------------------------------------- graphs
     def _suffix_buckets(self) -> tuple:
@@ -488,13 +508,16 @@ class DecodeEngine:
     def submit(self, tokens, max_new_tokens: int, temperature: float = 0.0,
                stop_token=None, deadline: Optional[float] = None,
                top_k: int = 0, top_p: float = 1.0, seed: int = 0,
-               rid: Optional[str] = None) -> _Future:
+               rid: Optional[str] = None, emit=None) -> _Future:
         """Queue one generation request; the future resolves to the list
         of generated token ids. Fast-rejects when the waiting queue is
         full, when the decode worker is dead (:class:`WorkerDied`) or when
         ``deadline`` (absolute, on the engine's clock) has passed
         (:class:`DeadlineExceeded`). Paged, a request waits until its
-        pages can be reserved."""
+        pages can be reserved. ``rid`` tags the request for lifecycle
+        tracing and :meth:`cancel`; ``emit`` is the streaming sink,
+        called as ``emit(new_tokens, done)`` under the engine lock (it
+        must only hand the tokens off, e.g. ``queue.put_nowait``)."""
         tokens = list(tokens)
         if not tokens:
             raise ValueError("empty prompt")
@@ -517,7 +540,7 @@ class DecodeEngine:
             raise ValueError(f"the request needs more KV pages than the "
                              f"pool's {self._kv.pool_pages - 1}")
         req = DecodeRequest(tokens, max_new_tokens, temperature, stop_token,
-                            deadline, top_k, top_p, seed, rid=rid)
+                            deadline, top_k, top_p, seed, rid=rid, emit=emit)
         with self._lock:
             if self._closed:
                 raise RuntimeError("decode engine is closed")
@@ -543,6 +566,10 @@ class DecodeEngine:
                     f"decode queue at capacity ({self.max_waiting} waiting)")
             else:
                 self._waiting.append(req)
+                if rid is not None:
+                    rt = _get_reqtracer()
+                    if rt is not None:
+                        rt.note_queued(rid)
             self._work.notify()
         return req.future
 
@@ -583,6 +610,8 @@ class DecodeEngine:
         """Prefill ``req``'s prompt into ``slot`` (lock held). False iff
         the paged pool cannot serve the request's reservation yet."""
         s = len(req.tokens)
+        rt = _get_reqtracer() if req.rid is not None else None
+        t0_pf = rt.clock() if rt is not None else 0.0
         with self._pool.work():
             if self.paged and not self._kv.reserve(
                     slot, s + req.max_new_tokens):
@@ -612,6 +641,11 @@ class DecodeEngine:
         if self._m_prefills is not None:
             self._m_prefills.inc()
             self._m_prompt_tokens.inc(s - n_pfx)
+        if rt is not None:
+            rt.note_prefill(req.rid, t0_pf, rt.clock(), slot=slot,
+                            prefix_hit_tokens=n_pfx,
+                            pages=(len(self._kv.slot_pages[slot])
+                                   if self.paged else None))
         if self.speculate:
             # the first token is emitted now and fed as the first round's
             # pending token: the plain step's first draw (seed, pos s)
@@ -665,10 +699,12 @@ class DecodeEngine:
         self._pfx.commit_insert(key, dst, len(dst) * self.page_tokens)
 
     # ------------------------------------------------------------- emission
-    def _emit(self, req, slot: int, toks) -> None:
+    def _emit(self, req, slot: int, toks, accepted=None) -> None:
         """Append generated tokens to ``req`` up to its budget or stop
-        token (lock held); a finished request resolves and hands its slot
-        to the next waiting one."""
+        token (lock held), note the round and hand the new tokens to the
+        request's sink; a finished request resolves and hands its slot
+        to the next waiting one. ``accepted``: the draft tokens the
+        verify kept this round (None on the plain path)."""
         done, n = False, 0
         for tok in toks:
             req.out.append(int(tok))
@@ -680,9 +716,25 @@ class DecodeEngine:
                 break
         if self._m_tokens is not None:
             self._m_tokens.inc(n)
+        rt = _get_reqtracer() if req.rid is not None else None
+        if rt is not None and n:
+            rt.note_round(req.rid, n, accepted=accepted,
+                          pages=(len(self._kv.slot_pages[slot])
+                                 if self.paged else None),
+                          pos=int(self._pos[slot]))
+        if req.emit is not None and n:
+            # a broken sink must not take the decode loop (and every
+            # other slot) down: a disconnect is cancel(), not an error
+            try:
+                req.emit(req.out[-n:], done)
+            except Exception:
+                logger.exception("streaming emit sink failed (rid=%s)",
+                                 req.rid)
         if done:
             self._release_slot(slot)
             req.future.set_result(list(req.out))
+            if rt is not None:
+                rt.finish(req.rid, "finished")
             self._admit()
 
     # ------------------------------------------------------------ deadlines
@@ -690,6 +742,7 @@ class DecodeEngine:
         """Drop expired requests before compute is spent on them (lock
         held): waiting ones resolve with :class:`DeadlineExceeded`, active
         ones free their slot for the next live waiting request."""
+        rt = _get_reqtracer()
         if self._waiting:
             live = collections.deque()
             for req in self._waiting:
@@ -699,6 +752,9 @@ class DecodeEngine:
                     req.future.set_exception(DeadlineExceeded(
                         "deadline expired while waiting for a decode "
                         "slot"))
+                    if rt is not None and req.rid is not None:
+                        rt.finish(req.rid, "expired",
+                                  error="expired in decode queue")
                 else:
                     live.append(req)
             self._waiting = live
@@ -711,17 +767,37 @@ class DecodeEngine:
                 req.future.set_exception(DeadlineExceeded(
                     f"deadline expired after {len(req.out)} of "
                     f"{req.max_new_tokens} tokens"))
+                if rt is not None and req.rid is not None:
+                    rt.finish(req.rid, "expired",
+                              error=f"expired mid-decode after "
+                                    f"{len(req.out)} tokens")
                 self._admit()
 
     def cancel(self, rid: str, reason: str = "client disconnected") -> bool:
         """Drop the request ``rid`` wherever it is (waiting or in a slot),
         freeing its slot and pages for the next waiting request. True iff
         found. ``step`` holds the engine lock for a whole round (draft
-        feeds, verify, acceptance and emission), so a cancel waits for the
-        round to end and never frees pages a verify still writes."""
+        feeds, verify, acceptance and emission), so a cancel never frees
+        pages a verify still writes. A running decode loop takes the lock
+        back between rounds before a waiting thread can, so the cancel is
+        handed to it and applied at the start of its next round; without
+        a busy loop it is applied here."""
         if rid is None:
             return False
-        with self._lock:
+        done, box = threading.Event(), []
+        self._cancels.append((rid, reason, done, box))
+        while not done.wait(0.005):
+            if self._lock.acquire(blocking=False):
+                try:
+                    self._apply_cancels()
+                finally:
+                    self._lock.release()
+        return box[0]
+
+    def _apply_cancels(self) -> None:
+        """Apply the cancels handed over (lock held)."""
+        while self._cancels:
+            rid, reason, done, box = self._cancels.popleft()
             req = next((r for r in self._waiting if r.rid == rid), None)
             if req is not None:
                 self._waiting.remove(req)
@@ -732,14 +808,17 @@ class DecodeEngine:
                         self._release_slot(i)
                         self._admit()
                         break
-            if req is None:
-                return False
-            if self._m_cancelled is not None:
-                self._m_cancelled.inc()
-            self._work.notify()
-        req.future.set_exception(
-            RuntimeError(f"request {rid} cancelled: {reason}"))
-        return True
+            if req is not None:
+                if self._m_cancelled is not None:
+                    self._m_cancelled.inc()
+                self._work.notify()
+                req.future.set_exception(
+                    RuntimeError(f"request {rid} cancelled: {reason}"))
+                rt = _get_reqtracer()
+                if rt is not None:
+                    rt.finish(rid, "closed", error=reason)
+            box.append(req is not None)
+            done.set()
 
     # ---------------------------------------------------------------- step
     def step(self) -> int:
@@ -748,6 +827,7 @@ class DecodeEngine:
         advanced (0 = idle)."""
         with self._lock:
             self._last_beat = self.clock()
+            self._apply_cancels()
             self._expire(self.clock())
             active = [i for i, r in enumerate(self._reqs) if r is not None]
             if not active:
@@ -790,7 +870,7 @@ class DecodeEngine:
         for i in active:
             n = out[i][K + 1]
             self._pos[i] += n
-            self._emit(self._reqs[i], i, out[i][:n])
+            self._emit(self._reqs[i], i, out[i][:n], accepted=out[i][K + 2])
         return len(active)
 
     def generate(self, tokens, max_new_tokens: int, temperature: float = 0.0,
@@ -807,10 +887,20 @@ class DecodeEngine:
                         "decode engine idle with unresolved request")
         return fut.result()
 
+    def _page_occupancy(self) -> float:
+        """Live tokens (slots' positions and cached prefixes) over the
+        tokens of the pages handed out."""
+        live = int(sum(int(self._pos[i])
+                       for i, r in enumerate(self._reqs) if r is not None))
+        if self._pfx is not None:
+            live += self._pfx.cached_tokens()
+        cap = self._kv.alloc.pages_in_use * self.page_tokens
+        return live / cap if cap else 0.0
+
     def debug_snapshot(self) -> dict:
-        """The slot table, the waiting queue's depth, ``speculate`` and,
-        paged, the page pool's occupancy (the JAX package's /debug/slots
-        body, without its tracing fields)."""
+        """The /debug/slots body: the slot table, the waiting queue's
+        depth, ``speculate`` and, paged, the page pool's occupancy (the
+        JAX package's keys, and ``quantize``; ``tp`` is 1)."""
         with self._lock:
             slots = [{"slot": i, "state": "free"} if req is None else
                      {"slot": i, "state": "active", "rid": req.rid,
@@ -826,7 +916,7 @@ class DecodeEngine:
                    "waiting": len(self._waiting),
                    "max_waiting": self.max_waiting,
                    "speculate": self.speculate, "quantize": self.quantize,
-                   "worker_up": self._worker_error is None,
+                   "worker_up": self._worker_error is None, "tp": 1,
                    "kv": {"paged": self.paged}}
             if self.paged:
                 out["kv"].update({
@@ -834,6 +924,7 @@ class DecodeEngine:
                     "pool_pages": self._kv.pool_pages,
                     "pages_in_use": self._kv.alloc.pages_in_use,
                     "free_pages": self._kv.alloc.free_pages,
+                    "occupancy_frac": round(self._page_occupancy(), 4),
                     "allocated_bytes": self._kv.allocated_bytes(),
                     "bytes_per_page": self._kv.bytes_per_page})
         return out
@@ -870,8 +961,11 @@ class DecodeEngine:
             self._work.notify_all()
         err = (exc if isinstance(exc, WorkerDied)
                else WorkerDied(f"decode worker died: {exc}"))
+        rt = _get_reqtracer()
         for req in dead:
             req.future.set_exception(err)
+            if rt is not None and req.rid is not None:
+                rt.finish(req.rid, "worker_dead", error=str(err))
 
     # --------------------------------------------------------------- worker
     def start(self) -> None:
@@ -904,16 +998,21 @@ class DecodeEngine:
     def close(self, timeout: float = 10.0) -> None:
         """Fail what is queued or in flight, stop the loop and drop the
         graphs."""
+        rt = _get_reqtracer()
         with self._lock:
             self._closed = True
             for req in self._waiting:
                 req.future.set_exception(RuntimeError("decode engine closed"))
+                if rt is not None and req.rid is not None:
+                    rt.finish(req.rid, "closed")
             self._waiting.clear()
             for i, req in enumerate(self._reqs):
                 if req is not None:
                     self._reqs[i] = None
                     req.future.set_exception(
                         RuntimeError("decode engine closed mid-request"))
+                    if rt is not None and req.rid is not None:
+                        rt.finish(req.rid, "closed")
             self._work.notify_all()
         t, self._thread = self._thread, None
         if t is not None:

@@ -19,8 +19,11 @@ after it, ``validate`` refuses any other geometry, so the graphs and the
 memory they hold are fixed at start-up. Every graph writes its output
 into one buffer, sized by the largest, which is captured first.
 ``quantize`` serves a copy of the module with int8 or fp8 weights
-(``serving.quant``). Mesh placement and the lint pre-flight are not ported
-yet.
+(``serving.quant``). ``predict_scores`` is the ``infer`` fault site (a
+``worker_kill`` there is fatal to the batcher's worker thread), and with
+``--reqTrace`` on it attributes each chunk's compute window to the
+requests whose rows it carried. Mesh placement and the lint pre-flight
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -31,8 +34,11 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.core.module import resolve_device
+from bigdl_tpu_torch.obs.spans import span as _obs_span
+from bigdl_tpu_torch.resilience.faults import hook as _fault_hook
 from bigdl_tpu_torch.serving import quant as _q
 from bigdl_tpu_torch.serving.graphs import GraphPool, GraphSet
+from bigdl_tpu_torch.serving.reqtrace import get as _get_reqtracer
 
 __all__ = ["InferenceEngine"]
 
@@ -202,12 +208,16 @@ class InferenceEngine:
                 return b
         return self.buckets[-1]
 
-    def predict_scores(self, x) -> np.ndarray:
-        """Raw model outputs for every row of ``x`` (any row count)."""
+    def predict_scores(self, x, rids=None) -> np.ndarray:
+        """Raw model outputs for every row of ``x`` (any row count).
+        ``rids``: the request id of each row, or None; each chunk's
+        compute window goes to the requests whose rows it carried."""
+        _fault_hook("infer")  # no-op unless --faultPlan installed one
         x = np.asarray(x)
         n = len(x)
         if n == 0:
             return np.zeros((0,), np.float32)
+        rt = _get_reqtracer() if rids is not None else None
         length = x.shape[1] if self.lengths is not None else None
         if length is not None and self._length_for(length) > length:
             # right-pad the positions, repeating the last: a causal
@@ -225,7 +235,14 @@ class InferenceEngine:
                 # repeat the last real row: in-distribution filler
                 chunk = np.concatenate(
                     [chunk, np.repeat(chunk[-1:], pad, axis=0)])
-            outs.append(self._forward(chunk)[:take])
+            with _obs_span("infer", bucket=bucket, rows=take):
+                t0c = rt.clock() if rt is not None else 0.0
+                outs.append(self._forward(chunk)[:take])
+            if rt is not None:
+                t1c = rt.clock()
+                for rid in rids[i:i + take]:
+                    if rid is not None:
+                        rt.note_compute(rid, t0c, t1c)
             if self._m_rows is not None:
                 self._m_rows.inc(take)
                 self._m_pad.inc(pad)

@@ -77,6 +77,9 @@ class PrefixCache:
     def cached_pages(self) -> int:
         return sum(len(e.pages) for e in self._entries.values())
 
+    def cached_tokens(self) -> int:
+        return sum(e.n_tokens for e in self._entries.values())
+
     def _usable_prefix(self, n_prompt: int) -> int:
         """Longest cacheable prefix of an n-token prompt: page-aligned and
         strictly shorter than the prompt."""

@@ -27,6 +27,10 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+# defined beside the fault that causes it, so the supervisor's retryable
+# set and the checkpoint loader share one type
+from bigdl_tpu_torch.resilience.faults import ChecksumError
+
 logger = logging.getLogger("bigdl_tpu_torch")
 
 __all__ = ["ChecksumError", "save_leaves", "load_leaves", "checksum_path",
@@ -40,11 +44,6 @@ MANIFEST_SUFFIX = ".manifest.json"
 MANIFEST_VERSION = 1
 PATHS_KEY = "__paths__"
 TREEDEF_KEY = "__treedef__"
-
-
-class ChecksumError(ValueError):
-    """A checkpoint blob does not match its checksum sidecar, or its
-    manifest is torn (a torn write or bit rot)."""
 
 
 def _local(path: str) -> str:

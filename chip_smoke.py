@@ -339,6 +339,40 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    ``cli.perf`` runs join the kernels line's; the 2-layer remat check's,
    driven by hand, do not.
 
+23. The serving front, after phase 22: ``transformer_lm_1k_hd128`` in
+   bf16, 16 slots of 128-token pages, ``--randomInit`` with phase 14's
+   embedding x0.02. (a) One server in this process with ``--reqTrace on
+   --slo FRONT_SLO --accessLog``: phase 14's 16 prompt lengths (8 to 700
+   tokens) as 16 concurrent streamed ``/generate``, then the same 16
+   buffered, greedy: every stream's frames concatenate to its buffered
+   tokens bit for bit, each request's rid is echoed and the access log
+   holds one finished line per request; TTFT p50/p99 (server-side, from
+   the access log, and client-side: the first frame streamed, the whole
+   answer buffered) and TPOT p50; a stream dropped after 2 frames is
+   cancelled and ``kv_pages_in_use`` returns to its baseline; the same
+   traffic on a ``--speculate 4`` server, streamed = buffered again. The
+   flash launches of both join the kernels line. (c) ``python -m
+   bigdl_tpu_torch.cli.fleet ... --fleet 2 --prefixCache`` as a
+   subprocess on the same card, its workers loading a checkpoint of (a)'s
+   weights (v0): the four prompts of at most a page, buffered and
+   streamed through the router, equal (a)'s tokens; the router's added
+   latency (direct to a worker against through the router, medians of
+   ``ROUTER_REPS`` turns); each worker's boot time and peak memory; a
+   SIGKILLed worker is restarted (``restarts`` 1 in ``/debug/fleet``,
+   its restart time) while ``/readyz`` stays 200; ``/metrics`` carries
+   ``worker="0"``/``"1"`` series and fleet totals. (d) With a prefix cached
+   under v0 on each worker, a rolling swap (``POST /admin/reload``) to a
+   checkpoint of seed 1 (v1) under ``SWAP_CLIENTS`` client threads: no
+   5xx, every answer v0 or v1 and equal to (a)'s tokens on that version
+   ((a)'s server swapped in place to v1, its graphed decode equal to an
+   eager engine built on v1); after the swap the prompt sharing the
+   cached prefix gives v1's tokens on both workers; the swap's length.
+   (b) On (a)'s server: ``dispatch@request:2`` answers the 2nd request
+   503 and the 3rd 200; ``worker_kill@infer:1`` answers the killed
+   forward's /predict 500, then the watchdog's fast 503, ``/readyz`` 503
+   and ``/healthz`` 200. The workers' launches are in their processes and
+   are not counted.
+
 Any failed phase exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -574,6 +608,15 @@ MOE_D, MOE_EXPERTS, MOE_TOPK, MOE_CAP = 1024, 8, 2, 2.0
 MOE_BATCH, MOE_SEQ, MOE_CLASSES = 8, 1024, 16
 MOE_BATCHES, MOE_STEPS, MOE_K = 8, 16, 4
 MOE_LOSS_TOL = 1e-3  # graphed against eager criterion losses, bf16
+# phase 23: the serving front. Phase 14's server flags and prompts in bf16
+# (no prefix cache in (a)); the fleet of (c)-(d) boots 2 workers of them
+# with --prefixCache from a checkpoint of (a)'s weights
+FRONT_MODEL = [MODEL]
+FRONT_PLATFORM = []  # ["--platform", "cpu"] to rehearse on the CPU
+FRONT_SLO = "ttft=2000,tpot=100"
+FLEET_BOOT_S = 300  # the fleet's boot, and a restart, must take less
+ROUTER_REPS = 5  # direct/router/router/direct /generate turns
+SWAP_CLIENTS = 3  # client threads sending during the rolling swap
 
 
 def fail(msg):
@@ -4760,6 +4803,602 @@ def attention_slice_runs(torch, card):
     return rows, counts, krows
 
 
+# ---------------------------------------------------------------- phase 23
+def _stream_post(port, body, rid=None, drop_after=None, timeout=600):
+    """A streamed /generate over a raw socket: (status, headers, [frames],
+    seconds to the first frame, seconds to the end). ``drop_after``:
+    close the socket after that many frames (a client that goes away)."""
+    import socket
+
+    data = json.dumps(dict(body, stream=True)).encode()
+    head = (f"POST /generate HTTP/1.1\r\nHost: 127.0.0.1:{port}\r\n"
+            f"Content-Type: application/json\r\n"
+            f"Content-Length: {len(data)}\r\n"
+            + (f"x-request-id: {rid}\r\n" if rid else "") + "\r\n")
+    sock = socket.create_connection(("127.0.0.1", port), timeout=timeout)
+    t0 = time.perf_counter()
+    sock.sendall(head.encode() + data)
+    f = sock.makefile("rb")
+    try:
+        status = int(f.readline().split()[1])
+        headers = {}
+        while True:
+            line = f.readline().decode().strip()
+            if not line:
+                break
+            k, _, v = line.partition(":")
+            headers[k.strip().lower()] = v.strip()
+        if "chunked" not in headers.get("transfer-encoding", ""):
+            out = json.loads(f.read(int(headers["content-length"])))
+            return status, headers, [out], None, time.perf_counter() - t0
+        frames, first, buf = [], None, b""
+        while True:
+            n = int(f.readline().strip(), 16)
+            if n == 0:
+                break
+            buf += f.read(n)
+            f.readline()  # the chunk's CRLF
+            while b"\n\n" in buf:
+                frame, buf = buf.split(b"\n\n", 1)
+                if first is None:
+                    first = time.perf_counter() - t0
+                if not frame.startswith(b"data: "):
+                    fail(f"[phase 23] a stream frame without 'data: ': "
+                         f"{frame}")
+                frames.append(json.loads(frame[6:]))
+            if drop_after is not None and len(frames) >= drop_after:
+                break
+        return status, headers, frames, first, time.perf_counter() - t0
+    finally:
+        f.close()
+        sock.close()
+
+
+def _post_h(port, path, body, rid=None, timeout=600):
+    """(status, headers, body) of a JSON POST."""
+    hdr = {"Content-Type": "application/json"}
+    if rid:
+        hdr["x-request-id"] = rid
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=json.dumps(body).encode(), headers=hdr)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, {k.lower(): v for k, v in r.headers.items()}, \
+                json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, {k.lower(): v for k, v in e.headers.items()}, \
+            json.loads(e.read())
+
+
+def _get_json(port, path):
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=60) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
+
+
+def _parallel(fn, items):
+    """fn(i, item) for every item on its own thread; {i: result}."""
+    out = {}
+
+    def one(i, it):
+        out[i] = fn(i, it)
+
+    ths = [threading.Thread(target=one, args=(i, it))
+           for i, it in enumerate(items)]
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join(600)
+    if len(out) != len(items):
+        fail(f"[phase 23] {len(items) - len(out)} client threads did not "
+             f"finish")
+    return out
+
+
+def front_args(extra=(), weights=("--randomInit",)):
+    """The serve flags of phase 23's server and workers."""
+    return list(FRONT_MODEL) + list(weights) + FRONT_PLATFORM + [
+        "--bf16", "--slots", str(PAGED_SLOTS), "--kvPageTokens",
+        str(PAGE_TOKENS), "--buckets", "1,2,4", "--port", "0"] + list(extra)
+
+
+def front_model(torch, seed):
+    """Phase 23's LM from ``seed`` with its embedding x0.02, on the CPU
+    (the weights of --randomInit at seed 0)."""
+    from bigdl_tpu_torch.cli import serve as serve_cli
+    from bigdl_tpu_torch.cli.perf import build_model
+    from bigdl_tpu_torch.models import TransformerLM
+
+    a = serve_cli.build_parser().parse_args(front_args())
+    g = torch.Generator().manual_seed(seed)
+    if a.vocabSize is not None:
+        model = TransformerLM(a.vocabSize, d_model=a.dModel,
+                              num_layers=a.numLayers, num_heads=a.numHeads,
+                              max_len=a.seq or 128, attn_impl="flash",
+                              generator=g)
+    else:
+        model, _ = build_model(a.model, seq_len=a.seq, generator=g)
+    with torch.no_grad():
+        model.emb.weight.mul_(0.02)
+    return model
+
+
+def front_server(torch, extra=()):
+    """(app, server, port, thread) of a phase 23 server in this process,
+    its embedding x0.02 as phase 14's."""
+    from bigdl_tpu_torch.cli import serve as serve_cli
+    from bigdl_tpu_torch.serving import make_server
+
+    t0 = time.perf_counter()
+    app, _, _, _ = serve_cli.build_app(serve_cli.build_parser().parse_args(
+        front_args(extra)))
+    with torch.no_grad():
+        app.decoder.model.emb.weight.mul_(0.02)
+    srv = make_server(app, "127.0.0.1", 0)
+    thr = threading.Thread(target=srv.serve_forever, daemon=True)
+    thr.start()
+    print(f"[phase 23] build_app {' '.join(extra)} with every graph "
+          f"captured {time.perf_counter() - t0:.1f}s", flush=True)
+    return app, srv, srv.server_address[1], thr
+
+
+def stop_server(app, srv, thr):
+    srv.shutdown()
+    srv.server_close()
+    app.close()
+    thr.join(30)
+
+
+def stream_vs_buffered(port, tag, prompts):
+    """16 streamed, then the same 16 buffered, greedy, concurrently:
+    (streamed tokens, buffered tokens, stream first-frame seconds,
+    buffered seconds). Streamed tokens must equal the buffered ones bit
+    for bit. The rids are ``<tag>-s<i>`` and ``<tag>-b<i>``."""
+    rtag = tag.replace(" ", "-")
+
+    def streamed(i, p):
+        st, hdr, frames, first, _ = _stream_post(
+            port, {"tokens": p, "max_new_tokens": MAX_NEW},
+            rid=f"{rtag}-s{i:02d}")
+        if st != 200 or not frames or not frames[-1].get("done"):
+            fail(f"[phase 23 {tag}] stream {i} answered {st}: {frames}")
+        if hdr.get("x-request-id") != f"{rtag}-s{i:02d}":
+            fail(f"[phase 23 {tag}] stream {i} echoed rid "
+                 f"{hdr.get('x-request-id')}")
+        toks = [t for f in frames[:-1] for t in f["tokens"]]
+        if frames[-1]["prompt_len"] != len(p) or \
+                frames[-1]["tokens_out"] != len(toks):
+            fail(f"[phase 23 {tag}] stream {i}'s done frame {frames[-1]}")
+        return toks, first
+
+    def buffered(i, p):
+        t0 = time.perf_counter()
+        st, hdr, out = _post_h(port, "/generate",
+                               {"tokens": p, "max_new_tokens": MAX_NEW},
+                               rid=f"{rtag}-b{i:02d}")
+        if st != 200 or hdr.get("x-request-id") != f"{rtag}-b{i:02d}":
+            fail(f"[phase 23 {tag}] buffered {i} answered {st} "
+                 f"{hdr.get('x-request-id')}: {out}")
+        return out["tokens"], time.perf_counter() - t0
+
+    s = _parallel(streamed, prompts)
+    b = _parallel(buffered, prompts)
+    s_toks = [s[i][0] for i in range(len(prompts))]
+    b_toks = [b[i][0] for i in range(len(prompts))]
+    diff = [i for i in range(len(prompts)) if s_toks[i] != b_toks[i]]
+    if diff:
+        fail(f"[phase 23 {tag}] streamed tokens differ from buffered at "
+             f"requests {diff}: {[(s_toks[i], b_toks[i]) for i in diff]}")
+    print(f"[phase 23 {tag}] {len(prompts)} streamed = {len(prompts)} "
+          f"buffered greedy requests, token for token", flush=True)
+    return (s_toks, b_toks, [s[i][1] for i in range(len(prompts))],
+            [b[i][1] for i in range(len(prompts))])
+
+
+def front_inproc_run(torch, card):
+    """Phase 23 (a): returns (rows, flash_fwd launches, the app and its
+    server (kept for (b) and (d)), the greedy requests and their
+    tokens)."""
+    import tempfile
+
+    from bigdl_tpu_torch import ops
+
+    rows = {}
+    access = os.path.join(tempfile.mkdtemp(prefix="front_"), "access.jsonl")
+    app, srv, port, thr = front_server(torch, [
+        "--reqTrace", "on", "--slo", FRONT_SLO, "--accessLog", access])
+    _, reqs = paged_requests(app.decoder.model.vocab)
+    prompts = [p for p, _ in reqs]
+    st, _, out = _post_h(port, "/generate", {"tokens": [1, 2, 3],
+                                             "max_new_tokens": 2})
+    if st != 200:
+        fail(f"[phase 23 a] the warm-up /generate answered {st}: {out}")
+    with open(access) as f:
+        n_warm = sum(1 for _ in f)
+    ops.reset_kernel_launches()
+    s_toks, b_toks, s_first, b_wall = stream_vs_buffered(port, "a", prompts)
+    torch.cuda.synchronize()
+    launches = ops.kernel_launches()["flash_fwd"]
+    need = 12 * 2 * len(prompts)
+    print(f"[phase 23 a] flash_fwd launches {launches} over "
+          f"{2 * len(prompts)} prefills (need >= {need})", flush=True)
+    if launches < need:
+        fail(f"[phase 23 a] flash_fwd ran {launches} times, fewer than "
+             f"{need}: a prefill did not go through it")
+    # the access log: one line per request, the rids echoed
+    with open(access) as f:
+        lines = [json.loads(ln) for ln in f][n_warm:]
+    recs = {r["rid"]: r for r in lines}
+    want = {f"a-{k}{i:02d}" for k in "sb" for i in range(len(prompts))}
+    if len(lines) != len(want) or set(recs) != want:
+        fail(f"[phase 23 a] the access log has {len(lines)} lines for "
+             f"{len(want)} requests: {sorted(set(recs) ^ want)}")
+    bad = [r for r in lines if r["state"] != "finished"
+           or r["tokens_out"] != MAX_NEW]
+    if bad:
+        fail(f"[phase 23 a] access-log records not finished: {bad[:2]}")
+    ttft = {k: [recs[f"a-{k}{i:02d}"]["ttft_ms"]
+                for i in range(len(prompts))] for k in "sb"}
+    tpot = [r["tpot_ms"] for r in lines]
+    rows["a TTFT ms, streamed, server (p50/p99)"] = (
+        f"{_pct(ttft['s'], .5):.2f}/{_pct(ttft['s'], .99):.2f}")
+    rows["a TTFT ms, buffered, server (p50/p99)"] = (
+        f"{_pct(ttft['b'], .5):.2f}/{_pct(ttft['b'], .99):.2f}")
+    rows["a first frame ms, streamed, client (p50/p99)"] = (
+        f"{1e3 * _pct(s_first, .5):.2f}/{1e3 * _pct(s_first, .99):.2f}")
+    rows["a whole answer ms, buffered, client (p50/p99)"] = (
+        f"{1e3 * _pct(b_wall, .5):.2f}/{1e3 * _pct(b_wall, .99):.2f}")
+    rows["a TPOT ms p50"] = f"{_pct(tpot, .5):.3f}"
+    st, dbg = _get_json(port, "/debug/requests")
+    if st != 200 or "slo" not in dbg or dbg["dropped"] != 0:
+        fail(f"[phase 23 a] /debug/requests answered {st}: "
+             f"{str(dbg)[:300]}")
+    rows["a SLO " + FRONT_SLO + " goodput"] = dbg["slo"]["goodput_frac"]
+    # a client that goes away mid-stream: its slot and pages come back
+    base = app.decoder.kv_pages_in_use()
+    cancelled = app.metrics._metrics["decode_cancelled_total"]
+    n_cancel = cancelled.value
+    st, _, frames, _, _ = _stream_post(port, {"tokens": prompts[5],
+                                              "max_new_tokens": 256},
+                                       rid="a-drop", drop_after=2)
+    t0 = time.perf_counter()
+    while (app.decoder.kv_pages_in_use() != base
+           or app.decoder.queue_load()) and time.perf_counter() - t0 < 30:
+        time.sleep(0.05)
+    rec = [r for r in app.decoder.debug_snapshot()["slots"]
+           if r.get("rid") == "a-drop"]
+    print(f"[phase 23 a] a client dropped after {len(frames)} frames: "
+          f"kv_pages_in_use {app.decoder.kv_pages_in_use()} (baseline "
+          f"{base}) after {time.perf_counter() - t0:.2f}s", flush=True)
+    if st != 200 or app.decoder.kv_pages_in_use() != base or rec or \
+            cancelled.value != n_cancel + 1:
+        fail(f"[phase 23 a] the dropped stream kept its slot or pages, or "
+             f"was not cancelled: {app.decoder.kv_pages_in_use()} in use, "
+             f"baseline {base}, {cancelled.value - n_cancel} cancelled")
+    # the same traffic under --speculate 4: streamed = buffered again
+    spec, ssrv, sport, sthr = front_server(torch, ["--speculate",
+                                                   str(SPEC_K)])
+    try:
+        ops.reset_kernel_launches()
+        sp_s, _, _, _ = stream_vs_buffered(sport, "a speculate", prompts)
+        torch.cuda.synchronize()
+        spec_launches = ops.kernel_launches()["flash_fwd"]
+    finally:
+        stop_server(spec, ssrv, sthr)
+        del spec
+        _free(torch)
+    same = sum(a == b for a, b in zip(sp_s, s_toks))
+    rows["a --speculate 4 streams equal to plain"] = \
+        f"{same} of {len(prompts)}"
+    print(f"[phase 23 a] --speculate {SPEC_K}: flash_fwd launches "
+          f"{spec_launches}; {same} of {len(prompts)} speculative streams "
+          f"equal the plain ones ({card})", flush=True)
+    if spec_launches < need:
+        fail(f"[phase 23 a] speculative flash_fwd ran {spec_launches} times")
+    return rows, launches + spec_launches, (app, srv, port, thr), \
+        prompts, b_toks
+
+
+def fault_runs(torch, port, app):
+    """Phase 23 (b) on (a)'s server: ``dispatch@request:2`` answers the
+    2nd request 503 and the 3rd 200; ``worker_kill@infer:1`` kills the
+    batcher's worker on its first forward (that /predict 500), after
+    which /predict answers the watchdog's fast 503 and /readyz 503."""
+    from bigdl_tpu_torch.resilience import faults
+
+    body = {"tokens": [1, 2, 3], "max_new_tokens": 2}
+    faults.install_plan(faults.parse_plan("dispatch@request:2"))
+    got = [_post_h(port, "/generate", body)[0] for _ in range(3)]
+    print(f"[phase 23 b] dispatch@request:2: /generate {got}", flush=True)
+    if got != [200, 503, 200]:
+        fail(f"[phase 23 b] dispatch@request:2 gave {got}, expected "
+             f"[200, 503, 200]")
+    faults.install_plan(faults.parse_plan("worker_kill@infer:1"))
+    rows = {"inputs": [[1, 2, 3, 4] * 4]}
+    st1 = _post_h(port, "/predict", rows)[0]
+    t0 = time.perf_counter()
+    st2, _, out2 = _post_h(port, "/predict", rows)
+    dt = time.perf_counter() - t0
+    st_r, _ = _get_json(port, "/readyz")
+    st_h, _ = _get_json(port, "/healthz")
+    faults.clear_plan()
+    print(f"[phase 23 b] worker_kill@infer:1: /predict {st1} then {st2} in "
+          f"{1e3 * dt:.1f} ms ({out2.get('error', '')[:60]}), /readyz "
+          f"{st_r}, /healthz {st_h}", flush=True)
+    if (st1, st2, st_r, st_h) != (500, 503, 503, 200) or dt > 2.0:
+        fail(f"[phase 23 b] worker_kill@infer:1 gave /predict {st1}, {st2} "
+             f"({dt:.2f}s), /readyz {st_r}, /healthz {st_h}")
+
+
+class _Fleet:
+    """``python -m bigdl_tpu_torch.cli.fleet`` as a subprocess: its
+    stdout read on a thread, each line stamped with its arrival."""
+
+    def __init__(self, argv):
+        self.lines = []
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "bigdl_tpu_torch.cli.fleet"] + argv,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            bufsize=1, cwd=os.path.dirname(os.path.abspath(__file__)))
+        self.port = None
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append((time.perf_counter() - self.t0,
+                               line.rstrip("\n")))
+            m = re.search(r"fleet on http://[^:]+:(\d+)", line)
+            if m:
+                self.port = int(m.group(1))
+
+    def wait_ready(self, timeout):
+        t_end = time.perf_counter() + timeout
+        while self.port is None:
+            if self.proc.poll() is not None or time.perf_counter() > t_end:
+                tail = "\n".join(ln for _, ln in self.lines[-40:])
+                self.stop()
+                fail(f"[phase 23 c] the fleet did not come up (rc "
+                     f"{self.proc.poll()}):\n{tail}")
+            time.sleep(0.1)
+
+    def line_at(self, pattern):
+        return [(t, ln) for t, ln in self.lines if re.search(pattern, ln)]
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(30)
+
+
+def fleet_runs(torch, card, app, port, prompts, tokens_v0):
+    """Phase 23 (c) and (d) against (a)'s server (``app`` at ``port``,
+    weights v0). Returns rows."""
+    import signal
+    import tempfile
+
+    from bigdl_tpu_torch.interop.checkpoint import save_model
+    from bigdl_tpu_torch.serving import DecodeEngine
+    from bigdl_tpu_torch.serving.fleet.swap import swap_app_weights
+
+    rows = {}
+    td = tempfile.mkdtemp(prefix="fleet_")
+    for name, model in (("v0", app.decoder.model),
+                        ("v1", front_model(torch, 1))):
+        os.makedirs(os.path.join(td, name))
+        save_model(os.path.join(td, name, "model.1"), model)
+    short = [i for i, p in enumerate(prompts) if len(p) <= PAGE_TOKENS]
+    fleet = _Fleet(front_args(["--modelVersion", "v0", "--fleet", "2",
+                               "--prefixCache", "--reqTrace", "on",
+                               "--fleetHeartbeatS", "0.2"],
+                              weights=("--model", os.path.join(td, "v0"))))
+    try:
+        fleet.wait_ready(FLEET_BOOT_S)
+        fport = fleet.port
+        boots = {int(m.group(1)): t for t, ln in fleet.line_at(
+            r"^\[worker (\d)\] serving ") for m in [re.match(
+                r"^\[worker (\d)\]", ln)]}
+        for t, ln in fleet.line_at(r"^\[worker \d\] worker \d built"):
+            print(f"[phase 23 c] {ln} ({card})", flush=True)
+        rows["c worker boot s (spawn to serving line)"] = ", ".join(
+            f"{boots[i]:.1f}" for i in sorted(boots))
+        st, tbl = _get_json(fport, "/debug/fleet")
+        wports = {w["worker"]: w["port"] for w in tbl["workers"]}
+        # (c) buffered and streamed through the router equal (a)'s tokens
+        for i in short:
+            st, hdr, out = _post_h(fport, "/generate",
+                                   {"tokens": prompts[i],
+                                    "max_new_tokens": MAX_NEW},
+                                   rid=f"c-b{i:02d}")
+            sst, shdr, frames, _, _ = _stream_post(
+                fport, {"tokens": prompts[i], "max_new_tokens": MAX_NEW},
+                rid=f"c-s{i:02d}")
+            stoks = [t for f in frames[:-1] for t in f.get("tokens", [])]
+            if (st, sst) != (200, 200) or out["tokens"] != tokens_v0[i] \
+                    or stoks != tokens_v0[i] \
+                    or hdr.get("x-request-id") != f"c-b{i:02d}" \
+                    or shdr.get("x-request-id") != f"c-s{i:02d}":
+                fail(f"[phase 23 c] request {i} through the router: {st} "
+                     f"{out}, stream {sst} {stoks}, (a) {tokens_v0[i]}")
+        print(f"[phase 23 c] {len(short)} buffered and {len(short)} "
+              f"streamed requests through the router equal (a)'s tokens",
+              flush=True)
+        # the router's added latency: direct to a worker vs through it
+        body = {"tokens": prompts[short[0]], "max_new_tokens": MAX_NEW}
+        times = {"direct": [], "router": []}
+        for _ in range(ROUTER_REPS):
+            for k, p in (("direct", wports[0]), ("router", fport),
+                         ("router", fport), ("direct", wports[0])):
+                t0 = time.perf_counter()
+                if _post_h(p, "/generate", body)[0] != 200:
+                    fail(f"[phase 23 c] a {k} latency request failed")
+                times[k].append(1e3 * (time.perf_counter() - t0))
+        med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+        rows["c /generate ms direct / through the router (medians)"] = (
+            f"{med['direct']:.2f} / {med['router']:.2f}")
+        rows["c router's added ms"] = f"{med['router'] - med['direct']:.2f}"
+        # SIGKILL worker 0: /readyz stays 200, the router restarts it
+        pid0 = [w["pid"] for w in tbl["workers"] if w["worker"] == 0][0]
+        os.kill(pid0, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        ready, w0 = [], None
+        while time.perf_counter() - t_kill < FLEET_BOOT_S:
+            ready.append(_get_json(fport, "/readyz")[0])
+            w0 = [w for w in _get_json(fport, "/debug/fleet")[1]["workers"]
+                  if w["worker"] == 0][0]
+            if w0["routable"] and w0["pid"] != pid0:
+                break
+            time.sleep(0.05)
+        t_restart = time.perf_counter() - t_kill
+        print(f"[phase 23 c] worker 0 SIGKILLed: /readyz "
+              f"{sorted(set(ready))} over {len(ready)} polls, back in "
+              f"rotation after {t_restart:.1f}s with restarts "
+              f"{w0['restarts']} ({card})", flush=True)
+        if set(ready) != {200} or not w0["routable"] or w0["restarts"] != 1:
+            fail(f"[phase 23 c] after the SIGKILL: /readyz {set(ready)}, "
+                 f"worker 0 {w0}")
+        rows["c worker restart s (SIGKILL to routable)"] = f"{t_restart:.1f}"
+        for t, ln in fleet.line_at(r"^\[worker 0\] worker 0 built")[1:]:
+            print(f"[phase 23 c] restarted: {ln} ({card})", flush=True)
+        st, page = _get(fport, "/metrics")
+        for needle in ('worker="0"', 'worker="1"', "# fleet aggregate",
+                       "bigdl_fleet_worker_restarts_total 1"):
+            if needle not in page:
+                fail(f"[phase 23 c] the router's /metrics lacks {needle!r}")
+        print("[phase 23 c] the router's /metrics carries worker=\"0\"/"
+              "\"1\" series and fleet totals", flush=True)
+
+        # (d) the rolling swap to v1 under a steady stream
+        _, tbl = _get_json(fport, "/debug/fleet")
+        wports = {w["worker"]: w["port"] for w in tbl["workers"]}
+        shared = prompts[len(PAGED_LENS)][:SHARED_PREFIX]
+        probe = shared + prompts[len(PAGED_LENS) + 1][SHARED_PREFIX:]
+        for w, p in wports.items():  # cache the shared prefix under v0
+            st, _, _ = _post_h(p, "/generate", {"tokens": shared + [0],
+                                                "max_new_tokens": 2})
+            _, _, out = _post_h(p, "/generate", {"tokens": probe,
+                                                 "max_new_tokens": 2})
+        _, dbg = _get_json(wports[0], "/debug/requests")
+        if dbg["recent"][-1]["prefix_hit_tokens"] != SHARED_PREFIX:
+            fail(f"[phase 23 d] the probe was no prefix hit before the "
+                 f"swap: {dbg['recent'][-1]}")
+        got, stop = [], threading.Event()
+
+        def client(k):
+            n = 0
+            while not stop.is_set():
+                i = short[(n + k) % len(short)]
+                got.append((i,) + _post_h(fport, "/generate", {
+                    "tokens": prompts[i], "max_new_tokens": MAX_NEW}))
+                n += 1
+
+        clients = [threading.Thread(target=client, args=(k,))
+                   for k in range(SWAP_CLIENTS)]
+        for t in clients:
+            t.start()
+        time.sleep(1.0)
+        t0 = time.perf_counter()
+        st, _, res = _post_h(fport, "/admin/reload", {
+            "checkpoint": os.path.join(td, "v1"), "version": "v1"})
+        t_swap = time.perf_counter() - t0
+        time.sleep(1.0)
+        stop.set()
+        for t in clients:
+            t.join(120)
+        if st != 200:
+            fail(f"[phase 23 d] /admin/reload answered {st}: {res}")
+        rows["d rolling swap s (2 workers)"] = f"{t_swap:.2f}"
+        # the v1 reference: (a)'s server swapped in place (graphed), and an
+        # eager engine built on the v1 checkpoint
+        swap_app_weights(app, os.path.join(td, "v1"), "v1")
+        ref = {}
+        for i in short + ["probe"]:
+            p = probe if i == "probe" else prompts[i]
+            st, hdr, out = _post_h(port, "/generate",
+                                   {"tokens": p, "max_new_tokens": MAX_NEW})
+            if st != 200 or hdr.get("x-model-version") != "v1":
+                fail(f"[phase 23 d] (a) after its swap: {st} {hdr}")
+            ref[i] = out["tokens"]
+        m1 = front_model(torch, 1).to(DEV)
+        m1.compute_dtype = torch.bfloat16
+        eager = DecodeEngine(m1, slots=PAGED_SLOTS,
+                             cache_dtype=torch.bfloat16, device=DEV,
+                             kv_page_tokens=PAGE_TOKENS, graphs=False)
+        e_toks = {i: eager.generate(probe if i == "probe" else prompts[i],
+                                    MAX_NEW) for i in ref}
+        eager.close()
+        del eager, m1
+        if e_toks != ref:
+            fail(f"[phase 23 d] the graphed decode after the in-place swap "
+                 f"differs from an eager engine on v1: {ref} vs {e_toks}")
+        print(f"[phase 23 d] (a)'s graphed decode after its in-place swap = "
+              f"an eager engine built on v1, {len(ref)} requests",
+              flush=True)
+        vers = {}
+        for i, st, hdr, out in got:
+            v = hdr.get("x-model-version")
+            vers[v] = vers.get(v, 0) + 1
+            want = {"v0": tokens_v0[i], "v1": ref[i]}.get(v)
+            if st != 200 or out.get("tokens") != want:
+                fail(f"[phase 23 d] a request during the swap: {st} "
+                     f"version {v}, tokens {out} (v0 {tokens_v0[i]}, v1 "
+                     f"{ref[i]})")
+        print(f"[phase 23 d] {len(got)} requests during the swap, no 5xx, "
+              f"by version {vers}, each equal to its version's tokens; the "
+              f"swap took {t_swap:.2f}s: {res['workers']} ({card})",
+              flush=True)
+        if set(vers) != {"v0", "v1"}:
+            fail(f"[phase 23 d] versions seen during the swap: {vers}")
+        for w, p in wports.items():
+            st, hdr, out = _post_h(p, "/generate", {
+                "tokens": probe, "max_new_tokens": MAX_NEW})
+            if st != 200 or out["tokens"] != ref["probe"] or \
+                    hdr.get("x-model-version") != "v1":
+                fail(f"[phase 23 d] worker {w}: the probe sharing a prefix "
+                     f"cached under v0 gave {out} "
+                     f"({hdr.get('x-model-version')}), v1's tokens are "
+                     f"{ref['probe']}")
+        print("[phase 23 d] after the swap, a prompt sharing a prefix cached "
+              "under v0 gives v1's tokens on both workers", flush=True)
+    finally:
+        fleet.stop()
+    return rows
+
+
+def serving_front_runs(torch, card):
+    """Phase 23: the serving front. Returns ({tag: value}, flash_fwd
+    launches of (a)'s traffic)."""
+    t_phase = time.perf_counter()
+    rows, launches, (app, srv, port, thr), prompts, toks = \
+        front_inproc_run(torch, card)
+    try:
+        rows.update(fleet_runs(torch, card, app, port, prompts, toks))
+        fault_runs(torch, port, app)
+    finally:
+        from bigdl_tpu_torch.resilience import faults
+        from bigdl_tpu_torch.serving import reqtrace
+
+        faults.clear_plan()
+        stop_server(app, srv, thr)
+        reqtrace.set_request_tracer(None)
+    del app
+    _free(torch)
+    print(f"[phase 23] {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return rows, launches
+
+
 def main():
     try:
         import torch
@@ -4851,6 +5490,8 @@ def main():
     dp_rows, dp_n = dp_runs(torch, card, train["losses"])
     rnn_rows = rnn_runs(torch, card)
     attn_rows, attn_n, _ = attention_slice_runs(torch, card)
+    front_rows, front_n = serving_front_runs(torch, card)
+    launches["flash_fwd"] += front_n
     for n in base_n + inc_n + slice_n + dp_n + attn_n:
         for name in launches:
             launches[name] += n[name]
@@ -4894,6 +5535,8 @@ def main():
         print(f"[phase 21] {tag} on {card}: {r}", flush=True)
     for tag, r in attn_rows.items():
         print(f"[phase 22] {tag} on {card}: {r}", flush=True)
+    for tag, r in front_rows.items():
+        print(f"[phase 23] {tag} on {card}: {r}", flush=True)
 
     head, bwd = rows[0], bwd_rows[0]  # the training step's 8 x 8 x 1024^2
     common = {"route": "cuda", "check": "pass", "shape": head["shape"],
@@ -4939,6 +5582,8 @@ def main():
     for k in kernels:
         if k["launches"] == 0:
             fail(f"{k['name']} was launched no time on the main paths")
+    # the fleet workers' launches (phase 23 (c)-(d)) are in their own
+    # processes and are not in these counts
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -192,7 +192,7 @@ def test_cli_main_dispatches_and_refuses_by_name(capsys):
         assert e.value.code == 0
         assert f"python -m bigdl_tpu_torch.cli.{module}" in \
             capsys.readouterr().out
-    later = ("explain", "lint", "fleet", "predict", "batch-predict")
+    later = ("explain", "lint", "predict", "batch-predict")
     assert set(cli_main._LATER) == set(later)
     for cmd in later:
         with pytest.raises(SystemExit, match=f"^{cmd}: not available in "

@@ -76,6 +76,31 @@ def test_the_parallel_modules_are_walked_and_import_no_jax():
     assert not [f.name for f in files if pat.search(f.read_text())]
 
 
+def test_the_serving_front_modules_are_walked_and_import_no_jax():
+    """The serving front's modules (spans, aggregation, faults and the
+    supervisor, request tracing, the fleet) are among the modules the
+    import check walks, and none of their files imports jax or the JAX
+    package."""
+    import pkgutil
+
+    import bigdl_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(bigdl_tpu_torch.__path__,
+                                                   "bigdl_tpu_torch.")}
+    want = {"bigdl_tpu_torch.obs.spans", "bigdl_tpu_torch.obs.aggregate",
+            "bigdl_tpu_torch.resilience.faults",
+            "bigdl_tpu_torch.resilience.supervisor",
+            "bigdl_tpu_torch.serving.reqtrace", "bigdl_tpu_torch.cli.fleet"}
+    want |= {f"bigdl_tpu_torch.serving.fleet.{m}" for m in (
+        "control", "router", "swap", "worker")}
+    assert want <= names
+    pat = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|bigdl_tpu)"
+                     r"(?:\.|\s|$|,)", re.MULTILINE)
+    files = [PORT / (n[len("bigdl_tpu_torch."):].replace(".", "/") + ".py")
+             for n in sorted(want)]
+    assert all(f.is_file() for f in files)
+    assert not [f.name for f in files if pat.search(f.read_text())]
+
+
 def test_no_source_file_imports_jax_or_bigdl_tpu():
     pat = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|bigdl_tpu)"
                      r"(?:\.|\s|$|,)", re.MULTILINE)

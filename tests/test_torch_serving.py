@@ -389,7 +389,8 @@ def test_serve_http_round_trip():
         assert st == 200 and np.asarray(out["predictions"]).shape == (3, 64)
         assert _post(port, "/generate", {"tokens": [1] * 70,
                                          "max_new_tokens": 4})[0] == 400
-        assert _post(port, "/generate", {"tokens": [1], "stream": True})[0] \
+        # a bad streamed request answers a plain JSON error
+        assert _post(port, "/generate", {"tokens": [], "stream": True})[0] \
             == 400
         assert _post(port, "/predict", {"inputs": [[99, 1]]})[0] == 400
         st, page = _get(port, "/metrics")
@@ -428,9 +429,11 @@ def test_serve_cli_refuses_what_is_not_ported():
     p = serve_cli.build_parser()
     for argv, msg in (
             (["transformer_lm", "--randomInit", "--strategy", "dp:2"],
-             "--strategy"),
+             "--strategy: .*queue 1 entry 13"),
+            (["transformer_lm", "--randomInit", "--classes", "10"],
+             "--classes: .*queue 1 entry 8"),
             (["transformer_lm", "--randomInit", "--slo", "ttft_p99=1"],
-             "--slo"),
+             "--slo 'ttft_p99=1': unknown SLO dim"),
             (["transformer_lm", "--randomInit", "--platform", "cpu",
               "--speculate", "2", "--draftDims", "65,2,4"], "divisible"),
             (["transformer_lm", "--randomInit", "--platform", "cpu",
