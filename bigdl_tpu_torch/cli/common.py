@@ -30,7 +30,8 @@ __all__ = ["setup_logging", "add_train_args", "add_test_args",
            "build_feed", "build_optimizer", "load_trained", "evaluate",
            "OPTIM_METHODS", "PIPELINE_STAGE_CHOICES", "STRATEGY_CHOICES",
            "GRAD_COMPRESS_CHOICES", "QUANTIZE_CHOICES", "ResolvedConfig",
-           "resolve_serve_config", "install_fault_plan"]
+           "resolve_serve_config", "install_fault_plan", "add_autotune_arg",
+           "apply_autotune", "AUTOTUNE_CHOICES"]
 
 OPTIM_METHODS = ("sgd", "adam", "adamw", "adagrad", "rmsprop", "lars", "lamb")
 # dataset.pipeline.STAGE_CHOICES, spelled here so that building a parser
@@ -48,6 +49,39 @@ def _add_platform_arg(p: argparse.ArgumentParser) -> None:
     p.add_argument("--platform", choices=("cuda", "cpu"), default=None,
                    help="device to run on (default cuda); cpu runs the "
                         "kernels' plain versions")
+
+
+# tuning.MODES, spelled here so that building a parser imports no torch
+# (a test holds the two equal)
+AUTOTUNE_CHOICES = ("off", "cached", "measure")
+
+
+def add_autotune_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--autotune", default="off",
+                   choices=list(AUTOTUNE_CHOICES),
+                   help="per-shape autotuner (bigdl_tpu_torch.tuning): conv "
+                        "pass layouts, the BN kernels' slab height, the "
+                        "key-padding path's key block, the gradient bucket "
+                        "bound, the KV page size, the int8 product. "
+                        "'cached' = read persisted decisions (~/.cache/"
+                        "bigdl_tpu/autotune/<device>.json, or "
+                        "$BIGDL_TPU_AUTOTUNE_CACHE), never measure; "
+                        "'measure' = time the candidates on the card on a "
+                        "miss and persist the winner (without a card it "
+                        "records the defaults untimed); 'off' = the "
+                        "untuned defaults")
+
+
+def apply_autotune(args) -> None:
+    """Install ``--autotune`` process-wide (the JAX ``apply_platform``'s
+    step): a bad mode exits with the tuner's message."""
+    mode = getattr(args, "autotune", None)
+    if mode:
+        from bigdl_tpu_torch import tuning
+        try:
+            tuning.set_mode(mode)
+        except ValueError as e:
+            raise SystemExit(str(e))
 
 
 def add_train_args(p: argparse.ArgumentParser) -> None:
@@ -92,6 +126,7 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
                    help="deprecated alias of --strategy dp")
     add_strategy_arg(p)
     add_grad_comm_args(p)
+    add_autotune_arg(p)
 
 
 # the JAX CLIs' --strategy names; the port has dp
@@ -189,7 +224,9 @@ def add_grad_comm_args(p: argparse.ArgumentParser) -> None:
                         "(error feedback). 'off' sums f32")
     p.add_argument("--gradBuckets", default="auto", metavar="auto|N",
                    help="dense-bucket bound of the gradient all-reduce: "
-                        "'auto' = the 4 MiB default; an integer N pins it "
+                        "'auto' = the tuner's grad_comm decision under "
+                        "--autotune cached|measure, else the 4 MiB "
+                        "default; an integer N pins it "
                         "to N MiB")
 
 
@@ -395,8 +432,8 @@ def _method(args, name: str):
 
 def build_optimizer(model, dataset, criterion, args, optim_method=None):
     """The Optimizer the reference's flags describe, with the strategy
-    (:func:`build_strategy`), the conv layout flags
-    (:func:`apply_conv_args`) and --fusedBN installed:
+    (:func:`build_strategy`), ``--autotune`` (:func:`apply_autotune`), the
+    conv layout flags (:func:`apply_conv_args`) and --fusedBN installed:
     ``optim_method``, else the --optimMethod one, ending after
     ``--maxEpoch`` epochs, fed through :func:`build_feed`; an every-epoch
     checkpoint into ``--checkpoint`` and a resume from ``--model`` when
@@ -404,6 +441,7 @@ def build_optimizer(model, dataset, criterion, args, optim_method=None):
     from bigdl_tpu_torch.optim import Optimizer, Trigger
 
     strategy = build_strategy(args, model, getattr(args, "batchSize", None))
+    apply_autotune(args)
     apply_conv_args(args)
     apply_fused_bn(model, getattr(args, "fusedBN", None))
     method = optim_method or _method(args, getattr(args, "optimMethod",

@@ -40,7 +40,11 @@ count to cross-check with.
 
 ``--convLayout``/``--convGeom`` install the conv layout policy for the
 run (``ops/conv2d.py``; the line then carries ``conv_layouts`` and
-``conv_geom``). ``--profile DIR`` writes a ``torch.profiler`` trace of the
+``conv_geom``). ``--autotune cached|measure`` runs under the tuner's
+decisions (``tuning/``: the conv layouts, the BN kernels' slab heights,
+the key-padding block, the bucket bound), and the line's ``autotune``
+names the mode and each key the run consulted with its decision or
+"default". ``--profile DIR`` writes a ``torch.profiler`` trace of the
 timed loop to ``DIR/trace.json``.
 
 ``--timeToAcc T`` runs the time-to-accuracy harness instead
@@ -77,7 +81,8 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch import models
-from bigdl_tpu_torch.cli.common import (add_conv_args, add_fused_bn_arg,
+from bigdl_tpu_torch.cli.common import (add_autotune_arg, add_conv_args,
+                                        add_fused_bn_arg,
                                         add_grad_comm_args,
                                         add_pipeline_args, add_strategy_arg)
 
@@ -410,10 +415,25 @@ def _annotate_conv_layouts(out: dict) -> None:
         out["conv_geom"] = geom
 
 
+def _annotate_autotune(out: dict) -> None:
+    """Stamp the run's tuning provenance (the mode, and each consulted
+    key's decision or "default") into a result line; nothing under
+    ``--autotune off``."""
+    from bigdl_tpu_torch import tuning
+
+    ann = tuning.annotation()
+    if ann is not None:
+        out["autotune"] = ann
+
+
 @contextlib.contextmanager
-def _conv_policy(conv_layout: Optional[str], conv_geom: Optional[str]):
-    """The conv layout flags installed for one run, and the policy as it
-    was restored after it."""
+def _conv_policy(conv_layout: Optional[str], conv_geom: Optional[str],
+                 variant: Optional[str] = None):
+    """The conv layout flags installed for one run (and, given the run's
+    ``variant``, the tuner's triple for it, ``tuning.
+    install_conv_layouts``), and the policy as it was restored after
+    it."""
+    from bigdl_tpu_torch import tuning
     from bigdl_tpu_torch.cli.common import apply_conv_args
     from bigdl_tpu_torch.ops import conv2d as c2d
 
@@ -421,6 +441,8 @@ def _conv_policy(conv_layout: Optional[str], conv_geom: Optional[str]):
     try:
         apply_conv_args(SimpleNamespace(convLayout=conv_layout,
                                         convGeom=conv_geom))
+        if variant is not None:
+            tuning.install_conv_layouts(variant)
         yield
     finally:
         c2d.restore_policy(snap)
@@ -451,7 +473,7 @@ def run(model_name: str, batch: int = 32, iterations: int = 10,
         conv_layout: Optional[str] = None, conv_geom: Optional[str] = None,
         profile_dir: Optional[str] = None, strategy: Optional[str] = None,
         grad_compress: Optional[str] = None, grad_buckets=None,
-        data_parallel: bool = False) -> dict:
+        data_parallel: bool = False, autotune: Optional[str] = None) -> dict:
     """Time ``iterations`` dispatches of ``inner_steps`` training steps
     each after ``warmup`` ones (with ``inner_steps`` > 1 a dispatch is a
     CUDA graph of the steps; the first warm-up dispatch runs them eagerly
@@ -472,14 +494,27 @@ def run(model_name: str, batch: int = 32, iterations: int = 10,
     ``grad_buckets`` (with ``grad_comm``, the wire accounting, when
     ``grad_compress`` is active), as the JAX harness's does. The exits are
     the JAX harness's: one process, ``inner_steps`` > 1, a batch the ranks
-    do not divide, compression without a strategy."""
+    do not divide, compression without a strategy.
+
+    ``autotune`` (``--autotune``) installs the tuning mode; the line's
+    ``autotune`` then names the decisions this run consulted."""
+    from bigdl_tpu_torch import tuning
     from bigdl_tpu_torch.core.module import resolve_device
     from bigdl_tpu_torch.nn import bn_fused_mode
 
+    if autotune is not None:
+        tuning.set_mode(autotune)
+    tuning.reset_decisions()
     strat = _perf_strategy(strategy, data_parallel, grad_compress,
                            grad_buckets, batch, inner_steps, device)
     n_dev = strat.world if strat is not None else 1
-    with _conv_policy(conv_layout, conv_geom):
+    # the conv triple of this run configuration, as the JAX harness
+    # resolves it: a record feed or a strategy dispatches one step
+    eff_inner = 1 if (data_source is not None or strat is not None) \
+        else inner_steps
+    variant = ("s2d" if model_name.endswith("_s2d")
+               else "inner" if eff_inner > 1 else "plain")
+    with _conv_policy(conv_layout, conv_geom, variant):
         if inner_steps > 1 and warmup < 1:
             raise ValueError("inner_steps > 1 needs a warm-up dispatch (it "
                              "captures the graph)")
@@ -544,6 +579,7 @@ def run(model_name: str, batch: int = 32, iterations: int = 10,
         if info:
             out["grad_comm"] = dict(info)
         _annotate_conv_layouts(out)
+        _annotate_autotune(out)
         return out
 
 
@@ -655,6 +691,7 @@ def run_time_to_acc(model_name: str, batch: int, target: float,
     import shutil
     import tempfile
 
+    from bigdl_tpu_torch import tuning
     from bigdl_tpu_torch.cli.common import apply_fused_bn
     from bigdl_tpu_torch.core.module import resolve_device
     from bigdl_tpu_torch.dataset import (RecordImageDataSet,
@@ -663,6 +700,7 @@ def run_time_to_acc(model_name: str, batch: int, target: float,
     from bigdl_tpu_torch.optim import SGD, Optimizer, Top1Accuracy, Trigger
 
     device = resolve_device(device)
+    tuning.reset_decisions()  # annotate only this run's consulted keys
     t_setup = time.time()
     td = None
     summary_dir = tempfile.mkdtemp(prefix="tta_summary_")
@@ -709,6 +747,7 @@ def run_time_to_acc(model_name: str, batch: int, target: float,
             wall = time.time() - t_train
             conv = {}
             _annotate_conv_layouts(conv)
+            _annotate_autotune(conv)
 
         with open(os.path.join(summary_dir, "val.jsonl")) as f:
             curve = [json.loads(line) for line in f]
@@ -836,7 +875,10 @@ def main(argv=None) -> dict:
                    help="deprecated alias of --strategy dp")
     add_strategy_arg(p)
     add_grad_comm_args(p)
+    add_autotune_arg(p)
     args = p.parse_args(argv)
+    from bigdl_tpu_torch.cli.common import apply_autotune
+    apply_autotune(args)
     dtype = torch.float32 if args.f32 else torch.bfloat16
     if args.timeToAcc is not None:
         if args.strategy or args.dataParallel:

@@ -1,9 +1,19 @@
-"""Serve a transformer LM over HTTP on the GPU (counterpart of
+"""Serve a model of the perf zoo over HTTP on the GPU (counterpart of
 ``bigdl_tpu/cli/serve.py``)::
 
     python -m bigdl_tpu_torch.cli.serve transformer_lm_1k_hd128 --randomInit
     curl -d '{"tokens": [3, 1, 4], "max_new_tokens": 8}' \\
         localhost:8000/generate
+    python -m bigdl_tpu_torch.cli.serve resnet50 --model CKPT \\
+        --fusedBN apply --autotune cached --buckets 1,2,4,8,16,32
+
+An image classifier (every image row of ``cli.perf.build_model``:
+``--classes`` sets its class count) serves ``/predict`` alone: NHWC f32
+images in, its log-probabilities out, one CUDA graph a batch bucket.
+``--fusedBN``, ``--convLayout``, ``--convGeom`` and ``--autotune`` are the
+perf harness's flags, installed before the model is built, so the served
+program is the one the harness measured; an eval-mode batch norm runs on
+its running statistics, so a served ResNet launches no BN kernel.
 
 ``/generate`` runs continuous-batching decode over a dense KV cache, or
 a paged one (``--kvPageTokens N|auto``) with the shared-prefix cache
@@ -20,6 +30,8 @@ bucket replay CUDA graphs captured before the server's threads start.
 Weights come from ``--randomInit`` (seeded) or ``--model CKPT``, a
 ``model.<n>`` written by the port or the JAX package. ``--platform cpu``
 runs the same stack on the CPU, eagerly, with the kernel's plain version.
+``--kvPageTokens auto`` asks the tuner's ``kv_pages`` namespace under
+``--autotune cached|measure``, else takes the ladder.
 
 ``/generate`` with ``"stream": true`` answers in SSE frames.
 ``--reqTrace on`` traces every request's lifecycle (``/debug/requests``,
@@ -38,7 +50,8 @@ from __future__ import annotations
 import argparse
 import logging
 
-from bigdl_tpu_torch.cli.common import QUANTIZE_CHOICES
+from bigdl_tpu_torch.cli.common import (QUANTIZE_CHOICES, add_autotune_arg,
+                                        add_conv_args, add_fused_bn_arg)
 
 __all__ = ["build_parser", "build_app", "main"]
 
@@ -47,11 +60,6 @@ __all__ = ["build_parser", "build_app", "main"]
 _LATER_FLAGS = {
     "--strategy": "entry 13 (serving replicas and tensor-parallel "
                   "sharding)",
-    "--classes": "entry 8's rest (the non-LM models behind serve)",
-    "--fusedBN": "entry 8's rest (the non-LM models behind serve)",
-    "--convLayout": "entry 8's rest (the non-LM models behind serve)",
-    "--convGeom": "entry 8's rest (the non-LM models behind serve)",
-    "--autotune": "entry 11 (tuning/)",
     "--lint": "entry 16 (analysis/)",
 }
 # the page sizes --quantize kv8 tries when --kvPageTokens is not given
@@ -72,10 +80,14 @@ def _parse_buckets(spec: str):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         "python -m bigdl_tpu_torch.cli.serve",
-        description="online LM inference over HTTP on the GPU: bucketed "
-                    "/predict, continuous-batching /generate, /metrics")
-    p.add_argument("model", help="transformer_lm, transformer_lm_rope, "
-                                 "transformer_lm_1k or transformer_lm_1k_hd128")
+        description="online inference over HTTP on the GPU: bucketed "
+                    "/predict, continuous-batching /generate (LMs), "
+                    "/metrics")
+    p.add_argument("model", help="a perf-zoo row: transformer_lm, "
+                                 "transformer_lm_rope, transformer_lm_1k, "
+                                 "transformer_lm_1k_hd128, or an image row "
+                                 "(resnet50, resnet20_cifar, lenet5, vgg16, "
+                                 "inception_v1, vit_b16, ...)")
     p.add_argument("--model", dest="checkpoint", default=None,
                    metavar="CKPT",
                    help="checkpoint to serve: a directory's newest "
@@ -118,9 +130,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="continuous-batching decode slots")
     p.add_argument("--kvPageTokens", default=None, metavar="N|auto",
                    help="paged KV cache of N-token pages (N divides the "
-                        "context length); 'auto' takes the first of 128, "
-                        "64, 32, 256 that divides it. kv_cache_bytes then "
-                        "counts allocated pages")
+                        "context length); 'auto' asks the tuner's kv_pages "
+                        "namespace under --autotune cached|measure, else "
+                        "takes the first of 128, 64, 32, 256 that divides "
+                        "it. kv_cache_bytes then counts allocated pages")
     p.add_argument("--prefixCache", action="store_true",
                    help="share page-aligned prompt-prefix K/V across "
                         "requests (needs --kvPageTokens): a hit copies "
@@ -148,9 +161,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "before 429")
     p.add_argument("--seq", type=int, default=None,
                    help="override the LM context length (max_len)")
+    p.add_argument("--classes", type=int, default=1000,
+                   help="class count of an image model")
     p.add_argument("--bf16", action="store_true",
-                   help="bf16 activations after the embedding and a bf16 "
-                        "KV cache; parameters stay f32")
+                   help="bf16 activations (an image model: the input cast; "
+                        "an LM: after the embedding, and a bf16 KV cache); "
+                        "parameters stay f32")
     p.add_argument("--no-warmup", action="store_true",
                    help="skip running every /predict bucket at startup on "
                         "the CPU (on the card their graphs are captured "
@@ -197,6 +213,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dModel", type=int, default=128)
     p.add_argument("--numLayers", type=int, default=2)
     p.add_argument("--numHeads", type=int, default=4)
+    add_autotune_arg(p)
+    add_fused_bn_arg(p)
+    add_conv_args(p)
     for flag in _LATER_FLAGS:
         p.add_argument(flag, dest=f"later_{flag[2:]}", nargs="?", const=True,
                        default=None, help=argparse.SUPPRESS)
@@ -242,13 +261,20 @@ def _request_tracer(args, metrics):
                                    access_log=access_log)
 
 
-def _page_tokens(spec, max_len: int):
+def _page_tokens(spec, max_len: int, kv_heads: int = 0, head_dim: int = 0,
+                 dtype=None):
     """``--kvPageTokens``: None (dense), an int that divides ``max_len``,
-    or 'auto': the JAX package's ladder when autotune is off (128, 64, 32,
-    256, the first that divides; dense if none does)."""
+    or 'auto': the tuner's ``kv_pages`` decision for the cache geometry
+    under ``--autotune cached|measure``, else the JAX package's ladder
+    (128, 64, 32, 256, the first that divides; dense if none does)."""
     if not spec:
         return None
     if str(spec).lower() == "auto":
+        from bigdl_tpu_torch import tuning
+        pt = tuning.kv_page_tokens(max_len, kv_heads, head_dim,
+                                   dtype or "float32")
+        if pt is not None:
+            return pt
         return next((c for c in (128, 64, 32, 256)
                      if c <= max_len and max_len % c == 0), None)
     try:
@@ -262,17 +288,66 @@ def _page_tokens(spec, max_len: int):
     return pt
 
 
-def build_app(args):
-    """(app, engine, in_shape, in_dtype) from parsed args. Every graph is
-    captured (the /predict buckets at each length bucket, the decode
-    programs) before the server's workers (decoder loop, batcher,
-    watchdog) are started. The request tracer (or None) is installed
-    process-wide, and the app's metrics become the process registry;
-    ``main`` installs ``--faultPlan`` before it calls this."""
+def _build_image_app(args, name, device, metrics, graphs):
+    """(engine, batcher, input shape, provenance) of an image classifier:
+    its ``/predict`` buckets captured at the model's input shape."""
     import numpy as np
     import torch
 
-    from bigdl_tpu_torch.cli.common import load_trained, resolve_serve_config
+    from bigdl_tpu_torch.cli.common import apply_fused_bn, load_trained
+    from bigdl_tpu_torch.cli.perf import IMAGE_CONFIGS, build_model
+    from bigdl_tpu_torch.serving import InferenceEngine, MicroBatcher
+    from bigdl_tpu_torch.serving.quant import parse_quantize
+
+    if name not in IMAGE_CONFIGS:
+        raise SystemExit(f"model {name}: serve takes the transformer_lm* "
+                         f"rows and the image rows {sorted(IMAGE_CONFIGS)}")
+    _, kv8 = parse_quantize(args.quantize)
+    if kv8:
+        raise SystemExit("--quantize kv8 quantizes the decode KV cache: "
+                         "transformer_lm models only")
+    for flag, val in (("--speculate", args.speculate),
+                      ("--kvPageTokens", args.kvPageTokens),
+                      ("--prefixCache", args.prefixCache)):
+        if val:
+            raise SystemExit(f"{flag}: decoding flags apply to "
+                             f"transformer_lm models only")
+    model, in_shape = build_model(name, class_num=args.classes)
+    apply_fused_bn(model, args.fusedBN)
+    if args.checkpoint:
+        load_trained(model, args.checkpoint)
+    engine = InferenceEngine(
+        model, buckets=_parse_buckets(args.buckets), metrics=metrics,
+        device=device, graphs=graphs, quantize=args.quantize,
+        compute_dtype=torch.bfloat16 if args.bf16 else None)
+    if graphs.enabled or not args.no_warmup:
+        print(f"warmup: buckets {engine.buckets} at {tuple(in_shape)} "
+              f"float32", flush=True)
+        engine.warmup(in_shape, np.float32)
+    batcher = MicroBatcher(engine.predict_scores, max_batch=args.maxBatch,
+                           max_wait_ms=args.maxWaitMs,
+                           max_queue=args.maxQueue, metrics=metrics)
+    prov = {"classes": args.classes, "fused_bn": args.fusedBN or "off",
+            "in_shape": ",".join(str(d) for d in in_shape)}
+    return engine, batcher, in_shape, prov
+
+
+def build_app(args):
+    """(app, engine, in_shape, in_dtype) from parsed args. ``--autotune``,
+    ``--convGeom`` and ``--convLayout`` are installed first, before the
+    model is built. Every graph is captured (the /predict buckets, at
+    each length bucket for an LM; the decode programs) before the
+    server's workers (decoder loop, batcher, watchdog) are started. The
+    request tracer (or None) is installed process-wide, and the app's
+    metrics become the process registry; ``main`` installs
+    ``--faultPlan`` before it calls this."""
+    import numpy as np
+    import torch
+
+    from bigdl_tpu_torch import tuning
+    from bigdl_tpu_torch.cli.common import (apply_autotune, apply_conv_args,
+                                            apply_fused_bn, load_trained,
+                                            resolve_serve_config)
     from bigdl_tpu_torch.cli.perf import build_model
     from bigdl_tpu_torch.core.module import resolve_device
     from bigdl_tpu_torch.models import TransformerLM
@@ -289,16 +364,36 @@ def build_app(args):
     from bigdl_tpu_torch.serving.spec_decode import parse_draft_dims
 
     resolve_serve_config(args)  # refuses what is not ported first
+    apply_autotune(args)
+    apply_conv_args(args)
+    tuning.reset_decisions()
     metrics = MetricsRegistry()
     reqtracer = _request_tracer(args, metrics)
     device = resolve_device(args.platform)
     name = args.model
-    if not name.startswith("transformer_lm"):
-        raise SystemExit(f"model {name}: only transformer_lm* models are "
-                         f"served by the PyTorch port so far")
     if not (args.randomInit or args.checkpoint):
         raise SystemExit("serve needs weights: pass --model CKPT (a "
                          "checkpoint directory or file) or --randomInit")
+    if not name.startswith("transformer_lm"):
+        set_registry(metrics)
+        _reqtrace.set_request_tracer(reqtracer)
+        graphs = GraphPool(device)
+        engine, batcher, in_shape, extra = _build_image_app(
+            args, name, device, metrics, graphs)
+        watchdog = Watchdog(stall_timeout_s=args.watchdogStallS,
+                            metrics=metrics)
+        watchdog.watch("batcher", batcher).start()
+        prov = _provenance(args, engine, reqtracer, name)
+        prov.update(extra)
+        prov["cuda_graphs"] = graphs.enabled
+        app = ServingApp(name=name, metrics=metrics, engine=engine,
+                         batcher=batcher, request_timeout_s=args.timeout,
+                         default_deadline_ms=args.deadlineMs,
+                         shed_generate_frac=args.shedAt, watchdog=watchdog,
+                         version=args.modelVersion or "v0")
+        prov["model_version"] = lambda: app.model_version
+        metrics.set_provenance(prov)
+        return app, engine, in_shape, np.float32
     if args.vocabSize is not None:
         seq = args.seq or 128
         model = TransformerLM(args.vocabSize, d_model=args.dModel,
@@ -309,6 +404,7 @@ def build_app(args):
         in_shape = (seq,)
     else:
         model, in_shape = build_model(name, seq_len=args.seq)
+    apply_fused_bn(model, args.fusedBN)
     if args.checkpoint:
         load_trained(model, args.checkpoint)
     draft = None
@@ -330,7 +426,10 @@ def build_app(args):
             raise SystemExit(f"head_dim {head_dim} ({what}): the CUDA "
                              f"flash kernel takes {SUPPORTED_HEAD_DIMS}")
     wfmt, kv8 = parse_quantize(args.quantize)
-    page_tokens = _page_tokens(args.kvPageTokens, model.max_len)
+    mha = model.encoder[0].mha
+    page_tokens = _page_tokens(
+        args.kvPageTokens, model.max_len, mha.num_kv_heads, mha.head_dim,
+        torch.bfloat16 if args.bf16 else torch.float32)
     if kv8 and page_tokens is None:
         # kv8 is a page-pool layout: pick a page size
         page_tokens = next((c for c in _KV8_PAGES
@@ -384,15 +483,8 @@ def build_app(args):
     watchdog = Watchdog(stall_timeout_s=args.watchdogStallS, metrics=metrics)
     watchdog.watch("batcher", batcher).watch("decoder", decoder).start()
 
-    prov = engine.provenance()
+    prov = _provenance(args, engine, reqtracer, name)
     prov.update({
-        "model": name,
-        "weights": args.checkpoint or "random (seed 0)",
-        "max_batch": args.maxBatch,
-        "max_wait_ms": args.maxWaitMs,
-        "max_queue": args.maxQueue,
-        "deadline_ms": args.deadlineMs if args.deadlineMs else "none",
-        "shed_at": args.shedAt,
         "decode_slots": args.slots,
         "prompt_buckets": ",".join(str(b) for b in decoder.prompt_buckets),
         "kv_page_tokens": page_tokens or "dense",
@@ -401,15 +493,7 @@ def build_app(args):
         "speculate": args.speculate,
         "draft": (args.draftDims or "self") if args.speculate else "none",
         "weight_bytes": weight_bytes(model),
-        "reqtrace": "on" if reqtracer is not None else "off",
     })
-    if reqtracer is not None:
-        prov["slo"] = args.slo or "none"
-        if reqtracer.access_log is not None:
-            prov["access_log"] = reqtracer.access_log.path
-            prov["access_log_sample"] = args.logSample
-    if args.faultPlan:
-        prov["fault_plan"] = args.faultPlan
     if quant_info is not None:
         prov["quant_agreement"] = round(float(quant_info["agreement"]), 4)
         prov["quant_logit_max_err"] = round(
@@ -424,6 +508,34 @@ def build_app(args):
     prov["model_version"] = lambda: app.model_version
     metrics.set_provenance(prov)
     return app, engine, in_shape, np.int32
+
+
+def _provenance(args, engine, reqtracer, name) -> dict:
+    """The provenance every served model stamps into /metrics: the
+    engine's, the batcher's bounds, the weights, the tracer's settings,
+    the fault plan and the tuner's decisions."""
+    from bigdl_tpu_torch import tuning
+
+    prov = engine.provenance()
+    prov.update({
+        "model": name,
+        "weights": args.checkpoint or "random (seed 0)",
+        "max_batch": args.maxBatch,
+        "max_wait_ms": args.maxWaitMs,
+        "max_queue": args.maxQueue,
+        "deadline_ms": args.deadlineMs if args.deadlineMs else "none",
+        "shed_at": args.shedAt,
+        "reqtrace": "on" if reqtracer is not None else "off",
+        "autotune": tuning.get_mode(),
+    })
+    if reqtracer is not None:
+        prov["slo"] = args.slo or "none"
+        if reqtracer.access_log is not None:
+            prov["access_log"] = reqtracer.access_log.path
+            prov["access_log_sample"] = args.logSample
+    if args.faultPlan:
+        prov["fault_plan"] = args.faultPlan
+    return prov
 
 
 def main(argv=None) -> int:

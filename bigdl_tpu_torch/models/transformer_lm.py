@@ -1,7 +1,8 @@
 """Decoder-only transformer LM (counterpart of
 ``bigdl_tpu/models/transformer_lm.py``): LookupTable embedding scaled by
 sqrt(d_model), sinusoidal positions or RoPE, a causal pre-LN encoder,
-final LayerNorm and a head tied to the embedding."""
+final LayerNorm and a head tied to the embedding, or an untied ``head``
+``Linear(d_model, vocab)`` (``tie_embeddings=False``)."""
 
 from __future__ import annotations
 
@@ -11,8 +12,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from bigdl_tpu_torch.nn import (LayerNorm, LookupTable, PositionalEncoding,
-                                TransformerEncoder)
+from bigdl_tpu_torch.nn import (LayerNorm, Linear, LookupTable,
+                                PositionalEncoding, TransformerEncoder)
 
 __all__ = ["TransformerLM", "transformer_lm", "packed_lm_targets",
            "PackedNLLCriterion"]
@@ -44,7 +45,8 @@ class PackedNLLCriterion:
 
 class TransformerLM(nn.Module):
     """Parameters are named after the JAX param tree (``emb.weight``,
-    ``encoder.0.mha.wq``, ``ln_f.bias``), so a tree converted by
+    ``encoder.0.mha.wq``, ``ln_f.bias``, the untied ``head.weight`` and
+    ``head.bias``), so a tree converted by
     :func:`bigdl_tpu_torch.interop.params_from_jax` loads by name.
 
     ``compute_dtype`` (e.g. ``torch.bfloat16``) casts activations right
@@ -64,9 +66,6 @@ class TransformerLM(nn.Module):
         if pos_encoding not in ("sinusoidal", "rope"):
             raise ValueError(f"pos_encoding {pos_encoding!r} not in "
                              f"('sinusoidal', 'rope')")
-        if not tie_embeddings:
-            raise NotImplementedError("an untied logits head is not ported "
-                                      "yet (every shipped LM ties it)")
         self.vocab, self.d_model, self.max_len = vocab, d_model, max_len
         self.rope = pos_encoding == "rope"
         self.compute_dtype = compute_dtype
@@ -78,6 +77,9 @@ class TransformerLM(nn.Module):
             num_kv_heads=num_kv_heads, rope=self.rope,
             rope_max_len=max_len, generator=generator)
         self.ln_f = LayerNorm(d_model)
+        self.tie = tie_embeddings
+        self.head = (None if tie_embeddings
+                     else Linear(d_model, vocab, generator=generator))
 
     @property
     def device(self) -> torch.device:
@@ -98,9 +100,12 @@ class TransformerLM(nn.Module):
         return h * math.sqrt(self.d_model)
 
     def head_logits(self, h):
-        """The tied output head: final LayerNorm, then the embedding
-        transposed -> logits in ``h``'s dtype."""
+        """The output head: final LayerNorm, then the untied ``head``, or
+        the embedding transposed -> logits in ``h``'s dtype. Every path
+        (training, prefill, decode, paged, speculative) ends here."""
         h = self.ln_f(h)
+        if self.head is not None:
+            return self.head(h)
         return h @ self.emb.weight.to(h.dtype).T
 
     def forward(self, tokens, seed=None):

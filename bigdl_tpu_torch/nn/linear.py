@@ -284,19 +284,28 @@ class PairwiseDistance(SimpleModule):
 
 class LookupTable(nn.Module):
     """Embedding lookup: ``weight`` (n_index, n_output), init N(0, 1),
-    0-based indices. ``max_norm`` is not ported (the LM does not use it).
-    A quantized weight (``serving.quant``) gathers its 8-bit rows, then
+    0-based indices. ``max_norm`` renormalises the gathered rows at lookup
+    time, as the JAX package does (the weight itself is not changed): a
+    row whose ``norm_type``-norm exceeds it is scaled down to it. A
+    quantized weight (``serving.quant``) gathers its 8-bit rows, then
     scales them."""
 
     def __init__(self, n_index: int, n_output: int,
+                 max_norm: Optional[float] = None, norm_type: float = 2.0,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.n_index, self.n_output = n_index, n_output
+        self.max_norm, self.norm_type = max_norm, norm_type
         self.weight = nn.Parameter(torch.empty(n_index, n_output).normal_(
             generator=generator))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         take_rows = getattr(self.weight, "take_rows", None)
-        if take_rows is not None:
-            return take_rows(x)
-        return self.weight[x.long()]
+        rows = take_rows(x) if take_rows is not None else \
+            self.weight[x.long()]
+        if self.max_norm is not None:
+            n = torch.linalg.vector_norm(rows, ord=self.norm_type, dim=-1,
+                                         keepdim=True)
+            rows = rows * torch.clamp_max(
+                self.max_norm / torch.clamp_min(n, 1e-7), 1.0)
+        return rows

@@ -517,14 +517,26 @@ def blockwise_attention(q, k, v, *, causal: bool = False,
     return out
 
 
-def flash_block_k(s_k: int) -> int:
+def flash_block_k(s_k: int, s_q: Optional[int] = None,
+                  head_dim: Optional[int] = None, causal: bool = False,
+                  dtype=None) -> int:
     """The key block :func:`flash_attention` hands
-    :func:`blockwise_attention`: the JAX package's untuned rule (512
-    clamped to ``s_k``: the largest of 512/256/128 that divides it, the
-    whole of a shorter ``s_k``, else 512, which then takes the dense
-    path). The JAX package asks its autotuner first; the port has none
-    yet."""
-    return _flops.clamp_block(_flops.DEFAULT_BLOCK, s_k)
+    :func:`blockwise_attention`. Under ``--autotune cached|measure``, and
+    given the shape's facets, the tuner's ``flash`` decision (its
+    ``block_k``; ``tuning.flash_blocks``), as the JAX package's
+    ``_resolve_blocks`` asks it first; otherwise, and where the tuner has
+    none, the JAX package's untuned rule (512 clamped to ``s_k``: the
+    largest of 512/256/128 that divides it, the whole of a shorter
+    ``s_k``, else 512, which then takes the dense path)."""
+    block = _flops.DEFAULT_BLOCK
+    if s_q is not None and head_dim is not None and dtype is not None:
+        from bigdl_tpu_torch.tuning import autotune as _at
+        if _at.get_mode() != "off":
+            tuned = _at.flash_blocks(int(s_q), int(s_k), int(head_dim),
+                                     bool(causal), dtype)
+            if tuned is not None:
+                block = tuned[1]
+    return _flops.clamp_block(block, s_k)
 
 
 def flash_attention(q, k, v, *, causal: bool = False,
@@ -556,8 +568,10 @@ def flash_attention(q, k, v, *, causal: bool = False,
                                                   device=out.device))
     if mask is not None:
         if _as_key_padding(mask, q.shape[0], k.shape[-2]) is not None:
-            return blockwise_attention(q, k, v, causal=causal, mask=mask,
-                                       block_k=flash_block_k(k.shape[-2]))
+            return blockwise_attention(
+                q, k, v, causal=causal, mask=mask,
+                block_k=flash_block_k(k.shape[-2], q.shape[-2], q.shape[-1],
+                                      causal, q.dtype))
         return _dense.dot_product_attention(q, k, v, causal=causal,
                                             mask=mask)
     return FlashAttention.apply(q, k, v, causal, None)

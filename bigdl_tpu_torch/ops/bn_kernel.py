@@ -23,8 +23,12 @@ version; on a CUDA tensor it launches its kernel or raises. Any other
 dtype raises on either device. The CUDA kernels take every rows >= 1 and
 C >= 1, so the JAX package's ``fused_bn_tileable``/``fba_tileable``/
 ``min_sublane`` routing (Mosaic tiling rules) is not ported: every shape
-goes through the kernel. Its autotuner hooks (``row_block``) are not
-ported either (ROADMAP.md queue 1 item 12).
+goes through the kernel. The JAX package's autotuner hooks
+(``row_block``) choose the launch plan's slab height here (the rows a
+CTA covers): under ``--autotune cached|measure`` :func:`_coop` asks
+``tuning.bn_row_block`` (the stats pair) or ``tuning.fba_row_block`` (the
+fused pair) for a height among :func:`slab_heights`; off, and on a
+cached-mode miss, the plan is the untuned one.
 
 A wrapper call is one count of its ``launches``, and launches one kernel
 and nothing else: each of the four is a mode of one cooperative kernel
@@ -34,11 +38,13 @@ zeroed when a stream first calls one of them and left at zero by every
 launch; a CUDA graph captured on a stream shares that stream's counters,
 so it must not replay while eager calls run on its capture stream. The
 launch plan (:func:`_plan`) is a pure function of the shape, the vector
-width and the CTAs the card holds.
+width, the CTAs the card holds and the slab height (None: the untuned
+one).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import threading
@@ -49,7 +55,8 @@ import torch
 __all__ = ["bn_stats", "bn_bwd_stats", "bn_fwd_apply", "bn_bwd_fused",
            "bn_stats_reference", "bn_bwd_stats_reference",
            "bn_fwd_apply_reference", "bn_bwd_fused_reference",
-           "fused_bn_train", "fused_bn_apply_train", "sync_bn_train"]
+           "fused_bn_train", "fused_bn_apply_train", "sync_bn_train",
+           "slab_heights", "pinned_slab"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # bn_coop's modes (csrc/bn.cu Mode)
@@ -65,6 +72,8 @@ _count_lock = threading.Lock()
 _fns: dict = {}
 _ctas: dict = {}
 _syncs: dict = {}
+_UNSET = object()
+_pinned = _UNSET  # a slab height every launch takes (pinned_slab)
 
 
 # ------------------------------------------------------------ plain twins
@@ -195,25 +204,86 @@ class Plan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=1024)
-def _plan(mode: int, rows: int, c: int, vec: int, ctas: int) -> Plan:
+def _plan(mode: int, rows: int, c: int, vec: int, ctas: int,
+          slab: "int | None" = None) -> Plan:
     """The launch of ``mode`` over a (rows, C) array with V = ``vec``, on a
-    card that holds ``ctas`` CTAs of it at once: one (channel block, slab)
-    a CTA for as many CTAs as that, with at least _SLAB_ROWS rows a thread
-    per slab (fewer CTAs meet at the barriers of a small array); one slab,
-    and CTAs looping over channel blocks, when C has more blocks than
-    that."""
+    card that holds ``ctas`` CTAs of it at once. Untuned (``slab`` None):
+    one (channel block, slab) a CTA for as many CTAs as that, with at
+    least _SLAB_ROWS rows a thread per slab (fewer CTAs meet at the
+    barriers of a small array); one slab, and CTAs looping over channel
+    blocks, when C has more blocks than that. A tuned ``slab`` (from
+    :func:`slab_heights`) sets the rows a slab covers."""
     groups = -(-c // vec)
     tx = 1
     while tx < min(32, groups):
         tx *= 2
     ty = _NTHREADS // tx
     blocks = -(-c // (tx * vec))
-    slabs = max(1, min(ctas // blocks, rows // (_SLAB_ROWS * ty)))
-    slab = -(-rows // slabs)
+    if slab is None:
+        slabs = max(1, min(ctas // blocks, rows // (_SLAB_ROWS * ty)))
+        slab = -(-rows // slabs)
     slabs = -(-rows // slab)
     once = mode in (_STATS, _BWD_STATS) or (
         blocks * slabs <= ctas and -(-slab // ty) <= _SLOTS[mode])
     return Plan(tx, blocks, slabs, slab, min(ctas, blocks * slabs), once)
+
+
+def slab_heights(mode: int, rows: int, c: int, vec: int,
+                 ctas: int) -> tuple:
+    """The slab heights the tuner may give ``mode``'s plan at (rows, C):
+    those at which every CTA stays resident (blocks x slabs <= ``ctas``),
+    from one slab to as many as the CTAs allow in powers of two, with the
+    untuned plan's height first. Empty where C alone has more channel
+    blocks than ``ctas``."""
+    base = _plan(mode, rows, c, vec, ctas)
+    smax = min(ctas // base.blocks, rows)
+    if smax < 1:
+        return ()
+    counts = {base.slabs, smax}
+    s = 1
+    while s <= smax:
+        counts.add(s)
+        s *= 2
+    heights = [base.slab]
+    for n in sorted(counts):
+        h = -(-rows // n)
+        if h not in heights and base.blocks * -(-rows // h) <= ctas:
+            heights.append(h)
+    return tuple(heights)
+
+
+@contextlib.contextmanager
+def pinned_slab(slab: "int | None"):
+    """Every launch in the block takes slab height ``slab`` (None: the
+    untuned plan), whatever the tuner says: how the tuner times its
+    candidates."""
+    global _pinned
+    before, _pinned = _pinned, slab
+    try:
+        yield
+    finally:
+        _pinned = before
+
+
+def _tuned_slab(mode: int, x2d, vec: int, relu: bool) -> "int | None":
+    """The slab height the tuner gives this launch, or None. The two
+    kernels of a key share its decision, so its heights are legal for
+    both (the fewer CTAs of the two)."""
+    if _pinned is not _UNSET:
+        return _pinned
+    from bigdl_tpu_torch.tuning import autotune as _at
+    if _at.get_mode() == "off":
+        return None
+    rows, c = x2d.shape
+    stats = mode in (_STATS, _BWD_STATS)
+    pair = (_STATS, _BWD_STATS) if stats else (_FWD, _BWD_FUSED)
+    is_bf16 = _DTYPES[x2d.dtype]
+    ctas = min(_coop_ctas(x2d.device, m, is_bf16, relu and not stats, vec)
+               for m in pair)
+    heights = slab_heights(pair[0], rows, c, vec, ctas)
+    if stats:
+        return _at.bn_row_block(rows, c, x2d.dtype, heights)
+    return _at.fba_row_block(rows, c, x2d.dtype, relu, heights)
 
 
 def _ptr(t):
@@ -272,7 +342,8 @@ def _coop(kernel, mode, mats, vecs=(None,) * 4, eps=0.0, relu=False):
     dev, is_bf16 = x2d.device, _DTYPES[x2d.dtype]
     relu = bool(relu) and mode in (_FWD, _BWD_FUSED)
     vec = _vec(c, mats)
-    p = _plan(mode, rows, c, vec, _coop_ctas(dev, mode, is_bf16, relu, vec))
+    p = _plan(mode, rows, c, vec, _coop_ctas(dev, mode, is_bf16, relu, vec),
+              _tuned_slab(mode, x2d, vec, relu))
     f32 = dict(dtype=torch.float32, device=dev)
     out0, out1 = torch.empty(c, **f32), torch.empty(c, **f32)
     part = torch.empty((2, p.slabs, c), **f32)

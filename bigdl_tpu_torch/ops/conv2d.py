@@ -26,19 +26,19 @@ CUDA graph.
 A pass's layout is resolved from the site's geometry ``(kh, kw, sh, sw,
 cin, cout, groups, dh, dw, dtype)`` with the JAX package's precedence: an
 explicit spec (``--convLayout``) wins; else an installed per-geometry
-decision (``--convGeom``); else the global triple. The dtype strings are
-the JAX package's (``"bfloat16"``, ``"float32"``), so one decision file
-means the same to both packages. Differences from the JAX package:
-
-* no tuned-geometry step: ``bigdl_tpu.tuning`` is not ported, and
-  :func:`_tuned_geom_layout` is where its decision will be read;
-* :data:`MEASURED_DECISIONS` holds no entry: the JAX package's one row
-  was measured on a TPU, so ``auto`` resolves to all-NHWC on a GPU, as on
-  any device the JAX package has not measured.
+decision (``--convGeom``); else the tuner's ``conv_geom`` decision
+(``--autotune cached|measure``, :func:`_tuned_geom_layout`); else the
+global triple, which :func:`maybe_install_auto` installs for a run
+(``tuning.install_conv_layouts``). The dtype strings are the JAX
+package's (``"bfloat16"``, ``"float32"``), so one decision file means the
+same to both packages. :data:`MEASURED_DECISIONS` holds no entry: the JAX
+package's one row was measured on a TPU, so ``auto`` resolves to
+all-NHWC on a GPU, as on any device the JAX package has not measured.
 
 The policy is process-global state, set by the CLI flags before a model
-runs. With the default (all-NHWC, no geometry entry) :func:`policy_active`
-is False and ``nn.SpatialConvolution`` keeps its single-op path.
+runs. With the default (all-NHWC, no geometry entry, the tuner off)
+:func:`policy_active` is False and ``nn.SpatialConvolution`` keeps its
+single-op path.
 """
 
 from __future__ import annotations
@@ -57,6 +57,7 @@ __all__ = ["conv2d", "set_conv_pass_layouts", "reset_conv_pass_layouts",
            "clear_geom_policy", "geom_policy_if_any", "gemm_eligible",
            "geom_to_json", "geom_from_json", "resolve_site_layouts",
            "policy_snapshot", "restore_policy", "policy_active",
+           "maybe_install_auto",
            "MEASURED_DECISIONS", "LEGACY_PROBE_SHAPES"]
 
 _PASSES = ("fwd", "dgrad", "wgrad")
@@ -141,6 +142,29 @@ def conv_layouts_if_nondefault() -> "Dict[str, str] | None":
     return None if _POLICY == _DEFAULT else dict(_POLICY)
 
 
+def maybe_install_auto(device=None, guarded: bool = False,
+                       policy: "Dict[str, str] | None" = None
+                       ) -> Dict[str, str]:
+    """Install this device's measured triple (``auto``), or ``policy`` (a
+    tuner decision), unless a policy was installed explicitly; the
+    all-NHWC default where ``guarded`` (a run configuration, K > 1 or the
+    s2d stem, whose decision is its own). The training entry points call
+    it through ``tuning.install_conv_layouts``. Returns the active
+    triple."""
+    if not _EXPLICIT:
+        if guarded:
+            _POLICY.update(_DEFAULT)
+        elif policy is not None:
+            for v in policy.values():
+                if v not in _LAYOUTS:
+                    raise ValueError(
+                        f"layout must be one of {_LAYOUTS}, got {v!r}")
+            _POLICY.update({p: policy[p] for p in _PASSES})
+        else:
+            _POLICY.update(resolve_layout_spec("auto", device))
+    return dict(_POLICY)
+
+
 def policy_snapshot() -> tuple:
     """(policy, explicit flag, per-geometry table), for
     :func:`restore_policy`."""
@@ -167,10 +191,13 @@ def get_conv_pass_layouts() -> Dict[str, str]:
 
 def policy_active() -> bool:
     """True when a layout decision of any kind can apply: a non-default
-    global triple or an installed per-geometry table.
-    ``nn.SpatialConvolution`` routes through :func:`conv2d` exactly when
-    this is true."""
-    return _POLICY != _DEFAULT or bool(_GEOM_POLICY)
+    global triple, an installed per-geometry table, or the tuner on (its
+    ``conv_geom`` decisions are read per site). ``nn.SpatialConvolution``
+    routes through :func:`conv2d` exactly when this is true."""
+    if _POLICY != _DEFAULT or _GEOM_POLICY:
+        return True
+    from bigdl_tpu_torch.tuning import autotune as _at
+    return _at.get_mode() != "off"
 
 
 def probe_totals(lines: Iterable[str]) -> Dict[str, Dict[str, float]]:
@@ -361,13 +388,22 @@ def decide_geom_from_probe(lines: Iterable[str]) -> List[dict]:
             for g in sorted(best)]
 
 
-def _tuned_geom_layout(pass_name: str, geom: tuple) -> "str | None":
-    """The autotuner's decision for one (pass, geometry). The tuner is not
-    ported, so there is none; its lookup goes here."""
-    return None
+def _tuned_geom_layout(pass_name: str, geom: tuple, x_shape, gemm_ok: bool
+                       ) -> "str | None":
+    """The tuner's ``conv_geom`` decision for one (pass, geometry), or
+    None (tuner off, or no decision: the caller takes the global triple).
+    Without ``x_shape`` (a static lookup) it only reads the cache."""
+    from bigdl_tpu_torch.tuning import autotune as _at
+    if _at.get_mode() == "off":
+        return None
+    if x_shape is None:
+        return _at.peek_geom_layout(pass_name, geom, gemm_ok)
+    return _at.conv_geom_layout(pass_name, geom,
+                                tuple(int(d) for d in x_shape), gemm_ok)
 
 
-def _layout(pass_name: str, geom: tuple, eligible: bool) -> str:
+def _layout(pass_name: str, geom: tuple, eligible: bool,
+            x_shape=None) -> str:
     """One pass's layout: explicit spec > per-geometry decision > tuned
     decision > global triple; GEMM at an ineligible site is NHWC."""
     lay = None
@@ -376,7 +412,7 @@ def _layout(pass_name: str, geom: tuple, eligible: bool) -> str:
         if per:
             lay = per.get(pass_name)
         if lay is None:
-            lay = _tuned_geom_layout(pass_name, geom)
+            lay = _tuned_geom_layout(pass_name, geom, x_shape, eligible)
     if lay is None:
         lay = _POLICY[pass_name]
     if lay == "GEMM" and not eligible:
@@ -488,7 +524,14 @@ def conv2d(x, w, stride=(1, 1), padding=((0, 0), (0, 0)),
     pad = tuple((int(lo), int(hi)) for lo, hi in padding)
     geom = _geom_of(x, w, stride, dilation, groups)
     ok = gemm_eligible(geom[0], geom[1], stride, pad, dilation, groups)
-    layouts = {p: _layout(p, geom, ok) for p in _PASSES}
+    # the backward passes are looked up only where there is a backward (a
+    # forward-only site consults no dgrad/wgrad decision, as under jit)
+    # and a count on fake tensors (utils/flops) only reads decisions
+    grad = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+    from torch._subclasses.fake_tensor import FakeTensor
+    x_shape = None if isinstance(x, FakeTensor) else x.shape
+    layouts = {p: _layout(p, geom, ok, x_shape) if p == "fwd" or grad
+               else _POLICY[p] for p in _PASSES}
     if any(lo != hi for lo, hi in pad):
         x = F.pad(x, (0, 0, pad[1][0], pad[1][1], pad[0][0], pad[0][1]))
         sym = (0, 0)

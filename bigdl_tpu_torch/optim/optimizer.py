@@ -546,6 +546,12 @@ class Optimizer:
             self._join_ckpt_writer()
 
     def _optimize(self) -> TrainedModel:
+        # the conv layout triple of this dispatch configuration (a no-op
+        # under an explicit --convLayout; K steps a dispatch resolve their
+        # own key), as the JAX Optimizer installs it before its step
+        from bigdl_tpu_torch import tuning
+        tuning.install_conv_layouts(
+            "plain" if self.steps_per_dispatch == 1 else "inner")
         model = self.model
         init_params, init_mod_state, init_opt = self._init
         if init_params is not None or init_mod_state is not None:

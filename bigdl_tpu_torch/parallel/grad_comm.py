@@ -26,9 +26,10 @@ parameters/FP16CompressedTensor.scala and AllReduceParameter.scala).
   out of this step's wire is added to its next step's bucket, so nothing
   is lost over steps, but a step's gradient is not the f32 one.
 
-``--gradBuckets auto`` takes :data:`DEFAULT_BUCKET_BYTES` (``bucket_source``
-"default"): the autotuner of the JAX package (``tuning/``) is not ported
-(ROADMAP.md queue 1 entry 11).
+``--gradBuckets auto`` asks the tuner's ``grad_comm`` namespace first
+(``--autotune cached|measure``; ``bucket_source`` "autotune", the JAX
+package's word), else takes :data:`DEFAULT_BUCKET_BYTES` (``bucket_source``
+"default").
 """
 
 from __future__ import annotations
@@ -261,12 +262,19 @@ def compressed_psum(bucket, mesh, axis: str = "data", mode: str = "bf16"):
 
 
 # ------------------------------------------------------------ the reduce
-def _resolve_bucket_bytes(config: Optional[GradCommConfig]
+def _resolve_bucket_bytes(config: Optional[GradCommConfig],
+                          param_bytes: int, n_devices: int
                           ) -> Tuple[int, str]:
     """The bucket byte bound and its provenance: an explicit
-    ``--gradBuckets N`` wins, else the shipped default."""
+    ``--gradBuckets N`` wins, else the tuner's ``grad_comm`` decision
+    when it is on, else the shipped default."""
     if config is not None and config.bucket_bytes is not None:
         return int(config.bucket_bytes), "explicit"
+    from bigdl_tpu_torch.tuning import autotune as _at
+    wire = (config.wire_dtype if config is not None else None) or "bfloat16"
+    tuned = _at.grad_bucket_bytes(param_bytes, n_devices, wire)
+    if tuned is not None:
+        return int(tuned), "autotune"
     return DEFAULT_BUCKET_BYTES, "default"
 
 
@@ -286,7 +294,8 @@ def apply_grad_comm(grads: dict, config: Optional[GradCommConfig], mesh,
     group, world = _group_world(mesh)
     if not dist.is_initialized():
         return dict(grads), None
-    bucket_bytes, source = _resolve_bucket_bytes(config)
+    param_bytes = sum(t.numel() * 4 for t in grads.values())
+    bucket_bytes, source = _resolve_bucket_bytes(config, param_bytes, world)
     plan = build_bucket_plan(grads, bucket_bytes)
     active = config is not None and config.active
     leaves = [grads[n] for n in plan.names]

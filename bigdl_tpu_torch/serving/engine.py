@@ -22,8 +22,11 @@ into one buffer, sized by the largest, which is captured first.
 (``serving.quant``). ``predict_scores`` is the ``infer`` fault site (a
 ``worker_kill`` there is fatal to the batcher's worker thread), and with
 ``--reqTrace`` on it attributes each chunk's compute window to the
-requests whose rows it carried. Mesh placement and the lint pre-flight
-are not ported yet.
+requests whose rows it carried. An image classifier is served the same
+way with no length buckets: ``warmup`` takes the input shape and dtype
+``cli.perf.build_model`` gives, and ``compute_dtype`` casts floating
+inputs (``serve --bf16``) as the JAX engine does. Mesh placement and the
+lint pre-flight are not ported yet.
 """
 
 from __future__ import annotations
@@ -54,15 +57,17 @@ class InferenceEngine:
     :class:`~bigdl_tpu_torch.serving.graphs.GraphPool`), False (eager), or
     a pool shared with a decode engine. ``quantize``: a ``--quantize``
     mode; its weight format (int8, fp8) is served, the kv8 part is the
-    decode engine's."""
+    decode engine's. ``compute_dtype``: floating inputs are cast to it
+    before the module (an image model's bf16 activations)."""
 
     def __init__(self, module, *, buckets: Sequence[int] = (1, 2, 4, 8, 16,
                                                             32),
                  lengths: Optional[Sequence[int]] = None,
                  metrics=None, device="cuda",
                  graphs: Union[bool, GraphPool] = True,
-                 quantize: Optional[str] = None):
+                 quantize: Optional[str] = None, compute_dtype=None):
         self.device = resolve_device(device)
+        self.compute_dtype = compute_dtype
         self.quantize = quantize or "off"
         wfmt, _ = _q.parse_quantize(quantize)
         self.module = _q.quantize_params(module.to(self.device),
@@ -138,6 +143,9 @@ class InferenceEngine:
                 chunk.shape, dtype=torch.from_numpy(chunk).dtype,
                 device=self.device)
         x.copy_(torch.from_numpy(chunk))
+        cd = self.compute_dtype
+        if cd is not None and x.is_floating_point():
+            return key, lambda: self._emit(self.module(x.to(cd)))
         return key, lambda: self._emit(self.module(x))
 
     @torch.no_grad()
@@ -251,7 +259,9 @@ class InferenceEngine:
         return out if length is None else out[:, :length]
 
     def provenance(self) -> dict:
-        dtype = getattr(self.module, "compute_dtype", None) or torch.float32
+        dtype = (self.compute_dtype
+                 or getattr(self.module, "compute_dtype", None)
+                 or torch.float32)
         prov = {"buckets": ",".join(str(b) for b in self.buckets),
                 "compute_dtype": str(dtype).replace("torch.", ""),
                 "device": str(self.device), "quantize": self.quantize}

@@ -20,8 +20,13 @@ and the modules' own forwards read them unchanged:
   8-bit rows, then the scale.
 
 The product is ``q.to(dt)`` and ``torch.matmul``, the JAX package's
-dequant-fused default. Its native-int8 kind, chosen per shape by the
-``quant`` namespace of tuning, waits for the port's tuning.
+dequant-fused default. Under ``--autotune cached|measure`` the ``quant``
+namespace of tuning may choose, per (m, k, n, dtype), the native-int8
+kind for an int8 weight: a dynamic per-row activation scale max|x|/127,
+round and clip to ±127, an int8 x int8 product with int32 accumulation
+(``torch._int_mm``, cuBLASLt on the card) and both scales in the
+epilogue, the JAX package's arithmetic. It is offered only at shapes
+``torch._int_mm`` takes on the card.
 
 Quality is measured: :func:`quant_report` decodes greedily through the
 full-precision and the quantized model, teacher-forced on the first's
@@ -47,7 +52,7 @@ logger = logging.getLogger(__name__)
 __all__ = ["QuantizedWeight", "quantize_weight", "quantize_params",
            "is_quantized", "parse_quantize", "fp8_supported",
            "kv_fake_quant", "quant_report", "weight_bytes",
-           "QUANTIZE_CHOICES"]
+           "QUANTIZE_CHOICES", "native_int8_product"]
 
 QUANTIZE_CHOICES = ("off", "int8", "fp8", "kv8", "int8+kv8", "fp8+kv8")
 
@@ -157,9 +162,37 @@ class _QView:
             # w is (n, k) with its scale on k, the contraction dim here:
             # x @ (q * s).T == (x * s) @ q.T
             return (x * scale) @ w.q.to(dt).T
+        if w.fmt == "int8" and _matmul_kind(x, w, dt) == "native-int8":
+            y = native_int8_product(x.reshape(-1, x.shape[-1]), w.q,
+                                    w.scale, dt)
+            return y.reshape(*x.shape[:-1], y.shape[-1])
         # the scale is on the output channels: it commutes with the
         # contraction
         return (x @ w.q.to(dt)) * scale
+
+
+def _matmul_kind(x, w: QuantizedWeight, dt) -> str:
+    """The ``quant`` tuning namespace's kind for this product (dequant
+    under ``--autotune off``): keyed on m = x.shape[-2] as the JAX
+    package keys it, runnable by the flattened row count."""
+    from bigdl_tpu_torch.tuning import autotune as _at
+    if _at.get_mode() == "off":
+        return "dequant"
+    m = int(x.shape[-2]) if x.ndim >= 2 else 1
+    k, n = int(w.q.shape[0]), int(w.q.shape[1])
+    return _at.quant_matmul_kind(m, k, n, dt, rows=x.numel() // max(k, 1))
+
+
+def native_int8_product(x, q, scale, dt):
+    """The native-int8 product of a (rows, k) activation and an int8
+    (k, n) weight with f32 per-column ``scale``: a dynamic per-row scale
+    max|x|/127, round and clip to ±127, ``torch._int_mm`` (int32
+    accumulation), both scales in the epilogue, in ``dt``."""
+    xf = x.float()
+    xs = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+    xq = torch.round(xf / xs).clamp(-127, 127).to(torch.int8)
+    acc = torch._int_mm(xq, q)
+    return acc.to(dt) * xs.to(dt) * scale.to(dt)
 
 
 def is_quantized(x) -> bool:

@@ -373,6 +373,37 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    and ``/healthz`` 200. The workers' launches are in their processes and
    are not counted.
 
+24. The autotuner (``bigdl_tpu_torch.tuning``) on the card, after phase
+   23, its cache in a fresh ``build/autotune_phase24``. (a) ``measure``:
+   each namespace swept at the shapes the main paths give it, each
+   candidate timed in device time over CUDA-graph replays (input copies
+   rotated past the L2 where they fit in it): ``bn_stats`` and ``bn_fba``
+   (through the kernels' own calls) at 401408 x 256, 6272 x 288 and 128 x
+   512 bf16, ReLU on (and off at 401408 x 256, ResNet-50's stage-1 BNs
+   before the sum); ``flash`` at the key-padded 1k shape; ``kv_pages``
+   for the 1k LM's cache; ``quant`` at its prefill (512 rows) and decode
+   (16 rows) products; ``grad_comm`` at one NCCL rank for ResNet-50's
+   gradient; ``conv_geom`` at ResNet-50's 7x7/2 stem and a 1x1, each
+   pass. Each key's decision, its ``best_ms`` and the default's ms print.
+   (b) ``cached``: the same consultations replay every decision with
+   source ``cached``, time nothing, and leave the file's bytes as they
+   were; each BN kernel under its tuned plan matches its plain version
+   within phase 7's tolerances (untuned and tuned ms printed). (c)
+   ``serve resnet50 --classes 1000 --fusedBN apply --autotune cached
+   --randomInit`` through ``cli.serve.build_app``, f32, over HTTP from a
+   thread: /predict batches of 2 and 3 seeded images answer 200 with
+   scores within ``LOGIT_TOL`` of max|score| of the offline eval forward,
+   /healthz 200; graphs captured, build and warm-up seconds, peak memory.
+   (d) ``cli.perf -m resnet50_fba`` bf16 batch 128 with ``--autotune
+   off`` and then ``cached``: images/s, 53 launches a step of each fused
+   BN kernel, and the second line's ``autotune`` naming the BN and conv
+   keys it consulted (the tuned 401408 x 256 ReLU-off key among them).
+   (e) An
+   untied ``transformer_lm_1k_hd128`` (a ``head`` Linear, seeded,
+   embedding x0.02) served in f32 over HTTP: greedy ``/generate`` equal to
+   its offline ``generate``, its prefills through ``flash_fwd``. The
+   launches of (d) and (e) join the kernels line's.
+
 Any failed phase exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -5399,6 +5430,464 @@ def serving_front_runs(torch, card):
     return rows, launches
 
 
+# ---------------------------------------------------------------- phase 24
+# (a)'s sweep: the BN shapes (ResNet-50's stage 1, Inception-v2's 6272 x
+# 288, VGG's 2-D 128 x 512; bf16, the fused pair with ReLU on, and off at
+# 401408 x 256 as ResNet-50's stage-1 BNs before the sum take it), the
+# key-padded 1k attention, the served LM's KV pages and int8 products, the
+# bucket bound at one rank, ResNet-50's 7x7/2 stem and a 1x1
+TUNE_BN = [(401408, 256, (True, False)), (6272, 288, (True,)),
+           (128, 512, (True,))]
+TUNE_PREFILL_ROWS, TUNE_DECODE_ROWS = 512, 16
+INT8_TOL = 1e-6  # native int8, card vs CPU, max|d|/max|ref| in f32
+TUNE_QUANT_KN = [(1024, 1024), (1024, 256), (1024, 4096), (4096, 1024)]
+TUNE_GEOMS = [((7, 7, 2, 2, 3, 64, 1, 1, 1, "bfloat16"), (128, 224, 224, 3),
+               False),
+              ((1, 1, 1, 1, 256, 64, 1, 1, 1, "bfloat16"), (128, 56, 56, 256),
+               True)]
+TUNE_PREDICT = (2, 3)           # (c)'s /predict batches (3 pads to 4)
+TUNE_PERF_ITERS = 5
+TUNE_PROMPTS = (5, 33, 200)     # (e)'s greedy prompts
+TUNE_NEW = 12
+
+
+def _default_ms(op, config):
+    """The default candidate's ms in the latest measurement of ``op``."""
+    from bigdl_tpu_torch.tuning import measure
+    return next((ms for c, ms in measure.LAST.get(op, ())
+                 if all(c.get(k) == v for k, v in config.items())), None)
+
+
+def tune_consult(torch, card, report):
+    """Every consultation of (a), in the mode installed: the BN kernels
+    called (their wrappers ask the tuner), then the other surfaces.
+    ``report`` prints each key's decision beside its default's time."""
+    from bigdl_tpu_torch import tuning
+    from bigdl_tpu_torch.ops import bn_kernel as bk
+    from bigdl_tpu_torch.ops.attention_kernel import flash_block_k
+    from bigdl_tpu_torch.parallel import init_distributed
+    from bigdl_tpu_torch.parallel.launch import free_port
+    import torch.distributed as dist
+
+    bf16 = torch.bfloat16
+    for rows, c, relus in TUNE_BN:
+        g = torch.Generator(device="cuda").manual_seed(rows + c)
+        x = torch.randn(rows, c, device="cuda", generator=g).to(bf16)
+        vec = torch.ones(c, device="cuda")
+        bk.bn_stats(x)
+        report("bn_stats", tuning.make_key(
+            "bn_stats", rows=rows, channels=c, dtype="bfloat16"),
+            "bn_stats:default")
+        for relu in relus:
+            bk.bn_fwd_apply(x, vec, vec * 0, BN_EPS, relu)
+            report("bn_fba", tuning.make_key(
+                "bn_fba", rows=rows, channels=c, dtype="bfloat16",
+                relu=int(relu)), "bn_fba:default")
+        del x
+    flash_block_k(1024, 1024, 128, True, bf16)
+    report("flash", tuning.make_key("flash", seq_q=1024, seq_k=1024,
+                                    head_dim=128, causal=1,
+                                    dtype="bfloat16"), {"block_k": 512})
+    tuning.kv_page_tokens(1024, 2, 128, bf16)
+    report("kv_pages", tuning.make_key("kv_pages", max_len=1024, kv_heads=2,
+                                       head_dim=128, dtype="bfloat16"),
+           {"page_tokens": 128})
+    for m, rows in ((TUNE_PREFILL_ROWS, TUNE_PREFILL_ROWS),
+                    (1, TUNE_DECODE_ROWS)):
+        for k, n in TUNE_QUANT_KN:
+            tuning.quant_matmul_kind(m, k, n, bf16, rows=rows)
+            report("quant", tuning.make_key("quant", m=m, k=k, n=n,
+                                            dtype="bfloat16"),
+                   {"kind": "dequant"})
+    from bigdl_tpu_torch.cli import perf
+    model, _ = perf.build_model("resnet50_fba")
+    param_bytes = sum(p.numel() * 4 for p in model.parameters())
+    del model
+    init_distributed(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl")
+    try:
+        tuning.grad_bucket_bytes(param_bytes, 1, "bfloat16")
+    finally:
+        dist.destroy_process_group()
+    report("grad_comm", tuning.make_key(
+        "grad_comm", param_mib=-(-param_bytes // 2 ** 20), n_devices=1,
+        dtype="bfloat16"), {"bucket_bytes": 4 * 2 ** 20})
+    for geom, x_shape, gemm_ok in TUNE_GEOMS:
+        for p in ("fwd", "dgrad", "wgrad"):
+            tuning.conv_geom_layout(p, geom, x_shape, gemm_ok)
+            report("conv_geom", tuning.conv_geom_key(p, geom),
+                   {"layout": "NHWC"})
+
+
+def tuned_bn_check(torch, card):
+    """Each BN kernel under its tuned plan (the tuner in ``cached``) at
+    (a)'s shapes against its plain version, within phase 7's tolerances;
+    each kernel's device ms under the untuned and the tuned plan."""
+    from bigdl_tpu_torch.ops import bn_kernel as bk
+    from bigdl_tpu_torch.tools.timing import device_ms
+
+    bad = []
+    for rows, c, _ in TUNE_BN:
+        g = torch.Generator(device="cuda").manual_seed(rows + c + 1)
+        x = (torch.randn(rows, c, device="cuda", generator=g) * 1.5
+             + 0.3).to(torch.bfloat16)
+        dy = torch.randn(rows, c, device="cuda", generator=g).to(x.dtype)
+        gamma = 1 + 0.2 * torch.randn(c, device="cuda", generator=g)
+        beta = 0.2 * torch.randn(c, device="cuda", generator=g)
+        _, mean, var = bk.bn_fwd_apply_reference(x, gamma, beta, BN_EPS)
+        inv = torch.rsqrt(var + BN_EPS)
+        cases = (
+            ("bn_stats", bk._STATS, False, lambda: bk.bn_stats(x),
+             lambda: bk.bn_stats_reference(x)),
+            ("bn_bwd_stats", bk._BWD_STATS, False,
+             lambda: bk.bn_bwd_stats(dy, x, mean, inv),
+             lambda: bk.bn_bwd_stats_reference(dy, x, mean, inv)),
+            ("bn_fwd_apply", bk._FWD, True,
+             lambda: bk.bn_fwd_apply(x, gamma, beta, BN_EPS, True),
+             lambda: bk.bn_fwd_apply_reference(x, gamma, beta, BN_EPS, True)),
+            ("bn_bwd_fused", bk._BWD_FUSED, True,
+             lambda: bk.bn_bwd_fused(dy, x, mean, inv, gamma, beta, True),
+             lambda: bk.bn_bwd_fused_reference(dy, x, mean, inv, gamma,
+                                               beta, True)))
+        for name, mode, relu, run, plain in cases:
+            slab = bk._tuned_slab(mode, x, bk._vec(c, [x]), relu)
+            got, ref = run(), plain()
+            torch.cuda.synchronize()
+            rel = [float((a.float() - r.float()).abs().max()
+                         / r.float().abs().max().clamp_min(1e-30))
+                   for a, r in zip(got, ref)]
+            tols = [BN_TOL["bfloat16"]] if name in ("bn_fwd_apply",
+                                                    "bn_bwd_fused") else []
+            tols += [BN_SUM_TOL] * (len(rel) - len(tols))
+            ok = all(bool(torch.isfinite(t.float()).all()) for t in got) \
+                and all(e <= t for e, t in zip(rel, tols))
+            with bk.pinned_slab(None):
+                base_ms = device_ms(run)
+            tuned_ms = device_ms(run)
+            print(f"[phase 24 a] {name} {rows}x{c} bf16 relu={int(relu)} "
+                  f"under its tuned plan (slab {slab or 'untuned'}): "
+                  f"max|d|/max|ref| {['%.1e' % e for e in rel]} untuned "
+                  f"{base_ms:.4f} ms, tuned {tuned_ms:.4f} ms on {card} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                bad.append((name, rows, c, rel))
+        del x, dy
+    if bad:
+        fail(f"[phase 24 a] BN kernels under tuned plans disagree with "
+             f"their plain versions: {bad}")
+
+
+def int8_check(torch, card):
+    """The native-int8 product on the card: ``torch._int_mm``'s int32
+    sums equal the exact integer product of the same int8 operands, and
+    the whole product (the dynamic activation scale, both scales in the
+    epilogue) is within ``INT8_TOL`` of max|ref| of the same arithmetic on
+    the CPU in f32 (the card divides by the scalar 127 as a multiply by
+    its reciprocal, an ulp off the CPU's quotient); which row counts
+    ``torch._int_mm`` takes."""
+    from bigdl_tpu_torch.serving.quant import native_int8_product
+    from bigdl_tpu_torch.tuning import autotune as at
+
+    g = torch.Generator().manual_seed(8)
+    k, n = 1024, 256
+    q = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+    s = torch.rand(n, generator=g) * 0.01
+    worst = 0.0
+    for rows in (TUNE_PREFILL_ROWS, 24, 32, 40):
+        x = torch.randn(rows, k, generator=g)
+        xq = torch.randint(-127, 128, (rows, k), generator=g,
+                           dtype=torch.int8)
+        acc = torch._int_mm(xq.to(DEV), q.to(DEV)).cpu()
+        exact = (xq.long() @ q.long()).to(torch.int32)
+        got = native_int8_product(x.to(DEV), q.to(DEV), s.to(DEV),
+                                  torch.float32).cpu()
+        ref = native_int8_product(x, q, s, torch.float32)
+        err = float((got - ref).abs().max() / ref.abs().max())
+        worst = max(worst, err)
+        if not torch.equal(acc, exact) or err > INT8_TOL \
+                or not at.int_mm_ok(rows, k, n):
+            fail(f"[phase 24 a] native int8 at {rows} x {k} x {n}: int32 "
+                 f"sums exact {torch.equal(acc, exact)}, max|d|/max|ref| "
+                 f"{err}, int_mm_ok {at.int_mm_ok(rows, k, n)}")
+    taken = {}
+    for rows in (16, 17, 20, 33, 100):
+        try:
+            torch._int_mm(torch.ones(rows, k, dtype=torch.int8, device=DEV),
+                          q.to(DEV))
+            torch.cuda.synchronize()
+            taken[rows] = True
+        except RuntimeError:
+            taken[rows] = False
+        if taken[rows] and not at.int_mm_ok(rows, k, n):
+            print(f"[phase 24 a] note: torch._int_mm takes {rows} rows, "
+                  f"which int_mm_ok refuses", flush=True)
+        if not taken[rows] and at.int_mm_ok(rows, k, n):
+            fail(f"[phase 24 a] torch._int_mm refuses {rows} rows, which "
+                 f"int_mm_ok offers")
+    print(f"[phase 24 a] native int8 on the card: int32 sums exact, the "
+          f"product within {worst:.1e} of max|ref| of the CPU's (f32, "
+          f"{TUNE_PREFILL_ROWS}/24/32/40 x {k} x {n}); torch._int_mm takes "
+          f"rows {taken} on {card}", flush=True)
+
+
+def tune_serve_run(torch, card):
+    """(c): ``serve resnet50 --classes 1000 --fusedBN apply --autotune
+    cached --randomInit`` through ``cli.serve.build_app``, f32, over HTTP
+    from a thread: /predict batches of seeded images against the offline
+    eval forward, /healthz; graphs, warm-up seconds and peak memory."""
+    import numpy as np
+
+    from bigdl_tpu_torch.cli import serve as serve_cli
+    from bigdl_tpu_torch.serving import make_server
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    app, engine, in_shape, _ = serve_cli.build_app(
+        serve_cli.build_parser().parse_args(
+            ["resnet50", "--classes", "1000", "--fusedBN", "apply",
+             "--autotune", "cached", "--randomInit", "--port", "0"]))
+    warm = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    srv = make_server(app, "127.0.0.1", 0)
+    thr = threading.Thread(target=srv.serve_forever, daemon=True)
+    thr.start()
+    port = srv.server_address[1]
+    rs = np.random.RandomState(24)
+    try:
+        got, xs = [], []
+        for n in TUNE_PREDICT:
+            x = np.round(rs.randn(n, *in_shape), 2).astype(np.float32)
+            st, out = _post(port, "/predict", {"inputs": x.tolist(),
+                                               "return_scores": True})
+            if st != 200:
+                fail(f"[phase 24 c] /predict of {n} images answered {st}: "
+                     f"{str(out)[:200]}")
+            got.append(np.asarray(out["scores"], np.float32))
+            xs.append(x)
+        st_h, _ = _get(port, "/healthz")
+        with torch.no_grad():
+            ref = [engine.module(torch.from_numpy(x).to(DEV)).float().cpu()
+                   .numpy() for x in xs]
+        graphs = len(engine.graphs)
+    finally:
+        stop_server(app, srv, thr)
+    err = max(float(np.abs(g - r).max() / np.abs(r).max())
+              for g, r in zip(got, ref))
+    print(f"[phase 24 c] serve resnet50 --fusedBN apply --autotune cached "
+          f"f32: /predict {list(TUNE_PREDICT)} images 200, /healthz {st_h}, "
+          f"scores vs the offline eval forward max|d|/max|ref| {err:.2e} "
+          f"(tolerance {LOGIT_TOL['float32']}); {graphs} graphs captured, "
+          f"build and warm-up {warm:.1f}s, peak memory {peak:.2f} GiB on "
+          f"{card}", flush=True)
+    if st_h != 200 or err > LOGIT_TOL["float32"] or graphs != len(
+            engine.buckets):
+        fail(f"[phase 24 c] /healthz {st_h}, score error {err}, graphs "
+             f"{graphs} for buckets {engine.buckets}")
+    del app, engine
+    _free(torch)
+    return {"resnet50 serve build+warm-up s": round(warm, 1),
+            "resnet50 serve peak GiB": round(peak, 2)}
+
+
+def tune_perf_runs(torch, card):
+    """(d): ``cli.perf -m resnet50_fba`` with ``--autotune off`` and then
+    ``cached``: rates, BN launches (exactly 53 a step of each fused
+    kernel), and the second line's ``autotune`` with the BN and conv keys
+    it consulted."""
+    import math
+
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.cli import perf
+
+    rows, counts = {}, []
+    steps = RESNET_WARMUP + TUNE_PERF_ITERS
+    for mode in ("off", "cached"):
+        ops.reset_kernel_launches()
+        res = perf.run("resnet50_fba", batch=RESNET_BATCH,
+                       iterations=TUNE_PERF_ITERS, dtype=torch.bfloat16,
+                       warmup=RESNET_WARMUP, data_type="random",
+                       autotune=mode)
+        torch.cuda.synchronize()
+        n = ops.kernel_launches()
+        counts.append(n)
+        want = {k: (53 * steps if k in ("bn_fwd_apply", "bn_bwd_fused")
+                    else 0) for k in n}
+        ann = res.get("autotune")
+        keys = sorted((ann or {}).get("decisions", {}))
+        print(f"[phase 24 d] cli.perf -m resnet50_fba --autotune {mode} bf16 "
+              f"batch {RESNET_BATCH} on {card}: {res['records_per_second']} "
+              f"images/s, BN launches "
+              f"{ {k: v for k, v in n.items() if v} } over {steps} steps; "
+              f"autotune {'absent' if ann is None else ann['mode']}, "
+              f"{len(keys)} keys", flush=True)
+        if mode == "cached":
+            for k in keys:
+                if not k.startswith("conv_geom") or "default" != \
+                        ann["decisions"][k]:
+                    print(f"  {k}: {ann['decisions'][k]}", flush=True)
+        if not all(math.isfinite(v) for v in res["losses"]) or n != want:
+            fail(f"[phase 24 d] --autotune {mode}: losses {res['losses']}, "
+                 f"launches {n}, expected {want}")
+        if (mode == "off") != (ann is None) or (mode == "cached" and not (
+                any(k.startswith("bn_fba|") for k in keys)
+                and any(k.startswith("conv_geom|") for k in keys)
+                and ann["decisions"].get(
+                    "bn_fba|channels=256|dtype=bfloat16|relu=0|rows=401408",
+                    "default") != "default")):
+            fail(f"[phase 24 d] --autotune {mode}: the line's autotune "
+                 f"{ann}")
+        rows[f"resnet50_fba --autotune {mode} images/s"] = \
+            res["records_per_second"]
+        torch.cuda.empty_cache()
+    return rows, counts
+
+
+def untied_serve_run(torch, card):
+    """(e): an untied ``transformer_lm_1k_hd128`` (seeded, embedding
+    x0.02) served in f32 over HTTP: greedy /generate equals its offline
+    ``generate``, and its prefills launch ``flash_fwd`` (12 a prefill at
+    least, replays credited). Returns flash_fwd launches."""
+    import numpy as np
+
+    from bigdl_tpu_torch import models, ops
+    from bigdl_tpu_torch.cli import perf
+    from bigdl_tpu_torch.obs.metrics import MetricsRegistry
+    from bigdl_tpu_torch.serving import (DecodeEngine, InferenceEngine,
+                                         MicroBatcher, ServingApp,
+                                         make_server)
+    from bigdl_tpu_torch.serving.graphs import GraphPool
+
+    cfg = perf.LM_CONFIGS[MODEL]
+    model = models.transformer_lm(
+        perf.LM_VOCAB, attn_impl="flash", tie_embeddings=False,
+        generator=torch.Generator().manual_seed(0), **cfg).to(DEV).eval()
+    with torch.no_grad():
+        model.emb.weight.mul_(0.02)
+    metrics, pool = MetricsRegistry(), GraphPool(torch.device(DEV))
+    engine = InferenceEngine(model, buckets=(1,), lengths=(64,),
+                             metrics=metrics, device=DEV, graphs=pool)
+    engine.warmup((cfg["max_len"],), np.int32)
+    decoder = DecodeEngine(model, slots=4, metrics=metrics, device=DEV,
+                           graphs=pool)
+    batcher = MicroBatcher(engine.predict_scores, metrics=metrics)
+    decoder.start()
+    app = ServingApp(name="untied", metrics=metrics, engine=engine,
+                     batcher=batcher, decoder=decoder)
+    srv = make_server(app, "127.0.0.1", 0)
+    thr = threading.Thread(target=srv.serve_forever, daemon=True)
+    thr.start()
+    rs = np.random.RandomState(25)
+    prompts = [rs.randint(0, perf.LM_VOCAB, n).tolist()
+               for n in TUNE_PROMPTS]
+    try:
+        ops.reset_kernel_launches()
+        outs = [_post(srv.server_address[1], "/generate",
+                      {"tokens": p, "max_new_tokens": TUNE_NEW})
+                for p in prompts]
+        torch.cuda.synchronize()
+        launches = ops.kernel_launches()["flash_fwd"]
+    finally:
+        stop_server(app, srv, thr)
+    ref = [model.generate(torch.tensor([p], device=DEV), TUNE_NEW)[0]
+           .tolist() for p in prompts]
+    same = [st == 200 and out["tokens"] == r
+            for (st, out), r in zip(outs, ref)]
+    print(f"[phase 24 e] untied {MODEL} f32 on {card}: /generate = offline "
+          f"generate {same}, flash_fwd launches {launches} over "
+          f"{len(prompts)} prefills", flush=True)
+    if not all(same) or launches < cfg["num_layers"] * len(prompts):
+        fail(f"[phase 24 e] untied head: {outs} vs {ref}, flash_fwd "
+             f"launches {launches}")
+    del app, engine, decoder, model
+    _free(torch)
+    return launches
+
+
+def tuning_runs(torch, card):
+    """Phase 24: the autotuner on the card. Returns ({tag: value},
+    [launches of (d)'s runs], (e)'s flash_fwd launches)."""
+    import shutil
+
+    from bigdl_tpu_torch import tuning
+    from bigdl_tpu_torch.ops import conv2d as c2d
+    from bigdl_tpu_torch.tuning import measure
+
+    t_phase = time.perf_counter()
+    cache = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "autotune_phase24")
+    shutil.rmtree(cache, ignore_errors=True)
+    os.environ["BIGDL_TPU_AUTOTUNE_CACHE"] = cache
+    rows = {}
+    try:
+        # (a) measure: every key timed on the card, its decision beside
+        # the default's time
+        tuning.reset()
+        tuning.set_mode("measure")
+        measured = {}
+
+        def report(op, key, default):
+            ent = tuning.get_cache().get(key)
+            if ent is None or ent.get("source") != "measured":
+                fail(f"[phase 24 a] {key}: not measured ({ent})")
+            base = (measure.LAST[default][0][1] if isinstance(default, str)
+                    else _default_ms(op, default))
+            measured[key] = ent
+            cands = measure.LAST.get(op, ())
+            print(f"[phase 24 a] {key}: {ent['config']} best_ms "
+                  f"{ent['best_ms']} default ms "
+                  f"{'n/a' if base is None else round(base, 4)} over "
+                  f"{len(cands)} candidates ("
+                  + ", ".join(f"{'/'.join(str(v) for v in c.values())} "
+                              f"{ms:.4f}" for c, ms in cands)
+                  + f") on {card}", flush=True)
+            rows[f"{key} best_ms / default ms"] = (
+                ent["best_ms"], None if base is None else round(base, 4))
+
+        t0 = time.perf_counter()
+        tune_consult(torch, card, report)
+        print(f"[phase 24 a] {len(measured)} keys measured in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+        with open(tuning.cache_path(), "rb") as f:
+            blob = f.read()
+        # (b) cached: the same consultations replay every decision, time
+        # nothing and leave the file's bytes as they were
+        tuning.reset()
+        tuning.set_mode("cached")
+        measure.LAST.clear()
+        replayed = {}
+
+        def replay(op, key, default):
+            replayed[key] = tuning.annotation()["decisions"].get(key)
+
+        tune_consult(torch, card, replay)
+        with open(tuning.cache_path(), "rb") as f:
+            same = f.read() == blob
+        bad = {k: v for k, v in replayed.items()
+               if not isinstance(v, dict) or v.get("source") != "cached"
+               or {kk: vv for kk, vv in v.items() if kk != "source"}
+               != measured[k]["config"]}
+        print(f"[phase 24 b] cached: {len(replayed)} decisions replayed, "
+              f"{len(measure.LAST)} timed, file unchanged {same}",
+              flush=True)
+        if bad or measure.LAST or not same:
+            fail(f"[phase 24 b] cached replay: {bad}, timed "
+                 f"{list(measure.LAST)}, file unchanged {same}")
+        tuned_bn_check(torch, card)
+        int8_check(torch, card)
+        _free(torch)
+        # (c)-(e)
+        rows.update(tune_serve_run(torch, card))
+        perf_rows, counts = tune_perf_runs(torch, card)
+        rows.update(perf_rows)
+        tuning.set_mode("off")
+        launches = untied_serve_run(torch, card)
+    finally:
+        tuning.reset()
+        c2d.reset_conv_pass_layouts()
+        os.environ.pop("BIGDL_TPU_AUTOTUNE_CACHE", None)
+    print(f"[phase 24] {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return rows, counts, launches
+
+
 def main():
     try:
         import torch
@@ -5492,7 +5981,9 @@ def main():
     attn_rows, attn_n, _ = attention_slice_runs(torch, card)
     front_rows, front_n = serving_front_runs(torch, card)
     launches["flash_fwd"] += front_n
-    for n in base_n + inc_n + slice_n + dp_n + attn_n:
+    tune_rows, tune_n, untied_n = tuning_runs(torch, card)
+    launches["flash_fwd"] += untied_n
+    for n in base_n + inc_n + slice_n + dp_n + attn_n + tune_n:
         for name in launches:
             launches[name] += n[name]
     print("[phase 19] BN launches by mode: " + ", ".join(
@@ -5537,6 +6028,8 @@ def main():
         print(f"[phase 22] {tag} on {card}: {r}", flush=True)
     for tag, r in front_rows.items():
         print(f"[phase 23] {tag} on {card}: {r}", flush=True)
+    for tag, r in tune_rows.items():
+        print(f"[phase 24] {tag} on {card}: {r}", flush=True)
 
     head, bwd = rows[0], bwd_rows[0]  # the training step's 8 x 8 x 1024^2
     common = {"route": "cuda", "check": "pass", "shape": head["shape"],

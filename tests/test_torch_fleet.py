@@ -207,12 +207,22 @@ def test_resolve_serve_config_and_refusals():
     for argv, msg in ((["--fleet", "-1"], "--fleet -1"),
                       (["--speculate", "-2"], "--speculate -2"),
                       (["--strategy", "tp:2"], "--strategy: .*entry 13"),
-                      (["--lint", "strict"], "--lint: .*entry 16"),
-                      (["--autotune", "cached"], "--autotune: .*entry 11"),
-                      (["--fusedBN", "apply"], "--fusedBN: .*entry 8")):
+                      (["--lint", "strict"], "--lint: .*entry 16")):
         with pytest.raises(SystemExit, match=msg):
             common.resolve_serve_config(p.parse_args(["transformer_lm"]
                                                      + argv))
+    # the flags of the image models and the tuner are ported: accepted,
+    # and a fleet passes them to its workers
+    flags = ["--classes", "10", "--fusedBN", "apply", "--convLayout",
+             "NHWC,NHWC,NHWC", "--convGeom", "g.json", "--autotune",
+             "cached"]
+    args = p.parse_args(["resnet20_cifar", "--fleet", "2"] + flags)
+    assert common.resolve_serve_config(args).fleet_workers == 2
+    assert (args.classes, args.fusedBN, args.autotune) == (10, "apply",
+                                                           "cached")
+    assert router.worker_base_argv(["resnet20_cifar", "--fleet", "2",
+                                    "--port", "0"] + flags) == \
+        ["resnet20_cifar"] + flags
     from bigdl_tpu_torch.serving.quant import QUANTIZE_CHOICES
     assert common.QUANTIZE_CHOICES == QUANTIZE_CHOICES
 

@@ -430,15 +430,20 @@ def test_serve_cli_refuses_what_is_not_ported():
     for argv, msg in (
             (["transformer_lm", "--randomInit", "--strategy", "dp:2"],
              "--strategy: .*queue 1 entry 13"),
-            (["transformer_lm", "--randomInit", "--classes", "10"],
-             "--classes: .*queue 1 entry 8"),
+            (["transformer_lm", "--randomInit", "--lint", "strict"],
+             "--lint: .*queue 1 entry 16"),
             (["transformer_lm", "--randomInit", "--slo", "ttft_p99=1"],
              "--slo 'ttft_p99=1': unknown SLO dim"),
             (["transformer_lm", "--randomInit", "--platform", "cpu",
               "--speculate", "2", "--draftDims", "65,2,4"], "divisible"),
             (["transformer_lm", "--randomInit", "--platform", "cpu",
               "--seq", "100", "--quantize", "kv8"], "no page size"),
-            (["lenet5", "--randomInit", "--platform", "cpu"], "lenet5"),
+            (["alexnet_v9", "--randomInit", "--platform", "cpu"],
+             "serve takes the transformer_lm"),
+            (["lenet5", "--randomInit", "--platform", "cpu", "--quantize",
+              "kv8"], "transformer_lm models only"),
+            (["lenet5", "--randomInit", "--platform", "cpu",
+              "--speculate", "2"], "transformer_lm models only"),
             (["transformer_lm", "--platform", "cpu"], "needs weights"),
             (["transformer_lm", "--randomInit", "--platform", "cpu",
               "--prefixCache"], "needs --kvPageTokens"),

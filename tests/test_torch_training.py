@@ -441,7 +441,7 @@ def test_transformerlm_cli_refuses_what_is_not_ported(tmp_path, capsys):
     """--strategy dp is taken (one process exits naming torchrun, as the
     JAX CLI names XLA_FLAGS; the deprecated --dataParallel is a no-op
     there); tp and --elastic are refused by name, and so is a flag of a
-    feature the port does not have."""
+    feature the port does not have (--lint, queue 1 entry 16)."""
     _corpus(tmp_path)
     base = ["train", "-f", str(tmp_path), "--platform", "cpu"]
     small = ["--dModel", "16", "--numLayers", "1", "--numHeads", "2",
@@ -455,10 +455,10 @@ def test_transformerlm_cli_refuses_what_is_not_ported(tmp_path, capsys):
     assert lm_cli.main(base + small + ["--dataParallel"]).module is not None
     capsys.readouterr()
     with pytest.raises(SystemExit) as e:
-        lm_cli.main(base + ["--autotune"])
+        lm_cli.main(base + ["--lint", "strict"])
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert "unrecognized arguments: --autotune" in err
+    assert "unrecognized arguments: --lint strict" in err
     assert "ROADMAP.md" in err
     with pytest.raises(SystemExit):
         lm_cli.main(base + ["--optimMethod", "lbfgs"])
