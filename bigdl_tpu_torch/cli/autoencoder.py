@@ -32,24 +32,27 @@ def main(argv=None):
     import torch
 
     from bigdl_tpu_torch import nn
-    from bigdl_tpu_torch.core.module import resolve_device
     from bigdl_tpu_torch.dataset import BatchDataSet
     from bigdl_tpu_torch.dataset.mnist import load_mnist
     from bigdl_tpu_torch.models import autoencoder
     from bigdl_tpu_torch.optim import Adagrad
 
-    resolve_device(args.platform)  # refuse before reading the data
+    common.apply_platform(args)  # refuse before reading the data
     xtr, _ = load_mnist(args.folder, train=True)
     x = xtr.astype(np.float32) / 255.0
-    # the target is the flattened input, kept aligned under shuffling
-    train = BatchDataSet(x, x.reshape(len(x), -1), args.batchSize,
-                         shuffle=True)
-    model = autoencoder(32, generator=torch.Generator().manual_seed(
-        args.seed))
-    method = (Adagrad(learning_rate=args.learningRate) if args.adagrad
-              else None)
-    return common.build_optimizer(model, train, nn.MSECriterion(), args,
-                                  optim_method=method).optimize()
+
+    def _make():  # each attempt from the seed: a failed one moved on
+        # the target is the flattened input, kept aligned under shuffling
+        train = BatchDataSet(x, x.reshape(len(x), -1), args.batchSize,
+                             shuffle=True)
+        model = autoencoder(32, generator=torch.Generator().manual_seed(
+            args.seed))
+        method = (Adagrad(learning_rate=args.learningRate) if args.adagrad
+                  else None)
+        return common.build_optimizer(model, train, nn.MSECriterion(), args,
+                                      optim_method=method)
+
+    return common.run_optimize(_make, args)
 
 
 if __name__ == "__main__":

@@ -4,9 +4,10 @@ data-parallel strategy (``--strategy dp``, ``--gradCompress``,
 ``--gradBuckets``), building the Optimizer, loading a trained checkpoint
 and evaluating it; for ``serve``, the fleet router and its workers, the
 one parse of the serving flags (:func:`resolve_serve_config`) and the
-``--faultPlan`` install. Flags of features the port does not have yet are not
-parsed, so argparse refuses them; the strategies and ``--elastic`` are
-parsed and refused by name.
+``--faultPlan`` install; recovery (``--supervise``, ``--faultPlan``,
+``--elastic``, ``--minDevices``: :func:`run_optimize`). Flags of features
+the port does not have yet are not parsed, so argparse refuses them; the
+strategies other than dp are parsed and refused by name.
 
 Data parallelism runs one process a GPU: ``torchrun --nproc_per_node N
 -m bigdl_tpu_torch.cli.resnet train ... --strategy dp``, or on the CPU N
@@ -31,7 +32,9 @@ __all__ = ["setup_logging", "add_train_args", "add_test_args",
            "OPTIM_METHODS", "PIPELINE_STAGE_CHOICES", "STRATEGY_CHOICES",
            "GRAD_COMPRESS_CHOICES", "QUANTIZE_CHOICES", "ResolvedConfig",
            "resolve_serve_config", "install_fault_plan", "add_autotune_arg",
-           "apply_autotune", "AUTOTUNE_CHOICES"]
+           "apply_autotune", "AUTOTUNE_CHOICES", "add_resilience_args",
+           "apply_platform", "run_optimize", "run_supervised",
+           "check_elastic"]
 
 OPTIM_METHODS = ("sgd", "adam", "adamw", "adagrad", "rmsprop", "lars", "lamb")
 # dataset.pipeline.STAGE_CHOICES, spelled here so that building a parser
@@ -84,6 +87,62 @@ def apply_autotune(args) -> None:
             raise SystemExit(str(e))
 
 
+def add_resilience_args(p: argparse.ArgumentParser) -> None:
+    """--supervise/--faultPlan/--elastic/--minDevices, the JAX CLIs'
+    recovery flags (shared by the training CLIs and perf)."""
+    p.add_argument("--supervise", nargs="?", const=5, type=int,
+                   default=None, metavar="BUDGET",
+                   help="supervised recovery (bigdl_tpu_torch.resilience): "
+                        "catch retryable faults (transient dispatch "
+                        "errors, checkpoint I/O failures, checksum "
+                        "mismatches, soft preemptions), retry with "
+                        "exponential backoff + deterministic jitter, "
+                        "auto-resume from the newest checksum-VALID "
+                        "checkpoint, give up past BUDGET retries (bare "
+                        "flag = 5). Fault-free overhead is one pointer "
+                        "check per step")
+    p.add_argument("--faultPlan", default=None, metavar="SPEC|FILE",
+                   help="deterministic seeded fault injection "
+                        "(bigdl_tpu_torch.resilience.faults): ';'-separated "
+                        "kind@site:VISITS[:ARG] entries or a JSON file — "
+                        "e.g. 'preempt@step:7' (process-fatal kill "
+                        "before step 7), 'dispatch@step:p0.01;seed=3' "
+                        "(1%% transient step failures), "
+                        "'corrupt@ckpt_save:2' (bit-rot the 2nd "
+                        "checkpoint), 'stall@step:4:0.25', "
+                        "'kill_device@step:5:1' (lose 1 rank before "
+                        "step 5 — recoverable only under --elastic). "
+                        "Sites: data, step, ckpt_save, ckpt_restore, "
+                        "infer, request. No-op when unset")
+    p.add_argument("--elastic", default=None, choices=["hold", "scale"],
+                   metavar="POLICY",
+                   help="elastic data parallelism "
+                        "(bigdl_tpu_torch.resilience.elastic): on rank "
+                        "loss (kill_device fault / DeviceLossFault) re-form "
+                        "the data axis over the surviving ranks, re-resolve "
+                        "the grad-comm bucket bound for the new count, and "
+                        "resume from the last valid checkpoint — holding "
+                        "the global batch (hold: pad with wrap-around "
+                        "rows) or scaling it (scale: trim to "
+                        "divisibility). dp strategy only")
+    p.add_argument("--minDevices", type=int, default=1, metavar="N",
+                   help="give up cleanly (SupervisorGaveUp) when fewer "
+                        "than N healthy devices survive — elastic "
+                        "reshape never thrashes below a viable mesh "
+                        "(default 1)")
+
+
+def apply_platform(args) -> None:
+    """The training CLIs' platform step: refuse an unavailable
+    ``--platform`` before any data is read, and install ``--faultPlan``
+    process-wide (a no-op without one), as the JAX ``apply_platform``
+    does."""
+    from bigdl_tpu_torch.core.module import resolve_device
+
+    resolve_device(getattr(args, "platform", None))
+    install_fault_plan(args)
+
+
 def add_train_args(p: argparse.ArgumentParser) -> None:
     """The reference's common training knobs (-f, -b, --learningRate,
     --maxEpoch, --checkpoint, --model resume), with ``--platform`` picking
@@ -106,6 +165,7 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--keepCheckpoints", type=int, default=None, metavar="K",
                    help="keep only the newest K snapshots (the newest valid "
                         "pair is never deleted)")
+    add_resilience_args(p)
     p.add_argument("--stepsPerDispatch", type=int, default=1, metavar="K",
                    help="K optimizer steps over K batches per dispatch: a "
                         "CUDA graph of the K steps on the card, replayed "
@@ -141,7 +201,7 @@ QUANTIZE_CHOICES = ("off", "int8", "fp8", "kv8", "int8+kv8", "fp8+kv8")
 
 
 def add_strategy_arg(p: argparse.ArgumentParser) -> None:
-    """--strategy NAME[:K] and --elastic, with the JAX CLIs' spellings."""
+    """--strategy NAME[:K], with the JAX CLIs' spelling."""
     p.add_argument("--strategy", default=None, metavar="NAME[:K]",
                    help="multi-device training strategy: dp = data "
                         "parallel over the ranks of a torchrun job, one "
@@ -149,9 +209,6 @@ def add_strategy_arg(p: argparse.ArgumentParser) -> None:
                         "norm over the global batch). tp, sp, pp and ep "
                         "are not in the PyTorch port yet. Replaces the "
                         "deprecated --dataParallel")
-    p.add_argument("--elastic", default=None, metavar="POLICY",
-                   help="elastic data parallelism: not in the PyTorch "
-                        "port yet (refused)")
 
 
 def parse_strategy_spec(spec: Optional[str]):
@@ -244,32 +301,59 @@ def make_grad_comm(args):
         raise SystemExit(str(e))
 
 
+def check_elastic(name: Optional[str], elastic: Optional[str]) -> None:
+    """``--elastic`` needs ``--strategy dp``: the JAX CLIs' exits."""
+    if elastic is None:
+        return
+    if name is None:
+        raise SystemExit("--elastic needs --strategy dp (elastic "
+                         "reshape is a data-parallel contract)")
+    if name != "dp":
+        raise SystemExit(f"--elastic composes with --strategy dp only "
+                         f"(got {name}); tp/sp/pp/ep meshes cannot "
+                         "re-form at arbitrary surviving counts")
+
+
 def _world() -> int:
-    import torch.distributed as dist
-    return dist.get_world_size() if dist.is_initialized() else 1
+    """The data axis's rank count: the live mesh's (after an elastic
+    re-formation, the survivors), else the job's."""
+    from bigdl_tpu_torch.parallel.mesh import axis_group
+    return axis_group("data")[1]
+
+
+def _join(args) -> None:
+    from bigdl_tpu_torch.parallel import init_distributed
+    init_distributed(backend="gloo" if getattr(args, "platform", None)
+                     == "cpu" else None)
 
 
 def build_strategy(args, model=None, batch: Optional[int] = None):
     """The ``DataParallel`` that ``--strategy dp`` (or ``--dataParallel``)
     asks for, over the ranks of this torchrun job (joined here with
-    ``init_distributed``: gloo under ``--platform cpu``), or None. Exits
-    as the JAX CLIs do: ``--elastic`` and the strategies other than dp by
-    name; ``--strategy dp`` in one process naming ``torchrun`` (the
-    deprecated alias then means nothing); ``--stepsPerDispatch`` or
-    ``--innerSteps`` > 1; a global ``batch`` the ranks do not divide."""
+    ``init_distributed``: gloo under ``--platform cpu``), or None. Under
+    ``--elastic`` it is an ``ElasticDataParallel`` over the surviving
+    ranks (``resilience.faults.healthy_devices()``); a rank that is not
+    among them leaves the job here with exit code 0. Exits as the JAX CLIs
+    do: ``--elastic`` without dp or with another strategy, the strategies
+    other than dp by name; ``--strategy dp`` in one process naming
+    ``torchrun`` (the deprecated alias then means nothing);
+    ``--stepsPerDispatch`` or ``--innerSteps`` > 1; a global ``batch`` the
+    ranks do not divide (elastic runs pad or trim instead)."""
     name, k = resolve_strategy(args)
-    if getattr(args, "elastic", None) is not None:
-        raise SystemExit("--elastic is not in the PyTorch port yet: "
-                         "elastic data parallelism comes with ROADMAP.md "
-                         "queue 1 entry 12 (resilience/)")
+    elastic = getattr(args, "elastic", None)
+    check_elastic(name, elastic)
     if name is None:
         return None
     _refuse_unported(name)
-    from bigdl_tpu_torch.parallel import DataParallel, init_distributed
-    from bigdl_tpu_torch.parallel import make_mesh
-    init_distributed(backend="gloo" if getattr(args, "platform", None)
-                     == "cpu" else None)
-    n = _world()
+    from bigdl_tpu_torch.parallel import DataParallel, make_mesh
+    _join(args)
+    devices = None
+    if elastic is not None:
+        from bigdl_tpu_torch.resilience.faults import healthy_devices
+        devices = healthy_devices()
+        n = len(devices)
+    else:
+        n = _world()
     if n <= 1:
         if getattr(args, "strategy", None):
             raise SystemExit(
@@ -281,12 +365,22 @@ def build_strategy(args, model=None, batch: Optional[int] = None):
     check_strategy_dispatch(getattr(args, "stepsPerDispatch", 1) or 1)
     check_strategy_dispatch(getattr(args, "innerSteps", 1) or 1,
                             "--innerSteps")
-    if batch is not None and batch % n:
+    if batch is not None and batch % n and elastic is None:
         raise SystemExit(f"batch {batch} must be divisible by the data "
                          f"axis ({n}) of --strategy {name} (mesh "
                          f"{strategy_mesh_axes(name, n, k)})")
-    return DataParallel(make_mesh(strategy_mesh_axes(name, n, k)),
-                        grad_comm=make_grad_comm(args))
+    mesh = make_mesh(strategy_mesh_axes(name, n, k), devices)
+    if elastic is None:
+        return DataParallel(mesh, grad_comm=make_grad_comm(args))
+    if not mesh.member:
+        import torch.distributed as dist
+        logging.getLogger(__name__).info(
+            "elastic: rank %d was lost; the job goes on at %d ranks "
+            "without it", dist.get_rank(), n)
+        raise SystemExit(0)
+    from bigdl_tpu_torch.resilience.elastic import ElasticDataParallel
+    return ElasticDataParallel(mesh, batch_policy=elastic,
+                               grad_comm=make_grad_comm(args))
 
 
 def add_conv_args(p: argparse.ArgumentParser) -> None:
@@ -453,7 +547,8 @@ def build_optimizer(model, dataset, criterion, args, optim_method=None):
                     steps_per_dispatch=args.stepsPerDispatch,
                     strategy=strategy, device=args.platform)
     if args.checkpoint:
-        os.makedirs(args.checkpoint, exist_ok=True)
+        if "://" not in args.checkpoint:
+            os.makedirs(args.checkpoint, exist_ok=True)
         opt.set_checkpoint(Trigger.every_epoch(), args.checkpoint,
                            overwrite=args.overWriteCheckpoint,
                            keep_last=args.keepCheckpoints)
@@ -464,18 +559,15 @@ def build_optimizer(model, dataset, criterion, args, optim_method=None):
 
 def load_trained(model, path: str):
     """Load a checkpoint into ``model`` in place: a directory's newest
-    ``model.<n>``, or one file, written by the port or by the JAX package
-    (reference Module.load). Returns the model."""
-    from bigdl_tpu_torch.interop.checkpoint import load_model
-    from bigdl_tpu_torch.utils.file import latest_checkpoint
+    ``model.<n>``, one blob file, or one DCP snapshot directory, local or
+    fsspec, written by the port or by the JAX package (reference
+    Module.load; ``utils.orbax_ckpt.restore_for_inference``, whose
+    ``SystemExit`` lines a missing or corrupt checkpoint raises). Returns
+    the model."""
+    from bigdl_tpu_torch.utils.orbax_ckpt import restore_for_inference
 
-    p = path
-    if os.path.isdir(path):
-        p = latest_checkpoint(path, "model.")
-        if p is None:
-            raise FileNotFoundError(f"no model.<n> checkpoint in {path}")
-    tensors, _ = load_model(p, model)
-    model.load_state_dict(tensors, strict=True)
+    params, state = restore_for_inference(path, model)
+    model.load_state_dict({**params, **state}, strict=True)
     return model
 
 
@@ -551,3 +643,107 @@ def install_fault_plan(args):
     inj = install_plan(plan, log_path=os.environ.get("BIGDL_FAULT_LOG"))
     logging.getLogger(__name__).info("fault plan installed: %r", plan)
     return inj
+
+
+def _bucket_bytes(strat, model) -> Optional[int]:
+    """The gradient bucket bound ``strat`` resolves for ``model`` at its
+    rank count (the tuner's ``grad_comm`` decision, keyed by
+    ``n_devices``, else the default), or None without a strategy."""
+    if strat is None:
+        return None
+    from bigdl_tpu_torch.parallel.grad_comm import _resolve_bucket_bytes
+    param_bytes = sum(p.numel() * 4 for p in model.parameters())
+    return _resolve_bucket_bytes(strat.grad_comm, param_bytes,
+                                 strat.world)[0]
+
+
+def _drop_failed_attempt() -> None:
+    """Free what a failed attempt held (its model, its optimizer state, a
+    step graph and its pool: they sit in reference cycles) before the next
+    attempt builds and captures its own."""
+    import gc
+
+    gc.collect()
+    import torch
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.empty_cache()
+
+
+def run_supervised(sup, attempt_fn, elastic: bool):
+    """``sup.run(attempt_fn)``; under ``--elastic`` a give-up (fewer
+    survivors than ``--minDevices``, or the budget spent) exits with the
+    JAX ``elastic: ...`` line."""
+    from bigdl_tpu_torch.resilience.supervisor import SupervisorGaveUp
+    try:
+        return sup.run(attempt_fn)
+    except SupervisorGaveUp as e:
+        if not elastic:
+            raise
+        raise SystemExit(f"elastic: {e}")
+
+
+def run_optimize(make_optimizer, args):
+    """``make_optimizer().optimize()``, supervised under ``--supervise``
+    or ``--elastic``: each attempt builds a fresh Optimizer (and, in the
+    CLIs, a fresh model and dataset: the failed attempt's have moved on)
+    and, after the first, resumes from the newest checksum-valid snapshot
+    in ``--checkpoint``, so the run replays the seeds and batches of an
+    uninterrupted one. Only the retryable faults are retried
+    (``RETRYABLE_EXCEPTIONS``, and ``DeviceLossFault`` under
+    ``--elastic``); anything else propagates. Under ``--elastic`` each
+    attempt probes the surviving ranks first (below ``--minDevices`` the
+    run exits with ``elastic: ...``) and records its topology, so a
+    reshape is logged with its ``restore_ms`` (the attempt's start to its
+    resume: the re-formation, the build and the snapshot's choice; the
+    port reads the snapshot when the loop starts) and the bucket bound
+    before and after. A ``supervisor:`` line is logged when anything
+    fired."""
+    import json
+    import time
+
+    budget = getattr(args, "supervise", None)
+    elastic = getattr(args, "elastic", None)
+    if budget is None and elastic is None:
+        return make_optimizer().optimize()
+    from bigdl_tpu_torch.resilience.supervisor import (RetryPolicy,
+                                                       Supervisor)
+    ckpt_dir = getattr(args, "checkpoint", None)
+    policy = RetryPolicy(budget=int(budget if budget is not None else 5),
+                         seed=getattr(args, "seed", 0))
+    if elastic is not None:
+        check_elastic(resolve_strategy(args)[0], elastic)
+        _join(args)  # every rank in the group before the roster is read
+        from bigdl_tpu_torch.resilience.elastic import ElasticSupervisor
+        sup = ElasticSupervisor(policy, batch_policy=elastic,
+                                min_devices=getattr(args, "minDevices", 1))
+    else:
+        sup = Supervisor(policy)
+
+    def attempt(n):
+        if n > 0:
+            _drop_failed_attempt()
+        t0 = time.perf_counter()
+        if elastic is not None:
+            sup.probe()  # SupervisorGaveUp below --minDevices
+        opt = make_optimizer()
+        try:
+            if n > 0 and ckpt_dir:
+                opt.resume(ckpt_dir)
+            if elastic is not None:
+                strat = opt.strategy
+                sup.observe_topology(
+                    strat.world if strat is not None else 1,
+                    bucket_bytes=_bucket_bytes(strat, opt.model),
+                    restore_ms=((time.perf_counter() - t0) * 1000.0
+                                if n > 0 else None))
+            return opt.optimize()
+        except BaseException:
+            opt._graph = None  # the step graph goes with the attempt
+            raise
+
+    result = run_supervised(sup, attempt, elastic is not None)
+    ann = sup.annotation()
+    if ann["retries"] or ann["events"]:
+        logging.getLogger(__name__).info(
+            "supervisor: %s", json.dumps(ann, sort_keys=True))
+    return result

@@ -84,7 +84,9 @@ from bigdl_tpu_torch import models
 from bigdl_tpu_torch.cli.common import (add_autotune_arg, add_conv_args,
                                         add_fused_bn_arg,
                                         add_grad_comm_args,
-                                        add_pipeline_args, add_strategy_arg)
+                                        add_pipeline_args,
+                                        add_resilience_args, add_strategy_arg)
+from bigdl_tpu_torch.resilience.faults import hook as _fault_hook
 
 __all__ = ["LM_VOCAB", "LM_CONFIGS", "IMAGE_CONFIGS", "PEAK_FLOPS",
            "peak_flops", "build_model", "record_feed", "train_step",
@@ -426,6 +428,20 @@ def _annotate_autotune(out: dict) -> None:
         out["autotune"] = ann
 
 
+def _annotate_supervisor(out: dict, supervisor) -> None:
+    """The fault and recovery log in a result line: under ``--supervise``
+    (or ``--elastic``) the supervisor's annotation (attempts, retries,
+    events with the injected faults), with only a ``--faultPlan`` the
+    injected faults' events; a line made under faults says so."""
+    if supervisor is not None:
+        out["supervisor"] = supervisor.annotation()
+        return
+    from bigdl_tpu_torch.resilience.faults import injected_events
+    ev = injected_events()
+    if ev:
+        out["faults"] = ev
+
+
 @contextlib.contextmanager
 def _conv_policy(conv_layout: Optional[str], conv_geom: Optional[str],
                  variant: Optional[str] = None):
@@ -473,7 +489,8 @@ def run(model_name: str, batch: int = 32, iterations: int = 10,
         conv_layout: Optional[str] = None, conv_geom: Optional[str] = None,
         profile_dir: Optional[str] = None, strategy: Optional[str] = None,
         grad_compress: Optional[str] = None, grad_buckets=None,
-        data_parallel: bool = False, autotune: Optional[str] = None) -> dict:
+        data_parallel: bool = False, autotune: Optional[str] = None,
+        supervisor=None, elastic=None) -> dict:
     """Time ``iterations`` dispatches of ``inner_steps`` training steps
     each after ``warmup`` ones (with ``inner_steps`` > 1 a dispatch is a
     CUDA graph of the steps; the first warm-up dispatch runs them eagerly
@@ -497,7 +514,17 @@ def run(model_name: str, batch: int = 32, iterations: int = 10,
     do not divide, compression without a strategy.
 
     ``autotune`` (``--autotune``) installs the tuning mode; the line's
-    ``autotune`` then names the decisions this run consulted."""
+    ``autotune`` then names the decisions this run consulted.
+
+    The timed loop visits the ``step`` fault site once a step.
+    ``supervisor`` (the ``--supervise`` one) puts its annotation in the
+    line as ``supervisor``; without it the injected faults, if any, go in
+    as ``faults``. ``elastic`` (an ``ElasticSupervisor``, ``--elastic``)
+    makes this call one attempt of an elastic run: the strategy is an
+    ``ElasticDataParallel`` over the surviving ranks, the attempt's
+    topology is recorded after the warm-up, and the line carries
+    ``elastic`` (policy, ``--minDevices``, the effective global batch) and
+    ``reshape`` (null when nothing was reshaped)."""
     from bigdl_tpu_torch import tuning
     from bigdl_tpu_torch.core.module import resolve_device
     from bigdl_tpu_torch.nn import bn_fused_mode
@@ -505,8 +532,17 @@ def run(model_name: str, batch: int = 32, iterations: int = 10,
     if autotune is not None:
         tuning.set_mode(autotune)
     tuning.reset_decisions()
+    t_attempt0 = time.perf_counter()  # an elastic retry's restore starts
+    if elastic is not None:
+        if (strategy or ("dp" if data_parallel else None)) != "dp":
+            raise SystemExit(
+                "--elastic composes with --strategy dp only (elastic "
+                "reshape is a data-parallel contract)")
+        # the surviving roster; below --minDevices SupervisorGaveUp
+        elastic.probe()
     strat = _perf_strategy(strategy, data_parallel, grad_compress,
-                           grad_buckets, batch, inner_steps, device)
+                           grad_buckets, batch, inner_steps, device,
+                           elastic)
     n_dev = strat.world if strat is not None else 1
     # the conv triple of this run configuration, as the JAX harness
     # resolves it: a record feed or a strategy dispatches one step
@@ -540,9 +576,19 @@ def run(model_name: str, batch: int = 32, iterations: int = 10,
                 else "cpu")
         peak, peak_label = peak_flops(name)
         losses = [float(step()) for _ in range(warmup)]  # each one synced
+        if elastic is not None:
+            # the topology is live (mesh formed, step warmed up): the call
+            # after a caught DeviceLossFault closes out the reshape
+            from bigdl_tpu_torch.cli.common import _bucket_bytes
+            elastic.observe_topology(
+                n_dev, bucket_bytes=_bucket_bytes(strat, model),
+                restore_ms=(time.perf_counter() - t_attempt0) * 1000.0)
         with _profiler(profile_dir, device):
             t0 = time.perf_counter()
-            timed = [step() for _ in range(iterations)]
+            timed = []
+            for _ in range(iterations):
+                _fault_hook("step")  # one pointer check without a plan
+                timed.append(step())
             losses += [float(v) for v in timed]  # the first read waits for
             dt = time.perf_counter() - t0        # the last
         steps = iterations * inner_steps
@@ -578,14 +624,23 @@ def run(model_name: str, batch: int = 32, iterations: int = 10,
             "grad_buckets": info["n_buckets"] if info else None})
         if info:
             out["grad_comm"] = dict(info)
+        if elastic is not None:
+            out["elastic"] = {
+                "policy": elastic.batch_policy,
+                "min_devices": elastic.min_devices,
+                "effective_batch": len(strat._fit_rows(np.arange(batch)))}
+            out["reshape"] = elastic.reshape_annotation()
         _annotate_conv_layouts(out)
         _annotate_autotune(out)
+        _annotate_supervisor(out, supervisor)
         return out
 
 
 def _perf_strategy(strategy, data_parallel, grad_compress, grad_buckets,
-                   batch, inner_steps, device):
-    """The DataParallel of ``run``'s strategy arguments, or None."""
+                   batch, inner_steps, device, elastic=None):
+    """The DataParallel of ``run``'s strategy arguments (an
+    ElasticDataParallel over the surviving ranks under ``elastic``), or
+    None."""
     from bigdl_tpu_torch.cli import common
 
     cpu = device is not None and torch.device(device).type == "cpu"
@@ -593,7 +648,9 @@ def _perf_strategy(strategy, data_parallel, grad_compress, grad_buckets,
                            platform="cpu" if cpu else None,
                            gradCompress=grad_compress,
                            gradBuckets=grad_buckets, innerSteps=inner_steps,
-                           stepsPerDispatch=1)
+                           stepsPerDispatch=1,
+                           elastic=(elastic.batch_policy
+                                    if elastic is not None else None))
     strat = common.build_strategy(args, batch=batch)
     cfg = common.make_grad_comm(args)
     if cfg is not None and cfg.active and strat is None:
@@ -676,7 +733,8 @@ def run_time_to_acc(model_name: str, batch: int, target: float,
                     weight_decay: float = 1e-4,
                     fused_bn: Optional[str] = None, device=None,
                     inner_steps: int = 1, conv_layout: Optional[str] = None,
-                    conv_geom: Optional[str] = None) -> dict:
+                    conv_geom: Optional[str] = None,
+                    supervisor=None) -> dict:
     """Time to accuracy (the BASELINE metric's second half; the JAX
     harness's ``run_time_to_acc``): trains ``model_name`` from record
     shards (decode and augment in the timed path), validates top-1 every
@@ -790,6 +848,7 @@ def run_time_to_acc(model_name: str, batch: int, target: float,
         out[c] = None
     out.update(conv)
     out["bn_fused"] = bn_fused_mode(model)
+    _annotate_supervisor(out, supervisor)
     print(json.dumps(out), flush=True)
     return out
 
@@ -876,10 +935,41 @@ def main(argv=None) -> dict:
     add_strategy_arg(p)
     add_grad_comm_args(p)
     add_autotune_arg(p)
+    add_resilience_args(p)
     args = p.parse_args(argv)
-    from bigdl_tpu_torch.cli.common import apply_autotune
+    from bigdl_tpu_torch.cli.common import apply_autotune, install_fault_plan
     apply_autotune(args)
+    install_fault_plan(args)
     dtype = torch.float32 if args.f32 else torch.bfloat16
+    if args.elastic is not None:
+        if args.timeToAcc is not None:
+            raise SystemExit(
+                "--elastic + --timeToAcc: use the training CLIs (their "
+                "run_optimize path reshapes through checkpoint resume); "
+                "the perf throughput loop is the elastic harness here")
+        from bigdl_tpu_torch.cli.common import _join, run_supervised
+        from bigdl_tpu_torch.resilience.elastic import ElasticSupervisor
+        from bigdl_tpu_torch.resilience.supervisor import RetryPolicy
+        if args.strategy == "dp" or args.dataParallel:
+            _join(args)  # every rank in the group before the roster
+        sup = ElasticSupervisor(
+            RetryPolicy(budget=(args.supervise if args.supervise is not None
+                                else 5)),
+            min_devices=args.minDevices, batch_policy=args.elastic,
+            name="perf")
+        return run_supervised(
+            sup, lambda _n: _run_line(args, dtype, sup, sup), True)
+    if args.supervise is not None:
+        from bigdl_tpu_torch.resilience.supervisor import (RetryPolicy,
+                                                           Supervisor)
+        sup = Supervisor(RetryPolicy(budget=args.supervise), name="perf")
+        return sup.run(lambda _n: _run_line(args, dtype, sup))
+    return _run_line(args, dtype)
+
+
+def _run_line(args, dtype, supervisor=None, elastic=None) -> dict:
+    """One run of ``main``'s parsed flags: the time-to-accuracy harness or
+    ``run``, its line printed (by rank 0 of a strategy)."""
     if args.timeToAcc is not None:
         if args.strategy or args.dataParallel:
             raise SystemExit("--timeToAcc trains on one device in the "
@@ -897,7 +987,7 @@ def main(argv=None) -> dict:
             noise=args.ttaNoise, weight_decay=args.ttaWd,
             fused_bn=args.fusedBN, device=args.platform,
             inner_steps=args.innerSteps, conv_layout=args.convLayout,
-            conv_geom=args.convGeom)
+            conv_geom=args.convGeom, supervisor=supervisor)
     out = run(args.model, batch=args.batchSize, iterations=args.iteration,
               dtype=dtype, device=args.platform, remat=args.remat,
               seq_len=args.seq, fused_bn=args.fusedBN,
@@ -907,7 +997,8 @@ def main(argv=None) -> dict:
               conv_layout=args.convLayout, conv_geom=args.convGeom,
               profile_dir=args.profile, strategy=args.strategy,
               grad_compress=args.gradCompress, grad_buckets=args.gradBuckets,
-              data_parallel=args.dataParallel)
+              data_parallel=args.dataParallel, supervisor=supervisor,
+              elastic=elastic)
     line = {k: v for k, v in out.items() if k != "losses"}
     import torch.distributed as dist
     if not dist.is_initialized() or dist.get_rank() == 0:

@@ -130,18 +130,21 @@ def main(argv=None):
     import torch
 
     from bigdl_tpu_torch import nn
-    from bigdl_tpu_torch.core.module import resolve_device
     from bigdl_tpu_torch.optim import (SGD, Top1Accuracy, Top5Accuracy,
                                        Trigger)
     from bigdl_tpu_torch.optim.schedules import EpochSchedule, Regime
 
-    resolve_device(args.platform)  # refuse before reading the data
+    common.apply_platform(args)  # refuse before reading the data
     if args.cmd == "train":
         common.apply_conv_args(args)  # before --s2d pins its default
-    model = _build_model(args, torch.Generator().manual_seed(
-        getattr(args, "seed", 0)))
+
+    def build():
+        return _build_model(args, torch.Generator().manual_seed(
+            getattr(args, "seed", 0)))
+
+    first = [build()]  # refuses what the JAX CLI refuses before any data
     if imagenet:
-        train, test = _imagenet_datasets(args.folder, args.batchSize)
+        _, test = _imagenet_datasets(args.folder, args.batchSize)
         if test is None and args.cmd == "test":
             raise FileNotFoundError(f"no val/ directory under {args.folder}")
         methods = [Top1Accuracy(), Top5Accuracy()]
@@ -149,27 +152,34 @@ def main(argv=None):
         test = _one_split(args.folder, args.batchSize, False, False)
         methods = [Top1Accuracy()]
     if args.cmd == "test":
-        common.load_trained(model, args.model)
+        model = common.load_trained(first.pop(), args.model)
         return common.evaluate(model, test, methods, device=args.platform)
-    if args.bnStatSample:
-        nn.set_bn_stat_sample(model, args.bnStatSample)
     lr = args.learningRate
     if imagenet:
-        sched = EpochSchedule([Regime(1, 29, lr), Regime(30, 59, lr * 0.1),
-                               Regime(60, 79, lr * 0.01),
-                               Regime(80, 10 ** 9, lr * 0.001)])
+        regimes = [Regime(1, 29, lr), Regime(30, 59, lr * 0.1),
+                   Regime(60, 79, lr * 0.01), Regime(80, 10 ** 9, lr * 0.001)]
     else:
-        train = _one_split(args.folder, args.batchSize, True, True)
-        sched = EpochSchedule([Regime(1, 80, lr), Regime(81, 121, lr * 0.1),
-                               Regime(122, 10 ** 9, lr * 0.01)])
-    method = SGD(learning_rate=lr, weight_decay=args.weightDecay,
-                 momentum=args.momentum, dampening=0.0,
-                 nesterov=args.momentum > 0, schedule=sched)
-    opt = common.build_optimizer(model, train, nn.ClassNLLCriterion(), args,
-                                 optim_method=method)
-    if test is not None:
-        opt.set_validation(Trigger.every_epoch(), test, methods)
-    return opt.optimize()
+        regimes = [Regime(1, 80, lr), Regime(81, 121, lr * 0.1),
+                   Regime(122, 10 ** 9, lr * 0.01)]
+
+    def _make():  # each attempt from the seed: a failed one moved on
+        model = first.pop() if first else build()
+        if args.bnStatSample:
+            nn.set_bn_stat_sample(model, args.bnStatSample)
+        train = (_imagenet_datasets(args.folder, args.batchSize)[0]
+                 if imagenet else
+                 _one_split(args.folder, args.batchSize, True, True))
+        method = SGD(learning_rate=lr, weight_decay=args.weightDecay,
+                     momentum=args.momentum, dampening=0.0,
+                     nesterov=args.momentum > 0,
+                     schedule=EpochSchedule(regimes))
+        opt = common.build_optimizer(model, train, nn.ClassNLLCriterion(),
+                                     args, optim_method=method)
+        if test is not None:
+            opt.set_validation(Trigger.every_epoch(), test, methods)
+        return opt
+
+    return common.run_optimize(_make, args)
 
 
 if __name__ == "__main__":

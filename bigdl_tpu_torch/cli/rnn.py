@@ -58,7 +58,8 @@ def main(argv=None):
     from bigdl_tpu_torch.dataset.text import Dictionary, tokenize
     from bigdl_tpu_torch.models import simple_rnn
 
-    device = resolve_device(args.platform)  # refuse before reading data
+    common.apply_platform(args)  # refuse before reading the data
+    device = resolve_device(args.platform)
     with open(os.path.join(args.folder, "input.txt")) as f:
         tokens = tokenize(f.read())
     d = Dictionary([tokens], vocab_size=args.vocabSize)
@@ -67,17 +68,22 @@ def main(argv=None):
     n_held = min(512, max(1, len(x) // 10))
     x, y, x_val, y_val = (x[:-n_held], y[:-n_held],
                           x[-n_held:], y[-n_held:])
-    train = BatchDataSet(x, y, args.batchSize, shuffle=True)
-
     vocab = len(d)
-    g = torch.Generator().manual_seed(args.seed)
-    model = Sequential(
-        nn.LookupTable(vocab, vocab, generator=g),
-        *simple_rnn(vocab, args.hiddenSize, vocab, generator=g).children(),
-        name="SimpleRNN-LM",
-    )
-    trained = common.build_optimizer(model, train, nn.ClassNLLCriterion(),
-                                     args).optimize()
+
+    def _make():  # each attempt from the seed: a failed one moved on
+        g = torch.Generator().manual_seed(args.seed)
+        model = Sequential(
+            nn.LookupTable(vocab, vocab, generator=g),
+            *simple_rnn(vocab, args.hiddenSize, vocab,
+                        generator=g).children(),
+            name="SimpleRNN-LM",
+        )
+        train = BatchDataSet(x, y, args.batchSize, shuffle=True)
+        return common.build_optimizer(model, train, nn.ClassNLLCriterion(),
+                                      args)
+
+    trained = common.run_optimize(_make, args)
+    model = trained.module
     model.eval()
     with torch.no_grad():
         logp = model(torch.from_numpy(x_val).to(device)).float().cpu()

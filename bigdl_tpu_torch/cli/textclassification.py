@@ -181,11 +181,10 @@ def main(argv=None):
     import torch
 
     from bigdl_tpu_torch import nn
-    from bigdl_tpu_torch.core.module import resolve_device
     from bigdl_tpu_torch.dataset import BatchDataSet
     from bigdl_tpu_torch.optim import Top1Accuracy, Trigger
 
-    resolve_device(args.platform)  # refuse before reading the data
+    common.apply_platform(args)  # refuse before reading the data
     x, y, n_train, d, names = split_corpus(
         args.folder, args.sequenceLength, args.maxWordsNum, args.seed,
         args.trainingSplit)
@@ -194,15 +193,20 @@ def main(argv=None):
                          f"glove.6B.{args.embeddingDim}d.txt")
     if os.path.isfile(glove):
         emb = load_glove(glove, d, args.embeddingDim)
-    model = build_model(len(d), args.embeddingDim, args.sequenceLength,
-                        len(names), emb,
-                        generator=torch.Generator().manual_seed(args.seed))
-    train = BatchDataSet(x[:n_train], y[:n_train], args.batchSize,
-                         shuffle=True)
     val = BatchDataSet(x[n_train:], y[n_train:], args.batchSize)
-    opt = common.build_optimizer(model, train, nn.ClassNLLCriterion(), args)
-    opt.set_validation(Trigger.every_epoch(), val, [Top1Accuracy()])
-    return opt.optimize()
+
+    def _make():  # each attempt from the seed: a failed one moved on
+        model = build_model(len(d), args.embeddingDim, args.sequenceLength,
+                            len(names), emb, generator=torch.Generator(
+                                ).manual_seed(args.seed))
+        train = BatchDataSet(x[:n_train], y[:n_train], args.batchSize,
+                             shuffle=True)
+        opt = common.build_optimizer(model, train, nn.ClassNLLCriterion(),
+                                     args)
+        opt.set_validation(Trigger.every_epoch(), val, [Top1Accuracy()])
+        return opt
+
+    return common.run_optimize(_make, args)
 
 
 if __name__ == "__main__":

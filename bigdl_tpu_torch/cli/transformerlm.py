@@ -151,6 +151,8 @@ def main(argv=None):
     from bigdl_tpu_torch import nn
     from bigdl_tpu_torch.dataset import BatchDataSet, Dictionary, tokenize
 
+    if args.cmd != "generate":
+        common.install_fault_plan(args)
     with open(os.path.join(args.folder, "input.txt")) as f:
         tokens = tokenize(f.read())
     d = Dictionary([tokens], vocab_size=args.vocabSize)
@@ -172,13 +174,16 @@ def main(argv=None):
     x, y, x_val, y_val = x[:-n_held], y[:-n_held], x[-n_held:], y[-n_held:]
     _clamp_batch(args, len(x), "training windows")
 
-    model = _build_lm(args, len(d))
     crit = nn.TimeDistributedCriterion(nn.ClassNLLCriterion())
-    train = BatchDataSet(x, y, args.batchSize, shuffle=True)
 
-    opt = common.build_optimizer(model, train, crit, args)
-    opt.accum_steps = max(1, args.accumSteps)
-    trained = opt.optimize()
+    def _make():  # each attempt from the seed: a failed one moved on
+        train = BatchDataSet(x, y, args.batchSize, shuffle=True)
+        opt = common.build_optimizer(_build_lm(args, len(d)), train, crit,
+                                     args)
+        opt.accum_steps = max(1, args.accumSteps)
+        return opt
+
+    trained = common.run_optimize(_make, args)
 
     nll_sum = 0.0
     for i, logp in _logp_chunks(trained.module, x_val, args.batchSize):
@@ -226,14 +231,12 @@ def _train_packed(args, d, tokens):
     l_tr, l_val = labels[:-n_held], labels[-n_held:]
     _clamp_batch(args, len(f_tr), "packed rows")
 
-    lm = _build_lm(args, len(d))
-
     class PackedLM(tnn.Module):
         """Unstacks (n, 2, s) rows into (tokens, segments) for the LM."""
 
         def __init__(self):
             super().__init__()
-            self.lm = lm
+            self.lm = _build_lm(args, len(d))
 
         def forward(self, x, seed=None):
             return self.lm((x[:, 0], x[:, 1]), seed=seed)
@@ -243,11 +246,13 @@ def _train_packed(args, d, tokens):
     def crit(logp, y):
         return base(logp, (y[:, 0].long(), y[:, 1]))
 
-    train = BatchDataSet(f_tr, l_tr, args.batchSize, shuffle=True)
+    def _make():  # each attempt from the seed: a failed one moved on
+        train = BatchDataSet(f_tr, l_tr, args.batchSize, shuffle=True)
+        opt = common.build_optimizer(PackedLM(), train, crit, args)
+        opt.accum_steps = max(1, args.accumSteps)
+        return opt
 
-    opt = common.build_optimizer(PackedLM(), train, crit, args)
-    opt.accum_steps = max(1, args.accumSteps)
-    trained = opt.optimize()
+    trained = common.run_optimize(_make, args)
 
     nll_sum, live = 0.0, float(l_val[:, 1].sum())
     for i, logp in _logp_chunks(trained.module, f_val, args.batchSize):

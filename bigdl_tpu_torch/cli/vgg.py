@@ -53,21 +53,28 @@ def main(argv=None):
     import torch
 
     from bigdl_tpu_torch import nn
-    from bigdl_tpu_torch.core.module import resolve_device
     from bigdl_tpu_torch.models import vgg_for_cifar10
     from bigdl_tpu_torch.optim import Top1Accuracy, Trigger
 
-    resolve_device(args.platform)  # refuse before reading the data
-    model = vgg_for_cifar10(10, generator=torch.Generator().manual_seed(
-        getattr(args, "seed", 0)))
+    common.apply_platform(args)  # refuse before reading the data
+
+    def build():
+        return vgg_for_cifar10(10, generator=torch.Generator().manual_seed(
+            getattr(args, "seed", 0)))
+
     test = _one_split(args.folder, args.batchSize, False, False)
     if args.cmd == "test":
-        common.load_trained(model, args.model)
+        model = common.load_trained(build(), args.model)
         return common.evaluate(model, test, device=args.platform)
-    train = _one_split(args.folder, args.batchSize, True, True)
-    opt = common.build_optimizer(model, train, nn.ClassNLLCriterion(), args)
-    opt.set_validation(Trigger.every_epoch(), test, [Top1Accuracy()])
-    return opt.optimize()
+
+    def _make():  # each attempt from the seed: a failed one moved on
+        opt = common.build_optimizer(
+            build(), _one_split(args.folder, args.batchSize, True, True),
+            nn.ClassNLLCriterion(), args)
+        opt.set_validation(Trigger.every_epoch(), test, [Top1Accuracy()])
+        return opt
+
+    return common.run_optimize(_make, args)
 
 
 if __name__ == "__main__":

@@ -32,11 +32,11 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from bigdl_tpu_torch.utils.file import (ChecksumError, load_leaves,
-                                        read_manifest, save_leaves)
+from bigdl_tpu_torch.utils.file import (check_manifest, isdir, load_leaves,
+                                        save_leaves)
 
 __all__ = ["DRIVER_KEYS", "PLAN_KEYS", "model_tensors", "save_model",
-           "load_model", "save_state", "load_state"]
+           "load_model", "save_state", "load_state", "is_model_blob"]
 
 # the training loop's counters in a model.<n> blob, in flatten order
 DRIVER_KEYS = ("epoch", "epoch_records", "iteration", "rng_splits")
@@ -99,23 +99,30 @@ def _to_numpy(modules, name, leaf) -> np.ndarray:
     return np.asarray(t.numpy(), order="C")
 
 
-def _save(path: str, tree: dict, model, layout: Optional[dict]) -> None:
+def _save(path: str, tree: dict, model, layout: Optional[dict],
+          sharded: bool = False) -> None:
     names = set(model.state_dict().keys())
     modules = dict(model.named_modules())
     flat = sorted(_flatten(tree, names), key=lambda e: e[0])
-    save_leaves(path, [_to_numpy(modules, n, leaf) for _, n, leaf in flat],
-                [p for p, _, _ in flat], layout)
+    leaves = [_to_numpy(modules, n, leaf) for _, n, leaf in flat]
+    paths = [p for p, _, _ in flat]
+    if sharded:  # a DCP snapshot directory; every rank calls this
+        from bigdl_tpu_torch.utils.orbax_ckpt import save_leaves_sharded
+        save_leaves_sharded(path, leaves, paths, overwrite=True)
+        return
+    save_leaves(path, leaves, paths, layout)
 
 
 def save_model(path: str, model: torch.nn.Module,
                driver: Optional[dict] = None,
                tensors: Optional[dict] = None,
-               layout: Optional[dict] = None) -> None:
+               layout: Optional[dict] = None, sharded: bool = False) -> None:
     """Write ``model``'s params and module state (and the loop's
     ``driver`` counters) as a ``model.<n>`` blob in the JAX layout;
     ``tensors`` ({name: tensor}, e.g. host copies) stand in for the
     model's own; ``layout`` (a ``DataParallel.layout_signature()``) goes
-    into the manifest."""
+    into the manifest. ``sharded`` writes the same leaves as a DCP
+    snapshot directory (``utils.orbax_ckpt``) instead."""
     params, state = model_tensors(model)
     if tensors is not None:
         params = {k: tensors[k] for k in params}
@@ -130,33 +137,55 @@ def save_model(path: str, model: torch.nn.Module,
                                  f"got {sorted(plan)}")
             tree["driver"]["plan"] = {k: _plan_leaf(plan[k])
                                       for k in PLAN_KEYS}
-    _save(path, tree, model, layout)
+    _save(path, tree, model, layout, sharded)
 
 
 def save_state(path: str, opt_state: dict, model: torch.nn.Module,
-               layout: Optional[dict] = None) -> None:
-    """Write an ``OptimMethod`` state as a ``state.<n>`` blob."""
-    _save(path, opt_state, model, layout)
+               layout: Optional[dict] = None, sharded: bool = False) -> None:
+    """Write an ``OptimMethod`` state as a ``state.<n>`` blob (a DCP
+    snapshot directory with ``sharded``)."""
+    _save(path, opt_state, model, layout, sharded)
 
 
 def _read(path: str) -> Tuple[list, Optional[list]]:
-    """The blob's leaves and key paths, held against its manifest."""
+    """The leaves and key paths of a blob, held against its manifest, or
+    of a DCP snapshot directory (which visits the ``ckpt_restore`` fault
+    site once, as a blob does)."""
+    if isdir(path):
+        from bigdl_tpu_torch.resilience.faults import hook
+        from bigdl_tpu_torch.utils.orbax_ckpt import read_leaves
+        hook("ckpt_restore")
+        return read_leaves(path)
     leaves, paths = load_leaves(path)
-    man = read_manifest(path)
-    if man is not None:
-        recs = man.get("leaves") or []
-        if man.get("n_leaves") != len(leaves) or len(recs) != len(leaves):
-            raise ChecksumError(f"{path}: the manifest records "
-                                f"{man.get('n_leaves')} leaves, the blob "
-                                f"holds {len(leaves)}")
-        for i, (leaf, rec) in enumerate(zip(leaves, recs)):
-            if (list(leaf.shape) != list(rec.get("shape", [])) or
-                    str(leaf.dtype) != rec.get("dtype")):
-                raise ChecksumError(
-                    f"{path}: leaf {i} is {leaf.dtype}{list(leaf.shape)}, "
-                    f"the manifest says {rec.get('dtype')}"
-                    f"{rec.get('shape')}")
+    check_manifest(path, leaves)
     return leaves, paths
+
+
+def is_model_blob(path: str) -> bool:
+    """Whether ``path`` (a blob or a DCP snapshot) holds ``params``: false
+    for a ``state.<n>``. A JAX blob, whose key paths are not stored, is
+    taken as one (loading it against a model checks its leaves)."""
+    import json
+
+    from bigdl_tpu_torch.utils.file import PATHS_KEY, _fs_for, is_remote
+    if isdir(path):
+        from bigdl_tpu_torch.utils.orbax_ckpt import SEP, _reader, is_sharded
+        if not is_sharded(path):
+            return False
+        keys = _reader(path).read_metadata().state_dict_metadata
+        return any(k.split(SEP, 1)[0] == "params" for k in keys)
+    if is_remote(path):
+        import io
+        fs, p = _fs_for(path)
+        with fs.open(p, "rb") as f:
+            src = io.BytesIO(f.read())
+    else:
+        src = path
+    with np.load(src, allow_pickle=False) as z:
+        if PATHS_KEY not in z.files:
+            return True
+        return any(p[0] == "params"
+                   for p in json.loads(z[PATHS_KEY].tobytes()))
 
 
 def _match(path: str, model, target: list, leaves: list

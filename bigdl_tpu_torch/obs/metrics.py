@@ -59,15 +59,26 @@ class Counter:
 
 
 class Gauge:
-    """Point-in-time value sampled from ``fn`` at render time (queue
-    depth, occupancy); NaN when ``fn`` fails."""
+    """Point-in-time value: either ``set()`` by its owner (the elastic
+    mesh's rank count) or sampled from ``fn`` at render time (queue depth,
+    occupancy; NaN when ``fn`` fails)."""
 
-    def __init__(self, name: str, help: str, fn: Callable[[], float]):
+    def __init__(self, name: str, help: str = "",
+                 fn: Optional[Callable[[], float]] = None):
         self.name, self.help = name, help
         self._fn = fn
+        self._lock = threading.Lock()
+        self._value = 0.0
+
+    def set(self, v: float) -> None:
+        with self._lock:
+            self._value = float(v)
 
     @property
     def value(self) -> float:
+        if self._fn is None:
+            with self._lock:
+                return self._value
         try:
             return float(self._fn())
         except Exception:
@@ -155,8 +166,8 @@ class MetricsRegistry:
     def counter(self, name: str, help: str = "") -> Counter:
         return self._register(name, Counter, lambda: Counter(name, help))
 
-    def gauge(self, name: str, help: str,
-              fn: Callable[[], float]) -> Gauge:
+    def gauge(self, name: str, help: str = "",
+              fn: Optional[Callable[[], float]] = None) -> Gauge:
         return self._register(name, Gauge, lambda: Gauge(name, help, fn))
 
     def histogram(self, name: str, help: str = "",

@@ -73,6 +73,7 @@ from bigdl_tpu_torch.optim.metrics import Metrics
 from bigdl_tpu_torch.optim.step_graph import StepGraph, batch_leaves
 from bigdl_tpu_torch.optim.triggers import Trigger
 from bigdl_tpu_torch.optim.validator import run_evaluation
+from bigdl_tpu_torch.resilience.faults import hook as _fault_hook
 
 logger = logging.getLogger("bigdl_tpu_torch")
 
@@ -131,6 +132,8 @@ def _shape_sig(batch):
 
 
 def _canon(path: str) -> str:
+    if "://" in str(path):  # an fsspec path stays as written
+        return str(path).rstrip("/")
     return os.path.abspath(os.path.normpath(str(path)))
 
 
@@ -206,6 +209,7 @@ class Optimizer:
         self._last_val_iter = -1
         self._ckpt_trigger = None
         self._ckpt_path = None
+        self._ckpt_sharded = False
         self._last_ckpt_iter = -1
         self._ckpt_thread = None
         self._ckpt_error = None
@@ -256,26 +260,31 @@ class Optimizer:
             f.write(json.dumps(row) + "\n")
 
     def set_checkpoint(self, trigger: Trigger, path: str,
-                       overwrite: bool = False, async_save: bool = False,
+                       overwrite: bool = False, sharded: bool = False,
+                       async_save: bool = False,
                        keep_last: Optional[int] = None) -> "Optimizer":
         """Write ``model.<n>`` (params, module state and the loop's
         counters) and ``state.<n>`` (the optimizer state) into ``path``
         whenever ``trigger`` fires, n the iteration (reference
-        Optimizer.setCheckpoint). An existing snapshot raises
-        ``FileExistsError`` unless ``overwrite``. ``async_save`` copies the
-        tensors to the host on the loop and writes them on a thread, one
-        write in flight (joined before the next one and at the end).
-        ``keep_last=k`` deletes older snapshots after each write, never
-        the newest valid pair. Local paths only."""
+        Optimizer.setCheckpoint). ``path`` may be local or a ``scheme://``
+        fsspec path. An existing snapshot raises ``FileExistsError`` unless
+        ``overwrite``. ``sharded`` writes each snapshot as a DCP directory
+        (``utils.orbax_ckpt``), every rank of a strategy taking part.
+        ``async_save`` copies the tensors to the host on the loop and
+        writes them on a thread, one write in flight (joined before the
+        next one and at the end; single-blob path only). ``keep_last=k``
+        deletes older snapshots after each write, never the newest valid
+        pair."""
+        if async_save and sharded:
+            raise ValueError("async_save supports the single-blob path; "
+                             "orbax sharded writes are per-host streaming "
+                             "already")
         if keep_last is not None and keep_last < 1:
             raise ValueError(f"keep_last must be >= 1, got {keep_last}")
-        if "://" in str(path):
-            raise NotImplementedError(
-                f"{path}: remote checkpoint paths are not in the PyTorch "
-                f"port yet (ROADMAP.md queue 1 item 13)")
         self._ckpt_trigger = trigger
         self._ckpt_path = str(path)
         self._ckpt_overwrite = overwrite
+        self._ckpt_sharded = sharded
         self._ckpt_async = async_save
         self._ckpt_keep_last = keep_last
         return self
@@ -305,7 +314,8 @@ class Optimizer:
 
     def resume(self, checkpoint_dir: str) -> "Optimizer":
         """Load the newest valid ``model.<n>``/``state.<n>`` pair of a
-        directory (written by the port or by the JAX package); without a
+        directory, local or fsspec (blobs written by the port or by the JAX
+        package, or the port's DCP snapshot directories); without a
         valid pair, the newest ``model.<n>`` alone (params only, the
         optimizer state fresh). If that one snapshot fails its checksum,
         raise :class:`~bigdl_tpu_torch.utils.file.ChecksumError`.
@@ -463,13 +473,14 @@ class Optimizer:
 
     def _write_checkpoint(self, opt_state: dict, progress: dict):
         from bigdl_tpu_torch.interop.checkpoint import save_model, save_state
+        from bigdl_tpu_torch.utils.file import exists, join
         n = progress["iteration"]
         self._last_ckpt_iter = n
-        target = os.path.join(self._ckpt_path, f"model.{n}")
-        state_target = os.path.join(self._ckpt_path, f"state.{n}")
+        target = join(self._ckpt_path, f"model.{n}")
+        state_target = join(self._ckpt_path, f"state.{n}")
         overwrite = (self._ckpt_overwrite
                      or _canon(target) in self._resume_orphans)
-        if os.path.exists(target) and not overwrite:
+        if exists(target) and not overwrite:
             raise FileExistsError(
                 f"{target} exists; pass overwrite=True to set_checkpoint "
                 f"(--overWriteCheckpoint) to clobber it")
@@ -482,10 +493,14 @@ class Optimizer:
             driver["plan"] = plan.signature()
         self._join_ckpt_writer()  # one write in flight
         layout, strat = None, self.strategy
+        sharded = self._ckpt_sharded
         if strat is not None:
+            # every rank has looked for the snapshot before one is written
+            # (a gather without state to move is no collective)
+            strat.barrier()
             _, _, opt_state = strat.gather(None, None, opt_state)  # all ranks
             layout = strat.layout_signature()
-            if strat.rank != 0:
+            if strat.rank != 0 and not sharded:
                 strat.barrier()  # rank 0 writes
                 return
         # host copies, taken now: the next step (or replay) updates the
@@ -494,9 +509,11 @@ class Optimizer:
         state = _host_tree(opt_state)
 
         def write():
-            save_model(target, self.model, driver, tensors, layout=layout)
-            save_state(state_target, state, self.model, layout=layout)
-            if self._ckpt_keep_last:
+            save_model(target, self.model, driver, tensors, layout=layout,
+                       sharded=sharded)
+            save_state(state_target, state, self.model, layout=layout,
+                       sharded=sharded)
+            if self._ckpt_keep_last and (strat is None or strat.rank == 0):
                 from bigdl_tpu_torch.utils.file import gc_checkpoints
                 gc_checkpoints(self._ckpt_path, self._ckpt_keep_last)
             logger.info("Checkpoint written at iteration %d to %s%s", n,
@@ -520,12 +537,25 @@ class Optimizer:
         if strat is not None:
             strat.barrier()
 
-    def _join_ckpt_writer(self):
+    def _join_ckpt_writer(self, report: bool = True):
+        """Wait for the write in flight. Its error is raised here (logged
+        instead when not ``report``): a retryable fault (``supervisor.
+        RETRYABLE_EXCEPTIONS``, e.g. an injected ``preempt_soft@ckpt_save``
+        or ``io@ckpt_save`` in the writer thread) as itself, so that a
+        supervisor retries it as it would on the loop's thread; any other
+        wrapped in RuntimeError."""
         if self._ckpt_thread is not None:
             self._ckpt_thread.join()
             self._ckpt_thread = None
         if self._ckpt_error is not None:
             err, self._ckpt_error = self._ckpt_error, None
+            if not report:
+                logger.warning("async checkpoint write failed too: %r", err)
+                return
+            from bigdl_tpu_torch.resilience.supervisor import \
+                RETRYABLE_EXCEPTIONS
+            if isinstance(err, RETRYABLE_EXCEPTIONS):
+                raise err
             raise RuntimeError("async checkpoint write failed") from err
 
     def _phase(self, name: str, dt: float):
@@ -540,10 +570,16 @@ class Optimizer:
 
     # ------------------------------------------------------------ optimize
     def optimize(self) -> TrainedModel:
+        done = False
         try:
-            return self._optimize()
+            out = self._optimize()
+            done = True
         finally:
-            self._join_ckpt_writer()
+            # after a failed loop the write in flight is still waited for
+            # (nothing may write into the directory a retry lists), and its
+            # error is logged: the loop's error is the one to report
+            self._join_ckpt_writer(report=done)
+        return out
 
     def _optimize(self) -> TrainedModel:
         # the conv layout triple of this dispatch configuration (a no-op
@@ -670,6 +706,9 @@ class Optimizer:
             """K batches as one dispatch: eager on the CPU and for CUDA's
             first group (on the capture stream), a graph replay after."""
             t0 = time.time()
+            # the fault site before the dispatch and its seed draws: a
+            # preemption here loses the whole group, as a kill would
+            _fault_hook("step")
             seeds = [next_seed() for _ in buf]
             if not graphed:
                 for b, s in zip(buf, seeds):
@@ -713,8 +752,12 @@ class Optimizer:
                 t_fetch = time.time()
                 buf = []
                 while len(buf) < K:
-                    b, pending = (pending, None) if pending is not None \
-                        else (next(data, None), None)
+                    if pending is not None:
+                        b, pending = pending, None
+                    else:
+                        b = next(data, None)
+                        if b is not None:
+                            _fault_hook("data")  # one visit per fetch
                     if b is None:
                         epoch_done = True
                         break
@@ -735,6 +778,8 @@ class Optimizer:
                 else:
                     for b in buf:
                         t0 = time.time()
+                        # the fault site before the step's seed draw
+                        _fault_hook("step")
                         loss = run_eager(b, next_seed())
                         after_dispatch(_records(b), 1, t0, loss)
                         done = self._after_step(opt_state, progress)

@@ -159,7 +159,9 @@ class DataParallel:
             by_dtype.setdefault(t.dtype, []).append(t)
         for ts in by_dtype.values():
             flat = torch.cat([t.reshape(-1) for t in ts])
-            dist.broadcast(flat, src=src, group=self.group)
+            # src is a rank of the mesh; torch.distributed names the job's
+            dist.broadcast(flat, src=self.mesh.global_rank(src),
+                           group=self.group)
             if self.rank != src:
                 for t, piece in zip(ts, torch.split(
                         flat, [t.numel() for t in ts])):

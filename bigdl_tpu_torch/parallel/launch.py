@@ -10,7 +10,9 @@ runs ``function(args)`` once in each of N fresh Python processes joined by
 environment variables, a free ``localhost`` port) and returns their
 JSON-able return values in rank order. A rank that exits non-zero fails
 the job: the other ranks are killed and :class:`RuntimeError` carries the
-tail of the failed rank's output. At ``timeout_s`` every rank is killed
+tail of the failed rank's output. A rank that leaves the job with exit
+code 0 before its function returns (a rank lost to an elastic
+re-formation) gives None. At ``timeout_s`` every rank is killed
 and :class:`TimeoutError` is raised, so a hung collective fails the
 caller instead of stalling it. Each rank runs in a session of its own;
 killing kills its children too.
@@ -113,12 +115,13 @@ def spawn(target: str, nprocs: int, args: Optional[dict] = None,
             _kill(procs)
         out = []
         for rank in range(nprocs):
-            out.append(json.loads((work / f"result{rank}.json").read_text()))
+            res = work / f"result{rank}.json"
+            out.append(json.loads(res.read_text()) if res.exists() else None)
         return out
 
 
 def _worker(target: str, work: str, backend: Optional[str]) -> None:
-    from bigdl_tpu_torch.parallel.mesh import init_distributed
+    from bigdl_tpu_torch.parallel.mesh import init_distributed, live_group
 
     init_distributed(backend=backend)
     import torch.distributed as dist
@@ -129,7 +132,9 @@ def _worker(target: str, work: str, backend: Optional[str]) -> None:
     rank = dist.get_rank() if dist.is_initialized() else 0
     (Path(work) / f"result{rank}.json").write_text(json.dumps(result))
     if dist.is_initialized():
-        dist.barrier()
+        # the live ranks only: a rank lost to an elastic re-formation has
+        # left the job
+        dist.barrier(group=live_group())
         dist.destroy_process_group()
 
 

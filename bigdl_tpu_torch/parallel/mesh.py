@@ -10,6 +10,18 @@ CPU. A :class:`Mesh` names the data axis of that process group; its
 ``strategy.mesh`` keeps its shape. Only the ``data`` axis is ported: the
 model, sequence and pipeline axes come with tensor, sequence and pipeline
 parallelism (ROADMAP.md queue 1 entry 13).
+
+Elastic re-formation (``resilience.elastic``): ``make_mesh(axes,
+devices)`` with the surviving ranks (``resilience.faults.
+healthy_devices()``) builds the data axis over them alone, on a
+``new_group`` of those ranks. Every rank of the job calls it, the lost
+ones too (``new_group`` is collective over the default group); a lost
+rank gets a mesh it is not a member of (``member`` false) and leaves the
+job. The newest such mesh is the one :func:`axis_group` and
+:func:`live_group` answer for, so batch norm, the barriers and the
+checkpoints of the survivors never wait for a rank that has left. Stated
+difference: the JAX package re-forms over surviving devices of one
+process; the port re-forms over surviving processes.
 """
 
 from __future__ import annotations
@@ -21,7 +33,7 @@ from typing import Optional
 import torch
 
 __all__ = ["Mesh", "init_distributed", "make_mesh", "local_mesh",
-           "axis_group", "TIMEOUT_S"]
+           "axis_group", "live_group", "TIMEOUT_S"]
 
 # a collective that waits longer than this raises (gloo) or is aborted by
 # the watchdog (NCCL): a hung rank fails the run instead of stalling it
@@ -88,16 +100,28 @@ def init_distributed(coordinator_address: Optional[str] = None,
 class Mesh:
     """A one-axis device mesh over the job's process group: ``axis_names``,
     ``shape`` ({name: size}), ``size``, the ``group`` its collectives take
-    (None: the default group) and this process's ``rank``. Collectives run
+    (None: the default group), this process's ``rank`` in it (-1 when it
+    is not a ``member``) and the global ``ranks`` it spans. Collectives run
     on the device of the tensors they are given: the card under NCCL,
     either under gloo."""
 
-    def __init__(self, axis: str, size: int, rank: int = 0):
+    def __init__(self, axis: str, size: int, rank: int = 0, group=None,
+                 ranks=None):
         self.axis_names = (axis,)
         self.shape = {axis: int(size)}
         self.size = int(size)
-        self.group = None
+        self.group = group
         self.rank = int(rank)
+        self.ranks = list(range(int(size)) if ranks is None else ranks)
+
+    @property
+    def member(self) -> bool:
+        return self.rank >= 0
+
+    def global_rank(self, rank: int) -> int:
+        """The job's rank of the mesh's ``rank`` (what ``src``/``dst`` of
+        a ``torch.distributed`` call name)."""
+        return self.ranks[rank]
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, rank={self.rank})"
@@ -113,28 +137,47 @@ def _refuse_axes(axes: dict) -> None:
             f"has the 'data' axis")
 
 
+# the newest mesh made over a subset of the job's ranks (an elastic
+# re-formation), or None: the default group is the live one
+_LIVE: Optional[Mesh] = None
+
+
 def make_mesh(axes: dict, devices=None) -> Mesh:
     """``make_mesh({"data": n})``: the data axis over the process group's
     ``n`` ranks (-1 fills it with them all). ``n`` must be the world size,
     as the JAX mesh's sizes must multiply to the device count; one process
-    with no group is a mesh of one."""
-    if devices is not None:
-        raise ValueError("the port's mesh is its process group: pass no "
-                         "device list")
+    with no group is a mesh of one. ``devices``, a list of the job's ranks
+    (the survivors of an elastic loss), builds the axis over those ranks
+    alone, on a new process group; every rank of the job must call it
+    with the same list, in the same order as its other ``make_mesh``
+    calls."""
+    global _LIVE
     _refuse_axes(axes)
     if "data" not in axes:
         raise ValueError(f"make_mesh needs a 'data' axis, got {axes}")
     dist = _dist()
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
+    ranks = list(range(world)) if devices is None else sorted(
+        int(d) for d in devices)
+    if any(r < 0 or r >= world for r in ranks) or not ranks:
+        raise ValueError(f"devices {list(devices)} are not ranks of this "
+                         f"job's {world}")
     n = int(axes["data"])
     if n == -1:
-        n = world
-    if n != world:
+        n = len(ranks)
+    if n != len(ranks):
         raise ValueError(f"mesh {{'data': {n}}} needs {n} devices, have "
-                         f"{world} (one process a device: start {n} with "
-                         f"torchrun --nproc_per_node {n})")
-    return Mesh("data", n, rank)
+                         f"{len(ranks)} (one process a device: start {n} "
+                         f"with torchrun --nproc_per_node {n})")
+    if devices is None or len(ranks) == world:
+        _LIVE = None
+        return Mesh("data", n, rank)
+    group = dist.new_group(ranks) if dist.is_initialized() else None
+    mesh = Mesh("data", n, ranks.index(rank) if rank in ranks else -1,
+                group=group, ranks=ranks)
+    _LIVE = mesh
+    return mesh
 
 
 def local_mesh(data_axis: str = "data") -> Mesh:
@@ -144,10 +187,19 @@ def local_mesh(data_axis: str = "data") -> Mesh:
 
 
 def axis_group(axis_name: str):
-    """(process group, size) of the mesh axis ``axis_name``: the job's
-    default group and its size, or (None, 1) in a single process."""
+    """(process group, size) of the mesh axis ``axis_name``: the live
+    mesh's (after an elastic re-formation, the survivors' group), else the
+    job's default group and its size, or (None, 1) in a single process."""
     _refuse_axes({axis_name: 1})
     dist = _dist()
     if not dist.is_initialized():
         return None, 1
+    if _LIVE is not None:
+        return _LIVE.group, _LIVE.size
     return None, dist.get_world_size()
+
+
+def live_group():
+    """The process group the job's live ranks share: the newest elastic
+    mesh's, else None (the default group)."""
+    return None if _LIVE is None else _LIVE.group

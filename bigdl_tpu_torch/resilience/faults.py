@@ -5,9 +5,14 @@ instrumented sites.
 
 Sites (each instrumented call is one *visit*; counters are per-process):
 
-* ``data``, ``step``, ``ckpt_save``, ``ckpt_restore`` — the training
-  sites; their kinds parse, and the port's training loop does not call
-  them yet;
+* ``data``         — one per training batch fetched (the Optimizer's
+  loop; a resume's skip of consumed records visits none);
+* ``step``         — one per optimizer dispatch, before its seeds are
+  drawn (a graphed K-step group is one dispatch; ``cli.perf``'s timed
+  loop visits it once a step);
+* ``ckpt_save``    — one per checkpoint artifact written
+  (``utils.file.save_leaves``, a DCP snapshot's save);
+* ``ckpt_restore`` — one per checkpoint artifact read;
 * ``infer``        — one per serving engine forward
   (``InferenceEngine.predict_scores``);
 * ``request``      — one per HTTP request dispatched
@@ -30,9 +35,9 @@ Kinds:
 * ``worker_kill``  — raises :class:`WorkerKillFault`
   (``worker_fatal=True``): serving worker threads die of it, which the
   watchdog turns into fast 503s;
-* ``kill_device``  — marks ``arg`` CUDA devices (default 1, from the
-  tail of the healthy roster) lost process-wide and raises
-  :class:`DeviceLossFault`.
+* ``kill_device``  — marks ``arg`` devices (default 1, from the tail of
+  the healthy roster) lost process-wide and raises
+  :class:`DeviceLossFault`; only an elastic supervisor retries it.
 
 Everything is a no-op unless a plan is installed (``install_plan``): the
 inactive hook is one global load and a ``None`` check.
@@ -41,10 +46,14 @@ Determinism: probabilistic rules (``p0.05``) decide per visit by a
 SHA-256 hash of ``(seed, site, visit)`` (:func:`_u01`), so one seed
 gives the JAX package's schedule, with no shared RNG.
 
-Stated difference: :func:`healthy_devices` and
-:func:`lost_device_ids` count CUDA device indices
-(``range(torch.cuda.device_count())``) where the JAX package counts
-``jax.devices()`` ids.
+Stated difference: the roster of :func:`healthy_devices` and
+:func:`lost_device_ids` is the job's ranks under a process group (the
+port runs one process a GPU, so the rank holds the data axis's shard,
+and gloo ranks may share a card), else the CUDA device indices
+(``range(torch.cuda.device_count())``), where the JAX package counts
+``jax.devices()`` ids. The ranks of a job visit the ``step`` site in
+lockstep, so a ``kill_device`` marks the same tail ranks lost in every
+process at the same visit.
 """
 
 from __future__ import annotations
@@ -109,14 +118,18 @@ class DeviceLossFault(RuntimeError):
     the survivors' roster."""
 
 
-# CUDA device indices the kill_device fault has "lost" in this process;
-# clear_plan() heals them: no plan, no simulated losses
+# the devices (ranks under a process group, else CUDA indices) the
+# kill_device fault has "lost" in this process; clear_plan() heals them:
+# no plan, no simulated losses
 _LOST_DEVICE_IDS: set = set()
 
 
 def _device_ids() -> list:
     import torch
 
+    dist = getattr(torch, "distributed", None)
+    if dist is not None and dist.is_available() and dist.is_initialized():
+        return list(range(dist.get_world_size()))
     return list(range(torch.cuda.device_count()))
 
 
@@ -125,8 +138,8 @@ def lost_device_ids() -> set:
 
 
 def healthy_devices() -> list:
-    """The CUDA device indices still usable after injected losses, in
-    order."""
+    """The devices still usable after injected losses, in order: the
+    job's ranks under a process group, else the CUDA device indices."""
     return [d for d in _device_ids() if d not in _LOST_DEVICE_IDS]
 
 

@@ -12,8 +12,10 @@ and records every fault and recovery as structured events.
 
 For process-fatal faults (the ``preempt`` kind ``os._exit``) there is
 :func:`supervise_command`: the same policy applied to a child process,
-restarted while it dies with ``PREEMPT_RC``. The training loop's
-wiring (``--supervise``) is not ported yet.
+restarted while it dies with ``PREEMPT_RC`` (the engine of
+``tools/chaos_run.py``). The training CLIs' ``--supervise`` is
+``cli.common.run_optimize``: each attempt builds a fresh Optimizer and
+resumes from the newest checksum-valid snapshot of ``--checkpoint``.
 """
 
 from __future__ import annotations

@@ -38,7 +38,6 @@ from __future__ import annotations
 import contextlib
 import copy
 import logging
-import os
 import time
 
 from bigdl_tpu_torch.serving.fleet import control
@@ -103,23 +102,20 @@ def _layout_like(module):
 
 def _restore(checkpoint: str, module) -> dict:
     """{name: CPU tensor} of ``checkpoint`` (a directory's newest
-    ``model.<n>``, or one file, of the port or the JAX package), held
-    against ``module``'s layout."""
-    from bigdl_tpu_torch.interop.checkpoint import load_model
-    from bigdl_tpu_torch.utils.file import latest_checkpoint
+    ``model.<n>``, one blob file or one DCP snapshot directory, local or
+    fsspec, of the port or the JAX package), held against ``module``'s
+    layout (``utils.orbax_ckpt.restore_for_inference``)."""
+    from bigdl_tpu_torch.utils.orbax_ckpt import restore_for_inference
 
-    path = checkpoint
     try:
-        if os.path.isdir(checkpoint):
-            path = latest_checkpoint(checkpoint, "model.")
-            if path is None:
-                raise FileNotFoundError(f"no model.<n> checkpoint in "
-                                        f"{checkpoint}")
-        tensors, _ = load_model(path, _layout_like(module))
-    except (OSError, ValueError) as e:  # ChecksumError is a ValueError
+        params, state = restore_for_inference(checkpoint,
+                                              _layout_like(module))
+    except SystemExit as e:
+        # restore_for_inference exits clean on a missing or corrupt
+        # checkpoint at start-up; mid-serve that is a refusable error
         raise WeightSwapError(f"restore failed for {checkpoint!r}: {e} — "
                               f"weights NOT swapped") from None
-    return tensors
+    return {**params, **state}
 
 
 def _copy_into(module, tensors: dict) -> None:

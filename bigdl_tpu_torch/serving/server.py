@@ -540,7 +540,7 @@ class _Handler(BaseHTTPRequestHandler):
             return
         stream: _GenerateStream = obj
         rt = _reqtrace.get()
-        ok, first, n_out = False, True, 0
+        ok, first, n_out, counted = False, True, 0, False
         deadline = time.monotonic() + app.request_timeout_s
         try:
             self._head(200, rid, "text/event-stream")
@@ -583,13 +583,19 @@ class _Handler(BaseHTTPRequestHandler):
                          "tokens_out": n_out}))
                     ok = True
                     break
+            if ok:
+                # counted before the stream's last byte leaves: a client
+                # that has read the whole stream finds it in /metrics
+                app.finish_generate_stream(rid, ok, t0)
+                counted = True
             self._write_chunk(b"")  # the terminating chunk
         except OSError:  # BrokenPipeError, ConnectionResetError
             # the client went away: free the slot and its pages now
             # instead of decoding into a dead pipe
             stream.decoder.cancel(rid)
         finally:
-            app.finish_generate_stream(rid, ok, t0)
+            if not counted:
+                app.finish_generate_stream(rid, ok, t0)
 
     def log_message(self, fmt, *args):  # route access logs to logging
         logger.debug("%s - %s", self.address_string(), fmt % args)

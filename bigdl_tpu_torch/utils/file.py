@@ -1,24 +1,33 @@
-"""Checkpoint files on local paths (counterpart of
-``bigdl_tpu/utils/file.py``; reference utils/File.scala).
+"""Checkpoint files (counterpart of ``bigdl_tpu/utils/file.py``; reference
+utils/File.scala).
 
 A blob is an ``np.savez`` archive of ``leaf_0`` ... ``leaf_{n-1}`` arrays,
-written to ``<path>.tmp`` and renamed, then a ``<path>.sha256`` sidecar
-(its presence implies a whole blob existed), then a
-``<path>.manifest.json`` (the leaves' shapes and dtypes, in the JAX
-package's JSON shape), last. The JAX package stores a pickled jax treedef
-beside the leaves (``__treedef__``); the port stores the leaves' key
-paths as JSON (``__paths__``) in its place, and reads a JAX blob's leaves
-by position (:mod:`bigdl_tpu_torch.interop.checkpoint`).
+then a ``<path>.sha256`` sidecar (its presence implies a whole blob
+existed), then a ``<path>.manifest.json`` (the leaves' shapes and dtypes,
+in the JAX package's JSON shape), last. A local blob is written to
+``<path>.tmp`` and renamed; a ``scheme://`` path (``gs://``, ``s3://``,
+``memory://``, ...) goes through fsspec, the blob in one put. The JAX
+package stores a pickled jax treedef beside the leaves
+(``__treedef__``); the port stores the leaves' key paths as JSON
+(``__paths__``) in its place, and reads a JAX blob's leaves by position
+(:mod:`bigdl_tpu_torch.interop.checkpoint`).
 
 The snapshot helpers follow the JAX package's: ``model.<n>`` holds params
 and module state, ``state.<n>`` the optimizer state; the newest pair whose
 blobs and manifests verify is the one to resume from, and the GC never
-deletes it. Remote (``scheme://``) paths and orbax's sharded directories
-are not ported (ROADMAP.md queue 1 item 13) and raise."""
+deletes it. A snapshot may also be a directory written by
+:mod:`bigdl_tpu_torch.utils.orbax_ckpt` (``torch.distributed.checkpoint``),
+which carries no sidecar and verifies as it is.
+
+Fault sites: :func:`save_leaves` visits ``ckpt_save`` before the write and
+calls the ``corrupt`` pass after the manifest; :func:`load_leaves` visits
+``ckpt_restore`` (no-ops unless a ``--faultPlan`` is installed), so a
+``model.<n>``/``state.<n>`` pair is two visits, as in the JAX package."""
 
 from __future__ import annotations
 
 import hashlib
+import io
 import json
 import logging
 import os
@@ -27,9 +36,13 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-# defined beside the fault that causes it, so the supervisor's retryable
-# set and the checkpoint loader share one type
-from bigdl_tpu_torch.resilience.faults import ChecksumError
+# the fault sites of the resilience layer (no-ops unless a plan is
+# installed); ChecksumError lives beside the fault that causes it, so the
+# supervisor's retryable set and the checkpoint loader share one type
+from bigdl_tpu_torch.resilience.faults import (ChecksumError,
+                                               hook as _fault_hook,
+                                               post_write_hook as
+                                               _post_write_hook)
 
 logger = logging.getLogger("bigdl_tpu_torch")
 
@@ -37,7 +50,8 @@ __all__ = ["ChecksumError", "save_leaves", "load_leaves", "checksum_path",
            "manifest_path", "verify_checkpoint", "read_manifest",
            "verify_manifest", "latest_checkpoint", "latest_checkpoint_pair",
            "latest_valid_checkpoint_pair", "gc_checkpoints",
-           "orphaned_snapshots"]
+           "orphaned_snapshots", "is_remote", "exists", "isdir", "join",
+           "restore_resharded"]
 
 CHECKSUM_SUFFIX = ".sha256"
 MANIFEST_SUFFIX = ".manifest.json"
@@ -46,13 +60,40 @@ PATHS_KEY = "__paths__"
 TREEDEF_KEY = "__treedef__"
 
 
-def _local(path: str) -> str:
-    path = str(path)
-    if "://" in path:
-        raise NotImplementedError(
-            f"{path}: remote checkpoint paths are not in the PyTorch port "
-            f"yet (ROADMAP.md queue 1 item 13); use a local path")
-    return path
+def is_remote(path: str) -> bool:
+    """True for scheme-prefixed (fsspec) paths like ``gs://bucket/dir``."""
+    return "://" in str(path)
+
+
+def _fs_for(path: str):
+    import fsspec
+
+    return fsspec.core.url_to_fs(str(path))  # (fs, stripped path)
+
+
+def exists(path: str) -> bool:
+    """Whether ``path`` exists, local or fsspec (the checkpoint overwrite
+    guard holds on remote paths too)."""
+    if is_remote(path):
+        fs, p = _fs_for(path)
+        return fs.exists(p)
+    return os.path.exists(path)
+
+
+def isdir(path: str) -> bool:
+    """Whether ``path`` is a directory, local or fsspec (a sharded
+    snapshot is a directory, a blob a file)."""
+    if is_remote(path):
+        fs, p = _fs_for(path)
+        return fs.isdir(p)
+    return os.path.isdir(path)
+
+
+def join(directory: str, name: str) -> str:
+    """``directory/name`` for a local or fsspec directory."""
+    if is_remote(directory):
+        return f"{str(directory).rstrip('/')}/{name}"
+    return os.path.join(directory, name)
 
 
 def checksum_path(path: str) -> str:
@@ -71,11 +112,41 @@ def _file_sha256(path: str) -> str:
     return h.hexdigest()
 
 
-def _write_atomic(path: str, text: str) -> None:
+def _blob_sha256(path: str) -> str:
+    if is_remote(path):
+        fs, p = _fs_for(path)
+        with fs.open(p, "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+    return _file_sha256(path)
+
+
+def _write_text(path: str, text: str) -> None:
+    """A small file, whole or not at all: tmp + rename locally, one put
+    remotely."""
+    if is_remote(path):
+        fs, p = _fs_for(path)
+        with fs.open(p, "w") as f:
+            f.write(text)
+        return
     tmp = path + ".tmp"
     with open(tmp, "w") as f:
         f.write(text)
     os.replace(tmp, path)
+
+
+def _read_text(path: str) -> Optional[str]:
+    """The file's text, or None when it does not exist."""
+    if is_remote(path):
+        fs, p = _fs_for(path)
+        if not fs.exists(p):
+            return None
+        with fs.open(p, "r") as f:
+            return f.read()
+    try:
+        with open(path) as f:
+            return f.read()
+    except FileNotFoundError:
+        return None
 
 
 def save_leaves(path: str, leaves: Sequence[np.ndarray],
@@ -85,32 +156,46 @@ def save_leaves(path: str, leaves: Sequence[np.ndarray],
     its checksum sidecar, then its manifest; ``layout`` is the writer's
     data-parallel layout (``DataParallel.layout_signature()``), recorded
     in the manifest as the JAX package records it."""
-    path = _local(path)
+    path = str(path)
+    _fault_hook("ckpt_save")
     if len(leaves) != len(key_paths):
         raise ValueError(f"{len(leaves)} leaves but {len(key_paths)} paths")
     arrays = {f"leaf_{i}": np.asarray(x) for i, x in enumerate(leaves)}
     meta = np.frombuffer(json.dumps([list(p) for p in key_paths]).encode(),
                          dtype=np.uint8)
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        np.savez(f, **{PATHS_KEY: meta}, **arrays)
-    digest = _file_sha256(tmp)
-    os.replace(tmp, path)
-    _write_atomic(checksum_path(path), digest)
+    if is_remote(path):
+        # object stores take one put: the archive is built in memory
+        fs, p = _fs_for(path)
+        parent = p.rsplit("/", 1)[0]
+        if parent:
+            fs.makedirs(parent, exist_ok=True)
+        payload = io.BytesIO()
+        np.savez(payload, **{PATHS_KEY: meta}, **arrays)
+        with fs.open(p, "wb") as f:
+            f.write(payload.getbuffer())
+        digest = hashlib.sha256(payload.getbuffer()).hexdigest()
+    else:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            np.savez(f, **{PATHS_KEY: meta}, **arrays)
+        digest = _file_sha256(tmp)
+        os.replace(tmp, path)
+    _write_text(checksum_path(path), digest)
     doc = {"version": MANIFEST_VERSION, "n_leaves": len(arrays),
            "leaves": [{"shape": list(a.shape), "dtype": str(a.dtype)}
                       for a in arrays.values()],
            "layout": layout}
-    _write_atomic(manifest_path(path), json.dumps(doc, sort_keys=True))
+    _write_text(manifest_path(path), json.dumps(doc, sort_keys=True))
+    _post_write_hook("ckpt_save", path)
 
 
 def _read_sidecar(path: str) -> Optional[str]:
     try:
-        with open(checksum_path(path)) as f:
-            return f.read().strip()
-    except FileNotFoundError:
+        text = _read_text(checksum_path(path))
+    except OSError:
         return None
+    return None if text is None else text.strip()
 
 
 def load_leaves(path: str, verify: bool = True
@@ -120,12 +205,22 @@ def load_leaves(path: str, verify: bool = True
     is a pickle of jax objects and is not read. With ``verify`` a blob
     that has a sidecar is digested first and a mismatch raises
     :class:`ChecksumError`."""
-    path = _local(path)
+    path = str(path)
+    _fault_hook("ckpt_restore")
     expected = _read_sidecar(path) if verify else None
-    if expected is not None and _file_sha256(path) != expected:
+    if is_remote(path):
+        fs, p = _fs_for(path)
+        with fs.open(p, "rb") as f:
+            src = io.BytesIO(f.read())
+        got = (hashlib.sha256(src.getbuffer()).hexdigest()
+               if expected is not None else None)
+    else:
+        src = path
+        got = _file_sha256(path) if expected is not None else None
+    if expected is not None and got != expected:
         raise ChecksumError(f"{path}: checksum mismatch with its sidecar "
                             f"(torn write or bit rot)")
-    with np.load(path, allow_pickle=False) as z:
+    with np.load(src, allow_pickle=False) as z:
         n = sum(1 for k in z.files if k.startswith("leaf_"))
         leaves = [z[f"leaf_{i}"] for i in range(n)]
         paths = None
@@ -139,11 +234,14 @@ def load_leaves(path: str, verify: bool = True
 
 def verify_checkpoint(path: str) -> bool:
     """True when ``path``'s sidecar (if any) matches the blob; a blob
-    without a sidecar cannot be checked and verifies True."""
-    path = _local(path)
+    without a sidecar, and a sharded snapshot directory, cannot be checked
+    and verify True."""
+    path = str(path)
     try:
+        if isdir(path):
+            return True
         expected = _read_sidecar(path)
-        return expected is None or _file_sha256(path) == expected
+        return expected is None or _blob_sha256(path) == expected
     except OSError:
         return False
 
@@ -151,14 +249,13 @@ def verify_checkpoint(path: str) -> bool:
 def read_manifest(path: str) -> Optional[dict]:
     """The manifest of blob ``path``, or None when it has none; a manifest
     that does not parse raises :class:`ChecksumError`."""
-    mp = manifest_path(_local(path))
+    mp = manifest_path(str(path))
     try:
-        with open(mp) as f:
-            body = f.read()
-    except FileNotFoundError:
-        return None
+        body = _read_text(mp)
     except OSError as e:
         raise ChecksumError(f"{mp}: unreadable manifest: {e}") from None
+    if body is None:
+        return None
     try:
         doc = json.loads(body)
         if not isinstance(doc, dict) or "version" not in doc:
@@ -177,8 +274,67 @@ def verify_manifest(path: str) -> bool:
         return False
 
 
+def check_manifest(path: str, leaves: Sequence) -> None:
+    """Hold ``leaves``, as loaded from blob ``path``, against its manifest
+    (when it has one): their count, and each one's shape and dtype. A
+    mismatch raises :class:`ChecksumError`."""
+    man = read_manifest(path)
+    if man is None:
+        return
+    recs = man.get("leaves") or []
+    if man.get("n_leaves") != len(leaves) or len(recs) != len(leaves):
+        raise ChecksumError(f"{path}: the manifest records "
+                            f"{man.get('n_leaves')} leaves, the blob "
+                            f"holds {len(leaves)}")
+    for i, (leaf, rec) in enumerate(zip(leaves, recs)):
+        if (list(leaf.shape) != list(rec.get("shape", [])) or
+                str(leaf.dtype) != rec.get("dtype")):
+            raise ChecksumError(
+                f"{path}: leaf {i} is {leaf.dtype}{list(leaf.shape)}, "
+                f"the manifest says {rec.get('dtype')}{rec.get('shape')}")
+
+
+def restore_resharded(path: str, mesh, axis: str = "data",
+                      zero1: bool = True, verify: bool = True,
+                      params: Optional[dict] = None) -> dict:
+    """The blob at ``path``, written under any number of ranks, placed for
+    this rank of ``mesh`` (``parallel.make_mesh``): ``{key path: CPU
+    tensor}``. The leaves are held against the blob's manifest first (a
+    mismatch raises :class:`ChecksumError`). Blobs hold whole tensors, so
+    resharding is a placement: every rank gets every leaf, except that
+    with ``zero1`` and the model's ``params`` ({name: tensor}) each rank
+    keeps only the optimizer-state entries of the parameters it owns at
+    the mesh's size (``parallel.data_parallel.balanced_owners``, the
+    ZeRO-1 rule of :class:`~bigdl_tpu_torch.parallel.DataParallel`)."""
+    import torch
+
+    leaves, paths = load_leaves(path, verify=verify)
+    check_manifest(path, leaves)
+    if paths is None:
+        raise ValueError(f"{path}: a JAX blob has no key paths; read it "
+                         f"against a model (interop.checkpoint)")
+    keep = None
+    if zero1 and params is not None and mesh.size > 1:
+        from bigdl_tpu_torch.parallel.data_parallel import balanced_owners
+        owners = balanced_owners(
+            {n: p.numel() * p.element_size() for n, p in params.items()},
+            mesh.size)
+        keep = lambda kp: owners.get(".".join(kp[1:]),  # noqa: E731
+                                     mesh.rank) == mesh.rank
+    return {kp: torch.from_numpy(np.array(leaf))
+            for kp, leaf in zip(paths, leaves) if keep is None or keep(kp)}
+
+
 def _names(directory: str) -> Optional[List[str]]:
-    directory = _local(directory)
+    """The entry names of a local or fsspec directory, or None when it
+    does not exist."""
+    directory = str(directory)
+    if is_remote(directory):
+        fs, d = _fs_for(directory)
+        if not fs.isdir(d):
+            return None
+        return [e.rstrip("/").rsplit("/", 1)[-1]
+                for e in fs.ls(d, detail=False)]
     return os.listdir(directory) if os.path.isdir(directory) else None
 
 
@@ -192,9 +348,8 @@ def _indices(names, prefix: str) -> set:
 
 def latest_checkpoint(directory: str, prefix: str = "model.") -> Optional[str]:
     """The highest-numbered ``<prefix><n>`` in ``directory``, or None."""
-    names = _names(directory)
-    idx = _indices(names or (), prefix)
-    return os.path.join(directory, f"{prefix}{max(idx)}") if idx else None
+    idx = _indices(_names(directory) or (), prefix)
+    return join(directory, f"{prefix}{max(idx)}") if idx else None
 
 
 def latest_checkpoint_pair(directory: str):
@@ -206,8 +361,7 @@ def latest_checkpoint_pair(directory: str):
     if not common:
         return None, None
     n = max(common)
-    return (os.path.join(directory, f"model.{n}"),
-            os.path.join(directory, f"state.{n}"))
+    return join(directory, f"model.{n}"), join(directory, f"state.{n}")
 
 
 def latest_valid_checkpoint_pair(directory: str):
@@ -217,14 +371,31 @@ def latest_valid_checkpoint_pair(directory: str):
     names = _names(directory) or ()
     common = _indices(names, "model.") & _indices(names, "state.")
     for n in sorted(common, reverse=True):
-        m = os.path.join(directory, f"model.{n}")
-        s = os.path.join(directory, f"state.{n}")
+        m = join(directory, f"model.{n}")
+        s = join(directory, f"state.{n}")
         if all(verify_checkpoint(p) and verify_manifest(p) for p in (m, s)):
             return m, s
         logger.warning("checkpoint pair %d in %s fails checksum or "
                        "manifest verification: falling back to the "
                        "previous snapshot", n, directory)
     return None, None
+
+
+def _remove(path: str) -> bool:
+    """Delete a file or directory, local or fsspec; False if absent."""
+    if is_remote(path):
+        fs, p = _fs_for(path)
+        if not fs.exists(p):
+            return False
+        fs.rm(p, recursive=True)
+        return True
+    if os.path.isdir(path):
+        shutil.rmtree(path)
+    elif os.path.exists(path):
+        os.remove(path)
+    else:
+        return False
+    return True
 
 
 def gc_checkpoints(directory: str, keep_last: int,
@@ -244,22 +415,17 @@ def gc_checkpoints(directory: str, keep_last: int,
     keep = set(sorted(every, reverse=True)[:keep_last])
     m_valid, _ = latest_valid_checkpoint_pair(directory)
     if m_valid is not None:
-        keep.add(int(m_valid.rsplit(".", 1)[-1]))
+        keep.add(int(m_valid.rstrip("/").rsplit(".", 1)[-1]))
     deleted = []
     for n in sorted(every - keep):
         for prefix in prefixes:
             if n not in _indices(names, prefix):
                 continue
-            base = os.path.join(directory, f"{prefix}{n}")
+            base = join(directory, f"{prefix}{n}")
             for path in (base, checksum_path(base), manifest_path(base)):
                 try:
-                    if os.path.isdir(path):
-                        shutil.rmtree(path)
-                    elif os.path.exists(path):
-                        os.remove(path)
-                    else:
-                        continue
-                    deleted.append(path)
+                    if _remove(path):
+                        deleted.append(path)
                 except OSError as e:
                     logger.warning("checkpoint GC: could not delete %s: %s",
                                    path, e)
@@ -279,5 +445,5 @@ def orphaned_snapshots(directory: str, newer_than: int) -> List[str]:
             tail = f[len(prefix):]
             if f.startswith(prefix) and tail.isdigit() and \
                     int(tail) > newer_than:
-                out.append(os.path.join(directory, f))
+                out.append(join(directory, f))
     return out

@@ -141,9 +141,10 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    batch 128 through ``Optimizer(steps_per_dispatch=4)``, graphed, fed by
    ``NativePrefetchDataSet`` over 1024 seeded uint8 images of 256 x 256 x
    3 (random crop 224, flip, ``IMAGENET_MEAN/STD``, 8 threads) wrapped
-   with ``--stage host`` and ``device``, for 6 epochs of 8 batches: the
+   with ``--stage host`` and ``device``, for 3 epochs of 8 batches (6
+   before phase 25 pushed the script past 1000 s): the
    feed's own images/s (no model, after a warm-up epoch; native alone and
-   behind each staging mode), the loop's images/s over epochs 2-6 (one sync, at the end: the
+   behind each staging mode), the loop's images/s over epochs 2-3 (one sync, at the end: the
    loop runs ahead across epochs) and its data_wait, h2d and h2d_staged
    seconds per mode, beside the same loop over 8 batches
    already on the card and ``cli.perf``'s graphed step on a resident
@@ -283,7 +284,8 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    chance), records/s of each epoch. (b)
    ``cli.rnn train -b 128 --maxEpoch 1`` at its defaults (``--vocabSize
    4000 --seqLength 20 --hiddenSize 40``) on a seeded Zipf ``input.txt``
-   of 200,000 words: finite falling losses and a finite ``perplexity is``
+   of 100,000 words (200,000 before phase 25 pushed the script past
+   1000 s): finite falling losses and a finite ``perplexity is``
    line. (c) ``birnn_classifier`` and ``lstm_classifier`` (5002 ids, embed
    100, 128 a direction, 20 classes) on (a)'s ids (T = 500) through the
    Optimizer at batch 128, f32: the BiRNN for 6 steps eager and 12 as
@@ -403,6 +405,44 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    embedding x0.02) served in f32 over HTTP: greedy ``/generate`` equal to
    its offline ``generate``, its prefills through ``flash_fwd``. The
    launches of (d) and (e) join the kernels line's.
+
+25. Recovery on the main path, after phase 24. (a) ResNet-50 ``_fba`` bf16
+   batch 128, 4 steps a dispatch (graphed), 8 seeded batches for 16 steps,
+   a checkpoint every 4, cuDNN deterministic: once without faults, then
+   through ``cli.common.run_optimize`` under ``--supervise`` with
+   ``RECOVERY_PLAN`` (``stall@data``, ``corrupt@ckpt_save`` on state.8 so
+   that resume falls back a pair, ``dispatch@step``, ``io@ckpt_save``,
+   ``preempt_soft@step``): four attempts resume at iterations 0, 4, 4 and
+   8; each attempt's losses and the final parameters equal the fault-free
+   run's bit for bit, the supervisor's events name every fault, each
+   attempt launches the fused BN pair 53 times a step it ran, and the last
+   attempt's peak memory is within 1.1x of the first's. (b)
+   ``supervise_command`` around ``cli.resnet train --dataset cifar10
+   --fusedBN apply --stepsPerDispatch 4 --checkpoint DIR --model DIR
+   --supervise --faultPlan ...`` (children run cuDNN deterministic): a
+   kill at a step, then one inside a checkpoint write, each child dying
+   with exit code 75; the final ``model.<n>`` equals an uninterrupted
+   child's bit for bit, ``BIGDL_FAULT_LOG`` lists both kills, ``test
+   --model DIR`` prints the uninterrupted run's top-1 line; then
+   ``tools.chaos_run --kills 2 --kill-in-ckpt`` on the card says equal.
+   (c) (a)'s check for ``resnet_cifar(20)`` f32 ``--fusedBN apply`` with
+   ``preempt_soft@step:3``, its snapshots on a ``file://`` path and then
+   as DCP directories; ``serve resnet20_cifar --classes 10 --model <the
+   DCP directory>``'s ``/predict`` scores against the eager forward of
+   the trained weights. (d) The CIFAR CLI at 4 gloo ranks sharing the
+   card (``parallel.launch.spawn``), ``--strategy dp --elastic hold``,
+   then ``scale``, with ``kill_device@step:5:1``: rank 3 leaves with exit
+   code 0, the job ends at 3 ranks with a reshape event (4 -> 3,
+   ``restore_ms``, the bucket bytes), each step after it launches
+   ``bn_stats`` and ``bn_bwd_stats`` once a BN on each rank, and its
+   losses are within ``DP_CIFAR_TOL`` of one process on the same padded
+   (129) or trimmed (126) global batches; with ``--minDevices 4`` every
+   rank exits with the ``elastic:`` message. (e) ``cli.perf -m
+   resnet50_fba --strategy dp`` at 4 gloo ranks, global batch 32, without
+   a fault and then ``--elastic hold`` with ``kill_device@step:3:1``: the
+   line carries ``reshape`` (4 -> 3) and ``supervisor``, finite losses,
+   53 of each synced BN kernel a step on each rank; images/s before and
+   after.
 
 Any failed phase exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -530,7 +570,7 @@ POLY_ITERS = 64  # the Optimizer phases' Poly(0.5, 64) schedule
 PIPE_STAGES = ("off", "host", "device")
 PIPE_WORKERS = (0, 4)
 PIPE_IMAGES, PIPE_SIDE, PIPE_CROP, PIPE_THREADS = 1024, 256, 224, 8
-PIPE_EPOCHS = 6
+PIPE_EPOCHS = 3
 PIPE_JPEGS, PIPE_RECORD_ITERS = 512, 8
 # phase 17: LeNet-5 on MNIST (seeded class-banded idx files at MNIST's
 # size) and VGG-for-CIFAR (seeded class-banded records, 2000 a file: 10000
@@ -604,7 +644,7 @@ TEXT_BATCH, TEXT_EPOCHS = 128, 2
 # the last Top-1 of (a), 4x chance: 24 steps of the reference's SGD train
 # the text CNN only so far (without the GloVe file it stays at chance)
 TEXT_TOP1 = 0.2
-RNN_LM_WORDS = 200000  # (b) cli.rnn's input.txt
+RNN_LM_WORDS = 100000  # (b) cli.rnn's input.txt
 # (c) the config-5 models at (a)'s widths: T = 500, batch TEXT_BATCH
 RNN_EMBED, RNN_HIDDEN = 100, 128
 RNN_EAGER_STEPS, RNN_GRAPH_STEPS, RNN_K = 6, 12, 2
@@ -5888,6 +5928,853 @@ def tuning_runs(torch, card):
     return rows, counts, launches
 
 
+# phase 25: recovery on the main path. (a) the supervised ResNet-50 _fba
+# run: 8 seeded batches, 16 steps, 4 a dispatch, a checkpoint every 4, and
+# the plan below (attempts resume at iterations 0, 4, 4 and 8 and run 8,
+# 4, 4 and 8 steps); (b) the CIFAR CLI killed twice by os._exit; (c)
+# file:// and DCP snapshots; (d) the CIFAR CLI at 4 gloo ranks losing
+# rank 3 before step RECOVERY_KILL_STEP; (e) cli.perf -m resnet50_fba the
+# same way
+RECOVERY_BATCHES, RECOVERY_STEPS, RECOVERY_K = 8, 16, 4
+RECOVERY_PLAN = ("stall@data:3:0.01;corrupt@ckpt_save:4;dispatch@step:3;"
+                 "io@ckpt_save:5;preempt_soft@step:6")
+RECOVERY_RESUMES = [0, 4, 4, 8]       # each attempt's resumed iteration
+RECOVERY_ATTEMPT_STEPS = [8, 4, 4, 8]  # and the steps it ran
+RECOVERY_PEAK_RATIO = 1.1
+SNAPSHOT_PLAN = "preempt_soft@step:3"  # (c): resume at 8
+# (b): the first child's plan, the second's (its state.20 write), none
+KILL_PLANS = ["preempt@step:6;preempt@ckpt_save:4", "preempt@ckpt_save:2",
+              ""]
+KILL_EPOCHS = 2
+# (d) and (e)
+ELASTIC_RANKS = 4
+# the CIFAR CLI at 77 records a training file: 3 iterations an epoch, a
+# checkpoint at 3 and 6, rank 3 lost before step 5, steps 4-6 at 3 ranks
+ELASTIC_RECORDS, ELASTIC_EPOCH_ITERS, RECOVERY_KILL_STEP = 77, 3, 5
+ELASTIC_LR = "0.005"  # random labels: a larger rate makes the run chaotic
+ELASTIC_BATCH = {"hold": 129, "scale": 126}  # 128 at 3 ranks
+ELASTIC_WORKER = "chip_smoke:elastic_worker"
+PERF_ELASTIC_WORKER = "chip_smoke:perf_elastic_worker"
+PERF_ELASTIC_MODEL = "resnet50_fba"
+PERF_ELASTIC_BATCH, PERF_ELASTIC_ITERS = 32, 3
+CIFAR_BNS = 19  # resnet_cifar(20)'s BN layers
+# ["--platform", "cpu"] to rehearse (b), (d) and (e) on the CPU
+RECOVERY_PLATFORM = []
+
+
+def recovery_opt(torch, make_model, data, ckpt, recs, dtype=None,
+                 sharded=False):
+    """The Optimizer of phase 25 (a) and (c): ``optimizer_run``'s recipe
+    (SGD momentum, Poly(0.5, POLY_ITERS)) over ``data`` shuffled each
+    epoch, ``RECOVERY_K`` steps a dispatch up to ``RECOVERY_STEPS``, a
+    checkpoint every ``RECOVERY_K`` iterations into ``ckpt``; its
+    LossRecorder is appended to ``recs``."""
+    import numpy as np
+
+    from bigdl_tpu_torch.dataset import BatchDataSet
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Poly, Trigger
+
+    x = np.concatenate([b[0] for b in data])
+    y = np.concatenate([b[1] for b in data])
+    rec = LossRecorder(torch, ClassNLLCriterion(), RECOVERY_STEPS, DEV)
+    recs.append(rec)
+    opt = Optimizer(make_model(), BatchDataSet(x, y, len(data[0][0]),
+                                               shuffle=True), rec,
+                    optim_method=SGD(0.01, momentum=0.9,
+                                     schedule=Poly(0.5, POLY_ITERS)),
+                    end_when=Trigger.max_iteration(RECOVERY_STEPS),
+                    log_every=1, compute_dtype=dtype,
+                    steps_per_dispatch=RECOVERY_K, device=DEV)
+    opt.set_checkpoint(Trigger.several_iteration(RECOVERY_K), ckpt,
+                       sharded=sharded)
+    return opt
+
+
+def supervised_recovery(torch, tag, make_model, data, plan, ckpt,
+                        dtype=None, sharded=False):
+    """A fault-free run, then ``cli.common.run_optimize`` under
+    ``--supervise`` with ``plan`` installed. Returns (the fault-free
+    losses, its final parameters, the supervised result, the attempts:
+    [{"resume", "losses", "launches", "peak_gib"}], the supervisor's
+    annotation, the injected events)."""
+    import tempfile
+    from types import SimpleNamespace
+
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.cli import common
+    from bigdl_tpu_torch.resilience import faults
+
+    with tempfile.TemporaryDirectory() as ref_ck:
+        recs = []
+        full_opt = recovery_opt(torch, make_model, data, ref_ck, recs, dtype,
+                                sharded)
+        trained = full_opt.optimize()
+        full = recs[0].losses()
+        ref_params = {k: v.detach().clone()
+                      for k, v in trained.params.items()}
+        del full_opt, trained
+    _free(torch)
+    recs, attempts = [], []
+
+    def close_attempt():
+        torch.cuda.synchronize()
+        attempts.append({"launches": ops.kernel_launches(),
+                         "peak_gib": torch.cuda.max_memory_allocated()
+                         / 2 ** 30})
+
+    def make():
+        if recs:
+            close_attempt()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_kernel_launches()
+        return recovery_opt(torch, make_model, data, ckpt, recs, dtype,
+                            sharded)
+
+    print(f"[phase 25 {tag}] fault plan: {plan}", flush=True)
+    sups = []
+    from bigdl_tpu_torch.resilience import supervisor as sup_mod
+
+    class Recorded(sup_mod.Supervisor):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            sups.append(self)
+
+    saved = sup_mod.Supervisor
+    sup_mod.Supervisor = Recorded
+    faults.install_plan(faults.parse_plan(plan))
+    t0 = time.perf_counter()
+    try:
+        with LogLines() as lines:
+            result = common.run_optimize(make, SimpleNamespace(
+                supervise=5, checkpoint=ckpt, seed=0))
+            close_attempt()
+        events = faults.injected_events()
+        ann = sups[-1].annotation()  # with the injector's events
+    finally:
+        faults.clear_plan()
+        sup_mod.Supervisor = saved
+    wall = time.perf_counter() - t0
+    resumes = [0] + [int(m.group(1)) for m in (
+        re.search(r"Resuming at epoch \d+, iteration (\d+)", ln)
+        for ln in lines) if m]
+    for a, rec, r in zip(attempts, recs, resumes):
+        a.update(resume=r, losses=rec.losses())
+    retries = [e for e in sups[-1].events if e.get("event") == "retry"]
+    return full, ref_params, result, attempts, ann, events, wall, retries
+
+
+def check_recovery(tag, full, ref_params, result, attempts, want_resumes):
+    """Each attempt's losses are the fault-free run's at its steps, and
+    the final parameters are the fault-free run's, bit for bit."""
+    import torch
+
+    if [a["resume"] for a in attempts] != want_resumes:
+        fail(f"[phase 25 {tag}] attempts resumed at "
+             f"{[a['resume'] for a in attempts]}, expected {want_resumes}")
+    for i, a in enumerate(attempts):
+        r, got = a["resume"], a["losses"]
+        if got != full[r:r + len(got)]:
+            fail(f"[phase 25 {tag}] attempt {i + 1} (resumed at {r}) "
+                 f"losses {got} differ from the fault-free run's "
+                 f"{full[r:r + len(got)]}")
+    if attempts[-1]["resume"] + len(attempts[-1]["losses"]) != len(full):
+        fail(f"[phase 25 {tag}] the last attempt ended at "
+             f"{attempts[-1]['resume'] + len(attempts[-1]['losses'])} steps"
+             f", the fault-free run at {len(full)}")
+    got = result.params
+    bad = [k for k in ref_params
+           if not torch.equal(got[k].cpu(), ref_params[k].cpu())]
+    if sorted(got) != sorted(ref_params) or bad:
+        fail(f"[phase 25 {tag}] final parameters differ from the "
+             f"fault-free run's: {bad[:5]}")
+
+
+def recovery_main_path(torch, card):
+    """Phase 25 (a); returns (rows, the launches of every attempt)."""
+    import tempfile
+
+    from bigdl_tpu_torch.cli import perf
+
+    gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    make = lambda: perf.build_model("resnet50_fba",  # noqa: E731
+                                    generator=gen())[0]
+    data = image_batches(RECOVERY_BATCHES, RESNET_BATCH, (224, 224, 3),
+                         1000, 25)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as ck:
+            (full, ref_params, result, attempts, ann, events, wall,
+             retries) = supervised_recovery(torch, "a", make, data,
+                                            RECOVERY_PLAN, ck,
+                                            torch.bfloat16)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    check_recovery("a", full, ref_params, result, attempts,
+                   RECOVERY_RESUMES)
+    kinds = sorted({e["fault"] for e in events})
+    named = sorted({e["fault"] for e in ann["events"] if "fault" in e})
+    print(f"[phase 25 a] resnet50_fba bf16 batch {RESNET_BATCH}, "
+          f"{RECOVERY_K} steps a dispatch, supervised on {card}: "
+          f"{len(attempts)} attempts resumed at "
+          f"{[a['resume'] for a in attempts]}, steps "
+          f"{[len(a['losses']) for a in attempts]}, {ann['retries']} "
+          f"retries (backoff s {[e['backoff_s'] for e in retries]}), "
+          f"{wall:.1f}s for the supervised run; peak memory GiB a attempt "
+          f"{[round(a['peak_gib'], 2) for a in attempts]}; faults fired "
+          f"{[(e['fault'], e['site'], e['visit']) for e in events]}; "
+          f"losses and final parameters equal to the fault-free run's",
+          flush=True)
+    want_kinds = ["corrupt", "dispatch", "io", "preempt_soft", "stall"]
+    if kinds != want_kinds or named != want_kinds:
+        fail(f"[phase 25 a] faults fired {kinds}, named by the supervisor "
+             f"{named}, expected {want_kinds}")
+    for i, (a, steps) in enumerate(zip(attempts, RECOVERY_ATTEMPT_STEPS)):
+        n = a["launches"]
+        want = dict({k: 0 for k in n}, bn_fwd_apply=53 * steps,
+                    bn_bwd_fused=53 * steps)
+        if len(a["losses"]) != steps or n != want:
+            fail(f"[phase 25 a] attempt {i + 1}: {len(a['losses'])} steps "
+                 f"and launches {n}, expected {steps} steps and {want}")
+    if attempts[-1]["peak_gib"] > RECOVERY_PEAK_RATIO * \
+            attempts[0]["peak_gib"]:
+        fail(f"[phase 25 a] the last attempt's peak memory "
+             f"{attempts[-1]['peak_gib']:.2f} GiB exceeds "
+             f"{RECOVERY_PEAK_RATIO}x the first's "
+             f"{attempts[0]['peak_gib']:.2f} GiB")
+    rows = {"(a) retries": ann["retries"],
+            "(a) supervised run s": round(wall, 1),
+            "(a) peak GiB by attempt": [round(a["peak_gib"], 2)
+                                        for a in attempts]}
+    return rows, [a["launches"] for a in attempts]
+
+
+# the CLI children of (b) run cuDNN deterministic, as this process's
+# bit-for-bit phases do
+CLI_CHILD = ("import sys, torch; torch.backends.cudnn.deterministic = True; "
+             "torch.backends.cuda.matmul.allow_tf32 = False; "
+             "torch.backends.cudnn.allow_tf32 = False; "
+             "from bigdl_tpu_torch.cli import resnet; "
+             "resnet.main(sys.argv[1:])")
+
+
+def _kill_children(tmp, state):
+    """Phase 25 (b)'s CLI child processes (run on a thread beside (a), (c)
+    and (d): they only start processes and wait): the uninterrupted
+    child, then ``supervise_command`` around the killed ones. Fills
+    ``state``; checks nothing."""
+    from bigdl_tpu_torch.resilience.supervisor import (RetryPolicy,
+                                                       supervise_command)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    log = os.path.join(tmp, "faults.jsonl")
+
+    def argv(ck, plan):
+        out = [sys.executable, "-c", CLI_CHILD, "train", "--dataset",
+               "cifar10", "-f", tmp, "--fusedBN", "apply", "-b",
+               str(CIFAR_BATCH), "--maxEpoch", str(KILL_EPOCHS),
+               "--logEvery", "1", "--stepsPerDispatch", str(OPT_K),
+               "--checkpoint", ck, "--model", ck, "--supervise"]
+        out += RECOVERY_PLATFORM
+        return out + (["--faultPlan", plan] if plan else [])
+
+    t0 = time.perf_counter()
+    state["ref"] = subprocess.run(argv(os.path.join(tmp, "ck_ref"), ""),
+                                  capture_output=True, text=True, env=env,
+                                  cwd=here, timeout=600)
+    state["t_ref"] = time.perf_counter() - t0
+
+    def make_argv(attempt):
+        plan = KILL_PLANS[min(attempt, len(KILL_PLANS) - 1)]
+        print(f"[phase 25 b] child {attempt + 1}: --faultPlan {plan!r}",
+              flush=True)
+        return argv(os.path.join(tmp, "ck"), plan)
+
+    t0 = time.perf_counter()
+    state["rc"], state["events"] = supervise_command(
+        make_argv, policy=RetryPolicy(budget=4, base_s=0.05, max_s=0.5),
+        env=dict(env, BIGDL_FAULT_LOG=log), cwd=here)
+    state["t_sup"] = time.perf_counter() - t0
+
+
+def _chaos_child(tmp, state):
+    """``tools.chaos_run --kills 2 --kill-in-ckpt`` on the card (a second
+    thread beside :func:`_kill_children`). Fills ``state``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    state["chaos"] = subprocess.run(
+        [sys.executable, "-m", "bigdl_tpu_torch.tools.chaos_run",
+         "--kills", "2", "--kill-in-ckpt", "--workdir",
+         os.path.join(tmp, "chaos")] + RECOVERY_PLATFORM,
+        capture_output=True, text=True, env=dict(os.environ, PYTHONPATH=here),
+        cwd=here, timeout=600)
+    state["t_chaos"] = time.perf_counter() - t0
+
+
+def process_kill_start():
+    """Phase 25 (b), started: seeded CIFAR files in a fresh directory,
+    ``_kill_children`` and ``_chaos_child`` on two threads. Returns the
+    handle that :func:`process_kill_finish` takes."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="phase25b_")
+    write_cifar(tmp, CIFAR_RECORDS)
+    state = {}
+
+    def guarded(fn):
+        def run():
+            try:
+                fn(tmp, state)
+            except BaseException as e:  # reported by process_kill_finish
+                state["error"] = repr(e)
+        return run
+
+    threads = [threading.Thread(target=guarded(fn), daemon=True)
+               for fn in (_kill_children, _chaos_child)]
+    for t in threads:
+        t.start()
+    return threads, tmp, state
+
+
+def process_kill_finish(torch, card, handle):
+    """Phase 25 (b): ``supervise_command`` around the CIFAR training CLI
+    under ``--supervise --faultPlan`` (KILL_PLANS), each child resuming
+    from ``--checkpoint`` (``--model`` the same directory): two children
+    die with exit code 75, the final ``model.<n>`` equals an uninterrupted
+    child's bit for bit, the fault log lists both kills, and ``cli.resnet
+    test`` of the directory prints the uninterrupted run's last top-1
+    line; ``tools.chaos_run --kills 2 --kill-in-ckpt`` on the card says
+    equal. Waits for :func:`process_kill_start`'s thread. Returns rows."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+
+    from bigdl_tpu_torch.cli import resnet as resnet_cli
+    from bigdl_tpu_torch.resilience import PREEMPT_RC
+    from bigdl_tpu_torch.utils.file import load_leaves
+
+    threads, tmp, st = handle
+    for t in threads:
+        t.join()
+    try:
+        if "error" in st:
+            fail(f"[phase 25 b] the children's thread raised {st['error']}")
+        ref = st["ref"]
+        if ref.returncode != 0:
+            fail(f"[phase 25 b] the uninterrupted child exited "
+                 f"{ref.returncode}: {ref.stderr[-2000:]}")
+        rc, events = st["rc"], st["events"]
+        codes = [e.get("rc") for e in events if "rc" in e]
+        with open(os.path.join(tmp, "faults.jsonl")) as f:
+            kills = [json.loads(ln) for ln in f if ln.strip()]
+        last = f"model.{KILL_EPOCHS * 10}"
+        a, _ = load_leaves(os.path.join(tmp, "ck_ref", last))
+        b, _ = load_leaves(os.path.join(tmp, "ck", last))
+        equal = len(a) == len(b) and all(np.array_equal(u, v)
+                                         for u, v in zip(a, b))
+        top1_ref = [ln for ln in (ref.stdout + ref.stderr).splitlines()
+                    if "top1 accuracy is " in ln]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            resnet_cli.main(["test", "-f", tmp, "--model",
+                             os.path.join(tmp, "ck"), "-b",
+                             str(CIFAR_BATCH)] + RECOVERY_PLATFORM)
+        tested = [ln for ln in out.getvalue().splitlines()
+                  if ln.startswith("top1 accuracy is ")]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    restarts = sum(1 for e in events if e.get("event") == "restart")
+    print(f"[phase 25 b] the CIFAR CLI on {card}: uninterrupted child "
+          f"{st['t_ref']:.1f}s; supervised children {st['t_sup']:.1f}s, rc "
+          f"{rc}, {restarts} restarts, exits {codes}; fault log "
+          f"{[(k['fault'], k['site'], k['visit']) for k in kills]}; "
+          f"{last} equal to the uninterrupted run's: {equal}; test "
+          f"{tested[-1:]} vs the uninterrupted run's "
+          f"{top1_ref[-1].split(' - ')[-1] if top1_ref else None}",
+          flush=True)
+    if rc != 0 or restarts != 2 or [k["fault"] for k in kills] != [
+            "preempt", "preempt"] or sorted(k["site"] for k in kills) != [
+            "ckpt_save", "step"]:
+        fail(f"[phase 25 b] rc {rc}, {restarts} restarts, fault log {kills}"
+             f" (two preempts, at step and ckpt_save, expected; the child "
+             f"exit code of a preemption is {PREEMPT_RC})")
+    if not equal:
+        fail(f"[phase 25 b] the supervised {last} differs from the "
+             f"uninterrupted run's")
+    if not tested or not top1_ref or not top1_ref[-1].endswith(tested[-1]):
+        fail(f"[phase 25 b] test prints {tested[-1:]}, the uninterrupted "
+             f"run's last validation {top1_ref[-1:]}")
+    ch = st["chaos"]
+    line = [ln for ln in ch.stdout.splitlines() if ln.startswith("{")]
+    res = json.loads(line[-1]) if line else {}
+    print(f"[phase 25 b] tools.chaos_run --kills 2 --kill-in-ckpt on "
+          f"{card}: rc {ch.returncode}, {st['t_chaos']:.1f}s, equal "
+          f"{res.get('equal')}, kills {res.get('kills')}, restarts "
+          f"{res.get('restarts')}", flush=True)
+    if ch.returncode != 0 or res.get("equal") is not True:
+        fail(f"[phase 25 b] chaos_run: {ch.stdout[-1500:]} "
+             f"{ch.stderr[-1500:]}")
+    return {"(b) uninterrupted child s": round(st["t_ref"], 1),
+            "(b) two kills, supervised children s": round(st["t_sup"], 1),
+            "(b) chaos_run s": round(st["t_chaos"], 1)}
+
+
+def snapshot_runs(torch, card):
+    """Phase 25 (c): (a)'s check for ``resnet_cifar(20)`` f32 ``--fusedBN
+    apply`` under SNAPSHOT_PLAN, its snapshots once on a ``file://`` path
+    and once as DCP directories; then ``cli.serve.build_app`` of
+    ``resnet20_cifar --classes 10`` with ``--model`` the DCP directory,
+    whose ``/predict`` scores equal the eager forward of the trained
+    weights. Returns (rows, launches)."""
+    import tempfile
+
+    import numpy as np
+
+    from bigdl_tpu_torch import models
+    from bigdl_tpu_torch.cli import serve as serve_cli
+    from bigdl_tpu_torch.serving import make_server
+    from bigdl_tpu_torch.utils.orbax_ckpt import is_sharded
+
+    gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    make = lambda: models.resnet_cifar(20, 10, fused_bn="apply",  # noqa
+                                       generator=gen())
+    data = image_batches(RECOVERY_BATCHES, CIFAR_BATCH, (32, 32, 3), 10, 26)
+    rows, launches = {}, []
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory(prefix="phase25c_") as tmp:
+            for tag, ck, sharded in (
+                    ("file://", "file://" + os.path.join(tmp, "ck"), False),
+                    ("DCP", os.path.join(tmp, "dcp"), True)):
+                (full, ref_params, result, attempts, ann, events, wall,
+                 _) = supervised_recovery(torch, f"c {tag}", make, data,
+                                          SNAPSHOT_PLAN, ck, sharded=sharded)
+                check_recovery(f"c {tag}", full, ref_params, result,
+                               attempts, [0, 8])
+                launches += [a["launches"] for a in attempts]
+                print(f"[phase 25 c] resnet_cifar(20) f32 --fusedBN apply, "
+                      f"{tag} snapshots ({ck}) on {card}: resumed at "
+                      f"{[a['resume'] for a in attempts]}, losses and final "
+                      f"parameters equal to the fault-free run's; "
+                      f"{wall:.1f}s", flush=True)
+                rows[f"(c) {tag} supervised run s"] = round(wall, 1)
+            dcp = os.path.join(tmp, "dcp")
+            newest = os.path.join(dcp, f"model.{RECOVERY_STEPS}")
+            if not is_sharded(newest):
+                fail(f"[phase 25 c] {newest} is not a DCP snapshot")
+            trained = result.module.eval()
+            app, engine, in_shape, _ = serve_cli.build_app(
+                serve_cli.build_parser().parse_args(
+                    ["resnet20_cifar", "--classes", "10", "--fusedBN",
+                     "apply", "--model", dcp, "--port", "0"]))
+            srv = make_server(app, "127.0.0.1", 0)
+            thr = threading.Thread(target=srv.serve_forever, daemon=True)
+            thr.start()
+            try:
+                rs = np.random.RandomState(25)
+                x = np.round(rs.randn(3, *in_shape), 2).astype(np.float32)
+                st, out = _post(srv.server_address[1], "/predict",
+                                {"inputs": x.tolist(),
+                                 "return_scores": True})
+                with torch.no_grad():
+                    ref = trained(torch.from_numpy(x).to(DEV)).float() \
+                        .cpu().numpy()
+            finally:
+                stop_server(app, srv, thr)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    if st != 200:
+        fail(f"[phase 25 c] /predict from the DCP snapshot answered {st}: "
+             f"{str(out)[:200]}")
+    got = np.asarray(out["scores"], np.float32)
+    err = float(np.abs(got - ref).max() / np.abs(ref).max())
+    print(f"[phase 25 c] serve resnet20_cifar --model <DCP directory>: "
+          f"/predict of 3 images 200, scores vs the eager forward of the "
+          f"trained weights max|d|/max|ref| {err:.2e} (tolerance "
+          f"{LOGIT_TOL['float32']})", flush=True)
+    if err > LOGIT_TOL["float32"]:
+        fail(f"[phase 25 c] served scores differ from the trained "
+             f"weights' eager forward by {err}")
+    del app, engine, trained, result
+    _free(torch)
+    return rows, launches
+
+
+def elastic_worker(args):
+    """Phase 25 (d) on one rank of a 4-rank gloo job on the one card (the
+    ``parallel.launch.spawn`` target): ``cli.resnet train ... --strategy
+    dp --elastic POLICY`` with each of ``args["argvs"]`` in turn, each
+    attempt's losses into the summary ``args["dir"]/sum_r<rank>``;
+    returns a list with, for each run, its give-up message, or the
+    ranks each attempt built at, the final rank count, the reshapes and
+    the launches of the last attempt. A rank lost to a re-formation
+    leaves the job (exit code 0)."""
+    import torch
+    import torch.distributed as dist
+
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.cli import common
+    from bigdl_tpu_torch.cli import resnet as resnet_cli
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.resilience import elastic
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()
+    rank = dist.get_rank()
+    sups, builds = [], []
+
+    class Recorded(elastic.ElasticSupervisor):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            sups.append(self)
+
+    elastic.ElasticSupervisor = Recorded
+    build = common.build_optimizer
+
+    def recorded_build(*a, **kw):
+        opt = build(*a, **kw)
+        opt.set_summary(os.path.join(args["dir"], f"sum_r{rank}"))
+        builds.append(opt.strategy.world)
+        ops.reset_kernel_launches()  # the attempt's own launches
+        return opt
+
+    common.build_optimizer = recorded_build
+    from bigdl_tpu_torch.resilience import faults
+    out = []
+    for argv in args["argvs"]:
+        sups.clear()
+        builds.clear()
+        try:
+            resnet_cli.main(argv)
+        except SystemExit as e:
+            if e.code in (0, None):
+                raise  # a rank lost to the re-formation leaves the job
+            out.append({"rank": rank, "exit": str(e.code)})
+            faults.clear_plan()  # the next run starts with every rank
+            continue
+        torch.cuda.synchronize()
+        out.append({"rank": rank, "builds": list(builds),
+                    "world": common._world(), "reshapes": sups[-1].reshapes,
+                    "launches": ops.kernel_launches()})
+    return out
+
+
+class FitRows:
+    """A training dataset whose batches are fitted (padded or trimmed) as
+    an ``ElasticDataParallel`` of ``ranks`` ranks fits its global batch:
+    one process's view of the re-formed job's batches."""
+
+    def __init__(self, inner, policy, ranks):
+        from bigdl_tpu_torch.parallel.mesh import Mesh
+        from bigdl_tpu_torch.resilience.elastic import ElasticDataParallel
+
+        self.inner = inner
+        self._dp = ElasticDataParallel(Mesh("data", ranks, 0),
+                                       batch_policy=policy)
+
+    def __iter__(self):
+        import numpy as np
+
+        for x, y in self.inner:
+            yield (self._dp._fit_rows(np.asarray(x)),
+                   self._dp._fit_rows(np.asarray(y)))
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+def _summary_losses(d):
+    """{iteration: loss} of a summary's train.jsonl, the last row of each
+    iteration winning."""
+    out = {}
+    with open(os.path.join(d, "train.jsonl")) as f:
+        for line in f:
+            r = json.loads(line)
+            out[r["iteration"]] = r["loss"]
+    return out
+
+
+def elastic_cli_runs(torch, card):
+    """Phase 25 (d): the CIFAR CLI at 4 gloo ranks sharing the card,
+    ``--elastic hold`` and then ``scale``, losing rank 3 before step
+    RECOVERY_KILL_STEP; then ``--minDevices 4``, which gives up. Returns
+    (rows, launches of the ranks' last attempts)."""
+    import shutil
+    import tempfile
+
+    from bigdl_tpu_torch.cli import common
+    from bigdl_tpu_torch.cli import resnet as resnet_cli
+    from bigdl_tpu_torch.parallel.launch import spawn
+
+    rows, launches = {}, []
+    with tempfile.TemporaryDirectory(prefix="phase25d_") as tmp:
+        write_cifar(tmp, CIFAR_BATCH)  # the test split: one batch
+        for i in range(1, 6):  # the training files: ELASTIC_RECORDS each
+            os.truncate(os.path.join(tmp, f"data_batch_{i}.bin"),
+                        ELASTIC_RECORDS * 3073)
+        # the hold job first runs --minDevices 4, which gives up on every
+        # rank (all stay), then the elastic run
+        min_argv = ["train", "--dataset", "cifar10", "-f", tmp,
+                    "--fusedBN", "apply", "-b", str(CIFAR_BATCH),
+                    "--maxEpoch", "2", "--strategy", "dp", "--elastic",
+                    "hold", "--minDevices", str(ELASTIC_RANKS),
+                    "--checkpoint", os.path.join(tmp, "ck_min"),
+                    "--faultPlan", f"kill_device@step:{RECOVERY_KILL_STEP}:1"
+                    ] + RECOVERY_PLATFORM
+        for policy in ("hold", "scale"):
+            ck = os.path.join(tmp, f"ck_{policy}")
+            work = os.path.join(tmp, policy)
+            os.makedirs(work)
+            argv = ["train", "--dataset", "cifar10", "-f", tmp, "--fusedBN",
+                    "apply", "-b", str(CIFAR_BATCH), "--maxEpoch", "2",
+                    "--learningRate", ELASTIC_LR,
+                    "--logEvery", "1", "--strategy", "dp", "--elastic",
+                    policy, "--checkpoint", ck, "--faultPlan",
+                    f"kill_device@step:{RECOVERY_KILL_STEP}:1"
+                    ] + RECOVERY_PLATFORM
+            argvs = ([min_argv] if policy == "hold" else []) + [argv]
+            t0 = time.perf_counter()
+            try:
+                job = spawn(ELASTIC_WORKER, ELASTIC_RANKS,
+                            {"argvs": argvs, "dir": work},
+                            timeout_s=DP_TIMEOUT_S, backend="gloo")
+            except (RuntimeError, TimeoutError) as e:
+                fail(f"[phase 25 d {policy}] the 4-rank job failed: {e}")
+            wall = time.perf_counter() - t0
+            if policy == "hold":
+                # (the lost rank's list is gone with it)
+                gave_up = [r[0].get("exit") for r in job if r is not None]
+                print(f"[phase 25 d] --minDevices {ELASTIC_RANKS}: every "
+                      f"rank exits with {gave_up[0]!r}", flush=True)
+                if len(gave_up) != ELASTIC_RANKS - 1 or not all(
+                        e and e.startswith(
+                        f"elastic: {ELASTIC_RANKS - 1} healthy device(s) < "
+                        f"--minDevices {ELASTIC_RANKS}") for e in gave_up):
+                    fail(f"[phase 25 d] --minDevices {ELASTIC_RANKS} gave "
+                         f"{gave_up}")
+            res = [r and r[-1] for r in job]
+            # one process on the same fitted global batches, resumed from
+            # the pair the re-formed job resumed from
+            ref_in = os.path.join(tmp, f"ref_in_{policy}")
+            os.makedirs(ref_in)
+            resumed = ((RECOVERY_KILL_STEP - 1) // ELASTIC_EPOCH_ITERS
+                       * ELASTIC_EPOCH_ITERS)
+            for f in os.listdir(ck):
+                if f.split(".")[1] == str(resumed):
+                    shutil.copy(os.path.join(ck, f), ref_in)
+            split, build = resnet_cli._one_split, common.build_optimizer
+            resnet_cli._one_split = lambda f, b, train, aug: (
+                FitRows(split(f, b, train, aug), policy, ELASTIC_RANKS - 1)
+                if train else split(f, b, train, aug))
+
+            def recorded_build(*a, **kw):
+                opt = build(*a, **kw)
+                opt.set_summary(os.path.join(tmp, f"ref_sum_{policy}"))
+                return opt
+
+            common.build_optimizer = recorded_build
+            try:
+                resnet_cli.main(["train", "--dataset", "cifar10", "-f", tmp,
+                                 "--fusedBN", "apply", "-b",
+                                 str(CIFAR_BATCH), "--maxEpoch", "2",
+                                 "--learningRate", ELASTIC_LR,
+                                 "--logEvery", "1", "--model", ref_in,
+                                 "--checkpoint",
+                                 os.path.join(tmp, f"ref_ck_{policy}")]
+                                + RECOVERY_PLATFORM)
+            finally:
+                resnet_cli._one_split, common.build_optimizer = split, build
+            ref = _summary_losses(os.path.join(tmp, f"ref_sum_{policy}"))
+            got = _summary_losses(os.path.join(work, "sum_r0"))
+            after = [i for i in sorted(ref) if i > resumed]
+            d = max(abs(got[i] - ref[i]) for i in after)
+            lost = [r for r in range(ELASTIC_RANKS) if res[r] is None]
+            ok = [r for r in res if r is not None]
+            ev = ok[0]["reshapes"][0] if ok and ok[0]["reshapes"] else {}
+            steps = len(after)
+            print(f"[phase 25 d {policy}] cli.resnet cifar10 --strategy dp "
+                  f"--elastic {policy} global batch {CIFAR_BATCH} "
+                  f"({ELASTIC_BATCH[policy]} at {ELASTIC_RANKS - 1} ranks), "
+                  f"{ELASTIC_RANKS} gloo ranks on {card}: {wall:.1f}s for "
+                  f"the job; rank(s) {lost} left with exit code 0; ranks "
+                  f"built at {ok[0]['builds'] if ok else None} and ended at "
+                  f"{[r['world'] for r in ok]}; reshape {ev}; losses after "
+                  f"the reshape (iterations {after[0]}-{after[-1]}) vs one "
+                  f"process on the same batches max|d| {d:.3g} (tolerance "
+                  f"{DP_CIFAR_TOL['loss']}); launches a rank "
+                  f"{[{k: v for k, v in r['launches'].items() if v} for r in ok]}",
+                  flush=True)
+            if lost != [ELASTIC_RANKS - 1] or len(ok) != ELASTIC_RANKS - 1 \
+                    or any(r["world"] != ELASTIC_RANKS - 1 for r in ok):
+                fail(f"[phase 25 d {policy}] lost {lost}, ended at "
+                     f"{[r['world'] for r in ok]}")
+            if (ev.get("from_devices"), ev.get("to_devices")) != (
+                    ELASTIC_RANKS, ELASTIC_RANKS - 1) or \
+                    ev.get("restore_ms") is None or \
+                    ev.get("bucket_bytes_before") is None or \
+                    ev.get("bucket_bytes_after") is None:
+                fail(f"[phase 25 d {policy}] reshape event {ev}")
+            for r in ok:
+                n = r["launches"]
+                want = dict({k: 0 for k in n}, bn_stats=CIFAR_BNS * steps,
+                            bn_bwd_stats=CIFAR_BNS * steps)
+                if n != want:
+                    fail(f"[phase 25 d {policy}] rank {r['rank']} launched "
+                         f"{n} after the reshape, expected {want}")
+                launches.append(n)
+            if d > DP_CIFAR_TOL["loss"]:
+                fail(f"[phase 25 d {policy}] losses after the reshape "
+                     f"{[got[i] for i in after]} vs one process "
+                     f"{[ref[i] for i in after]}")
+            rows[f"(d) {policy} job s"] = round(wall, 1)
+            rows[f"(d) {policy} restore ms"] = ev.get("restore_ms")
+    return rows, launches
+
+
+def perf_elastic_worker(args):
+    """Phase 25 (e) on one rank of a 4-rank gloo job: ``cli.perf`` with
+    each of ``args["argvs"]`` in turn; returns, for each, its line, its
+    losses and the launches of its last attempt (the counts set to 0 as
+    each attempt builds its step). A rank lost to a re-formation leaves
+    the job (exit code 0)."""
+    import torch
+
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.cli import perf
+    from bigdl_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()
+    step = perf.train_step
+
+    def counted(*a, **kw):
+        ops.reset_kernel_launches()
+        return step(*a, **kw)
+
+    perf.train_step = counted
+    runs = []
+    for argv in args["argvs"]:
+        out = perf.main(argv)  # a lost rank's SystemExit(0) leaves the job
+        torch.cuda.synchronize()
+        runs.append(dict(out, launches=ops.kernel_launches()))
+    return runs
+
+
+def elastic_perf_runs(torch, card):
+    """Phase 25 (e): ``cli.perf -m resnet50_fba --strategy dp`` at 4 gloo
+    ranks on the card, global batch PERF_ELASTIC_BATCH, in one job:
+    without a fault, then ``--elastic hold`` with ``kill_device@step:3:1``.
+    Returns (rows, launches)."""
+    import math
+
+    from bigdl_tpu_torch.parallel.launch import spawn
+
+    base = ["-m", PERF_ELASTIC_MODEL, "-b", str(PERF_ELASTIC_BATCH), "-i",
+            str(PERF_ELASTIC_ITERS), "--strategy", "dp", "--dataType",
+            "random"] + RECOVERY_PLATFORM
+    t0 = time.perf_counter()
+    try:
+        job = spawn(PERF_ELASTIC_WORKER, ELASTIC_RANKS,
+                    {"argvs": [base, base + ["--elastic", "hold",
+                                             "--faultPlan",
+                                             "kill_device@step:3:1"]]},
+                    timeout_s=DP_TIMEOUT_S, backend="gloo")
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"[phase 25 e] the 4-rank job failed: {e}")
+    wall = time.perf_counter() - t0
+    before = job[0][0]
+    res = [r and r[-1] for r in job]
+    line = res[0]
+    steps = line.get("warmup", 0) + line.get("iterations", 0)
+    ok = [r for r in res if r is not None]
+    print(f"[phase 25 e] cli.perf -m resnet50_fba --strategy dp global batch "
+          f"{PERF_ELASTIC_BATCH} on {card} ({wall:.1f}s for the job): 4 gloo"
+          f" ranks {before['records_per_second']} images/s; --elastic hold "
+          f"with kill_device@step:3:1: {line.get('n_devices')} ranks, "
+          f"{line.get('records_per_second')} images/s after the reshape, "
+          f"reshape {line.get('reshape')}, "
+          f"elastic {line.get('elastic')}, supervisor retries "
+          f"{(line.get('supervisor') or {}).get('retries')}, losses "
+          f"{[round(v, 4) for v in line.get('losses', [])]}", flush=True)
+    rs = line.get("reshape") or {}
+    if (rs.get("from_devices"), rs.get("to_devices")) != (
+            ELASTIC_RANKS, ELASTIC_RANKS - 1) or "supervisor" not in line \
+            or job[ELASTIC_RANKS - 1] is not None:
+        fail(f"[phase 25 e] line {line}")
+    if not all(math.isfinite(v) for r in ok for v in r["losses"]):
+        fail(f"[phase 25 e] losses {[r['losses'] for r in ok]}")
+    for r in ok:
+        n = r["launches"]
+        want = dict({k: 0 for k in n}, bn_stats=53 * steps,
+                    bn_bwd_stats=53 * steps)
+        if n != want:
+            fail(f"[phase 25 e] a rank launched {n}, expected {want}")
+    rows = {"(e) job s": round(wall, 1),
+            "(e) 4 ranks images/s": before["records_per_second"],
+            "(e) 3 ranks after the reshape images/s":
+                line["records_per_second"],
+            "(e) reshape restore ms": rs.get("restore_ms")}
+    return rows, [r["launches"] for r in ok]
+
+
+def recovery_runs(torch, card):
+    """Phase 25: recovery on the main path; (b)'s child processes run on a
+    thread beside (a), (c) and (d), whose checks their load on the card
+    and the host cannot change (bits, launches, per-process memory), and
+    end before (e), whose images/s it would. Returns (rows, launches)."""
+    t_phase = time.perf_counter()
+    rows, launches = {}, []
+    kills = process_kill_start()
+    for tag, run in (
+            ("(a)", lambda: recovery_main_path(torch, card)),
+            ("(c)", lambda: snapshot_runs(torch, card)),
+            ("(d)", lambda: elastic_cli_runs(torch, card)),
+            ("(b) after (a), (c), (d)",
+             lambda: (process_kill_finish(torch, card, kills), [])),
+            ("(e)", lambda: elastic_perf_runs(torch, card))):
+        t0 = time.perf_counter()
+        r, n = run()
+        rows.update(r)
+        launches += n
+        rows[f"{tag} s"] = round(time.perf_counter() - t0, 1)
+        _free(torch)
+    rows["phase 25 s"] = round(time.perf_counter() - t_phase, 1)
+    return rows, launches
+
+
+# main's phase functions, each timed ("[time] name: s" after it returns)
+TIMED_PHASES = ("check_flash", "check_flash_bwd", "check_bn", "train_run",
+                "grads_check", "cli_runs", "serve_run", "paged_serve_run",
+                "spec_quant_serve_run", "resnet_runs", "bn_grads_check",
+                "inner_steps_runs", "cifar_cli_run", "graphed_optimizer_runs",
+                "resume_runs", "pipeline_runs", "baseline_runs",
+                "inception_runs", "resnet_slice_runs", "dp_runs", "rnn_runs",
+                "attention_slice_runs", "serving_front_runs", "tuning_runs",
+                "recovery_runs")
+
+
+def _time_phases(names=TIMED_PHASES):
+    """Replace each of main's phase functions by one that prints its
+    seconds: the script's time by phase."""
+    g = globals()
+    for name in names:
+        def timed(*a, _fn=g[name], _name=name, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                print(f"[time] {_name}: {time.perf_counter() - t0:.1f}s",
+                      flush=True)
+        g[name] = timed
+
+
 def main():
     try:
         import torch
@@ -5914,6 +6801,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    _time_phases()
     t_start = t0 = time.perf_counter()
     try:
         _build.build_all()
@@ -5983,7 +6871,8 @@ def main():
     launches["flash_fwd"] += front_n
     tune_rows, tune_n, untied_n = tuning_runs(torch, card)
     launches["flash_fwd"] += untied_n
-    for n in base_n + inc_n + slice_n + dp_n + attn_n + tune_n:
+    rec_rows, rec_n = recovery_runs(torch, card)
+    for n in base_n + inc_n + slice_n + dp_n + attn_n + tune_n + rec_n:
         for name in launches:
             launches[name] += n[name]
     print("[phase 19] BN launches by mode: " + ", ".join(
@@ -6030,6 +6919,8 @@ def main():
         print(f"[phase 23] {tag} on {card}: {r}", flush=True)
     for tag, r in tune_rows.items():
         print(f"[phase 24] {tag} on {card}: {r}", flush=True)
+    for tag, r in rec_rows.items():
+        print(f"[phase 25] {tag} on {card}: {r}", flush=True)
 
     head, bwd = rows[0], bwd_rows[0]  # the training step's 8 x 8 x 1024^2
     common = {"route": "cuda", "check": "pass", "shape": head["shape"],

@@ -254,8 +254,9 @@ def _args(**kw):
 def test_one_process_exits_as_the_jax_cli():
     """In one process --strategy dp exits naming torchrun (the JAX CLI
     names XLA_FLAGS), the deprecated alias is a no-op, unknown and
-    not-yet-ported strategies and --elastic exit by name, and junk
-    buckets exit with the JAX text."""
+    not-yet-ported strategies exit by name, --elastic without dp or with
+    another strategy exits with the JAX text, and junk buckets exit with
+    the JAX text."""
     with pytest.raises(SystemExit, match="torchrun --nproc_per_node N"):
         common.build_strategy(_args(strategy="dp"))
     assert common.build_strategy(_args(dataParallel=True)) is None
@@ -265,8 +266,11 @@ def test_one_process_exits_as_the_jax_cli():
     for name in ("tp", "sp:2", "pp", "ep"):
         with pytest.raises(SystemExit, match="entry 13"):
             common.build_strategy(_args(strategy=name))
-    with pytest.raises(SystemExit, match="entry 12"):
-        common.build_strategy(_args(strategy="dp", elastic="hold"))
+    with pytest.raises(SystemExit, match="--elastic needs --strategy dp"):
+        common.build_strategy(_args(elastic="hold"))
+    with pytest.raises(SystemExit, match="composes with --strategy dp only "
+                                         r"\(got tp\)"):
+        common.build_strategy(_args(strategy="tp", elastic="hold"))
     with pytest.raises(SystemExit, match="gradBuckets must be 'auto'"):
         common.make_grad_comm(_args(gradCompress="bf16", gradBuckets="x"))
     from bigdl_tpu_torch.cli import perf

@@ -327,8 +327,8 @@ def test_optimizer_refuses_later_slices():
                                            keep_last=0)):
         with pytest.raises(ValueError, match=">= 1"):
             bad()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        opt.set_checkpoint(Trigger.every_epoch(), "gs://bucket/ckpt")
+    assert opt.set_checkpoint(Trigger.every_epoch(),
+                              "memory://bucket/ckpt") is opt
 
 
 def test_text_pieces_and_batch_order_match_jax():
@@ -440,16 +440,18 @@ def test_transformerlm_train_cli_on_cpu(tmp_path, capsys, caplog, extra):
 def test_transformerlm_cli_refuses_what_is_not_ported(tmp_path, capsys):
     """--strategy dp is taken (one process exits naming torchrun, as the
     JAX CLI names XLA_FLAGS; the deprecated --dataParallel is a no-op
-    there); tp and --elastic are refused by name, and so is a flag of a
-    feature the port does not have (--lint, queue 1 entry 16)."""
+    there); tp is refused by name, --elastic without dp or with another
+    strategy exits with the JAX messages, and a flag of a feature the port
+    does not have is refused (--lint, queue 1 entry 16)."""
     _corpus(tmp_path)
     base = ["train", "-f", str(tmp_path), "--platform", "cpu"]
     small = ["--dModel", "16", "--numLayers", "1", "--numHeads", "2",
              "--seqLength", "16", "-b", "4", "--maxEpoch", "1"]
     for extra, msg in ((["--strategy", "dp"], "torchrun --nproc_per_node"),
                        (["--strategy", "tp"], "entry 13"),
-                       (["--strategy", "dp", "--elastic", "hold"],
-                        "entry 12")):
+                       (["--elastic", "hold"], "needs --strategy dp"),
+                       (["--strategy", "tp", "--elastic", "hold"],
+                        "composes with --strategy dp only")):
         with pytest.raises(SystemExit, match=msg):
             lm_cli.main(base + small + extra)
     assert lm_cli.main(base + small + ["--dataParallel"]).module is not None
