@@ -30,6 +30,7 @@ __all__ = ["setup_logging", "add_train_args", "add_test_args",
            "add_grad_comm_args", "make_grad_comm", "build_strategy",
            "build_feed", "build_optimizer", "load_trained", "evaluate",
            "OPTIM_METHODS", "PIPELINE_STAGE_CHOICES", "STRATEGY_CHOICES",
+           "SERVING_STRATEGY_CHOICES", "parse_serving_strategy",
            "GRAD_COMPRESS_CHOICES", "QUANTIZE_CHOICES", "ResolvedConfig",
            "resolve_serve_config", "install_fault_plan", "add_autotune_arg",
            "apply_autotune", "AUTOTUNE_CHOICES", "add_resilience_args",
@@ -203,12 +204,15 @@ QUANTIZE_CHOICES = ("off", "int8", "fp8", "kv8", "int8+kv8", "fp8+kv8")
 def add_strategy_arg(p: argparse.ArgumentParser) -> None:
     """--strategy NAME[:K], with the JAX CLIs' spelling."""
     p.add_argument("--strategy", default=None, metavar="NAME[:K]",
-                   help="multi-device training strategy: dp = data "
-                        "parallel over the ranks of a torchrun job, one "
-                        "process a GPU (ZeRO-1 optimizer state, batch "
-                        "norm over the global batch). tp, sp, pp and ep "
-                        "are not in the PyTorch port yet. Replaces the "
-                        "deprecated --dataParallel")
+                   help="multi-device training strategy over the ranks "
+                        "of a torchrun job, one process a GPU: dp = data "
+                        "parallel (ZeRO-1 optimizer state, batch norm over "
+                        "the global batch); tp[:K] = Megatron tensor "
+                        "parallel over a model axis of K ranks (default "
+                        "N/2 at 4 or more ranks, else N) times data "
+                        "parallel over the rest. sp, pp and ep are not in "
+                        "the PyTorch port yet. Replaces the deprecated "
+                        "--dataParallel")
 
 
 def parse_strategy_spec(spec: Optional[str]):
@@ -255,19 +259,28 @@ def check_strategy_dispatch(steps: int, flag: str = "--stepsPerDispatch"):
 
 
 def _refuse_unported(name: str) -> None:
-    if name != "dp":
+    if name not in ("dp", "tp"):
         raise SystemExit(
-            f"--strategy {name} is not in the PyTorch port yet: tensor, "
-            f"sequence, pipeline and expert parallelism come with "
-            f"ROADMAP.md queue 1 entry 13; the port has dp")
+            f"--strategy {name} is not in the PyTorch port yet: sequence, "
+            f"pipeline and expert parallelism come with ROADMAP.md queue 1 "
+            f"entry 13(b); the port has dp and tp")
 
 
 def strategy_mesh_axes(name: str, n_devices: int, k: Optional[int] = None
                        ) -> dict:
-    """The mesh axes of ``name`` over ``n_devices``: ``{"data": n}`` for
-    dp; the other strategies exit by name."""
+    """The mesh axes of ``name`` over ``n_devices`` (the JAX function's):
+    ``{"data": n}`` for dp; ``{"data": n // k, "model": k}`` for tp, k
+    defaulting to n // 2 at 4 or more devices, else n. sp, pp and ep exit
+    by name."""
     _refuse_unported(name)
-    return {"data": int(n_devices)}
+    n = int(n_devices)
+    if name == "dp":
+        return {"data": n}
+    kk = k or (n // 2 if n >= 4 else n)
+    if n % kk:
+        raise SystemExit(f"--strategy tp:{kk} needs the model axis to "
+                         f"divide {n} devices")
+    return {"data": n // kk, "model": kk}
 
 
 def add_grad_comm_args(p: argparse.ArgumentParser) -> None:
@@ -315,10 +328,10 @@ def check_elastic(name: Optional[str], elastic: Optional[str]) -> None:
 
 
 def _world() -> int:
-    """The data axis's rank count: the live mesh's (after an elastic
+    """The job's live rank count: the live mesh's (after an elastic
     re-formation, the survivors), else the job's."""
-    from bigdl_tpu_torch.parallel.mesh import axis_group
-    return axis_group("data")[1]
+    from bigdl_tpu_torch.parallel.mesh import live_size
+    return live_size()
 
 
 def _join(args) -> None:
@@ -329,8 +342,10 @@ def _join(args) -> None:
 
 def build_strategy(args, model=None, batch: Optional[int] = None):
     """The ``DataParallel`` that ``--strategy dp`` (or ``--dataParallel``)
-    asks for, over the ranks of this torchrun job (joined here with
-    ``init_distributed``: gloo under ``--platform cpu``), or None. Under
+    asks for, or the ``TensorParallel`` of ``--strategy tp[:K]`` (over
+    ``model``, or the model a later ``bind`` names), over the ranks of
+    this torchrun job (joined here with ``init_distributed``: gloo under
+    ``--platform cpu``), or None. Under
     ``--elastic`` it is an ``ElasticDataParallel`` over the surviving
     ranks (``resilience.faults.healthy_devices()``); a rank that is not
     among them leaves the job here with exit code 0. Exits as the JAX CLIs
@@ -365,11 +380,16 @@ def build_strategy(args, model=None, batch: Optional[int] = None):
     check_strategy_dispatch(getattr(args, "stepsPerDispatch", 1) or 1)
     check_strategy_dispatch(getattr(args, "innerSteps", 1) or 1,
                             "--innerSteps")
-    if batch is not None and batch % n and elastic is None:
+    axes = strategy_mesh_axes(name, n, k)
+    if batch is not None and batch % axes["data"] and elastic is None:
         raise SystemExit(f"batch {batch} must be divisible by the data "
-                         f"axis ({n}) of --strategy {name} (mesh "
-                         f"{strategy_mesh_axes(name, n, k)})")
-    mesh = make_mesh(strategy_mesh_axes(name, n, k), devices)
+                         f"axis ({axes['data']}) of --strategy {name} (mesh "
+                         f"{axes})")
+    if name == "tp":
+        from bigdl_tpu_torch.parallel import TensorParallel
+        return TensorParallel(make_mesh(axes), model,
+                              grad_comm=make_grad_comm(args))
+    mesh = make_mesh(axes, devices)
     if elastic is None:
         return DataParallel(mesh, grad_comm=make_grad_comm(args))
     if not mesh.member:
@@ -589,8 +609,9 @@ def evaluate(model, dataset, methods: Optional[Sequence] = None,
 class ResolvedConfig:
     """The serving flags resolved once (the fields of the JAX package's
     ``ResolvedConfig`` that serving reads), so ``serve``, the fleet
-    router and every worker agree on one parse. The serving topology is
-    one replica of one shard until ``--strategy`` is ported."""
+    router and every worker agree on one parse: the topology of
+    ``--strategy`` (``serving_replicas`` dp replicas of ``serving_tp``
+    ranks each)."""
 
     model: str
     quantize: Optional[str] = None
@@ -598,17 +619,101 @@ class ResolvedConfig:
     serving_replicas: int = 1
     serving_tp: int = 1
     fleet_workers: int = 0
+    strategy: Optional[str] = None
 
 
-def resolve_serve_config(args) -> ResolvedConfig:
+# the serving --strategy grammar: tp[:K] shards one engine over K ranks,
+# dp[:N] runs N engine replicas, dp:N+tp:K composes them (the JAX
+# package's); there is no implicit data axis
+SERVING_STRATEGY_CHOICES = ("dp", "tp")
+
+
+def parse_serving_strategy(spec: Optional[str], n_devices: int):
+    """``"tp[:K] | dp[:N] | dp:N+tp:K"`` -> ``(replicas, tp_k)`` (the JAX
+    function's rules): an omitted size takes every device (``tp``) or one
+    replica a device (``dp``), in the composed form what the other axis
+    leaves; ``replicas * tp_k`` must fit ``n_devices``. None -> (1, 1)."""
+    n = int(n_devices)
+    if not spec:
+        return 1, 1
+    replicas: Optional[int] = None
+    tp_k: Optional[int] = None
+    seen_dp = seen_tp = False
+    for part in str(spec).split("+"):
+        name, _, k = part.strip().partition(":")
+        if name not in SERVING_STRATEGY_CHOICES:
+            raise SystemExit(
+                f"serve --strategy {spec!r}: unknown axis {name!r}; the "
+                f"serving grammar is tp[:K], dp[:N], or dp:N+tp:K")
+        try:
+            kk = int(k) if k else None
+        except ValueError:
+            raise SystemExit(f"serve --strategy {spec!r}: axis size in "
+                             f"{part!r} must be an integer")
+        if kk is not None and kk < 1:
+            raise SystemExit(f"serve --strategy {spec!r}: axis size in "
+                             f"{part!r} must be >= 1")
+        if name == "dp":
+            if seen_dp:
+                raise SystemExit(f"serve --strategy {spec!r}: dp given "
+                                 f"twice")
+            seen_dp, replicas = True, kk
+        else:
+            if seen_tp:
+                raise SystemExit(f"serve --strategy {spec!r}: tp given "
+                                 f"twice")
+            seen_tp, tp_k = True, kk
+    if seen_tp and tp_k is None:
+        tp_k = max(n // (replicas or 1), 1) if seen_dp else max(n, 1)
+    if seen_dp and replicas is None:
+        replicas = max(n // (tp_k or 1), 1) if seen_tp else max(n, 1)
+    replicas, tp_k = replicas or 1, tp_k or 1
+    if replicas * tp_k > n:
+        need = replicas * tp_k
+        shape = (f"{replicas} replicas x {tp_k}-way tp"
+                 if seen_dp and seen_tp else
+                 f"{tp_k}-way tp" if seen_tp else
+                 f"one device per replica x {replicas} replicas")
+        raise SystemExit(
+            f"serve --strategy {spec!r} needs {need} devices ({shape}) "
+            f"but only {n} are visible; tp:K runs K ranks (torchrun "
+            f"--nproc_per_node K; on the CPU with --platform cpu), dp:N "
+            f"takes N devices (--devices, e.g. cpu,cpu or cuda:0,cuda:0)")
+    return replicas, tp_k
+
+
+def _virtual_serving_devices(spec: Optional[str]) -> int:
+    """A device count to resolve a serving strategy abstractly (the fleet
+    router, which imports no torch): large enough for any explicit
+    shape."""
+    need = 1
+    for part in str(spec or "").split("+"):
+        _, _, k = part.strip().partition(":")
+        if k and str(k).lstrip("-").isdigit():
+            need *= max(int(k), 1)
+    return max(8, need)
+
+
+def resolve_serve_config(args, *, n_devices: Optional[int] = None
+                         ) -> ResolvedConfig:
     """Resolve the serve/fleet flags once: refuse the flags the port does
     not have yet (naming their ROADMAP.md entry), and check
-    ``--quantize``, ``--speculate`` and ``--fleet``. Pure Python: the
-    fleet router calls this before any worker boots and imports no
-    torch."""
+    ``--strategy`` (over ``n_devices``, or abstractly), ``--quantize``,
+    ``--speculate`` and ``--fleet``. Pure Python: the fleet router calls
+    this before any worker boots and imports no torch. The composed
+    ``dp:N+tp:K`` and a fleet of tp workers exit by name."""
     from bigdl_tpu_torch.cli.serve import refuse_later_flags
 
     refuse_later_flags(args)
+    spec = getattr(args, "strategy", None)
+    n = (int(n_devices) if n_devices is not None
+         else _virtual_serving_devices(spec))
+    replicas, tp_k = parse_serving_strategy(spec, n)
+    if replicas > 1 and tp_k > 1:
+        raise SystemExit(
+            f"serve --strategy {spec}: replicas of tensor-parallel engines "
+            f"(dp:N+tp:K) are not in the PyTorch port yet (ROADMAP.md queue "
+            f"1 entry 13(a) leftovers); serve dp:N or tp:K")
     quantize = getattr(args, "quantize", None)
     if quantize == "off":  # serve spells the default as the string off
         quantize = None
@@ -622,9 +727,17 @@ def resolve_serve_config(args) -> ResolvedConfig:
     fleet = int(getattr(args, "fleet", 0) or 0)
     if fleet < 0:
         raise SystemExit(f"--fleet {fleet}: worker count must be >= 0")
+    if fleet and spec:
+        raise SystemExit(
+            f"--strategy: fleet workers of several devices (--fleet "
+            f"{fleet} --strategy {spec}) are not in the PyTorch port yet "
+            f"(ROADMAP.md queue 1 entry 13(a) leftovers); a fleet worker "
+            f"serves one device")
     return ResolvedConfig(model=getattr(args, "model", None) or "",
                           quantize=quantize, speculate=speculate,
-                          fleet_workers=fleet)
+                          serving_replicas=int(replicas),
+                          serving_tp=int(tp_k), fleet_workers=fleet,
+                          strategy=spec or None)
 
 
 def install_fault_plan(args):

@@ -49,7 +49,7 @@ _LATER = {
     "predict": "utils/file.py's save_module/load_module (ROADMAP.md "
                "queue 1 item 17)",
     "batch-predict": "serving/bulk.py (ROADMAP.md queue 1 item 17, entry "
-                     "15) and serving/replicas.py (item 14, entry 13)",
+                     "15)",
 }
 
 

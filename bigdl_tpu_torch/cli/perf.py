@@ -283,10 +283,11 @@ def train_step(model_name: str, batch: int, dtype=torch.bfloat16,
     stream, then captures; :class:`~bigdl_tpu_torch.optim.step_graph.
     StepGraph`), on the CPU K eager steps. With a ``feed`` (an iterator of image batches)
     a call is one eager step on the feed's next batch. Under a
-    ``strategy`` (a ``DataParallel``; eager steps only) ``batch`` is the
-    global batch: each rank steps on its part, batch norm takes the global
-    batch's statistics, the gradients and the loss are averaged over the
-    ranks and the SGD state is ZeRO-1's; the loss is the global one."""
+    ``strategy`` (a ``DataParallel`` or ``TensorParallel``; eager steps
+    only) ``batch`` is the global batch: each rank steps on its part of
+    the data axis, batch norm takes the global batch's statistics, the
+    gradients and the loss are averaged over the data axis and the SGD
+    state is ZeRO-1's; the loss is the global one."""
     from bigdl_tpu_torch.cli.common import apply_fused_bn
     from bigdl_tpu_torch.core.module import resolve_device, takes_seed
     from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
@@ -324,8 +325,8 @@ def train_step(model_name: str, batch: int, dtype=torch.bfloat16,
     state = opt.init(params)
     if strategy is not None:
         from bigdl_tpu_torch.interop.checkpoint import model_tensors
-        params, _, state = strategy.place(params, model_tensors(model)[1],
-                                          state)
+        params, _, state = strategy.bind(model).place(
+            params, model_tensors(model)[1], state)
         strategy.sync_batch_norm(model)
         x, y = strategy.shard_batch(x, y)
     names, plist = list(params), list(params.values())
@@ -543,7 +544,7 @@ def run(model_name: str, batch: int = 32, iterations: int = 10,
     strat = _perf_strategy(strategy, data_parallel, grad_compress,
                            grad_buckets, batch, inner_steps, device,
                            elastic)
-    n_dev = strat.world if strat is not None else 1
+    n_dev = strat.mesh.size if strat is not None else 1
     # the conv triple of this run configuration, as the JAX harness
     # resolves it: a record feed or a strategy dispatches one step
     eff_inner = 1 if (data_source is not None or strat is not None) \
@@ -616,7 +617,8 @@ def run(model_name: str, batch: int = 32, iterations: int = 10,
                "final_loss": losses[-1], "losses": losses}
         info = strat.grad_comm_info() if strat is not None else None
         out.update({
-            "strategy": "dp" if strat is not None else None,
+            "strategy": (None if strat is None else "tp"
+                         if hasattr(strat, "model_axis") else "dp"),
             "n_devices": n_dev,
             "mesh": dict(strat.mesh.shape) if strat is not None else None,
             "records_per_second_per_device": round(rps / n_dev, 2),
@@ -638,7 +640,8 @@ def run(model_name: str, batch: int = 32, iterations: int = 10,
 
 def _perf_strategy(strategy, data_parallel, grad_compress, grad_buckets,
                    batch, inner_steps, device, elastic=None):
-    """The DataParallel of ``run``'s strategy arguments (an
+    """The DataParallel (``--strategy dp``) or TensorParallel (``tp``, its
+    model bound by ``train_step``) of ``run``'s strategy arguments (an
     ElasticDataParallel over the surviving ranks under ``elastic``), or
     None."""
     from bigdl_tpu_torch.cli import common
@@ -734,7 +737,9 @@ def run_time_to_acc(model_name: str, batch: int, target: float,
                     fused_bn: Optional[str] = None, device=None,
                     inner_steps: int = 1, conv_layout: Optional[str] = None,
                     conv_geom: Optional[str] = None,
-                    supervisor=None) -> dict:
+                    supervisor=None, strategy: Optional[str] = None,
+                    grad_compress: Optional[str] = None,
+                    grad_buckets=None) -> dict:
     """Time to accuracy (the BASELINE metric's second half; the JAX
     harness's ``run_time_to_acc``): trains ``model_name`` from record
     shards (decode and augment in the timed path), validates top-1 every
@@ -744,8 +749,11 @@ def run_time_to_acc(model_name: str, batch: int, target: float,
     ``data_dir`` the data is :func:`_make_class_image_tree`'s; with it,
     its ``train/`` and ``val/`` record shards. ``inner_steps`` > 1 trains
     graphed (``Optimizer(steps_per_dispatch=...)``). Prints and returns
-    the JAX line's keys; ``grad_compress`` is "off" and ``grad_buckets``
-    null (one device)."""
+    the JAX line's keys. ``strategy="dp"`` (``--strategy dp``, a torchrun
+    job) trains data-parallel over the job's ranks with ``grad_compress``
+    and ``grad_buckets`` (``--gradCompress``/``--gradBuckets``), which the
+    line's ``grad_compress``/``grad_buckets`` report as the JAX harness's
+    do ("off" and null on one device); rank 0 prints the line."""
     import shutil
     import tempfile
 
@@ -759,6 +767,12 @@ def run_time_to_acc(model_name: str, batch: int, target: float,
 
     device = resolve_device(device)
     tuning.reset_decisions()  # annotate only this run's consulted keys
+    if strategy not in (None, "dp"):
+        raise SystemExit(f"--timeToAcc trains data-parallel (--strategy dp),"
+                         f" as the JAX harness does; got --strategy "
+                         f"{strategy}")
+    strat = (_perf_strategy(strategy, False, grad_compress, grad_buckets,
+                            batch, inner_steps, device) if strategy else None)
     t_setup = time.time()
     td = None
     summary_dir = tempfile.mkdtemp(prefix="tta_summary_")
@@ -794,7 +808,8 @@ def run_time_to_acc(model_name: str, batch: int, target: float,
                 end_when=Trigger.or_(Trigger.max_epoch(max_epochs),
                                      Trigger.max_score(target)),
                 compute_dtype=torch.bfloat16 if use_bf16 else None,
-                steps_per_dispatch=inner_steps, device=device)
+                steps_per_dispatch=inner_steps, device=device,
+                strategy=strat)
             val_trig = (Trigger.several_iteration(val_every_iters)
                         if val_every_iters else Trigger.every_epoch())
             opt.set_validation(val_trig, val_ds, [Top1Accuracy()])
@@ -815,6 +830,7 @@ def run_time_to_acc(model_name: str, batch: int, target: float,
         shutil.rmtree(summary_dir, ignore_errors=True)
     reached = [r for r in curve if r.get("top1_accuracy", 0.0) >= target]
     g_lift, g_noise = resolve_grade(hard, lift, noise)
+    info = strat.grad_comm_info() if strat is not None else None
     out = {
         "model": model_name,
         "metric": "time_to_acc",
@@ -829,8 +845,8 @@ def run_time_to_acc(model_name: str, batch: int, target: float,
         # the epochs touched under --valEvery
         "epochs_run": len({r.get("epoch") for r in curve}),
         "val_points": len(curve),
-        "grad_compress": "off",
-        "grad_buckets": None,
+        "grad_compress": info["compress"] if info else "off",
+        "grad_buckets": info["n_buckets"] if info else None,
         "hard_data": hard,
         "grade_lift": g_lift,
         "grade_noise": g_noise,
@@ -849,7 +865,8 @@ def run_time_to_acc(model_name: str, batch: int, target: float,
     out.update(conv)
     out["bn_fused"] = bn_fused_mode(model)
     _annotate_supervisor(out, supervisor)
-    print(json.dumps(out), flush=True)
+    if strat is None or strat.writer:
+        print(json.dumps(out), flush=True)
     return out
 
 
@@ -971,9 +988,6 @@ def _run_line(args, dtype, supervisor=None, elastic=None) -> dict:
     """One run of ``main``'s parsed flags: the time-to-accuracy harness or
     ``run``, its line printed (by rank 0 of a strategy)."""
     if args.timeToAcc is not None:
-        if args.strategy or args.dataParallel:
-            raise SystemExit("--timeToAcc trains on one device in the "
-                             "PyTorch port; drop --strategy")
         data_dir = None
         if args.data and args.data.startswith("record:"):
             data_dir = args.data[len("record:"):]
@@ -987,7 +1001,9 @@ def _run_line(args, dtype, supervisor=None, elastic=None) -> dict:
             noise=args.ttaNoise, weight_decay=args.ttaWd,
             fused_bn=args.fusedBN, device=args.platform,
             inner_steps=args.innerSteps, conv_layout=args.convLayout,
-            conv_geom=args.convGeom, supervisor=supervisor)
+            conv_geom=args.convGeom, supervisor=supervisor,
+            strategy=args.strategy or ("dp" if args.dataParallel else None),
+            grad_compress=args.gradCompress, grad_buckets=args.gradBuckets)
     out = run(args.model, batch=args.batchSize, iterations=args.iteration,
               dtype=dtype, device=args.platform, remat=args.remat,
               seq_len=args.seq, fused_bn=args.fusedBN,

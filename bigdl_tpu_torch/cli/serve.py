@@ -58,8 +58,6 @@ __all__ = ["build_parser", "build_app", "main"]
 # flags of the JAX package's serve that later slices of the port bring,
 # and the ROADMAP.md queue 1 entry that brings each
 _LATER_FLAGS = {
-    "--strategy": "entry 13 (serving replicas and tensor-parallel "
-                  "sharding)",
     "--lint": "entry 16 (analysis/)",
 }
 # the page sizes --quantize kv8 tries when --kvPageTokens is not given
@@ -213,6 +211,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dModel", type=int, default=128)
     p.add_argument("--numLayers", type=int, default=2)
     p.add_argument("--numHeads", type=int, default=4)
+    p.add_argument("--strategy", default=None, metavar="tp[:K]|dp[:N]",
+                   help="serving topology: tp:K shards one engine over the "
+                        "K ranks of a torchrun job (rank 0 serves HTTP, the "
+                        "others follow; the programs run eagerly), dp:N "
+                        "runs N engine replicas in this process behind "
+                        "least-load routing, one a device of --devices. "
+                        "dp:N+tp:K is not in the PyTorch port yet")
+    p.add_argument("--devices", default=None, metavar="LIST",
+                   help="comma-separated devices the dp replicas take in "
+                        "order, one may repeat (cuda:0,cuda:0 puts two "
+                        "replicas on one card). Default: every visible "
+                        "card; with --platform cpu, the CPU once a "
+                        "replica")
     add_autotune_arg(p)
     add_fused_bn_arg(p)
     add_conv_args(p)
@@ -363,7 +374,7 @@ def build_app(args):
                                                quantize_params, weight_bytes)
     from bigdl_tpu_torch.serving.spec_decode import parse_draft_dims
 
-    resolve_serve_config(args)  # refuses what is not ported first
+    cfg = resolve_serve_config(args)  # refuses what is not ported first
     apply_autotune(args)
     apply_conv_args(args)
     tuning.reset_decisions()
@@ -374,23 +385,68 @@ def build_app(args):
     if not (args.randomInit or args.checkpoint):
         raise SystemExit("serve needs weights: pass --model CKPT (a "
                          "checkpoint directory or file) or --randomInit")
+    if cfg.serving_tp > 1:
+        if not name.startswith("transformer_lm"):
+            raise SystemExit(
+                f"serve --strategy {cfg.strategy}: tensor-parallel serving "
+                f"takes the transformer_lm models in the PyTorch port "
+                f"(image classifiers: ROADMAP.md queue 1 entry 13(a) "
+                f"leftovers); serve dp:N")
+        from bigdl_tpu_torch.cli.common import _join, _world
+        _join(args)
+        if _world() != cfg.serving_tp:
+            raise SystemExit(
+                f"serve --strategy {cfg.strategy} runs {cfg.serving_tp} "
+                f"ranks, one process a device: start them with torchrun "
+                f"--nproc_per_node {cfg.serving_tp} (this job has "
+                f"{_world()})")
     if not name.startswith("transformer_lm"):
         set_registry(metrics)
         _reqtrace.set_request_tracer(reqtracer)
-        graphs = GraphPool(device)
-        engine, batcher, in_shape, extra = _build_image_app(
-            args, name, device, metrics, graphs)
-        watchdog = Watchdog(stall_timeout_s=args.watchdogStallS,
-                            metrics=metrics)
-        watchdog.watch("batcher", batcher).start()
+        rep_set = None
+        if cfg.serving_replicas > 1:
+            from bigdl_tpu_torch.serving import Replica, ReplicaSet
+            reps = []
+            for i, devs in enumerate(_replica_devices(
+                    args, cfg.serving_replicas, device)):
+                view = metrics.labelled(replica=str(i))
+                graphs = GraphPool(devs[0])
+                engine, batcher, in_shape, extra = _build_image_app(
+                    args, name, devs[0], view, graphs)
+                watchdog = Watchdog(stall_timeout_s=args.watchdogStallS,
+                                    metrics=view)
+                watchdog.watch("batcher", batcher).start()
+                reps.append(Replica(i, devices=devs, engine=engine,
+                                    batcher=batcher, watchdog=watchdog))
+            rep_set = ReplicaSet(reps, metrics=metrics)
+            engine = reps[0].engine
+        else:
+            graphs = GraphPool(device)
+            engine, batcher, in_shape, extra = _build_image_app(
+                args, name, device, metrics, graphs)
+            watchdog = Watchdog(stall_timeout_s=args.watchdogStallS,
+                                metrics=metrics)
+            watchdog.watch("batcher", batcher).start()
         prov = _provenance(args, engine, reqtracer, name)
         prov.update(extra)
         prov["cuda_graphs"] = graphs.enabled
-        app = ServingApp(name=name, metrics=metrics, engine=engine,
-                         batcher=batcher, request_timeout_s=args.timeout,
-                         default_deadline_ms=args.deadlineMs,
-                         shed_generate_frac=args.shedAt, watchdog=watchdog,
-                         version=args.modelVersion or "v0")
+        prov.update({"strategy": cfg.strategy or "none",
+                     "serving_replicas": cfg.serving_replicas,
+                     "serving_tp": 1})
+        if rep_set is not None:
+            app = ServingApp(name=name, metrics=metrics, replicas=rep_set,
+                             request_timeout_s=args.timeout,
+                             default_deadline_ms=args.deadlineMs,
+                             shed_generate_frac=args.shedAt,
+                             version=args.modelVersion or "v0")
+        else:
+            app = ServingApp(name=name, metrics=metrics, engine=engine,
+                             batcher=batcher,
+                             request_timeout_s=args.timeout,
+                             default_deadline_ms=args.deadlineMs,
+                             shed_generate_frac=args.shedAt,
+                             watchdog=watchdog,
+                             version=args.modelVersion or "v0")
         prov["model_version"] = lambda: app.model_version
         metrics.set_provenance(prov)
         return app, engine, in_shape, np.float32
@@ -460,28 +516,77 @@ def build_app(args):
     # the fault and retry counters land on this server's page
     set_registry(metrics)
     _reqtrace.set_request_tracer(reqtracer)
-    graphs = GraphPool(device)
-    # the LM is causal: /predict rows pad to the prompt ladder's lengths
-    engine = InferenceEngine(model, buckets=_parse_buckets(args.buckets),
-                             lengths=serving_prefill_buckets(model.max_len),
-                             metrics=metrics, device=device, graphs=graphs,
-                             quantize=args.quantize)
-    if graphs.enabled or not args.no_warmup:
-        print(f"warmup: buckets {engine.buckets} at lengths "
-              f"{engine.lengths} int32", flush=True)
-        engine.warmup(in_shape, np.int32)
-    decoder = DecodeEngine(model, slots=args.slots, cache_dtype=compute_dtype,
-                           max_waiting=args.maxWaiting, metrics=metrics,
-                           device=device, kv_page_tokens=page_tokens,
-                           prefix_cache=args.prefixCache,
-                           speculate=args.speculate, draft_model=draft,
-                           quantize=args.quantize, graphs=graphs)
-    batcher = MicroBatcher(engine.predict_scores, max_batch=args.maxBatch,
-                           max_wait_ms=args.maxWaitMs,
-                           max_queue=args.maxQueue, metrics=metrics)
-    decoder.start()
-    watchdog = Watchdog(stall_timeout_s=args.watchdogStallS, metrics=metrics)
-    watchdog.watch("batcher", batcher).watch("decoder", decoder).start()
+    replicas, tp_k = cfg.serving_replicas, cfg.serving_tp
+    link = None
+    if tp_k > 1:
+        from bigdl_tpu_torch.serving.sharding import (ServingSharding,
+                                                      TPLink, serving_mesh)
+        mesh = serving_mesh()
+        sharding = ServingSharding(mesh)
+        sharding.place_params(model)
+        if draft is not None:
+            sharding.place_params(draft.to(device))
+        link = TPLink(mesh)
+
+    def stack(dev, view, mdl, drf):
+        """(engine, decoder, batcher, watchdog, graphs) of one engine on
+        ``dev``, its series on ``view``."""
+        graphs = GraphPool(dev, enabled=link is None)
+        # the LM is causal: /predict rows pad to the prompt ladder's
+        # lengths
+        engine = InferenceEngine(mdl, buckets=_parse_buckets(args.buckets),
+                                 lengths=serving_prefill_buckets(
+                                     mdl.max_len),
+                                 metrics=view, device=dev, graphs=graphs,
+                                 quantize=args.quantize, tp=link)
+        if graphs.enabled or not args.no_warmup:
+            print(f"warmup: buckets {engine.buckets} at lengths "
+                  f"{engine.lengths} int32", flush=True)
+            engine.warmup(in_shape, np.int32)
+        decoder = DecodeEngine(mdl, slots=args.slots,
+                               cache_dtype=compute_dtype,
+                               max_waiting=args.maxWaiting, metrics=view,
+                               device=dev, kv_page_tokens=page_tokens,
+                               prefix_cache=args.prefixCache,
+                               speculate=args.speculate, draft_model=drf,
+                               quantize=args.quantize, graphs=graphs,
+                               tp=link)
+        if link is not None and not link.leader:
+            return engine, decoder, None, None, graphs
+        batcher = MicroBatcher(engine.predict_scores,
+                               max_batch=args.maxBatch,
+                               max_wait_ms=args.maxWaitMs,
+                               max_queue=args.maxQueue, metrics=view)
+        decoder.start()
+        watchdog = Watchdog(stall_timeout_s=args.watchdogStallS,
+                            metrics=view)
+        watchdog.watch("batcher", batcher).watch("decoder", decoder).start()
+        return engine, decoder, batcher, watchdog, graphs
+
+    rep_set = None
+    if replicas > 1:
+        import copy
+
+        from bigdl_tpu_torch.serving import Replica, ReplicaSet
+        reps = []
+        for i, devs in enumerate(_replica_devices(args, replicas, device)):
+            mdl = copy.deepcopy(model).to(devs[0])
+            drf = (None if draft is None
+                   else copy.deepcopy(draft).to(devs[0]))
+            engine, decoder, batcher, watchdog, graphs = stack(
+                devs[0], metrics.labelled(replica=str(i)), mdl, drf)
+            reps.append(Replica(i, devices=devs, engine=engine,
+                                batcher=batcher, decoder=decoder,
+                                watchdog=watchdog))
+        rep_set = ReplicaSet(reps, metrics=metrics)
+        engine, decoder = reps[0].engine, reps[0].decoder
+        batcher = watchdog = None
+    else:
+        engine, decoder, batcher, watchdog, graphs = stack(
+            device, metrics, model, draft)
+        if link is not None and not link.leader:
+            return TPFollower(link, engine, decoder), engine, in_shape, \
+                np.int32
 
     prov = _provenance(args, engine, reqtracer, name)
     prov.update({
@@ -493,21 +598,70 @@ def build_app(args):
         "speculate": args.speculate,
         "draft": (args.draftDims or "self") if args.speculate else "none",
         "weight_bytes": weight_bytes(model),
+        "strategy": cfg.strategy or "none",
+        "serving_replicas": replicas,
+        "serving_tp": tp_k,
     })
     if quant_info is not None:
         prov["quant_agreement"] = round(float(quant_info["agreement"]), 4)
         prov["quant_logit_max_err"] = round(
             float(quant_info["logit_max_err"]), 6)
-    app = ServingApp(name=name, metrics=metrics, engine=engine,
-                     batcher=batcher, decoder=decoder,
-                     request_timeout_s=args.timeout,
-                     default_deadline_ms=args.deadlineMs,
-                     shed_generate_frac=args.shedAt, watchdog=watchdog,
-                     version=args.modelVersion or "v0")
+    if rep_set is not None:
+        app = ServingApp(name=name, metrics=metrics, replicas=rep_set,
+                         request_timeout_s=args.timeout,
+                         default_deadline_ms=args.deadlineMs,
+                         shed_generate_frac=args.shedAt,
+                         version=args.modelVersion or "v0")
+    else:
+        app = ServingApp(name=name, metrics=metrics, engine=engine,
+                         batcher=batcher, decoder=decoder,
+                         request_timeout_s=args.timeout,
+                         default_deadline_ms=args.deadlineMs,
+                         shed_generate_frac=args.shedAt, watchdog=watchdog,
+                         version=args.modelVersion or "v0", tp_link=link)
     # resolved at each scrape: a rolling swap bumps the version
     prov["model_version"] = lambda: app.model_version
     metrics.set_provenance(prov)
     return app, engine, in_shape, np.int32
+
+
+class TPFollower:
+    """What ``build_app`` returns on ranks 1..K-1 of a tp:K server: its
+    engines, which :meth:`serve` runs at rank 0's calls until rank 0
+    closes."""
+
+    follower = True
+
+    def __init__(self, link, engine, decoder):
+        self.link, self.engine, self.decoder = link, engine, decoder
+
+    def serve(self) -> int:
+        """Run rank 0's calls until it closes; returns how many ran."""
+        return self.link.serve()
+
+    def close(self) -> None:
+        self.decoder.close()
+        self.engine.close()
+
+
+def _replica_devices(args, replicas: int, device) -> list:
+    """The dp replicas' device groups: ``--devices`` in order, else every
+    visible card, or the CPU once a replica under ``--platform cpu``."""
+    import torch
+
+    from bigdl_tpu_torch.serving.sharding import replica_device_groups
+    if args.devices:
+        devices = [torch.device(d.strip()) for d in args.devices.split(",")
+                   if d.strip()]
+    elif device.type == "cpu":
+        devices = [device] * replicas
+    else:
+        devices = None
+    try:
+        return replica_device_groups(replicas, 1, devices)
+    except ValueError as e:
+        raise SystemExit(f"serve --strategy {args.strategy}: {e} (name "
+                         f"them with --devices, e.g. cuda:0,cuda:0)")
 
 
 def _provenance(args, engine, reqtracer, name) -> dict:
@@ -556,6 +710,13 @@ def main(argv=None) -> int:
 
     install_fault_plan(args)
     app, _, _, _ = build_app(args)
+    if getattr(app, "follower", False):
+        # ranks 1..K-1 of a tp:K server: rank 0's calls until it closes
+        try:
+            app.serve()
+            return 0
+        finally:
+            app.close()
     return run_server(app, args.host, args.port)
 
 

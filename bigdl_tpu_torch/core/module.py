@@ -120,17 +120,27 @@ def noise_shard(rank: int):
         _NOISE_SHARD.reset(token)
 
 
-def hash_bits24(seed, like: torch.Tensor) -> torch.Tensor:
+def hash_bits24(seed, like: torch.Tensor, cols=None) -> torch.Tensor:
     """24 random bits per element of ``like`` (int64 in [0, 2^24)): a
     counter-based hash of (``seed``, element index) computed on ``like``'s
     device, so the same seed draws the same bits eagerly, in a recomputed
     layer and in a CUDA-graph replay, and no generator state is read.
     Under :func:`noise_shard` the index is the element's in the global
-    batch."""
+    batch. ``cols = (lo, full)`` says ``like`` holds columns lo.. of an
+    activation ``full`` columns wide (a tensor-parallel rank's slice): the
+    index is then the element's in the whole activation."""
     seed = torch.as_tensor(seed, dtype=torch.int64).to(like.device)
     rank = _NOISE_SHARD.get()
-    idx = torch.arange(rank * like.numel(), (rank + 1) * like.numel(),
-                       device=like.device).reshape(like.shape)
+    if cols is None:
+        idx = torch.arange(rank * like.numel(), (rank + 1) * like.numel(),
+                           device=like.device).reshape(like.shape)
+    else:
+        lo, full = cols
+        n = like.shape[-1]
+        rows = like.numel() // n
+        r = torch.arange(rank * rows, (rank + 1) * rows, device=like.device)
+        c = torch.arange(lo, lo + n, device=like.device)
+        idx = (r[:, None] * full + c[None, :]).reshape(like.shape)
     return _srl(_mix(idx * _MIX2 + seed * _GOLDEN), 40)
 
 

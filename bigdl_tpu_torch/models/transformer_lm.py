@@ -81,6 +81,20 @@ class TransformerLM(nn.Module):
         self.head = (None if tie_embeddings
                      else Linear(d_model, vocab, generator=generator))
 
+    def tp_param_children(self) -> dict:
+        """Param key -> child, so ``parallel.megatron_specs`` walks the
+        embedding, the encoder blocks and the head (the JAX method)."""
+        out = {"emb": self.emb, "encoder": self.encoder, "ln_f": self.ln_f}
+        if self.head is not None:
+            out["head"] = self.head
+        return out
+
+    def fsdp_outer_params(self) -> list:
+        """Parameters this forward reads outside their module: the tied
+        head's embedding (``parallel.FullyShardedDataParallel`` gathers
+        them for the whole call)."""
+        return [] if self.head is not None else ["emb.weight"]
+
     @property
     def device(self) -> torch.device:
         return self.emb.weight.device
@@ -106,6 +120,12 @@ class TransformerLM(nn.Module):
         h = self.ln_f(h)
         if self.head is not None:
             return self.head(h)
+        tp = self.emb._tp
+        if tp is not None:
+            # the tied head contracts over the split features: this rank's
+            # slice of h, then the partial logits reduced
+            return tp.reduce(tp.scatter(h, -1)
+                             @ self.emb.weight.to(h.dtype).T)
         return h @ self.emb.weight.to(h.dtype).T
 
     def forward(self, tokens, seed=None):

@@ -113,7 +113,17 @@ class MultiHeadAttention(nn.Module):
     ``bigdl_tpu_torch.ops.blockwise_attention`` (O(seq) memory, plain
     PyTorch), or a callable with the same signature. Integer masks are packed-row segment ids: they go to
     ``attn_fn`` as ``segments=`` when it takes them, and as the
-    block-diagonal :func:`make_segment_mask` otherwise."""
+    block-diagonal :func:`make_segment_mask` otherwise.
+
+    Under tensor parallelism (``parallel.TensorParallel``) ``_tp`` splits
+    the heads: ``num_heads`` (and ``num_kv_heads`` when the axis divides
+    them) are this rank's, wq/wk/wv hold its columns and wo its rows, the
+    input is copied to the model axis and the output projection reduced
+    over it. KV projections that stay whole (the axis does not divide the
+    KV heads) read the input uncopied, and each rank takes the KV heads
+    its query heads need."""
+
+    _tp = None
 
     def __init__(self, d_model: int, num_heads: int, causal: bool = False,
                  attn_impl: Optional[Union[str, Callable]] = None,
@@ -174,6 +184,13 @@ class MultiHeadAttention(nn.Module):
     def _expand_kv(self, kv):
         """(b, n_kv, s, d) -> (b, num_heads, s, d): kv head j serves query
         heads j*g .. j*g+g-1 (``jnp.repeat`` on axis 1)."""
+        tp = self._tp
+        if tp is not None and not tp.kv_split:
+            g = tp.heads // tp.kv_heads
+            idx = torch.tensor([(tp.heads_lo + i) // g
+                                for i in range(self.num_heads)],
+                               device=kv.device)
+            return tp.select(kv, 1, idx)
         g = self.num_heads // self.num_kv_heads
         return kv if g == 1 else torch.repeat_interleave(kv, g, dim=1)
 
@@ -193,13 +210,37 @@ class MultiHeadAttention(nn.Module):
         dt = x.dtype
         return x @ w.to(dt) + b.to(dt)
 
+    def _inputs(self, q_in, kv_in):
+        """The q and kv projections' inputs: under tensor parallelism the
+        input copied to the model axis (once for self-attention), whole KV
+        projections reading it uncopied."""
+        tp = self._tp
+        if tp is None:
+            return q_in, kv_in
+        xq = tp.copy(q_in)
+        if not tp.kv_split:
+            return xq, kv_in
+        return xq, (xq if kv_in is q_in else tp.copy(kv_in))
+
     def _qkv(self, x):
-        return (self._split_heads(self._proj(x, self.wq, self.bq),
+        xq, xkv = self._inputs(x, x)
+        return (self._split_heads(self._proj(xq, self.wq, self.bq),
                                   self.num_heads),
-                self._split_heads(self._proj(x, self.wk, self.bk),
+                self._split_heads(self._proj(xkv, self.wk, self.bk),
                                   self.num_kv_heads),
-                self._split_heads(self._proj(x, self.wv, self.bv),
+                self._split_heads(self._proj(xkv, self.wv, self.bv),
                                   self.num_kv_heads))
+
+    def _out(self, o):
+        """The output projection of (b, h, s, d) heads: under tensor
+        parallelism the rows of wo, reduced over the model axis, and the
+        whole bias after the reduce."""
+        m = self._merge_heads(o)
+        tp = self._tp
+        if tp is None:
+            return self._proj(m, self.wo, self.bo)
+        dt = m.dtype
+        return tp.reduce(m @ self.wo.to(dt)) + self.bo.to(dt)
 
     def forward(self, x):
         """``x``: a (b, s, d) tensor (self-attention), ``(q_in, kv_in)``
@@ -216,6 +257,8 @@ class MultiHeadAttention(nn.Module):
             segments, mask = mask, None
             if not self._attn_takes_segments:
                 mask, segments = make_segment_mask(segments), None
+        rope_self = q_in is kv_in
+        q_in, kv_in = self._inputs(q_in, kv_in)
         q = self._split_heads(self._proj(q_in, self.wq, self.bq),
                               self.num_heads)
         k = self._split_heads(self._proj(kv_in, self.wk, self.bk),
@@ -223,7 +266,7 @@ class MultiHeadAttention(nn.Module):
         v = self._split_heads(self._proj(kv_in, self.wv, self.bv),
                               self.num_kv_heads)
         if self.rope:
-            if q_in is not kv_in:
+            if not rope_self:
                 raise ValueError("RoPE supports self-attention only")
             q, k = self._rope(q, 0), self._rope(k, 0)
         k, v = self._expand_kv(k), self._expand_kv(v)
@@ -233,7 +276,7 @@ class MultiHeadAttention(nn.Module):
             o = self.attn_fn(q, k, v, causal=self.causal, segments=segments)
         else:
             o = self.attn_fn(q, k, v, causal=self.causal, mask=mask)
-        return self._proj(self._merge_heads(o), self.wo, self.bo)
+        return self._out(o)
 
     # ----------------------------------------------- autoregressive decode
     def init_cache(self, batch: int, max_len: int, dtype=torch.float32,
@@ -253,7 +296,7 @@ class MultiHeadAttention(nn.Module):
         s = x.shape[1]
         cache["k"][:, :, :s] = k
         cache["v"][:, :, :s] = v
-        return self._proj(self._merge_heads(o), self.wo, self.bo)
+        return self._out(o)
 
     def decode_step(self, x, cache, pos):
         """x (b, m, d) at per-row start positions ``pos``: one token per
@@ -283,7 +326,7 @@ class MultiHeadAttention(nn.Module):
         p = torch.softmax(s.masked_fill(~live, _NEG_INF), dim=-1)
         o = torch.matmul(p.to(q.dtype).float(),
                          ve.to(q.dtype).float()).to(x.dtype)
-        return self._proj(self._merge_heads(o), self.wo, self.bo)
+        return self._out(o)
 
 
 class PositionalEncoding(nn.Module):
@@ -315,6 +358,9 @@ class TransformerEncoderLayer(nn.Module):
 
     ``forward`` takes x or ``(x, mask)`` (a key-padding mask or packed-row
     segment ids threaded through the stack) and returns the same form.
+    Under tensor parallelism the attention splits its heads and ``_tp``
+    splits the MLP pair (w1 by column, w2 by row, b2 added after the
+    reduce).
     ``seed`` (an int or an int64 tensor) seeds this call's dropout: the
     same seed draws the same masks, so a recomputed (remat) layer repeats
     its dropout. The attention branch draws with ``fold_seed(seed, 0)``,
@@ -327,6 +373,7 @@ class TransformerEncoderLayer(nn.Module):
                  rope: bool = False, rope_max_len: int = 8192,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self._tp = None
         d_ff = d_ff or 4 * d_model
         self.d_model, self.d_ff = d_model, d_ff
         self.drop = Dropout(dropout) if dropout > 0.0 else None
@@ -347,8 +394,14 @@ class TransformerEncoderLayer(nn.Module):
     def _mlp_branch(self, x):
         dt = x.dtype
         h = self.ln2(x)
+        tp = self._tp
+        if tp is not None:
+            h = tp.copy(h)
         h = F.gelu(h @ self.w1.to(dt) + self.b1.to(dt), approximate="tanh")
-        return h @ self.w2.to(dt) + self.b2.to(dt)
+        y = h @ self.w2.to(dt)
+        if tp is not None:
+            y = tp.reduce(y)
+        return y + self.b2.to(dt)
 
     def _mlp(self, x):
         return x + self._mlp_branch(x)

@@ -108,13 +108,23 @@ class SpatialConvolution(SimpleModule):
         """This module's leaf in the JAX layout: the kernel back to HWIO."""
         return _oihw_to_hwio(key, value)
 
+    # under tensor parallelism (``parallel.TensorParallel``): the output
+    # channels split, the input copied to the model axis and the output
+    # gathered whole
+    _tp = None
+
     def forward(self, x):
+        tp = self._tp
+        if tp is not None:
+            x = tp.copy(x)
         w = self.weight.to(x.dtype)
         y = _conv(x, w, (self.stride_h, self.stride_w),
                   (self.pad_h, self.pad_w),
                   (self.dilation_h, self.dilation_w), self.n_group)
         if self.with_bias:
             y = y + self.bias.to(y.dtype)
+        if tp is not None:
+            y = tp.gather(y, -1)
         return y
 
     def extra_repr(self) -> str:

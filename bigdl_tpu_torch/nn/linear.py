@@ -28,7 +28,12 @@ class Linear(SimpleModule):
     (in_features, out_features) as in the JAX package, so its leaves load
     as they are. Init "default" is U(+-1/sqrt(in)), "xavier" Xavier
     uniform for the weight (the bias keeps the default). The weight and
-    bias are cast to the input's dtype."""
+    bias are cast to the input's dtype. Under tensor parallelism
+    (``parallel.TensorParallel``) ``_tp`` is its split: a column-split
+    Linear copies its input to the model axis, a row-split one reduces
+    its product over it and adds the whole bias after the reduce."""
+
+    _tp = None
 
     def __init__(self, in_features: int, out_features: int,
                  with_bias: bool = True, init: str = "default",
@@ -49,7 +54,12 @@ class Linear(SimpleModule):
                                                     in_features, generator))
 
     def forward(self, x):
+        tp = self._tp
+        if tp is not None and tp.mode == "col":
+            x = tp.copy(x)
         y = x @ self.weight.to(x.dtype)
+        if tp is not None and tp.mode == "row":
+            y = tp.reduce(y)
         if self.with_bias:
             y = y + self.bias.to(x.dtype)
         return y
@@ -288,7 +298,10 @@ class LookupTable(nn.Module):
     time, as the JAX package does (the weight itself is not changed): a
     row whose ``norm_type``-norm exceeds it is scaled down to it. A
     quantized weight (``serving.quant``) gathers its 8-bit rows, then
-    scales them."""
+    scales them. Under tensor parallelism ``_tp`` splits the features:
+    each rank gathers its columns and the rows are gathered whole."""
+
+    _tp = None
 
     def __init__(self, n_index: int, n_output: int,
                  max_norm: Optional[float] = None, norm_type: float = 2.0,
@@ -303,6 +316,8 @@ class LookupTable(nn.Module):
         take_rows = getattr(self.weight, "take_rows", None)
         rows = take_rows(x) if take_rows is not None else \
             self.weight[x.long()]
+        if self._tp is not None:
+            rows = self._tp.gather(rows, -1)
         if self.max_norm is not None:
             n = torch.linalg.vector_norm(rows, ord=self.norm_type, dim=-1,
                                          keepdim=True)

@@ -168,5 +168,5 @@ class MoE(Module):
     def place_expert_parallel(self, *args, **kwargs):
         raise NotImplementedError(
             "expert parallelism (MoE.place_expert_parallel) is not in the "
-            "PyTorch port yet (ROADMAP.md queue 1 entry 13, model "
-            "parallel)")
+            "PyTorch port yet (ROADMAP.md queue 1 entry 13(b), with "
+            "sequence and pipeline parallelism)")

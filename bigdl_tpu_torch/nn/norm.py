@@ -171,9 +171,10 @@ class BatchNormalization(Module):
 def _check_axis(axis_name) -> None:
     if axis_name not in (None, "data"):
         raise NotImplementedError(
-            f"BatchNormalization(axis_name={axis_name!r}): the port's mesh "
-            f"has the 'data' axis; the model, sequence and pipeline axes "
-            f"come with ROADMAP.md queue 1 entry 13")
+            f"BatchNormalization(axis_name={axis_name!r}): the port's batch "
+            f"norm reduces over the 'data' axis (a tensor-parallel conv's "
+            f"output is gathered whole before it); the sequence and "
+            f"pipeline axes come with ROADMAP.md queue 1 entry 13(b)")
 
 
 class _AllReduceSum(torch.autograd.Function):

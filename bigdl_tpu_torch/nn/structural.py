@@ -51,6 +51,9 @@ class Dropout(SimpleModule):
     the two packages agree in distribution only."""
 
     draws_noise = True
+    # under tensor parallelism, between a column-split Linear and its
+    # partner: the column slice it sees (``lo``, ``full``)
+    _tp = None
 
     def __init__(self, p: float = 0.5, name: Optional[str] = None):
         super().__init__(name)
@@ -64,7 +67,8 @@ class Dropout(SimpleModule):
         if seed is None:
             raise ValueError("Dropout needs a seed in training mode")
         keep = 1.0 - self.p
-        mask = hash_bits24(seed, x) < int(keep * (1 << 24))
+        cols = None if self._tp is None else (self._tp.lo, self._tp.full)
+        mask = hash_bits24(seed, x, cols) < int(keep * (1 << 24))
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
     def extra_repr(self) -> str:

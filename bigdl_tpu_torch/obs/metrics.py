@@ -1,7 +1,8 @@
 """Metrics registry: counters, gauges and fixed-bucket latency histograms
 with a plaintext (Prometheus-compatible) exposition. A copy of the JAX
-package's ``bigdl_tpu/obs/metrics.py`` without labelled series, which the
-port does not use yet.
+package's ``bigdl_tpu/obs/metrics.py``: an instrument may carry labels
+(``labelled`` gives a view that stamps them, as each dp serving replica
+registers its series ``{replica="i"}`` on the shared page).
 
 Each instrument guards its update with one short-held lock; histograms
 estimate quantiles at render time by linear interpolation inside the
@@ -23,6 +24,7 @@ import time
 from typing import Callable, Dict, List, Optional, Sequence
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
+           "LabelledRegistry",
            "DEFAULT_LATENCY_BUCKETS_MS", "ITL_BUCKETS_MS", "get_registry",
            "set_registry", "reset_registry"]
 
@@ -43,8 +45,10 @@ ITL_BUCKETS_MS: tuple = (
 class Counter:
     """Monotone counter; ``inc`` is one lock + one add."""
 
-    def __init__(self, name: str, help: str = ""):
+    def __init__(self, name: str, help: str = "",
+                 labels: Optional[Dict[str, str]] = None):
         self.name, self.help = name, help
+        self.labels = dict(labels) if labels else None
         self._lock = threading.Lock()
         self._value = 0.0
 
@@ -64,8 +68,10 @@ class Gauge:
     occupancy; NaN when ``fn`` fails)."""
 
     def __init__(self, name: str, help: str = "",
-                 fn: Optional[Callable[[], float]] = None):
+                 fn: Optional[Callable[[], float]] = None,
+                 labels: Optional[Dict[str, str]] = None):
         self.name, self.help = name, help
+        self.labels = dict(labels) if labels else None
         self._fn = fn
         self._lock = threading.Lock()
         self._value = 0.0
@@ -91,8 +97,10 @@ class Histogram:
     observed."""
 
     def __init__(self, name: str, help: str = "",
-                 bounds: Sequence[float] = DEFAULT_LATENCY_BUCKETS_MS):
+                 bounds: Sequence[float] = DEFAULT_LATENCY_BUCKETS_MS,
+                 labels: Optional[Dict[str, str]] = None):
         self.name, self.help = name, help
+        self.labels = dict(labels) if labels else None
         self.bounds: List[float] = sorted(float(b) for b in bounds)
         if not self.bounds:
             raise ValueError("histogram needs at least one bucket bound")
@@ -153,28 +161,40 @@ class MetricsRegistry:
         self._clock = clock
         self._t0 = clock()
 
-    def _register(self, name, kind, factory):
+    def _register(self, name, labels, kind, factory):
+        # an unlabelled instrument is keyed by its bare name; a labelled
+        # series by the name and its rendered labels
+        key = name if not labels else f"{name}{{{_labels_str(labels)}}}"
         with self._lock:
-            m = self._metrics.get(name)
+            m = self._metrics.get(key)
             if m is None:
-                m = self._metrics[name] = factory()
+                m = self._metrics[key] = factory()
         if not isinstance(m, kind):
             raise TypeError(f"{name} already registered as "
                             f"{type(m).__name__}")
         return m
 
-    def counter(self, name: str, help: str = "") -> Counter:
-        return self._register(name, Counter, lambda: Counter(name, help))
+    def counter(self, name: str, help: str = "",
+                labels: Optional[Dict[str, str]] = None) -> Counter:
+        return self._register(name, labels, Counter,
+                              lambda: Counter(name, help, labels))
 
     def gauge(self, name: str, help: str = "",
-              fn: Optional[Callable[[], float]] = None) -> Gauge:
-        return self._register(name, Gauge, lambda: Gauge(name, help, fn))
+              fn: Optional[Callable[[], float]] = None,
+              labels: Optional[Dict[str, str]] = None) -> Gauge:
+        return self._register(name, labels, Gauge,
+                              lambda: Gauge(name, help, fn, labels))
 
     def histogram(self, name: str, help: str = "",
-                  bounds: Sequence[float] = DEFAULT_LATENCY_BUCKETS_MS
-                  ) -> Histogram:
-        return self._register(name, Histogram,
-                              lambda: Histogram(name, help, bounds))
+                  bounds: Sequence[float] = DEFAULT_LATENCY_BUCKETS_MS,
+                  labels: Optional[Dict[str, str]] = None) -> Histogram:
+        return self._register(name, labels, Histogram,
+                              lambda: Histogram(name, help, bounds, labels))
+
+    def labelled(self, **labels: str) -> "LabelledRegistry":
+        """A view that stamps ``labels`` onto every instrument made
+        through it."""
+        return LabelledRegistry(self, labels)
 
     def set_provenance(self, prov: dict) -> None:
         with self._lock:
@@ -186,7 +206,8 @@ class MetricsRegistry:
     def render(self) -> str:
         ns = self.namespace
         with self._lock:
-            metrics = sorted(self._metrics.values(), key=lambda m: m.name)
+            metrics = sorted(self._metrics.values(), key=lambda m: (
+                m.name, _labels_str(m.labels)))
             prov = dict(self._provenance)
         for k, v in list(prov.items()):
             if callable(v):  # resolved at scrape time (the model version)
@@ -205,28 +226,82 @@ class MetricsRegistry:
         lines.append(f"# HELP {ns}_uptime_seconds process uptime")
         lines.append(f"# TYPE {ns}_uptime_seconds gauge")
         lines.append(f"{ns}_uptime_seconds {self.uptime_s():.3f}")
+        # the series of one name are contiguous (the unlabelled one
+        # first), HELP and TYPE stated once
+        seen: set = set()
         for m in metrics:
             full = f"{ns}_{m.name}"
-            if m.help:
-                lines.append(f"# HELP {full} {m.help}")
-            kind = ("counter" if isinstance(m, Counter) else
-                    "gauge" if isinstance(m, Gauge) else "histogram")
-            lines.append(f"# TYPE {full} {kind}")
+            base = m.labels or {}
+            sfx = f"{{{_labels_str(base)}}}" if base else ""
+            if m.name not in seen:
+                seen.add(m.name)
+                if m.help:
+                    lines.append(f"# HELP {full} {m.help}")
+                kind = ("counter" if isinstance(m, Counter) else
+                        "gauge" if isinstance(m, Gauge) else "histogram")
+                lines.append(f"# TYPE {full} {kind}")
             if isinstance(m, (Counter, Gauge)):
-                lines.append(f"{full} {_fmt(m.value)}")
+                lines.append(f"{full}{sfx} {_fmt(m.value)}")
                 continue
             snap = m.snapshot()
             cum = 0
             for b, c in zip(m.bounds, snap["counts"]):
                 cum += c
-                lines.append(f'{full}_bucket{{le="{_fmt(b)}"}} {cum}')
-            lines.append(f'{full}_bucket{{le="+Inf"}} {snap["count"]}')
-            lines.append(f"{full}_sum {_fmt(snap['sum'])}")
-            lines.append(f"{full}_count {snap['count']}")
+                lines.append(f"{full}_bucket{{"
+                             f"{_labels_str(base, le=_fmt(b))}}} {cum}")
+            lines.append(f'{full}_bucket{{{_labels_str(base, le="+Inf")}}} '
+                         f'{snap["count"]}')
+            lines.append(f"{full}_sum{sfx} {_fmt(snap['sum'])}")
+            lines.append(f"{full}_count{sfx} {snap['count']}")
             for q in self.QUANTILES:
-                lines.append(f'{full}{{quantile="{q}"}} '
-                             f"{_fmt(m.quantile(q, snap))}")
+                lines.append(f"{full}{{{_labels_str(base, quantile=str(q))}}}"
+                             f" {_fmt(m.quantile(q, snap))}")
         return "\n".join(lines) + "\n"
+
+
+class LabelledRegistry:
+    """A label-stamping view over a :class:`MetricsRegistry`: the
+    instrument factories with a fixed label set merged in, so a component
+    built against the plain registry (engine, batcher, decoder) can be
+    one of N dp replicas without knowing it. Views nest (the inner label
+    wins on a collision)."""
+
+    def __init__(self, registry: MetricsRegistry, labels: Dict[str, str]):
+        self._registry = registry
+        self.labels = {str(k): str(v) for k, v in labels.items()}
+
+    @property
+    def namespace(self) -> str:
+        return self._registry.namespace
+
+    def counter(self, name: str, help: str = "",
+                labels: Optional[Dict[str, str]] = None) -> Counter:
+        return self._registry.counter(name, help,
+                                      labels={**self.labels, **(labels or {})})
+
+    def gauge(self, name: str, help: str = "",
+              fn: Optional[Callable[[], float]] = None,
+              labels: Optional[Dict[str, str]] = None) -> Gauge:
+        return self._registry.gauge(name, help, fn,
+                                    labels={**self.labels, **(labels or {})})
+
+    def histogram(self, name: str, help: str = "",
+                  bounds: Sequence[float] = DEFAULT_LATENCY_BUCKETS_MS,
+                  labels: Optional[Dict[str, str]] = None) -> Histogram:
+        return self._registry.histogram(
+            name, help, bounds, labels={**self.labels, **(labels or {})})
+
+    def labelled(self, **labels: str) -> "LabelledRegistry":
+        return LabelledRegistry(self._registry, {**self.labels, **labels})
+
+    def uptime_s(self) -> float:
+        return self._registry.uptime_s()
+
+    def set_provenance(self, prov: dict) -> None:
+        self._registry.set_provenance(prov)
+
+    def render(self) -> str:
+        return self._registry.render()
 
 
 def _fmt(v) -> str:
@@ -236,6 +311,15 @@ def _fmt(v) -> str:
     if f in (float("inf"), float("-inf")):
         return "+Inf" if f > 0 else "-Inf"
     return str(int(f)) if f == int(f) and abs(f) < 1e15 else repr(f)
+
+
+def _labels_str(labels: Optional[Dict[str, str]], **extra: str) -> str:
+    """Sorted ``k="v"`` labels; ``extra`` pairs (``le``, ``quantile``)
+    merge after the instrument's own."""
+    merged = dict(labels or {})
+    merged.update(extra)
+    return ",".join(
+        f'{k}="{_label_escape(v)}"' for k, v in sorted(merged.items()))
 
 
 def _label_escape(v) -> str:

@@ -334,12 +334,16 @@ class EMA(OptimMethod):
         return state["ema"]
 
 
-def clip_by_global_norm(grads: dict, max_norm: float):
+def clip_by_global_norm(grads: dict, max_norm: float, sq_norm=None):
     """Scale every gradient so their global L2 norm is at most
     ``max_norm`` (reference Optimizer.setGradientClippingByl2Norm); returns
-    (clipped grads, the norm before clipping). The norm is taken in f32."""
-    norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in grads.values()))
+    (clipped grads, the norm before clipping). The norm is taken in f32;
+    ``sq_norm``, when given, is its square (a strategy's, over gradients
+    split across ranks)."""
+    if sq_norm is None:
+        sq_norm = sum(torch.sum(torch.square(g.float()))
+                      for g in grads.values())
+    norm = torch.sqrt(sq_norm)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return {k: (g * scale).to(g.dtype) for k, g in grads.items()}, norm
 

@@ -35,7 +35,8 @@ resume), and a model that takes one (``core.module.takes_seed``: its
 noise) gets it as a 0-d int64 tensor on the device (microbatch i of a
 step gets ``fold_seed(step seed, i)``).
 
-``strategy``: a :class:`~bigdl_tpu_torch.parallel.DataParallel` over the
+``strategy``: a :class:`~bigdl_tpu_torch.parallel.DataParallel` (or its
+``TensorParallel`` and ``FullyShardedDataParallel``) over the
 ranks of a ``torch.distributed`` job (one process a GPU). Each step then
 takes this rank's part of the global batch (``strategy.shard_batch``,
 unless the dataset already yields it: ``parallel.feeds_rank_part``),
@@ -43,11 +44,14 @@ normalises batch norm by the global batch's statistics, averages the
 gradients and the loss over the ranks (``strategy.reduce_grads``),
 clips, and updates the parameters this rank owns under ZeRO-1
 (``strategy.update``). Validation sums its counts over the ranks. A
-checkpoint gathers the ZeRO-1 state on every rank; rank 0 alone writes
-it, in the single-process format with the strategy's
+checkpoint gathers whole trees on every rank (``strategy.gather``: the
+ZeRO-1 state, and the tensor-parallel slices or the fully sharded
+parameters); the mesh's first rank alone writes them, in the
+single-process format with the strategy's
 ``layout_signature()`` in the manifests, and every rank meets at a
-barrier after the write. ``steps_per_dispatch`` stays 1 under a strategy,
-as in the JAX package.
+barrier after the write. After the last step ``strategy.unplace`` puts
+the whole parameters back into the model. ``steps_per_dispatch`` stays 1
+under a strategy, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -437,7 +441,9 @@ class Optimizer:
         if self._clip_const is not None:
             grads = clip_by_value(grads, *self._clip_const)
         if self._clip_norm is not None:
-            grads, _ = clip_by_global_norm(grads, self._clip_norm)
+            grads, _ = clip_by_global_norm(
+                grads, self._clip_norm, None if self.strategy is None
+                else self.strategy.grad_sq_norm(grads))
         if self.strategy is not None:
             self.strategy.update(self.optim_method, grads, opt_state, params)
         else:
@@ -498,14 +504,20 @@ class Optimizer:
             # every rank has looked for the snapshot before one is written
             # (a gather without state to move is no collective)
             strat.barrier()
-            _, _, opt_state = strat.gather(None, None, opt_state)  # all ranks
+            # whole trees on every rank (a collective): a tensor-parallel
+            # or fully sharded run writes the single process's blob
+            whole, _, opt_state = strat.gather(
+                dict(self.model.named_parameters()), None, opt_state)
             layout = strat.layout_signature()
-            if strat.rank != 0 and not sharded:
+            if not strat.writer and not sharded:
                 strat.barrier()  # rank 0 writes
                 return
         # host copies, taken now: the next step (or replay) updates the
         # tensors in place
-        tensors = _host_tree(self.model.state_dict())
+        tensors = dict(self.model.state_dict())
+        if strat is not None:
+            tensors.update(whole)
+        tensors = _host_tree(tensors)
         state = _host_tree(opt_state)
 
         def write():
@@ -513,7 +525,7 @@ class Optimizer:
                        sharded=sharded)
             save_state(state_target, state, self.model, layout=layout,
                        sharded=sharded)
-            if self._ckpt_keep_last and (strat is None or strat.rank == 0):
+            if self._ckpt_keep_last and (strat is None or strat.writer):
                 from bigdl_tpu_torch.utils.file import gc_checkpoints
                 gc_checkpoints(self._ckpt_path, self._ckpt_keep_last)
             logger.info("Checkpoint written at iteration %d to %s%s", n,
@@ -607,7 +619,7 @@ class Optimizer:
         if strat is not None:
             from bigdl_tpu_torch.interop.checkpoint import model_tensors
             from bigdl_tpu_torch.parallel import feeds_rank_part
-            params, _, opt_state = strat.place(
+            params, _, opt_state = strat.bind(model).place(
                 params, model_tensors(model)[1], opt_state)
             strat.sync_batch_norm(model)
             rank_local = feeds_rank_part(self.dataset)
@@ -808,6 +820,8 @@ class Optimizer:
         self._join_ckpt_writer()
         logger.info("Training finished after %d iterations in %.1fs",
                     progress["iteration"], time.time() - wall_start)
+        if strat is not None:
+            strat.unplace(model)  # whole parameters again, on every rank
         model.eval()
         return TrainedModel(model)
 

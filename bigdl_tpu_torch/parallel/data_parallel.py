@@ -116,20 +116,37 @@ class DataParallel:
         self._residuals: dict = {}
         self._owner: Optional[dict] = None
         self._names: set = set()
+        # leaves every rank updates on its own, never broadcast (a tensor
+        # parallel rank's slices)
+        self._local: set = set()
         self._template = None
+        self._model = None
 
     # ------------------------------------------------------------ identity
+    @property
+    def data_mesh(self) -> Mesh:
+        """The one-axis mesh of this rank's line along the data axis (the
+        mesh itself when it has one axis): the group the gradients, the
+        loss, ZeRO-1 and the evaluation counts are reduced over."""
+        return self.mesh.axis_view(self.axis)
+
     @property
     def world(self) -> int:
         return self.mesh.shape[self.axis]
 
     @property
     def rank(self) -> int:
-        return self.mesh.rank
+        return self.data_mesh.rank
 
     @property
     def group(self):
-        return self.mesh.group
+        return self.data_mesh.group
+
+    @property
+    def writer(self) -> bool:
+        """Whether this rank writes a checkpoint that one rank writes: the
+        first rank of the mesh."""
+        return self.mesh.rank == 0
 
     def _collective(self) -> bool:
         return _dist().is_initialized()
@@ -160,7 +177,7 @@ class DataParallel:
         for ts in by_dtype.values():
             flat = torch.cat([t.reshape(-1) for t in ts])
             # src is a rank of the mesh; torch.distributed names the job's
-            dist.broadcast(flat, src=self.mesh.global_rank(src),
+            dist.broadcast(flat, src=self.data_mesh.global_rank(src),
                            group=self.group)
             if self.rank != src:
                 for t, piece in zip(ts, torch.split(
@@ -243,16 +260,21 @@ class DataParallel:
         """The mean over the ranks of ``grads`` ({name: tensor}), bucketed
         and compressed per ``grad_comm``, and of ``loss``; returns
         ``(grads, loss)``."""
-        if not self._collective():
+        if not self._collective() or self.world <= 1:
             return grads, loss
         dist = _dist()
-        out, info = apply_grad_comm(grads, self.grad_comm, self.mesh,
+        out, info = apply_grad_comm(grads, self.grad_comm, self.data_mesh,
                                     self._residuals)
         if info is not None:
             self._grad_comm_info = info
         loss = loss.detach().float().clone()
         dist.all_reduce(loss, group=self.group)
         return out, loss / self.world
+
+    def grad_sq_norm(self, grads: dict):
+        """The squared global L2 norm of the reduced ``grads`` (f32): every
+        rank holds every gradient whole."""
+        return sum(torch.sum(torch.square(g.float())) for g in grads.values())
 
     def grad_comm_info(self):
         """The bucket and wire accounting of the last compressed
@@ -270,7 +292,7 @@ class DataParallel:
         mine = [n for n in params if self.owner(n) == self.rank]
         method.update({n: grads[n] for n in mine}, opt_state,
                       {n: params[n] for n in mine})
-        order = jax_order(params)
+        order = [n for n in jax_order(params) if n not in self._local]
         for r in range(self.world):
             self._broadcast_tensors([params[n].data for n in order
                                      if self.owner(n) == r], r)
@@ -301,7 +323,7 @@ class DataParallel:
                     out[k] = t
                 else:
                     out[k] = mine[k]
-                    if keyed:
+                    if keyed and k not in self._local:
                         full_bufs.setdefault(self.rank, []).append(
                             (path + (k,), mine[k]))
             return out
@@ -325,8 +347,19 @@ class DataParallel:
         return t.tolist()
 
     def barrier(self) -> None:
+        """Every rank of the mesh (its data and model axes)."""
         if self._collective():
-            _dist().barrier(group=self.group)
+            _dist().barrier(group=self.mesh.group)
+
+    def bind(self, model: torch.nn.Module) -> "DataParallel":
+        """The model whose parameters ``place`` receives (the Optimizer
+        binds its own; the fully sharded strategy hooks it)."""
+        self._model = model
+        return self
+
+    def unplace(self, model: torch.nn.Module) -> None:
+        """Make ``model`` whole again after training (nothing to do: every
+        rank holds every parameter)."""
 
 
 def _meta_tree(tree: dict) -> dict:
@@ -345,3 +378,220 @@ def _first_device(tree: dict):
         else:
             return v.device
     return None
+
+
+class FullyShardedDataParallel(DataParallel):
+    """ZeRO-3 over the data axis (the JAX ``FullyShardedDataParallel``):
+    parameters, their gradients' use and the optimizer state live on
+    their owner rank only, and two module hooks unshard a leaf module's
+    parameters around each use.
+
+    * ``place`` gives every parameter an owner (:func:`balanced_owners`,
+      whole leaves) and frees the storage of the parameters this rank does
+      not own (``untyped_storage().resize_(0)``: the tensor keeps its
+      shape, autograd its saved references).
+    * A forward pre-hook on each module that holds parameters gathers them
+      (a broadcast from each owner into the re-grown storage), a forward
+      hook frees them again; a hook on the module's output gathers them
+      once more when its gradient arrives, before the module's backward
+      runs, and a hook on each parameter's gradient frees them once the
+      module's last gradient is made. So at most the modules in flight are
+      whole: one at a time in a chain. A parameter the model's forward
+      reads outside its module (``model.fsdp_outer_params()``: the tied LM
+      head) is gathered for the model's whole call.
+    * After the backward the gradients are averaged over the ranks
+      (``reduce_grads``, the buckets of ``parallel.grad_comm``) and each
+      owner updates its own parameters; nothing is broadcast after the
+      update (the next forward gathers).
+
+    Stated differences from the JAX package: whole leaves are owned (JAX
+    slices each leaf along its largest divisible dim, ``_zero1_spec``), so
+    a gather is a broadcast from the owner, which gloo has on CUDA
+    tensors, and a per-tensor norm (LARS, LAMB) needs no collective; the
+    gradients are whole on every rank until the step's reduce (the
+    backward returns them together), reduced by all-reduce (gloo's CUDA
+    path has no reduce-scatter) and kept by their owner.
+    """
+
+    def __init__(self, mesh: Optional[Mesh] = None, axis: str = "data",
+                 donate: bool = True, grad_comm=None):
+        super().__init__(mesh, axis, zero1=True, donate=donate,
+                         grad_comm=grad_comm)
+        self._handles: list = []
+        self._params: dict = {}  # name -> Parameter
+        self._whole = {}  # id(param) -> modules holding it whole now
+        # accounting the tests and chip_smoke read
+        self.gathers = 0
+        self.max_whole_modules = 0
+        self._whole_modules: set = set()
+
+    # ------------------------------------------------------------ storage
+    def _resident(self, p: torch.Tensor) -> bool:
+        return p.untyped_storage().size() > 0
+
+    @torch.no_grad()
+    def _gather_module(self, mod) -> None:
+        """Gather ``mod``'s own parameters (a broadcast from each owner;
+        every rank runs the same modules in the same order)."""
+        key = id(mod)
+        if key in self._whole_modules:
+            return
+        self._whole_modules.add(key)
+        self.max_whole_modules = max(self.max_whole_modules,
+                                     len(self._whole_modules))
+        for name, p in self._module_params[key]:
+            users = self._whole.setdefault(id(p), set())
+            users.add(key)
+            if len(users) > 1:
+                continue
+            src = self._owner[name]
+            if src != self.rank:
+                p.untyped_storage().resize_(p.numel() * p.element_size())
+            _dist().broadcast(p.data, src=self.data_mesh.global_rank(src),
+                              group=self.group)
+            self.gathers += 1
+
+    @torch.no_grad()
+    def _free_module(self, mod) -> None:
+        key = id(mod)
+        if key not in self._whole_modules:
+            return
+        self._whole_modules.discard(key)
+        for name, p in self._module_params[key]:
+            users = self._whole.get(id(p), set())
+            users.discard(key)
+            if not users and self._owner[name] != self.rank:
+                p.untyped_storage().resize_(0)
+
+    def _install_hooks(self, model: torch.nn.Module, params: dict) -> None:
+        by_id = {id(p): n for n, p in params.items()}
+        # parameters the model's own forward reads outside their module
+        # (a tied LM head) are whole for the model's whole call
+        outer = [model.get_parameter(n) for n in
+                 getattr(model, "fsdp_outer_params", lambda: [])()]
+        self._module_params = {}
+        for mod in model.modules():
+            own = [(by_id[id(p)], p) for p in list(
+                mod.parameters(recurse=False)) + (outer if mod is model
+                                                  else [])
+                   if id(p) in by_id]
+            if not own:
+                continue
+            self._module_params[id(mod)] = own
+            pending = {"left": 0}
+
+            def pre(m, args, _self=self):
+                _self._gather_module(m)
+
+            def post(m, args, out, _self=self, pending=pending,
+                     n_own=len(own)):
+                _self._free_module(m)
+                if torch.is_grad_enabled():
+                    pending["left"] = n_own
+                    for t in _tensors(out):
+                        if t.requires_grad:
+                            t.register_hook(
+                                lambda g, m=m: (_self._gather_module(m), g)[1])
+
+            def grad_made(g, m=mod, pending=pending, _self=self):
+                pending["left"] -= 1
+                if pending["left"] <= 0:
+                    _self._free_module(m)
+                return g
+
+            self._handles.append(mod.register_forward_pre_hook(pre))
+            self._handles.append(mod.register_forward_hook(post))
+            for _, p in own:
+                if p.requires_grad:
+                    self._handles.append(p.register_hook(grad_made))
+
+    # ----------------------------------------------------------- placement
+    def place(self, params: dict, mod_state: Optional[dict] = None,
+              opt_state: Optional[dict] = None):
+        """As :meth:`DataParallel.place`, then each parameter this rank
+        does not own is freed and the unshard hooks are installed on the
+        model that holds ``params`` (``shard_model`` names it)."""
+        params, mod_state, opt_state = super().place(params, mod_state,
+                                                     opt_state)
+        self._params = dict(params)
+        if self._model is not None and self._collective() \
+                and self.world > 1:  # one rank owns everything
+            self.shard_model(self._model)
+        return params, mod_state, opt_state
+
+    @torch.no_grad()
+    def shard_model(self, model: torch.nn.Module) -> None:
+        self.unplace(model, gather=False)
+        self._model = model
+        self._install_hooks(model, self._params)
+        for name, p in self._params.items():
+            if self._owner[name] != self.rank and self._resident(p):
+                p.untyped_storage().resize_(0)
+
+    def resident_bytes(self) -> int:
+        """Bytes of parameter storage this rank holds now."""
+        return sum(p.untyped_storage().size() for p in self._params.values())
+
+    # ---------------------------------------------------------------- step
+    def reduce_grads(self, grads: dict, loss):
+        """Every module whole at the end of the backward (a parameter that
+        got no gradient) is freed, then :meth:`DataParallel.reduce_grads`."""
+        for mod in list(self._model.modules()) if self._model else []:
+            self._free_module(mod)
+        self._whole_modules.clear()
+        return super().reduce_grads(grads, loss)
+
+    @torch.no_grad()
+    def update(self, method, grads: dict, opt_state: dict, params: dict):
+        """``method.update`` over the parameters this rank owns; the next
+        forward's gathers hand them to the other ranks."""
+        mine = [n for n in params if self.owner(n) == self.rank]
+        method.update({n: grads[n] for n in mine}, opt_state,
+                      {n: params[n] for n in mine})
+        return opt_state
+
+    # --------------------------------------------------------------- gather
+    @torch.no_grad()
+    def _whole_params(self, params: dict) -> dict:
+        out = {}
+        for n in jax_order(params):
+            p = params[n]
+            t = (p.data.clone(memory_format=torch.contiguous_format)
+                 if self._owner[n] == self.rank
+                 else torch.empty(p.shape, dtype=p.dtype, device=p.device))
+            _dist().broadcast(t, src=self.data_mesh.global_rank(
+                self._owner[n]), group=self.group)
+            out[n] = t
+        return out
+
+    def gather(self, params: dict, mod_state: dict, opt_state: dict):
+        """Whole trees on every rank (a collective): the parameters from
+        their owners, the optimizer state as under ZeRO-1."""
+        if params is not None and self._collective() and self.world > 1:
+            params = self._whole_params(params)
+        return super().gather(params, mod_state, opt_state)
+
+    @torch.no_grad()
+    def unplace(self, model: torch.nn.Module, gather: bool = True) -> None:
+        """Remove the hooks and, with ``gather``, make every parameter
+        whole on every rank again (a collective)."""
+        for h in self._handles:
+            h.remove()
+        self._handles = []
+        self._whole_modules.clear()
+        self._whole.clear()
+        if gather and self._params and self._collective() and \
+                self.world > 1:
+            for n, t in self._whole_params(self._params).items():
+                p = self._params[n]
+                if not self._resident(p):
+                    p.untyped_storage().resize_(t.numel() * t.element_size())
+                p.data.copy_(t)
+
+
+def _tensors(out) -> list:
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _tensors(o)]
+    return []

@@ -2,8 +2,9 @@
 continuous-batching KV-cache decode (dense or paged, with the shared-prefix
 cache, speculative decoding and quantized weights and KV pools), CUDA
 graphs of the serving path, request tracing with SLOs and an access log,
-watchdog, the HTTP surface with streamed ``/generate``, and the
-multi-process fleet (``serving.fleet``).
+watchdog, the HTTP surface with streamed ``/generate``, tensor-parallel
+engines and dp replicas (``serving.sharding``, ``serving.replicas``), and
+the multi-process fleet (``serving.fleet``).
 
 The names below load on first use: a fleet router imports
 ``serving.fleet.router`` and ``serving.reqtrace`` without loading torch,
@@ -21,6 +22,9 @@ _EXPORTS = {
                  "kv_quant_rows", "pages_needed"),
     "metrics": ("MetricsRegistry",),
     "prefix_cache": ("PrefixCache",),
+    "replicas": ("Replica", "ReplicaSet"),
+    "sharding": ("ServingSharding", "TPLink", "replica_device_groups",
+                 "restore_for_serving", "serving_mesh"),
     "quant": ("QUANTIZE_CHOICES", "QuantizedWeight", "parse_quantize",
               "quant_report", "quantize_params"),
     "server": ("ServingApp", "make_server", "run_server"),

@@ -54,12 +54,15 @@ class WorkerDied(RuntimeError):
 class _Future:
     """Minimal thread-safe future resolved by a worker thread."""
 
-    __slots__ = ("_event", "_value", "_exc")
+    # ``decoder``: the engine a /generate future was submitted to (the
+    # routed replica's under dp)
+    __slots__ = ("_event", "_value", "_exc", "decoder")
 
     def __init__(self):
         self._event = threading.Event()
         self._value = None
         self._exc = None
+        self.decoder = None
 
     def set_result(self, v) -> None:
         self._value = v

@@ -132,7 +132,16 @@ class DecodeEngine:
     the target's is paged. ``quantize``: a ``--quantize`` mode
     (``serving.quant.QUANTIZE_CHOICES``); the engine serves a quantized
     copy of the model (and of a distinct draft), and ``kv8`` needs
-    ``kv_page_tokens``. ``off`` or None serves the model as it is."""
+    ``kv_page_tokens``. ``off`` or None serves the model as it is.
+
+    ``tp``: a :class:`~bigdl_tpu_torch.serving.sharding.TPLink` of a tp:K
+    engine whose model is placed on this rank
+    (``ServingSharding.place_params``). Every rank builds the same engine;
+    rank 0 drives it, and each call of a device program (a prefill, a
+    step, a verify, a draft step, a page copy) is broadcast with its host
+    inputs (the slot knobs, the staged row, the page table), so ranks
+    1..K-1 (``tp.serve()``) run it on their shards. The programs run
+    eagerly under tp."""
 
     def __init__(self, model, *, slots: int = 4, cache_dtype=None,
                  max_waiting: int = 64, metrics=None, clock=None,
@@ -141,7 +150,7 @@ class DecodeEngine:
                  prefix_cache: bool = False,
                  speculate: int = 0, draft_model=None,
                  quantize: Optional[str] = None,
-                 graphs: Union[bool, GraphPool] = True):
+                 graphs: Union[bool, GraphPool] = True, tp=None):
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if speculate < 0:
@@ -236,6 +245,14 @@ class DecodeEngine:
             self._q = zeros(S, K + 1, model.vocab, dtype=torch.float32)
             self._round = zeros(S, K + 3)
 
+        self._tp = tp if tp is not None and tp.size > 1 else None
+        if self._tp is not None:
+            if isinstance(graphs, GraphPool) and graphs.enabled:
+                raise ValueError("a tp engine runs its programs eagerly: "
+                                 "pass graphs=False or an eager pool")
+            graphs = graphs if isinstance(graphs, GraphPool) else False
+            self._tp.register("decode.run", self._tp_run)
+            self._tp.register("decode.copy", self._tp_copy)
         self._pool = (graphs if isinstance(graphs, GraphPool)
                       else GraphPool(dev, enabled=graphs))
         self.graphs = GraphSet(self._pool)
@@ -496,7 +513,54 @@ class DecodeEngine:
 
     @torch.no_grad()
     def _run(self, key) -> None:
+        if self._tp is not None:
+            self._tp.call("decode.run", key, self._host_inputs(key))
+            return
         self.graphs.run(key, self._progs[key])
+
+    # ------------------------------------------------------ tensor parallel
+    # the small device buffers a program reads, mirrored from the leader
+    _TP_STATE = ("_slot", "_last", "_pos0", "_pos_d", "_live", "_temp",
+                 "_topk", "_topp", "_seed")
+
+    def _host_inputs(self, key) -> dict:
+        """The host copies of what program ``key`` reads besides the
+        weights, the caches and its own outputs."""
+        names = self._TP_STATE + (("_pending", "_j") if self.speculate
+                                  else ())
+        out = {n: getattr(self, n).cpu().numpy() for n in names}
+        if key[0] in ("prefill", "suffix", "draft prefill"):
+            out["row"] = self._rows[key[1]].cpu().numpy()
+        if self.paged:
+            out["table"] = self._kv.table.copy()
+        return out
+
+    @torch.no_grad()
+    def _tp_run(self, key, inputs: dict) -> None:
+        """Run program ``key`` on this rank's shards (a follower first
+        takes the leader's host inputs)."""
+        if not self._tp.leader:
+            for n, v in inputs.items():
+                if n == "row":
+                    self._rows[key[1]].copy_(torch.from_numpy(v))
+                elif n == "table":
+                    self._kv.table[:] = v
+                    self._kv.page_table.copy_(torch.from_numpy(v))
+                else:
+                    getattr(self, n).copy_(torch.from_numpy(v))
+        self.graphs.run(key, self._progs[key])
+
+    @torch.no_grad()
+    def _tp_copy(self, src, dst) -> None:
+        _kvp.copy_pages(self._kv.pools, self._pages(src), self._pages(dst))
+
+    def _copy_pages(self, src, dst) -> None:
+        """Copy pool pages ``src`` to ``dst`` (every rank's, under tp)."""
+        src, dst = [int(p) for p in src], [int(p) for p in dst]
+        if self._tp is not None:
+            self._tp.call("decode.copy", src, dst)
+        else:
+            self._tp_copy(src, dst)
 
     # ------------------------------------------------------------ admission
     def prompt_bucket_for(self, n: int) -> int:
@@ -679,8 +743,7 @@ class DecodeEngine:
         """Prefix-cache hit: copy the entry's pages into the slot, then
         prefill only the suffix at offset ``n_pfx``."""
         pt = self.page_tokens
-        _kvp.copy_pages(self._kv.pools, self._pages(src),
-                        self._pages(self._kv.table[slot, :n_pfx // pt]))
+        self._copy_pages(src, self._kv.table[slot, :n_pfx // pt])
         suffix = req.tokens[n_pfx:]
         m = min(self.prompt_bucket_for(len(suffix)), self.max_len - n_pfx)
         self._stage(m, suffix)
@@ -693,9 +756,7 @@ class DecodeEngine:
         if ins is None:
             return
         key, dst = ins
-        _kvp.copy_pages(self._kv.pools,
-                        self._pages(self._kv.table[slot, :len(dst)]),
-                        self._pages(dst))
+        self._copy_pages(self._kv.table[slot, :len(dst)], dst)
         self._pfx.commit_insert(key, dst, len(dst) * self.page_tokens)
 
     # ------------------------------------------------------------- emission

@@ -25,8 +25,9 @@ into one buffer, sized by the largest, which is captured first.
 requests whose rows it carried. An image classifier is served the same
 way with no length buckets: ``warmup`` takes the input shape and dtype
 ``cli.perf.build_model`` gives, and ``compute_dtype`` casts floating
-inputs (``serve --bf16``) as the JAX engine does. Mesh placement and the
-lint pre-flight are not ported yet.
+inputs (``serve --bf16``) as the JAX engine does. Under ``tp`` (a tp:K
+engine, ``serving.sharding``) rank 0's forwards run on every rank. The
+lint pre-flight is not ported yet.
 """
 
 from __future__ import annotations
@@ -58,15 +59,26 @@ class InferenceEngine:
     a pool shared with a decode engine. ``quantize``: a ``--quantize``
     mode; its weight format (int8, fp8) is served, the kv8 part is the
     decode engine's. ``compute_dtype``: floating inputs are cast to it
-    before the module (an image model's bf16 activations)."""
+    before the module (an image model's bf16 activations). ``tp``: the
+    :class:`~bigdl_tpu_torch.serving.sharding.TPLink` of a tp:K engine
+    (the module placed on this rank): rank 0's forwards are broadcast with
+    their chunk and run eagerly on every rank."""
 
     def __init__(self, module, *, buckets: Sequence[int] = (1, 2, 4, 8, 16,
                                                             32),
                  lengths: Optional[Sequence[int]] = None,
                  metrics=None, device="cuda",
                  graphs: Union[bool, GraphPool] = True,
-                 quantize: Optional[str] = None, compute_dtype=None):
+                 quantize: Optional[str] = None, compute_dtype=None,
+                 tp=None):
         self.device = resolve_device(device)
+        self._tp = tp if tp is not None and tp.size > 1 else None
+        if self._tp is not None:
+            if isinstance(graphs, GraphPool) and graphs.enabled:
+                raise ValueError("a tp engine runs its forwards eagerly: "
+                                 "pass graphs=False or an eager pool")
+            graphs = graphs if isinstance(graphs, GraphPool) else False
+            self._tp.register("predict.forward", self._run_chunk)
         self.compute_dtype = compute_dtype
         self.quantize = quantize or "off"
         wfmt, _ = _q.parse_quantize(quantize)
@@ -153,10 +165,16 @@ class InferenceEngine:
         """The module's output for one bucket-sized chunk, through the
         graph of its geometry."""
         with self.graphs.pool.work():
-            key, fn = self._stage(chunk)
-            # a copy: the buffer is every forward's (a CPU tensor's
-            # .cpu() would share it)
-            return self.graphs.run(key, fn).to("cpu", copy=True).numpy()
+            if self._tp is not None:
+                return self._tp.call("predict.forward", chunk)
+            return self._run_chunk(chunk)
+
+    @torch.no_grad()
+    def _run_chunk(self, chunk: np.ndarray) -> np.ndarray:
+        key, fn = self._stage(chunk)
+        # a copy: the buffer is every forward's (a CPU tensor's .cpu()
+        # would share it)
+        return self.graphs.run(key, fn).to("cpu", copy=True).numpy()
 
     @torch.no_grad()
     def warmup(self, feat_shape, dtype=np.float32) -> None:

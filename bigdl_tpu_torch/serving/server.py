@@ -35,6 +35,7 @@ admitting. Replicas (``--strategy dp``) are not ported yet.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import queue as _queue_mod
@@ -85,15 +86,30 @@ class ServingApp:
     ``"deadline_ms"`` overrides it); past ``shed_generate_frac`` of either
     queue's capacity, or with the SLO burn saturated, ``/generate`` sheds
     with 429; ``watchdog`` gives the readiness verdict for ``/readyz``;
-    ``version`` is the weights' version echoed as ``x-model-version``."""
+    ``version`` is the weights' version echoed as ``x-model-version``.
+
+    dp mode (``serve --strategy dp:N``): pass ``replicas`` (a
+    :class:`~bigdl_tpu_torch.serving.replicas.ReplicaSet`) instead of
+    engine/batcher/decoder; each request goes to the least-loaded live
+    replica, ``/readyz`` aggregates the replicas' verdicts, and
+    ``/generate`` sheds only when every live replica is saturated.
+    ``tp_link``: rank 0's ``TPLink`` of a tp:K server, closed (the
+    followers released) when the app closes."""
 
     def __init__(self, *, name: str, metrics, engine=None, batcher=None,
                  decoder=None, request_timeout_s: float = 120.0,
                  default_deadline_ms: Optional[float] = None,
                  shed_generate_frac: float = 0.75, watchdog=None,
-                 version: str = "v0"):
+                 version: str = "v0", replicas=None, tp_link=None):
+        if replicas is not None and (engine is not None
+                                     or batcher is not None
+                                     or decoder is not None):
+            raise ValueError("pass either replicas= or "
+                             "engine/batcher/decoder, not both")
         self.name = name
         self.metrics = metrics
+        self.replicas = replicas
+        self.tp_link = tp_link
         self.engine, self.batcher, self.decoder = engine, batcher, decoder
         self.watchdog = watchdog
         self.clock = time.monotonic
@@ -144,6 +160,8 @@ class ServingApp:
         queue's capacity, or while the SLO burn rate says every recent
         request misses its targets, /generate sheds."""
         frac = self.shed_generate_frac
+        if self.replicas is not None and self.replicas.shed_generate(frac):
+            return True
         if (self.batcher is not None
                 and self.batcher.queue_depth
                 >= frac * self.batcher.max_queue):
@@ -160,6 +178,15 @@ class ServingApp:
         return 200, {"status": "ok", "model": self.name}
 
     def handle_readyz(self):
+        if self.replicas is not None:
+            # the fleet is ready while one replica can serve (a dead one is
+            # routed around); the body names every replica's verdict
+            ok, detail = self.replicas.ready_detail()
+            detail["model"] = self.name
+            if self._shed_generate():
+                detail["shedding"] = "generate"
+            detail["status"] = "ready" if ok else "unready"
+            return (200 if ok else 503), detail
         detail = {"model": self.name}
         ok = True
         if self.watchdog is not None and not self.watchdog.ready():
@@ -175,38 +202,58 @@ class ServingApp:
         detail["status"] = "ready" if ok else "unready"
         return (200 if ok else 503), detail
 
+    @contextlib.contextmanager
+    def _route(self, endpoint: str, rid: Optional[str]):
+        """(engine, batcher, decoder) of the request: the least-loaded
+        live replica's in dp mode (WorkerDied, a 503, when none lives; the
+        choice is noted in the request's record), else the app's own. The
+        caller submits inside the block: until then the pick counts in
+        its replica's load (:meth:`ReplicaSet.routed`)."""
+        if self.replicas is None:
+            yield self.engine, self.batcher, self.decoder
+            return
+        with self.replicas.routed(endpoint) as rep:
+            rt = _reqtrace.get()
+            if rt is not None:
+                rt.note_replica(rid, rep.index)
+            yield rep.engine, rep.batcher, rep.decoder
+
     def handle_predict(self, payload: dict, rid: Optional[str] = None):
-        if self.engine is None:
-            return 400, {"error": "no /predict engine for this model"}
-        inputs = payload.get("inputs")
-        if inputs is None:
-            return 400, {"error": "missing 'inputs'"}
-        try:
-            x = np.asarray(inputs)
-            if x.dtype == object:
-                raise ValueError("ragged inputs")
-            if np.issubdtype(x.dtype, np.floating):
-                x = x.astype(np.float32)
-            elif np.issubdtype(x.dtype, np.integer):
-                x = x.astype(np.int32)
+        with self._route("predict", rid) as (engine, batcher, _):
+            if engine is None:
+                return 400, {"error": "no /predict engine for this model"}
+            inputs = payload.get("inputs")
+            if inputs is None:
+                return 400, {"error": "missing 'inputs'"}
+            try:
+                x = np.asarray(inputs)
+                if x.dtype == object:
+                    raise ValueError("ragged inputs")
+                if np.issubdtype(x.dtype, np.floating):
+                    x = x.astype(np.float32)
+                elif np.issubdtype(x.dtype, np.integer):
+                    x = x.astype(np.int32)
+                else:
+                    raise ValueError(f"unsupported dtype {x.dtype}")
+                if x.ndim < 2:
+                    raise ValueError(
+                        "inputs must be a batch (rows on axis 0)")
+                engine.validate(x)
+            except ValueError as e:
+                return 400, {"error": f"bad inputs: {e}"}
+            deadline = self._deadline_from(payload)
+            if batcher is not None:
+                futs = batcher.submit_many(list(x), deadline=deadline,
+                                           rid=rid)
             else:
-                raise ValueError(f"unsupported dtype {x.dtype}")
-            if x.ndim < 2:
-                raise ValueError("inputs must be a batch (rows on axis 0)")
-            self.engine.validate(x)
-        except ValueError as e:
-            return 400, {"error": f"bad inputs: {e}"}
-        deadline = self._deadline_from(payload)
-        if self.batcher is not None:
-            futs = self.batcher.submit_many(list(x), deadline=deadline,
-                                            rid=rid)
+                if deadline is not None and self.clock() >= deadline:
+                    raise DeadlineExceeded(
+                        "deadline expired before compute")
+                scores = engine.predict_scores(
+                    x, rids=([rid] * len(x) if rid is not None else None))
+        if batcher is not None:
             scores = np.stack([f.result(self.request_timeout_s)
                                for f in futs])
-        else:
-            if deadline is not None and self.clock() >= deadline:
-                raise DeadlineExceeded("deadline expired before compute")
-            scores = self.engine.predict_scores(
-                x, rids=([rid] * len(x) if rid is not None else None))
         out = {"predictions": np.argmax(scores, axis=-1).tolist()}
         if payload.get("return_scores"):
             out["scores"] = np.asarray(scores, np.float64).tolist()
@@ -233,8 +280,9 @@ class ServingApp:
 
     def _submit_generate(self, payload: dict, rid, emit=None):
         """``(tokens, future)`` of an admitted /generate, or ``(None,
-        (status, body))``."""
-        if self.decoder is None:
+        (status, body))``; ``future.decoder`` is the decoder it went to
+        (the routed replica's)."""
+        if self.decoder is None and self.replicas is None:
             return None, (400, {"error": "no /generate decoder for this "
                                          "model (serve a transformer_lm* "
                                          "model)"})
@@ -242,13 +290,19 @@ class ServingApp:
         if parsed is None:
             return None, (400, {"error": err})
         tokens, o = parsed
-        try:
-            fut = self.decoder.submit(
-                tokens, o["max_new"], o["temperature"], o["stop"],
-                deadline=self._deadline_from(payload), top_k=o["top_k"],
-                top_p=o["top_p"], seed=o["seed"], rid=rid, emit=emit)
-        except (TypeError, ValueError) as e:
-            return None, (400, {"error": str(e)})
+        with self._route("generate", rid) as (_, _, decoder):
+            if decoder is None:
+                return None, (400, {"error": "no /generate decoder for "
+                                             "this model"})
+            try:
+                fut = decoder.submit(
+                    tokens, o["max_new"], o["temperature"], o["stop"],
+                    deadline=self._deadline_from(payload),
+                    top_k=o["top_k"], top_p=o["top_p"], seed=o["seed"],
+                    rid=rid, emit=emit)
+            except (TypeError, ValueError) as e:
+                return None, (400, {"error": str(e)})
+        fut.decoder = decoder
         return tokens, fut
 
     def handle_generate(self, payload: dict, rid: Optional[str] = None):
@@ -274,6 +328,8 @@ class ServingApp:
     def handle_debug_slots(self):
         """The decoder's slot table and KV page-pool occupancy and the
         batcher's queue, with or without ``--reqTrace``."""
+        if self.replicas is not None:
+            return 200, self.replicas.debug_snapshot()
         if self.decoder is not None:
             out = self.decoder.debug_snapshot()
         else:
@@ -407,7 +463,7 @@ class ServingApp:
                 rt.finish(rid, "bad_request", status=status,
                           error=body["error"])
             return status, body
-        return 200, _GenerateStream(rid, q, fut, self.decoder, len(tokens))
+        return 200, _GenerateStream(rid, q, fut, fut.decoder, len(tokens))
 
     def finish_generate_stream(self, rid: Optional[str], ok: bool,
                                t0: float) -> None:
@@ -433,6 +489,10 @@ class ServingApp:
             self.engine.close()
         if self.decoder is not None:
             self.decoder.close()
+        if self.replicas is not None:
+            self.replicas.close()
+        if self.tp_link is not None:
+            self.tp_link.close()  # a tp:K server's followers return
         rt = _reqtrace.get()
         if rt is not None:
             rt.close()  # flush the access log

@@ -72,13 +72,15 @@ def _reader(path: str):
 
 
 def _group():
-    """(process group of the data axis, whether one is in use): every rank
-    of the current mesh takes part in a save or a restore."""
+    """(process group of the job's live ranks, whether one is in use):
+    every rank of the current mesh takes part in a save or a restore (a
+    tensor-parallel or fully sharded job's too: its trees are whole on
+    every rank, gathered before the write)."""
     import torch.distributed as dist
     if not dist.is_initialized():
         return None, False
-    from bigdl_tpu_torch.parallel.mesh import axis_group
-    return axis_group("data")[0], True
+    from bigdl_tpu_torch.parallel.mesh import live_group
+    return live_group(), True
 
 
 def _listdir(path: str) -> list:

@@ -443,6 +443,33 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    line carries ``reshape`` (4 -> 3) and ``supervisor``, finite losses,
    53 of each synced BN kernel a step on each rank; images/s before and
    after.
+26. Tensor parallel and FSDP, after phase 25; the gloo jobs are 2 ranks
+   sharing the card (``parallel.launch.spawn``). The kernels against
+   their plain versions at the tp:2 per-rank geometry of
+   ``transformer_lm_1k_hd128`` (4 query heads, 1 KV head expanded to 4,
+   d = 128): ``flash_fwd`` bf16 and f32 at batch 8 x 1024 and 2 x 64,
+   the backward pair at batch 8 x 1024. (a) ``serve --strategy tp:2`` at
+   full width through ``cli.serve.build_app`` on each rank (rank 0 leads,
+   rank 1 follows): in f32 the greedy /generate of 4 prompts equals a
+   one-rank engine's token for token; in bf16 the /predict forward's
+   logits differ from one rank's bf16 by at most 3x that one's own error
+   against f32; each rank's ``flash_fwd`` launches and the head count and
+   dim they ran at. (b) ``serve --strategy dp:2 --devices
+   cuda:0,cuda:0`` in this process at seq 256, each replica its own CUDA
+   graphs: 8 concurrent /generate equal the same prompts through replica
+   0 alone, bit for bit; both replicas served; /metrics has
+   ``replica="0"``/``"1"`` series and the fleet gauges. (c) ``TensorParallel``
+   tp:2 training of ``transformer_lm_1k_hd128`` cut to 2 layers: f32 (the
+   FMA kernels) 4 steps within 1e-4 of one process in loss and 1e-4 of
+   max|p| in every parameter; bf16 ``cli.perf --strategy tp`` launches
+   ``flash_fwd``, ``flash_dq`` and ``flash_dkv`` on every rank and prints
+   tokens/s (gloo through the host, not scaling). (d)
+   ``FullyShardedDataParallel`` for ``resnet_cifar(20)`` f32 ``--fusedBN
+   apply``, 4 steps: parameters within 1e-5 of ``DataParallel``'s,
+   ``bn_stats``/``bn_bwd_stats`` launched on every rank, each rank's
+   resident parameter and optimizer-state bytes and peak memory beside
+   ``DataParallel``'s. (a)'s and (d)'s jobs start before phase 25 and
+   run on threads beside it and (b).
 
 Any failed phase exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -6749,6 +6776,490 @@ def recovery_runs(torch, card):
     return rows, launches
 
 
+# ------------------------------------------------------------------ phase 26
+# tensor parallel and FSDP: the gloo jobs' constants
+TP_DEPTH = 2          # layers of the tp:2 training rows (full width)
+TP_CUT = MODEL + "_tp2cut"  # MODEL at TP_DEPTH layers, in perf.LM_CONFIGS
+TP_TRAIN_BATCH, TP_TRAIN_STEPS = 8, 4
+TP_ROW_LEN = 64       # the bf16 prefill rows (2 of them) of phase 26 (a)
+TP_TOL = {"loss": 1e-4, "params": 1e-4}  # params: of max|p|
+TP_BF16_FACTOR = 3.0  # tp:2 bf16 logits vs one rank, x one rank's own error
+FSDP_BATCH, FSDP_STEPS, FSDP_TOL = 128, 4, 1e-5
+DP_SERVE_SEQ, DP_SERVE_REQS = 256, 8
+TP_TIMEOUT_S = 600
+TP_SERVE_WORKER = "chip_smoke:tp_serve_worker"
+TP_TRAIN_WORKER = "chip_smoke:tp_train_worker"
+FSDP_WORKER = "chip_smoke:fsdp_worker"
+# the tp:2 per-rank attention geometry of MODEL (4 of its 8 query heads, 1
+# of its 2 KV heads, expanded to 4): the kernels against their plain
+# versions there
+TP_SHAPES = [(TP_TRAIN_BATCH, 4, 1024, 1024, 128, True, "bfloat16", False),
+             (TP_TRAIN_BATCH, 4, 1024, 1024, 128, True, "float32", False),
+             (2, 4, TP_ROW_LEN, TP_ROW_LEN, 128, True, "bfloat16", False)]
+
+
+def _tp_cut_row():
+    """Register TP_CUT: MODEL's row of ``cli.perf`` at TP_DEPTH layers."""
+    from bigdl_tpu_torch.cli import perf
+    perf.LM_CONFIGS[TP_CUT] = dict(perf.LM_CONFIGS[MODEL],
+                                   num_layers=TP_DEPTH)
+
+
+def _tp_prompts():
+    import numpy as np
+    rs = np.random.RandomState(26)
+    prompts = [rs.randint(0, 32000, n).tolist() for n in PROMPT_LENS]
+    rows = rs.randint(0, 32000, (2, TP_ROW_LEN)).astype(np.int32)
+    return prompts, rows
+
+
+def tp_serve_worker(args):
+    """Phase 26 (a) on one rank of a 2-rank gloo job: ``serve MODEL
+    --strategy tp:2`` through ``cli.serve.build_app``, f32 then bf16, the
+    embedding scaled by 0.02 as phase 6 does. Rank 0 answers the greedy
+    /generate of each prompt (f32) and the /predict forward of 2 rows
+    (bf16, saved beside the job); rank 1 follows. Returns each run's
+    kernel launches on this rank and the geometry its attention ran at."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.cli import serve as serve_cli
+    from bigdl_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()
+    rank = dist.get_rank()
+    prompts, rows = _tp_prompts()
+    out = {"rank": rank}
+    for bf16 in (False, True):
+        tag = "bf16" if bf16 else "f32"
+        argv = [MODEL, "--randomInit", "--slots", "4", "--buckets", "1,2",
+                "--no-warmup", "--strategy", "tp:2"] + (
+                    ["--bf16"] if bf16 else [])
+        t0 = time.perf_counter()
+        app = serve_cli.build_app(serve_cli.build_parser().parse_args(
+            argv))[0]
+        model = app.decoder.model
+        with torch.no_grad():
+            model.emb.weight.mul_(0.02)
+        mha = model.encoder[0].mha
+        build_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        ops.reset_kernel_launches()
+        t0 = time.perf_counter()
+        if getattr(app, "follower", False):
+            calls = app.serve()
+            app.close()
+        else:
+            calls = None
+            try:
+                if bf16:
+                    np.save(os.path.join(args["dir"], "tp_bf16.npy"),
+                            app.engine.predict_scores(rows))
+                else:
+                    toks = []
+                    for p in prompts:
+                        st, body = app.dispatch_post(
+                            "/generate", {"tokens": p,
+                                          "max_new_tokens": MAX_NEW})
+                        if st != 200:
+                            raise RuntimeError(f"/generate {st}: {body}")
+                        toks.append(body["tokens"])
+                    out["tokens"] = toks
+            finally:
+                app.close()
+        torch.cuda.synchronize()
+        out[tag] = {"launches": ops.kernel_launches(),
+                    "heads": mha.num_heads, "kv_heads": mha.num_kv_heads,
+                    "head_dim": mha.head_dim, "calls": calls,
+                    "build_s": round(build_s, 1),
+                    "run_s": round(time.perf_counter() - t0, 1)}
+        del app, model
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_train_worker(args):
+    """Phase 26 (c) on one rank of a 2-rank gloo job: TP_CUT trained at
+    ``TensorParallel`` tp:2 through ``cli.perf.train_step`` in f32 (the
+    FMA flash kernels) for TP_TRAIN_STEPS steps; rank 0 then runs the same
+    steps in one process and compares the losses and the gathered whole
+    parameters. Then ``cli.perf.run(--strategy tp)`` in bf16 (the wgmma
+    kernels): its launches and tokens/s."""
+    import torch
+    import torch.distributed as dist
+
+    from bigdl_tpu_torch.cli import perf
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.parallel import TensorParallel, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()
+    _tp_cut_row()
+    rank = dist.get_rank()
+    strat = TensorParallel(make_mesh({"data": 1, "model": 2}), None)
+    (step, model, _, _), n = _launched(torch, lambda: perf.train_step(
+        TP_CUT, TP_TRAIN_BATCH, torch.float32, DEV, strategy=strat))
+    (losses, n) = _launched(torch, lambda: [
+        float(step()) for _ in range(TP_TRAIN_STEPS)])
+    whole = strat.gather(dict(model.named_parameters()), None, None)[0]
+    mha = model.encoder[0].mha
+    out = {"rank": rank, "f32": {"losses": losses, "launches": n,
+                                 "heads": mha.num_heads,
+                                 "kv_heads": mha.num_kv_heads}}
+    del step, model
+    torch.cuda.empty_cache()
+    if rank == 0:
+        step1, model1, _, _ = perf.train_step(TP_CUT, TP_TRAIN_BATCH,
+                                              torch.float32, DEV)
+        ref = [float(step1()) for _ in range(TP_TRAIN_STEPS)]
+        p1 = dict(model1.named_parameters())
+        pmax = max(float(p.detach().abs().max()) for p in p1.values())
+        out["f32"].update(
+            ref=ref, pmax=pmax,
+            dloss=max(abs(a - b) for a, b in zip(losses, ref)),
+            dparam=max(float((whole[k] - p.detach()).abs().max())
+                       for k, p in p1.items()))
+        del step1, model1, p1
+    del whole
+    torch.cuda.empty_cache()
+    dist.barrier()
+    (res, n) = _launched(torch, lambda: perf.run(
+        TP_CUT, batch=TP_TRAIN_BATCH, iterations=3, warmup=1,
+        dtype=torch.bfloat16, strategy="tp"))
+    out["bf16"] = {k: res[k] for k in ("losses", "tokens_per_second",
+                                       "n_devices", "mesh", "strategy")}
+    out["bf16"]["launches"] = n
+    return out
+
+
+def fsdp_worker(args):
+    """Phase 26 (d) on one rank of a 2-rank gloo job: ``resnet_cifar(20)``
+    f32 ``--fusedBN apply`` through ``cli.perf.train_step`` for FSDP_STEPS
+    steps under ``FullyShardedDataParallel``, then under
+    ``DataParallel``: the parameters of the two (whole again after
+    ``unplace``), each run's launches, the parameter storage this rank
+    holds, its optimizer state (SGD momentum: its own parameters' bytes)
+    and its peak memory."""
+    import torch
+    import torch.distributed as dist
+
+    from bigdl_tpu_torch.cli import perf
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.parallel import (DataParallel,
+                                          FullyShardedDataParallel,
+                                          make_mesh)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()
+    rank = dist.get_rank()
+    out, params = {"rank": rank}, {}
+    for kind, make in (("fsdp", FullyShardedDataParallel),
+                       ("dp", DataParallel)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        strat = make(make_mesh({"data": 2}))
+        (step, model, _, _), _ = _launched(torch, lambda: perf.train_step(
+            "resnet20_cifar", FSDP_BATCH, torch.float32, DEV,
+            fused_bn="apply", data_type="random", strategy=strat))
+        (losses, n) = _launched(torch, lambda: [
+            float(step()) for _ in range(FSDP_STEPS)])
+        ps = dict(model.named_parameters())
+        total = sum(p.numel() * p.element_size() for p in ps.values())
+        own = sum(p.numel() * p.element_size() for k, p in ps.items()
+                  if strat.owner(k) == rank)
+        resident = strat.resident_bytes() if kind == "fsdp" else total
+        peak = torch.cuda.max_memory_allocated()
+        strat.unplace(model)
+        params[kind] = {k: v.detach().float().clone()
+                        for k, v in model.state_dict().items()}
+        out[kind] = {"losses": losses, "launches": n,
+                     "param_bytes": resident, "param_bytes_whole": total,
+                     "opt_bytes": own, "peak_bytes": peak,
+                     "gathers": getattr(strat, "gathers", 0),
+                     "max_whole_modules": getattr(strat,
+                                                  "max_whole_modules", 0)}
+        del step, model, ps
+    out["dparam"] = max(float((params["fsdp"][k] - v).abs().max())
+                        for k, v in params["dp"].items())
+    return out
+
+
+def _spawn_bg(target, args, state, key):
+    """``spawn(target)`` at 2 gloo ranks on a thread; its results, or its
+    error, land in ``state[key]``."""
+    from bigdl_tpu_torch.parallel.launch import spawn
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            state[key] = spawn(target, 2, args, timeout_s=TP_TIMEOUT_S,
+                               backend="gloo")
+        except BaseException as e:  # reported by the phase
+            state[key + " error"] = repr(e)
+        state[key + " s"] = round(time.perf_counter() - t0, 1)
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return t
+
+
+def _job(state, key, tag):
+    if key + " error" in state:
+        fail(f"[phase 26 {tag}] the 2-rank job failed: {state[key + ' error']}")
+    return state[key]
+
+
+def tp_dp_serve_run(torch, card):
+    """Phase 26 (b): ``serve MODEL --strategy dp:2 --devices cuda:0,cuda:0``
+    in this process, each replica its own engines and CUDA graphs, over
+    HTTP: DP_SERVE_REQS concurrent greedy /generate equal, bit for bit,
+    the same prompts through replica 0 alone; both replicas served; the
+    labelled series and the fleet gauges on /metrics. Returns (rows,
+    flash_fwd launches of the traffic)."""
+    import numpy as np
+
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.cli import serve as serve_cli
+    from bigdl_tpu_torch.serving import make_server
+
+    argv = [MODEL, "--randomInit", "--slots", "4", "--buckets", "1,2",
+            "--seq", str(DP_SERVE_SEQ), "--strategy", "dp:2", "--devices",
+            "cuda:0,cuda:0", "--port", "0"]
+    t0 = time.perf_counter()
+    app = serve_cli.build_app(serve_cli.build_parser().parse_args(argv))[0]
+    reps = app.replicas.replicas
+    with torch.no_grad():
+        for rep in reps:
+            rep.decoder.model.emb.weight.mul_(0.02)
+    build_s = time.perf_counter() - t0
+    graphs = [len(rep.decoder.graphs) + len(rep.engine.graphs)
+              for rep in reps]
+    srv = make_server(app, "127.0.0.1", 0)
+    port = srv.server_address[1]
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    rs = np.random.RandomState(262)
+    prompts = [rs.randint(0, 32000, int(n)).tolist() for n in
+               rs.randint(3, DP_SERVE_SEQ - MAX_NEW, DP_SERVE_REQS)]
+    try:
+        torch.cuda.synchronize()
+        ops.reset_kernel_launches()
+        results = {}
+
+        def gen(i):
+            results[i] = _post(port, "/generate", {
+                "tokens": prompts[i], "max_new_tokens": MAX_NEW})
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=gen, args=(i,))
+                   for i in range(DP_SERVE_REQS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        n = ops.kernel_launches()["flash_fwd"]
+        st, page = _get(port, "/metrics")
+        alone = [reps[0].decoder.submit(p, MAX_NEW).result(600)
+                 for p in prompts]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        app.close()
+    bad = [i for i in range(DP_SERVE_REQS) if results[i][0] != 200]
+    if bad:
+        fail(f"[phase 26 (b)] /generate answered {results[bad[0]]}")
+    got = [results[i][1]["tokens"] for i in range(DP_SERVE_REQS)]
+    served = {}
+    for line in page.splitlines():
+        for r in ("0", "1"):
+            if line.startswith(
+                    f'bigdl_serving_generated_tokens_total{{replica="{r}"}}'):
+                served[r] = float(line.rsplit(" ", 1)[1])
+    gauges = {g: any(line.startswith(f"bigdl_serving_{g} ")
+                     for line in page.splitlines())
+              for g in ("replicas", "replicas_live", "kv_cache_bytes",
+                        "kv_pages_in_use", "fleet_generated_tokens_total")}
+    print(f"[phase 26 (b)] {MODEL} dp:2 on one card ({card}), seq "
+          f"{DP_SERVE_SEQ}: build {build_s:.1f}s, graphs a replica "
+          f"{graphs}; {DP_SERVE_REQS} concurrent /generate of {MAX_NEW} "
+          f"tokens in {wall:.2f}s; tokens a replica {served}; fleet gauges "
+          f"{gauges}; equal to replica 0 alone: {got == alone}; flash_fwd "
+          f"launches {n}", flush=True)
+    if got != alone:
+        fail("[phase 26 (b)] dp:2 tokens differ from replica 0's alone")
+    if st != 200 or len(served) != 2 or min(served.values()) <= 0 \
+            or not all(gauges.values()) or min(graphs) == 0 or n == 0:
+        fail(f"[phase 26 (b)] replicas {served}, gauges {gauges}, graphs "
+             f"{graphs}, launches {n}")
+    return {"(b) dp:2 tokens/s": round(DP_SERVE_REQS * MAX_NEW / wall, 1)}, n
+
+
+def tp_start():
+    """Phase 26 (a) and (d), started: their 2-rank gloo jobs on threads,
+    beside phase 25's in-process runs (whose checks are bits, launches and
+    per-process memory) and then phase 26's own. Returns the handle
+    :func:`tp_runs` takes."""
+    import tempfile
+
+    state = {"t0": time.perf_counter(),
+             "dir": tempfile.mkdtemp(prefix="phase26_")}
+    state["threads"] = [
+        _spawn_bg(TP_SERVE_WORKER, {"dir": state["dir"]}, state, "a"),
+        _spawn_bg(FSDP_WORKER, {"dir": state["dir"]}, state, "d")]
+    return state
+
+
+def tp_runs(torch, card, state=None):
+    """Phase 26: tensor parallel and FSDP. (a) and (d) run as 2-rank gloo
+    jobs on threads (started by :func:`tp_start`, here when ``state`` is
+    None) beside (b) and the kernel checks at the tp:2 per-rank geometry,
+    then (c) alone. Returns (rows, launches of the main paths)."""
+    import numpy as np
+
+    from bigdl_tpu_torch.cli import perf
+    from bigdl_tpu_torch.ops import attention_kernel as ak
+    from bigdl_tpu_torch.serving import DecodeEngine
+
+    t_phase = time.perf_counter()
+    state = state or tp_start()
+    rows, launches, td, bg = {}, [], state["dir"], state["threads"]
+
+    # the kernels at the tp:2 per-rank geometry, against their plain
+    # versions
+    for r in check_flash(torch, ak, shapes=TP_SHAPES):
+        print(f"[phase 26 kernels] flash_fwd {r['shape']} {r['dtype']} "
+              f"({r['kernel']}): max|d| {r['max_abs_err']:.3g}, "
+              f"{r['ms']:.3f} ms", flush=True)
+    for r in check_flash_bwd(torch, ak, shapes=TP_SHAPES[:2]):
+        print(f"[phase 26 kernels] flash_dq/flash_dkv {r['shape']} "
+              f"{r['dtype']}: max|d| {r['dq_abs_err']:.3g} / "
+              f"{r['dkv_abs_err']:.3g}, {r['dq_ms']:.3f} / {r['dkv_ms']:.3f} "
+              f"ms", flush=True)
+
+    # (b) dp:2 in this process
+    t0 = time.perf_counter()
+    r, n = tp_dp_serve_run(torch, card)
+    rows.update(r)
+    launches.append({"flash_fwd": n})
+    rows["(b) s"] = round(time.perf_counter() - t0, 1)
+    _free(torch)
+
+    # the one-rank references of (a): the greedy tokens in f32, the
+    # /predict forward in f32 and bf16
+    prompts, xrows = _tp_prompts()
+    model, _ = perf.build_model(MODEL)
+    with torch.no_grad():
+        model.emb.weight.mul_(0.02)
+    model = model.to(DEV).eval()
+    eng = DecodeEngine(model, slots=4, device=DEV, graphs=False)
+    try:
+        ref_tokens = [eng.generate(p, MAX_NEW) for p in prompts]
+    finally:
+        eng.close()
+    x = torch.from_numpy(xrows).to(DEV)
+    with torch.no_grad():
+        ref32 = model(x).float()
+        model.compute_dtype = torch.bfloat16
+        ref16 = model(x).float()
+    del model, eng
+    _free(torch)
+
+    for t in bg:
+        t.join()
+    res = _job(state, "a", "(a)")
+    tp16 = torch.from_numpy(np.load(os.path.join(td, "tp_bf16.npy"))).to(
+        DEV)
+    own = float((ref16 - ref32).abs().max())
+    err = float((tp16 - ref16).abs().max())
+    for rr in res:
+        for tag in ("f32", "bf16"):
+            g = rr[tag]
+            print(f"[phase 26 (a) rank {rr['rank']} {tag}] {MODEL} tp:2 on "
+                  f"{card}: flash_fwd ran at {g['heads']} query heads and "
+                  f"{g['kv_heads']} KV head(s) of {g['head_dim']} a rank, "
+                  f"{g['launches']['flash_fwd']} launches; build "
+                  f"{g['build_s']}s, traffic {g['run_s']}s, followed calls "
+                  f"{g['calls']}", flush=True)
+            if g["launches"]["flash_fwd"] == 0 or g["heads"] != 4 \
+                    or g["head_dim"] != 128:
+                fail(f"[phase 26 (a) rank {rr['rank']} {tag}] {g}")
+            launches.append(g["launches"])
+    same = res[0]["tokens"] == ref_tokens
+    print(f"[phase 26 (a)] f32 greedy /generate of {len(prompts)} prompts "
+          f"(lengths {list(PROMPT_LENS)}, {MAX_NEW} new tokens) equal one "
+          f"rank's engine: {same}; bf16 /predict logits vs one rank's bf16: "
+          f"max|d| {err:.4g}, one rank's own error vs f32 {own:.4g} (bound "
+          f"{TP_BF16_FACTOR}x); {state['a s']}s for the job", flush=True)
+    if not same or err > TP_BF16_FACTOR * own:
+        fail(f"[phase 26 (a)] tokens equal {same}, bf16 max|d| {err} vs "
+             f"{TP_BF16_FACTOR} x {own}")
+    rows["(a) s"] = state["a s"]
+
+    res = _job(state, "d", "(d)")
+    for rr in res:
+        f, d = rr["fsdp"], rr["dp"]
+        print(f"[phase 26 (d) rank {rr['rank']}] resnet_cifar(20) f32 "
+              f"--fusedBN apply global batch {FSDP_BATCH}, {FSDP_STEPS} "
+              f"steps on {card}: FSDP losses {f['losses']}, DataParallel "
+              f"{d['losses']}, max|d param| {rr['dparam']:.3g}; parameter "
+              f"bytes resident {f['param_bytes']} (DataParallel "
+              f"{d['param_bytes']}), optimizer-state bytes {f['opt_bytes']} "
+              f"(DataParallel ZeRO-1 {d['opt_bytes']}), peak memory "
+              f"{f['peak_bytes']} (DataParallel {d['peak_bytes']}); "
+              f"{f['gathers']} gathers, at most {f['max_whole_modules']} "
+              f"module(s) whole; BN launches {f['launches']['bn_stats']} + "
+              f"{f['launches']['bn_bwd_stats']}", flush=True)
+        if rr["dparam"] > FSDP_TOL or f["launches"]["bn_stats"] == 0 \
+                or f["launches"]["bn_bwd_stats"] == 0 \
+                or f["param_bytes"] >= d["param_bytes"]:
+            fail(f"[phase 26 (d) rank {rr['rank']}] {rr}")
+        launches.append(f["launches"])
+    rows["(d) s"] = state["d s"]
+
+    # (c) alone: its tokens/s measures gloo through the host
+    t0 = time.perf_counter()
+    from bigdl_tpu_torch.parallel.launch import spawn
+    try:
+        res = spawn(TP_TRAIN_WORKER, 2, {"dir": td}, timeout_s=TP_TIMEOUT_S,
+                    backend="gloo")
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"[phase 26 (c)] the 2-rank job failed: {e}")
+    f32 = res[0]["f32"]
+    print(f"[phase 26 (c)] {TP_CUT} ({TP_DEPTH} layers of {MODEL}) tp:2 f32 "
+          f"batch {TP_TRAIN_BATCH} on {card}: losses {f32['losses']}, one "
+          f"process {f32['ref']}, max|d loss| {f32['dloss']:.3g}, max|d "
+          f"param| {f32['dparam']:.3g} of max|p| {f32['pmax']:.3g}",
+          flush=True)
+    if f32["dloss"] > TP_TOL["loss"] or \
+            f32["dparam"] > TP_TOL["params"] * f32["pmax"]:
+        fail(f"[phase 26 (c)] f32 tp:2 beyond {TP_TOL}")
+    for rr in res:
+        b = rr["bf16"]
+        n32, n16 = rr["f32"]["launches"], b["launches"]
+        print(f"[phase 26 (c) rank {rr['rank']}] f32 launches {n32}; bf16 "
+              f"cli.perf --strategy tp: losses {b['losses']}, "
+              f"{b['tokens_per_second']} tokens/s over mesh {b['mesh']} "
+              f"(2 gloo ranks sharing one card: this measures gloo through "
+              f"the host, not scaling), launches {n16}", flush=True)
+        for n in (n32, n16):
+            if min(n["flash_fwd"], n["flash_dq"], n["flash_dkv"]) == 0:
+                fail(f"[phase 26 (c) rank {rr['rank']}] launches {n}")
+        launches += [n32, n16]
+        rows[f"(c) rank {rr['rank']} bf16 tokens/s"] = b["tokens_per_second"]
+    rows["(c) s"] = round(time.perf_counter() - t0, 1)
+    rows["phase 26 s"] = round(time.perf_counter() - t_phase, 1)
+    rows["phase 26 s from its jobs' start"] = round(
+        time.perf_counter() - state["t0"], 1)
+    return rows, launches
+
+
 # main's phase functions, each timed ("[time] name: s" after it returns)
 TIMED_PHASES = ("check_flash", "check_flash_bwd", "check_bn", "train_run",
                 "grads_check", "cli_runs", "serve_run", "paged_serve_run",
@@ -6757,7 +7268,7 @@ TIMED_PHASES = ("check_flash", "check_flash_bwd", "check_bn", "train_run",
                 "resume_runs", "pipeline_runs", "baseline_runs",
                 "inception_runs", "resnet_slice_runs", "dp_runs", "rnn_runs",
                 "attention_slice_runs", "serving_front_runs", "tuning_runs",
-                "recovery_runs")
+                "recovery_runs", "tp_runs")
 
 
 def _time_phases(names=TIMED_PHASES):
@@ -6871,10 +7382,15 @@ def main():
     launches["flash_fwd"] += front_n
     tune_rows, tune_n, untied_n = tuning_runs(torch, card)
     launches["flash_fwd"] += untied_n
+    tp_started = tp_start()  # phase 26's gloo jobs, beside phase 25
     rec_rows, rec_n = recovery_runs(torch, card)
+    tp_rows, tp_n = tp_runs(torch, card, tp_started)
     for n in base_n + inc_n + slice_n + dp_n + attn_n + tune_n + rec_n:
         for name in launches:
             launches[name] += n[name]
+    for n in tp_n:  # some counts name only the kernel they hold
+        for name in launches:
+            launches[name] += n.get(name, 0)
     print("[phase 19] BN launches by mode: " + ", ".join(
         f"{k} {sum(n[k] for n in slice_n)}" for k in
         ("bn_stats", "bn_bwd_stats", "bn_fwd_apply", "bn_bwd_fused")),
@@ -6921,6 +7437,8 @@ def main():
         print(f"[phase 24] {tag} on {card}: {r}", flush=True)
     for tag, r in rec_rows.items():
         print(f"[phase 25] {tag} on {card}: {r}", flush=True)
+    for tag, r in tp_rows.items():
+        print(f"[phase 26] {tag} on {card}: {r}", flush=True)
 
     head, bwd = rows[0], bwd_rows[0]  # the training step's 8 x 8 x 1024^2
     common = {"route": "cuda", "check": "pass", "shape": head["shape"],

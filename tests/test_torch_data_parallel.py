@@ -373,18 +373,20 @@ def test_checkpoints_cross_between_jax_dp_ranks_and_one_process(
 
 
 def test_mesh_and_strategy_in_one_process():
-    """One process: the mesh is {'data': 1}, axes other than data are
-    refused by name, a strategy runs (its collectives are the identity)
-    and shard_batch keeps the batch; a dataset that yields a rank's part
-    is told apart by its kind."""
+    """One process: the mesh is {'data': 1}, a model axis needs its ranks,
+    the sequence axis is refused by name (entry 13(b)), a strategy runs
+    (its collectives are the identity) and shard_batch keeps the batch; a
+    dataset that yields a rank's part is told apart by its kind."""
     from bigdl_tpu_torch.dataset import ShardedDataSet
     from bigdl_tpu_torch.dataset.pipeline import EpochPlan, ExecutorDataSet
     from bigdl_tpu_torch.dataset.pipeline.executor import ArraySampleSource
     m = local_mesh()
     assert m.shape == {"data": 1} and m.size == 1 and m.axis_names == (
         "data",)
-    with pytest.raises(NotImplementedError, match="entry 13"):
+    with pytest.raises(ValueError, match="needs 2 devices"):
         make_mesh({"data": 1, "model": 2})
+    with pytest.raises(NotImplementedError, match="entry 13"):
+        make_mesh({"data": 1, "seq": 2})
     with pytest.raises(ValueError, match="needs 2 devices"):
         make_mesh({"data": 2})
     with pytest.raises(NotImplementedError, match="entry 13"):

@@ -206,11 +206,20 @@ def test_resolve_serve_config_and_refusals():
         ["transformer_lm"])).quantize is None
     for argv, msg in ((["--fleet", "-1"], "--fleet -1"),
                       (["--speculate", "-2"], "--speculate -2"),
-                      (["--strategy", "tp:2"], "--strategy: .*entry 13"),
+                      (["--fleet", "2", "--strategy", "tp:2"],
+                       "--strategy: .*entry 13"),
                       (["--lint", "strict"], "--lint: .*entry 16")):
         with pytest.raises(SystemExit, match=msg):
             common.resolve_serve_config(p.parse_args(["transformer_lm"]
                                                      + argv))
+    # serve's --strategy resolves as the JAX package's (abstractly, over
+    # its 8 virtual devices, in a router that imports no torch)
+    from bigdl_tpu.cli.common import parse_serving_strategy as jax_parse
+    for spec in ("tp", "tp:2", "dp", "dp:4", "tp:8"):
+        cfg = common.resolve_serve_config(p.parse_args(
+            ["transformer_lm", "--strategy", spec]))
+        assert (cfg.serving_replicas, cfg.serving_tp) == jax_parse(spec, 8)
+        assert cfg.strategy == spec
     # the flags of the image models and the tuner are ported: accepted,
     # and a fleet passes them to its workers
     flags = ["--classes", "10", "--fusedBN", "apply", "--convLayout",

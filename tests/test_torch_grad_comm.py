@@ -252,19 +252,26 @@ def _args(**kw):
 
 
 def test_one_process_exits_as_the_jax_cli():
-    """In one process --strategy dp exits naming torchrun (the JAX CLI
-    names XLA_FLAGS), the deprecated alias is a no-op, unknown and
-    not-yet-ported strategies exit by name, --elastic without dp or with
+    """In one process --strategy dp and tp exit naming torchrun (the JAX
+    CLI names XLA_FLAGS; both need more than one device there too), the
+    deprecated alias is a no-op, unknown and not-yet-ported strategies
+    (sp, pp, ep: entry 13(b)) exit by name, --elastic without dp or with
     another strategy exits with the JAX text, and junk buckets exit with
-    the JAX text."""
+    the JAX text. tp's mesh axes are the JAX function's."""
     with pytest.raises(SystemExit, match="torchrun --nproc_per_node N"):
         common.build_strategy(_args(strategy="dp"))
     assert common.build_strategy(_args(dataParallel=True)) is None
     assert common.build_strategy(_args()) is None
     with pytest.raises(SystemExit, match="unknown strategy 'zz'"):
         common.build_strategy(_args(strategy="zz"))
-    for name in ("tp", "sp:2", "pp", "ep"):
-        with pytest.raises(SystemExit, match="entry 13"):
+    with pytest.raises(SystemExit, match="needs more than one device.*"
+                                         "torchrun --nproc_per_node N"):
+        common.build_strategy(_args(strategy="tp"))
+    from bigdl_tpu.cli.common import strategy_mesh_axes as jax_axes
+    for n, k in ((2, None), (4, None), (8, None), (8, 2), (4, 4)):
+        assert common.strategy_mesh_axes("tp", n, k) == jax_axes("tp", n, k)
+    for name in ("sp:2", "pp", "ep"):
+        with pytest.raises(SystemExit, match=r"entry 13\(b\)"):
             common.build_strategy(_args(strategy=name))
     with pytest.raises(SystemExit, match="--elastic needs --strategy dp"):
         common.build_strategy(_args(elastic="hold"))

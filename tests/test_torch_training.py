@@ -304,9 +304,17 @@ def test_optimizer_clipping_and_nan_guard(tree):
 
 def test_optimizer_refuses_later_slices():
     """A strategy must be a DataParallel (one runs since data parallelism
-    is ported), and not with steps_per_dispatch > 1; checkpoints, resume
-    and steps_per_dispatch are in the port."""
-    from bigdl_tpu_torch.parallel import DataParallel
+    is ported; so do its TensorParallel and FullyShardedDataParallel), and
+    not with steps_per_dispatch > 1; checkpoints, resume and
+    steps_per_dispatch are in the port."""
+    from bigdl_tpu_torch.parallel import (DataParallel,
+                                          FullyShardedDataParallel,
+                                          TensorParallel, make_mesh)
+    lm = _port_lm()
+    for strat in (FullyShardedDataParallel(),
+                  TensorParallel(make_mesh({"data": 1, "model": 1}), lm)):
+        assert Optimizer(lm, None, None, device="cpu",
+                         strategy=strat).strategy.world == 1
     with pytest.raises(TypeError, match="must be a bigdl_tpu_torch.parallel"
                                         ".DataParallel, got object"):
         Optimizer(_port_lm(), None, None, device="cpu", strategy=object())
@@ -438,17 +446,17 @@ def test_transformerlm_train_cli_on_cpu(tmp_path, capsys, caplog, extra):
 
 
 def test_transformerlm_cli_refuses_what_is_not_ported(tmp_path, capsys):
-    """--strategy dp is taken (one process exits naming torchrun, as the
-    JAX CLI names XLA_FLAGS; the deprecated --dataParallel is a no-op
-    there); tp is refused by name, --elastic without dp or with another
-    strategy exits with the JAX messages, and a flag of a feature the port
-    does not have is refused (--lint, queue 1 entry 16)."""
+    """--strategy dp and tp are taken (one process exits naming torchrun,
+    as the JAX CLI names XLA_FLAGS; the deprecated --dataParallel is a
+    no-op there), --elastic without dp or with another strategy exits with
+    the JAX messages, and a flag of a feature the port does not have is
+    refused (--lint, queue 1 entry 16)."""
     _corpus(tmp_path)
     base = ["train", "-f", str(tmp_path), "--platform", "cpu"]
     small = ["--dModel", "16", "--numLayers", "1", "--numHeads", "2",
              "--seqLength", "16", "-b", "4", "--maxEpoch", "1"]
     for extra, msg in ((["--strategy", "dp"], "torchrun --nproc_per_node"),
-                       (["--strategy", "tp"], "entry 13"),
+                       (["--strategy", "tp"], "torchrun --nproc_per_node"),
                        (["--elastic", "hold"], "needs --strategy dp"),
                        (["--strategy", "tp", "--elastic", "hold"],
                         "composes with --strategy dp only")):
