@@ -210,8 +210,10 @@ def add_strategy_arg(p: argparse.ArgumentParser) -> None:
                         "the global batch); tp[:K] = Megatron tensor "
                         "parallel over a model axis of K ranks (default "
                         "N/2 at 4 or more ranks, else N) times data "
-                        "parallel over the rest. sp, pp and ep are not in "
-                        "the PyTorch port yet. Replaces the deprecated "
+                        "parallel over the rest. cli.perf also takes "
+                        "sp[:K] (ring attention over a seq axis), pp[:K] "
+                        "(a GPipe pipeline of K stages) and ep[:K] (an "
+                        "expert-parallel MoE). Replaces the deprecated "
                         "--dataParallel")
 
 
@@ -258,29 +260,37 @@ def check_strategy_dispatch(steps: int, flag: str = "--stepsPerDispatch"):
             "pipelines dispatch already)")
 
 
-def _refuse_unported(name: str) -> None:
-    if name not in ("dp", "tp"):
-        raise SystemExit(
-            f"--strategy {name} is not in the PyTorch port yet: sequence, "
-            f"pipeline and expert parallelism come with ROADMAP.md queue 1 "
-            f"entry 13(b); the port has dp and tp")
-
-
 def strategy_mesh_axes(name: str, n_devices: int, k: Optional[int] = None
                        ) -> dict:
     """The mesh axes of ``name`` over ``n_devices`` (the JAX function's):
-    ``{"data": n}`` for dp; ``{"data": n // k, "model": k}`` for tp, k
-    defaulting to n // 2 at 4 or more devices, else n. sp, pp and ep exit
-    by name."""
-    _refuse_unported(name)
+    ``{"data": n}`` for dp; ``{"data": n // k, "model"|"seq": k}`` for tp
+    and sp, k defaulting to n // 2 at 4 or more devices, else n;
+    ``{"pipe": k, "data": n // k}`` for pp, k defaulting to 4 stages
+    where 4 divides n, else 2; ``{"expert": k or n}`` for ep."""
     n = int(n_devices)
     if name == "dp":
         return {"data": n}
-    kk = k or (n // 2 if n >= 4 else n)
-    if n % kk:
-        raise SystemExit(f"--strategy tp:{kk} needs the model axis to "
-                         f"divide {n} devices")
-    return {"data": n // kk, "model": kk}
+    if name in ("tp", "sp"):
+        axis = "model" if name == "tp" else "seq"
+        kk = k or (n // 2 if n >= 4 else n)
+        if n % kk:
+            raise SystemExit(f"--strategy {name}:{kk} needs the {axis} "
+                             f"axis to divide {n} devices")
+        return {"data": n // kk, axis: kk}
+    if name == "pp":
+        kk = k or (4 if n % 4 == 0 and n >= 4 else 2)
+        if n % kk:
+            raise SystemExit(f"--strategy pp:{kk} needs the stage count "
+                             f"to divide {n} devices")
+        return {"pipe": kk, "data": n // kk}
+    if name == "ep":
+        return {"expert": k or n}
+    raise SystemExit(f"unknown strategy {name!r}")
+
+
+# the strategies that compose with the model and step structure: cli.perf
+# builds them (ring attention, the pipeline stack, the MoE)
+HARNESS_STRATEGIES = ("sp", "pp", "ep")
 
 
 def add_grad_comm_args(p: argparse.ArgumentParser) -> None:
@@ -340,17 +350,21 @@ def _join(args) -> None:
                      == "cpu" else None)
 
 
-def build_strategy(args, model=None, batch: Optional[int] = None):
+def build_strategy(args, model=None, batch: Optional[int] = None,
+                   harness: bool = False):
     """The ``DataParallel`` that ``--strategy dp`` (or ``--dataParallel``)
     asks for, or the ``TensorParallel`` of ``--strategy tp[:K]`` (over
     ``model``, or the model a later ``bind`` names), over the ranks of
     this torchrun job (joined here with ``init_distributed``: gloo under
-    ``--platform cpu``), or None. Under
+    ``--platform cpu``), or None. ``harness`` (``cli.perf``) takes sp, pp
+    and ep too: sp gives a ``SequenceParallel`` over ``{"data", "seq"}``,
+    pp and ep the mesh their harness builds its step over; the training
+    CLIs exit for them with the JAX text. Under
     ``--elastic`` it is an ``ElasticDataParallel`` over the surviving
     ranks (``resilience.faults.healthy_devices()``); a rank that is not
     among them leaves the job here with exit code 0. Exits as the JAX CLIs
-    do: ``--elastic`` without dp or with another strategy, the strategies
-    other than dp by name; ``--strategy dp`` in one process naming
+    do: ``--elastic`` without dp or with another strategy; ``--strategy
+    dp`` or ``tp`` in one process naming
     ``torchrun`` (the deprecated alias then means nothing);
     ``--stepsPerDispatch`` or ``--innerSteps`` > 1; a global ``batch`` the
     ranks do not divide (elastic runs pad or trim instead)."""
@@ -359,7 +373,11 @@ def build_strategy(args, model=None, batch: Optional[int] = None):
     check_elastic(name, elastic)
     if name is None:
         return None
-    _refuse_unported(name)
+    if name in HARNESS_STRATEGIES and not harness:
+        raise SystemExit(f"--strategy {name} composes with the model/step "
+                         "structure and is wired through the perf harness "
+                         "(bigdl-tpu perf --strategy {sp,pp,ep}); the "
+                         "training CLIs support dp/tp")
     from bigdl_tpu_torch.parallel import DataParallel, make_mesh
     _join(args)
     devices = None
@@ -381,10 +399,17 @@ def build_strategy(args, model=None, batch: Optional[int] = None):
     check_strategy_dispatch(getattr(args, "innerSteps", 1) or 1,
                             "--innerSteps")
     axes = strategy_mesh_axes(name, n, k)
-    if batch is not None and batch % axes["data"] and elastic is None:
+    data = axes.get("data", 1)
+    if batch is not None and batch % data and elastic is None:
         raise SystemExit(f"batch {batch} must be divisible by the data "
-                         f"axis ({axes['data']}) of --strategy {name} (mesh "
+                         f"axis ({data}) of --strategy {name} (mesh "
                          f"{axes})")
+    if name in ("pp", "ep"):
+        return make_mesh(axes)
+    if name == "sp":
+        from bigdl_tpu_torch.parallel import SequenceParallel
+        return SequenceParallel(make_mesh(axes),
+                                grad_comm=make_grad_comm(args))
     if name == "tp":
         from bigdl_tpu_torch.parallel import TensorParallel
         return TensorParallel(make_mesh(axes), model,

@@ -179,11 +179,13 @@ def encoder_of(model):
 
 def build_model(name: str, seq_len: Optional[int] = None,
                 generator: Optional[torch.Generator] = None,
-                class_num: Optional[int] = None, **kw):
+                class_num: Optional[int] = None, lm_attn_impl=None, **kw):
     """(model, input shape) for a model of the zoo, on the CPU; weights
     are random from ``generator`` (default seeded 0). An image row has
     ``class_num`` classes (default the row's). For an LM or a ViT row,
-    ``kw`` (e.g. ``remat``, ``num_layers``) overrides the row's config."""
+    ``kw`` (e.g. ``remat``, ``num_layers``) overrides the row's config;
+    an LM's attention is the flash kernels unless ``lm_attn_impl`` names
+    another (``--strategy sp``'s ring)."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     if name in IMAGE_CONFIGS:
@@ -211,7 +213,8 @@ def build_model(name: str, seq_len: Optional[int] = None,
     cfg = dict(LM_CONFIGS[name], **kw)
     if seq_len is not None:
         cfg["max_len"] = int(seq_len)
-    model = models.transformer_lm(LM_VOCAB, attn_impl="flash",
+    model = models.transformer_lm(LM_VOCAB,
+                                  attn_impl=lm_attn_impl or "flash",
                                   generator=generator, **cfg)
     return model, (cfg["max_len"],)
 
@@ -271,7 +274,8 @@ def record_feed(source: str, batch: int, crop=(224, 224), workers: int = 0,
 def train_step(model_name: str, batch: int, dtype=torch.bfloat16,
                device=None, remat=False, seq_len: Optional[int] = None,
                fused_bn: Optional[str] = None, data_type: str = "constant",
-               graph_steps: int = 0, feed=None, strategy=None):
+               graph_steps: int = 0, feed=None, strategy=None,
+               attn_impl=None, optim_method=None):
     """(step, model, tokens per step or None, device): ``step()`` takes
     SGD(0.01, momentum 0.9) steps of the zoo model on one resident batch
     from ``np.random.RandomState(0)`` and returns the last loss (not
@@ -287,7 +291,11 @@ def train_step(model_name: str, batch: int, dtype=torch.bfloat16,
     only) ``batch`` is the global batch: each rank steps on its part of
     the data axis, batch norm takes the global batch's statistics, the
     gradients and the loss are averaged over the data axis and the SGD
-    state is ZeRO-1's; the loss is the global one."""
+    state is ZeRO-1's; the loss is the global one. ``attn_impl`` replaces
+    an LM's flash attention (``--strategy sp``: the ring, under a
+    ``SequenceParallel`` that gives each rank its block of the tokens;
+    the encoder then runs without layer remat, since a recomputed layer
+    would repeat the ring's hops). ``optim_method`` replaces the SGD."""
     from bigdl_tpu_torch.cli.common import apply_fused_bn
     from bigdl_tpu_torch.core.module import resolve_device, takes_seed
     from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
@@ -296,9 +304,12 @@ def train_step(model_name: str, batch: int, dtype=torch.bfloat16,
 
     device = resolve_device(device)
     is_lm = model_name in LM_CONFIGS
-    model, in_shape = build_model(model_name, seq_len=seq_len)
+    model, in_shape = build_model(model_name, seq_len=seq_len,
+                                  lm_attn_impl=attn_impl)
     enc = encoder_of(model)
-    if remat and enc is not None:  # else the row's own
+    if attn_impl is not None and enc is not None:
+        enc.remat = False
+    elif remat and enc is not None:  # else the row's own
         enc.remat = remat
     apply_fused_bn(model, fused_bn)
     rng = np.random.RandomState(0)
@@ -320,7 +331,7 @@ def train_step(model_name: str, batch: int, dtype=torch.bfloat16,
                                          batch).astype(np.int32))
         tokens = None
     model = model.to(device).train()
-    opt = SGD(learning_rate=0.01, momentum=0.9)
+    opt = optim_method or SGD(learning_rate=0.01, momentum=0.9)
     params = dict(model.named_parameters())
     state = opt.init(params)
     if strategy is not None:
@@ -510,9 +521,15 @@ def run(model_name: str, batch: int = 32, iterations: int = 10,
     MFU's peak is the card's times the ranks, and the line carries
     ``strategy``, ``n_devices``, ``mesh``, ``grad_compress`` and
     ``grad_buckets`` (with ``grad_comm``, the wire accounting, when
-    ``grad_compress`` is active), as the JAX harness's does. The exits are
-    the JAX harness's: one process, ``inner_steps`` > 1, a batch the ranks
-    do not divide, compression without a strategy.
+    ``grad_compress`` is active), as the JAX harness's does. ``tp[:K]``
+    splits the model Megatron-style; ``sp[:K]`` runs an LM row with ring
+    attention over a ``seq`` axis (each rank its block of the tokens, the
+    positions global); ``pp[:K]`` and ``ep[:K]`` run the JAX harness's
+    GPipe block stack and expert-parallel MoE of the row's geometry
+    (:func:`_setup_strategy_harness`). The exits are the JAX harness's:
+    one process, ``inner_steps`` > 1, a batch the ranks do not divide,
+    compression without a strategy or under pp/ep, sp on a model that is
+    not an LM or at a length the seq axis does not divide.
 
     ``autotune`` (``--autotune``) installs the tuning mode; the line's
     ``autotune`` then names the decisions this run consulted.
@@ -541,10 +558,11 @@ def run(model_name: str, batch: int = 32, iterations: int = 10,
                 "reshape is a data-parallel contract)")
         # the surviving roster; below --minDevices SupervisorGaveUp
         elastic.probe()
-    strat = _perf_strategy(strategy, data_parallel, grad_compress,
-                           grad_buckets, batch, inner_steps, device,
-                           elastic)
-    n_dev = strat.mesh.size if strat is not None else 1
+    sname, strat = _perf_strategy(strategy, data_parallel, grad_compress,
+                                  grad_buckets, batch, inner_steps, device,
+                                  elastic, model_name)
+    mesh = getattr(strat, "mesh", strat)  # pp and ep: the mesh itself
+    n_dev = mesh.size if strat is not None else 1
     # the conv triple of this run configuration, as the JAX harness
     # resolves it: a record feed or a strategy dispatches one step
     eff_inner = 1 if (data_source is not None or strat is not None) \
@@ -567,11 +585,26 @@ def run(model_name: str, batch: int = 32, iterations: int = 10,
                 data_source[len("record:"):], batch,
                 crop=IMAGE_CONFIGS[model_name][1][:2], workers=data_workers,
                 depth=prefetch_depth, stage=stage, device=device)
-        step, model, tokens, device = train_step(
-            model_name, batch, dtype, device, remat, seq_len, fused_bn,
-            data_type, graph_steps=inner_steps if inner_steps > 1 else 0,
-            feed=feed, strategy=strat)
-        kinds = step_flops(model, model_name, batch, dtype, seq_len)
+        if sname in ("pp", "ep"):
+            # the pipeline and the expert-parallel MoE compose with the
+            # step itself: a harness of their own, as in the JAX package
+            h = _setup_strategy_harness(sname, model_name, batch, mesh,
+                                        dict(mesh.shape), dtype, seq_len,
+                                        device)
+            step, model, tokens, device, kinds = (
+                h["step"], h["module"], h["tokens"], h["device"],
+                h["flops"])
+        else:
+            attn = None
+            if sname == "sp":
+                attn = _sp_attention(strat, model_name, seq_len, remat)
+            step, model, tokens, device = train_step(
+                model_name, batch, dtype, device, remat, seq_len, fused_bn,
+                data_type, graph_steps=inner_steps if inner_steps > 1
+                else 0, feed=feed, strategy=strat, attn_impl=attn)
+            # the ring's ranks count the global step on a plain twin
+            kinds = step_flops(model if attn is None else build_model(
+                model_name, seq_len)[0], model_name, batch, dtype, seq_len)
         flops = kinds["matmul"] + kinds["conv"]
         name = (torch.cuda.get_device_name(device) if device.type == "cuda"
                 else "cpu")
@@ -615,12 +648,12 @@ def run(model_name: str, batch: int = 32, iterations: int = 10,
                "data": data_source, "pipeline": prov,
                "warmup": warmup, "first_loss": losses[0],
                "final_loss": losses[-1], "losses": losses}
-        info = strat.grad_comm_info() if strat is not None else None
+        info = (strat.grad_comm_info() if hasattr(strat, "grad_comm_info")
+                else None)
         out.update({
-            "strategy": (None if strat is None else "tp"
-                         if hasattr(strat, "model_axis") else "dp"),
+            "strategy": sname,
             "n_devices": n_dev,
-            "mesh": dict(strat.mesh.shape) if strat is not None else None,
+            "mesh": dict(mesh.shape) if strat is not None else None,
             "records_per_second_per_device": round(rps / n_dev, 2),
             "grad_compress": info["compress"] if info else "off",
             "grad_buckets": info["n_buckets"] if info else None})
@@ -639,11 +672,15 @@ def run(model_name: str, batch: int = 32, iterations: int = 10,
 
 
 def _perf_strategy(strategy, data_parallel, grad_compress, grad_buckets,
-                   batch, inner_steps, device, elastic=None):
-    """The DataParallel (``--strategy dp``) or TensorParallel (``tp``, its
-    model bound by ``train_step``) of ``run``'s strategy arguments (an
-    ElasticDataParallel over the surviving ranks under ``elastic``), or
-    None."""
+                   batch, inner_steps, device, elastic=None,
+                   model_name: Optional[str] = None):
+    """``(name, strategy)`` of ``run``'s strategy arguments: the
+    DataParallel (``--strategy dp``), TensorParallel (``tp``, its model
+    bound by ``train_step``) or SequenceParallel (``sp``), the mesh of
+    ``pp`` and ``ep`` (whose harness builds the step), an
+    ElasticDataParallel over the surviving ranks under ``elastic``, or
+    ``(None, None)``. Exits as the JAX harness does: sp on a model that
+    is not an LM, ``--gradCompress`` without a strategy or under pp/ep."""
     from bigdl_tpu_torch.cli import common
 
     cpu = device is not None and torch.device(device).type == "cpu"
@@ -654,13 +691,162 @@ def _perf_strategy(strategy, data_parallel, grad_compress, grad_buckets,
                            stepsPerDispatch=1,
                            elastic=(elastic.batch_policy
                                     if elastic is not None else None))
-    strat = common.build_strategy(args, batch=batch)
+    name, _ = common.resolve_strategy(args)
+    strat = common.build_strategy(args, batch=batch, harness=True)
+    if name == "sp" and model_name is not None \
+            and model_name not in LM_CONFIGS:
+        raise SystemExit("--strategy sp shards the sequence axis via ring "
+                         "attention; it needs a transformer_lm* model")
     cfg = common.make_grad_comm(args)
-    if cfg is not None and cfg.active and strat is None:
+    if cfg is not None and cfg.active:
+        if strat is None:
+            raise SystemExit(
+                "--gradCompress compresses the cross-device gradient "
+                "all-reduce; it needs a multi-device --strategy (dp)")
+        if name in ("pp", "ep"):
+            raise SystemExit(
+                f"--gradCompress rides DataParallel.reduce_grads; "
+                f"--strategy {name} builds its own step structure and has "
+                f"no replicated-grad all-reduce to compress")
+    return (name if strat is not None else None), strat
+
+
+def _sp_attention(strat, model_name: str, seq_len: Optional[int], remat):
+    """The ring attention of ``--strategy sp`` over ``strat``'s mesh;
+    exits for a length the seq axis does not divide (the JAX text) and
+    for ``--remat`` (a recomputed layer would repeat the ring's hops)."""
+    from bigdl_tpu_torch.parallel import make_ring_attention
+
+    seq = int(seq_len or LM_CONFIGS[model_name]["max_len"])
+    n_seq = strat.mesh.shape["seq"]
+    if seq % n_seq:
+        raise SystemExit(f"--strategy sp: sequence length {seq} must be "
+                         f"divisible by the seq axis ({n_seq}); "
+                         f"shrink/resize with --seq")
+    if remat:
+        raise SystemExit("--strategy sp runs the encoder without layer "
+                         "remat (a recomputed layer would repeat the "
+                         "ring's hops); the ring keeps its own "
+                         "sub-block checkpoints")
+    return make_ring_attention(strat.mesh, "seq", batch_axis="data")
+
+
+# (d_model, layers, heads, seq) of the LM rows: the pp and ep harness size
+# their block stack and MoE from the model name (the JAX harness's table)
+_LM_GEOM = {
+    "transformer_lm": (512, 8, 8, 512),
+    "transformer_lm_rope": (512, 8, 8, 512),
+    "transformer_lm_1k": (1024, 12, 16, 1024),
+    "transformer_lm_1k_hd128": (1024, 12, 8, 1024),
+    "transformer_lm_16k": (1024, 12, 8, 16384),
+    "transformer_lm_32k": (1024, 12, 8, 32768),
+}
+
+
+def _setup_strategy_harness(strat_name: str, model_name: str, batch: int,
+                            mesh, mesh_axes: dict, dtype,
+                            seq_len: Optional[int] = None, device=None,
+                            init: Optional[dict] = None) -> dict:
+    """The pp and ep steps of ``cli.perf`` (the JAX harness's): MSE over a
+    block stack of the LM row's geometry (:data:`_LM_GEOM`, the length
+    overridable by ``seq_len``), SGD(0.01, momentum 0.9), ``x`` and ``y``
+    (batch, seq, d) from ``np.random.RandomState(0)``. pp: a
+    ``PipelineStack`` of the row's ``TransformerEncoderLayer`` blocks over
+    the pipe axis, microbatches = stages, the gradients averaged over the
+    data axis. ep: an ``MoE`` of the axis's experts (Linear d -> 2d, ReLU,
+    Linear 2d -> d), top-2, capacity 2.0, plus 0.01 times its auxiliary
+    loss. The weights are random from a seed, or ``init`` ({name: tensor}
+    in the module's names, a JAX tree's ``interop.params_from_jax``).
+    ``mesh`` None runs the same step unsplit in one process (the
+    reference a parity check holds the harness to). Returns {"step": () ->
+    loss, "module", "tokens" a step, "device", "flops": the step's
+    analytic FLOPs by kind}."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.core.module import Sequential, resolve_device
+    from bigdl_tpu_torch.nn.moe import collect_aux_losses
+    from bigdl_tpu_torch.optim import SGD
+    from bigdl_tpu_torch.utils.flops import step_flops_by_kind
+
+    geom = _LM_GEOM.get(model_name)
+    if geom is None:
         raise SystemExit(
-            "--gradCompress compresses the cross-device gradient "
-            "all-reduce; it needs a multi-device --strategy (dp)")
-    return strat
+            f"--strategy {strat_name} sizes its transformer stack from "
+            f"the model name; choose one of {sorted(_LM_GEOM)}")
+    d_model, layers, heads, seq = geom
+    if seq_len is not None:
+        seq = int(seq_len)
+    device = resolve_device(device)
+    mse = nn.MSECriterion()
+
+    def crit(out, y):
+        return mse(out.float(), y.float())
+
+    opt = SGD(learning_rate=0.01, momentum=0.9)
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.randn(batch, seq, d_model).astype(
+        np.float32)).to(dtype)
+    y = torch.from_numpy(rs.randn(batch, seq, d_model).astype(
+        np.float32)).to(dtype)
+    g = torch.Generator().manual_seed(0)
+
+    if strat_name == "pp":
+        from bigdl_tpu_torch.parallel import (PipelineStack,
+                                              make_pipeline_train_step,
+                                              place_pipeline_params)
+        stages = mesh_axes["pipe"]
+        if layers % stages:
+            raise SystemExit(
+                f"--strategy pp: {layers} layers must divide over "
+                f"{stages} pipeline stages (try pp:{layers // 2} or a "
+                "deeper model)")
+        micro = stages  # GPipe bubble (P-1)/(M+P-1); M=P keeps it <50%
+        data_ax = mesh_axes.get("data", 1)
+        if batch % micro or (batch // micro) % data_ax:
+            raise SystemExit(
+                f"--strategy pp: batch {batch} must split into {micro} "
+                f"microbatches of a multiple of the data axis "
+                f"({data_ax})")
+        module = PipelineStack(lambda: nn.TransformerEncoderLayer(
+            d_model, heads, 4 * d_model, generator=g), layers)
+    else:
+        module = nn.MoE(lambda: Sequential(
+            nn.Linear(d_model, 2 * d_model, generator=g), nn.ReLU(),
+            nn.Linear(2 * d_model, d_model, generator=g)),
+            num_experts=mesh_axes["expert"], d_model=d_model, top_k=2,
+            capacity_factor=2.0, generator=g)
+    if init is not None:
+        module.load_state_dict(init, strict=True)
+    # the whole step's FLOPs, counted before the placement cuts it
+    flops = step_flops_by_kind(module, x.shape, dtype, y.shape, crit,
+                               y_dtype=dtype)
+    if mesh is None:
+        pass
+    elif strat_name == "pp":
+        place_pipeline_params(module, mesh, "pipe")
+    else:
+        module.place_expert_parallel(mesh, "expert")
+    module = module.to(device).train()
+    params = dict(module.named_parameters())
+    names, plist = list(params), list(params.values())
+    state = opt.init(params)
+    xd, yd = x.to(device), y.to(device)
+    if strat_name == "pp" and mesh is not None:
+        raw = make_pipeline_train_step(module, mesh, crit, opt, micro,
+                                       axis="pipe", data_axis="data")
+
+        def step():
+            return raw(state, xd, yd)
+    else:
+        def step():
+            with collect_aux_losses() as aux:
+                out = module(xd)
+            loss = crit(out, yd) + 0.01 * sum(aux)  # no aux from a stack
+            grads = torch.autograd.grad(loss, plist)
+            opt.update(dict(zip(names, grads)), state, params)
+            return loss.detach()
+
+    return {"step": step, "module": module, "tokens": batch * seq,
+            "device": device, "flops": flops}
 
 
 # synthetic-grade defaults of the time-to-accuracy data: (band or chroma
@@ -772,7 +958,8 @@ def run_time_to_acc(model_name: str, batch: int, target: float,
                          f" as the JAX harness does; got --strategy "
                          f"{strategy}")
     strat = (_perf_strategy(strategy, False, grad_compress, grad_buckets,
-                            batch, inner_steps, device) if strategy else None)
+                            batch, inner_steps, device)[1] if strategy
+             else None)
     t_setup = time.time()
     td = None
     summary_dir = tempfile.mkdtemp(prefix="tta_summary_")

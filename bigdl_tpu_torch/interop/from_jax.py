@@ -7,7 +7,11 @@ out) orientation. A module whose leaves are laid out otherwise converts
 its own through a ``from_jax_leaf(key, tensor)`` static method (the
 convolution's HWIO kernel becomes torch's (out, in, kh, kw)). Under a
 module marked ``jax_stacked`` (an MoE's experts, stacked on a leading
-[E, ...] axis) the method converts each expert's slice."""
+[E, ...] axis; a ``parallel.PipelineStack``'s blocks, [L, ...]) the method
+converts each expert's slice. A stacked module placed over a mesh axis
+(``MoE.place_expert_parallel``, ``parallel.place_pipeline_params``) holds
+the slices ``stage`` = (lo, hi) of each stacked leaf: a whole JAX leaf
+is cut to them."""
 
 from __future__ import annotations
 
@@ -46,10 +50,16 @@ def tensors_from_jax(model: torch.nn.Module, params, state=None) -> dict:
                                                       False)]
     for name, t in tensors.items():
         owner, _, key = name.rpartition(".")
+        root = next((n for n in stacked if not n or owner == n
+                     or owner.startswith(n + ".")), None)
+        if root is not None:
+            lo, hi = getattr(owners[root], "stage", (0, len(t)))
+            if len(t) != hi - lo:  # a whole leaf of a placed stack
+                t = tensors[name] = t[lo:hi]
         convert = getattr(owners.get(owner), "from_jax_leaf", None)
         if convert is None:
             continue
-        if any(owner == n or owner.startswith(n + ".") for n in stacked):
+        if root is not None:
             tensors[name] = torch.stack([convert(key, x) for x in t])
         else:
             tensors[name] = convert(key, t)

@@ -14,6 +14,7 @@ from torch import nn
 
 from bigdl_tpu_torch.nn import (LayerNorm, Linear, LookupTable,
                                 PositionalEncoding, TransformerEncoder)
+from bigdl_tpu_torch.nn.attention import seq_offset
 
 __all__ = ["TransformerLM", "transformer_lm", "packed_lm_targets",
            "PackedNLLCriterion"]
@@ -132,14 +133,18 @@ class TransformerLM(nn.Module):
         """(batch, seq) int tokens, or ``(tokens, segments)`` for packed
         rows (the segment ids confine attention to each document) ->
         (batch, seq, vocab) f32 log-probs. ``seed`` (an int or an int64
-        tensor) seeds dropout in training mode."""
+        tensor) seeds dropout in training mode. Under sequence parallelism
+        (the ring as ``attn_impl``) ``tokens`` is this rank's chunk, and its
+        positions start at the chunk's global offset."""
         segments = None
         if isinstance(tokens, (tuple, list)):
             tokens, segments = tokens
         h = self._embed(tokens)
+        # under sequence parallelism this rank's chunk starts past 0
+        off = seq_offset(self.encoder[0].mha.attn_fn, tokens.shape[-1])
         if not self.rope:
-            h = self.pos(h)
-        elif tokens.shape[-1] > self.max_len:
+            h = self.pos(h, off)
+        elif off + tokens.shape[-1] > self.max_len:
             raise ValueError(f"sequence length {tokens.shape[-1]} exceeds "
                              f"max_len {self.max_len}")
         if segments is None:

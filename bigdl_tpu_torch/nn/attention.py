@@ -100,6 +100,14 @@ def apply_rope(x, cos, sin):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
 
 
+def seq_offset(attn_fn, s_local: int) -> int:
+    """The global position of this rank's first token when the attention
+    is sequence-parallel (``parallel.sequence.RingAttention``'s
+    ``position_offset``), else 0."""
+    at = getattr(attn_fn, "position_offset", None)
+    return 0 if at is None else int(at(s_local))
+
+
 def _positions(pos, n: int, device) -> torch.Tensor:
     """(b, n) absolute positions from a per-row start tensor (b,)."""
     return pos.to(device).long()[:, None] + torch.arange(n, device=device)
@@ -111,8 +119,10 @@ class MultiHeadAttention(nn.Module):
     :func:`dot_product_attention`, ``"flash"`` for the flash kernel
     (``bigdl_tpu_torch.ops.flash_attention``), ``"blockwise"`` for
     ``bigdl_tpu_torch.ops.blockwise_attention`` (O(seq) memory, plain
-    PyTorch), or a callable with the same signature. Integer masks are packed-row segment ids: they go to
-    ``attn_fn`` as ``segments=`` when it takes them, and as the
+    PyTorch), or a callable with the same signature (one with a
+    ``position_offset``, the sequence-parallel ring, puts RoPE at its
+    rank's global positions). Integer masks are packed-row segment ids:
+    they go to ``attn_fn`` as ``segments=`` when it takes them, and as the
     block-diagonal :func:`make_segment_mask` otherwise.
 
     Under tensor parallelism (``parallel.TensorParallel``) ``_tp`` splits
@@ -268,7 +278,8 @@ class MultiHeadAttention(nn.Module):
         if self.rope:
             if not rope_self:
                 raise ValueError("RoPE supports self-attention only")
-            q, k = self._rope(q, 0), self._rope(k, 0)
+            off = seq_offset(self.attn_fn, q.shape[-2])
+            q, k = self._rope(q, off), self._rope(k, off)
         k, v = self._expand_kv(k), self._expand_kv(v)
         if mask is not None and mask.dim() == 2:
             mask = mask[:, None, None, :]
@@ -344,12 +355,14 @@ class PositionalEncoding(nn.Module):
         pe[:, 1::2] = np.cos(angle)[:, : d_model // 2]
         self.register_buffer("table", torch.from_numpy(pe), persistent=False)
 
-    def forward(self, x):
+    def forward(self, x, offset: int = 0):
+        """``x`` + the positions ``offset`` .. ``offset + seq - 1`` (a
+        sequence-parallel rank's chunk starts past 0)."""
         seq = x.shape[-2]
-        if seq > self.max_len:
-            raise ValueError(f"sequence length {seq} exceeds "
+        if offset + seq > self.max_len:
+            raise ValueError(f"sequence length {offset + seq} exceeds "
                              f"max_len {self.max_len}")
-        return x + self.table[:seq].to(x.dtype)
+        return x + self.table[offset:offset + seq].to(x.dtype)
 
 
 class TransformerEncoderLayer(nn.Module):

@@ -15,7 +15,13 @@ expert under ``torch.vmap``. Each forward's Switch load-balancing loss
 handed to the :func:`collect_aux_losses` context that is open around the
 forward (the ``Optimizer`` opens one a step and adds ``aux_loss_weight``
 times their sum to the loss), the role of the JAX ``aux_loss`` state
-leaf."""
+leaf.
+
+Expert parallelism (:meth:`MoE.place_expert_parallel`): each rank of an
+``expert`` mesh axis keeps E/n experts; the routing runs whole on every
+rank and the experts' partial outputs are summed over the axis by an
+all-reduce (NCCL on the card; gloo through the host), where the JAX
+package lets XLA move the dispatched tokens with an all-to-all."""
 
 from __future__ import annotations
 
@@ -29,7 +35,7 @@ from torch import nn
 
 from bigdl_tpu_torch.core.module import Module, fold_seed, takes_seed
 
-__all__ = ["MoE", "collect_aux_losses"]
+__all__ = ["MoE", "collect_aux_losses", "stack_modules"]
 
 _local = threading.local()
 
@@ -60,13 +66,13 @@ def _one_hot(idx, n: int, dtype):
     return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
 
 
-def _stack_experts(experts: list) -> nn.Module:
-    """A copy of the expert's module tree whose every parameter is the
-    experts' stacked on a leading [E, ...] axis: the parameter names are
-    the expert's (the JAX tree's ``experts`` subtree), and a JAX leaf
-    converts slice by slice (``jax_stacked``, read by
-    ``interop.from_jax``). It is never called itself: the forward calls
-    it functionally, one slice an expert."""
+def stack_modules(experts: list) -> nn.Module:
+    """A copy of the first module's tree whose every parameter is the
+    modules' stacked on a leading [E, ...] axis (an MoE's experts, a
+    pipeline's blocks): the parameter names are the module's (the JAX
+    tree's stacked subtree), and a JAX leaf converts slice by slice
+    (``jax_stacked``, read by ``interop.from_jax``). It is never called
+    itself: a forward calls it functionally, one slice a module."""
     body = copy.deepcopy(experts[0])
     per = [dict(e.named_parameters()) for e in experts]
     for name, _ in experts[0].named_parameters():
@@ -110,12 +116,15 @@ class MoE(Module):
         self.dense = dense
         self.gate = nn.Parameter(torch.randn(d_model, num_experts,
                                              generator=generator) * 0.02)
-        self.experts = _stack_experts(experts)
+        self.experts = stack_modules(experts)
         self._noisy = takes_seed(experts[0])
+        # expert parallelism (place_expert_parallel): the axis's state
+        self._ep = None
 
-    def _run_experts(self, xs, seed):
+    def _run_experts(self, xs, seed, lo: int = 0):
         """The expert on each [E, C, d] slice with its own stacked
-        parameters -> [E, C, d']; expert e's noise draws from
+        parameters -> [E, C, d'] (the experts this module holds, the first
+        being expert ``lo``); expert e's noise draws from
         ``fold_seed(seed, e)``."""
         stacked = dict(self.experts.named_parameters())
 
@@ -124,8 +133,8 @@ class MoE(Module):
                 self.experts, p, (x,), {"seed": s[0]} if s else {})
 
         if self._noisy and seed is not None and self.training:
-            seeds = torch.stack([fold_seed(seed, e)
-                                 for e in range(self.num_experts)])
+            seeds = torch.stack([fold_seed(seed, lo + e)
+                                 for e in range(xs.shape[0])])
             return torch.vmap(one, randomness="same")(stacked, xs, seeds)
         return torch.vmap(one)(stacked, xs)
 
@@ -135,9 +144,16 @@ class MoE(Module):
         t, e, k = tokens.shape[0], self.num_experts, self.top_k
         logits = tokens @ self.gate.to(tokens.dtype)
         probs = torch.softmax(logits.float(), dim=-1)  # [T, E]
+        ep = self._ep
+        lo, hi = (0, e) if ep is None else (ep.lo, ep.lo + ep.per)
         if self.dense:
-            ys = self._run_experts(tokens.expand(e, *tokens.shape), seed)
-            out = torch.einsum("te,etd->td", probs.to(ys.dtype), ys)
+            xt, pr = ((tokens, probs) if ep is None
+                      else (ep.copy(tokens), ep.copy(probs)))
+            ys = self._run_experts(xt.expand(hi - lo, *tokens.shape), seed,
+                                   lo)
+            out = torch.einsum("te,etd->td", pr[:, lo:hi].to(ys.dtype), ys)
+            if ep is not None:
+                out = ep.reduce(out)
             _emit(torch.zeros((), device=x.device))
             return out.reshape(*shape[:-1], out.shape[-1])
 
@@ -157,16 +173,50 @@ class MoE(Module):
                   * _one_hot(pos, cap, tokens.dtype)[:, :, None, :]
                   * keep[..., None, None])
         disp = disp_k.sum(1)  # [T, E, C], 0/1
+        if ep is not None:
+            # the routing stays whole on every rank; the tokens and the
+            # routing weights enter this rank's experts through copies
+            # whose backward sums the ranks' gradients
+            tokens, gate_vals = ep.copy(tokens), ep.copy(gate_vals)
+            disp, disp_k = disp[:, lo:hi], disp_k[:, :, lo:hi]
         xs = torch.einsum("tec,td->ecd", disp, tokens)
-        ys = self._run_experts(xs, seed)
+        ys = self._run_experts(xs, seed, lo)
         combine = (disp_k * gate_vals[..., None, None]).sum(1).to(ys.dtype)
         out = torch.einsum("tec,ecd->td", combine, ys)
+        if ep is not None:
+            out = ep.reduce(out)  # the experts' partial outputs summed
         frac_tokens = _one_hot(gate_idx[:, 0], e, torch.float32).mean(0)
         _emit(e * torch.sum(frac_tokens * probs.mean(0)))
         return out.reshape(*shape[:-1], out.shape[-1])
 
-    def place_expert_parallel(self, *args, **kwargs):
-        raise NotImplementedError(
-            "expert parallelism (MoE.place_expert_parallel) is not in the "
-            "PyTorch port yet (ROADMAP.md queue 1 entry 13(b), with "
-            "sequence and pipeline parallelism)")
+    def place_expert_parallel(self, mesh, axis: str = "expert") -> "MoE":
+        """Keep the experts of this rank's place on ``mesh``'s ``axis``
+        (E/n of the stacked slices, new Parameters); the gate stays
+        replicated. ``forward`` then routes every token on every rank, runs
+        only the local experts on their [E/n, C, d] dispatch slots and
+        sums the partial outputs over the axis, so every rank holds the
+        whole output (the JAX ``jit`` over the sharded tree); the
+        backward of that sum is the identity (the loss is replicated),
+        and the gate's and the input's gradients sum the ranks' experts'
+        parts. The JAX method places a params tree; this one places the
+        module's own. Returns the module."""
+        from bigdl_tpu_torch.parallel.tensor_parallel import TPState
+        view = mesh.axis_view(axis)
+        n, e = view.size, self.num_experts
+        if e % n:
+            raise ValueError(f"{e} experts not divisible by the {n} ranks "
+                             f"of the {axis!r} axis")
+        per = e // n
+        lo = view.rank * per
+        with torch.no_grad():
+            for name, p in list(self.experts.named_parameters()):
+                owner, _, leaf = name.rpartition(".")
+                mod = self.experts.get_submodule(owner) if owner \
+                    else self.experts
+                setattr(mod, leaf, nn.Parameter(
+                    p.data[lo:lo + per].clone(),
+                    requires_grad=p.requires_grad))
+        self.experts.stage = (lo, lo + per)
+        self._ep = (TPState(view.group, n, view.rank, "experts", lo=lo,
+                            per=per) if n > 1 else None)
+        return self

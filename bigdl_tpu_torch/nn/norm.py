@@ -64,8 +64,8 @@ class BatchNormalization(Module):
     ``stat_sample=k`` takes the training statistics from the first k batch
     rows only.
 
-    ``axis_name`` names a mesh axis (the port has ``"data"``): at more
-    than one rank on it, training normalises by the statistics of the
+    ``axis_name`` names a mesh axis (``"data"``, or any axis of the
+    current mesh, ``"seq"`` for one): at more than one rank on it, training normalises by the statistics of the
     global batch the ranks hold parts of, the running variance counting
     the global rows (the JAX ``pmean``/``psum``). The kernel modes take
     :func:`~bigdl_tpu_torch.ops.bn_kernel.sync_bn_train`, the stats
@@ -169,12 +169,12 @@ class BatchNormalization(Module):
 
 
 def _check_axis(axis_name) -> None:
-    if axis_name not in (None, "data"):
-        raise NotImplementedError(
-            f"BatchNormalization(axis_name={axis_name!r}): the port's batch "
-            f"norm reduces over the 'data' axis (a tensor-parallel conv's "
-            f"output is gathered whole before it); the sequence and "
-            f"pipeline axes come with ROADMAP.md queue 1 entry 13(b)")
+    """Any mesh axis name, as the JAX ``BatchNormalization`` takes: in
+    training the statistics are reduced over this rank's line along that
+    axis of the newest mesh that has it (``parallel.mesh.axis_group``)."""
+    if axis_name is not None and not isinstance(axis_name, str):
+        raise TypeError(f"BatchNormalization(axis_name={axis_name!r}): a "
+                        f"mesh axis name or None")
 
 
 class _AllReduceSum(torch.autograd.Function):

@@ -35,12 +35,20 @@ def _zeros(params: dict) -> dict:
     return {k: torch.zeros_like(p) for k, p in params.items()}
 
 
-def _norm(t):
-    return torch.sqrt(torch.sum(torch.square(t)))
+def _norm(t, name=None, sq_norm=None):
+    """The L2 norm of ``t``; ``sq_norm(name, t)``, when given, is its square
+    (a strategy's: a split leaf's whole square sum)."""
+    return torch.sqrt(torch.sum(torch.square(t)) if sq_norm is None
+                      else sq_norm(name, t))
 
 
 class OptimMethod:
-    """Base optimizer (reference optim/OptimMethod.scala)."""
+    """Base optimizer (reference optim/OptimMethod.scala).
+    ``takes_sq_norm``: ``update`` takes per-tensor norms and accepts
+    ``sq_norm=`` (the square sum of a parameter or of a tensor shaped like
+    it, by name), which a strategy passes when a rank holds a slice."""
+
+    takes_sq_norm = False
 
     def init(self, params: dict) -> dict:
         raise NotImplementedError
@@ -220,8 +228,10 @@ class LAMB(Adam):
     direction of each parameter is scaled by ||w|| / ||update||; biases and
     norm weights (ndim <= 1) skip the trust ratio and the weight decay."""
 
+    takes_sq_norm = True
+
     @torch.no_grad()
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, sq_norm=None):
         lr, *bc = self._begin(state)
         for name, w in params.items():
             upd = self._moments(grads[name], state["m"][name],
@@ -230,7 +240,7 @@ class LAMB(Adam):
                 w.sub_(lr * upd)
                 continue
             upd = upd + self.weight_decay * w
-            wn, un = _norm(w), _norm(upd)
+            wn, un = _norm(w, name, sq_norm), _norm(upd, name, sq_norm)
             trust = torch.where((wn > 0) & (un > 0), wn / un,
                                 torch.ones_like(wn))
             w.sub_(lr * trust * upd)
@@ -268,6 +278,8 @@ class LARS(OptimMethod):
     SGD; biases and norm weights (ndim <= 1) take plain momentum SGD
     without decay or adaptation."""
 
+    takes_sq_norm = True
+
     def __init__(self, learning_rate: float = 1.0, momentum: float = 0.9,
                  weight_decay: float = 0.0, trust: float = 0.001,
                  eps: float = 1e-9,
@@ -286,7 +298,7 @@ class LARS(OptimMethod):
         return self.schedule(self.base_lr, state["step"], state["epoch"])
 
     @torch.no_grad()
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, sq_norm=None):
         lr = self.learning_rate(state)
         mu, wd = self.momentum, self.weight_decay
         for name, w in params.items():
@@ -294,7 +306,7 @@ class LARS(OptimMethod):
             if w.dim() <= 1:
                 v.mul_(mu).add_(g)
             else:
-                wn, gn = _norm(w), _norm(g)
+                wn, gn = _norm(w, name, sq_norm), _norm(g, name, sq_norm)
                 local = torch.where(
                     (wn > 0) & (gn > 0),
                     self.trust * wn / (gn + wd * wn + self.eps),
@@ -314,6 +326,7 @@ class EMA(OptimMethod):
         self.inner = inner
         self.decay = decay
         self.schedule = getattr(inner, "schedule", None)
+        self.takes_sq_norm = inner.takes_sq_norm
 
     def init(self, params):
         return {"inner": self.inner.init(params),
@@ -323,8 +336,8 @@ class EMA(OptimMethod):
         return self.inner.learning_rate(state["inner"])
 
     @torch.no_grad()
-    def update(self, grads, state, params):
-        self.inner.update(grads, state["inner"], params)
+    def update(self, grads, state, params, **kw):
+        self.inner.update(grads, state["inner"], params, **kw)
         d = self.decay
         for name, w in params.items():
             state["ema"][name].mul_(d).add_(w, alpha=1.0 - d)

@@ -1,7 +1,7 @@
-"""bigdl_tpu_torch.parallel: data, fully sharded data and tensor
-parallelism over ``torch.distributed`` (counterpart of
-``bigdl_tpu.parallel``). Sequence, pipeline and expert parallelism are not
-ported yet (ROADMAP.md queue 1 entry 13(b))."""
+"""bigdl_tpu_torch.parallel: data, fully sharded data, tensor, sequence
+(ring attention) and pipeline (GPipe) parallelism over
+``torch.distributed`` (counterpart of ``bigdl_tpu.parallel``); expert
+parallelism is ``nn.MoE.place_expert_parallel``."""
 
 from bigdl_tpu_torch.parallel.data_parallel import (DataParallel,
                                                     FullyShardedDataParallel,
@@ -17,6 +17,13 @@ from bigdl_tpu_torch.parallel.grad_comm import \
 from bigdl_tpu_torch.parallel.mesh import (Mesh, init_distributed,
                                            local_mesh, make_hybrid_mesh,
                                            make_mesh)
+from bigdl_tpu_torch.parallel.pipeline import (PipelineStack,
+                                               make_pipeline_train_step,
+                                               pipeline_forward,
+                                               place_pipeline_params)
+from bigdl_tpu_torch.parallel.sequence import (SequenceParallel,
+                                               make_ring_attention,
+                                               ring_attention)
 from bigdl_tpu_torch.parallel.tensor_parallel import (TensorParallel,
                                                       megatron_specs,
                                                       replicated_specs)
@@ -27,4 +34,6 @@ __all__ = ["init_distributed", "make_mesh", "make_hybrid_mesh",
            "feeds_rank_part", "COMPRESS_MODES",
            "DEFAULT_BUCKET_BYTES", "GradCommConfig", "BucketPlan",
            "make_grad_comm_config", "build_bucket_plan", "apply_grad_comm",
-           "compressed_psum"]
+           "compressed_psum", "ring_attention", "make_ring_attention",
+           "SequenceParallel", "PipelineStack", "pipeline_forward",
+           "place_pipeline_params", "make_pipeline_train_step"]

@@ -286,17 +286,23 @@ class DataParallel:
         """``method.update`` over the parameters this rank owns (all of
         them without ZeRO-1), then each owner's parameters broadcast to
         the other ranks."""
+        kw = self._update_kw(method)
         if not self.zero1 or self.world <= 1:
-            method.update(grads, opt_state, params)
+            method.update(grads, opt_state, params, **kw)
             return opt_state
         mine = [n for n in params if self.owner(n) == self.rank]
         method.update({n: grads[n] for n in mine}, opt_state,
-                      {n: params[n] for n in mine})
+                      {n: params[n] for n in mine}, **kw)
         order = [n for n in jax_order(params) if n not in self._local]
         for r in range(self.world):
             self._broadcast_tensors([params[n].data for n in order
                                      if self.owner(n) == r], r)
         return opt_state
+
+    def _update_kw(self, method) -> dict:
+        """The keywords ``method.update`` takes from this strategy (none:
+        every rank holds every parameter whole)."""
+        return {}
 
     # --------------------------------------------------------------- gather
     @torch.no_grad()

@@ -10,9 +10,12 @@ CPU. A :class:`Mesh` names the axes of that process group; its
 ``strategy.mesh`` keeps its shape. ``make_mesh({"data": d, "model": k})``
 lays the ranks out in the JAX order (``model`` innermost) with one
 ``new_group`` for each line of each axis; :func:`make_hybrid_mesh` puts
-the DCN axes across torchrun nodes and the ICI axes within one. The
-``data`` and ``model`` axes are ported; the sequence, pipeline and expert
-axes come with ROADMAP.md queue 1 entry 13(b).
+the DCN axes across torchrun nodes and the ICI axes within one. Any axis
+names are taken, as the JAX mesh takes them: ``data`` and ``model``
+(data and tensor parallelism), ``seq`` (``parallel.sequence``),
+``pipe`` (``parallel.pipeline``) and ``expert`` (``nn.MoE.
+place_expert_parallel``); ``make_mesh({"pipe": 2, "data": 2})`` puts the
+pipe axis outermost, as the axes are given.
 
 Elastic re-formation (``resilience.elastic``): ``make_mesh(axes,
 devices)`` with the surviving ranks (``resilience.faults.
@@ -155,26 +158,11 @@ class Mesh:
         return f"Mesh({self.shape}, rank={self.rank})"
 
 
-# axes whose parallelism is not in the port yet (ROADMAP.md queue 1
-# entry 13(b): sequence, pipeline and expert parallelism)
-_LATER_AXES = ("seq", "pipe", "expert")
-
-
-def _refuse_axes(axes: dict) -> None:
-    other = [a for a in axes if a in _LATER_AXES]
-    if other:
-        raise NotImplementedError(
-            f"mesh axes {other} are not in the PyTorch port yet: the "
-            f"sequence, pipeline and expert axes come with sequence, "
-            f"pipeline and expert parallelism (ROADMAP.md queue 1 entry "
-            f"13(b)); the port has the 'data' and 'model' axes")
-
-
 # the newest mesh made over a subset of the job's ranks (an elastic
 # re-formation), or None: the default group is the live one
 _LIVE: Optional[Mesh] = None
-# the newest mesh of more than one axis (its axis groups answer
-# axis_group), or None
+# the newest mesh of more than one axis or of one axis other than data
+# (its axis groups answer axis_group), or None
 _CURRENT: Optional[Mesh] = None
 
 
@@ -224,7 +212,8 @@ def _build(sizes: dict, layout: np.ndarray, world: int) -> Mesh:
 def make_mesh(axes: dict, devices=None) -> Mesh:
     """``make_mesh({"data": n})``: the data axis over the process group's
     ``n`` ranks (-1 fills it with them all); ``make_mesh({"data": d,
-    "model": k})``: the job's ranks laid out in the JAX order, the last
+    "model": k})`` (any axes, ``{"expert": n}`` or ``{"pipe": p, "data":
+    d}`` too): the job's ranks laid out in the JAX order, the last
     axis innermost (the ranks of one tensor-parallel group are adjacent),
     one process group for each line of each axis. The sizes must multiply
     to the world size, as the JAX mesh's sizes must multiply to the device
@@ -234,11 +223,10 @@ def make_mesh(axes: dict, devices=None) -> Mesh:
     every rank of the job must call it with the same list, in the same
     order as its other ``make_mesh`` calls."""
     global _LIVE, _CURRENT
-    _refuse_axes(axes)
     dist = _dist()
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
-    if len(axes) > 1:
+    if len(axes) > 1 or "data" not in axes:
         if devices is not None:
             raise ValueError("devices= re-forms a one-axis data mesh; a "
                              "mesh of several axes spans the job's ranks")
@@ -247,8 +235,6 @@ def make_mesh(axes: dict, devices=None) -> Mesh:
             list(sizes.values())), world)
         _LIVE, _CURRENT = None, mesh
         return mesh
-    if "data" not in axes:
-        raise ValueError(f"make_mesh needs a 'data' axis, got {axes}")
     _CURRENT = None
     ranks = list(range(world)) if devices is None else sorted(
         int(d) for d in devices)
@@ -316,7 +302,6 @@ def make_hybrid_mesh(dcn_axes: dict, ici_axes: dict,
     mesh spans the job's ranks (the JAX function's ``devices`` is the
     process group here)."""
     global _LIVE, _CURRENT
-    _refuse_axes({**dcn_axes, **ici_axes})
     dist = _dist()
     world = dist.get_world_size() if dist.is_initialized() else 1
     local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
@@ -325,7 +310,8 @@ def make_hybrid_mesh(dcn_axes: dict, ici_axes: dict,
     mesh = _build(sizes, layout, world)
     if len(sizes) == 1:
         mesh = Mesh(next(iter(sizes)), world, mesh.rank)
-    _LIVE, _CURRENT = None, (mesh if len(sizes) > 1 else None)
+    _LIVE, _CURRENT = None, (mesh if len(sizes) > 1 or "data" not in sizes
+                             else None)
     return mesh
 
 
@@ -340,10 +326,9 @@ def local_mesh(data_axis: str = "data") -> Mesh:
 def axis_group(axis_name: str):
     """(process group, size) of the mesh axis ``axis_name``: the live
     mesh's data axis (after an elastic re-formation, the survivors'
-    group), else this rank's line along the axis of the newest mesh of
-    several axes, else, for ``data``, the job's default group and its
+    group), else this rank's line along the axis of the newest mesh that
+    has it, else, for ``data``, the job's default group and its
     size, or (None, 1) in a single process."""
-    _refuse_axes({axis_name: 1})
     dist = _dist()
     if not dist.is_initialized():
         return None, 1

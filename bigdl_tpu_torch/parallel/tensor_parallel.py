@@ -38,6 +38,9 @@ Gradients are reduced over the data axis only (``DataParallel.
 reduce_grads``): a replicated leaf's gradient is already whole on every
 model rank. Replicated leaves take ZeRO-1 over the data axis (the JAX
 ``opt_sharding_like_params``); split leaves keep their state local.
+LARS and LAMB take a split leaf's whole norm (its slice's square sum
+all-reduced over the model axis), as the JAX package's global arrays give
+it.
 
 Stated differences from the JAX package:
 
@@ -642,16 +645,20 @@ class TensorParallel(DataParallel):
         rest = sum(torch.sum(torch.square(g.float())) for g in whole)
         return rest if part is None else part + rest
 
-    def update(self, method, grads: dict, opt_state: dict, params: dict):
-        """As ``DataParallel.update``; a per-tensor-norm method (LARS,
-        LAMB) would see a split leaf's slice, and is refused."""
-        from bigdl_tpu_torch.optim.method import LAMB, LARS
-        if self._local and isinstance(method, (LARS, LAMB)):
-            raise NotImplementedError(
-                f"{type(method).__name__} under TensorParallel: its "
-                f"per-tensor norms of split leaves are not in the PyTorch "
-                f"port yet (ROADMAP.md queue 3)")
-        return super().update(method, grads, opt_state, params)
+    def _update_kw(self, method) -> dict:
+        """A per-tensor-norm method (LARS, LAMB) takes the whole leaf's
+        norm of a split leaf: its slice's square sum all-reduced over the
+        model axis (a replicated leaf keeps its local norm)."""
+        if not (self._local and getattr(method, "takes_sq_norm", False)
+                and self.n_shard > 1):
+            return {}
+        group = self.model_mesh.group
+
+        def sq_norm(name, t):
+            s = torch.sum(torch.square(t))
+            return _all_reduce(s, group) if name in self._local else s
+
+        return {"sq_norm": sq_norm}
 
     @torch.no_grad()
     def gather(self, params: dict, mod_state: dict, opt_state: dict):

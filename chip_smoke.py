@@ -469,7 +469,28 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    ``bn_stats``/``bn_bwd_stats`` launched on every rank, each rank's
    resident parameter and optimizer-state bytes and peak memory beside
    ``DataParallel``'s. (a)'s and (d)'s jobs start before phase 25 and
-   run on threads beside it and (b).
+   run on threads beside it and (b). (c)'s job also takes one f32 tp:2
+   step with LARS and one with LAMB (the split leaves' norms all-reduced
+   over the model axis): parameters within 1e-4 of max|p| of one process.
+27. Sequence, pipeline and expert parallelism, after phase 26, in one
+   2-rank gloo job sharing the card (``parallel.launch.spawn``), no kernel
+   on these paths (the ring folds K/V in plain PyTorch, the blocks take
+   dense attention, the experts are Linear/ReLU/Linear, as in the JAX
+   package). (a) ``cli.perf -m transformer_lm_16k --strategy sp:2`` in
+   bf16 at batch 1 x 16384 tokens (12 layers of 1024, 8 heads of 128):
+   finite losses, no ``flash_fwd`` launch (the ring replaced it),
+   tokens/s a rank and peak memory a rank, below one process running the
+   same model with blockwise attention at 16384 tokens; then 2 layers of
+   that width at 4096 tokens in f32, one step at sp:2 against one process
+   with blockwise attention: the loss within 1e-5 relative, every
+   parameter within 1e-5 of max|p|. (b) ``cli.perf -m
+   transformer_lm_1k_hd128 --strategy pp:2`` (12 blocks of 1024, micro 2)
+   in bf16 at batch 8: records/s; the harness in f32 at batch 4 x 256 for
+   2 steps against the unsplit stack in one process (losses within 1e-5
+   relative, each stage's parameters within 1e-5 of max|p|), each rank's
+   parameter bytes half the stack's. (c) ``--strategy ep:2`` (2 experts
+   1024 -> 2048 -> 1024, top-2, capacity 2.0) in bf16 at batch 4:
+   records/s; f32 parity as (b), each rank's expert bytes half.
 
 Any failed phase exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -6785,6 +6806,20 @@ TP_ROW_LEN = 64       # the bf16 prefill rows (2 of them) of phase 26 (a)
 TP_TOL = {"loss": 1e-4, "params": 1e-4}  # params: of max|p|
 TP_BF16_FACTOR = 3.0  # tp:2 bf16 logits vs one rank, x one rank's own error
 FSDP_BATCH, FSDP_STEPS, FSDP_TOL = 128, 4, 1e-5
+
+
+def _lars():
+    from bigdl_tpu_torch.optim import LARS
+    return LARS(1.0, momentum=0.9, weight_decay=1e-4)
+
+
+def _lamb():
+    from bigdl_tpu_torch.optim import LAMB
+    return LAMB(1e-3, weight_decay=1e-2)
+
+
+# phase 26 (c): the per-tensor-norm methods, one f32 tp:2 step each
+TP_NORM_METHODS = {"lars": _lars, "lamb": _lamb}
 DP_SERVE_SEQ, DP_SERVE_REQS = 256, 8
 TP_TIMEOUT_S = 600
 TP_SERVE_WORKER = "chip_smoke:tp_serve_worker"
@@ -6927,6 +6962,31 @@ def tp_train_worker(args):
         del step1, model1, p1
     del whole
     torch.cuda.empty_cache()
+    # LARS and LAMB: one f32 step each, the split leaves' norms whole
+    for name, make in TP_NORM_METHODS.items():
+        strat = TensorParallel(make_mesh({"data": 1, "model": 2}), None)
+        step, model, _, _ = perf.train_step(
+            TP_CUT, TP_TRAIN_BATCH, torch.float32, DEV, strategy=strat,
+            optim_method=make())
+        loss = float(step())
+        whole = strat.gather(dict(model.named_parameters()), None, None)[0]
+        del step, model
+        torch.cuda.empty_cache()
+        out[name] = {"loss": loss}
+        if rank == 0:
+            step1, model1, _, _ = perf.train_step(
+                TP_CUT, TP_TRAIN_BATCH, torch.float32, DEV,
+                optim_method=make())
+            ref = float(step1())
+            p1 = dict(model1.named_parameters())
+            out[name].update(
+                ref=ref, pmax=max(float(p.detach().abs().max())
+                                  for p in p1.values()),
+                dparam=max(float((whole[k] - p.detach()).abs().max())
+                           for k, p in p1.items()))
+            del step1, model1, p1
+        del whole
+        torch.cuda.empty_cache()
     dist.barrier()
     (res, n) = _launched(torch, lambda: perf.run(
         TP_CUT, batch=TP_TRAIN_BATCH, iterations=3, warmup=1,
@@ -7240,6 +7300,16 @@ def tp_runs(torch, card, state=None):
     if f32["dloss"] > TP_TOL["loss"] or \
             f32["dparam"] > TP_TOL["params"] * f32["pmax"]:
         fail(f"[phase 26 (c)] f32 tp:2 beyond {TP_TOL}")
+    for name in TP_NORM_METHODS:
+        m = res[0][name]
+        dloss = abs(m["loss"] - m["ref"])
+        print(f"[phase 26 (c)] {TP_CUT} tp:2 f32 one {name.upper()} step on "
+              f"{card}: loss {m['loss']:.6g}, one process {m['ref']:.6g}, "
+              f"max|d param| {m['dparam']:.3g} of max|p| {m['pmax']:.3g} "
+              f"(the split leaves' norms all-reduced)", flush=True)
+        if dloss > TP_TOL["loss"] or \
+                m["dparam"] > TP_TOL["params"] * m["pmax"]:
+            fail(f"[phase 26 (c)] {name} tp:2 beyond {TP_TOL}")
     for rr in res:
         b = rr["bf16"]
         n32, n16 = rr["f32"]["launches"], b["launches"]
@@ -7260,6 +7330,247 @@ def tp_runs(torch, card, state=None):
     return rows, launches
 
 
+# ------------------------------------------------------------------ phase 27
+# sequence, pipeline and expert parallelism: one 2-rank gloo job sharing
+# the card
+SP_ROW, SP_SEQ, SP_ITERS = "transformer_lm_16k", 16384, 2  # (a)'s speed row
+SP_CUT, SP_CUT_SEQ = MODEL + "_sp2cut", 4096  # (a)'s f32 parity row
+SP_BLOCK = 512        # the ring's key block, and the blockwise reference's
+PP_BATCH, EP_BATCH, SPE_ITERS = 8, 4, 3  # (b) and (c)'s speed runs (MODEL)
+SPE_PARITY_BATCH, SPE_PARITY_SEQ, SPE_PARITY_STEPS = 4, 256, 2
+SPE_TOL = {"loss": 1e-5, "params": 1e-5}  # loss: relative; params: of max|p|
+SPE_TIMEOUT_S = 450
+SPE_WORKER = "chip_smoke:spe_worker"
+
+
+def _sp_cut_row():
+    """Register SP_CUT: SP_ROW's row of ``cli.perf`` at 2 layers and
+    SP_CUT_SEQ tokens (full width: 1024, 8 heads of 128)."""
+    from bigdl_tpu_torch.cli import perf
+    perf.LM_CONFIGS[SP_CUT] = dict(perf.LM_CONFIGS[SP_ROW], num_layers=2,
+                                   max_len=SP_CUT_SEQ)
+
+
+def _peak(torch, run):
+    """(``run()``, the peak bytes allocated on the card while it ran)."""
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    res = run()
+    torch.cuda.synchronize()
+    return res, torch.cuda.max_memory_allocated()
+
+
+def _harness_parity(torch, name, rank):
+    """Phase 27 (b)/(c) parity: ``cli.perf``'s ``name`` harness at MODEL's
+    width in f32 over the 2-rank mesh for SPE_PARITY_STEPS steps against
+    the same harness unsplit in this process: the losses, this rank's
+    parameters (its stage or its experts, the gate) and their bytes."""
+    import torch.distributed as dist
+
+    from bigdl_tpu_torch.cli import perf
+    from bigdl_tpu_torch.parallel import make_mesh
+
+    axes = {"pipe": 2, "data": 1} if name == "pp" else {"expert": 2}
+    kw = dict(strat_name=name, model_name=MODEL, batch=SPE_PARITY_BATCH,
+              mesh_axes=axes, dtype=torch.float32,
+              seq_len=SPE_PARITY_SEQ, device=DEV)
+    h = perf._setup_strategy_harness(mesh=make_mesh(axes), **kw)
+    losses = [float(h["step"]()) for _ in range(SPE_PARITY_STEPS)]
+    mine = {k: p.detach() for k, p in h["module"].named_parameters()}
+    stacked = h["module"] if name == "pp" else h["module"].experts
+    lo, hi = stacked.stage
+    own = sum(p.numel() * p.element_size()
+              for k, p in mine.items() if k != "gate")
+    del h
+    _free(torch)
+    r = perf._setup_strategy_harness(mesh=None, **kw)
+    ref = [float(r["step"]()) for _ in range(SPE_PARITY_STEPS)]
+    full = {k: p.detach() for k, p in r["module"].named_parameters()}
+    whole = sum(p.numel() * p.element_size()
+                for k, p in full.items() if k != "gate")
+    pmax = max(float(p.abs().max()) for p in full.values())
+    dparam = max(float((mine[k] - (p if k == "gate" else p[lo:hi]))
+                       .abs().max()) for k, p in full.items())
+    del r, full, mine
+    _free(torch)
+    dist.barrier()
+    return {"losses": losses, "ref": ref, "pmax": pmax, "dparam": dparam,
+            "stage": [lo, hi], "param_bytes": own,
+            "param_bytes_whole": whole,
+            "dloss": max(abs(a - b) / abs(b) for a, b in zip(losses, ref))}
+
+
+def spe_worker(args):
+    """Phase 27 on one rank of a 2-rank gloo job: (a) sp:2, (b) pp:2 and
+    (c) ep:2 in turn (see the module docstring)."""
+    import functools
+
+    import torch
+    import torch.distributed as dist
+
+    from bigdl_tpu_torch.cli import perf
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.ops.attention_kernel import blockwise_attention
+    from bigdl_tpu_torch.parallel import (SequenceParallel, make_mesh,
+                                          make_ring_attention)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()
+    rank = dist.get_rank()
+    blockwise = functools.partial(blockwise_attention, block_k=SP_BLOCK)
+    out = {"rank": rank}
+
+    # (a) sp:2 at SP_SEQ tokens, bf16: speed, peak memory and launches
+    t0 = time.perf_counter()
+    (line, n), peak = _peak(torch, lambda: _launched(torch, lambda: perf.run(
+        SP_ROW, batch=1, iterations=SP_ITERS, warmup=1,
+        dtype=torch.bfloat16, seq_len=SP_SEQ, strategy="sp")))
+    sp = out["sp"] = {k: line[k] for k in (
+        "losses", "tokens_per_second", "mesh", "n_devices", "strategy",
+        "mfu", "seconds")}
+    sp.update(peak_bytes=peak, launches=n)
+    _free(torch)  # rank 1's cache too, while rank 0 runs the reference
+    dist.barrier()
+    if rank == 0:  # the same model in one process, blockwise attention
+        def one():
+            step, _, _, _ = perf.train_step(SP_ROW, 1, torch.bfloat16, DEV,
+                                            seq_len=SP_SEQ,
+                                            attn_impl=blockwise)
+            return float(step())
+
+        sp["one_loss"], sp["one_peak_bytes"] = _peak(torch, one)
+        _free(torch)
+    dist.barrier()
+    sp["s"] = round(time.perf_counter() - t0, 1)
+
+    # (a) parity: SP_CUT in f32, one step of the ring under
+    # SequenceParallel against one process with blockwise attention
+    t0 = time.perf_counter()
+    _sp_cut_row()
+    mesh = make_mesh({"data": 1, "seq": 2})
+    ring = make_ring_attention(mesh, "seq", batch_axis="data",
+                               block_k=SP_BLOCK)
+    step, model, _, _ = perf.train_step(
+        SP_CUT, 1, torch.float32, DEV, strategy=SequenceParallel(mesh),
+        attn_impl=ring)
+    loss = float(step())
+    mine = {k: p.detach() for k, p in model.named_parameters()}
+    del step, model
+    step1, model1, _, _ = perf.train_step(SP_CUT, 1, torch.float32, DEV,
+                                          attn_impl=blockwise)
+    ref = float(step1())
+    p1 = {k: p.detach() for k, p in model1.named_parameters()}
+    sp["parity"] = {
+        "loss": loss, "ref": ref,
+        "pmax": max(float(p.abs().max()) for p in p1.values()),
+        "dparam": max(float((mine[k] - p).abs().max())
+                      for k, p in p1.items()),
+        "s": round(time.perf_counter() - t0, 1)}
+    del step1, model1, p1, mine
+    _free(torch)
+    dist.barrier()
+
+    # (b) pp:2 and (c) ep:2: cli.perf's speed line in bf16, then parity
+    for name, batch in (("pp", PP_BATCH), ("ep", EP_BATCH)):
+        t0 = time.perf_counter()
+        line, peak = _peak(torch, lambda: perf.run(
+            MODEL, batch=batch, iterations=SPE_ITERS, warmup=1,
+            dtype=torch.bfloat16, strategy=name))
+        r = out[name] = {k: line[k] for k in (
+            "losses", "records_per_second", "tokens_per_second", "mesh",
+            "n_devices", "strategy", "mfu", "seconds")}
+        r["peak_bytes"] = peak
+        _free(torch)
+        dist.barrier()
+        r["parity"] = _harness_parity(torch, name, rank)
+        r["s"] = round(time.perf_counter() - t0, 1)
+    return out
+
+
+def spe_runs(torch, card):
+    """Phase 27: sequence, pipeline and expert parallelism in one 2-rank
+    gloo job sharing the card. Returns {tag: value}."""
+    import math
+
+    from bigdl_tpu_torch.parallel.launch import spawn
+
+    t_phase = time.perf_counter()
+    _free(torch)
+    try:
+        res = spawn(SPE_WORKER, 2, {}, timeout_s=SPE_TIMEOUT_S,
+                    backend="gloo")
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"[phase 27] the 2-rank job failed: {e}")
+    rows = {}
+    gib = 2.0 ** 30
+    one = res[0]["sp"]
+    for rr in res:
+        sp = rr["sp"]
+        per_rank = sp["tokens_per_second"] / sp["n_devices"]
+        print(f"[phase 27 (a) rank {rr['rank']}] cli.perf -m {SP_ROW} "
+              f"--strategy sp:2 bf16 batch 1 x {SP_SEQ} tokens on {card}: "
+              f"losses {sp['losses']}, {sp['tokens_per_second']} tokens/s "
+              f"over mesh {sp['mesh']} ({per_rank:.1f} a rank; 2 gloo "
+              f"ranks sharing one card), mfu {sp['mfu']}, peak memory "
+              f"{sp['peak_bytes'] / gib:.2f} GiB a rank; launches "
+              f"{sp['launches']}", flush=True)
+        if not all(math.isfinite(v) for v in sp["losses"]) \
+                or sp["strategy"] != "sp" or sp["launches"]["flash_fwd"]:
+            fail(f"[phase 27 (a) rank {rr['rank']}] {sp}")
+        rows[f"(a) rank {rr['rank']} tokens/s a rank"] = round(per_rank, 1)
+        rows[f"(a) rank {rr['rank']} peak GiB"] = round(
+            sp["peak_bytes"] / gib, 2)
+    ratio = max(rr["sp"]["peak_bytes"] for rr in res) / one["one_peak_bytes"]
+    print(f"[phase 27 (a)] one process, blockwise attention (block "
+          f"{SP_BLOCK}), the same model at {SP_SEQ} tokens: first loss "
+          f"{one['one_loss']:.6g} (sp:2 {one['losses'][0]:.6g}), peak "
+          f"memory {one['one_peak_bytes'] / gib:.2f} GiB; sp:2's peak a "
+          f"rank is {ratio:.3f} of it", flush=True)
+    if ratio >= 1.0:
+        fail(f"[phase 27 (a)] sp:2 peak a rank {ratio:.3f} of one process")
+    rows["(a) peak a rank / one process"] = round(ratio, 3)
+    par = one["parity"]
+    dloss = abs(par["loss"] - par["ref"]) / abs(par["ref"])
+    print(f"[phase 27 (a)] {SP_CUT} (2 layers of width 1024, 8 heads of "
+          f"128, {SP_CUT_SEQ} tokens) f32 one step at sp:2 on {card}: loss "
+          f"{par['loss']:.7g}, one process (blockwise) {par['ref']:.7g}, "
+          f"relative {dloss:.3g}; max|d param| {par['dparam']:.3g} of "
+          f"max|p| {par['pmax']:.3g} ({par['s']}s)", flush=True)
+    if dloss > SPE_TOL["loss"] or \
+            par["dparam"] > SPE_TOL["params"] * par["pmax"]:
+        fail(f"[phase 27 (a)] f32 sp:2 beyond {SPE_TOL}")
+    rows["(a) s"] = one["s"] + par["s"]
+    for tag, name in (("(b)", "pp"), ("(c)", "ep")):
+        for rr in res:
+            r, par = rr[name], rr[name]["parity"]
+            print(f"[phase 27 {tag} rank {rr['rank']}] cli.perf -m {MODEL} "
+                  f"--strategy {name}:2 bf16 on {card}: losses "
+                  f"{r['losses']}, {r['records_per_second']} records/s "
+                  f"({r['tokens_per_second']} tokens/s) over mesh "
+                  f"{r['mesh']} (2 gloo ranks sharing one card), mfu "
+                  f"{r['mfu']}, peak memory {r['peak_bytes'] / gib:.2f} "
+                  f"GiB; f32 {SPE_PARITY_STEPS} steps at batch "
+                  f"{SPE_PARITY_BATCH} x {SPE_PARITY_SEQ}: losses "
+                  f"{par['losses']}, one process {par['ref']}, relative "
+                  f"{par['dloss']:.3g}, max|d param| {par['dparam']:.3g} "
+                  f"of max|p| {par['pmax']:.3g}; "
+                  f"{'blocks' if name == 'pp' else 'experts'} "
+                  f"{par['stage']}, {par['param_bytes']} parameter bytes "
+                  f"of the whole {par['param_bytes_whole']}", flush=True)
+            if not all(math.isfinite(v) for v in r["losses"]) \
+                    or r["strategy"] != name \
+                    or par["dloss"] > SPE_TOL["loss"] \
+                    or par["dparam"] > SPE_TOL["params"] * par["pmax"] \
+                    or 2 * par["param_bytes"] != par["param_bytes_whole"]:
+                fail(f"[phase 27 {tag} rank {rr['rank']}] {r}")
+            rows[f"{tag} rank {rr['rank']} records/s"] = \
+                r["records_per_second"]
+        rows[f"{tag} s"] = res[0][name]["s"]
+    rows["phase 27 s"] = round(time.perf_counter() - t_phase, 1)
+    return rows
+
+
 # main's phase functions, each timed ("[time] name: s" after it returns)
 TIMED_PHASES = ("check_flash", "check_flash_bwd", "check_bn", "train_run",
                 "grads_check", "cli_runs", "serve_run", "paged_serve_run",
@@ -7268,7 +7579,7 @@ TIMED_PHASES = ("check_flash", "check_flash_bwd", "check_bn", "train_run",
                 "resume_runs", "pipeline_runs", "baseline_runs",
                 "inception_runs", "resnet_slice_runs", "dp_runs", "rnn_runs",
                 "attention_slice_runs", "serving_front_runs", "tuning_runs",
-                "recovery_runs", "tp_runs")
+                "recovery_runs", "tp_runs", "spe_runs")
 
 
 def _time_phases(names=TIMED_PHASES):
@@ -7385,6 +7696,8 @@ def main():
     tp_started = tp_start()  # phase 26's gloo jobs, beside phase 25
     rec_rows, rec_n = recovery_runs(torch, card)
     tp_rows, tp_n = tp_runs(torch, card, tp_started)
+    # phase 27's paths (the ring, dense attention, the MoE) run no kernel
+    spe_rows = spe_runs(torch, card)
     for n in base_n + inc_n + slice_n + dp_n + attn_n + tune_n + rec_n:
         for name in launches:
             launches[name] += n[name]
@@ -7439,6 +7752,8 @@ def main():
         print(f"[phase 25] {tag} on {card}: {r}", flush=True)
     for tag, r in tp_rows.items():
         print(f"[phase 26] {tag} on {card}: {r}", flush=True)
+    for tag, r in spe_rows.items():
+        print(f"[phase 27] {tag} on {card}: {r}", flush=True)
 
     head, bwd = rows[0], bwd_rows[0]  # the training step's 8 x 8 x 1024^2
     common = {"route": "cuda", "check": "pass", "shape": head["shape"],

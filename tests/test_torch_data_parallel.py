@@ -373,8 +373,9 @@ def test_checkpoints_cross_between_jax_dp_ranks_and_one_process(
 
 
 def test_mesh_and_strategy_in_one_process():
-    """One process: the mesh is {'data': 1}, a model axis needs its ranks,
-    the sequence axis is refused by name (entry 13(b)), a strategy runs
+    """One process: the mesh is {'data': 1}, a model or sequence axis
+    needs its ranks, a seq, pipe or expert axis of one is a mesh of one
+    (and a BN may name it), a strategy runs
     (its collectives are the identity) and shard_batch keeps the batch; a
     dataset that yields a rank's part is told apart by its kind."""
     from bigdl_tpu_torch.dataset import ShardedDataSet
@@ -385,12 +386,17 @@ def test_mesh_and_strategy_in_one_process():
         "data",)
     with pytest.raises(ValueError, match="needs 2 devices"):
         make_mesh({"data": 1, "model": 2})
-    with pytest.raises(NotImplementedError, match="entry 13"):
+    with pytest.raises(ValueError, match="needs 2 devices"):
         make_mesh({"data": 1, "seq": 2})
     with pytest.raises(ValueError, match="needs 2 devices"):
         make_mesh({"data": 2})
-    with pytest.raises(NotImplementedError, match="entry 13"):
-        nn.BatchNormalization(4, axis_name="seq")
+    for axes in ({"data": 1, "seq": 1}, {"pipe": 1, "data": 1},
+                 {"expert": 1}):
+        m = make_mesh(axes)
+        assert m.shape == axes and m.size == 1 and m.rank == 0
+        for a in axes:
+            assert m.axis_view(a).size == 1
+    assert nn.BatchNormalization(4, axis_name="seq").axis_name == "seq"
     s = DataParallel()
     assert s.layout_signature()["n_devices"] == 1
     x = np.zeros((6, 2))

@@ -254,10 +254,11 @@ def _args(**kw):
 def test_one_process_exits_as_the_jax_cli():
     """In one process --strategy dp and tp exit naming torchrun (the JAX
     CLI names XLA_FLAGS; both need more than one device there too), the
-    deprecated alias is a no-op, unknown and not-yet-ported strategies
-    (sp, pp, ep: entry 13(b)) exit by name, --elastic without dp or with
-    another strategy exits with the JAX text, and junk buckets exit with
-    the JAX text. tp's mesh axes are the JAX function's."""
+    deprecated alias is a no-op, an unknown strategy exits by name, the
+    training CLIs refuse sp, pp and ep with the JAX CLI's own text (cli.perf
+    runs them), --elastic without dp or with another strategy exits with
+    the JAX text, and junk buckets exit with the JAX text. The mesh axes of
+    tp, sp, pp and ep are the JAX function's."""
     with pytest.raises(SystemExit, match="torchrun --nproc_per_node N"):
         common.build_strategy(_args(strategy="dp"))
     assert common.build_strategy(_args(dataParallel=True)) is None
@@ -267,24 +268,48 @@ def test_one_process_exits_as_the_jax_cli():
     with pytest.raises(SystemExit, match="needs more than one device.*"
                                          "torchrun --nproc_per_node N"):
         common.build_strategy(_args(strategy="tp"))
+    from bigdl_tpu.cli.common import build_strategy as jax_build
     from bigdl_tpu.cli.common import strategy_mesh_axes as jax_axes
-    for n, k in ((2, None), (4, None), (8, None), (8, 2), (4, 4)):
-        assert common.strategy_mesh_axes("tp", n, k) == jax_axes("tp", n, k)
+    for name in ("tp", "sp", "pp", "ep"):
+        for n, k in ((2, None), (4, None), (8, None), (8, 2), (4, 4),
+                     (8, 4), (12, None)):
+            assert common.strategy_mesh_axes(name, n, k) == \
+                jax_axes(name, n, k), (name, n, k)
+    for bad in (("tp", 6, 4), ("sp", 6, 4), ("pp", 6, 4)):
+        with pytest.raises(SystemExit) as want:
+            jax_axes(*bad)
+        with pytest.raises(SystemExit) as got:
+            common.strategy_mesh_axes(*bad)
+        assert str(got.value) == str(want.value)
     for name in ("sp:2", "pp", "ep"):
-        with pytest.raises(SystemExit, match=r"entry 13\(b\)"):
+        # the JAX CLI reaches its text on conftest's 8 virtual devices
+        with pytest.raises(SystemExit) as want:
+            jax_build(_args(strategy=name))
+        assert "wired through the perf harness" in str(want.value)
+        with pytest.raises(SystemExit) as got:
             common.build_strategy(_args(strategy=name))
+        assert str(got.value) == str(want.value)
     with pytest.raises(SystemExit, match="--elastic needs --strategy dp"):
         common.build_strategy(_args(elastic="hold"))
     with pytest.raises(SystemExit, match="composes with --strategy dp only "
                                          r"\(got tp\)"):
         common.build_strategy(_args(strategy="tp", elastic="hold"))
+    for name in ("sp", "pp", "ep"):
+        with pytest.raises(SystemExit) as want:
+            jax_build(_args(strategy=name, elastic="hold"))
+        with pytest.raises(SystemExit) as got:
+            common.build_strategy(_args(strategy=name, elastic="hold"))
+        assert str(got.value) == str(want.value)
+        assert f"(got {name})" in str(got.value)
     with pytest.raises(SystemExit, match="gradBuckets must be 'auto'"):
         common.make_grad_comm(_args(gradCompress="bf16", gradBuckets="x"))
     from bigdl_tpu_torch.cli import perf
     with pytest.raises(SystemExit, match="multi-device"):
         perf.run("lenet5", 4, 1, torch.float32, device="cpu",
                  grad_compress="bf16")
-    with pytest.raises(SystemExit, match="entry 13"):
+    # the JAX harness's order: a strategy needs its devices first (the
+    # --gradCompress exit under pp/ep is held at 2 ranks)
+    with pytest.raises(SystemExit, match="needs more than one device"):
         perf.run("lenet5", 4, 1, torch.float32, device="cpu",
                  strategy="ep", grad_compress="bf16")
     assert not torch.distributed.is_initialized()  # no group of one left

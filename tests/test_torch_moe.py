@@ -4,7 +4,8 @@ the CPU, from the JAX init tree (stacked experts) loaded strictly with
 drops, 3-D input, the auxiliary loss and every gradient (forward 1e-5,
 gradients 1e-4 of max|g|); a few ``Optimizer`` steps with the auxiliary
 loss against the JAX ``Optimizer``'s losses and parameters; a stateful
-expert and ``place_expert_parallel`` refused."""
+expert refused and ``place_expert_parallel`` over an expert axis of one
+(in gloo ranks: tests/test_torch_expert_parallel.py)."""
 
 import json
 
@@ -115,11 +116,24 @@ def test_stacked_experts_load_by_name():
 
 
 def test_stateful_expert_and_expert_parallel_refused():
+    """A stateful expert is refused; ``place_expert_parallel`` over an
+    expert axis of one process keeps every expert (its forward and
+    gradients are the unplaced module's), and an axis that does not
+    divide the experts is refused."""
+    from bigdl_tpu_torch.parallel import Mesh, make_mesh
     with pytest.raises(ValueError, match="stateless"):
         tnn.MoE(tnn.Sequential(tnn.Linear(D, D),
                                tnn.BatchNormalization(D)), E, D)
-    with pytest.raises(NotImplementedError, match="entry 13"):
-        tnn.MoE(_texpert, E, D).place_expert_parallel(None, None)
+    jm, params, tm = _pair(top_k=2, capacity_factor=2.0)
+    placed = load_jax(tnn.MoE(_texpert, E, D, top_k=2, capacity_factor=2.0),
+                      params).place_expert_parallel(make_mesh({"expert": 1}))
+    assert placed.experts.stage == (0, E) and placed._ep is None
+    x = torch.from_numpy(np.random.RandomState(3).randn(2, 5, D).astype(
+        np.float32))
+    np.testing.assert_array_equal(placed(x).detach().numpy(),
+                                  tm(x).detach().numpy())
+    with pytest.raises(ValueError, match="4 experts not divisible by the 3"):
+        tnn.MoE(_texpert, E, D).place_expert_parallel(Mesh("expert", 3))
 
 
 def test_optimizer_adds_aux_loss_as_jax(tmp_path):

@@ -59,10 +59,10 @@ def test_the_resnet_slice_modules_are_walked():
 
 
 def test_the_parallel_modules_are_walked_and_import_no_jax():
-    """The parallel package (data, fully sharded data and tensor
-    parallelism) is among the modules the import check walks, and none of
-    its files imports jax or the JAX package; nor do the serving
-    strategies' modules."""
+    """The parallel package (data, fully sharded data, tensor, sequence
+    and pipeline parallelism, and their point-to-point hops) is among the
+    modules the import check walks, and none of its files imports jax or
+    the JAX package; nor do the serving strategies' modules."""
     import pkgutil
 
     import bigdl_tpu_torch
@@ -70,13 +70,14 @@ def test_the_parallel_modules_are_walked_and_import_no_jax():
                                                    "bigdl_tpu_torch.")}
     want = {f"bigdl_tpu_torch.parallel.{m}" for m in (
         "mesh", "grad_comm", "data_parallel", "hints", "launch",
-        "tensor_parallel")} | {"bigdl_tpu_torch.serving.sharding",
-                               "bigdl_tpu_torch.serving.replicas"}
+        "tensor_parallel", "p2p", "sequence", "pipeline")} | {
+            "bigdl_tpu_torch.serving.sharding",
+            "bigdl_tpu_torch.serving.replicas"}
     assert want <= names
     pat = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|bigdl_tpu)"
                      r"(?:\.|\s|$|,)", re.MULTILINE)
     files = sorted((PORT / "parallel").rglob("*.py"))
-    assert len(files) == 7
+    assert len(files) == 10
     files += [PORT / "serving" / "sharding.py",
               PORT / "serving" / "replicas.py"]
     assert not [f.name for f in files if pat.search(f.read_text())]

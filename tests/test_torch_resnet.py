@@ -183,16 +183,19 @@ def test_batch_norm_matches_jax(case):
 
 
 def test_batch_norm_refuses_axis_name():
-    """The data axis is taken (one process: local statistics); the axes of
-    later slices are refused by name."""
-    bn = nn.BatchNormalization(4, axis_name="data")
-    assert bn.axis_name == "data"
+    """Any mesh axis name is taken, as the JAX BN takes it (one process:
+    local statistics; over the seq axis's ranks in
+    tests/test_torch_sequence_parallel.py); a name that is not a string is
+    refused."""
     x = torch.randn(6, 4)
     ref = nn.BatchNormalization(4)
-    _close(bn.train()(x).detach(), ref.train()(x).detach())
-    for axis in ("model", "seq"):
-        with pytest.raises(NotImplementedError, match="entry 13"):
-            nn.BatchNormalization(4, axis_name=axis)
+    want = ref.train()(x).detach()
+    for axis in ("data", "model", "seq", "pipe", "expert"):
+        bn = nn.BatchNormalization(4, axis_name=axis)
+        assert bn.axis_name == axis
+        _close(bn.train()(x).detach(), want)
+    with pytest.raises(TypeError, match="a mesh axis name or None"):
+        nn.BatchNormalization(4, axis_name=1)
 
 
 def test_absorb_bn_relu_matches_jax():

@@ -12,7 +12,8 @@ stated difference, tested on its own); tp:2 and dp:2 x tp:2 against JAX
 ``TensorParallel`` on 2 and 4 virtual devices over 3 SGD steps (1e-5 the
 MLP, 1e-4 the 2-layer LM, JAX's own tolerances); the dropout MLP, the
 conv net, the GQA LM (KV heads split at K = 2, whole at K = 4) against the
-port's single process; ``make_mesh`` and ``make_hybrid_mesh`` rank
+port's single process; LARS and LAMB at tp:2 (whole norms of split
+leaves) against JAX ``TensorParallel``; ``make_mesh`` and ``make_hybrid_mesh`` rank
 layouts against the JAX device layouts; ``cli.perf --strategy tp``.
 """
 
@@ -209,11 +210,20 @@ def tp_jobs(jax_models_and_inputs):
     return out
 
 
-def _jax_tp_train(jm, params, x, y, batch, n_dev, crit, lr):
+def _jax_method(name, lr):
+    """The JAX twin of ``torch_tp_cases.make_method``."""
+    if name == "lars":
+        return joptim.LARS(lr, momentum=0.9, weight_decay=1e-4)
+    if name == "lamb":
+        return joptim.LAMB(lr, weight_decay=1e-2)
+    return joptim.SGD(lr, momentum=0.9)
+
+
+def _jax_tp_train(jm, params, x, y, batch, n_dev, crit, lr, method="sgd"):
     mesh = jax_make_mesh({"data": n_dev // 2, "model": 2},
                          devices=jax.devices()[:n_dev])
     opt = joptim.Optimizer(jm, JaxBatchDataSet(x, y, batch, shuffle=False),
-                           crit, optim_method=joptim.SGD(lr, momentum=0.9),
+                           crit, optim_method=_jax_method(method, lr),
                            end_when=joptim.Trigger.max_iteration(C.STEPS),
                            strategy=JaxTensorParallel(mesh, jm))
     opt.set_state(params=jax.tree_util.tree_map(jax.numpy.asarray, params))
@@ -269,17 +279,27 @@ def test_tp_matches_one_process(job, name, jax_models_and_inputs, tp_jobs):
                                    err_msg=k)
 
 
-def test_tp_refuses_per_tensor_norm_methods():
-    """LARS and LAMB under tp would take a split leaf's slice for its
-    norm: refused by name (one process, a model axis of one splits
-    nothing, so it trains)."""
-    from bigdl_tpu_torch.optim import LARS
-    from bigdl_tpu_torch.parallel import TensorParallel, make_mesh
-    s = TensorParallel(make_mesh({"data": 1, "model": 1}), C.mlp())
-    s._local = {"0.weight"}
-    with pytest.raises(NotImplementedError, match="LARS under "
-                                                  "TensorParallel"):
-        s.update(LARS(0.1), {}, {}, {})
+@pytest.mark.parametrize("method", ["lars", "lamb"])
+def test_tp_refuses_per_tensor_norm_methods(method, jax_models_and_inputs,
+                                            tp_jobs):
+    """LARS and LAMB under tp:2 take a split leaf's whole norm (its
+    slice's square sum all-reduced over the model axis): the MLP's
+    Optimizer run (3 steps) against JAX ``TensorParallel`` with the same
+    method on 2 virtual devices, params within 1e-5 of max|p|. (Until the
+    norms were whole, tp refused these methods; the name stays.)"""
+    _, inp, trees = jax_models_and_inputs
+    jm, p = trees["mlp"]
+    _, _, _, _, kw = C.TP_MODELS[method]
+    want = _jax_tp_train(jm, p, inp["mlp_x"], inp["mlp_y"], 64, 2,
+                         jnn.ClassNLLCriterion(), kw["lr"], method)
+    want = {k: v.numpy() for k, v in tensors_from_jax(C.mlp(), want).items()}
+    pmax = max(float(np.abs(v).max()) for v in want.values())
+    got = tp_jobs[2]
+    for k, v in want.items():
+        np.testing.assert_allclose(got[0][f"{method}/{k}"], v,
+                                   atol=1e-5 * pmax, err_msg=k)
+        np.testing.assert_array_equal(got[1][f"{method}/{k}"],
+                                      got[0][f"{method}/{k}"])
 
 
 def test_perf_tp_row_matches_one_process(tp_jobs):

@@ -60,14 +60,25 @@ def load(model, inp, prefix):
     return model
 
 
+def make_method(name, lr):
+    """SGD(lr, momentum 0.9), or a per-tensor-norm method: LARS(lr,
+    momentum 0.9, weight decay 1e-4) or LAMB(lr, weight decay 1e-2)."""
+    from bigdl_tpu_torch.optim import LAMB, LARS
+    if name == "lars":
+        return LARS(lr, momentum=0.9, weight_decay=1e-4)
+    if name == "lamb":
+        return LAMB(lr, weight_decay=1e-2)
+    return SGD(lr, momentum=0.9)
+
+
 def train(model, x, y, batch, steps, strategy=None, crit=None, lr=0.5,
-          clip=None, **kw):
-    """``steps`` Optimizer steps of SGD(lr, momentum 0.9) over
+          clip=None, method="sgd", **kw):
+    """``steps`` Optimizer steps of ``make_method(method, lr)`` over
     BatchDataSet(x, y, batch) in order (gradients clipped to a global L2
     norm of ``clip``); returns the whole parameters."""
     crit = crit or nn.ClassNLLCriterion()
     opt = Optimizer(model, BatchDataSet(x, y, batch), crit,
-                    optim_method=SGD(lr, momentum=0.9),
+                    optim_method=make_method(method, lr),
                     end_when=Trigger.max_iteration(steps),
                     strategy=strategy, device="cpu", **kw)
     if clip is not None:
@@ -99,6 +110,9 @@ TP_MODELS = {
     # the global-norm clip across split and replicated leaves
     "clip": (lm, "lm_x", "lm_y", 4, {"lr": 0.1, "crit": "lm",
                                      "clip": 0.05}),
+    # per-tensor norms of split leaves: the whole leaf's under tp
+    "lars": (mlp, "mlp_x", "mlp_y", 64, {"lr": 1.0, "method": "lars"}),
+    "lamb": (mlp, "mlp_x", "mlp_y", 64, {"lr": 0.01, "method": "lamb"}),
 }
 
 
@@ -108,7 +122,8 @@ def train_named(name, inp, strategy=None):
     kw = dict(kw)
     if kw.get("crit") == "lm":
         kw["crit"] = _LMCriterion()
-    m = load(build(), inp, name if name != "clip" else "lm")
+    m = load(build(), inp, {"clip": "lm", "lars": "mlp",
+                            "lamb": "mlp"}.get(name, name))
     strat = strategy(m) if strategy is not None else None
     return train(m, inp[x], inp[y], batch, STEPS, strat, **kw)
 
