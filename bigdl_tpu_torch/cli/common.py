@@ -5,7 +5,9 @@ data-parallel strategy (``--strategy dp``, ``--gradCompress``,
 and evaluating it; for ``serve``, the fleet router and its workers, the
 one parse of the serving flags (:func:`resolve_serve_config`) and the
 ``--faultPlan`` install; recovery (``--supervise``, ``--faultPlan``,
-``--elastic``, ``--minDevices``: :func:`run_optimize`). Flags of features
+``--elastic``, ``--minDevices``: :func:`run_optimize`); observability
+(``--obs``, ``--traceDir``, ``--traceSteps``, ``--metricsPort``:
+:func:`install_observability`). Flags of features
 the port does not have yet are not parsed, so argparse refuses them; the
 strategies other than dp are parsed and refused by name.
 
@@ -35,7 +37,8 @@ __all__ = ["setup_logging", "add_train_args", "add_test_args",
            "resolve_serve_config", "install_fault_plan", "add_autotune_arg",
            "apply_autotune", "AUTOTUNE_CHOICES", "add_resilience_args",
            "apply_platform", "run_optimize", "run_supervised",
-           "check_elastic"]
+           "check_elastic", "add_obs_args", "ObsState",
+           "install_observability"]
 
 OPTIM_METHODS = ("sgd", "adam", "adamw", "adagrad", "rmsprop", "lars", "lamb")
 # dataset.pipeline.STAGE_CHOICES, spelled here so that building a parser
@@ -133,15 +136,142 @@ def add_resilience_args(p: argparse.ArgumentParser) -> None:
                         "(default 1)")
 
 
+def add_obs_args(p: argparse.ArgumentParser) -> None:
+    """--obs/--traceDir/--traceSteps/--metricsPort: the observability
+    layer, shared by perf and every training CLI."""
+    p.add_argument("--obs", action="store_true",
+                   help="step-phase observability (bigdl_tpu_torch.obs): "
+                        "spans around the loop's phases (data_wait/h2d/"
+                        "dispatch/device/ckpt), per-step phase histograms "
+                        "in the shared metrics registry, the memory plan "
+                        "and live allocator gauges, and phase columns in "
+                        "perf JSON lines. Off: no device wait and no "
+                        "histogram; the columns are null")
+    p.add_argument("--traceDir", default=None, metavar="DIR",
+                   help="observability artifact dir: the Chrome-trace span "
+                        "timeline (spans.trace.json, for chrome://tracing "
+                        "or ui.perfetto.dev), the capture windows "
+                        "(capture_<step>/trace.json) and an OOM's "
+                        "memory_report.json; a rank of a multi-process "
+                        "job writes under DIR/rank<r>. Implies --obs")
+    p.add_argument("--traceSteps", default=None, metavar="N@M",
+                   help="capture a torch.profiler trace of steps M..M+N-1 "
+                        "mid-run into --traceDir (verified and attributed "
+                        "on close). Independently, SIGUSR2 or `touch "
+                        "DIR/CAPTURE` opens a bounded window on a run in "
+                        "flight")
+    p.add_argument("--metricsPort", type=int, default=None, metavar="PORT",
+                   help="start a live /metrics listener (the Prometheus "
+                        "exposition) for this training/perf run; 0 = "
+                        "auto-pick a free port (printed and stamped into "
+                        "the perf JSON obs annotation). An explicit port "
+                        "that is taken is a clean SystemExit")
+
+
+class ObsState:
+    """What :func:`install_observability` wired up for this process:
+    whether span tracing is on, the capture controller, the live metrics
+    listener, where artifacts land, and (installed by the perf harness)
+    the memory plan and live sampler. ``finalize()`` is idempotent: the
+    perf harness calls it before stamping its line, the training path
+    after ``optimize()``."""
+
+    def __init__(self, enabled: bool, trace_dir: Optional[str],
+                 capture, server):
+        self.enabled = enabled
+        self.trace_dir = trace_dir
+        self.capture = capture
+        self.server = server
+        self.mem_plan: Optional[dict] = None
+        self.mem_sampler = None
+        self._final: Optional[dict] = None
+
+    def finalize(self) -> dict:
+        """Close any open capture window and export the span timeline;
+        returns ``{trace_json, span_events, captures, metrics_port,
+        metrics_url}`` (the keys that apply)."""
+        if self._final is not None:
+            return self._final
+        from bigdl_tpu_torch import obs
+        info: dict = {}
+        if self.capture is not None:
+            self.capture.finish()
+            ann = self.capture.annotation()
+            if ann:
+                info["captures"] = ann
+        tracer = obs.get_tracer()
+        if tracer is not None and self.trace_dir:
+            path = os.path.join(self.trace_dir, "spans.trace.json")
+            try:
+                n = tracer.export_chrome_trace(path)
+            except OSError as e:
+                logging.getLogger(__name__).warning(
+                    "obs: span export to %s failed: %s", path, e)
+            else:
+                info["trace_json"] = path
+                info["span_events"] = n
+                print(f"obs: wrote {n} span(s) to {path}", flush=True)
+        if self.server is not None:
+            info["metrics_port"] = self.server.port
+            info["metrics_url"] = self.server.url
+        self._final = info
+        return info
+
+
+def install_observability(args) -> Optional[ObsState]:
+    """Activate the --obs/--traceDir/--traceSteps/--metricsPort surface
+    (None when none is set). --traceDir implies span tracing;
+    --traceSteps needs --traceDir. A rank of a multi-process job
+    (``WORLD_SIZE`` > 1) writes under ``<traceDir>/rank<RANK>``: each
+    process has its own profiler session. The state is stashed on
+    ``args`` as ``_obs``."""
+    obs_flag = getattr(args, "obs", False)
+    trace_dir = getattr(args, "traceDir", None)
+    trace_steps = getattr(args, "traceSteps", None)
+    port = getattr(args, "metricsPort", None)
+    if not (obs_flag or trace_dir or trace_steps or port is not None):
+        return None
+    if trace_steps and not trace_dir:
+        raise SystemExit("--traceSteps needs --traceDir DIR (somewhere "
+                         "for the capture windows to land)")
+    from bigdl_tpu_torch import obs
+    from bigdl_tpu_torch.core.module import resolve_device
+
+    if trace_dir and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        trace_dir = os.path.join(trace_dir,
+                                 f"rank{os.environ.get('RANK', '0')}")
+    enabled = bool(obs_flag or trace_dir)
+    if enabled and not obs.enabled():
+        obs.enable()
+    capture = None
+    if trace_dir:
+        try:
+            capture = obs.CaptureController(
+                trace_dir, trace_steps=trace_steps,
+                device=resolve_device(getattr(args, "platform", None)))
+        except ValueError as e:
+            raise SystemExit(str(e))
+        # a device OOM anywhere in this process has a home for its report
+        obs.memory.install(trace_dir=trace_dir)
+    server = None
+    if port is not None:
+        server = obs.start_metrics_server(obs.get_registry(), port=port,
+                                          strict=(port != 0))
+    state = ObsState(enabled, trace_dir, capture, server)
+    args._obs = state
+    return state
+
+
 def apply_platform(args) -> None:
     """The training CLIs' platform step: refuse an unavailable
     ``--platform`` before any data is read, and install ``--faultPlan``
-    process-wide (a no-op without one), as the JAX ``apply_platform``
-    does."""
+    and the ``--obs`` family process-wide (no-ops without them), as the
+    JAX ``apply_platform`` does."""
     from bigdl_tpu_torch.core.module import resolve_device
 
     resolve_device(getattr(args, "platform", None))
     install_fault_plan(args)
+    install_observability(args)
 
 
 def add_train_args(p: argparse.ArgumentParser) -> None:
@@ -167,6 +297,7 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
                    help="keep only the newest K snapshots (the newest valid "
                         "pair is never deleted)")
     add_resilience_args(p)
+    add_obs_args(p)
     p.add_argument("--stepsPerDispatch", type=int, default=1, metavar="K",
                    help="K optimizer steps over K batches per dispatch: a "
                         "CUDA graph of the K steps on the card, replayed "
@@ -835,7 +966,24 @@ def run_optimize(make_optimizer, args):
     resume: the re-formation, the build and the snapshot's choice; the
     port reads the snapshot when the loop starts) and the bucket bound
     before and after. A ``supervisor:`` line is logged when anything
-    fired."""
+    fired. Under ``--traceDir`` each attempt's Optimizer drives the one
+    capture controller, and the observability state is finalized after
+    the run, supervised or not."""
+    obs_state = getattr(args, "_obs", None)
+    if obs_state is not None and obs_state.capture is not None:
+        # every attempt's Optimizer drives the one capture controller
+        inner = make_optimizer
+
+        def make_optimizer():
+            return inner().set_capture(obs_state.capture)
+    try:
+        return _run_optimize(make_optimizer, args)
+    finally:
+        if obs_state is not None:
+            obs_state.finalize()
+
+
+def _run_optimize(make_optimizer, args):
     import json
     import time
 

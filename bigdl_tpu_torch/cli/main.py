@@ -43,8 +43,6 @@ _COMMANDS = {
 }
 # commands whose CLI is not in the port yet -> what brings it
 _LATER = {
-    "explain": "obs/ and its profile attribution (ROADMAP.md queue 1 "
-               "item 16)",
     "lint": "analysis/ (ROADMAP.md queue 1 item 18)",
     "predict": "utils/file.py's save_module/load_module (ROADMAP.md "
                "queue 1 item 17)",

@@ -47,6 +47,15 @@ names the mode and each key the run consulted with its decision or
 "default". ``--profile DIR`` writes a ``torch.profiler`` trace of the
 timed loop to ``DIR/trace.json``.
 
+``--obs`` (``--traceDir``, ``--traceSteps N@M``, ``--metricsPort``: the
+JAX harness's observability flags) runs the timed loop with each
+dispatch metered into its phases and a wait for the card after it, and
+fills the line's ``data_wait_s`` ... ``stall_frac``, ``hbm_peak_bytes``,
+``hbm_headroom_frac``, ``mem`` and ``obs`` (and, after a capture window,
+``attrib``, ``collective_s`` and ``collective_frac``); without it those
+columns are null and the loop is the plain one. A device OOM in the
+warm-up writes ``<traceDir>/memory_report.json`` before it propagates.
+
 ``--timeToAcc T`` runs the time-to-accuracy harness instead
 (:func:`run_time_to_acc`): synthetic learnable JPEGs written from a seed
 (or real shards under ``--data record:DIR``, with ``train/`` and
@@ -83,9 +92,10 @@ import torch
 from bigdl_tpu_torch import models
 from bigdl_tpu_torch.cli.common import (add_autotune_arg, add_conv_args,
                                         add_fused_bn_arg,
-                                        add_grad_comm_args,
+                                        add_grad_comm_args, add_obs_args,
                                         add_pipeline_args,
                                         add_resilience_args, add_strategy_arg)
+from bigdl_tpu_torch.obs import memory as _obs_mem
 from bigdl_tpu_torch.resilience.faults import hook as _fault_hook
 
 __all__ = ["LM_VOCAB", "LM_CONFIGS", "IMAGE_CONFIGS", "PEAK_FLOPS",
@@ -300,7 +310,6 @@ def train_step(model_name: str, batch: int, dtype=torch.bfloat16,
     from bigdl_tpu_torch.core.module import resolve_device, takes_seed
     from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
     from bigdl_tpu_torch.optim import SGD
-    from bigdl_tpu_torch.optim.step_graph import StepGraph
 
     device = resolve_device(device)
     is_lm = model_name in LM_CONFIGS
@@ -360,22 +369,44 @@ def train_step(model_name: str, batch: int, dtype=torch.bfloat16,
     if feed is not None:
         from bigdl_tpu_torch.optim.optimizer import _batch_to_device
 
-        def fed_step():
-            xf, yf = _batch_to_device(next(feed), device)
+        def put(b):
+            xf, yf = _batch_to_device(b, device)
             if strategy is not None:  # the rank's part of a global batch
                 xf, yf = strategy.shard_batch(xf, yf)
-            return one_step(xf.to(dtype), yf)
+            return xf.to(dtype), yf
 
+        def fed_step():
+            return one_step(*put(next(feed)))
+
+        # the three parts of a fed step, for a loop that meters each
+        fed_step.fetch, fed_step.put, fed_step.compute = (
+            lambda: next(feed), put, one_step)
+        fed_step.opt_state, fed_step.batch = state, None
         return fed_step, model, tokens, device
     xd, yd = x.to(device), y.to(device)
     if graph_steps == 0:
-        return (lambda: one_step(xd, yd)), model, tokens, device
-    if device.type == "cpu":
+        def eager():
+            return one_step(xd, yd)
+        step_fn = eager
+    elif device.type == "cpu":
         def steps():
             for _ in range(graph_steps):
                 loss = one_step(xd, yd)
             return loss
-        return steps, model, tokens, device
+        step_fn = steps
+    else:
+        step_fn = _graphed(one_step, x, y, xd, yd, graph_steps, device)
+    # what the memory plan reads: the optimizer state and the resident
+    # batch on the device
+    step_fn.opt_state, step_fn.batch = state, (xd, yd)
+    return step_fn, model, tokens, device
+
+
+def _graphed(one_step, x, y, xd, yd, graph_steps: int, device):
+    """``graph_steps`` steps of ``one_step`` a call as one CUDA graph
+    replay; the first call runs them eagerly on the capture stream, then
+    captures."""
+    from bigdl_tpu_torch.optim.step_graph import StepGraph
 
     graph = None
 
@@ -394,7 +425,7 @@ def train_step(model_name: str, batch: int, dtype=torch.bfloat16,
         graph.capture()
         return loss
 
-    return replay, model, tokens, device
+    return replay
 
 
 def step_flops(model, model_name: str, batch: int, dtype=torch.bfloat16,
@@ -476,6 +507,119 @@ def _conv_policy(conv_layout: Optional[str], conv_geom: Optional[str],
         c2d.restore_policy(snap)
 
 
+# the step-phase columns, null without --obs; under it the seconds of
+# each phase of the timed loop, and stall_frac = data_wait / seconds
+_PHASE_COLUMNS = ("data_wait_s", "h2d_s", "dispatch_s", "device_s",
+                  "ckpt_s", "stall_frac")
+# the attribution columns, null until a capture window closed: the
+# collective seconds a step, their share, and the compact attribution
+_ATTRIB_COLUMNS = ("collective_s", "collective_frac", "attrib")
+# the memory columns, null without --obs: the peak device bytes (the live
+# allocator's where the card has it, else the plan's total), the headroom
+# against the card's capacity, and the compact plan as ``mem``
+_MEM_COLUMNS = ("hbm_peak_bytes", "hbm_headroom_frac", "mem")
+
+
+def _annotate_obs_phases(out: dict, obs_state, phase: Optional[dict] = None,
+                         wall_s: Optional[float] = None,
+                         capture_s: float = 0.0) -> None:
+    """Stamp the observability columns into a result line. They are
+    always present (the schema is stable): null in a run without --obs,
+    measured with it. Under --obs the trace, capture and listener
+    artifacts ride along as ``obs`` (``capture_s``: the seconds the
+    capture windows took to open and close, left out of the timed
+    region), and a closed capture window fills the attribution
+    columns."""
+    for c in _ATTRIB_COLUMNS + _MEM_COLUMNS:
+        out[c] = None
+    if obs_state is None or not obs_state.enabled or phase is None:
+        for c in _PHASE_COLUMNS:
+            out[c] = None
+        return
+    for name in ("data_wait", "h2d", "dispatch", "device", "ckpt"):
+        out[f"{name}_s"] = round(phase.get(name, 0.0), 4)
+    out["stall_frac"] = (round(phase.get("data_wait", 0.0) / wall_s, 4)
+                         if wall_s else None)
+    plan = obs_state.mem_plan
+    sampler = obs_state.mem_sampler
+    if plan is not None:
+        live_peak = sampler.peak_bytes if sampler is not None else None
+        peak = live_peak or plan["total_bytes"]
+        cap = plan["hbm_bytes"]
+        out["hbm_peak_bytes"] = int(peak)
+        out["hbm_headroom_frac"] = (round((cap - peak) / cap, 4)
+                                    if cap else None)
+        m = _obs_mem.compact(plan)
+        m["source"] = "live" if live_peak else "plan"
+        live = sampler.annotation() if sampler is not None else None
+        if live:
+            m["live"] = live
+        out["mem"] = m
+    info = obs_state.finalize()
+    o: dict = {}
+    if "trace_json" in info:
+        o["trace_json"] = info["trace_json"]
+        o["span_events"] = info["span_events"]
+    if "metrics_port" in info:
+        o["metrics_port"] = info["metrics_port"]
+        o["metrics_url"] = info["metrics_url"]
+    if "captures" in info:
+        o["capture_s"] = round(capture_s, 4)
+        o["captures"] = [
+            {k: c[k] for k in ("start_step", "stop_step", "trigger",
+                               "ok", "dir", "trace", "error", "attrib",
+                               "top", "attrib_error") if k in c}
+            for c in info["captures"]]
+        for c in reversed(info["captures"]):
+            a = c.get("attrib")
+            if a:  # the newest attributed window
+                steps = max(1, int(a.get("steps") or 1))
+                out["attrib"] = a
+                out["collective_s"] = round(a["collective_s"] / steps, 6)
+                out["collective_frac"] = a["collective_frac"]
+                break
+    if o:
+        out["obs"] = o
+
+
+def _obs_loop(step, iterations: int, obs_state, device, timed: list):
+    """The timed loop under --obs: each dispatch metered into the phases
+    (``data_wait`` and ``h2d`` for a fed step, ``dispatch``, and
+    ``device``, a wait for the card on the loop's stream), each inside
+    its span, the capture controller driven before each dispatch and the
+    live memory sampled after it. Returns (phase seconds, seconds the
+    capture windows took to open and close)."""
+    from bigdl_tpu_torch.obs import get_registry
+    from bigdl_tpu_torch.obs.metrics import PhaseMeter
+
+    meter = PhaseMeter()
+    meter.observe_into(get_registry())
+    capture, sampler = obs_state.capture, obs_state.mem_sampler
+    fed = hasattr(step, "fetch")
+    cap_s = 0.0
+    for i in range(iterations):
+        if capture is not None:
+            t = time.perf_counter()
+            capture.on_step(i)
+            cap_s += time.perf_counter() - t
+        if fed:
+            with meter.phase("data_wait"):
+                b = step.fetch()
+            with meter.phase("h2d"):
+                xy = step.put(b)
+        _fault_hook("step")
+        with meter.phase("dispatch"):
+            loss = step.compute(*xy) if fed else step()
+        with meter.phase("device"):
+            if device.type == "cuda":
+                torch.cuda.current_stream(device).synchronize()
+        if sampler is not None:
+            sampler.sample(step=i)
+        timed.append(loss)
+    meter.publish(get_registry())
+    return meter.totals, cap_s
+
+
 def _profiler(profile_dir: Optional[str], device):
     """A ``torch.profiler`` context writing ``profile_dir/trace.json``,
     or a no-op without a directory."""
@@ -502,7 +646,7 @@ def run(model_name: str, batch: int = 32, iterations: int = 10,
         profile_dir: Optional[str] = None, strategy: Optional[str] = None,
         grad_compress: Optional[str] = None, grad_buckets=None,
         data_parallel: bool = False, autotune: Optional[str] = None,
-        supervisor=None, elastic=None) -> dict:
+        supervisor=None, elastic=None, obs_state=None) -> dict:
     """Time ``iterations`` dispatches of ``inner_steps`` training steps
     each after ``warmup`` ones (with ``inner_steps`` > 1 a dispatch is a
     CUDA graph of the steps; the first warm-up dispatch runs them eagerly
@@ -542,7 +686,19 @@ def run(model_name: str, batch: int = 32, iterations: int = 10,
     ``ElasticDataParallel`` over the surviving ranks, the attempt's
     topology is recorded after the warm-up, and the line carries
     ``elastic`` (policy, ``--minDevices``, the effective global batch) and
-    ``reshape`` (null when nothing was reshaped)."""
+    ``reshape`` (null when nothing was reshaped).
+
+    ``obs_state`` (``cli.common.install_observability``'s, ``--obs``):
+    the timed loop runs as :func:`_obs_loop` (a wait for the card after
+    each dispatch; the loop without ``--obs`` is untouched), the capture
+    windows get the run's FLOPs and peak for their attribution, and the
+    memory plan (``obs/memory.build_plan``) and live sampler are
+    installed before the first step, the OOM autopsy around the warm-up.
+    The plan's measured total is the allocator's peak over the warm-up
+    dispatches (reset before the first), less the bytes allocated before
+    the model was built. The line's phase, attribution and memory
+    columns (null without ``--obs``) and ``obs`` come from
+    :func:`_annotate_obs_phases`."""
     from bigdl_tpu_torch import tuning
     from bigdl_tpu_torch.core.module import resolve_device
     from bigdl_tpu_torch.nn import bn_fused_mode
@@ -561,6 +717,10 @@ def run(model_name: str, batch: int = 32, iterations: int = 10,
     sname, strat = _perf_strategy(strategy, data_parallel, grad_compress,
                                   grad_buckets, batch, inner_steps, device,
                                   elastic, model_name)
+    obs_on = obs_state is not None and obs_state.enabled
+    mem_base = 0  # what the process held before this run's model
+    if obs_on and resolve_device(device).type == "cuda":
+        mem_base = torch.cuda.memory_allocated(device)
     mesh = getattr(strat, "mesh", strat)  # pp and ep: the mesh itself
     n_dev = mesh.size if strat is not None else 1
     # the conv triple of this run configuration, as the JAX harness
@@ -609,7 +769,39 @@ def run(model_name: str, batch: int = 32, iterations: int = 10,
         name = (torch.cuda.get_device_name(device) if device.type == "cuda"
                 else "cpu")
         peak, peak_label = peak_flops(name)
-        losses = [float(step()) for _ in range(warmup)]  # each one synced
+        capture = obs_state.capture if obs_state is not None else None
+        if capture is not None:
+            # each window's attribution joins the run's own numerators
+            capture.step_flops = flops * inner_steps
+            capture.flops_by_kind = {k: v * inner_steps
+                                     for k, v in kinds.items()}
+            capture.peak_flops = peak * n_dev
+        if obs_on:
+            plan_kw = dict(params=dict(model.named_parameters()),
+                           opt_state=getattr(step, "opt_state", None),
+                           batch=getattr(step, "batch", None),
+                           device=device, batch_size=batch,
+                           model_name=model_name)
+            # abstract until the warm-up measures it: an OOM in the
+            # warm-up reports this one
+            obs_state.mem_plan = _obs_mem.build_plan(**plan_kw)
+            obs_state.mem_sampler = _obs_mem.HbmSampler(device,
+                                                        base_bytes=mem_base)
+            _obs_mem.install(plan=obs_state.mem_plan,
+                             sampler=obs_state.mem_sampler)
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(device)
+        with _obs_mem.oom_guard("perf_warmup"):  # a report, then raise
+            losses = [float(step()) for _ in range(warmup)]  # each synced
+        info = (strat.grad_comm_info() if hasattr(strat, "grad_comm_info")
+                else None)  # resolved by the warm-up's first reduce
+        if capture is not None:
+            capture.grad_comm = info
+        if obs_on and device.type == "cuda":
+            obs_state.mem_plan = _obs_mem.build_plan(
+                torch.cuda.max_memory_allocated(device) - mem_base,
+                grad_comm=info, **plan_kw)
+            _obs_mem.install(plan=obs_state.mem_plan)
         if elastic is not None:
             # the topology is live (mesh formed, step warmed up): the call
             # after a caught DeviceLossFault closes out the reshape
@@ -617,14 +809,19 @@ def run(model_name: str, batch: int = 32, iterations: int = 10,
             elastic.observe_topology(
                 n_dev, bucket_bytes=_bucket_bytes(strat, model),
                 restore_ms=(time.perf_counter() - t_attempt0) * 1000.0)
+        phase, cap_s = None, 0.0
         with _profiler(profile_dir, device):
             t0 = time.perf_counter()
             timed = []
-            for _ in range(iterations):
-                _fault_hook("step")  # one pointer check without a plan
-                timed.append(step())
+            if obs_on:
+                phase, cap_s = _obs_loop(step, iterations, obs_state, device,
+                                         timed)
+            else:
+                for _ in range(iterations):
+                    _fault_hook("step")  # one pointer check without a plan
+                    timed.append(step())
             losses += [float(v) for v in timed]  # the first read waits for
-            dt = time.perf_counter() - t0        # the last
+            dt = time.perf_counter() - t0 - cap_s  # the last
         steps = iterations * inner_steps
         rps = batch * steps / dt
         mfu = flops * steps / dt / (peak * n_dev)
@@ -665,6 +862,7 @@ def run(model_name: str, batch: int = 32, iterations: int = 10,
                 "min_devices": elastic.min_devices,
                 "effective_batch": len(strat._fit_rows(np.arange(batch)))}
             out["reshape"] = elastic.reshape_annotation()
+        _annotate_obs_phases(out, obs_state, phase, dt, cap_s)
         _annotate_conv_layouts(out)
         _annotate_autotune(out)
         _annotate_supervisor(out, supervisor)
@@ -925,7 +1123,7 @@ def run_time_to_acc(model_name: str, batch: int, target: float,
                     conv_geom: Optional[str] = None,
                     supervisor=None, strategy: Optional[str] = None,
                     grad_compress: Optional[str] = None,
-                    grad_buckets=None) -> dict:
+                    grad_buckets=None, obs_state=None) -> dict:
     """Time to accuracy (the BASELINE metric's second half; the JAX
     harness's ``run_time_to_acc``): trains ``model_name`` from record
     shards (decode and augment in the timed path), validates top-1 every
@@ -939,7 +1137,9 @@ def run_time_to_acc(model_name: str, batch: int, target: float,
     job) trains data-parallel over the job's ranks with ``grad_compress``
     and ``grad_buckets`` (``--gradCompress``/``--gradBuckets``), which the
     line's ``grad_compress``/``grad_buckets`` report as the JAX harness's
-    do ("off" and null on one device); rank 0 prints the line."""
+    do ("off" and null on one device); rank 0 prints the line. Under
+    ``obs_state`` (``--obs``) the Optimizer drives its capture controller
+    and the line's phase columns are the Optimizer's phase seconds."""
     import shutil
     import tempfile
 
@@ -1001,6 +1201,8 @@ def run_time_to_acc(model_name: str, batch: int, target: float,
                         if val_every_iters else Trigger.every_epoch())
             opt.set_validation(val_trig, val_ds, [Top1Accuracy()])
             opt.set_summary(summary_dir)
+            if obs_state is not None and obs_state.capture is not None:
+                opt.set_capture(obs_state.capture)
 
             t_train = time.time()
             opt.optimize()
@@ -1046,22 +1248,13 @@ def run_time_to_acc(model_name: str, batch: int, target: float,
         "curve": [{"wall_s": r.get("wall_s"),
                    "top1": r.get("top1_accuracy")} for r in curve],
     }
-    # the JAX line's observability columns, null without its --obs
-    for c in _OBS_COLUMNS:
-        out[c] = None
+    _annotate_obs_phases(out, obs_state, opt.phase_totals(), wall)
     out.update(conv)
     out["bn_fused"] = bn_fused_mode(model)
     _annotate_supervisor(out, supervisor)
     if strat is None or strat.writer:
         print(json.dumps(out), flush=True)
     return out
-
-
-# the JAX line's step-phase, attribution and memory columns (its --obs);
-# the port has no --obs, so they are null
-_OBS_COLUMNS = ("data_wait_s", "h2d_s", "dispatch_s", "device_s", "ckpt_s",
-                "stall_frac", "collective_s", "collective_frac", "attrib",
-                "hbm_peak_bytes", "hbm_headroom_frac", "mem")
 
 
 def main(argv=None) -> dict:
@@ -1140,10 +1333,14 @@ def main(argv=None) -> dict:
     add_grad_comm_args(p)
     add_autotune_arg(p)
     add_resilience_args(p)
+    add_obs_args(p)
     args = p.parse_args(argv)
-    from bigdl_tpu_torch.cli.common import apply_autotune, install_fault_plan
+    from bigdl_tpu_torch.cli.common import (apply_autotune,
+                                            install_fault_plan,
+                                            install_observability)
     apply_autotune(args)
     install_fault_plan(args)
+    install_observability(args)
     dtype = torch.float32 if args.f32 else torch.bfloat16
     if args.elastic is not None:
         if args.timeToAcc is not None:
@@ -1190,7 +1387,8 @@ def _run_line(args, dtype, supervisor=None, elastic=None) -> dict:
             inner_steps=args.innerSteps, conv_layout=args.convLayout,
             conv_geom=args.convGeom, supervisor=supervisor,
             strategy=args.strategy or ("dp" if args.dataParallel else None),
-            grad_compress=args.gradCompress, grad_buckets=args.gradBuckets)
+            grad_compress=args.gradCompress, grad_buckets=args.gradBuckets,
+            obs_state=getattr(args, "_obs", None))
     out = run(args.model, batch=args.batchSize, iterations=args.iteration,
               dtype=dtype, device=args.platform, remat=args.remat,
               seq_len=args.seq, fused_bn=args.fusedBN,
@@ -1201,7 +1399,7 @@ def _run_line(args, dtype, supervisor=None, elastic=None) -> dict:
               profile_dir=args.profile, strategy=args.strategy,
               grad_compress=args.gradCompress, grad_buckets=args.gradBuckets,
               data_parallel=args.dataParallel, supervisor=supervisor,
-              elastic=elastic)
+              elastic=elastic, obs_state=getattr(args, "_obs", None))
     line = {k: v for k, v in out.items() if k != "losses"}
     import torch.distributed as dist
     if not dist.is_initialized() or dist.get_rank() == 0:

@@ -153,6 +153,7 @@ def main(argv=None):
 
     if args.cmd != "generate":
         common.install_fault_plan(args)
+        common.install_observability(args)
     with open(os.path.join(args.folder, "input.txt")) as f:
         tokens = tokenize(f.read())
     d = Dictionary([tokens], vocab_size=args.vocabSize)

@@ -18,9 +18,12 @@ While the card runs step N, a staging thread prepares batch N+1:
   event (:meth:`DeviceBatch.claim`) and the tensors are marked as used by
   that stream (``record_stream``), so their memory is not handed to the
   next batch before the consumer's work is done. The seconds the thread
-  spends issuing a batch's copy ride on it (``DeviceBatch.h2d_s``: the
-  JAX package's ``h2d`` span), and the Optimizer adds them to its
-  ``h2d_staged`` phase. Without CUDA, ``device`` raises.
+  spends issuing a batch's copy ride on it (``DeviceBatch.h2d_s``), and
+  the Optimizer adds them to its ``h2d_staged`` phase. Without CUDA,
+  ``device`` raises.
+
+Each batch the thread pins or copies runs inside an ``h2d`` span
+(``staged=True``) on the thread's own line of the span timeline.
 
 Backpressure is a bounded queue of ``depth`` batches; shutdown drains until
 the producer THREAD exits (an empty-queue check alone races a producer
@@ -40,6 +43,7 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.dataset.dataset import DataSet, MiniBatch
+from bigdl_tpu_torch.obs.spans import span as _span
 
 __all__ = ["DeviceBatch", "StagedDataSet", "staged_batches", "make_put_fn",
            "pin_batch", "STAGE_CHOICES"]
@@ -184,7 +188,8 @@ def staged_batches(batches, put_fn: Optional[Callable] = None,
             for mb in batches:
                 if put is not None:
                     x, y = mb
-                    mb = put(x, y)
+                    with _span("h2d", staged=True, stage=stage):
+                        mb = put(x, y)
                 if not offer(mb):
                     return  # consumer gone: unwind, don't block forever
         except BaseException as e:  # raised on the consumer side

@@ -18,15 +18,20 @@ page."""
 from __future__ import annotations
 
 import bisect
+import contextlib
 import json
 import threading
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
+
+from bigdl_tpu_torch.obs.spans import span
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
            "LabelledRegistry",
-           "DEFAULT_LATENCY_BUCKETS_MS", "ITL_BUCKETS_MS", "get_registry",
-           "set_registry", "reset_registry"]
+           "DEFAULT_LATENCY_BUCKETS_MS", "ITL_BUCKETS_MS",
+           "PHASE_BUCKETS_MS", "get_registry", "set_registry",
+           "reset_registry", "phase_histograms", "TRAIN_PHASES",
+           "PhaseMeter"]
 
 # log-spaced 100 us .. 60 s
 DEFAULT_LATENCY_BUCKETS_MS: tuple = (
@@ -40,6 +45,17 @@ ITL_BUCKETS_MS: tuple = (
     0.25, 0.5, 1.0, 1.5, 2.5, 4.0, 6.0, 10.0, 15.0, 25.0, 40.0, 60.0,
     100.0, 150.0, 250.0, 400.0, 600.0, 1000.0, 2500.0, 5000.0, 10000.0,
     30000.0, 60000.0)
+
+# training step phases: faster at the bottom (a warm h2d is tens of
+# microseconds) and slower at the top (a first dispatch that builds the
+# kernels or captures a graph) than request latencies
+PHASE_BUCKETS_MS: tuple = (
+    0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 10.0, 50.0, 100.0, 500.0, 1000.0,
+    5000.0, 10000.0, 60000.0, 300000.0)
+
+# the step-phase taxonomy: every per-step instrument and perf-JSON phase
+# column derives its name from this tuple
+TRAIN_PHASES = ("data_wait", "h2d", "dispatch", "device", "ckpt")
 
 
 class Counter:
@@ -350,3 +366,60 @@ def set_registry(reg: Optional[MetricsRegistry]) -> None:
 
 def reset_registry() -> None:
     set_registry(None)
+
+
+def phase_histograms(registry: MetricsRegistry, prefix: str = "train",
+                     phases: Sequence[str] = TRAIN_PHASES
+                     ) -> Dict[str, Histogram]:
+    """Register (or fetch) the per-step phase histograms, one
+    ``<prefix>_phase_<name>_ms`` per phase, plus their cumulative
+    ``<prefix>_phase_<name>_seconds_total`` counters, and return
+    ``{phase: histogram}``. Idempotent (the registry dedups by name), so
+    the Optimizer and the perf harness share series."""
+    out = {}
+    for ph in phases:
+        out[ph] = registry.histogram(
+            f"{prefix}_phase_{ph}_ms",
+            f"per-step {ph} phase time", bounds=PHASE_BUCKETS_MS)
+        registry.counter(f"{prefix}_phase_{ph}_seconds_total",
+                         f"cumulative {ph} phase seconds")
+    return out
+
+
+class PhaseMeter:
+    """Seconds by training phase (``TRAIN_PHASES``), one meter for the
+    Optimizer's loop and ``cli.perf``'s: cumulative ``totals`` always;
+    the per-step ``<prefix>_phase_<name>_ms`` histograms once
+    :meth:`observe_into` names a registry (under ``--obs``); and
+    :meth:`publish`, which adds what each phase gained since the last
+    publish to its ``<prefix>_phase_<name>_seconds_total`` counter."""
+
+    def __init__(self, prefix: str = "train"):
+        self.prefix = prefix
+        self.totals: Dict[str, float] = {}
+        self._published: Dict[str, float] = {}
+        self._hists: Optional[Dict[str, Histogram]] = None
+
+    def observe_into(self, registry: MetricsRegistry) -> None:
+        self._hists = phase_histograms(registry, self.prefix)
+
+    def add(self, name: str, seconds: float) -> None:
+        self.totals[name] = self.totals.get(name, 0.0) + seconds
+        if self._hists is not None and name in self._hists:
+            self._hists[name].observe(seconds * 1000.0)
+
+    @contextlib.contextmanager
+    def phase(self, name: str, **args) -> Iterator[None]:
+        """Meter the block as phase ``name``, inside its span."""
+        t0 = time.perf_counter()
+        with span(name, **args):
+            yield
+        self.add(name, time.perf_counter() - t0)
+
+    def publish(self, registry: MetricsRegistry) -> None:
+        for ph in TRAIN_PHASES:
+            d = self.totals.get(ph, 0.0) - self._published.get(ph, 0.0)
+            if d > 0.0:
+                registry.counter(f"{self.prefix}_phase_{ph}_seconds_total",
+                                 f"cumulative {ph} phase seconds").inc(d)
+        self._published = dict(self.totals)

@@ -71,6 +71,10 @@ from bigdl_tpu_torch.core.module import (resolve_device,
 from bigdl_tpu_torch.dataset.pipeline.staging import DeviceBatch
 from bigdl_tpu_torch.nn.moe import collect_aux_losses
 from bigdl_tpu_torch.nn.structural import fold_seed
+from bigdl_tpu_torch.obs import memory as _obs_mem
+from bigdl_tpu_torch.obs.metrics import PhaseMeter, get_registry
+from bigdl_tpu_torch.obs.spans import enabled as _obs_enabled
+from bigdl_tpu_torch.obs.spans import span as _span
 from bigdl_tpu_torch.optim.method import (SGD, OptimMethod,
                                           clip_by_global_norm, clip_by_value)
 from bigdl_tpu_torch.optim.metrics import Metrics
@@ -206,7 +210,17 @@ class Optimizer:
         self._clip_norm = None
         self._clip_const = None
         self._init = (None, None, None)
-        self._phase_totals: dict = {}
+        # host seconds by phase (obs.metrics.TRAIN_PHASES): data_wait
+        # (fetching batches), h2d (issuing the copies of the batches to
+        # the device on the loop's thread, and a graph's wait for its
+        # pinned area to be read), h2d_staged (issuing them on a staging
+        # thread, --stage device: overlapped with the loop; the thread's
+        # own h2d spans), dispatch (issuing the steps: eager launches, a
+        # graph's capture and replay), device (under --obs only: waiting
+        # for the card after each dispatch) and ckpt (what the loop pays
+        # for a snapshot); the per-step histograms under --obs only
+        self._meter = PhaseMeter()
+        self._obs_capture = None
         self._val_trigger = None
         self._val_dataset = None
         self._val_methods: list = []
@@ -473,9 +487,8 @@ class Optimizer:
         if (self._ckpt_path is None or not self._ckpt_trigger(progress)
                 or progress["iteration"] == self._last_ckpt_iter):
             return
-        t0 = time.perf_counter()
-        self._write_checkpoint(opt_state, progress)
-        self._phase("ckpt", time.perf_counter() - t0)
+        with self._meter.phase("ckpt", iteration=progress["iteration"]):
+            self._write_checkpoint(opt_state, progress)
 
     def _write_checkpoint(self, opt_state: dict, progress: dict):
         from bigdl_tpu_torch.interop.checkpoint import save_model, save_state
@@ -570,15 +583,17 @@ class Optimizer:
                 raise err
             raise RuntimeError("async checkpoint write failed") from err
 
-    def _phase(self, name: str, dt: float):
-        """Host seconds per phase: ``data_wait`` (fetching batches),
-        ``h2d`` (issuing the copies of the batches to the device on the
-        loop's thread, and a graph's wait for its pinned area to be
-        read), ``h2d_staged`` (issuing them on a staging thread,
-        ``--stage device``: overlapped with the loop), ``dispatch`` (the
-        steps, up to the log point's sync, ``h2d`` included) and ``ckpt``
-        (what the loop pays for a snapshot)."""
-        self._phase_totals[name] = self._phase_totals.get(name, 0.0) + dt
+    def phase_totals(self) -> dict:
+        """Cumulative seconds by phase of this run: what the perf
+        harness stamps as the ``*_s`` phase columns."""
+        return dict(self._meter.totals)
+
+    def set_capture(self, controller) -> "Optimizer":
+        """Attach an :class:`~bigdl_tpu_torch.obs.capture.
+        CaptureController`; its ``on_step`` is driven once a dispatch,
+        between dispatches and never while a step graph is captured."""
+        self._obs_capture = controller
+        return self
 
     # ------------------------------------------------------------ optimize
     def optimize(self) -> TrainedModel:
@@ -662,18 +677,43 @@ class Optimizer:
         graphed = K > 1 and self.device.type == "cuda"
         self._graph = None
         clock = {"last_log": time.time(), "fetch": 0.0}
+        # --obs: the per-step phase histograms, and the device phase (a
+        # wait for the card after each dispatch; without --obs the loop
+        # never waits there, so its launches and graphs stay as they are)
+        obs_on = _obs_enabled()
+        if obs_on:
+            self._meter.observe_into(get_registry())
+        capture = self._obs_capture
 
         def run_eager(batch, step_seed):
             t0 = time.perf_counter()
-            if strat is not None and not isinstance(batch, DeviceBatch):
-                batch = strat.shard_batch(*batch, rank_local=rank_local)
-            x, y = _batch_to_device(batch, self.device)
-            if strat is not None and isinstance(batch, DeviceBatch):
-                x, y = strat.shard_batch(x, y, rank_local=rank_local)
-            self._phase("h2d", time.perf_counter() - t0)
-            s = (torch.tensor(step_seed, dtype=torch.int64,
-                              device=self.device) if takes_seed else None)
-            return step_fn(params, opt_state, x, y, s, takes_seed)
+            with _span("h2d"):
+                if strat is not None and not isinstance(batch, DeviceBatch):
+                    batch = strat.shard_batch(*batch, rank_local=rank_local)
+                x, y = _batch_to_device(batch, self.device)
+                if strat is not None and isinstance(batch, DeviceBatch):
+                    x, y = strat.shard_batch(x, y, rank_local=rank_local)
+                s = (torch.tensor(step_seed, dtype=torch.int64,
+                                  device=self.device) if takes_seed
+                     else None)
+            t1 = time.perf_counter()
+            self._meter.add("h2d", t1 - t0)
+            # a device OOM writes its memory report, then propagates
+            with _obs_mem.oom_guard("train_dispatch"), _span("dispatch"):
+                loss = step_fn(params, opt_state, x, y, s, takes_seed)
+            self._meter.add("dispatch", time.perf_counter() - t1)
+            return loss
+
+        def wait_device():
+            """The ``device`` phase (under --obs): the card finishing the
+            dispatch, on the loop's stream, outside any capture."""
+            if not obs_on:
+                return
+            t0 = time.perf_counter()
+            with _span("device"):
+                if self.device.type == "cuda":
+                    torch.cuda.current_stream(self.device).synchronize()
+            self._meter.add("device", time.perf_counter() - t0)
 
         def graph_step(x, y, s):
             return self._step(params, opt_state, x, y,
@@ -687,7 +727,6 @@ class Optimizer:
             progress["epoch_records"] += n_rec
             if progress["iteration"] // self.log_every == \
                     prev // self.log_every:
-                self._phase("dispatch", time.time() - t0)
                 return
             loss_f = float(loss)  # syncs: the dispatch has finished
             progress["loss"] = loss_f
@@ -699,7 +738,6 @@ class Optimizer:
                     f"recovery point")
             now = time.time()
             dt = now - t0
-            self._phase("dispatch", dt)
             self.metrics.add("get batch time", clock["fetch"])
             self.metrics.add("computing time",
                              (now - clock["last_log"]) - clock["fetch"])
@@ -722,6 +760,15 @@ class Optimizer:
             # preemption here loses the whole group, as a kill would
             _fault_hook("step")
             seeds = [next_seed() for _ in buf]
+            if graphed and self._graph is not None \
+                    and not self._graph.captured:
+                self._join_ckpt_writer()
+                t1 = time.perf_counter()
+                with _span("dispatch", capture=True):
+                    self._graph.capture()
+                self._meter.add("dispatch", time.perf_counter() - t1)
+            if capture is not None:  # after the capture, never around it
+                capture.on_step(progress["iteration"])
             if not graphed:
                 for b, s in zip(buf, seeds):
                     loss = run_eager(b, s)
@@ -735,20 +782,23 @@ class Optimizer:
                 self._graph = StepGraph(graph_step, buf[0], K, self.device,
                                         stream)
             else:
-                if not self._graph.captured:
-                    self._join_ckpt_writer()
-                    self._graph.capture()
                 t1 = time.perf_counter()
-                self._graph.put(buf, seeds)
-                self._phase("h2d", time.perf_counter() - t1)
-                loss = self._graph.replay()
+                with _span("h2d", batches=K):
+                    self._graph.put(buf, seeds)
+                t2 = time.perf_counter()
+                self._meter.add("h2d", t2 - t1)
+                with _obs_mem.oom_guard("train_dispatch"), \
+                        _span("dispatch", steps=K):
+                    loss = self._graph.replay()
+                self._meter.add("dispatch", time.perf_counter() - t2)
+            wait_device()
             after_dispatch(sum(_records(b) for b in buf), K, t0, loss)
 
         wall_start = self._wall_start = time.time()
         while not self.end_when(progress):
             progress["epoch_finished"] = False
             epoch_start = time.time()
-            snap = dict(self._phase_totals)
+            snap = dict(self._meter.totals)
             progress["epoch_records"] = 0
             self.optim_method.set_epoch(opt_state, progress["epoch"])
             data = iter(self.dataset)
@@ -763,25 +813,26 @@ class Optimizer:
             while not epoch_done:
                 t_fetch = time.time()
                 buf = []
-                while len(buf) < K:
-                    if pending is not None:
-                        b, pending = pending, None
-                    else:
-                        b = next(data, None)
-                        if b is not None:
-                            _fault_hook("data")  # one visit per fetch
-                    if b is None:
-                        epoch_done = True
-                        break
-                    if buf and _shape_sig(b) != _shape_sig(buf[0]):
-                        pending = b  # ragged: flush, then start a group
-                        break
-                    if isinstance(b, DeviceBatch):
-                        self._phase("h2d_staged", b.h2d_s)
-                    buf.append(b)
+                with _span("data_wait"):
+                    while len(buf) < K:
+                        if pending is not None:
+                            b, pending = pending, None
+                        else:
+                            b = next(data, None)
+                            if b is not None:
+                                _fault_hook("data")  # one visit per fetch
+                        if b is None:
+                            epoch_done = True
+                            break
+                        if buf and _shape_sig(b) != _shape_sig(buf[0]):
+                            pending = b  # ragged: flush, then start a group
+                            break
+                        if isinstance(b, DeviceBatch):
+                            self._meter.add("h2d_staged", b.h2d_s)
+                        buf.append(b)
                 dt_fetch = time.time() - t_fetch
                 clock["fetch"] += dt_fetch
-                self._phase("data_wait", dt_fetch)
+                self._meter.add("data_wait", dt_fetch)
                 if not buf:
                     break
                 if len(buf) == K and K > 1:
@@ -789,10 +840,13 @@ class Optimizer:
                     done = self._after_step(opt_state, progress)
                 else:
                     for b in buf:
+                        if capture is not None:
+                            capture.on_step(progress["iteration"])
                         t0 = time.time()
                         # the fault site before the step's seed draw
                         _fault_hook("step")
                         loss = run_eager(b, next_seed())
+                        wait_device()
                         after_dispatch(_records(b), 1, t0, loss)
                         done = self._after_step(opt_state, progress)
                         if done:
@@ -805,9 +859,9 @@ class Optimizer:
             progress["epoch_records"] = 0
             self.dataset.shuffle()
             dt_e = time.time() - epoch_start
-            d_wait = (self._phase_totals.get("data_wait", 0.0)
+            d_wait = (self._meter.totals.get("data_wait", 0.0)
                       - snap.get("data_wait", 0.0))
-            d_disp = (self._phase_totals.get("dispatch", 0.0)
+            d_disp = (self._meter.totals.get("dispatch", 0.0)
                       - snap.get("dispatch", 0.0))
             logger.info(
                 "Epoch %d done: %d records in %.2fs (%.1f rec/s; "
@@ -817,6 +871,10 @@ class Optimizer:
                 100.0 * d_wait / max(dt_e, 1e-9))
             self._maybe_validate(progress)
             self._maybe_checkpoint(opt_state, progress)
+            # cumulative phase seconds into the shared registry (the
+            # epoch's snapshot included): live on the --metricsPort
+            # listener, or read after the run
+            self._meter.publish(get_registry())
         self._join_ckpt_writer()
         logger.info("Training finished after %d iterations in %.1fs",
                     progress["iteration"], time.time() - wall_start)

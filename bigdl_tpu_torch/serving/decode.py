@@ -68,6 +68,7 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.core.module import resolve_device
+from bigdl_tpu_torch.obs import memory as _obs_mem
 from bigdl_tpu_torch.ops import serving_prefill_buckets
 from bigdl_tpu_torch.serving import kv_pages as _kvp
 from bigdl_tpu_torch.serving import quant as _q
@@ -903,7 +904,10 @@ class DecodeEngine:
 
     def _step_plain(self, active) -> int:
         with self._pool.work():
-            self._run(("step", self._needs_warp(active)))
+            # a device OOM (the KV cache, as a rule) writes its memory
+            # report, then the step fails as before
+            with _obs_mem.oom_guard("decode_step"):
+                self._run(("step", self._needs_warp(active)))
             toks = self._toks.tolist()  # the step's one device-to-host copy
         if self._m_steps is not None:
             self._m_steps.inc()
@@ -919,9 +923,10 @@ class DecodeEngine:
         K = self.speculate
         m = min(K + 1, self.max_len - max(int(self._pos[i]) for i in active))
         with self._pool.work():
-            for _ in range(m):
-                self._run(("draft",))
-            self._run(("verify", m))
+            with _obs_mem.oom_guard("decode_step"):
+                for _ in range(m):
+                    self._run(("draft",))
+                self._run(("verify", m))
             out = self._round.tolist()  # the round's one device-to-host copy
         if self._m_steps is not None:
             self._m_steps.inc()

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.core.module import resolve_device
+from bigdl_tpu_torch.obs import memory as _obs_mem
 from bigdl_tpu_torch.obs.spans import span as _obs_span
 from bigdl_tpu_torch.resilience.faults import hook as _fault_hook
 from bigdl_tpu_torch.serving import quant as _q
@@ -263,7 +264,10 @@ class InferenceEngine:
                     [chunk, np.repeat(chunk[-1:], pad, axis=0)])
             with _obs_span("infer", bucket=bucket, rows=take):
                 t0c = rt.clock() if rt is not None else 0.0
-                outs.append(self._forward(chunk)[:take])
+                # a device OOM writes its memory report (--traceDir, the
+                # fault log), then fails the request as before
+                with _obs_mem.oom_guard("serving_predict"):
+                    outs.append(self._forward(chunk)[:take])
             if rt is not None:
                 t1c = rt.clock()
                 for rid in rids[i:i + take]:

@@ -442,7 +442,7 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    a fault and then ``--elastic hold`` with ``kill_device@step:3:1``: the
    line carries ``reshape`` (4 -> 3) and ``supervisor``, finite losses,
    53 of each synced BN kernel a step on each rank; images/s before and
-   after.
+   after (its job starts when (b)'s end and runs beside (c) and (d)).
 26. Tensor parallel and FSDP, after phase 25; the gloo jobs are 2 ranks
    sharing the card (``parallel.launch.spawn``). The kernels against
    their plain versions at the tp:2 per-rank geometry of
@@ -491,9 +491,38 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    parameter bytes half the stack's. (c) ``--strategy ep:2`` (2 experts
    1024 -> 2048 -> 1024, top-2, capacity 2.0) in bf16 at batch 4:
    records/s; f32 parity as (b), each rank's expert bytes half.
+28. Observability at full width, after phase 27 (``--obs``,
+   ``--traceDir``, ``--traceSteps``, ``--metricsPort``; each run's
+   launches join the kernels line). (a) ``cli.perf -m resnet50_fba -b 128
+   -i 8``, without ``--obs`` and then with it, ``--traceSteps 3@3
+   --metricsPort 0``: images/s of both; exact BN launches; the window is
+   verified and attributed, ``bn_norm`` holds ``bn_coop_kernel``, conv
+   time is non-zero, ``host_other`` is under 5% of device time (every
+   category's costliest kernel names print, host_other's too); the phase
+   columns sum to within 10% of ``seconds``; ``/metrics`` has
+   ``train_phase_dispatch_ms_bucket``, ``hbm_bytes_in_use`` and an
+   ``attrib_`` gauge; ``hbm_peak_bytes`` is live and at most the card's
+   memory. (b) ``transformer_lm_1k_hd128`` b8 ``--innerSteps 4 -i 4``
+   graphed, off and ``--traceSteps 2@1``: tokens/s of both, exact flash
+   launches, ``attention`` holds the three flash kernels, the phase sum,
+   and the window's ``mfu_device`` at least 0.9x the line's ``mfu``. (c)
+   ``cli.resnet train --dataset cifar10 --fusedBN apply`` on phase 10's
+   seeded records, one epoch, ``--traceSteps 2@2``: the span file holds
+   ``data_wait``, ``h2d``, ``dispatch`` and ``device``, and the window
+   holds kernels. (d) ``resnet50_fbn`` b128 ``-i 2 --traceSteps 1@1``:
+   ``bn_coop_kernel`` in ``bn_norm``, exact launches. (e) ``explain --mem
+   resnet50_fba -b 32 --json``: the fit's prediction at batch 128 within
+   20% of (a)'s ``hbm_peak_bytes`` (less what the script held before
+   (a)'s model). (f) A process running ``cli.perf -m resnet50 -b 512
+   --obs --traceDir D`` with its allocator capped at 0.15 of the card,
+   started first and run beside (a)-(e), dies on the allocator's OOM
+   and leaves ``D/memory_report.json`` with the plan and the largest
+   live tensors.
 
 Any failed phase exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+The script and every process it starts keep their compiled bytecode under
+``build/pycache`` of the checkout (see :func:`_keep_bytecode`).
 """
 
 import json
@@ -2985,7 +3014,7 @@ def fed_optimizer_run(torch, dataset, steps):
         n = ops.kernel_launches()
     ips = (PIPE_EPOCHS - 1) * per_epoch * RESNET_BATCH / (
         t_end - clock.starts[1])
-    phases = dict(opt._phase_totals)
+    phases = opt.phase_totals()
     del opt, model
     torch.cuda.empty_cache()
     return rec.losses(), n, ips, phases
@@ -6715,28 +6744,50 @@ def perf_elastic_worker(args):
     return runs
 
 
-def elastic_perf_runs(torch, card):
-    """Phase 25 (e): ``cli.perf -m resnet50_fba --strategy dp`` at 4 gloo
-    ranks on the card, global batch PERF_ELASTIC_BATCH, in one job:
-    without a fault, then ``--elastic hold`` with ``kill_device@step:3:1``.
-    Returns (rows, launches)."""
-    import math
-
+def elastic_perf_start(after):
+    """Phase 25 (e), started on a thread once the threads ``after`` ((b)'s)
+    have ended: ``cli.perf -m resnet50_fba --strategy dp`` at 4 gloo ranks
+    on the card, global batch PERF_ELASTIC_BATCH, in one job: without a
+    fault, then ``--elastic hold`` with ``kill_device@step:3:1``. It runs
+    beside (c) and (d), whose checks its load cannot change, as its own
+    cannot be (the reshape, launches, finite losses); its images/s are
+    taken under their load. Returns the handle :func:`elastic_perf_runs`
+    takes."""
     from bigdl_tpu_torch.parallel.launch import spawn
 
     base = ["-m", PERF_ELASTIC_MODEL, "-b", str(PERF_ELASTIC_BATCH), "-i",
             str(PERF_ELASTIC_ITERS), "--strategy", "dp", "--dataType",
             "random"] + RECOVERY_PLATFORM
-    t0 = time.perf_counter()
-    try:
-        job = spawn(PERF_ELASTIC_WORKER, ELASTIC_RANKS,
-                    {"argvs": [base, base + ["--elastic", "hold",
-                                             "--faultPlan",
-                                             "kill_device@step:3:1"]]},
-                    timeout_s=DP_TIMEOUT_S, backend="gloo")
-    except (RuntimeError, TimeoutError) as e:
-        fail(f"[phase 25 e] the 4-rank job failed: {e}")
-    wall = time.perf_counter() - t0
+    state = {}
+
+    def run():
+        for t in after:
+            t.join()
+        t0 = time.perf_counter()
+        try:
+            state["job"] = spawn(
+                PERF_ELASTIC_WORKER, ELASTIC_RANKS,
+                {"argvs": [base, base + ["--elastic", "hold", "--faultPlan",
+                                         "kill_device@step:3:1"]]},
+                timeout_s=DP_TIMEOUT_S, backend="gloo")
+        except BaseException as e:  # reported by elastic_perf_runs
+            state["error"] = repr(e)
+        state["wall"] = time.perf_counter() - t0
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    return th, state
+
+
+def elastic_perf_runs(torch, card, handle):
+    """Phase 25 (e), waited for and checked. Returns (rows, launches)."""
+    import math
+
+    th, state = handle
+    th.join()
+    if "error" in state:
+        fail(f"[phase 25 e] the 4-rank job failed: {state['error']}")
+    job, wall = state["job"], state["wall"]
     before = job[0][0]
     res = [r and r[-1] for r in job]
     line = res[0]
@@ -6776,17 +6827,18 @@ def recovery_runs(torch, card):
     """Phase 25: recovery on the main path; (b)'s child processes run on a
     thread beside (a), (c) and (d), whose checks their load on the card
     and the host cannot change (bits, launches, per-process memory), and
-    end before (e), whose images/s it would. Returns (rows, launches)."""
+    (e)'s job follows them on that thread. Returns (rows, launches)."""
     t_phase = time.perf_counter()
     rows, launches = {}, []
     kills = process_kill_start()
+    perf_e = elastic_perf_start(kills[0])
     for tag, run in (
             ("(a)", lambda: recovery_main_path(torch, card)),
             ("(c)", lambda: snapshot_runs(torch, card)),
             ("(d)", lambda: elastic_cli_runs(torch, card)),
             ("(b) after (a), (c), (d)",
              lambda: (process_kill_finish(torch, card, kills), [])),
-            ("(e)", lambda: elastic_perf_runs(torch, card))):
+            ("(e)", lambda: elastic_perf_runs(torch, card, perf_e))):
         t0 = time.perf_counter()
         r, n = run()
         rows.update(r)
@@ -7333,7 +7385,7 @@ def tp_runs(torch, card, state=None):
 # ------------------------------------------------------------------ phase 27
 # sequence, pipeline and expert parallelism: one 2-rank gloo job sharing
 # the card
-SP_ROW, SP_SEQ, SP_ITERS = "transformer_lm_16k", 16384, 2  # (a)'s speed row
+SP_ROW, SP_SEQ, SP_ITERS = "transformer_lm_16k", 16384, 1  # (a)'s speed row
 SP_CUT, SP_CUT_SEQ = MODEL + "_sp2cut", 4096  # (a)'s f32 parity row
 SP_BLOCK = 512        # the ring's key block, and the blockwise reference's
 PP_BATCH, EP_BATCH, SPE_ITERS = 8, 4, 3  # (b) and (c)'s speed runs (MODEL)
@@ -7571,6 +7623,347 @@ def spe_runs(torch, card):
     return rows
 
 
+# ------------------------------------------------------------------ phase 28
+# observability: --obs, capture windows, attribution, the memory plan and
+# the OOM autopsy on the main paths
+OBS_RESNET = ("resnet50_fba", 128, 8, "3@3")     # (a): row, batch, iters
+OBS_LM = (MODEL, 8, 4, 4, "2@1")                 # (b): ..., innerSteps
+OBS_FBN = ("resnet50_fbn", 128, 2, "1@1")        # (d)
+OBS_MEM_BATCH = 32                               # (e): plans at 32, 64
+# (f): a batch that does not fit the allocator's cap in its process (a
+# fraction of the card: the OOM comes after a few GB, not after 80)
+OBS_OOM, OBS_OOM_FRACTION = ("resnet50", 512), 0.15
+OBS_HOST_OTHER_MAX = 0.05  # of device time, in the windows of (a)-(d)
+OBS_PHASE_TOL = 0.10       # the phase columns' sum against seconds
+OBS_MEM_TOL = 0.20         # (e)'s prediction against (a)'s live peak
+OBS_PLATFORM = []  # ["--platform", "cpu"] to rehearse on the CPU
+
+
+def _obs_perf(torch, argv):
+    """``cli.perf.main(argv)`` with the launch counts set to 0 just
+    before it; (line, launches). The tracer and the registry start fresh,
+    so each run's spans and gauges are its own."""
+    from bigdl_tpu_torch import obs
+    from bigdl_tpu_torch.cli import perf
+
+    obs.disable()
+    obs.reset_registry()
+    _free(torch)
+    out = io_quiet(lambda: _launched(torch, lambda: perf.main(
+        argv + OBS_PLATFORM)))
+    obs.disable()
+    return out
+
+
+def io_quiet(run):
+    """``run()`` with its standard output kept out of this script's (the
+    perf line, the span and listener notices)."""
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return run()
+
+
+def _window(tag, line, want_ok=True):
+    """The line's one capture window, checked: verified, attributed, and
+    its top kernel names by category printed (host_other's too)."""
+    caps = (line.get("obs") or {}).get("captures") or []
+    if len(caps) != 1:
+        fail(f"[phase 28 {tag}] expected one capture window, got {caps}")
+    cap = caps[0]
+    print(f"[phase 28 {tag}] window steps {cap['start_step']}.."
+          f"{cap['stop_step'] - 1} ({cap['trigger']}): ok {cap['ok']}, "
+          f"{cap.get('error') or ''}{cap.get('attrib_error') or ''}",
+          flush=True)
+    if not cap["ok"] or "attrib_error" in cap or "attrib" not in cap:
+        fail(f"[phase 28 {tag}] capture window failed: {cap}")
+    a = cap["attrib"]
+    for c, d in a["categories"].items():
+        print(f"[phase 28 {tag}]   {c}: {d['s']:.5f} s ({100 * d['frac']:.2f}%"
+              f" of {a['total_device_s']:.5f} s device time): "
+              f"{cap['top'].get(c, [])}", flush=True)
+    print(f"[phase 28 {tag}]   host_other top names: "
+          f"{cap['top'].get('host_other', [])}; mfu {a.get('mfu')}",
+          flush=True)
+    other = a["categories"].get("host_other", {"frac": 0.0})["frac"]
+    if other >= OBS_HOST_OTHER_MAX:
+        fail(f"[phase 28 {tag}] host_other is {other:.4f} of device time "
+             f"(limit {OBS_HOST_OTHER_MAX})")
+    return cap
+
+
+def _phase_sum(tag, line):
+    s = sum(line[f"{p}_s"] for p in ("data_wait", "h2d", "dispatch",
+                                     "device", "ckpt"))
+    print(f"[phase 28 {tag}] phases data_wait {line['data_wait_s']} h2d "
+          f"{line['h2d_s']} dispatch {line['dispatch_s']} device "
+          f"{line['device_s']} ckpt {line['ckpt_s']}: sum {s:.4f} s of "
+          f"{line['seconds']} s (capture windows {line['obs']['capture_s']}"
+          f" s, outside the timed region)", flush=True)
+    if abs(s - line["seconds"]) > OBS_PHASE_TOL * line["seconds"]:
+        fail(f"[phase 28 {tag}] the phase columns sum to {s:.4f} s, not "
+             f"within {OBS_PHASE_TOL:.0%} of {line['seconds']} s")
+
+
+def _exact(tag, n, per_step, steps):
+    want = {k: per_step.get(k, 0) * steps for k in n}
+    if n != want:
+        fail(f"[phase 28 {tag}] kernel launches {n}, expected {want}")
+
+
+def _has_kernels(tag, cap, cat, names):
+    tops = cap["top"].get(cat, [])
+    missing = [n for n in names if not any(n in t for t in tops)]
+    if missing:
+        fail(f"[phase 28 {tag}] {cat} lacks {missing}: {tops}")
+
+
+OBS_OOM_CHILD = ("import sys, torch\n"
+                 "if torch.cuda.is_available():\n"
+                 "    torch.cuda.set_per_process_memory_fraction({frac})\n"
+                 "from bigdl_tpu_torch.cli import perf\n"
+                 "perf.main(sys.argv[1:])\n")
+
+
+def obs_oom_start(tmp):
+    """Phase 28 (f), started (it runs beside (a)-(e)): a process running
+    ``cli.perf -m resnet50 --obs --traceDir D`` at a batch that overflows
+    its allocator's cap (``OBS_OOM_FRACTION`` of the card). Returns the
+    handle :func:`obs_oom_finish` takes."""
+    d = os.path.join(tmp, "f")
+    name, b = OBS_OOM
+    proc = subprocess.Popen(
+        [sys.executable, "-c", OBS_OOM_CHILD.format(frac=OBS_OOM_FRACTION),
+         "-m", name, "-b", str(b), "-i", "1", "--obs", "--traceDir", d]
+        + OBS_PLATFORM, cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, d, time.perf_counter()
+
+
+def obs_oom_finish(handle):
+    """Phase 28 (f), waited for: the process must exit non-zero on the
+    allocator's OOM and leave the report with the plan and the largest
+    live tensors."""
+    from bigdl_tpu_torch.obs import memory
+
+    proc, d, t0 = handle
+    try:
+        out, _ = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+    name, b = OBS_OOM
+    path = os.path.join(d, memory.OOM_REPORT_NAME)
+    rep = {}
+    if os.path.exists(path):
+        with open(path) as f:
+            rep = json.load(f)
+    top = rep.get("top_live_buffers") or []
+    print(f"[phase 28 (f)] cli.perf -m {name} -b {b} --obs under an "
+          f"allocator cap of {OBS_OOM_FRACTION} of the card: exit "
+          f"{proc.returncode} {time.perf_counter() - t0:.1f}s after its "
+          f"start; "
+          f"report {'written' if rep else None}: context "
+          f"{rep.get('context')}, error {str(rep.get('error'))[:160]!r}, "
+          f"plan total {(rep.get('plan') or {}).get('total_bytes')}, "
+          f"{len(top)} top live buffers (largest {top[:2]})", flush=True)
+    if proc.returncode == 0 or not rep.get("plan") or not top:
+        fail(f"[phase 28 (f)] no OOM report: {out[-2500:]}")
+
+
+def obs_runs(torch, card):
+    """Phase 28: the observability layer at full width. Returns (rows,
+    [launches of each main-path run])."""
+    import math
+    import tempfile
+
+    from bigdl_tpu_torch.cli import main as cli_main
+    from bigdl_tpu_torch.obs import memory
+    from bigdl_tpu_torch.utils import kineto
+
+    t_phase = time.perf_counter()
+    rows, launches = {}, []
+    total = torch.cuda.get_device_properties(0).total_memory
+    with tempfile.TemporaryDirectory() as tmp:
+        # (f) starts first: its process spends its first ~20 s importing
+        # (host work on one core), so its card work comes after (b)
+        oom = obs_oom_start(tmp)
+        try:
+            # (a) ResNet-50 _fba, obs-off then obs-on
+            name, b, iters, spec = OBS_RESNET
+            base = ["-m", name, "-b", str(b), "-i", str(iters)]
+            off, n_off = _obs_perf(torch, base)
+            d = os.path.join(tmp, "a")
+            line, n = _obs_perf(torch, base + [
+                "--obs", "--traceDir", d, "--traceSteps", spec,
+                "--metricsPort", "0"])
+            launches += [n_off, n]
+            for tag, ln, k in (("(a) off", off, n_off),
+                               ("(a) --obs", line, n)):
+                finite = all(math.isfinite(v) for v in ln["losses"])
+                print(f"[phase 28 {tag}] cli.perf -m {name} -b {b} -i "
+                      f"{iters} on {card}: {ln['records_per_second']} "
+                      f"images/s ({ln['seconds']} s), losses finite "
+                      f"{finite}; launches "
+                      f"{ {x: v for x, v in k.items() if v} }", flush=True)
+            for k_ in (n_off, n):
+                _exact("(a)", k_, {"bn_fwd_apply": 53, "bn_bwd_fused": 53},
+                       2 + iters)
+            cap = _window("(a)", line)
+            _has_kernels("(a)", cap, "bn_norm", ["bn_coop_kernel"])
+            if not cap["attrib"]["categories"].get("conv", {}).get("s"):
+                fail(f"[phase 28 (a)] no conv time: {cap['attrib']}")
+            _phase_sum("(a)", line)
+            with urllib.request.urlopen(line["obs"]["metrics_url"],
+                                        timeout=30) as r:
+                page = r.read().decode()
+            for want in ("train_phase_dispatch_ms_bucket", "hbm_bytes_in_use",
+                         "attrib_"):
+                if want not in page:
+                    fail(f"[phase 28 (a)] /metrics lacks {want}")
+            mem = line["mem"]
+            print(f"[phase 28 (a)] hbm_peak_bytes {line['hbm_peak_bytes']} of "
+                  f"{total} (headroom {line['hbm_headroom_frac']}), source "
+                  f"{mem['source']}; plan {mem['categories']} total "
+                  f"{mem['total_bytes']} (the allocator's peak over the "
+                  f"warm-up, less what was held before the model)", flush=True)
+            if mem["source"] != "live" \
+                    or not 0 < line["hbm_peak_bytes"] <= total:
+                fail(f"[phase 28 (a)] memory columns {mem}")
+            for p_ in ("records_per_second", "seconds"):
+                rows[f"(a) {name} b{b} {p_} off / --obs"] = (off[p_], line[p_])
+            # the bytes (a)'s run held at its peak: the process's peak less
+            # what the script held before (a)'s model
+            base_a = (mem.get("live") or {}).get("base_bytes", 0)
+            peak_a = line["hbm_peak_bytes"] - base_a
+
+            # (b) the 1k LM, graphed, obs-off then obs-on
+            name, b, k, iters, spec = OBS_LM
+            base = ["-m", name, "-b", str(b), "--innerSteps", str(k), "-i",
+                    str(iters)]
+            off, n_off = _obs_perf(torch, base)
+            line, n = _obs_perf(torch, base + [
+                "--obs", "--traceDir", os.path.join(tmp, "b"), "--traceSteps",
+                spec])
+            launches += [n_off, n]
+            for tag, ln, kk in (("(b) off", off, n_off),
+                                ("(b) --obs", line, n)):
+                print(f"[phase 28 {tag}] cli.perf -m {name} -b {b} "
+                      f"--innerSteps {k} -i {iters} on {card}: "
+                      f"{ln['tokens_per_second']} tokens/s ({ln['seconds']} "
+                      f"s), mfu {ln['mfu']}; launches "
+                      f"{ {x: v for x, v in kk.items() if v} }", flush=True)
+            for k_ in (n_off, n):
+                _exact("(b)", k_, {"flash_fwd": 12, "flash_dq": 12,
+                                   "flash_dkv": 12}, k * (2 + iters))
+            cap = _window("(b)", line)
+            _has_kernels("(b)", cap, "attention", ["flash_fwd", "flash_dq",
+                                                   "flash_dkv"])
+            _phase_sum("(b)", line)
+            mfu_dev = cap["attrib"]["mfu"]["mfu_device"]
+            print(f"[phase 28 (b)] mfu_device {mfu_dev} against the line's "
+                  f"mfu {line['mfu']}", flush=True)
+            if mfu_dev < 0.9 * line["mfu"]:
+                fail(f"[phase 28 (b)] mfu_device {mfu_dev} < 0.9 x "
+                     f"{line['mfu']}")
+            for p_ in ("tokens_per_second", "seconds"):
+                rows[f"(b) {name} b{b} x{k} graphed {p_} off / --obs"] = (
+                    off[p_], line[p_])
+
+            _free(torch)
+            # (c) the CIFAR training CLI through the Optimizer
+            from bigdl_tpu_torch import obs
+            from bigdl_tpu_torch.cli import resnet as resnet_cli
+
+            cifar = os.path.join(tmp, "cifar")
+            os.makedirs(cifar)
+            write_cifar(cifar, CIFAR_RECORDS)
+            dc = os.path.join(tmp, "c")
+            obs.disable()
+            obs.reset_registry()
+            _, n = io_quiet(lambda: _launched(torch, lambda: resnet_cli.main([
+                "train", "--dataset", "cifar10", "-f", cifar, "--fusedBN",
+                "apply", "-b", str(CIFAR_BATCH), "--maxEpoch", "1", "--obs",
+                "--traceDir", dc, "--traceSteps", "2@2"] + OBS_PLATFORM)))
+            obs.disable()
+            launches.append(n)
+            with open(os.path.join(dc, "spans.trace.json")) as f:
+                spans = {e["name"] for e in json.load(f)["traceEvents"]}
+            trace = kineto.find_trace(os.path.join(dc, "capture_2"))
+            planes = kineto.parse_trace(trace) if trace else []
+            dev = kineto.device_planes(planes)
+            totals = kineto.op_totals(dev)
+            kern = sorted(totals, key=lambda s: -totals[s]["total_ps"])[:3]
+            print(f"[phase 28 (c)] cli.resnet train --dataset cifar10 --obs "
+                  f"--traceSteps 2@2 on {card}: spans {sorted(spans)}; window "
+                  f"{trace}: {len(dev)} device plane(s), "
+                  f"{len(totals)} kernel names (costliest {kern}); "
+                  f"launches { {x: v for x, v in n.items() if v} }",
+                  flush=True)
+            if not {"data_wait", "h2d", "dispatch", "device"} <= spans \
+                    or not dev or not any(ln.events for p in dev
+                                          for ln in p.lines):
+                fail("[phase 28 (c)] the Optimizer's spans or window are "
+                     "missing")
+
+            # (d) ResNet-50 _fbn: the stats pair attributed
+            name, b, iters, spec = OBS_FBN
+            line, n = _obs_perf(torch, ["-m", name, "-b", str(b), "-i",
+                                        str(iters), "--obs", "--traceDir",
+                                        os.path.join(tmp, "d"), "--traceSteps",
+                                        spec])
+            launches.append(n)
+            print(f"[phase 28 (d)] cli.perf -m {name} -b {b} -i {iters} --obs "
+                  f"on {card}: {line['records_per_second']} images/s; "
+                  f"launches "
+                  f"{ {x: v for x, v in n.items() if v} }", flush=True)
+            _exact("(d)", n, {"bn_stats": 53, "bn_bwd_stats": 53}, 2 + iters)
+            cap = _window("(d)", line)
+            _has_kernels("(d)", cap, "bn_norm", ["bn_coop_kernel"])
+
+            # (e) the memory forecast against (a)'s live peak
+            _free(torch)
+            import contextlib
+            import io
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                _, n = _launched(torch, lambda: cli_main.main([
+                    "explain", "--mem", OBS_RESNET[0], "-b",
+                    str(OBS_MEM_BATCH),
+                    "--json"] + OBS_PLATFORM))
+            launches.append(n)
+            plan = json.loads(buf.getvalue().strip().splitlines()[-1])
+            fc = plan["forecast"]
+            b_a = OBS_RESNET[1]
+            pred = fc["fixed_bytes"] + fc["bytes_per_sample"] * b_a
+            print(f"[phase 28 (e)] explain --mem {OBS_RESNET[0]} -b "
+                  f"{OBS_MEM_BATCH} on {card}: plan {plan['categories']} "
+                  f"total "
+                  f"{plan['total_bytes']} (b{OBS_MEM_BATCH}), "
+                  f"{plan['plan_2x']['total_bytes']} (b{2 * OBS_MEM_BATCH}); "
+                  f"{fc['bytes_per_sample']} B a sample, fixed "
+                  f"{fc['fixed_bytes']}, predicted max batch "
+                  f"{fc['predicted_max_batch']}; predicted at b{b_a} {pred} "
+                  f"against (a)'s hbm_peak_bytes less the {base_a} bytes held "
+                  f"before its model, {peak_a} ({pred / peak_a:.3f})",
+                  flush=True)
+            if abs(pred - peak_a) > OBS_MEM_TOL * peak_a:
+                fail(f"[phase 28 (e)] predicted {pred} not within "
+                     f"{OBS_MEM_TOL:.0%} of {peak_a}")
+            rows["(e) predicted / measured peak at b128"] = round(
+                pred / peak_a, 3)
+
+        except BaseException:
+            oom[0].kill()  # a failed check stops the process too
+            oom[0].wait()
+            raise
+        # (f) a batch that does not fit: the OOM autopsy
+        obs_oom_finish(oom)
+    rows["phase 28 s"] = round(time.perf_counter() - t_phase, 1)
+    return rows, launches
+
+
 # main's phase functions, each timed ("[time] name: s" after it returns)
 TIMED_PHASES = ("check_flash", "check_flash_bwd", "check_bn", "train_run",
                 "grads_check", "cli_runs", "serve_run", "paged_serve_run",
@@ -7579,7 +7972,7 @@ TIMED_PHASES = ("check_flash", "check_flash_bwd", "check_bn", "train_run",
                 "resume_runs", "pipeline_runs", "baseline_runs",
                 "inception_runs", "resnet_slice_runs", "dp_runs", "rnn_runs",
                 "attention_slice_runs", "serving_front_runs", "tuning_runs",
-                "recovery_runs", "tp_runs", "spe_runs")
+                "recovery_runs", "tp_runs", "spe_runs", "obs_runs")
 
 
 def _time_phases(names=TIMED_PHASES):
@@ -7597,6 +7990,20 @@ def _time_phases(names=TIMED_PHASES):
         g[name] = timed
 
 
+def _keep_bytecode(root):
+    """Keep compiled bytecode under ``root/build/pycache``, for this
+    process and (through the environment) every process it starts. Where
+    the environment sets ``PYTHONDONTWRITEBYTECODE`` and the installed
+    packages hold no bytecode, each new process compiles torch, its
+    compiler stack and the port from source: ~7 s of a ``cli.perf``
+    process's 20 s start on an H100 host, and the script starts dozens."""
+    d = os.path.join(root, "build", "pycache")
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = d
+    sys.pycache_prefix = d
+    sys.dont_write_bytecode = False
+
+
 def main():
     try:
         import torch
@@ -7604,7 +8011,10 @@ def main():
         fail("torch is not installed")
     if not torch.cuda.is_available():
         fail("torch.cuda is not available: this script needs an NVIDIA GPU")
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    here = os.path.dirname(os.path.abspath(__file__))
+    if os.path.isdir(os.path.join(here, "bigdl_tpu_torch")):
+        _keep_bytecode(here)
+    sys.path.insert(0, here)
     try:
         from bigdl_tpu_torch.ops import _build
         from bigdl_tpu_torch.ops import attention_kernel as ak
@@ -7698,7 +8108,9 @@ def main():
     tp_rows, tp_n = tp_runs(torch, card, tp_started)
     # phase 27's paths (the ring, dense attention, the MoE) run no kernel
     spe_rows = spe_runs(torch, card)
-    for n in base_n + inc_n + slice_n + dp_n + attn_n + tune_n + rec_n:
+    obs_rows, obs_n = obs_runs(torch, card)
+    for n in (base_n + inc_n + slice_n + dp_n + attn_n + tune_n + rec_n
+              + obs_n):
         for name in launches:
             launches[name] += n[name]
     for n in tp_n:  # some counts name only the kernel they hold
@@ -7754,6 +8166,8 @@ def main():
         print(f"[phase 26] {tag} on {card}: {r}", flush=True)
     for tag, r in spe_rows.items():
         print(f"[phase 27] {tag} on {card}: {r}", flush=True)
+    for tag, r in obs_rows.items():
+        print(f"[phase 28] {tag} on {card}: {r}", flush=True)
 
     head, bwd = rows[0], bwd_rows[0]  # the training step's 8 x 8 x 1024^2
     common = {"route": "cuda", "check": "pass", "shape": head["shape"],

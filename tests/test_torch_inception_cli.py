@@ -192,13 +192,30 @@ def test_cli_main_dispatches_and_refuses_by_name(capsys):
         assert e.value.code == 0
         assert f"python -m bigdl_tpu_torch.cli.{module}" in \
             capsys.readouterr().out
-    later = ("explain", "lint", "predict", "batch-predict")
+    later = ("lint", "predict", "batch-predict")
     assert set(cli_main._LATER) == set(later)
     for cmd in later:
         with pytest.raises(SystemExit, match=f"^{cmd}: not available in "
                                              f"the PyTorch port yet .*"
                                              f"ROADMAP.md queue 1 item"):
             cli_main.main([cmd, "x"])
+
+
+def test_cli_main_runs_explain(tmp_path, capsys):
+    """``explain`` runs through the launcher, as the JAX command does: a
+    capture directory's kernels attributed by category."""
+    d = tmp_path / "capture_0"
+    d.mkdir()
+    kern = {"ph": "X", "cat": "kernel", "args": {"device": 0, "stream": 7}}
+    (d / "trace.json").write_text(json.dumps({"traceEvents": [
+        dict(kern, name="void flash_fwd_sm90<128, false>()", ts=0, dur=30),
+        dict(kern, name="sm90_xmma_gemm_bf16bf16_bf16f32", ts=40,
+             dur=10)]}))
+    assert cli_main.main(["explain", str(d), "--json", "--steps", "2"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["categories"]["attention"]["s"] == pytest.approx(3e-5)
+    assert out["categories"]["matmul"]["frac"] == pytest.approx(0.25)
+    assert out["steps"] == 2 and out["trace"] == str(d / "trace.json")
 
 
 # ------------------------------------------------------------------ perf

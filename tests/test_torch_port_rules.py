@@ -108,6 +108,29 @@ def test_the_serving_front_modules_are_walked_and_import_no_jax():
     assert not [f.name for f in files if pat.search(f.read_text())]
 
 
+def test_the_obs_modules_are_walked_and_import_no_jax():
+    """The rest of obs/ (the listener, capture windows, attribution, the
+    memory plan), the trace reader, the table formatter and ``explain``
+    are among the modules the import check walks, and none of their files
+    imports jax or the JAX package (the port keeps its own copies)."""
+    import pkgutil
+
+    import bigdl_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(bigdl_tpu_torch.__path__,
+                                                   "bigdl_tpu_torch.")}
+    want = {f"bigdl_tpu_torch.obs.{m}" for m in (
+        "http", "capture", "attrib", "memory", "metrics")} | {
+            "bigdl_tpu_torch.utils.kineto", "bigdl_tpu_torch.utils.table",
+            "bigdl_tpu_torch.cli.explain"}
+    assert want <= names
+    pat = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|bigdl_tpu)"
+                     r"(?:\.|\s|$|,)", re.MULTILINE)
+    files = [PORT / (n[len("bigdl_tpu_torch."):].replace(".", "/") + ".py")
+             for n in sorted(want)] + [PORT / "obs" / "__init__.py"]
+    assert all(f.is_file() for f in files)
+    assert not [f.name for f in files if pat.search(f.read_text())]
+
+
 def test_no_source_file_imports_jax_or_bigdl_tpu():
     pat = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|bigdl_tpu)"
                      r"(?:\.|\s|$|,)", re.MULTILINE)

@@ -133,8 +133,8 @@ def test_serving_sharding_rules_match_jax(jax_lm):
 @pytest.fixture(scope="module")
 def tp_serving(tmp_path_factory, jax_lm):
     """Inputs (the JAX init in the port's names, seeded pool contents and
-    rows), a 2-rank training job under tp that checkpoints, the 2-rank
-    serving job (engines and the CLI); the single-process references."""
+    rows), one 2-rank job that trains under tp and checkpoints, then
+    serves (engines and the CLI); the single-process references."""
     root = tmp_path_factory.mktemp("serving_tp")
     _, jp = jax_lm
     rs = np.random.RandomState(0)
@@ -148,12 +148,11 @@ def tp_serving(tmp_path_factory, jax_lm):
     inp["serve_y"] = rs.randint(0, 50, (8, 16)).astype(np.int32)
     np.savez(root / "inputs.npz", **inp)
     ck = str(root / "ckpt")
+    # one job: the tp training writes the checkpoint the engines serve
     spawn("torch_tp_cases:run_all", 2,
-          {"dir": str(root), "cases": ["tp_ckpt"], "ckpt": ck, "k": 2},
-          timeout_s=JOB_TIMEOUT_S, backend="gloo", env=ENV)
-    spawn("torch_tp_cases:run_all", 2,
-          {"dir": str(root), "cases": ["serve", "serve_cli"], "ckpt": ck,
-           "k": 2}, timeout_s=JOB_TIMEOUT_S, backend="gloo", env=ENV)
+          {"dir": str(root), "cases": ["tp_ckpt", "serve", "serve_cli"],
+           "ckpt": ck, "k": 2}, timeout_s=JOB_TIMEOUT_S, backend="gloo",
+          env=ENV)
     got = [dict(np.load(root / f"serve_r{r}.npz")) for r in range(2)]
     cli = dict(np.load(root / "serve_cli_r0.npz"))
     trained = dict(np.load(root / "tp_ckpt_r0.npz"))

@@ -188,25 +188,24 @@ def jax_models_and_inputs(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def tp_jobs(jax_models_and_inputs):
-    """The 2-rank job (tp:2, every model) and the 4-rank job (dp:2 x tp:2
-    for the MLP and the LM; tp:4 for the GQA LM), {ranks: results}."""
+    """The 2-rank job (tp:2, every model) and one 4-rank job running
+    dp:2 x tp:2 for the MLP and the LM, then tp:4 for the GQA LM and the
+    LM; {ranks: results}."""
     root = jax_models_and_inputs[0]
     out = {}
-    for n, k, cases, mods in (
-            (2, 2, ["tp", "perf"], list(C.TP_MODELS)),
-            (4, 2, ["tp"], ["mlp", "lm"])):
-        spawn("torch_tp_cases:run_all", n,
-              {"dir": str(root), "cases": cases, "k": k, "models": mods},
-              timeout_s=JOB_TIMEOUT_S, backend="gloo", env=ENV)
-        out[n] = [dict(np.load(root / f"tp_r{r}.npz")) for r in range(n)]
-        if "perf" in cases:
-            out["perf"] = [dict(np.load(root / f"perf_r{r}.npz"))
-                           for r in range(n)]
-    spawn("torch_tp_cases:run_all", 4,
-          {"dir": str(root), "cases": ["tp"], "k": 4,
-           "models": ["gqa", "lm"]},
+    spawn("torch_tp_cases:run_all", 2,
+          {"dir": str(root), "cases": ["tp", "perf"], "k": 2,
+           "models": list(C.TP_MODELS)},
           timeout_s=JOB_TIMEOUT_S, backend="gloo", env=ENV)
-    out["tp4"] = [dict(np.load(root / f"tp_r{r}.npz")) for r in range(4)]
+    out[2] = [dict(np.load(root / f"tp_r{r}.npz")) for r in range(2)]
+    out["perf"] = [dict(np.load(root / f"perf_r{r}.npz")) for r in range(2)]
+    spawn("torch_tp_cases:run_all", 4,
+          {"dir": str(root), "cases": ["tp"], "runs": [
+              {"k": 2, "models": ["mlp", "lm"]},
+              {"k": 4, "models": ["gqa", "lm"], "prefix": "tp4_"}]},
+          timeout_s=JOB_TIMEOUT_S, backend="gloo", env=ENV)
+    out[4] = [dict(np.load(root / f"tp_r{r}.npz")) for r in range(4)]
+    out["tp4"] = [dict(np.load(root / f"tp4_tp_r{r}.npz")) for r in range(4)]
     return out
 
 

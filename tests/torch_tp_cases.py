@@ -144,16 +144,22 @@ CASES = {"tp": case_tp}
 
 
 def run_all(args):
-    """Each case in ``args["cases"]``, writing ``<case>_r<rank>.npz``."""
+    """Each case in ``args["cases"]``, writing ``<case>_r<rank>.npz``;
+    with ``args["runs"]``, each run's overrides of ``args`` in turn in
+    this one job, its files named ``<prefix><case>_r<rank>.npz``."""
     import torch.distributed as dist
     torch.set_num_threads(1)
     rank = dist.get_rank()
     inp = np.load(os.path.join(args["dir"], "inputs.npz"))
     info = {}
-    for name in args["cases"]:
-        got = CASES[name](args, inp)
-        info[name] = len(got)
-        np.savez(os.path.join(args["dir"], f"{name}_r{rank}.npz"), **got)
+    for run in args.get("runs") or [{}]:
+        a = {**args, **run}
+        pre = a.get("prefix", "")
+        for name in a["cases"]:
+            got = CASES[name](a, inp)
+            info[pre + name] = len(got)
+            np.savez(os.path.join(a["dir"], f"{pre}{name}_r{rank}.npz"),
+                     **got)
     return info
 
 
