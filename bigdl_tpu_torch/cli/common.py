@@ -856,8 +856,8 @@ def resolve_serve_config(args, *, n_devices: Optional[int] = None
     not have yet (naming their ROADMAP.md entry), and check
     ``--strategy`` (over ``n_devices``, or abstractly), ``--quantize``,
     ``--speculate`` and ``--fleet``. Pure Python: the fleet router calls
-    this before any worker boots and imports no torch. The composed
-    ``dp:N+tp:K`` and a fleet of tp workers exit by name."""
+    this before any worker boots and imports no torch. A fleet whose
+    workers take ``--strategy`` exits by name."""
     from bigdl_tpu_torch.cli.serve import refuse_later_flags
 
     refuse_later_flags(args)
@@ -865,11 +865,6 @@ def resolve_serve_config(args, *, n_devices: Optional[int] = None
     n = (int(n_devices) if n_devices is not None
          else _virtual_serving_devices(spec))
     replicas, tp_k = parse_serving_strategy(spec, n)
-    if replicas > 1 and tp_k > 1:
-        raise SystemExit(
-            f"serve --strategy {spec}: replicas of tensor-parallel engines "
-            f"(dp:N+tp:K) are not in the PyTorch port yet (ROADMAP.md queue "
-            f"1 entry 13(a) leftovers); serve dp:N or tp:K")
     quantize = getattr(args, "quantize", None)
     if quantize == "off":  # serve spells the default as the string off
         quantize = None

@@ -44,10 +44,6 @@ _COMMANDS = {
 # commands whose CLI is not in the port yet -> what brings it
 _LATER = {
     "lint": "analysis/ (ROADMAP.md queue 1 item 18)",
-    "predict": "utils/file.py's save_module/load_module (ROADMAP.md "
-               "queue 1 item 17)",
-    "batch-predict": "serving/bulk.py (ROADMAP.md queue 1 item 17, entry "
-                     "15)",
 }
 
 

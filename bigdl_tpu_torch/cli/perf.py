@@ -450,25 +450,33 @@ def step_flops(model, model_name: str, batch: int, dtype=torch.bfloat16,
 
 def _annotate_conv_layouts(out: dict) -> None:
     """Stamp the non-default conv layout policy (global triple and
-    per-geometry decisions) into a result line."""
-    from bigdl_tpu_torch.ops import conv2d as c2d
+    per-geometry decisions) into a result line, through the shared
+    provenance assembly (``cli.provenance``)."""
+    from bigdl_tpu_torch.cli.provenance import provenance_dict
 
-    lay, geom = c2d.conv_layouts_if_nondefault(), c2d.geom_policy_if_any()
-    if lay is not None:
-        out["conv_layouts"] = lay
-    if geom is not None:
-        out["conv_geom"] = geom
+    core = provenance_dict()
+    for k in ("conv_layouts", "conv_geom"):
+        if k in core:
+            out[k] = core[k]
 
 
 def _annotate_autotune(out: dict) -> None:
     """Stamp the run's tuning provenance (the mode, and each consulted
     key's decision or "default") into a result line; nothing under
     ``--autotune off``."""
-    from bigdl_tpu_torch import tuning
+    from bigdl_tpu_torch.cli.provenance import provenance_dict
 
-    ann = tuning.annotation()
-    if ann is not None:
-        out["autotune"] = ann
+    core = provenance_dict()
+    if "autotune" in core:
+        out["autotune"] = core["autotune"]
+
+
+def _annotate_bn_fused(out: dict, model) -> None:
+    """Stamp the model's BN fusion mode (off/stats/apply) into a result
+    line."""
+    from bigdl_tpu_torch.cli.provenance import provenance_dict
+
+    out["bn_fused"] = provenance_dict(model)["bn_fused"]
 
 
 def _annotate_supervisor(out: dict, supervisor) -> None:
@@ -1148,7 +1156,7 @@ def run_time_to_acc(model_name: str, batch: int, target: float,
     from bigdl_tpu_torch.core.module import resolve_device
     from bigdl_tpu_torch.dataset import (RecordImageDataSet,
                                          write_image_shards)
-    from bigdl_tpu_torch.nn import ClassNLLCriterion, bn_fused_mode
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
     from bigdl_tpu_torch.optim import SGD, Optimizer, Top1Accuracy, Trigger
 
     device = resolve_device(device)
@@ -1250,7 +1258,7 @@ def run_time_to_acc(model_name: str, batch: int, target: float,
     }
     _annotate_obs_phases(out, obs_state, opt.phase_totals(), wall)
     out.update(conv)
-    out["bn_fused"] = bn_fused_mode(model)
+    _annotate_bn_fused(out, model)
     _annotate_supervisor(out, supervisor)
     if strat is None or strat.writer:
         print(json.dumps(out), flush=True)

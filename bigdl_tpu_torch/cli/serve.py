@@ -211,13 +211,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dModel", type=int, default=128)
     p.add_argument("--numLayers", type=int, default=2)
     p.add_argument("--numHeads", type=int, default=4)
-    p.add_argument("--strategy", default=None, metavar="tp[:K]|dp[:N]",
+    p.add_argument("--strategy", default=None,
+                   metavar="tp[:K]|dp[:N]|dp:N+tp:K",
                    help="serving topology: tp:K shards one engine over the "
                         "K ranks of a torchrun job (rank 0 serves HTTP, the "
                         "others follow; the programs run eagerly), dp:N "
                         "runs N engine replicas in this process behind "
-                        "least-load routing, one a device of --devices. "
-                        "dp:N+tp:K is not in the PyTorch port yet")
+                        "least-load routing, one a device of --devices; "
+                        "dp:N+tp:K: each of the K ranks holds its shard of "
+                        "all N replicas (a process group a replica), rank 0 "
+                        "routes")
     p.add_argument("--devices", default=None, metavar="LIST",
                    help="comma-separated devices the dp replicas take in "
                         "order, one may repeat (cuda:0,cuda:0 puts two "
@@ -299,9 +302,13 @@ def _page_tokens(spec, max_len: int, kv_heads: int = 0, head_dim: int = 0,
     return pt
 
 
-def _build_image_app(args, name, device, metrics, graphs):
-    """(engine, batcher, input shape, provenance) of an image classifier:
-    its ``/predict`` buckets captured at the model's input shape."""
+def _build_image_app(args, name, device, metrics, graphs, mesh=None):
+    """(engine, batcher, input shape, provenance, link) of an image
+    classifier: its ``/predict`` buckets captured at the model's input
+    shape. With ``mesh`` (a tp replica's) the model is split by
+    ``megatron_specs``' conv rule on this rank and the engine, eager, runs
+    rank 0's forwards on every rank through its ``TPLink``; a follower
+    rank gets no batcher."""
     import numpy as np
     import torch
 
@@ -327,20 +334,27 @@ def _build_image_app(args, name, device, metrics, graphs):
     apply_fused_bn(model, args.fusedBN)
     if args.checkpoint:
         load_trained(model, args.checkpoint)
+    link = None
+    if mesh is not None:
+        from bigdl_tpu_torch.serving.sharding import ServingSharding, TPLink
+        ServingSharding(mesh).place_params(model.to(device))
+        link = TPLink(mesh)
     engine = InferenceEngine(
         model, buckets=_parse_buckets(args.buckets), metrics=metrics,
         device=device, graphs=graphs, quantize=args.quantize,
-        compute_dtype=torch.bfloat16 if args.bf16 else None)
+        compute_dtype=torch.bfloat16 if args.bf16 else None, tp=link)
     if graphs.enabled or not args.no_warmup:
         print(f"warmup: buckets {engine.buckets} at {tuple(in_shape)} "
               f"float32", flush=True)
         engine.warmup(in_shape, np.float32)
+    prov = {"classes": args.classes, "fused_bn": args.fusedBN or "off",
+            "in_shape": ",".join(str(d) for d in in_shape)}
+    if link is not None and not link.leader:
+        return engine, None, in_shape, prov, link
     batcher = MicroBatcher(engine.predict_scores, max_batch=args.maxBatch,
                            max_wait_ms=args.maxWaitMs,
                            max_queue=args.maxQueue, metrics=metrics)
-    prov = {"classes": args.classes, "fused_bn": args.fusedBN or "off",
-            "in_shape": ",".join(str(d) for d in in_shape)}
-    return engine, batcher, in_shape, prov
+    return engine, batcher, in_shape, prov, link
 
 
 def build_app(args):
@@ -385,60 +399,62 @@ def build_app(args):
     if not (args.randomInit or args.checkpoint):
         raise SystemExit("serve needs weights: pass --model CKPT (a "
                          "checkpoint directory or file) or --randomInit")
-    if cfg.serving_tp > 1:
-        if not name.startswith("transformer_lm"):
-            raise SystemExit(
-                f"serve --strategy {cfg.strategy}: tensor-parallel serving "
-                f"takes the transformer_lm models in the PyTorch port "
-                f"(image classifiers: ROADMAP.md queue 1 entry 13(a) "
-                f"leftovers); serve dp:N")
+    replicas, tp_k = cfg.serving_replicas, cfg.serving_tp
+    meshes = [None] * replicas
+    if tp_k > 1:
         from bigdl_tpu_torch.cli.common import _join, _world
+        from bigdl_tpu_torch.serving.sharding import replica_meshes
         _join(args)
-        if _world() != cfg.serving_tp:
+        if _world() != tp_k:
             raise SystemExit(
-                f"serve --strategy {cfg.strategy} runs {cfg.serving_tp} "
-                f"ranks, one process a device: start them with torchrun "
-                f"--nproc_per_node {cfg.serving_tp} (this job has "
-                f"{_world()})")
+                f"serve --strategy {cfg.strategy} runs {tp_k} ranks, one "
+                f"process a device: start them with torchrun "
+                f"--nproc_per_node {tp_k} (this job has {_world()})")
+        meshes = replica_meshes(replicas)
+    devices = (_replica_devices(args, replicas, device, tp_k > 1)
+               if replicas > 1 else [[device]])
     if not name.startswith("transformer_lm"):
         set_registry(metrics)
         _reqtrace.set_request_tracer(reqtracer)
-        rep_set = None
-        if cfg.serving_replicas > 1:
-            from bigdl_tpu_torch.serving import Replica, ReplicaSet
-            reps = []
-            for i, devs in enumerate(_replica_devices(
-                    args, cfg.serving_replicas, device)):
-                view = metrics.labelled(replica=str(i))
-                graphs = GraphPool(devs[0])
-                engine, batcher, in_shape, extra = _build_image_app(
-                    args, name, devs[0], view, graphs)
-                watchdog = Watchdog(stall_timeout_s=args.watchdogStallS,
-                                    metrics=view)
-                watchdog.watch("batcher", batcher).start()
-                reps.append(Replica(i, devices=devs, engine=engine,
-                                    batcher=batcher, watchdog=watchdog))
-            rep_set = ReplicaSet(reps, metrics=metrics)
-            engine = reps[0].engine
-        else:
-            graphs = GraphPool(device)
-            engine, batcher, in_shape, extra = _build_image_app(
-                args, name, device, metrics, graphs)
+        built = []
+        for i in range(replicas):
+            view = (metrics.labelled(replica=str(i)) if replicas > 1
+                    else metrics)
+            graphs = GraphPool(devices[i][0], enabled=meshes[i] is None)
+            built.append(_build_image_app(args, name, devices[i][0], view,
+                                          graphs, mesh=meshes[i]))
+        links = [b[4] for b in built if b[4] is not None]
+        if links and not links[0].leader:
+            return (TPFollower(links, [b[0] for b in built]), built[0][0],
+                    built[0][2], np.float32)
+        reps = []
+        for i, (engine, batcher, in_shape, extra, _) in enumerate(built):
             watchdog = Watchdog(stall_timeout_s=args.watchdogStallS,
-                                metrics=metrics)
+                                metrics=(metrics.labelled(replica=str(i))
+                                         if replicas > 1 else metrics))
             watchdog.watch("batcher", batcher).start()
+            reps.append((engine, batcher, watchdog))
+        engine, batcher, watchdog = reps[0]
+        in_shape, extra = built[0][2], built[0][3]
+        rep_set = None
+        if replicas > 1:
+            from bigdl_tpu_torch.serving import Replica, ReplicaSet
+            rep_set = ReplicaSet(
+                [Replica(i, devices=devices[i], engine=e, batcher=b,
+                         watchdog=w, mesh=meshes[i])
+                 for i, (e, b, w) in enumerate(reps)], metrics=metrics)
         prov = _provenance(args, engine, reqtracer, name)
         prov.update(extra)
-        prov["cuda_graphs"] = graphs.enabled
+        prov["cuda_graphs"] = engine.graphs.enabled
         prov.update({"strategy": cfg.strategy or "none",
-                     "serving_replicas": cfg.serving_replicas,
-                     "serving_tp": 1})
+                     "serving_replicas": replicas, "serving_tp": tp_k})
         if rep_set is not None:
             app = ServingApp(name=name, metrics=metrics, replicas=rep_set,
                              request_timeout_s=args.timeout,
                              default_deadline_ms=args.deadlineMs,
                              shed_generate_frac=args.shedAt,
-                             version=args.modelVersion or "v0")
+                             version=args.modelVersion or "v0",
+                             tp_link=links or None)
         else:
             app = ServingApp(name=name, metrics=metrics, engine=engine,
                              batcher=batcher,
@@ -446,7 +462,8 @@ def build_app(args):
                              default_deadline_ms=args.deadlineMs,
                              shed_generate_frac=args.shedAt,
                              watchdog=watchdog,
-                             version=args.modelVersion or "v0")
+                             version=args.modelVersion or "v0",
+                             tp_link=links or None)
         prov["model_version"] = lambda: app.model_version
         metrics.set_provenance(prov)
         return app, engine, in_shape, np.float32
@@ -516,19 +533,28 @@ def build_app(args):
     # the fault and retry counters land on this server's page
     set_registry(metrics)
     _reqtrace.set_request_tracer(reqtracer)
-    replicas, tp_k = cfg.serving_replicas, cfg.serving_tp
-    link = None
-    if tp_k > 1:
-        from bigdl_tpu_torch.serving.sharding import (ServingSharding,
-                                                      TPLink, serving_mesh)
-        mesh = serving_mesh()
-        sharding = ServingSharding(mesh)
-        sharding.place_params(model)
-        if draft is not None:
-            sharding.place_params(draft.to(device))
-        link = TPLink(mesh)
+    def placed(i):
+        """(model, draft, link) of replica ``i`` on its device: the model
+        itself for one replica, else a copy; split over replica ``i``'s
+        mesh under tp."""
+        import copy
 
-    def stack(dev, view, mdl, drf):
+        dev = devices[i][0]
+        mdl = model if replicas == 1 else copy.deepcopy(model)
+        drf = draft if replicas == 1 or draft is None else \
+            copy.deepcopy(draft)
+        mdl = mdl.to(dev)
+        drf = drf.to(dev) if drf is not None else None
+        if meshes[i] is None:
+            return mdl, drf, None
+        from bigdl_tpu_torch.serving.sharding import ServingSharding, TPLink
+        sharding = ServingSharding(meshes[i])
+        sharding.place_params(mdl)
+        if drf is not None:
+            sharding.place_params(drf)
+        return mdl, drf, TPLink(meshes[i])
+
+    def stack(dev, view, mdl, drf, link):
         """(engine, decoder, batcher, watchdog, graphs) of one engine on
         ``dev``, its series on ``view``."""
         graphs = GraphPool(dev, enabled=link is None)
@@ -563,30 +589,29 @@ def build_app(args):
         watchdog.watch("batcher", batcher).watch("decoder", decoder).start()
         return engine, decoder, batcher, watchdog, graphs
 
+    stacks, links = [], []
+    for i in range(replicas):
+        mdl, drf, link = placed(i)
+        if i == 0:
+            served = mdl
+        if link is not None:
+            links.append(link)
+        stacks.append(stack(devices[i][0],
+                            (metrics.labelled(replica=str(i))
+                             if replicas > 1 else metrics), mdl, drf, link))
+    if links and not links[0].leader:
+        return (TPFollower(links, [st[0] for st in stacks],
+                           [st[1] for st in stacks]), stacks[0][0], in_shape,
+                np.int32)
+    engine, decoder, batcher, watchdog, graphs = stacks[0]
     rep_set = None
     if replicas > 1:
-        import copy
-
         from bigdl_tpu_torch.serving import Replica, ReplicaSet
-        reps = []
-        for i, devs in enumerate(_replica_devices(args, replicas, device)):
-            mdl = copy.deepcopy(model).to(devs[0])
-            drf = (None if draft is None
-                   else copy.deepcopy(draft).to(devs[0]))
-            engine, decoder, batcher, watchdog, graphs = stack(
-                devs[0], metrics.labelled(replica=str(i)), mdl, drf)
-            reps.append(Replica(i, devices=devs, engine=engine,
-                                batcher=batcher, decoder=decoder,
-                                watchdog=watchdog))
-        rep_set = ReplicaSet(reps, metrics=metrics)
-        engine, decoder = reps[0].engine, reps[0].decoder
+        rep_set = ReplicaSet(
+            [Replica(i, devices=devices[i], engine=e, batcher=b, decoder=d,
+                     watchdog=w, mesh=meshes[i])
+             for i, (e, d, b, w, _) in enumerate(stacks)], metrics=metrics)
         batcher = watchdog = None
-    else:
-        engine, decoder, batcher, watchdog, graphs = stack(
-            device, metrics, model, draft)
-        if link is not None and not link.leader:
-            return TPFollower(link, engine, decoder), engine, in_shape, \
-                np.int32
 
     prov = _provenance(args, engine, reqtracer, name)
     prov.update({
@@ -597,7 +622,7 @@ def build_app(args):
         "cuda_graphs": graphs.enabled,
         "speculate": args.speculate,
         "draft": (args.draftDims or "self") if args.speculate else "none",
-        "weight_bytes": weight_bytes(model),
+        "weight_bytes": weight_bytes(served),
         "strategy": cfg.strategy or "none",
         "serving_replicas": replicas,
         "serving_tp": tp_k,
@@ -611,14 +636,16 @@ def build_app(args):
                          request_timeout_s=args.timeout,
                          default_deadline_ms=args.deadlineMs,
                          shed_generate_frac=args.shedAt,
-                         version=args.modelVersion or "v0")
+                         version=args.modelVersion or "v0",
+                         tp_link=links or None)
     else:
         app = ServingApp(name=name, metrics=metrics, engine=engine,
                          batcher=batcher, decoder=decoder,
                          request_timeout_s=args.timeout,
                          default_deadline_ms=args.deadlineMs,
                          shed_generate_frac=args.shedAt, watchdog=watchdog,
-                         version=args.modelVersion or "v0", tp_link=link)
+                         version=args.modelVersion or "v0",
+                         tp_link=links or None)
     # resolved at each scrape: a rolling swap bumps the version
     prov["model_version"] = lambda: app.model_version
     metrics.set_provenance(prov)
@@ -627,49 +654,77 @@ def build_app(args):
 
 class TPFollower:
     """What ``build_app`` returns on ranks 1..K-1 of a tp:K server: its
-    engines, which :meth:`serve` runs at rank 0's calls until rank 0
-    closes."""
+    engines (one a replica under dp:N+tp:K), which :meth:`serve` runs at
+    rank 0's calls, a thread a replica's link, until rank 0 closes."""
 
     follower = True
 
-    def __init__(self, link, engine, decoder):
-        self.link, self.engine, self.decoder = link, engine, decoder
+    def __init__(self, links, engines, decoders=()):
+        self.links, self.engines = list(links), list(engines)
+        self.decoders = list(decoders)
+        # replica 0's, as on the leader's app
+        self.engine = self.engines[0]
+        self.decoder = self.decoders[0] if self.decoders else None
 
     def serve(self) -> int:
-        """Run rank 0's calls until it closes; returns how many ran."""
-        return self.link.serve()
+        """Run rank 0's calls until it closes every link; returns how many
+        ran."""
+        if len(self.links) == 1:
+            return self.links[0].serve()
+        import threading
+
+        errors: list = []
+
+        def follow(link):
+            try:
+                link.serve()
+            except BaseException as e:  # re-raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=follow, args=(link,),
+                                    name=f"tp-follow-{i}", daemon=True)
+                   for i, link in enumerate(self.links)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        return sum(link.calls for link in self.links)
 
     def close(self) -> None:
-        self.decoder.close()
-        self.engine.close()
+        for d in self.decoders:
+            d.close()
+        for e in self.engines:
+            e.close()
 
 
-def _replica_devices(args, replicas: int, device) -> list:
+def _replica_devices(args, replicas: int, device, tp: bool = False) -> list:
     """The dp replicas' device groups: ``--devices`` in order, else every
-    visible card, or the CPU once a replica under ``--platform cpu``."""
+    visible card, or this process's device once a replica under
+    ``--platform cpu`` and under dp:N+tp:K (a rank's N shards)."""
     import torch
 
     from bigdl_tpu_torch.serving.sharding import replica_device_groups
     if args.devices:
         devices = [torch.device(d.strip()) for d in args.devices.split(",")
                    if d.strip()]
-    elif device.type == "cpu":
+    elif device.type == "cpu" or tp:
         devices = [device] * replicas
     else:
         devices = None
     try:
         return replica_device_groups(replicas, 1, devices)
     except ValueError as e:
-        raise SystemExit(f"serve --strategy {args.strategy}: {e} (name "
+        raise SystemExit(f"--strategy {args.strategy}: {e} (name "
                          f"them with --devices, e.g. cuda:0,cuda:0)")
 
 
 def _provenance(args, engine, reqtracer, name) -> dict:
     """The provenance every served model stamps into /metrics: the
     engine's, the batcher's bounds, the weights, the tracer's settings,
-    the fault plan and the tuner's decisions."""
-    from bigdl_tpu_torch import tuning
-
+    the fault plan; the engine's carries the shared core (the tuner's
+    mode among it)."""
     prov = engine.provenance()
     prov.update({
         "model": name,
@@ -680,7 +735,6 @@ def _provenance(args, engine, reqtracer, name) -> dict:
         "deadline_ms": args.deadlineMs if args.deadlineMs else "none",
         "shed_at": args.shedAt,
         "reqtrace": "on" if reqtracer is not None else "off",
-        "autotune": tuning.get_mode(),
     })
     if reqtracer is not None:
         prov["slo"] = args.slo or "none"

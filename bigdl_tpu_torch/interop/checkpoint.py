@@ -20,7 +20,9 @@ feed also the feed's epoch ``plan`` (:data:`PLAN_KEYS`, its ``mode`` a
 string leaf): 4 or 13 leaves ahead of ``mod_state`` and ``params``.
 
 The port writes the same leaves in the same order and layouts, with the
-key paths as JSON where the JAX blob has its treedef. Stated difference:
+key paths as JSON where the JAX blob has its treedef. A whole-model file
+(``utils.file.save_module``, or the JAX package's) holds a ``__module__``
+leaf beside ``params`` and ``mod_state``: loading its weights skips it. Stated difference:
 the JAX package's ``load_pytree`` cannot open a port blob (it has no
 pickled treedef), but its leaves, unflattened with the JAX model's
 treedef, are the JAX model's tree."""
@@ -32,7 +34,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from bigdl_tpu_torch.utils.file import (check_manifest, isdir, load_leaves,
+from bigdl_tpu_torch.utils.file import (MODULE_KEY, check_manifest, isdir,
+                                        is_jax_module_file, load_leaves,
                                         save_leaves)
 
 __all__ = ["DRIVER_KEYS", "PLAN_KEYS", "model_tensors", "save_model",
@@ -241,6 +244,9 @@ def load_model(path: str, model: torch.nn.Module
     leaves, paths = _read(path)
     driver = None
     if paths is None:
+        if not isdir(path) and is_jax_module_file(path):
+            # a JAX whole-model file: its pickled definition sorts first
+            leaves = leaves[1:]
         extra = len(leaves) - len(target)
         n_plan = len(DRIVER_KEYS) + len(PLAN_KEYS)
         if extra == len(DRIVER_KEYS):
@@ -264,7 +270,8 @@ def load_model(path: str, model: torch.nn.Module
                 if kp[0] == "driver" and len(kp) == 3 and kp[1] == "plan"}
         if counters:
             driver = _driver_from(counters, plan)
-        keep = [i for i, kp in enumerate(paths) if kp[0] != "driver"]
+        keep = [i for i, kp in enumerate(paths)
+                if kp[0] not in ("driver", MODULE_KEY)]
         leaves, paths = [leaves[i] for i in keep], [paths[i] for i in keep]
     got = _by_path(path, model, target, leaves, paths)
     return {name: got[kp] for kp, name, _ in target}, driver

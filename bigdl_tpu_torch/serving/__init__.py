@@ -16,7 +16,7 @@ _EXPORTS = {
     "batcher": ("AdmissionError", "DeadlineExceeded", "MicroBatcher",
                 "WorkerDied"),
     "decode": ("DecodeEngine",),
-    "engine": ("InferenceEngine",),
+    "engine": ("InferenceEngine", "power_of_two_buckets"),
     "graphs": ("GraphPool",),
     "kv_pages": ("PageAllocator", "PagedKvCache", "QuantPool",
                  "kv_quant_rows", "pages_needed"),
@@ -24,7 +24,7 @@ _EXPORTS = {
     "prefix_cache": ("PrefixCache",),
     "replicas": ("Replica", "ReplicaSet"),
     "sharding": ("ServingSharding", "TPLink", "replica_device_groups",
-                 "restore_for_serving", "serving_mesh"),
+                 "replica_meshes", "restore_for_serving", "serving_mesh"),
     "quant": ("QUANTIZE_CHOICES", "QuantizedWeight", "parse_quantize",
               "quant_report", "quantize_params"),
     "server": ("ServingApp", "make_server", "run_server"),

@@ -45,7 +45,31 @@ from bigdl_tpu_torch.serving import quant as _q
 from bigdl_tpu_torch.serving.graphs import GraphPool, GraphSet
 from bigdl_tpu_torch.serving.reqtrace import get as _get_reqtracer
 
-__all__ = ["InferenceEngine"]
+__all__ = ["InferenceEngine", "power_of_two_buckets"]
+
+
+def power_of_two_buckets(max_batch: int, min_bucket: int = 1) -> tuple:
+    """The default bucket ladder: powers of two from ``min_bucket`` up to
+    and including ``max_batch`` (always a member, power of two or not), so
+    a tail batch wastes at most half a bucket and the engine holds
+    log2(max_batch) programs."""
+    if max_batch < 1:
+        raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+    out = []
+    b = max(1, min_bucket)
+    while b < max_batch:
+        out.append(b)
+        b *= 2
+    out.append(max_batch)
+    return tuple(out)
+
+
+def _dtype_str(a) -> str:
+    """The numpy dtype string of an array's or a tensor's elements (the
+    graph key's)."""
+    if isinstance(a, torch.Tensor):
+        return np.dtype(str(a.dtype).replace("torch.", "")).str
+    return a.dtype.str
 
 
 class InferenceEngine:
@@ -146,16 +170,18 @@ class InferenceEngine:
                                     device=self.device)
         return self._out[:n].view(y.shape).copy_(y)
 
-    def _stage(self, chunk: np.ndarray):
-        """(key, fn): ``chunk`` copied into its geometry's static input,
-        and the forward over that input (call under the pool's work)."""
-        key = (chunk.shape, chunk.dtype.str)
+    def _stage(self, chunk):
+        """(key, fn): ``chunk`` (an array, or a tensor on the host or the
+        card) copied into its geometry's static input, and the forward
+        over that input (call under the pool's work)."""
+        t = chunk if isinstance(chunk, torch.Tensor) else \
+            torch.from_numpy(chunk)
+        key = (tuple(chunk.shape), _dtype_str(chunk))
         x = self._inputs.get(key)
         if x is None:
             x = self._inputs[key] = torch.empty(
-                chunk.shape, dtype=torch.from_numpy(chunk).dtype,
-                device=self.device)
-        x.copy_(torch.from_numpy(chunk))
+                chunk.shape, dtype=t.dtype, device=self.device)
+        x.copy_(t)
         cd = self.compute_dtype
         if cd is not None and x.is_floating_point():
             return key, lambda: self._emit(self.module(x.to(cd)))
@@ -167,6 +193,8 @@ class InferenceEngine:
         graph of its geometry."""
         with self.graphs.pool.work():
             if self._tp is not None:
+                if isinstance(chunk, torch.Tensor):  # broadcast from host
+                    chunk = chunk.cpu().numpy()
                 return self._tp.call("predict.forward", chunk)
             return self._run_chunk(chunk)
 
@@ -236,11 +264,15 @@ class InferenceEngine:
         return self.buckets[-1]
 
     def predict_scores(self, x, rids=None) -> np.ndarray:
-        """Raw model outputs for every row of ``x`` (any row count).
+        """Raw model outputs for every row of ``x`` (any row count): an
+        array, or a tensor on the host or the card (a staged batch).
         ``rids``: the request id of each row, or None; each chunk's
         compute window goes to the requests whose rows it carried."""
         _fault_hook("infer")  # no-op unless --faultPlan installed one
-        x = np.asarray(x)
+        if isinstance(x, torch.Tensor) and self.lengths is not None:
+            x = x.cpu().numpy()
+        if not isinstance(x, torch.Tensor):
+            x = np.asarray(x)
         n = len(x)
         if n == 0:
             return np.zeros((0,), np.float32)
@@ -260,8 +292,11 @@ class InferenceEngine:
             pad = bucket - take
             if pad > 0:
                 # repeat the last real row: in-distribution filler
-                chunk = np.concatenate(
-                    [chunk, np.repeat(chunk[-1:], pad, axis=0)])
+                chunk = (torch.cat([chunk, chunk[-1:].expand(
+                    pad, *chunk.shape[1:])])
+                         if isinstance(chunk, torch.Tensor) else
+                         np.concatenate([chunk, np.repeat(chunk[-1:], pad,
+                                                          axis=0)]))
             with _obs_span("infer", bucket=bucket, rows=take):
                 t0c = rt.clock() if rt is not None else 0.0
                 # a device OOM writes its memory report (--traceDir, the
@@ -281,11 +316,19 @@ class InferenceEngine:
         return out if length is None else out[:, :length]
 
     def provenance(self) -> dict:
+        """The engine's config for ``/metrics`` scrapes: its buckets and
+        dtype, and the shared core (``bn_fused``, ``autotune``,
+        ``conv_layouts``, ``conv_geom_decisions``) of
+        ``cli.provenance.provenance_dict``, as the JAX engine stamps it.
+        ``device`` and ``length_buckets`` are the port's own."""
+        from bigdl_tpu_torch.cli.provenance import provenance_dict
+
         dtype = (self.compute_dtype
                  or getattr(self.module, "compute_dtype", None)
                  or torch.float32)
         prov = {"buckets": ",".join(str(b) for b in self.buckets),
                 "compute_dtype": str(dtype).replace("torch.", ""),
+                **provenance_dict(self.module, flat=True),
                 "device": str(self.device), "quantize": self.quantize}
         if self.lengths:
             prov["length_buckets"] = ",".join(str(n) for n in self.lengths)

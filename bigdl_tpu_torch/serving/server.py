@@ -93,8 +93,9 @@ class ServingApp:
     engine/batcher/decoder; each request goes to the least-loaded live
     replica, ``/readyz`` aggregates the replicas' verdicts, and
     ``/generate`` sheds only when every live replica is saturated.
-    ``tp_link``: rank 0's ``TPLink`` of a tp:K server, closed (the
-    followers released) when the app closes."""
+    ``tp_link``: rank 0's ``TPLink`` of a tp:K server (a list of them,
+    one a replica, under dp:N+tp:K), closed (the followers released) when
+    the app closes."""
 
     def __init__(self, *, name: str, metrics, engine=None, batcher=None,
                  decoder=None, request_timeout_s: float = 120.0,
@@ -491,8 +492,11 @@ class ServingApp:
             self.decoder.close()
         if self.replicas is not None:
             self.replicas.close()
-        if self.tp_link is not None:
-            self.tp_link.close()  # a tp:K server's followers return
+        links = (self.tp_link if isinstance(self.tp_link, (list, tuple))
+                 else [self.tp_link])
+        for link in links:
+            if link is not None:
+                link.close()  # a tp:K server's followers return
         rt = _reqtrace.get()
         if rt is not None:
             rt.close()  # flush the access log

@@ -18,6 +18,13 @@ query heads need).
   one-card machine's ``[cuda:0, cuda:0]`` and the CPU's ``["cpu"] * 4``).
 * :func:`serving_mesh`: the one-axis ``model`` mesh of a ``tp:K`` engine,
   over K ranks of the job (one process a rank).
+* :func:`replica_meshes`: the meshes of ``dp:N+tp:K``: every one of the
+  K ranks holds its shard of all N replicas, each replica's mesh over the
+  K ranks with a process group of its own, so that the replicas'
+  collectives (and their leaders' broadcasts) do not queue behind each
+  other. The JAX package runs one process with a mesh a replica over
+  disjoint devices; here a rank's N shards share its device (or take the
+  devices ``--devices`` names).
 * :func:`restore_for_serving`: a training checkpoint, of any topology, as
   whole tensors for the engine to place.
 * :class:`TPLink`: the leader and followers of a ``tp:K`` engine. Rank 0
@@ -41,8 +48,8 @@ import torch
 
 from bigdl_tpu_torch.parallel.mesh import Mesh
 
-__all__ = ["ServingSharding", "serving_mesh", "replica_device_groups",
-           "restore_for_serving", "TPLink"]
+__all__ = ["ServingSharding", "serving_mesh", "replica_meshes",
+           "replica_device_groups", "restore_for_serving", "TPLink"]
 
 
 def replica_device_groups(n_replicas: int, tp_k: int = 1,
@@ -79,6 +86,21 @@ def serving_mesh(devices: Optional[Sequence[int]] = None,
         group = dist.new_group(ranks)
     return Mesh(axis, len(ranks), ranks.index(me) if me in ranks else -1,
                 group=group, ranks=ranks)
+
+
+def replica_meshes(n_replicas: int, axis: str = "model") -> List[Mesh]:
+    """``n_replicas`` one-axis ``axis`` meshes over every rank of the job:
+    one (the job's default group) for a single replica, else a new process
+    group each. Every rank calls it, in the same order."""
+    import torch.distributed as dist
+
+    if int(n_replicas) <= 1:
+        return [serving_mesh(axis=axis)]
+    world = dist.get_world_size()
+    me = dist.get_rank()
+    ranks = list(range(world))
+    return [Mesh(axis, world, me, group=dist.new_group(ranks), ranks=ranks)
+            for _ in range(int(n_replicas))]
 
 
 class ServingSharding:

@@ -51,13 +51,16 @@ __all__ = ["ChecksumError", "save_leaves", "load_leaves", "checksum_path",
            "verify_manifest", "latest_checkpoint", "latest_checkpoint_pair",
            "latest_valid_checkpoint_pair", "gc_checkpoints",
            "orphaned_snapshots", "is_remote", "exists", "isdir", "join",
-           "restore_resharded"]
+           "restore_resharded", "save_module", "load_module",
+           "JaxModuleFileError", "is_jax_module_file"]
 
 CHECKSUM_SUFFIX = ".sha256"
 MANIFEST_SUFFIX = ".manifest.json"
 MANIFEST_VERSION = 1
 PATHS_KEY = "__paths__"
 TREEDEF_KEY = "__treedef__"
+# the leaf of a whole-model file that holds the pickled definition
+MODULE_KEY = "__module__"
 
 
 def is_remote(path: str) -> bool:
@@ -323,6 +326,102 @@ def restore_resharded(path: str, mesh, axis: str = "data",
                                      mesh.rank) == mesh.rank
     return {kp: torch.from_numpy(np.array(leaf))
             for kp, leaf in zip(paths, leaves) if keep is None or keep(kp)}
+
+
+class JaxModuleFileError(ValueError):
+    """A whole-model file written by the JAX package: its definition is a
+    pickle of ``bigdl_tpu`` classes, which the port does not import. Its
+    ``params``/``mod_state`` leaves still load into a rebuilt model
+    (``cli.common.load_trained``)."""
+
+
+def _open_blob(path: str):
+    if is_remote(path):
+        fs, p = _fs_for(path)
+        with fs.open(p, "rb") as f:
+            return io.BytesIO(f.read())
+    return path
+
+
+def is_jax_module_file(path: str) -> bool:
+    """Whether ``path`` is a JAX blob whose tree has the ``__module__``
+    leaf (JAX ``save_module``). The treedef is a pickle of jax objects and
+    is not unpickled: its bytes name the tree's keys."""
+    try:
+        with np.load(_open_blob(str(path)), allow_pickle=False) as z:
+            if PATHS_KEY in z.files or TREEDEF_KEY not in z.files:
+                return False
+            return MODULE_KEY.encode() in z[TREEDEF_KEY].tobytes()
+    except (OSError, ValueError):
+        return False
+
+
+def _meta_shell(module):
+    """A copy of ``module`` whose parameters and persistent buffers are
+    ``meta`` tensors of the same shapes and dtypes (non-persistent buffers,
+    which no checkpoint holds, keep their values)."""
+    import copy
+
+    import torch
+
+    persistent = {id(t) for t in module.state_dict(keep_vars=True).values()}
+    memo = {}
+    for t in list(module.parameters()) + list(module.buffers()):
+        if id(t) not in persistent or id(t) in memo:
+            continue
+        empty = torch.empty_like(t, device="meta")
+        memo[id(t)] = (torch.nn.Parameter(empty,
+                                          requires_grad=t.requires_grad)
+                       if isinstance(t, torch.nn.Parameter) else empty)
+    return copy.deepcopy(module, memo)
+
+
+def save_module(module, path: str, layout: Optional[dict] = None) -> None:
+    """Whole-model file: the module DEFINITION (pickled with its
+    parameters and buffers on the ``meta`` device, so no weight is in the
+    pickle) beside its params and module state as the checkpoint leaves,
+    under their JAX key paths, in one blob (the reference's
+    ``model.save(path)``; JAX ``save_module``), so a predict program needs
+    no model-building code. Weights-only interchange stays on
+    ``interop.checkpoint.save_model``."""
+    import pickle
+
+    from bigdl_tpu_torch.interop.checkpoint import _save, model_tensors
+
+    params, state = model_tensors(module)
+    shell = np.frombuffer(pickle.dumps(_meta_shell(module)), dtype=np.uint8)
+    _save(path, {"params": params, "mod_state": state, MODULE_KEY: shell},
+          module, layout)
+
+
+def load_module(path: str):
+    """The module of a :func:`save_module` file, its weights loaded, on the
+    CPU (the caller moves it). Trust note: like the reference's Java
+    deserialization, the module definition is a pickle; load only files
+    you produced. A file without the definition (a weights-only
+    checkpoint) raises ``KeyError``; a JAX whole-model file raises
+    :class:`JaxModuleFileError`."""
+    import pickle
+
+    from bigdl_tpu_torch.interop.checkpoint import load_model
+
+    path = str(path)
+    leaves, paths = load_leaves(path)
+    if paths is None:
+        if is_jax_module_file(path):
+            raise JaxModuleFileError(
+                f"{path}: a whole-model file written by the JAX package; "
+                f"its module definition is a pickle of bigdl_tpu classes, "
+                f"which the PyTorch port does not load (rebuild the model, "
+                f"e.g. predict --modelName, and load the file's weights)")
+        raise KeyError(MODULE_KEY)
+    found = [leaf for kp, leaf in zip(paths, leaves) if kp == (MODULE_KEY,)]
+    if not found:
+        raise KeyError(MODULE_KEY)
+    module = pickle.loads(np.asarray(found[0], np.uint8).tobytes())
+    tensors, _ = load_model(path, module)
+    module.load_state_dict(tensors, strict=True, assign=True)
+    return module
 
 
 def _names(directory: str) -> Optional[List[str]]:

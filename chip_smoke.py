@@ -518,6 +518,32 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    started first and run beside (a)-(e), dies on the allocator's OOM
    and leaves ``D/memory_report.json`` with the plan and the largest
    live tensors.
+29. Batch scoring and prediction, after phase 28 (``cli.batch_predict``,
+   ``serving/bulk.py``, ``cli.predict``). Its data (seeded 256 x 256
+   JPEGs from write_jpeg_folder, as record shards through
+   ``write_image_shards``) is written, and (b)'s child started, on a
+   thread beside phase 27. (a) ``batch-predict --modelName vit_s16 -b 64
+   --strategy dp:2 --devices cuda:0,cuda:0 --dataWorkers 4 --stage device
+   --scores --obs`` over 272 records (a tail of 16), in this process:
+   ``merge_shards`` gives every record once, the scores equal, bit for
+   bit, an engine built by hand (graphed, the same weights) over the same
+   eval-mode source in the plan's chunks, and ``flash_fwd`` launched (its
+   launches join the kernels line); images/s and ``stall_frac``
+   (PIL-decode-bound). (b) ``batch-predict --modelName resnet50 -b 128
+   --checkpointEvery 2`` over 424 records in a child that SIGKILLs itself
+   once its first cursor is written and one more batch's lines are in a
+   shard; resumed here with the same command: it starts at batch 2, and
+   the shards and the cursor are byte-identical to an uninterrupted run
+   here (cuDNN deterministic in both processes). (c) ``serve resnet50
+   --strategy tp:2`` and ``dp:2+tp:2`` in f32 on phase 26 (a)'s 2-rank
+   gloo job (``tp_image_serve``): one /predict of 4 rows, its scores
+   within ``TP_IMAGE_TOL`` of max|score| of one process's eager forward,
+   preds equal where the top-2 margin exceeds that. (d) ``predict
+   --modelName resnet50 -b 8 --topN 5`` over 20 JPEGs on a ``save_module``
+   file and on a weights checkpoint of the same seeded model (the
+   ``--modelName`` rebuild): the same printed lines. (e) (c)'s /metrics
+   ``_info`` carries the provenance core (``bn_fused``, ``autotune``,
+   ``conv_layouts``, ``conv_geom_decisions``) and the topology.
 
 Any failed phase exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -3360,17 +3386,20 @@ def baseline_runs(torch, card):
     return rows, [n for _, n, _ in vgg.values()], bn_rows
 
 
-def write_jpeg_folder(root, seed=0):
+def write_jpeg_folder(root, seed=0, splits=(("train", INC_TRAIN),
+                                             ("val", INC_VAL)),
+                      classes=INC_CLASSES):
     """``root/train/c<k>/<i>.jpg`` (INC_TRAIN a class) and ``root/val/...``
     (INC_VAL a class), INC_SIDE square: noise up to 99 and, for class k,
     a bright band across rows 20k..20k+19 of channel k % 3 (a class the
-    models can learn). Written with PIL."""
+    models can learn). Written with PIL. ``splits``: (folder, images a
+    class) pairs; ``classes``: the class count."""
     import numpy as np
     from PIL import Image
 
     rs = np.random.RandomState(seed)
-    for split, per in (("train", INC_TRAIN), ("val", INC_VAL)):
-        for k in range(INC_CLASSES):
+    for split, per in splits:
+        for k in range(classes):
             d = os.path.join(root, split, f"c{k}")
             os.makedirs(d)
             for i in range(per):
@@ -6966,6 +6995,51 @@ def tp_serve_worker(args):
                     "run_s": round(time.perf_counter() - t0, 1)}
         del app, model
         torch.cuda.empty_cache()
+    out.update(tp_image_serve(args))
+    return out
+
+
+def tp_image_serve(args):
+    """Phase 29 (c) on one rank of phase 26 (a)'s job: ``serve TP_IMAGE
+    --strategy tp:2`` and ``dp:2+tp:2`` through ``cli.serve.build_app``,
+    f32; rank 0 answers one /predict of TP_IMAGE_ROWS rows (2 a batch)
+    and saves its scores and its /metrics page beside the job; rank 1
+    follows. Returns each run's followed calls and seconds."""
+    import numpy as np
+    import torch
+
+    from bigdl_tpu_torch.cli import serve as serve_cli
+
+    out = {}
+    x = _tp_image_rows()
+    for strat in TP_IMAGE_STRATEGIES:
+        t0 = time.perf_counter()
+        app = serve_cli.build_app(serve_cli.build_parser().parse_args(
+            [TP_IMAGE, "--randomInit", "--buckets", "1,2", "--no-warmup",
+             "--strategy", strat] + BULK_PLATFORM))[0]
+        if getattr(app, "follower", False):
+            calls = app.serve()
+            app.close()
+        else:
+            calls = None
+            try:
+                st, body = app.dispatch_post("/predict", {
+                    "inputs": x.tolist(), "return_scores": True})
+                if st != 200:
+                    raise RuntimeError(f"/predict {st}: {body}")
+                tag = _tp_image_tag(strat)
+                np.save(os.path.join(args["dir"], f"{tag}.npy"),
+                        np.asarray(body["scores"], np.float32))
+                with open(os.path.join(args["dir"], f"{tag}.metrics"),
+                          "w") as f:
+                    f.write(app.handle_metrics())
+            finally:
+                app.close()
+        out[strat] = {"calls": calls,
+                      "s": round(time.perf_counter() - t0, 1)}
+        del app
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
     return out
 
 
@@ -7964,6 +8038,330 @@ def obs_runs(torch, card):
     return rows, launches
 
 
+# ------------------------------------------------------------------ phase 29
+# predict and batch-predict: bulk scoring over record shards of seeded
+# JPEGs, kill and resume, image tp serving, the provenance core
+BULK_VIT = ("vit_s16", 64, 8, 34)        # (a): model, -b, classes, a class
+BULK_RESNET = ("resnet50", 128, 8, 53)   # (b): 424 = 3 batches + 40
+BULK_EVERY = 2                           # (b)'s --checkpointEvery
+TP_IMAGE = "resnet50"                    # (c), f32, on phase 26's job
+TP_IMAGE_STRATEGIES = ("tp:2", "dp:2+tp:2")
+TP_IMAGE_ROWS = 4                        # (c)'s /predict rows, 2 a batch
+TP_IMAGE_TOL = 1e-4                      # (c): of max|score| of one process
+PREDICT_IMAGES, PREDICT_BATCH = 20, 8    # (d): images (2 classes), -b
+BULK_DEVICES, BULK_STAGE = "cuda:0,cuda:0", "device"  # (a)'s replicas
+BULK_PLATFORM = []  # ["--platform", "cpu"] to rehearse on the CPU
+# (b)'s child: batch-predict, SIGKILLed by itself once its first cursor is
+# written and one more batch's lines are in a shard (flushed), so the
+# resume truncates them
+BULK_CHILD = ("import os, signal, sys, torch\n"
+              "torch.backends.cudnn.deterministic = True\n"
+              "torch.backends.cuda.matmul.allow_tf32 = False\n"
+              "torch.backends.cudnn.allow_tf32 = False\n"
+              "from bigdl_tpu_torch.serving import bulk\n"
+              "save, write = bulk.save_cursor, bulk.ShardSink.write_batch\n"
+              "def save_cursor(*a, **k):\n"
+              "    save(*a, **k)\n"
+              "    bulk.saved = True\n"
+              "def write_batch(self, *a, **k):\n"
+              "    n = write(self, *a, **k)\n"
+              "    if getattr(bulk, 'saved', False):\n"
+              "        self._f.flush()\n"
+              "        os.kill(os.getpid(), signal.SIGKILL)\n"
+              "    return n\n"
+              "bulk.save_cursor = save_cursor\n"
+              "bulk.ShardSink.write_batch = write_batch\n"
+              "from bigdl_tpu_torch.cli import batch_predict\n"
+              "batch_predict.main(sys.argv[1:])\n")
+
+
+def _tp_image_rows():
+    import numpy as np
+    return np.random.RandomState(29).randn(TP_IMAGE_ROWS, 224, 224,
+                                           3).astype(np.float32)
+
+
+def _tp_image_tag(strategy):
+    return "tp_image_" + strategy.replace(":", "").replace("+", "_")
+
+
+def _bulk_argv(row, shards, out):
+    name, b, _, _ = row
+    return (["--modelName", name, "-b", str(b), "--randomInit", "-f",
+             "record:" + shards, "--out", out, "--dataWorkers", "4",
+             "--obs"] + BULK_PLATFORM)
+
+
+def bulk_start():
+    """Phase 29's data and (b)'s killed child, started on a thread beside
+    phase 27 (:func:`bulk_data`). Returns the handle :func:`bulk_runs`
+    takes."""
+    import tempfile
+
+    h = {"dir": tempfile.mkdtemp(prefix="phase29_")}
+
+    def run():
+        try:
+            bulk_data(h)
+        except BaseException as e:  # reported by the phase
+            h["error"] = repr(e)
+
+    h["thread"] = threading.Thread(target=run, daemon=True)
+    h["thread"].start()
+    return h
+
+
+def bulk_data(h):
+    """Seeded 256 x 256 JPEGs (write_jpeg_folder) as record shards for (a)
+    and (b) (``write_image_shards``), a folder for (d), in ``h["dir"]``;
+    then (b)'s child, which SIGKILLs itself after its first cursor."""
+    from bigdl_tpu_torch.dataset.recordfile import write_image_shards
+
+    t0 = time.perf_counter()
+    d = h["dir"]
+    for key, (_, _, classes, per) in (("a", BULK_VIT), ("b", BULK_RESNET)):
+        root = os.path.join(d, f"jpeg_{key}")
+        write_jpeg_folder(root, seed=29, splits=(("all", per),),
+                          classes=classes)
+        h[key] = os.path.join(d, f"shards_{key}")
+        write_image_shards(os.path.join(root, "all"), h[key],
+                           images_per_shard=128)
+    write_jpeg_folder(os.path.join(d, "jpeg_d"), seed=30,
+                      splits=(("all", PREDICT_IMAGES // 2),), classes=2)
+    h["data_s"] = round(time.perf_counter() - t0, 1)
+    h["killed"] = os.path.join(d, "b_killed")
+    h["log"] = os.path.join(d, "b_child.log")
+    h["t0"] = time.perf_counter()
+    with open(h["log"], "w") as log:  # a file: a pipe could fill and block
+        h["proc"] = subprocess.Popen(
+            [sys.executable, "-c", BULK_CHILD]
+            + _bulk_argv(BULK_RESNET, h["b"], h["killed"])
+            + ["--checkpointEvery", str(BULK_EVERY)],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=log, stderr=subprocess.STDOUT)
+
+
+def _shard_bytes(out):
+    from bigdl_tpu_torch.serving import bulk
+    got = {}
+    for name in sorted(os.listdir(out)):
+        if name.startswith("scores-") or name == bulk.CURSOR_FILE:
+            with open(os.path.join(out, name), "rb") as f:
+                got[name] = f.read()
+    return got
+
+
+def _maxd(a, b):
+    import numpy as np
+    return float(np.abs(a - b).max()) if a.shape == b.shape else None
+
+
+def _bulk_reference(torch, row, shards):
+    """Phase 29 (a)'s reference: an engine built by hand (the same seeded
+    weights, graphed, the two buckets the run's batches and tail take)
+    driven over the eval-mode source in the plan's chunks."""
+    import numpy as np
+
+    from bigdl_tpu_torch.cli import batch_predict
+    from bigdl_tpu_torch.cli.perf import _short_side, build_model
+    from bigdl_tpu_torch.dataset.pipeline import StreamingSampleSource
+    from bigdl_tpu_torch.dataset.streaming import RecordImageDataSet
+    from bigdl_tpu_torch.serving import InferenceEngine
+
+    name, b, classes, per = row
+    n = classes * per
+    tail = n % b
+    model, size = build_model(name, class_num=1000)  # batch-predict's
+    eng = InferenceEngine(model, buckets=(1 << (tail - 1).bit_length(), b),
+                          device=DEV)
+    eng.warmup(size, np.float32)
+    crop = tuple(size[:2])
+    src = StreamingSampleSource(RecordImageDataSet(
+        shards, batch_size=b, crop=crop, train=False,
+        short_side=_short_side(crop), mean=list(batch_predict.RECORD_MEAN),
+        std=list(batch_predict.RECORD_STD), n_threads=1, window=1))
+    try:
+        return np.concatenate([
+            np.asarray(eng.predict_scores(src.collate(
+                [src.load(i, 0) for i in range(s, min(s + b, n))]).input),
+                np.float64) for s in range(0, n, b)])
+    finally:
+        eng.close()
+
+
+def bulk_runs(torch, card, h, tp_state):
+    """Phase 29: batch-predict, predict, image tp serving, provenance.
+    Returns (rows, [launches of each main-path run])."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from bigdl_tpu_torch.cli import batch_predict, predict
+    from bigdl_tpu_torch.cli.perf import build_model
+    from bigdl_tpu_torch.interop.checkpoint import save_model
+    from bigdl_tpu_torch.serving import bulk
+    from bigdl_tpu_torch.utils.file import save_module
+
+    t_phase = time.perf_counter()
+    h["thread"].join()
+    if "error" in h:
+        fail(f"[phase 29] writing the data or starting (b)'s child: "
+             f"{h['error']}")
+    rows, launches, d = {}, [], h["dir"]
+    _free(torch)
+
+    # (a) ViT-S/16 over 2 replicas on the card, device-staged
+    name, b, classes, per = BULK_VIT
+    n = classes * per
+    out = os.path.join(d, "a")
+    rep, got_n = io_quiet(lambda: _launched(torch, lambda: batch_predict.main(
+        _bulk_argv(BULK_VIT, h["a"], out) + [
+            "--strategy", "dp:2", "--devices", BULK_DEVICES, "--stage",
+            BULK_STAGE, "--scores"])))
+    launches.append(got_n)
+    merged = bulk.merge_shards(out)
+    cover = [r["i"] for r in merged] == list(range(n))
+    ref = _bulk_reference(torch, BULK_VIT, h["a"])
+    got = np.asarray([r["scores"] for r in merged], np.float64)
+    same = got.shape == ref.shape and np.array_equal(got, ref)
+    print(f"[phase 29 (a)] batch-predict --modelName {name} -b {b} "
+          f"--strategy dp:2 --devices {BULK_DEVICES} --dataWorkers 4 --stage "
+          f"{BULK_STAGE} --scores on {card}: {rep['records']} records in "
+          f"{rep['batches']} batches ({n % b} in the tail), shard lines "
+          f"{[sum(1 for _ in open(p)) for p in rep['shards']]}, every record "
+          f"once: {cover}; scores equal an engine driven by hand, bit for "
+          f"bit: {same} (max|d| "
+          f"{_maxd(got, ref)}); {rep['images_per_second']} images/s, "
+          f"stall_frac "
+          f"{rep['stall_frac']}, data_wait {rep['data_wait_s']}s, device "
+          f"{rep['device_s']}s of {rep['seconds']}s; flash_fwd launches "
+          f"{got_n['flash_fwd']}", flush=True)
+    if not (cover and same and got_n["flash_fwd"] > 0
+            and rep["groups"] == 2):
+        fail(f"[phase 29 (a)] coverage {cover}, bit-equal {same}, launches "
+             f"{got_n}")
+    rows["(a) images/s"] = rep["images_per_second"]
+    rows["(a) stall_frac"] = rep["stall_frac"]
+    _free(torch)
+
+    # (b) the killed child resumed here, against an uninterrupted run
+    name, b, classes, per = BULK_RESNET
+    n = classes * per
+    argv = ["--checkpointEvery", str(BULK_EVERY)]
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        full = io_quiet(lambda: _launched(torch, lambda: batch_predict.main(
+            _bulk_argv(BULK_RESNET, h["b"], os.path.join(d, "b_full"))
+            + argv)))[0]
+        try:
+            h["proc"].wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            h["proc"].kill()
+            h["proc"].wait()
+        child_s = time.perf_counter() - h["t0"]
+        with open(h["log"]) as f:
+            log = f.read()
+        cur = bulk.load_cursor(h["killed"]) or {}
+        past = sum(os.path.getsize(p) for p in bulk.shard_paths(
+            h["killed"], 1)) - sum(cur.get("offsets", [0]))
+        res, res_n = io_quiet(lambda: _launched(
+            torch, lambda: batch_predict.main(
+                _bulk_argv(BULK_RESNET, h["b"], h["killed"]) + argv)))
+        launches.append(res_n)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    equal = _shard_bytes(h["killed"]) == _shard_bytes(
+        os.path.join(d, "b_full"))
+    cover = [r["i"] for r in bulk.merge_shards(h["killed"])] == \
+        list(range(n))
+    print(f"[phase 29 (b)] batch-predict --modelName {name} -b {b} "
+          f"--checkpointEvery {BULK_EVERY} over {n} records on {card}: the "
+          f"child exited {h['proc'].returncode} {child_s:.1f}s after its "
+          f"start, its cursor at batch {cur.get('next_batch')} with {past} "
+          f"bytes past it; the resume started at batch "
+          f"{res['resumed_from_batch']}, scored "
+          f"{res['records_scored_this_run']} records; shards and cursor "
+          f"byte-identical to the "
+          f"uninterrupted run: {equal}; every record once: {cover}; "
+          f"uninterrupted {full['images_per_second']} images/s, stall_frac "
+          f"{full['stall_frac']}; resume {res['images_per_second']} "
+          f"images/s, stall_frac {res['stall_frac']}", flush=True)
+    if h["proc"].returncode != -9 or cur.get("next_batch") != BULK_EVERY \
+            or past <= 0 or res["resumed_from_batch"] != BULK_EVERY \
+            or not equal or not cover:
+        fail(f"[phase 29 (b)] killed child or resume wrong: {log[-2500:]}")
+    rows["(b) images/s"] = full["images_per_second"]
+    rows["(b) stall_frac"] = full["stall_frac"]
+    _free(torch)
+
+    # (c) and (e): phase 26's job served TP_IMAGE at tp:2 and dp:2+tp:2
+    x = _tp_image_rows()
+    model = build_model(TP_IMAGE, class_num=1000)[0].to(DEV).eval()
+    with torch.no_grad():
+        ref = torch.cat([model(torch.from_numpy(x[i:i + 2]).to(DEV))
+                         for i in range(0, len(x), 2)]).float().cpu().numpy()
+    del model
+    _free(torch)
+    scale = float(np.abs(ref).max())
+    top2 = np.sort(ref, axis=-1)[:, -2:]
+    sure = top2[:, 1] - top2[:, 0] > TP_IMAGE_TOL * scale
+    for strat in TP_IMAGE_STRATEGIES:
+        tag = _tp_image_tag(strat)
+        got = np.load(os.path.join(tp_state["dir"], f"{tag}.npy"))
+        err = float(np.abs(got - ref).max())
+        preds = bool((got.argmax(-1)[sure] == ref.argmax(-1)[sure]).all())
+        with open(os.path.join(tp_state["dir"], f"{tag}.metrics")) as f:
+            info = next((ln for ln in f.read().splitlines()
+                         if ln.startswith("bigdl_serving_info")), "")
+        core = {k: re.search(k + r'="([^"]*)"', info) for k in (
+            "bn_fused", "autotune", "conv_layouts", "conv_geom_decisions",
+            "strategy", "serving_tp")}
+        core = {k: m.group(1) if m else None for k, m in core.items()}
+        print(f"[phase 29 (c)] serve {TP_IMAGE} --strategy {strat} f32 on 2 "
+              f"gloo ranks sharing {card}: /predict of {len(x)} rows, "
+              f"max|d| {err:.4g} against one process (bound "
+              f"{TP_IMAGE_TOL} x max|score| {scale:.4g}); preds equal where "
+              f"the top-2 margin exceeds it ({int(sure.sum())} rows): "
+              f"{preds}", flush=True)
+        print(f"[phase 29 (e)] /metrics provenance of {strat}: {core}",
+              flush=True)
+        if err > TP_IMAGE_TOL * scale or not preds:
+            fail(f"[phase 29 (c)] {strat}: max|d| {err}, preds {preds}")
+        if None in core.values() or core["strategy"] != strat \
+                or core["bn_fused"] != "off":
+            fail(f"[phase 29 (e)] {strat}: provenance {info[:600]}")
+        rows[f"(c) {strat} max|d|"] = err
+
+    # (d) predict: a save_module file against a --modelName rebuild
+    model = build_model("resnet50")[0]
+    f_mod, f_w = os.path.join(d, "resnet50.module"), os.path.join(
+        d, "resnet50.weights")
+    save_module(model, f_mod)
+    save_model(f_w, model)
+    del model
+    lines = []
+    for f_ in (f_mod, f_w):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            (_, n_d) = _launched(torch, lambda: predict.main(
+                ["--model", f_, "--modelName", "resnet50", "-f",
+                 os.path.join(d, "jpeg_d", "all"), "-b", str(PREDICT_BATCH),
+                 "--topN", "5"] + BULK_PLATFORM))
+        launches.append(n_d)
+        lines.append([ln for ln in buf.getvalue().splitlines() if "\t" in ln])
+    print(f"[phase 29 (d)] predict --modelName resnet50 -b {PREDICT_BATCH} "
+          f"--topN 5 over {PREDICT_IMAGES} JPEGs on {card}: the save_module "
+          f"file's lines equal the rebuild's: {lines[0] == lines[1]} "
+          f"({len(lines[0])} lines; first {lines[0][:1]})", flush=True)
+    if lines[0] != lines[1] or len(lines[0]) != PREDICT_IMAGES:
+        fail(f"[phase 29 (d)] {lines}")
+    rows["data s"] = h["data_s"]
+    rows["phase 29 s"] = round(time.perf_counter() - t_phase, 1)
+    return rows, launches
+
+
 # main's phase functions, each timed ("[time] name: s" after it returns)
 TIMED_PHASES = ("check_flash", "check_flash_bwd", "check_bn", "train_run",
                 "grads_check", "cli_runs", "serve_run", "paged_serve_run",
@@ -7972,7 +8370,8 @@ TIMED_PHASES = ("check_flash", "check_flash_bwd", "check_bn", "train_run",
                 "resume_runs", "pipeline_runs", "baseline_runs",
                 "inception_runs", "resnet_slice_runs", "dp_runs", "rnn_runs",
                 "attention_slice_runs", "serving_front_runs", "tuning_runs",
-                "recovery_runs", "tp_runs", "spe_runs", "obs_runs")
+                "recovery_runs", "tp_runs", "spe_runs", "obs_runs",
+                "bulk_runs")
 
 
 def _time_phases(names=TIMED_PHASES):
@@ -8106,11 +8505,14 @@ def main():
     tp_started = tp_start()  # phase 26's gloo jobs, beside phase 25
     rec_rows, rec_n = recovery_runs(torch, card)
     tp_rows, tp_n = tp_runs(torch, card, tp_started)
+    # phase 29's data and its killed child, beside phase 27
+    bulk_started = bulk_start()
     # phase 27's paths (the ring, dense attention, the MoE) run no kernel
     spe_rows = spe_runs(torch, card)
     obs_rows, obs_n = obs_runs(torch, card)
+    bulk_rows, bulk_n = bulk_runs(torch, card, bulk_started, tp_started)
     for n in (base_n + inc_n + slice_n + dp_n + attn_n + tune_n + rec_n
-              + obs_n):
+              + obs_n + bulk_n):
         for name in launches:
             launches[name] += n[name]
     for n in tp_n:  # some counts name only the kernel they hold
@@ -8168,6 +8570,8 @@ def main():
         print(f"[phase 27] {tag} on {card}: {r}", flush=True)
     for tag, r in obs_rows.items():
         print(f"[phase 28] {tag} on {card}: {r}", flush=True)
+    for tag, r in bulk_rows.items():
+        print(f"[phase 29] {tag} on {card}: {r}", flush=True)
 
     head, bwd = rows[0], bwd_rows[0]  # the training step's 8 x 8 x 1024^2
     common = {"route": "cuda", "check": "pass", "shape": head["shape"],

@@ -131,6 +131,43 @@ def test_the_obs_modules_are_walked_and_import_no_jax():
     assert not [f.name for f in files if pat.search(f.read_text())]
 
 
+def test_the_cli_utils_slice_is_walked_and_runs_on_cuda(tmp_path):
+    """predict, batch-predict, the bulk sink, provenance, Classifier,
+    profiling and summary are among the modules the import check walks,
+    none of their files imports jax or the JAX package, and their entry
+    points refuse a silent CPU run."""
+    import pkgutil
+
+    import bigdl_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(bigdl_tpu_torch.__path__,
+                                                   "bigdl_tpu_torch.")}
+    want = {f"bigdl_tpu_torch.cli.{m}" for m in (
+        "predict", "batch_predict", "provenance")} | {
+            f"bigdl_tpu_torch.utils.{m}" for m in (
+                "classifier", "profiling", "summary", "file")} | {
+            "bigdl_tpu_torch.serving.bulk"}
+    assert want <= names
+    pat = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|bigdl_tpu)"
+                     r"(?:\.|\s|$|,)", re.MULTILINE)
+    files = [PORT / (n[len("bigdl_tpu_torch."):].replace(".", "/") + ".py")
+             for n in sorted(want)] + [PORT / "utils" / "__init__.py"]
+    assert all(f.is_file() for f in files)
+    assert not [f.name for f in files if pat.search(f.read_text())]
+    if torch.cuda.is_available():
+        return
+    from bigdl_tpu_torch.cli import batch_predict, predict
+    from bigdl_tpu_torch.models import lenet5
+    from bigdl_tpu_torch.utils import Classifier
+    for make in (lambda: Classifier(lenet5(10)),
+                 lambda: predict.main(["--model", str(tmp_path), "-f",
+                                       str(tmp_path)]),
+                 lambda: batch_predict.main(["--randomInit", "-f",
+                                             str(tmp_path), "--out",
+                                             str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+
+
 def test_no_source_file_imports_jax_or_bigdl_tpu():
     pat = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|bigdl_tpu)"
                      r"(?:\.|\s|$|,)", re.MULTILINE)

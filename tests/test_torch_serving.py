@@ -428,8 +428,6 @@ def test_serve_http_429_on_full_queue(lm_pair):
 def test_serve_cli_refuses_what_is_not_ported():
     p = serve_cli.build_parser()
     for argv, msg in (
-            (["transformer_lm", "--randomInit", "--strategy", "dp:2+tp:2"],
-             "dp:N\\+tp:K.*queue 1 entry 13"),
             (["transformer_lm", "--randomInit", "--platform", "cpu",
               "--strategy", "tp:2"], "runs 2 ranks.*torchrun"),
             (["transformer_lm", "--randomInit", "--platform", "cpu",

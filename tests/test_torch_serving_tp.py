@@ -15,7 +15,9 @@ the greedy ones equal to the JAX engine's; /predict scores; ``serve
 --strategy tp:2`` through the CLI; ``ReplicaSet``'s deterministic
 routing, fleet ``/readyz`` and shed, and aggregate gauges on the same fake
 scenario in both packages; labelled series; a dp:2 HTTP round trip;
-a checkpoint written under tp:2 resumed under FSDP.
+a checkpoint written under tp:2 resumed under FSDP; ``serve`` and
+``batch-predict`` of an image model at tp:2 and dp:2+tp:2, and the LM at
+dp:2+tp:2, against one process.
 """
 
 import concurrent.futures
@@ -130,6 +132,23 @@ def test_serving_sharding_rules_match_jax(jax_lm):
 
 
 # --------------------------------------------------- the tp:2 engines
+def _image_shards(root, rs) -> str:
+    """Record shards of 10 seeded 40 x 48 PNGs in two classes (2 batches
+    of 4 and a tail of 2 at -b 4)."""
+    from PIL import Image
+
+    from bigdl_tpu_torch.dataset.recordfile import write_image_shards
+    for cls in ("a", "b"):
+        d = root / "imgs" / cls
+        d.mkdir(parents=True)
+        for i in range(5):
+            Image.fromarray(rs.randint(0, 255, (40, 48, 3)).astype(
+                np.uint8)).save(d / f"{i}.png")
+    out = str(root / "shards")
+    write_image_shards(str(root / "imgs"), out, images_per_shard=4)
+    return out
+
+
 @pytest.fixture(scope="module")
 def tp_serving(tmp_path_factory, jax_lm):
     """Inputs (the JAX init in the port's names, seeded pool contents and
@@ -146,13 +165,17 @@ def tp_serving(tmp_path_factory, jax_lm):
     inp["predict_x"] = rs.randint(0, 50, (2, 16)).astype(np.int32)
     inp["serve_x"] = rs.randint(0, 50, (8, 16)).astype(np.int32)
     inp["serve_y"] = rs.randint(0, 50, (8, 16)).astype(np.int32)
+    inp["image_x"] = rs.randn(5, 32, 32, 3).astype(np.float32)
     np.savez(root / "inputs.npz", **inp)
     ck = str(root / "ckpt")
-    # one job: the tp training writes the checkpoint the engines serve
+    shards = _image_shards(root, rs)
+    # one job: the tp training writes the checkpoint the engines serve;
+    # then the image and dp:N+tp:K topologies of serve and batch-predict
     spawn("torch_tp_cases:run_all", 2,
-          {"dir": str(root), "cases": ["tp_ckpt", "serve", "serve_cli"],
-           "ckpt": ck, "k": 2}, timeout_s=JOB_TIMEOUT_S, backend="gloo",
-          env=ENV)
+          {"dir": str(root), "cases": ["tp_ckpt", "serve", "serve_cli",
+                                       "serve_strategies"],
+           "ckpt": ck, "k": 2, "shards": shards}, timeout_s=JOB_TIMEOUT_S,
+          backend="gloo", env=ENV)
     got = [dict(np.load(root / f"serve_r{r}.npz")) for r in range(2)]
     cli = dict(np.load(root / "serve_cli_r0.npz"))
     trained = dict(np.load(root / "tp_ckpt_r0.npz"))
@@ -275,6 +298,88 @@ def test_tp2_predict_and_cli(tp_serving):
     finally:
         app.close()
     assert cli["prov_ok"].tolist() == [True]
+
+
+# ------------------------------------- image tp:K and dp:N+tp:K (2 ranks)
+@pytest.fixture(scope="module")
+def strategies(tp_serving):
+    """Rank 0's results of the job's ``serve_strategies`` case."""
+    return dict(np.load(tp_serving[0] / "serve_strategies_r0.npz"))
+
+
+def _app(argv):
+    from bigdl_tpu_torch.cli import serve as serve_cli
+    return serve_cli.build_app(serve_cli.build_parser().parse_args(argv))[0]
+
+
+@pytest.mark.parametrize("strategy", C.STRATEGIES)
+def test_image_serve_tp_matches_one_process(strategy, tp_serving,
+                                            strategies):
+    """``serve resnet20_cifar --strategy tp:2`` and ``dp:2+tp:2``: each
+    /predict's scores equal one process's within 1e-5 (the split convs'
+    output channels gathered whole: exact here), and the /metrics
+    provenance names the topology and carries the shared core."""
+    tag = strategy.replace(":", "").replace("+", "_")
+    app = _app(C.IMAGE_ARGV)
+    try:
+        st, body = app.dispatch_post("/predict", {
+            "inputs": tp_serving[1]["image_x"].tolist(),
+            "return_scores": True})
+    finally:
+        app.close()
+    assert st == 200
+    np.testing.assert_allclose(strategies[f"image/{tag}"], body["scores"],
+                               atol=1e-5)
+    page = strategies[f"metrics/{tag}"].tobytes().decode()
+    info = next(ln for ln in page.splitlines()
+                if ln.startswith("bigdl_serving_info"))
+    reps = 2 if strategy.startswith("dp") else 1
+    for kv in (f'strategy="{strategy}"', f'serving_replicas="{reps}"',
+               'serving_tp="2"', 'bn_fused="off"', 'autotune="off"',
+               'conv_layouts="default"', 'conv_geom_decisions="0"',
+               'cuda_graphs="False"'):
+        assert kv in info, kv
+
+
+@pytest.mark.parametrize("strategy", C.STRATEGIES)
+def test_batch_predict_tp_matches_one_process(strategy, tp_serving,
+                                              strategies, tmp_path):
+    """``batch-predict --strategy tp:2`` and ``dp:2+tp:2``: every record
+    once, scores equal one process's within 1e-5."""
+    from bigdl_tpu_torch.cli import batch_predict
+    from bigdl_tpu_torch.serving import bulk
+    tag = strategy.replace(":", "").replace("+", "_")
+    batch_predict.main(
+        ["--modelName", "resnet20_cifar", "--randomInit", "-f",
+         "record:" + str(tp_serving[0] / "shards"), "--out",
+         str(tmp_path), "-b", "4", "--classNum", "10", "--scores",
+         "--platform", "cpu"])
+    rows = bulk.merge_shards(str(tmp_path))
+    assert strategies[f"bp/{tag}/i"].tolist() == list(range(10))
+    assert strategies[f"bp/{tag}/groups"].tolist() == [
+        2 if strategy.startswith("dp") else 1, 2]
+    np.testing.assert_allclose(strategies[f"bp/{tag}/scores"],
+                               [r["scores"] for r in rows], atol=1e-5)
+
+
+def test_lm_serve_dp2_tp2_matches_one_process(tp_serving, strategies):
+    """``serve transformer_lm --strategy dp:2+tp:2`` (once refused by
+    name): /generate tokens equal one process's, /predict scores within
+    1e-5 (the row-split products reorder the sum)."""
+    app = _app(C.LM_ARGV)
+    try:
+        for i, (p, o) in enumerate(C.PROMPTS):
+            st, body = app.dispatch_post("/generate", {
+                "tokens": p, "max_new_tokens": 8, **o})
+            assert st == 200
+            assert body["tokens"] == strategies[f"lm/gen/{i}"].tolist()
+        st, body = app.dispatch_post("/predict", {
+            "inputs": tp_serving[1]["predict_x"].tolist(),
+            "return_scores": True})
+    finally:
+        app.close()
+    np.testing.assert_allclose(strategies["lm/scores"], body["scores"],
+                               atol=1e-5)
 
 
 # ------------------------------------------------------------ dp routing

@@ -367,6 +367,93 @@ def case_serve_cli(args, inp):
 CASES["serve_cli"] = case_serve_cli
 
 
+# the image model of the serving strategies case, and its flags
+IMAGE_ARGV = ["resnet20_cifar", "--randomInit", "--platform", "cpu",
+              "--classes", "10", "--buckets", "1,2,4"]
+LM_ARGV = ["transformer_lm", "--randomInit", "--platform", "cpu",
+           "--vocabSize", "50", "--dModel", "32", "--numLayers", "2",
+           "--numHeads", "2", "--seq", "64", "--slots", "2",
+           "--buckets", "1,2"]
+STRATEGIES = ("tp:2", "dp:2+tp:2")
+
+
+def _serve_image(argv, x):
+    """/predict scores of ``x`` (rows sent one request a row pair) and the
+    /metrics page from rank 0 of ``serve argv``; {} on a follower."""
+    from bigdl_tpu_torch.cli import serve as serve_cli
+    app, _, _, _ = serve_cli.build_app(serve_cli.build_parser()
+                                       .parse_args(argv))
+    if getattr(app, "follower", False):
+        try:
+            app.serve()
+        finally:
+            app.close()
+        return None, None
+    try:
+        scores = []
+        for i in range(0, len(x), 2):
+            st, body = app.dispatch_post("/predict", {
+                "inputs": x[i:i + 2].tolist(), "return_scores": True})
+            assert st == 200, body
+            scores.append(np.asarray(body["scores"]))
+        return np.concatenate(scores), app.handle_metrics()
+    finally:
+        app.close()
+
+
+def case_serve_strategies(args, inp):
+    """``serve`` and ``batch-predict`` at tp:2 and dp:2+tp:2 on every rank:
+    the image model's /predict scores and /metrics page, its batch-predict
+    shards over ``args["shards"]``, and the LM's dp:2+tp:2 /generate
+    tokens and /predict scores (rank 0's)."""
+    from bigdl_tpu_torch.cli import batch_predict
+    from bigdl_tpu_torch.cli import serve as serve_cli
+    from bigdl_tpu_torch.serving import bulk
+    out = {}
+    for strat in STRATEGIES:
+        tag = strat.replace(":", "").replace("+", "_")
+        scores, page = _serve_image(IMAGE_ARGV + ["--strategy", strat],
+                                    inp["image_x"])
+        if scores is not None:
+            out[f"image/{tag}"] = scores
+            out[f"metrics/{tag}"] = np.frombuffer(page.encode(), np.uint8)
+        d = os.path.join(args["dir"], f"bp_{tag}")
+        rep = batch_predict.main(
+            ["--modelName", "resnet20_cifar", "--randomInit", "-f",
+             "record:" + args["shards"], "--out", d, "-b", "4",
+             "--classNum", "10", "--scores", "--platform", "cpu",
+             "--strategy", strat])
+        if rep is not None:
+            rows = bulk.merge_shards(d)
+            out[f"bp/{tag}/i"] = np.asarray([r["i"] for r in rows])
+            out[f"bp/{tag}/scores"] = np.asarray([r["scores"] for r in rows])
+            out[f"bp/{tag}/groups"] = np.asarray([rep["groups"], rep["tp"]])
+    app, _, _, _ = serve_cli.build_app(serve_cli.build_parser().parse_args(
+        LM_ARGV + ["--strategy", "dp:2+tp:2"]))
+    if getattr(app, "follower", False):
+        try:
+            app.serve()
+        finally:
+            app.close()
+        return out
+    try:
+        for i, (p, o) in enumerate(PROMPTS):
+            st, body = app.dispatch_post("/generate", {
+                "tokens": p, "max_new_tokens": 8, **o})
+            assert st == 200, body
+            out[f"lm/gen/{i}"] = np.asarray(body["tokens"])
+        st, body = app.dispatch_post("/predict", {
+            "inputs": inp["predict_x"].tolist(), "return_scores": True})
+        assert st == 200, body
+        out["lm/scores"] = np.asarray(body["scores"])
+    finally:
+        app.close()
+    return out
+
+
+CASES["serve_strategies"] = case_serve_strategies
+
+
 def case_perf(args, inp):
     """``cli.perf`` rows at ``--strategy tp`` (a small LM row) and the
     time-to-accuracy run at ``--strategy dp`` with ``--gradCompress``."""
