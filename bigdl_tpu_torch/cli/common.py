@@ -319,6 +319,7 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
     add_strategy_arg(p)
     add_grad_comm_args(p)
     add_autotune_arg(p)
+    add_lint_arg(p)
 
 
 # the JAX CLIs' --strategy names; the port has dp
@@ -675,6 +676,41 @@ def apply_fused_bn(model, mode):
     return model
 
 
+def add_lint_arg(p: argparse.ArgumentParser) -> None:
+    """--lint[=strict]: the lint pre-flight (bigdl_tpu_torch.analysis)
+    before the run launches anything: a trace on fake tensors, seconds on
+    the CPU. ``strict`` refuses to launch on error-severity findings."""
+    p.add_argument("--lint", nargs="?", const="on", default=None,
+                   choices=["on", "strict"],
+                   help="pre-flight static analysis of the model/config "
+                        "(bigdl_tpu_torch.analysis): dtype upcasts, "
+                        "in-place state updates, kernel launch plans "
+                        "(tiles, shared memory), fusion opportunities "
+                        "(unfused BN, GEMM-eligible convs), host syncs, "
+                        "the sharded step's collectives. Bare --lint "
+                        "prints the report and continues; --lint=strict "
+                        "exits nonzero on error-severity findings. "
+                        "Findings are stamped into perf JSON lines as "
+                        "'lint'")
+
+
+def run_preflight_lint(report, strict: bool = False, quiet: bool = False):
+    """Print one lint report (unless ``quiet``: a rank other than the
+    first of a job); returns ``(exit_code, annotation)``: exit_code 0
+    means proceed (the annotation is stamped into result JSON), nonzero
+    means the caller aborts the launch (strict mode with error-severity
+    findings)."""
+    if not quiet:
+        print(report.render(), flush=True)
+    rc = report.exit_code(strict=strict)
+    if rc:
+        if not quiet:
+            print(f"lint: {report.errors} error-severity finding(s) — "
+                  "refusing to launch (--lint=strict)", flush=True)
+        return rc, None
+    return 0, report.annotation()
+
+
 def _method(args, name: str):
     """The --optimMethod ``name`` with the reference's flags, and the
     ``Default`` lr-decay schedule where the method takes one."""
@@ -707,7 +743,8 @@ def build_optimizer(model, dataset, criterion, args, optim_method=None):
     ``optim_method``, else the --optimMethod one, ending after
     ``--maxEpoch`` epochs, fed through :func:`build_feed`; an every-epoch
     checkpoint into ``--checkpoint`` and a resume from ``--model`` when
-    given."""
+    given; under ``--lint`` the lint pre-flight of its step, which exits
+    under ``--lint=strict`` on an error."""
     from bigdl_tpu_torch.optim import Optimizer, Trigger
 
     strategy = build_strategy(args, model, getattr(args, "batchSize", None))
@@ -730,7 +767,24 @@ def build_optimizer(model, dataset, criterion, args, optim_method=None):
                            keep_last=args.keepCheckpoints)
     if args.model:
         opt.resume(args.model)
+    lint_mode = getattr(args, "lint", None)
+    if lint_mode:
+        # the lint of the step this Optimizer will run
+        # (analysis.preflight_optimizer): module rules always, the traced
+        # step when the dataset exposes its batch geometry; strict aborts
+        # before any step
+        from bigdl_tpu_torch.analysis import preflight_optimizer
+        rc, _ = run_preflight_lint(preflight_optimizer(opt),
+                                   strict=(lint_mode == "strict"),
+                                   quiet=_world() > 1 and _rank() != 0)
+        if rc:
+            raise SystemExit(rc)
     return opt
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 def load_trained(model, path: str):
@@ -763,19 +817,142 @@ def evaluate(model, dataset, methods: Optional[Sequence] = None,
 
 @dataclasses.dataclass(frozen=True)
 class ResolvedConfig:
-    """The serving flags resolved once (the fields of the JAX package's
-    ``ResolvedConfig`` that serving reads), so ``serve``, the fleet
-    router and every worker agree on one parse: the topology of
-    ``--strategy`` (``serving_replicas`` dp replicas of ``serving_tp``
-    ranks each)."""
+    """One run configuration, resolved once from the shared flag surface
+    (the JAX package's ``ResolvedConfig``): what ``cli.lint`` and every
+    ``--lint`` pre-flight hand the analyzer (:func:`resolve_lint_config`),
+    and the serving flags ``serve``, the fleet router and every worker
+    agree on (:func:`resolve_serve_config`: the topology of
+    ``--strategy``, ``serving_replicas`` dp replicas of ``serving_tp``
+    ranks each). ``mesh_axes`` is the declared mesh (axis -> size) the
+    strategy implies over ``n_devices``; with no real devices the lint
+    sizes it over virtual ones."""
 
     model: str
+    batch: int = 32
+    seq: Optional[int] = None
+    classes: int = 1000
+    dtype: str = "bfloat16"
+    fused_bn: Optional[str] = None
+    conv_layout: Optional[str] = None
+    conv_geom: Optional[str] = None
+    autotune: str = "off"
+    strategy: Optional[str] = None
+    strategy_k: Optional[int] = None
+    n_devices: int = 1
+    mesh_axes: tuple = ()            # ((axis, size), ...): hashable
+    grad_compress: str = "off"
+    grad_buckets: str = "auto"
     quantize: Optional[str] = None
     speculate: int = 0
+    kv_page_tokens: Optional[int] = None
+    slots: int = 4
+    lint_mode: Optional[str] = None
+    trace: bool = True
     serving_replicas: int = 1
     serving_tp: int = 1
     fleet_workers: int = 0
-    strategy: Optional[str] = None
+
+    @property
+    def mesh(self) -> dict:
+        return dict(self.mesh_axes)
+
+    def make_grad_comm(self):
+        """The GradCommConfig this run would build (None when the
+        --gradCompress surface is untouched)."""
+        if (self.grad_compress or "off") == "off" \
+                and self.grad_buckets in (None, "auto"):
+            return None
+        from bigdl_tpu_torch.parallel.grad_comm import make_config
+        try:
+            return make_config(self.grad_compress, self.grad_buckets)
+        except ValueError as e:
+            raise SystemExit(str(e))
+
+    def describe(self) -> dict:
+        """Provenance dict (result-JSON / lint-report annotation)."""
+        out = {"model": self.model, "batch": self.batch}
+        if self.strategy:
+            out["strategy"] = (f"{self.strategy}:{self.strategy_k}"
+                               if self.strategy_k else self.strategy)
+            out["mesh"] = ",".join(f"{a}:{s}" for a, s in self.mesh_axes)
+        if (self.grad_compress or "off") != "off":
+            out["grad_compress"] = self.grad_compress
+        if self.quantize:
+            out["quantize"] = self.quantize
+        if self.speculate:
+            out["speculate"] = self.speculate
+        if self.kv_page_tokens:
+            out["kv_page_tokens"] = self.kv_page_tokens
+        if self.serving_replicas > 1 or self.serving_tp > 1:
+            out["serving_replicas"] = self.serving_replicas
+            out["serving_tp"] = self.serving_tp
+        if self.fleet_workers:
+            out["fleet_workers"] = self.fleet_workers
+        return out
+
+
+def _virtual_mesh_devices(name: str, k: Optional[int]) -> tuple:
+    """(n_devices, k) sized for a lint with no real devices: enough
+    virtual ranks that the strategy's default shape exists."""
+    if name == "dp":
+        return 8, None
+    if name in ("tp", "sp"):
+        kk = k or 4
+        return 2 * kk, kk
+    if name == "pp":
+        kk = k or 2
+        return 2 * kk, kk
+    if name == "ep":
+        return (k or 8), (k or 8)
+    raise SystemExit(f"unknown strategy {name!r}")
+
+
+def _int_or_none(v) -> Optional[int]:
+    """An integer flag value, or None ('auto' and the like)."""
+    return int(v) if v and str(v).lstrip("-").isdigit() else None
+
+
+def resolve_lint_config(args, *, n_devices: Optional[int] = None
+                        ) -> ResolvedConfig:
+    """Resolve the shared flag families on ``args`` into one
+    :class:`ResolvedConfig`. ``n_devices=None`` (the lint CLI: no job)
+    sizes the strategy over virtual ranks, traced over a fake process
+    group, so nothing is allocated; a pre-flight of a real run passes its
+    rank count."""
+    name, k = parse_strategy_spec(getattr(args, "strategy", None))
+    mesh_axes: tuple = ()
+    n = int(n_devices or 1)
+    if name is not None:
+        if n_devices is None:
+            n, k = _virtual_mesh_devices(name, k)
+        axes = strategy_mesh_axes(name, n, k)
+        mesh_axes = tuple((str(a), int(s)) for a, s in axes.items())
+    quantize = getattr(args, "quantize", None)
+    if quantize == "off":
+        quantize = None
+    if quantize is not None and quantize not in QUANTIZE_CHOICES:
+        raise SystemExit(f"--quantize {quantize!r}: must be one of "
+                         f"{'/'.join(QUANTIZE_CHOICES)}")
+    return ResolvedConfig(
+        model=getattr(args, "model", None) or "",
+        batch=int(getattr(args, "batchSize", 32) or 32),
+        seq=getattr(args, "seq", None),
+        classes=int(getattr(args, "classes", 1000) or 1000),
+        dtype=("float32" if getattr(args, "f32", False) else "bfloat16"),
+        fused_bn=getattr(args, "fusedBN", None),
+        conv_layout=getattr(args, "convLayout", None),
+        conv_geom=getattr(args, "convGeom", None),
+        autotune=getattr(args, "autotune", "off") or "off",
+        strategy=name, strategy_k=k, n_devices=n, mesh_axes=mesh_axes,
+        grad_compress=getattr(args, "gradCompress", "off") or "off",
+        grad_buckets=getattr(args, "gradBuckets", "auto") or "auto",
+        quantize=quantize,
+        speculate=int(getattr(args, "speculate", 0) or 0),
+        # serve spells --kvPageTokens 'auto' too; the lint needs a number
+        kv_page_tokens=_int_or_none(getattr(args, "kvPageTokens", None)),
+        slots=int(getattr(args, "slots", 4) or 4),
+        lint_mode=getattr(args, "lint", None),
+        trace=not getattr(args, "no_trace", False))
 
 
 # the serving --strategy grammar: tp[:K] shards one engine over K ranks,
@@ -852,15 +1029,11 @@ def _virtual_serving_devices(spec: Optional[str]) -> int:
 
 def resolve_serve_config(args, *, n_devices: Optional[int] = None
                          ) -> ResolvedConfig:
-    """Resolve the serve/fleet flags once: refuse the flags the port does
-    not have yet (naming their ROADMAP.md entry), and check
-    ``--strategy`` (over ``n_devices``, or abstractly), ``--quantize``,
-    ``--speculate`` and ``--fleet``. Pure Python: the fleet router calls
-    this before any worker boots and imports no torch. A fleet whose
-    workers take ``--strategy`` exits by name."""
-    from bigdl_tpu_torch.cli.serve import refuse_later_flags
-
-    refuse_later_flags(args)
+    """Resolve the serve/fleet flags once: check ``--strategy`` (over
+    ``n_devices``, or abstractly), ``--quantize``, ``--speculate`` and
+    ``--fleet``, and record ``--lint``. Pure Python: the fleet router
+    calls this before any worker boots and imports no torch. A fleet
+    whose workers take ``--strategy`` exits by name."""
     spec = getattr(args, "strategy", None)
     n = (int(n_devices) if n_devices is not None
          else _virtual_serving_devices(spec))
@@ -888,7 +1061,8 @@ def resolve_serve_config(args, *, n_devices: Optional[int] = None
                           quantize=quantize, speculate=speculate,
                           serving_replicas=int(replicas),
                           serving_tp=int(tp_k), fleet_workers=fleet,
-                          strategy=spec or None)
+                          strategy=spec or None,
+                          lint_mode=getattr(args, "lint", None))
 
 
 def install_fault_plan(args):

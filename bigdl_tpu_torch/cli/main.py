@@ -8,9 +8,7 @@
 Each command of the JAX package's table forwards to the matching
 ``bigdl_tpu_torch.cli.<module>.main(argv)``, so ``... cli.main lenet
 ...`` and ``python -m bigdl_tpu_torch.cli.lenet ...`` are the same
-surface. A command whose CLI the port does not have yet refuses by name
-and says which ROADMAP.md queue 1 item brings it. The port installs no
-console script.
+surface. The port installs no console script.
 """
 
 from __future__ import annotations
@@ -41,16 +39,8 @@ _COMMANDS = {
     "loadmodel": "loadmodel",
     "record-gen": "record_gen",
 }
-# commands whose CLI is not in the port yet -> what brings it
-_LATER = {
-    "lint": "analysis/ (ROADMAP.md queue 1 item 18)",
-}
-
-
 def _usage() -> str:
-    cmds = "\n".join(f"  {name}" + (" (not in the port yet)"
-                                    if name in _LATER else "")
-                     for name in _COMMANDS)
+    cmds = "\n".join(f"  {name}" for name in _COMMANDS)
     return ("bigdl_tpu_torch, the PyTorch port of bigdl-tpu\n\n"
             "usage: python -m bigdl_tpu_torch.cli.main <command> "
             f"[args...]\n\ncommands:\n{cmds}\n\n"
@@ -73,9 +63,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"bigdl_tpu_torch: unknown command {cmd!r}\n\n{_usage()}",
               file=sys.stderr)
         return 2
-    if cmd in _LATER:
-        raise SystemExit(f"{cmd}: not available in the PyTorch port yet "
-                         f"({_LATER[cmd]} brings it)")
     mod = importlib.import_module(f"bigdl_tpu_torch.cli.{_COMMANDS[cmd]}")
     rc = mod.main(rest)
     # subcommand mains return rich values (optimize() results, metrics) —

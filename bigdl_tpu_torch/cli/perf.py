@@ -45,7 +45,11 @@ decisions (``tuning/``: the conv layouts, the BN kernels' slab heights,
 the key-padding block, the bucket bound), and the line's ``autotune``
 names the mode and each key the run consulted with its decision or
 "default". ``--profile DIR`` writes a ``torch.profiler`` trace of the
-timed loop to ``DIR/trace.json``.
+timed loop to ``DIR/trace.json``. ``--lint[=strict]`` lints the run's
+configuration first (``analysis.lint_config``: the traced step on fake
+tensors, and under ``--strategy`` rank 0's sharded step; nothing
+launched): the line carries the summary as ``lint`` (with the vetted
+``mesh``), and strict exits 2 on an error finding before the run.
 
 ``--obs`` (``--traceDir``, ``--traceSteps N@M``, ``--metricsPort``: the
 JAX harness's observability flags) runs the timed loop with each
@@ -80,6 +84,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import time
@@ -92,8 +97,8 @@ import torch
 from bigdl_tpu_torch import models
 from bigdl_tpu_torch.cli.common import (add_autotune_arg, add_conv_args,
                                         add_fused_bn_arg,
-                                        add_grad_comm_args, add_obs_args,
-                                        add_pipeline_args,
+                                        add_grad_comm_args, add_lint_arg,
+                                        add_obs_args, add_pipeline_args,
                                         add_resilience_args, add_strategy_arg)
 from bigdl_tpu_torch.obs import memory as _obs_mem
 from bigdl_tpu_torch.resilience.faults import hook as _fault_hook
@@ -1342,6 +1347,7 @@ def main(argv=None) -> dict:
     add_autotune_arg(p)
     add_resilience_args(p)
     add_obs_args(p)
+    add_lint_arg(p)
     args = p.parse_args(argv)
     from bigdl_tpu_torch.cli.common import (apply_autotune,
                                             install_fault_plan,
@@ -1350,6 +1356,10 @@ def main(argv=None) -> dict:
     install_fault_plan(args)
     install_observability(args)
     dtype = torch.float32 if args.f32 else torch.bfloat16
+    if args.lint:
+        rc, args.lint_annotation = _preflight_lint(args)
+        if rc:
+            return rc
     if args.elastic is not None:
         if args.timeToAcc is not None:
             raise SystemExit(
@@ -1374,6 +1384,39 @@ def main(argv=None) -> dict:
         sup = Supervisor(RetryPolicy(budget=args.supervise), name="perf")
         return sup.run(lambda _n: _run_line(args, dtype, sup))
     return _run_line(args, dtype)
+
+
+def _preflight_lint(args):
+    """``--lint[=strict]``: the lint of this run's configuration before it
+    starts (``analysis.lint_config``, over the job's rank count, or
+    virtual ranks in one process; rank 0 prints). Returns ``(exit code,
+    annotation)``: the annotation, with the mesh it vetted under a
+    strategy, goes into the JSON line as ``lint``."""
+    from bigdl_tpu_torch.analysis import lint_config
+    from bigdl_tpu_torch.cli.common import (apply_conv_args,
+                                            resolve_lint_config,
+                                            run_preflight_lint)
+    from bigdl_tpu_torch.ops.conv2d import policy_snapshot, restore_policy
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    cfg = resolve_lint_config(args, n_devices=world if world > 1 else None)
+    # the classes of the model the run builds: the row's own (--classes
+    # is the time-to-accuracy harness's)
+    cfg = dataclasses.replace(cfg, classes=(
+        args.classes if args.timeToAcc is not None
+        else IMAGE_CONFIGS.get(args.model, (None, None, 1000))[2]))
+    snap = policy_snapshot()
+    try:
+        apply_conv_args(args)  # the run installs them again, as it would
+        report = lint_config(cfg)
+    finally:
+        restore_policy(snap)
+    rc, ann = run_preflight_lint(
+        report, strict=(args.lint == "strict"),
+        quiet=int(os.environ.get("RANK", "0")) != 0)
+    if ann is not None and cfg.mesh:
+        ann["mesh"] = ",".join(f"{a}:{s}" for a, s in cfg.mesh_axes)
+    return rc, ann
 
 
 def _run_line(args, dtype, supervisor=None, elastic=None) -> dict:
@@ -1408,6 +1451,8 @@ def _run_line(args, dtype, supervisor=None, elastic=None) -> dict:
               grad_compress=args.gradCompress, grad_buckets=args.gradBuckets,
               data_parallel=args.dataParallel, supervisor=supervisor,
               elastic=elastic, obs_state=getattr(args, "_obs", None))
+    if getattr(args, "lint_annotation", None) is not None:
+        out["lint"] = args.lint_annotation
     line = {k: v for k, v in out.items() if k != "losses"}
     import torch.distributed as dist
     if not dist.is_initialized() or dist.get_rank() == 0:
@@ -1416,4 +1461,5 @@ def _run_line(args, dtype, supervisor=None, elastic=None) -> dict:
 
 
 if __name__ == "__main__":
-    main()
+    rc = main()  # the line's dict, or --lint=strict's refusal code
+    raise SystemExit(rc if isinstance(rc, int) else 0)

@@ -40,9 +40,13 @@ FILE`` (sampled by ``--logSample``) imply it. ``--faultPlan`` injects
 seeded faults at the serving sites. ``--fleet K`` makes this process a
 router in front of K worker processes (``serving.fleet``; the router
 imports no torch), with ``--modelVersion``, ``--fleetHeartbeatS`` and
-``--fleetRestartBudget``. Flags of features not ported yet are refused
-with a message naming the ROADMAP.md entry that brings them, never
-ignored.
+``--fleetRestartBudget``. ``--lint[=strict]`` runs the lint pre-flight
+(``bigdl_tpu_torch.analysis``) before anything is dispatched: the served
+forward of the first replica, and for an LM its decode step (traced on an
+abstract engine), under ``tp:K`` the replicated-weight rule and
+shardlint over rank 0's decode step with the KV head-split fit; strict
+refuses to serve on an error, and the mesh it vetted is stamped into the
+provenance as ``lint_mesh``.
 """
 
 from __future__ import annotations
@@ -51,15 +55,11 @@ import argparse
 import logging
 
 from bigdl_tpu_torch.cli.common import (QUANTIZE_CHOICES, add_autotune_arg,
-                                        add_conv_args, add_fused_bn_arg)
+                                        add_conv_args, add_fused_bn_arg,
+                                        add_lint_arg)
 
 __all__ = ["build_parser", "build_app", "main"]
 
-# flags of the JAX package's serve that later slices of the port bring,
-# and the ROADMAP.md queue 1 entry that brings each
-_LATER_FLAGS = {
-    "--lint": "entry 16 (analysis/)",
-}
 # the page sizes --quantize kv8 tries when --kvPageTokens is not given
 _KV8_PAGES = (128, 64, 32, 256)
 
@@ -230,21 +230,32 @@ def build_parser() -> argparse.ArgumentParser:
     add_autotune_arg(p)
     add_fused_bn_arg(p)
     add_conv_args(p)
-    for flag in _LATER_FLAGS:
-        p.add_argument(flag, dest=f"later_{flag[2:]}", nargs="?", const=True,
-                       default=None, help=argparse.SUPPRESS)
+    add_lint_arg(p)
     return p
 
 
-def refuse_later_flags(args) -> None:
-    """SystemExit naming each given flag the port does not have yet and
-    the ROADMAP.md entry that brings it."""
-    later = [f for f in _LATER_FLAGS
-             if getattr(args, f"later_{f[2:]}", None) is not None]
-    if later:
-        raise SystemExit("; ".join(
-            f"{f}: not available in the PyTorch port yet (ROADMAP.md "
-            f"queue 1 {_LATER_FLAGS[f]} brings it)" for f in later))
+def _lint_exit(report, args, leader: bool) -> None:
+    """Print one pre-flight report (on the leader rank) and refuse to
+    serve under ``--lint=strict`` on an error."""
+    from bigdl_tpu_torch.cli.common import run_preflight_lint
+
+    rc, _ = run_preflight_lint(report, strict=(args.lint == "strict"),
+                               quiet=not leader)
+    if rc:
+        raise SystemExit(rc)
+
+
+def _tp_lint(args, model, mesh, leader: bool) -> None:
+    """The tp placement rule over the whole model before it is split: a
+    >= 1 MiB weight the Megatron pairing leaves whole runs on every
+    rank."""
+    from bigdl_tpu_torch.analysis import run_serving_tp_rules
+    from bigdl_tpu_torch.parallel.tensor_parallel import param_tree
+    from bigdl_tpu_torch.serving.sharding import ServingSharding
+
+    _lint_exit(run_serving_tp_rules(
+        param_tree(model), mesh.size,
+        specs=ServingSharding(mesh).param_specs(model)), args, leader)
 
 
 def _request_tracer(args, metrics):
@@ -302,13 +313,15 @@ def _page_tokens(spec, max_len: int, kv_heads: int = 0, head_dim: int = 0,
     return pt
 
 
-def _build_image_app(args, name, device, metrics, graphs, mesh=None):
+def _build_image_app(args, name, device, metrics, graphs, mesh=None,
+                     first=True):
     """(engine, batcher, input shape, provenance, link) of an image
     classifier: its ``/predict`` buckets captured at the model's input
     shape. With ``mesh`` (a tp replica's) the model is split by
     ``megatron_specs``' conv rule on this rank and the engine, eager, runs
     rank 0's forwards on every rank through its ``TPLink``; a follower
-    rank gets no batcher."""
+    rank gets no batcher. The ``first`` replica runs the ``--lint``
+    pre-flight."""
     import numpy as np
     import torch
 
@@ -335,14 +348,21 @@ def _build_image_app(args, name, device, metrics, graphs, mesh=None):
     if args.checkpoint:
         load_trained(model, args.checkpoint)
     link = None
+    leader = mesh is None or mesh.rank == 0
     if mesh is not None:
         from bigdl_tpu_torch.serving.sharding import ServingSharding, TPLink
+        if args.lint and first:
+            _tp_lint(args, model, mesh, leader)
         ServingSharding(mesh).place_params(model.to(device))
         link = TPLink(mesh)
     engine = InferenceEngine(
         model, buckets=_parse_buckets(args.buckets), metrics=metrics,
         device=device, graphs=graphs, quantize=args.quantize,
-        compute_dtype=torch.bfloat16 if args.bf16 else None, tp=link)
+        compute_dtype=torch.bfloat16 if args.bf16 else None, tp=link,
+        lint=args.lint if first else None)
+    rc = engine.preflight_lint(in_shape, np.float32, quiet=not leader)
+    if rc:
+        raise SystemExit(rc)
     if graphs.enabled or not args.no_warmup:
         print(f"warmup: buckets {engine.buckets} at {tuple(in_shape)} "
               f"float32", flush=True)
@@ -422,7 +442,8 @@ def build_app(args):
                     else metrics)
             graphs = GraphPool(devices[i][0], enabled=meshes[i] is None)
             built.append(_build_image_app(args, name, devices[i][0], view,
-                                          graphs, mesh=meshes[i]))
+                                          graphs, mesh=meshes[i],
+                                          first=(i == 0)))
         links = [b[4] for b in built if b[4] is not None]
         if links and not links[0].leader:
             return (TPFollower(links, [b[0] for b in built]), built[0][0],
@@ -529,6 +550,23 @@ def build_app(args):
         model = qmodel
     if draft is not None:
         draft.compute_dtype = compute_dtype
+    leader = meshes[0] is None or meshes[0].rank == 0
+    lint_prov = {}
+    if args.lint:
+        # the decode surface of the first replica (every replica runs the
+        # same graph on an isomorphic tp group), before anything is split
+        # or dispatched; the mesh it vetted goes into the provenance
+        from bigdl_tpu_torch.analysis import lint_serving
+        if tp_k > 1:
+            _tp_lint(args, model, meshes[0], leader)
+        _lint_exit(lint_serving(
+            model, slots=args.slots, kv_page_tokens=page_tokens,
+            speculate=args.speculate, quantize=args.quantize, tp=tp_k,
+            mesh=meshes[0], cache_dtype=compute_dtype), args, leader)
+        vetted = f"model:{tp_k}" if tp_k > 1 else (
+            "replicated" if replicas > 1 else "single-device")
+        lint_prov["lint_mesh"] = (f"{vetted} x {replicas} replica(s)"
+                                  if replicas > 1 else vetted)
 
     # the fault and retry counters land on this server's page
     set_registry(metrics)
@@ -554,9 +592,10 @@ def build_app(args):
             sharding.place_params(drf)
         return mdl, drf, TPLink(meshes[i])
 
-    def stack(dev, view, mdl, drf, link):
+    def stack(dev, view, mdl, drf, link, first):
         """(engine, decoder, batcher, watchdog, graphs) of one engine on
-        ``dev``, its series on ``view``."""
+        ``dev``, its series on ``view``; the ``first`` runs the forward's
+        ``--lint`` pre-flight."""
         graphs = GraphPool(dev, enabled=link is None)
         # the LM is causal: /predict rows pad to the prompt ladder's
         # lengths
@@ -564,7 +603,11 @@ def build_app(args):
                                  lengths=serving_prefill_buckets(
                                      mdl.max_len),
                                  metrics=view, device=dev, graphs=graphs,
-                                 quantize=args.quantize, tp=link)
+                                 quantize=args.quantize, tp=link,
+                                 lint=args.lint if first else None)
+        rc = engine.preflight_lint(in_shape, np.int32, quiet=not leader)
+        if rc:
+            raise SystemExit(rc)
         if graphs.enabled or not args.no_warmup:
             print(f"warmup: buckets {engine.buckets} at lengths "
                   f"{engine.lengths} int32", flush=True)
@@ -598,7 +641,8 @@ def build_app(args):
             links.append(link)
         stacks.append(stack(devices[i][0],
                             (metrics.labelled(replica=str(i))
-                             if replicas > 1 else metrics), mdl, drf, link))
+                             if replicas > 1 else metrics), mdl, drf, link,
+                            i == 0))
     if links and not links[0].leader:
         return (TPFollower(links, [st[0] for st in stacks],
                            [st[1] for st in stacks]), stacks[0][0], in_shape,
@@ -614,6 +658,7 @@ def build_app(args):
         batcher = watchdog = None
 
     prov = _provenance(args, engine, reqtracer, name)
+    prov.update(lint_prov)
     prov.update({
         "decode_slots": args.slots,
         "prompt_buckets": ",".join(str(b) for b in decoder.prompt_buckets),

@@ -142,11 +142,7 @@ def _logp_chunks(module, x, batch: int):
 def main(argv=None):
     common.setup_logging()
     parser = _parser()
-    args, extra = parser.parse_known_args(argv)
-    if extra:
-        parser.error(f"unrecognized arguments: {' '.join(extra)} (flags of "
-                     f"features not in the PyTorch port yet: see ROADMAP.md "
-                     f"queue 1)")
+    args = parser.parse_args(argv)
 
     from bigdl_tpu_torch import nn
     from bigdl_tpu_torch.dataset import BatchDataSet, Dictionary, tokenize

@@ -16,7 +16,9 @@ blocks with an online softmax, each block checkpointed), which takes the
 key-padding masks the kernels do not.
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
-launches its kernel or raises. The JAX package's ``_LSE_LANES``
+launches its kernel or raises; on a fake tensor of a lint trace it
+launches nothing, records the site with :func:`launch_plan` (``ops.
+lint_sites``) and returns empty outputs. The JAX package's ``_LSE_LANES``
 replication and the ``_tileable`` fallbacks are Mosaic artefacts and are
 not ported: the CUDA kernels mask ragged edges themselves.
 """
@@ -30,6 +32,7 @@ from typing import Optional
 import torch
 
 from bigdl_tpu_torch.nn import attention as _dense
+from bigdl_tpu_torch.ops import lint_sites as _sites
 from bigdl_tpu_torch.utils import flops as _flops
 
 __all__ = ["flash_attention", "flash_fwd", "flash_bwd", "flash_dq",
@@ -37,7 +40,7 @@ __all__ = ["flash_attention", "flash_fwd", "flash_bwd", "flash_dq",
            "flash_dq_reference", "flash_dkv_reference",
            "blockwise_attention", "online_softmax_update", "flash_block_k",
            "serving_prefill_buckets", "live_tile_pairs", "SUPPORTED_HEAD_DIMS",
-           "TILE"]
+           "TILE", "launch_plan"]
 
 _NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
@@ -172,6 +175,83 @@ def flash_bwd_reference(q, k, v, o, lse, do, causal: bool, segments=None):
     return (dq,) + _dkv_from(q, do, p, ds, k.dtype, v.dtype)
 
 
+# ---------------------------------------------------------- launch plans
+def _align128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def _smem_bytes(kernel: str, family: str, d: int) -> int:
+    """Dynamic shared memory of one CTA, as the Layout/Smem90 structs of
+    ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` compute it."""
+    fwd = kernel == "flash_fwd"
+    if family == "wgmma":
+        if fwd:  # two Q buffers of 128 rows, two stages of K and of V of
+            # 128 keys, their segment ids, 6 + 6 barriers, the turns
+            q, kv = 128 * d * 2, 128 * d * 2
+            return 2 * q + 4 * kv + 2 * 128 * 4 + 12 * 8 + 16 + 1024
+        own, stream = 128 * d * 2, 64 * d * 2  # two buffers of two own
+        # tiles, two stages of two streamed tiles, their rows, barriers
+        return 4 * own + 4 * stream + 2 * 3 * 64 * 4 + 8 * 8 + 1024
+    if family == "mma.sync":
+        tile = TILE * (d + 8) * 2  # padded 64-row tiles
+        return 5 * tile + 2 * TILE * 4 if fwd else 6 * tile + 6 * TILE * 4
+    ldt, lds = 4 * (d + 4), 4 * (TILE + 4)  # f32: rows padded by 16 bytes
+    if fwd:  # Q, K, V, S, O, then m, l and the segment ids
+        off = _align128(_align128(_align128(TILE * ldt) + TILE * ldt)
+                        + TILE * ldt)
+        off = _align128(_align128(off + TILE * lds) + TILE * ldt)
+        return off + 4 * TILE * 4
+    off = TILE * ldt  # four tiles, S, P, the accumulator, then the rows
+    for _ in range(3):
+        off = _align128(off) + TILE * ldt
+    off = _align128(_align128(_align128(off) + TILE * lds) + TILE * lds)
+    off = _align128(off) + TILE * ldt
+    return off + 5 * TILE * 4
+
+
+def launch_plan(kernel: str, dtype, d: int, s_q: int, s_k: int) -> dict:
+    """The launch ``kernel`` (``flash_fwd``, ``flash_dq`` or ``flash_dkv``)
+    would take at head dim ``d``: its family by dtype and d (the rule of
+    the sources: wgmma and TMA for bf16 at d = 64 and 128, ``mma.sync``
+    for bf16 at 16 and 32, FMA for f32; the variant None where no
+    compiled kernel takes the shape), the query and key tiles it walks,
+    and its shared memory a CTA."""
+    name = str(dtype).replace("torch.", "")
+    plan = {"s_q": int(s_q), "s_k": int(s_k), "head_dim": int(d)}
+    if d not in SUPPORTED_HEAD_DIMS or dtype not in _DTYPES:
+        plan.update(variant=None, family=None, tile_q=TILE, tile_k=TILE,
+                    smem_bytes=0,
+                    problem=f"{name} at head_dim {d}: no compiled kernel "
+                            f"(head dims {SUPPORTED_HEAD_DIMS}, float32 or "
+                            f"bfloat16)")
+        return plan
+    tq = tk = TILE
+    if dtype == torch.float32:
+        family, variant = "fma", f"{kernel}_f32"
+    elif d >= 64:
+        family, variant = "wgmma", f"{kernel}_sm90"
+        # a unit of 128 rows (queries of the forward and of dq, keys of
+        # dkv) against streamed tiles of 128 keys (forward) or 64 rows
+        tq = 128 if kernel != "flash_dkv" else 64
+        tk = 128 if kernel != "flash_dq" else 64
+    else:
+        family = "mma.sync"
+        variant = f"{kernel}_bf16" + ("" if kernel == "flash_fwd"
+                                       else "_small")
+    plan.update(variant=variant, family=family, tile_q=tq, tile_k=tk,
+                smem_bytes=_smem_bytes(kernel, family, d))
+    return plan
+
+
+def _site(kernel: str, q, k) -> None:
+    """Record one flash launch of a lint trace (nothing is launched)."""
+    d = q.shape[-1]
+    _sites.record(_sites.KernelSite(
+        kernel, (tuple(q.shape), tuple(k.shape)),
+        str(q.dtype).replace("torch.", ""),
+        launch_plan(kernel, q.dtype, d, q.shape[-2], k.shape[-2])))
+
+
 # -------------------------------------------------------------- wrappers
 def _bind(name: str):
     fn = _fns.get(name)
@@ -297,6 +377,11 @@ def flash_fwd(q, k, v, causal: bool, segments=None):
     plain version for CPU tensors."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal, segments)
+    if type(q) is not torch.Tensor and _sites.traced(q):
+        _site("flash_fwd", q, k)
+        b, h, s_q, _ = q.shape
+        return (torch.empty_like(q), torch.empty(
+            (b * h, s_q), dtype=torch.float32, device=q.device))
     return _flash_fwd_cuda(q, k, v, causal, segments)
 
 
@@ -326,6 +411,9 @@ def flash_dq(q, k, v, do, lse, delta, causal: bool, segments=None):
     version for CPU tensors."""
     if q.device.type == "cpu":
         return flash_dq_reference(q, k, v, do, lse, delta, causal, segments)
+    if type(q) is not torch.Tensor and _sites.traced(q):
+        _site("flash_dq", q, k)
+        return torch.empty_like(q)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch_bwd("flash_dq", q, k, v, do, lse, delta, causal, segments, (dq,))
     _count(flash_dq)
@@ -337,6 +425,9 @@ def flash_dkv(q, k, v, do, lse, delta, causal: bool, segments=None):
     tensors, the plain version for CPU tensors."""
     if q.device.type == "cpu":
         return flash_dkv_reference(q, k, v, do, lse, delta, causal, segments)
+    if type(q) is not torch.Tensor and _sites.traced(q):
+        _site("flash_dkv", q, k)
+        return torch.empty_like(k), torch.empty_like(v)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _launch_bwd("flash_dkv", q, k, v, do, lse, delta, causal, segments,
@@ -481,6 +572,8 @@ def blockwise_attention(q, k, v, *, causal: bool = False,
     if (mask is not None and kv_mask is None) or s_k % bk:
         if segments is not None:
             mask = _dense.make_segment_mask(segments)
+        elif kv_mask is not None:  # (b, s_k) broadcasts as (b, 1, 1, s_k)
+            mask = kv_mask[:, None, None, :]
         return _dense.dot_product_attention(q, k, v, causal=causal,
                                             mask=mask)
     from torch.utils.checkpoint import checkpoint
@@ -568,10 +661,15 @@ def flash_attention(q, k, v, *, causal: bool = False,
                                                   device=out.device))
     if mask is not None:
         if _as_key_padding(mask, q.shape[0], k.shape[-2]) is not None:
-            return blockwise_attention(
-                q, k, v, causal=causal, mask=mask,
-                block_k=flash_block_k(k.shape[-2], q.shape[-2], q.shape[-1],
-                                      causal, q.dtype))
+            bk = flash_block_k(k.shape[-2], q.shape[-2], q.shape[-1],
+                               causal, q.dtype)
+            if _sites.active():  # where a lint sees the kernels left
+                _sites.record(_sites.KernelSite(
+                    "blockwise_attention", (tuple(q.shape), tuple(k.shape)),
+                    str(q.dtype).replace("torch.", ""),
+                    {"block_k": bk, "dense": k.shape[-2] % bk != 0}))
+            return blockwise_attention(q, k, v, causal=causal, mask=mask,
+                                       block_k=bk)
         return _dense.dot_product_attention(q, k, v, causal=causal,
                                             mask=mask)
     return FlashAttention.apply(q, k, v, causal, None)

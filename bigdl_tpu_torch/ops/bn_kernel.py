@@ -52,6 +52,8 @@ from typing import NamedTuple
 
 import torch
 
+from bigdl_tpu_torch.ops import lint_sites as _sites
+
 __all__ = ["bn_stats", "bn_bwd_stats", "bn_fwd_apply", "bn_bwd_fused",
            "bn_stats_reference", "bn_bwd_stats_reference",
            "bn_fwd_apply_reference", "bn_bwd_fused_reference",
@@ -66,6 +68,7 @@ _STATS, _FWD, _BWD_STATS, _BWD_FUSED = range(4)
 _SLOTS = {_STATS: 8, _FWD: 24, _BWD_STATS: 11, _BWD_FUSED: 11}
 _VECS = ("mean", "inv", "gamma", "beta")
 _NTHREADS = 256   # threads per CTA (csrc/bn.cu NTHREADS)
+_RED_BYTES = 2 * _NTHREADS * 8 * 4  # csrc/bn.cu's static red[2][256 * MAXV]
 _SLAB_ROWS = 8    # least rows a thread per slab, where there are two slabs
 
 _count_lock = threading.Lock()
@@ -359,6 +362,34 @@ def _coop(kernel, mode, mats, vecs=(None,) * 4, eps=0.0, relu=False):
     return out0, out1, out
 
 
+_MODE_NAMES = ("stats", "fwd", "bwd_stats", "bwd_fused")
+
+
+def _site(kernel, mode, mats, relu=False):
+    """A lint trace's stand-in for :func:`_coop`: record the launch (its
+    untuned plan on an H100, the vector width its alignment would allow
+    at this C) and return empty (out0, out1, y or dx or None)."""
+    x2d = mats[-1]
+    rows, c = x2d.shape
+    vec = 16 // x2d.element_size()
+    while vec > 1 and c % vec:
+        vec //= 2
+    relu = bool(relu) and mode in (_FWD, _BWD_FUSED)
+    smem = _SLOTS[mode] * (2 if mode >= _BWD_STATS else 1) * 16 * _NTHREADS
+    ctas = _sites.resident_ctas(smem + _RED_BYTES, _NTHREADS)
+    p = _plan(mode, rows, c, vec, ctas)
+    _sites.record(_sites.KernelSite(
+        kernel, tuple(tuple(m.shape) for m in mats),
+        str(x2d.dtype).replace("torch.", ""),
+        {"kernel": "bn_coop_kernel", "mode": _MODE_NAMES[mode], "vec": vec,
+         "relu": relu, "ctas": ctas, "grid": p.grid, "blocks": p.blocks,
+         "slabs": p.slabs, "slab": p.slab, "once": p.once,
+         "smem_bytes": smem + _RED_BYTES}))
+    f32 = dict(dtype=torch.float32, device=x2d.device)
+    out = torch.empty_like(x2d) if mode in (_FWD, _BWD_FUSED) else None
+    return torch.empty(c, **f32), torch.empty(c, **f32), out
+
+
 def _same_dtype(kernel, dy2d, x2d):
     if dy2d.dtype != x2d.dtype:
         raise ValueError(f"{kernel} kernel: dy {dy2d.dtype} and x "
@@ -371,6 +402,8 @@ def bn_stats(x2d):
     _check_dtypes("bn_stats", x2d=x2d)
     if x2d.device.type == "cpu":
         return bn_stats_reference(x2d)
+    if type(x2d) is not torch.Tensor and _sites.traced(x2d):
+        return _site("bn_stats", _STATS, (x2d,))[:2]
     _check_cuda("bn_stats", {"x2d": x2d})
     s, sq, _ = _coop("bn_stats", _STATS, (x2d,))
     _count(bn_stats)
@@ -384,6 +417,8 @@ def bn_bwd_stats(dy2d, x2d, mean, inv):
     if x2d.device.type == "cpu":
         return bn_bwd_stats_reference(dy2d, x2d, mean, inv)
     _same_dtype("bn_bwd_stats", dy2d, x2d)
+    if type(x2d) is not torch.Tensor and _sites.traced(x2d):
+        return _site("bn_bwd_stats", _BWD_STATS, (dy2d, x2d))[:2]
     _check_cuda("bn_bwd_stats", {"dy2d": dy2d, "x2d": x2d},
                 {"mean": mean, "inv": inv})
     sdy, sdyx, _ = _coop("bn_bwd_stats", _BWD_STATS, (dy2d, x2d),
@@ -398,6 +433,9 @@ def bn_fwd_apply(x2d, gamma, beta, eps: float, relu: bool = False):
     _check_dtypes("bn_fwd_apply", x2d=x2d)
     if x2d.device.type == "cpu":
         return bn_fwd_apply_reference(x2d, gamma, beta, eps, relu)
+    if type(x2d) is not torch.Tensor and _sites.traced(x2d):
+        mean, var, y = _site("bn_fwd_apply", _FWD, (x2d,), relu)
+        return y, mean, var
     _check_cuda("bn_fwd_apply", {"x2d": x2d}, {"gamma": gamma, "beta": beta})
     mean, var, y = _coop("bn_fwd_apply", _FWD, (x2d,),
                          (None, None, gamma, beta), eps, relu)
@@ -413,6 +451,9 @@ def bn_bwd_fused(dy2d, x2d, mean, inv, gamma, beta, relu: bool = False):
         return bn_bwd_fused_reference(dy2d, x2d, mean, inv, gamma, beta,
                                       relu)
     _same_dtype("bn_bwd_fused", dy2d, x2d)
+    if type(x2d) is not torch.Tensor and _sites.traced(x2d):
+        sdy, sdyx, dx = _site("bn_bwd_fused", _BWD_FUSED, (dy2d, x2d), relu)
+        return dx, sdy, sdyx
     vecs = (mean, inv, gamma, beta)
     _check_cuda("bn_bwd_fused", {"dy2d": dy2d, "x2d": x2d},
                 dict(zip(_VECS, vecs)))

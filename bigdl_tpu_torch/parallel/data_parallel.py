@@ -158,6 +158,20 @@ class DataParallel:
                 "zero1": bool(self.zero1), "n_devices": int(self.mesh.size),
                 "mesh": {str(k): int(v) for k, v in self.mesh.shape.items()}}
 
+    def lint_spec_metadata(self, params=None) -> dict:
+        """What the lint needs to rebuild this strategy over fake tensors:
+        the declared mesh axes, the strategy's short name, the spec tree
+        it places ``params`` by (dp: replicated), the batch axes and the
+        grad-comm config of the reduce."""
+        from bigdl_tpu_torch.parallel.tensor_parallel import replicated_specs
+        return {"strategy": "dp",
+                "mesh_axes": {str(name): int(self.mesh.shape[name])
+                              for name in self.mesh.axis_names},
+                "batch_axes": (self.axis,),
+                "param_specs": (replicated_specs(params)
+                                if params is not None else None),
+                "grad_comm": self.grad_comm}
+
     def owner(self, name: str) -> int:
         """The rank that updates parameter ``name`` (every rank without
         ZeRO-1 updates every parameter; this is then the rank itself)."""

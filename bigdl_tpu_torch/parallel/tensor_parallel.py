@@ -558,6 +558,19 @@ class TensorParallel(DataParallel):
         self.module = self._model = model
         return self
 
+    def lint_spec_metadata(self, params=None) -> dict:
+        """The lint's view of this strategy: :meth:`DataParallel.
+        lint_spec_metadata` with the spec tree ``rules`` gives ``params``
+        (the JAX param tree; shapes are all it reads) over the model
+        axis."""
+        meta = super().lint_spec_metadata(None)
+        meta["strategy"] = "tp"
+        meta["model_axis"] = self.model_axis
+        if params is not None:
+            meta["param_specs"] = self.rules(self.module, params,
+                                             self.model_axis, self.n_shard)
+        return meta
+
     @property
     def model_mesh(self) -> Mesh:
         return self.mesh.axis_view(self.model_axis)

@@ -62,6 +62,7 @@ import collections
 import logging
 import threading
 import time
+import warnings
 from typing import Optional, Union
 
 import numpy as np
@@ -564,6 +565,17 @@ class DecodeEngine:
             self._tp_copy(src, dst)
 
     # ------------------------------------------------------------ admission
+    def trace_step_graph(self):
+        """The FX graph of the full-sampling decode step (the warping
+        program: what the decode lint rules read,
+        ``bigdl_tpu_torch.analysis.run_decode_rules``), traced on fake
+        tensors: nothing runs on the device and no state changes."""
+        from bigdl_tpu_torch.analysis.fx_walk import trace_graph
+
+        fn = self._step_fn(True)
+        with torch.no_grad():
+            return trace_graph(fn, mode=getattr(self, "_fake_mode", None))
+
     def prompt_bucket_for(self, n: int) -> int:
         for b in self.prompt_buckets:
             if b >= n:
@@ -1084,3 +1096,49 @@ class DecodeEngine:
         if t is not None:
             t.join(timeout)
         self.graphs.clear()
+
+
+def abstract_decode_engine(model, *, slots: int = 4,
+                           max_len: Optional[int] = None, cache_dtype=None,
+                           kv_page_tokens: Optional[int] = None,
+                           pool_pages: Optional[int] = None,
+                           speculate: int = 0, tp: int = 1,
+                           model_axis: str = "model",
+                           quantize: Optional[str] = None, mesh=None):
+    """A lintable :class:`DecodeEngine`: built, as the serving engine is,
+    over a copy of ``model`` whose weights, caches and buffers are fake
+    tensors (nothing allocated, no card), placed for tp over ``mesh`` (a
+    ``model``-axis mesh; default the job's ranks, a fake process group in
+    a lint) when ``tp`` > 1. ``whole_kv`` is the unsharded model's KV
+    layout (meta tensors), for the head-split rule. Call
+    ``trace_step_graph()`` on it; do not ``start()`` or ``submit()``: no
+    state stands behind it."""
+    from bigdl_tpu_torch.analysis import fx_walk
+    from bigdl_tpu_torch.serving.sharding import (ServingSharding, TPLink,
+                                                  serving_mesh)
+
+    clone = fx_walk.meta_clone(model).eval()
+    if max_len:
+        clone.max_len = int(max_len)
+    _, kv8 = _q.parse_quantize(quantize)
+    link = None
+    if int(tp) > 1:
+        mesh = mesh if mesh is not None else serving_mesh(axis=model_axis)
+        ServingSharding(mesh, axis=model_axis).place_params(clone)
+        link = TPLink(mesh)
+    mode = fx_walk.fake_mode()
+    with mode, warnings.catch_warnings():
+        # the engine's model.to() makes the meta weights fake; copying a
+        # quantized model reads fake data pointers (never dereferenced)
+        warnings.filterwarnings("ignore", "Accessing the data pointer")
+        eng = DecodeEngine(clone, slots=slots, cache_dtype=cache_dtype,
+                           device="cpu", kv_page_tokens=kv_page_tokens,
+                           pool_pages=pool_pages, speculate=speculate,
+                           quantize=quantize, graphs=False, tp=link)
+    eng._fake_mode = mode
+    whole = fx_walk.meta_clone(model)
+    rows = eng._kv.pool_pages if eng.paged else eng.slots
+    tokens = eng.page_tokens if eng.paged else eng.max_len
+    eng.whole_kv = whole.encoder.init_cache(
+        rows, tokens, torch.int8 if kv8 else eng.cache_dtype, "meta")
+    return eng

@@ -26,8 +26,10 @@ requests whose rows it carried. An image classifier is served the same
 way with no length buckets: ``warmup`` takes the input shape and dtype
 ``cli.perf.build_model`` gives, and ``compute_dtype`` casts floating
 inputs (``serve --bf16``) as the JAX engine does. Under ``tp`` (a tp:K
-engine, ``serving.sharding``) rank 0's forwards run on every rank. The
-lint pre-flight is not ported yet.
+engine, ``serving.sharding``) rank 0's forwards run on every rank.
+``lint`` (``serve --lint[=strict]``) arms :meth:`InferenceEngine.
+preflight_lint`: the lint of the served forward, before ``warmup``
+dispatches anything.
 """
 
 from __future__ import annotations
@@ -95,8 +97,11 @@ class InferenceEngine:
                  metrics=None, device="cuda",
                  graphs: Union[bool, GraphPool] = True,
                  quantize: Optional[str] = None, compute_dtype=None,
-                 tp=None):
+                 tp=None, lint: Optional[str] = None):
         self.device = resolve_device(device)
+        self.lint_mode = lint if lint in ("on", "strict") else None
+        self.lint_annotation = None
+        self._linted = False
         self._tp = tp if tp is not None and tp.size > 1 else None
         if self._tp is not None:
             if isinstance(graphs, GraphPool) and graphs.enabled:
@@ -204,6 +209,43 @@ class InferenceEngine:
         # a copy: the buffer is every forward's (a CPU tensor's .cpu()
         # would share it)
         return self.graphs.run(key, fn).to("cpu", copy=True).numpy()
+
+    def preflight_lint(self, feat_shape, dtype, quiet: bool = False) -> int:
+        """The lint of the served forward at the largest bucket and
+        length, traced on fake tensors before anything is dispatched.
+        Returns the report's exit code (0 = serve; nonzero = strict mode
+        found error-severity findings); the summary annotation is kept
+        either way. ``quiet``: a rank other than the first of a tp
+        engine (it lints, and refuses, as rank 0 does, without
+        printing)."""
+        if self.lint_mode is None or self._linted:
+            return 0
+        self._linted = True
+        from bigdl_tpu_torch.analysis import lint_fn
+        from bigdl_tpu_torch.analysis.fx_walk import fake_mode
+        from bigdl_tpu_torch.cli.common import run_preflight_lint
+
+        row = tuple(feat_shape)
+        if self.lengths:
+            row = (self.lengths[-1],) + row[1:]
+        mode = fake_mode()
+        with mode:  # a fake input on the engine's device: no allocation
+            x = torch.empty((self.buckets[-1],) + row, device=self.device,
+                            dtype=torch.from_numpy(np.zeros((), dtype)).dtype)
+        cd = self.compute_dtype
+
+        def forward(x):
+            if cd is not None and x.is_floating_point():
+                x = x.to(cd)
+            return self.module(x)
+
+        with torch.no_grad():
+            report = lint_fn(forward, x, mode=mode)
+        rc, ann = run_preflight_lint(report,
+                                     strict=(self.lint_mode == "strict"),
+                                     quiet=quiet)
+        self.lint_annotation = ann if rc == 0 else report.annotation()
+        return rc
 
     @torch.no_grad()
     def warmup(self, feat_shape, dtype=np.float32) -> None:
@@ -332,4 +374,6 @@ class InferenceEngine:
                 "device": str(self.device), "quantize": self.quantize}
         if self.lengths:
             prov["length_buckets"] = ",".join(str(n) for n in self.lengths)
+        if self.lint_annotation is not None:
+            prov["lint"] = self.lint_annotation
         return prov

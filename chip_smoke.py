@@ -176,7 +176,7 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    accept rate, target dispatches a generated token, draft steps,
    ``quant_agreement`` and ``quant_logit_max_err``, weight bytes and KV
    bytes a full slot, and a decode-rate table (16 greedy requests of 64
-   prompt and 48 new tokens, graphed: ms a step or round, decode
+   prompt and 24 new tokens, graphed: ms a step or round, decode
    tokens/s) of the plain engine beside each run, with the card's name
    and power limit.
 
@@ -192,8 +192,9 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    losses and exactly 14 launches a step of each of the mode's two BN
    kernels (added to the kernels line's launches). The four BN kernels
    against their plain versions at VGG's six (rows, C) shapes at batch
-   128, 131072 x 64 down to the 2-D BN's 128 x 512, as in phase 7.
-   ``cli.perf -m lenet5`` and ``-m vgg16``, bf16 batch 32: finite losses,
+   128, 131072 x 64 down to the 2-D BN's 128 x 512, as in phase 7, each
+   timed over a replay of 10 calls, twice (``BN_TIMING_LIGHT``; phase 7's
+   3 replays of 20). ``cli.perf -m lenet5`` and ``-m vgg16``, bf16 batch 32: finite losses,
    images/s. Each rate line carries the card's name and power limit.
 
 18. BASELINE config 4, after phase 17: ``cli.inception train -b 32
@@ -206,14 +207,16 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    ``cli.inception test --model`` on each run's checkpoint printing its
    last validation's Top-1 and Top-5 lines. AlexNet at 1000 classes from
    a seeded ``.caffemodel`` of the real blob shapes (~244 MB, written
-   here) through ``cli.loadmodel --modelType caffe`` on that val folder,
+   here on a thread beside phase 17) through ``cli.loadmodel --modelType caffe`` on that val folder,
    then exported with ``save_torch_module`` and run as ``--modelType
    torch``: the same Top-1 and Top-5 lines, images/s (load included),
    and on one fixed batch each import's logits on the card within
    ``ALEXNET_LOGIT_TOL`` of max|logit| of the CPU forward. The four BN
    kernels against their plain versions at the 33 (rows, C) shapes that
    forward hooks collect from Inception-v2's 57 BNs at batch 32 (401408
-   x 64 down to 1568 x C, C from 16 to 384), as in phase 7. ``cli.perf
+   x 64 down to 1568 x C, C from 16 to 384), as in phase 7, timed as
+   phase 17's.
+   ``cli.perf
    -m inception_v1``, ``-m inception_v2 --fusedBN apply`` (57 launches a
    step of each fused kernel) and ``-m alexnet`` (227 x 227), bf16 batch
    32: finite losses, images/s.
@@ -222,16 +225,18 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    rows ``resnet50_fba``, ``resnet50_s2d --fusedBN apply``,
    ``resnet50_bnss --fusedBN apply`` (its stat-sampled BNs take no
    kernel) at batch 128 and ``transformer_lm_1k_hd128`` at batch 8, bf16,
-   ``--innerSteps 4``: images/s or tokens/s, the analytic step count and
-   its split, ``mfu`` against the matched peak, exact launches; gated 0 <
-   mfu <= 1, a matched peak, the count equal to a fresh CPU build's at
-   the same batch, ResNet-50's 20-32 GF an image. (b) The conv layout
-   policy: ``resnet50_fba`` at batch 128 under ``--convLayout default``,
-   ``NHWC,NHWC,NCHW``, ``NCHW,NCHW,NCHW`` and ``GEMM,GEMM,GEMM``, 8 eager
-   steps and 12 graphed: images/s, the first 3 losses, 53 launches a step
-   of each fused BN kernel, each first loss within ``POLICY_LOSS_TOL`` of
-   the default's and the graphed losses at steps 4 and 8 within it of the
-   eager ones; then ``tools/conv_probe.py --geom`` at ResNet-50's shapes
+   ``--innerSteps 4`` (``resnet50_fba`` and the LM through ``cli.perf``'s
+   main with ``--lint strict``: phase 30 (b)): images/s or tokens/s, the
+   analytic step count and its split, ``mfu`` against the matched peak,
+   exact launches; gated 0 < mfu <= 1, a matched peak, the count equal to
+   a fresh build's at the same batch (counted on the CPU in a process of
+   its own beside phase 18), ResNet-50's 20-32 GF an image. (b) The
+   conv layout policy: ``resnet50_fba`` at batch 128 under
+   ``--convLayout default``, ``NHWC,NHWC,NCHW``, ``NCHW,NCHW,NCHW`` and
+   ``GEMM,GEMM,GEMM``, 4 eager steps and 6 graphed: images/s, the first 3
+   losses, 53 launches a step of each fused BN kernel, each first loss
+   within ``POLICY_LOSS_TOL`` of the default's and the graphed losses at
+   steps 2 and 4 within it of the eager ones; then ``tools/conv_probe.py --geom`` at ResNet-50's shapes
    (its rows printed) and ``resnet50_fba`` under ``--convGeom`` that
    file. (c) The s2d stem with ``weight_from_conv7(w7)`` against the
    7x7/2 pad-3 conv of ``w7`` at batch 128, bf16 and f32 (f32 within
@@ -242,8 +247,9 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    to accuracy: ``cli.perf -m resnet20_cifar --timeToAcc 0.9 --imageSize
    32 --fusedBN apply -b 128 --maxEpoch 10`` (easy grade: reached, every
    curve point later than the one before), then ``--ttaHard
-   --trainPerClass 500 --valPerClass 100 --valEvery 20 --maxEpoch 6``
-   (its curve printed). The kernels line counts phase 19's launches too,
+   --trainPerClass 300 --valPerClass 60 --valEvery 20 --maxEpoch 2`` on
+   record shards the harness's own writer wrote on a thread beside phase
+   18, given as ``--data record:DIR`` (its curve printed). The kernels line counts phase 19's launches too,
    and a line before it gives phase 19's BN launches by mode.
 
 20. Data parallelism (``bigdl_tpu_torch.parallel``), after phase 19. (a)
@@ -284,8 +290,8 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    chance), records/s of each epoch. (b)
    ``cli.rnn train -b 128 --maxEpoch 1`` at its defaults (``--vocabSize
    4000 --seqLength 20 --hiddenSize 40``) on a seeded Zipf ``input.txt``
-   of 100,000 words (200,000 before phase 25 pushed the script past
-   1000 s): finite falling losses and a finite ``perplexity is``
+   of 50,000 words: finite falling losses and a finite ``perplexity
+   is``
    line. (c) ``birnn_classifier`` and ``lstm_classifier`` (5002 ids, embed
    100, 128 a direction, 20 classes) on (a)'s ids (T = 500) through the
    Optimizer at batch 128, f32: the BiRNN for 6 steps eager and 12 as
@@ -318,7 +324,7 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    ``scaled_dot_product_attention``'s forward and backward. (a) ``cli.perf -m
    transformer_lm_16k`` (remat "dots") and ``-m transformer_lm_32k``
    ("full") at batch 1 in bf16, graphed (2 steps a replay) and eager over
-   the same 6 steps: the graphed losses within ``LONG_LOSS_TOL`` of the
+   the same 4 steps: the graphed losses within ``LONG_LOSS_TOL`` of the
    eager ones at the same steps, exactly 24 ``flash_fwd`` (the forward
    runs again in each layer's backward), 12 ``flash_dq`` and 12
    ``flash_dkv`` a step, tokens/s, MFU and peak memory; the 16k row at
@@ -450,7 +456,8 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    d = 128): ``flash_fwd`` bf16 and f32 at batch 8 x 1024 and 2 x 64,
    the backward pair at batch 8 x 1024. (a) ``serve --strategy tp:2`` at
    full width through ``cli.serve.build_app`` on each rank (rank 0 leads,
-   rank 1 follows): in f32 the greedy /generate of 4 prompts equals a
+   rank 1 follows; the f32 server with ``--lint strict``, phase 30 (c)):
+   in f32 the greedy /generate of 4 prompts equals a
    one-rank engine's token for token; in bf16 the /predict forward's
    logits differ from one rank's bf16 by at most 3x that one's own error
    against f32; each rank's ``flash_fwd`` launches and the head count and
@@ -544,6 +551,27 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    ``--modelName`` rebuild): the same printed lines. (e) (c)'s /metrics
    ``_info`` carries the provenance core (``bn_fused``, ``autotune``,
    ``conv_layouts``, ``conv_geom_decisions``) and the topology.
+30. The lint (``bigdl_tpu_torch.analysis``, ``cli/lint.py``): traces on
+   fake tensors, on the CPU, launching nothing. (a) Beside phase 27, one
+   process runs ``cli.main lint`` over LINT_CASES: ``resnet50 -b 128``
+   reports LINT_R50_RULES (the JAX CLI's families less the stated
+   differences), ``--fusedBN apply --convLayout GEMM,GEMM,GEMM`` no
+   ``fusion-*`` finding and no error, the composed ``tp:2 --gradCompress
+   bf16 --quantize int8+kv8 --kvPageTokens 128 --speculate 4 --strict``
+   config exits 0, and ``resnet50 -b 300000 --no-trace``'s
+   ``hbm-oversubscribed`` reads the card's ``total_memory``; then the
+   kernel sites of one traced ``resnet50_fba`` b128 and LM b8 step; that
+   process launches no kernel. A second, ``python -m
+   bigdl_tpu_torch.cli.main lint transformer_lm --strategy tp:3
+   --strict`` (the JAX shardlint test's mis-sharded config), exits 2 on
+   shard rules. (b) Phase 19's ``resnet50_fba`` and LM rows run with
+   ``--lint strict``: their lines carry ``lint`` with 0 errors, their
+   exact launches show the pre-flight launched nothing, and the sites a
+   traced step records (53 + 53 BN; 12/12/12 flash) equal the launches
+   the card counted a step; one eager ``resnet50_fba`` step under
+   ``torch.cuda.set_sync_debug_mode("error")`` makes no host sync. (c)
+   Phase 26 (a)'s ``serve --strategy tp:2 --lint strict`` starts, serves
+   and stamps ``lint_mesh`` ``model:2`` with 0 errors.
 
 Any failed phase exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -627,7 +655,7 @@ SAMPLED = dict(temperature=0.8, top_k=40, top_p=0.9)
 # greedy requests of RATE_PROMPT prompt tokens and RATE_NEW new ones
 SPEC_K, DRAFT_DIMS = 4, "256,2,2"
 QUANT_MODES = ("int8", "fp8", "int8+kv8", "fp8+kv8")
-RATE_PROMPT, RATE_NEW = 64, 48
+RATE_PROMPT, RATE_NEW = 64, 24
 # BN kernels vs plain: NHWC (batch, h, w, C) of ResNet-50 at batch 128,
 # seen as (rows, C), and a ragged shape
 BN_SHAPES = [(128, 112, 112, 64), (128, 56, 56, 256), (128, 28, 28, 512),
@@ -682,6 +710,10 @@ PIPE_JPEGS, PIPE_RECORD_ITERS = 512, 8
 # rows, bf16 at the JAX harness's default batch
 MNIST_TRAIN, MNIST_TEST, LENET_EPOCHS = 60000, 10000, 2
 VGG_RECORDS, VGG_BATCH, VGG_BNS = 2000, 128, 14
+# the BN checks of phases 17 and 18 at their models' shapes time each
+# call over one replay of a 10-call graph, twice (phase 7's: three replays
+# of 20)
+BN_TIMING_LIGHT = (10, 2)
 VGG_BN_SHAPES = [(128, 32, 32, 64), (128, 16, 16, 128), (128, 8, 8, 256),
                  (128, 4, 4, 512), (128, 2, 2, 512), (128, 1, 1, 512)]
 ZOO_ROWS, ZOO_BATCH, ZOO_ITERS = ("lenet5", "vgg16"), 32, 10
@@ -710,23 +742,31 @@ MFU_ROWS = (("resnet50_fba", None, 128,
             ("transformer_lm_1k_hd128", None, 8,
              {"flash_fwd": 12, "flash_dq": 12, "flash_dkv": 12}))
 MFU_INNER, MFU_ITERS = 4, 3
+# phase 30 (b): these MFU rows run through cli.perf's main with --lint
+# strict (its two warm-up dispatches, run's default, before MFU_ITERS)
+MFU_LINT_ROWS = ("resnet50_fba", "transformer_lm_1k_hd128")
 RESNET50_GF_PER_IMAGE = (20e9, 32e9)  # the JAX package's test range
 # the conv layout policies ResNet-50 _fba runs under: POLICY_STEPS eager
 # steps, then graphed (2 + 1 dispatches of POLICY_STEPS // 2 steps); each
 # first loss within POLICY_LOSS_TOL of the default's, the graphed losses
-# at steps 4 and 8 within it of the eager ones (bf16 activations: the
+# at steps 2 and 4 within it of the eager ones (bf16 activations: the
 # layouts run other cuDNN algorithms, summing in other orders, on a loss
 # near ln 1000)
 POLICIES = ("default", "NHWC,NHWC,NCHW", "NCHW,NCHW,NCHW", "GEMM,GEMM,GEMM")
 POLICY_ROW, POLICY_BNS = "resnet50_fba", 53
-POLICY_STEPS = 8
+POLICY_STEPS = 4
 POLICY_LOSS_TOL = 5e-2
 S2D_F32_TOL = 1e-4  # the s2d stem against the 7x7/2 conv, f32, TF32 off
 S2D_BATCH = 32
 TTA_EASY = ["-m", "resnet20_cifar", "--timeToAcc", "0.9", "--imageSize",
             "32", "--fusedBN", "apply", "-b", "128", "--maxEpoch", "10"]
-TTA_HARD = TTA_EASY[:-1] + ["6", "--ttaHard", "--trainPerClass", "500",
-                            "--valPerClass", "100", "--valEvery", "20"]
+# the hard grade's curve is printed, not gated: 2 epochs of 300 + 60
+# images a class, its record shards written by the harness's own writer
+# on a thread beside phase 18
+TTA_HARD_PER_CLASS = (300, 60)
+TTA_HARD = TTA_EASY[:-1] + ["2", "--ttaHard", "--trainPerClass",
+                            str(TTA_HARD_PER_CLASS[0]), "--valPerClass",
+                            str(TTA_HARD_PER_CLASS[1]), "--valEvery", "20"]
 
 
 # phase 20: data parallelism
@@ -747,7 +787,7 @@ TEXT_BATCH, TEXT_EPOCHS = 128, 2
 # the last Top-1 of (a), 4x chance: 24 steps of the reference's SGD train
 # the text CNN only so far (without the GloVe file it stays at chance)
 TEXT_TOP1 = 0.2
-RNN_LM_WORDS = 100000  # (b) cli.rnn's input.txt
+RNN_LM_WORDS = 50000  # (b) cli.rnn's input.txt
 # (c) the config-5 models at (a)'s widths: T = 500, batch TEXT_BATCH
 RNN_EMBED, RNN_HIDDEN = 100, 128
 RNN_EAGER_STEPS, RNN_GRAPH_STEPS, RNN_K = 6, 12, 2
@@ -758,7 +798,7 @@ LBFGS_BATCH, LBFGS_ITERS = 1024, 20  # (f)
 # rows at batch 1, each with its own remat, graphed (K steps a replay)
 # and eager over the same steps
 LONG_ROWS = {"transformer_lm_16k": "dots", "transformer_lm_32k": "full"}
-LONG_ITERS, LONG_INNER = 2, 2
+LONG_ITERS, LONG_INNER = 1, 2
 LONG_LOSS_TOL = 1e-3  # graphed against eager losses, bf16
 LONG_GRAD_LAYERS = 2  # remat against none at 16k, full width, 2 layers
 LONG_GRAD_TOL = 1e-2  # of max|g|, bf16
@@ -789,7 +829,7 @@ FRONT_MODEL = [MODEL]
 FRONT_PLATFORM = []  # ["--platform", "cpu"] to rehearse on the CPU
 FRONT_SLO = "ttft=2000,tpot=100"
 FLEET_BOOT_S = 300  # the fleet's boot, and a restart, must take less
-ROUTER_REPS = 5  # direct/router/router/direct /generate turns
+ROUTER_REPS = 3  # direct/router/router/direct /generate turns
 SWAP_CLIENTS = 3  # client threads sending during the rolling swap
 
 
@@ -2190,11 +2230,12 @@ def bn_repeat(torch, run, first):
     return {"same_bits": same, "graph_eq": replayed}
 
 
-def check_bn(torch, shapes=None):
+def check_bn(torch, shapes=None, timing=(20, 3)):
     """The four BN kernels against their plain versions at ``shapes``
     (default BN_SHAPES), bf16 and f32 (ReLU on and off for the fused
-    pair), with device times, the library's time and the bound. Returns
-    {(kernel, shape, dtype, relu): row}."""
+    pair), with device times (``timing``: device_ms's calls a graph and
+    replays), the library's time and the bound. Returns {(kernel, shape,
+    dtype, relu): row}."""
     from bigdl_tpu_torch.ops import bn_kernel as bk
     from bigdl_tpu_torch.tools.timing import device_ms
 
@@ -2264,8 +2305,9 @@ def check_bn(torch, shapes=None):
                     ok = ok and all(repeat.values())
                 row = {"shape": [rows, c], "dtype": dt, "relu": relu,
                        "rel_err": rel, "max_abs_err": abs_err, "ok": ok,
-                       "ms": device_ms(run), "plain_ms": device_ms(plain),
-                       "library_ms": device_ms(library)}
+                       "ms": device_ms(run, *timing),
+                       "plain_ms": device_ms(plain, *timing),
+                       "library_ms": device_ms(library, *timing)}
                 if kernel in REPEAT_CHECKED:
                     row.update(repeat)
                 row["bound_ms"], row["bound_by"] = bn_bound_ms(
@@ -3376,7 +3418,7 @@ def baseline_runs(torch, card):
     t0 = time.perf_counter()
     lenet = lenet_run(torch, card)
     vgg = vgg_runs(torch, card)
-    bn_rows = check_bn(torch, VGG_BN_SHAPES)
+    bn_rows = check_bn(torch, VGG_BN_SHAPES, BN_TIMING_LIGHT)
     zoo = zoo_perf_runs(torch, card)
     print(f"[phase 17] {time.perf_counter() - t0:.1f}s", flush=True)
     rows = {"lenet5 cli (last epoch)": lenet["images_per_s"][-1]}
@@ -3533,14 +3575,38 @@ def write_alexnet_caffe(folder, seed=0):
     return proto, weights
 
 
-def alexnet_import_runs(torch, card, folder):
+def caffe_start():
+    """Phase 18's seeded AlexNet ``.caffemodel`` (``write_alexnet_caffe``,
+    ~244 MB), written into a fresh directory on a thread beside phase 17.
+    Returns the handle :func:`alexnet_import_runs` takes."""
+    import tempfile
+
+    state = {"dir": tempfile.mkdtemp(prefix="caffe_")}
+
+    def write():
+        t0 = time.perf_counter()
+        try:
+            state["paths"] = write_alexnet_caffe(state["dir"])
+        except BaseException as e:  # reported by alexnet_import_runs
+            state["error"] = repr(e)
+        state["s"] = time.perf_counter() - t0
+
+    th = threading.Thread(target=write, daemon=True)
+    th.start()
+    return th, state
+
+
+def alexnet_import_runs(torch, card, folder, caffe):
     """AlexNet at 1000 classes through ``cli.loadmodel --modelType caffe``
     on the val folder at 227 x 227, the same weights exported with
     ``save_torch_module`` and run again as ``--modelType torch``: the two
     runs print the same Top-1 and Top-5 lines; on one fixed batch the
     logits of each import on the card match the CPU forward of the caffe
-    import within ALEXNET_LOGIT_TOL of max|logit|. Returns {tag:
+    import within ALEXNET_LOGIT_TOL of max|logit|. ``caffe``:
+    :func:`caffe_start`'s handle, the caffemodel. Returns {tag:
     images/s}."""
+    import shutil
+
     import numpy as np
 
     from bigdl_tpu_torch.cli import loadmodel as loadmodel_cli
@@ -3548,14 +3614,19 @@ def alexnet_import_runs(torch, card, folder):
                                          save_torch_module)
     from bigdl_tpu_torch.models import alexnet
 
+    th, state = caffe
+    th.join()
+    if "error" in state:
+        fail(f"[alexnet import] writing the caffemodel: {state['error']}")
     t0 = time.perf_counter()
-    proto, weights = write_alexnet_caffe(folder)
+    proto, weights = state["paths"]
     t7 = os.path.join(folder, "alexnet.t7")
     model = load_caffe(alexnet(1000, generator=torch.Generator()
                                .manual_seed(0)), weights).eval()
     save_torch_module(model, t7, example_input=(1, 227, 227, 3))
-    print(f"[alexnet import] caffemodel {os.path.getsize(weights)} bytes, "
-          f".t7 {os.path.getsize(t7)} bytes, written and exported in "
+    print(f"[alexnet import] caffemodel {os.path.getsize(weights)} bytes "
+          f"written in {state['s']:.1f}s beside phase 17, .t7 "
+          f"{os.path.getsize(t7)} bytes exported in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     n_val = INC_CLASSES * INC_VAL // INC_BATCH * INC_BATCH
     val = os.path.join(folder, "val")
@@ -3589,6 +3660,7 @@ def alexnet_import_runs(torch, card, folder):
                      f"max|ref| (tolerance {ALEXNET_LOGIT_TOL})")
     del model
     torch.cuda.empty_cache()
+    shutil.rmtree(state["dir"], ignore_errors=True)
     return rows
 
 
@@ -3649,11 +3721,12 @@ def inception_perf_runs(torch, card):
     return out
 
 
-def inception_runs(torch, card):
+def inception_runs(torch, card, caffe):
     """Phase 18: BASELINE config 4. Inception through ``cli.inception``,
-    AlexNet through the Caffe and Torch importers, the BN kernels at
-    Inception-v2's shapes, the perf zoo's inception and alexnet rows.
-    Returns (rows, the runs' launches, the BN rows)."""
+    AlexNet through the Caffe and Torch importers (its caffemodel
+    ``caffe``'s, :func:`caffe_start`), the BN kernels at Inception-v2's
+    shapes, the perf zoo's inception and alexnet rows. Returns (rows, the
+    runs' launches, the BN rows)."""
     import tempfile
 
     t0 = time.perf_counter()
@@ -3662,13 +3735,13 @@ def inception_runs(torch, card):
         print(f"[phase 18] {INC_CLASSES * (INC_TRAIN + INC_VAL)} JPEGs "
               f"written in {time.perf_counter() - t0:.1f}s", flush=True)
         cli = inception_cli_runs(torch, card, tmp)
-        rows = alexnet_import_runs(torch, card, tmp)
+        rows = alexnet_import_runs(torch, card, tmp, caffe)
     shapes = inception_bn_shapes(torch)
     print(f"[inception_v2] batch {INC_BATCH}: {len(shapes)} (rows, C) "
           f"shapes over {INC_BNS} BNs: " + ", ".join(
               f"{b * h * w}x{c}" + (f" ({k})" if k > 1 else "")
               for (b, h, w, c), k in shapes), flush=True)
-    bn_rows = check_bn(torch, [s for s, _ in shapes])
+    bn_rows = check_bn(torch, [s for s, _ in shapes], BN_TIMING_LIGHT)
     zoo = inception_perf_runs(torch, card)
     print(f"[phase 18] {time.perf_counter() - t0:.1f}s", flush=True)
     rows.update({f"inception cli {tag}": r for tag, (r, _) in cli.items()})
@@ -3678,6 +3751,71 @@ def inception_runs(torch, card):
     launches = ([n for _, n in cli.values()]
                 + [n for _, n in zoo.values()])
     return rows, launches, bn_rows
+
+
+# phase 19 (a)'s counts of fresh builds of MFU_ROWS on the meta device,
+# counted on the CPU in a process of its own: {row: GF}
+MFU_COUNT_CHILD = (
+    "import json, sys, torch\n"
+    "from bigdl_tpu_torch.cli import perf\n"
+    "out = {}\n"
+    "for name, batch in json.loads(sys.argv[1]):\n"
+    "    with torch.device('meta'):\n"
+    "        model, _ = perf.build_model(name)\n"
+    "    c = perf.step_flops(model, name, batch, torch.bfloat16)\n"
+    "    out[name] = round((c['matmul'] + c['conv']) / 1e9, 3)\n"
+    "print(json.dumps(out))\n")
+
+
+def slice_prep_start():
+    """Phase 19's CPU work, started beside phase 18: (a)'s counts
+    of fresh builds in a child process (MFU_COUNT_CHILD) and (d)'s
+    hard-grade record shards, written on a thread by the harness's own
+    writer (``cli.perf._make_class_image_tree``, ``write_image_shards``)
+    with the arguments ``run_time_to_acc`` gives them. Returns the handle
+    :func:`resnet_slice_runs` takes."""
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", MFU_COUNT_CHILD,
+         json.dumps([[name, batch] for name, _, batch, _ in MFU_ROWS])],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=here), cwd=here)
+    tmp = tempfile.mkdtemp(prefix="tta_hard_")
+    state = {}
+
+    def write():
+        try:
+            from bigdl_tpu_torch.cli import perf
+            from bigdl_tpu_torch.dataset import write_image_shards
+
+            t0 = time.perf_counter()
+            size = int(TTA_EASY[TTA_EASY.index("--imageSize") + 1])
+            for split, per, seed in (("train", TTA_HARD_PER_CLASS[0], 0),
+                                     ("val", TTA_HARD_PER_CLASS[1], 1)):
+                tree = os.path.join(tmp, "imgs", split)
+                perf._make_class_image_tree(tree, 10, per, size, seed=seed,
+                                            hard=True)
+                write_image_shards(tree, os.path.join(tmp, "shards", split),
+                                   prefix=split, images_per_shard=256,
+                                   workers=4)
+            state["s"] = time.perf_counter() - t0
+        except BaseException as e:  # reported by tta_runs
+            state["error"] = repr(e)
+
+    th = threading.Thread(target=write, daemon=True)
+    th.start()
+    return proc, th, tmp, state
+
+
+def _mfu_counts(prep):
+    """Phase 19 (a)'s counts from :func:`slice_prep_start`'s child."""
+    out, err = prep[0].communicate(timeout=600)
+    if prep[0].returncode != 0:
+        fail(f"[mfu] the counting process exited {prep[0].returncode}: "
+             f"{err[-2000:]}")
+    return json.loads(out.strip().splitlines()[-1])
 
 
 def _launched(torch, run):
@@ -3691,28 +3829,36 @@ def _launched(torch, run):
     return out, ops.kernel_launches()
 
 
-def mfu_runs(torch, card):
+def mfu_runs(torch, card, prep):
     """Phase 19 (a): MFU_ROWS through ``cli.perf.run`` graphed: finite
     losses, exact launches, 0 < mfu <= 1 against a matched peak, the
-    analytic count equal to the count of a fresh CPU build of the row at
-    the same batch, ResNet-50's in the JAX test's range per image.
-    Returns {row: (result, launches)}."""
+    analytic count equal to the count of a fresh build of the row at the
+    same batch (``prep``'s child, on the CPU), ResNet-50's in the JAX
+    test's range per image. Returns {row: (result, launches)}."""
     import math
 
     from bigdl_tpu_torch.cli import perf
 
-    out = {}
+    out, counts = {}, _mfu_counts(prep)
     for name, fused, batch, per_step in MFU_ROWS:
         image = name in perf.IMAGE_CONFIGS
-        res, n = _launched(torch, lambda: perf.run(
-            name, batch=batch, iterations=MFU_ITERS, dtype=torch.bfloat16,
-            warmup=1, fused_bn=fused, inner_steps=MFU_INNER,
-            data_type="random"))
-        steps = (1 + MFU_ITERS) * MFU_INNER
-        model, _ = perf.build_model(name)
-        cpu = perf.step_flops(model, name, batch, torch.bfloat16)
-        del model
-        cpu_gf = round((cpu["matmul"] + cpu["conv"]) / 1e9, 3)
+        linted = name in MFU_LINT_ROWS
+        if linted:  # phase 30 (b): the lint's pre-flight, then the run
+            argv = ["-m", name, "-b", str(batch), "-i", str(MFU_ITERS),
+                    "--innerSteps", str(MFU_INNER), "--dataType", "random",
+                    "--lint", "strict"] + (["--fusedBN", fused] if fused
+                                           else [])
+            res, n = _launched(torch, lambda: perf.main(argv))
+            if not isinstance(res, dict):
+                fail(f"[mfu {name}] --lint strict refused the run: {res}")
+        else:
+            res, n = _launched(torch, lambda: perf.run(
+                name, batch=batch, iterations=MFU_ITERS,
+                dtype=torch.bfloat16, warmup=1, fused_bn=fused,
+                inner_steps=MFU_INNER, data_type="random"))
+        steps = ((2 if linted else 1) + MFU_ITERS) * MFU_INNER
+        res["steps"] = steps
+        cpu_gf = counts[name]
         rate = (f"{res['records_per_second']} images/s" if image else
                 f"{res['tokens_per_second']} tokens/s")
         print(f"[mfu {name}{' --fusedBN ' + fused if fused else ''}] bf16 "
@@ -3722,8 +3868,10 @@ def mfu_runs(torch, card):
               f"{res['mfu']} ({res['mfu_pct']}% of "
               f"{res['peak_flops_assumed']:.4g} FLOP/s, "
               f"{res['peak_flops_device_match']}); launches "
-              f"{ {k: v for k, v in n.items() if v} } over {steps} steps",
-              flush=True)
+              f"{ {k: v for k, v in n.items() if v} } over {steps} steps"
+              + (f"; lint {res['lint']}" if linted else ""), flush=True)
+        if linted and res.get("lint", {}).get("errors") != 0:
+            fail(f"[mfu {name}] the line's lint {res.get('lint')}")
         want = {k: per_step.get(k, 0) * steps for k in n}
         if not all(math.isfinite(v) for v in res["losses"]) or n != want:
             fail(f"[mfu {name}] losses {res['losses']}, launches {n}, "
@@ -3741,7 +3889,36 @@ def mfu_runs(torch, card):
             fail(f"[mfu {name}] {per_image / 1e9:.3f} GF an image")
         out[name] = (res, n)
         torch.cuda.empty_cache()
+    sync_free_step(torch, card)
     return out
+
+
+def sync_free_step(torch, card):
+    """Phase 30 (b): one eager ``resnet50_fba`` step (cli.perf's, batch
+    RESNET_BATCH, bf16) under ``torch.cuda.set_sync_debug_mode("error")``,
+    after a warm-up step: the step the lint found no host sync in makes
+    none on the card."""
+    from bigdl_tpu_torch.cli import perf
+
+    step, model, _, _ = perf.train_step("resnet50_fba", RESNET_BATCH,
+                                        dtype=torch.bfloat16,
+                                        data_type="random")
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = step()
+    except RuntimeError as e:
+        fail(f"[phase 30 (b)] the resnet50_fba step synchronised with the "
+             f"host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"[phase 30 (b)] resnet50_fba bf16 batch {RESNET_BATCH}: one "
+          f"eager step under set_sync_debug_mode('error') made no host "
+          f"sync (loss {float(loss):.4f}) on {card}", flush=True)
+    del step, model
+    torch.cuda.empty_cache()
 
 
 def policy_runs(torch, card):
@@ -3771,9 +3948,11 @@ def policy_runs(torch, card):
               f"{card}: graphed {graphed['records_per_second']} images/s "
               f"(eager {eager['records_per_second']}); conv_layouts "
               f"{graphed.get('conv_layouts')}; first losses "
-              f"{[round(v, 4) for v in el[:3]]}; graphed at steps 4, 8 "
+              f"{[round(v, 4) for v in el[:3]]}; graphed at steps "
+              f"{POLICY_STEPS // 2}, {POLICY_STEPS} "
               f"{[round(v, 4) for v in gl[:2]]} vs eager "
-              f"{[round(el[3], 4), round(el[7], 4)]}", flush=True)
+              f"{[round(el[POLICY_STEPS // 2 - 1], 4), round(el[-1], 4)]}",
+              flush=True)
         half = POLICY_STEPS // 2
         for n, steps in ((n_e, POLICY_STEPS), (n_g, 3 * half)):
             want = {k: per_step * steps if k in ("bn_fwd_apply",
@@ -3884,17 +4063,27 @@ def s2d_runs(torch, card):
     return (rates[-1] if rates else 0.0), n
 
 
-def tta_runs(torch, card):
+def tta_runs(torch, card, prep):
     """Phase 19 (d): ``cli.perf --timeToAcc`` on resnet20_cifar, the easy
-    grade (gated: reached, rising wall_s) and the hard one (printed).
-    Returns (results, launches)."""
+    grade (gated: reached, rising wall_s; its data written by the
+    harness) and the hard one (printed; its shards ``prep``'s, given as
+    ``--data record:DIR``). Returns (results, launches)."""
     import contextlib
     import io
+    import shutil
 
     from bigdl_tpu_torch.cli import perf
 
+    _, th, tmp, state = prep
+    th.join()
+    if "error" in state:
+        fail(f"[tta hard] writing its shards: {state['error']}")
+    print(f"[tta hard] {sum(TTA_HARD_PER_CLASS) * 10} images written as "
+          f"record shards in {state['s']:.1f}s beside phase 18",
+          flush=True)
+    hard = TTA_HARD + ["--data", "record:" + os.path.join(tmp, "shards")]
     out, launches = {}, []
-    for tag, argv in (("easy", TTA_EASY), ("hard", TTA_HARD)):
+    for tag, argv in (("easy", TTA_EASY), ("hard", hard)):
         buf = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
@@ -3914,23 +4103,30 @@ def tta_runs(torch, card):
             fail(f"[tta easy] reached {res['reached']}, curve {curve}")
         out[tag] = res
         launches.append(n)
+    shutil.rmtree(tmp, ignore_errors=True)
     return out, launches
 
 
-def resnet_slice_runs(torch, card):
+def resnet_slice_runs(torch, card, prep):
     """Phase 19: MFU, the conv layout policy, the s2d stem, time to
-    accuracy. Returns (rows, launches)."""
+    accuracy; ``prep`` is :func:`slice_prep_start`'s handle. Returns
+    (rows, launches)."""
     t0 = time.perf_counter()
-    mfu = mfu_runs(torch, card)
+    mfu = mfu_runs(torch, card, prep)
     policy_rows, launches = policy_runs(torch, card)
     s2d_rate, s2d_n = s2d_runs(torch, card)
-    tta, tta_n = tta_runs(torch, card)
+    tta, tta_n = tta_runs(torch, card, prep)
     print(f"[phase 19] {time.perf_counter() - t0:.1f}s", flush=True)
+    linted = {k: {"launches_a_step": {m: v // r["steps"]
+                                      for m, v in n.items() if v},
+                  "lint": r["lint"]}
+              for k, (r, n) in mfu.items() if k in MFU_LINT_ROWS}
     rows = {f"mfu {k}": r for k, (r, _) in mfu.items()}
     rows.update({f"policy {k}": r for k, r in policy_rows.items()})
     rows["s2d cli"] = s2d_rate
     rows.update({f"tta {k}": r for k, r in tta.items()})
-    return rows, [n for _, n in mfu.values()] + launches + [s2d_n] + tta_n
+    return (rows, [n for _, n in mfu.values()] + launches + [s2d_n]
+            + tta_n, linted)
 
 
 def _cifar_dp_step(torch, strategy, grad_compress=None):
@@ -6931,11 +7127,13 @@ def _tp_prompts():
 
 def tp_serve_worker(args):
     """Phase 26 (a) on one rank of a 2-rank gloo job: ``serve MODEL
-    --strategy tp:2`` through ``cli.serve.build_app``, f32 then bf16, the
-    embedding scaled by 0.02 as phase 6 does. Rank 0 answers the greedy
-    /generate of each prompt (f32) and the /predict forward of 2 rows
-    (bf16, saved beside the job); rank 1 follows. Returns each run's
-    kernel launches on this rank and the geometry its attention ran at."""
+    --strategy tp:2`` through ``cli.serve.build_app``, f32 (with ``--lint
+    strict``: phase 30 (c)) then bf16, the embedding scaled by 0.02 as
+    phase 6 does. Rank 0 answers the greedy /generate of each prompt
+    (f32) and the /predict forward of 2 rows (bf16, saved beside the
+    job); rank 1 follows. Returns each run's kernel launches on this rank,
+    the geometry its attention ran at and, on rank 0, the lint's vetted
+    mesh and error count."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -6954,11 +7152,15 @@ def tp_serve_worker(args):
         tag = "bf16" if bf16 else "f32"
         argv = [MODEL, "--randomInit", "--slots", "4", "--buckets", "1,2",
                 "--no-warmup", "--strategy", "tp:2"] + (
-                    ["--bf16"] if bf16 else [])
+                    ["--bf16"] if bf16 else ["--lint", "strict"])
         t0 = time.perf_counter()
         app = serve_cli.build_app(serve_cli.build_parser().parse_args(
             argv))[0]
         model = app.decoder.model
+        lint = {}
+        if not bf16 and not getattr(app, "follower", False):
+            lint = {"lint_mesh": app.metrics._provenance.get("lint_mesh"),
+                    "lint_errors": app.engine.lint_annotation["errors"]}
         with torch.no_grad():
             model.emb.weight.mul_(0.02)
         mha = model.encoder[0].mha
@@ -6992,7 +7194,7 @@ def tp_serve_worker(args):
                     "heads": mha.num_heads, "kv_heads": mha.num_kv_heads,
                     "head_dim": mha.head_dim, "calls": calls,
                     "build_s": round(build_s, 1),
-                    "run_s": round(time.perf_counter() - t0, 1)}
+                    "run_s": round(time.perf_counter() - t0, 1), **lint}
         del app, model
         torch.cuda.empty_cache()
     out.update(tp_image_serve(args))
@@ -7377,6 +7579,14 @@ def tp_runs(torch, card, state=None):
                     or g["head_dim"] != 128:
                 fail(f"[phase 26 (a) rank {rr['rank']} {tag}] {g}")
             launches.append(g["launches"])
+    lead = [rr["f32"] for rr in res if rr["rank"] == 0][0]
+    print(f"[phase 30 (c)] serve {MODEL} --strategy tp:2 --lint strict "
+          f"(phase 26 (a)'s f32 job) on {card}: started and served; "
+          f"lint_mesh {lead.get('lint_mesh')!r}, the forward's lint "
+          f"errors {lead.get('lint_errors')}", flush=True)
+    if lead.get("lint_mesh") != "model:2" or lead.get("lint_errors") != 0:
+        fail(f"[phase 30 (c)] rank 0's lint stamp {lead}")
+    rows["(a) lint_mesh"] = lead["lint_mesh"]
     same = res[0]["tokens"] == ref_tokens
     print(f"[phase 26 (a)] f32 greedy /generate of {len(prompts)} prompts "
           f"(lengths {list(PROMPT_LENS)}, {MAX_NEW} new tokens) equal one "
@@ -8038,6 +8248,176 @@ def obs_runs(torch, card):
     return rows, launches
 
 
+# ------------------------------------------------------------------ phase 30
+# the lint (bigdl_tpu_torch.analysis, cli/lint.py) on the card's machine.
+# (a)'s lint CLI runs, in one child process through cli.main (JSON files
+# read back): the rule set the JAX CLI's `lint resnet50` gives, less the
+# stated differences (every BN shape takes the kernels; a 0-d f32 constant
+# does not promote) plus the in-place update
+LINT_R50_RULES = {"fusion-bn-unfused", "dtype-upcast", "fusion-conv-gemm",
+                  "layout-c128", "donate-ok"}
+LINT_CASES = (
+    ("resnet50", ["resnet50", "-b", "128"]),
+    ("resnet50 tuned", ["resnet50", "-b", "128", "--fusedBN", "apply",
+                        "--convLayout", "GEMM,GEMM,GEMM"]),
+    ("flagship", [MODEL, "--strategy", "tp:2", "--gradCompress", "bf16",
+                  "--quantize", "int8+kv8", "--kvPageTokens", "128",
+                  "--speculate", "4", "--strict"]),
+    # argument-side trees past the card's memory: the rule reads the
+    # card's total_memory
+    ("hbm", ["resnet50", "-b", "300000", "--no-trace"]),
+)
+# the mis-sharded tp:3 LM of the JAX package's shardlint test, as its own
+# `python -m bigdl_tpu_torch.cli.main lint` process: exit code 2
+LINT_MISSHARDED = ["transformer_lm", "--strategy", "tp:3", "--strict"]
+# (b)'s rows: the kernel sites one traced step records, against the
+# launches phase 19 counted a step
+LINT_SITE_ROWS = (("resnet50_fba", 128), (MODEL, 8))
+
+
+def lint_child(workdir):
+    """Phase 30 (a), in a child process: LINT_CASES through ``cli.main
+    lint``, each with ``--json``, then LINT_SITE_ROWS' kernel sites of one
+    traced step (``analysis.trace_train_step`` on a meta build). Prints
+    one JSON object: each case's exit code, seconds and report; each
+    row's sites by kernel; this process's kernel launches (none)."""
+    import contextlib
+    import io
+    from collections import Counter
+
+    import torch
+
+    from bigdl_tpu_torch import analysis, ops
+    from bigdl_tpu_torch.analysis import fx_walk
+    from bigdl_tpu_torch.cli import main as cli_main
+    from bigdl_tpu_torch.cli import perf
+
+    out = {"cases": {}, "sites": {}}
+    for tag, argv in LINT_CASES:
+        path = os.path.join(workdir, tag.replace(" ", "_") + ".json")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli_main.main(["lint"] + argv + ["--json", path])
+        with open(path) as f:
+            out["cases"][tag] = {"rc": rc, "report": json.load(f),
+                                 "s": round(time.perf_counter() - t0, 1)}
+    for name, batch in LINT_SITE_ROWS:
+        t0 = time.perf_counter()
+        with torch.device("meta"):
+            model, in_shape = perf.build_model(name)
+        graph = analysis.trace_train_step(
+            model, in_shape, batch, is_lm=name in perf.LM_CONFIGS)
+        out["sites"][name] = dict(Counter(
+            s.kernel for s in fx_walk.kernel_sites(graph)))
+        out["sites"][name + " s"] = round(time.perf_counter() - t0, 1)
+    out["launches"] = ops.kernel_launches()
+    print(json.dumps(out), flush=True)
+
+
+def lint_start():
+    """Phase 30 (a), started beside phase 27: :func:`lint_child` and the
+    mis-sharded ``python -m bigdl_tpu_torch.cli.main lint`` process, each
+    on a thread (the lint traces on the CPU). Returns the handle
+    :func:`lint_finish` takes."""
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="phase30_")
+    env = dict(os.environ, PYTHONPATH=here)
+    state = {"t0": time.perf_counter()}
+
+    def run(key, argv):
+        t0 = time.perf_counter()
+        try:
+            state[key] = subprocess.run(argv, capture_output=True,
+                                        text=True, env=env, cwd=here,
+                                        timeout=900)
+        except BaseException as e:  # reported by lint_finish
+            state[key + " error"] = repr(e)
+        state[key + " s"] = round(time.perf_counter() - t0, 1)
+
+    threads = [threading.Thread(target=run, args=a, daemon=True) for a in (
+        ("child", [sys.executable, "-c",
+                   f"import chip_smoke; chip_smoke.lint_child({tmp!r})"]),
+        ("missharded", [sys.executable, "-m", "bigdl_tpu_torch.cli.main",
+                        "lint"] + LINT_MISSHARDED))]
+    for t in threads:
+        t.start()
+    return threads, state, tmp
+
+
+def lint_finish(torch, card, handle, linted):
+    """Phase 30 (a) and (b)'s sites, checked: the resnet50 rule set, the
+    tuned config free of fusion findings, the flagship tp:2 config and
+    the hbm case's rule reading the card's total_memory, the tp:3 process
+    exiting 2 on shard rules, no launch in the lint's process, and each
+    of ``linted``'s rows (phase 19's launches a step and its line's
+    ``lint``) launching what the lint's trace recorded a step. Returns
+    rows."""
+    import shutil
+
+    threads, state, tmp = handle
+    t_wait = time.perf_counter()
+    for t in threads:
+        t.join()
+    wait = time.perf_counter() - t_wait
+    shutil.rmtree(tmp, ignore_errors=True)
+    for key in ("child", "missharded"):
+        if key + " error" in state:
+            fail(f"[phase 30 (a)] {key}: {state[key + ' error']}")
+    child = state["child"]
+    if child.returncode != 0:
+        fail(f"[phase 30 (a)] the lint process exited {child.returncode}: "
+             f"{child.stderr[-3000:]}")
+    res = json.loads(child.stdout.strip().splitlines()[-1])
+    cases = res["cases"]
+    for tag, c in cases.items():
+        rules = sorted({f["rule"] for f in c["report"]["findings"]})
+        print(f"[phase 30 (a)] lint {' '.join(dict(LINT_CASES)[tag])}: rc "
+              f"{c['rc']}, {c['report']['summary']}, {c['s']}s on the CPU "
+              f"beside phase 27 ({card}): {rules}", flush=True)
+    r50 = {f["rule"] for f in cases["resnet50"]["report"]["findings"]}
+    tuned = cases["resnet50 tuned"]["report"]
+    if r50 != LINT_R50_RULES or cases["resnet50"]["rc"] != 0:
+        fail(f"[phase 30 (a)] resnet50's rules {sorted(r50)}, expected "
+             f"{sorted(LINT_R50_RULES)}")
+    if tuned["summary"]["errors"] or any(
+            f["family"] == "fusion" for f in tuned["findings"]):
+        fail(f"[phase 30 (a)] the tuned resnet50 config: {tuned}")
+    if cases["flagship"]["rc"] != 0:
+        fail(f"[phase 30 (a)] the flagship tp:2 config exited "
+             f"{cases['flagship']['rc']}: {cases['flagship']['report']}")
+    hbm = [f for f in cases["hbm"]["report"]["findings"]
+           if f["rule"] == "hbm-oversubscribed"]
+    total = torch.cuda.get_device_properties(0).total_memory
+    if not hbm or hbm[0]["detail"]["hbm_bytes"] != total:
+        fail(f"[phase 30 (a)] hbm: {hbm}, the card's total_memory {total}")
+    mis = state["missharded"]
+    print(f"[phase 30 (a)] python -m bigdl_tpu_torch.cli.main lint "
+          f"{' '.join(LINT_MISSHARDED)}: exit code {mis.returncode}, "
+          f"{state['missharded s']}s; the hbm rule read total_memory "
+          f"{total} bytes of {card}", flush=True)
+    if mis.returncode != 2 or "shard-" not in mis.stdout:
+        fail(f"[phase 30 (a)] the tp:3 lint exited {mis.returncode}: "
+             f"{mis.stdout[-2000:]} {mis.stderr[-2000:]}")
+    if any(res["launches"].values()):
+        fail(f"[phase 30 (a)] the lint's process launched {res['launches']}")
+    for name, _ in LINT_SITE_ROWS:
+        sites, got = res["sites"][name], linted[name]["launches_a_step"]
+        print(f"[phase 30 (b)] {name}: kernel sites a traced step {sites} "
+              f"({res['sites'][name + ' s']}s); launches a step on the card "
+              f"{got} (phase 19, its pre-flight's lint "
+              f"{linted[name]['lint']}) ({card})", flush=True)
+        if sites != got:
+            fail(f"[phase 30 (b)] {name}: the lint recorded {sites} a "
+                 f"step, the card launched {got}")
+    print(f"[phase 30] (a) beside phase 27: {state['child s']}s and "
+          f"{state['missharded s']}s, waited {wait:.1f}s in line", flush=True)
+    return {"(a) lint process s": state["child s"],
+            "(a) tp:3 process s": state["missharded s"],
+            "(a) wait in line s": round(wait, 1)}
+
+
 # ------------------------------------------------------------------ phase 29
 # predict and batch-predict: bulk scoring over record shards of seeded
 # JPEGs, kill and resume, image tp serving, the provenance core
@@ -8371,7 +8751,7 @@ TIMED_PHASES = ("check_flash", "check_flash_bwd", "check_bn", "train_run",
                 "inception_runs", "resnet_slice_runs", "dp_runs", "rnn_runs",
                 "attention_slice_runs", "serving_front_runs", "tuning_runs",
                 "recovery_runs", "tp_runs", "spe_runs", "obs_runs",
-                "bulk_runs")
+                "bulk_runs", "lint_finish")
 
 
 def _time_phases(names=TIMED_PHASES):
@@ -8492,9 +8872,12 @@ def main():
     for n in pipe_n:
         for name in launches:
             launches[name] += n[name]
+    caffe = caffe_start()  # phase 18's caffemodel, beside 17
     base_rows, base_n, _ = baseline_runs(torch, card)
-    inc_rows, inc_n, _ = inception_runs(torch, card)
-    slice_rows, slice_n = resnet_slice_runs(torch, card)
+    slice_prep = slice_prep_start()  # phase 19's CPU work, beside 18
+    inc_rows, inc_n, _ = inception_runs(torch, card, caffe)
+    slice_rows, slice_n, linted = resnet_slice_runs(torch, card,
+                                                    slice_prep)
     dp_rows, dp_n = dp_runs(torch, card, train["losses"])
     rnn_rows = rnn_runs(torch, card)
     attn_rows, attn_n, _ = attention_slice_runs(torch, card)
@@ -8508,9 +8891,11 @@ def main():
     # phase 29's data and its killed child, beside phase 27
     bulk_started = bulk_start()
     # phase 27's paths (the ring, dense attention, the MoE) run no kernel
+    lint_started = lint_start()  # phase 30 (a)'s lint processes
     spe_rows = spe_runs(torch, card)
     obs_rows, obs_n = obs_runs(torch, card)
     bulk_rows, bulk_n = bulk_runs(torch, card, bulk_started, tp_started)
+    lint_rows = lint_finish(torch, card, lint_started, linted)
     for n in (base_n + inc_n + slice_n + dp_n + attn_n + tune_n + rec_n
               + obs_n + bulk_n):
         for name in launches:
@@ -8572,6 +8957,8 @@ def main():
         print(f"[phase 28] {tag} on {card}: {r}", flush=True)
     for tag, r in bulk_rows.items():
         print(f"[phase 29] {tag} on {card}: {r}", flush=True)
+    for tag, r in lint_rows.items():
+        print(f"[phase 30] {tag} on {card}: {r}", flush=True)
 
     head, bwd = rows[0], bwd_rows[0]  # the training step's 8 x 8 x 1024^2
     common = {"route": "cuda", "check": "pass", "shape": head["shape"],

@@ -207,11 +207,19 @@ def test_resolve_serve_config_and_refusals():
     for argv, msg in ((["--fleet", "-1"], "--fleet -1"),
                       (["--speculate", "-2"], "--speculate -2"),
                       (["--fleet", "2", "--strategy", "tp:2"],
-                       "--strategy: .*entry 13"),
-                      (["--lint", "strict"], "--lint: .*entry 16")):
+                       "--strategy: .*entry 13")):
         with pytest.raises(SystemExit, match=msg):
             common.resolve_serve_config(p.parse_args(["transformer_lm"]
                                                      + argv))
+    # --lint (once refused, queue 1 entry 16) is resolved with the rest,
+    # and a fleet passes it to its workers
+    for argv, mode in (([], None), (["--lint"], "on"),
+                       (["--lint", "strict"], "strict")):
+        assert common.resolve_serve_config(p.parse_args(
+            ["transformer_lm"] + argv)).lint_mode == mode
+    assert router.worker_base_argv(["transformer_lm", "--fleet", "2",
+                                    "--lint", "strict"]) == \
+        ["transformer_lm", "--lint", "strict"]
     # serve's --strategy resolves as the JAX package's (abstractly, over
     # its 8 virtual devices, in a router that imports no torch)
     from bigdl_tpu.cli.common import parse_serving_strategy as jax_parse

@@ -131,6 +131,29 @@ def test_the_obs_modules_are_walked_and_import_no_jax():
     assert not [f.name for f in files if pat.search(f.read_text())]
 
 
+def test_the_analysis_modules_are_walked_and_import_no_jax():
+    """The lint (analysis/: the report, the FX walk, the rules and the
+    shard rules; cli/lint.py; the kernel-site recorder) is among the
+    modules the import check walks, and none of its files imports jax or
+    the JAX package."""
+    import pkgutil
+
+    import bigdl_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(bigdl_tpu_torch.__path__,
+                                                   "bigdl_tpu_torch.")}
+    want = {f"bigdl_tpu_torch.analysis.{m}" for m in (
+        "report", "fx_walk", "rules", "sharding_rules")} | {
+            "bigdl_tpu_torch.analysis", "bigdl_tpu_torch.cli.lint",
+            "bigdl_tpu_torch.ops.lint_sites"}
+    assert want <= names
+    pat = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|bigdl_tpu)"
+                     r"(?:\.|\s|$|,)", re.MULTILINE)
+    files = sorted((PORT / "analysis").rglob("*.py"))
+    assert len(files) == 5
+    files += [PORT / "cli" / "lint.py", PORT / "ops" / "lint_sites.py"]
+    assert not [f.name for f in files if pat.search(f.read_text())]
+
+
 def test_the_cli_utils_slice_is_walked_and_runs_on_cuda(tmp_path):
     """predict, batch-predict, the bulk sink, provenance, Classifier,
     profiling and summary are among the modules the import check walks,

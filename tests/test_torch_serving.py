@@ -425,6 +425,19 @@ def test_serve_http_429_on_full_queue(lm_pair):
         _stop(srv, thr, app)
 
 
+class _DequantUpcast(torch.nn.Module):
+    """A forward that multiplies an upcast bf16 activation by an f32 copy
+    of an int8 weight (the lint's quant-dequant-upcast error)."""
+
+    def __init__(self):
+        super().__init__()
+        self.register_buffer("q", torch.ones(64, 16, dtype=torch.int8))
+        self.register_buffer("s", torch.ones(16))
+
+    def forward(self, x):
+        return x.to(torch.bfloat16).float() @ (self.q.float() * self.s)
+
+
 def test_serve_cli_refuses_what_is_not_ported():
     p = serve_cli.build_parser()
     for argv, msg in (
@@ -433,8 +446,6 @@ def test_serve_cli_refuses_what_is_not_ported():
             (["transformer_lm", "--randomInit", "--platform", "cpu",
               "--strategy", "dp:2", "--devices", "cpu"],
              "needs 2 devices"),
-            (["transformer_lm", "--randomInit", "--lint", "strict"],
-             "--lint: .*queue 1 entry 16"),
             (["transformer_lm", "--randomInit", "--slo", "ttft_p99=1"],
              "--slo 'ttft_p99=1': unknown SLO dim"),
             (["transformer_lm", "--randomInit", "--platform", "cpu",
@@ -457,6 +468,17 @@ def test_serve_cli_refuses_what_is_not_ported():
     assert serve_cli._page_tokens("auto", 1024) == 128
     assert serve_cli._page_tokens("auto", 96) == 32
     assert serve_cli._page_tokens("auto", 100) is None
+    # --lint is ported (it was refused, queue 1 entry 16): strict refuses
+    # to serve a model whose forward the lint finds an error in (an f32
+    # product of a dequantized weight and an upcast bf16 activation)
+    args = p.parse_args(["lenet5", "--randomInit", "--platform", "cpu",
+                         "--lint", "strict"])
+    assert args.lint == "strict"
+    engine = InferenceEngine(
+        _DequantUpcast(), buckets=(1, 2), device="cpu", graphs=False,
+        lint="strict")
+    assert engine.preflight_lint((64,), np.float32) == 2
+    assert engine.lint_annotation["errors"] == 1
 
 
 def test_serve_jax_checkpoint_paged_with_prefix_cache(tmp_path):

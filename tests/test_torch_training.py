@@ -449,8 +449,9 @@ def test_transformerlm_cli_refuses_what_is_not_ported(tmp_path, capsys):
     """--strategy dp and tp are taken (one process exits naming torchrun,
     as the JAX CLI names XLA_FLAGS; the deprecated --dataParallel is a
     no-op there), --elastic without dp or with another strategy exits with
-    the JAX messages, and a flag of a feature the port does not have is
-    refused (--lint, queue 1 entry 16)."""
+    the JAX messages, and --lint (refused until the lint was ported, queue
+    1 entry 16) runs the pre-flight of the Optimizer's step before it
+    trains; an unknown flag exits as argparse does."""
     _corpus(tmp_path)
     base = ["train", "-f", str(tmp_path), "--platform", "cpu"]
     small = ["--dModel", "16", "--numLayers", "1", "--numHeads", "2",
@@ -464,12 +465,14 @@ def test_transformerlm_cli_refuses_what_is_not_ported(tmp_path, capsys):
             lm_cli.main(base + small + extra)
     assert lm_cli.main(base + small + ["--dataParallel"]).module is not None
     capsys.readouterr()
+    assert lm_cli.main(base + small + ["--lint", "strict"]).module \
+        is not None
+    out = capsys.readouterr().out
+    assert "lint: 0 error(s)" in out and "donate-ok" in out
     with pytest.raises(SystemExit) as e:
-        lm_cli.main(base + ["--lint", "strict"])
+        lm_cli.main(base + ["--lintt"])
     assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "unrecognized arguments: --lint strict" in err
-    assert "ROADMAP.md" in err
+    assert "unrecognized arguments: --lintt" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         lm_cli.main(base + ["--optimMethod", "lbfgs"])
     assert "invalid choice: 'lbfgs'" in capsys.readouterr().err
