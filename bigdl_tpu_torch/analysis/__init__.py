@@ -33,9 +33,10 @@ Findings: :class:`~bigdl_tpu_torch.analysis.report.Finding` /
 severities is :data:`bigdl_tpu_torch.analysis.rules.CATALOG`, and the
 stated differences from the JAX rules are in ``rules.py``,
 ``sharding_rules.py`` and ``fx_walk.py``. The strategies the port traces
-over a mesh are dp and tp; sp, pp and ep compose inside the perf
-harness and are reported as not traced, as the JAX lint reports pp and
-ep.
+over a mesh are dp, tp and sp (an LM's ring attention, whose hops are the
+traced ``c10d.send``/``c10d.recv_`` pairs over the ``seq`` line); pp and
+ep compose inside the perf harness and are reported as not traced, as in
+the JAX lint.
 """
 
 from __future__ import annotations
@@ -217,8 +218,13 @@ def trace_sharded_train_step(model, in_shape, batch, *, mesh_axes,
     The strategy is the one the run would build: a ``TensorParallel``
     (Megatron specs, with their divisibility fallbacks, so a misfitting tp
     degree shows here as it would on the cards) when a ``model`` axis >
-    1, else a ``DataParallel``, with ``grad_comm``'s buckets; the batch is
-    the global one, of which the strategy gives rank 0 its part. The mesh
+    1; for an LM with a ``seq`` axis > 1 a ``SequenceParallel``, its
+    attention the ring over that axis (``cli.perf --strategy sp``: no
+    layer remat) and its batch split over ``data`` and ``seq``; else a
+    ``DataParallel`` over ``data`` (a model that is not an LM splits its
+    batch over ``data`` alone, the JAX ``seq_axis`` rule); each with
+    ``grad_comm``'s buckets. The batch is the global one, of which the
+    strategy gives rank 0 its part. The mesh
     is built over a fake process group of the mesh's size
     (``fx_walk.fake_world``; nothing is sent), or is ``mesh`` (a job's
     own, whose collectives on fake tensors send nothing either). ``params``
@@ -226,7 +232,8 @@ def trace_sharded_train_step(model, in_shape, batch, *, mesh_axes,
     from bigdl_tpu_torch.analysis import fx_walk
     from bigdl_tpu_torch.interop.checkpoint import model_tensors
     from bigdl_tpu_torch.optim import SGD
-    from bigdl_tpu_torch.parallel import DataParallel, make_mesh
+    from bigdl_tpu_torch.parallel import (DataParallel, SequenceParallel,
+                                          install_ring_attention, make_mesh)
     from bigdl_tpu_torch.parallel.tensor_parallel import (TensorParallel,
                                                           megatron_specs,
                                                           param_tree,
@@ -244,8 +251,13 @@ def trace_sharded_train_step(model, in_shape, batch, *, mesh_axes,
     opt = SGD(learning_rate=0.01, momentum=0.9)
     with fx_walk.fake_world(math.prod(axes.values())):
         mesh = mesh if mesh is not None else make_mesh(axes)
-        strat = (TensorParallel(mesh, clone, grad_comm=grad_comm) if k > 1
-                 else DataParallel(mesh, grad_comm=grad_comm))
+        if k > 1:
+            strat = TensorParallel(mesh, clone, grad_comm=grad_comm)
+        elif axes.get("seq", 1) > 1 and is_lm:
+            strat = SequenceParallel(mesh, grad_comm=grad_comm)
+            install_ring_attention(clone, mesh)
+        else:
+            strat = DataParallel(mesh, grad_comm=grad_comm)
         mode = fx_walk.fake_mode()
         x, y = _inputs(in_shape, batch, dtype, is_lm)
         with mode:
@@ -437,7 +449,7 @@ def lint_config(cfg, mesh=None) -> Report:
     (``cli.common.ResolvedConfig``, the one object the lint CLI and every
     pre-flight hand over): the single-device pass
     (:func:`lint_perf_model`), the sharded train step when ``--strategy``
-    declares a dp or tp mesh (shardlint, rank 0's step over a fake
+    declares a dp, tp or sp mesh (shardlint, rank 0's step over a fake
     process group of the mesh's size, or over ``mesh``, a job's own), and
     the serving decode surface when ``--quantize``/``--speculate``/
     ``--kvPageTokens`` ask for one."""
@@ -456,7 +468,7 @@ def lint_config(cfg, mesh=None) -> Report:
     grad_comm = cfg.make_grad_comm()
 
     # ------------------------------------------- sharded training step
-    if cfg.trace and axes and cfg.strategy in ("dp", "tp"):
+    if cfg.trace and axes and cfg.strategy in ("dp", "tp", "sp"):
         from bigdl_tpu_torch.cli.common import apply_fused_bn
 
         model, in_shape = _build(cfg.model, cfg.classes, cfg.seq)
@@ -474,12 +486,12 @@ def lint_config(cfg, mesh=None) -> Report:
                                param_specs=meta["param_specs"],
                                params=meta["params"], context="train",
                                report=report)
-    elif cfg.strategy in ("sp", "pp", "ep"):
+    elif cfg.strategy in ("pp", "ep"):
         report.add(Finding(
             rule="lint-trace-error", family="meta", severity="info",
-            message=f"--strategy {cfg.strategy}: the ring/staged/expert "
-                    "step composes inside the perf harness; shardlint "
-                    "traces dp/tp step graphs",
+            message=f"--strategy {cfg.strategy}: the staged/expert step "
+                    "composes inside the perf harness; shardlint traces "
+                    "dp/tp/sp step graphs",
             hint="the config-level comm rules above still apply"))
 
     # ------------------------------------------- serving decode surface

@@ -344,7 +344,7 @@ def mesh_groups(mesh) -> Dict[str, Tuple[str, ...]]:
         name = group.group_name if group is not None else whole
         out[name] = out.get(name, ()) + (axis,)
     wide = tuple(a for a, s in mesh.shape.items() if s > 1)
-    if len(wide) > 1:
+    if wide:  # one wide axis: the whole mesh is that axis's line
         out.setdefault(whole, wide)
     return out
 

@@ -35,7 +35,10 @@ Stated differences: the serving context allows collectives over the
 ``model`` axis (the port's tp engine writes Megatron's all-reduces out,
 where a jitted JAX decode step carries none); a KV leaf is checked for
 divisibility only (the port's caches are per-rank tensors, with no
-committed sharding to read).
+committed sharding to read); the ``seq`` axis replicates parameters by
+design, as ``data`` does, so the replicated-operand rule leaves it out
+(the JAX rule counts it model-ish, and would flag every >= 1 MiB weight
+of an sp step).
 """
 
 from __future__ import annotations
@@ -59,9 +62,10 @@ __all__ = ["SHARD_CATALOG", "SHARD_MIN_BYTES", "expected_collective_axes",
 # the comm f32 rule's bar)
 SHARD_MIN_BYTES = 1 * 2 ** 20
 
-# mesh axes that replicate params by design (dp batch axes): the
-# replicated-operand rule only fires for the model-ish axes
-_DATA_AXES = ("data", "batch")
+# mesh axes that replicate params by design (dp batch axes, and sp's
+# sequence axis): the replicated-operand rule only fires for the
+# model-ish axes
+_DATA_AXES = ("data", "batch", "seq")
 
 # the collective signature each strategy plans
 _EXPECTED_AXES = {

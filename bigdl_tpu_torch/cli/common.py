@@ -7,9 +7,9 @@ one parse of the serving flags (:func:`resolve_serve_config`) and the
 ``--faultPlan`` install; recovery (``--supervise``, ``--faultPlan``,
 ``--elastic``, ``--minDevices``: :func:`run_optimize`); observability
 (``--obs``, ``--traceDir``, ``--traceSteps``, ``--metricsPort``:
-:func:`install_observability`). Flags of features
-the port does not have yet are not parsed, so argparse refuses them; the
-strategies other than dp are parsed and refused by name.
+:func:`install_observability`). The training CLIs take ``--strategy dp``
+and ``tp``, and exit with the JAX text for sp, pp and ep, which
+``cli.perf`` takes (:func:`build_strategy`).
 
 Data parallelism runs one process a GPU: ``torchrun --nproc_per_node N
 -m bigdl_tpu_torch.cli.resnet train ... --strategy dp``, or on the CPU N
@@ -1032,8 +1032,8 @@ def resolve_serve_config(args, *, n_devices: Optional[int] = None
     """Resolve the serve/fleet flags once: check ``--strategy`` (over
     ``n_devices``, or abstractly), ``--quantize``, ``--speculate`` and
     ``--fleet``, and record ``--lint``. Pure Python: the fleet router
-    calls this before any worker boots and imports no torch. A fleet
-    whose workers take ``--strategy`` exits by name."""
+    calls this before any worker boots, and hands ``--strategy`` to every
+    worker; it imports no torch."""
     spec = getattr(args, "strategy", None)
     n = (int(n_devices) if n_devices is not None
          else _virtual_serving_devices(spec))
@@ -1051,12 +1051,6 @@ def resolve_serve_config(args, *, n_devices: Optional[int] = None
     fleet = int(getattr(args, "fleet", 0) or 0)
     if fleet < 0:
         raise SystemExit(f"--fleet {fleet}: worker count must be >= 0")
-    if fleet and spec:
-        raise SystemExit(
-            f"--strategy: fleet workers of several devices (--fleet "
-            f"{fleet} --strategy {spec}) are not in the PyTorch port yet "
-            f"(ROADMAP.md queue 1 entry 13(a) leftovers); a fleet worker "
-            f"serves one device")
     return ResolvedConfig(model=getattr(args, "model", None) or "",
                           quantize=quantize, speculate=speculate,
                           serving_replicas=int(replicas),

@@ -10,7 +10,12 @@ and ``--fleet`` defaults to 2 workers::
 
 The router imports no torch; each worker
 (``python -m bigdl_tpu_torch.serving.fleet.worker``) runs on the card
-unless ``--platform cpu`` is given.
+unless ``--platform cpu`` is given, and takes ``--strategy``: ``dp:N``
+is one worker process of N replicas, ``tp:K`` and ``dp:N+tp:K`` a group
+of K rank processes that start, die and restart together::
+
+    python -m bigdl_tpu_torch.cli.fleet transformer_lm_1k_hd128 \
+        --model CKPT --fleet 2 --strategy tp:2 --no-warmup -p 8000
 """
 
 from __future__ import annotations

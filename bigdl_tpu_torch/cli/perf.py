@@ -200,7 +200,7 @@ def build_model(name: str, seq_len: Optional[int] = None,
     ``class_num`` classes (default the row's). For an LM or a ViT row,
     ``kw`` (e.g. ``remat``, ``num_layers``) overrides the row's config;
     an LM's attention is the flash kernels unless ``lm_attn_impl`` names
-    another (``--strategy sp``'s ring)."""
+    another."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     if name in IMAGE_CONFIGS:
@@ -306,22 +306,28 @@ def train_step(model_name: str, batch: int, dtype=torch.bfloat16,
     only) ``batch`` is the global batch: each rank steps on its part of
     the data axis, batch norm takes the global batch's statistics, the
     gradients and the loss are averaged over the data axis and the SGD
-    state is ZeRO-1's; the loss is the global one. ``attn_impl`` replaces
-    an LM's flash attention (``--strategy sp``: the ring, under a
-    ``SequenceParallel`` that gives each rank its block of the tokens;
-    the encoder then runs without layer remat, since a recomputed layer
-    would repeat the ring's hops). ``optim_method`` replaces the SGD."""
+    state is ZeRO-1's; the loss is the global one. Under a
+    ``SequenceParallel`` (``--strategy sp``), which gives each rank its
+    block of the tokens, an LM's attention is the ring and its encoder
+    runs without layer remat (``parallel.install_ring_attention``).
+    ``attn_impl`` replaces an LM's attention (the encoder then runs
+    without layer remat too): a ring of another block size, or one
+    process's reference. ``optim_method`` replaces the SGD."""
     from bigdl_tpu_torch.cli.common import apply_fused_bn
     from bigdl_tpu_torch.core.module import resolve_device, takes_seed
     from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
     from bigdl_tpu_torch.optim import SGD
+    from bigdl_tpu_torch.parallel import (SequenceParallel,
+                                          install_ring_attention)
 
     device = resolve_device(device)
     is_lm = model_name in LM_CONFIGS
     model, in_shape = build_model(model_name, seq_len=seq_len,
                                   lm_attn_impl=attn_impl)
     enc = encoder_of(model)
-    if attn_impl is not None and enc is not None:
+    if attn_impl is None and isinstance(strategy, SequenceParallel):
+        install_ring_attention(model, strategy.mesh)
+    elif attn_impl is not None and enc is not None:
         enc.remat = False
     elif remat and enc is not None:  # else the row's own
         enc.remat = remat
@@ -768,15 +774,14 @@ def run(model_name: str, batch: int = 32, iterations: int = 10,
                 h["step"], h["module"], h["tokens"], h["device"],
                 h["flops"])
         else:
-            attn = None
             if sname == "sp":
-                attn = _sp_attention(strat, model_name, seq_len, remat)
+                _check_sp(strat, model_name, seq_len, remat)
             step, model, tokens, device = train_step(
                 model_name, batch, dtype, device, remat, seq_len, fused_bn,
                 data_type, graph_steps=inner_steps if inner_steps > 1
-                else 0, feed=feed, strategy=strat, attn_impl=attn)
+                else 0, feed=feed, strategy=strat)
             # the ring's ranks count the global step on a plain twin
-            kinds = step_flops(model if attn is None else build_model(
+            kinds = step_flops(model if sname != "sp" else build_model(
                 model_name, seq_len)[0], model_name, batch, dtype, seq_len)
         flops = kinds["matmul"] + kinds["conv"]
         name = (torch.cuda.get_device_name(device) if device.type == "cuda"
@@ -922,12 +927,10 @@ def _perf_strategy(strategy, data_parallel, grad_compress, grad_buckets,
     return (name if strat is not None else None), strat
 
 
-def _sp_attention(strat, model_name: str, seq_len: Optional[int], remat):
-    """The ring attention of ``--strategy sp`` over ``strat``'s mesh;
-    exits for a length the seq axis does not divide (the JAX text) and
-    for ``--remat`` (a recomputed layer would repeat the ring's hops)."""
-    from bigdl_tpu_torch.parallel import make_ring_attention
-
+def _check_sp(strat, model_name: str, seq_len: Optional[int], remat):
+    """Exit, before ``--strategy sp`` builds its ring, for a length the
+    seq axis does not divide (the JAX text) and for ``--remat`` (a
+    recomputed layer would repeat the ring's hops)."""
     seq = int(seq_len or LM_CONFIGS[model_name]["max_len"])
     n_seq = strat.mesh.shape["seq"]
     if seq % n_seq:
@@ -939,7 +942,6 @@ def _sp_attention(strat, model_name: str, seq_len: Optional[int], remat):
                          "remat (a recomputed layer would repeat the "
                          "ring's hops); the ring keeps its own "
                          "sub-block checkpoints")
-    return make_ring_attention(strat.mesh, "seq", batch_axis="data")
 
 
 # (d_model, layers, heads, seq) of the LM rows: the pp and ep harness size

@@ -408,7 +408,7 @@ def build_app(args):
                                                quantize_params, weight_bytes)
     from bigdl_tpu_torch.serving.spec_decode import parse_draft_dims
 
-    cfg = resolve_serve_config(args)  # refuses what is not ported first
+    cfg = resolve_serve_config(args)  # checks the serving flags first
     apply_autotune(args)
     apply_conv_args(args)
     tuning.reset_decisions()

@@ -165,12 +165,7 @@ class MultiHeadAttention(nn.Module):
         elif attn_impl == "blockwise":
             from bigdl_tpu_torch.ops import blockwise_attention
             attn_impl = blockwise_attention
-        self.attn_fn = attn_impl or dot_product_attention
-        try:
-            self._attn_takes_segments = "segments" in inspect.signature(
-                self.attn_fn).parameters
-        except (TypeError, ValueError):
-            self._attn_takes_segments = False
+        self.set_attn_fn(attn_impl or dot_product_attention)
         d, dkv = d_model, self.num_kv_heads * self.head_dim
         g = generator
         self.wq = nn.Parameter(xavier_uniform((d, d), d, d, g))
@@ -181,6 +176,17 @@ class MultiHeadAttention(nn.Module):
         self.bk = nn.Parameter(torch.zeros(dkv))
         self.bv = nn.Parameter(torch.zeros(dkv))
         self.bo = nn.Parameter(torch.zeros(d))
+
+    def set_attn_fn(self, fn: Callable) -> None:
+        """Make ``fn`` the attention (an ``attn_impl``); the packed-row
+        segment ids go to it as ``segments=`` when its signature takes
+        them."""
+        self.attn_fn = fn
+        try:
+            self._attn_takes_segments = "segments" in inspect.signature(
+                fn).parameters
+        except (TypeError, ValueError):
+            self._attn_takes_segments = False
 
     def _split_heads(self, x, n_heads: int):
         b, s, f = x.shape

@@ -22,6 +22,7 @@ from bigdl_tpu_torch.parallel.pipeline import (PipelineStack,
                                                pipeline_forward,
                                                place_pipeline_params)
 from bigdl_tpu_torch.parallel.sequence import (SequenceParallel,
+                                               install_ring_attention,
                                                make_ring_attention,
                                                ring_attention)
 from bigdl_tpu_torch.parallel.tensor_parallel import (TensorParallel,
@@ -35,5 +36,6 @@ __all__ = ["init_distributed", "make_mesh", "make_hybrid_mesh",
            "DEFAULT_BUCKET_BYTES", "GradCommConfig", "BucketPlan",
            "make_grad_comm_config", "build_bucket_plan", "apply_grad_comm",
            "compressed_psum", "ring_attention", "make_ring_attention",
-           "SequenceParallel", "PipelineStack", "pipeline_forward",
-           "place_pipeline_params", "make_pipeline_train_step"]
+           "install_ring_attention", "SequenceParallel", "PipelineStack",
+           "pipeline_forward", "place_pipeline_params",
+           "make_pipeline_train_step"]

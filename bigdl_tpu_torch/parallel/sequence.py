@@ -36,7 +36,7 @@ from bigdl_tpu_torch.parallel.mesh import Mesh
 from bigdl_tpu_torch.parallel.p2p import Shift, shift
 
 __all__ = ["ring_attention", "make_ring_attention", "RingAttention",
-           "SequenceParallel"]
+           "SequenceParallel", "install_ring_attention"]
 
 _NEG_INF = -1e30  # finite mask value: a fully masked block keeps exp()
                   # well-defined (a true -inf would give NaN)
@@ -137,6 +137,27 @@ def make_ring_attention(mesh: Mesh, seq_axis: str = "seq",
     if batch_axis is not None and batch_axis not in mesh.shape:
         raise ValueError(f"mesh {mesh.shape} has no axis {batch_axis!r}")
     return RingAttention(mesh.axis_view(seq_axis), block_k)
+
+
+def install_ring_attention(model: torch.nn.Module, mesh: Mesh,
+                           seq_axis: str = "seq",
+                           batch_axis: Optional[str] = "data"
+                           ) -> RingAttention:
+    """Make every ``MultiHeadAttention`` of ``model`` the ring over
+    ``mesh``'s ``seq_axis`` and run every ``TransformerEncoder`` without
+    layer remat (a recomputed layer would repeat the ring's hops; the ring
+    keeps its own sub-block checkpoints): the step of ``cli.perf
+    --strategy sp``, which shardlint traces too. Returns the ring."""
+    from bigdl_tpu_torch.nn.attention import (MultiHeadAttention,
+                                              TransformerEncoder)
+
+    ring = make_ring_attention(mesh, seq_axis, batch_axis=batch_axis)
+    for m in model.modules():
+        if isinstance(m, MultiHeadAttention):
+            m.set_attn_fn(ring)
+        elif isinstance(m, TransformerEncoder):
+            m.remat = False
+    return ring
 
 
 class SequenceParallel(DataParallel):

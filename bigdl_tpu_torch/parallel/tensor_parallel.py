@@ -381,30 +381,44 @@ def _split_dim(spec, axis: str) -> Optional[int]:
     return spec.index(axis) if axis in spec else None
 
 
+def rank_slice(leaf, dim: int, rank: int, size: int):
+    """Rank ``rank``'s slice of ``size`` along ``dim`` of ``leaf`` (a
+    tensor, or a quantized weight, whose per-column scales split with dim
+    1), as views: the one rule by which a placement (``apply_specs``) and
+    a weight swap (``serving.fleet.swap``) cut a split leaf."""
+    from bigdl_tpu_torch.serving.quant import QuantizedWeight, is_quantized
+
+    full = leaf.shape[dim]
+    if full % size:
+        raise ValueError(f"dim {dim} of {tuple(leaf.shape)} does not split "
+                         f"{size} ways")
+    n = full // size
+    lo = rank * n
+    if is_quantized(leaf):
+        scale = leaf.scale.narrow(0, lo, n) if dim == 1 else leaf.scale
+        return QuantizedWeight(leaf.q.narrow(dim, lo, n), scale, leaf.fmt)
+    return leaf.narrow(dim, lo, n)
+
+
 def _slice_leaf(module, name: str, dim: int, view: Mesh):
     """Replace ``module.<name>`` (a Parameter, or a quantized weight) by
     this rank's slice along ``dim``; returns the leaf's whole size on it."""
     from bigdl_tpu_torch.serving.quant import QuantizedWeight, is_quantized
 
     leaf = getattr(module, name)
-    full = leaf.shape[dim]
-    if full % view.size:
-        raise ValueError(f"{type(module).__name__}.{name}: dim {dim} of "
-                         f"{tuple(leaf.shape)} does not split {view.size} "
-                         f"ways")
-    n = full // view.size
-    lo = view.rank * n
+    try:
+        part = rank_slice(leaf if is_quantized(leaf) else leaf.data, dim,
+                          view.rank, view.size)
+    except ValueError as e:
+        raise ValueError(f"{type(module).__name__}.{name}: {e}") from None
     with torch.no_grad():
         if is_quantized(leaf):
-            scale = (leaf.scale.narrow(0, lo, n).clone() if dim == 1
-                     else leaf.scale)
             setattr(module, name, QuantizedWeight(
-                leaf.q.narrow(dim, lo, n).clone(), scale, leaf.fmt))
+                part.q.clone(), part.scale.clone(), leaf.fmt))
         else:
             setattr(module, name, torch.nn.Parameter(
-                leaf.data.narrow(dim, lo, n).clone(),
-                requires_grad=leaf.requires_grad))
-    return full
+                part.clone(), requires_grad=leaf.requires_grad))
+    return leaf.shape[dim]
 
 
 def apply_specs(module: torch.nn.Module, specs: dict, view: Mesh,

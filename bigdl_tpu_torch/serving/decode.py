@@ -633,6 +633,11 @@ class DecodeEngine:
                 if self._m_expired is not None:
                     self._m_expired.inc()
                 raise DeadlineExceeded("deadline expired before submit")
+            if not self.busy():
+                # the loop last beat when it went idle: the stall clock
+                # starts with this request (its prefill runs under the
+                # lock, where the loop cannot beat)
+                self._last_beat = self.clock()
             slot = self._free_slot()
             if slot is not None and self._install(req, slot):
                 pass

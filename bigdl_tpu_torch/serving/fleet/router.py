@@ -4,7 +4,10 @@ worker processes (``python -m bigdl_tpu_torch.serving.fleet.worker``).
 
 Each worker is the ``serve`` stack in its own process on its own port
 (on one card, K processes share it, each with its own CUDA context,
-graphs and KV pool); this router is all clients see:
+graphs and KV pool), or under ``--strategy tp:K`` a group of K rank
+processes behind one (``fleet.worker.run_group``). Each worker runs in a
+session of its own, and the router takes down its whole process group
+when it dies, restarts or closes. This router is all clients see:
 
 * ``POST /predict`` / ``POST /generate`` — proxied to the routable worker
   with the lowest SLO-burn-weighted queue depth, ``(1 + depth) * (1 + w *
@@ -36,6 +39,7 @@ import json
 import logging
 import os
 import re
+import signal
 import subprocess
 import sys
 import threading
@@ -62,6 +66,15 @@ _ROUTER_FLAGS = {"--fleet": 1, "--port": 1, "-p": 1, "--host": 1,
                  "--model": 1, "--modelVersion": 1,
                  "--fleetHeartbeatS": 1, "--fleetRestartBudget": 1}
 _ROUTER_SWITCHES = {"--randomInit"}
+
+
+def _kill_group(proc, sig=signal.SIGKILL) -> None:
+    """Send ``sig`` to the process group of worker ``proc`` (a session of
+    its own: its tp ranks too), whatever of it is left."""
+    try:
+        os.killpg(proc.pid, sig)
+    except (ProcessLookupError, PermissionError):
+        pass
 
 
 class NoLiveWorker(RuntimeError):
@@ -238,7 +251,8 @@ class FleetRouter:
         h.missed = 0
         h.proc = subprocess.Popen(argv, stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True,
-                                  bufsize=1, env=env)
+                                  bufsize=1, env=env,
+                                  start_new_session=True)
         logger.info("fleet: worker %d spawned pid=%d", h.index,
                     h.proc.pid)
         threading.Thread(target=self._pump, args=(h, h.proc),
@@ -300,9 +314,11 @@ class FleetRouter:
         rc = h.proc.poll()
         if rc is not None:
             if h.state != "dead":
-                # fresh death: record it and schedule the supervised
+                # fresh death: take down what is left of its group (a tp
+                # worker's ranks), record it and schedule the supervised
                 # restart (the fleet keeps serving on the survivors;
                 # /readyz stays 200 while >= 1 worker is routable)
+                _kill_group(h.proc)
                 h.state = "dead"
                 h.status = None
                 h.last_rc = rc
@@ -362,7 +378,7 @@ class FleetRouter:
             self._monitor.join(self.heartbeat_s + 2.0)
         for h in self._handles:
             if h.proc is not None and h.proc.poll() is None:
-                h.proc.terminate()
+                _kill_group(h.proc, signal.SIGTERM)
         deadline = time.monotonic() + 10.0
         for h in self._handles:
             if h.proc is None:
@@ -372,6 +388,7 @@ class FleetRouter:
             except subprocess.TimeoutExpired:
                 h.proc.kill()
                 h.proc.wait(5.0)
+            _kill_group(h.proc)  # any rank its leader left behind
 
     # -------------------------------------------------------------- routing
     def worker_handles(self) -> List[WorkerHandle]:
@@ -734,9 +751,9 @@ class _RouterHandler(BaseHTTPRequestHandler):
 
 def run_fleet(args, argv: List[str]) -> int:
     """``serve --fleet K`` / ``cli.fleet`` entry: resolve the serving
-    config once (``--quantize``, ``--speculate``, ``--fleet``, and the
-    flags still refused) before any worker boots, build the router,
-    serve."""
+    config once (``--strategy``, ``--quantize``, ``--speculate``,
+    ``--fleet``) before any worker boots, build the router, serve; each
+    worker takes ``--strategy`` with the rest of the argv."""
     from bigdl_tpu_torch.cli import common
 
     k = int(args.fleet)
@@ -759,7 +776,7 @@ def run_fleet(args, argv: List[str]) -> int:
             budget=int(getattr(args, "fleetRestartBudget", 8)),
             base_s=0.25, multiplier=2.0, max_s=10.0, jitter=0.5),
         proxy_timeout_s=float(args.timeout) + 30.0,
-        provenance={"strategy": "none",
+        provenance={"strategy": args.strategy or "none",
                     "serving_replicas": cfg.serving_replicas,
                     "serving_tp": cfg.serving_tp,
                     "quantize": cfg.quantize or "off",

@@ -30,7 +30,8 @@ worker, timeout or an injected ``dispatch`` fault 503, engine failure 500;
 every error body is ``{"error": ...}``, and an error before a stream's
 first byte is such a plain response. Under overload ``/generate`` sheds
 first, also while the SLO burn rate is saturated, and ``/predict`` keeps
-admitting. Replicas (``--strategy dp``) are not ported yet.
+admitting. Under ``--strategy dp:N`` the app routes each request to the
+least-loaded live replica (``serving.replicas``).
 """
 
 from __future__ import annotations

@@ -32,7 +32,8 @@ query heads need).
   sampling (host structures are not sharded, as in the JAX package);
   ranks 1..K-1 run :meth:`TPLink.serve`. At each call of a device program
   rank 0 broadcasts the program's name and its host inputs, and every
-  rank runs the same program on its shards.
+  rank runs the same program on its shards; a handler learns every rank's
+  outcome through :meth:`TPLink.agree` (a fleet worker's weight swap).
 
 Stated differences from the JAX package: the tp engine runs its programs
 eagerly (gloo's collectives cannot be captured in a CUDA graph), and GQA
@@ -139,11 +140,14 @@ class ServingSharding:
     def place_params(self, module):
         """Place ``module`` (its quantized weights too) under the Megatron
         layout on this rank: each split leaf becomes this rank's slice and
-        the split modules take their ``_tp`` state. Returns the module."""
+        the split modules take their ``_tp`` state. The split leaves'
+        ``{name: (dim, whole size)}`` are kept as ``module._tp_split``
+        (what a weight swap reads a whole checkpoint against). Returns the
+        module."""
         if self.n_shard > 1:
             from bigdl_tpu_torch.parallel.tensor_parallel import apply_specs
-            apply_specs(module, self.param_specs(module), self.mesh,
-                        self.axis)
+            module._tp_split = apply_specs(module, self.param_specs(module),
+                                           self.mesh, self.axis)
         return module
 
     def kv_spec(self, leaf):
@@ -217,6 +221,17 @@ class TPLink:
                 return self.calls
             self._handlers[name](*args)
             self.calls += 1
+
+    def agree(self, value) -> list:
+        """Every rank's ``value``, in rank order: a handler calls it on
+        every rank together, so that each learns what all of them did (a
+        weight swap's per-rank verdicts)."""
+        if self.size <= 1:
+            return [value]
+        import torch.distributed as dist
+        out = [None] * self.size
+        dist.all_gather_object(out, value, group=self.mesh.group)
+        return out
 
     def close(self) -> None:
         """On the leader: release the followers (idempotent)."""

@@ -294,8 +294,8 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    is``
    line. (c) ``birnn_classifier`` and ``lstm_classifier`` (5002 ids, embed
    100, 128 a direction, 20 classes) on (a)'s ids (T = 500) through the
-   Optimizer at batch 128, f32: the BiRNN for 6 steps eager and 12 as
-   CUDA graphs of 2 steps (the graphed losses at steps 2, 4 and 6 within
+   Optimizer at batch 128, f32: the BiRNN for 4 steps eager and 8 as
+   CUDA graphs of 2 steps (the graphed losses at steps 2 and 4 within
    ``RNN_LOSS_TOL`` of the eager ones, the last below the first), the
    LSTM graphed; ms a step, records/s, the graphs' capture and
    instantiate seconds, and the CUDA kernels of one eager step
@@ -341,7 +341,7 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    Linear, LogSoftMax)``, d 1024, 8 experts of Linear(d, 4d), ReLU,
    Linear(4d, d), top-2, capacity 2.0, 8 x 1024 tokens a step, through
    the ``Optimizer`` in bf16 with the auxiliary loss, eager and as CUDA
-   graphs of 4 steps for 16 steps: every step's criterion loss graphed
+   graphs of 4 steps for 8 steps: every step's criterion loss graphed
    within ``MOE_LOSS_TOL`` of eager, the logged loss above it by 0.01 x
    the auxiliary loss, step ms. The launches of (a)'s and (b)'s
    ``cli.perf`` runs join the kernels line's; the 2-layer remat check's,
@@ -375,11 +375,28 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    ((a)'s server swapped in place to v1, its graphed decode equal to an
    eager engine built on v1); after the swap the prompt sharing the
    cached prefix gives v1's tokens on both workers; the swap's length.
-   (b) On (a)'s server: ``dispatch@request:2`` answers the 2nd request
-   503 and the 3rd 200; ``worker_kill@infer:1`` answers the killed
-   forward's /predict 500, then the watchdog's fast 503, ``/readyz`` 503
-   and ``/healthz`` 200. The workers' launches are in their processes and
-   are not counted.
+   (e) ``cli.fleet MODEL --fleet 2 --strategy tp:2`` in f32 on the v0
+   checkpoint: two workers of 2 gloo ranks each, sharing the card
+   (``fleet.worker.run_group``), booted beside (c)'s fleet and checked
+   on a thread beside (d). Phase 26
+   (a)'s four prompts, greedy, concurrent through the router, equal a
+   one-rank eager engine's tokens; one straight to each worker, and each
+   rank's ``flash_fwd`` launches (``/debug/ranks``) are above 0; worker
+   1's rank 1 SIGKILLed takes its group down and back (``restarts`` 1, no
+   process of the old group left) while ``/readyz`` stays 200 through
+   worker 0; a rolling swap to v1 under a client thread gives no 5xx,
+   each answer its version's one-rank tokens, and afterwards v1's; each
+   worker's boot, the restart and the swap's seconds. (f) One worker at
+   ``--strategy dp:2 --devices cuda:0,cuda:0`` with (e)'s flags (f32,
+   graphed), booted beside (c)'s fleet and checked while (e)'s group
+   restarts: after a rolling swap to v1, FLEET_DP_REQS concurrent
+   /generate equal v1's one-rank tokens, and both replicas'
+   ``generated_tokens_total{replica=...}`` grew. No process of a
+   stopped worker's group is left. (b) On (a)'s server:
+   ``dispatch@request:2`` answers the 2nd request 503 and the 3rd 200;
+   ``worker_kill@infer:1`` answers the killed forward's /predict 500,
+   then the watchdog's fast 503, ``/readyz`` 503 and ``/healthz`` 200.
+   The workers' launches are in their processes and are not counted.
 
 24. The autotuner (``bigdl_tpu_torch.tuning``) on the card, after phase
    23, its cache in a fresh ``build/autotune_phase24``. (a) ``measure``:
@@ -571,7 +588,13 @@ NVIDIA GPU. Run from the root of a checkout, with one card:
    the card counted a step; one eager ``resnet50_fba`` step under
    ``torch.cuda.set_sync_debug_mode("error")`` makes no host sync. (c)
    Phase 26 (a)'s ``serve --strategy tp:2 --lint strict`` starts, serves
-   and stamps ``lint_mesh`` ``model:2`` with 0 errors.
+   and stamps ``lint_mesh`` ``model:2`` with 0 errors. (d) Beside phase
+   27, a third process: ``lint MODEL --strategy sp:2 -b 8`` exits 0 with
+   no ``lint-trace-error``, ``shard-collective-axis`` or
+   ``shard-collective-missing``; rank 0's traced sp step over LINT_SP_AXES
+   has every collective over ``data``/``seq`` and the ring's hops
+   (``c10d.send``) over ``seq``, at least one a layer before the loss and
+   one after it.
 
 Any failed phase exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -790,7 +813,7 @@ TEXT_TOP1 = 0.2
 RNN_LM_WORDS = 50000  # (b) cli.rnn's input.txt
 # (c) the config-5 models at (a)'s widths: T = 500, batch TEXT_BATCH
 RNN_EMBED, RNN_HIDDEN = 100, 128
-RNN_EAGER_STEPS, RNN_GRAPH_STEPS, RNN_K = 6, 12, 2
+RNN_EAGER_STEPS, RNN_GRAPH_STEPS, RNN_K = 4, 8, 2
 RNN_LOSS_TOL = 1e-4  # graphed against eager losses, f32, TF32 off
 RNN_TOL = 1e-4  # (d) final states against cuDNN's, of max|ref|, f32
 LBFGS_BATCH, LBFGS_ITERS = 1024, 20  # (f)
@@ -810,7 +833,7 @@ LONG_SHAPES = [(1, 8, 16384, 16384, 128, True, "bfloat16", False),
 LONG_CHUNK = 2048
 # (b) the ViT rows, graphed; kernels 1-3 at their shapes, and one f32
 VIT_ROWS = ("vit_b16", "vit_s16")
-VIT_BATCH, VIT_ITERS, VIT_INNER = 64, 3, 4
+VIT_BATCH, VIT_ITERS, VIT_INNER = 64, 2, 4
 VIT_SHAPES = [(64, 6, 196, 196, 128, False, "bfloat16", False),
               (64, 3, 196, 196, 128, False, "bfloat16", False),
               (64, 3, 196, 196, 128, False, "float32", False)]
@@ -820,7 +843,7 @@ KP_SHAPE, KP_CHUNK, KP_TOL = (4, 8, 8192, 128), 1024, 2e-2
 # top-2, capacity 2.0, 8 x 1024 tokens a step
 MOE_D, MOE_EXPERTS, MOE_TOPK, MOE_CAP = 1024, 8, 2, 2.0
 MOE_BATCH, MOE_SEQ, MOE_CLASSES = 8, 1024, 16
-MOE_BATCHES, MOE_STEPS, MOE_K = 8, 16, 4
+MOE_BATCHES, MOE_STEPS, MOE_K = 8, 8, 4
 MOE_LOSS_TOL = 1e-3  # graphed against eager criterion losses, bf16
 # phase 23: the serving front. Phase 14's server flags and prompts in bf16
 # (no prefix cache in (a)); the fleet of (c)-(d) boots 2 workers of them
@@ -4570,7 +4593,8 @@ def rnn_model_runs(torch, card, x, y, vocab):
     yb = torch.from_numpy(data[0][1]).to(DEV)
     kernels = step_kernels(torch, model, xb, yb)
     del model
-    diffs = [abs(graphed[i] - eager[i]) for i in (1, 3, 5)]
+    diffs = [abs(graphed[i] - eager[i])
+             for i in range(1, RNN_EAGER_STEPS, 2)]
     print(f"[birnn] birnn_classifier({vocab}, {RNN_EMBED}, {RNN_HIDDEN}, "
           f"{NEWS_CLASSES}) f32 T={x.shape[1]} batch {b} on {card}: eager "
           f"{1e3 * b / ips_e:.1f} ms a step ({ips_e:.1f} records/s), graphed "
@@ -4580,7 +4604,7 @@ def rnn_model_runs(torch, card, x, y, vocab):
           f"kernels in one eager step (torch.profiler); losses eager "
           f"{[round(v, 5) for v in eager]}, graphed "
           f"{[round(v, 5) for v in graphed]}; |graphed - eager| at steps "
-          f"2, 4, 6: {diffs}", flush=True)
+          f"2 and 4: {diffs}", flush=True)
     if DEV == "cuda" and stats.get("capture_s") is None:
         fail("[birnn] the Optimizer captured no step graph")
     if not all(math.isfinite(v) for v in eager + graphed) or \
@@ -5257,6 +5281,30 @@ def _pct(xs, q):
     return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
 
 
+def _in_thread(fn):
+    """Start ``fn()`` on a daemon thread; returns a join that gives its
+    result, or re-raises what it raised (a :func:`fail` in it exits the
+    script here)."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except BaseException as e:  # re-raised by the join
+            box["err"] = e
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+
+    def join():
+        th.join()
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+
+    return join
+
+
 def _parallel(fn, items):
     """fn(i, item) for every item on its own thread; {i: result}."""
     out = {}
@@ -5557,14 +5605,12 @@ class _Fleet:
 
 
 def fleet_runs(torch, card, app, port, prompts, tokens_v0):
-    """Phase 23 (c) and (d) against (a)'s server (``app`` at ``port``,
-    weights v0). Returns rows."""
-    import signal
+    """Phase 23 (c)-(f) against (a)'s server (``app`` at ``port``, weights
+    v0): the checkpoints v0 and v1, then (e)'s and (f)'s fleets booting
+    beside (c)'s. Returns rows."""
     import tempfile
 
     from bigdl_tpu_torch.interop.checkpoint import save_model
-    from bigdl_tpu_torch.serving import DecodeEngine
-    from bigdl_tpu_torch.serving.fleet.swap import swap_app_weights
 
     rows = {}
     td = tempfile.mkdtemp(prefix="fleet_")
@@ -5573,10 +5619,36 @@ def fleet_runs(torch, card, app, port, prompts, tokens_v0):
         os.makedirs(os.path.join(td, name))
         save_model(os.path.join(td, name, "model.1"), model)
     short = [i for i, p in enumerate(prompts) if len(p) <= PAGE_TOKENS]
-    fleet = _Fleet(front_args(["--modelVersion", "v0", "--fleet", "2",
-                               "--prefixCache", "--reqTrace", "on",
-                               "--fleetHeartbeatS", "0.2"],
-                              weights=("--model", os.path.join(td, "v0"))))
+    strategy_fleets = fleet_strategy_start(td)  # (e), (f) beside (c)
+    try:
+        fleet = _Fleet(front_args(["--modelVersion", "v0", "--fleet", "2",
+                                   "--prefixCache", "--reqTrace", "on",
+                                   "--fleetHeartbeatS", "0.2"],
+                                  weights=("--model",
+                                           os.path.join(td, "v0"))))
+        # (e)/(f)'s references while the fleets boot
+        ref_f32 = _one_rank_tokens(torch, _tp_prompts()[0])
+        rows.update(fleet_cd_runs(
+            torch, card, app, port, prompts, tokens_v0, td, short, fleet,
+            beside_d=lambda: _in_thread(lambda: fleet_strategy_runs(
+                torch, card, strategy_fleets, td, ref_f32))))
+    finally:
+        for f in strategy_fleets.values():
+            f.stop()
+    return rows
+
+
+def fleet_cd_runs(torch, card, app, port, prompts, tokens_v0, td, short,
+                  fleet, beside_d=None):
+    """Phase 23 (c) and (d) on ``fleet``, booting; stops it. ``beside_d``
+    starts what runs beside (d) (on a thread) and returns its join, whose
+    rows join (d)'s. Returns rows."""
+    import signal
+
+    from bigdl_tpu_torch.serving import DecodeEngine
+    from bigdl_tpu_torch.serving.fleet.swap import swap_app_weights
+
+    rows = {}
     try:
         fleet.wait_ready(FLEET_BOOT_S)
         fport = fleet.port
@@ -5653,6 +5725,7 @@ def fleet_runs(torch, card, app, port, prompts, tokens_v0):
         print("[phase 23 c] the router's /metrics carries worker=\"0\"/"
               "\"1\" series and fleet totals", flush=True)
 
+        join_beside = beside_d() if beside_d is not None else None
         # (d) the rolling swap to v1 under a steady stream
         _, tbl = _get_json(fport, "/debug/fleet")
         wports = {w["worker"]: w["port"] for w in tbl["workers"]}
@@ -5745,8 +5818,261 @@ def fleet_runs(torch, card, app, port, prompts, tokens_v0):
                      f"{ref['probe']}")
         print("[phase 23 d] after the swap, a prompt sharing a prefix cached "
               "under v0 gives v1's tokens on both workers", flush=True)
+        if join_beside is not None:
+            rows.update(join_beside())
     finally:
         fleet.stop()
+    return rows
+
+
+# phase 23 (e)/(f): fleets whose workers take --strategy, both in f32 on
+# the v0 checkpoint, their boots beside (c)'s
+FLEET_F32_ARGS = ["--slots", "4", "--buckets", "1,2", "--no-warmup"]
+FLEET_DP_DEVICES = "cuda:0,cuda:0"  # (f): dp:2 on the one card
+FLEET_DP_REQS = 8  # (f)'s concurrent /generate after its swap
+
+
+def _group_pids(pgid):
+    """The live processes of process group ``pgid`` (a fleet worker's
+    session: its tp ranks)."""
+    out = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[2]) == pgid and fields[0] != "Z":
+            out.append(int(d))
+    return out
+
+
+def _one_rank_tokens(torch, prompts):
+    """Greedy tokens of ``prompts`` from one rank in f32 (eager, dense
+    KV, 4 slots), for the checkpoints v0 and v1 (:func:`front_model` seeds
+    0 and 1)."""
+    from bigdl_tpu_torch.serving import DecodeEngine
+
+    ref = {}
+    for ver, seed in (("v0", 0), ("v1", 1)):
+        m = front_model(torch, seed).to(DEV).eval()
+        eng = DecodeEngine(m, slots=4, device=DEV, graphs=False)
+        try:
+            ref[ver] = [eng.generate(p, MAX_NEW) for p in prompts]
+        finally:
+            eng.close()
+        del m, eng
+    _free(torch)
+    return ref
+
+
+def fleet_strategy_start(td):
+    """Start (e)'s ``--fleet 2 --strategy tp:2`` and (f)'s ``--fleet 1
+    --strategy dp:2`` fleets on the v0 checkpoint of ``td``."""
+    flags = FRONT_MODEL + FRONT_PLATFORM + FLEET_F32_ARGS + [
+        "--model", os.path.join(td, "v0"), "--modelVersion", "v0",
+        "--fleetHeartbeatS", "0.2", "--port", "0"]
+    return {"e": _Fleet(flags + ["--fleet", "2", "--strategy", "tp:2"]),
+            "f": _Fleet(flags + ["--fleet", "1", "--strategy", "dp:2",
+                                 "--devices", FLEET_DP_DEVICES])}
+
+
+def _generate_all(port, prompts, items=None):
+    """The greedy /generate of ``prompts`` (or of ``prompts[i]`` for each
+    ``i`` of ``items``), concurrent: {k: (status, headers, body)}."""
+    items = range(len(prompts)) if items is None else items
+    return _parallel(lambda k, i: _post_h(port, "/generate", {
+        "tokens": prompts[i], "max_new_tokens": MAX_NEW}), list(items))
+
+
+def fleet_dp_check(card, fleet, td, prompts, ref):
+    """Phase 23 (f) on its booted fleet: a rolling swap to v1, then
+    FLEET_DP_REQS concurrent /generate equal v1's one-rank tokens and
+    both replicas' ``generated_tokens_total`` grew. Returns rows."""
+    fport = fleet.port
+    w = _get_json(fport, "/debug/fleet")[1]["workers"][0]
+    t1 = time.perf_counter()
+    st, _, body = _post_h(fport, "/admin/reload", {
+        "checkpoint": os.path.join(td, "v1"), "version": "v1"})
+    t_swap = time.perf_counter() - t1
+    if st != 200:
+        fail(f"[phase 23 f] /admin/reload answered {st}: {body}")
+
+    def served():
+        out = {}
+        for line in _get(w["port"], "/metrics")[1].splitlines():
+            for r in ("0", "1"):
+                if line.startswith("bigdl_serving_generated_tokens_total"
+                                   f'{{replica="{r}"}}'):
+                    out[r] = float(line.rsplit(" ", 1)[1])
+        return out
+
+    before = served()
+    items = [k % len(prompts) for k in range(FLEET_DP_REQS)]
+    got = _generate_all(fport, prompts, items)
+    after = served()
+    bad = [k for k, i in enumerate(items)
+           if got[k][0] != 200 or got[k][2].get("tokens") != ref["v1"][i]
+           or got[k][1].get("x-model-version") != "v1"]
+    grew = {r: after.get(r, 0) - before.get(r, 0) for r in ("0", "1")}
+    boot = fleet.line_at(r"^\[worker 0\] serving ")[0][0]
+    print(f"[phase 23 f] dp:2 worker on {FLEET_DP_DEVICES}, f32: boot "
+          f"{boot:.1f}s (beside (c)'s), rolling swap {t_swap:.2f}s; "
+          f"{len(items)} concurrent /generate after it equal v1's one-rank "
+          f"tokens: {not bad}; tokens a replica since {grew} ({card})",
+          flush=True)
+    if bad or min(grew.values()) <= 0:
+        fail(f"[phase 23 f] after the swap: bad {bad} "
+             f"({[got[k] for k in bad][:2]}), replicas' tokens {grew}")
+    return {"f dp:2 worker boot s / rolling swap s": f"{boot:.1f} / "
+                                                     f"{t_swap:.2f}"}
+
+
+def fleet_strategy_runs(torch, card, fleets, td, ref):
+    """Phase 23 (e), with (f) (:func:`fleet_dp_check`) run while (e)'s
+    killed group restarts, on the fleets :func:`fleet_strategy_start`
+    booted. Stops both. Returns rows."""
+    import signal
+
+    prompts = _tp_prompts()[0]
+    rows = {}
+    t0 = time.perf_counter()
+    pgids = set()
+    e, f = fleets["e"], fleets["f"]
+    try:
+        e.wait_ready(FLEET_BOOT_S)
+        f.wait_ready(FLEET_BOOT_S)
+        fport = e.port
+        for t, ln in e.line_at(r"^\[worker \d\] worker \d built"):
+            print(f"[phase 23 e] {ln} at {t:.1f}s, beside (c)'s boot "
+                  f"({card})", flush=True)
+        rows["e worker boot s (spawn to serving line, beside (c)'s)"] = \
+            ", ".join(f"{t:.1f}" for t, _ in e.line_at(
+                r"^\[worker \d\] serving "))
+        wk = {w["worker"]: w for w in _get_json(fport, "/debug/fleet")[1][
+            "workers"]}
+        pgids |= {w["pid"] for w in wk.values()}
+        f_pid = _get_json(f.port, "/debug/fleet")[1]["workers"][0]["pid"]
+        pgids.add(f_pid)
+
+        t1 = time.perf_counter()
+        got = _generate_all(fport, prompts)
+        toks = [got[i][2].get("tokens") for i in range(len(prompts))]
+        if any(got[i][0] != 200 for i in got) or toks != ref["v0"]:
+            fail(f"[phase 23 e] tp:2 greedy tokens {toks} "
+                 f"({[got[i][0] for i in got]}), one rank's {ref['v0']}")
+        print(f"[phase 23 e] {len(prompts)} greedy /generate through the "
+              f"router (prompts {list(PROMPT_LENS)}, f32, tp:2) equal one "
+              f"rank's tokens, {time.perf_counter() - t1:.1f}s", flush=True)
+        # one request straight to each worker: both groups prefill
+        direct = _parallel(lambda i, w: _post_h(w["port"], "/generate", {
+            "tokens": prompts[-1], "max_new_tokens": MAX_NEW}),
+            [wk[i] for i in sorted(wk)])
+        for i in sorted(wk):
+            st, _, out = direct[i]
+            ranks = _get_json(wk[i]["port"], "/debug/ranks")[1]["ranks"]
+            print(f"[phase 23 e] worker {i} (group {wk[i]['pid']}): "
+                  + ", ".join(f"rank {r['rank']} pid {r['pid']} flash_fwd "
+                              f"{r['flash_fwd']} launches, {r['calls']} tp "
+                              f"calls" for r in ranks), flush=True)
+            if st != 200 or out["tokens"] != ref["v0"][-1] \
+                    or len(ranks) != 2 \
+                    or any(r["flash_fwd"] == 0 for r in ranks):
+                fail(f"[phase 23 e] worker {i}: {st} {out}, ranks {ranks}")
+
+        # all or none: worker 1's rank 1 SIGKILLed takes its group down;
+        # /readyz is polled through worker 0 while (f) runs
+        victim = wk[1]
+        ranks = _get_json(victim["port"], "/debug/ranks")[1]["ranks"]
+        os.kill(ranks[1]["pid"], signal.SIGKILL)
+        t_kill = time.perf_counter()
+        watch = {"ready": [], "w1": None}
+
+        def poll():
+            while time.perf_counter() - t_kill < FLEET_BOOT_S:
+                watch["ready"].append(_get_json(fport, "/readyz")[0])
+                w1 = [w for w in _get_json(fport, "/debug/fleet")[1][
+                    "workers"] if w["worker"] == 1][0]
+                watch["w1"] = w1
+                if w1["routable"] and w1["pid"] != victim["pid"]:
+                    watch["t"] = time.perf_counter() - t_kill
+                    return
+                time.sleep(0.05)
+
+        th = threading.Thread(target=poll)
+        th.start()
+        rows.update(fleet_dp_check(card, f, td, prompts, ref))
+        th.join(FLEET_BOOT_S + 60)
+        ready, w1 = watch["ready"], watch["w1"]
+        pgids.add(w1["pid"])
+        left = _group_pids(victim["pid"])
+        print(f"[phase 23 e] worker 1's rank 1 SIGKILLed: /readyz "
+              f"{sorted(set(ready))} over {len(ready)} polls, the group back "
+              f"in rotation after {watch.get('t', -1):.1f}s with restarts "
+              f"{w1['restarts']}, old group's processes left {left} "
+              f"({card}; (f) ran meanwhile)", flush=True)
+        if set(ready) != {200} or "t" not in watch or not w1["routable"] \
+                or w1["restarts"] != 1 or left:
+            fail(f"[phase 23 e] after the SIGKILL: /readyz {set(ready)}, "
+                 f"worker 1 {w1}, old group {left}")
+        rows["e group restart s (SIGKILL of rank 1 to routable)"] = \
+            f"{watch['t']:.1f}"
+
+        # the rolling swap to v1 under a client thread
+        res, stop = [], threading.Event()
+
+        def client():
+            n = 0
+            while not stop.is_set():
+                i = n % len(prompts)
+                res.append((i,) + _post_h(fport, "/generate", {
+                    "tokens": prompts[i], "max_new_tokens": MAX_NEW}))
+                n += 1
+
+        th = threading.Thread(target=client)
+        th.start()
+        t1 = time.perf_counter()
+        st, _, body = _post_h(fport, "/admin/reload", {
+            "checkpoint": os.path.join(td, "v1"), "version": "v1"})
+        t_swap = time.perf_counter() - t1
+        stop.set()
+        th.join(600)
+        if st != 200:
+            fail(f"[phase 23 e] /admin/reload answered {st}: {body}")
+        vers = {}
+        for i, s, hdr, out in res:
+            v = hdr.get("x-model-version")
+            vers[v] = vers.get(v, 0) + 1
+            if s != 200 or out.get("tokens") != ref.get(v, [None] * 4)[i]:
+                fail(f"[phase 23 e] a request during the swap: {s} version "
+                     f"{v}, {out}")
+        got = _generate_all(fport, prompts)
+        toks = [got[i][2].get("tokens") for i in range(len(prompts))]
+        if toks != ref["v1"] or any(got[i][1].get("x-model-version") != "v1"
+                                    for i in got):
+            fail(f"[phase 23 e] after the swap: {toks}, v1 one rank "
+                 f"{ref['v1']}")
+        print(f"[phase 23 e] rolling swap to v1 in {t_swap:.2f}s ({card}): "
+              f"{len(res)} requests during it, no 5xx, by version {vers}; "
+              f"after it {len(prompts)} /generate equal v1's one-rank "
+              f"tokens", flush=True)
+        rows["e rolling swap s (2 tp:2 workers)"] = f"{t_swap:.2f}"
+    finally:
+        for fl in (e, f):
+            fl.stop()
+    left = {g: _group_pids(g) for g in pgids}
+    left = {g: p for g, p in left.items() if p}
+    for g in left:
+        try:
+            os.killpg(g, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    if left:
+        fail(f"[phase 23 e/f] processes of stopped worker groups survived: "
+             f"{left}")
+    rows["e and f s (beside (d))"] = f"{time.perf_counter() - t0:.1f}"
     return rows
 
 
@@ -7672,7 +7998,7 @@ def tp_runs(torch, card, state=None):
 SP_ROW, SP_SEQ, SP_ITERS = "transformer_lm_16k", 16384, 1  # (a)'s speed row
 SP_CUT, SP_CUT_SEQ = MODEL + "_sp2cut", 4096  # (a)'s f32 parity row
 SP_BLOCK = 512        # the ring's key block, and the blockwise reference's
-PP_BATCH, EP_BATCH, SPE_ITERS = 8, 4, 3  # (b) and (c)'s speed runs (MODEL)
+PP_BATCH, EP_BATCH, SPE_ITERS = 8, 4, 2  # (b) and (c)'s speed runs (MODEL)
 SPE_PARITY_BATCH, SPE_PARITY_SEQ, SPE_PARITY_STEPS = 4, 256, 2
 SPE_TOL = {"loss": 1e-5, "params": 1e-5}  # loss: relative; params: of max|p|
 SPE_TIMEOUT_S = 450
@@ -8273,6 +8599,10 @@ LINT_MISSHARDED = ["transformer_lm", "--strategy", "tp:3", "--strict"]
 # (b)'s rows: the kernel sites one traced step records, against the
 # launches phase 19 counted a step
 LINT_SITE_ROWS = (("resnet50_fba", 128), (MODEL, 8))
+# (d): the sp step, `lint MODEL --strategy sp:2 -b 8` and rank 0's traced
+# step: the ring's hops are collectives over seq
+LINT_SP = [MODEL, "--strategy", "sp:2", "-b", "8"]
+LINT_SP_AXES = {"data": 1, "seq": 2}
 
 
 def lint_child(workdir):
@@ -8314,6 +8644,45 @@ def lint_child(workdir):
     print(json.dumps(out), flush=True)
 
 
+def lint_sp_child(workdir):
+    """Phase 30 (d), in a child process: LINT_SP through ``cli.main lint``
+    (``--json``), then rank 0's sp step traced over a fake group of
+    LINT_SP_AXES (``analysis.trace_sharded_train_step``): each
+    collective's op, mesh axes and side of the loss. Prints one JSON
+    object."""
+    import contextlib
+    import io
+
+    import torch
+
+    from bigdl_tpu_torch import analysis
+    from bigdl_tpu_torch.analysis import fx_walk
+    from bigdl_tpu_torch.cli import main as cli_main
+    from bigdl_tpu_torch.cli import perf
+
+    path = os.path.join(workdir, "sp.json")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli_main.main(["lint"] + LINT_SP + ["--json", path])
+    with open(path) as f:
+        out = {"rc": rc, "report": json.load(f),
+               "s": round(time.perf_counter() - t0, 1)}
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        model, in_shape = perf.build_model(MODEL)
+    graph, _ = analysis.trace_sharded_train_step(
+        model, in_shape, 8, mesh_axes=LINT_SP_AXES, is_lm=True)
+    loss = next(i for i, n in fx_walk.call_nodes(graph)
+                if n.target is torch.ops.aten._log_softmax.default)
+    out["collectives"] = [
+        [c.op, list(c.axes), "fwd" if c.index < loss else "bwd"]
+        for c in fx_walk.collect_collectives(graph,
+                                             graph.meta["mesh_groups"])]
+    out["layers"] = len(model.encoder)
+    out["trace s"] = round(time.perf_counter() - t0, 1)
+    print(json.dumps(out), flush=True)
+
+
 def lint_start():
     """Phase 30 (a), started beside phase 27: :func:`lint_child` and the
     mis-sharded ``python -m bigdl_tpu_torch.cli.main lint`` process, each
@@ -8340,7 +8709,9 @@ def lint_start():
         ("child", [sys.executable, "-c",
                    f"import chip_smoke; chip_smoke.lint_child({tmp!r})"]),
         ("missharded", [sys.executable, "-m", "bigdl_tpu_torch.cli.main",
-                        "lint"] + LINT_MISSHARDED))]
+                        "lint"] + LINT_MISSHARDED),
+        ("sp", [sys.executable, "-c",
+                f"import chip_smoke; chip_smoke.lint_sp_child({tmp!r})"]))]
     for t in threads:
         t.start()
     return threads, state, tmp
@@ -8362,7 +8733,7 @@ def lint_finish(torch, card, handle, linted):
         t.join()
     wait = time.perf_counter() - t_wait
     shutil.rmtree(tmp, ignore_errors=True)
-    for key in ("child", "missharded"):
+    for key in ("child", "missharded", "sp"):
         if key + " error" in state:
             fail(f"[phase 30 (a)] {key}: {state[key + ' error']}")
     child = state["child"]
@@ -8411,10 +8782,35 @@ def lint_finish(torch, card, handle, linted):
         if sites != got:
             fail(f"[phase 30 (b)] {name}: the lint recorded {sites} a "
                  f"step, the card launched {got}")
-    print(f"[phase 30] (a) beside phase 27: {state['child s']}s and "
-          f"{state['missharded s']}s, waited {wait:.1f}s in line", flush=True)
+    sp = state["sp"]
+    if sp.returncode != 0:
+        fail(f"[phase 30 (d)] the sp lint process exited {sp.returncode}: "
+             f"{sp.stderr[-3000:]}")
+    sp = json.loads(sp.stdout.strip().splitlines()[-1])
+    rules = {f["rule"] for f in sp["report"]["findings"]}
+    hops = {side: sum(1 for op, axes, sd in sp["collectives"]
+                      if op == "send" and axes == ["seq"] and sd == side)
+            for side in ("fwd", "bwd")}
+    axes = sorted({a for _, ax, _ in sp["collectives"] for a in ax})
+    print(f"[phase 30 (d)] lint {' '.join(LINT_SP)}: rc {sp['rc']}, "
+          f"{sp['report']['summary']}, {sp['s']}s; rank 0's traced step "
+          f"({sp['trace s']}s): {len(sp['collectives'])} collectives over "
+          f"{axes}, ring hops over seq {hops} for {sp['layers']} layers, "
+          f"on the CPU beside phase 27 ({card}): {sorted(rules)}",
+          flush=True)
+    if sp["rc"] != 0 or rules & {"lint-trace-error", "shard-collective-axis",
+                                 "shard-collective-missing"} \
+            or not set(axes) <= {"data", "seq"} \
+            or any(not ax for _, ax, _ in sp["collectives"]) \
+            or min(hops.values()) < sp["layers"]:
+        fail(f"[phase 30 (d)] the sp lint: rc {sp['rc']}, rules "
+             f"{sorted(rules)}, axes {axes}, hops {hops}")
+    print(f"[phase 30] (a) beside phase 27: {state['child s']}s, "
+          f"{state['missharded s']}s and (d) {state['sp s']}s, waited "
+          f"{wait:.1f}s in line", flush=True)
     return {"(a) lint process s": state["child s"],
             "(a) tp:3 process s": state["missharded s"],
+            "(d) sp lint process s": state["sp s"],
             "(a) wait in line s": round(wait, 1)}
 
 

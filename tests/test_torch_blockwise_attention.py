@@ -2,7 +2,8 @@
 ``blockwise_attention``) against the JAX package's, on the CPU, with the
 same seeded inputs: causal and not, each mask form ((b, s_k) and (b, 1, 1,
 s_k) key padding, packed-row segments, decode alignment with s_q < s_k,
-and the ragged fallback to dense). Forward within 1e-5 in f32, gradients
+and the ragged fallback to dense, a (b, s_k) key-padding mask there
+too). Forward within 1e-5 in f32, gradients
 within 1e-4 of max|g|. Also: ``flash_attention`` routes a key-padding mask
 to the blockwise path with the stated block rule, and
 ``MultiHeadAttention(attn_impl="blockwise")`` matches the JAX layer."""
@@ -55,12 +56,14 @@ def _segments(s, seed):
     return seg
 
 
-def _both(q, k, v, kw_np, causal, block_k=BK):
-    """(port out, port grads, JAX out, JAX grads) of sum(out * w)."""
+def _both(q, k, v, kw_np, causal, block_k=BK, jax_kw_np=None):
+    """(port out, port grads, JAX out, JAX grads) of sum(out * w); the JAX
+    function takes ``jax_kw_np`` where given, else ``kw_np``."""
     w = np.random.RandomState(99).randn(*q.shape).astype(np.float32)
 
     def jf(q_, k_, v_):
-        kw = {n: jnp.asarray(a) for n, a in kw_np.items()}
+        kw = {n: jnp.asarray(a) for n, a in (
+            kw_np if jax_kw_np is None else jax_kw_np).items()}
         return jax_blockwise(q_, k_, v_, causal=causal, block_k=block_k,
                              **kw)
 
@@ -111,6 +114,26 @@ def test_matches_jax(case):
     _close(to, jo, FWD_TOL)
     for got, want in zip(tg, jg):
         _close(got, want, GRAD_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_ragged_key_padding_2d_takes_the_dense_path(causal):
+    """s_k 130 with block 128 is ragged: the port takes the dense path
+    with its (b, s_k) key-padding mask broadcast as (b, 1, 1, s_k), held
+    against the JAX function given that mask as (b, 1, 1, s_k) (the form
+    its dense path takes): the output within FWD_TOL (1e-5) and the
+    gradients of q, k and v within GRAD_TOL (1e-4) of max|g|, f32."""
+    s, bk = 130, 128
+    q, k, v = _qkv(s, s, seed=12 + causal)
+    keep = _key_padding(s, 12 + causal)
+    to, tg, jo, jg = _both(q, k, v, {"mask": keep}, causal, block_k=bk,
+                           jax_kw_np={"mask": keep[:, None, None, :]})
+    _close(to, jo, FWD_TOL)
+    for got, want in zip(tg, jg):
+        _close(got, want, GRAD_TOL)
+    # the masked keys take no gradient
+    dropped = np.broadcast_to(~keep[:, None, :, None], tg[1].shape)
+    assert not tg[1][dropped].any() and not tg[2][dropped].any()
 
 
 def test_matches_dense_and_keeps_bf16_rules():

@@ -23,21 +23,17 @@ import time
 import urllib.error
 import urllib.request
 
-import jax
 import numpy as np
 import pytest
 import torch
 
-from bigdl_tpu import models as jax_models
 from bigdl_tpu.cli import common as jcommon
 from bigdl_tpu.cli import serve as jserve_cli
 from bigdl_tpu.obs.aggregate import aggregate_pages as jaggregate
 from bigdl_tpu.obs.aggregate import parse_samples as jparse_samples
-from bigdl_tpu.serving import DecodeEngine as JaxDecodeEngine
 from bigdl_tpu.serving.fleet import control as jcontrol
 from bigdl_tpu.serving.fleet import router as jrouter
 from bigdl_tpu.serving.fleet import swap as jswap
-from bigdl_tpu.utils.file import save_pytree
 from bigdl_tpu_torch.cli import common
 from bigdl_tpu_torch.cli import serve as serve_cli
 from bigdl_tpu_torch.obs.aggregate import aggregate_pages, parse_samples
@@ -45,6 +41,8 @@ from bigdl_tpu_torch.obs.metrics import MetricsRegistry
 from bigdl_tpu_torch.resilience.supervisor import RetryPolicy
 from bigdl_tpu_torch.serving.fleet import control, router, swap
 from bigdl_tpu_torch.serving.fleet.worker import WorkerControl
+from torch_fleet_cases import LM_ARGS
+import torch_fleet_cases as C
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -205,12 +203,23 @@ def test_resolve_serve_config_and_refusals():
     assert common.resolve_serve_config(p.parse_args(
         ["transformer_lm"])).quantize is None
     for argv, msg in ((["--fleet", "-1"], "--fleet -1"),
-                      (["--speculate", "-2"], "--speculate -2"),
-                      (["--fleet", "2", "--strategy", "tp:2"],
-                       "--strategy: .*entry 13")):
+                      (["--speculate", "-2"], "--speculate -2")):
         with pytest.raises(SystemExit, match=msg):
             common.resolve_serve_config(p.parse_args(["transformer_lm"]
                                                      + argv))
+    # a fleet's workers take --strategy: resolved as the JAX
+    # resolve_serve_config resolves it, and handed to every worker
+    jp = jserve_cli.build_parser()
+    for spec in ("tp:2", "dp:2", "dp:2+tp:2"):
+        argv = ["transformer_lm", "--fleet", "2", "--strategy", spec]
+        cfg = common.resolve_serve_config(p.parse_args(argv))
+        jcfg = jcommon.resolve_serve_config(jp.parse_args(argv))
+        assert (cfg.serving_replicas, cfg.serving_tp, cfg.fleet_workers,
+                cfg.strategy) == (jcfg.serving_replicas, jcfg.serving_tp,
+                                  jcfg.fleet_workers, jcfg.strategy)
+        assert router.worker_base_argv(argv + ["--port", "0"]) == \
+            jrouter.worker_base_argv(argv + ["--port", "0"]) == \
+            ["transformer_lm", "--strategy", spec]
     # --lint (once refused, queue 1 entry 16) is resolved with the rest,
     # and a fleet passes it to its workers
     for argv, mode in (([], None), (["--lint"], "on"),
@@ -282,59 +291,30 @@ def test_cli_main_runs_fleet(capsys):
 
 
 # ---------------------------------------------------------- the swap
-VOCAB, D, LAYERS, HEADS, MAX_LEN = 50, 32, 2, 2, 64
-LM_ARGS = ["transformer_lm", "--vocabSize", str(VOCAB), "--dModel", str(D),
-           "--numLayers", str(LAYERS), "--numHeads", str(HEADS), "--seq",
-           str(MAX_LEN), "--slots", "2", "--buckets", "1,2", "--maxWaitMs",
-           "2", "--no-warmup", "--kvPageTokens", "8", "--prefixCache"]
 PROMPT = [7, 3, 9, 1, 4]
 SHARED = list(range(3, 11))  # one 8-token page
 PROBE = SHARED + [5, 2]
-
-
-def _random_tree(m, seed):
-    """A seeded parameter tree of JAX model ``m`` (numpy draws on its
-    shapes: the layer norms near 1, the embedding small, the products
-    x3, so that greedy chains wander)."""
-    rs = np.random.RandomState(seed)
-
-    def leaf(path, s):
-        keys = [str(getattr(k, "key", k)) for k in path]
-        if keys[0] == "emb":
-            return (0.05 * rs.standard_normal(s.shape)).astype(s.dtype)
-        if keys[-1] == "weight" and keys[-2].startswith("ln"):
-            return (1 + 0.1 * rs.standard_normal(s.shape)).astype(s.dtype)
-        scale = 0.1 if len(s.shape) == 1 else 3 * s.shape[0] ** -0.5
-        return (scale * rs.standard_normal(s.shape)).astype(s.dtype)
-
-    return jax.tree_util.tree_map_with_path(
-        leaf, jax.eval_shape(m.init, jax.random.PRNGKey(0)))
 
 
 @pytest.fixture(scope="module")
 def ckpts(tmp_path_factory):
     """JAX checkpoints v1 and v2 of one tiny LM, and each version's JAX
     engine tokens of PROMPT and PROBE (they differ between versions)."""
-    root = tmp_path_factory.mktemp("torch_fleet")
-    m = jax_models.transformer_lm(VOCAB, d_model=D, num_layers=LAYERS,
-                                  num_heads=HEADS, max_len=MAX_LEN)
-    out = {"model": m}
-    eng = None
-    for ver, key in (("v1", 1), ("v2", 2)):
-        params = _random_tree(m, key)
-        d = root / ver
-        save_pytree({"params": params, "mod_state": m.init_state()},
-                    str(d / "model.1"))
-        if eng is None:
-            eng = JaxDecodeEngine(m, params, slots=1)
-        eng.params = params  # the compiled programs take the tree
-        out[ver] = dict(path=str(d), params=params,
-                        prompt=eng.generate(PROMPT, 8),
-                        probe=eng.generate(PROBE, 8))
-    eng.close()
+    got = C.jax_checkpoints(tmp_path_factory.mktemp("torch_fleet"), (1, 2),
+                            (PROMPT, PROBE))
+    out = {f"v{seed}": dict(path=v["path"], params=v["params"],
+                            prompt=v["tokens"][0], probe=v["tokens"][1])
+           for seed, v in got.items()}
     assert out["v1"]["prompt"] != out["v2"]["prompt"]
     assert out["v1"]["probe"] != out["v2"]["probe"]
     return out
+
+
+def _wide_checkpoint(directory) -> str:
+    """A JAX checkpoint of the LM at twice the width (one the served
+    model's layout refuses)."""
+    m = C.jax_lm(2 * C.D)
+    return C.save_jax_checkpoint(m, C.random_tree(m, 0), directory)
 
 
 def _app(ckpt, version, extra=()):
@@ -414,12 +394,7 @@ def test_swap_waits_for_in_flight_work_then_serves_the_new_weights(ckpts):
 def test_a_failed_swap_keeps_the_old_weights(ckpts, tmp_path):
     app = _app(ckpts["v1"]["path"], "v1")
     try:
-        other = jax_models.transformer_lm(VOCAB, d_model=64,
-                                          num_layers=LAYERS,
-                                          num_heads=HEADS, max_len=MAX_LEN)
-        save_pytree({"params": _random_tree(other, 0),
-                     "mod_state": other.init_state()},
-                    str(tmp_path / "wide" / "model.1"))
+        _wide_checkpoint(tmp_path / "wide")
         (tmp_path / "empty").mkdir()
         for bad, msg in ((str(tmp_path / "wide"), "model has"),
                          (str(tmp_path / "empty"), "no model.<n>"),
@@ -496,6 +471,46 @@ def test_swap_clears_the_prefix_cache_the_jax_swap_keeps(ckpts):
         assert out["tokens"] != ckpts["v2"]["probe"]
     finally:
         japp.close()
+
+
+def test_dp2_worker_counts_and_swaps_every_replica(ckpts, tmp_path):
+    """A dp:2 worker (two replicas in one process): the heartbeat counts
+    a request held on replica 1, the swap waits for it, then every
+    replica serves the new weights; a refused checkpoint leaves every
+    replica on the old ones."""
+    app = _app(ckpts["v1"]["path"], "v1", ["--strategy", "dp:2",
+                                           "--devices", "cpu,cpu"])
+    try:
+        reps = app.replicas.replicas
+        assert app.decoder is None and len(reps) == 2
+        wc = WorkerControl(app, index=0, version="v1")
+        step = reps[1].decoder.step
+        reps[1].decoder.step = lambda: (time.sleep(0.01), step())[1]
+        fut = reps[1].decoder.submit(PROMPT, 16)
+        while not reps[1].decoder.queue_load():
+            time.sleep(0.001)
+        assert wc.status().queue_depth >= 1
+        assert wc.status().decode_active == 1
+        sw = threading.Thread(target=swap.swap_app_weights,
+                              args=(app, ckpts["v2"]["path"], "v2"))
+        sw.start()
+        assert fut.result(30)[:8] == ckpts["v1"]["prompt"]
+        sw.join(30)
+        assert app.model_version == "v2" and wc.status().queue_depth == 0
+        for r in reps:
+            assert r.decoder.submit(PROMPT, 8).result(30) == \
+                ckpts["v2"]["prompt"]
+        assert _gen(app, PROMPT) == ckpts["v2"]["prompt"]
+        _wide_checkpoint(tmp_path / "wide")
+        st, body = wc.handle_reload({"checkpoint": str(tmp_path / "wide"),
+                                     "version": "v3"})
+        assert st == 503 and "weights NOT swapped" in body["error"]
+        assert app.model_version == "v2"
+        for r in reps:
+            assert r.decoder.submit(PROMPT, 8).result(30) == \
+                ckpts["v2"]["prompt"]
+    finally:
+        app.close()
 
 
 def test_worker_control_surface(ckpts):
@@ -754,12 +769,34 @@ def test_router_fails_over_on_a_connect_failure():
             s.server_close()
 
 
-def test_run_fleet_refuses_before_any_worker_boots():
+def _provenance_of(reg) -> dict:
+    return {k: (v() if callable(v) else v)
+            for k, v in reg._provenance.items()}
+
+
+def test_run_fleet_refuses_before_any_worker_boots(monkeypatch):
+    """With ``FleetRouter.serve`` stubbed in both packages (no worker
+    boots), the port's router for a fleet whose workers take --strategy
+    stamps the JAX router's provenance; --fleet 0 is still refused."""
+    built = {}
+    for pkg, mod in (("port", router), ("jax", jrouter)):
+        monkeypatch.setattr(mod.FleetRouter, "serve",
+                            lambda self, port=0, pkg=pkg: built.__setitem__(
+                                pkg, self) or 0)
+    for spec in ("tp:2", "dp:2", "dp:2+tp:2"):
+        argv = ["transformer_lm", "--fleet", "2", "--randomInit",
+                "--strategy", spec]
+        assert router.run_fleet(serve_cli.build_parser().parse_args(argv),
+                                argv) == 0
+        assert jrouter.run_fleet(jserve_cli.build_parser().parse_args(argv),
+                                 argv) == 0
+        prov = _provenance_of(built["port"].metrics)
+        assert prov == _provenance_of(built["jax"].metrics)
+        assert prov["strategy"] == spec
+        assert built["port"].base_argv == built["jax"].base_argv
     ns = serve_cli.build_parser().parse_args(["transformer_lm", "--fleet",
                                               "2", "--randomInit",
                                               "--strategy", "dp:2"])
-    with pytest.raises(SystemExit, match="--strategy: .*entry 13"):
-        router.run_fleet(ns, [])
     ns = argparse.Namespace(**dict(vars(ns), later_strategy=None, fleet=0))
     with pytest.raises(SystemExit, match="a fleet needs >= 1 worker"):
         router.run_fleet(ns, [])

@@ -320,6 +320,27 @@ def test_watchdog_declares_wedged_worker():
         b.submit(np.ones(2))
 
 
+def test_watchdog_spares_a_decoder_woken_after_a_long_idle():
+    """An idle decoder's heartbeat is as old as its idleness. The first
+    request after more than the stall timeout starts the stall clock (its
+    prefill runs under the lock, where the loop cannot beat), so the
+    watchdog does not call the decoder wedged then; a decoder busy and
+    silent past the timeout still is."""
+    t = [0.0]
+    pm = TransformerLM(VOCAB, d_model=D, num_layers=LAYERS, num_heads=HEADS,
+                       max_len=MAX_LEN, attn_impl="flash").eval()
+    dec = DecodeEngine(pm, slots=2, device="cpu", clock=lambda: t[0])
+    wd = Watchdog(stall_timeout_s=5.0, clock=lambda: t[0]).watch("d", dec)
+    t[0] = 100.0  # idle, its loop never started
+    assert not dec.busy() and wd.check(100.0) == {"d": "ok"}
+    fut = dec.submit([1, 2, 3], 4)
+    assert dec.busy() and wd.check(100.0) == {"d": "ok"}
+    t[0] = 110.0
+    assert wd.check(110.0) == {"d": "wedged"} and not wd.ready()
+    with pytest.raises(WorkerDied):
+        fut.result(0)
+
+
 # --------------------------------------------------------------------- HTTP
 def _post(port, path, body, timeout=60):
     req = urllib.request.Request(

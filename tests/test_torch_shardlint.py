@@ -3,9 +3,15 @@ CPU: the catalog against the JAX package's, the replicated-operand and
 KV rules against the JAX rule functions on the same trees, each rule
 group on small steps traced as rank 0 of a fake process group (nothing
 is sent), the sharded LM train step at the JAX tests' tp:2 (clean) and
-tp:3 (mis-sharded) configurations, the decode surface, the
+tp:3 (mis-sharded) configurations, the sp step (the ring's hops as
+collectives over ``seq`` in the forward and the backward, clean at sp:2;
+``shard-collective-axis`` over a mesh without ``seq``; a model that is
+not an LM split over ``data`` alone), the decode surface, the
 ResolvedConfig spine, the strategies' lint metadata, and the lint CLI's
-and serve's --lint exits."""
+and serve's --lint exits (sp traced, pp with the JAX not-traced
+finding). The JAX sp trace itself fails under this jax (``AbstractMesh``),
+so the sp cases hold the port to the JAX catalog, ``_EXPECTED_AXES`` and
+the expectations of tests/test_shardlint.py."""
 
 import jax
 import jax.numpy as jnp
@@ -246,6 +252,69 @@ def test_sharded_lm_step(k, clean):
         assert all(c.axes != ("model",) for c in colls)
 
 
+# ================================ sp: the ring's hops over the seq line
+SP_LAYERS = 2
+
+
+@pytest.fixture(scope="module")
+def sp_step():
+    """Rank 0's sp:2 step of a two-layer, narrow transformer_lm over a
+    fake group of 2 ({data: 1, seq: 2})."""
+    from bigdl_tpu_torch.models import TransformerLM
+
+    with torch.device("meta"):
+        model = TransformerLM(64, d_model=32, num_layers=SP_LAYERS,
+                              num_heads=2, max_len=SEQ, attn_impl="flash")
+    graph, meta = analysis.trace_sharded_train_step(
+        model, (SEQ,), 4, mesh_axes={"data": 1, "seq": 2}, is_lm=True)
+    assert not dist.is_initialized()
+    return graph, meta
+
+
+def test_sp_step_carries_the_ring_hops_over_seq(sp_step):
+    graph, meta = sp_step
+    assert meta["mesh_axes"] == {"data": 1, "seq": 2}
+    colls = fx_walk.collect_collectives(graph, graph.meta["mesh_groups"])
+    assert colls and all(c.axes and set(c.axes) <= {"data", "seq"}
+                         for c in colls), [(c.op, c.axes) for c in colls]
+    # the loss splits the step: the forward's hops come before it, the
+    # backward's (each gradient sent back round the ring) after it
+    loss = next(i for i, n in fx_walk.call_nodes(graph)
+                if n.target is torch.ops.aten._log_softmax.default)
+    for op in ("send", "recv_"):
+        hops = [c.index for c in colls if c.op == op and c.axes == ("seq",)]
+        assert sum(i < loss for i in hops) >= SP_LAYERS, op
+        assert sum(i > loss for i in hops) >= SP_LAYERS, op
+    rep = analysis.run_sharding_rules(
+        graph, mesh_axes=meta["mesh_axes"], strategy="sp",
+        param_specs=meta["param_specs"], params=meta["params"])
+    assert not errors(rep), [f.message for f in errors(rep)[:3]]
+    assert analysis.sharding_rules.expected_collective_axes("sp") == \
+        janalysis.sharding_rules.expected_collective_axes("sp") == \
+        ("data", "seq")
+
+
+def test_sp_step_over_a_mesh_without_seq(sp_step):
+    graph, _ = sp_step
+    rep = analysis.run_sharding_rules(graph, mesh_axes={"data": 2},
+                                      strategy="sp")
+    hits = errors(rep, "shard-collective-axis")
+    assert hits and all(h.detail["axes"] == ["seq"] for h in hits)
+    # a model that is not an LM splits its batch over data alone (the JAX
+    # seq_axis rule): no hop, and nothing reduces over seq
+    model, in_shape = analysis._build("lenet5", classes=10)
+    graph, meta = analysis.trace_sharded_train_step(
+        model, in_shape, 8, mesh_axes={"data": 2, "seq": 2})
+    x = [n for n in graph.graph.nodes if n.op == "placeholder"][-2]
+    assert tuple(x.meta["val"].shape) == (4,) + tuple(in_shape)
+    colls = fx_walk.collect_collectives(graph, graph.meta["mesh_groups"])
+    assert colls and all(c.axes == ("data",) for c in colls)
+    rep = analysis.run_sharding_rules(graph, mesh_axes=meta["mesh_axes"],
+                                      strategy="sp")
+    assert [h.detail["axis"] for h in errors(
+        rep, "shard-collective-missing")] == ["seq"]
+
+
 def test_decode_surface_under_tp():
     model, _ = analysis._build("transformer_lm", seq_len=SEQ)
     model.compute_dtype = torch.bfloat16
@@ -292,6 +361,27 @@ def test_cli_sharded_configs_exit_codes(capsys):
     assert lint_cli.main(["transformer_lm", "--seq", str(SEQ), "-b", "8",
                           "--strategy", "tp:3", "--strict"]) == 2
     assert "shard-" in capsys.readouterr().out
+
+
+def test_cli_sp_is_traced_and_pp_is_not(tmp_path, capsys):
+    import json as _json
+
+    from bigdl_tpu_torch.cli import main as cli_main
+    out = tmp_path / "sp.json"
+    assert cli_main.main(["lint", "transformer_lm", "--seq", str(SEQ), "-b",
+                          "8", "--strategy", "sp:2", "--strict", "--json",
+                          str(out)]) == 0
+    rules = {f["rule"] for f in _json.loads(out.read_text())["findings"]}
+    assert not rules & {"lint-trace-error", "shard-collective-axis",
+                        "shard-collective-missing"}, rules
+    assert cli_main.main(["lint", "transformer_lm", "-b", "8",
+                          "--strategy", "pp:2", "--no-trace", "--json",
+                          str(out)]) == 0
+    found = [f for f in _json.loads(out.read_text())["findings"]
+             if f["rule"] == "lint-trace-error"]
+    assert [f["message"] for f in found] == [
+        "--strategy pp: the staged/expert step composes inside the perf "
+        "harness; shardlint traces dp/tp/sp step graphs"]
 
 
 def test_serve_lint_strict_stamps_lint_mesh():
